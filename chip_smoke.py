@@ -6,12 +6,18 @@ Each phase prints one JSON line; any failure raises and the script exits
 non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
-1. build: compile the flash-attention kernel from ray_tpu_torch/ops/csrc.
-2. kernels: the kernel against its plain PyTorch version on the card at
-   the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
+1. build: compile the flash-attention kernels (forward; backward dQ and
+   dK/dV) from ray_tpu_torch/ops/csrc, one nvcc per source, in parallel.
+   The Triton RMSNorm kernel compiles at its first launch.
+2. kernels: the forward kernel against its plain PyTorch version on the
+   card at the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
    128/512/2048, D=64, causal and not, bf16 and f32), and its time beside
    the plain version's, PyTorch's scaled_dot_product_attention (a
-   yardstick the port never calls) and the card's bound.
+   yardstick the port never calls) and the card's bound. Then the
+   backward kernels against the plain backward (B=4, H=8, D=64, S
+   128/512/2048/200), each with a planted fault, timed beside the plain
+   backward, SDPA's backward and the bound; and the RMSNorm kernel at
+   [4*2048, 512], timed beside torch.nn.functional.rms_norm.
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
@@ -19,6 +25,15 @@ non-zero without printing a result. Without a CUDA card, or without the
    must the cacheless forward at a length that is no multiple of 128.
 4. engine: InferenceEngine answers 8 concurrent greedy requests equal to
    their sequential runs; in f32, its tokens equal the flash path's.
+5. train: the flagship at full width and depth (and its GQA variant) on
+   4 x 2048 tokens. In f32, loss_fn's gradients through the kernels equal
+   those through plain attention, with and without remat, and a planted
+   fault (GQA heads expanded in the wrong order) reads above the
+   tolerance; each pass
+   launches the forward n_layers times (2 * n_layers with remat) and each
+   backward kernel n_layers times. Then 5 bf16 AdamW steps
+   (make_train_step) on one fixed batch: finite losses, the last below
+   the first, and the step time as a smoke reading.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -26,9 +41,11 @@ nvidia-smi reports them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -38,29 +55,47 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+try:
+    from ray_tpu_torch.testing import (
+        GRAD_ROW_TOL,
+        LSE_TOL,
+        O_ROW_TOL,
+        RMS_TOL,
+        RMS_TOL_CAST_FIRST,
+        grad_row_error,
+    )
+except ImportError as exc:
+    sys.exit(f"chip_smoke: the ray_tpu_torch package is missing ({exc}); "
+             f"run from the repository root")
+
 SEED = 0
 BLOCK_SIZE = 16
 KV_HEADS = (8, 4, 2)    # MHA flagship, its GQA variant (phase 3), group 4
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak (H100 SXM)
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
-# Kernel vs plain on the card. The error scale of attention output is
-# the size of the row it belongs to (|O| of a row shrinks as its keys
-# grow), so O is held per row: max|o - ro| over a row, over max|ro| of
-# that row. bf16: the plain version rounds each score twice (the product,
-# then its scaling) and p once, the kernel rounds p from f32 scores, and
-# both round O (relative ulp 2**-8 to 2**-7); a row's error sums many such
-# roundings. The limit 2**-5 is 4 to 8 ulps of the row's largest element;
-# a dropped 64-key tile reads 20x more (phase 2 checks that it is caught).
-# LSE is held per element: bf16 scores rounded by 2**-9 of their size move
-# LSE by at most that, and the limit is 2**-8 * (|lse| + 1). f32 sums in
-# another order (TF32 off).
-O_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
-LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+# Kernel vs plain on the card: O_ROW_TOL, LSE_TOL, GRAD_ROW_TOL and the
+# RMS limits stand with their reasons in ray_tpu_torch/testing.py, which
+# tests/test_torch_kernels.py reads too.
 # Flash path vs paged path logits in bf16: |logit| reaches ~5, where a
 # bf16 ulp is 1/32; the two attention paths round at different places and
 # that propagates through 4 layers, so they agree to a few ulps.
 MODEL_LOGIT_TOL = 0.25
 RAGGED_LEN = 200   # phase 3's cacheless forward: no multiple of 128
+BWD_LENGTHS = (128, 512, 2048, 200)   # 200: ragged, no multiple of 64
+# RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
+# version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
+# rows no multiple of the reference's 256-row block, so the reference's
+# rule of shapes picks its unfused formula, which the kernel computes too.
+RMS_SHAPE = (4 * 2048, 512)
+RMS_CAST_FIRST_SHAPE = (4 * 2048 + 100, 512)
+# Train phase: f32 gradients of loss_fn through the kernels vs through the
+# plain attention, per leaf max|g - ref| over max|ref|. Both are f32 with
+# TF32 off; they differ in summation order, through 4 layers and sums over
+# 8192 tokens (~1e-5 expected), so 1e-3 leaves room. A planted fault, the
+# GQA heads expanded with Tensor.repeat (which tiles them in another
+# order) in place of repeat_interleave, must read above it.
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
 
 
 def emit(obj) -> None:
@@ -90,6 +125,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 24) -> float:
+    """Device time in ms of one fn(i), for a call far shorter than its
+    launch cost on the host (a Triton launch costs tens of microseconds of
+    Python): fn(0) .. fn(iters - 1) are captured in one CUDA graph, and
+    the graph's replay is timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    return cuda_ms(graph.replay, iters=10, warmup=2) / iters
+
+
 def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
     """(bound_ms, bound_by): the larger of operations over the bf16
     tensor-core peak and bytes (q, k, v read once; O, LSE written once)
@@ -105,17 +158,53 @@ def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def backward_bound(B, H, S, D, dtype, causal, kind):
+    """(bound_ms, bound_by) of one backward kernel: dQ does 6 * S * S * D
+    operations per (b, h), dK/dV 8 * S * S * D (halved when causal), over
+    the bf16 tensor-core peak; bytes are q, k, v, O, dO and LSE read once
+    and dq (or dk and dv) written once, over HBM bandwidth."""
+    elt = torch.finfo(dtype).bits // 8
+    ops = (6.0 if kind == "dq" else 8.0) * B * H * S * S * D
+    if causal:
+        ops *= (S + 1) / (2.0 * S)
+    n = B * H * S * D
+    nbytes = elt * n * (5 + (1 if kind == "dq" else 2)) + 4 * B * H * S
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+KERNEL_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def ptxas_summary(report: str):
+    """ptxas's register and spill lines, each under the kernel it names
+    (kernel<dtype, per-thread slice of D>, 16 being D = 64)."""
+    out, name = [], "?"
+    for ln in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                          r"I(13__nv_bfloat16|f)Li(\d+)E", entry.group(1))
+            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}"
+                    f", {m.group(3)}>" if m else entry.group(1))
+        elif "registers" in ln or "bytes spill" in ln:
+            out.append(f"{name}: {ln.replace('ptxas info    :', '').strip()}")
+    return out
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build("flash_attention_fwd")
+    paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
-    nvcc_s, ptxas = _build.build_info["flash_attention_fwd"]
-    emit({"phase": "build", "library": str(path.name),
-          "seconds": seconds, "nvcc_seconds": nvcc_s,
-          "ptxas": [ln for ln in ptxas.splitlines() if "registers" in ln
-                    or "spill" in ln],
+    emit({"phase": "build", "libraries": [p.name for p in paths],
+          "seconds": seconds,
+          "nvcc_seconds": {n: _build.build_info[n][0]
+                           for n in KERNEL_LIBRARIES},
+          "ptxas": {n: ptxas_summary(_build.build_info[n][1])
+                    for n in KERNEL_LIBRARIES},
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
 
@@ -204,6 +293,170 @@ def _time_kernel(fa, q, k, v, err_o):
             "causal": True, "max_abs_err": err_o, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_backward(dev):
+    """Backward kernels vs the plain backward at every listed length,
+    causal and not, bf16 and f32, from the kernel forward's O and LSE (as
+    training gives them). Each case also reads a planted fault (the plain
+    backward with one 64-row tile of dO zeroed) through the same check and
+    fails unless it is flagged. Timings at the training shape S=2048."""
+    fa = _flash_module()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, H, D = 4, 8, 64
+    scale = D ** -0.5
+    checks = []
+    timing = None
+    for S in BWD_LENGTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            t0 = 64 * ((S // 2) // 64)
+            do_fault = do.clone()
+            do_fault[:, :, t0:t0 + 64] = 0
+            for causal in (True, False):
+                o, lse = fa._flash_forward(q, k, v, causal)
+                dq = fa._launch_dq(q, k, v, o, lse, do, causal, scale)
+                dk, dv = fa._launch_dkv(q, k, v, o, lse, do, causal, scale)
+                ref = fa._dense_backward(q, k, v, o, lse, do, causal, scale)
+                fault = fa._dense_backward(q, k, v, o, lse, do_fault, causal,
+                                           scale)
+                torch.cuda.synchronize()
+                got = (dq, dk, dv)
+                errs = [grad_row_error(g, r) for g, r in zip(got, ref)]
+                abs_errs = [(g.float() - r.float()).abs().max().item()
+                            for g, r in zip(got, ref)]
+                fault_err = max(grad_row_error(f, r)
+                                for f, r in zip(fault, ref))
+                tol = GRAD_ROW_TOL[dtype]
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                ok = finite and max(errs) <= tol
+                checks.append({"S": S, "dtype": str(dtype).split(".")[1],
+                               "causal": causal,
+                               "err_row": dict(zip(("dq", "dk", "dv"),
+                                                   errs)),
+                               "max_abs": dict(zip(("dq", "dk", "dv"),
+                                                   abs_errs)),
+                               "tol_row": tol, "fault_row": fault_err,
+                               "ok": ok})
+                if not ok or fault_err <= tol:
+                    emit({"phase": "kernels_backward", "checks": checks})
+                    raise AssertionError(
+                        f"backward kernels disagree with plain, or the "
+                        f"check misses a planted fault: {checks[-1]}")
+                if dtype == torch.bfloat16 and causal and S == 2048:
+                    timing = _time_backward(fa, q, k, v, o, lse, do,
+                                            abs_errs)
+    emit({"phase": "kernels_backward", "checks": checks, "timing": timing})
+    return timing
+
+
+def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
+    B, H, S, D = q.shape
+    scale = D ** -0.5
+    counts = fa.dq_launches, fa.dkv_launches
+    dq_ms = cuda_ms(lambda: fa._launch_dq(q, k, v, o, lse, do, True, scale))
+    dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, o, lse, do, True,
+                                            scale))
+    fa.dq_launches, fa.dkv_launches = counts   # not the main path's
+    plain_ms = cuda_ms(lambda: fa._dense_backward(q, k, v, o, lse, do, True,
+                                                  scale), iters=5)
+    # One library call computes dq, dk and dv together: SDPA's backward.
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True))
+    result = {"shape": [B, H, S, D], "dtype": "bfloat16", "causal": True,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "library": "scaled_dot_product_attention backward (dq, dk "
+                         "and dv in one call; compare with the pair's "
+                         "sum)",
+              "plain": "_dense_backward (dq, dk and dv in one call)"}
+    for kind, ms, err in (("dq", dq_ms, abs_errs[0]),
+                          ("dkv", dkv_ms, max(abs_errs[1:]))):
+        bound_ms, bound_by = backward_bound(B, H, S, D, q.dtype, True, kind)
+        result[kind] = {"kernel_ms": ms, "max_abs_err": err,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def _rms_check(fused, gen, dev, shape, dtype, plain, tol):
+    """One RMSNorm kernel launch against ``plain`` on the same inputs, and
+    a planted fault (one 64-row block of x zeroed in the plain version)
+    read through the same check; raises unless the kernel agrees and the
+    fault is flagged."""
+    rows, D = shape
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = 1 + 0.5 * torch.randn((D,), generator=gen, device=dev)
+    out = fused.rms_norm_fused(x, w)
+    ref = plain(x, w, 1e-6)
+    x_fault = x.clone()
+    x_fault[rows // 2:rows // 2 + 64] = 0
+    fault = plain(x_fault, w, 1e-6)
+    torch.cuda.synchronize()
+
+    def of_limit(a):
+        lim = tol[dtype] * (ref.float().abs() + 1)
+        return ((a.float() - ref.float()).abs() / lim).max().item()
+
+    err, fault_err = of_limit(out), of_limit(fault)
+    max_abs = (out.float() - ref.float()).abs().max().item()
+    ok = err <= 1.0 and bool(torch.isfinite(out).all())
+    check = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+             "formula": plain.__name__, "err_of_limit": err,
+             "max_abs": max_abs, "tol": tol[dtype],
+             "fault_of_limit": fault_err, "ok": ok}
+    if not ok or fault_err <= 1.0:
+        emit({"phase": "kernels_rms", "check": check})
+        raise AssertionError(f"RMSNorm kernel disagrees with plain, or the "
+                             f"check misses a planted fault: {check}")
+    return x, w, max_abs, check
+
+
+def phase_rms(dev):
+    """The Triton RMSNorm kernel vs its plain version at [4*2048, 512] in
+    bf16 and f32, with a planted fault, timed beside F.rms_norm (each
+    timed as device time through a CUDA graph); and at a row count where
+    the reference's rule of shapes picks its unfused formula, against
+    that formula."""
+    from ray_tpu_torch.ops import fused
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows, D = RMS_SHAPE
+    checks = []
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        checks.append(_rms_check(fused, gen, dev, RMS_CAST_FIRST_SHAPE,
+                                 dtype, fused._rms_unfused,
+                                 RMS_TOL_CAST_FIRST)[3])
+        x, w, max_abs, check = _rms_check(fused, gen, dev, RMS_SHAPE, dtype,
+                                          fused._rms_plain, RMS_TOL)
+        checks.append(check)
+        # Each timed call reads one of 8 copies of x (67 MB in bf16, more
+        # than the 50 MB L2), so it finds its input in device memory, as
+        # the bytes bound assumes, not in L2 from the call before.
+        xs = [x.clone() for _ in range(8)]
+        n = fused.launches
+        kernel_ms = graph_ms(lambda i: fused.rms_norm_fused(xs[i % 8], w))
+        fused.launches = n   # timing launches are not the main path's
+        plain_ms = graph_ms(lambda i: fused._rms_plain(xs[i % 8], w, 1e-6))
+        library_ms = None
+        if hasattr(F, "rms_norm"):
+            wl = w.to(dtype)
+            library_ms = graph_ms(
+                lambda i: F.rms_norm(xs[i % 8], (D,), wl, 1e-6))
+        del xs
+        elt = torch.finfo(dtype).bits // 8
+        nbytes = 2 * elt * rows * D + 4 * D   # x read, out written, w read
+        timing[str(dtype).split(".")[1]] = {
+            "shape": [rows, D], "max_abs_err": max_abs,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+    emit({"phase": "kernels_rms", "checks": checks, "timing": timing})
+    return timing
 
 
 def _flash_module():
@@ -430,16 +683,170 @@ def phase_engine(dev, card, cfg, lens, model_lens, pad_to, new_tokens):
     return bf16
 
 
+def _named_leaves(params):
+    out = [(n, params[n]) for n in ("embed", "final_norm", "lm_head")]
+    out += [(f"layers.{n}", t) for n, t in sorted(params["layers"].items())]
+    return out
+
+
+def _counts():
+    from ray_tpu_torch.ops import fused
+
+    fa = _flash_module()
+    return {"fwd": fa.launches, "dq": fa.dq_launches,
+            "dkv": fa.dkv_launches, "rms": fused.launches}
+
+
+def _zero_counts():
+    from ray_tpu_torch.ops import fused
+
+    fa = _flash_module()
+    fa.launches = fa.dq_launches = fa.dkv_launches = fused.launches = 0
+
+
+@contextlib.contextmanager
+def _attention_swapped(kind):
+    """The model's attention swapped, so the same loss_fn runs another way
+    on the card. ``plain``: the plain einsum (the CPU path), no kernels.
+    ``heads_tiled``: a planted fault, the GQA heads expanded with
+    Tensor.repeat (query head h reads KV head h % n_kv_heads, where the
+    reference's jnp.repeat gives h // group), then the same kernels."""
+    from ray_tpu_torch.models import transformer as tt
+
+    def plain(q, k, v, causal=True, grad=True):
+        return tt._attention_einsum(q, k, v, causal)
+
+    def heads_tiled(q, k, v, causal=True, grad=True):
+        group = q.shape[2] // k.shape[2]
+        return tt._attention_flash(q, k.repeat(1, 1, group, 1),
+                                   v.repeat(1, 1, group, 1), causal, grad)
+
+    kernel_path = tt._attention_dense
+    tt._attention_dense = {"plain": plain, "heads_tiled": heads_tiled}[kind]
+    try:
+        yield
+    finally:
+        tt._attention_dense = kernel_path
+
+
+def _loss_and_grads(cfg, params, tokens, targets):
+    from ray_tpu_torch import models as tm
+
+    named = _named_leaves(params)
+    for _, t in named:
+        t.requires_grad_(True)
+    loss = tm.loss_fn(cfg, params, tokens, targets)
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    torch.cuda.synchronize()
+    return loss.item(), dict(zip([n for n, _ in named], grads))
+
+
+def _grad_errors(grads, ref):
+    return {n: ((grads[n] - ref[n]).abs().max()
+                / ref[n].abs().max().clamp_min(1e-30)).item() for n in ref}
+
+
+def phase_train(dev, card, base):
+    from ray_tpu_torch import models as tm
+
+    results = {}
+    for name, cfg in (("mha", base),
+                      ("gqa", dataclasses.replace(base, n_kv_heads=4))):
+        L = cfg.n_layers
+        rng = np.random.default_rng(SEED + 5)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1))).to(dev)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+
+        # (a) f32 gradients: kernels (with and without remat) vs plain.
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = tm.init_params(cfg32, SEED, device=dev)
+        _zero_counts()
+        loss_k, grads_k = _loss_and_grads(cfg32, params, inputs, targets)
+        counts = _counts()
+        _zero_counts()
+        loss_r, grads_r = _loss_and_grads(
+            dataclasses.replace(cfg32, remat=True), params, inputs, targets)
+        counts_remat = _counts()
+        _zero_counts()
+        with _attention_swapped("plain"):
+            loss_p, grads_p = _loss_and_grads(cfg32, params, inputs,
+                                              targets)
+        counts_plain = _counts()
+        # The planted fault (GQA only: with one KV head per query head the
+        # two orders agree) must read above the tolerance in every leaf.
+        err_fault = None
+        if cfg.n_kv_heads != cfg.n_heads:
+            with _attention_swapped("heads_tiled"):
+                grads_f = _loss_and_grads(cfg32, params, inputs, targets)[1]
+            err_fault = _grad_errors(grads_f, grads_p)
+            del grads_f
+        want = {"fwd": L, "dq": L, "dkv": L, "rms": 0}
+        want_remat = {"fwd": 2 * L, "dq": L, "dkv": L, "rms": 0}
+        err_plain = _grad_errors(grads_k, grads_p)
+        err_remat = _grad_errors(grads_r, grads_k)
+        res = {"n_kv_heads": cfg.n_kv_heads, "f32_loss_kernels": loss_k,
+               "f32_loss_plain": loss_p, "f32_loss_remat": loss_r,
+               "launches_per_pass": counts,
+               "launches_per_pass_remat": counts_remat,
+               "grad_err_vs_plain": err_plain,
+               "grad_err_remat_vs_no_remat": err_remat,
+               "grad_err_planted_fault_vs_plain": err_fault,
+               "tol": TRAIN_GRAD_TOL}
+        results[name] = res
+        del params, grads_k, grads_r, grads_p
+        torch.cuda.empty_cache()
+        bad = [n for n, e in {**err_plain, **err_remat}.items()
+               if not e <= TRAIN_GRAD_TOL]
+        missed = err_fault is not None and not min(
+            err_fault.values()) > TRAIN_GRAD_TOL
+        if (counts != want or counts_remat != want_remat
+                or any(counts_plain.values()) or bad or missed):
+            emit({"phase": "train", "results": results})
+            raise AssertionError(
+                f"{name}: kernel gradients or launch counts wrong, or the "
+                f"check misses the planted fault (leaves {bad}; fault "
+                f"missed {missed}; launches {counts}, remat "
+                f"{counts_remat}, plain {counts_plain})")
+
+        # (b, c) bf16 AdamW steps on one fixed batch: the main path.
+        params = tm.init_params(cfg, SEED, device=dev)
+        step = tm.make_train_step(cfg, params)
+        losses, step_s = [], []
+        _zero_counts()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = step(inputs, targets).item()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+        counts = _counts()
+        n = TRAIN_STEPS
+        want = {"fwd": n * L, "dq": n * L, "dkv": n * L, "rms": 0}
+        res.update({"bf16_losses": losses, "bf16_launches": counts,
+                    "bf16_step_s": step_s})
+        del params, step
+        torch.cuda.empty_cache()
+        if (counts != want or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0]):
+            emit({"phase": "train", "results": results})
+            raise AssertionError(f"{name}: bf16 steps gave losses {losses} "
+                                 f"and launches {counts}, expected finite, "
+                                 f"falling losses and {want}")
+    emit({"phase": "train", "results": results})
+    for name, res in results.items():
+        later = sorted(res["bf16_step_s"][1:])
+        emit({"train_step_smoke_reading": name,
+              "tokens_per_step": TRAIN_BATCH * TRAIN_LEN,
+              "step_ms_median_of_steps_2_to_5": later[len(later) // 2] * 1e3,
+              "first_step_ms": res["bf16_step_s"][0] * 1e3, "card": card})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
-        return 2
-    try:
-        import ray_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        print(f"chip_smoke: the ray_tpu_torch package is missing ({exc}); "
-              f"run from the repository root", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -453,16 +860,24 @@ def main() -> int:
     model_lens = [512, 431, 260, 129]     # right-padded to 512
     phase_build()
     timing = phase_kernels(dev)
+    bwd = phase_backward(dev)
+    rms = phase_rms(dev)
     model = phase_model(dev, flagship, model_lens, 512, 32)
     phase_engine(dev, card, flagship,
                  [16, 150, 290, 430, 570, 710, 850, 1000], model_lens, 512,
                  32)
+    train = phase_train(dev, card, flagship)
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "
                "_flash_forward)",
         "gqa": "ray_tpu/ops/flash_attention.py:306 (_attn_kernel via "
                "_flash_forward_grouped)",
+        "dq": "ray_tpu/ops/flash_attention.py:400 (_attn_bwd_dq_kernel via "
+              "_flash_bwd_rule)",
+        "dkv": "ray_tpu/ops/flash_attention.py:419 (_attn_bwd_dkv_kernel "
+               "via _flash_bwd_rule)",
+        "rms": "ray_tpu/ops/fused.py:47 (_rms_kernel via rms_norm_fused)",
     }
     kernels = []
     for name, Hkv in (("mha", model["mha"]["n_kv_heads"]),
@@ -474,11 +889,37 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
             "replaces": replaces[name],
             "launches": model[name]["launches"],
+            "launches_train": train[name]["bf16_launches"]["fwd"],
             "max_abs_err": t["max_abs_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "card": card})
+    for kind in ("dq", "dkv"):
+        t = bwd[kind]
+        kernels.append({
+            "name": f"flash_attention_bwd_{kind}",
+            "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": replaces[kind],
+            "launches": train["mha"]["bf16_launches"][kind],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": bwd["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": bwd["library_ms"],
+            "plain": bwd["plain"], "library": bwd["library"],
+            "shape": bwd["shape"], "card": card})
+    t = rms["bfloat16"]
+    kernels.append({
+        "name": "rms_norm_fused", "route": "triton",
+        "source": "ray_tpu_torch/ops/fused.py",
+        "replaces": replaces["rms"],
+        "launches": train["mha"]["bf16_launches"]["rms"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"], "card": card})
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

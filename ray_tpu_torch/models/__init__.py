@@ -1,5 +1,6 @@
 """Flagship model of the PyTorch/CUDA port (counterpart of
-``ray_tpu/models``): the dense decoder's serving path."""
+``ray_tpu/models``): the dense decoder's serving and one-card training
+paths."""
 
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.transformer import (
@@ -8,6 +9,8 @@ from ray_tpu_torch.models.transformer import (
     forward,
     init_kv_cache,
     init_params,
+    loss_fn,
+    make_train_step,
     prefill_chunk,
     prefill_with_cache,
     serving_params,
@@ -19,6 +22,8 @@ __all__ = [
     "forward",
     "init_kv_cache",
     "init_params",
+    "loss_fn",
+    "make_train_step",
     "params_from_jax",
     "prefill_chunk",
     "prefill_with_cache",

@@ -1,5 +1,5 @@
-"""Flagship decoder-only transformer, serving path (counterpart of
-``ray_tpu/models/transformer.py``).
+"""Flagship decoder-only transformer: training on one card and serving
+(counterpart of ``ray_tpu/models/transformer.py``).
 
 Dense models only (MoE comes later). The parameter tree keeps the
 reference's key names and stacked ``[L, ...]`` layer layout, so weights
@@ -20,10 +20,15 @@ Differences from the JAX reference, none of which change results:
   use. Here each use calls ``.to(cfg.dtype)``, a no-op when the caller has
   converted the tree once with ``serving_params`` (the cast is exact and
   deterministic, so results are the same).
-- Everything here is forward-only and runs without autograd.
-- ``_attention_dense`` runs the flash kernel for every CUDA tensor; the
-  reference takes its Pallas kernel only for TPU-tileable shapes (S a
-  multiple of 128), a rule the CUDA kernel does not need because it masks
+- ``forward`` and ``loss_fn`` are differentiable; the serving programs
+  run under ``torch.no_grad``.
+- ``make_train_step`` is the one-device counterpart of
+  ``make_spmd_train_step``: no mesh, so no gradient sync and no
+  collectives; ``torch.optim.AdamW`` with optax.adamw's defaults updates
+  the f32 master parameters in place.
+- ``_attention_dense`` runs the flash kernels for every CUDA tensor; the
+  reference takes its Pallas kernels only for TPU-tileable shapes (S a
+  multiple of 128), a rule the CUDA kernels do not need because they mask
   ragged lengths. CPU tensors take the reference's dense grouped einsum.
 """
 
@@ -31,10 +36,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (
@@ -147,21 +153,42 @@ def rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _attention_dense(q, k, v, causal=True):
+def _attention_dense(q, k, v, causal=True, grad=True):
     """q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,S,Hq,Dh].
 
-    On a CUDA tensor this runs the flash kernel: grouped for Hq != Hkv,
-    MHA otherwise; K/V are never repeat-expanded. On a CPU tensor, the
-    dense grouped einsum."""
+    On a CUDA tensor this runs the flash kernels (``_attention_flash``);
+    on a CPU tensor, the dense grouped einsum (under autograd when grad is
+    on), as the reference does off the TPU."""
+    if q.is_cuda:
+        return _attention_flash(q, k, v, causal, grad)
+    return _attention_einsum(q, k, v, causal)
+
+
+def _attention_flash(q, k, v, causal=True, grad=True):
+    """Flash attention in the model's layout. Serving (``grad=False``) with
+    GQA takes the grouped forward, K/V at n_kv_heads width. The
+    differentiable path (``grad=True``) repeat-expands K/V as the
+    reference's ``jnp.repeat(k, group, axis=2)`` does (each KV head
+    repeated ``group`` times in place: ``repeat_interleave``, not
+    ``Tensor.repeat``, which would tile the heads in another order), since
+    the backward kernels want matched head counts."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hq != Hkv and not grad:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return flash_attention_grouped(qt, kt, vt,
+                                       causal=causal).transpose(1, 2)
+    if Hq != Hkv:
+        k = torch.repeat_interleave(k, Hq // Hkv, dim=2)
+        v = torch.repeat_interleave(v, Hq // Hkv, dim=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return flash_attention(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+def _attention_einsum(q, k, v, causal=True):
+    """The dense grouped einsum: queries fold to [B, S, Hkv, group, Dh]
+    and contract against K/V at n_kv_heads width."""
     B, S, Hq, Dh = q.shape
     Hkv = k.shape[2]
-    if q.is_cuda:
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if Hq != Hkv:
-            o = flash_attention_grouped(qt, kt, vt, causal=causal)
-        else:
-            o = flash_attention(qt, kt, vt, causal=causal)
-        return o.transpose(1, 2)
     group = Hq // Hkv
     qg = q.reshape(B, S, Hkv, group, Dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * (Dh ** -0.5)
@@ -205,9 +232,22 @@ def _layer(params, i):
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-@torch.no_grad()
+def _layer_fn(cfg, lp, x, positions, layer_idx):
+    """One transformer block over x [B, S, D] (the training layer body)."""
+    dt = cfg.dtype
+    B, S, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"])
+    q, k, v = _project_qkv(cfg, lp, h, positions)
+    o = _attention_dense(q, k, v)
+    x = x + o.reshape(B, S, -1) @ lp["wo"].to(dt)
+    h = rms_norm(x, lp["mlp_norm"])
+    return x + _mlp_block(cfg, lp, h, layer_idx)
+
+
 def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
-    """Cacheless forward, no grad: tokens [B, S] -> logits [B, S, V] f32."""
+    """Cacheless forward: tokens [B, S] -> logits [B, S, V] f32.
+    Differentiable; with ``cfg.remat`` each layer is checkpointed and
+    recomputed in the backward (the reference's ``jax.checkpoint``)."""
     _check_dense(cfg)
     dt = cfg.dtype
     B, S = tokens.shape
@@ -216,14 +256,59 @@ def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
     positions = torch.arange(S, device=x.device).expand(B, S)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = rms_norm(x, lp["attn_norm"])
-        q, k, v = _project_qkv(cfg, lp, h, positions)
-        o = _attention_dense(q, k, v)
-        x = x + o.reshape(B, S, -1) @ lp["wo"].to(dt)
-        h = rms_norm(x, lp["mlp_norm"])
-        x = x + _mlp_block(cfg, lp, h, i)
+        if cfg.remat:
+            x = checkpoint(_layer_fn, cfg, lp, x, positions, i,
+                           use_reentrant=False)
+        else:
+            x = _layer_fn(cfg, lp, x, positions, i)
     x = rms_norm(x, params["final_norm"])
     return (x @ params["lm_head"].to(dt)).float()
+
+
+def loss_fn(cfg: TransformerConfig, params, tokens, targets
+            ) -> torch.Tensor:
+    """Mean next-token NLL: log-softmax of the f32 logits, gathered at the
+    targets (reference ``loss_fn``)."""
+    logp = torch.log_softmax(forward(cfg, params, tokens), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def make_train_step(cfg: TransformerConfig, params, lr: float = 3e-4
+                    ) -> Callable[[torch.Tensor, torch.Tensor],
+                                  torch.Tensor]:
+    """One-device training step (counterpart of ``make_spmd_train_step``
+    on a one-device mesh, whose gradient sync and pmean do nothing).
+
+    ``params`` is the f32 master tree; its leaves are marked as requiring
+    grad and updated in place. The optimizer is AdamW with optax.adamw's
+    defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4; PyTorch's
+    default weight decay of 1e-2 would differ). Returns ``step(tokens,
+    targets) -> loss`` (the loss before the update, detached)."""
+    _check_dense(cfg)
+    leaves = _leaves(params)
+    for t in leaves:
+        if t.dtype != torch.float32:
+            raise TypeError(f"make_train_step wants f32 master parameters, "
+                            f"got {t.dtype}")
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+
+    def step(tokens, targets):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(cfg, params, tokens, targets)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def init_kv_cache(cfg: TransformerConfig, num_blocks: int, block_size: int,
@@ -265,7 +350,7 @@ def prefill_with_cache(cfg: TransformerConfig, params, cache, tokens,
         q, k, v = _project_qkv(cfg, lp, h, positions)
         ck[i][blk, off] = k.to(ck.dtype)
         cv[i][blk, off] = v.to(cv.dtype)
-        o = _attention_dense(q, k, v, causal=True)
+        o = _attention_dense(q, k, v, causal=True, grad=False)
         x = x + o.reshape(B, S, -1) @ lp["wo"].to(dt)
         h = rms_norm(x, lp["mlp_norm"])
         x = x + _mlp_block(cfg, lp, h, i)

@@ -3,9 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into a shared library that ``ctypes`` loads (no PyTorch
 headers, so a build takes seconds). Libraries go under ``build/ray_tpu_torch/``
-at the repository root, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads from disk. Delete that
-directory to force a rebuild.
+at the repository root, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads from disk. Delete that directory to force a rebuild.
+``build_all`` starts one ``nvcc`` per source, all at once.
+
+The Triton kernel of ``ops/fused.py`` is not built here: Triton compiles
+it at its first launch, into Triton's own cache.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
@@ -43,30 +47,47 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_all(names: Iterable[str]) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose hashed library is missing,
+    one ``nvcc`` process per source, all started together."""
+    names = list(names)
+    outs = [library_path(n) for n in names]
+    running = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            build_info.setdefault(name, (0.0, ""))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, out, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, out, tmp, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} ({proc.returncode}):"
+                            f"\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        build_info[name] = (time.perf_counter() - t0, stderr)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        build_info.setdefault(name, (0.0, ""))
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info[name] = (seconds, proc.stderr)
-    return out
+    return build_all([name])[0]
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -42,94 +42,13 @@
 //
 // The kernel launches on the caller's stream and allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+using namespace flash;
+
 constexpr int kSubK = 16;  // keys per online-softmax step
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Copies a kBlockK x d tile of T from device memory into shared memory as
-// f32 (converted once here, not at every use), in 16-byte chunks, and
-// zero-fills rows at or past rows_valid. d % 8 == 0 keeps every row a whole
-// number of chunks for both bf16 and f32.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int rows_valid, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int chunks_per_row = d / kVec;
-  const int total = kBlockK * chunks_per_row;
-  for (int c = threadIdx.x; c < total; c += kThreads) {
-    const int r = c / chunks_per_row;
-    const int col = (c - r * chunks_per_row) * kVec;
-    float* out = dst + r * d + col;
-    if (r < rows_valid) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + (size_t)r * d + col);
-      const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) out[e] = to_f(vals[e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) out[e] = 0.f;
-    }
-  }
-}
-
-// Which head-dimension element a thread's i-th register holds. With the
-// slice width known at compile time (kSlice > 0, a multiple of 4) the four
-// threads of a row interleave 4-element chunks, so their float4 reads of a
-// shared-memory row fall in distinct banks; otherwise each thread owns a
-// contiguous run of ds elements.
-template <int kSlice>
-__device__ __forceinline__ int dim_of(int i, int slice, int ds) {
-  if constexpr (kSlice > 0) {
-    return (i / 4) * (4 * kThreadsPerRow) + slice * 4 + (i % 4);
-  } else {
-    return slice * ds + i;
-  }
-}
-
-// Reads one thread's elements of a shared-memory row into registers.
-template <int kSlice, int kMax>
-__device__ __forceinline__ void read_slice(float (&dst)[kMax],
-                                           const float* row, int slice,
-                                           int ds) {
-  if constexpr (kSlice > 0) {
-#pragma unroll
-    for (int i = 0; i < kSlice; i += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(
-          row + dim_of<kSlice>(i, slice, ds));
-      dst[i] = f.x;
-      dst[i + 1] = f.y;
-      dst[i + 2] = f.z;
-      dst[i + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kMax; ++i) dst[i] = i < ds ? row[slice * ds + i] : 0.f;
-  }
-}
 
 // kSlice: the per-thread share of the head dimension (D / 4) when known at
 // compile time (a multiple of 4), else 0 and the runtime d / 4 (at most 32)
@@ -159,11 +78,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[kMax];
   float acc[kMax];
   const T* qp = q + ((size_t)bh * sq + (row_valid ? qi : 0)) * d;
+  load_slice<T, kSlice, kMax>(qr, qp, row_valid, slice, ds);
 #pragma unroll
   for (int i = 0; i < kMax; ++i) {
-    qr[i] = (i < ds && row_valid)
-                ? to_f(qp[dim_of<kSlice>(i, slice, ds)]) * scale
-                : 0.f;
+    qr[i] *= scale;
     acc[i] = 0.f;
   }
   float m = kNegInf;
@@ -196,8 +114,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float part = 0.f;
 #pragma unroll
         for (int i = 0; i < kMax; ++i) part = fmaf(qr[i], kr[i], part);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        part = row_sum(part);
         const int kj = k0 + j0 + j;
         const bool keep = kj < sk && (!causal || kj <= qi);
         s[j] = keep ? part : kNegInf;
@@ -212,7 +129,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kSubK; ++j) {
         const float p = __expf(s[j] - m_new);
         p_sum += p;
-        const float p_rounded = to_f(from_f<T>(p));
+        const float p_rounded = round_to<T>(p);
         float vr[kMax];
         read_slice<kSlice, kMax>(vr, vs + (j0 + j) * d, slice, ds);
 #pragma unroll

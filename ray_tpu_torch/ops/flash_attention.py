@@ -1,15 +1,19 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-PyTorch version (counterpart of ``ray_tpu/ops/flash_attention.py``).
+"""Flash attention: hand-written Hopper kernels and their plain PyTorch
+versions (counterpart of ``ray_tpu/ops/flash_attention.py``).
 
-The kernel (``csrc/flash_attention_fwd.cu``) replaces the Pallas
+The forward kernel (``csrc/flash_attention_fwd.cu``) replaces the Pallas
 ``_attn_kernel`` in both of its launches: ``_flash_forward`` (MHA) and
-``_flash_forward_grouped`` (GQA, K/V at ``n_kv_heads`` width). A wrapper
-launches it for CUDA tensors and raises on what it does not take; it runs
-the plain version only for tensors on the CPU.
+``_flash_forward_grouped`` (GQA, K/V at ``n_kv_heads`` width). The
+backward kernels (``csrc/flash_attention_bwd.cu``, dQ and dK/dV) replace
+``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
+``_flash_bwd_rule`` launches. A wrapper launches its kernel for CUDA
+tensors and raises on what it does not take; it runs the plain version
+only for tensors on the CPU.
 
 Layouts are the reference's: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``.
-This module has no autograd: the backward kernels come with the training
-port.
+``flash_attention`` is differentiable through ``_FlashCore`` (the
+reference's ``custom_vjp``); ``flash_attention_grouped`` is forward-only,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -21,12 +25,47 @@ import torch
 
 NEG_INF = -1e30
 
-# Kernel launches made by this module's wrappers (callers reset it to 0
-# around the run they want to attribute).
-launches = 0
+# Kernel launches made by this module's wrappers, one count per kernel
+# (callers reset them to 0 around the run they want to attribute).
+launches = 0        # forward
+dq_launches = 0     # backward dQ
+dkv_launches = 0    # backward dK/dV
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_argtypes_set = False
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (library, function) -> argtypes.
+_SIGNATURES = {
+    ("flash_attention_fwd", "flash_attention_fwd"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_bwd", "flash_attention_bwd_dq"):
+        [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_bwd", "flash_attention_bwd_dkv"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+}
+_bound = {}
+
+
+def _kernel_fn(library: str, name: str):
+    """The C entry point ``name`` of kernel library ``library``, built and
+    loaded at first use, with its argument types declared."""
+    fn = _bound.get((library, name))
+    if fn is None:
+        from ray_tpu_torch.ops._build import load_library
+
+        fn = getattr(load_library(library), name)
+        fn.argtypes = _SIGNATURES[(library, name)]
+        fn.restype = _CI
+        _bound[(library, name)] = fn
+    return fn
+
+
+def _mask_causal(s):
+    """Scores [..., Sq, Sk] with key j > query i set to -1e30."""
+    Sq, Sk = s.shape[-2:]
+    keep = (torch.arange(Sq, device=s.device)[:, None]
+            >= torch.arange(Sk, device=s.device)[None, :])
+    return torch.where(keep, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                           device=s.device))
 
 
 def _dense(q, k, v, causal, scale):
@@ -39,10 +78,7 @@ def _dense(q, k, v, causal, scale):
     qg = q.reshape(B, Hkv, group, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
     if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
-        s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype,
-                                            device=s.device))
+        s = _mask_causal(s)
     s32 = s.float()
     lse = torch.logsumexp(s32, dim=-1)
     p = torch.softmax(s32, dim=-1).to(q.dtype)
@@ -61,6 +97,28 @@ def _fallback_grouped(q, k, v, causal, scale):
     return _dense(q, k, v, causal, scale)[0]
 
 
+def _dense_backward(q, k, v, o, lse, do, causal, scale):
+    """Plain flash backward, the reference ``_flash_bwd_rule``'s
+    arithmetic with the scores materialised: P rebuilt as exp(s - LSE)
+    from f32 scores, delta = rowsum(dO * O) in f32, dS = P * (dP - delta);
+    P and dS are rounded to the input dtype before their products, which
+    accumulate in f32. q/o/do [B, H, Sq, D], k/v [B, H, Sk, D], lse
+    [B, H, Sq] f32. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    do = do.to(q.dtype)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    if causal:
+        s = _mask_causal(s)
+    p = torch.exp(s - lse[..., None])
+    delta = (do32 * o.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Hq,Sq,D] and k/v [B,Hkv,Sk,D], got "
@@ -74,38 +132,31 @@ def _check_shapes(q, k, v):
         raise ValueError(f"n_heads {Hq} % n_kv_heads {k.shape[1]} != 0")
 
 
-def _launch(q, k, v, causal, scale):
-    global launches, _argtypes_set
-    from ray_tpu_torch.ops._build import load_library
-
-    for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("flash attention kernel: q, k, v must lie on "
-                             "one CUDA device")
-        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODE:
+def _check_kernel_inputs(tensors, names):
+    first = tensors[0]
+    for t in tensors:
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"flash attention kernel: {names} must lie on "
+                             f"one CUDA device")
+        if t.dtype != first.dtype or t.dtype not in _DTYPE_CODE:
             raise TypeError(f"flash attention kernel takes float32 or "
-                            f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
-                            f"{k.dtype}, {v.dtype}")
+                            f"bfloat16 {names} of one dtype, got "
+                            f"{[x.dtype for x in tensors]}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash attention kernel takes contiguous, "
-                             "16-byte aligned q/k/v")
-        if t.requires_grad:
-            raise NotImplementedError(
-                "flash attention backward is not ported yet: it comes with "
-                "the training slice (FA2 dQ and dK/dV kernels)")
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+            raise ValueError(f"flash attention kernel takes contiguous, "
+                             f"16-byte aligned {names}")
+    D = first.shape[-1]
     if D % 8 or D > 128:
         raise ValueError(f"flash attention kernel takes head_dim a multiple "
                          f"of 8 up to 128, got {D}")
-    lib = load_library("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
-    if not _argtypes_set:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, ci, ci, vp]
-        fn.restype = ci
-        _argtypes_set = True
+
+
+def _launch(q, k, v, causal, scale):
+    global launches
+    _check_kernel_inputs((q, k, v), "q, k, v")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    fn = _kernel_fn("flash_attention_fwd", "flash_attention_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -117,6 +168,57 @@ def _launch(q, k, v, causal, scale):
                            f"{err}")
     launches += 1
     return o, lse
+
+
+def _backward_args(q, k, v, o, lse, do, causal, scale):
+    """dO cast to q's dtype, the checks, and the C arguments shared by
+    both backward kernels: (do, input pointers, trailing scalars)."""
+    do = do.to(q.dtype).contiguous()
+    _check_kernel_inputs((q, k, v, o, do), "q, k, v, o, dO")
+    if k.shape[1] != q.shape[1] or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash attention backward wants matched head "
+                         "counts and o/dO shaped like q")
+    if not (lse.is_cuda and lse.dtype == torch.float32
+            and lse.is_contiguous() and lse.device == q.device
+            and lse.shape == q.shape[:3]):
+        raise ValueError("flash attention backward takes a contiguous f32 "
+                         "LSE [B, H, Sq] on q's device")
+    B, H, Sq, D = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr())
+    scalars = (B * H, Sq, k.shape[2], D, float(scale), int(bool(causal)),
+               _DTYPE_CODE[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return do, ptrs, scalars
+
+
+def _launch_dq(q, k, v, o, lse, do, causal, scale):
+    """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> dq in q's dtype."""
+    global dq_launches
+    do, ptrs, scalars = _backward_args(q, k, v, o, lse, do, causal, scale)
+    dq = torch.empty_like(q)
+    err = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dq")(
+        *ptrs, dq.data_ptr(), *scalars)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
+                           f"error {err}")
+    dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, o, lse, do, causal, scale):
+    """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv)."""
+    global dkv_launches
+    do, ptrs, scalars = _backward_args(q, k, v, o, lse, do, causal, scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dkv")(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *scalars)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
+                           f"error {err}")
+    dkv_launches += 1
+    return dk, dv
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,14 +234,54 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal, scale)
 
 
+def _flash_backward(q, k, v, o, lse, do, causal, scale):
+    """(dq, dk, dv): the backward kernels on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.device.type == "cpu":
+        return _dense_backward(q, k, v, o, lse, do, causal, scale)
+    dq = _launch_dq(q, k, v, o, lse, do, causal, scale)
+    return (dq, *_launch_dkv(q, k, v, o, lse, do, causal, scale))
+
+
+class _FlashCore(torch.autograd.Function):
+    """Counterpart of the reference's ``_flash_core`` custom_vjp: the
+    forward saves (q, k, v, O, LSE); the backward rebuilds P from LSE.
+    Under activation checkpointing autograd saves the recomputed forward's
+    O and LSE, so the backward never reads a stale buffer."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                     ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts)."""
+    """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts; GQA
+    repeat-expands K/V first). Differentiable: the backward runs the dQ
+    and dK/dV kernels on CUDA tensors."""
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention wants matched head counts, got "
                          f"{q.shape[1]} and {k.shape[1]}; use "
                          f"flash_attention_grouped")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _wants_grad(q, k, v):
+        return _FlashCore.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale)[0]
 
 
@@ -148,5 +290,11 @@ def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor,
                             scale: Optional[float] = None) -> torch.Tensor:
     """GQA: q [B, Hq, S, D], k/v [B, Hkv, S, D] (Hkv divides Hq) ->
     [B, Hq, S, D]. K/V are never repeat-expanded: the kernel maps each
-    query head to its KV head."""
+    query head to its KV head. Forward-only, as in the reference (its
+    backward kernels want matched head counts): a tensor that requires
+    grad under grad mode raises."""
+    if _wants_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_grouped is forward-only; the differentiable "
+            "path repeat-expands K/V and calls flash_attention")
     return _flash_forward(q, k, v, causal, scale)[0]

@@ -1,0 +1,60 @@
+"""Tolerances that hold the port's kernels against their plain versions.
+
+``chip_smoke.py`` and ``tests/test_torch_kernels.py`` both check the
+kernels on the card; they read their limits here so that the two cannot
+drift apart. Each limit stands beside its reason.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Flash forward. The error scale of attention output is the size of the
+# row it belongs to (|O| of a row shrinks as its keys grow), so O is held
+# per row: max|o - ro| over a row, over max|ro| of that row. bf16: the
+# plain version rounds each score twice (the product, then its scaling)
+# and p once, the kernel rounds p from f32 scores, and both round O
+# (relative ulp 2**-8 to 2**-7); a row's error sums many such roundings.
+# The limit 2**-5 is 4 to 8 ulps of the row's largest element; a dropped
+# 64-key tile reads 20x more. LSE is held per element: bf16 scores rounded
+# by 2**-9 of their size move LSE by at most that, and the limit is
+# 2**-8 * (|lse| + 1). f32 sums in another order (TF32 off).
+O_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+# Flash backward, per row of dq, dk and dv as a fraction of the row's
+# largest element. A row whose exact gradient is 0 holds only rounding
+# noise (causal query 0: dS = P * (dP - delta) with dP = delta, which the
+# kernel sums in one order and so gets exactly 0), so a row's scale is
+# floored at GRAD_ROW_FLOOR of the tensor's largest element. f32: another
+# summation order (TF32 off); a dq row sums terms that cancel exactly
+# (sum_j dS_ij = 0), so a row with a peaked softmax is many times smaller
+# than its terms while the rounding of dP and delta stays at the terms'
+# size: 1e-3. bf16: both compute P and dS in f32 and round them to bf16
+# before the products, so they differ where a summation-order difference
+# flips a rounding (rare) and in the final rounding of each gradient (one
+# ulp, at most 2**-7 of the element); 2**-5 is 4 to 8 such ulps of the
+# row's largest element. A dropped 64-row tile of dO zeroes those dq rows
+# and reads ~1.
+GRAD_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}
+GRAD_ROW_FLOOR = 2.0 ** -8
+
+# RMSNorm, per element |out - ref| <= tol * (|ref| + 1). The kernel's
+# formula (f32 throughout, one cast): both compute in f32 (the kernel's
+# sqrt and division may be approximate to a few ulps) and round once, so
+# bf16 differs by at most one ulp, 2**-8 to 2**-7 of the value. The
+# unfused formula of the reference's rule of shapes rounds twice in bf16:
+# the normalised x may round to a neighbour (one ulp of it, up to 2**-7 of
+# the product once multiplied by w) and the product's own rounding adds
+# one ulp more, so 2**-6. In f32 both formulas round as the kernel's.
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+RMS_TOL_CAST_FIRST = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max over rows of max|got - ref| in the row, over the row's largest
+    |ref| floored at GRAD_ROW_FLOOR of the tensor's largest |ref|."""
+    ref = ref.float()
+    d = (got.float() - ref).abs().amax(-1)
+    floor = max(GRAD_ROW_FLOOR * ref.abs().max().item(), 1e-30)
+    return (d / ref.abs().amax(-1).clamp_min(floor)).max().item()

@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card.
+"""The port's hand-written kernels (CUDA C++ and Triton) against their
+plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode). This file imports no JAX, so it runs on a machine that
@@ -12,17 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+# The limits, each with its reason, are shared with chip_smoke.py.
+from ray_tpu_torch.testing import (
+    GRAD_ROW_TOL,
+    LSE_TOL,
+    O_ROW_TOL,
+    RMS_TOL,
+    RMS_TOL_CAST_FIRST,
+    grad_row_error,
+)
 
-# O is held per row, as a fraction of the row's largest |O| (the size of
-# an attention row shrinks as its keys grow, and so does its error). bf16:
-# the plain version rounds each score twice and p once, the kernel rounds
-# p from f32 scores, and both round O (relative ulp 2**-8 to 2**-7); 2**-5
-# is 4 to 8 ulps of the row's largest element. LSE per element: bf16
-# scores rounded by 2**-9 of their size move LSE by at most that, so the
-# limit is 2**-8 * (|lse| + 1). f32 sums in another order (TF32 off).
-O_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
-LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+fused = importlib.import_module("ray_tpu_torch.ops.fused")
 
 
 def _assert_close(o, lse, ro, rlse):
@@ -78,5 +79,76 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), k, v)
+    q, k, v = _qkv(1, 1, 2, 1, 16, 16, 16, torch.float32, cuda_device)
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.requires_grad_(), k, v)
+        fa.flash_attention_grouped(q.requires_grad_(), k, v)
+
+
+# Backward kernels against the plain backward (_dense_backward), per row
+# of dq, dk and dv (GRAD_ROW_TOL); a dropped 64-row tile of dO reads ~1
+# (chip_smoke.py checks that it is caught).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# Sq = 3 rather than the forward's single row: with one causal row, dq and
+# dk are exactly 0 and every element is rounding noise, which a relative
+# check cannot hold.
+@pytest.mark.parametrize("H,Sq,Sk,D", [
+    (4, 128, 128, 64), (4, 200, 200, 64), (2, 77, 131, 16),
+    (2, 64, 64, 128), (2, 3, 50, 40), (2, 130, 70, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, H, Sq, Sk,
+                                            D, causal):
+    q, k, v = _qkv(2, 2, H, H, Sq, Sk, D, dtype, cuda_device)
+    do = _qkv(3, 2, H, H, Sq, Sq, D, dtype, cuda_device)[0]
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = fa.dq_launches, fa.dkv_launches
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_backward_kernels(cuda_device):
+    q, k, v = (t.requires_grad_() for t in _qkv(
+        4, 2, 4, 4, 96, 96, 64, torch.float32, cuda_device))
+    before = fa.launches, fa.dq_launches, fa.dkv_launches
+    out = fa.flash_attention(q, k, v)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    after = fa.launches, fa.dq_launches, fa.dkv_launches
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    ref = fa._dense(q, k, v, True, 64 ** -0.5)[0]
+    ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    for g, r in zip((q.grad, k.grad, v.grad), ref_grads):
+        assert grad_row_error(g, r) <= GRAD_ROW_TOL[torch.float32]
+
+
+# RMSNorm against the plain version of the formula that the reference's
+# rule of shapes picks: (300, 64) has rows no multiple of its 256-row
+# block and (16, 12) has D % 8, so both take the unfused formula, which
+# the kernel computes under its CAST_FIRST flag.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 512), (4, 128, 1376), (256, 64),
+                                   (300, 64), (16, 12)])
+def test_rms_norm_kernel_matches_plain(cuda_device, dtype, shape):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=cuda_device, dtype=dtype)
+    w = torch.from_numpy((1 + 0.5 * rng.standard_normal(shape[-1:])).astype(
+        np.float32)).to(cuda_device)
+    before = fused.launches
+    out = fused.rms_norm_fused(x, w)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    if fused._casts_first(x.numel() // shape[-1], shape[-1]):
+        ref, tol = fused._rms_unfused(x, w, 1e-6), RMS_TOL_CAST_FIRST[dtype]
+    else:
+        ref, tol = fused._rms_plain(x, w, 1e-6), RMS_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)

@@ -4,12 +4,14 @@ reference (ray_tpu.ops), on the CPU.
 Inputs come from a numpy seed and go through both. The reference's Pallas
 flash kernel runs in interpret mode, as tests/test_ops.py runs it; the port
 runs its plain PyTorch version, which is what its wrapper takes for CPU
-tensors. The hand-written kernel is held against the plain version on the
-card by tests/test_torch_kernels.py and chip_smoke.py.
+tensors; the flash backward is held against ``jax.vjp`` of the reference's
+custom_vjp. The hand-written kernels are held against the plain versions
+on the card by tests/test_torch_kernels.py and chip_smoke.py.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,6 +134,77 @@ def test_flash_wrapper_rejects_bad_shapes():
     q, k, v = _qkv(6, 1, 4, 2, 16, 16, 8)
     with pytest.raises(ValueError):
         fa.flash_attention(_t(q), _t(k), _t(v))
+
+
+# Backward, f32: the same arithmetic in another summation order, held as
+# max|port - ref| over the tensor's largest |ref|. bf16: the port's plain
+# backward is given the reference's own O and LSE, so both round P and dS
+# to bf16 at the same places; a rounding that flips on a summation-order
+# difference moves a gradient by one bf16 ulp of a term, so the limit is
+# 2**-8 of the tensor's largest element.
+BWD_REL = {np.float32: 1e-5, jnp.bfloat16: 2.0 ** -8}
+
+
+def _rel(ref, got):
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(ref - _np(got)).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_backward_matches_pallas_interpret_vjp(causal, S, dtype):
+    B, H, D = 1, 2, 16
+    q, k, v = _qkv(10 + S, B, H, H, S, S, D)
+    do = np.random.default_rng(S).standard_normal(q.shape).astype(
+        np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_fa.flash_attention(
+        q, k, v, causal=causal, block_q=128, block_k=128, interpret=True),
+        jq, jk, jv)
+    ref = vjp(jdo)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    tq, tk, tv, tdo = (_t(a, tdt) for a in (q, k, v, do))
+    if dtype is np.float32:
+        o, lse = fa._flash_forward(tq, tk, tv, causal)
+    else:
+        ro, rlse = jax_fa._flash_forward(jq, jk, jv, causal, D ** -0.5,
+                                         128, 128, True)
+        o = _t(np.array(ro, np.float32), tdt)
+        lse = _t(np.array(rlse[:, :, 0]))
+    grads = fa._dense_backward(tq, tk, tv, o, lse, tdo, causal, D ** -0.5)
+    for name, r, g in zip(("dq", "dk", "dv"), ref, grads):
+        assert g.dtype == tdt
+        assert _rel(r, g) <= BWD_REL[dtype], name
+
+
+@pytest.mark.parametrize("S", [37, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_core_cpu_backward_matches_autograd_of_plain_forward(causal,
+                                                                    S):
+    B, H, D = 2, 3, 16
+    q, k, v = _qkv(20 + S, B, H, H, S, S, D)
+    do = _t(np.random.default_rng(S).standard_normal(q.shape).astype(
+        np.float32))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    before = fa.launches, fa.dq_launches, fa.dkv_launches
+    out = fa.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+    ref_out = fa._dense(*leaves, causal, D ** -0.5)[0]
+    ref = torch.autograd.grad(ref_out, leaves, do)
+    torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
+    for r, g in zip(ref, grads):
+        assert _rel(r.detach().numpy(), g) <= BWD_REL[np.float32]
+
+
+def test_flash_attention_grouped_is_forward_only():
+    q, k, v = (_t(a) for a in _qkv(7, 1, 4, 2, 16, 16, 8))
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_grouped(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        fa.flash_attention_grouped(q, k, v)
 
 
 def _paged_setup(seed, B, Hkv, Dh, bs, total_lens, n_blocks=16):
