@@ -6,14 +6,21 @@ Each phase prints one JSON line; any failure raises and the script exits
 non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
-1. build: compile the flash-attention kernels (forward; backward dQ and
-   dK/dV) from ray_tpu_torch/ops/csrc, one nvcc per source, in parallel.
-   The Triton RMSNorm kernel compiles at its first launch.
-2. kernels: the forward kernel against its plain PyTorch version on the
-   card at the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
-   128/512/2048, D=64, causal and not, bf16 and f32), and its time beside
-   the plain version's, PyTorch's scaled_dot_product_attention (a
-   yardstick the port never calls) and the card's bound. Then the
+1. build: compile the flash-attention kernels (forward on the tensor
+   cores, forward on the CUDA cores, backward dQ and dK/dV) from
+   ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
+   registers and spills per kernel; the tensor-core library's SASS must
+   hold HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
+   RMSNorm kernel compiles at its first launch.
+2. kernels: the forward against its plain PyTorch version on the card at
+   the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
+   128/512/2048, D=64, causal and not, bf16 and f32), plus S=200, Sq=77 /
+   Sk=131 and one D=128 case; bf16 takes the tensor-core kernel, f32 the
+   CUDA-core one, and each case checks which launched. Times at S=2048
+   and S=512 beside the plain version's, the CUDA-core kernel on the same
+   bf16 inputs (the earlier design), PyTorch's
+   scaled_dot_product_attention (a yardstick the port never calls) and the
+   card's bound. Then the
    backward kernels against the plain backward (B=4, H=8, D=64, S
    128/512/2048/200), each with a planted fault, timed beside the plain
    backward, SDPA's backward and the bound; and the RMSNorm kernel at
@@ -21,8 +28,9 @@ non-zero without printing a result. Without a CUDA card, or without the
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
-   per prefill, and prefill_chunk (plain paged attention) must agree, as
-   must the cacheless forward at a length that is no multiple of 128.
+   per prefill (the bf16 flagship: the tensor-core variant), and
+   prefill_chunk (plain paged attention) must agree, as must the
+   cacheless forward at a length that is no multiple of 128.
 4. engine: InferenceEngine answers 8 concurrent greedy requests equal to
    their sequential runs; in f32, its tokens equal the flash path's.
 5. train: the flagship at full width and depth (and its GQA variant) on
@@ -31,7 +39,11 @@ non-zero without printing a result. Without a CUDA card, or without the
    fault (GQA heads expanded in the wrong order) reads above the
    tolerance; each pass
    launches the forward n_layers times (2 * n_layers with remat) and each
-   backward kernel n_layers times. Then 5 bf16 AdamW steps
+   backward kernel n_layers times. In bf16, the loss through the kernels
+   equals the loss through plain attention (TRAIN_LOSS_TOL_BF16; the GQA
+   planted fault must read above it), and a pass launches the
+   tensor-core forward n_layers times (2 * n_layers with remat). Then 5
+   bf16 AdamW steps
    (make_train_step) on one fixed batch: finite losses, the last below
    the first, and the step time as a smoke reading.
 
@@ -46,10 +58,12 @@ import dataclasses
 import importlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,6 +76,7 @@ try:
         O_ROW_TOL,
         RMS_TOL,
         RMS_TOL_CAST_FIRST,
+        TRAIN_LOSS_TOL_BF16,
         grad_row_error,
     )
 except ImportError as exc:
@@ -72,6 +87,7 @@ SEED = 0
 BLOCK_SIZE = 16
 KV_HEADS = (8, 4, 2)    # MHA flagship, its GQA variant (phase 3), group 4
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak (H100 SXM)
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (H100 SXM)
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
 # Kernel vs plain on the card: O_ROW_TOL, LSE_TOL, GRAD_ROW_TOL and the
 # RMS limits stand with their reasons in ray_tpu_torch/testing.py, which
@@ -81,6 +97,11 @@ H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
 # that propagates through 4 layers, so they agree to a few ulps.
 MODEL_LOGIT_TOL = 0.25
 RAGGED_LEN = 200   # phase 3's cacheless forward: no multiple of 128
+FWD_LENGTHS = (128, 512, 2048)   # phase 2's forward grid, D=64
+# Phase 2's forward cases beyond the flagship's grid, (Hkv, Sq, Sk, D) at
+# B=4, Hq=8: ragged lengths, Sq != Sk (the reference's top-left causal
+# mask) and the wide head.
+FWD_EXTRA_CASES = ((8, 200, 200, 64), (4, 77, 131, 64), (4, 512, 512, 128))
 BWD_LENGTHS = (128, 512, 2048, 200)   # 200: ragged, no multiple of 64
 # RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
 # version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
@@ -144,16 +165,18 @@ def graph_ms(fn, iters: int = 24) -> float:
 
 
 def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
-    """(bound_ms, bound_by): the larger of operations over the bf16
-    tensor-core peak and bytes (q, k, v read once; O, LSE written once)
-    over HBM bandwidth."""
+    """(bound_ms, bound_by): the larger of operations over the card's peak
+    for the inputs' type (bf16 tensor cores; f32 outside them, as the f32
+    path computes) and bytes (q, k, v read once; O, LSE written once) over
+    HBM bandwidth."""
     elt = torch.finfo(dtype).bits // 8
     ops = 4.0 * B * Hq * S * S * D
     if causal:
         ops *= (S + 1) / (2.0 * S)   # the pairs a causal mask keeps
     nbytes = elt * (2 * B * Hq * S * D + 2 * B * Hkv * S * D) \
         + 4 * B * Hq * S
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -174,23 +197,63 @@ def backward_bound(B, H, S, D, dtype, causal, kind):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-KERNEL_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
+                    "flash_attention_bwd")
+WGMMA_LIBRARY = "flash_attention_fwd_wgmma"
 
 
 def ptxas_summary(report: str):
-    """ptxas's register and spill lines, each under the kernel it names
-    (kernel<dtype, per-thread slice of D>, 16 being D = 64)."""
+    """ptxas's register and spill lines, each under the kernel it names:
+    kernel<dtype, per-thread slice of D> for the CUDA-core kernels (16
+    being D = 64), flash_fwd_wgmma_kernel<D> for the tensor-core one."""
     out, name = [], "?"
     for ln in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
                           r"I(13__nv_bfloat16|f)Li(\d+)E", entry.group(1))
-            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}"
-                    f", {m.group(3)}>" if m else entry.group(1))
+            w = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)E",
+                          entry.group(1))
+            if m:
+                name = (f"{m.group(1)}<"
+                        f"{'f32' if m.group(2) == 'f' else 'bf16'}, "
+                        f"{m.group(3)}>")
+            elif w:
+                name = f"{w.group(1)}<{w.group(2)}>"
+            else:
+                name = entry.group(1)
         elif "registers" in ln or "bytes spill" in ln:
             out.append(f"{name}: {ln.replace('ptxas info    :', '').strip()}")
     return out
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy bundled with Triton."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidates = [Path("/usr/local/cuda/bin/cuobjdump")]
+    try:
+        import triton
+
+        candidates.append(Path(triton.__file__).parent / "backends"
+                          / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("cuobjdump not found (CUDA toolkit or Triton)")
+
+
+def sass_counts(library: Path):
+    """Counts of tensor-core (HGMMA), TMA load (UTMALDG) and TMA store
+    (UTMASTG) instructions in a library's SASS."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "UTMASTG")}
 
 
 def phase_build():
@@ -199,14 +262,19 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
+    sass = sass_counts(paths[KERNEL_LIBRARIES.index(WGMMA_LIBRARY)])
     emit({"phase": "build", "libraries": [p.name for p in paths],
           "seconds": seconds,
           "nvcc_seconds": {n: _build.build_info[n][0]
                            for n in KERNEL_LIBRARIES},
           "ptxas": {n: ptxas_summary(_build.build_info[n][1])
                     for n in KERNEL_LIBRARIES},
+          "sass_" + WGMMA_LIBRARY: sass,
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
+    if not sass["HGMMA"] or not sass["UTMALDG"]:
+        raise AssertionError(f"{WGMMA_LIBRARY} has no wgmma or no TMA load "
+                             f"in its SASS: {sass}")
 
 
 def compare(o, lse, ro, rlse):
@@ -222,75 +290,127 @@ def compare(o, lse, ro, rlse):
 
 
 def phase_kernels(dev):
-    """Kernel vs plain at every listed shape; timings at S=2048 and at the
-    main path's S=512. Each case also reads a planted fault (the plain
-    version with one 64-key tile of V zeroed, i.e. that tile's P.V
-    dropped) through the same comparison, and fails unless the check
-    flags it."""
+    """Forward kernels vs plain at every listed shape; timings at S=2048
+    and at the main path's S=512. Each case checks that the variant the
+    wrapper's rule picks (bf16 D 64/128: tensor cores; f32: CUDA cores)
+    is the one that launched, and reads a planted fault (the plain version
+    with one 64-key tile of V zeroed, i.e. that tile's P.V dropped)
+    through the same comparison, failing unless the check flags it."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    B, Hq, D = 4, 8, 64
+    B, Hq = 4, 8
+    cases = [(Hkv, S, S, 64) for Hkv in KV_HEADS for S in FWD_LENGTHS]
+    cases += list(FWD_EXTRA_CASES)
     checks = []
     timing = {}
-    for Hkv in KV_HEADS:
-        for S in (128, 512, 2048):
-            for dtype in (torch.bfloat16, torch.float32):
-                q = torch.randn((B, Hq, S, D), generator=gen, device=dev,
-                                dtype=torch.float32).to(dtype)
-                k = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                                dtype=torch.float32).to(dtype)
-                v = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                                dtype=torch.float32).to(dtype)
-                t0 = 64 * ((S // 2) // 64)
-                v_fault = v.clone()
-                v_fault[:, :, t0:t0 + 64] = 0
-                for causal in (True, False):
-                    o, lse = fa._flash_forward(q, k, v, causal)
-                    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
-                    fo, flse = fa._dense(q, k, v_fault, causal, D ** -0.5)
-                    torch.cuda.synchronize()
-                    err_abs, err_row, err_lse = compare(o, lse, ro, rlse)
-                    _, fault_row, _ = compare(fo, flse, ro, rlse)
-                    tol = O_ROW_TOL[dtype]
-                    ok = (err_row <= tol and err_lse <= 1.0
-                          and bool(torch.isfinite(o).all()))
-                    checks.append({"Hkv": Hkv, "S": S,
-                                   "dtype": str(dtype).split(".")[1],
-                                   "causal": causal, "err_o_abs": err_abs,
-                                   "err_o_row": err_row, "tol_o_row": tol,
-                                   "err_lse_of_limit": err_lse,
-                                   "fault_o_row": fault_row, "ok": ok})
-                    if not ok or fault_row <= tol:
-                        emit({"phase": "kernels", "checks": checks})
-                        raise AssertionError(
-                            f"flash kernel disagrees with plain, or the "
-                            f"check misses a planted fault: {checks[-1]}")
-                    if dtype == torch.bfloat16 and causal and S >= 512:
-                        timing[f"Hkv{Hkv}_S{S}"] = _time_kernel(
-                            fa, q, k, v, err_abs)
+    for Hkv, Sq, Sk, D in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+            k = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+            v = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+            t0 = 64 * ((Sk // 2) // 64)
+            v_fault = v.clone()
+            v_fault[:, :, t0:t0 + 64] = 0
+            variant = fa._forward_variant(dtype, D)
+            for causal in (True, False):
+                before = _variant_counts(fa)
+                o, lse = fa._flash_forward(q, k, v, causal)
+                launched = {n: c - before[n]
+                            for n, c in _variant_counts(fa).items()}
+                ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+                fo, flse = fa._dense(q, k, v_fault, causal, D ** -0.5)
+                torch.cuda.synchronize()
+                err_abs, err_row, err_lse = compare(o, lse, ro, rlse)
+                _, fault_row, _ = compare(fo, flse, ro, rlse)
+                tol = O_ROW_TOL[dtype]
+                ok = (err_row <= tol and err_lse <= 1.0
+                      and bool(torch.isfinite(o).all())
+                      and launched == {variant: 1,
+                                       _OTHER_VARIANT[variant]: 0})
+                checks.append({"Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D,
+                               "dtype": str(dtype).split(".")[1],
+                               "causal": causal, "variant": variant,
+                               "launched": launched, "err_o_abs": err_abs,
+                               "err_o_row": err_row, "tol_o_row": tol,
+                               "err_lse_of_limit": err_lse,
+                               "fault_o_row": fault_row, "ok": ok})
+                if not ok or fault_row <= tol:
+                    emit({"phase": "kernels", "checks": checks})
+                    raise AssertionError(
+                        f"flash kernel disagrees with plain, the wrong "
+                        f"variant launched, or the check misses a planted "
+                        f"fault: {checks[-1]}")
+                if causal and D == 64 and Sq == Sk and Sq >= 512 and (
+                        dtype == torch.bfloat16 or Hkv == Hq):
+                    timing[f"{_dtype_name(dtype)}_Hkv{Hkv}_S{Sq}"] = \
+                        _time_kernel(fa, q, k, v, err_abs)
     emit({"phase": "kernels", "checks": checks, "timing": timing})
     return timing
 
 
+_OTHER_VARIANT = {"wgmma": "simt", "simt": "wgmma"}
+
+
+def _dtype_name(dtype):
+    return str(dtype).split(".")[1]
+
+
+def _variant_counts(fa):
+    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+
+
+def _simt_forward(fa, q, k, v, causal):
+    """The CUDA-core kernel called straight through its C entry point on any
+    input it takes (bf16 included), bypassing the wrapper's rule of shapes:
+    the earlier design, timed beside the tensor-core kernel on the same
+    inputs. Counts no launch."""
+    B, Hq, Sq, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    err = fa._kernel_fn("flash_attention_fwd", "flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D, D ** -0.5,
+        int(bool(causal)), fa._DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: {err}")
+    return o, lse
+
+
 def _time_kernel(fa, q, k, v, err_o):
+    """Device times of the kernel, the CUDA-core kernel on the same inputs
+    and SDPA through CUDA graphs (at S=512 the tensor-core kernel is shorter
+    than the wrapper's host cost, which launch-by-launch timing would
+    read); the plain version by events."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
-    n = fa.launches
-    kernel_ms = cuda_ms(lambda: fa._flash_forward(q, k, v, True))
-    fa.launches = n   # timing launches are not the main path's
+    n = fa.launches, fa.wgmma_launches, fa.simt_launches
+    kernel_ms = graph_ms(lambda i: fa._flash_forward(q, k, v, True))
+    # timing launches are not the main path's
+    fa.launches, fa.wgmma_launches, fa.simt_launches = n
+    simt_ms = None
+    if fa._forward_variant(q.dtype, D) == "wgmma":
+        simt_ms = graph_ms(lambda i: _simt_forward(fa, q, k, v, True))
     plain_ms = cuda_ms(lambda: fa._dense(q, k, v, True, D ** -0.5),
                        iters=5)
     try:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=Hkv != Hq))
     except TypeError:   # a PyTorch without enable_gqa: pre-expanded K/V
         ke = k.repeat_interleave(Hq // Hkv, dim=1)
         ve = v.repeat_interleave(Hq // Hkv, dim=1)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=True))
     bound_ms, bound_by = attention_bound(B, Hq, Hkv, S, D, q.dtype, True)
-    return {"shape": [B, Hq, Hkv, S, D], "dtype": "bfloat16",
-            "causal": True, "max_abs_err": err_o, "kernel_ms": kernel_ms,
+    ops = 4.0 * B * Hq * S * S * D * (S + 1) / (2.0 * S)
+    return {"shape": [B, Hq, Hkv, S, D], "dtype": _dtype_name(q.dtype),
+            "causal": True, "variant": fa._forward_variant(q.dtype, D),
+            "max_abs_err": err_o, "kernel_ms": kernel_ms,
+            "tflops": ops / kernel_ms * 1e-9,
+            "simt_kernel_ms": simt_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -475,9 +595,10 @@ def _tables(rng, n_seqs, blocks_each):
 
 def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     """prefill_with_cache on right-padded prompts, then greedy
-    decode_steps, with the flash launch count set to 0 just before.
+    decode_steps, with the flash launch counts set to 0 just before.
     Returns (prefill logits, greedy tokens per prompt, launches after the
-    prefill, launches after the decodes, tables, tokens, prompt lens)."""
+    prefill, launches after the decodes, tables, tokens, prompt lens,
+    launches per forward variant after the prefill)."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -492,11 +613,12 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     lens = torch.tensor([len(p) for p in prompts], device=dev)
     bt = torch.from_numpy(tables).to(dev)
     tok_t = torch.from_numpy(toks).to(dev)
-    fa.launches = 0
+    fa.launches = fa.wgmma_launches = fa.simt_launches = 0
     logits, cache = tm.prefill_with_cache(cfg, params, cache, tok_t, lens,
                                           bt)
     torch.cuda.synchronize()
     after_prefill = fa.launches
+    variants = _variant_counts(fa)
     nxt = torch.argmax(logits, dim=-1)
     out = [[int(t)] for t in nxt.tolist()]
     pos = lens.clone()
@@ -509,7 +631,8 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite prefill logits")
-    return logits, out, after_prefill, fa.launches, bt, tok_t, lens
+    return (logits, out, after_prefill, fa.launches, bt, tok_t, lens,
+            variants)
 
 
 def phase_model(dev, base, lens, pad_to, decode_steps):
@@ -523,13 +646,18 @@ def phase_model(dev, base, lens, pad_to, decode_steps):
                                    cfg, dev)
         prompts = _prompts(np.random.default_rng(SEED), lens,
                            cfg.vocab_size)
-        logits, out, after_prefill, after_all, bt, toks, plens = flash_path(
-            cfg, params, prompts, pad_to, decode_steps, dev)
-        if after_prefill != cfg.n_layers or after_all != cfg.n_layers:
+        (logits, out, after_prefill, after_all, bt, toks, plens,
+         variants) = flash_path(cfg, params, prompts, pad_to, decode_steps,
+                                dev)
+        variant = fa._forward_variant(cfg.dtype, cfg.head_dim)
+        want_variants = {variant: cfg.n_layers, _OTHER_VARIANT[variant]: 0}
+        if (after_prefill != cfg.n_layers or after_all != cfg.n_layers
+                or variants != want_variants):
             raise AssertionError(
                 f"{name}: flash kernel launched {after_prefill} times in "
-                f"prefill_with_cache and {after_all} in all, expected "
-                f"{cfg.n_layers} (one per layer, none in decode)")
+                f"prefill_with_cache ({variants} by variant) and "
+                f"{after_all} in all, expected {cfg.n_layers} of variant "
+                f"{variant} (one per layer, none in decode)")
         # The same prompts through prefill_chunk (plain paged attention)
         # into a fresh cache: the last-position logits must agree.
         cache2 = tm.init_kv_cache(cfg, int(bt.max()) + 1, BLOCK_SIZE,
@@ -555,6 +683,7 @@ def phase_model(dev, base, lens, pad_to, decode_steps):
         results[name] = {"n_kv_heads": cfg.n_kv_heads,
                          "launches": after_all,
                          "launches_per_prefill": after_prefill,
+                         "launches_per_prefill_by_variant": variants,
                          "forward_len": RAGGED_LEN,
                          "forward_launches": ragged_launches,
                          "forward_vs_prefill_max_abs": diff_ragged,
@@ -664,8 +793,8 @@ def phase_engine(dev, card, cfg, lens, model_lens, pad_to, new_tokens):
     params32 = tm.init_params(cfg32, SEED, device=dev)
     prompts3 = _prompts(np.random.default_rng(SEED), model_lens,
                         cfg32.vocab_size)
-    _, flash_tokens, _, _, _, _, _ = flash_path(
-        cfg32, params32, prompts3, pad_to, new_tokens - 1, dev)
+    flash_tokens = flash_path(
+        cfg32, params32, prompts3, pad_to, new_tokens - 1, dev)[1]
     engine32 = InferenceEngine(EngineConfig(
         model=cfg32, num_blocks=512, block_size=BLOCK_SIZE,
         device=str(dev)), params=params32)
@@ -693,7 +822,8 @@ def _counts():
     from ray_tpu_torch.ops import fused
 
     fa = _flash_module()
-    return {"fwd": fa.launches, "dq": fa.dq_launches,
+    return {"fwd": fa.launches, "wgmma": fa.wgmma_launches,
+            "simt": fa.simt_launches, "dq": fa.dq_launches,
             "dkv": fa.dkv_launches, "rms": fused.launches}
 
 
@@ -701,7 +831,8 @@ def _zero_counts():
     from ray_tpu_torch.ops import fused
 
     fa = _flash_module()
-    fa.launches = fa.dq_launches = fa.dkv_launches = fused.launches = 0
+    fa.launches = fa.wgmma_launches = fa.simt_launches = 0
+    fa.dq_launches = fa.dkv_launches = fused.launches = 0
 
 
 @contextlib.contextmanager
@@ -781,8 +912,10 @@ def phase_train(dev, card, base):
                 grads_f = _loss_and_grads(cfg32, params, inputs, targets)[1]
             err_fault = _grad_errors(grads_f, grads_p)
             del grads_f
-        want = {"fwd": L, "dq": L, "dkv": L, "rms": 0}
-        want_remat = {"fwd": 2 * L, "dq": L, "dkv": L, "rms": 0}
+        want = {"fwd": L, "wgmma": 0, "simt": L, "dq": L, "dkv": L,
+                "rms": 0}
+        want_remat = {"fwd": 2 * L, "wgmma": 0, "simt": 2 * L, "dq": L,
+                      "dkv": L, "rms": 0}
         err_plain = _grad_errors(grads_k, grads_p)
         err_remat = _grad_errors(grads_r, grads_k)
         res = {"n_kv_heads": cfg.n_kv_heads, "f32_loss_kernels": loss_k,
@@ -809,8 +942,39 @@ def phase_train(dev, card, base):
                 f"missed {missed}; launches {counts}, remat "
                 f"{counts_remat}, plain {counts_plain})")
 
-        # (b, c) bf16 AdamW steps on one fixed batch: the main path.
+        # (b) bf16, the main path's type: the loss of the first step
+        # through the kernels against plain attention, and one pass's
+        # launches by forward variant, without and with remat.
         params = tm.init_params(cfg, SEED, device=dev)
+        _zero_counts()
+        loss_kb = _loss_and_grads(cfg, params, inputs, targets)[0]
+        counts_b = _counts()
+        _zero_counts()
+        _loss_and_grads(dataclasses.replace(cfg, remat=True), params,
+                        inputs, targets)
+        counts_b_remat = _counts()
+        with _attention_swapped("plain"):
+            loss_pb = _loss_and_grads(cfg, params, inputs, targets)[0]
+        err_loss = abs(loss_kb - loss_pb) / abs(loss_pb)
+        want_b = {"fwd": L, "wgmma": L, "simt": 0, "dq": L, "dkv": L,
+                  "rms": 0}
+        want_b_remat = {**want_b, "fwd": 2 * L, "wgmma": 2 * L}
+        res.update({"bf16_loss_kernels": loss_kb, "bf16_loss_plain": loss_pb,
+                    "bf16_loss_err_vs_plain": err_loss,
+                    "bf16_loss_tol": TRAIN_LOSS_TOL_BF16,
+                    "bf16_launches_per_pass": counts_b,
+                    "bf16_launches_per_pass_remat": counts_b_remat})
+        torch.cuda.empty_cache()
+        if (not err_loss <= TRAIN_LOSS_TOL_BF16 or counts_b != want_b
+                or counts_b_remat != want_b_remat):
+            emit({"phase": "train", "results": results})
+            raise AssertionError(
+                f"{name}: bf16 loss through the kernels {loss_kb} against "
+                f"{loss_pb} through plain attention, or launches per pass "
+                f"{counts_b} (remat {counts_b_remat}), expected {want_b} "
+                f"(remat {want_b_remat})")
+
+        # (c) bf16 AdamW steps on one fixed batch: the main path.
         step = tm.make_train_step(cfg, params)
         losses, step_s = [], []
         _zero_counts()
@@ -822,7 +986,8 @@ def phase_train(dev, card, base):
             losses.append(loss)
         counts = _counts()
         n = TRAIN_STEPS
-        want = {"fwd": n * L, "dq": n * L, "dkv": n * L, "rms": 0}
+        want = {"fwd": n * L, "wgmma": n * L, "simt": 0, "dq": n * L,
+                "dkv": n * L, "rms": 0}
         res.update({"bf16_losses": losses, "bf16_launches": counts,
                     "bf16_step_s": step_s})
         del params, step
@@ -880,21 +1045,43 @@ def main() -> int:
         "rms": "ray_tpu/ops/fused.py:47 (_rms_kernel via rms_norm_fused)",
     }
     kernels = []
+    wgmma_source = "ray_tpu_torch/ops/csrc/flash_attention_fwd_wgmma.cu"
+    simt_source = "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu"
     for name, Hkv in (("mha", model["mha"]["n_kv_heads"]),
                       ("gqa", model["gqa"]["n_kv_heads"])):
-        t = timing[f"Hkv{Hkv}_S2048"]
+        t = timing[f"bfloat16_Hkv{Hkv}_S2048"]
+        t512 = timing[f"bfloat16_Hkv{Hkv}_S512"]
         kernels.append({
             "name": f"flash_attention_fwd[{name}]",
-            "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "route": "cuda", "variant": "wgmma", "source": wgmma_source,
             "replaces": replaces[name],
-            "launches": model[name]["launches"],
-            "launches_train": train[name]["bf16_launches"]["fwd"],
+            "launches": model[name]["launches_per_prefill_by_variant"][
+                "wgmma"],
+            "launches_train": train[name]["bf16_launches"]["wgmma"],
             "max_abs_err": t["max_abs_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "tflops": t["tflops"],
+            "simt_kernel_ms": t["simt_kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"], "card": card})
+            "shape": t["shape"],
+            "S512": {k: t512[k] for k in (
+                "kernel_ms", "simt_kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "shape")},
+            "card": card})
+    # The CUDA-core variant on the main path: f32 (phase 5's f32 gradient
+    # passes, phase 4's f32 engine check), timed on f32 inputs.
+    t = timing["float32_Hkv8_S2048"]
+    kernels.append({
+        "name": "flash_attention_fwd[f32]",
+        "route": "cuda", "variant": "simt", "source": simt_source,
+        "replaces": replaces["mha"],
+        "launches": train["mha"]["launches_per_pass"]["simt"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"], "dtype": "float32", "card": card})
     for kind in ("dq", "dkv"):
         t = bwd[kind]
         kernels.append({

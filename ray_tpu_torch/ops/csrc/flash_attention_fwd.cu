@@ -1,4 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), one kernel for MHA and GQA.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores, one kernel
+// for MHA and GQA. The wrapper's rule of shapes sends bf16 with head_dim 64
+// or 128 to the tensor-core kernel (flash_attention_fwd_wgmma.cu); this one
+// takes f32, whose limit TF32 products would break, and every other
+// head_dim.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
@@ -13,11 +17,10 @@
 // 4 * Sq * Sk * D operations (halved when causal). At the serving shapes
 // (S = 2048, D = 64, bf16, causal) that is ~500 operations per byte moved,
 // above the card's ~295 ops/byte ridge, so the work is bound by operations
-// even on the tensor cores (989 TFLOP/s bf16). This first version does its
-// dot products on the CUDA cores in f32 (67 TFLOP/s peak), about 15x below
-// the tensor-core rate, and is limited in practice by its shared-memory
-// reads (one float per FMA): moving Q.K^T and P.V onto wgmma with TMA-fed
-// tiles is later work. The score matrix never leaves the SM, so bytes are
+// even on the tensor cores (989 TFLOP/s bf16). This kernel does its dot
+// products on the CUDA cores in f32 (67 TFLOP/s peak), about 15x below the
+// tensor-core rate, and is limited in practice by its shared-memory reads
+// (one float per FMA). The score matrix never leaves the SM, so bytes are
 // read and written once.
 //
 // Design (not the TPU's blocks):

@@ -1,0 +1,364 @@
+// Flash-attention forward on Hopper's tensor cores (sm_90a): TMA-fed tiles,
+// wgmma products, one producer warpgroup and two consumer warpgroups. bf16
+// inputs with head_dim 64 or 128; f32 and other widths keep the CUDA-core
+// kernel of flash_attention_fwd.cu (the wrapper's rule of shapes).
+//
+// Replaces the Pallas TPU kernel `_attn_kernel` of
+// ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
+// `_flash_forward_grouped` (GQA, K/V kept at n_kv_heads width), and
+// computes what it computes: O = softmax(scale * Q K^T [causal-masked]) V
+// with an online softmax in f32, LSE = m + log(l) of the scaled scores as
+// [B, Hq, Sq] f32 (the backward kernels read it). Masking is finite
+// (-1e30) and l is clamped at 1e-30, as in the reference.
+//
+// What bounds it on the H100. Per (batch, query head) it reads Q, K, V
+// once and writes O and LSE once; the work is 4 * Sq * Sk * D operations
+// (about half of it when causal). At B=4, H=8, S=2048, D=64, causal, that
+// is ~17 GFLOP against ~8.5 MB moved, so the bound is operations (0.017 ms
+// at 989 TFLOP/s); at the serving shape S=512 it is bytes (0.0025 ms at
+// 3.35 TB/s), and 128 CTAs on 132 SMs leave the card one wave deep. What
+// the design does about it:
+// - Both products run on wgmma (the only path to the tensor-core rate):
+//   S = Q K^T as m64n128k16 with Q and K read from shared memory (K-major,
+//   as K is stored), O += P V as m64nDk16 with P in registers and V read
+//   MN-major from shared memory (no transpose pass).
+// - One producer warp starts TMA copies: Q once, then K and V tiles of 128
+//   keys through a ring of kStages slots, each with a full and an empty
+//   mbarrier, so loads run ahead of the products. Causal tiles past the
+//   diagonal are never loaded. The producer gives its registers to the
+//   consumers (setmaxnreg), which hold S (64 f32), O (D/2 f32) and P.
+// - 3-D tensor maps over [B*H, S, D] with 128-byte swizzle: a D=64 bf16 row
+//   is exactly one 128-byte swizzle row (D=128 is two 64-column boxes); a
+//   ragged tile is zero-filled by the hardware and never reads the next
+//   head's rows; zero-filled keys score 0 and are masked to -1e30.
+// - Each CTA owns 128 query rows of one (b, h), 64 per consumer warpgroup;
+//   the grid schedules the heaviest causal tiles (the last rows) first, so
+//   the last wave is not one long tile.
+// - The epilogue stages O (bf16) in the warpgroup's Q rows in shared memory
+//   and a TMA store writes it, clipping rows past Sq.
+// Rounding points are the reference's: scores in f32, the scale applied to
+// the f32 scores, p rounded to bf16 before P.V while l sums the unrounded
+// p, one cast of O. At D=64 the scale (1/8) is a power of two, so scaling
+// the f32 score equals the reference's scaling of Q in bf16; at D=128 the
+// reference rounds q * scale to bf16 first (a relative difference of up to
+// 2^-9 per element of q).
+//
+// Launches on the caller's stream and allocates nothing.
+
+#include "hopper_tma_wgmma.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kBlockM = 128;     // query rows per CTA (2 consumer warpgroups)
+constexpr int kBlockN = 128;     // keys per K/V tile
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kConsumerThreads = 256;
+constexpr int kThreads = kConsumerThreads + 128;  // + producer warpgroup
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int kD>
+struct Layout {
+  static constexpr int kColBlocks = kD / 64;  // 128-byte column blocks
+  static constexpr int kQBytes = kBlockM * kD * 2;
+  static constexpr int kKVBytes = kBlockN * kD * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  // q_full, then k_full, v_full, k_empty, v_empty for each stage.
+  static constexpr int kBytes = kBars + (1 + 4 * kStages) * 8;
+  // Dynamic shared memory is only 16-byte aligned: ask for a swizzle atom
+  // more and round the base up to 1024 bytes.
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Register layout of a wgmma f32 accumulator (64 x N over a warpgroup):
+// warp w holds rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of
+// those; value i is column 8 * (i / 4) + 2 * (l % 4) + (i % 2) of row
+// l/4 + 8 * ((i / 2) % 2). The bf16 A operand of the next wgmma has the
+// same pattern per 16 columns, so P needs no shuffle: its k-step t is the
+// pairs of values 8t..8t+7.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o,
+                       float* __restrict__ lse, int hq, int hkv, int sq,
+                       int sk, float scale, int causal) {
+  using L = Layout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base + L::kQ;
+  const uint32_t k_s = base + L::kK;
+  const uint32_t v_s = base + L::kV;
+  const uint32_t q_full = base + L::kBars;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * kStages + s); };
+
+  const int bh = blockIdx.x;  // b * hq + h
+  const int b = bh / hq;
+  const int kv_bh = b * hkv + (bh - b * hq) / (hq / hkv);
+  // Heaviest causal tiles first: blockIdx.y 0 takes the last query rows.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;
+  int n_kb = (sk + kBlockN - 1) / kBlockN;
+  if (causal) n_kb = min(n_kb, (min(q0 + kBlockM, sq) - 1) / kBlockN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumerThreads);
+      mbar_init(v_empty(s), kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // Producer warpgroup: one thread starts every copy.
+    regs_dealloc<24>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kColBlocks; ++c) {
+        tma_load_3d(q_s + c * kBlockM * 128, &tm_q, q_full, 64 * c, q0, bh);
+      }
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % kStages;
+        const uint32_t free_parity = ((kb / kStages) & 1) ^ 1;
+        mbar_wait(k_empty(s), free_parity);
+        mbar_arrive_expect_tx(k_full(s), L::kKVBytes);
+        for (int c = 0; c < L::kColBlocks; ++c) {
+          tma_load_3d(k_s + s * L::kKVBytes + c * kBlockN * 128, &tm_k,
+                      k_full(s), 64 * c, kb * kBlockN, kv_bh);
+        }
+        mbar_wait(v_empty(s), free_parity);
+        mbar_arrive_expect_tx(v_full(s), L::kKVBytes);
+        for (int c = 0; c < L::kColBlocks; ++c) {
+          tma_load_3d(v_s + s * L::kKVBytes + c * kBlockN * 128, &tm_v,
+                      v_full(s), 64 * c, kb * kBlockN, kv_bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: 64 query rows each.
+  regs_alloc<240>();
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int r_local = (tid / 32) * 16 + lane / 4;  // row in the warpgroup
+  const int row0 = q0 + wg * 64 + r_local;         // and row0 + 8
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of raw scores per row
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sum
+  float sc[kBlockN / 2];            // scores, then p, of one K/V tile
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int s = kb % kStages;
+    const uint32_t full_parity = (kb / kStages) & 1;
+    const uint32_t k_tile = k_s + s * L::kKVBytes;
+    const uint32_t v_tile = v_s + s * L::kKVBytes;
+
+    // S = Q K^T over the head dimension, 16 columns per wgmma.
+    mbar_wait(k_full(s), full_parity);
+    wgmma_fence();
+    fence_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * (kBlockM * 128) + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * (kBlockN * 128) + (kk % 4) * 32;
+      wgmma_m64n128k16_ss(sc, sw128_desc(q_wg + off, 16, 1024),
+                          sw128_desc(k_tile + koff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(k_empty(s));
+
+    // Only the last tile can hold keys past Sk or past the causal diagonal.
+    if (kb == n_kb - 1 && (causal || sk % kBlockN != 0)) {
+      const int k0 = kb * kBlockN;
+#pragma unroll
+      for (int i = 0; i < kBlockN / 2; ++i) {
+        const int key = k0 + 8 * (i / 4) + col_lane + (i % 2);
+        const int row = row0 + 8 * ((i / 2) % 2);
+        if (key >= sk || (causal && key > row)) sc[i] = kNegInf;
+      }
+    }
+
+    // Online softmax in f32: new row maxima, rescale factors, p.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) {
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    }
+    float alpha[2], neg[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = fast_exp2((m[h] - mx[h]) * scale_log2);
+      neg[h] = -mx[h] * scale_log2;
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) {
+      const int h = (i / 2) % 2;
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, neg[h]));
+      sum[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    // P rounded to bf16 (the reference's rounding point) as A fragments.
+    uint32_t p[kBlockN / 4];
+#pragma unroll
+    for (int i = 0; i < kBlockN / 4; ++i) {
+      p[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+    }
+
+    // O += P V, 16 keys per wgmma; V is MN-major (head dim contiguous).
+    mbar_wait(v_full(s), full_parity);
+    wgmma_fence();
+    fence_regs(o);
+    fence_regs(p);
+#pragma unroll
+    for (int t = 0; t < kBlockN / 16; ++t) {
+      const uint32_t a[4] = {p[4 * t], p[4 * t + 1], p[4 * t + 2],
+                             p[4 * t + 3]};
+      const uint64_t desc_v =
+          sw128_desc(v_tile + t * 16 * 128, kBlockN * 128, 1024);
+      if constexpr (kD == 64) {
+        wgmma_m64n64k16_rs(o, a, desc_v);
+      } else {
+        wgmma_m64n128k16_rs(o, a, desc_v);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    mbar_arrive(v_empty(s));
+  }
+
+  // Epilogue: O = acc / l, LSE = m * scale + log(l).
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = fmaxf(quad_sum(l[h]), 1e-30f);
+    inv[h] = 1.f / lt;
+    const int row = row0 + 8 * h;
+    if (lane % 4 == 0 && row < sq) {
+      lse[(size_t)bh * sq + row] = m[h] * scale + logf(lt);
+    }
+  }
+  // Stage O in this warpgroup's Q rows (its last wgmma reading them has
+  // completed), in the swizzle the TMA store reads.
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int cb = j / 8;        // 64-column block
+    const int chunk = j % 8;     // 16-byte chunk within the 128-byte row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_local + 8 * h;
+      const uint32_t off = cb * (kBlockM * 128) + wg * 64 * 128 + r * 128 +
+                           ((chunk ^ (r % 8)) * 16) + col_lane * 2;
+      *reinterpret_cast<uint32_t*>(smem + L::kQ + off) =
+          pack_bf16x2(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
+    }
+  }
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+  if (tid == 0 && q0 + wg * 64 < sq) {
+    for (int c = 0; c < L::kColBlocks; ++c) {
+      tma_store_3d(&tm_o, q_wg + c * kBlockM * 128, 64 * c, q0 + wg * 64, bh);
+    }
+    tma_store_commit_and_wait();
+  }
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int hq, int hkv, int sq, int sk, float scale,
+           int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  CUresult res = encode_bf16_3d(&tm_q, q, batch * hq, sq, kD, kBlockM);
+  if (res == CUDA_SUCCESS)
+    res = encode_bf16_3d(&tm_k, k, batch * hkv, sk, kD, kBlockN);
+  if (res == CUDA_SUCCESS)
+    res = encode_bf16_3d(&tm_v, v, batch * hkv, sk, kD, kBlockN);
+  if (res == CUDA_SUCCESS)
+    res = encode_bf16_3d(&tm_o, o, batch * hq, sq, kD, 64);
+  if (res != CUDA_SUCCESS) return -(int)res;
+
+  auto kernel = flash_fwd_wgmma_kernel<kD>;
+  const int smem = Layout<kD>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch * hq, (sq + kBlockM - 1) / kBlockM);
+  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o,
+                                           static_cast<float*>(lse), hq, hkv,
+                                           sq, sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D], all contiguous
+// bf16 with 16-byte aligned bases; lse [B, Hq, Sq] f32; D 64 or 128.
+// Returns 0, a cudaError_t, or minus a CUresult when a tensor map cannot be
+// encoded.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
+                                         const void* v, void* o, void* lse,
+                                         int batch, int hq, int hkv, int sq,
+                                         int sk, int d, float scale,
+                                         int causal, void* stream) {
+  if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 ||
+      (d != 64 && d != 128) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ||
+      (sq + kBlockM - 1) / kBlockM > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+                              causal, s)
+                 : launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
+                               scale, causal, s);
+}

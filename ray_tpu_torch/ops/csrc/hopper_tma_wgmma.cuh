@@ -1,0 +1,341 @@
+// Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
+// Accelerator and computing on warpgroup tensor-core instructions: TMA
+// tensor maps and copies, mbarriers, wgmma and its shared-memory
+// descriptors, register rebalancing between warpgroups. Plain C++/PTX, no
+// PyTorch or CUTLASS headers, so a kernel library built on it compiles in
+// seconds.
+//
+// Layout convention: every shared-memory tile is stored as 128-byte rows
+// (64 bf16) in the 128-byte swizzle that a TMA copy with
+// CU_TENSOR_MAP_SWIZZLE_128B writes: the 16-byte chunk c of row r lands at
+// chunk c ^ (r % 8). A tile wider than 64 columns is a sequence of such
+// 64-column blocks. Every tile starts on a 1024-byte boundary (one
+// swizzle atom: 8 rows of 128 bytes), which the descriptors below assume.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the async proxy (TMA) and to the
+// other threads; follow with a block-wide barrier.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival that also tells the barrier how many bytes the TMA copies of
+// this phase will deliver.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed. A
+// freshly initialised barrier counts the phase of parity 1 as completed,
+// so a producer's first wait on an empty slot (parity 1) passes at once.
+// A wait that never ends (a lost arrival) traps instead of hanging the
+// card: no wait in these kernels legitimately lasts more than
+// milliseconds, and 2^28 polls take seconds.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// Copies the box at (c0, c1, c2) (innermost first) of a 3-D tensor map into
+// shared memory at dst; completion is counted in bytes on barrier bar.
+// Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Copies shared memory at src to the box at (c0, c1, c2) of a 3-D tensor
+// map; elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  // The source shared memory may be released once the copy has read it.
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads
+// of the async proxy (a TMA store or a wgmma reading that memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier among `threads` threads (a multiple of 32) on barrier `id` (1..15;
+// 0 is __syncthreads').
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- register rebalancing between warpgroups -------------------------------
+
+template <int kRegs>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (each in 16-byte units), layout
+// type 1 (128-byte swizzle) in bits 62-63. K-major operands (the reduction
+// dimension contiguous) use sbo = 1024 (8 rows of 128 bytes) and ignore lbo;
+// MN-major operands use sbo = 1024 (8 rows of the reduction dimension) and
+// lbo = the byte distance between 64-column blocks.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Orders register and shared-memory accesses before the wgmma that follow.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Keeps the compiler from moving accesses to registers that an
+// asynchronous wgmma reads or writes across its start or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Two f32 values as one register of bf16 (lo in the low half), the layout
+// of a wgmma A operand in registers.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
+// memory (128-byte swizzle), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs in
+// the accumulator's row/column pattern), B MN-major in shared memory
+// (128-byte swizzle), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs in
+// the accumulator's row/column pattern), B MN-major in shared memory
+// (128-byte swizzle), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+// ---- host: tensor maps -----------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the CUDA runtime's
+// entry-point query (no link against libcuda). Null if it is missing.
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 array [outer, rows, cols] with boxes
+// of [1, box_rows, 64] in 128-byte swizzle. Rows past `rows` read as zeros
+// and are not written, so a ragged edge never touches the next slice.
+inline CUresult encode_bf16_3d(CUtensorMap* map, const void* ptr, int outer,
+                               int rows, int cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace hopper

@@ -1,9 +1,14 @@
 """Flash attention: hand-written Hopper kernels and their plain PyTorch
 versions (counterpart of ``ray_tpu/ops/flash_attention.py``).
 
-The forward kernel (``csrc/flash_attention_fwd.cu``) replaces the Pallas
-``_attn_kernel`` in both of its launches: ``_flash_forward`` (MHA) and
-``_flash_forward_grouped`` (GQA, K/V at ``n_kv_heads`` width). The
+The forward replaces the Pallas ``_attn_kernel`` in both of its launches:
+``_flash_forward`` (MHA) and ``_flash_forward_grouped`` (GQA, K/V at
+``n_kv_heads`` width). It has two kernels, picked by a rule of shapes
+(``_forward_variant``): bf16 with head_dim 64 or 128 runs on the tensor
+cores (``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp
+specialisation); f32 and every other head_dim run on the CUDA cores
+(``csrc/flash_attention_fwd.cu``), whose f32 arithmetic the f32 limits
+rest on. Neither gives way to the other on an error: the wrapper raises. The
 backward kernels (``csrc/flash_attention_bwd.cu``, dQ and dK/dV) replace
 ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
 ``_flash_bwd_rule`` launches. A wrapper launches its kernel for CUDA
@@ -27,7 +32,9 @@ NEG_INF = -1e30
 
 # Kernel launches made by this module's wrappers, one count per kernel
 # (callers reset them to 0 around the run they want to attribute).
-launches = 0        # forward
+launches = 0        # forward, both variants
+wgmma_launches = 0  # forward on the tensor cores (bf16, D 64 or 128)
+simt_launches = 0   # forward on the CUDA cores (f32, other D)
 dq_launches = 0     # backward dQ
 dkv_launches = 0    # backward dK/dV
 
@@ -37,6 +44,8 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     ("flash_attention_fwd", "flash_attention_fwd"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _VP],
     ("flash_attention_bwd", "flash_attention_bwd_dq"):
         [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd", "flash_attention_bwd_dkv"):
@@ -151,22 +160,41 @@ def _check_kernel_inputs(tensors, names):
                          f"of 8 up to 128, got {D}")
 
 
+def _forward_variant(dtype: torch.dtype, D: int) -> str:
+    """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
+    for bf16 with head_dim 64 or 128, ``"simt"`` (CUDA cores) otherwise.
+    f32 stays on the CUDA cores because TF32 products would break its
+    limit (``testing.O_ROW_TOL``)."""
+    return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+
+
 def _launch(q, k, v, causal, scale):
-    global launches
+    global launches, wgmma_launches, simt_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    fn = _kernel_fn("flash_attention_fwd", "flash_attention_fwd")
+    variant = _forward_variant(q.dtype, D)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
-             int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
+            int(bool(causal)))
+    if variant == "wgmma":
+        name = "flash_attention_fwd_wgmma"
+        err = _kernel_fn(name, name)(*args, stream)
+    else:
+        name = "flash_attention_fwd"
+        err = _kernel_fn(name, name)(*args, _DTYPE_CODE[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: "
+                           + (f"CUDA error {err}" if err > 0 else
+                              f"tensor map encoding, CUresult {-err}"))
     launches += 1
+    if variant == "wgmma":
+        wgmma_launches += 1
+    else:
+        simt_launches += 1
     return o, lse
 
 

@@ -50,6 +50,16 @@ GRAD_ROW_FLOOR = 2.0 ** -8
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 RMS_TOL_CAST_FIRST = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 
+# The bf16 flagship's training loss through the kernels against the same
+# loss through plain attention (chip_smoke.py), |loss - ref| / |ref|. The
+# two differ only in attention, which rounds at other places (the plain
+# version rounds each score to bf16 twice, the kernel keeps f32 scores): a
+# few bf16 ulps per element, within O_ROW_TOL of a row. The loss is a mean
+# over 8192 tokens of f32 log-softmax terms, so differences of either sign
+# average out; to move the loss by one bf16 ulp of itself (2**-8) every
+# token would have to move the same way by that much.
+TRAIN_LOSS_TOL_BF16 = 2.0 ** -8
+
 
 def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Max over rows of max|got - ref| in the row, over the row's largest

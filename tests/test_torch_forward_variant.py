@@ -1,0 +1,78 @@
+"""The flash forward's rule of shapes (which kernel a CUDA input takes) and
+the CPU path, which the rule does not touch: a CPU tensor takes the plain
+version, launches nothing, and agrees with the JAX reference's Pallas
+kernel run in interpret mode (as tests/test_ops.py runs it).
+
+The kernels themselves are held against the plain version on the card by
+tests/test_torch_kernels.py and chip_smoke.py.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+jax_fa = importlib.import_module("ray_tpu.ops.flash_attention")
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+# bf16 against the reference: the reference rounds the scaled q and the
+# scores to bf16 inside its kernel, the plain version rounds the scores
+# after the einsum; one bf16 ulp of an O(1) output is 2**-8 ~ 4e-3, so a
+# few (as tests/test_torch_ops.py allows).
+BF16_ATOL = 2e-2
+# LSE is f32 of bf16 scores: a few ulps of scores of size ~|lse|.
+LSE_ATOL = 3e-2
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 40, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_forward_variant_rule(dtype, D, variant):
+    """Tensor cores for bf16 at head_dim 64 or 128 only; f32 stays on the
+    CUDA cores (TF32 would break its limit), as does every other width."""
+    assert fa._forward_variant(dtype, D) == variant
+
+
+def _counts():
+    return fa.launches, fa.wgmma_launches, fa.simt_launches
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_cpu_forward_takes_plain_version_at_wgmma_shapes(D, grouped):
+    """bf16 at a head_dim the tensor-core kernel takes on the card: on the
+    CPU the forward is the plain version (no launch counted) and agrees
+    with the reference's Pallas kernel in interpret mode, O and LSE."""
+    B, Hq, S = 1, 4, 64
+    Hkv = 2 if grouped else Hq
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (
+        (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    before = _counts()
+    o, lse = fa._flash_forward(tq, tk, tv, True)
+    assert _counts() == before
+    ro, rlse = fa._dense(tq, tk, tv, True, D ** -0.5)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    if grouped:
+        ref = jax_fa._flash_forward_grouped(jq, jk, jv, True, D ** -0.5,
+                                            32, 32, True)
+        ref_lse = None   # the grouped launch returns O only
+    else:
+        ref, ref_lse = jax_fa._flash_forward(jq, jk, jv, True, D ** -0.5,
+                                             32, 32, True)
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=BF16_ATOL)
+    if ref_lse is not None:
+        np.testing.assert_allclose(lse.numpy(),
+                                   np.asarray(ref_lse[:, :, 0]),
+                                   atol=LSE_ATOL)

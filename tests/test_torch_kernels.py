@@ -84,6 +84,57 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention_grouped(q.requires_grad_(), k, v)
 
 
+# The tensor-core forward (bf16, head_dim 64 or 128): MHA and GQA groups 2
+# and 4, lengths that fill 128-row tiles, ragged ones, the training length
+# and Sq != Sk (the reference's top-left causal mask).
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
+                                   (77, 131)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_kernel_matches_plain(cuda_device, D, Hq, Hkv, Sq, Sk,
+                                          causal):
+    q, k, v = _qkv(6, 2, Hq, Hkv, Sq, Sk, D, torch.bfloat16, cuda_device)
+    before = fa.wgmma_launches, fa.simt_launches
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (fa.wgmma_launches, fa.simt_launches) == (before[0] + 1,
+                                                     before[1])
+    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
+                                                        D, variant):
+    q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
+    before = {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+    fa._flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    after = {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+    assert {n: after[n] - before[n] for n in after} == {
+        "wgmma": int(variant == "wgmma"), "simt": int(variant == "simt")}
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_kernel_refuses_misaligned_or_strided_input(cuda_device):
+    q, k, v = _qkv(8, 1, 2, 2, 64, 64, 64, torch.bfloat16, cuda_device)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda_device)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    before = fa.launches
+    with pytest.raises(ValueError):
+        fa._flash_forward(shifted, k, v, True)
+    with pytest.raises(ValueError):
+        fa._flash_forward(q.transpose(2, 3), k, v, True)
+    assert fa.launches == before
+
+
 # Backward kernels against the plain backward (_dense_backward), per row
 # of dq, dk and dv (GRAD_ROW_TOL); a dropped 64-row tile of dO reads ~1
 # (chip_smoke.py checks that it is caught).
