@@ -6,10 +6,10 @@ Each phase prints one JSON line; any failure raises and the script exits
 non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
-1. build: compile the flash-attention kernels (forward on the tensor
-   cores, forward on the CUDA cores, backward dQ and dK/dV) from
+1. build: compile the flash-attention kernels (forward and backward dQ,
+   dK/dV, each on the tensor cores and on the CUDA cores) from
    ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
-   registers and spills per kernel; the tensor-core library's SASS must
+   registers and spills per kernel; each tensor-core library's SASS must
    hold HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
    RMSNorm kernel compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version on the card at
@@ -22,9 +22,13 @@ non-zero without printing a result. Without a CUDA card, or without the
    scaled_dot_product_attention (a yardstick the port never calls) and the
    card's bound. Then the
    backward kernels against the plain backward (B=4, H=8, D=64, S
-   128/512/2048/200), each with a planted fault, timed beside the plain
-   backward, SDPA's backward and the bound; and the RMSNorm kernel at
-   [4*2048, 512], timed beside torch.nn.functional.rms_norm.
+   128/512/2048/200, plus D=128 at S 512/200 and Sq=77 / Sk=131), bf16 on
+   the tensor cores and f32 on the CUDA cores, each case checking which
+   variant launched and reading a planted fault; at S=2048 both dtypes are
+   timed through CUDA graphs beside the plain backward, SDPA's backward
+   and the bound, bf16 also beside the CUDA-core kernels on the same
+   inputs; and the RMSNorm kernel at [4*2048, 512], timed beside
+   torch.nn.functional.rms_norm.
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
@@ -38,14 +42,17 @@ non-zero without printing a result. Without a CUDA card, or without the
    those through plain attention, with and without remat, and a planted
    fault (GQA heads expanded in the wrong order) reads above the
    tolerance; each pass
-   launches the forward n_layers times (2 * n_layers with remat) and each
-   backward kernel n_layers times. In bf16, the loss through the kernels
-   equals the loss through plain attention (TRAIN_LOSS_TOL_BF16; the GQA
-   planted fault must read above it), and a pass launches the
-   tensor-core forward n_layers times (2 * n_layers with remat). Then 5
+   launches the CUDA-core forward n_layers times (2 * n_layers with remat)
+   and each CUDA-core backward kernel n_layers times. In bf16, the loss
+   through the kernels equals the loss through plain attention
+   (TRAIN_LOSS_TOL_BF16), and a pass launches the tensor-core forward
+   n_layers times (2 * n_layers with remat) and each tensor-core backward
+   kernel n_layers times, never a CUDA-core kernel. Then 5
    bf16 AdamW steps
    (make_train_step) on one fixed batch: finite losses, the last below
-   the first, and the step time as a smoke reading.
+   the first, and the step time as a smoke reading; then 2 more steps
+   under torch.profiler split the step into kernel time (flash kernels
+   and the rest) and the device's idle share.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -103,6 +110,11 @@ FWD_LENGTHS = (128, 512, 2048)   # phase 2's forward grid, D=64
 # mask) and the wide head.
 FWD_EXTRA_CASES = ((8, 200, 200, 64), (4, 77, 131, 64), (4, 512, 512, 128))
 BWD_LENGTHS = (128, 512, 2048, 200)   # 200: ragged, no multiple of 64
+# Phase 2's backward cases beyond that grid, (Sq, Sk, D) at B=4, H=8: the
+# wide head (64-row query tiles in the tensor-core dK/dV kernel), ragged,
+# and Sq != Sk (the reference's top-left causal mask).
+BWD_EXTRA_CASES = ((512, 512, 128), (200, 200, 128), (77, 131, 64))
+BWD_TIMED_LEN = 2048   # the training length, where the backward is timed
 # RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
 # version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
 # rows no multiple of the reference's 256-row block, so the reference's
@@ -117,6 +129,7 @@ RMS_CAST_FIRST_SHAPE = (4 * 2048 + 100, 512)
 # order) in place of repeat_interleave, must read above it.
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
+PROFILED_STEPS = 2   # bf16 steps traced by torch.profiler after the 5
 
 
 def emit(obj) -> None:
@@ -146,19 +159,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 24) -> float:
+def graph_ms(fn, iters: int = 24, stream=None) -> float:
     """Device time in ms of one fn(i), for a call far shorter than its
     launch cost on the host (a Triton launch costs tens of microseconds of
     Python): fn(0) .. fn(iters - 1) are captured in one CUDA graph, and
-    the graph's replay is timed by CUDA events."""
-    side = torch.cuda.Stream()
+    the graph's replay is timed by CUDA events. ``stream`` is the capture
+    stream (an autograd backward must be captured on its forward's)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(3):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
     return cuda_ms(graph.replay, iters=10, warmup=2) / iters
@@ -184,36 +198,38 @@ def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
 def backward_bound(B, H, S, D, dtype, causal, kind):
     """(bound_ms, bound_by) of one backward kernel: dQ does 6 * S * S * D
     operations per (b, h), dK/dV 8 * S * S * D (halved when causal), over
-    the bf16 tensor-core peak; bytes are q, k, v, O, dO and LSE read once
-    and dq (or dk and dv) written once, over HBM bandwidth."""
+    the card's peak for the inputs' type (as attention_bound); bytes are
+    q, k, v, O, dO and LSE read once and dq (or dk and dv) written once,
+    over HBM bandwidth."""
     elt = torch.finfo(dtype).bits // 8
     ops = (6.0 if kind == "dq" else 8.0) * B * H * S * S * D
     if causal:
         ops *= (S + 1) / (2.0 * S)
     n = B * H * S * D
     nbytes = elt * n * (5 + (1 if kind == "dq" else 2)) + 4 * B * H * S
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
-                    "flash_attention_bwd")
-WGMMA_LIBRARY = "flash_attention_fwd_wgmma"
+                    "flash_attention_bwd_wgmma", "flash_attention_bwd")
+WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
 
 
 def ptxas_summary(report: str):
     """ptxas's register and spill lines, each under the kernel it names:
     kernel<dtype, per-thread slice of D> for the CUDA-core kernels (16
-    being D = 64), flash_fwd_wgmma_kernel<D> for the tensor-core one."""
+    being D = 64), kernel<D> for the tensor-core ones."""
     out, name = [], "?"
     for ln in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
                           r"I(13__nv_bfloat16|f)Li(\d+)E", entry.group(1))
-            w = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)E",
-                          entry.group(1))
+            w = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
+                          r"ILi(\d+)E", entry.group(1))
             if m:
                 name = (f"{m.group(1)}<"
                         f"{'f32' if m.group(2) == 'f' else 'bf16'}, "
@@ -262,19 +278,21 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
-    sass = sass_counts(paths[KERNEL_LIBRARIES.index(WGMMA_LIBRARY)])
+    sass = {n: sass_counts(paths[KERNEL_LIBRARIES.index(n)])
+            for n in WGMMA_LIBRARIES}
     emit({"phase": "build", "libraries": [p.name for p in paths],
           "seconds": seconds,
           "nvcc_seconds": {n: _build.build_info[n][0]
                            for n in KERNEL_LIBRARIES},
           "ptxas": {n: ptxas_summary(_build.build_info[n][1])
                     for n in KERNEL_LIBRARIES},
-          "sass_" + WGMMA_LIBRARY: sass,
+          "sass": sass,
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
-    if not sass["HGMMA"] or not sass["UTMALDG"]:
-        raise AssertionError(f"{WGMMA_LIBRARY} has no wgmma or no TMA load "
-                             f"in its SASS: {sass}")
+    for n, counts in sass.items():
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            raise AssertionError(f"{n} has no wgmma or no TMA load in its "
+                                 f"SASS: {counts}")
 
 
 def compare(o, lse, ro, rlse):
@@ -416,29 +434,39 @@ def _time_kernel(fa, q, k, v, err_o):
 
 
 def phase_backward(dev):
-    """Backward kernels vs the plain backward at every listed length,
+    """Backward kernels vs the plain backward at every listed shape,
     causal and not, bf16 and f32, from the kernel forward's O and LSE (as
-    training gives them). Each case also reads a planted fault (the plain
-    backward with one 64-row tile of dO zeroed) through the same check and
-    fails unless it is flagged. Timings at the training shape S=2048."""
+    training gives them). Each case checks that the variant of the rule
+    (bf16 D 64/128: tensor cores; f32: CUDA cores) launched, once per
+    kernel, and nothing else, and reads a planted fault (the plain
+    backward with one 64-row tile of dO zeroed) through the same check,
+    failing unless it is flagged. Timings at the training shape S=2048,
+    per dtype."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    B, H, D = 4, 8, 64
-    scale = D ** -0.5
+    B, H = 4, 8
+    cases = [(S, S, 64) for S in BWD_LENGTHS] + list(BWD_EXTRA_CASES)
     checks = []
-    timing = None
-    for S in BWD_LENGTHS:
+    timing = {}
+    for Sq, Sk, D in cases:
+        scale = D ** -0.5
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
-                                       device=dev).to(dtype)
-                           for _ in range(4))
-            t0 = 64 * ((S // 2) // 64)
+            q, do = (torch.randn((B, H, Sq, D), generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, H, Sk, D), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            t0 = 64 * ((Sq // 2) // 64)
             do_fault = do.clone()
             do_fault[:, :, t0:t0 + 64] = 0
+            variant = fa._backward_variant(dtype, D)
             for causal in (True, False):
                 o, lse = fa._flash_forward(q, k, v, causal)
-                dq = fa._launch_dq(q, k, v, o, lse, do, causal, scale)
-                dk, dv = fa._launch_dkv(q, k, v, o, lse, do, causal, scale)
+                before = _backward_counts(fa)
+                dq, delta = fa._launch_dq(q, k, v, o, lse, do, causal, scale)
+                dk, dv = fa._launch_dkv(q, k, v, o, lse, do, delta, causal,
+                                        scale)
+                launched = {n: c - before[n]
+                            for n, c in _backward_counts(fa).items()}
                 ref = fa._dense_backward(q, k, v, o, lse, do, causal, scale)
                 fault = fa._dense_backward(q, k, v, o, lse, do_fault, causal,
                                            scale)
@@ -451,9 +479,12 @@ def phase_backward(dev):
                                 for f, r in zip(fault, ref))
                 tol = GRAD_ROW_TOL[dtype]
                 finite = all(bool(torch.isfinite(g).all()) for g in got)
-                ok = finite and max(errs) <= tol
-                checks.append({"S": S, "dtype": str(dtype).split(".")[1],
-                               "causal": causal,
+                want = _backward_want(variant, 1)
+                ok = finite and max(errs) <= tol and launched == want
+                checks.append({"Sq": Sq, "Sk": Sk, "D": D,
+                               "dtype": _dtype_name(dtype),
+                               "causal": causal, "variant": variant,
+                               "launched": launched,
                                "err_row": dict(zip(("dq", "dk", "dv"),
                                                    errs)),
                                "max_abs": dict(zip(("dq", "dk", "dv"),
@@ -463,40 +494,104 @@ def phase_backward(dev):
                 if not ok or fault_err <= tol:
                     emit({"phase": "kernels_backward", "checks": checks})
                     raise AssertionError(
-                        f"backward kernels disagree with plain, or the "
-                        f"check misses a planted fault: {checks[-1]}")
-                if dtype == torch.bfloat16 and causal and S == 2048:
-                    timing = _time_backward(fa, q, k, v, o, lse, do,
-                                            abs_errs)
+                        f"backward kernels disagree with plain, the wrong "
+                        f"variant launched, or the check misses a planted "
+                        f"fault: {checks[-1]}")
+                if causal and Sq == Sk == BWD_TIMED_LEN:
+                    timing[_dtype_name(dtype)] = _time_backward(
+                        fa, q, k, v, o, lse, do, abs_errs)
     emit({"phase": "kernels_backward", "checks": checks, "timing": timing})
     return timing
 
 
+def _backward_counts(fa):
+    return {"dq_wgmma": fa.dq_wgmma_launches,
+            "dkv_wgmma": fa.dkv_wgmma_launches,
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches}
+
+
+def _backward_want(variant, n):
+    """Backward launch counts when each kernel of `variant` launched n
+    times and no kernel of the other."""
+    other = _OTHER_VARIANT[variant]
+    return {f"dq_{variant}": n, f"dkv_{variant}": n, f"dq_{other}": 0,
+            f"dkv_{other}": 0}
+
+
+def _simt_backward(fa, kind, q, k, v, o, lse, do):
+    """A CUDA-core backward kernel called straight through its C entry
+    point on any input it takes (bf16 included), bypassing the wrapper's
+    rule of shapes: the earlier design, timed beside the tensor-core
+    kernels on the same inputs. Counts no launch."""
+    B, H, Sq, D = q.shape
+    outs = [torch.empty_like(q)] if kind == "dq" else [torch.empty_like(k),
+                                                       torch.empty_like(v)]
+    name = f"flash_attention_bwd_{kind}"
+    err = fa._kernel_fn("flash_attention_bwd", name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), *[t.data_ptr() for t in outs], B * H,
+        Sq, k.shape[2], D, D ** -0.5, 1, fa._DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {err}")
+    return outs
+
+
+def _sdpa_backward_ms(q, k, v, do):
+    """SDPA's backward (dq, dk and dv in one call) through a CUDA graph:
+    the forward runs on the capture stream, so that autograd puts the
+    backward there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    return graph_ms(lambda i: torch.autograd.grad(out, leaves, do,
+                                                  retain_graph=True),
+                    stream=side)
+
+
 def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
+    """Device times through CUDA graphs of the dQ and dK/dV kernels of the
+    rule, of the CUDA-core kernels on the same inputs where the rule picks
+    the tensor cores, and of SDPA's backward; the plain backward by
+    events."""
     B, H, S, D = q.shape
     scale = D ** -0.5
-    counts = fa.dq_launches, fa.dkv_launches
-    dq_ms = cuda_ms(lambda: fa._launch_dq(q, k, v, o, lse, do, True, scale))
-    dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, o, lse, do, True,
-                                            scale))
-    fa.dq_launches, fa.dkv_launches = counts   # not the main path's
+    variant = fa._backward_variant(q.dtype, D)
+    counts = (fa.dq_launches, fa.dkv_launches, fa.dq_wgmma_launches,
+              fa.dkv_wgmma_launches, fa.dq_simt_launches,
+              fa.dkv_simt_launches)
+    delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)[1]
+    dq_ms = graph_ms(lambda i: fa._launch_dq(q, k, v, o, lse, do, True,
+                                             scale))
+    dkv_ms = graph_ms(lambda i: fa._launch_dkv(q, k, v, o, lse, do, delta,
+                                               True, scale))
+    # timing launches are not the main path's
+    (fa.dq_launches, fa.dkv_launches, fa.dq_wgmma_launches,
+     fa.dkv_wgmma_launches, fa.dq_simt_launches,
+     fa.dkv_simt_launches) = counts
+    simt_ms = {"dq": None, "dkv": None}
+    if variant == "wgmma":
+        simt_ms = {kind: graph_ms(lambda i, kind=kind: _simt_backward(
+            fa, kind, q, k, v, o, lse, do)) for kind in ("dq", "dkv")}
     plain_ms = cuda_ms(lambda: fa._dense_backward(q, k, v, o, lse, do, True,
                                                   scale), iters=5)
-    # One library call computes dq, dk and dv together: SDPA's backward.
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), do, retain_graph=True))
-    result = {"shape": [B, H, S, D], "dtype": "bfloat16", "causal": True,
+    library_ms = _sdpa_backward_ms(q, k, v, do)
+    result = {"shape": [B, H, S, D], "dtype": _dtype_name(q.dtype),
+              "causal": True, "variant": variant,
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library": "scaled_dot_product_attention backward (dq, dk "
-                         "and dv in one call; compare with the pair's "
-                         "sum)",
+                         "and dv in one call, CUDA graph; compare with the "
+                         "pair's sum)",
               "plain": "_dense_backward (dq, dk and dv in one call)"}
     for kind, ms, err in (("dq", dq_ms, abs_errs[0]),
                           ("dkv", dkv_ms, max(abs_errs[1:]))):
         bound_ms, bound_by = backward_bound(B, H, S, D, q.dtype, True, kind)
-        result[kind] = {"kernel_ms": ms, "max_abs_err": err,
+        ops = ((6.0 if kind == "dq" else 8.0) * B * H * S * S * D
+               * (S + 1) / (2.0 * S))
+        result[kind] = {"kernel_ms": ms, "simt_kernel_ms": simt_ms[kind],
+                        "tflops": ops / ms * 1e-9, "max_abs_err": err,
                         "bound_ms": bound_ms, "bound_by": bound_by}
     return result
 
@@ -824,7 +919,15 @@ def _counts():
     fa = _flash_module()
     return {"fwd": fa.launches, "wgmma": fa.wgmma_launches,
             "simt": fa.simt_launches, "dq": fa.dq_launches,
-            "dkv": fa.dkv_launches, "rms": fused.launches}
+            "dkv": fa.dkv_launches, **_backward_counts(fa),
+            "rms": fused.launches}
+
+
+def _want_counts(variant, fwd, bwd):
+    """_counts() of a run that launched the forward `fwd` times and each
+    backward kernel `bwd` times, all of `variant`, and no RMSNorm."""
+    return {"fwd": fwd, variant: fwd, _OTHER_VARIANT[variant]: 0,
+            "dq": bwd, "dkv": bwd, **_backward_want(variant, bwd), "rms": 0}
 
 
 def _zero_counts():
@@ -833,6 +936,8 @@ def _zero_counts():
     fa = _flash_module()
     fa.launches = fa.wgmma_launches = fa.simt_launches = 0
     fa.dq_launches = fa.dkv_launches = fused.launches = 0
+    fa.dq_wgmma_launches = fa.dkv_wgmma_launches = 0
+    fa.dq_simt_launches = fa.dkv_simt_launches = 0
 
 
 @contextlib.contextmanager
@@ -877,6 +982,43 @@ def _grad_errors(grads, ref):
                 / ref[n].abs().max().clamp_min(1e-30)).item() for n in ref}
 
 
+def _profile_steps(step, inputs, targets):
+    """PROFILED_STEPS more bf16 steps under torch.profiler (device
+    activity only, to keep host overhead out of the wall time): per step,
+    the wall time, the device's kernel time (all kernels, the flash
+    kernels, the rest), the device's idle share of the wall time, and the
+    kernels that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(inputs, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"wall_ms_per_step": wall_ms,
+                "device_busy_ms_per_step": "not measured: the profiler "
+                                           "recorded no device events"}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / PROFILED_STEPS)
+    busy = sum(by_name.values())
+    flash = sum(ms for n, ms in by_name.items() if "flash_" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy,
+            "flash_kernels_ms_per_step": flash,
+            "other_kernels_ms_per_step": busy - flash,
+            "device_idle_share": 1 - busy / wall_ms,
+            "kernels_per_step": len(kernels) / PROFILED_STEPS,
+            "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]}
+
+
 def phase_train(dev, card, base):
     from ray_tpu_torch import models as tm
 
@@ -912,10 +1054,8 @@ def phase_train(dev, card, base):
                 grads_f = _loss_and_grads(cfg32, params, inputs, targets)[1]
             err_fault = _grad_errors(grads_f, grads_p)
             del grads_f
-        want = {"fwd": L, "wgmma": 0, "simt": L, "dq": L, "dkv": L,
-                "rms": 0}
-        want_remat = {"fwd": 2 * L, "wgmma": 0, "simt": 2 * L, "dq": L,
-                      "dkv": L, "rms": 0}
+        want = _want_counts("simt", L, L)
+        want_remat = _want_counts("simt", 2 * L, L)
         err_plain = _grad_errors(grads_k, grads_p)
         err_remat = _grad_errors(grads_r, grads_k)
         res = {"n_kv_heads": cfg.n_kv_heads, "f32_loss_kernels": loss_k,
@@ -956,9 +1096,8 @@ def phase_train(dev, card, base):
         with _attention_swapped("plain"):
             loss_pb = _loss_and_grads(cfg, params, inputs, targets)[0]
         err_loss = abs(loss_kb - loss_pb) / abs(loss_pb)
-        want_b = {"fwd": L, "wgmma": L, "simt": 0, "dq": L, "dkv": L,
-                  "rms": 0}
-        want_b_remat = {**want_b, "fwd": 2 * L, "wgmma": 2 * L}
+        want_b = _want_counts("wgmma", L, L)
+        want_b_remat = _want_counts("wgmma", 2 * L, L)
         res.update({"bf16_loss_kernels": loss_kb, "bf16_loss_plain": loss_pb,
                     "bf16_loss_err_vs_plain": err_loss,
                     "bf16_loss_tol": TRAIN_LOSS_TOL_BF16,
@@ -986,10 +1125,11 @@ def phase_train(dev, card, base):
             losses.append(loss)
         counts = _counts()
         n = TRAIN_STEPS
-        want = {"fwd": n * L, "wgmma": n * L, "simt": 0, "dq": n * L,
-                "dkv": n * L, "rms": 0}
+        want = _want_counts("wgmma", n * L, n * L)
         res.update({"bf16_losses": losses, "bf16_launches": counts,
-                    "bf16_step_s": step_s})
+                    "bf16_step_s": step_s,
+                    "bf16_step_profile": _profile_steps(step, inputs,
+                                                        targets)})
         del params, step
         torch.cuda.empty_cache()
         if (counts != want or not all(np.isfinite(losses))
@@ -1004,7 +1144,8 @@ def phase_train(dev, card, base):
         emit({"train_step_smoke_reading": name,
               "tokens_per_step": TRAIN_BATCH * TRAIN_LEN,
               "step_ms_median_of_steps_2_to_5": later[len(later) // 2] * 1e3,
-              "first_step_ms": res["bf16_step_s"][0] * 1e3, "card": card})
+              "first_step_ms": res["bf16_step_s"][0] * 1e3,
+              "profiled_steps": res["bf16_step_profile"], "card": card})
     return results
 
 
@@ -1082,20 +1223,30 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"], "dtype": "float32", "card": card})
-    for kind in ("dq", "dkv"):
-        t = bwd[kind]
-        kernels.append({
-            "name": f"flash_attention_bwd_{kind}",
-            "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "replaces": replaces[kind],
-            "launches": train["mha"]["bf16_launches"][kind],
-            "max_abs_err": t["max_abs_err"],
-            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
-            "plain_ms": bwd["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": bwd["library_ms"],
-            "plain": bwd["plain"], "library": bwd["library"],
-            "shape": bwd["shape"], "card": card})
+    # The backward pair: bf16 on the tensor cores (the train steps), f32 on
+    # the CUDA cores (phase 5's f32 gradient passes).
+    for dtype, suffix, variant, source, launches_of in (
+            ("bfloat16", "", "wgmma",
+             "ray_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
+             train["mha"]["bf16_launches"]),
+            ("float32", "[f32]", "simt",
+             "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             train["mha"]["launches_per_pass"])):
+        tb = bwd[dtype]
+        for kind in ("dq", "dkv"):
+            t = tb[kind]
+            kernels.append({
+                "name": f"flash_attention_bwd_{kind}{suffix}",
+                "route": "cuda", "variant": variant, "source": source,
+                "replaces": replaces[kind],
+                "launches": launches_of[f"{kind}_{variant}"],
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+                "tflops": t["tflops"], "simt_kernel_ms": t["simt_kernel_ms"],
+                "plain_ms": tb["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
+                "plain": tb["plain"], "library": tb["library"],
+                "shape": tb["shape"], "dtype": dtype, "card": card})
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

@@ -75,27 +75,13 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Register layout of a wgmma f32 accumulator (64 x N over a warpgroup):
-// warp w holds rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of
-// those; value i is column 8 * (i / 4) + 2 * (l % 4) + (i % 2) of row
-// l/4 + 8 * ((i / 2) % 2). The bf16 A operand of the next wgmma has the
-// same pattern per 16 columns, so P needs no shuffle: its k-step t is the
+// The accumulator's register layout (hopper_tma_wgmma.cuh) makes P, packed
+// to bf16 pairs, the A operand of P.V with no shuffle: its k-step t is the
 // pairs of values 8t..8t+7.
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -290,19 +276,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   // Stage O in this warpgroup's Q rows (its last wgmma reading them has
   // completed), in the swizzle the TMA store reads.
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    const int cb = j / 8;        // 64-column block
-    const int chunk = j % 8;     // 16-byte chunk within the 128-byte row
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r_local + 8 * h;
-      const uint32_t off = cb * (kBlockM * 128) + wg * 64 * 128 + r * 128 +
-                           ((chunk ^ (r % 8)) * 16) + col_lane * 2;
-      *reinterpret_cast<uint32_t*>(smem + L::kQ + off) =
-          pack_bf16x2(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
-    }
-  }
+  stage_acc_bf16<kD>(smem + L::kQ, kBlockM, wg, r_local, col_lane, o, inv);
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0 && q0 + wg * 64 < sq) {

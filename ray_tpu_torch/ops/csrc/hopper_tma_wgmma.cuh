@@ -177,12 +177,56 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// Register layout of a wgmma f32 accumulator (64 x N over a warpgroup):
+// warp w holds rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of
+// those; value i is column 8 * (i / 4) + 2 * (l % 4) + (i % 2) of row
+// l/4 + 8 * ((i / 2) % 2). The bf16 A operand of a register-A wgmma has the
+// same pattern per 16 columns, so an accumulator packed to bf16 pairs
+// feeds the next product directly: its k-step t is the pairs 8t..8t+7.
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Sum over the four lanes that share an accumulator row.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // Two f32 values as one register of bf16 (lo in the low half), the layout
 // of a wgmma A operand in registers.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// Stages warpgroup wg's 64 x kD f32 accumulator as bf16 into its 64 rows of
+// a shared-memory tile of `tile_rows` rows (column blocks tile_rows * 128
+// bytes apart), in the swizzle a TMA store reads; the thread's two rows
+// (r_local and r_local + 8) are multiplied by mul[0] and mul[1].
+template <int kD>
+__device__ __forceinline__ void stage_acc_bf16(uint8_t* tile, int tile_rows,
+                                               int wg, int r_local,
+                                               int col_lane,
+                                               const float (&acc)[kD / 2],
+                                               const float (&mul)[2]) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int cb = j / 8;     // 64-column block
+    const int chunk = j % 8;  // 16-byte chunk within the 128-byte row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_local + 8 * h;
+      const int off = cb * (tile_rows * 128) + wg * 64 * 128 + r * 128 +
+                      ((chunk ^ (r % 8)) * 16) + col_lane * 2;
+      *reinterpret_cast<uint32_t*>(tile + off) = pack_bf16x2(
+          acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
+    }
+  }
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
@@ -220,6 +264,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared
+// memory (128-byte swizzle), f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -9,11 +9,14 @@ cores (``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp
 specialisation); f32 and every other head_dim run on the CUDA cores
 (``csrc/flash_attention_fwd.cu``), whose f32 arithmetic the f32 limits
 rest on. Neither gives way to the other on an error: the wrapper raises. The
-backward kernels (``csrc/flash_attention_bwd.cu``, dQ and dK/dV) replace
-``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
-``_flash_bwd_rule`` launches. A wrapper launches its kernel for CUDA
-tensors and raises on what it does not take; it runs the plain version
-only for tensors on the CPU.
+backward kernels, dQ and dK/dV, replace ``_attn_bwd_dq_kernel`` and
+``_attn_bwd_dkv_kernel``, which ``_flash_bwd_rule`` launches, with the
+same rule of shapes (``_backward_variant``): bf16 at head_dim 64 or 128 on
+the tensor cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel
+also writes delta = rowsum(dO * O) for its dK/dV kernel), everything else
+on the CUDA cores (``csrc/flash_attention_bwd.cu``). A wrapper launches its
+kernel for CUDA tensors and raises on what it does not take; it runs the
+plain version only for tensors on the CPU.
 
 Layouts are the reference's: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``.
 ``flash_attention`` is differentiable through ``_FlashCore`` (the
@@ -35,8 +38,12 @@ NEG_INF = -1e30
 launches = 0        # forward, both variants
 wgmma_launches = 0  # forward on the tensor cores (bf16, D 64 or 128)
 simt_launches = 0   # forward on the CUDA cores (f32, other D)
-dq_launches = 0     # backward dQ
-dkv_launches = 0    # backward dK/dV
+dq_launches = 0     # backward dQ, both variants
+dkv_launches = 0    # backward dK/dV, both variants
+dq_wgmma_launches = 0   # backward on the tensor cores (bf16, D 64 or 128)
+dkv_wgmma_launches = 0
+dq_simt_launches = 0    # backward on the CUDA cores (f32, other D)
+dkv_simt_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,6 +57,10 @@ _SIGNATURES = {
         [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd", "flash_attention_bwd_dkv"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_bwd_wgmma", "flash_attention_bwd_dq_wgmma"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+    ("flash_attention_bwd_wgmma", "flash_attention_bwd_dkv_wgmma"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
 }
 _bound = {}
 
@@ -168,6 +179,20 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
 
 
+def _backward_variant(dtype: torch.dtype, D: int) -> str:
+    """Which backward kernels (dQ and dK/dV) take a CUDA input: the
+    forward's rule, for the same reason (``testing.GRAD_ROW_TOL``'s f32
+    limit and the f32 gradient checks rest on f32 products)."""
+    return _forward_variant(dtype, D)
+
+
+def _check_launch(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + (f"CUDA error {err}" if err > 0 else
+                              f"tensor map encoding, CUresult {-err}"))
+
+
 def _launch(q, k, v, causal, scale):
     global launches, wgmma_launches, simt_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
@@ -186,10 +211,7 @@ def _launch(q, k, v, causal, scale):
     else:
         name = "flash_attention_fwd"
         err = _kernel_fn(name, name)(*args, _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + (f"CUDA error {err}" if err > 0 else
-                              f"tensor map encoding, CUresult {-err}"))
+    _check_launch(name, err)
     launches += 1
     if variant == "wgmma":
         wgmma_launches += 1
@@ -199,52 +221,81 @@ def _launch(q, k, v, causal, scale):
 
 
 def _backward_args(q, k, v, o, lse, do, causal, scale):
-    """dO cast to q's dtype, the checks, and the C arguments shared by
-    both backward kernels: (do, input pointers, trailing scalars)."""
+    """dO cast to q's dtype, the checks, and the scalars shared by both
+    backward kernels: (do, (B*H, Sq, Sk, D, scale, causal), stream)."""
     do = do.to(q.dtype).contiguous()
     _check_kernel_inputs((q, k, v, o, do), "q, k, v, o, dO")
     if k.shape[1] != q.shape[1] or o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash attention backward wants matched head "
                          "counts and o/dO shaped like q")
-    if not (lse.is_cuda and lse.dtype == torch.float32
-            and lse.is_contiguous() and lse.device == q.device
-            and lse.shape == q.shape[:3]):
-        raise ValueError("flash attention backward takes a contiguous f32 "
-                         "LSE [B, H, Sq] on q's device")
+    _check_rows_f32(lse, q, "LSE")
     B, H, Sq, D = q.shape
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr())
-    scalars = (B * H, Sq, k.shape[2], D, float(scale), int(bool(causal)),
-               _DTYPE_CODE[q.dtype],
-               torch.cuda.current_stream(q.device).cuda_stream)
-    return do, ptrs, scalars
+    scalars = (B * H, Sq, k.shape[2], D, float(scale), int(bool(causal)))
+    return do, scalars, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _check_rows_f32(t, q, name):
+    if not (isinstance(t, torch.Tensor) and t.is_cuda
+            and t.dtype == torch.float32 and t.is_contiguous()
+            and t.device == q.device and t.shape == q.shape[:3]):
+        raise ValueError(f"flash attention backward takes a contiguous f32 "
+                         f"{name} [B, H, Sq] on q's device")
 
 
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
-    """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> dq in q's dtype."""
-    global dq_launches
-    do, ptrs, scalars = _backward_args(q, k, v, o, lse, do, causal, scale)
+    """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
+    delta). The tensor-core variant also writes delta = rowsum(dO * O),
+    [B, H, Sq] f32, which its dK/dV kernel reads; the CUDA-core variant
+    returns None (its dK/dV kernel computes delta itself)."""
+    global dq_launches, dq_wgmma_launches, dq_simt_launches
+    do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
-    err = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dq")(
-        *ptrs, dq.data_ptr(), *scalars)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
-                           f"error {err}")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr())
+    if _backward_variant(q.dtype, q.shape[-1]) == "wgmma":
+        delta = torch.empty(q.shape[:3], dtype=torch.float32,
+                            device=q.device)
+        name = "flash_attention_bwd_dq_wgmma"
+        err = _kernel_fn("flash_attention_bwd_wgmma", name)(
+            *ptrs, delta.data_ptr(), *scalars, stream)
+        _check_launch(name, err)
+        dq_wgmma_launches += 1
+    else:
+        delta = None
+        name = "flash_attention_bwd_dq"
+        err = _kernel_fn("flash_attention_bwd", name)(
+            *ptrs, *scalars, _DTYPE_CODE[q.dtype], stream)
+        _check_launch(name, err)
+        dq_simt_launches += 1
     dq_launches += 1
-    return dq
+    return dq, delta
 
 
-def _launch_dkv(q, k, v, o, lse, do, causal, scale):
-    """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv)."""
-    global dkv_launches
-    do, ptrs, scalars = _backward_args(q, k, v, o, lse, do, causal, scale)
+def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
+    """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv).
+    ``delta`` is ``_launch_dq``'s second result: the tensor-core variant
+    reads it, the CUDA-core variant computes delta from O itself."""
+    global dkv_launches, dkv_wgmma_launches, dkv_simt_launches
+    do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dkv")(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *scalars)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
-                           f"error {err}")
+    if _backward_variant(q.dtype, q.shape[-1]) == "wgmma":
+        _check_rows_f32(delta, q, "delta")
+        name = "flash_attention_bwd_dkv_wgmma"
+        err = _kernel_fn("flash_attention_bwd_wgmma", name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *scalars, stream)
+        _check_launch(name, err)
+        dkv_wgmma_launches += 1
+    else:
+        name = "flash_attention_bwd_dkv"
+        err = _kernel_fn("flash_attention_bwd", name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *scalars, _DTYPE_CODE[q.dtype], stream)
+        _check_launch(name, err)
+        dkv_simt_launches += 1
     dkv_launches += 1
     return dk, dv
 
@@ -267,8 +318,8 @@ def _flash_backward(q, k, v, o, lse, do, causal, scale):
     version on CPU tensors."""
     if q.device.type == "cpu":
         return _dense_backward(q, k, v, o, lse, do, causal, scale)
-    dq = _launch_dq(q, k, v, o, lse, do, causal, scale)
-    return (dq, *_launch_dkv(q, k, v, o, lse, do, causal, scale))
+    dq, delta = _launch_dq(q, k, v, o, lse, do, causal, scale)
+    return (dq, *_launch_dkv(q, k, v, o, lse, do, delta, causal, scale))
 
 
 class _FlashCore(torch.autograd.Function):
@@ -301,7 +352,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts; GQA
     repeat-expands K/V first). Differentiable: the backward runs the dQ
-    and dK/dV kernels on CUDA tensors."""
+    and dK/dV kernels of ``_backward_variant`` on CUDA tensors."""
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention wants matched head counts, got "
                          f"{q.shape[1]} and {k.shape[1]}; use "

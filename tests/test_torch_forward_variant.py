@@ -1,7 +1,8 @@
-"""The flash forward's rule of shapes (which kernel a CUDA input takes) and
-the CPU path, which the rule does not touch: a CPU tensor takes the plain
-version, launches nothing, and agrees with the JAX reference's Pallas
-kernel run in interpret mode (as tests/test_ops.py runs it).
+"""The flash kernels' rules of shapes (which forward and which backward
+kernels a CUDA input takes) and the CPU path, which the rules do not touch:
+a CPU tensor takes the plain version, launches nothing, and agrees with the
+JAX reference's Pallas kernel run in interpret mode (as tests/test_ops.py
+runs it; the backward's match is in tests/test_torch_ops.py).
 
 The kernels themselves are held against the plain version on the card by
 tests/test_torch_kernels.py and chip_smoke.py.
@@ -28,15 +29,25 @@ BF16_ATOL = 2e-2
 LSE_ATOL = 3e-2
 
 
-@pytest.mark.parametrize("dtype,D,variant", [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 40, "simt"),
-    (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt")])
+RULE = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 32, "simt"), (torch.bfloat16, 40, "simt"),
+        (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
+        (torch.float32, 128, "simt")]
+
+
+@pytest.mark.parametrize("dtype,D,variant", RULE)
 def test_forward_variant_rule(dtype, D, variant):
     """Tensor cores for bf16 at head_dim 64 or 128 only; f32 stays on the
     CUDA cores (TF32 would break its limit), as does every other width."""
     assert fa._forward_variant(dtype, D) == variant
+
+
+@pytest.mark.parametrize("dtype,D,variant", RULE)
+def test_backward_variant_rule(dtype, D, variant):
+    """The backward pair (dQ and dK/dV) follows the forward's rule: its f32
+    limit (GRAD_ROW_TOL) and the f32 gradient checks rest on f32
+    products."""
+    assert fa._backward_variant(dtype, D) == variant
 
 
 def _counts():

@@ -164,20 +164,108 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, H, Sq, Sk,
         assert err <= GRAD_ROW_TOL[dtype], (name, err)
 
 
+def _backward_counts():
+    return {"dq_wgmma": fa.dq_wgmma_launches,
+            "dkv_wgmma": fa.dkv_wgmma_launches,
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches}
+
+
+def _backward_launched(before, variant):
+    """Launches since `before`, and what the rule wants: one dQ and one
+    dK/dV of `variant`, none of the other."""
+    got = {n: c - before[n] for n, c in _backward_counts().items()}
+    want = {n: int(n.endswith(variant)) for n in got}
+    return got, want
+
+
+# The tensor-core backward (bf16, head_dim 64 or 128): lengths that fill
+# 128-row tiles, ragged ones, the training length, Sq != Sk (the
+# reference's top-left causal mask) and a query count far below a tile.
 @pytest.mark.cuda
-def test_flash_attention_autograd_launches_backward_kernels(cuda_device):
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
+                                   (77, 131), (3, 50)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_backward_matches_plain(cuda_device, D, Sq, Sk, causal):
+    q, k, v = _qkv(9, 2, 2, 2, Sq, Sk, D, torch.bfloat16, cuda_device)
+    do = _qkv(10, 2, 2, 2, Sq, Sq, D, torch.bfloat16, cuda_device)[0]
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wgmma")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.bfloat16, name
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[torch.bfloat16], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
+                                                         D, variant):
+    q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
+    o, lse = fa._flash_forward(q, k, v, True)
+    before = _backward_counts()
+    fa._flash_backward(q, k, v, o, lse, q, True, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, variant)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_backward_refuses_misaligned_or_strided_input(
+        cuda_device):
+    q, k, v = _qkv(12, 1, 2, 2, 64, 64, 64, torch.bfloat16, cuda_device)
+    o, lse = fa._flash_forward(q, k, v, True)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda_device)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    before = fa.dq_launches, fa.dkv_launches
+    with pytest.raises(ValueError):
+        fa._flash_backward(shifted, k, v, o, lse, q, True, 0.125)
+    with pytest.raises(ValueError):
+        fa._flash_backward(q, k.transpose(2, 3), v, o, lse, q, True, 0.125)
+    # The tensor-core dK/dV kernel reads the dQ kernel's delta.
+    with pytest.raises(ValueError):
+        fa._launch_dkv(q, k, v, o, lse, q, None, True, 0.125)
+    assert (fa.dq_launches, fa.dkv_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+                                           (torch.bfloat16, "wgmma")])
+def test_flash_attention_autograd_launches_backward_kernels(cuda_device,
+                                                            dtype, variant):
     q, k, v = (t.requires_grad_() for t in _qkv(
-        4, 2, 4, 4, 96, 96, 64, torch.float32, cuda_device))
+        4, 2, 4, 4, 96, 96, 64, dtype, cuda_device))
     before = fa.launches, fa.dq_launches, fa.dkv_launches
+    before_variants = _backward_counts()
     out = fa.flash_attention(q, k, v)
     out.square().sum().backward()
     torch.cuda.synchronize()
     after = fa.launches, fa.dq_launches, fa.dkv_launches
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
-    ref = fa._dense(q, k, v, True, 64 ** -0.5)[0]
-    ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    got, want = _backward_launched(before_variants, variant)
+    assert got == want
+    if dtype == torch.float32:
+        ref = fa._dense(q, k, v, True, 64 ** -0.5)[0]
+        ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    else:
+        # bf16: the plain backward from the kernel forward's O and LSE,
+        # with autograd's dO of out.square().sum(), 2 * O (exact in bf16).
+        with torch.no_grad():
+            o, lse = fa._flash_forward(q, k, v, True)
+            ref_grads = fa._dense_backward(q, k, v, o, lse, 2 * o, True,
+                                           64 ** -0.5)
     for g, r in zip((q.grad, k.grad, v.grad), ref_grads):
-        assert grad_row_error(g, r) <= GRAD_ROW_TOL[torch.float32]
+        assert grad_row_error(g, r) <= GRAD_ROW_TOL[dtype]
 
 
 # RMSNorm against the plain version of the formula that the reference's

@@ -150,12 +150,21 @@ def _rel(ref, got):
     return float(np.abs(ref - _np(got)).max() / np.abs(ref).max())
 
 
+def _backward_launches():
+    return (fa.launches, fa.dq_launches, fa.dkv_launches,
+            fa.dq_wgmma_launches, fa.dkv_wgmma_launches,
+            fa.dq_simt_launches, fa.dkv_simt_launches)
+
+
+# D=64 is a width the tensor-core backward takes in bf16 on the card; on
+# the CPU the backward is the plain version whatever the rule picks.
+@pytest.mark.parametrize("D", [16, 64])
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("S", [128, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_dense_backward_matches_pallas_interpret_vjp(causal, S, dtype):
-    B, H, D = 1, 2, 16
+def test_dense_backward_matches_pallas_interpret_vjp(causal, S, dtype, D):
+    B, H = 1, 2
     q, k, v = _qkv(10 + S, B, H, H, S, S, D)
     do = np.random.default_rng(S).standard_normal(q.shape).astype(
         np.float32)
@@ -173,7 +182,9 @@ def test_dense_backward_matches_pallas_interpret_vjp(causal, S, dtype):
                                          128, 128, True)
         o = _t(np.array(ro, np.float32), tdt)
         lse = _t(np.array(rlse[:, :, 0]))
-    grads = fa._dense_backward(tq, tk, tv, o, lse, tdo, causal, D ** -0.5)
+    before = _backward_launches()
+    grads = fa._flash_backward(tq, tk, tv, o, lse, tdo, causal, D ** -0.5)
+    assert _backward_launches() == before
     for name, r, g in zip(("dq", "dk", "dv"), ref, grads):
         assert g.dtype == tdt
         assert _rel(r, g) <= BWD_REL[dtype], name
