@@ -53,6 +53,32 @@ non-zero without printing a result. Without a CUDA card, or without the
    the first, and the step time as a smoke reading; then 2 more steps
    under torch.profiler split the step into kernel time (flash kernels
    and the rest) and the device's idle share.
+6. spec_disagg: speculative decoding and the engine side of
+   disaggregated serving at the flagship's width, on phase 4's 8 prompts
+   (32 new tokens, spec_k 4, 512 blocks), through the engines' paged
+   attention (no kernel of phases 1-2 runs here). (a) f32 with a random
+   draft (draft_config: 2 layers, d_model 256): the 8 concurrent greedy
+   streams equal the vanilla engine's, the spec counters are consistent
+   and no round falls back. (b) f32 self-draft: streams equal vanilla;
+   with one spec round per request the acceptance is at least
+   SPEC_SELF_ACCEPT_MIN_F32. (c) bf16, random draft and self-draft: each
+   stream equals vanilla up to its first divergence, where vanilla's
+   top-two logit gap must be below SPEC_TIE_TOL_BF16; the yardstick, the
+   largest |verify_step - decode_step| logit difference on the same
+   contexts, is printed beside it. (d) The shift pair (vocab = d_model =
+   512, shift_params) accepts exactly 1.0 and emits k + 1 tokens a
+   round, bf16 and f32. (e) KV transfer in bf16 and f32: every prompt
+   held after prefill on one engine, exported, adopted on another
+   (begin_adopted / adopt_kv / commit_adopted) and decoded, equal token
+   for token to a colocated run; a cached-prefix adoption and a tail-only
+   ship of the 570-token prompt; a stale-plan payload refused and aborted
+   clean; two full ships between spec-armed engines (the draft's pool
+   ships too) equal to a colocated spec engine; no block left in use.
+   (f) A fully cached prompt on a spec engine copies its boundary block
+   on write in both pools while the donor holds it, and both streams
+   equal vanilla's. Smoke readings: tokens/s and token gaps of the bf16
+   spec engines beside the vanilla engine, acceptance rates, and the
+   export and graft ms, blocks and bytes of each shipped prompt.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -83,6 +109,8 @@ try:
         O_ROW_TOL,
         RMS_TOL,
         RMS_TOL_CAST_FIRST,
+        SPEC_SELF_ACCEPT_MIN_F32,
+        SPEC_TIE_TOL_BF16,
         TRAIN_LOSS_TOL_BF16,
         grad_row_error,
     )
@@ -104,6 +132,7 @@ H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
 # that propagates through 4 layers, so they agree to a few ulps.
 MODEL_LOGIT_TOL = 0.25
 RAGGED_LEN = 200   # phase 3's cacheless forward: no multiple of 128
+ENGINE_LENS = [16, 150, 290, 430, 570, 710, 850, 1000]   # phases 4 and 6
 FWD_LENGTHS = (128, 512, 2048)   # phase 2's forward grid, D=64
 # Phase 2's forward cases beyond the flagship's grid, (Hkv, Sq, Sk, D) at
 # B=4, Hq=8: ragged lengths, Sq != Sk (the reference's top-left causal
@@ -130,6 +159,13 @@ RMS_CAST_FIRST_SHAPE = (4 * 2048 + 100, 512)
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
 PROFILED_STEPS = 2   # bf16 steps traced by torch.profiler after the 5
+# Phase 6: speculative decoding and KV shipping on phase 4's prompts.
+SPEC_K = 4
+SPEC_NUM_BLOCKS = 512
+SPEC_YARDSTICK_OFFSETS = (0, 8, 16, 24)   # rounds measured per stream
+SHIP_PROMPT = 4            # the 570-token prompt: 35 full blocks + 10
+SPEC_SHIP_PROMPTS = (1, 4)   # shipped again between spec-armed engines
+COW_PROMPT_LEN = 128       # 8 full blocks: a fully cached prompt
 
 
 def emit(obj) -> None:
@@ -1149,6 +1185,485 @@ def phase_train(dev, card, base):
     return results
 
 
+# ----------------------------------------------------- phase 6: spec_disagg
+def _run_batch(engine, prompts, new_tokens):
+    """All prompts submitted under the engine's lock, so the first step
+    admits every one and the schedule does not depend on thread timing.
+    Returns (streams, gaps between a stream's tokens, wall seconds)."""
+    with engine._lock:
+        reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    t0 = time.perf_counter()
+    stamps = [[] for _ in reqs]
+    errors = []
+
+    def consume(i):
+        while True:
+            item = reqs[i].output_queue.get(timeout=600)
+            if isinstance(item, tuple):
+                if item[0] != "__done__":
+                    errors.append(item[1])
+                return
+            stamps[i].append(time.perf_counter())
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"requests did not complete: {errors}")
+    outs = [list(r.out_tokens) for r in reqs]
+    if any(len(o) != new_tokens for o in outs):
+        raise AssertionError(f"stream lengths {[len(o) for o in outs]}, "
+                             f"expected {new_tokens}")
+    gaps = [b - a for row in stamps for a, b in zip(row, row[1:])]
+    return outs, gaps, wall
+
+
+def _serve(make, prompts, new_tokens):
+    """One engine from ``make()``, the prompts as one batch, shut down
+    with no block left in use. Returns (streams, stats, gaps, wall)."""
+    engine = make()
+    try:
+        outs, gaps, wall = _run_batch(engine, prompts, new_tokens)
+        if not engine.wait_idle(120):
+            raise AssertionError("engine did not go idle")
+        st = engine.stats()
+    finally:
+        engine.shutdown()
+    if st["blocks_in_use"]:
+        raise AssertionError(f"{st['blocks_in_use']} blocks leaked")
+    return outs, st, gaps, wall
+
+
+def _reading(outs, gaps, wall):
+    gaps = sorted(gaps)
+    return {"tokens_per_s": sum(len(o) for o in outs) / wall, "wall_s": wall,
+            "token_gap_p50_s": gaps[len(gaps) // 2],
+            "token_gap_max_s": gaps[-1]}
+
+
+def _check_spec_counters(name, spec, batch):
+    if not (spec["rounds"] <= spec["emitted"]
+            <= spec["accepted"] + spec["rounds"] * batch):
+        raise AssertionError(f"{name}: inconsistent spec counters {spec}")
+    if spec["fallback_rounds"]:
+        raise AssertionError(f"{name}: {spec['fallback_rounds']} rounds fell "
+                             f"back to vanilla decode")
+
+
+def _verify_vs_decode(cfg, params, prompts, streams, k, dev):
+    """Yardstick for SPEC_TIE_TOL_BF16: on the vanilla streams' own
+    contexts, the largest |verify_step - decode_step| logit difference
+    over one round of k + 1 tokens, padded as the engine pads them (every
+    row in one batch, the verify columns to a power of two)."""
+    from ray_tpu_torch import models as tm
+
+    b = len(prompts)
+    c_pad = 1 << (k).bit_length()          # _pow2_at_least(k + 1)
+    worst = 0.0
+    for offset in SPEC_YARDSTICK_OFFSETS:
+        ctxs = [p + s[:offset + 1] for p, s in zip(prompts, streams)]
+        lens = [len(c) - 1 for c in ctxs]    # the last token is not cached
+        pad = 1 << (max(lens) - 1).bit_length()
+        # Every padded position has a table column: nothing clamps.
+        blocks_each = -(-(pad + c_pad + 1) // BLOCK_SIZE)
+        tables = torch.arange(1, b * blocks_each + 1, device=dev).reshape(
+            b, blocks_each)
+        cache = tm.init_kv_cache(cfg, b * blocks_each + 1, BLOCK_SIZE,
+                                 device=dev)
+        toks = np.zeros((b, pad), np.int64)
+        vtok = np.zeros((b, c_pad), np.int64)
+        for i, (c, s) in enumerate(zip(ctxs, streams)):
+            toks[i, :lens[i]] = c[:-1]
+            vtok[i, :k + 1] = [c[-1]] + s[offset + 1:offset + 1 + k]
+        toks, vtok = (torch.from_numpy(a).to(dev) for a in (toks, vtok))
+        start = torch.tensor(lens, device=dev)
+        tm.prefill_chunk(cfg, params, cache, toks, torch.zeros_like(start),
+                         start, tables)
+        seq = {n: t.clone() for n, t in cache.items()}
+        vl, _ = tm.verify_step(cfg, params, cache, vtok, start, tables)
+        for j in range(k + 1):
+            dl, seq = tm.decode_step(cfg, params, seq, vtok[:, j], start + j,
+                                     tables)
+            worst = max(worst, (vl[:, j] - dl).abs().max().item())
+    return worst
+
+
+def _first_divergence(got, want):
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+
+
+def _ship(pre, dec, prompt, new_tokens, reference, tail_only=False,
+          shipped=None):
+    """One disaggregated hop: hold ``prompt``'s prefill on ``pre`` and
+    export it (from block 0, or with ``tail_only`` from the decode side's
+    cached boundary), or reuse ``shipped`` = (held, first token, payload)
+    from an earlier hop; adopt on ``dec`` and decode. The continuation
+    must equal ``reference``. Returns (held, first token, payload,
+    reading)."""
+    if shipped is None:
+        held = pre.submit(prompt, max_new_tokens=1, hold_after_prefill=True)
+        first = _drain(held)[0]
+    else:
+        held, first, payload = shipped
+    areq = dec.begin_adopted(prompt, max_new_tokens=new_tokens)
+    if areq is None:
+        raise AssertionError("begin_adopted found no room")
+    t0 = time.perf_counter()
+    if shipped is None:
+        start = (areq.cached_prompt_tokens // dec.cache.block_size
+                 if tail_only else 0)
+        payload = pre.cache.export_blocks(held.seq_id, start)
+    t1 = time.perf_counter()
+    if not dec.adopt_kv(areq, payload):
+        raise AssertionError("adopt_kv refused a fresh payload")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dec.commit_adopted(areq, first)
+    out = _drain(areq)
+    if out != reference:
+        j = _first_divergence(out, reference)
+        raise AssertionError(f"adopted continuation differs from the "
+                             f"colocated run at token {j}")
+    blocks, nbytes = areq.kv_ship
+    return held, first, payload, {
+        "prompt_len": len(prompt), "start_block": payload["start_block"],
+        "cached_prompt_tokens": areq.cached_prompt_tokens,
+        "blocks": blocks, "bytes": nbytes,
+        "export_ms": (t1 - t0) * 1e3 if shipped is None else None,
+        "graft_ms": (t2 - t1) * 1e3}
+
+
+def _drain(req, timeout_s=600):
+    out = []
+    while True:
+        item = req.output_queue.get(timeout=timeout_s)
+        if isinstance(item, tuple):
+            if item != ("__done__", "FINISHED"):
+                raise AssertionError(f"request ended with {item}")
+            return out
+        out.append(item)
+
+
+def phase_spec_disagg(dev, card, cfg, lens, new_tokens):
+    """Phase 6 (see the module docstring): speculative decoding and the
+    engine side of disaggregated serving at the flagship's width."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+
+    k = SPEC_K
+    prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                       cfg.vocab_size)
+    n = len(prompts)
+
+    def make(model, params, draft=None, draft_params=None, cls=None,
+             **over):
+        spec = dict(spec_k=k, draft_model=draft) if draft else {}
+        return (cls or InferenceEngine)(EngineConfig(
+            model=model, num_blocks=SPEC_NUM_BLOCKS, block_size=BLOCK_SIZE,
+            device=str(dev), **spec, **over), params=params,
+            draft_params=draft_params)
+
+    results = {}
+    readings = {}
+    # (a), (b): f32, random draft and self-draft, streams equal vanilla.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tm.init_params(cfg32, SEED, device=dev)
+    d32 = tm.draft_config(cfg32)
+    dp32 = tm.init_params(d32, SEED + 1, device=dev)
+    vanilla32, _, _, _ = _serve(lambda: make(cfg32, p32), prompts,
+                                new_tokens)
+    f32 = {}
+    for name, draft, dparams in (("random_draft", d32, dp32),
+                                 ("self_draft", cfg32, p32)):
+        outs, st, _, _ = _serve(lambda: make(cfg32, p32, draft, dparams),
+                                prompts, new_tokens)
+        bad = [i for i in range(n) if outs[i] != vanilla32[i]]
+        f32[name] = {"streams_equal_vanilla": not bad, "spec": st["spec"]}
+        if bad:
+            results["f32"] = f32
+            emit({"phase": "spec_disagg", "results": results})
+            raise AssertionError(f"f32 {name}: streams {bad} differ from "
+                                 f"vanilla")
+        _check_spec_counters(f"f32 {name}", st["spec"], n)
+    # (b) one round per request: the self-draft's cache is the prefill's.
+    outs, st, _, _ = _serve(lambda: make(cfg32, p32, cfg32, p32), prompts,
+                            k + 2)
+    rate = st["spec"]["acceptance_rate"]
+    f32["self_draft_one_round"] = {"acceptance_rate": rate,
+                                   "min": SPEC_SELF_ACCEPT_MIN_F32,
+                                   "spec": st["spec"]}
+    if rate < SPEC_SELF_ACCEPT_MIN_F32 or \
+            any(o != v[:k + 2] for o, v in zip(outs, vanilla32)):
+        results["f32"] = f32
+        emit({"phase": "spec_disagg", "results": results})
+        raise AssertionError(f"f32 self-draft, one round: acceptance {rate}"
+                             f" (limit {SPEC_SELF_ACCEPT_MIN_F32}) or "
+                             f"streams differ from vanilla")
+    results["f32"] = f32
+
+    # (c) bf16, random draft and self-draft: equal to vanilla up to the
+    # first divergence, which must be a near-tie of vanilla's logits.
+    p16 = tm.init_params(cfg, SEED, device=dev)
+    d16 = tm.draft_config(cfg)
+    dp16 = tm.init_params(d16, SEED + 1, device=dev)
+    gaps = {}
+
+    class GapEngine(InferenceEngine):
+        """Vanilla engine that records each emitted token's top-two logit
+        gap (for the near-tie check; not timed)."""
+
+        def _emit(self, reqs, logits):
+            top2 = np.sort(np.partition(logits, -2, axis=-1)[:, -2:], -1)
+            for i, req in enumerate(reqs):
+                gaps.setdefault(tuple(req.prompt), []).append(
+                    float(top2[i, 1] - top2[i, 0]))
+            super()._emit(reqs, logits)
+
+    vanilla16, _, vgaps, vwall = _serve(lambda: make(cfg, p16), prompts,
+                                        new_tokens)
+    readings["vanilla"] = _reading(vanilla16, vgaps, vwall)
+    recorded, _, _, _ = _serve(lambda: make(cfg, p16, cls=GapEngine),
+                               prompts, new_tokens)
+    if recorded != vanilla16:
+        raise AssertionError("two vanilla bf16 runs of one batch differ")
+    yardstick = _verify_vs_decode(cfg, tm.serving_params(p16, cfg, dev),
+                                  prompts, vanilla16, k, dev)
+    bf16 = {"tie_tol": SPEC_TIE_TOL_BF16,
+            "verify_vs_decode_max_abs": yardstick}
+    for name, draft, dparams in (("random_draft", d16, dp16),
+                                 ("self_draft", cfg, p16)):
+        outs, st, sgaps, swall = _serve(
+            lambda: make(cfg, p16, draft, dparams), prompts, new_tokens)
+        readings[name] = dict(_reading(outs, sgaps, swall),
+                              acceptance_rate=st["spec"]["acceptance_rate"])
+        diverged = []
+        for i in range(n):
+            j = _first_divergence(outs[i], vanilla16[i])
+            if j is not None:
+                diverged.append({"stream": i, "token": j,
+                                 "vanilla_top2_gap":
+                                     gaps[tuple(prompts[i])][j]})
+        bf16[name] = {"diverging_streams": len(diverged),
+                      "divergences": diverged, "spec": st["spec"]}
+        _check_spec_counters(f"bf16 {name}", st["spec"], n)
+        clear = [d for d in diverged
+                 if d["vanilla_top2_gap"] >= SPEC_TIE_TOL_BF16]
+        if clear:
+            results["bf16"] = bf16
+            emit({"phase": "spec_disagg", "results": results})
+            raise AssertionError(f"bf16 {name}: divergences with a clear "
+                                 f"margin {clear}")
+    results["bf16"] = bf16
+
+    # (d) the shift pair: acceptance exactly 1.0, k + 1 tokens a round.
+    shift_cfg = dataclasses.replace(cfg, vocab_size=cfg.d_model)
+    shift_prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                             shift_cfg.vocab_size)
+    shift_new = 1 + 6 * (k + 1)   # the prefill's token, then 6 full rounds
+    shift = {}
+    for dt in (torch.bfloat16, torch.float32):
+        sc = dataclasses.replace(shift_cfg, dtype=dt)
+        sd = tm.draft_config(sc, d_model=sc.d_model)
+        outs, st, _, _ = _serve(lambda: make(
+            sc, tm.shift_params(sc, 1, device=dev), sd,
+            tm.shift_params(sd, 1, device=dev)), shift_prompts, shift_new)
+        spec = st["spec"]
+        want = [[(p[-1] + 1 + i) % sc.vocab_size for i in range(shift_new)]
+                for p in shift_prompts]
+        shift[_dtype_name(dt)] = spec
+        if (outs != want or spec["acceptance_rate"] != 1.0
+                or spec["emitted"] != spec["proposed"] // k * (k + 1)
+                or spec["fallback_rounds"]):
+            results["shift_pair"] = shift
+            emit({"phase": "spec_disagg", "results": results})
+            raise AssertionError(f"shift pair {_dtype_name(dt)}: {spec}")
+    results["shift_pair"] = shift
+
+    # (e) KV transfer, exact in bf16 and f32, and (f) COW with an aux pool.
+    transfer = {}
+    for dt in (torch.bfloat16, torch.float32):
+        mc = dataclasses.replace(cfg, dtype=dt)
+        p = tm.init_params(mc, SEED, device=dev)
+        dc = tm.draft_config(mc)
+        dp = tm.init_params(dc, SEED + 1, device=dev)
+        transfer[_dtype_name(dt)] = _transfer_checks(
+            make, mc, p, dc, dp, prompts, new_tokens)
+    results["transfer"] = {d: {key: v for key, v in t.items()
+                               if key != "ships"}
+                           for d, t in transfer.items()}
+    results["cow_with_aux"] = _cow_check(make, cfg32, p32, d32, dp32,
+                                         new_tokens)
+    emit({"phase": "spec_disagg", "results": results})
+    for name, r in readings.items():
+        emit({"spec_smoke_reading": name, "requests": n,
+              "new_tokens": new_tokens, "spec_k": k if name != "vanilla"
+              else 0, "dtype": "bfloat16", **r, "card": card})
+    for dt, t in transfer.items():
+        emit({"kv_transfer_smoke_reading": dt, "ships": t["ships"],
+              "card": card})
+    return results
+
+
+def _transfer_checks(make, mc, p, dc, dp, prompts, new_tokens):
+    """(e): every prompt shipped in full from a prefill engine to a decode
+    engine, one at a time, each continuation equal to a colocated run of
+    the same request; then a cached-prefix adoption, a tail-only ship and
+    a stale plan on prompt SHIP_PROMPT; then a full ship between
+    spec-armed engines (the draft pool ships too) against a colocated spec
+    engine. No block stays in use on either side."""
+    colo = make(mc, p)
+    try:
+        refs = [_drain(colo.submit(q, max_new_tokens=new_tokens))
+                for q in prompts]
+        # The same prompt again hits the colocated prefix cache: the
+        # tail-only ship's prefill has this run's shapes.
+        ref_cached = _drain(colo.submit(prompts[SHIP_PROMPT],
+                                        max_new_tokens=new_tokens))
+    finally:
+        colo.shutdown()
+    pre, dec = make(mc, p), make(mc, p)
+    out = {}
+    try:
+        ships, helds = [], []
+        for i, (q, ref) in enumerate(zip(prompts, refs)):
+            held, first, payload, r = _ship(pre, dec, q, new_tokens, ref)
+            helds.append(held)
+            ships.append(r)
+            if i == SHIP_PROMPT:
+                shipped = (held, first, payload)
+        # The same payload again: the decode side now caches the prompt's
+        # full blocks, so the graft writes only the rest.
+        q = prompts[SHIP_PROMPT]
+        cached = _ship(pre, dec, q, new_tokens, refs[SHIP_PROMPT],
+                       shipped=shipped)[3]
+        if cached["cached_prompt_tokens"] == 0:
+            raise AssertionError("cached-prefix adoption found no prefix")
+        # A second prefill of the prompt hits the prefill side's cache
+        # too, as the colocated run's second request did.
+        held, _, _, tail = _ship(pre, dec, q, new_tokens, ref_cached,
+                                 tail_only=True)
+        helds.append(held)
+        if not 0 < tail["blocks"] < ships[SHIP_PROMPT]["blocks"]:
+            raise AssertionError(f"tail-only ship carried {tail['blocks']} "
+                                 f"blocks")
+        # A stale plan: exported past the decode side's boundary (it
+        # caches nothing of this prompt) is refused and aborted clean.
+        stale_prompt = [t % (mc.vocab_size - 1) + 1 for t in q[::-1]]
+        held = pre.submit(stale_prompt, max_new_tokens=1,
+                          hold_after_prefill=True)
+        _drain(held)
+        helds.append(held)
+        in_use = dec.cache.stats()["blocks_in_use"]
+        areq = dec.begin_adopted(stale_prompt, max_new_tokens=new_tokens)
+        if dec.adopt_kv(areq, pre.cache.export_blocks(held.seq_id, 1)):
+            raise AssertionError("adopt_kv took a stale-plan payload")
+        dec.abort_adopted(areq)
+        if dec.cache.stats()["blocks_in_use"] != in_use:
+            raise AssertionError("abort_adopted leaked blocks")
+        for h in helds:
+            pre.release_held(h.seq_id)
+        if not dec.wait_idle(120):
+            raise AssertionError("decode engine did not go idle")
+        out.update(full_ships=len(ships), cached_prefix=cached,
+                   tail_only=tail, stale_plan_refused=True,
+                   blocks_exported=pre.cache.stats()["blocks_exported"],
+                   blocks_grafted=dec.cache.stats()["blocks_grafted"])
+        leaked = (pre.cache.stats()["blocks_in_use"],
+                  dec.cache.stats()["blocks_in_use"])
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+    if any(leaked):
+        raise AssertionError(f"blocks left in use (prefill, decode): "
+                             f"{leaked}")
+    # The same full ship between spec-armed engines.
+    spec_refs = []
+    colo = make(mc, p, dc, dp)
+    try:
+        for i in SPEC_SHIP_PROMPTS:
+            spec_refs.append(_drain(colo.submit(
+                prompts[i], max_new_tokens=new_tokens)))
+    finally:
+        colo.shutdown()
+    pre, dec = make(mc, p, dc, dp), make(mc, p, dc, dp)
+    try:
+        spec_ships = []
+        for i, ref in zip(SPEC_SHIP_PROMPTS, spec_refs):
+            held, _, payload, r = _ship(pre, dec, prompts[i], new_tokens,
+                                        ref)
+            if set(payload["aux"]) != {"draft"}:
+                raise AssertionError("the draft pool did not ship")
+            pre.release_held(held.seq_id)
+            spec_ships.append(r)
+        if not dec.wait_idle(120):
+            raise AssertionError("decode engine did not go idle")
+        leaked = (pre.cache.stats()["blocks_in_use"],
+                  dec.cache.stats()["blocks_in_use"])
+        spec = dec.stats()["spec"]
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+    if any(leaked):
+        raise AssertionError(f"spec ship left blocks in use: {leaked}")
+    if spec["rounds"] == 0:
+        raise AssertionError("the spec-armed decode engine ran no round")
+    out.update(spec_armed_ships=spec_ships, spec_armed_decode=spec,
+               continuations_equal_colocated=True, ships=ships)
+    return out
+
+
+def _cow_check(make, cfg32, p, draft, dp, new_tokens):
+    """(f): a fully cached prompt on a spec engine copies its boundary
+    block on write while the donor holds it; the copy covers the draft's
+    aux pool, and both streams equal vanilla's."""
+    prompt = _prompts(np.random.default_rng(SEED + 3), [COW_PROMPT_LEN],
+                      cfg32.vocab_size)[0]
+    vanilla = make(cfg32, p)
+    try:
+        # The second run hits the prefix cache (fully cached prompt) as
+        # the spec engine's second request does.
+        want = [_drain(vanilla.submit(prompt, max_new_tokens=new_tokens))
+                for _ in range(2)]
+    finally:
+        vanilla.shutdown()
+    engine = make(cfg32, p, draft, dp)
+    try:
+        with engine._lock:
+            donor = engine.submit(prompt, max_new_tokens=new_tokens)
+            if not engine.step() or len(donor.out_tokens) != 1:
+                raise AssertionError("donor prefill did not complete")
+            second = engine.submit(prompt, max_new_tokens=new_tokens)
+            engine.step()
+            idx = COW_PROMPT_LEN // BLOCK_SIZE - 1
+            src = engine.cache.table(donor.seq_id)[idx]
+            dst = engine.cache.table(second.seq_id)[idx]
+            copied = src != dst
+            for pool in (engine.cache.data, engine.cache.aux_data("draft")):
+                for name in ("k", "v"):
+                    a = pool[name][:, dst, :BLOCK_SIZE - 1]
+                    b = pool[name][:, src, :BLOCK_SIZE - 1]
+                    copied = copied and bool(torch.equal(a, b))
+        got = [_drain(donor), _drain(second)]
+        if not engine.wait_idle(120):
+            raise AssertionError("engine did not go idle")
+        st = engine.stats()
+    finally:
+        engine.shutdown()
+    if not copied or st["cow_copies"] < 1:
+        raise AssertionError(f"no copy on write of both pools (copied "
+                             f"{copied}, cow_copies {st['cow_copies']})")
+    if got != want:
+        raise AssertionError("COW streams differ from vanilla")
+    return {"prompt_len": COW_PROMPT_LEN, "cow_copies": st["cow_copies"],
+            "aux_block_copied": True, "streams_equal_vanilla": True,
+            "spec": st["spec"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1169,10 +1684,9 @@ def main() -> int:
     bwd = phase_backward(dev)
     rms = phase_rms(dev)
     model = phase_model(dev, flagship, model_lens, 512, 32)
-    phase_engine(dev, card, flagship,
-                 [16, 150, 290, 430, 570, 710, 850, 1000], model_lens, 512,
-                 32)
+    phase_engine(dev, card, flagship, ENGINE_LENS, model_lens, 512, 32)
     train = phase_train(dev, card, flagship)
+    phase_spec_disagg(dev, card, flagship, ENGINE_LENS, 32)
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "

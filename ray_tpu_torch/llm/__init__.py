@@ -1,13 +1,21 @@
 """LLM serving of the PyTorch/CUDA port (counterpart of ``ray_tpu/llm``):
 continuous batching over the flagship transformer with a paged KV cache,
-copy-on-write prefix caching and chunked prefill.
+copy-on-write prefix caching, chunked prefill, speculative decoding and
+the engine side of disaggregated prefill/decode.
 
 - ``PagedKVCache`` (kv_cache.py): block pool, block tables, refcounted
-  shared prefix blocks.
+  shared prefix blocks, aux pools riding the same tables (the draft
+  model's cache), and block export/graft for shipping KV between
+  engines.
 - ``Scheduler`` (scheduler.py): bounded waitqueue with load shedding,
-  chunked prefill, recompute eviction.
+  chunked prefill, recompute eviction, adoption of sequences prefilled
+  elsewhere.
 - ``InferenceEngine`` (engine.py): the prefill-chunk/decode step loop
-  with streaming per-request token queues.
+  with streaming per-request token queues; ``spec_k``/``draft_model``
+  arm speculative decoding; ``hold_after_prefill`` and
+  ``begin_adopted``/``adopt_kv``/``commit_adopted`` are the two halves
+  of a disaggregated hop (the servers of ``llm/disagg.py`` are not
+  ported).
 """
 
 from ray_tpu_torch.exceptions import KVCacheOOM

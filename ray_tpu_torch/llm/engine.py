@@ -12,6 +12,19 @@ programs over ``models.transformer``:
 - ``decode_step``: every fully-prefilled sequence advances one token per
   iteration (Orca's iteration-level batching).
 
+Speculative decoding (``spec_k > 0`` with a ``draft_model``): a small
+draft model proposes ``spec_k`` greedy tokens per sequence, its KV riding
+the same block tables as the cache's aux pool ``"draft"``, and the
+flagship scores them in one ``verify_step``; the longest agreeing prefix
+plus one bonus token commits, token for token what greedy decode gives.
+A round with a sampled row, or whose lookahead slots fail to allocate,
+runs vanilla decode instead and is counted in ``spec_fallback_rounds``.
+
+Disaggregated serving, the engine side: ``hold_after_prefill`` keeps a
+finished request's blocks for ``PagedKVCache.export_blocks`` until
+``release_held``; a decode engine adopts the payload with
+``begin_adopted`` / ``adopt_kv`` / ``commit_adopted``.
+
 Padding buckets are powers of two. Padded rows aim at the NULL block and
 their logits are ignored; attention masks every slot past a sequence's
 context, so a sequence's tokens are the same whatever batch it shares an
@@ -20,12 +33,14 @@ iteration with (the concurrent-equals-sequential invariant).
 The reference jits both programs with the pool donated; here they run
 eagerly and update the pool tensors in place. Logits come to the host
 once per step (``.cpu()``), the step's one sync, and sampling stays on
-the host in numpy so seeded sampling matches the reference.
+the host in numpy so seeded sampling matches the reference. A spec round
+keeps its argmaxes on the device (``torch.argmax`` returns the first
+maximal index, as ``np.argmax`` does) and syncs once, for the proposals
+and the verify argmaxes together.
 
-Not ported yet: tensor parallelism (``tp_size > 1``), speculative
-decoding (``spec_k > 0``), the disaggregated-serving hold/adopt path, and
-the tracing and flight-recorder hooks (they import the ``ray_tpu``
-runtime).
+Not ported yet: tensor parallelism (``tp_size > 1``), the servers of
+``llm/disagg.py``, and the tracing and flight-recorder hooks (the
+``llm.kv_ship`` span among them), which import the ``ray_tpu`` runtime.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     prefill_chunk,
     serving_params,
+    verify_step,
 )
 
 __all__ = ["EngineConfig", "InferenceEngine"]
@@ -83,7 +99,12 @@ class EngineConfig:
     cache_dtype: Any = None            # default: model dtype
     enable_prefix_caching: bool = True  # COW shared prefix blocks
     tp_size: int = 1                   # only 1 is ported
-    spec_k: int = 0                    # only 0 is ported
+    # Speculative decoding: the draft proposes spec_k tokens per round and
+    # the flagship verifies them in one verify_step. spec_k=0 or
+    # draft_model=None disarms it (vanilla decode). Greedy only: a round
+    # holding a temperature>0 sequence decodes vanilla.
+    spec_k: int = 0
+    draft_model: Any = None            # draft TransformerConfig
     device: str = "cuda"
 
     def resolved_model(self):
@@ -99,19 +120,18 @@ def _pow2_at_least(n: int, floor: int = 1) -> int:
 
 
 class InferenceEngine:
-    """See module docstring. Construct with a parameter tree (on any
-    device; it is moved to ``config.device`` and cast once to the model
-    dtype) or let the engine init one from ``param_seed``."""
+    """See module docstring. Construct with parameter trees (on any
+    device; they are moved to ``config.device`` and cast once to their
+    model's dtype) or let the engine init them: the flagship from
+    ``param_seed``, the draft from ``param_seed + 1``."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 draft_params: Optional[dict] = None):
         self.config = config or EngineConfig()
         if self.config.tp_size > 1:
             raise NotImplementedError(
                 "tensor-parallel serving is not ported yet (tp_size > 1)")
-        if self.config.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (spec_k > 0)")
         self.device = resolve_device(self.config.device)
         self.model_cfg = self.config.resolved_model()
         if params is None:
@@ -129,15 +149,39 @@ class InferenceEngine:
             max_num_seqs=self.config.max_num_seqs,
             prefill_token_budget=self.config.prefill_token_budget,
             max_queued_requests=self.config.max_queued_requests)
+        # Speculative decoding: the draft's KV attaches to the same block
+        # manager as an aux pool (one table, two pools).
+        self._spec_armed = (self.config.spec_k > 0
+                            and self.config.draft_model is not None)
+        if self._spec_armed:
+            self.draft_cfg = self.config.draft_model
+            if draft_params is None:
+                draft_params = init_params(self.draft_cfg,
+                                           self.config.param_seed + 1,
+                                           device=self.device)
+            self.draft_params = serving_params(draft_params, self.draft_cfg,
+                                               self.device)
+            self.cache.attach_aux("draft", self.draft_cfg,
+                                  dtype=self.config.cache_dtype)
         self._lock = threading.RLock()          # scheduler + cache + step
         self._work = threading.Event()          # submit -> loop wakeup
         self._stop = threading.Event()
         self._loop_thread: Optional[threading.Thread] = None
         self._requests: Dict[int, Request] = {}
+        # Held-after-prefill sequences (disaggregated prefill): finished
+        # requests whose blocks stay allocated for export until
+        # release_held().
+        self._held: Dict[int, Request] = {}
         # -- counters --
         self.num_steps = 0
         self.num_prefill_tokens = 0      # prompt tokens actually computed
         self.num_generated_tokens = 0
+        # -- speculative-decoding counters --
+        self.spec_rounds = 0             # verify steps run
+        self.spec_proposed = 0           # draft tokens proposed
+        self.spec_accepted = 0           # proposals the flagship accepted
+        self.spec_emitted = 0            # tokens emitted by spec rounds
+        self.spec_fallback_rounds = 0    # rounds vanilla-decoded instead
         # Per-request TTFT decomposition records, bounded.
         self._timings: "deque" = deque(maxlen=2048)
 
@@ -157,6 +201,8 @@ class InferenceEngine:
                     # loop thread blocked on this lock cannot re-admit it.
                     self.scheduler.remove_waiting(req)
                     self._finish(req, CANCELLED)
+            for seq_id in list(self._held):
+                self.release_held(seq_id)
         self._work.set()
 
     def _loop(self):
@@ -195,11 +241,9 @@ class InferenceEngine:
                hold_after_prefill: bool = False) -> Request:
         """Enqueue a request. Past the bounded waitqueue the lowest
         priority class is shed with a typed ``RequestSheddedError``.
-        Tokens arrive on ``req.output_queue`` as iterations commit them."""
-        if hold_after_prefill:
-            raise NotImplementedError(
-                "hold_after_prefill (disaggregated prefill) is not ported "
-                "yet")
+        Tokens arrive on ``req.output_queue`` as iterations commit them.
+        With ``hold_after_prefill`` the finished request keeps its blocks
+        for export until ``release_held``."""
         req = Request(
             prompt,
             max_new_tokens if max_new_tokens is not None
@@ -207,6 +251,7 @@ class InferenceEngine:
             eos_token_id=(eos_token_id if eos_token_id is not None
                           else self.config.eos_token_id),
             temperature=temperature, seed=seed, priority=priority)
+        req.hold_after_prefill = bool(hold_after_prefill)
         total = len(req.prompt) + req.max_new_tokens
         max_len = self.model_cfg.max_seq_len
         if total > max_len:
@@ -285,20 +330,166 @@ class InferenceEngine:
         else:
             req.output_queue.put((_DONE, status))
 
+    def _hold(self, req: Request):
+        """Disaggregated prefill: retire a ``hold_after_prefill`` request
+        without freeing its blocks; they stay allocated (and
+        prefix-registered) for export until ``release_held``. The
+        consumer's stream ends as with ``_finish``."""
+        self.scheduler.release(req, FINISHED, free_blocks=False)
+        self._requests.pop(req.seq_id, None)
+        self._held[req.seq_id] = req
+        req.t_finish = time.monotonic()
+        self._record_timing(req, FINISHED)
+        req.output_queue.put((_DONE, FINISHED))
+
+    def _retire(self, req: Request):
+        if req.hold_after_prefill:
+            self._hold(req)
+        else:
+            self._finish(req, FINISHED)
+
+    def release_held(self, seq_id: int) -> int:
+        """Free a held sequence's blocks (the decode side's ack, or
+        shutdown). Idempotent: a second call sees 0. Returns blocks
+        actually freed."""
+        with self._lock:
+            if self._held.pop(seq_id, None) is None:
+                return 0
+            freed = self.cache.free(seq_id)
+        self._work.set()  # a parked admission may now fit
+        return freed
+
+    def held_count(self) -> int:
+        with self._lock:
+            return len(self._held)
+
+    # ------------------------------------------------------ disagg adoption
+    def begin_adopted(self, prompt: List[int],
+                      max_new_tokens: Optional[int] = None,
+                      eos_token_id: Optional[int] = None,
+                      temperature: float = 0.0,
+                      seed: Optional[int] = None,
+                      priority: int = 0) -> Optional[Request]:
+        """Disaggregated decode, step 1 of 3: allocate the prompt's block
+        table as admission would (sharing every prefix-cached leading
+        block) so a prefill replica's exported KV can be grafted into it.
+        Returns None when the batch or pool has no room now; the caller
+        falls back to the colocated path. The request runs only after
+        ``commit_adopted``."""
+        req = Request(
+            prompt,
+            max_new_tokens if max_new_tokens is not None
+            else self.config.max_new_tokens_default,
+            eos_token_id=(eos_token_id if eos_token_id is not None
+                          else self.config.eos_token_id),
+            temperature=temperature, seed=seed, priority=priority)
+        if len(req.prompt) + req.max_new_tokens > self.model_cfg.max_seq_len:
+            return None
+        with self._lock:
+            if len(self.scheduler.running) >= self.config.max_num_seqs:
+                return None
+            cached = self.cache.allocate_prefix(
+                req.seq_id, req.prompt, extra_tokens=1)
+            if cached is None:
+                return None
+            req.cached_prompt_tokens = cached
+            req.t_sched = time.monotonic()
+            self._requests[req.seq_id] = req
+        return req
+
+    def abort_adopted(self, req: Request) -> None:
+        """Undo ``begin_adopted`` (the remote prefill or the transfer
+        failed): drop the allocation and forget the request. The caller
+        retries on the colocated path with a fresh submit."""
+        with self._lock:
+            self._requests.pop(req.seq_id, None)
+            self.cache.free(req.seq_id)
+        self._work.set()
+
+    def adopt_kv(self, req: Request, payload: dict) -> bool:
+        """Disaggregated step 2: graft the prefill replica's exported
+        blocks into this pool under the adopted sequence's table. Blocks
+        before the locally prefix-cached boundary are never written; the
+        payload must cover everything from that boundary on, or the graft
+        is refused (False: the shipping plan went stale, the caller falls
+        back). On success the full prompt registers in the prefix cache
+        and the transfer phase's stamp closes."""
+        graft_from = req.cached_prompt_tokens // self.cache.block_size
+        if (int(payload.get("block_size", -1)) != self.cache.block_size
+                or int(payload.get("start_block", 0)) > graft_from):
+            return False
+        with self._lock:
+            try:
+                self.cache.graft_blocks(req.seq_id, payload,
+                                        start_block=graft_from)
+            except (KeyError, ValueError):
+                return False
+            self.cache.register_prefix(req.seq_id, len(req.prompt))
+        nbytes = 0
+        for part in (payload, *payload.get("aux", {}).values()):
+            for name in ("k", "v"):
+                t = part.get(name)
+                if t is not None:
+                    nbytes += t.numel() * t.element_size()
+        req.kv_ship = (int(payload.get("blocks", 0)), nbytes)
+        now = time.monotonic()
+        if req.t_prefill_done is None:
+            # The caller normally stamps this when the remote prefill
+            # returns; backfilling keeps transfer_s >= 0 regardless.
+            req.t_prefill_done = now
+        req.t_transfer_done = now
+        return True
+
+    def commit_adopted(self, req: Request, first_token: int) -> None:
+        """Disaggregated step 3: the grafted sequence becomes a live
+        decode row. Streams the prefill replica's first token (sampled
+        there from the final chunk's logits, as the colocated path would)
+        and joins the running set at the decode phase; EOS or a 1-token
+        budget finishes at once."""
+        tok = int(first_token)
+        with self._lock:
+            now = time.monotonic()
+            if req.t_prefill_done is None:
+                req.t_prefill_done = now
+            if req.t_transfer_done is None:
+                req.t_transfer_done = now
+            req.prefill_pos = len(req.prompt)
+            req.t_first_token = now
+            req.out_tokens.append(tok)
+            self.num_generated_tokens += 1
+            req.output_queue.put(tok)
+            if ((req.eos_token_id is not None
+                    and tok == req.eos_token_id)
+                    or len(req.out_tokens) >= req.max_new_tokens):
+                self._finish(req, FINISHED)
+                return
+            self.scheduler.adopt_running(req)
+            self._work.set()
+        self._ensure_loop()
+
     def _record_timing(self, req: Request, status: str):
-        """TTFT decomposition record (queue / prefill / decode seconds)."""
+        """TTFT decomposition record (queue / prefill / transfer / decode
+        seconds). Adopted sequences add a transfer phase (pull + graft)
+        between prefill and decode; colocated ones have none and their
+        decode starts at ``t_prefill_done``."""
         t_end = req.t_finish
         queue_s = ((req.t_sched - req.t_submit)
                    if req.t_sched is not None else t_end - req.t_submit)
         prefill_s = ((req.t_prefill_done - req.t_sched)
                      if req.t_sched is not None
                      and req.t_prefill_done is not None else 0.0)
-        decode_s = ((t_end - req.t_prefill_done)
-                    if req.t_prefill_done is not None else 0.0)
+        transfer_s = ((req.t_transfer_done - req.t_prefill_done)
+                      if req.t_transfer_done is not None
+                      and req.t_prefill_done is not None else 0.0)
+        t_decode0 = (req.t_transfer_done
+                     if req.t_transfer_done is not None
+                     else req.t_prefill_done)
+        decode_s = (t_end - t_decode0) if t_decode0 is not None else 0.0
         self._timings.append({
             "status": status,
             "queue_s": queue_s,
             "prefill_s": prefill_s,
+            "transfer_s": transfer_s,
             "decode_s": decode_s,
             "ttft_s": ((req.t_first_token - req.t_submit)
                        if req.t_first_token is not None else None),
@@ -335,7 +526,10 @@ class InferenceEngine:
             if decodes:
                 decodes = [r for r in decodes if not r.finished()]
             if decodes:
-                self._run_decode(decodes)
+                if self._spec_armed:
+                    self._run_spec_decode(decodes)
+                else:
+                    self._run_decode(decodes)
             self.num_steps += 1
             return True
 
@@ -362,10 +556,19 @@ class InferenceEngine:
         m_pad = _pow2_at_least(max(tables.shape[1], need_m))
         bt = np.zeros((b_pad, m_pad), np.int32)
         bt[:len(chunks), :tables.shape[1]] = tables
+        tokens_t, starts_t, lens_t, bt_t = (
+            self._upload(a) for a in (tokens, starts, lens, bt))
         logits, self.cache.data = prefill_chunk(
             self.model_cfg, self.params, self.cache.data,
-            self._upload(tokens), self._upload(starts), self._upload(lens),
-            self._upload(bt))
+            tokens_t, starts_t, lens_t, bt_t)
+        if self._spec_armed:
+            # The draft's KV rides the same chunk plan into its aux pool,
+            # so the first spec round can draft at once.
+            _, draft_data = prefill_chunk(
+                self.draft_cfg, self.draft_params,
+                self.cache.aux_data("draft"), tokens_t, starts_t, lens_t,
+                bt_t)
+            self.cache.set_aux_data("draft", draft_data)
         logits = None if not any(
             start + n >= len(r.prompt) for r, start, n in chunks) \
             else logits.cpu().numpy()
@@ -401,6 +604,99 @@ class InferenceEngine:
             self._upload(tokens), self._upload(positions), self._upload(bt))
         self._emit(reqs, logits.cpu().numpy()[:len(reqs)])
 
+    def _run_spec_decode(self, reqs: List[Request]):
+        """One speculative round: the draft proposes ``spec_k`` greedy
+        tokens per sequence (its KV in the aux pool), the flagship scores
+        ``[last_token, d_1..d_k]`` in one ``verify_step``, and the longest
+        agreeing prefix plus one bonus token from the verify logits
+        commits: 1 to k+1 tokens per sequence, token for token what
+        vanilla greedy decode gives (the flagship's argmax decides; the
+        draft only sets how many positions one step scores).
+
+        A round with a temperature > 0 row, or whose k lookahead slots do
+        not all allocate, decodes vanilla instead (counted). Stale
+        lookahead KV past an accepted prefix is masked by the context
+        length until a later round's writes cover it."""
+        k = self.config.spec_k
+        if any(r.temperature > 0.0 for r in reqs):
+            self.spec_fallback_rounds += 1
+            return self._run_decode(reqs)
+        # schedule() guaranteed position num_tokens-1 (+1 headroom);
+        # verify also writes num_tokens .. num_tokens+k-1.
+        for r in reqs:
+            for pos in range(r.num_tokens, r.num_tokens + k):
+                if not self.cache.ensure_slot(r.seq_id, pos):
+                    self.spec_fallback_rounds += 1
+                    return self._run_decode(reqs)
+        bs = self.cache.block_size
+        b = len(reqs)
+        b_pad = _pow2_at_least(b)
+        c_pad = _pow2_at_least(k + 1)
+        tables = self.cache.padded_tables([r.seq_id for r in reqs])
+        # Cover every position verify's padded columns may touch: block
+        # lookups clamp to the last table column, so positions past a
+        # row's real table must resolve to the NULL pad, never onto its
+        # last live block.
+        need_m = max((r.num_tokens - 1 + c_pad - 1) // bs + 1
+                     for r in reqs)
+        m_pad = _pow2_at_least(max(tables.shape[1], need_m))
+        bt = np.zeros((b_pad, m_pad), np.int32)
+        bt[:b, :tables.shape[1]] = tables
+        bt_t = self._upload(bt)
+        last = np.zeros((b_pad,), np.int32)
+        start = np.zeros((b_pad,), np.int32)
+        for i, r in enumerate(reqs):
+            last[i] = r.last_token
+            start[i] = r.num_tokens - 1
+        start_t = self._upload(start)
+
+        # Draft pass: k one-token steps over the aux pool, argmax on the
+        # device. Column j+1 of vtok is proposal j+1.
+        draft_data = self.cache.aux_data("draft")
+        vtok = torch.zeros((b_pad, c_pad), dtype=torch.long,
+                           device=self.device)
+        vtok[:, 0] = self._upload(last)
+        for j in range(k):
+            logits, draft_data = decode_step(
+                self.draft_cfg, self.draft_params, draft_data,
+                vtok[:, j], start_t + j, bt_t)
+            vtok[:, j + 1] = torch.argmax(logits, dim=-1)
+        self.cache.set_aux_data("draft", draft_data)
+
+        # Verify pass: one flagship step scores all k proposals; one host
+        # sync brings the proposals and the verify argmaxes together.
+        logits, self.cache.data = verify_step(
+            self.model_cfg, self.params, self.cache.data, vtok, start_t,
+            bt_t)
+        best = torch.argmax(logits[:b, :k + 1], dim=-1)
+        host = torch.cat([vtok[:b, 1:k + 1], best], dim=1).cpu().numpy()
+        proposals, best = host[:, :k], host[:, k:]
+
+        self.spec_rounds += 1
+        self.spec_proposed += b * k
+        for i, req in enumerate(reqs):
+            accepted = 0
+            while (accepted < k
+                   and best[i, accepted] == proposals[i, accepted]):
+                accepted += 1
+            self.spec_accepted += accepted
+            # Accepted proposals + one bonus token (the flagship's own
+            # next token after the accepted prefix).
+            toks = [int(t) for t in proposals[i, :accepted]]
+            toks.append(int(best[i, accepted]))
+            if req.t_first_token is None:
+                req.t_first_token = time.monotonic()
+            for tok in toks:
+                req.out_tokens.append(tok)
+                self.num_generated_tokens += 1
+                self.spec_emitted += 1
+                req.output_queue.put(tok)
+                if ((req.eos_token_id is not None
+                        and tok == req.eos_token_id)
+                        or len(req.out_tokens) >= req.max_new_tokens):
+                    self._retire(req)
+                    break
+
     def _emit(self, reqs: List[Request], logits: np.ndarray):
         """Sample one token per request, stream it, and retire sequences
         that hit EOS or their token budget."""
@@ -413,7 +709,7 @@ class InferenceEngine:
             req.output_queue.put(tok)
             if ((req.eos_token_id is not None and tok == req.eos_token_id)
                     or len(req.out_tokens) >= req.max_new_tokens):
-                self._finish(req, FINISHED)
+                self._retire(req)
 
     @staticmethod
     def _sample(req: Request, row: np.ndarray) -> int:
@@ -440,7 +736,19 @@ class InferenceEngine:
             "prefill_tokens": self.num_prefill_tokens,
             "generated_tokens": self.num_generated_tokens,
             "ttft_decomposition": self.ttft_decomposition(),
+            "held_sequences": len(self._held),
         }
+        if self._spec_armed:
+            out["spec"] = {
+                "k": self.config.spec_k,
+                "rounds": self.spec_rounds,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "emitted": self.spec_emitted,
+                "fallback_rounds": self.spec_fallback_rounds,
+                "acceptance_rate": (self.spec_accepted
+                                    / max(1, self.spec_proposed)),
+            }
         out.update(self.scheduler.stats())
         out.update(self.cache.stats())
         return out
@@ -458,7 +766,7 @@ class InferenceEngine:
             return vals[min(len(vals) - 1, int(len(vals) * q))]
 
         out = {"completed": len(rows)}
-        for key in ("queue", "prefill", "decode", "ttft"):
+        for key in ("queue", "prefill", "transfer", "decode", "ttft"):
             out[f"{key}_p50_s"] = pct(f"{key}_s", 0.5)
             out[f"{key}_p99_s"] = pct(f"{key}_s", 0.99)
         return out

@@ -22,8 +22,16 @@ Block 0 is the NULL block: never handed out; every padded table entry
 points at it, so prefill/decode scatter unconditionally and the
 attention masks keep block 0 out of every softmax.
 
-Aux pools (the speculative-decoding draft cache) and block export/graft
-(disaggregated serving) are not ported yet.
+Aux pools (the speculative-decoding draft cache) ride the same block
+tables: one host-side manager, several device pools. Every event that
+moves bytes (COW copy, export, graft) covers every pool.
+
+Export and graft (disaggregated serving) differ from the reference in
+two places. The reference gathers outside the lock against a snapshot of
+immutable JAX arrays; here the step loop updates the pools in place, so
+the gather (``index_select``, which copies) runs under the lock and only
+the copy to the host runs outside it. And bf16 has no numpy dtype, so the
+payload carries CPU tensors under the reference's keys.
 """
 
 from __future__ import annotations
@@ -96,6 +104,8 @@ class PagedKVCache:
         self._prompt_digests: Dict[int, List[str]] = {}
         self._registered_upto: Dict[int, int] = {}
         self._lock = threading.Lock()
+        # name -> {"k", "v"} pools sharing this manager's block layout.
+        self._aux: Dict[str, Dict[str, torch.Tensor]] = {}
         # -- accounting (engine tests/bench read these) --
         self.peak_blocks_in_use = 0
         self.total_blocks_allocated = 0
@@ -107,6 +117,9 @@ class PagedKVCache:
         self.prefill_tokens_saved = 0      # tokens skipped via cache hits
         self.cow_copies = 0                # shared blocks copied on write
         self.cached_blocks_evicted = 0     # cached-free blocks reclaimed
+        # -- disaggregated-serving shipping counters --
+        self.blocks_exported = 0           # blocks packed for shipping
+        self.blocks_grafted = 0            # shipped blocks written back in
 
     # ------------------------------------------------------------- capacity
     @property
@@ -309,13 +322,17 @@ class PagedKVCache:
         return new
 
     def _copy_block_data(self, src: int, dst: int) -> None:
-        """Device-side block copy (K and V, all layers), in place on the
-        pool tensors. The reference jits this with the pool donated so
-        XLA updates in place; an indexed copy does the same here."""
+        """Device-side block copy (K and V, all layers, every pool), in
+        place on the pool tensors. The reference jits this with the pool
+        donated so XLA updates in place; an indexed copy does the same
+        here. Aux pools share the block layout, so a draft cache left
+        pointing at the donor block would read another sequence's
+        context."""
         with torch.no_grad():
-            for name in ("k", "v"):
-                pool = self.data[name]
-                pool[:, dst] = pool[:, src]
+            for pools in (self.data, *self._aux.values()):
+                for name in ("k", "v"):
+                    pool = pools[name]
+                    pool[:, dst] = pool[:, src]
 
     def ensure_slot(self, seq_id: int, position: int) -> bool:
         """Grow ``seq_id``'s table so ``position`` has a physical slot
@@ -354,6 +371,108 @@ class PagedKVCache:
             if not blocks:
                 return 0
             return sum(self._release_block(b) for b in reversed(blocks))
+
+    # ------------------------------------------------- aux pools + shipping
+    def attach_aux(self, name: str, model_cfg, dtype=None) -> None:
+        """Attach a second device pool (same ``num_blocks`` x
+        ``block_size`` geometry, possibly another model config: the
+        spec-decode draft cache) that rides this manager's block tables.
+        Aux pools are copied on COW, packed by ``export_blocks`` and
+        written by ``graft_blocks``."""
+        device = self.data["k"].device
+        with self._lock:
+            if name in self._aux:
+                raise ValueError(f"aux pool {name!r} already attached")
+            self._aux[name] = init_kv_cache(
+                model_cfg, self.num_blocks, self.block_size, dtype,
+                device=device)
+
+    def aux_data(self, name: str) -> Dict[str, torch.Tensor]:
+        return self._aux[name]
+
+    def set_aux_data(self, name: str, data: Dict[str, torch.Tensor]
+                     ) -> None:
+        self._aux[name] = data
+
+    def export_blocks(self, seq_id: int, start_block: int = 0) -> dict:
+        """Pack ``seq_id``'s block data from ``start_block`` on into a
+        host payload (per-layer block ranges of every pool), what a
+        disaggregated prefill replica publishes. ``start_block`` ships
+        only the tail a decode replica's prefix cache lacks.
+
+        Payload keys are the reference's: ``start_block``, ``blocks``,
+        ``block_size``, and when any block ships ``k``/``v`` ``[L, n,
+        block_size, n_kv_heads, head_dim]`` and ``aux: {name: {k, v}}``,
+        as CPU tensors in the pools' dtypes."""
+        with self._lock:
+            blocks = list(self._tables[seq_id])[start_block:]
+            payload = {
+                "start_block": int(start_block),
+                "blocks": len(blocks),
+                "block_size": self.block_size,
+            }
+            if blocks:
+                # The pools change in place under the step loop: gather
+                # (a copy) under the lock.
+                idx = torch.tensor(blocks, dtype=torch.long,
+                                   device=self.data["k"].device)
+                gathered = [
+                    {n: p[n].index_select(1, idx) for n in ("k", "v")}
+                    for p in (self.data, *self._aux.values())]
+            self.blocks_exported += len(blocks)
+        if blocks:
+            host = [{n: t.cpu() for n, t in g.items()} for g in gathered]
+            payload.update(host[0])
+            payload["aux"] = dict(zip(self._aux, host[1:]))
+        return payload
+
+    def graft_blocks(self, seq_id: int, payload: dict,
+                     start_block: Optional[int] = None) -> int:
+        """Write a peer's exported block payload into ``seq_id``'s table,
+        from ``start_block`` on (default: the payload's own start). A
+        graft start past the payload's start skips leading payload blocks
+        (this pool's prefix cache covered more than the shipping plan
+        assumed; shared blocks are never written). Every target block
+        must be privately owned and unregistered. Returns blocks grafted.
+
+        Callers serialize against the engine's step loop (the engine
+        grafts under its step lock)."""
+        if int(payload["block_size"]) != self.block_size:
+            raise ValueError(
+                f"payload block_size {payload['block_size']} != pool "
+                f"block_size {self.block_size}")
+        src_start = int(payload["start_block"])
+        n = int(payload["blocks"])
+        sb = src_start if start_block is None else int(start_block)
+        off = sb - src_start
+        if off < 0:
+            raise ValueError(
+                f"graft start {sb} precedes payload start {src_start}")
+        with self._lock:
+            table = self._tables[seq_id]
+            dst = table[sb:src_start + n]
+            if not dst:
+                return 0
+            for b in dst:
+                if self._ref.get(b, 0) != 1 or b in self._block_key:
+                    raise ValueError(
+                        f"graft target block {b} is shared or "
+                        f"registered: grafting would corrupt another "
+                        f"sequence's context")
+            idx = torch.tensor(dst, dtype=torch.long,
+                               device=self.data["k"].device)
+            pairs = [(self.data, payload)] + [
+                (self._aux[a], p) for a, p in payload.get("aux", {}).items()
+                if a in self._aux]
+            with torch.no_grad():
+                for pool, part in pairs:
+                    for name in ("k", "v"):
+                        src = part[name][:, off:off + len(dst)]
+                        pool[name].index_copy_(1, idx, src.to(
+                            device=pool[name].device,
+                            dtype=pool[name].dtype))
+            self.blocks_grafted += len(dst)
+            return len(dst)
 
     # -------------------------------------------------------- prefix cache
     def register_prefix(self, seq_id: int, upto_tokens: int) -> int:
@@ -430,4 +549,7 @@ class PagedKVCache:
                 "prefix_cache_hit_rate": (saved / seen) if seen else 0.0,
                 "cow_copies": self.cow_copies,
                 "cached_blocks_evicted": self.cached_blocks_evicted,
+                "blocks_exported": self.blocks_exported,
+                "blocks_grafted": self.blocks_grafted,
+                "aux_pools": list(self._aux),
             }

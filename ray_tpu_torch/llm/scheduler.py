@@ -1,6 +1,5 @@
 """Copy of ``ray_tpu/llm/scheduler.py`` for the PyTorch/CUDA port (the
-port imports nothing of ``ray_tpu``). Only the imports differ, and
-``adopt_running`` waits for the disaggregated-serving slice.
+port imports nothing of ``ray_tpu``). Only the imports differ.
 
 Iteration-level (continuous) batching scheduler with chunked prefill
 and prefix-cache-aware admission (reference role: Orca's iteration-level
@@ -330,6 +329,17 @@ class Scheduler:
         self.running = [r for r in self.running if r is not req]
         with self._lock:
             self.waiting.appendleft(req)
+
+    def adopt_running(self, req: Request) -> None:
+        """Join an externally-prefilled (disagg-adopted) sequence to the
+        running set: its prompt KV was grafted from a prefill replica
+        and its first token already streamed, so it enters directly at
+        the decode phase. May transiently push the running set one past
+        ``max_num_seqs``; admission (which checks the cap) simply
+        pauses until a slot frees."""
+        req.status = RUNNING
+        self.running.append(req)
+        self.num_admitted += 1
 
     # -------------------------------------------------------------- release
     def release(self, req: Request, status: str,

@@ -1,8 +1,9 @@
 """Flagship model of the PyTorch/CUDA port (counterpart of
 ``ray_tpu/models``): the dense decoder's serving and one-card training
-paths."""
+paths and the speculative-decoding draft helpers."""
 
 from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.draft import draft_config, shift_params
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     decode_step,
@@ -14,11 +15,13 @@ from ray_tpu_torch.models.transformer import (
     prefill_chunk,
     prefill_with_cache,
     serving_params,
+    verify_step,
 )
 
 __all__ = [
     "TransformerConfig",
     "decode_step",
+    "draft_config",
     "forward",
     "init_kv_cache",
     "init_params",
@@ -28,4 +31,6 @@ __all__ = [
     "prefill_chunk",
     "prefill_with_cache",
     "serving_params",
+    "shift_params",
+    "verify_step",
 ]

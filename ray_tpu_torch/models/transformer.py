@@ -376,11 +376,30 @@ def prefill_chunk(cfg: TransformerConfig, params, cache, tokens, start_pos,
     return (last @ params["lm_head"].to(cfg.dtype)).float(), cache
 
 
+@torch.no_grad()
+def verify_step(cfg: TransformerConfig, params, cache, tokens, start_pos,
+                block_tables
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative-decode verify: advance each sequence by C tokens in one
+    call and return the logits at every position, so the flagship scores
+    a draft model's proposals in one batched step.
+
+    tokens [B, C]: row b holds its last accepted token followed by the
+    draft's proposals, starting at absolute position ``start_pos[b]``;
+    block_tables as in ``prefill_chunk``. Returns (logits [B, C, vocab]
+    f32, cache). K/V of all C positions is written, rejected proposals
+    included; the engine overwrites a rejected slot before any later step
+    attends over it."""
+    x = _chunk_scan(cfg, params, cache, tokens, start_pos, block_tables)
+    return (x @ params["lm_head"].to(cfg.dtype)).float(), cache
+
+
 def _chunk_scan(cfg: TransformerConfig, params, cache, tokens, start_pos,
                 block_tables):
-    """Run a chunk through every layer against the paged cache, writing
-    each position's K/V before it is attended; returns the final-normed
-    hidden states [B, C, D]."""
+    """Shared body of ``prefill_chunk`` and ``verify_step``: run a chunk
+    through every layer against the paged cache, writing each position's
+    K/V before it is attended; returns the final-normed hidden states
+    [B, C, D]."""
     _check_dense(cfg)
     B, C = tokens.shape
     dt = cfg.dtype

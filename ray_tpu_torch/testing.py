@@ -1,4 +1,5 @@
-"""Tolerances that hold the port's kernels against their plain versions.
+"""Tolerances that hold the port's kernels against their plain versions,
+and the limits of ``chip_smoke.py``'s speculative-decoding checks.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels.py`` both check the
 kernels on the card; they read their limits here so that the two cannot
@@ -59,6 +60,37 @@ RMS_TOL_CAST_FIRST = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 # average out; to move the loss by one bf16 ulp of itself (2**-8) every
 # token would have to move the same way by that much.
 TRAIN_LOSS_TOL_BF16 = 2.0 ** -8
+
+# Speculative decoding in bf16 (chip_smoke.py phase 6). A spec round's
+# tokens are the argmaxes of verify_step's logits, whose GEMMs and
+# attention run over [B*C] query rows where decode_step's run over [B]:
+# the card may tile them differently and round differently, and the K/V
+# each path writes differs the same way. So a bf16 spec stream equals
+# vanilla's only up to a position where vanilla's top two logits are
+# closer than the two paths' logits differ. The logits are bf16 values
+# (the lm_head product rounds to bf16 before the f32 cast) of size up to
+# ~6 for the random flagship, where one ulp is 2**-5; one path moves a
+# logit by about one ulp (a half-ulp difference in the hidden state sums
+# over 512 terms to a few thousandths, and the output rounding turns that
+# into 0 or 1 ulp). Two logits that each move by up to two ulps swap only
+# where their gap is below four ulps: 2**-3. chip_smoke.py measures the
+# yardstick, the largest |verify - decode| logit difference on the same
+# contexts in the same run, and prints it beside this limit. A divergence
+# whose vanilla top-two gap is above the limit is a fault, not noise.
+SPEC_TIE_TOL_BF16 = 2.0 ** -3
+
+# A self-draft (the flagship as its own draft) in f32, one spec round per
+# request (chip_smoke.py phase 6). The first round drafts from the
+# prefill's cache, which the draft shares exactly, so in exact arithmetic
+# every proposal is accepted; a proposal is rejected only where decode's
+# and verify's f32 logits order a near-tie differently (gaps below ~1e-5,
+# about one token in 1e4 for the random flagship), which costs at most k
+# of the round's 8k proposals. A draft that reads another context (an aux
+# pool not prefilled, copied or shipped) accepts next to nothing. Later
+# rounds are not held to this: after a fully accepted round the draft's
+# cache keeps the k-th proposal's slot unwritten, as the reference's does
+# (ROADMAP section C), which costs acceptance, not tokens.
+SPEC_SELF_ACCEPT_MIN_F32 = 0.75
 
 
 def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:

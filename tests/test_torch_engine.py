@@ -236,16 +236,9 @@ def test_scheduler_waitqueue_bound():
         sched.submit(tllm.Request([1], 4))
 
 
-@pytest.mark.parametrize("over", [dict(tp_size=2), dict(spec_k=2)])
+@pytest.mark.parametrize("over", [dict(tp_size=2)])
 def test_unported_engine_options_raise(params, over):
     with pytest.raises(NotImplementedError):
         tllm.InferenceEngine(tllm.EngineConfig(
             model=PORT_MODEL, device="cpu", **ENGINE, **over),
             params=params[1])
-
-
-def test_hold_after_prefill_raises(params):
-    _, te = _engines(params)
-    with pytest.raises(NotImplementedError):
-        te.submit([1, 2], max_new_tokens=2, hold_after_prefill=True)
-    te.shutdown()
