@@ -28,7 +28,23 @@ non-zero without printing a result. Without a CUDA card, or without the
    timed through CUDA graphs beside the plain backward, SDPA's backward
    and the bound, bf16 also beside the CUDA-core kernels on the same
    inputs; and the RMSNorm kernel at [4*2048, 512], timed beside
-   torch.nn.functional.rms_norm.
+   torch.nn.functional.rms_norm. The shapes and dtypes the reference
+   computes beyond the tensor-core kernels' (C1_FWD_CASES,
+   C1_BWD_CASES): head_dim 256 (and 200) in f32, bf16 and f16, and
+   head_dim 64 in f16, each on the CUDA-core kernels, checked at
+   O_ROW_TOL / GRAD_ROW_TOL of its dtype with a planted fault and a check
+   of the variant launched; at S=2048 each is timed beside SDPA and the
+   bound. head_dim 12 takes the counted plain route: no launch, one
+   plain_routes, the plain result. head_dim 264 (no kernel yet) raises.
+2b. c1_models: three configs the reference serves and trains, at the
+   flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads,
+   bf16), the flagship in float16 and head_dim 12 (d_model 384 over 32
+   heads, GQA 8, bf16). Each serves 4 prompts through prefill_with_cache
+   and 8 decode_steps (prefill logits equal prefill_chunk's) and takes a
+   gradient pass and 2 AdamW steps (finite, the CUDA-core kernels
+   launched n_layers times per pass; head_dim 12 launches nothing and
+   counts n_layers plain routes per forward). From here on the flagship's
+   phases must count no plain route.
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
@@ -79,6 +95,30 @@ non-zero without printing a result. Without a CUDA card, or without the
    equal vanilla's. Smoke readings: tokens/s and token gaps of the bf16
    spec engines beside the vanilla engine, acceptance rates, and the
    export and graft ms, blocks and bytes of each shipped prompt.
+7. moe: the flagship with num_experts=8, moe_every=2 at full width and
+   depth (the reference's dense fallback: every expert on every token,
+   top-1 kept). 4 prompts through prefill_with_cache (the tensor-core
+   forward n_layers times) and 32 greedy decode_steps; the
+   InferenceEngine's 8 concurrent greedy requests equal their sequential
+   runs; in f32, loss_fn's gradients through the kernels equal those
+   through plain attention (routing decisions compared first, the
+   smallest top-two gap printed); 5 bf16 AdamW steps on 4 x 2048 tokens
+   give finite losses, the last below the first, with the tensor-core
+   kernels launched n_layers times each per pass. Step time and tokens/s
+   are smoke readings, with 2 more steps under torch.profiler (kernel
+   time and the device's idle share).
+8. dag: the compiled-DAG wave executor (experimental_compile(
+   backend="torch")) on bench.py's microbenchmark DAGs, rebuilt through
+   the port's remote: chain_1k_noop (1000 tasks), fanout_10k (10 000
+   noop leaves through reduce_tree(combine, arity=4), 13 334 tasks),
+   elementwise_1k (payload (1024,)) and matmul_heavy (payload (64, 64)),
+   width 64, depth 15, 1023 tasks each. Static and dynamic, each equal to
+   a plain evaluator (topological order, each function called once):
+   scalar DAGs exactly, tensor DAGs at the reference's rtol (1e-5, 1e-3).
+   Readings: tasks/s over DAG_EXECS back-to-back data-dependent executes
+   with one sync at the end, p50 / p99 of a synchronous execute + get,
+   graph replays and host launches per execute, and under torch.profiler
+   the device's busy time per execute and idle share.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -121,7 +161,7 @@ except ImportError as exc:
 SEED = 0
 BLOCK_SIZE = 16
 KV_HEADS = (8, 4, 2)    # MHA flagship, its GQA variant (phase 3), group 4
-H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak (H100 SXM)
+H100_BF16_FLOPS = 989e12     # dense bf16 and fp16 tensor-core peak (SXM)
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (H100 SXM)
 H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
 # Kernel vs plain on the card: O_ROW_TOL, LSE_TOL, GRAD_ROW_TOL and the
@@ -144,6 +184,34 @@ BWD_LENGTHS = (128, 512, 2048, 200)   # 200: ragged, no multiple of 64
 # and Sq != Sk (the reference's top-left causal mask).
 BWD_EXTRA_CASES = ((512, 512, 128), (200, 200, 128), (77, 131, 64))
 BWD_TIMED_LEN = 2048   # the training length, where the backward is timed
+# Phase 2's cases the CUDA-core kernels took over in this slice: head_dim
+# 256 (and 200, the runtime-width instance) in each dtype the kernels
+# take, and f16 at head_dim 64; forward (Hkv, Sq, Sk, D, dtypes) at B=4,
+# Hq=8, backward (Sq, Sk, D, dtypes) at B=4, H=8. At S=2048 (causal) each
+# is timed.
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+C1_FWD_CASES = ((8, 512, 512, 256, (_F32, _BF16, _F16)),
+                (4, 200, 200, 256, (_F32, _BF16, _F16)),
+                (8, 2048, 2048, 256, (_F32, _BF16, _F16)),
+                (8, 2048, 2048, 64, (_F16,)), (4, 77, 131, 64, (_F16,)),
+                (4, 512, 512, 200, (_BF16,)))
+C1_BWD_CASES = ((512, 512, 256, (_F32, _BF16, _F16)),
+                (200, 200, 256, (_F32, _BF16, _F16)),
+                (2048, 2048, 256, (_F32, _BF16, _F16)),
+                (2048, 2048, 64, (_F16,)), (77, 131, 200, (_BF16,)))
+PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
+NO_KERNEL_D = 264    # above the widest kernel: the wrapper raises
+C1_DEPTH = 2         # depth of phase 2b's configs (the flagship has 4)
+C1_TRAIN_BATCH, C1_TRAIN_LEN, C1_TRAIN_STEPS = 2, 512, 2
+# Phase 7: the flagship with experts.
+MOE_EXPERTS, MOE_EVERY = 8, 2
+# Phase 8: bench.py's DAG sizes and the readings' run lengths.
+DAG_CHAIN_TASKS = 1000
+DAG_FANOUT_WIDTH = 10_000
+DAG_TENSOR_WIDTH, DAG_TENSOR_DEPTH = 64, 15
+DAG_EXECS = 300       # back-to-back executes per tasks/s reading
+DAG_SYNC_EXECS = 100  # synchronous execute + get, for p50 / p99
+DAG_PROFILED_EXECS = 20   # executes traced by torch.profiler
 # RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
 # version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
 # rows no multiple of the reference's 256-row block, so the reference's
@@ -216,8 +284,8 @@ def graph_ms(fn, iters: int = 24, stream=None) -> float:
 
 def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
     """(bound_ms, bound_by): the larger of operations over the card's peak
-    for the inputs' type (bf16 tensor cores; f32 outside them, as the f32
-    path computes) and bytes (q, k, v read once; O, LSE written once) over
+    for the inputs' type (bf16 and f16: tensor cores; f32 outside them, as
+    the f32 path computes) and bytes (q, k, v read once; O, LSE written once) over
     HBM bandwidth."""
     elt = torch.finfo(dtype).bits // 8
     ops = 4.0 * B * Hq * S * S * D
@@ -225,7 +293,7 @@ def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
         ops *= (S + 1) / (2.0 * S)   # the pairs a causal mask keeps
     nbytes = elt * (2 * B * Hq * S * D + 2 * B * Hkv * S * D) \
         + 4 * B * Hq * S
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -243,7 +311,7 @@ def backward_bound(B, H, S, D, dtype, causal, kind):
         ops *= (S + 1) / (2.0 * S)
     n = B * H * S * D
     nbytes = elt * n * (5 + (1 if kind == "dq" else 2)) + 4 * B * H * S
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -256,20 +324,22 @@ WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
 
 def ptxas_summary(report: str):
     """ptxas's register and spill lines, each under the kernel it names:
-    kernel<dtype, per-thread slice of D> for the CUDA-core kernels (16
-    being D = 64), kernel<D> for the tensor-core ones."""
+    kernel<dtype, per-thread slice of D, register slice> for the CUDA-core
+    kernels (16 being D = 64, 64 being D = 256; a slice of 0 is the
+    runtime-width instance), kernel<D> for the tensor-core ones."""
+    dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
-                          r"I(13__nv_bfloat16|f)Li(\d+)E", entry.group(1))
+                          r"I(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E",
+                          entry.group(1))
             w = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
                           r"ILi(\d+)E", entry.group(1))
             if m:
-                name = (f"{m.group(1)}<"
-                        f"{'f32' if m.group(2) == 'f' else 'bf16'}, "
-                        f"{m.group(3)}>")
+                name = (f"{m.group(1)}<{dtypes[m.group(2)]}, "
+                        f"{m.group(3)}, {m.group(4)}>")
             elif w:
                 name = f"{w.group(1)}<{w.group(2)}>"
             else:
@@ -349,16 +419,19 @@ def phase_kernels(dev):
     wrapper's rule picks (bf16 D 64/128: tensor cores; f32: CUDA cores)
     is the one that launched, and reads a planted fault (the plain version
     with one 64-key tile of V zeroed, i.e. that tile's P.V dropped)
-    through the same comparison, failing unless the check flags it."""
+    through the same comparison, failing unless the check flags it. Then
+    C1_FWD_CASES (head_dim 256 and f16 on the CUDA cores, timed at
+    S=2048) and the plain route of head_dim PLAIN_ROUTE_D."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B, Hq = 4, 8
-    cases = [(Hkv, S, S, 64) for Hkv in KV_HEADS for S in FWD_LENGTHS]
-    cases += list(FWD_EXTRA_CASES)
+    both = (torch.bfloat16, torch.float32)
+    cases = [(Hkv, S, S, 64, both) for Hkv in KV_HEADS for S in FWD_LENGTHS]
+    cases += [(*c, both) for c in FWD_EXTRA_CASES] + list(C1_FWD_CASES)
     checks = []
     timing = {}
-    for Hkv, Sq, Sk, D in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+    for Hkv, Sq, Sk, D, dtypes in cases:
+        for dtype in dtypes:
             q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
             k = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev,
@@ -397,12 +470,52 @@ def phase_kernels(dev):
                         f"flash kernel disagrees with plain, the wrong "
                         f"variant launched, or the check misses a planted "
                         f"fault: {checks[-1]}")
-                if causal and D == 64 and Sq == Sk and Sq >= 512 and (
-                        dtype == torch.bfloat16 or Hkv == Hq):
-                    timing[f"{_dtype_name(dtype)}_Hkv{Hkv}_S{Sq}"] = \
+                if causal and Sq == Sk and ((
+                        D == 64 and Sq >= 512
+                        and (dtype == torch.bfloat16 or Hkv == Hq))
+                        or (D != 64 and Sq == 2048)):
+                    key = f"{_dtype_name(dtype)}_Hkv{Hkv}_S{Sq}"
+                    timing[key + ("" if D == 64 else f"_D{D}")] = \
                         _time_kernel(fa, q, k, v, err_abs)
-    emit({"phase": "kernels", "checks": checks, "timing": timing})
+    plain_route = _plain_route_check(fa, gen, dev)
+    emit({"phase": "kernels", "checks": checks, "timing": timing,
+          "plain_route": plain_route})
     return timing
+
+
+def _plain_route_check(fa, gen, dev):
+    """head_dim PLAIN_ROUTE_D through the public wrappers on the card:
+    each call takes the plain route (one plain_routes, no launch) and
+    returns the plain version's result exactly. head_dim NO_KERNEL_D
+    raises ValueError, with no launch and no plain route."""
+    D = PLAIN_ROUTE_D
+    out = {}
+    for name, Hkv in (("flash_attention", 8), ("flash_attention_grouped", 2)):
+        q = torch.randn((4, 8, 128, D), generator=gen, device=dev)
+        k, v = (torch.randn((4, Hkv, 128, D), generator=gen, device=dev)
+                for _ in range(2))
+        before = fa.launches, fa.plain_routes
+        o = getattr(fa, name)(q, k, v)
+        launched = fa.launches - before[0]
+        routes = fa.plain_routes - before[1]
+        exact = bool(torch.equal(o, fa._dense(q, k, v, True, D ** -0.5)[0]))
+        out[name] = {"D": D, "launches": launched, "plain_routes": routes,
+                     "equals_plain": exact}
+        if launched or routes != 1 or not exact:
+            raise AssertionError(f"head_dim {D} through {name}: {out[name]}")
+    q = torch.randn((1, 2, 16, NO_KERNEL_D), generator=gen, device=dev)
+    before = fa.launches, fa.plain_routes
+    try:
+        fa.flash_attention(q, q, q)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"head_dim {NO_KERNEL_D} did not raise")
+    if (fa.launches, fa.plain_routes) != before:
+        raise AssertionError(f"head_dim {NO_KERNEL_D} launched or took the "
+                             f"plain route")
+    out[f"D{NO_KERNEL_D}"] = {"raised": refused}
+    return out
 
 
 _OTHER_VARIANT = {"wgmma": "simt", "simt": "wgmma"}
@@ -477,16 +590,19 @@ def phase_backward(dev):
     kernel, and nothing else, and reads a planted fault (the plain
     backward with one 64-row tile of dO zeroed) through the same check,
     failing unless it is flagged. Timings at the training shape S=2048,
-    per dtype."""
+    per dtype; then C1_BWD_CASES (head_dim 256 and f16 on the CUDA
+    cores), timed at S=2048."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     B, H = 4, 8
-    cases = [(S, S, 64) for S in BWD_LENGTHS] + list(BWD_EXTRA_CASES)
+    both = (torch.bfloat16, torch.float32)
+    cases = [(S, S, 64, both) for S in BWD_LENGTHS]
+    cases += [(*c, both) for c in BWD_EXTRA_CASES] + list(C1_BWD_CASES)
     checks = []
     timing = {}
-    for Sq, Sk, D in cases:
+    for Sq, Sk, D, dtypes in cases:
         scale = D ** -0.5
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             q, do = (torch.randn((B, H, Sq, D), generator=gen,
                                  device=dev).to(dtype) for _ in range(2))
             k, v = (torch.randn((B, H, Sk, D), generator=gen,
@@ -534,8 +650,9 @@ def phase_backward(dev):
                         f"variant launched, or the check misses a planted "
                         f"fault: {checks[-1]}")
                 if causal and Sq == Sk == BWD_TIMED_LEN:
-                    timing[_dtype_name(dtype)] = _time_backward(
-                        fa, q, k, v, o, lse, do, abs_errs)
+                    key = _dtype_name(dtype) + ("" if D == 64 else f"_D{D}")
+                    timing[key] = _time_backward(fa, q, k, v, o, lse, do,
+                                                 abs_errs)
     emit({"phase": "kernels_backward", "checks": checks, "timing": timing})
     return timing
 
@@ -862,24 +979,12 @@ def _run_concurrent(engine, prompts, new_tokens):
     return outs, ttft, [g for row in gaps for g in row], wall
 
 
-def phase_engine(dev, card, cfg, lens, model_lens, pad_to, new_tokens):
-    from ray_tpu_torch import models as tm
-    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
-
-    fa = _flash_module()
-    prompts = _prompts(np.random.default_rng(SEED + 2), lens,
-                       cfg.vocab_size)
-
-    def make_engine():
-        return InferenceEngine(EngineConfig(
-            model=cfg, num_blocks=512, block_size=BLOCK_SIZE,
-            device=str(dev)))
-
-    # Each request alone, then all at once on a fresh engine with the same
-    # weights (a fresh prefix cache, so the concurrent run prefills every
-    # prompt in shared batches rather than hitting the sequential run's
-    # cached blocks).
-    fa.launches = 0
+def _concurrent_equals_sequential(make_engine, prompts, new_tokens):
+    """Each request alone, then all at once on a fresh engine with the
+    same weights (a fresh prefix cache, so the concurrent run prefills
+    every prompt in shared batches rather than hitting the sequential
+    run's cached blocks); raises unless the streams are equal. Returns
+    the concurrent run's (streams, ttft, gaps, wall, stats)."""
     engine = make_engine()
     try:
         sequential = []
@@ -902,6 +1007,25 @@ def phase_engine(dev, card, cfg, lens, model_lens, pad_to, new_tokens):
                if a != b]
         raise AssertionError(f"concurrent streams {bad} differ from their "
                              f"sequential runs")
+    return concurrent, ttft, gaps, wall, st
+
+
+def phase_engine(dev, card, cfg, lens, model_lens, pad_to, new_tokens):
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+
+    fa = _flash_module()
+    prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                       cfg.vocab_size)
+
+    def make_engine():
+        return InferenceEngine(EngineConfig(
+            model=cfg, num_blocks=512, block_size=BLOCK_SIZE,
+            device=str(dev)))
+
+    fa.launches = 0
+    concurrent, ttft, gaps, wall, st = _concurrent_equals_sequential(
+        make_engine, prompts, new_tokens)
     generated = sum(len(o) for o in concurrent)
     ttft_sorted = sorted(ttft)
     gaps_sorted = sorted(gaps)
@@ -1664,6 +1788,415 @@ def _cow_check(make, cfg32, p, draft, dp, new_tokens):
             "spec": st["spec"]}
 
 
+# ------------------------------------------- phase 2b: C.1's model configs
+def _c1_configs(base):
+    """The configs of phase 2b: (name, config, forward variant or "plain")."""
+    cut = dict(n_layers=C1_DEPTH)
+    return (("hd256_bf16", dataclasses.replace(
+                base, d_model=2048, n_heads=8, n_kv_heads=8, **cut), "simt"),
+            ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
+             "simt"),
+            ("hd12_bf16", dataclasses.replace(
+                base, d_model=384, n_heads=32, n_kv_heads=8, **cut),
+             "plain"))
+
+
+def phase_c1_models(dev, base, model_lens):
+    """Phase 2b (see the module docstring): configs the tensor-core kernels
+    do not take serve and train through the CUDA-core kernels, or through
+    the counted plain route."""
+    from ray_tpu_torch import models as tm
+
+    fa = _flash_module()
+    results = {}
+    for name, cfg, route in _c1_configs(base):
+        L = cfg.n_layers
+        params = tm.serving_params(tm.init_params(cfg, SEED, device=dev),
+                                   cfg, dev)
+        prompts = _prompts(np.random.default_rng(SEED), model_lens,
+                           cfg.vocab_size)
+        fa.plain_routes = 0
+        (logits, out, after_prefill, _, bt, toks, plens,
+         variants) = flash_path(cfg, params, prompts, 512, 8, dev)
+        routes = fa.plain_routes
+        cache2 = tm.init_kv_cache(cfg, int(bt.max()) + 1, BLOCK_SIZE,
+                                  device=dev)
+        logits2, _ = tm.prefill_chunk(cfg, params, cache2, toks,
+                                      torch.zeros_like(plens), plens, bt)
+        diff = (logits - logits2).abs().max().item()
+        del params, cache2
+        want_prefill = ({"wgmma": 0, "simt": 0} if route == "plain" else
+                        {route: L, _OTHER_VARIANT[route]: 0})
+        want_routes = L if route == "plain" else 0
+        # A gradient pass and AdamW steps on f32 masters.
+        master = tm.init_params(cfg, SEED, device=dev)
+        rng = np.random.default_rng(SEED + 6)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (C1_TRAIN_BATCH, C1_TRAIN_LEN + 1))).to(dev)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        _zero_counts()
+        fa.plain_routes = 0
+        loss0, grads = _loss_and_grads(cfg, master, inputs, targets)
+        pass_counts = _counts()
+        pass_routes = fa.plain_routes
+        finite_grads = all(bool(torch.isfinite(g).all())
+                           for g in grads.values())
+        del grads
+        step = tm.make_train_step(cfg, master)
+        losses = [step(inputs, targets).item()
+                  for _ in range(C1_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        del master, step
+        torch.cuda.empty_cache()
+        want_pass = (_want_counts("simt", 0, 0) if route == "plain"
+                     else _want_counts(route, L, L))
+        res = {"head_dim": cfg.head_dim, "dtype": _dtype_name(cfg.dtype),
+               "n_layers": L, "route": route,
+               "launches_per_prefill_by_variant": variants,
+               "plain_routes_per_prefill": routes,
+               "flash_vs_paged_max_abs": diff, "tol": MODEL_LOGIT_TOL,
+               "decoded": [len(o) for o in out],
+               "launches_per_pass": pass_counts,
+               "plain_routes_per_pass": pass_routes,
+               "loss": loss0, "losses": losses}
+        results[name] = res
+        ok = (variants == want_prefill and after_prefill == sum(
+            want_prefill.values()) and routes == want_routes
+              and diff <= MODEL_LOGIT_TOL and pass_counts == want_pass
+              and pass_routes == want_routes and finite_grads
+              and all(np.isfinite([loss0, *losses])))
+        if not ok:
+            emit({"phase": "c1_models", "results": results})
+            raise AssertionError(
+                f"{name}: wrong route or launches, non-finite results, or "
+                f"flash and paged logits apart: {res}")
+    emit({"phase": "c1_models", "results": results})
+    return results
+
+
+# --------------------------------------------------------------- phase 7: moe
+@contextlib.contextmanager
+def _routes_recorded(seen):
+    """Appends each MoE layer's (top-1 choices, top-two gaps) to seen."""
+    from ray_tpu_torch.models import transformer as tt
+
+    route = tt._moe_route
+
+    def recording(cfg, lp, h):
+        probs, top = route(cfg, lp, h)
+        top2 = probs.detach().topk(2, dim=-1).values
+        seen.append((top.detach().clone(), top2[:, 0] - top2[:, 1]))
+        return probs, top
+
+    tt._moe_route = recording
+    try:
+        yield
+    finally:
+        tt._moe_route = route
+
+
+def phase_moe(dev, card, base, model_lens, lens, new_tokens):
+    """Phase 7 (see the module docstring): the flagship with experts."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+
+    fa = _flash_module()
+    cfg = dataclasses.replace(base, num_experts=MOE_EXPERTS,
+                              moe_every=MOE_EVERY)
+    L = cfg.n_layers
+    res = {"num_experts": cfg.num_experts, "moe_every": cfg.moe_every,
+           "n_layers": L}
+    # (a) serving through the flash path.
+    params = tm.serving_params(tm.init_params(cfg, SEED, device=dev), cfg,
+                               dev)
+    prompts = _prompts(np.random.default_rng(SEED), model_lens,
+                       cfg.vocab_size)
+    (logits, out, after_prefill, after_all, _, _, _,
+     variants) = flash_path(cfg, params, prompts, 512, new_tokens, dev)
+    res.update({"launches_per_prefill_by_variant": variants,
+                "launches_after_decode": after_all,
+                "decoded": [len(o) for o in out]})
+    if (variants != {"wgmma": L, "simt": 0} or after_all != L
+            or any(len(o) != new_tokens + 1 for o in out)):
+        emit({"phase": "moe", "results": res})
+        raise AssertionError(f"MoE serving: launches {variants}, "
+                             f"{after_all} in all, expected {L} wgmma")
+    # (b) the engine: concurrent streams equal sequential ones.
+    eprompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                        cfg.vocab_size)
+
+    def make_engine():
+        return InferenceEngine(EngineConfig(
+            model=cfg, num_blocks=512, block_size=BLOCK_SIZE,
+            device=str(dev)), params=params)
+
+    streams, _, gaps, wall, _ = _concurrent_equals_sequential(
+        make_engine, eprompts, new_tokens)
+    res["engine"] = {"requests": len(eprompts),
+                     "concurrent_equals_sequential": True,
+                     **_reading(streams, gaps, wall)}
+    del params
+    torch.cuda.empty_cache()
+    # (c) f32 gradients through the kernels against plain attention, with
+    # the routing of both runs compared first.
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1))).to(dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tm.init_params(cfg32, SEED, device=dev)
+    seen_k, seen_p = [], []
+    _zero_counts()
+    with _routes_recorded(seen_k):
+        loss_k, grads_k = _loss_and_grads(cfg32, params, inputs, targets)
+    counts32 = _counts()
+    with _routes_recorded(seen_p), _attention_swapped("plain"):
+        loss_p, grads_p = _loss_and_grads(cfg32, params, inputs, targets)
+    flips = [int((a[0] != b[0]).sum()) for a, b in zip(seen_k, seen_p)]
+    min_gap = min(float(g[1].min()) for g in seen_p)
+    err = _grad_errors(grads_k, grads_p)
+    res["f32"] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                  "routing_flips_per_moe_layer": flips,
+                  "smallest_top2_gap": min_gap,
+                  "launches_per_pass": counts32, "grad_err_vs_plain": err,
+                  "tol": TRAIN_GRAD_TOL}
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    bad = [n for n, e in err.items() if not e <= TRAIN_GRAD_TOL]
+    if any(flips):
+        emit({"phase": "moe", "results": res})
+        raise AssertionError(f"MoE f32: routing flips {flips} between the "
+                             f"kernel and plain passes (smallest top-two "
+                             f"gap {min_gap})")
+    if bad or counts32 != _want_counts("simt", L, L):
+        emit({"phase": "moe", "results": res})
+        raise AssertionError(f"MoE f32 gradients through the kernels differ "
+                             f"from plain attention in {bad}, or launches "
+                             f"{counts32}")
+    # (d) bf16 AdamW steps on one fixed batch.
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, step_s = [], []
+    _zero_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(inputs, targets).item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = _counts()
+    want = _want_counts("wgmma", TRAIN_STEPS * L, TRAIN_STEPS * L)
+    later = sorted(step_s[1:])
+    res["bf16"] = {"losses": losses, "launches": counts, "step_s": step_s,
+                   "profile": _profile_steps(step, inputs, targets)}
+    del params, step
+    torch.cuda.empty_cache()
+    if (counts != want or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        emit({"phase": "moe", "results": res})
+        raise AssertionError(f"MoE bf16 steps gave losses {losses} and "
+                             f"launches {counts}, expected finite, falling "
+                             f"losses and {want}")
+    emit({"phase": "moe", "results": res})
+    med = later[len(later) // 2]
+    emit({"moe_train_step_smoke_reading": "bf16",
+          "tokens_per_step": TRAIN_BATCH * TRAIN_LEN,
+          "step_ms_median_of_steps_2_to_5": med * 1e3,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_LEN / med,
+          "first_step_ms": step_s[0] * 1e3,
+          "profiled_steps": res["bf16"]["profile"], "card": card})
+    return res
+
+
+# --------------------------------------------------------------- phase 8: dag
+def _bench_dags():
+    """bench.py's microbenchmark DAGs, rebuilt through the port's remote:
+    name -> (build(), payload shape, input, rtol; None for exact)."""
+    from ray_tpu_torch.dag import InputNode, reduce_tree
+    from ray_tpu_torch.remote_function import remote
+
+    @remote
+    def noop(x):
+        return x
+
+    @remote
+    def combine(*xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+    @remote
+    def scale(x):
+        return x * 1.001 + 0.5
+
+    @remote
+    def matsq(x):
+        return x @ x * 0.01 + x
+
+    @remote
+    def merge(a, b):
+        return a + b
+
+    def chain():
+        with InputNode() as inp:
+            node = inp
+            for _ in range(DAG_CHAIN_TASKS):
+                node = noop.bind(node)
+        return node
+
+    def fanout():
+        with InputNode() as inp:
+            leaves = [noop.bind(inp) for _ in range(DAG_FANOUT_WIDTH)]
+            return reduce_tree(combine, leaves, arity=4)
+
+    def tensor_dag(op):
+        def build():
+            with InputNode() as inp:
+                chains = []
+                for _ in range(DAG_TENSOR_WIDTH):
+                    node = inp
+                    for _ in range(DAG_TENSOR_DEPTH):
+                        node = op.bind(node)
+                    chains.append(node)
+                while len(chains) > 1:
+                    chains = [merge.bind(chains[i], chains[i + 1])
+                              for i in range(0, len(chains), 2)]
+                return chains[0]
+        return build
+
+    return {
+        "chain_1k_noop": (chain, (), 1.0, None),
+        "fanout_10k": (fanout, (), 1.0, None),
+        "elementwise_1k": (tensor_dag(scale), (1024,),
+                           np.linspace(0.0, 1.0, 1024, dtype=np.float32),
+                           1e-5),
+        "matmul_heavy": (tensor_dag(matsq), (64, 64),
+                         np.linspace(0.0, 0.1, 4096, dtype=np.float32)
+                         .reshape(64, 64), 1e-3),
+    }
+
+
+def _plain_eval(leaf, x):
+    """The DAG evaluated without the wave machinery: nodes in topological
+    order, each function called once on tensors."""
+    from ray_tpu_torch.dag import FunctionNode, InputNode
+
+    vals = {}
+    for node in leaf.topological_order():
+        if isinstance(node, InputNode):
+            vals[id(node)] = x
+        elif isinstance(node, FunctionNode):
+            vals[id(node)] = node.function(
+                *[vals[id(a)] for a in node._bound_args])
+        else:
+            raise TypeError(f"unexpected node {type(node).__name__}")
+    return vals[id(leaf)]
+
+
+def _dag_readings(compiled, x):
+    """tasks/s over DAG_EXECS back-to-back executes, each fed the previous
+    output (one sync at the end), p50 / p99 of a synchronous execute +
+    get, and graph replays and host launches per execute."""
+    ref = compiled.execute(x)
+    torch.cuda.synchronize()
+    replays, launches = compiled.graph_replays, compiled.host_launches
+    t0 = time.perf_counter()
+    for _ in range(DAG_EXECS):
+        ref = compiled.execute(ref.device_value())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_exec = {"graph_replays": (compiled.graph_replays - replays)
+                / DAG_EXECS,
+                "host_launches": (compiled.host_launches - launches)
+                / DAG_EXECS}
+    lat = []
+    for _ in range(DAG_SYNC_EXECS):
+        t0 = time.perf_counter()
+        compiled.execute(x).get()
+        lat.append(time.perf_counter() - t0)
+    lat.sort()
+    return {"tasks_per_s": DAG_EXECS * compiled.num_tasks / wall,
+            "exec_us": wall / DAG_EXECS * 1e6,
+            "task_latency_us": wall / DAG_EXECS / compiled.num_tasks * 1e6,
+            "sync_exec_p50_us": lat[len(lat) // 2] * 1e6,
+            "sync_exec_p99_us": lat[min(len(lat) - 1,
+                                        int(0.99 * len(lat)))] * 1e6,
+            "per_execute": per_exec, "execs": DAG_EXECS,
+            "sync_execs": DAG_SYNC_EXECS}
+
+
+def _dag_device_time(compiled, x):
+    """DAG_PROFILED_EXECS back-to-back executes under torch.profiler
+    (device activity only): device busy time and kernels per execute, and
+    the device's idle share of the profiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ref = compiled.execute(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DAG_PROFILED_EXECS):
+            ref = compiled.execute(ref.device_value())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"device_busy_us_per_execute": "not measured: the profiler "
+                                              "recorded no device events"}
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return {"profiled_execs": DAG_PROFILED_EXECS,
+            "wall_us_per_execute": wall_us / DAG_PROFILED_EXECS,
+            "device_busy_us_per_execute": busy_us / DAG_PROFILED_EXECS,
+            "device_events_per_execute": len(kernels) / DAG_PROFILED_EXECS,
+            "device_idle_share": 1 - busy_us / wall_us}
+
+
+def phase_dag(dev, card):
+    """Phase 8 (see the module docstring): the wave executor on bench.py's
+    DAGs, static and dynamic, against a plain evaluator."""
+    results = {}
+    for name, (build, payload, x, rtol) in _bench_dags().items():
+        leaf = build()
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        want = _plain_eval(leaf, xt)
+        for dynamic in (False, True):
+            t0 = time.perf_counter()
+            compiled = leaf.experimental_compile(
+                backend="torch", payload_shape=payload, dynamic=dynamic,
+                device=str(dev))
+            compile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            first = compiled.execute(x).device_value()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            again = compiled.execute(x).device_value()
+            if rtol is None:
+                ok = bool(torch.equal(first, want)) and bool(
+                    torch.equal(again, want))
+            else:
+                ok = all(bool(torch.allclose(v, want, rtol=rtol, atol=0))
+                         for v in (first, again))
+            key = f"{name}[{'dynamic' if dynamic else 'static'}]"
+            res = {"num_tasks": compiled.num_tasks,
+                   "num_compiled_tasks": compiled.num_compiled_tasks,
+                   "num_waves": compiled.num_waves,
+                   "wave_width": compiled.wave_width,
+                   "payload": list(payload), "equals_plain": ok,
+                   "rtol": rtol, "compile_s": compile_s,
+                   "first_execute_s": first_s}
+            results[key] = res
+            if not ok:
+                emit({"phase": "dag", "results": results})
+                raise AssertionError(f"{key}: the executor's output differs "
+                                     f"from the plain evaluator's")
+            res.update(_dag_readings(compiled, x))
+            res["profile"] = _dag_device_time(compiled, x)
+            del compiled
+    emit({"phase": "dag", "results": results, "card": card})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1683,10 +2216,21 @@ def main() -> int:
     timing = phase_kernels(dev)
     bwd = phase_backward(dev)
     rms = phase_rms(dev)
+    c1 = phase_c1_models(dev, flagship, model_lens)
+    fa = _flash_module()
+    fa.plain_routes = 0
     model = phase_model(dev, flagship, model_lens, 512, 32)
     phase_engine(dev, card, flagship, ENGINE_LENS, model_lens, 512, 32)
     train = phase_train(dev, card, flagship)
     phase_spec_disagg(dev, card, flagship, ENGINE_LENS, 32)
+    phase_moe(dev, card, flagship, model_lens, ENGINE_LENS, 32)
+    # The flagship (head_dim 64) never takes the plain route: phases 3-7.
+    emit({"phase": "plain_routes", "flagship_phases_3_to_7":
+          fa.plain_routes})
+    if fa.plain_routes:
+        raise AssertionError(f"the flagship took the plain attention route "
+                             f"{fa.plain_routes} times")
+    phase_dag(dev, card)
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "
@@ -1761,6 +2305,44 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
                 "plain": tb["plain"], "library": tb["library"],
                 "shape": tb["shape"], "dtype": dtype, "card": card})
+    # The CUDA-core kernels on the shapes and dtypes the tensor-core ones do
+    # not take (phase 2b's configs give the launches): head_dim 256 in bf16
+    # and the flagship in f16, timed at S=2048 (phase 2).
+    for cfg_name, suffix, fwd_key, bwd_key in (
+            ("hd256_bf16", "[D256-bf16]", "bfloat16_Hkv8_S2048_D256",
+             "bfloat16_D256"),
+            ("f16", "[f16]", "float16_Hkv8_S2048", "float16")):
+        served = c1[cfg_name]
+        t = timing[fwd_key]
+        kernels.append({
+            "name": f"flash_attention_fwd{suffix}",
+            "route": "cuda", "variant": "simt", "source": simt_source,
+            "replaces": replaces["mha"],
+            "launches": served["launches_per_prefill_by_variant"]["simt"],
+            "launches_train": served["launches_per_pass"]["simt"],
+            "launches_from": f"phase 2b {cfg_name}: one prefill_with_cache "
+                             f"and one gradient pass",
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"], "dtype": t["dtype"], "card": card})
+        tb = bwd[bwd_key]
+        for kind in ("dq", "dkv"):
+            t = tb[kind]
+            kernels.append({
+                "name": f"flash_attention_bwd_{kind}{suffix}",
+                "route": "cuda", "variant": "simt",
+                "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": replaces[kind],
+                "launches": served["launches_per_pass"][f"{kind}_simt"],
+                "launches_from": f"phase 2b {cfg_name}: one gradient pass",
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+                "plain_ms": tb["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
+                "plain": tb["plain"], "library": tb["library"],
+                "shape": tb["shape"], "dtype": tb["dtype"], "card": card})
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

@@ -1,0 +1,37 @@
+"""DAG authoring and the compiled wave executor of the PyTorch/CUDA port
+(counterpart of ``ray_tpu/dag``, one device).
+
+See dag_node.py (authoring) and torch_executor.py (the device-resident
+wave executor, ``experimental_compile(backend="torch")``). The actor-loop
+backend and interpreted execution wait for the runtime (ROADMAP A.5).
+"""
+
+from ray_tpu_torch.dag.dag_node import (
+    ClassMethodNode,
+    ClassNode,
+    DAGNode,
+    FunctionNode,
+    InputAttributeNode,
+    InputNode,
+    MultiOutputNode,
+    reduce_tree,
+)
+from ray_tpu_torch.dag.torch_executor import (
+    CompiledTorchDAG,
+    TorchDAGRef,
+    compile_torch_dag,
+)
+
+__all__ = [
+    "ClassMethodNode",
+    "ClassNode",
+    "CompiledTorchDAG",
+    "DAGNode",
+    "FunctionNode",
+    "InputAttributeNode",
+    "InputNode",
+    "MultiOutputNode",
+    "TorchDAGRef",
+    "compile_torch_dag",
+    "reduce_tree",
+]

@@ -1,6 +1,7 @@
 """Flagship model of the PyTorch/CUDA port (counterpart of
-``ray_tpu/models``): the dense decoder's serving and one-card training
-paths and the speculative-decoding draft helpers."""
+``ray_tpu/models``): the decoder's serving and one-card training paths,
+dense or MoE (the reference's dense fallback), and the
+speculative-decoding draft helpers."""
 
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.draft import draft_config, shift_params

@@ -26,8 +26,8 @@ from typing import Any, Dict
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.convert import _LAYER_KEYS, _expected_shapes
-from ray_tpu_torch.models.transformer import TransformerConfig, _check_dense
+from ray_tpu_torch.models.convert import _expected_shapes, _layer_keys
+from ray_tpu_torch.models.transformer import TransformerConfig
 
 __all__ = ["draft_config", "shift_params"]
 
@@ -52,8 +52,8 @@ def shift_params(cfg: TransformerConfig, shift: int = 1,
     """Parameters realizing greedy next == ``(last_token + shift) %
     vocab`` exactly (see module docstring), on ``device``. Requires
     ``d_model >= vocab_size`` so the one-hot embedding fits the residual
-    stream."""
-    _check_dense(cfg)
+    stream. An MoE config's router and expert leaves are zeroed too (a
+    zero router routes every token to expert 0, whose output is zero)."""
     if cfg.d_model < cfg.vocab_size:
         raise ValueError(
             f"shift_params needs d_model ({cfg.d_model}) >= vocab_size "
@@ -63,7 +63,7 @@ def shift_params(cfg: TransformerConfig, shift: int = 1,
     # Zero every layer weight, keep every norm gain at one: each layer is
     # x -> x (attention output and MLP both exactly zero).
     layers = {name: (torch.ones if name.endswith("norm") else torch.zeros)(
-        shapes[name], device=dev) for name in _LAYER_KEYS}
+        shapes[name], device=dev) for name in _layer_keys(cfg)}
     D, V = cfg.d_model, cfg.vocab_size
     # One-hot embed: token t -> e_t in the first vocab dims; final_norm of
     # ones rescales each row positively, which keeps the argmax.

@@ -1,9 +1,12 @@
 """Flagship decoder-only transformer: training on one card and serving
 (counterpart of ``ray_tpu/models/transformer.py``).
 
-Dense models only (MoE comes later). The parameter tree keeps the
-reference's key names and stacked ``[L, ...]`` layer layout, so weights
-convert one to one (``models/convert.py``). Activations are
+Dense and MoE models on one device: an MoE layer takes the reference's
+dense fallback (every expert on every token, the top-1 expert's output
+kept, scaled by its gate); the expert-parallel ``ep`` axis waits for the
+multi-axis step. The parameter tree keeps the reference's key names and
+stacked ``[L, ...]`` layer layout, so weights convert one to one
+(``models/convert.py``). Activations are
 ``[B, S, H, Dh]`` inside the model; the KV pool is ``[L, num_blocks,
 block_size, n_kv_heads, head_dim]`` with block 0 as the NULL block.
 
@@ -25,11 +28,21 @@ Differences from the JAX reference, none of which change results:
 - ``make_train_step`` is the one-device counterpart of
   ``make_spmd_train_step``: no mesh, so no gradient sync and no
   collectives; ``torch.optim.AdamW`` with optax.adamw's defaults updates
-  the f32 master parameters in place.
-- ``_attention_dense`` runs the flash kernels for every CUDA tensor; the
-  reference takes its Pallas kernels only for TPU-tileable shapes (S a
-  multiple of 128), a rule the CUDA kernels do not need because they mask
-  ragged lengths. CPU tensors take the reference's dense grouped einsum.
+  the f32 master parameters in place. A leaf that no layer uses (the dense
+  MLP of a model whose every layer is MoE) gets a zero gradient, so AdamW
+  decays it as optax does.
+- The reference selects an MoE layer's output with ``jnp.where`` on the
+  traced layer index, computing both branches; here the layer index is a
+  Python int and only the kept branch runs (the same values).
+- ``_attention_dense`` follows one rule, ``_attention_route`` of
+  ``ops/flash_attention.py``: a head_dim that is no multiple of 8 takes
+  the dense grouped einsum, as the reference does, each such call counted
+  in ``plain_routes``. Every other head_dim takes the flash kernels on a
+  CUDA tensor (which raise above head_dim 256, where no kernel is written
+  yet and the reference runs Pallas; ROADMAP B), whatever S: the reference takes Pallas only
+  for TPU-tileable lengths (S a multiple of 128), a rule the CUDA kernels
+  do not need because they mask ragged lengths. CPU tensors take the
+  dense grouped einsum, the reference's path off the TPU.
 """
 
 from __future__ import annotations
@@ -46,6 +59,8 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_grouped,
+    neg_inf_like,
+    take_route,
 )
 from ray_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
@@ -63,7 +78,7 @@ class TransformerConfig:
     d_ff: int = 1376
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
-    # MoE: 0 = dense. The port serves dense models only for now.
+    # MoE: 0 = dense; otherwise every `moe_every`-th layer is MoE.
     num_experts: int = 0
     moe_every: int = 2
     capacity_factor: float = 1.25
@@ -75,19 +90,13 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (num_experts > 0)")
-
-
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Stacked-layer parameter tree with the reference's key names and
     init scales, f32 master weights, drawn from a ``torch.Generator``
     seeded with ``seed`` (on the CPU, so a seed gives the same weights on
-    every device)."""
-    _check_dense(cfg)
+    every device). MoE configs add ``router`` [L, D, E], ``e_gate`` /
+    ``e_up`` [L, E, D, F] and ``e_down`` [L, E, F, D]."""
     dev = resolve_device(device)
     D, F_, Hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nq, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
@@ -111,6 +120,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         "w_up": dense((L, D, F_), D),
         "w_down": dense((L, F_, D), F_),
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        layers["router"] = dense((L, D, E), D)
+        layers["e_gate"] = dense((L, E, D, F_), D)
+        layers["e_up"] = dense((L, E, D, F_), D)
+        layers["e_down"] = dense((L, E, F_, D), F_)
     tree = {"embed": embed, "layers": layers,
             "final_norm": torch.ones((D,)), "lm_head": lm_head}
     return _map_tree(tree, lambda t: t.to(dev))
@@ -156,10 +171,12 @@ def rope(x, positions, theta):
 def _attention_dense(q, k, v, causal=True, grad=True):
     """q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,S,Hq,Dh].
 
-    On a CUDA tensor this runs the flash kernels (``_attention_flash``);
-    on a CPU tensor, the dense grouped einsum (under autograd when grad is
+    A head_dim that ``_attention_route`` sends to the plain path takes the
+    dense grouped einsum on every device (counted in ``plain_routes``).
+    Otherwise a CUDA tensor runs the flash kernels (``_attention_flash``)
+    and a CPU tensor the dense grouped einsum (under autograd when grad is
     on), as the reference does off the TPU."""
-    if q.is_cuda:
+    if take_route(q.dtype, q.shape[-1]) != "plain" and q.is_cuda:
         return _attention_flash(q, k, v, causal, grad)
     return _attention_einsum(q, k, v, causal)
 
@@ -195,8 +212,7 @@ def _attention_einsum(q, k, v, causal=True):
     if causal:
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=q.device))
-        s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype,
-                                            device=s.device))
+        s = torch.where(mask, s, neg_inf_like(s))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return o.reshape(B, S, Hq, Dh)
@@ -222,9 +238,40 @@ def _swiglu(cfg, lp, h):
     return (F.silu(g) * u) @ lp["w_down"].to(dt)
 
 
+def _moe_route(cfg, lp, h):
+    """Top-1 routing of h [B, S, D]: (probs [B*S, E] f32, top [B*S]),
+    router logits in f32 as in the reference."""
+    logits = (h.float() @ lp["router"].float()).reshape(-1, cfg.num_experts)
+    probs = torch.softmax(logits, dim=-1)
+    return probs, torch.argmax(probs, dim=-1)
+
+
+def _moe_dense(cfg, lp, h):
+    """The reference's dense fallback (no ``ep`` axis): every expert runs
+    on every token, the top-1 expert's rows are kept, scaled by its gate
+    cast to ``cfg.dtype``. The expert products are plain batched products
+    (no Pallas kernel in the reference either)."""
+    dt = cfg.dtype
+    B, S, D = h.shape
+    E = cfg.num_experts
+    probs, top = _moe_route(cfg, lp, h)
+    rows = torch.arange(B * S, device=h.device)
+    gate = probs[rows, top].to(dt)
+    toks = h.reshape(1, B * S, D).expand(E, B * S, D)
+    g = torch.einsum("ecd,edf->ecf", toks, lp["e_gate"].to(dt))
+    u = torch.einsum("ecd,edf->ecf", toks, lp["e_up"].to(dt))
+    outs = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["e_down"].to(dt))
+    return (outs[top, rows] * gate[:, None]).reshape(B, S, D)
+
+
 def _mlp_block(cfg, lp, h, layer_idx):
-    """Post-norm MLP for one layer over ``h`` [B, S, D]."""
-    _check_dense(cfg)
+    """Post-norm MLP or MoE for one layer over ``h`` [B, S, D]: with
+    experts, layer ``i`` is MoE when ``i % moe_every == moe_every - 1``
+    (every layer when ``moe_every == 1``, which never runs the dense
+    branch), else the dense SwiGLU."""
+    if cfg.num_experts and (layer_idx % cfg.moe_every
+                            == cfg.moe_every - 1):
+        return _moe_dense(cfg, lp, h)
     return _swiglu(cfg, lp, h)
 
 
@@ -248,7 +295,6 @@ def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
     """Cacheless forward: tokens [B, S] -> logits [B, S, V] f32.
     Differentiable; with ``cfg.remat`` each layer is checkpointed and
     recomputed in the backward (the reference's ``jax.checkpoint``)."""
-    _check_dense(cfg)
     dt = cfg.dtype
     B, S = tokens.shape
     tokens = tokens.long()
@@ -283,9 +329,11 @@ def make_train_step(cfg: TransformerConfig, params, lr: float = 3e-4
     ``params`` is the f32 master tree; its leaves are marked as requiring
     grad and updated in place. The optimizer is AdamW with optax.adamw's
     defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4; PyTorch's
-    default weight decay of 1e-2 would differ). Returns ``step(tokens,
-    targets) -> loss`` (the loss before the update, detached)."""
-    _check_dense(cfg)
+    default weight decay of 1e-2 would differ). A leaf that the loss does
+    not reach (the dense MLP when ``moe_every == 1``) gets a zero gradient,
+    as under ``jax.grad``, so AdamW still decays it. Returns
+    ``step(tokens, targets) -> loss`` (the loss before the update,
+    detached)."""
     leaves = _leaves(params)
     for t in leaves:
         if t.dtype != torch.float32:
@@ -299,6 +347,9 @@ def make_train_step(cfg: TransformerConfig, params, lr: float = 3e-4
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(cfg, params, tokens, targets)
         loss.backward()
+        for t in leaves:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
         opt.step()
         return loss.detach()
 
@@ -335,7 +386,6 @@ def prefill_with_cache(cfg: TransformerConfig, params, cache, tokens,
     tokens [B, S]; prompt_lens [B]; block_tables [B, M] with
     M * block_size >= S (padded entries point at the NULL block). Returns
     (logits [B, vocab] f32 at position prompt_lens - 1, cache)."""
-    _check_dense(cfg)
     B, S = tokens.shape
     dt = cfg.dtype
     ck, cv = cache["k"], cache["v"]
@@ -400,7 +450,6 @@ def _chunk_scan(cfg: TransformerConfig, params, cache, tokens, start_pos,
     through every layer against the paged cache, writing each position's
     K/V before it is attended; returns the final-normed hidden states
     [B, C, D]."""
-    _check_dense(cfg)
     B, C = tokens.shape
     dt = cfg.dtype
     ck, cv = cache["k"], cache["v"]
@@ -438,7 +487,6 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, positions,
     tokens [B] (the token at ``positions``); positions [B] (0-based);
     block_tables [B, M]. Padded rows carry position 0 and a NULL table.
     Returns (logits [B, vocab] f32, cache)."""
-    _check_dense(cfg)
     B = tokens.shape[0]
     dt = cfg.dtype
     ck, cv = cache["k"], cache["v"]

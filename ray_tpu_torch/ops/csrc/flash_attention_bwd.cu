@@ -37,7 +37,16 @@
 //   `ki * block_k // block_q`) to the end.
 // - Each CTA owns its output rows, so there are no atomics and results are
 //   deterministic. Shared memory holds only the two tiles in flight
-//   (2 * 64 * D floats), whatever the sequence length.
+//   (2 * 64 * D floats), whatever the sequence length: 128 KB at D = 256,
+//   above the 48 KB default, so the launch raises the CTA's limit.
+// - Head dims above 128 (up to 256) double every per-thread slice: dQ
+//   keeps Q, dO and its accumulator (192 floats), dK/dV keeps K, V and
+//   both accumulators (256 floats), beyond the 255 registers a thread may
+//   have, so those instances spill to local memory (ptxas reports the
+//   bytes). They are right and slow; the rule of shapes sends no main path
+//   here.
+// - Types: f32, bf16 and f16 (dtype codes 0, 1, 2), loaded and stored in
+//   their own type with f32 arithmetic.
 // - Ragged Sq / Sk: rows past the end are zero-filled in shared memory,
 //   never stored, and masked with P = 0, so they contribute nothing.
 // - LSE is [B, H, Sq] f32, as the forward kernel stores it.
@@ -51,16 +60,17 @@ namespace {
 using namespace flash;
 
 // kSlice: the per-thread share of the head dimension (D / 4) when known at
-// compile time (a multiple of 4), else 0 and the runtime d / 4 (at most 32)
-// is used. With D = 64 two CTAs fit an SM; wider rows take more registers.
-template <typename T, int kSlice>
-__global__ void __launch_bounds__(kThreads, kSlice == 16 ? 2 : 1)
+// compile time (a multiple of 4), else 0 and the runtime d / 4 is used.
+// kMax: the size of the per-thread register arrays, at least d / 4. With
+// D = 64 two CTAs fit an SM; wider rows take more registers.
+template <typename T, int kSlice, int kMax>
+__global__ void __launch_bounds__(kThreads, kMax == 16 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
                     int sq, int sk, int d, float scale, int causal) {
-  constexpr int kMax = kSlice > 0 ? kSlice : 32;
+  static_assert(kSlice == 0 || kSlice == kMax, "kSlice fixes kMax");
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = smem + kBlockK * d;
@@ -142,15 +152,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int kSlice>
-__global__ void __launch_bounds__(kThreads, kSlice == 16 ? 2 : 1)
+template <typename T, int kSlice, int kMax>
+__global__ void __launch_bounds__(kThreads, kMax == 16 ? 2 : 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ o,
                      const T* __restrict__ dout,
                      const float* __restrict__ lse, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, int d, float scale,
                      int causal) {
-  constexpr int kMax = kSlice > 0 ? kSlice : 32;
+  static_assert(kSlice == 0 || kSlice == kMax, "kSlice fixes kMax");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* dos = smem + kBlockQ * d;
@@ -280,10 +290,10 @@ cudaError_t set_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T, int kSlice>
+template <typename T, int kSlice, int kMax>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   const int smem = 2 * kBlockK * a.d * (int)sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<T, kSlice>;
+  auto kernel = flash_bwd_dq_kernel<T, kSlice, kMax>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.bh, (a.sq + kBlockQ - 1) / kBlockQ);
@@ -295,10 +305,10 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int kSlice>
+template <typename T, int kSlice, int kMax>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   const int smem = (2 * kBlockQ * a.d + 2 * kBlockQ) * (int)sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, kSlice>;
+  auto kernel = flash_bwd_dkv_kernel<T, kSlice, kMax>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.bh, (a.sk + kBlockK - 1) / kBlockK);
@@ -311,33 +321,48 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int kSlice, int kMax>
+cudaError_t launch(bool dkv, const Args& a, cudaStream_t stream) {
+  return dkv ? launch_dkv<T, kSlice, kMax>(a, stream)
+             : launch_dq<T, kSlice, kMax>(a, stream);
+}
+
 template <typename T>
 cudaError_t dispatch(bool dkv, const Args& a, cudaStream_t stream) {
   switch (a.d) {
     case 64:
-      return dkv ? launch_dkv<T, 16>(a, stream) : launch_dq<T, 16>(a, stream);
+      return launch<T, 16, 16>(dkv, a, stream);
     case 128:
-      return dkv ? launch_dkv<T, 32>(a, stream) : launch_dq<T, 32>(a, stream);
+      return launch<T, 32, 32>(dkv, a, stream);
+    case 256:
+      return launch<T, 64, 64>(dkv, a, stream);
     default:
-      return dkv ? launch_dkv<T, 0>(a, stream) : launch_dq<T, 0>(a, stream);
+      return a.d <= 128 ? launch<T, 0, 32>(dkv, a, stream)
+                        : launch<T, 0, 64>(dkv, a, stream);
   }
 }
 
 int run(bool dkv, const Args& a, int dtype, void* stream) {
-  if (a.bh < 1 || a.sq < 1 || a.sk < 1 || a.d < 8 || a.d > 128 ||
-      a.d % 8 != 0 || (dtype != 0 && dtype != 1)) {
+  if (a.bh < 1 || a.sq < 1 || a.sk < 1 || a.d < 8 || a.d > 256 ||
+      a.d % 8 != 0 || dtype < 0 || dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? dispatch<__nv_bfloat16>(dkv, a, s)
-                          : dispatch<float>(dkv, a, s));
+  switch (dtype) {
+    case 1:
+      return (int)dispatch<__nv_bfloat16>(dkv, a, s);
+    case 2:
+      return (int)dispatch<__half>(dkv, a, s);
+    default:
+      return (int)dispatch<float>(dkv, a, s);
+  }
 }
 
 }  // namespace
 
 // q, o, dout, dq [B*H, Sq, D]; k, v [B*H, Sk, D] (all contiguous, 16-byte
-// aligned, one dtype); lse [B*H, Sq] f32. dtype: 0 = float32,
-// 1 = bfloat16. Returns a cudaError_t.
+// aligned, one dtype; D a multiple of 8 up to 256); lse [B*H, Sq] f32.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,

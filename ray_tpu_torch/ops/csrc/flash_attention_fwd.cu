@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores, one kernel
 // for MHA and GQA. The wrapper's rule of shapes sends bf16 with head_dim 64
 // or 128 to the tensor-core kernel (flash_attention_fwd_wgmma.cu); this one
-// takes f32, whose limit TF32 products would break, and every other
-// head_dim.
+// takes f32, whose limit TF32 products would break, f16, and every other
+// head_dim that is a multiple of 8 up to 256.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
@@ -28,7 +28,13 @@
 //   parallel. The TPU kernel keeps all of Sk x D per program in VMEM; here a
 //   loop inside the CTA streams 64-row K/V tiles through shared memory
 //   (converted to f32 once, on load), so shared memory stays at 2 * 64 * D
-//   floats whatever the sequence length.
+//   floats whatever the sequence length: 32 KB at D = 64, 128 KB at
+//   D = 256, above the 48 KB default, so the launch raises the CTA's
+//   dynamic shared-memory limit (one CTA per SM at D > 96).
+// - Head dims above 128 (up to 256) double each thread's Q and O slices
+//   (64 registers each); those instances drop the two-CTAs-per-SM launch
+//   bound so ptxas may use 255 registers a thread, and whatever does not
+//   fit spills to local memory (ptxas reports it; a slow, right kernel).
 // - 4 threads own one query row, each a quarter of the head dimension: the
 //   row's Q share and O accumulator live in registers, a dot product is a
 //   partial sum plus two warp shuffles. The online softmax steps 16 keys at
@@ -54,15 +60,15 @@ using namespace flash;
 constexpr int kSubK = 16;  // keys per online-softmax step
 
 // kSlice: the per-thread share of the head dimension (D / 4) when known at
-// compile time (a multiple of 4), else 0 and the runtime d / 4 (at most 32)
-// is used.
-template <typename T, int kSlice>
-__global__ void __launch_bounds__(kThreads, 2)
+// compile time (a multiple of 4), else 0 and the runtime d / 4 is used.
+// kMax: the size of the per-thread register arrays, at least d / 4.
+template <typename T, int kSlice, int kMax>
+__global__ void __launch_bounds__(kThreads, kMax > 32 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int hq, int hkv, int sq, int sk,
                  int d, float scale, int causal) {
-  constexpr int kMax = kSlice > 0 ? kSlice : 32;
+  static_assert(kSlice == 0 || kSlice == kMax, "kSlice fixes kMax");
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = smem + kBlockK * d;
@@ -155,12 +161,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int kSlice>
+template <typename T, int kSlice, int kMax>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int hq, int hkv, int sq, int sk,
                    int d, float scale, int causal, cudaStream_t stream) {
   const int smem = 2 * kBlockK * d * (int)sizeof(float);
-  auto kernel = flash_fwd_kernel<T, kSlice>;
+  auto kernel = flash_fwd_kernel<T, kSlice, kMax>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -180,36 +186,49 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int d, float scale, int causal, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch<T, 16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
-                           causal, stream);
+      return launch<T, 16, 16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                               scale, causal, stream);
     case 128:
-      return launch<T, 32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
-                           causal, stream);
+      return launch<T, 32, 32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                               scale, causal, stream);
+    case 256:
+      return launch<T, 64, 64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                               scale, causal, stream);
     default:
-      return launch<T, 0>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
-                          causal, stream);
+      if (d <= 128) {
+        return launch<T, 0, 32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                                scale, causal, stream);
+      }
+      return launch<T, 0, 64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                              scale, causal, stream);
   }
 }
 
 }  // namespace
 
 // q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D] (all contiguous,
-// 16-byte aligned, one dtype), lse [B, Hq, Sq] f32.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// 16-byte aligned, one dtype), lse [B, Hq, Sq] f32; D a multiple of 8 up to
+// 256. dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    int batch, int hq, int hkv, int sq,
                                    int sk, int d, float scale, int causal,
                                    int dtype, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
-      sk < 1 || d < 8 || d > 128 || d % 8 != 0 || (dtype != 0 && dtype != 1)) {
+      sk < 1 || d < 8 || d > 256 || d % 8 != 0 || dtype < 0 || dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv,
-                                           sq, sk, d, scale, causal, s)
-                 : dispatch<float>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
+  switch (dtype) {
+    case 1:
+      return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv,
+                                          sq, sk, d, scale, causal, s);
+    case 2:
+      return (int)dispatch<__half>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
                                    d, scale, causal, s);
-  return (int)err;
+    default:
+      return (int)dispatch<float>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                                  scale, causal, s);
+  }
 }

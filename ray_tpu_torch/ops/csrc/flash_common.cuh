@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +22,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -29,6 +31,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and back: the rounding the reference applies to p and
@@ -41,7 +47,7 @@ __device__ __forceinline__ float round_to(float x) {
 // Copies a 64 x d tile of T from device memory into shared memory as f32
 // (converted once here, not at every use), in 16-byte chunks, and
 // zero-fills rows at or past rows_valid. d % 8 == 0 keeps every row a whole
-// number of chunks for both bf16 and f32.
+// number of chunks for f32 and for the 2-byte types.
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int rows_valid, int d) {
@@ -69,7 +75,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 // slice width known at compile time (kSlice > 0, a multiple of 4) the four
 // threads of a row interleave 4-element chunks, so their float4 reads of a
 // shared-memory row fall in distinct banks; otherwise each thread owns a
-// contiguous run of ds elements.
+// contiguous run of ds elements (ds <= kMax, the register array's size).
 template <int kSlice>
 __device__ __forceinline__ int dim_of(int i, int slice, int ds) {
   if constexpr (kSlice > 0) {

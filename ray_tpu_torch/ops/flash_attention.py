@@ -6,7 +6,7 @@ The forward replaces the Pallas ``_attn_kernel`` in both of its launches:
 ``n_kv_heads`` width). It has two kernels, picked by a rule of shapes
 (``_forward_variant``): bf16 with head_dim 64 or 128 runs on the tensor
 cores (``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp
-specialisation); f32 and every other head_dim run on the CUDA cores
+specialisation); f32, f16 and every other head_dim run on the CUDA cores
 (``csrc/flash_attention_fwd.cu``), whose f32 arithmetic the f32 limits
 rest on. Neither gives way to the other on an error: the wrapper raises. The
 backward kernels, dQ and dK/dV, replace ``_attn_bwd_dq_kernel`` and
@@ -17,6 +17,14 @@ also writes delta = rowsum(dO * O) for its dK/dV kernel), everything else
 on the CUDA cores (``csrc/flash_attention_bwd.cu``). A wrapper launches its
 kernel for CUDA tensors and raises on what it does not take; it runs the
 plain version only for tensors on the CPU.
+
+Which route a head_dim takes is one rule, ``_attention_route``: a head_dim
+that is no multiple of 8 takes the plain path (``_fallback`` /
+``_fallback_grouped``), as the reference does on every device. Every other
+head_dim takes a kernel; above 256 no kernel is written yet (the reference
+runs Pallas there), so a CUDA tensor raises ``ValueError``. ``take_route``
+applies the rule and counts each plain route in ``plain_routes``; the
+model's ``_attention_dense`` uses it too.
 
 Layouts are the reference's: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``.
 ``flash_attention`` is differentiable through ``_FlashCore`` (the
@@ -42,10 +50,12 @@ dq_launches = 0     # backward dQ, both variants
 dkv_launches = 0    # backward dK/dV, both variants
 dq_wgmma_launches = 0   # backward on the tensor cores (bf16, D 64 or 128)
 dkv_wgmma_launches = 0
-dq_simt_launches = 0    # backward on the CUDA cores (f32, other D)
+dq_simt_launches = 0    # backward on the CUDA cores (f32, f16, other D)
 dkv_simt_launches = 0
+plain_routes = 0    # calls that _attention_route sent to the plain path
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_MAX_D = 256   # the widest head_dim the CUDA-core kernels take
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (library, function) -> argtypes.
 _SIGNATURES = {
@@ -79,13 +89,20 @@ def _kernel_fn(library: str, name: str):
     return fn
 
 
+def neg_inf_like(s: torch.Tensor) -> torch.Tensor:
+    """-1e30 in ``s``'s dtype as the reference's ``jnp.where(..., -1e30)``
+    casts it: finite in f32 and bf16, -inf in f16 (whose range ends at
+    65504). Picked on the host: one fill, no cast on the device."""
+    fill = float("-inf") if s.dtype == torch.float16 else NEG_INF
+    return torch.full((), fill, dtype=s.dtype, device=s.device)
+
+
 def _mask_causal(s):
     """Scores [..., Sq, Sk] with key j > query i set to -1e30."""
     Sq, Sk = s.shape[-2:]
     keep = (torch.arange(Sq, device=s.device)[:, None]
             >= torch.arange(Sk, device=s.device)[None, :])
-    return torch.where(keep, s, torch.full((), NEG_INF, dtype=s.dtype,
-                                           device=s.device))
+    return torch.where(keep, s, neg_inf_like(s))
 
 
 def _dense(q, k, v, causal, scale):
@@ -159,23 +176,47 @@ def _check_kernel_inputs(tensors, names):
             raise ValueError(f"flash attention kernel: {names} must lie on "
                              f"one CUDA device")
         if t.dtype != first.dtype or t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"flash attention kernel takes float32 or "
-                            f"bfloat16 {names} of one dtype, got "
+            raise TypeError(f"flash attention kernel takes float32, "
+                            f"bfloat16 or float16 {names} of one dtype, got "
                             f"{[x.dtype for x in tensors]}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash attention kernel takes contiguous, "
                              f"16-byte aligned {names}")
     D = first.shape[-1]
-    if D % 8 or D > 128:
+    if D % 8 or D > KERNEL_MAX_D:
         raise ValueError(f"flash attention kernel takes head_dim a multiple "
-                         f"of 8 up to 128, got {D}")
+                         f"of 8 up to {KERNEL_MAX_D}, got {D}; a kernel for "
+                         f"head_dim above {KERNEL_MAX_D} is open in "
+                         f"ROADMAP B")
+
+
+def _attention_route(dtype: torch.dtype, D: int) -> str:
+    """Where attention over head_dim ``D`` goes: ``"plain"`` when D is no
+    multiple of 8 (the reference's own fallback rule), else the kernel
+    variant of ``_forward_variant``. An input no kernel takes still gets a
+    variant, and the kernel's wrapper raises on a CUDA tensor:
+    ``TypeError`` for its dtype, ``ValueError`` for a head_dim above
+    ``KERNEL_MAX_D`` (the reference runs Pallas there; ROADMAP B)."""
+    if D % 8:
+        return "plain"
+    return _forward_variant(dtype, D)
+
+
+def take_route(dtype: torch.dtype, D: int) -> str:
+    """``_attention_route``, counting each plain route in
+    ``plain_routes``."""
+    global plain_routes
+    route = _attention_route(dtype, D)
+    if route == "plain":
+        plain_routes += 1
+    return route
 
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
     """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
     for bf16 with head_dim 64 or 128, ``"simt"`` (CUDA cores) otherwise.
     f32 stays on the CUDA cores because TF32 products would break its
-    limit (``testing.O_ROW_TOL``)."""
+    limit (``testing.O_ROW_TOL``); f16 has no tensor-core kernel."""
     return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
 
 
@@ -352,13 +393,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts; GQA
     repeat-expands K/V first). Differentiable: the backward runs the dQ
-    and dK/dV kernels of ``_backward_variant`` on CUDA tensors."""
+    and dK/dV kernels of ``_backward_variant`` on CUDA tensors. A head_dim
+    that ``_attention_route`` sends to the plain path returns
+    ``_fallback``, differentiable by autograd."""
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention wants matched head counts, got "
                          f"{q.shape[1]} and {k.shape[1]}; use "
                          f"flash_attention_grouped")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if take_route(q.dtype, q.shape[-1]) == "plain":
+        return _fallback(q, k, v, causal, scale)
     if _wants_grad(q, k, v):
         return _FlashCore.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale)[0]
@@ -371,9 +416,15 @@ def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor,
     [B, Hq, S, D]. K/V are never repeat-expanded: the kernel maps each
     query head to its KV head. Forward-only, as in the reference (its
     backward kernels want matched head counts): a tensor that requires
-    grad under grad mode raises."""
+    grad under grad mode raises. A head_dim that ``_attention_route``
+    sends to the plain path returns ``_fallback_grouped``."""
     if _wants_grad(q, k, v):
         raise NotImplementedError(
             "flash_attention_grouped is forward-only; the differentiable "
             "path repeat-expands K/V and calls flash_attention")
+    _check_shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if take_route(q.dtype, q.shape[-1]) == "plain":
+        return _fallback_grouped(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale)[0]

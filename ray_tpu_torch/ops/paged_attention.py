@@ -17,7 +17,11 @@ from __future__ import annotations
 
 import torch
 
-NEG_INF = -1e30
+
+def _neg_inf_like(s):
+    """The reference's -1e30 mask fill in ``s``'s dtype (-inf in f16)."""
+    fill = float("-inf") if s.dtype == torch.float16 else -1e30
+    return torch.full((), fill, dtype=s.dtype, device=s.device)
 
 
 def _gather(cache, block_tables, B, Hkv, Dh):
@@ -47,7 +51,7 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, context_lens):
     valid = (torch.arange(s_len, device=q.device)[None, :]
              < context_lens.to(q.device)[:, None])                # [B, S]
     s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+                    _neg_inf_like(s))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bhgs,bshd->bhgd", p, v)
     return o.reshape(B, Hq, Dh)
@@ -74,7 +78,7 @@ def paged_attention_prefill(q, k_cache, v_cache, block_tables, q_positions):
     valid = (torch.arange(s_len, device=q.device)[None, None, :]
              <= q_positions.to(q.device)[:, :, None])            # [B, C, S]
     s = torch.where(valid[:, None, None, :, :], s,
-                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+                    _neg_inf_like(s))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bhgcs,bshd->bchgd", p, v)
     return o.reshape(B, C, Hq, Dh)

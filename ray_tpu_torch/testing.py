@@ -19,9 +19,13 @@ import torch
 # The limit 2**-5 is 4 to 8 ulps of the row's largest element; a dropped
 # 64-key tile reads 20x more. LSE is held per element: bf16 scores rounded
 # by 2**-9 of their size move LSE by at most that, and the limit is
-# 2**-8 * (|lse| + 1). f32 sums in another order (TF32 off).
-O_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
-LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+# 2**-8 * (|lse| + 1). f32 sums in another order (TF32 off). f16 rounds
+# where bf16 does, with 3 more bits (relative ulp 2**-11 to 2**-10): the
+# same 4 to 8 ulps are 2**-7 of a row, and LSE 2**-10 * (|lse| + 1).
+O_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5,
+             torch.float16: 2.0 ** -7}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8,
+           torch.float16: 2.0 ** -10}
 
 # Flash backward, per row of dq, dk and dv as a fraction of the row's
 # largest element. A row whose exact gradient is 0 holds only rounding
@@ -35,9 +39,10 @@ LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
 # before the products, so they differ where a summation-order difference
 # flips a rounding (rare) and in the final rounding of each gradient (one
 # ulp, at most 2**-7 of the element); 2**-5 is 4 to 8 such ulps of the
-# row's largest element. A dropped 64-row tile of dO zeroes those dq rows
-# and reads ~1.
-GRAD_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5}
+# row's largest element; f16, the same count of its ulps, 2**-7. A dropped
+# 64-row tile of dO zeroes those dq rows and reads ~1.
+GRAD_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -5,
+                torch.float16: 2.0 ** -7}
 GRAD_ROW_FLOOR = 2.0 ** -8
 
 # RMSNorm, per element |out - ref| <= tol * (|ref| + 1). The kernel's

@@ -52,11 +52,15 @@ def _qkv(seed, B, Hq, Hkv, Sq, Sk, D, dtype, device):
             .to(device=device, dtype=dtype) for s in shapes]
 
 
+# Head dims up to 256 and float16 run on the CUDA-core kernel (D 200 and
+# 256 need more than the 48 KB default of dynamic shared memory).
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("Hq,Hkv,Sq,Sk,D", [
     (4, 4, 128, 128, 64), (8, 2, 200, 200, 64), (2, 1, 77, 131, 8),
-    (4, 2, 64, 64, 128), (2, 2, 1, 50, 16), (4, 4, 130, 70, 40)])
+    (4, 2, 64, 64, 128), (2, 2, 1, 50, 16), (4, 4, 130, 70, 40),
+    (2, 2, 128, 128, 256), (4, 2, 77, 131, 200), (2, 1, 200, 200, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
                                     causal):
@@ -71,14 +75,29 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    """D=12 takes the plain route (no launch, one plain route counted)
+    and equals it; f16 runs the CUDA-core kernel; a dtype no kernel takes,
+    a non-contiguous input and a head_dim above 256 still raise."""
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 12, torch.float32, cuda_device)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, k, v)
+    before = fa.launches, fa.plain_routes
+    out = fa.flash_attention(q, k, v)
+    assert (fa.launches, fa.plain_routes) == (before[0], before[1] + 1)
+    torch.testing.assert_close(out, fa._fallback(q, k, v, True, 12 ** -0.5),
+                               atol=0, rtol=0)
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 16, torch.float32, cuda_device)
+    before = fa.simt_launches
+    out = fa.flash_attention(q.half(), k.half(), v.half())
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16 and fa.simt_launches == before + 1
     with pytest.raises(TypeError):
-        fa.flash_attention(q.half(), k.half(), v.half())
+        fa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), k, v)
+    q, k, v = _qkv(1, 1, 2, 2, 16, 16, 264, torch.float32, cuda_device)
+    before = fa.launches, fa.plain_routes
+    with pytest.raises(ValueError, match="ROADMAP B"):
+        fa.flash_attention(q, k, v)
+    assert (fa.launches, fa.plain_routes) == before
     q, k, v = _qkv(1, 1, 2, 1, 16, 16, 16, torch.float32, cuda_device)
     with pytest.raises(NotImplementedError):
         fa.flash_attention_grouped(q.requires_grad_(), k, v)
@@ -108,7 +127,8 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, D, Hq, Hkv, Sq, Sk,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
-    (torch.float32, 64, "simt")])
+    (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
+    (torch.bfloat16, 256, "simt")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -139,13 +159,15 @@ def test_flash_wgmma_kernel_refuses_misaligned_or_strided_input(cuda_device):
 # of dq, dk and dv (GRAD_ROW_TOL); a dropped 64-row tile of dO reads ~1
 # (chip_smoke.py checks that it is caught).
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 # Sq = 3 rather than the forward's single row: with one causal row, dq and
 # dk are exactly 0 and every element is rounding noise, which a relative
 # check cannot hold.
 @pytest.mark.parametrize("H,Sq,Sk,D", [
     (4, 128, 128, 64), (4, 200, 200, 64), (2, 77, 131, 16),
-    (2, 64, 64, 128), (2, 3, 50, 40), (2, 130, 70, 40)])
+    (2, 64, 64, 128), (2, 3, 50, 40), (2, 130, 70, 40),
+    (2, 128, 128, 256), (2, 77, 131, 200), (2, 200, 200, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_kernels_match_plain(cuda_device, dtype, H, Sq, Sk,
                                             D, causal):
@@ -206,7 +228,8 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, D, Sq, Sk, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
-    (torch.float32, 64, "simt")])
+    (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
+    (torch.bfloat16, 256, "simt")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)

@@ -230,9 +230,14 @@ def test_init_params_is_seeded_and_shaped_like_reference():
 
 
 def test_moe_config_is_refused():
-    tcfg = dataclasses.replace(_port_cfg(GQA), num_experts=4)
-    with pytest.raises(NotImplementedError):
-        tm.init_params(tcfg, 0, device="cpu")
+    """MoE configs are no longer refused: init_params builds the router
+    and expert leaves at the reference's shapes."""
+    cfg = dataclasses.replace(GQA, num_experts=4)
+    tp = tm.init_params(_port_cfg(cfg), 0, device="cpu")
+    jp = jm.init_params(cfg, jax.random.PRNGKey(0))
+    assert set(tp["layers"]) == set(jp["layers"])
+    for name in ("router", "e_gate", "e_up", "e_down"):
+        assert tuple(tp["layers"][name].shape) == jp["layers"][name].shape
 
 
 def test_entry_points_default_to_cuda_and_refuse_to_fall_back(monkeypatch):
