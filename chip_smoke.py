@@ -119,6 +119,24 @@ non-zero without printing a result. Without a CUDA card, or without the
    with one sync at the end, p50 / p99 of a synchronous execute + get,
    graph replays and host launches per execute, and under torch.profiler
    the device's busy time per execute and idle share.
+9. dag_mesh: phase 8's DAGs, static and dynamic, sharded over an
+   8-shard virtual mesh of the card (make_mesh over [cuda:0] * 8; the
+   reference tests' 8 shards): each output equals the plain evaluator's
+   and the one-device executor's (exactly, or at phase 8's rtol), the
+   chain exports at most one payload a wave, and a planted fault (one
+   wave's exchange zeroed, captured into the graph) must change the
+   fan-out's output. Readings beside phase 8's one-device ones (smoke):
+   shards, lanes per shard, export width, bytes each shard receives per
+   execute, graph replays and host launches per execute, tasks/s and
+   sync p50 / p99.
+10. tp: the flagship (and its GQA variant, n_kv_heads=4) at full width
+   and depth through the InferenceEngine on phase 4's 8 prompts (32 new
+   tokens) at tp_size 1, 2 and 4 over virtual shards of the card
+   (RAY_TPU_TORCH_VIRTUAL_DEVICES). In f32 every stream equals tp 1's
+   token for token; in bf16 a stream may leave tp 1's only at a token
+   whose tp 1 top-two logit gap is below SPEC_TIE_TOL_BF16 (printed).
+   Each shard's KV pool holds 1/tp of tp 1's bytes. Tokens/s and TTFT
+   per tp are smoke readings.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -212,6 +230,16 @@ DAG_TENSOR_WIDTH, DAG_TENSOR_DEPTH = 64, 15
 DAG_EXECS = 300       # back-to-back executes per tasks/s reading
 DAG_SYNC_EXECS = 100  # synchronous execute + get, for p50 / p99
 DAG_PROFILED_EXECS = 20   # executes traced by torch.profiler
+# Phase 9: the same DAGs on a virtual mesh of the card (the reference
+# tests' 8 shards); fewer timed executes, since n shards launch n times
+# the kernels of one device.
+DAG_MESH_SHARDS = 8
+DAG_MESH_EXECS = 30
+DAG_MESH_SYNC_EXECS = 20
+DAG_FAULT_WAVE = 1    # the fan-out wave whose exports the fault zeroes
+# Phase 10: tensor-parallel serving over virtual shards of the card.
+TP_SIZES = (1, 2, 4)
+TP_NUM_BLOCKS = 512
 # RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
 # version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
 # rows no multiple of the reference's 256-row block, so the reference's
@@ -2093,36 +2121,35 @@ def _plain_eval(leaf, x):
     return vals[id(leaf)]
 
 
-def _dag_readings(compiled, x):
-    """tasks/s over DAG_EXECS back-to-back executes, each fed the previous
+def _dag_readings(compiled, x, execs=DAG_EXECS, sync_execs=DAG_SYNC_EXECS):
+    """tasks/s over ``execs`` back-to-back executes, each fed the previous
     output (one sync at the end), p50 / p99 of a synchronous execute +
     get, and graph replays and host launches per execute."""
     ref = compiled.execute(x)
     torch.cuda.synchronize()
     replays, launches = compiled.graph_replays, compiled.host_launches
     t0 = time.perf_counter()
-    for _ in range(DAG_EXECS):
+    for _ in range(execs):
         ref = compiled.execute(ref.device_value())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    per_exec = {"graph_replays": (compiled.graph_replays - replays)
-                / DAG_EXECS,
+    per_exec = {"graph_replays": (compiled.graph_replays - replays) / execs,
                 "host_launches": (compiled.host_launches - launches)
-                / DAG_EXECS}
+                / execs}
     lat = []
-    for _ in range(DAG_SYNC_EXECS):
+    for _ in range(sync_execs):
         t0 = time.perf_counter()
         compiled.execute(x).get()
         lat.append(time.perf_counter() - t0)
     lat.sort()
-    return {"tasks_per_s": DAG_EXECS * compiled.num_tasks / wall,
-            "exec_us": wall / DAG_EXECS * 1e6,
-            "task_latency_us": wall / DAG_EXECS / compiled.num_tasks * 1e6,
+    return {"tasks_per_s": execs * compiled.num_tasks / wall,
+            "exec_us": wall / execs * 1e6,
+            "task_latency_us": wall / execs / compiled.num_tasks * 1e6,
             "sync_exec_p50_us": lat[len(lat) // 2] * 1e6,
             "sync_exec_p99_us": lat[min(len(lat) - 1,
                                         int(0.99 * len(lat)))] * 1e6,
-            "per_execute": per_exec, "execs": DAG_EXECS,
-            "sync_execs": DAG_SYNC_EXECS}
+            "per_execute": per_exec, "execs": execs,
+            "sync_execs": sync_execs}
 
 
 def _dag_device_time(compiled, x):
@@ -2197,6 +2224,222 @@ def phase_dag(dev, card):
     return results
 
 
+# ---------------------------------------------------------- phase 9: dag_mesh
+def _exchange_bytes(compiled):
+    """Bytes each shard receives per execute through the exchanges: the
+    static waves' tiled allgathers (n_sh * X_max payloads a wave, every
+    wave once X_max > 0), or the dynamic frontier's fired ids (int64) and,
+    when an edge crosses shards, payloads (n_sh * F a iteration, as many
+    iterations as one execute runs)."""
+    n = compiled.num_shards
+    payload = int(np.prod(compiled.payload_shape, dtype=np.int64)) \
+        * torch.empty((), dtype=compiled.dtype).element_size()
+    if not compiled.dynamic:
+        return compiled.num_waves * n * compiled.export_width * payload
+    per_iter = n * compiled._F * (8 + (payload if compiled.export_width
+                                       else 0))
+    return compiled._chunk * per_iter
+
+
+def phase_dag_mesh(dev, card, one_device):
+    """Phase 9 (see the module docstring): phase 8's DAGs sharded over
+    DAG_MESH_SHARDS virtual shards of the card."""
+    from ray_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * DAG_MESH_SHARDS)   # dp = 8
+    results = {}
+    dags = _bench_dags()
+    for name, (build, payload, x, rtol) in dags.items():
+        leaf = build()
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        want = _plain_eval(leaf, xt)
+        for dynamic in (False, True):
+            key = f"{name}[{'dynamic' if dynamic else 'static'}]"
+            single = leaf.experimental_compile(
+                backend="torch", payload_shape=payload, dynamic=dynamic,
+                device=str(dev)).execute(x).device_value()
+            t0 = time.perf_counter()
+            compiled = leaf.experimental_compile(
+                backend="torch", payload_shape=payload, dynamic=dynamic,
+                mesh=mesh)
+            compile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            first = compiled.execute(x).device_value()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            again = compiled.execute(x).device_value()
+            if rtol is None:
+                ok = all(bool(torch.equal(v, w)) for v in (first, again)
+                         for w in (want, single))
+            else:
+                ok = all(bool(torch.allclose(v, w, rtol=rtol, atol=0))
+                         for v in (first, again) for w in (want, single))
+            res = {"num_shards": compiled.num_shards,
+                   "mesh_axis": compiled.mesh_axis,
+                   "lanes_per_shard": compiled.lanes_per_shard,
+                   "export_width": compiled.export_width,
+                   "wave_width": compiled.wave_width,
+                   "num_waves": compiled.num_waves,
+                   "num_compiled_tasks": compiled.num_compiled_tasks,
+                   "equals_plain_and_one_device": ok, "rtol": rtol,
+                   "compile_s": compile_s, "first_execute_s": first_s}
+            results[key] = res
+            if not ok:
+                emit({"phase": "dag_mesh", "results": results})
+                raise AssertionError(f"{key}: the sharded executor's output "
+                                     f"differs from the plain evaluator's "
+                                     f"or the one-device executor's")
+            if name == "chain_1k_noop" and not dynamic and \
+                    compiled.export_width > 1:
+                raise AssertionError(f"the chain exports "
+                                     f"{compiled.export_width} payloads a "
+                                     f"wave, expected at most 1")
+            res["exchange_bytes_per_shard_per_execute"] = \
+                _exchange_bytes(compiled)
+            if dynamic:
+                res["iterations_per_execute"] = compiled._chunk
+            res.update(_dag_readings(compiled, x, DAG_MESH_EXECS,
+                                     DAG_MESH_SYNC_EXECS))
+            one = one_device[key]
+            res["one_device"] = {k: one[k] for k in (
+                "tasks_per_s", "sync_exec_p50_us", "sync_exec_p99_us")}
+            del compiled
+    # A planted fault: the fan-out's exports zeroed in one wave (captured
+    # into the graph) must change its output.
+    build, payload, x, _ = dags["fanout_10k"]
+    leaf = build()
+    want = _plain_eval(leaf, torch.as_tensor(x, dtype=torch.float32,
+                                             device=dev))
+    faulty = leaf.experimental_compile(backend="torch", payload_shape=payload,
+                                       mesh=mesh)
+    real = faulty._exchange
+
+    def zeroed(packed, wave=None):
+        got = real(packed, wave)
+        return ([torch.zeros_like(g) for g in got]
+                if wave == DAG_FAULT_WAVE else got)
+
+    faulty._exchange = zeroed
+    outs = [faulty.execute(x).device_value() for _ in range(2)]
+    caught = all(not bool(torch.equal(o, want)) for o in outs)
+    results["planted_fault"] = {
+        "dag": "fanout_10k[static]", "zeroed_wave": DAG_FAULT_WAVE,
+        "output": [float(o) for o in outs], "plain": float(want),
+        "caught": caught}
+    emit({"phase": "dag_mesh", "results": results,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if not caught:
+        raise AssertionError("zeroing one wave's exchange left the fan-out "
+                             "output unchanged")
+    return results
+
+
+# ----------------------------------------------------------------- phase 10: tp
+def phase_tp(dev, card, base, lens, new_tokens):
+    """Phase 10 (see the module docstring): the flagship served
+    tensor-parallel over virtual shards of the card."""
+    import os
+
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
+
+    t_phase = time.perf_counter()
+    os.environ[VIRTUAL_DEVICES_ENV] = str(max(TP_SIZES))
+    gaps = {}
+
+    class GapEngine(InferenceEngine):
+        """Records each emitted token's top-two logit gap (not timed)."""
+
+        def _emit(self, reqs, logits):
+            top2 = np.sort(np.partition(logits, -2, axis=-1)[:, -2:], -1)
+            for i, req in enumerate(reqs):
+                gaps.setdefault(tuple(req.prompt), []).append(
+                    float(top2[i, 1] - top2[i, 0]))
+            super()._emit(reqs, logits)
+
+    results = {}
+    try:
+        for name, cfg0 in (("mha", base),
+                           ("gqa", dataclasses.replace(base, n_kv_heads=4))):
+            params = tm.init_params(cfg0, SEED, device=dev)
+            prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                               cfg0.vocab_size)
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = dataclasses.replace(cfg0, dtype=dtype)
+                key = f"{name}_{_dtype_name(dtype)}"
+                gaps.clear()
+                runs, streams = {}, {}
+                pool_bytes = {}
+                for tp in TP_SIZES:
+                    cls = GapEngine if tp == 1 else InferenceEngine
+                    engines = []
+
+                    def make():
+                        e = cls(EngineConfig(
+                            model=cfg, num_blocks=TP_NUM_BLOCKS,
+                            block_size=BLOCK_SIZE, tp_size=tp,
+                            device=str(dev)), params=params)
+                        engines.append(e)
+                        return e
+
+                    outs, st, tgaps, wall = _serve(make, prompts, new_tokens)
+                    pools = (engines[0].cache.data if tp > 1
+                             else [engines[0].cache.data])
+                    pool_bytes[tp] = [sum(t.numel() * t.element_size()
+                                          for t in p.values())
+                                      for p in pools]
+                    del engines
+                    streams[tp] = outs
+                    runs[tp] = dict(
+                        _reading(outs, tgaps, wall), tp_size=st["tp_size"],
+                        ttft_p50_s=st["ttft_decomposition"]["ttft_p50_s"],
+                        ttft_p99_s=st["ttft_decomposition"]["ttft_p99_s"],
+                        kv_pool_bytes_per_shard=pool_bytes[tp])
+                res = {"runs": runs, "requests": len(prompts),
+                       "prompt_lens": lens, "new_tokens": new_tokens}
+                results[key] = res
+                whole = pool_bytes[1][0]
+                for tp in TP_SIZES:
+                    if len(pool_bytes[tp]) != tp or any(
+                            b * tp != whole for b in pool_bytes[tp]):
+                        emit({"phase": "tp", "results": results})
+                        raise AssertionError(
+                            f"{key} tp {tp}: KV pool bytes per shard "
+                            f"{pool_bytes[tp]}, expected {whole} / {tp}")
+                diverged = []
+                for tp in TP_SIZES[1:]:
+                    for i, (got, ref) in enumerate(zip(streams[tp],
+                                                       streams[1])):
+                        j = _first_divergence(got, ref)
+                        if j is not None:
+                            diverged.append({
+                                "tp": tp, "stream": i, "token": j,
+                                "tp1_top2_gap": gaps[tuple(prompts[i])][j]})
+                res["divergences"] = diverged
+                if dtype == torch.float32:
+                    res["f32_streams_equal_tp1"] = not diverged
+                    if diverged:
+                        emit({"phase": "tp", "results": results})
+                        raise AssertionError(f"{key}: f32 tensor-parallel "
+                                             f"streams differ from tp 1: "
+                                             f"{diverged}")
+                else:
+                    res["tie_tol"] = SPEC_TIE_TOL_BF16
+                    clear = [d for d in diverged
+                             if d["tp1_top2_gap"] >= SPEC_TIE_TOL_BF16]
+                    if clear:
+                        emit({"phase": "tp", "results": results})
+                        raise AssertionError(f"{key}: bf16 divergences with "
+                                             f"a clear margin {clear}")
+    finally:
+        os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+    emit({"phase": "tp", "results": results,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2230,7 +2473,9 @@ def main() -> int:
     if fa.plain_routes:
         raise AssertionError(f"the flagship took the plain attention route "
                              f"{fa.plain_routes} times")
-    phase_dag(dev, card)
+    one_device_dag = phase_dag(dev, card)
+    phase_dag_mesh(dev, card, one_device_dag)
+    phase_tp(dev, card, flagship, ENGINE_LENS, 32)
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "

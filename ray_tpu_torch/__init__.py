@@ -3,14 +3,16 @@
 It stands beside the JAX package (``ray_tpu``), which stays the reference,
 and imports nothing of it or of JAX. It covers the flagship decoder's
 serving and one-card training paths, dense or MoE: ``models`` (prefill
-with cache, chunked prefill, decode over a paged KV cache; the
-differentiable ``forward``, ``loss_fn`` and an AdamW
-``make_train_step``), ``llm`` (the continuous-batching engine) and
+with cache, chunked prefill, decode over a paged KV cache, on one device
+or tensor-parallel; the differentiable ``forward``, ``loss_fn`` and an
+AdamW ``make_train_step``), ``llm`` (the continuous-batching engine) and
 ``ops`` (hand-written flash-attention forward and backward kernels for
-sm_90a, a Triton RMSNorm kernel, plain PyTorch paged attention); and the
-compiled-DAG wave executor on one device: ``dag`` with the bind-only
-``remote`` of ``remote_function``. Entry points take a ``device`` that
-defaults to ``"cuda"``; tests pass ``device="cpu"``.
+sm_90a, a Triton RMSNorm kernel, plain PyTorch paged attention); the
+compiled-DAG wave executor, on one device or sharded over a mesh:
+``dag`` with the bind-only ``remote`` of ``remote_function``; and the
+one-controller mesh and its collectives, ``parallel`` and
+``collective``. Entry points take a ``device`` that defaults to
+``"cuda"``; tests pass ``device="cpu"``.
 """
 
 from ray_tpu_torch.remote_function import remote

@@ -1,8 +1,9 @@
 """DAG authoring and the compiled wave executor of the PyTorch/CUDA port
-(counterpart of ``ray_tpu/dag``, one device).
+(counterpart of ``ray_tpu/dag``).
 
 See dag_node.py (authoring) and torch_executor.py (the device-resident
-wave executor, ``experimental_compile(backend="torch")``). The actor-loop
+wave executor, ``experimental_compile(backend="torch")``, on one device
+or, with ``mesh=``, sharded over a mesh axis). The actor-loop
 backend and interpreted execution wait for the runtime (ROADMAP A.5).
 """
 
@@ -18,6 +19,7 @@ from ray_tpu_torch.dag.dag_node import (
 )
 from ray_tpu_torch.dag.torch_executor import (
     CompiledTorchDAG,
+    ShardedTorchDAG,
     TorchDAGRef,
     compile_torch_dag,
 )
@@ -31,6 +33,7 @@ __all__ = [
     "InputAttributeNode",
     "InputNode",
     "MultiOutputNode",
+    "ShardedTorchDAG",
     "TorchDAGRef",
     "compile_torch_dag",
     "reduce_tree",

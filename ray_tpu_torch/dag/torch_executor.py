@@ -38,9 +38,30 @@ keeps its tables and its schedule and runs them in PyTorch:
   ``TorchDAGRef`` owns a gathered copy of its outputs. On the CPU the
   loop runs eagerly every time.
 
+Multi-device (``mesh=``, a ``ray_tpu_torch.parallel.Mesh``): the task
+schedule is partitioned over one mesh axis, as the reference partitions it
+with ``shard_map``, and one process drives every shard
+(``ShardedTorchDAG``). Each shard owns its object table on its own
+device, PARTIALLY replicated as in the reference: a shard writes only its
+own lanes' outputs and the slots it imports, so a slot that it neither
+produces nor imports stays zero there. The compile work on the host is
+the reference's: locality-aware lanes (a task lands on the shard that
+produced most of its inputs, ``Wn`` lanes per shard per wave), per-wave
+export sets packed to the largest export count ``X_max``, and one tiled
+``allgather`` per wave of only the cross-shard-consumed outputs (none
+when ``X_max == 0``). The dynamic frontier gives task ``ci`` to shard
+``ci // Cn``; each iteration a shard fires at most ``F`` of its ready
+tasks, lowest ids first, and the fired ids are gathered, the payloads too
+unless every edge stays inside its owner's block (then the leaves
+replicate once after the loop through a masked ``allreduce``). When every
+shard sits on one CUDA device (virtual shards) the whole sharded execute,
+every shard's waves and exchanges, is one CUDA graph, as on one device.
+Shards on distinct devices run eagerly, since one graph cannot span
+devices (tests/test_torch_multi_gpu.py runs that case on several cards;
+per-device graphs are ROADMAP work).
+
 Shapes are checked on the ``meta`` device (the reference's
-``jax.eval_shape``). The ``mesh=`` paths (sharded waves and frontier)
-wait for the multi-axis layer (ROADMAP A.4).
+``jax.eval_shape``).
 """
 
 from __future__ import annotations
@@ -58,6 +79,7 @@ from ray_tpu_torch.dag.dag_node import (
     InputNode,
     MultiOutputNode,
 )
+from ray_tpu_torch.collective.ops import allgather, allreduce
 from ray_tpu_torch.device import resolve_device
 
 # The reference's GlobalConfig defaults (``ray_tpu/_private/config.py``):
@@ -92,7 +114,8 @@ class TorchDAGRef:
 
 
 class _Group:
-    """Lanes that run one op: ``fn`` vmapped over [n, arity, *P] args."""
+    """Lanes that run one op: ``fn`` vmapped over [n, arity, *P] args.
+    ``lanes`` index the task mask of the dynamic modes."""
 
     def __init__(self, fn, arity, lanes, arg_slots, out_slots, device):
         self.fn = fn
@@ -120,23 +143,13 @@ class CompiledTorchDAG:
                  device: torch.device, num_slots: int, leaf_slots,
                  waves: List[List[_Group]], groups: List[_Group],
                  scratch_slot: int, indeg0, edges, viz):
-        self.num_inputs = num_inputs
-        self.multi_output = multi_output
-        self.num_tasks = num_tasks
-        self.num_compiled_tasks = num_compiled_tasks
-        self.num_waves = num_waves
-        self.wave_width = wave_width
-        self.payload_shape = tuple(payload_shape)
-        self.dtype = dtype
-        self.dynamic = dynamic
-        self.op_names = op_names
-        self.device = device
-        # Host-side work per execute on the card, for the DAG phase of
-        # chip_smoke.py: graph replays and other launches (input copies,
-        # the dynamic state's reset, the output gather).
-        self.graph_replays = 0
-        self.host_launches = 0
-        self._viz = viz
+        self._init_meta(
+            num_inputs=num_inputs, multi_output=multi_output,
+            num_tasks=num_tasks, num_compiled_tasks=num_compiled_tasks,
+            num_waves=num_waves, wave_width=wave_width,
+            payload_shape=payload_shape, dtype=dtype, dynamic=dynamic,
+            op_names=op_names, device=device, viz=viz)
+        self._launches_per_reset = 2
         self._obj = torch.zeros((num_slots,) + self.payload_shape,
                                 dtype=dtype, device=device)
         self._leaf_idx = torch.tensor(leaf_slots, dtype=torch.long,
@@ -154,8 +167,36 @@ class CompiledTorchDAG:
                                        device=device)
             self._e_dst = torch.tensor(edges[1], dtype=torch.long,
                                        device=device)
+
+    def _init_meta(self, *, num_inputs, multi_output, num_tasks,
+                   num_compiled_tasks, num_waves, wave_width, payload_shape,
+                   dtype, dynamic, op_names, device, viz) -> None:
+        self.num_inputs = num_inputs
+        self.multi_output = multi_output
+        self.num_tasks = num_tasks
+        self.num_compiled_tasks = num_compiled_tasks
+        self.num_waves = num_waves
+        self.wave_width = wave_width
+        self.payload_shape = tuple(payload_shape)
+        self.dtype = dtype
+        self.dynamic = dynamic
+        self.op_names = op_names
+        self.device = device
+        self.num_shards = 1
+        # Sharded-exchange metadata (None on one device, as in the
+        # reference): lanes per shard per wave, and payloads shipped per
+        # shard per wave (0: no collective).
+        self.export_width: Optional[int] = None
+        self.lanes_per_shard: Optional[int] = None
+        # Host-side work per execute on the card, for the DAG phases of
+        # chip_smoke.py: graph replays and other launches (input copies,
+        # the dynamic state's reset, the output gather).
+        self.graph_replays = 0
+        self.host_launches = 0
+        self._viz = viz
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._chunk = 0   # dynamic iterations per graph replay
+        self._graphable = device.type == "cuda"
 
     # ------------------------------------------------------------- run
     def _run_group(self, g: _Group, out_slots: torch.Tensor) -> None:
@@ -223,7 +264,7 @@ class CompiledTorchDAG:
     def _replay(self) -> None:
         if self.dynamic:
             self._reset_frontier()
-            self.host_launches += 2
+            self.host_launches += self._launches_per_reset
             self._graph.replay()
             self.graph_replays += 1
             while not self._all_done():    # one host read per chunk
@@ -241,6 +282,11 @@ class CompiledTorchDAG:
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x), dtype=self.dtype)
         self._obj[i].copy_(x.reshape(self.payload_shape))
+        if self.device.type == "cuda":
+            self.host_launches += 1
+
+    def _gather_outputs(self) -> torch.Tensor:
+        return self._obj[self._leaf_idx]   # a gathered copy the ref owns
 
     def execute(self, *inputs) -> TorchDAGRef:
         if len(inputs) != self.num_inputs:
@@ -249,8 +295,7 @@ class CompiledTorchDAG:
                 f"{len(inputs)}")
         for i, x in enumerate(inputs):
             self._stage(i, x)
-        if self.device.type == "cuda":
-            self.host_launches += len(inputs) + 1   # copies, the gather
+        if self._graphable:
             if self._graph is None:
                 self._capture()
             else:
@@ -259,7 +304,9 @@ class CompiledTorchDAG:
             self._run_dynamic_eager()
         else:
             self._run_static()
-        out = self._obj[self._leaf_idx]   # a gathered copy the ref owns
+        out = self._gather_outputs()
+        if self.device.type == "cuda":
+            self.host_launches += 1   # the gather (the copies: _stage)
         return TorchDAGRef(out if self.multi_output else out[0],
                            self.multi_output)
 
@@ -267,11 +314,15 @@ class CompiledTorchDAG:
         return self.execute(*inputs).get()
 
     def visualize_schedule(self, max_lanes: int = 8) -> str:
-        """Render the compiled schedule: per-wave lane tables with output
-        slots (static), or the compiled tasks of the frontier (dynamic)."""
+        """Render the compiled schedule: per-wave (and per-shard) lane
+        tables with output slots, exported lanes marked ``*`` and each
+        wave's cross-shard exchange spelled out (static), or the compiled
+        tasks of the frontier (dynamic)."""
+        shards = (f", sharded ×{self.num_shards}" if self.num_shards > 1
+                  else "")
         header = (
             f"CompiledTorchDAG: {self.num_tasks} tasks, "
-            f"{self.num_waves} waves × width {self.wave_width}, "
+            f"{self.num_waves} waves × width {self.wave_width}{shards}, "
             f"{'dynamic frontier' if self.dynamic else 'static levels'}, "
             f"payload {self.payload_shape} {_dtype_name(self.dtype)}, "
             f"ops {self.op_names}"
@@ -280,8 +331,10 @@ class CompiledTorchDAG:
         lines = [header]
 
         def lane_str(entries):
-            cells = [f"[{ci}]{name}->s{slot}"
-                     for ci, name, slot in entries[:max_lanes]]
+            cells = []
+            for e in entries[:max_lanes]:
+                star = "*" if (len(e) > 3 and e[3]) else ""
+                cells.append(f"[{e[0]}]{e[1]}->s{e[2]}{star}")
             if len(entries) > max_lanes:
                 cells.append(f"… +{len(entries) - max_lanes} lanes")
             return "  ".join(cells)
@@ -289,15 +342,173 @@ class CompiledTorchDAG:
         if viz["mode"] == "static":
             for wi, wave in enumerate(viz["waves"]):
                 lines.append(f"wave {wi}: {lane_str(wave)}")
+        elif viz["mode"] == "sharded_static":
+            for wi, by_shard in enumerate(viz["waves"]):
+                lines.append(f"wave {wi}:")
+                exports = []
+                for sh in range(viz["n_sh"]):
+                    entries = by_shard.get(sh, [])
+                    if entries:
+                        lines.append(f"  shard {sh}: {lane_str(entries)}")
+                    for ci, name, slot, exp in entries:
+                        if exp:
+                            exports.append(f"shard{sh}:[{ci}]->s{slot}")
+                if exports:
+                    lines.append(
+                        "  exchange (all_gather): " + ", ".join(exports))
+                else:
+                    lines.append("  exchange: none (no collective)")
         else:
             lines.append(
                 f"dynamic frontier over {len(viz['tasks'])} compiled "
-                f"tasks, {viz['n_edges']} edges")
+                f"tasks, {viz['n_edges']} edges"
+                + (f", frontier width {viz['frontier_width']}/shard"
+                   if viz.get("frontier_width") else ""))
             for ci, name, slot in viz["tasks"][:max_lanes]:
                 lines.append(f"  [{ci}]{name}->s{slot}")
             if len(viz["tasks"]) > max_lanes:
                 lines.append(f"  … +{len(viz['tasks']) - max_lanes} tasks")
         return "\n".join(lines)
+
+
+class _Shard:
+    """One shard of a ``ShardedTorchDAG``: its own object table on its own
+    device and its part of the schedule (static: per-wave op groups and
+    export tables; dynamic: its owned tasks and its copy of the frontier
+    state)."""
+
+    def __init__(self, device: torch.device, num_slots: int, payload_shape,
+                 dtype, leaf_slots):
+        self.device = device
+        self.obj = torch.zeros((num_slots,) + tuple(payload_shape),
+                               dtype=dtype, device=device)
+        self.leaf_idx = self.long(leaf_slots)
+
+    def long(self, values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.long, device=self.device)
+
+
+class ShardedTorchDAG(CompiledTorchDAG):
+    """A compiled DAG partitioned over one mesh axis, every shard driven by
+    this process (the reference's ``shard_map`` paths; see the module
+    docstring). ``shards()`` exposes each shard's object table."""
+
+    def __init__(self, *, mesh, mesh_axis: str, shards: List[_Shard],
+                 scratch_slot: int, export_width: int, lanes_per_shard: int,
+                 frontier: Optional[dict] = None, **meta):
+        # The shards hold the tables: the one-device table of
+        # CompiledTorchDAG.__init__ is not built.
+        self._init_meta(**meta)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.num_shards = len(shards)
+        self.export_width = export_width
+        self.lanes_per_shard = lanes_per_shard
+        self._shards = shards
+        self._scratch = scratch_slot
+        # One CUDA graph holds every shard only when they share a device.
+        self._graphable = (self.device.type == "cuda"
+                           and len({sh.device for sh in shards}) == 1)
+        self._launches_per_reset = 2 * len(shards)
+        if frontier is not None:
+            self._F = frontier["F"]
+            self._C_pad = frontier["C_pad"]
+            self._cross_payload = frontier["cross_payload"]
+
+    def shards(self) -> List[torch.Tensor]:
+        """Each shard's object table ``[num_slots, *P]``, on its device."""
+        return [sh.obj for sh in self._shards]
+
+    def _stage(self, i: int, x) -> None:
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x), dtype=self.dtype)
+        x = x.reshape(self.payload_shape)
+        for sh in self._shards:
+            sh.obj[i].copy_(x)
+        if self.device.type == "cuda":
+            self.host_launches += len(self._shards)
+
+    def _exchange(self, packed: List[torch.Tensor], wave: Optional[int] = None
+                  ) -> List[torch.Tensor]:
+        """Every shard's packed exports, gathered (tiled) onto every shard:
+        the reference's one ``lax.all_gather`` per wave (static) or per
+        iteration (dynamic, ``wave`` None)."""
+        return allgather(packed, self.mesh, self.mesh_axis)
+
+    def _run_static(self) -> None:
+        for w in range(self.num_waves):
+            for sh in self._shards:
+                for g in sh.waves[w]:
+                    sh.obj[g.out] = g.fn(sh.obj[g.args])
+            if self.export_width:
+                # Exports are read back from the table the shard just
+                # wrote (padding reads the scratch slot and lands there).
+                got = self._exchange(
+                    [sh.obj[sh.exp_src[w]] for sh in self._shards], w)
+                for sh, vals in zip(self._shards, got):
+                    sh.obj[sh.exp_dst[w]] = vals
+
+    def _reset_frontier(self) -> None:
+        for sh in self._shards:
+            sh.indeg.copy_(sh.indeg0)
+            sh.done.copy_(sh.done0)
+
+    def _iteration(self) -> None:
+        """One frontier step. Each shard computes every task it owns and
+        writes the outputs of the F lowest ready ids (the reference's
+        ``top_k`` over ``-id``, here a rank by ``cumsum``: the same set);
+        its other lanes write the scratch slot. The fired ids are
+        gathered, with the payloads when an edge crosses shards, and every
+        shard marks them done and decrements their consumers."""
+        F, C_pad = self._F, self._C_pad
+        chosen = []
+        for sh in self._shards:
+            ready = (sh.indeg == 0) & ~sh.done                 # [C_pad]
+            mine = ready[sh.my_ids]                            # [Cn]
+            rank = torch.cumsum(mine, 0) - 1
+            fire = mine & (rank < F)
+            for g in sh.groups:
+                sh.obj[torch.where(fire[g.lanes], g.out, self._scratch)] = \
+                    g.fn(sh.obj[g.args])
+            ids = torch.full((F + 1,), C_pad, dtype=torch.long,
+                             device=sh.device)
+            ids.scatter_(0, torch.where(fire, rank, F), sh.my_ids)
+            chosen.append(ids[:F])
+        g_ids = allgather(chosen, self.mesh, self.mesh_axis)   # [n * F]
+        if self._cross_payload:
+            got = self._exchange([sh.obj[sh.out_ext[c]]
+                                  for sh, c in zip(self._shards, chosen)])
+            for sh, ids, vals in zip(self._shards, g_ids, got):
+                sh.obj[sh.out_ext[ids]] = vals
+        for sh, ids in zip(self._shards, g_ids):
+            fired = torch.zeros(C_pad + 1, dtype=torch.bool,
+                                device=sh.device).index_fill_(0, ids, True)
+            fired = fired[:C_pad]
+            sh.done |= fired
+            if sh.e_src.numel():
+                sh.indeg -= torch.zeros_like(sh.indeg).index_add_(
+                    0, sh.e_dst, fired[sh.e_src].to(torch.int32))
+
+    def _all_done(self) -> bool:
+        if self.device.type == "cuda":
+            self.host_launches += 1
+        return bool(self._shards[0].done.all())
+
+    def _gather_outputs(self) -> torch.Tensor:
+        if self.dynamic and not self._cross_payload:
+            # Leaves live only on their producer shard: replicate once
+            # with a masked allreduce.
+            parts = [torch.where(sh.leaf_mask, sh.obj[sh.leaf_idx],
+                                 torch.zeros((), dtype=self.dtype,
+                                             device=sh.device))
+                     for sh in self._shards]
+            if self.device.type == "cuda":
+                # Per shard a gather and a select, then the allreduce's
+                # adds and copies (the base counts one launch).
+                self.host_launches += 4 * len(self._shards) - 2
+            return allreduce(parts, self.mesh, self.mesh_axis)[0]
+        sh = self._shards[0]
+        return sh.obj[sh.leaf_idx]
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -332,6 +543,8 @@ def compile_torch_dag(
     max_args: Optional[int] = None,
     fuse: bool = True,
     mesh=None,
+    mesh_axis: Optional[str] = None,
+    frontier_width: Optional[int] = None,
     device="cuda",
 ) -> CompiledTorchDAG:
     """Lower a static DAG of PyTorch FunctionNodes to the wave executor on
@@ -339,13 +552,27 @@ def compile_torch_dag(
 
     Every task op must map payload-shaped tensors to one payload-shaped
     tensor of the payload dtype (uniform buckets, as in the reference).
-    ``mesh`` belongs to the sharded paths, which wait for ROADMAP A.4.
+
+    With ``mesh=`` (a ``ray_tpu_torch.parallel.Mesh``), execution is
+    partitioned over ``mesh_axis`` (default: the mesh's first axis of size
+    > 1) and runs on that axis's devices, not on ``device``: a
+    ``ShardedTorchDAG``. ``frontier_width`` caps the tasks a shard fires
+    per dynamic iteration (default ``min(Cn, 32)``). A one-shard axis
+    falls through to the one-device executor on the mesh's device.
     """
+    shard_devs: List[torch.device] = []
     if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded wave executor waits for the multi-axis layer "
-            "(ROADMAP A.4); compile without mesh=")
-    dev = resolve_device(device)
+        if mesh_axis is None:
+            mesh_axis = next(
+                (a for a in mesh.axis_names if mesh.shape[a] > 1),
+                mesh.axis_names[0])
+        if mesh_axis not in mesh.shape:
+            raise ValueError(
+                f"mesh has no axis {mesh_axis!r}; axes: {mesh.axis_names}")
+        shard_devs = [resolve_device(d) for d in mesh.axis_devices(mesh_axis)]
+        if len(shard_devs) == 1:
+            device, mesh = shard_devs[0], None  # single-shard fall-through
+    dev = shard_devs[0] if mesh is not None else resolve_device(device)
     dtype = _torch_dtype(dtype)
     if dynamic is None:
         dynamic = WAVE_EXECUTOR_DYNAMIC
@@ -537,8 +764,10 @@ def compile_torch_dag(
     compact_producer = {s: ci for ci, s in enumerate(out_slots)}
     vmapped: Dict[tuple, Callable] = {}
 
-    def groups_of(cis: List[int]) -> List[_Group]:
-        """The lanes ``cis`` grouped by signature, in first-seen order."""
+    def groups_of(cis: List[int], device: torch.device = dev,
+                  lane_base: int = 0) -> List[_Group]:
+        """The lanes ``cis`` grouped by signature, in first-seen order;
+        each group's ``lanes`` are ``ci - lane_base``."""
         by_sig: Dict[tuple, List[int]] = {}
         for ci in cis:
             by_sig.setdefault(fused[ci][5], []).append(ci)
@@ -547,11 +776,15 @@ def compile_torch_dag(
             macro, deps = fused[lanes[0]][0], fused[lanes[0]][1]
             if sig not in vmapped:
                 vmapped[sig] = _vmapped(macro, len(deps))
-            out.append(_Group(vmapped[sig], len(deps), lanes,
+            out.append(_Group(vmapped[sig], len(deps),
+                              [ci - lane_base for ci in lanes],
                               [s for ci in lanes for s in fused[ci][1]],
-                              [out_slots[ci] for ci in lanes], dev))
+                              [out_slots[ci] for ci in lanes], device))
         return out
 
+    meta = dict(num_inputs=num_inputs, multi_output=multi_output,
+                num_tasks=T, num_compiled_tasks=C, payload_shape=payload_shape,
+                dtype=dtype, dynamic=dynamic, op_names=op_names, device=dev)
     indeg0: List[int] = []
     edges: Tuple[List[int], List[int]] = ([], [])
     waves_groups: List[List[_Group]] = []
@@ -571,6 +804,10 @@ def compile_torch_dag(
         for ci in range(C):
             waves[levels[ci]].append(ci)
         wave_width = max(len(w) for w in waves)
+        if mesh is not None:
+            return _sharded_static(
+                mesh, mesh_axis, shard_devs, fused, waves, out_slots, compact_producer, leaf_slots, scratch_slot,
+                num_slots, groups_of, meta)
         waves_groups = [groups_of(w) for w in waves]
         viz = {"mode": "static",
                "waves": [[(ci, fused[ci][4], out_slots[ci]) for ci in w]
@@ -587,16 +824,163 @@ def compile_torch_dag(
                     indeg0[ci] += 1
         num_waves = 0  # unknown statically
         wave_width = C
-        all_groups = groups_of(list(range(C)))
         viz = {"mode": "dynamic",
                "tasks": [(ci, f[4], out_slots[ci])
                          for ci, f in enumerate(fused)],
                "n_edges": len(edges[0])}
+        if mesh is not None:
+            return _sharded_dynamic(
+                mesh, mesh_axis, shard_devs, frontier_width, indeg0, edges,
+                out_slots, compact_producer, leaf_slots, scratch_slot,
+                num_slots, groups_of, meta, viz)
+        all_groups = groups_of(list(range(C)))
 
     return CompiledTorchDAG(
-        num_inputs=num_inputs, multi_output=multi_output, num_tasks=T,
-        num_compiled_tasks=C, num_waves=num_waves, wave_width=wave_width,
-        payload_shape=payload_shape, dtype=dtype, dynamic=dynamic,
-        op_names=op_names, device=dev, num_slots=num_slots,
+        num_waves=num_waves, wave_width=wave_width, num_slots=num_slots,
         leaf_slots=leaf_slots, waves=waves_groups, groups=all_groups,
-        scratch_slot=scratch_slot, indeg0=indeg0, edges=edges, viz=viz)
+        scratch_slot=scratch_slot, indeg0=indeg0, edges=edges, viz=viz,
+        **meta)
+
+
+def _sharded_static(mesh, mesh_axis, shard_devs, fused, waves, out_slots,
+                    compact_producer, leaf_slots, scratch_slot, num_slots,
+                    groups_of, meta) -> ShardedTorchDAG:
+    """The mesh-sharded static waves (the reference's host-side compile
+    work, rule for rule): locality-aware lanes, per-(wave, shard) lane
+    tables, export sets packed to ``X_max``, and each shard's groups."""
+    n_sh = len(shard_devs)
+    C = len(fused)
+    num_waves = len(waves)
+    wave_width = max(len(w) for w in waves)
+    Wn = -(-wave_width // n_sh)
+
+    # Locality-aware lane assignment: balance Wn lanes per shard per wave,
+    # preferring the shard owning most producers.
+    owner = [0] * C
+    for w in waves:
+        counts = [0] * n_sh
+        for ci in w:
+            prefs: Dict[int, int] = {}
+            for s in fused[ci][1]:
+                p = compact_producer.get(int(s))
+                if p is not None:
+                    prefs[owner[p]] = prefs.get(owner[p], 0) + 1
+            cand = sorted(range(n_sh),
+                          key=lambda sh: (-prefs.get(sh, 0), counts[sh]))
+            sh = next(s for s in cand if counts[s] < Wn)
+            owner[ci] = sh
+            counts[sh] += 1
+
+    # Which shards consume each slot (leaf slots: all shards, so the
+    # output is replicated).
+    consumers_of_slot: Dict[int, set] = {}
+    for ci, f in enumerate(fused):
+        for s in f[1]:
+            consumers_of_slot.setdefault(int(s), set()).add(owner[ci])
+    for s in leaf_slots:
+        consumers_of_slot.setdefault(int(s), set()).update(range(n_sh))
+
+    # Per-(wave, shard) lane tables and export sets.
+    sched_sh = np.full((n_sh, num_waves, Wn), -1, np.int64)
+    for wi, w in enumerate(waves):
+        fill = [0] * n_sh
+        for ci in w:
+            sh = owner[ci]
+            sched_sh[sh, wi, fill[sh]] = ci
+            fill[sh] += 1
+    exports: List[List[List[int]]] = [
+        [[] for _ in range(num_waves)] for _ in range(n_sh)]
+    for wi, w in enumerate(waves):
+        for ci in w:
+            sh = owner[ci]
+            if consumers_of_slot.get(out_slots[ci], set()) - {sh}:
+                exports[sh][wi].append(ci)
+    X_max = max((len(exports[sh][wi]) for sh in range(n_sh)
+                 for wi in range(num_waves)), default=0)
+    X = max(X_max, 1)
+    # exp_slots[w]: the slot of every entry of the gathered exports, shard
+    # by shard (padding: the scratch slot).
+    exp_slots = np.full((num_waves, n_sh * X), scratch_slot, np.int64)
+    exp_src = np.full((n_sh, num_waves, X), scratch_slot, np.int64)
+    for sh in range(n_sh):
+        for wi in range(num_waves):
+            for k, ci in enumerate(exports[sh][wi]):
+                exp_src[sh, wi, k] = out_slots[ci]
+                exp_slots[wi, sh * X + k] = out_slots[ci]
+
+    shards = []
+    for sh, d in enumerate(shard_devs):
+        shard = _Shard(d, num_slots, meta["payload_shape"], meta["dtype"],
+                       leaf_slots)
+        shard.waves = [groups_of([int(ci) for ci in sched_sh[sh, wi]
+                                  if ci >= 0], d)
+                       for wi in range(num_waves)]
+        shard.exp_src = [shard.long(exp_src[sh, wi])
+                         for wi in range(num_waves)]
+        shard.exp_dst = [shard.long(exp_slots[wi])
+                         for wi in range(num_waves)]
+        shards.append(shard)
+
+    exported = {ci for sh in range(n_sh) for wi in range(num_waves)
+                for ci in exports[sh][wi]}
+    viz = {"mode": "sharded_static", "n_sh": n_sh,
+           "waves": [{sh: [(ci, fused[ci][4], out_slots[ci], ci in exported)
+                           for ci in map(int, sched_sh[sh, wi]) if ci >= 0]
+                      for sh in range(n_sh)}
+                     for wi in range(num_waves)]}
+    return ShardedTorchDAG(
+        mesh=mesh, mesh_axis=mesh_axis, shards=shards,
+        scratch_slot=scratch_slot, export_width=X_max, lanes_per_shard=Wn,
+        num_waves=num_waves, wave_width=Wn * n_sh, viz=viz, **meta)
+
+
+def _sharded_dynamic(mesh, mesh_axis, shard_devs, frontier_width, indeg0,
+                     edges, out_slots, compact_producer, leaf_slots,
+                     scratch_slot, num_slots, groups_of, meta, viz
+                     ) -> ShardedTorchDAG:
+    """The mesh-sharded dynamic frontier: task ``ci`` is owned by shard
+    ``ci // Cn`` (contiguous blocks padded to ``C_pad = Cn * n_sh``; the
+    padding tasks are born done); the in-degree vector and the done mask
+    are replicated, one copy per shard."""
+    n_sh = len(shard_devs)
+    C = len(out_slots)
+    Cn = -(-C // n_sh)
+    C_pad = Cn * n_sh
+    F = frontier_width or min(Cn, 32)
+    F = max(1, min(int(F), Cn))
+    out_ext = [scratch_slot] * (C_pad + 1)
+    out_ext[:C] = out_slots           # index C_pad: a dummy -> scratch
+    indeg0_pad = list(indeg0) + [0] * (C_pad - C)
+    done0_pad = [False] * C + [True] * (C_pad - C)
+    # Shard-partitioned graphs (every edge inside its owner's block) move
+    # only ids per iteration and replicate the leaves once at the end.
+    cross_payload = any((s // Cn) != (d // Cn) for s, d in zip(*edges))
+    leaf_prod = [compact_producer.get(int(s)) for s in leaf_slots]
+    leaf_owner = [(p // Cn if p is not None else 0) for p in leaf_prod]
+    mask_shape = (len(leaf_slots),) + (1,) * len(meta["payload_shape"])
+
+    shards = []
+    for sh, d in enumerate(shard_devs):
+        shard = _Shard(d, num_slots, meta["payload_shape"], meta["dtype"],
+                       leaf_slots)
+        shard.groups = groups_of(list(range(sh * Cn, min(C, (sh + 1) * Cn))),
+                                 d, lane_base=sh * Cn)
+        shard.my_ids = shard.long(range(sh * Cn, (sh + 1) * Cn))
+        shard.out_ext = shard.long(out_ext)
+        shard.indeg0 = torch.tensor(indeg0_pad, dtype=torch.int32, device=d)
+        shard.indeg = shard.indeg0.clone()
+        shard.done0 = torch.tensor(done0_pad, dtype=torch.bool, device=d)
+        shard.done = shard.done0.clone()
+        shard.e_src = shard.long(edges[0])
+        shard.e_dst = shard.long(edges[1])
+        shard.leaf_mask = torch.tensor(
+            [o == sh for o in leaf_owner], device=d).reshape(mask_shape)
+        shards.append(shard)
+
+    viz = dict(viz, frontier_width=F)
+    return ShardedTorchDAG(
+        mesh=mesh, mesh_axis=mesh_axis, shards=shards,
+        scratch_slot=scratch_slot, export_width=F if cross_payload else 0,
+        lanes_per_shard=Cn, num_waves=0, wave_width=C, viz=viz,
+        frontier=dict(F=F, C_pad=C_pad, cross_payload=cross_payload),
+        **meta)

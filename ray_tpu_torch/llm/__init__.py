@@ -11,8 +11,9 @@ the engine side of disaggregated prefill/decode.
   chunked prefill, recompute eviction, adoption of sequences prefilled
   elsewhere.
 - ``InferenceEngine`` (engine.py): the prefill-chunk/decode step loop
-  with streaming per-request token queues; ``spec_k``/``draft_model``
-  arm speculative decoding; ``hold_after_prefill`` and
+  with streaming per-request token queues; ``tp_size`` serves
+  tensor-parallel over a one-controller mesh (the pool held per shard);
+  ``spec_k``/``draft_model`` arm speculative decoding; ``hold_after_prefill`` and
   ``begin_adopted``/``adopt_kv``/``commit_adopted`` are the two halves
   of a disaggregated hop (the servers of ``llm/disagg.py`` are not
   ported).

@@ -38,9 +38,18 @@ keeps its argmaxes on the device (``torch.argmax`` returns the first
 maximal index, as ``np.argmax`` does) and syncs once, for the proposals
 and the verify argmaxes together.
 
-Not ported yet: tensor parallelism (``tp_size > 1``), the servers of
-``llm/disagg.py``, and the tracing and flight-recorder hooks (the
-``llm.kv_ship`` span among them), which import the ``ray_tpu`` runtime.
+Tensor parallelism (``tp_size > 1``): the engine builds a tp-only mesh
+over the first ``tp_size`` visible devices (``parallel.visible_devices``
+of ``config.device``'s type: the CUDA devices, or virtual shards of one
+device under ``RAY_TPU_TORCH_VIRTUAL_DEVICES``), cuts the parameters by
+``param_specs`` and the KV pool along ``n_kv_heads``, and runs both
+programs tensor-parallel (``models/transformer.py``), the host-side
+scheduler and block manager unchanged. Speculative decoding under
+``tp_size > 1`` raises, as in the reference.
+
+Not ported yet: the servers of ``llm/disagg.py``, and the tracing and
+flight-recorder hooks (the ``llm.kv_ship`` span among them), which
+import the ``ray_tpu`` runtime.
 """
 
 from __future__ import annotations
@@ -70,10 +79,13 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     decode_step,
     init_params,
+    param_specs,
     prefill_chunk,
     serving_params,
     verify_step,
 )
+from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, visible_devices
+from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
 
 __all__ = ["EngineConfig", "InferenceEngine"]
 
@@ -98,7 +110,7 @@ class EngineConfig:
     param_seed: int = 0
     cache_dtype: Any = None            # default: model dtype
     enable_prefix_caching: bool = True  # COW shared prefix blocks
-    tp_size: int = 1                   # only 1 is ported
+    tp_size: int = 1                   # tensor-parallel mesh width
     # Speculative decoding: the draft proposes spec_k tokens per round and
     # the flagship verifies them in one verify_step. spec_k=0 or
     # draft_model=None disarms it (vanilla decode). Greedy only: a round
@@ -129,21 +141,26 @@ class InferenceEngine:
                  params: Optional[dict] = None,
                  draft_params: Optional[dict] = None):
         self.config = config or EngineConfig()
-        if self.config.tp_size > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (tp_size > 1)")
         self.device = resolve_device(self.config.device)
         self.model_cfg = self.config.resolved_model()
         if params is None:
             params = init_params(self.model_cfg, self.config.param_seed,
                                  device=self.device)
-        # One cast to the serving dtype instead of one per call (exact).
-        self.params = serving_params(params, self.model_cfg, self.device)
+        self.mesh = None
+        self._rules = None
+        if self.config.tp_size > 1:
+            self.mesh, self._rules = self._build_tp_mesh(
+                self.config.tp_size, self.config.device)
+            self.device = self.mesh.devices.flat[0]
+            self.params = self._shard_params(params, self._rules)
+        else:
+            # One cast to the serving dtype instead of one per call (exact).
+            self.params = serving_params(params, self.model_cfg, self.device)
         self.cache = PagedKVCache(
             self.model_cfg, self.config.num_blocks, self.config.block_size,
             dtype=self.config.cache_dtype,
             enable_prefix_caching=self.config.enable_prefix_caching,
-            device=self.device)
+            device=self.device, mesh=self.mesh, rules=self._rules)
         self.scheduler = Scheduler(
             self.cache,
             max_num_seqs=self.config.max_num_seqs,
@@ -154,6 +171,10 @@ class InferenceEngine:
         self._spec_armed = (self.config.spec_k > 0
                             and self.config.draft_model is not None)
         if self._spec_armed:
+            if self.config.tp_size > 1:
+                raise ValueError(
+                    "speculative decoding is not supported with tp_size "
+                    "> 1 (the draft aux pool is unsharded)")
             self.draft_cfg = self.config.draft_model
             if draft_params is None:
                 draft_params = init_params(self.draft_cfg,
@@ -184,6 +205,33 @@ class InferenceEngine:
         self.spec_fallback_rounds = 0    # rounds vanilla-decoded instead
         # Per-request TTFT decomposition records, bounded.
         self._timings: "deque" = deque(maxlen=2048)
+
+    # ------------------------------------------------------ tensor parallel
+    @staticmethod
+    def _build_tp_mesh(tp: int, device="cuda"):
+        """A tp-only mesh over the first ``tp`` visible devices of
+        ``device``'s type (every other axis size 1, so the default
+        ShardingRules apply unchanged)."""
+        devices = visible_devices(torch.device(device).type)
+        if len(devices) < tp:
+            raise ValueError(
+                f"tp_size {tp} exceeds {len(devices)} visible devices")
+        mesh = make_mesh(MeshConfig(dp=1, fsdp=1, pp=1, tp=tp, sp=1, ep=1),
+                         devices=devices[:tp])
+        return mesh, ShardingRules()
+
+    def _shard_params(self, params, rules):
+        """The per-shard serving trees: cut by ``param_specs``, each cast
+        once to the serving dtype."""
+        cfg = self.model_cfg
+        if cfg.n_heads % self.config.tp_size or \
+                cfg.n_kv_heads % self.config.tp_size:
+            raise ValueError(
+                f"n_heads {cfg.n_heads} / n_kv_heads {cfg.n_kv_heads} "
+                f"must divide tp_size {self.config.tp_size}")
+        shards = shard_params(params, self.mesh, param_specs(cfg, rules))
+        return [serving_params(p, cfg, d)
+                for p, d in zip(shards, self.mesh.devices.flat)]
 
     # ------------------------------------------------------------ lifecycle
     def _ensure_loop(self):
@@ -560,7 +608,8 @@ class InferenceEngine:
             self._upload(a) for a in (tokens, starts, lens, bt))
         logits, self.cache.data = prefill_chunk(
             self.model_cfg, self.params, self.cache.data,
-            tokens_t, starts_t, lens_t, bt_t)
+            tokens_t, starts_t, lens_t, bt_t, mesh=self.mesh,
+            rules=self._rules)
         if self._spec_armed:
             # The draft's KV rides the same chunk plan into its aux pool,
             # so the first spec round can draft at once.
@@ -601,7 +650,8 @@ class InferenceEngine:
         bt[:len(reqs), :tables.shape[1]] = tables
         logits, self.cache.data = decode_step(
             self.model_cfg, self.params, self.cache.data,
-            self._upload(tokens), self._upload(positions), self._upload(bt))
+            self._upload(tokens), self._upload(positions), self._upload(bt),
+            mesh=self.mesh, rules=self._rules)
         self._emit(reqs, logits.cpu().numpy()[:len(reqs)])
 
     def _run_spec_decode(self, reqs: List[Request]):
@@ -732,6 +782,7 @@ class InferenceEngine:
     def stats(self) -> Dict[str, Any]:
         out = {
             "device": str(self.device),
+            "tp_size": self.config.tp_size,
             "steps": self.num_steps,
             "prefill_tokens": self.num_prefill_tokens,
             "generated_tokens": self.num_generated_tokens,

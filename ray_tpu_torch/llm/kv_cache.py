@@ -26,6 +26,14 @@ Aux pools (the speculative-decoding draft cache) ride the same block
 tables: one host-side manager, several device pools. Every event that
 moves bytes (COW copy, export, graft) covers every pool.
 
+Under tensor parallelism (``mesh=``) the pool is held per shard: ``data``
+is the list of per-shard ``{"k", "v"}`` pools, each with the
+``n_kv_heads / tp`` KV heads of its shard on its device
+(``kv_cache_specs``). Block ids stay global and the host bookkeeping is
+unchanged; a COW copy, an export or a graft covers every shard (an
+export joins the shards' heads, a graft splits them). Aux pools are not
+supported under a mesh, as in the reference.
+
 Export and graft (disaggregated serving) differ from the reference in
 two places. The reference gathers outside the lock against a snapshot of
 immutable JAX arrays; here the step loop updates the pools in place, so
@@ -46,6 +54,7 @@ import torch
 
 from ray_tpu_torch.exceptions import KVCacheOOM
 from ray_tpu_torch.models.transformer import init_kv_cache
+from ray_tpu_torch.parallel.sharding import kv_cache_specs, shard_params
 
 __all__ = ["KVCacheOOM", "PagedKVCache", "chain_digests"]
 
@@ -83,15 +92,23 @@ class PagedKVCache:
 
     def __init__(self, model_cfg, num_blocks: int, block_size: int,
                  dtype=None, *, enable_prefix_caching: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None, rules=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is NULL)")
         self.model_cfg = model_cfg
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.enable_prefix_caching = bool(enable_prefix_caching)
-        self.data = init_kv_cache(model_cfg, num_blocks, block_size,
-                                  dtype, device=device)
+        self.mesh = mesh
+        if mesh is None:
+            self.data = init_kv_cache(model_cfg, num_blocks, block_size,
+                                      dtype, device=device)
+        else:
+            # Cut along n_kv_heads, each shard's heads on its device.
+            self.data = shard_params(
+                init_kv_cache(model_cfg, num_blocks, block_size, dtype,
+                              device="cpu"),
+                mesh, kv_cache_specs(rules))
         # LIFO free list, block 0 reserved as NULL.
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self._tables: Dict[int, List[int]] = {}
@@ -321,6 +338,11 @@ class PagedKVCache:
         self.cow_copies += 1  # allocated/freed/peak contract balanced
         return new
 
+    def _main_pools(self) -> List[Dict[str, torch.Tensor]]:
+        """The main pool's per-shard ``{"k", "v"}`` dicts (one without a
+        mesh)."""
+        return self.data if self.mesh is not None else [self.data]
+
     def _copy_block_data(self, src: int, dst: int) -> None:
         """Device-side block copy (K and V, all layers, every pool), in
         place on the pool tensors. The reference jits this with the pool
@@ -329,7 +351,7 @@ class PagedKVCache:
         pointing at the donor block would read another sequence's
         context."""
         with torch.no_grad():
-            for pools in (self.data, *self._aux.values()):
+            for pools in (*self._main_pools(), *self._aux.values()):
                 for name in ("k", "v"):
                     pool = pools[name]
                     pool[:, dst] = pool[:, src]
@@ -379,6 +401,9 @@ class PagedKVCache:
         spec-decode draft cache) that rides this manager's block tables.
         Aux pools are copied on COW, packed by ``export_blocks`` and
         written by ``graft_blocks``."""
+        if self.mesh is not None:
+            raise ValueError("aux pools are not supported under tensor "
+                             "parallelism")
         device = self.data["k"].device
         with self._lock:
             if name in self._aux:
@@ -413,12 +438,19 @@ class PagedKVCache:
             }
             if blocks:
                 # The pools change in place under the step loop: gather
-                # (a copy) under the lock.
-                idx = torch.tensor(blocks, dtype=torch.long,
-                                   device=self.data["k"].device)
-                gathered = [
-                    {n: p[n].index_select(1, idx) for n in ("k", "v")}
-                    for p in (self.data, *self._aux.values())]
+                # (a copy) under the lock; a sharded pool's heads join.
+                def gather(pools):
+                    out = {}
+                    for n in ("k", "v"):
+                        parts = [p[n].index_select(1, torch.tensor(
+                            blocks, dtype=torch.long, device=p[n].device))
+                            for p in pools]
+                        out[n] = parts[0] if len(parts) == 1 else torch.cat(
+                            [t.to(parts[0].device) for t in parts], dim=3)
+                    return out
+
+                gathered = [gather(self._main_pools())] + [
+                    gather([p]) for p in self._aux.values()]
             self.blocks_exported += len(blocks)
         if blocks:
             host = [{n: t.cpu() for n, t in g.items()} for g in gathered]
@@ -459,18 +491,23 @@ class PagedKVCache:
                         f"graft target block {b} is shared or "
                         f"registered: grafting would corrupt another "
                         f"sequence's context")
-            idx = torch.tensor(dst, dtype=torch.long,
-                               device=self.data["k"].device)
-            pairs = [(self.data, payload)] + [
-                (self._aux[a], p) for a, p in payload.get("aux", {}).items()
+            pairs = [(self._main_pools(), payload)] + [
+                ([self._aux[a]], p) for a, p in payload.get("aux", {}).items()
                 if a in self._aux]
             with torch.no_grad():
-                for pool, part in pairs:
+                for pools, part in pairs:
                     for name in ("k", "v"):
                         src = part[name][:, off:off + len(dst)]
-                        pool[name].index_copy_(1, idx, src.to(
-                            device=pool[name].device,
-                            dtype=pool[name].dtype))
+                        heads = 0   # a sharded pool takes its own heads
+                        for pool in pools:
+                            t = pool[name]
+                            width = t.shape[3]
+                            piece = src[:, :, :, heads:heads + width]
+                            idx = torch.tensor(dst, dtype=torch.long,
+                                               device=t.device)
+                            t.index_copy_(1, idx, piece.to(device=t.device,
+                                                           dtype=t.dtype))
+                            heads += width
             self.blocks_grafted += len(dst)
             return len(dst)
 

@@ -1,6 +1,7 @@
 """Flagship model of the PyTorch/CUDA port (counterpart of
 ``ray_tpu/models``): the decoder's serving and one-card training paths,
-dense or MoE (the reference's dense fallback), and the
+dense or MoE (the reference's dense fallback), tensor-parallel serving
+over a one-controller mesh (``param_specs``), and the
 speculative-decoding draft helpers."""
 
 from ray_tpu_torch.models.convert import params_from_jax
@@ -13,6 +14,7 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     loss_fn,
     make_train_step,
+    param_specs,
     prefill_chunk,
     prefill_with_cache,
     serving_params,
@@ -28,6 +30,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "make_train_step",
+    "param_specs",
     "params_from_jax",
     "prefill_chunk",
     "prefill_with_cache",

@@ -1,10 +1,11 @@
-"""Flagship decoder-only transformer: training on one card and serving
-(counterpart of ``ray_tpu/models/transformer.py``).
+"""Flagship decoder-only transformer: training on one card and serving,
+on one device or tensor-parallel (counterpart of
+``ray_tpu/models/transformer.py``).
 
-Dense and MoE models on one device: an MoE layer takes the reference's
-dense fallback (every expert on every token, the top-1 expert's output
-kept, scaled by its gate); the expert-parallel ``ep`` axis waits for the
-multi-axis step. The parameter tree keeps the reference's key names and
+Dense and MoE models: an MoE layer takes the reference's dense fallback
+(every expert on every token, the top-1 expert's output kept, scaled by
+its gate); the expert-parallel ``ep`` axis waits for the multi-axis step
+(ROADMAP A.2, A.4). The parameter tree keeps the reference's key names and
 stacked ``[L, ...]`` layer layout, so weights convert one to one
 (``models/convert.py``). Activations are
 ``[B, S, H, Dh]`` inside the model; the KV pool is ``[L, num_blocks,
@@ -27,7 +28,8 @@ Differences from the JAX reference, none of which change results:
   run under ``torch.no_grad``.
 - ``make_train_step`` is the one-device counterpart of
   ``make_spmd_train_step``: no mesh, so no gradient sync and no
-  collectives; ``torch.optim.AdamW`` with optax.adamw's defaults updates
+  collectives (the multi-axis step is ROADMAP A.4);
+  ``torch.optim.AdamW`` with optax.adamw's defaults updates
   the f32 master parameters in place. A leaf that no layer uses (the dense
   MLP of a model whose every layer is MoE) gets a zero gradient, so AdamW
   decays it as optax does.
@@ -43,6 +45,22 @@ Differences from the JAX reference, none of which change results:
   for TPU-tileable lengths (S a multiple of 128), a rule the CUDA kernels
   do not need because they mask ragged lengths. CPU tensors take the
   dense grouped einsum, the reference's path off the TPU.
+- Tensor parallelism (``mesh=``/``rules=`` of ``prefill_chunk``,
+  ``verify_step`` and ``decode_step``): the reference constrains
+  activations and lets GSPMD insert the collectives; here the Megatron
+  recipe is explicit, shard by shard, over the tp axis of a
+  one-controller mesh (``ray_tpu_torch.parallel``). ``params`` is then
+  the list of per-shard trees that ``shard_params`` cuts by
+  ``param_specs`` and ``cache`` the list of per-shard pools
+  (``kv_cache_specs``). The embedding is vocab-parallel (each shard looks
+  up the tokens of its vocab slice, zeros elsewhere, and an ``allreduce``
+  sums them, exactly); q/k/v are column-parallel, each shard attending
+  with its own heads over its own pool; ``wo``, ``w_down`` and the
+  experts' ``e_down`` are row-parallel, each followed by an
+  ``allreduce`` of the partial products (another summation order than
+  one device's); ``lm_head`` is vocab-parallel and the logits are
+  allgathered. The other mesh axes must have size 1 (the reference's
+  engine builds a tp-only mesh).
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.collective.ops import allgather, allreduce
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -66,6 +85,7 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
     paged_attention_prefill,
 )
+from ray_tpu_torch.parallel.sharding import ShardingRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +155,37 @@ def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def param_specs(cfg: TransformerConfig,
+                rules: Optional[ShardingRules] = None) -> Dict[str, Any]:
+    """Spec tree matching ``init_params`` (the reference's, entry for
+    entry). Layer weights carry the leading stacked-layer axis (on pp when
+    a pipeline mesh is used, else a size-1 axis); 2-D weights shard their
+    wide axis on tp and the other on fsdp (ZeRO-3)."""
+    r = rules or ShardingRules()
+    st, tp, fs = r.stage, r.mlp, r.fsdp_shard
+    layers = {
+        "attn_norm": (st, None),
+        "wq": (st, fs, tp), "wk": (st, fs, tp), "wv": (st, fs, tp),
+        "wo": (st, tp, fs),
+        "mlp_norm": (st, None),
+        "w_gate": (st, fs, tp), "w_up": (st, fs, tp),
+        "w_down": (st, tp, fs),
+    }
+    if cfg.num_experts:
+        layers.update({
+            "router": (st, None, None),
+            "e_gate": (st, r.expert, None, tp),
+            "e_up": (st, r.expert, None, tp),
+            "e_down": (st, r.expert, tp, None),
+        })
+    return {
+        "embed": (r.vocab, None),
+        "layers": layers,
+        "final_norm": (None,),
+        "lm_head": (fs, r.vocab),
+    }
 
 
 def serving_params(params: Dict[str, Any], cfg: TransformerConfig,
@@ -251,6 +302,15 @@ def _moe_dense(cfg, lp, h):
     on every token, the top-1 expert's rows are kept, scaled by its gate
     cast to ``cfg.dtype``. The expert products are plain batched products
     (no Pallas kernel in the reference either)."""
+    kept, gate = _moe_kept(cfg, lp, h)
+    return (kept * gate[:, None]).reshape(h.shape)
+
+
+def _moe_kept(cfg, lp, h):
+    """Every expert on every token over h [B, S, D]: (the top-1 expert's
+    rows [B*S, D], its gate [B*S] in ``cfg.dtype``). Under tensor
+    parallelism the rows are this shard's partial sums over its d_ff
+    slice, summed across shards before the gate scales them."""
     dt = cfg.dtype
     B, S, D = h.shape
     E = cfg.num_experts
@@ -261,7 +321,12 @@ def _moe_dense(cfg, lp, h):
     g = torch.einsum("ecd,edf->ecf", toks, lp["e_gate"].to(dt))
     u = torch.einsum("ecd,edf->ecf", toks, lp["e_up"].to(dt))
     outs = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["e_down"].to(dt))
-    return (outs[top, rows] * gate[:, None]).reshape(B, S, D)
+    return outs[top, rows], gate
+
+
+def _is_moe_layer(cfg, layer_idx) -> bool:
+    return bool(cfg.num_experts) and (layer_idx % cfg.moe_every
+                                      == cfg.moe_every - 1)
 
 
 def _mlp_block(cfg, lp, h, layer_idx):
@@ -269,8 +334,7 @@ def _mlp_block(cfg, lp, h, layer_idx):
     experts, layer ``i`` is MoE when ``i % moe_every == moe_every - 1``
     (every layer when ``moe_every == 1``, which never runs the dense
     branch), else the dense SwiGLU."""
-    if cfg.num_experts and (layer_idx % cfg.moe_every
-                            == cfg.moe_every - 1):
+    if _is_moe_layer(cfg, layer_idx):
         return _moe_dense(cfg, lp, h)
     return _swiglu(cfg, lp, h)
 
@@ -413,22 +477,25 @@ def prefill_with_cache(cfg: TransformerConfig, params, cache, tokens,
 
 @torch.no_grad()
 def prefill_chunk(cfg: TransformerConfig, params, cache, tokens, start_pos,
-                  chunk_lens, block_tables
+                  chunk_lens, block_tables, mesh=None, rules=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process one chunk of each prompt against the paged cache: tokens
     [B, C] start at absolute position start_pos[b] and attend everything
     already cached plus the chunk itself. Returns (logits [B, vocab] f32
-    at the chunk's last valid position, cache)."""
-    x = _chunk_scan(cfg, params, cache, tokens, start_pos, block_tables)
-    B = x.shape[0]
-    last_idx = (chunk_lens.long().to(x.device) - 1).clamp(min=0)
-    last = x[torch.arange(B, device=x.device), last_idx]
-    return (last @ params["lm_head"].to(cfg.dtype)).float(), cache
+    at the chunk's last valid position, cache). With ``mesh`` the program
+    is tensor-parallel (module docstring): ``params`` and ``cache`` are
+    per-shard lists and the logits live on the first shard's device."""
+    sh = _Shards(mesh, rules, params, cache)
+    B = tokens.shape[0]
+    hs = _chunk_scan(cfg, sh, tokens, start_pos, block_tables)
+    lasts = [h[torch.arange(B, device=h.device), (n - 1).clamp(min=0)]
+             for h, n in zip(hs, sh.put(chunk_lens.long()))]
+    return sh.logits(cfg, lasts), cache
 
 
 @torch.no_grad()
 def verify_step(cfg: TransformerConfig, params, cache, tokens, start_pos,
-                block_tables
+                block_tables, mesh=None, rules=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Speculative-decode verify: advance each sequence by C tokens in one
     call and return the logits at every position, so the flagship scores
@@ -439,76 +506,181 @@ def verify_step(cfg: TransformerConfig, params, cache, tokens, start_pos,
     block_tables as in ``prefill_chunk``. Returns (logits [B, C, vocab]
     f32, cache). K/V of all C positions is written, rejected proposals
     included; the engine overwrites a rejected slot before any later step
-    attends over it."""
-    x = _chunk_scan(cfg, params, cache, tokens, start_pos, block_tables)
-    return (x @ params["lm_head"].to(cfg.dtype)).float(), cache
+    attends over it. ``mesh`` as in ``prefill_chunk``."""
+    sh = _Shards(mesh, rules, params, cache)
+    return sh.logits(cfg, _chunk_scan(cfg, sh, tokens, start_pos,
+                                      block_tables)), cache
 
 
-def _chunk_scan(cfg: TransformerConfig, params, cache, tokens, start_pos,
+def _chunk_scan(cfg: TransformerConfig, sh: "_Shards", tokens, start_pos,
                 block_tables):
     """Shared body of ``prefill_chunk`` and ``verify_step``: run a chunk
     through every layer against the paged cache, writing each position's
     K/V before it is attended; returns the final-normed hidden states
-    [B, C, D]."""
-    B, C = tokens.shape
-    dt = cfg.dtype
-    ck, cv = cache["k"], cache["v"]
-    block_size = ck.shape[2]
-    block_tables = block_tables.long()
+    [B, C, D], one per shard."""
+    C = tokens.shape[1]
+    block_size = sh.cache[0]["k"].shape[2]
     M = block_tables.shape[1]
-    x = params["embed"].to(dt)[tokens.long()]
-    positions = (start_pos.long().to(x.device)[:, None]
-                 + torch.arange(C, device=x.device)[None, :])    # [B, C]
-    blk = torch.gather(block_tables, 1,
-                       torch.clamp(positions // block_size, max=M - 1))
-    off = positions % block_size
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rms_norm(x, lp["attn_norm"])
-        q, k, v = _project_qkv(cfg, lp, h, positions)
+    tables = sh.put(block_tables.long())
+    positions = [s[:, None] + torch.arange(C, device=s.device)[None, :]
+                 for s in sh.put(start_pos.long())]               # [B, C]
+    blk = [torch.gather(t, 1, torch.clamp(p // block_size, max=M - 1))
+           for t, p in zip(tables, positions)]
+    off = [p % block_size for p in positions]
+
+    def attend(i, qs, ks, vs):
         # Write the chunk's K/V, then attend over [0, position] per token.
-        ck[i][blk, off] = k.to(ck.dtype)
-        cv[i][blk, off] = v.to(cv.dtype)
-        o = paged_attention_prefill(q, ck[i], cv[i], block_tables,
-                                    positions)
-        x = x + o.reshape(B, C, -1) @ lp["wo"].to(dt)
-        h = rms_norm(x, lp["mlp_norm"])
-        x = x + _mlp_block(cfg, lp, h, i)
-    return rms_norm(x, params["final_norm"])
+        for c, k, v, b, o in zip(sh.cache, ks, vs, blk, off):
+            c["k"][i][b, o] = k.to(c["k"].dtype)
+            c["v"][i][b, o] = v.to(c["v"].dtype)
+        return sh.attend(paged_attention_prefill, i, qs, tables, positions)
+
+    xs = sh.layers(cfg, sh.embed(cfg, tokens), positions, attend)
+    return [rms_norm(x, p["final_norm"]) for x, p in zip(xs, sh.params)]
 
 
 @torch.no_grad()
 def decode_step(cfg: TransformerConfig, params, cache, tokens, positions,
-                block_tables
+                block_tables, mesh=None, rules=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One continuous-batching iteration: each sequence advances by one
     token against its paged context.
 
     tokens [B] (the token at ``positions``); positions [B] (0-based);
     block_tables [B, M]. Padded rows carry position 0 and a NULL table.
-    Returns (logits [B, vocab] f32, cache)."""
-    B = tokens.shape[0]
-    dt = cfg.dtype
-    ck, cv = cache["k"], cache["v"]
-    block_size = ck.shape[2]
-    block_tables = block_tables.long()
-    x = params["embed"].to(dt)[tokens.long()][:, None]     # [B, 1, D]
-    positions = positions.long().to(x.device)
-    context_lens = positions + 1
-    blk = torch.gather(block_tables, 1,
-                       (positions // block_size)[:, None])[:, 0]
-    off = positions % block_size
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rms_norm(x, lp["attn_norm"])
-        q, k, v = _project_qkv(cfg, lp, h, positions[:, None])
+    Returns (logits [B, vocab] f32, cache). ``mesh`` as in
+    ``prefill_chunk``."""
+    sh = _Shards(mesh, rules, params, cache)
+    block_size = sh.cache[0]["k"].shape[2]
+    tables = sh.put(block_tables.long())
+    pos = sh.put(positions.long())
+    blk = [torch.gather(t, 1, (p // block_size)[:, None])[:, 0]
+           for t, p in zip(tables, pos)]
+    off = [p % block_size for p in pos]
+    context_lens = [p + 1 for p in pos]
+
+    def attend(i, qs, ks, vs):
         # Write this token's K/V, then attend over [0, positions].
-        ck[i][blk, off] = k[:, 0].to(ck.dtype)
-        cv[i][blk, off] = v[:, 0].to(cv.dtype)
-        o = paged_attention_decode(q[:, 0], ck[i], cv[i], block_tables,
-                                   context_lens)
-        x = x + o.reshape(B, 1, -1) @ lp["wo"].to(dt)
-        h = rms_norm(x, lp["mlp_norm"])
-        x = x + _mlp_block(cfg, lp, h, i)
-    x = rms_norm(x[:, 0], params["final_norm"])
-    return (x @ params["lm_head"].to(dt)).float(), cache
+        for c, k, v, b, o in zip(sh.cache, ks, vs, blk, off):
+            c["k"][i][b, o] = k[:, 0].to(c["k"].dtype)
+            c["v"][i][b, o] = v[:, 0].to(c["v"].dtype)
+        return sh.attend(paged_attention_decode, i, [q[:, 0] for q in qs],
+                         tables, context_lens)
+
+    xs = [x[:, None] for x in sh.embed(cfg, tokens)]          # [B, 1, D]
+    xs = sh.layers(cfg, xs, [p[:, None] for p in pos], attend)
+    return sh.logits(cfg, [rms_norm(x[:, 0], p["final_norm"])
+                           for x, p in zip(xs, sh.params)]), cache
+
+
+class _Shards:
+    """The shards one cached call runs on: the one device of ``params``
+    (no mesh), or the tp axis of ``mesh`` (``rules.heads``) with its
+    per-shard parameter trees and KV pools in the axis's order. One
+    layer body serves both; with one shard every collective is the
+    identity and the embedding a plain lookup, so the one-device program
+    is exactly the unsharded one."""
+
+    def __init__(self, mesh, rules, params, cache):
+        self.mesh, self.rules = mesh, rules
+        if mesh is None:
+            self.params, self.cache = [params], [cache]
+            self.devices = [params["embed"].device]
+            return
+        r = rules or ShardingRules()
+        axis = r.heads
+        if not isinstance(axis, str) or (r.kv_heads, r.mlp, r.vocab) != (
+                axis, axis, axis):
+            raise ValueError(
+                f"tensor-parallel programs shard heads, kv_heads, mlp and "
+                f"vocab over one mesh axis; rules give {r.heads!r}, "
+                f"{r.kv_heads!r}, {r.mlp!r}, {r.vocab!r}")
+        others = {a: n for a, n in mesh.shape.items() if a != axis and n > 1}
+        if others:
+            raise ValueError(f"tensor-parallel programs shard over {axis!r} "
+                             f"alone; mesh axes {others} must have size 1")
+        self.axis, self.rules = axis, r
+        self.devices = mesh.axis_devices(axis)
+        if len(params) != len(self.devices) or \
+                len(cache) != len(self.devices):
+            raise ValueError(
+                f"{len(params)} parameter shards and {len(cache)} pool "
+                f"shards for a tp axis of {len(self.devices)}")
+        self.params, self.cache = params, cache
+
+    def put(self, t: torch.Tensor):
+        """``t`` (a host-side index tensor) on every shard's device."""
+        return [t.to(d) for d in self.devices]
+
+    def allreduce(self, parts):
+        if self.mesh is None:
+            return parts
+        return allreduce(parts, self.mesh, self.axis)
+
+    def embed(self, cfg, tokens):
+        """The token embeddings, one copy per shard. Under a mesh the
+        lookup is vocab-parallel: each shard's rows for the tokens in its
+        vocab slice, zeros for the rest, summed across shards (exact: one
+        term of each sum is not zero)."""
+        if self.mesh is None:
+            return [self.params[0]["embed"].to(cfg.dtype)[
+                tokens.long().to(self.devices[0])]]
+        parts = []
+        for j, (p, tok) in enumerate(zip(self.params,
+                                         self.put(tokens.long()))):
+            table = p["embed"].to(cfg.dtype)
+            rows = table.shape[0]
+            local = tok - j * rows
+            hit = (local >= 0) & (local < rows)
+            found = table[local.clamp(0, rows - 1)]
+            parts.append(torch.where(hit[..., None], found, torch.zeros(
+                (), dtype=found.dtype, device=found.device)))
+        return self.allreduce(parts)
+
+    def attend(self, fn, i, qs, *rest):
+        """Paged attention ``fn`` of layer i over each shard's own heads
+        and pool: ``rest`` are per-shard lists (tables, positions)."""
+        ks = [c["k"][i] for c in self.cache]
+        vs = [c["v"][i] for c in self.cache]
+        if self.mesh is None:
+            return [fn(qs[0], ks[0], vs[0], *[r[0] for r in rest])]
+        return fn(qs, ks, vs, *rest, mesh=self.mesh, rules=self.rules)
+
+    def layers(self, cfg, xs, positions, attend):
+        """Every layer over the per-shard hidden states ``xs`` (replicated,
+        [B, S, D] each); ``attend(i, qs, ks, vs)`` writes layer i's K/V
+        into each shard's pool and returns each shard's attention output.
+        The row-parallel products (``wo``, ``w_down``, ``e_down``) are
+        summed across shards before the residual add. Returns the hidden
+        states after the last layer, before the final norm."""
+        dt = cfg.dtype
+        for i in range(cfg.n_layers):
+            lps = [_layer(p, i) for p in self.params]
+            qkv = [_project_qkv(cfg, lp, rms_norm(x, lp["attn_norm"]), pos)
+                   for lp, x, pos in zip(lps, xs, positions)]
+            outs = attend(i, *map(list, zip(*qkv)))
+            sums = self.allreduce([o.reshape(*x.shape[:2], -1)
+                                   @ lp["wo"].to(dt)
+                                   for o, x, lp in zip(outs, xs, lps)])
+            xs = [x + s for x, s in zip(xs, sums)]
+            hs = [rms_norm(x, lp["mlp_norm"]) for x, lp in zip(xs, lps)]
+            if _is_moe_layer(cfg, i):
+                kept = [_moe_kept(cfg, lp, h) for lp, h in zip(lps, hs)]
+                sums = self.allreduce([k for k, _ in kept])
+                xs = [x + (s * g[:, None]).reshape(x.shape)
+                      for x, s, (_, g) in zip(xs, sums, kept)]
+            else:
+                sums = self.allreduce([_swiglu(cfg, lp, h)
+                                       for lp, h in zip(lps, hs)])
+                xs = [x + s for x, s in zip(xs, sums)]
+        return xs
+
+    def logits(self, cfg, hs) -> torch.Tensor:
+        """``lm_head`` in f32, vocab-parallel under a mesh: each shard's
+        logit columns, allgathered onto the first shard's device."""
+        parts = [h @ p["lm_head"].to(cfg.dtype)
+                 for h, p in zip(hs, self.params)]
+        if self.mesh is None:
+            return parts[0].float()
+        return allgather(parts, self.mesh, self.axis,
+                         gather_axis=-1)[0].float()

@@ -395,8 +395,12 @@ def test_extra_dynamic_iterations_change_nothing():
 def test_what_waits_for_the_runtime_or_the_mesh_raises():
     with TORCH.InputNode() as inp:
         node = TORCH.ops["inc"].bind(inp)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        TORCH.compile(node, mesh=object())
+    # The mesh paths are ported: only an axis the mesh lacks raises.
+    from ray_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("dag",))
+    with pytest.raises(ValueError, match="no axis 'tp'"):
+        TORCH.compile(node, mesh=mesh, mesh_axis="tp")
     with pytest.raises(NotImplementedError, match="A.5"):
         node.experimental_compile(backend="actor")
     with pytest.raises(NotImplementedError, match="A.5"):
@@ -421,7 +425,8 @@ def test_port_import_loads_no_jax_and_no_ray_tpu():
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.dag, ray_tpu_torch.models\n"
-        "import ray_tpu_torch.remote_function\n"
+        "import ray_tpu_torch.remote_function, ray_tpu_torch.llm\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.collective\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu')]\n"
         "print(bad)\n"

@@ -237,8 +237,14 @@ def test_scheduler_waitqueue_bound():
 
 
 @pytest.mark.parametrize("over", [dict(tp_size=2)])
-def test_unported_engine_options_raise(params, over):
-    with pytest.raises(NotImplementedError):
+def test_unported_engine_options_raise(params, over, monkeypatch):
+    # Tensor parallelism is ported (tests/test_torch_tp.py); on one CPU
+    # with no virtual shards, tp_size 2 exceeds the visible devices and
+    # raises the reference's ValueError.
+    from ray_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
+
+    monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+    with pytest.raises(ValueError, match="exceeds 1 visible devices"):
         tllm.InferenceEngine(tllm.EngineConfig(
             model=PORT_MODEL, device="cpu", **ENGINE, **over),
             params=params[1])
