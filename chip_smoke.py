@@ -137,6 +137,27 @@ non-zero without printing a result. Without a CUDA card, or without the
    whose tp 1 top-two logit gap is below SPEC_TIE_TOL_BF16 (printed).
    Each shard's KV pool holds 1/tp of tp 1's bytes. Tokens/s and TTFT
    per tp are smoke readings.
+11. spmd_train: the manual multi-axis training step
+   (make_spmd_train_step) over 8 virtual shards of the card (make_mesh
+   over [cuda:0] * 8), the flagship at full width and depth on 8 x 2048
+   tokens: tests/test_transformer.py's meshes dp2-tp2-sp2, dp2-fsdp2-pp2
+   (2 microbatches) and MoE ep2-tp2-dp2, and the dry run's dense
+   dp2-pp2-tp2 and MoE dp2-sp2-ep2 (MoE: 8 experts, every second layer).
+   In f32 each mesh's SGD step equals one SGD step of the one-device
+   loss_fn's gradients (every shard's every leaf to SPMD_UPDATE_TOL, the
+   loss to SPMD_LOSS_TOL; MoE at capacity factor 16, nothing dropped),
+   and two planted faults read above the limit: a gradient sync that
+   skips dp (dp2-fsdp2-pp2, every leaf that moves) and a ring attention
+   whose causal mask ignores the sp offset (dp2-tp2-sp2). Then 3 bf16
+   AdamW steps on dp2-fsdp2-pp2 and ep2-tp2-dp2 (capacity factor 1.25):
+   finite, falling losses, the dense mesh's first loss within
+   TRAIN_LOSS_TOL_BF16 of one device's. Every run counts the K1/K3/K4
+   launches of a step by variant against the port's schedule: none under
+   sp > 1, the tensor cores on the bf16 dense meshes, and on the bf16 ep
+   mesh the tensor cores for layer 0 and the CUDA cores for layers 1-3
+   (the reference's f32 promotion, ROADMAP C.4). Smoke readings: step
+   time, host launches, peak memory, device idle share, bytes per
+   collective and the fraction of tokens dropped.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -168,6 +189,8 @@ try:
         RMS_TOL,
         RMS_TOL_CAST_FIRST,
         SPEC_SELF_ACCEPT_MIN_F32,
+        SPMD_LOSS_TOL,
+        SPMD_UPDATE_TOL,
         SPEC_TIE_TOL_BF16,
         TRAIN_LOSS_TOL_BF16,
         grad_row_error,
@@ -240,6 +263,24 @@ DAG_FAULT_WAVE = 1    # the fan-out wave whose exports the fault zeroes
 # Phase 10: tensor-parallel serving over virtual shards of the card.
 TP_SIZES = (1, 2, 4)
 TP_NUM_BLOCKS = 512
+# Phase 11: the manual multi-axis training step over 8 virtual shards of
+# the card, on 8 x 2048 tokens, which every mesh divides. name: (MoE?,
+# mesh axes, microbatches): tests/test_transformer.py's three meshes and
+# __graft_entry__.py's dry run's two at n = 8.
+SPMD_SHARDS = 8
+SPMD_BATCH, SPMD_LEN = 8, 2048
+SPMD_MESHES = {
+    "dp2-tp2-sp2": (False, dict(dp=2, tp=2, sp=2), 1),
+    "dp2-fsdp2-pp2": (False, dict(dp=2, fsdp=2, pp=2), 2),
+    "ep2-tp2-dp2": (True, dict(ep=2, tp=2, dp=2), 1),
+    "dp2-pp2-tp2": (False, dict(dp=2, pp=2, tp=2), 2),
+    "dp2-sp2-ep2": (True, dict(dp=2, sp=2, ep=2), 1),
+}
+SPMD_SGD_LR = 0.1          # the reference tests' optax.sgd(0.1)
+SPMD_PARITY_CF = 16.0      # no token dropped: the dense fallback is the oracle
+SPMD_BF16_MESHES = ("dp2-fsdp2-pp2", "ep2-tp2-dp2")
+SPMD_BF16_STEPS = 3
+SPMD_SYNC_FAULT_MESH, SPMD_RING_FAULT_MESH = "dp2-fsdp2-pp2", "dp2-tp2-sp2"
 # RMSNorm: a planted fault (one 64-row block of x zeroed in the plain
 # version) reads as large as the rows themselves. RMS_CAST_FIRST_SHAPE has
 # rows no multiple of the reference's 256-row block, so the reference's
@@ -1170,8 +1211,8 @@ def _grad_errors(grads, ref):
                 / ref[n].abs().max().clamp_min(1e-30)).item() for n in ref}
 
 
-def _profile_steps(step, inputs, targets):
-    """PROFILED_STEPS more bf16 steps under torch.profiler (device
+def _profile_steps(step, inputs, targets, steps=PROFILED_STEPS):
+    """``steps`` more bf16 steps under torch.profiler (device
     activity only, to keep host overhead out of the wall time): per step,
     the wall time, the device's kernel time (all kernels, the flash
     kernels, the rest), the device's idle share of the wall time, and the
@@ -1182,10 +1223,10 @@ def _profile_steps(step, inputs, targets):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
+        for _ in range(steps):
             step(inputs, targets)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"wall_ms_per_step": wall_ms,
@@ -1194,16 +1235,16 @@ def _profile_steps(step, inputs, targets):
     by_name = {}
     for e in kernels:
         by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3 / PROFILED_STEPS)
+                           + e.time_range.elapsed_us() / 1e3 / steps)
     busy = sum(by_name.values())
     flash = sum(ms for n, ms in by_name.items() if "flash_" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms,
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy,
             "flash_kernels_ms_per_step": flash,
             "other_kernels_ms_per_step": busy - flash,
             "device_idle_share": 1 - busy / wall_ms,
-            "kernels_per_step": len(kernels) / PROFILED_STEPS,
+            "kernels_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]}
 
 
@@ -2440,6 +2481,362 @@ def phase_tp(dev, card, base, lens, new_tokens):
     return results
 
 
+# ------------------------------------------------------- phase 11: spmd_train
+def _spmd_config(base, moe, dtype, capacity_factor=None):
+    cfg = dataclasses.replace(base, dtype=dtype)
+    if not moe:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_experts=MOE_EXPERTS, moe_every=MOE_EVERY,
+        capacity_factor=capacity_factor or cfg.capacity_factor)
+
+
+def _spmd_want(cfg, axes, mb):
+    """(_counts() of one sharded step in the port's schedule, forward
+    launches of the same step in the reference's). Under sp > 1 ring
+    attention is plain: no launch. Otherwise each shard runs each of its
+    stage's layers once per microbatch (pp > 1) or once; the layer's
+    variant follows its input's type: f32 takes the CUDA cores, bf16 the
+    tensor cores, and under ep a bf16 model's residual stream is f32 from
+    layer 1 on (ROADMAP C.4). The reference runs every stage on each of
+    its pp + M - 1 ticks."""
+    pp, L = axes.get("pp", 1), cfg.n_layers
+    runs = mb if pp > 1 else 1
+    n = {"wgmma": 0, "simt": 0}
+    reference = 0
+    if axes.get("sp", 1) == 1:
+        for i in range(L):
+            promoted = bool(cfg.num_experts) and axes.get("ep", 1) > 1 and i
+            variant = ("wgmma" if cfg.dtype == torch.bfloat16
+                       and not promoted else "simt")
+            n[variant] += (SPMD_SHARDS // pp) * runs
+        reference = SPMD_SHARDS * (L // pp) * (pp + mb - 1 if pp > 1 else 1)
+    total = n["wgmma"] + n["simt"]
+    return ({"fwd": total, **n, "dq": total, "dkv": total,
+             "dq_wgmma": n["wgmma"], "dkv_wgmma": n["wgmma"],
+             "dq_simt": n["simt"], "dkv_simt": n["simt"], "rms": 0},
+            reference)
+
+
+def _spmd_tokens(cfg, dev):
+    rng = np.random.default_rng(SEED + 11)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SPMD_BATCH, SPMD_LEN + 1))).to(dev)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _spmd_one_device(cfg, dev, inputs, targets):
+    """The oracle: one SGD step of the one-device loss_fn's gradients.
+    Returns (loss, min top-two router gap or None, p0, p_ref)."""
+    from ray_tpu_torch import models as tm
+
+    params = tm.init_params(cfg, SEED, device=dev)
+    seen = []
+    with _routes_recorded(seen):
+        loss, grads = _loss_and_grads(cfg, params, inputs, targets)
+    gap = min(float(g.min()) for _, g in seen) if seen else None
+    with torch.no_grad():
+        p0 = tm.init_params(cfg, SEED, device=dev)
+        p_ref = tm.init_params(cfg, SEED, device=dev)
+        for n, t in _named_leaves(p_ref):
+            t.sub_(SPMD_SGD_LR * grads[n])
+    del params, grads
+    torch.cuda.empty_cache()
+    return loss, gap, p0, p_ref
+
+
+def _spmd_errors(mesh, pspec, shards, p0, p_ref):
+    """Per leaf, the largest over shards of max(|p - p_ref| - ulp(p_ref))
+    over the largest move max|p_ref - p0| of that shard's block (each side
+    rounds p0 + its move to f32 once, so the two may land one ulp of the
+    parameter apart whatever their moves); the same without the ulp; and
+    per leaf the largest move."""
+    from ray_tpu_torch.parallel import shard_tensor
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k in tree for x in flat(tree[k], f"{prefix}{k}.")]
+        return [(prefix[:-1], tree)]
+
+    def leaf(tree, path):
+        for k in path.split("."):
+            tree = tree[k]
+        return tree
+
+    errs, raw, moves = {}, {}, {}
+    with torch.no_grad():
+        for path, spec in flat(pspec):
+            refs = shard_tensor(leaf(p_ref, path), mesh, spec)
+            bases = shard_tensor(leaf(p0, path), mesh, spec)
+            e, r_, m_ = [], [], []
+            for sh, r, b in zip(shards, refs, bases):
+                diff = (leaf(sh, path) - r).abs()
+                ulp = torch.nextafter(r.abs(), torch.full_like(r, np.inf)) \
+                    - r.abs()
+                move = (r - b).abs().max().clamp_min(1e-30)
+                e.append(((diff - ulp).clamp_min(0).max() / move).item())
+                r_.append((diff.max() / move).item())
+                m_.append(move.item())
+            errs[path], raw[path], moves[path] = max(e), max(r_), max(m_)
+    return errs, raw, moves
+
+
+@contextlib.contextmanager
+def _patched(target, name, value):
+    kept = getattr(target, name)
+    setattr(target, name, value)
+    try:
+        yield
+    finally:
+        setattr(target, name, kept)
+
+
+def _spmd_fault(kind):
+    """A planted fault. ``sync``: the gradient sync skips the dp axis.
+    ``ring``: ring attention's causal mask ignores each shard's sequence
+    offset (every block masked as the diagonal one)."""
+    import functools
+
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.parallel.mesh import AXES
+
+    if kind == "sync":
+        return _patched(tt, "_sync_grads", functools.partial(
+            tt._sync_grads, axes=tuple(a for a in AXES if a != "dp")))
+    # The package exports the function under the module's name.
+    ra = importlib.import_module("ray_tpu_torch.parallel.ring_attention")
+    bias = ra._causal_bias
+    return _patched(ra, "_causal_bias",
+                    lambda q, my, kv_shard, s_local: bias(q, 0, 0, s_local))
+
+
+def _spmd_parity(dev, cfg, name, oracle, inputs, targets, fault=None):
+    """One f32 SGD step of the sharded step on mesh ``name`` against the
+    oracle's: loss error, per-leaf errors, launches, peak memory."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.parallel import make_mesh, MeshConfig
+
+    _, axes, mb = SPMD_MESHES[name]
+    loss_ref, _, p0, p_ref = oracle
+    mesh = make_mesh(MeshConfig(**axes), devices=[dev] * SPMD_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    step, pspec, shards = tm.make_spmd_train_step(
+        cfg, mesh, p0, optimizer=lambda ls: torch.optim.SGD(
+            ls, lr=SPMD_SGD_LR), n_microbatches=mb)
+    _zero_counts()
+    with _spmd_fault(fault) if fault else contextlib.nullcontext():
+        loss = step(inputs, targets).item()
+    torch.cuda.synchronize()
+    counts = _counts()
+    errs, raw, moves = _spmd_errors(mesh, pspec, shards, p0, p_ref)
+    res = {"loss": loss, "loss_one_device": loss_ref,
+           "loss_err": abs(loss - loss_ref) / abs(loss_ref),
+           "update_err_by_leaf": errs, "update_err_raw_by_leaf": raw,
+           "update_by_leaf": moves,
+           "launches_per_step": counts,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del step, shards
+    torch.cuda.empty_cache()
+    return res
+
+
+def _spmd_drops(dropped):
+    """The model's moe_dispatch_combine, adding (tokens over their
+    expert's capacity, tokens routed) of every shard to ``dropped``."""
+    from ray_tpu_torch.models import transformer as tt
+
+    dispatch = tt.moe_dispatch_combine
+
+    def counting(xs, logits, expert_fn, **kw):
+        T, E = logits[0].shape
+        cap = max(1, int(kw["capacity_factor"] * T / E))
+        for lg in logits:
+            per_expert = torch.bincount(lg.argmax(-1), minlength=E)
+            dropped[0] += int((per_expert - cap).clamp(min=0).sum())
+            dropped[1] += T
+        return dispatch(xs, logits, expert_fn, **kw)
+
+    return counting
+
+
+@contextlib.contextmanager
+def _collective_bytes(tally):
+    """Adds the bytes each collective delivers (its per-shard outputs) to
+    tally[op] while it runs: the forward's exchanges (the backward's
+    transposes move as much again)."""
+    from ray_tpu_torch.collective import ops as cops
+
+    def wrap(op):
+        fn = getattr(cops, op)
+
+        def counted(xs, *a, **k):
+            out = fn(xs, *a, **k)
+            tally[op] = tally.get(op, 0) + sum(
+                o.numel() * o.element_size() for o in out)
+            return out
+        return counted
+
+    with contextlib.ExitStack() as stack:
+        for op in ("allreduce", "permute", "all_to_all"):
+            stack.enter_context(_patched(cops, op, wrap(op)))
+        yield tally
+
+
+def _spmd_bf16(dev, base, name, inputs, targets):
+    """SPMD_BF16_STEPS AdamW steps of the bf16 flagship on mesh ``name``
+    (the default capacity factor): losses, launches per step, the
+    fraction of tokens dropped, and smoke readings."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.parallel import make_mesh, MeshConfig
+
+    moe, axes, mb = SPMD_MESHES[name]
+    cfg = _spmd_config(base, moe, torch.bfloat16)
+    mesh = make_mesh(MeshConfig(**axes), devices=[dev] * SPMD_SHARDS)
+    params = tm.init_params(cfg, SEED, device=dev)
+    with torch.no_grad():
+        one_device = tm.loss_fn(cfg, params, inputs, targets).item()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, pspec, shards = tm.make_spmd_train_step(cfg, mesh, params,
+                                                  n_microbatches=mb)
+    del params
+    dropped = [0, 0]
+    losses, step_s = [], []
+    _zero_counts()
+    with _patched(tt, "moe_dispatch_combine", _spmd_drops(dropped)):
+        for _ in range(SPMD_BF16_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(inputs, targets).item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    tally = {}
+    with _collective_bytes(tally):
+        step(inputs, targets)
+    torch.cuda.synchronize()
+    profile = _profile_steps(step, inputs, targets, steps=1)
+    x_bytes = 2   # the bf16 residual stream of a dense pipeline
+    hop = (SPMD_BATCH // (axes.get("dp", 1) * axes.get("fsdp", 1)) // mb
+           * (SPMD_LEN // axes.get("sp", 1)) * cfg.d_model * x_bytes)
+    pp = axes.get("pp", 1)
+    if pp > 1:
+        groups = SPMD_SHARDS // pp
+        tally["pipeline_hops"] = groups * (pp - 1) * mb * hop
+        tally["pipeline_broadcast"] = groups * pp * mb * hop
+    per_step = {k: v // SPMD_BF16_STEPS for k, v in counts.items()}
+    res = {"losses": losses, "loss_one_device": one_device,
+           "first_loss_err": abs(losses[0] - one_device) / abs(one_device),
+           "step_s": step_s,
+           "step_ms_median": sorted(step_s)[len(step_s) // 2] * 1e3,
+           "launches_per_step": per_step,
+           "max_memory_allocated_bytes": peak,
+           "collective_bytes_per_step_forward": tally,
+           "profiled_step": profile,
+           "capacity_factor": cfg.capacity_factor if moe else None,
+           "dropped_fraction": (dropped[0] / dropped[1] if dropped[1]
+                                else None)}
+    del step, shards
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def phase_spmd_train(dev, card, base):
+    """Phase 11 (see the module docstring): the manual multi-axis step
+    over 8 virtual shards of the card."""
+    t_phase = time.perf_counter()
+    results = {"shards": SPMD_SHARDS, "tokens": [SPMD_BATCH, SPMD_LEN],
+               "meshes": {}, "tol": SPMD_UPDATE_TOL,
+               "loss_tol": SPMD_LOSS_TOL}
+    fails = []
+    # (a) f32 parity: each mesh's SGD step against one device's.
+    for moe in (False, True):
+        cfg = _spmd_config(base, moe, torch.float32, SPMD_PARITY_CF)
+        inputs, targets = _spmd_tokens(cfg, dev)
+        oracle = _spmd_one_device(cfg, dev, inputs, targets)
+        for name, (is_moe, axes, mb) in SPMD_MESHES.items():
+            if is_moe != moe:
+                continue
+            res = _spmd_parity(dev, cfg, name, oracle, inputs, targets)
+            want, ref_sched = _spmd_want(cfg, axes, mb)
+            res.update({"launches_want": want,
+                        "fwd_launches_reference_schedule": ref_sched,
+                        "smallest_top2_gap_one_device": oracle[1]})
+            results["meshes"][name] = {"f32": res}
+            bad = [n for n, e in res["update_err_by_leaf"].items()
+                   if not e <= SPMD_UPDATE_TOL]
+            if (bad or not res["loss_err"] <= SPMD_LOSS_TOL
+                    or res["launches_per_step"] != want):
+                fails.append(f"{name} f32: leaves {bad}, loss err "
+                             f"{res['loss_err']}, launches "
+                             f"{res['launches_per_step']} != {want}")
+            for fault, mesh_name in (("sync", SPMD_SYNC_FAULT_MESH),
+                                     ("ring", SPMD_RING_FAULT_MESH)):
+                if mesh_name != name:
+                    continue
+                f = _spmd_parity(dev, cfg, name, oracle, inputs, targets,
+                                 fault=fault)
+                errs = f["update_err_by_leaf"]
+                moved = [n for n, m in res["update_by_leaf"].items()
+                         if m > 1e-30]
+                missed = (not max(errs.values()) > SPMD_UPDATE_TOL
+                          or (fault == "sync" and not min(
+                              errs[n] for n in moved) > SPMD_UPDATE_TOL))
+                results["meshes"][name][f"planted_{fault}_fault"] = {
+                    "update_err_by_leaf": errs, "loss_err": f["loss_err"],
+                    "leaves_above_tol": sum(
+                        e > SPMD_UPDATE_TOL for e in errs.values()),
+                    "missed": missed}
+                if missed:
+                    fails.append(f"{name}: the planted {fault} fault reads "
+                                 f"{errs}")
+        del oracle
+        torch.cuda.empty_cache()
+        if fails:
+            emit({"phase": "spmd_train", "results": results})
+            raise AssertionError(f"sharded f32 steps: {fails}")
+    # (b) bf16 AdamW steps, the main path's type.
+    all_counts = {}
+    for name in SPMD_BF16_MESHES:
+        moe, axes, mb = SPMD_MESHES[name]
+        cfg = _spmd_config(base, moe, torch.bfloat16)
+        inputs, targets = _spmd_tokens(cfg, dev)
+        res, counts = _spmd_bf16(dev, base, name, inputs, targets)
+        want, ref_sched = _spmd_want(cfg, axes, mb)
+        res.update({"launches_want": want,
+                    "fwd_launches_reference_schedule": ref_sched})
+        results["meshes"][name]["bf16"] = res
+        all_counts[name] = counts
+        losses = res["losses"]
+        if (not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+                or res["launches_per_step"] != want
+                or any(v % SPMD_BF16_STEPS for v in counts.values())
+                or (not moe
+                    and not res["first_loss_err"] <= TRAIN_LOSS_TOL_BF16)):
+            fails.append(f"{name} bf16: losses {losses} (one device "
+                         f"{res['loss_one_device']}), launches "
+                         f"{res['launches_per_step']} != {want}")
+    emit({"phase": "spmd_train", "results": results,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if fails:
+        raise AssertionError(f"sharded bf16 steps: {fails}")
+    for name in SPMD_BF16_MESHES:
+        r = results["meshes"][name]["bf16"]
+        emit({"spmd_train_step_smoke_reading": name,
+              "tokens_per_step": SPMD_BATCH * SPMD_LEN,
+              "step_ms_median_of_3": r["step_ms_median"],
+              "host_launches_per_step": r["profiled_step"].get(
+                  "kernels_per_step"),
+              "device_idle_share": r["profiled_step"].get(
+                  "device_idle_share"),
+              "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
+              "collective_bytes_per_step_forward":
+                  r["collective_bytes_per_step_forward"],
+              "dropped_fraction": r["dropped_fraction"], "card": card})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2476,6 +2873,19 @@ def main() -> int:
     one_device_dag = phase_dag(dev, card)
     phase_dag_mesh(dev, card, one_device_dag)
     phase_tp(dev, card, flagship, ENGINE_LENS, 32)
+    spmd = phase_spmd_train(dev, card, flagship)
+    # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
+    # and dtype.
+    launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
+    for name, runs in spmd["meshes"].items():
+        for dtype, run in runs.items():
+            if dtype not in ("f32", "bf16"):
+                continue
+            c = run["launches_per_step"]
+            for kind, prefix in (("fwd", ""), ("dq", "dq_"),
+                                 ("dkv", "dkv_")):
+                launches_spmd[kind][f"{name} {dtype}"] = {
+                    v: c[prefix + v] for v in ("wgmma", "simt")}
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "
@@ -2502,6 +2912,7 @@ def main() -> int:
             "launches": model[name]["launches_per_prefill_by_variant"][
                 "wgmma"],
             "launches_train": train[name]["bf16_launches"]["wgmma"],
+            "launches_spmd": launches_spmd["fwd"],
             "max_abs_err": t["max_abs_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "tflops": t["tflops"],
@@ -2521,6 +2932,7 @@ def main() -> int:
         "route": "cuda", "variant": "simt", "source": simt_source,
         "replaces": replaces["mha"],
         "launches": train["mha"]["launches_per_pass"]["simt"],
+        "launches_spmd": launches_spmd["fwd"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2543,6 +2955,7 @@ def main() -> int:
                 "route": "cuda", "variant": variant, "source": source,
                 "replaces": replaces[kind],
                 "launches": launches_of[f"{kind}_{variant}"],
+                "launches_spmd": launches_spmd[kind],
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
                 "tflops": t["tflops"], "simt_kernel_ms": t["simt_kernel_ms"],

@@ -1,6 +1,7 @@
 """Collectives of the PyTorch/CUDA port (counterpart of
 ``ray_tpu/collective``, the in-program plane only): operations over the
-per-shard tensors of a mesh axis, driven by one process (ops.py). The
+per-shard tensors of a mesh axis, or of every group of a mesh along an
+axis, driven by one process (ops.py). The
 reference's out-of-program actor groups need the runtime (ROADMAP A.5).
 """
 
@@ -9,8 +10,10 @@ from ray_tpu_torch.collective.ops import (
     allgather,
     allreduce,
     axis_index,
+    axis_indices,
     axis_size,
     broadcast,
+    groups,
     permute,
     reducescatter,
     send_recv,
@@ -21,8 +24,10 @@ __all__ = [
     "allgather",
     "allreduce",
     "axis_index",
+    "axis_indices",
     "axis_size",
     "broadcast",
+    "groups",
     "permute",
     "reducescatter",
     "send_recv",

@@ -1,8 +1,9 @@
 """Flagship model of the PyTorch/CUDA port (counterpart of
 ``ray_tpu/models``): the decoder's serving and one-card training paths,
-dense or MoE (the reference's dense fallback), tensor-parallel serving
-over a one-controller mesh (``param_specs``), and the
-speculative-decoding draft helpers."""
+dense or MoE (the reference's dense fallback), the manual multi-axis
+training step over a one-controller mesh (``make_spmd_train_step``,
+with expert-parallel MoE), tensor-parallel serving over such a mesh
+(``param_specs``), and the speculative-decoding draft helpers."""
 
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.draft import draft_config, shift_params
@@ -13,11 +14,13 @@ from ray_tpu_torch.models.transformer import (
     init_kv_cache,
     init_params,
     loss_fn,
+    make_spmd_train_step,
     make_train_step,
     param_specs,
     prefill_chunk,
     prefill_with_cache,
     serving_params,
+    shard_params_for_step,
     verify_step,
 )
 
@@ -29,12 +32,14 @@ __all__ = [
     "init_kv_cache",
     "init_params",
     "loss_fn",
+    "make_spmd_train_step",
     "make_train_step",
     "param_specs",
     "params_from_jax",
     "prefill_chunk",
     "prefill_with_cache",
     "serving_params",
+    "shard_params_for_step",
     "shift_params",
     "verify_step",
 ]

@@ -1,15 +1,16 @@
-"""Flagship decoder-only transformer: training on one card and serving,
-on one device or tensor-parallel (counterpart of
-``ray_tpu/models/transformer.py``).
+"""Flagship decoder-only transformer: training on one card or over a
+mesh (the manual multi-axis step), and serving on one device or
+tensor-parallel (counterpart of ``ray_tpu/models/transformer.py``).
 
-Dense and MoE models: an MoE layer takes the reference's dense fallback
-(every expert on every token, the top-1 expert's output kept, scaled by
-its gate); the expert-parallel ``ep`` axis waits for the multi-axis step
-(ROADMAP A.2, A.4). The parameter tree keeps the reference's key names and
-stacked ``[L, ...]`` layer layout, so weights convert one to one
-(``models/convert.py``). Activations are
-``[B, S, H, Dh]`` inside the model; the KV pool is ``[L, num_blocks,
-block_size, n_kv_heads, head_dim]`` with block 0 as the NULL block.
+Dense and MoE models: without an ``ep`` axis an MoE layer takes the
+reference's dense fallback (every expert on every token, the top-1
+expert's output kept, scaled by its gate); the multi-axis step's ``ep``
+axis dispatches each token to its expert's shard (``parallel/moe.py``).
+The parameter tree keeps the reference's key names and stacked
+``[L, ...]`` layer layout, so weights convert one to one
+(``models/convert.py``). Activations are ``[B, S, H, Dh]`` inside the
+model; the KV pool is ``[L, num_blocks, block_size, n_kv_heads,
+head_dim]`` with block 0 as the NULL block.
 
 Differences from the JAX reference, none of which change results:
 
@@ -28,14 +29,30 @@ Differences from the JAX reference, none of which change results:
   run under ``torch.no_grad``.
 - ``make_train_step`` is the one-device counterpart of
   ``make_spmd_train_step``: no mesh, so no gradient sync and no
-  collectives (the multi-axis step is ROADMAP A.4);
-  ``torch.optim.AdamW`` with optax.adamw's defaults updates
+  collectives; ``torch.optim.AdamW`` with optax.adamw's defaults updates
   the f32 master parameters in place. A leaf that no layer uses (the dense
   MLP of a model whose every layer is MoE) gets a zero gradient, so AdamW
   decays it as optax does.
 - The reference selects an MoE layer's output with ``jnp.where`` on the
   traced layer index, computing both branches; here the layer index is a
-  Python int and only the kept branch runs (the same values).
+  Python int and only the kept branch runs (the same values). Under the
+  ``ep`` axis that ``where`` also sets the type: the MoE branch is f32
+  (the f32 gate times the experts' output), so every layer's output is
+  f32 and a bf16 model's residual stream is f32 from layer 1 on, as in
+  the reference (ROADMAP C.4). jnp promotes a mixed product; torch
+  refuses one, so each weight is promoted where the stream is wider
+  (``_wt``).
+- ``make_spmd_train_step`` runs the reference's ``shard_map`` program on
+  a one-controller mesh (``ray_tpu_torch.parallel``): one process holds
+  every shard's tensors, each layer runs over per-shard lists
+  (``_block``, the one layer body of every path: with one shard and no
+  collective it is the one-device layer op for op), and every collective
+  is an explicit op of ``ray_tpu_torch.collective`` whose autograd
+  backward is its ``lax`` transpose. Autograd of the sum of the shards'
+  losses gives each shard the gradient the reference's ``jax.grad``
+  gives it inside ``shard_map``. Its state lives in place, as in
+  ``make_train_step``: see its docstring for how its signature differs
+  from the reference's.
 - ``_attention_dense`` follows one rule, ``_attention_route`` of
   ``ops/flash_attention.py``: a head_dim that is no multiple of 8 takes
   the dense grouped einsum, as the reference does, each such call counted
@@ -73,6 +90,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.collective import ops as cops
 from ray_tpu_torch.collective.ops import allgather, allreduce
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (
@@ -85,7 +103,15 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
     paged_attention_prefill,
 )
-from ray_tpu_torch.parallel.sharding import ShardingRules
+from ray_tpu_torch.parallel.mesh import AXES, mesh_shape
+from ray_tpu_torch.parallel.moe import moe_dispatch_combine
+from ray_tpu_torch.parallel.pipeline import pipeline_spmd
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.sharding import (
+    ShardingRules,
+    shard_params,
+    shard_tensor,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,14 +295,25 @@ def _attention_einsum(q, k, v, causal=True):
     return o.reshape(B, S, Hq, Dh)
 
 
+def _wt(w, dt, x):
+    """Weight ``w`` cast to the model's dtype ``dt`` for a product with
+    ``x``, then promoted to x's dtype where that is wider: ``jnp`` promotes
+    a mixed product (a bf16 weight times the f32 residual stream of the
+    expert-parallel path, ROADMAP C.4), where torch refuses one. With x in
+    ``dt`` the cast is the plain ``.to(dt)``."""
+    w = w.to(dt)
+    return w if x.dtype == w.dtype else w.to(
+        torch.promote_types(x.dtype, w.dtype))
+
+
 def _project_qkv(cfg, lp, h, positions):
     """h [B, S, D] -> q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] with rope."""
     dt = cfg.dtype
     B, S, _ = h.shape
     Hd = cfg.head_dim
-    q = (h @ lp["wq"].to(dt)).reshape(B, S, -1, Hd)
-    k = (h @ lp["wk"].to(dt)).reshape(B, S, -1, Hd)
-    v = (h @ lp["wv"].to(dt)).reshape(B, S, -1, Hd)
+    q = (h @ _wt(lp["wq"], dt, h)).reshape(B, S, -1, Hd)
+    k = (h @ _wt(lp["wk"], dt, h)).reshape(B, S, -1, Hd)
+    v = (h @ _wt(lp["wv"], dt, h)).reshape(B, S, -1, Hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -284,9 +321,10 @@ def _project_qkv(cfg, lp, h, positions):
 
 def _swiglu(cfg, lp, h):
     dt = cfg.dtype
-    g = h @ lp["w_gate"].to(dt)
-    u = h @ lp["w_up"].to(dt)
-    return (F.silu(g) * u) @ lp["w_down"].to(dt)
+    g = h @ _wt(lp["w_gate"], dt, h)
+    u = h @ _wt(lp["w_up"], dt, h)
+    a = F.silu(g) * u
+    return a @ _wt(lp["w_down"], dt, a)
 
 
 def _moe_route(cfg, lp, h):
@@ -297,31 +335,48 @@ def _moe_route(cfg, lp, h):
     return probs, torch.argmax(probs, dim=-1)
 
 
-def _moe_dense(cfg, lp, h):
-    """The reference's dense fallback (no ``ep`` axis): every expert runs
-    on every token, the top-1 expert's rows are kept, scaled by its gate
-    cast to ``cfg.dtype``. The expert products are plain batched products
-    (no Pallas kernel in the reference either)."""
-    kept, gate = _moe_kept(cfg, lp, h)
-    return (kept * gate[:, None]).reshape(h.shape)
+def _experts(cfg, lp, toks):
+    """The SwiGLU of each expert over its tokens: toks [E, C, D] ->
+    [E, C, D] (this shard's d_ff slice under tensor parallelism). Plain
+    batched products, as in the reference (no Pallas kernel)."""
+    dt = cfg.dtype
+    g = torch.einsum("ecd,edf->ecf", toks, _wt(lp["e_gate"], dt, toks))
+    u = torch.einsum("ecd,edf->ecf", toks, _wt(lp["e_up"], dt, toks))
+    a = F.silu(g) * u
+    return torch.einsum("ecf,efd->ecd", a, _wt(lp["e_down"], dt, a))
 
 
 def _moe_kept(cfg, lp, h):
-    """Every expert on every token over h [B, S, D]: (the top-1 expert's
-    rows [B*S, D], its gate [B*S] in ``cfg.dtype``). Under tensor
-    parallelism the rows are this shard's partial sums over its d_ff
-    slice, summed across shards before the gate scales them."""
-    dt = cfg.dtype
+    """The reference's dense fallback over h [B, S, D] (no ``ep`` axis):
+    every expert on every token; returns (the top-1 expert's rows
+    [B*S, D], its gate [B*S] in ``cfg.dtype``). Under tensor parallelism
+    the rows are this shard's partial sums over its d_ff slice, summed
+    across shards before the gate scales them."""
     B, S, D = h.shape
     E = cfg.num_experts
     probs, top = _moe_route(cfg, lp, h)
     rows = torch.arange(B * S, device=h.device)
-    gate = probs[rows, top].to(dt)
-    toks = h.reshape(1, B * S, D).expand(E, B * S, D)
-    g = torch.einsum("ecd,edf->ecf", toks, lp["e_gate"].to(dt))
-    u = torch.einsum("ecd,edf->ecf", toks, lp["e_up"].to(dt))
-    outs = torch.einsum("ecf,efd->ecd", F.silu(g) * u, lp["e_down"].to(dt))
+    gate = probs[rows, top].to(cfg.dtype)
+    outs = _experts(cfg, lp, h.reshape(1, B * S, D).expand(E, B * S, D))
     return outs[top, rows], gate
+
+
+def _moe_ep(cfg, lps, hs, tp_sum, mesh, ep_axis):
+    """An MoE layer over the ``ep`` axis: each shard routes its own
+    tokens, ``moe_dispatch_combine`` sends them to their expert's shard
+    and back, and the row-parallel ``e_down`` is summed over tp inside
+    the experts, as the reference's ``expert_fn`` does. The f32 gate
+    makes the output f32 whatever ``cfg.dtype`` is (ROADMAP C.4)."""
+    B, S, D = hs[0].shape
+    logits = [(h.float() @ lp["router"].float()).reshape(
+        B * S, cfg.num_experts) for lp, h in zip(lps, hs)]
+    outs = moe_dispatch_combine(
+        [h.reshape(B * S, D) for h in hs], logits,
+        lambda toks: tp_sum([_experts(cfg, lp, t)
+                             for lp, t in zip(lps, toks)]),
+        mesh=mesh, num_experts=cfg.num_experts,
+        capacity_factor=cfg.capacity_factor, axis_name=ep_axis)
+    return [o.reshape(B, S, D) for o in outs]
 
 
 def _is_moe_layer(cfg, layer_idx) -> bool:
@@ -329,30 +384,112 @@ def _is_moe_layer(cfg, layer_idx) -> bool:
                                       == cfg.moe_every - 1)
 
 
-def _mlp_block(cfg, lp, h, layer_idx):
-    """Post-norm MLP or MoE for one layer over ``h`` [B, S, D]: with
-    experts, layer ``i`` is MoE when ``i % moe_every == moe_every - 1``
-    (every layer when ``moe_every == 1``, which never runs the dense
-    branch), else the dense SwiGLU."""
+def _same(parts):
+    return parts
+
+
+def _mlp_shards(cfg, lps, hs, layer_idx, tp_sum=_same, ep=None):
+    """Post-norm MLP or MoE of one layer over the per-shard ``hs``
+    [B, S, D]: with experts, layer ``i`` is MoE when ``i % moe_every ==
+    moe_every - 1`` (every layer when ``moe_every == 1``, which never runs
+    the dense branch), else the dense SwiGLU. ``tp_sum`` sums the
+    row-parallel partial products across the tp group (the identity
+    without one); ``ep`` is ``(mesh, axis)`` of the expert-parallel path,
+    or None for the reference's dense fallback.
+
+    The reference selects the branch with ``jnp.where`` on the traced
+    layer index and computes both; here only the kept branch runs. Under
+    ``ep`` the where still decides the type: the MoE branch is f32, so a
+    dense layer's output is promoted to f32 as well (ROADMAP C.4)."""
+    if ep is not None and cfg.num_experts:
+        if _is_moe_layer(cfg, layer_idx):
+            return _moe_ep(cfg, lps, hs, tp_sum, *ep)
+        dense = tp_sum([_swiglu(cfg, lp, h) for lp, h in zip(lps, hs)])
+        return [d.to(torch.promote_types(d.dtype, torch.float32))
+                for d in dense]
     if _is_moe_layer(cfg, layer_idx):
-        return _moe_dense(cfg, lp, h)
-    return _swiglu(cfg, lp, h)
+        kept = [_moe_kept(cfg, lp, h) for lp, h in zip(lps, hs)]
+        rows = tp_sum([r for r, _ in kept])
+        return [(r * g[:, None]).reshape(h.shape)
+                for r, (_, g), h in zip(rows, kept, hs)]
+    return tp_sum([_swiglu(cfg, lp, h) for lp, h in zip(lps, hs)])
+
+
+def _mlp_block(cfg, lp, h, layer_idx):
+    """``_mlp_shards`` on one device."""
+    return _mlp_shards(cfg, [lp], [h], layer_idx)[0]
 
 
 def _layer(params, i):
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _layer_fn(cfg, lp, x, positions, layer_idx):
-    """One transformer block over x [B, S, D] (the training layer body)."""
+def _block(cfg, lps, xs, positions, layer_idx, attend, tp_sum=_same,
+           ep=None):
+    """One transformer block over per-shard lists: the one layer body of
+    the one-device step, the sharded step and the tensor-parallel serving
+    programs. ``attend(qs, ks, vs)`` returns each shard's attention
+    output [B, S, Hq, Dh]; ``wo`` and the MLP's row-parallel products are
+    summed by ``tp_sum`` before their residual adds."""
     dt = cfg.dtype
-    B, S, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"])
-    q, k, v = _project_qkv(cfg, lp, h, positions)
-    o = _attention_dense(q, k, v)
-    x = x + o.reshape(B, S, -1) @ lp["wo"].to(dt)
-    h = rms_norm(x, lp["mlp_norm"])
-    return x + _mlp_block(cfg, lp, h, layer_idx)
+    qkv = [_project_qkv(cfg, lp, rms_norm(x, lp["attn_norm"]), pos)
+           for lp, x, pos in zip(lps, xs, positions)]
+    outs = attend(*map(list, zip(*qkv)))
+    sums = tp_sum([o.reshape(*x.shape[:2], -1) @ _wt(lp["wo"], dt, o)
+                   for o, x, lp in zip(outs, xs, lps)])
+    xs = [x + s for x, s in zip(xs, sums)]
+    hs = [rms_norm(x, lp["mlp_norm"]) for x, lp in zip(xs, lps)]
+    return [x + m for x, m in zip(
+        xs, _mlp_shards(cfg, lps, hs, layer_idx, tp_sum, ep))]
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepAxes:
+    """The shards a training layer runs on: one device (no mesh), or every
+    shard of ``mesh`` (one pipeline stage's sub-mesh) with the collective
+    axes of the manual step (None where the axis has size 1)."""
+
+    mesh: Any = None
+    sp: Optional[str] = None
+    ep: Optional[str] = None
+    tp: Optional[str] = None
+
+    def tp_sum(self, parts):
+        if self.tp is None:
+            return parts
+        return cops.allreduce(parts, self.mesh, self.tp)
+
+    def attend(self, qs, ks, vs):
+        if self.sp is None:
+            return [_attention_dense(q, k, v) for q, k, v in zip(qs, ks, vs)]
+        # Ring attention over sp, GQA's K/V repeat-expanded first.
+        group = qs[0].shape[2] // ks[0].shape[2]
+        if group != 1:
+            ks = [torch.repeat_interleave(k, group, dim=2) for k in ks]
+            vs = [torch.repeat_interleave(v, group, dim=2) for v in vs]
+        outs = ring_attention([q.transpose(1, 2) for q in qs],
+                              [k.transpose(1, 2) for k in ks],
+                              [v.transpose(1, 2) for v in vs],
+                              mesh=self.mesh, axis_name=self.sp, causal=True)
+        return [o.transpose(1, 2) for o in outs]
+
+
+def _layer_shards(cfg, ax: _StepAxes, lps, xs, positions, layer_idx):
+    """One training block over per-shard lists (the reference's
+    ``_layer_fn`` with its ``sp_axis``, ``ep_axis`` and ``tp_axis``)."""
+    ep = None if ax.ep is None else (ax.mesh, ax.ep)
+    return _block(cfg, lps, xs, positions, layer_idx, ax.attend, ax.tp_sum,
+                  ep)
+
+
+_ONE_DEVICE = _StepAxes()
+
+
+def _layer_fn(cfg, lp, x, positions, layer_idx):
+    """One transformer block over x [B, S, D] on one device: the sharded
+    body with one shard and no collective."""
+    return _layer_shards(cfg, _ONE_DEVICE, [lp], [x], [positions],
+                         layer_idx)[0]
 
 
 def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
@@ -372,7 +509,7 @@ def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
         else:
             x = _layer_fn(cfg, lp, x, positions, i)
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(dt)).float()
+    return (x @ _wt(params["lm_head"], dt, x)).float()
 
 
 def loss_fn(cfg: TransformerConfig, params, tokens, targets
@@ -424,6 +561,205 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# Manual SPMD training step over the (dp, fsdp, pp, tp, sp, ep) mesh.
+# ---------------------------------------------------------------------------
+
+DATA_SPEC = (("dp", "fsdp"), "sp")
+
+
+def _stage_params_spec(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """Specs of the stacked layer tree in the manual step: the leading
+    layer axis over pp, wide weight axes over tp, experts over ep."""
+    sp = {
+        "attn_norm": ("pp", None),
+        "wq": ("pp", None, "tp"), "wk": ("pp", None, "tp"),
+        "wv": ("pp", None, "tp"), "wo": ("pp", "tp", None),
+        "mlp_norm": ("pp", None),
+        "w_gate": ("pp", None, "tp"), "w_up": ("pp", None, "tp"),
+        "w_down": ("pp", "tp", None),
+    }
+    if cfg.num_experts:
+        sp.update({
+            "router": ("pp", None, None),
+            "e_gate": ("pp", "ep", None, "tp"),
+            "e_up": ("pp", "ep", None, "tp"),
+            "e_down": ("pp", "ep", "tp", None),
+        })
+    return sp
+
+
+def _named(tree, prefix=""):
+    """[(path, leaf)] of a nested dict, in its key order."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in _named(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _at(tree, path):
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _sharded_axes(spec) -> set:
+    return {a for part in spec if part is not None
+            for a in ((part,) if isinstance(part, str) else part)}
+
+
+def _sync_grads(mesh, specs, grads, axes=AXES):
+    """Per-leaf gradient sync (the reference's ``_sync_grads``). ``grads``
+    holds, for each leaf (spec ``specs[i]``), its per-shard gradients: on
+    each shard d(sum of every shard's local loss)/d(that shard's leaf).
+    Each local loss is the mean over its own tokens (distinct across dp,
+    fsdp and sp, the same function across tp, pp and ep), so a leaf
+    sharded over axes S gets the global-mean gradient as the sum over
+    the axes not in S, divided by the number of shards."""
+    n_total = math.prod(mesh.shape[a] for a in AXES)
+    out = []
+    for spec, gs in zip(specs, grads):
+        sharded = _sharded_axes(spec)
+        repl = tuple(a for a in axes if a not in sharded)
+        out.append([g / n_total for g in cops.allreduce(gs, mesh, repl)])
+    return out
+
+
+def shard_params_for_step(params, mesh, pspec) -> list:
+    """The f32 tree cut by the step's specs: one tree per shard of the
+    mesh, in the order of ``mesh.devices.flat``."""
+    return shard_params(params, mesh, pspec)
+
+
+def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
+                         optimizer: Optional[Callable] = None,
+                         n_microbatches: int = 2):
+    """Build the manual multi-axis training step on a one-controller mesh
+    (counterpart of the reference's ``make_spmd_train_step``), every
+    collective explicit: Megatron tp with row-parallel sums after ``wo``,
+    ``w_down`` and the experts' ``e_down``; ring attention over sp; MoE
+    dispatch over ep; the GPipe pipeline over pp; data cut over
+    (dp, fsdp) and sp; the per-leaf gradient sync; the loss's mean over
+    (dp, fsdp, sp). fsdp splits only the data: parameters stay replicated
+    over it, as in the reference.
+
+    Returns ``(step, pspec, shards)``. The reference returns ``(step,
+    pspec, ospec)`` with a pure ``step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss)``; here, as in
+    ``make_train_step``, the state lives in place: ``shards`` are the
+    per-shard f32 trees (``shard_params_for_step(params, mesh, pspec)``,
+    in the order of ``mesh.devices.flat``) that ``step(tokens, targets)
+    -> loss`` updates, and the optimizer's state lives in the torch
+    optimizer. ``optimizer`` maps the list of every shard's leaves to a
+    ``torch.optim.Optimizer`` (the update is elementwise, so one
+    optimizer over all shards updates each shard as its own would);
+    the default is AdamW with optax.adamw's defaults at lr 3e-4, the
+    reference's default. tokens and targets are the global [B, S]
+    batch; the loss returned is the shards' mean (detached).
+
+    Raises ``ValueError`` where the reference does: here for
+    ``n_layers % pp``, heads % tp and experts % ep; at the step for a
+    local batch that the microbatches do not divide (and for a batch or
+    sequence that the mesh does not divide)."""
+    shape = mesh_shape(mesh)
+    pp, tp, sp_n, ep_n = shape["pp"], shape["tp"], shape["sp"], shape["ep"]
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers {cfg.n_layers} % pp {pp} != 0")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError("heads must divide tp")
+    if cfg.num_experts and cfg.num_experts % ep_n:
+        raise ValueError("experts must divide ep")
+    layers_per_stage = cfg.n_layers // pp
+    pspec = {"embed": (None, None), "layers": _stage_params_spec(cfg),
+             "final_norm": (None,), "lm_head": (None, None)}
+    axes = dict(sp="sp" if sp_n > 1 else None,
+                ep="ep" if ep_n > 1 else None,
+                tp="tp" if tp > 1 else None)
+    with torch.no_grad():
+        shards = shard_params_for_step(params, mesh, pspec)
+    paths = [path for path, _ in _named(shards[0])]
+    specs = [_at(pspec, path) for path in paths]
+    # by_leaf[i]: leaf i (spec specs[i]) on every shard.
+    by_leaf = [[_at(tree, path) for tree in shards] for path in paths]
+    leaves = [t for ts in by_leaf for t in ts]
+    for t in leaves:
+        if t.dtype != torch.float32:
+            raise TypeError(f"make_spmd_train_step wants f32 master "
+                            f"parameters, got {t.dtype}")
+        t.requires_grad_(True)
+    if optimizer is None:
+        opt = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4)
+    else:
+        opt = optimizer(leaves)
+
+    def run_stage(stage, sub_mesh, layer_trees, xs):
+        """This stage's layers_per_stage layers over the per-shard
+        activations of the sub-mesh's shards."""
+        ax = _StepAxes(mesh=sub_mesh, **axes)
+        B, S = xs[0].shape[:2]
+        positions = [
+            (torch.arange(S, device=x.device) + s * S).expand(B, S)
+            for x, s in zip(xs, cops.axis_indices(sub_mesh, "sp"))]
+        for i in range(layers_per_stage):
+            lps = [{k: w[i] for k, w in t.items()} for t in layer_trees]
+            gidx = stage * layers_per_stage + i
+            if cfg.remat:
+                xs = checkpoint(_layer_shards, cfg, ax, lps, xs, positions,
+                                gidx, use_reentrant=False)
+            else:
+                xs = _layer_shards(cfg, ax, lps, xs, positions, gidx)
+        return xs
+
+    def local_losses(toks, tgts):
+        """Each shard's loss over its tokens [B_local, S_local]."""
+        dt = cfg.dtype
+        B, S = toks[0].shape
+        xs = [p["embed"].to(dt)[t] for p, t in zip(shards, toks)]
+        layer_trees = [p["layers"] for p in shards]
+        if pp > 1:
+            mb = n_microbatches
+            if B % mb:
+                raise ValueError(f"local batch {B} % microbatches {mb}")
+            outs = pipeline_spmd(
+                run_stage, layer_trees,
+                [x.reshape(mb, B // mb, S, -1) for x in xs], mesh=mesh,
+                axis_name="pp")
+            xs = [o.reshape(B, S, -1) for o in outs]
+        else:
+            xs = run_stage(0, mesh, layer_trees, xs)
+        losses = []
+        for x, p, t in zip(xs, shards, tgts):
+            x = rms_norm(x, p["final_norm"])
+            logits = (x @ _wt(p["lm_head"], dt, x)).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            losses.append(-torch.gather(logp, -1, t[..., None])[..., 0]
+                          .mean())
+        return losses
+
+    def step(tokens, targets):
+        toks = [t.long() for t in shard_tensor(tokens, mesh, DATA_SPEC)]
+        tgts = [t.long() for t in shard_tensor(targets, mesh, DATA_SPEC)]
+        opt.zero_grad(set_to_none=True)
+        losses = local_losses(toks, tgts)
+        first = losses[0].device
+        torch.stack([l.to(first) for l in losses]).sum().backward()
+        # A leaf the loss does not reach gets a zero gradient, as under
+        # jax.grad (make_train_step does the same).
+        grads = [[torch.zeros_like(t) if t.grad is None else t.grad
+                  for t in ts] for ts in by_leaf]
+        with torch.no_grad():
+            for ts, gs in zip(by_leaf, _sync_grads(mesh, specs, grads)):
+                for t, g in zip(ts, gs):
+                    t.grad = g
+            loss = cops.allreduce([l.detach() for l in losses], mesh,
+                                  ("dp", "fsdp", "sp"), op="mean")[0]
+        opt.step()
+        return loss
+
+    return step, pspec, shards
 
 
 def init_kv_cache(cfg: TransformerConfig, num_blocks: int, block_size: int,
@@ -653,26 +989,11 @@ class _Shards:
         The row-parallel products (``wo``, ``w_down``, ``e_down``) are
         summed across shards before the residual add. Returns the hidden
         states after the last layer, before the final norm."""
-        dt = cfg.dtype
         for i in range(cfg.n_layers):
-            lps = [_layer(p, i) for p in self.params]
-            qkv = [_project_qkv(cfg, lp, rms_norm(x, lp["attn_norm"]), pos)
-                   for lp, x, pos in zip(lps, xs, positions)]
-            outs = attend(i, *map(list, zip(*qkv)))
-            sums = self.allreduce([o.reshape(*x.shape[:2], -1)
-                                   @ lp["wo"].to(dt)
-                                   for o, x, lp in zip(outs, xs, lps)])
-            xs = [x + s for x, s in zip(xs, sums)]
-            hs = [rms_norm(x, lp["mlp_norm"]) for x, lp in zip(xs, lps)]
-            if _is_moe_layer(cfg, i):
-                kept = [_moe_kept(cfg, lp, h) for lp, h in zip(lps, hs)]
-                sums = self.allreduce([k for k, _ in kept])
-                xs = [x + (s * g[:, None]).reshape(x.shape)
-                      for x, s, (_, g) in zip(xs, sums, kept)]
-            else:
-                sums = self.allreduce([_swiglu(cfg, lp, h)
-                                       for lp, h in zip(lps, hs)])
-                xs = [x + s for x, s in zip(xs, sums)]
+            xs = _block(cfg, [_layer(p, i) for p in self.params], xs,
+                        positions, i,
+                        lambda qs, ks, vs, i=i: attend(i, qs, ks, vs),
+                        self.allreduce)
         return xs
 
     def logits(self, cfg, hs) -> torch.Tensor:

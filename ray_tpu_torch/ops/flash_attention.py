@@ -345,13 +345,15 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O [B, Hq, Sq, D] in q's dtype, LSE [B, Hq, Sq] f32). The kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor (launched with q's card current, so a tensor on any card
+    of a mesh launches there), the plain version on a CPU tensor."""
     _check_shapes(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _dense(q, k, v, causal, scale)
-    return _launch(q, k, v, causal, scale)
+    with torch.cuda.device(q.device):
+        return _launch(q, k, v, causal, scale)
 
 
 def _flash_backward(q, k, v, o, lse, do, causal, scale):
@@ -359,8 +361,9 @@ def _flash_backward(q, k, v, o, lse, do, causal, scale):
     version on CPU tensors."""
     if q.device.type == "cpu":
         return _dense_backward(q, k, v, o, lse, do, causal, scale)
-    dq, delta = _launch_dq(q, k, v, o, lse, do, causal, scale)
-    return (dq, *_launch_dkv(q, k, v, o, lse, do, delta, causal, scale))
+    with torch.cuda.device(q.device):
+        dq, delta = _launch_dq(q, k, v, o, lse, do, causal, scale)
+        return (dq, *_launch_dkv(q, k, v, o, lse, do, delta, causal, scale))
 
 
 class _FlashCore(torch.autograd.Function):

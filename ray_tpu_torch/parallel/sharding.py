@@ -80,7 +80,7 @@ def _block(mesh: Mesh, coord: Tuple[int, ...], entry: MeshAxis
     return index, count
 
 
-def _shard_tensor(x: torch.Tensor, mesh: Mesh, spec: Spec
+def shard_tensor(x: torch.Tensor, mesh: Mesh, spec: Spec
                  ) -> List[torch.Tensor]:
     """``x`` cut by ``spec``: one tensor per device of the mesh, in the
     order of ``mesh.devices.flat``, each a contiguous copy of its block on
@@ -113,7 +113,7 @@ def shard_params(params: Any, mesh: Mesh, spec_tree: Any) -> List[Any]:
     def cut(tree, specs):
         if isinstance(tree, dict):
             return {k: cut(tree[k], specs[k]) for k in tree}
-        return _shard_tensor(tree, mesh, specs)
+        return shard_tensor(tree, mesh, specs)
 
     def pick(tree, j):
         if isinstance(tree, dict):

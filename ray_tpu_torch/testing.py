@@ -1,9 +1,11 @@
 """Tolerances that hold the port's kernels against their plain versions,
-and the limits of ``chip_smoke.py``'s speculative-decoding checks.
+and the limits of ``chip_smoke.py``'s speculative-decoding and sharded
+training checks.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels.py`` both check the
 kernels on the card; they read their limits here so that the two cannot
-drift apart. Each limit stands beside its reason.
+drift apart. So does ``chip_smoke.py``'s sharded training step against
+one device. Each limit stands beside its reason.
 """
 
 from __future__ import annotations
@@ -96,6 +98,30 @@ SPEC_TIE_TOL_BF16 = 2.0 ** -3
 # cache keeps the k-th proposal's slot unwritten, as the reference's does
 # (ROADMAP section C), which costs acceptance, not tokens.
 SPEC_SELF_ACCEPT_MIN_F32 = 0.75
+
+# The manual multi-axis training step against one device (chip_smoke.py
+# phase 11), f32 with TF32 off: one SGD step of make_spmd_train_step over
+# 8 virtual shards against one SGD step of the one-device loss_fn's
+# gradients. Per leaf and shard, max(|p - p_ref| - ulp(p_ref)) over the
+# largest move max|p_ref - p0| of that block: each side rounds p0 plus
+# its move to f32 once, so two moves that differ by far less than an ulp
+# of the parameter can land one ulp apart (a norm weight of 1.0 moved by
+# 1e-4 shows a one-ulp flip as 1.2e-3 of its move). The two compute the
+# same sums in other orders: row-parallel products split over tp and
+# summed across shards, gradients summed over shards and microbatches,
+# ring attention's online merge over sp blocks against the kernel's
+# tiles; each rounds at ~1e-7 of its terms, through 4 layers and sums
+# over 16384 tokens. 1e-3 leaves room
+# for leaves whose gradient sums cancel, as TRAIN_GRAD_TOL does for the
+# kernels. A gradient sync that skips a replicated axis of size 2 moves
+# each leaf by about half its update (0.5); a ring whose causal mask
+# ignores each shard's sequence offset changes the attention of every
+# query past the first block (order 1).
+SPMD_UPDATE_TOL = 1e-3
+# The loss of that step, |loss - ref| / |ref|: a mean of 16384 f32
+# log-softmax terms, taken per shard and then across shards where one
+# device takes it at once; the terms agree to ~1e-6 of themselves.
+SPMD_LOSS_TOL = 1e-5
 
 
 def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:

@@ -1,7 +1,8 @@
 """The port's sharded paths across distinct CUDA cards: the collectives'
 peer copies, the compiled DAG sharded over a mesh of real devices (run
-eagerly: one CUDA graph cannot span devices) and the tensor-parallel
-engine over the visible cards.
+eagerly: one CUDA graph cannot span devices), the tensor-parallel
+engine over the visible cards, and one step of the manual multi-axis
+training step at dp 2 x tp 2 over four cards.
 
 Every test is marked ``cuda`` and skips unless at least two cards are
 visible; each holds the multi-card result against the same computation
@@ -17,8 +18,12 @@ import torch
 from ray_tpu_torch import collective
 from ray_tpu_torch.dag import InputNode, reduce_tree
 from ray_tpu_torch.llm import EngineConfig, InferenceEngine
-from ray_tpu_torch.models import TransformerConfig
-from ray_tpu_torch.parallel import make_mesh
+from ray_tpu_torch.models import (
+    TransformerConfig,
+    init_params,
+    make_spmd_train_step,
+)
+from ray_tpu_torch.parallel import MeshConfig, make_mesh
 from ray_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
 from ray_tpu_torch.remote_function import remote
 
@@ -110,3 +115,43 @@ def test_tp_engine_across_cards_equals_one_card(cards):
         finally:
             engine.shutdown()
     assert streams[tp] == streams[1]
+
+
+def _flat_cpu(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for name, sub in tree.items()
+                for k, v in _flat_cpu(sub, f"{prefix}{name}.").items()}
+    return {prefix[:-1]: tree.detach().cpu()}
+
+
+@pytest.mark.cuda
+def test_spmd_step_across_cards_equals_virtual_shards(cards):
+    """One f32 SGD step of make_spmd_train_step on dp 2 x tp 2 over four
+    cards against the same mesh over four virtual shards of the first
+    card: the same kernels and the same sums in the same order, only the
+    placement differs, so the loss and every shard's every leaf agree to
+    f32 rounding (rtol 1e-5, atol 1e-7)."""
+    if len(cards) < 4:
+        pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=4, n_kv_heads=4, d_ff=512,
+                            dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 129)))
+    runs = {}
+    for name, devices in (("cards", cards[:4]), ("virtual", [cards[0]] * 4)):
+        mesh = make_mesh(MeshConfig(dp=2, tp=2), devices=devices)
+        step, _, shards = make_spmd_train_step(
+            cfg, mesh, init_params(cfg, 0, device=devices[0]),
+            optimizer=lambda ls: torch.optim.SGD(ls, lr=0.1),
+            n_microbatches=1)
+        loss = step(tokens[:, :-1], tokens[:, 1:]).item()
+        if name == "cards":
+            assert [s["lm_head"].device for s in shards] == cards[:4]
+        runs[name] = (loss, [_flat_cpu(s) for s in shards])
+    (loss_c, leaves_c), (loss_v, leaves_v) = runs["cards"], runs["virtual"]
+    assert np.isfinite(loss_c)
+    assert abs(loss_c - loss_v) <= 1e-5 * abs(loss_v)
+    for a, b in zip(leaves_c, leaves_v):
+        for k in b:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-7)
