@@ -7,7 +7,8 @@ non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
-   dK/dV, each on the tensor cores and on the CUDA cores) from
+   dK/dV, each on the tensor cores, on the CUDA cores and, for head_dim
+   above 256, the wide kernels) from
    ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
    registers and spills per kernel; each tensor-core library's SASS must
    hold HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
@@ -35,13 +36,23 @@ non-zero without printing a result. Without a CUDA card, or without the
    O_ROW_TOL / GRAD_ROW_TOL of its dtype with a planted fault and a check
    of the variant launched; at S=2048 each is timed beside SDPA and the
    bound. head_dim 12 takes the counted plain route: no launch, one
-   plain_routes, the plain result. head_dim 264 (no kernel yet) raises.
-2b. c1_models: three configs the reference serves and trains, at the
+   plain_routes, the plain result; head_dim 264 through flash_attention
+   launches the wide kernel. The wide kernels (head_dim above 256, the
+   head dimension of the output split across blocks): forward, dQ and
+   dK/dV at head_dim 264, 512 and 1024 in f32, bf16 and f16 up to S=512
+   (phase 2b's shape), causal and not, against the plain versions with a
+   planted fault each, launching the wide variant once and nothing else;
+   at B=4, H=8, S=2048, D=512, causal, bf16 and f32, held against the
+   plain versions with a planted fault again and timed through CUDA
+   graphs beside the plain versions, SDPA (with the backend it picks) and
+   the bound.
+2b. c1_models: four configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads,
-   bf16), the flagship in float16 and head_dim 12 (d_model 384 over 32
+   bf16), head_dim 512 (d_model 1024 over 2 heads, bf16: the wide
+   kernels), the flagship in float16 and head_dim 12 (d_model 384 over 32
    heads, GQA 8, bf16). Each serves 4 prompts through prefill_with_cache
    and 8 decode_steps (prefill logits equal prefill_chunk's) and takes a
-   gradient pass and 2 AdamW steps (finite, the CUDA-core kernels
+   gradient pass and 2 AdamW steps (finite, the CUDA-core or wide kernels
    launched n_layers times per pass; head_dim 12 launches nothing and
    counts n_layers plain routes per forward). From here on the flagship's
    phases must count no plain route.
@@ -158,6 +169,20 @@ non-zero without printing a result. Without a CUDA card, or without the
    (the reference's f32 promotion, ROADMAP C.4). Smoke readings: step
    time, host launches, peak memory, device idle share, bytes per
    collective and the fraction of tokens dropped.
+12. rl: the RL slice (ray_tpu_torch.rl) at the reference's defaults:
+   CartPole, PPO with hidden (64, 64), 64 envs x 128 steps. A rollout
+   captured as one CUDA graph equals the same rollout run eagerly from
+   the same generator state (twice in a row, generators left in the same
+   state), and a PPO update captured as a graph equals it run eagerly. 10
+   PPO iterations (lr 3e-3, tests/test_rl.py's learning check): the last
+   episode_len_mean above 1.5x the first; then a greedy evaluate. 3 DQN
+   iterations past min_buffer_size give finite losses; 3 MultiAgentPPO
+   iterations on the coordination game. Smoke readings: env steps/s of
+   the 64 x 128 rollout eager and as a graph, bench.py's 64 x 512 rollout
+   both ways, host launches per rollout both ways, PPO update ms, DQN
+   train_many ms (one iteration of 32 steps, sampling included), and the
+   device's idle share over one Algorithm.train under torch.profiler. No
+   kernel of phases 1-2 runs here: the RL programs are small tensor ops.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -241,7 +266,15 @@ C1_BWD_CASES = ((512, 512, 256, (_F32, _BF16, _F16)),
                 (2048, 2048, 256, (_F32, _BF16, _F16)),
                 (2048, 2048, 64, (_F16,)), (77, 131, 200, (_BF16,)))
 PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
-NO_KERNEL_D = 264    # above the widest kernel: the wrapper raises
+WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
+# Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
+# shapes, forward at B=2, Hq=4, (Hkv, Sq, Sk) and backward at B=2, H=2,
+# (Sq, Sk), up to S=512 (phase 2b's hd512 prefill and gradient pass); then
+# checked and timed at WIDE_TIMED (B, H, S, D), causal, in bf16 and f32.
+WIDE_DIMS = (264, 512, 1024)
+WIDE_FWD_SHAPES = ((2, 77, 131), (4, 256, 256), (4, 512, 512))
+WIDE_BWD_SHAPES = ((77, 131), (256, 256), (512, 512))
+WIDE_TIMED = (4, 8, 2048, 512)
 C1_DEPTH = 2         # depth of phase 2b's configs (the flagship has 4)
 C1_TRAIN_BATCH, C1_TRAIN_LEN, C1_TRAIN_STEPS = 2, 512, 2
 # Phase 7: the flagship with experts.
@@ -303,6 +336,17 @@ SPEC_YARDSTICK_OFFSETS = (0, 8, 16, 24)   # rounds measured per stream
 SHIP_PROMPT = 4            # the 570-token prompt: 35 full blocks + 10
 SPEC_SHIP_PROMPTS = (1, 4)   # shipped again between spec-armed engines
 COW_PROMPT_LEN = 128       # 8 full blocks: a fully cached prompt
+# Phase 12: RL at the reference's defaults: AlgorithmConfig's 64 envs x
+# 128 steps and PPOConfig's hidden (64, 64); bench.py's 64 x 512 rollout;
+# tests/test_rl.py's learning check (lr 3e-3, the last of the iterations'
+# episode_len_mean above 1.5x the first). Graph and eager runs of one
+# program run the same kernels on the same inputs; RL_GRAPH_TOL allows
+# for a library picking another algorithm under capture.
+RL_ENVS, RL_ROLLOUT, RL_BENCH_ROLLOUT = 64, 128, 512
+RL_PPO_ITERS, RL_PPO_LR, RL_IMPROVE = 10, 3e-3, 1.5
+RL_DQN_ITERS, RL_MA_ITERS = 3, 3
+RL_TIMED = 5   # samples or updates per smoke reading
+RL_GRAPH_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -332,12 +376,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 24, stream=None) -> float:
+def graph_ms(fn, iters: int = 24, stream=None, replays: int = 10) -> float:
     """Device time in ms of one fn(i), for a call far shorter than its
     launch cost on the host (a Triton launch costs tens of microseconds of
     Python): fn(0) .. fn(iters - 1) are captured in one CUDA graph, and
-    the graph's replay is timed by CUDA events. ``stream`` is the capture
-    stream (an autograd backward must be captured on its forward's)."""
+    ``replays`` replays of the graph are timed by CUDA events. ``stream``
+    is the capture stream (an autograd backward must be captured on its
+    forward's)."""
     side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -348,7 +393,7 @@ def graph_ms(fn, iters: int = 24, stream=None) -> float:
     with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
-    return cuda_ms(graph.replay, iters=10, warmup=2) / iters
+    return cuda_ms(graph.replay, iters=replays, warmup=2) / iters
 
 
 def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
@@ -387,7 +432,8 @@ def backward_bound(B, H, S, D, dtype, causal, kind):
 
 
 KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
-                    "flash_attention_bwd_wgmma", "flash_attention_bwd")
+                    "flash_attention_bwd_wgmma", "flash_attention_bwd",
+                    "flash_attention_wide")
 WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
 
 
@@ -395,7 +441,8 @@ def ptxas_summary(report: str):
     """ptxas's register and spill lines, each under the kernel it names:
     kernel<dtype, per-thread slice of D, register slice> for the CUDA-core
     kernels (16 being D = 64, 64 being D = 256; a slice of 0 is the
-    runtime-width instance), kernel<D> for the tensor-core ones."""
+    runtime-width instance), kernel<D> for the tensor-core ones,
+    kernel<dtype> for the wide ones (head_dim above 256)."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -406,7 +453,12 @@ def ptxas_summary(report: str):
                           entry.group(1))
             w = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
                           r"ILi(\d+)E", entry.group(1))
-            if m:
+            wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)"
+                             r"I(13__nv_bfloat16|6__half|f)E",
+                             entry.group(1))
+            if wide:
+                name = f"{wide.group(1)}<{dtypes[wide.group(2)]}>"
+            elif m:
                 name = (f"{m.group(1)}<{dtypes[m.group(2)]}, "
                         f"{m.group(3)}, {m.group(4)}>")
             elif w:
@@ -524,8 +576,7 @@ def phase_kernels(dev):
                 tol = O_ROW_TOL[dtype]
                 ok = (err_row <= tol and err_lse <= 1.0
                       and bool(torch.isfinite(o).all())
-                      and launched == {variant: 1,
-                                       _OTHER_VARIANT[variant]: 0})
+                      and launched == _variant_want(variant, 1))
                 checks.append({"Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D,
                                "dtype": str(dtype).split(".")[1],
                                "causal": causal, "variant": variant,
@@ -555,8 +606,9 @@ def phase_kernels(dev):
 def _plain_route_check(fa, gen, dev):
     """head_dim PLAIN_ROUTE_D through the public wrappers on the card:
     each call takes the plain route (one plain_routes, no launch) and
-    returns the plain version's result exactly. head_dim NO_KERNEL_D
-    raises ValueError, with no launch and no plain route."""
+    returns the plain version's result exactly. head_dim WIDE_ROUTE_D
+    launches the wide kernel once, with no plain route, and equals the
+    plain version within O_ROW_TOL."""
     D = PLAIN_ROUTE_D
     out = {}
     for name, Hkv in (("flash_attention", 8), ("flash_attention_grouped", 2)):
@@ -572,22 +624,51 @@ def _plain_route_check(fa, gen, dev):
                      "equals_plain": exact}
         if launched or routes != 1 or not exact:
             raise AssertionError(f"head_dim {D} through {name}: {out[name]}")
-    q = torch.randn((1, 2, 16, NO_KERNEL_D), generator=gen, device=dev)
-    before = fa.launches, fa.plain_routes
-    try:
-        fa.flash_attention(q, q, q)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError(f"head_dim {NO_KERNEL_D} did not raise")
-    if (fa.launches, fa.plain_routes) != before:
-        raise AssertionError(f"head_dim {NO_KERNEL_D} launched or took the "
-                             f"plain route")
-    out[f"D{NO_KERNEL_D}"] = {"raised": refused}
+    D = WIDE_ROUTE_D
+    q, k, v = (torch.randn((1, 2, 16, D), generator=gen, device=dev)
+               for _ in range(3))
+    before = fa.wide_launches, fa.plain_routes
+    o = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ro = fa._dense(q, k, v, True, D ** -0.5)[0]
+    err = ((o - ro).abs().amax(-1) / ro.abs().amax(-1)).max().item()
+    out[f"D{D}"] = {"wide_launches": fa.wide_launches - before[0],
+                    "plain_routes": fa.plain_routes - before[1],
+                    "err_o_row": err}
+    if (fa.wide_launches - before[0], fa.plain_routes - before[1]) != (1, 0) \
+            or not err <= O_ROW_TOL[q.dtype]:
+        raise AssertionError(f"head_dim {D} through flash_attention: "
+                             f"{out[f'D{D}']}")
     return out
 
 
-_OTHER_VARIANT = {"wgmma": "simt", "simt": "wgmma"}
+# The kernel variants of the forward and of each backward kernel: the
+# tensor cores, the CUDA cores up to head_dim 256, and above it.
+VARIANTS = ("wgmma", "simt", "wide")
+
+
+def _variant_want(variant, n):
+    """Launch counts by variant when `variant` launched n times and no
+    other variant launched ("plain": none at all)."""
+    return {v: n if v == variant else 0 for v in VARIANTS}
+
+
+_COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
+             "dq_launches", "dkv_launches", "dq_wgmma_launches",
+             "dkv_wgmma_launches", "dq_simt_launches", "dkv_simt_launches",
+             "dq_wide_launches", "dkv_wide_launches", "plain_routes")
+
+
+@contextlib.contextmanager
+def _counts_kept(fa):
+    """Every launch count of the flash module restored on exit: timing
+    launches are not the main path's."""
+    saved = {n: getattr(fa, n) for n in _COUNTERS}
+    try:
+        yield
+    finally:
+        for n, c in saved.items():
+            setattr(fa, n, c)
 
 
 def _dtype_name(dtype):
@@ -595,7 +676,8 @@ def _dtype_name(dtype):
 
 
 def _variant_counts(fa):
-    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
+            "wide": fa.wide_launches}
 
 
 def _simt_forward(fa, q, k, v, causal):
@@ -623,10 +705,8 @@ def _time_kernel(fa, q, k, v, err_o):
     read); the plain version by events."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
-    n = fa.launches, fa.wgmma_launches, fa.simt_launches
-    kernel_ms = graph_ms(lambda i: fa._flash_forward(q, k, v, True))
-    # timing launches are not the main path's
-    fa.launches, fa.wgmma_launches, fa.simt_launches = n
+    with _counts_kept(fa):
+        kernel_ms = graph_ms(lambda i: fa._flash_forward(q, k, v, True))
     simt_ms = None
     if fa._forward_variant(q.dtype, D) == "wgmma":
         simt_ms = graph_ms(lambda i: _simt_forward(fa, q, k, v, True))
@@ -729,15 +809,15 @@ def phase_backward(dev):
 def _backward_counts(fa):
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
-            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches}
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
+            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches}
 
 
 def _backward_want(variant, n):
     """Backward launch counts when each kernel of `variant` launched n
-    times and no kernel of the other."""
-    other = _OTHER_VARIANT[variant]
-    return {f"dq_{variant}": n, f"dkv_{variant}": n, f"dq_{other}": 0,
-            f"dkv_{other}": 0}
+    times and no kernel of another variant."""
+    return {f"{kind}_{v}": c for v, c in _variant_want(variant, n).items()
+            for kind in ("dq", "dkv")}
 
 
 def _simt_backward(fa, kind, q, k, v, o, lse, do):
@@ -759,7 +839,7 @@ def _simt_backward(fa, kind, q, k, v, o, lse, do):
     return outs
 
 
-def _sdpa_backward_ms(q, k, v, do):
+def _sdpa_backward_ms(q, k, v, do, iters=24, replays=10):
     """SDPA's backward (dq, dk and dv in one call) through a CUDA graph:
     the forward runs on the capture stream, so that autograd puts the
     backward there."""
@@ -770,7 +850,7 @@ def _sdpa_backward_ms(q, k, v, do):
         out = F.scaled_dot_product_attention(*leaves, is_causal=True)
     return graph_ms(lambda i: torch.autograd.grad(out, leaves, do,
                                                   retain_graph=True),
-                    stream=side)
+                    iters=iters, stream=side, replays=replays)
 
 
 def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
@@ -781,18 +861,12 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
     B, H, S, D = q.shape
     scale = D ** -0.5
     variant = fa._backward_variant(q.dtype, D)
-    counts = (fa.dq_launches, fa.dkv_launches, fa.dq_wgmma_launches,
-              fa.dkv_wgmma_launches, fa.dq_simt_launches,
-              fa.dkv_simt_launches)
-    delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)[1]
-    dq_ms = graph_ms(lambda i: fa._launch_dq(q, k, v, o, lse, do, True,
-                                             scale))
-    dkv_ms = graph_ms(lambda i: fa._launch_dkv(q, k, v, o, lse, do, delta,
-                                               True, scale))
-    # timing launches are not the main path's
-    (fa.dq_launches, fa.dkv_launches, fa.dq_wgmma_launches,
-     fa.dkv_wgmma_launches, fa.dq_simt_launches,
-     fa.dkv_simt_launches) = counts
+    with _counts_kept(fa):
+        delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)[1]
+        dq_ms = graph_ms(lambda i: fa._launch_dq(q, k, v, o, lse, do, True,
+                                                 scale))
+        dkv_ms = graph_ms(lambda i: fa._launch_dkv(q, k, v, o, lse, do,
+                                                   delta, True, scale))
     simt_ms = {"dq": None, "dkv": None}
     if variant == "wgmma":
         simt_ms = {kind: graph_ms(lambda i, kind=kind: _simt_backward(
@@ -816,6 +890,207 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
                         "tflops": ops / ms * 1e-9, "max_abs_err": err,
                         "bound_ms": bound_ms, "bound_by": bound_by}
     return result
+
+
+def _sdpa_backend(q, k, v):
+    """The backend scaled_dot_product_attention picks for a causal call on
+    these inputs (MATH: no fused backend took the shape)."""
+    from torch.nn.attention import SDPBackend
+
+    choice = int(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    for name, member in SDPBackend.__members__.items():
+        if int(member.value) == choice:
+            return name
+    return f"backend {choice}"
+
+
+def phase_wide(dev):
+    """Phase 2's wide kernels (head_dim above 256, the head dimension of
+    the output split across blocks): forward and backward at every
+    WIDE_DIMS x (f32, bf16, f16) on small shapes, causal and not, against
+    the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL, each case
+    launching the wide variant once and no other, with no plain route,
+    and a planted fault (32 keys of V, or 32 rows of dO, zeroed in the
+    plain version) flagged; then the three kernels checked the same way
+    at WIDE_TIMED in bf16 and f32, and timed there beside the plain
+    versions, SDPA (its backend named) and the bound."""
+    fa = _flash_module()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    checks = []
+
+    def fail(check):
+        emit({"phase": "kernels_wide", "checks": checks})
+        raise AssertionError(f"wide kernel disagrees with plain, the wrong "
+                             f"variant launched, or the check misses a "
+                             f"planted fault: {check}")
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for D in WIDE_DIMS:
+        scale = D ** -0.5
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for Hkv, Sq, Sk in WIDE_FWD_SHAPES:
+                q = randn((2, 4, Sq, D), dtype)
+                k, v = randn((2, Hkv, Sk, D), dtype), randn((2, Hkv, Sk, D),
+                                                           dtype)
+                v_fault = v.clone()
+                v_fault[:, :, Sk // 2:Sk // 2 + 32] = 0
+                for causal in (True, False):
+                    before, routes = _variant_counts(fa), fa.plain_routes
+                    o, lse = fa._flash_forward(q, k, v, causal)
+                    launched = {n: c - before[n]
+                                for n, c in _variant_counts(fa).items()}
+                    ro, rlse = fa._dense(q, k, v, causal, scale)
+                    fo, flse = fa._dense(q, k, v_fault, causal, scale)
+                    torch.cuda.synchronize()
+                    err_abs, err_row, err_lse = compare(o, lse, ro, rlse)
+                    fault_row = compare(fo, flse, ro, rlse)[1]
+                    tol = O_ROW_TOL[dtype]
+                    ok = (err_row <= tol and err_lse <= 1.0
+                          and bool(torch.isfinite(o).all())
+                          and launched == _variant_want("wide", 1)
+                          and fa.plain_routes == routes)
+                    checks.append({"kind": "fwd", "D": D, "Hkv": Hkv,
+                                   "Sq": Sq, "Sk": Sk,
+                                   "dtype": _dtype_name(dtype),
+                                   "causal": causal, "launched": launched,
+                                   "err_o_abs": err_abs, "err_o_row": err_row,
+                                   "tol_o_row": tol,
+                                   "err_lse_of_limit": err_lse,
+                                   "fault_o_row": fault_row, "ok": ok})
+                    if not ok or fault_row <= tol:
+                        fail(checks[-1])
+            for Sq, Sk in WIDE_BWD_SHAPES:
+                q, do = randn((2, 2, Sq, D), dtype), randn((2, 2, Sq, D),
+                                                           dtype)
+                k, v = randn((2, 2, Sk, D), dtype), randn((2, 2, Sk, D),
+                                                          dtype)
+                do_fault = do.clone()
+                do_fault[:, :, Sq // 2:Sq // 2 + 32] = 0
+                for causal in (True, False):
+                    o, lse = fa._flash_forward(q, k, v, causal)
+                    before = _backward_counts(fa)
+                    dq, delta = fa._launch_dq(q, k, v, o, lse, do, causal,
+                                              scale)
+                    dk, dv = fa._launch_dkv(q, k, v, o, lse, do, delta,
+                                            causal, scale)
+                    launched = {n: c - before[n]
+                                for n, c in _backward_counts(fa).items()}
+                    ref = fa._dense_backward(q, k, v, o, lse, do, causal,
+                                             scale)
+                    fault = fa._dense_backward(q, k, v, o, lse, do_fault,
+                                               causal, scale)
+                    torch.cuda.synchronize()
+                    got = (dq, dk, dv)
+                    errs = [grad_row_error(g, r) for g, r in zip(got, ref)]
+                    fault_err = max(grad_row_error(f, r)
+                                    for f, r in zip(fault, ref))
+                    tol = GRAD_ROW_TOL[dtype]
+                    ok = (all(bool(torch.isfinite(g).all()) for g in got)
+                          and max(errs) <= tol
+                          and launched == _backward_want("wide", 1))
+                    checks.append({"kind": "bwd", "D": D, "Sq": Sq, "Sk": Sk,
+                                   "dtype": _dtype_name(dtype),
+                                   "causal": causal, "launched": launched,
+                                   "err_row": dict(zip(("dq", "dk", "dv"),
+                                                       errs)),
+                                   "tol_row": tol, "fault_row": fault_err,
+                                   "ok": ok})
+                    if not ok or fault_err <= tol:
+                        fail(checks[-1])
+    timing = {_dtype_name(dt): _time_wide(fa, gen, dev, dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    emit({"phase": "kernels_wide", "checks": checks, "timing": timing})
+    return timing
+
+
+def _time_wide(fa, gen, dev, dtype):
+    """The wide forward, dQ and dK/dV at WIDE_TIMED (causal) through CUDA
+    graphs (few replays: each call takes tens of ms), held against the
+    plain versions there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL with a
+    planted fault (32 keys of V, or 32 rows of dO, zeroed in the plain
+    version) that must read above the limit, the plain versions by
+    events, and SDPA's forward and backward through CUDA graphs with the
+    backend it picks."""
+    B, H, S, D = WIDE_TIMED
+    scale = D ** -0.5
+    q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
+                               device=dev).to(dtype) for _ in range(4))
+    with _counts_kept(fa):
+        o, lse = fa._flash_forward(q, k, v, True)
+        dq, _ = fa._launch_dq(q, k, v, o, lse, do, True, scale)
+        dk, dv = fa._launch_dkv(q, k, v, o, lse, do, None, True, scale)
+        ms = {"fwd": graph_ms(lambda i: fa._flash_forward(q, k, v, True),
+                              iters=2, replays=3),
+              "dq": graph_ms(lambda i: fa._launch_dq(
+                  q, k, v, o, lse, do, True, scale), iters=2, replays=3),
+              "dkv": graph_ms(lambda i: fa._launch_dkv(
+                  q, k, v, o, lse, do, None, True, scale), iters=2,
+                  replays=3)}
+    ro, rlse = fa._dense(q, k, v, True, scale)
+    v_fault = v.clone()
+    v_fault[:, :, S // 2:S // 2 + 32] = 0
+    fo, flse = fa._dense(q, k, v_fault, True, scale)
+    err_o_abs, err_o_row, err_lse = compare(o, lse, ro, rlse)
+    fault_o_row = compare(fo, flse, ro, rlse)[1]
+    del ro, rlse, fo, flse, v_fault
+    ref = fa._dense_backward(q, k, v, o, lse, do, True, scale)
+    got = (dq, dk, dv)
+    errs = {"fwd": err_o_abs,
+            "dq": (dq.float() - ref[0].float()).abs().max().item(),
+            "dkv": max((g.float() - r.float()).abs().max().item()
+                       for g, r in zip((dk, dv), ref[1:]))}
+    err_row = dict(zip(("dq", "dk", "dv"),
+                       (grad_row_error(g, r) for g, r in zip(got, ref))))
+    do_fault = do.clone()
+    do_fault[:, :, S // 2:S // 2 + 32] = 0
+    fault = fa._dense_backward(q, k, v, o, lse, do_fault, True, scale)
+    fault_row = max(grad_row_error(f, r) for f, r in zip(fault, ref))
+    del fault, ref, do_fault
+    check = {"err_o_row": err_o_row, "tol_o_row": O_ROW_TOL[dtype],
+             "err_lse_of_limit": err_lse, "fault_o_row": fault_o_row,
+             "err_row": err_row, "tol_row": GRAD_ROW_TOL[dtype],
+             "fault_row": fault_row}
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, *got))
+    if not (finite and err_o_row <= O_ROW_TOL[dtype] and err_lse <= 1.0
+            and max(err_row.values()) <= GRAD_ROW_TOL[dtype]
+            and fault_o_row > O_ROW_TOL[dtype]
+            and fault_row > GRAD_ROW_TOL[dtype]):
+        raise AssertionError(
+            f"wide kernels at {list(WIDE_TIMED)} {_dtype_name(dtype)} "
+            f"disagree with plain (finite {finite}), or the check misses a "
+            f"planted fault: {check}")
+    plain_fwd = cuda_ms(lambda: fa._dense(q, k, v, True, scale),
+                        iters=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: fa._dense_backward(q, k, v, o, lse, do,
+                                                   True, scale),
+                        iters=3, warmup=1)
+    backend = _sdpa_backend(q, k, v)
+    try:
+        sdpa_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=2, replays=3)
+        sdpa_bwd = _sdpa_backward_ms(q, k, v, do, iters=2, replays=3)
+    except RuntimeError as e:   # no backend took the shape
+        sdpa_fwd = sdpa_bwd = None
+        backend = f"none took the shape: {str(e)[:160]}"
+    torch.cuda.empty_cache()
+    out = {"shape": [B, H, S, D], "dtype": _dtype_name(dtype),
+           "causal": True, "variant": "wide", "check": check,
+           "sdpa_backend": backend, "plain_bwd_ms": plain_bwd,
+           "sdpa_bwd_ms": sdpa_bwd,
+           "plain": "_dense / _dense_backward (dq, dk and dv in one call)",
+           "library": "scaled_dot_product_attention (backward: dq, dk and "
+                      "dv in one call)"}
+    for kind in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by = (
+            attention_bound(B, H, H, S, D, dtype, True) if kind == "fwd"
+            else backward_bound(B, H, S, D, dtype, True, kind))
+        out[kind] = {"kernel_ms": ms[kind], "max_abs_err": errs[kind],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
+                     "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
+    return out
 
 
 def _rms_check(fused, gen, dev, shape, dtype, plain, tol):
@@ -931,6 +1206,7 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     bt = torch.from_numpy(tables).to(dev)
     tok_t = torch.from_numpy(toks).to(dev)
     fa.launches = fa.wgmma_launches = fa.simt_launches = 0
+    fa.wide_launches = 0
     logits, cache = tm.prefill_with_cache(cfg, params, cache, tok_t, lens,
                                           bt)
     torch.cuda.synchronize()
@@ -967,7 +1243,7 @@ def phase_model(dev, base, lens, pad_to, decode_steps):
          variants) = flash_path(cfg, params, prompts, pad_to, decode_steps,
                                 dev)
         variant = fa._forward_variant(cfg.dtype, cfg.head_dim)
-        want_variants = {variant: cfg.n_layers, _OTHER_VARIANT[variant]: 0}
+        want_variants = _variant_want(variant, cfg.n_layers)
         if (after_prefill != cfg.n_layers or after_all != cfg.n_layers
                 or variants != want_variants):
             raise AssertionError(
@@ -1146,8 +1422,7 @@ def _counts():
     from ray_tpu_torch.ops import fused
 
     fa = _flash_module()
-    return {"fwd": fa.launches, "wgmma": fa.wgmma_launches,
-            "simt": fa.simt_launches, "dq": fa.dq_launches,
+    return {"fwd": fa.launches, **_variant_counts(fa), "dq": fa.dq_launches,
             "dkv": fa.dkv_launches, **_backward_counts(fa),
             "rms": fused.launches}
 
@@ -1155,18 +1430,18 @@ def _counts():
 def _want_counts(variant, fwd, bwd):
     """_counts() of a run that launched the forward `fwd` times and each
     backward kernel `bwd` times, all of `variant`, and no RMSNorm."""
-    return {"fwd": fwd, variant: fwd, _OTHER_VARIANT[variant]: 0,
-            "dq": bwd, "dkv": bwd, **_backward_want(variant, bwd), "rms": 0}
+    return {"fwd": fwd, **_variant_want(variant, fwd), "dq": bwd,
+            "dkv": bwd, **_backward_want(variant, bwd), "rms": 0}
 
 
 def _zero_counts():
     from ray_tpu_torch.ops import fused
 
     fa = _flash_module()
-    fa.launches = fa.wgmma_launches = fa.simt_launches = 0
-    fa.dq_launches = fa.dkv_launches = fused.launches = 0
-    fa.dq_wgmma_launches = fa.dkv_wgmma_launches = 0
-    fa.dq_simt_launches = fa.dkv_simt_launches = 0
+    for name in _COUNTERS:
+        if name != "plain_routes":
+            setattr(fa, name, 0)
+    fused.launches = 0
 
 
 @contextlib.contextmanager
@@ -1863,6 +2138,8 @@ def _c1_configs(base):
     cut = dict(n_layers=C1_DEPTH)
     return (("hd256_bf16", dataclasses.replace(
                 base, d_model=2048, n_heads=8, n_kv_heads=8, **cut), "simt"),
+            ("hd512_bf16", dataclasses.replace(
+                base, d_model=1024, n_heads=2, n_kv_heads=2, **cut), "wide"),
             ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
              "simt"),
             ("hd12_bf16", dataclasses.replace(
@@ -1894,8 +2171,7 @@ def phase_c1_models(dev, base, model_lens):
                                       torch.zeros_like(plens), plens, bt)
         diff = (logits - logits2).abs().max().item()
         del params, cache2
-        want_prefill = ({"wgmma": 0, "simt": 0} if route == "plain" else
-                        {route: L, _OTHER_VARIANT[route]: 0})
+        want_prefill = _variant_want(route, L)
         want_routes = L if route == "plain" else 0
         # A gradient pass and AdamW steps on f32 masters.
         master = tm.init_params(cfg, SEED, device=dev)
@@ -1943,6 +2219,195 @@ def phase_c1_models(dev, base, model_lens):
     return results
 
 
+# ---------------------------------------------------------------- phase 12: rl
+_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                      "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _host_launches(fn):
+    """Runtime calls that put work on the device during one fn(), by name
+    (kernel launches, graph launches, async copies and sets), from
+    torch.profiler's host-side trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.name in _HOST_LAUNCH_CALLS:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {"total": sum(counts.values()), **counts}
+
+
+def _device_share(fn):
+    """One fn() under torch.profiler (device activity only): its wall
+    time, the device's busy time (kernels and copies) and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured: the "
+                "profiler recorded no device events"}
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_events": len(events),
+            "device_idle_share": 1 - busy / wall_ms}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _steps_per_s(runner, params, dev, n=RL_TIMED):
+    runner.sample(params)   # warm (captures the graph on the card)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        runner.sample(params)
+    _sync(dev)
+    return runner.steps_per_sample() * n / (time.perf_counter() - t0)
+
+
+def phase_rl(dev, card):
+    """Phase 12 (see the module docstring): the RL slice at the
+    reference's defaults."""
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl import bench as rl_bench
+    from ray_tpu_torch.rl.ppo import Rollout, leaves
+
+    graph = dev.type == "cuda"
+    env = rl.CartPole()
+    learner = rl.PPOLearner(env, device=dev)
+    params = learner.get_weights()
+
+    def eager_runner(rollout_len, seed=0):
+        """A runner whose program runs eagerly: the graph's twin."""
+        runner = rl.EnvRunner(env, RL_ENVS, rollout_len, seed=seed,
+                              device=dev)
+        runner._impl._program.graph = False
+        return runner
+
+    # (a) The graph rollout against the eager one from the same generator
+    # state (both runners seeded alike), twice in a row.
+    eager = eager_runner(RL_ROLLOUT, SEED)
+    graphed = rl.EnvRunner(env, RL_ENVS, RL_ROLLOUT, seed=SEED, device=dev)
+    rollout_diff = {}
+    for i in range(2):
+        a, b = eager.sample(params), graphed.sample(params)
+        for name, x, y in zip(Rollout._fields, a, b):
+            if x.dtype.is_floating_point:
+                d = (x - y).abs().max().item()
+            else:
+                d = int((x != y).sum())
+            rollout_diff[name] = max(rollout_diff.get(name, 0), d)
+    same_gen = bool(torch.equal(eager._impl.generator.get_state(),
+                                graphed._impl.generator.get_state()))
+    rollout_ok = same_gen and all(v <= RL_GRAPH_TOL
+                                  for v in rollout_diff.values())
+    dones = int(a.dones.sum())
+    # (b) Readings: env steps/s eager and graph, host launches per
+    # rollout, bench.py's 64 x 512 rollout (config #5) both ways.
+    readings = {
+        "rollout_steps_per_s": {
+            "eager": _steps_per_s(eager, params, dev),
+            "graph": _steps_per_s(graphed, params, dev)},
+        "bench_64x512": {
+            "graph": rl_bench.rollout_throughput(
+                RL_ENVS, RL_BENCH_ROLLOUT, RL_TIMED, dev)["env_steps_per_sec"],
+            "eager": _steps_per_s(eager_runner(RL_BENCH_ROLLOUT), params,
+                                  dev, 2)}}
+    if graph:
+        readings["host_launches_per_rollout"] = {
+            "eager": _host_launches(lambda: eager.sample(params)),
+            "graph": _host_launches(lambda: graphed.sample(params))}
+    # (c) The PPO update: graph against eager from the same state and
+    # generator, then its time.
+    ro = graphed.sample(params)
+    upd_g = rl.PPOLearner(env, seed=SEED, device=dev)
+    upd_e = rl.PPOLearner(env, seed=SEED, device=dev)
+    loss_g = upd_g.update(ro)
+    loss_e = float(upd_e._update(ro, upd_e._draw_perms(ro.actions.numel())))
+    update_diff = max((x - y).abs().max().item() for x, y in zip(
+        leaves(upd_g.params), leaves(upd_e.params)))
+    update_ok = update_diff <= RL_GRAPH_TOL and abs(loss_g - loss_e) <= \
+        RL_GRAPH_TOL
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED):
+        upd_g.update(ro)
+    readings["ppo_update_ms"] = (time.perf_counter() - t0) * 1e3 / RL_TIMED
+    # (d) PPO training at the defaults (tests/test_rl.py's lr).
+    algo = (rl.AlgorithmConfig("PPO", device=dev)
+            .env_runners(num_envs_per_env_runner=RL_ENVS,
+                         rollout_fragment_length=RL_ROLLOUT)
+            .training(lr=RL_PPO_LR).debugging(seed=SEED).build())
+    ppo = [algo.train() for _ in range(RL_PPO_ITERS)]
+    lens = [r["episode_len_mean"] for r in ppo]
+    readings["ppo_train_iteration"] = _device_share(algo.train)
+    readings["ppo_iteration_ms"] = [r["time_total_s"] * 1e3 for r in ppo]
+    readings["ppo_env_steps_per_s"] = [r["env_steps_per_sec"] for r in ppo]
+    greedy = algo.evaluate()["episode_return_mean"]
+    # (e) DQN: RL_DQN_ITERS iterations past min_buffer_size.
+    dqn = (rl.AlgorithmConfig("DQN", device=dev)
+           .env_runners(num_envs_per_env_runner=RL_ENVS,
+                        rollout_fragment_length=RL_ROLLOUT)
+           .debugging(seed=SEED).build())
+    dqn_losses = []
+    while len(dqn_losses) < RL_DQN_ITERS:
+        loss = dqn.train()["loss"]
+        if len(dqn.learner._buffer) >= dqn.config.train_config.min_buffer_size:
+            dqn_losses.append(loss)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED):
+        dqn.learner.train_from_buffer()
+    readings["dqn_train_many_ms"] = (time.perf_counter() - t0) * 1e3 / \
+        RL_TIMED
+    # (f) Multi-agent PPO at its defaults.
+    ma = rl.MultiAgentPPO(rl.CoordinationGame(), device=dev, seed=SEED)
+    ma_out = [ma.train() for _ in range(RL_MA_ITERS)]
+    result = {
+        "config": {"env": "CartPole-v1", "hidden": list(learner.config.hidden),
+                   "num_envs": RL_ENVS, "rollout_len": RL_ROLLOUT,
+                   "ppo_lr": RL_PPO_LR, "graph": graph},
+        "rollout_graph_vs_eager": {"max_diff": rollout_diff,
+                                   "tol": RL_GRAPH_TOL,
+                                   "generator_states_equal": same_gen,
+                                   "dones_in_rollout": dones},
+        "update_graph_vs_eager": {"max_param_diff": update_diff,
+                                  "loss": [loss_g, loss_e],
+                                  "tol": RL_GRAPH_TOL},
+        "ppo_episode_len_mean": lens, "ppo_greedy_return": greedy,
+        "ppo_losses": [r["loss"] for r in ppo],
+        "dqn_losses": dqn_losses,
+        "multi_agent": [{"mean_step_reward": r["mean_step_reward"],
+                         "losses": r["losses"]} for r in ma_out],
+        "readings": readings, "card": card}
+    emit({"phase": "rl", **result})
+    ok = (rollout_ok and dones > 0 and update_ok
+          and lens[-1] > RL_IMPROVE * lens[0]
+          and all(np.isfinite(dqn_losses))
+          and all(np.isfinite(list(r["losses"].values())).all()
+                  for r in ma_out))
+    if not ok:
+        raise AssertionError(
+            f"rl: graph and eager apart, PPO did not improve past "
+            f"{RL_IMPROVE}x, or a non-finite loss: {result}")
+    return result
+
+
 # --------------------------------------------------------------- phase 7: moe
 @contextlib.contextmanager
 def _routes_recorded(seen):
@@ -1985,7 +2450,7 @@ def phase_moe(dev, card, base, model_lens, lens, new_tokens):
     res.update({"launches_per_prefill_by_variant": variants,
                 "launches_after_decode": after_all,
                 "decoded": [len(o) for o in out]})
-    if (variants != {"wgmma": L, "simt": 0} or after_all != L
+    if (variants != _variant_want("wgmma", L) or after_all != L
             or any(len(o) != new_tokens + 1 for o in out)):
         emit({"phase": "moe", "results": res})
         raise AssertionError(f"MoE serving: launches {variants}, "
@@ -2502,7 +2967,7 @@ def _spmd_want(cfg, axes, mb):
     its pp + M - 1 ticks."""
     pp, L = axes.get("pp", 1), cfg.n_layers
     runs = mb if pp > 1 else 1
-    n = {"wgmma": 0, "simt": 0}
+    n = _variant_want(None, 0)
     reference = 0
     if axes.get("sp", 1) == 1:
         for i in range(L):
@@ -2513,8 +2978,8 @@ def _spmd_want(cfg, axes, mb):
         reference = SPMD_SHARDS * (L // pp) * (pp + mb - 1 if pp > 1 else 1)
     total = n["wgmma"] + n["simt"]
     return ({"fwd": total, **n, "dq": total, "dkv": total,
-             "dq_wgmma": n["wgmma"], "dkv_wgmma": n["wgmma"],
-             "dq_simt": n["simt"], "dkv_simt": n["simt"], "rms": 0},
+             **{f"{kind}_{v}": c for v, c in n.items()
+                for kind in ("dq", "dkv")}, "rms": 0},
             reference)
 
 
@@ -2855,6 +3320,7 @@ def main() -> int:
     phase_build()
     timing = phase_kernels(dev)
     bwd = phase_backward(dev)
+    wide = phase_wide(dev)
     rms = phase_rms(dev)
     c1 = phase_c1_models(dev, flagship, model_lens)
     fa = _flash_module()
@@ -2874,6 +3340,7 @@ def main() -> int:
     phase_dag_mesh(dev, card, one_device_dag)
     phase_tp(dev, card, flagship, ENGINE_LENS, 32)
     spmd = phase_spmd_train(dev, card, flagship)
+    phase_rl(dev, card)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -3001,6 +3468,37 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
                 "plain": tb["plain"], "library": tb["library"],
                 "shape": tb["shape"], "dtype": tb["dtype"], "card": card})
+    # The wide kernels (head_dim above 256): launches from phase 2b's
+    # head_dim 512 config (one prefill_with_cache and one gradient pass),
+    # times at WIDE_TIMED in bf16 (f32 beside them).
+    served = c1["hd512_bf16"]
+    wide_source = "ray_tpu_torch/ops/csrc/flash_attention_wide.cu"
+    for kind, replaces_key, launches, launches_train in (
+            ("fwd", "mha",
+             served["launches_per_prefill_by_variant"]["wide"],
+             served["launches_per_pass"]["wide"]),
+            ("dq", "dq", served["launches_per_pass"]["dq_wide"], None),
+            ("dkv", "dkv", served["launches_per_pass"]["dkv_wide"], None)):
+        t, t32 = wide["bfloat16"], wide["float32"]
+        kernels.append({
+            "name": ("flash_attention_fwd" if kind == "fwd"
+                     else f"flash_attention_bwd_{kind}") + "[wide]",
+            "route": "cuda", "variant": "wide", "source": wide_source,
+            "replaces": replaces[replaces_key],
+            "launches": launches, "launches_train": launches_train,
+            "launches_from": "phase 2b hd512_bf16: one prefill_with_cache "
+                             "and one gradient pass",
+            "max_abs_err": t[kind]["max_abs_err"],
+            "ms": t[kind]["kernel_ms"], "kernel_ms": t[kind]["kernel_ms"],
+            "plain_ms": t[kind]["plain_ms"], "bound_ms": t[kind]["bound_ms"],
+            "bound_by": t[kind]["bound_by"],
+            "library_ms": t[kind]["library_ms"],
+            "library": f"scaled_dot_product_attention "
+                       f"({t['sdpa_backend']})",
+            "f32": {k: t32[kind][k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err")} | {"sdpa_backend": t32["sdpa_backend"]},
+            "shape": t["shape"], "dtype": "bfloat16", "card": card})
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

@@ -11,11 +11,14 @@ sm_90a, a Triton RMSNorm kernel, plain PyTorch paged attention); the
 compiled-DAG wave executor, on one device or sharded over a mesh:
 ``dag`` with the bind-only ``remote`` of ``remote_function``; and the
 one-controller mesh and its collectives, ``parallel`` and
-``collective``. Entry points take a ``device`` that defaults to
+``collective``; and reinforcement learning, ``rl`` (tensor-native
+environments, PPO, DQN and multi-agent PPO, each rollout and update one
+CUDA graph on the card). Entry points take a ``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``.
 """
 
+from ray_tpu_torch import rl
 from ray_tpu_torch.remote_function import remote
 
 __version__ = "0.1.0"
-__all__ = ["remote"]
+__all__ = ["remote", "rl"]

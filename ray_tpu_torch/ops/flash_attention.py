@@ -14,17 +14,19 @@ backward kernels, dQ and dK/dV, replace ``_attn_bwd_dq_kernel`` and
 same rule of shapes (``_backward_variant``): bf16 at head_dim 64 or 128 on
 the tensor cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel
 also writes delta = rowsum(dO * O) for its dK/dV kernel), everything else
-on the CUDA cores (``csrc/flash_attention_bwd.cu``). A wrapper launches its
-kernel for CUDA tensors and raises on what it does not take; it runs the
-plain version only for tensors on the CPU.
+up to head_dim 256 on the CUDA cores (``csrc/flash_attention_bwd.cu``).
+Every head_dim above 256 takes the ``"wide"`` variant, all three kernels
+in ``csrc/flash_attention_wide.cu``, which split the head dimension of
+their output across blocks (CUDA cores, any multiple of 8). A wrapper
+launches its kernel for CUDA tensors and raises on what it does not take;
+it runs the plain version only for tensors on the CPU.
 
 Which route a head_dim takes is one rule, ``_attention_route``: a head_dim
 that is no multiple of 8 takes the plain path (``_fallback`` /
 ``_fallback_grouped``), as the reference does on every device. Every other
-head_dim takes a kernel; above 256 no kernel is written yet (the reference
-runs Pallas there), so a CUDA tensor raises ``ValueError``. ``take_route``
-applies the rule and counts each plain route in ``plain_routes``; the
-model's ``_attention_dense`` uses it too.
+head_dim takes a kernel. ``take_route`` applies the rule and counts each
+plain route in ``plain_routes``; the model's ``_attention_dense`` uses it
+too.
 
 Layouts are the reference's: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``.
 ``flash_attention`` is differentiable through ``_FlashCore`` (the
@@ -43,18 +45,21 @@ NEG_INF = -1e30
 
 # Kernel launches made by this module's wrappers, one count per kernel
 # (callers reset them to 0 around the run they want to attribute).
-launches = 0        # forward, both variants
+launches = 0        # forward, every variant
 wgmma_launches = 0  # forward on the tensor cores (bf16, D 64 or 128)
-simt_launches = 0   # forward on the CUDA cores (f32, other D)
-dq_launches = 0     # backward dQ, both variants
-dkv_launches = 0    # backward dK/dV, both variants
+simt_launches = 0   # forward on the CUDA cores (f32, f16, other D <= 256)
+wide_launches = 0   # forward with D above 256 (CUDA cores, D split)
+dq_launches = 0     # backward dQ, every variant
+dkv_launches = 0    # backward dK/dV, every variant
 dq_wgmma_launches = 0   # backward on the tensor cores (bf16, D 64 or 128)
 dkv_wgmma_launches = 0
-dq_simt_launches = 0    # backward on the CUDA cores (f32, f16, other D)
+dq_simt_launches = 0    # backward on the CUDA cores (f32, f16, D <= 256)
 dkv_simt_launches = 0
+dq_wide_launches = 0    # backward with D above 256
+dkv_wide_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
-KERNEL_MAX_D = 256   # the widest head_dim the CUDA-core kernels take
+SIMT_MAX_D = 256   # the widest head_dim of the "simt" kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (library, function) -> argtypes.
@@ -71,7 +76,18 @@ _SIGNATURES = {
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
     ("flash_attention_bwd_wgmma", "flash_attention_bwd_dkv_wgmma"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+    ("flash_attention_wide", "flash_attention_fwd_wide"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide", "flash_attention_bwd_dq_wide"):
+        [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide", "flash_attention_bwd_dkv_wide"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
+# The CUDA-core variants: (forward library, backward library, suffix of
+# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv).
+_CUDA_CORE = {"simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
+              "wide": ("flash_attention_wide", "flash_attention_wide",
+                       "_wide")}
 _bound = {}
 
 
@@ -183,20 +199,18 @@ def _check_kernel_inputs(tensors, names):
             raise ValueError(f"flash attention kernel takes contiguous, "
                              f"16-byte aligned {names}")
     D = first.shape[-1]
-    if D % 8 or D > KERNEL_MAX_D:
+    if D % 8:
         raise ValueError(f"flash attention kernel takes head_dim a multiple "
-                         f"of 8 up to {KERNEL_MAX_D}, got {D}; a kernel for "
-                         f"head_dim above {KERNEL_MAX_D} is open in "
-                         f"ROADMAP B")
+                         f"of 8, got {D}; _attention_route sends the rest "
+                         f"to the plain path")
 
 
 def _attention_route(dtype: torch.dtype, D: int) -> str:
     """Where attention over head_dim ``D`` goes: ``"plain"`` when D is no
     multiple of 8 (the reference's own fallback rule), else the kernel
-    variant of ``_forward_variant``. An input no kernel takes still gets a
-    variant, and the kernel's wrapper raises on a CUDA tensor:
-    ``TypeError`` for its dtype, ``ValueError`` for a head_dim above
-    ``KERNEL_MAX_D`` (the reference runs Pallas there; ROADMAP B)."""
+    variant of ``_forward_variant``. A dtype no kernel takes still gets a
+    variant, and the kernel's wrapper raises ``TypeError`` on a CUDA
+    tensor."""
     if D % 8:
         return "plain"
     return _forward_variant(dtype, D)
@@ -214,10 +228,14 @@ def take_route(dtype: torch.dtype, D: int) -> str:
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
     """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
-    for bf16 with head_dim 64 or 128, ``"simt"`` (CUDA cores) otherwise.
-    f32 stays on the CUDA cores because TF32 products would break its
-    limit (``testing.O_ROW_TOL``); f16 has no tensor-core kernel."""
-    return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    for bf16 with head_dim 64 or 128, ``"wide"`` (CUDA cores, the head
+    dimension split across blocks) for head_dim above ``SIMT_MAX_D``,
+    ``"simt"`` (CUDA cores) otherwise. f32 stays on the CUDA cores because
+    TF32 products would break its limit (``testing.O_ROW_TOL``); f16 has
+    no tensor-core kernel."""
+    if dtype == torch.bfloat16 and D in (64, 128):
+        return "wgmma"
+    return "wide" if D > SIMT_MAX_D else "simt"
 
 
 def _backward_variant(dtype: torch.dtype, D: int) -> str:
@@ -235,7 +253,7 @@ def _check_launch(name, err):
 
 
 def _launch(q, k, v, causal, scale):
-    global launches, wgmma_launches, simt_launches
+    global launches, wgmma_launches, simt_launches, wide_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -250,12 +268,15 @@ def _launch(q, k, v, causal, scale):
         name = "flash_attention_fwd_wgmma"
         err = _kernel_fn(name, name)(*args, stream)
     else:
-        name = "flash_attention_fwd"
-        err = _kernel_fn(name, name)(*args, _DTYPE_CODE[q.dtype], stream)
+        library, _, suffix = _CUDA_CORE[variant]
+        name = "flash_attention_fwd" + suffix
+        err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)
     _check_launch(name, err)
     launches += 1
     if variant == "wgmma":
         wgmma_launches += 1
+    elif variant == "wide":
+        wide_launches += 1
     else:
         simt_launches += 1
     return o, lse
@@ -286,14 +307,15 @@ def _check_rows_f32(t, q, name):
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
     delta). The tensor-core variant also writes delta = rowsum(dO * O),
-    [B, H, Sq] f32, which its dK/dV kernel reads; the CUDA-core variant
-    returns None (its dK/dV kernel computes delta itself)."""
-    global dq_launches, dq_wgmma_launches, dq_simt_launches
+    [B, H, Sq] f32, which its dK/dV kernel reads; the CUDA-core variants
+    return None (their dK/dV kernels compute delta themselves)."""
+    global dq_launches, dq_wgmma_launches, dq_simt_launches, dq_wide_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr())
-    if _backward_variant(q.dtype, q.shape[-1]) == "wgmma":
+    variant = _backward_variant(q.dtype, q.shape[-1])
+    if variant == "wgmma":
         delta = torch.empty(q.shape[:3], dtype=torch.float32,
                             device=q.device)
         name = "flash_attention_bwd_dq_wgmma"
@@ -303,11 +325,15 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
         dq_wgmma_launches += 1
     else:
         delta = None
-        name = "flash_attention_bwd_dq"
-        err = _kernel_fn("flash_attention_bwd", name)(
+        _, library, suffix = _CUDA_CORE[variant]
+        name = "flash_attention_bwd_dq" + suffix
+        err = _kernel_fn(library, name)(
             *ptrs, *scalars, _DTYPE_CODE[q.dtype], stream)
         _check_launch(name, err)
-        dq_simt_launches += 1
+        if variant == "wide":
+            dq_wide_launches += 1
+        else:
+            dq_simt_launches += 1
     dq_launches += 1
     return dq, delta
 
@@ -315,12 +341,14 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
 def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv).
     ``delta`` is ``_launch_dq``'s second result: the tensor-core variant
-    reads it, the CUDA-core variant computes delta from O itself."""
+    reads it, the CUDA-core variants compute delta from O themselves."""
     global dkv_launches, dkv_wgmma_launches, dkv_simt_launches
+    global dkv_wide_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    if _backward_variant(q.dtype, q.shape[-1]) == "wgmma":
+    variant = _backward_variant(q.dtype, q.shape[-1])
+    if variant == "wgmma":
         _check_rows_f32(delta, q, "delta")
         name = "flash_attention_bwd_dkv_wgmma"
         err = _kernel_fn("flash_attention_bwd_wgmma", name)(
@@ -330,13 +358,17 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
         _check_launch(name, err)
         dkv_wgmma_launches += 1
     else:
-        name = "flash_attention_bwd_dkv"
-        err = _kernel_fn("flash_attention_bwd", name)(
+        _, library, suffix = _CUDA_CORE[variant]
+        name = "flash_attention_bwd_dkv" + suffix
+        err = _kernel_fn(library, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *scalars, _DTYPE_CODE[q.dtype], stream)
         _check_launch(name, err)
-        dkv_simt_launches += 1
+        if variant == "wide":
+            dkv_wide_launches += 1
+        else:
+            dkv_simt_launches += 1
     dkv_launches += 1
     return dk, dv
 

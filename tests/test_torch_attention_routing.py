@@ -6,9 +6,9 @@ The reference falls back to plain attention when head_dim is no multiple
 of 8 (``flash_attention``'s ``_fallback``, the model's dense einsum); the
 port does the same, and counts each plain route in ``plain_routes``, so a
 run can show that a model never took it. Every other head_dim takes a
-kernel route; above 256, where no kernel is written yet, a CUDA tensor
-raises, and a CPU tensor runs the kernel's plain version like any other
-kernel route. f32
+kernel route (above 256 the wide kernels, which split the head dimension
+across blocks); a CPU tensor runs the kernel's plain version like any
+other kernel route. f32
 inputs compare at 1e-5 (the same math in another summation order); f16
 and bf16 configs at a few ulps of their O(1) logits.
 """
@@ -50,6 +50,7 @@ def test_attention_route_rule(D, dtype):
     dt = DTYPES[dtype]
     want = ("plain" if D == 12
             else "wgmma" if dt == torch.bfloat16 and D in (64, 128)
+            else "wide" if D > 256
             else "simt")
     assert fa._attention_route(dt, D) == want
     before = fa.plain_routes
@@ -104,9 +105,10 @@ def test_flash_attention_grouped_plain_route_matches_reference():
 
 
 # Configs the reference computes and the port once refused on the card:
-# head_dim 12 (d_model 48 over 4 heads), head_dim 256 (d_model 512 over 2)
-# and head_dim 264 (above the kernels' widest: a kernel route that raises
-# on the card, the plain version on the CPU).
+# head_dim 12 (d_model 48 over 4 heads), head_dim 256 (d_model 512 over
+# 2), head_dim 264 and head_dim 512 (d_model 1024 over 2 heads), the last
+# two on the wide kernels' route, which computes on the card and runs the
+# plain version on the CPU.
 BASE = jm.TransformerConfig(vocab_size=64, d_model=48, n_layers=2,
                             n_heads=4, n_kv_heads=2, d_ff=64,
                             dtype=jnp.float32)
@@ -116,6 +118,8 @@ CONFIGS = {
                                  n_kv_heads=1, n_layers=1),
     "hd264": dataclasses.replace(BASE, d_model=264, n_heads=1,
                                  n_kv_heads=1, n_layers=1),
+    "hd512": dataclasses.replace(BASE, d_model=1024, n_heads=2,
+                                 n_kv_heads=2, n_layers=1),
 }
 
 

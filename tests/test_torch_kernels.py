@@ -76,8 +76,9 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     """D=12 takes the plain route (no launch, one plain route counted)
-    and equals it; f16 runs the CUDA-core kernel; a dtype no kernel takes,
-    a non-contiguous input and a head_dim above 256 still raise."""
+    and equals it; f16 runs the CUDA-core kernel; head_dim 264 launches
+    the wide kernel and equals the plain version; a dtype no kernel takes
+    and a non-contiguous input still raise."""
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 12, torch.float32, cuda_device)
     before = fa.launches, fa.plain_routes
     out = fa.flash_attention(q, k, v)
@@ -94,10 +95,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), k, v)
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 264, torch.float32, cuda_device)
-    before = fa.launches, fa.plain_routes
-    with pytest.raises(ValueError, match="ROADMAP B"):
-        fa.flash_attention(q, k, v)
-    assert (fa.launches, fa.plain_routes) == before
+    before = fa.wide_launches, fa.plain_routes
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.wide_launches, fa.plain_routes) == (before[0] + 1, before[1])
+    torch.testing.assert_close(out, fa._dense(q, k, v, True, 264 ** -0.5)[0],
+                               atol=1e-5, rtol=1e-4)
     q, k, v = _qkv(1, 1, 2, 1, 16, 16, 16, torch.float32, cuda_device)
     with pytest.raises(NotImplementedError):
         fa.flash_attention_grouped(q.requires_grad_(), k, v)
@@ -124,20 +127,74 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, D, Hq, Hkv, Sq, Sk,
     _assert_close(o, lse, ro, rlse)
 
 
+def _forward_counts():
+    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
+            "wide": fa.wide_launches}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
-    (torch.bfloat16, 256, "simt")])
+    (torch.bfloat16, 256, "simt"), (torch.float32, 264, "wide"),
+    (torch.bfloat16, 512, "wide")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
-    before = {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+    before = _forward_counts()
     fa._flash_forward(q, k, v, True)
     torch.cuda.synchronize()
-    after = {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches}
+    after = _forward_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "wgmma": int(variant == "wgmma"), "simt": int(variant == "simt")}
+        n: int(n == variant) for n in after}
+
+
+# Head dims above 256 take the wide kernels (the head dimension of the
+# output split across blocks): 264 has a last chunk of 8 columns, 1024
+# sweeps 16 chunks. MHA and GQA forward, ragged lengths, Sq != Sk.
+WIDE_DIMS = [264, 512, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("Hq,Hkv,Sq,Sk", [(4, 2, 77, 131), (2, 2, 130, 130)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv, Sq,
+                                         Sk, causal):
+    q, k, v = _qkv(13, 2, Hq, Hkv, Sq, Sk, D, dtype, cuda_device)
+    before = _forward_counts()
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = _forward_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "wgmma": 0, "simt": 0, "wide": 1}
+    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("Sq,Sk", [(77, 131), (130, 130), (3, 50)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
+                                           causal):
+    q, k, v = _qkv(14, 2, 2, 2, Sq, Sk, D, dtype, cuda_device)
+    do = _qkv(15, 2, 2, 2, Sq, Sq, D, dtype, cuda_device)[0]
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wide")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
 
 
 @pytest.mark.cuda
@@ -189,12 +246,13 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, H, Sq, Sk,
 def _backward_counts():
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
-            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches}
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
+            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches}
 
 
 def _backward_launched(before, variant):
     """Launches since `before`, and what the rule wants: one dQ and one
-    dK/dV of `variant`, none of the other."""
+    dK/dV of `variant`, none of the others."""
     got = {n: c - before[n] for n, c in _backward_counts().items()}
     want = {n: int(n.endswith(variant)) for n in got}
     return got, want
@@ -229,7 +287,8 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, D, Sq, Sk, causal):
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
-    (torch.bfloat16, 256, "simt")])
+    (torch.bfloat16, 256, "simt"), (torch.float16, 264, "wide"),
+    (torch.float32, 1024, "wide")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
