@@ -10,8 +10,9 @@ non-zero without printing a result. Without a CUDA card, or without the
    dK/dV, each on the tensor cores, on the CUDA cores and, for head_dim
    above 256, the wide kernels) from
    ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
-   registers and spills per kernel; each tensor-core library's SASS must
-   hold HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
+   registers and spills per kernel; the SASS of every tensor-core kernel
+   instantiation (bf16 and f16 at head_dim 64, 128 and 256) must hold
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
    RMSNorm kernel compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version on the card at
    the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
@@ -29,16 +30,20 @@ non-zero without printing a result. Without a CUDA card, or without the
    timed through CUDA graphs beside the plain backward, SDPA's backward
    and the bound, bf16 also beside the CUDA-core kernels on the same
    inputs; and the RMSNorm kernel at [4*2048, 512], timed beside
-   torch.nn.functional.rms_norm. The shapes and dtypes the reference
-   computes beyond the tensor-core kernels' (C1_FWD_CASES,
-   C1_BWD_CASES): head_dim 256 (and 200) in f32, bf16 and f16, and
-   head_dim 64 in f16, each on the CUDA-core kernels, checked at
-   O_ROW_TOL / GRAD_ROW_TOL of its dtype with a planted fault and a check
-   of the variant launched; at S=2048 each is timed beside SDPA and the
-   bound. head_dim 12 takes the counted plain route: no launch, one
-   plain_routes, the plain result; head_dim 264 through flash_attention
-   launches the wide kernel. The wide kernels (head_dim above 256, the
-   head dimension of the output split across blocks): forward, dQ and
+   torch.nn.functional.rms_norm. The shapes and dtypes beyond the bf16
+   flagship (C1_FWD_CASES, C1_BWD_CASES): head_dim 256 in f32, bf16 and
+   f16 (GQA down to one KV head), head_dim 128 in bf16 and f16, head_dim
+   64 in f16 and head_dim 200, each checked at O_ROW_TOL / GRAD_ROW_TOL
+   of its dtype with a planted fault and a check of the variant launched
+   (bf16 and f16 at head_dim 64/128/256 on the tensor cores, the rest on
+   the CUDA cores); where the tensor cores take a case, the CUDA-core
+   kernels are held against the plain version on the same inputs too; at
+   S=2048 each is timed beside SDPA, the bound and, for the tensor-core
+   cases, the CUDA-core kernel. head_dim 12 takes the counted plain
+   route: no launch, one plain_routes, the plain result; head_dim 264
+   through flash_attention launches the wide kernel. The wide kernels
+   (head_dim above 256, the head dimension of the output split across
+   blocks): forward, dQ and
    dK/dV at head_dim 264, 512 and 1024 in f32, bf16 and f16 up to S=512
    (phase 2b's shape), causal and not, against the plain versions with a
    planted fault each, launching the wide variant once and nothing else;
@@ -46,16 +51,18 @@ non-zero without printing a result. Without a CUDA card, or without the
    plain versions with a planted fault again and timed through CUDA
    graphs beside the plain versions, SDPA (with the backend it picks) and
    the bound.
-2b. c1_models: four configs the reference serves and trains, at the
-   flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads,
-   bf16), head_dim 512 (d_model 1024 over 2 heads, bf16: the wide
-   kernels), the flagship in float16 and head_dim 12 (d_model 384 over 32
-   heads, GQA 8, bf16). Each serves 4 prompts through prefill_with_cache
-   and 8 decode_steps (prefill logits equal prefill_chunk's) and takes a
-   gradient pass and 2 AdamW steps (finite, the CUDA-core or wide kernels
-   launched n_layers times per pass; head_dim 12 launches nothing and
-   counts n_layers plain routes per forward). From here on the flagship's
-   phases must count no plain route.
+2b. c1_models: five configs the reference serves and trains, at the
+   flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
+   and over 8 query heads and one KV head, Gemma-2B's attention widths),
+   head_dim 512 (d_model 1024 over 2 heads, bf16: the wide kernels), the
+   flagship in float16 and head_dim 12 (d_model 384 over 32 heads, GQA 8,
+   bf16). Each serves 4 prompts through prefill_with_cache and 8
+   decode_steps (prefill logits equal prefill_chunk's) and takes a
+   gradient pass and 2 AdamW steps (finite, the tensor-core kernels at
+   head_dim 256 and in f16, the wide ones at 512, launched n_layers times
+   per pass and no other variant; head_dim 12 launches nothing and counts
+   n_layers plain routes per forward). From here on the flagship's phases
+   must count no plain route.
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
@@ -250,21 +257,34 @@ BWD_LENGTHS = (128, 512, 2048, 200)   # 200: ragged, no multiple of 64
 # and Sq != Sk (the reference's top-left causal mask).
 BWD_EXTRA_CASES = ((512, 512, 128), (200, 200, 128), (77, 131, 64))
 BWD_TIMED_LEN = 2048   # the training length, where the backward is timed
-# Phase 2's cases the CUDA-core kernels took over in this slice: head_dim
-# 256 (and 200, the runtime-width instance) in each dtype the kernels
-# take, and f16 at head_dim 64; forward (Hkv, Sq, Sk, D, dtypes) at B=4,
-# Hq=8, backward (Sq, Sk, D, dtypes) at B=4, H=8. At S=2048 (causal) each
-# is timed.
+# Phase 2's cases beyond the bf16 flagship: head_dim 256 (and 200, the
+# CUDA-core kernels' runtime-width instance) in each dtype, head_dim 128
+# in bf16 and f16, and f16 at head_dim 64; forward (Hkv, Sq, Sk, D,
+# dtypes) at B=4, Hq=8 (Hkv 1 is Gemma-2B's attention: 8 query heads over
+# one KV head at head_dim 256), backward (Sq, Sk, D, dtypes) at B=4, H=8.
+# bf16 and f16 at head_dim 64, 128 and 256 take the tensor-core kernels,
+# and the CUDA-core kernels that took them before are held against
+# the plain versions on the same inputs through _simt_forward /
+# _simt_backward. At S=2048 (causal) each is timed, beside the CUDA-core
+# kernel where the tensor cores take the case.
 _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 C1_FWD_CASES = ((8, 512, 512, 256, (_F32, _BF16, _F16)),
                 (4, 200, 200, 256, (_F32, _BF16, _F16)),
+                (1, 512, 512, 256, (_BF16, _F16)),
+                (1, 77, 131, 256, (_BF16, _F16)),
                 (8, 2048, 2048, 256, (_F32, _BF16, _F16)),
+                (8, 2048, 2048, 128, (_BF16, _F16)),
+                (2, 200, 200, 128, (_F16,)),
                 (8, 2048, 2048, 64, (_F16,)), (4, 77, 131, 64, (_F16,)),
                 (4, 512, 512, 200, (_BF16,)))
 C1_BWD_CASES = ((512, 512, 256, (_F32, _BF16, _F16)),
                 (200, 200, 256, (_F32, _BF16, _F16)),
+                (77, 131, 256, (_BF16, _F16)),
                 (2048, 2048, 256, (_F32, _BF16, _F16)),
-                (2048, 2048, 64, (_F16,)), (77, 131, 200, (_BF16,)))
+                (2048, 2048, 128, (_BF16, _F16)),
+                (200, 200, 128, (_F16,)),
+                (2048, 2048, 64, (_F16,)), (77, 131, 64, (_F16,)),
+                (77, 131, 200, (_BF16,)))
 PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
 WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
@@ -435,13 +455,17 @@ KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
                     "flash_attention_bwd_wgmma", "flash_attention_bwd",
                     "flash_attention_wide")
 WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
+# Kernel instantiations per tensor-core library: (bf16, f16) x head_dim
+# (64, 128, 256), once for the forward and once each for dQ and dK/dV.
+WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
+                   "flash_attention_bwd_wgmma": 12}
 
 
 def ptxas_summary(report: str):
     """ptxas's register and spill lines, each under the kernel it names:
     kernel<dtype, per-thread slice of D, register slice> for the CUDA-core
     kernels (16 being D = 64, 64 being D = 256; a slice of 0 is the
-    runtime-width instance), kernel<D> for the tensor-core ones,
+    runtime-width instance), kernel<dtype, D> for the tensor-core ones,
     kernel<dtype> for the wide ones (head_dim above 256)."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
@@ -452,7 +476,8 @@ def ptxas_summary(report: str):
                           r"I(13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E",
                           entry.group(1))
             w = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)"
-                          r"ILi(\d+)E", entry.group(1))
+                          r"I(13__nv_bfloat16|6__half)Li(\d+)E",
+                          entry.group(1))
             wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)"
                              r"I(13__nv_bfloat16|6__half|f)E",
                              entry.group(1))
@@ -462,7 +487,7 @@ def ptxas_summary(report: str):
                 name = (f"{m.group(1)}<{dtypes[m.group(2)]}, "
                         f"{m.group(3)}, {m.group(4)}>")
             elif w:
-                name = f"{w.group(1)}<{w.group(2)}>"
+                name = f"{w.group(1)}<{dtypes[w.group(2)]}, {w.group(3)}>"
             else:
                 name = entry.group(1)
         elif "registers" in ln or "bytes spill" in ln:
@@ -489,14 +514,22 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found (CUDA toolkit or Triton)")
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+
+
 def sass_counts(library: Path):
     """Counts of tensor-core (HGMMA), TMA load (UTMALDG) and TMA store
-    (UTMASTG) instructions in a library's SASS."""
+    (UTMASTG) instructions in a library's SASS: the library's totals, and
+    per kernel function (``kernels``, keyed by its mangled name)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+    parts = re.split(r"Function : (\S+)", sass)
+    counts["kernels"] = {
+        name: {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+        for name, body in zip(parts[1::2], parts[2::2])}
+    return counts
 
 
 def phase_build():
@@ -517,9 +550,15 @@ def phase_build():
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
     for n, counts in sass.items():
-        if not counts["HGMMA"] or not counts["UTMALDG"]:
-            raise AssertionError(f"{n} has no wgmma or no TMA load in its "
-                                 f"SASS: {counts}")
+        # Every instantiation (bf16 and f16; head_dim 64, 128 and 256) of
+        # every tensor-core kernel in the library, each on its own.
+        kernels = {k: c for k, c in counts["kernels"].items()
+                   if "_wgmma_kernel" in k}
+        if len(kernels) != WGMMA_INSTANCES[n] or any(
+                not c["HGMMA"] or not c["UTMALDG"] for c in kernels.values()):
+            raise AssertionError(f"{n}: a tensor-core kernel has no wgmma or "
+                                 f"no TMA load in its SASS, or one is "
+                                 f"missing: {counts}")
 
 
 def compare(o, lse, ro, rlse):
@@ -541,17 +580,21 @@ def phase_kernels(dev):
     is the one that launched, and reads a planted fault (the plain version
     with one 64-key tile of V zeroed, i.e. that tile's P.V dropped)
     through the same comparison, failing unless the check flags it. Then
-    C1_FWD_CASES (head_dim 256 and f16 on the CUDA cores, timed at
-    S=2048) and the plain route of head_dim PLAIN_ROUTE_D."""
+    C1_FWD_CASES (head_dim 256, 128 and 200, f16; timed at S=2048), where
+    a case the tensor cores take also holds the CUDA-core kernel against
+    the plain version on the same inputs; and the plain route of head_dim
+    PLAIN_ROUTE_D."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B, Hq = 4, 8
     both = (torch.bfloat16, torch.float32)
-    cases = [(Hkv, S, S, 64, both) for Hkv in KV_HEADS for S in FWD_LENGTHS]
-    cases += [(*c, both) for c in FWD_EXTRA_CASES] + list(C1_FWD_CASES)
+    cases = [(Hkv, S, S, 64, both, False) for Hkv in KV_HEADS
+             for S in FWD_LENGTHS]
+    cases += [(*c, both, False) for c in FWD_EXTRA_CASES]
+    cases += [(*c, True) for c in C1_FWD_CASES]
     checks = []
     timing = {}
-    for Hkv, Sq, Sk, D, dtypes in cases:
+    for Hkv, Sq, Sk, D, dtypes, c1 in cases:
         for dtype in dtypes:
             q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
@@ -577,13 +620,22 @@ def phase_kernels(dev):
                 ok = (err_row <= tol and err_lse <= 1.0
                       and bool(torch.isfinite(o).all())
                       and launched == _variant_want(variant, 1))
-                checks.append({"Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D,
-                               "dtype": str(dtype).split(".")[1],
-                               "causal": causal, "variant": variant,
-                               "launched": launched, "err_o_abs": err_abs,
-                               "err_o_row": err_row, "tol_o_row": tol,
-                               "err_lse_of_limit": err_lse,
-                               "fault_o_row": fault_row, "ok": ok})
+                check = {"Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D,
+                         "dtype": str(dtype).split(".")[1],
+                         "causal": causal, "variant": variant,
+                         "launched": launched, "err_o_abs": err_abs,
+                         "err_o_row": err_row, "tol_o_row": tol,
+                         "err_lse_of_limit": err_lse,
+                         "fault_o_row": fault_row}
+                if c1 and variant == "wgmma":
+                    so, slse = _simt_forward(fa, q, k, v, causal)
+                    torch.cuda.synchronize()
+                    _, simt_row, simt_lse = compare(so, slse, ro, rlse)
+                    check.update(simt_err_o_row=simt_row,
+                                 simt_err_lse_of_limit=simt_lse)
+                    ok = ok and simt_row <= tol and simt_lse <= 1.0 and \
+                        bool(torch.isfinite(so).all())
+                checks.append({**check, "ok": ok})
                 if not ok or fault_row <= tol:
                     emit({"phase": "kernels", "checks": checks})
                     raise AssertionError(
@@ -682,9 +734,9 @@ def _variant_counts(fa):
 
 def _simt_forward(fa, q, k, v, causal):
     """The CUDA-core kernel called straight through its C entry point on any
-    input it takes (bf16 included), bypassing the wrapper's rule of shapes:
-    the earlier design, timed beside the tensor-core kernel on the same
-    inputs. Counts no launch."""
+    input it takes (bf16 and f16 included), bypassing the wrapper's rule of
+    shapes: the earlier design, checked and timed beside the tensor-core
+    kernel on the same inputs. Counts no launch."""
     B, Hq, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -739,17 +791,19 @@ def phase_backward(dev):
     kernel, and nothing else, and reads a planted fault (the plain
     backward with one 64-row tile of dO zeroed) through the same check,
     failing unless it is flagged. Timings at the training shape S=2048,
-    per dtype; then C1_BWD_CASES (head_dim 256 and f16 on the CUDA
-    cores), timed at S=2048."""
+    per dtype; then C1_BWD_CASES (head_dim 256, 128 and 200, f16; timed
+    at S=2048), where a case the tensor cores take also holds the
+    CUDA-core kernels against the plain backward on the same inputs."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     B, H = 4, 8
     both = (torch.bfloat16, torch.float32)
-    cases = [(S, S, 64, both) for S in BWD_LENGTHS]
-    cases += [(*c, both) for c in BWD_EXTRA_CASES] + list(C1_BWD_CASES)
+    cases = [(S, S, 64, both, False) for S in BWD_LENGTHS]
+    cases += [(*c, both, False) for c in BWD_EXTRA_CASES]
+    cases += [(*c, True) for c in C1_BWD_CASES]
     checks = []
     timing = {}
-    for Sq, Sk, D, dtypes in cases:
+    for Sq, Sk, D, dtypes, c1 in cases:
         scale = D ** -0.5
         for dtype in dtypes:
             q, do = (torch.randn((B, H, Sq, D), generator=gen,
@@ -782,16 +836,26 @@ def phase_backward(dev):
                 finite = all(bool(torch.isfinite(g).all()) for g in got)
                 want = _backward_want(variant, 1)
                 ok = finite and max(errs) <= tol and launched == want
-                checks.append({"Sq": Sq, "Sk": Sk, "D": D,
-                               "dtype": _dtype_name(dtype),
-                               "causal": causal, "variant": variant,
-                               "launched": launched,
-                               "err_row": dict(zip(("dq", "dk", "dv"),
-                                                   errs)),
-                               "max_abs": dict(zip(("dq", "dk", "dv"),
-                                                   abs_errs)),
-                               "tol_row": tol, "fault_row": fault_err,
-                               "ok": ok})
+                check = {"Sq": Sq, "Sk": Sk, "D": D,
+                         "dtype": _dtype_name(dtype),
+                         "causal": causal, "variant": variant,
+                         "launched": launched,
+                         "err_row": dict(zip(("dq", "dk", "dv"), errs)),
+                         "max_abs": dict(zip(("dq", "dk", "dv"), abs_errs)),
+                         "tol_row": tol, "fault_row": fault_err}
+                if c1 and variant == "wgmma":
+                    simt = (*_simt_backward(fa, "dq", q, k, v, o, lse, do,
+                                            causal),
+                            *_simt_backward(fa, "dkv", q, k, v, o, lse, do,
+                                            causal))
+                    torch.cuda.synchronize()
+                    simt_errs = [grad_row_error(g, r)
+                                 for g, r in zip(simt, ref)]
+                    check["simt_err_row"] = dict(zip(("dq", "dk", "dv"),
+                                                     simt_errs))
+                    ok = ok and max(simt_errs) <= tol and all(
+                        bool(torch.isfinite(g).all()) for g in simt)
+                checks.append({**check, "ok": ok})
                 if not ok or fault_err <= tol:
                     emit({"phase": "kernels_backward", "checks": checks})
                     raise AssertionError(
@@ -820,11 +884,11 @@ def _backward_want(variant, n):
             for kind in ("dq", "dkv")}
 
 
-def _simt_backward(fa, kind, q, k, v, o, lse, do):
+def _simt_backward(fa, kind, q, k, v, o, lse, do, causal=True):
     """A CUDA-core backward kernel called straight through its C entry
-    point on any input it takes (bf16 included), bypassing the wrapper's
-    rule of shapes: the earlier design, timed beside the tensor-core
-    kernels on the same inputs. Counts no launch."""
+    point on any input it takes (bf16 and f16 included), bypassing the
+    wrapper's rule of shapes: the earlier design, checked and timed beside
+    the tensor-core kernels on the same inputs. Counts no launch."""
     B, H, Sq, D = q.shape
     outs = [torch.empty_like(q)] if kind == "dq" else [torch.empty_like(k),
                                                        torch.empty_like(v)]
@@ -832,7 +896,8 @@ def _simt_backward(fa, kind, q, k, v, o, lse, do):
     err = fa._kernel_fn("flash_attention_bwd", name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *[t.data_ptr() for t in outs], B * H,
-        Sq, k.shape[2], D, D ** -0.5, 1, fa._DTYPE_CODE[q.dtype],
+        Sq, k.shape[2], D, D ** -0.5, int(bool(causal)),
+        fa._DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {err}")
@@ -2137,20 +2202,25 @@ def _c1_configs(base):
     """The configs of phase 2b: (name, config, forward variant or "plain")."""
     cut = dict(n_layers=C1_DEPTH)
     return (("hd256_bf16", dataclasses.replace(
-                base, d_model=2048, n_heads=8, n_kv_heads=8, **cut), "simt"),
+                base, d_model=2048, n_heads=8, n_kv_heads=8, **cut), "wgmma"),
+            # Gemma-2B's attention widths: 8 query heads over one KV head.
+            ("hd256_gqa1_bf16", dataclasses.replace(
+                base, d_model=2048, n_heads=8, n_kv_heads=1, **cut),
+             "wgmma"),
             ("hd512_bf16", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2, **cut), "wide"),
             ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
-             "simt"),
+             "wgmma"),
             ("hd12_bf16", dataclasses.replace(
                 base, d_model=384, n_heads=32, n_kv_heads=8, **cut),
              "plain"))
 
 
 def phase_c1_models(dev, base, model_lens):
-    """Phase 2b (see the module docstring): configs the tensor-core kernels
-    do not take serve and train through the CUDA-core kernels, or through
-    the counted plain route."""
+    """Phase 2b (see the module docstring): configs beyond the bf16
+    flagship serve and train through the kernels of the rule (the tensor
+    cores at head_dim 256 and in f16, the wide kernels at head_dim 512) or
+    through the counted plain route."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -3302,6 +3372,23 @@ def phase_spmd_train(dev, card, base):
     return results
 
 
+def _fwd_brief(t):
+    """A forward timing of phase 2, as a sub-row of the kernels line."""
+    return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
+                              "library_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "shape", "dtype")}
+
+
+def _bwd_brief(tb, kind):
+    """One backward kernel's timing of phase 2 (its plain and library
+    times are one call for dq, dk and dv), as a sub-row."""
+    t = tb[kind]
+    return {**{k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")},
+            "plain_ms": tb["plain_ms"], "library_ms": tb["library_ms"],
+            "shape": tb["shape"], "dtype": tb["dtype"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -3390,6 +3477,8 @@ def main() -> int:
             "S512": {k: t512[k] for k in (
                 "kernel_ms", "simt_kernel_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "shape")},
+            "D128": {dt: _fwd_brief(timing[f"{dt}_Hkv8_S2048_D128"])
+                     for dt in ("bfloat16", "float16")},
             "card": card})
     # The CUDA-core variant on the main path: f32 (phase 5's f32 gradient
     # passes, phase 4's f32 engine check), timed on f32 inputs.
@@ -3430,44 +3519,61 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
                 "plain": tb["plain"], "library": tb["library"],
                 "shape": tb["shape"], "dtype": dtype, "card": card})
-    # The CUDA-core kernels on the shapes and dtypes the tensor-core ones do
-    # not take (phase 2b's configs give the launches): head_dim 256 in bf16
-    # and the flagship in f16, timed at S=2048 (phase 2).
+        if variant == "wgmma":
+            kernels[-2]["D128"] = {dt: _bwd_brief(bwd[f"{dt}_D128"], "dq")
+                                   for dt in ("bfloat16", "float16")}
+            kernels[-1]["D128"] = {dt: _bwd_brief(bwd[f"{dt}_D128"], "dkv")
+                                   for dt in ("bfloat16", "float16")}
+    # The tensor-core kernels on the shapes that the CUDA-core ones took
+    # before (phase 2b's configs give the launches): head_dim 256 in bf16
+    # (f16 beside it) and the flagship in f16, timed at S=2048 (phase 2)
+    # beside the CUDA-core kernels on the same inputs (simt_kernel_ms).
+    bwd_wgmma_source = "ray_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu"
     for cfg_name, suffix, fwd_key, bwd_key in (
             ("hd256_bf16", "[D256-bf16]", "bfloat16_Hkv8_S2048_D256",
              "bfloat16_D256"),
             ("f16", "[f16]", "float16_Hkv8_S2048", "float16")):
         served = c1[cfg_name]
         t = timing[fwd_key]
-        kernels.append({
+        row = {
             "name": f"flash_attention_fwd{suffix}",
-            "route": "cuda", "variant": "simt", "source": simt_source,
+            "route": "cuda", "variant": "wgmma", "source": wgmma_source,
             "replaces": replaces["mha"],
-            "launches": served["launches_per_prefill_by_variant"]["simt"],
-            "launches_train": served["launches_per_pass"]["simt"],
+            "launches": served["launches_per_prefill_by_variant"]["wgmma"],
+            "launches_train": served["launches_per_pass"]["wgmma"],
             "launches_from": f"phase 2b {cfg_name}: one prefill_with_cache "
                              f"and one gradient pass",
             "max_abs_err": t["max_abs_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "tflops": t["tflops"], "simt_kernel_ms": t["simt_kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"], "dtype": t["dtype"], "card": card})
+            "shape": t["shape"], "dtype": t["dtype"], "card": card}
+        if cfg_name == "hd256_bf16":
+            row["float16"] = _fwd_brief(timing["float16_Hkv8_S2048_D256"])
+            row["launches_gqa1"] = c1["hd256_gqa1_bf16"][
+                "launches_per_prefill_by_variant"]["wgmma"]
+        kernels.append(row)
         tb = bwd[bwd_key]
         for kind in ("dq", "dkv"):
             t = tb[kind]
-            kernels.append({
+            row = {
                 "name": f"flash_attention_bwd_{kind}{suffix}",
-                "route": "cuda", "variant": "simt",
-                "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "route": "cuda", "variant": "wgmma",
+                "source": bwd_wgmma_source,
                 "replaces": replaces[kind],
-                "launches": served["launches_per_pass"][f"{kind}_simt"],
+                "launches": served["launches_per_pass"][f"{kind}_wgmma"],
                 "launches_from": f"phase 2b {cfg_name}: one gradient pass",
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+                "tflops": t["tflops"], "simt_kernel_ms": t["simt_kernel_ms"],
                 "plain_ms": tb["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
                 "plain": tb["plain"], "library": tb["library"],
-                "shape": tb["shape"], "dtype": tb["dtype"], "card": card})
+                "shape": tb["shape"], "dtype": tb["dtype"], "card": card}
+            if cfg_name == "hd256_bf16":
+                row["float16"] = _bwd_brief(bwd["float16_D256"], kind)
+            kernels.append(row)
     # The wide kernels (head_dim above 256): launches from phase 2b's
     # head_dim 512 config (one prefill_with_cache and one gradient pass),
     # times at WIDE_TIMED in bf16 (f32 beside them).

@@ -1,0 +1,257 @@
+#!/usr/bin/env python3
+"""A/B timings of the tensor-core flash kernels on one NVIDIA card.
+
+Builds the tensor-core forward and backward libraries
+(``ray_tpu_torch/ops/csrc/flash_attention_{fwd,bwd}_wgmma.cu``) of several
+designs, prints each build's ptxas registers and spills, holds each design's
+forward against this tree's (O per row within O_ROW_TOL, LSE within
+LSE_TOL) and reports this tree's against the plain version, and times the
+forward, dQ and dK/dV of every design against this tree's on the same
+inputs, in turns (other designs, this tree, this tree, the others in
+reverse), through CUDA graphs. bf16, B=4, H=8, S=2048, causal, head_dim
+64, 128 and 256 (each variant at the widths it changes).
+
+The designs:
+- ``tree``: this checkout's sources, the kernels the port launches;
+- ``parent``: the sources under ``--parent DIR`` (a ``git archive`` of an
+  earlier commit), whose C entry points take no dtype code (bf16 only,
+  head_dim 64 and 128);
+- textual variants of this tree's sources (``VARIANTS``): the forward with
+  32-key tiles at head_dim 256, the forward with the general masking test
+  at every width, and both libraries with a 384-thread block whose
+  producer warpgroup hands its registers to the consumers (setmaxnreg 24 /
+  240), the layout before this one.
+
+Run from the repository root: ``python3 flash_ab.py --parent DIR``. Prints
+one JSON line per build, check and timing, then the card's name and power
+limit. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from ray_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "flash_ab"
+LIBS = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
+SETMAXNREG = '''
+template <int kRegs>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kRegs));
+}
+}  // namespace hopper'''
+# name -> {file: [(old, new), ...]}; every copy of each old text in the
+# file is replaced, and there must be one at least.
+VARIANTS = {
+    "fwd_n32": {"flash_attention_fwd_wgmma.cu": [
+        ("kBlockN = kD == 256 ? 64 : 128;",
+         "kBlockN = kD == 256 ? 32 : 128;")]},
+    "fwd_general_mask": {"flash_attention_fwd_wgmma.cu": [
+        ("if (kBlockN < kBlockM && causal && k0 > wg_row0 + 63) {",
+         "if (causal && k0 > wg_row0 + 63) {"),
+        ("        kBlockN == kBlockM\n"
+         "            ? kb == n_kb - 1 && (causal || sk % kBlockN != 0)\n"
+         "            : (causal && k0 + kBlockN - 1 > wg_row0) || "
+         "k0 + kBlockN > sk;",
+         "        (causal && k0 + kBlockN - 1 > wg_row0) || "
+         "k0 + kBlockN > sk;")]},
+    "setmaxnreg384": {
+        "hopper_tma_wgmma.cuh": [("}  // namespace hopper", SETMAXNREG)],
+        "flash_attention_fwd_wgmma.cu": [
+            ("kConsumerThreads + 32;", "kConsumerThreads + 128;"),
+            ("  if (threadIdx.x >= kConsumerThreads) {\n",
+             "  if (threadIdx.x >= kConsumerThreads) {\n"
+             "    regs_dealloc<24>();\n"),
+            ("  const int wg = threadIdx.x / 128;\n",
+             "  regs_alloc<240>();\n  const int wg = threadIdx.x / 128;\n")],
+        "flash_attention_bwd_wgmma.cu": [
+            ("kConsumerThreads + 32;", "kConsumerThreads + 128;"),
+            ("  if (threadIdx.x >= kConsumerThreads) {\n",
+             "  if (threadIdx.x >= kConsumerThreads) {\n"
+             "    regs_dealloc<24>();\n"),
+            ("  const int wg = threadIdx.x / 128;\n",
+             "  regs_alloc<240>();\n  const int wg = threadIdx.x / 128;\n"),
+            ("    const int p_lane = threadIdx.x - kConsumerThreads;\n",
+             "    const int p_lane = threadIdx.x - kConsumerThreads;\n"
+             "    if (p_lane >= 32) return;\n")]},
+}
+# The head_dims where a variant's code differs from this tree's.
+VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
+DIMS = (64, 128, 256)
+B, H, S = 4, 8, 2048
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _sources(name, parent):
+    """Materialise a design's csrc directory under build/flash_ab/."""
+    src = (Path(parent) if name == "parent" else ROOT) \
+        / "ray_tpu_torch" / "ops" / "csrc"
+    dst = OUT / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    for fname, edits in VARIANTS.get(name, {}).items():
+        path = dst / fname
+        text = path.read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{name}: {fname} has no {old[:60]!r}")
+            text = text.replace(old, new)
+        path.write_text(text)
+    return dst
+
+
+def build(names, parent):
+    """nvcc for every design's two libraries at once -> {name: (fwd, bwd)}
+    loaded libraries; emits each build's ptxas registers and spills."""
+    running = []
+    for name in names:
+        d = _sources(name, parent)
+        for lib in LIBS:
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                   str(d / f"{lib}.so"), str(d / f"{lib}.cu")]
+            running.append((name, lib, d, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    libs = {}
+    for name, lib, d, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}/{lib}:\n{err}")
+        emit({"build": name, "library": lib,
+              "ptxas": cs.ptxas_summary(err)})
+        libs.setdefault(name, {})[lib] = ctypes.CDLL(str(d / f"{lib}.so"))
+    return libs
+
+
+def entry_points(name, libs):
+    """(forward, dQ, dK/dV) C functions of a design, argument types set;
+    the parent's take no dtype code."""
+    extra = [] if name == "parent" else [_CI]
+    fwd = libs["flash_attention_fwd_wgmma"].flash_attention_fwd_wgmma
+    fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI] + extra + [_VP]
+    bwd = libs["flash_attention_bwd_wgmma"]
+    dq = bwd.flash_attention_bwd_dq_wgmma
+    dkv = bwd.flash_attention_bwd_dkv_wgmma
+    for fn in (dq, dkv):
+        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI] + extra + [_VP]
+    for fn in (fwd, dq, dkv):
+        fn.restype = _CI
+    return fwd, dq, dkv
+
+
+def kinds(name):
+    """The kernels a design changes against this tree: all three for the
+    tree and the parent, else those of the libraries its edits touch."""
+    if name in ("tree", "parent"):
+        return ("fwd", "dq", "dkv")
+    files = VARIANTS[name]
+    return (("fwd",) if "flash_attention_fwd_wgmma.cu" in files else ()) + \
+        (("dq", "dkv") if "flash_attention_bwd_wgmma.cu" in files else ())
+
+
+def calls(name, fns, t):
+    """Closures launching a design's three kernels on the tensors t."""
+    fwd, dq, dkv = fns
+    D = t["q"].shape[-1]
+    extra = () if name == "parent" else (1,)   # dtype code: bf16
+    p = {k: v.data_ptr() for k, v in t.items()}
+
+    def run(fn, *args):
+        err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name}: launch failed ({err})")
+
+    return {
+        "fwd": lambda i: run(fwd, p["q"], p["k"], p["v"], p["o2"], p["l2"],
+                             B, H, H, S, S, D, D ** -0.5, 1),
+        "dq": lambda i: run(dq, p["q"], p["k"], p["v"], p["o"], p["do"],
+                            p["lse"], p["dq2"], p["delta2"], B * H, S, S, D,
+                            D ** -0.5, 1),
+        "dkv": lambda i: run(dkv, p["q"], p["k"], p["v"], p["do"], p["lse"],
+                             p["delta"], p["dk2"], p["dv2"], B * H, S, S, D,
+                             D ** -0.5, 1),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a checkout (git archive) of the "
+                    "commit to compare with")
+    args = ap.parse_args()
+    fa = cs._flash_module()
+    names = ["tree", *VARIANTS] + (["parent"] if args.parent else [])
+    libs = build(names, args.parent)
+    fns = {n: entry_points(n, libs[n]) for n in names}
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for D in DIMS:
+        q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        with cs._counts_kept(fa):
+            o, lse = fa._flash_forward(q, k, v, True)
+            delta = fa._launch_dq(q, k, v, o, lse, do, True, D ** -0.5)[1]
+        t = {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+             "delta": delta, "o2": torch.empty_like(q),
+             "l2": torch.empty_like(lse), "dq2": torch.empty_like(q),
+             "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
+             "dv2": torch.empty_like(v)}
+        others = [n for n in names if n != "tree"
+                  and D in VARIANT_DIMS.get(n, DIMS)
+                  and not (n == "parent" and D == 256)]
+        runs = {n: calls(n, fns[n], t) for n in ["tree", *others]}
+        runs["tree"]["fwd"](0)
+        torch.cuda.synchronize()
+        to, tlse = t["o2"].clone(), t["l2"].clone()
+        _, err_row, err_lse = cs.compare(to, tlse, *fa._dense(
+            q, k, v, True, D ** -0.5))
+        emit({"check": "tree vs plain", "D": D, "err_o_row": err_row,
+              "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],
+              "err_lse_of_limit": err_lse})
+        for n in others:
+            runs[n]["fwd"](0)
+            torch.cuda.synchronize()
+            _, err_row, err_lse = cs.compare(t["o2"], t["l2"], to, tlse)
+            emit({"check": f"{n} vs tree", "D": D, "err_o_row": err_row,
+                  "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],
+                  "err_lse_of_limit": err_lse})
+            if not (err_row <= cs.O_ROW_TOL[torch.bfloat16]
+                    and err_lse <= 1.0):
+                raise AssertionError(f"{n} at D={D} disagrees with this "
+                                     f"tree's kernel")
+        for kind in ("fwd", "dq", "dkv"):
+            with_kind = [n for n in others if kind in kinds(n)]
+            order = [*with_kind, "tree", "tree", *with_kind[::-1]]
+            ms = {n: [] for n in ["tree", *with_kind]}
+            for n in order:
+                ms[n].append(cs.graph_ms(runs[n][kind]))
+            emit({"timing": kind, "D": D, "dtype": "bfloat16",
+                  "shape": [B, H, S, D], "causal": True, "ms": ms})
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

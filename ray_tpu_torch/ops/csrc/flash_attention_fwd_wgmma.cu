@@ -1,7 +1,8 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): TMA-fed tiles,
-// wgmma products, one producer warpgroup and two consumer warpgroups. bf16
-// inputs with head_dim 64 or 128; f32 and other widths keep the CUDA-core
-// kernel of flash_attention_fwd.cu (the wrapper's rule of shapes).
+// wgmma products, one producer warp and two consumer warpgroups. bf16 or f16
+// inputs with head_dim 64, 128 or 256; f32 and other widths keep the
+// CUDA-core kernels (flash_attention_fwd.cu, flash_attention_wide.cu) by the
+// wrapper's rule of shapes.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
@@ -13,35 +14,53 @@
 //
 // What bounds it on the H100. Per (batch, query head) it reads Q, K, V
 // once and writes O and LSE once; the work is 4 * Sq * Sk * D operations
-// (about half of it when causal). At B=4, H=8, S=2048, D=64, causal, that
-// is ~17 GFLOP against ~8.5 MB moved, so the bound is operations (0.017 ms
-// at 989 TFLOP/s); at the serving shape S=512 it is bytes (0.0025 ms at
-// 3.35 TB/s), and 128 CTAs on 132 SMs leave the card one wave deep. What
-// the design does about it:
+// (about half of it when causal). At B=4, H=8, S=2048, causal, that is ~17
+// GFLOP at D=64 and ~69 GFLOP at D=256 against 8.5 / 34 MB moved, so the
+// bound is operations (0.017 / 0.070 ms at 989 TFLOP/s); at the serving
+// shape S=512, D=64 it is bytes (0.0025 ms at 3.35 TB/s), and 128 CTAs on
+// 132 SMs leave the card one wave deep. What the design does about it:
 // - Both products run on wgmma (the only path to the tensor-core rate):
-//   S = Q K^T as m64n128k16 with Q and K read from shared memory (K-major,
-//   as K is stored), O += P V as m64nDk16 with P in registers and V read
-//   MN-major from shared memory (no transpose pass).
-// - One producer warp starts TMA copies: Q once, then K and V tiles of 128
-//   keys through a ring of kStages slots, each with a full and an empty
-//   mbarrier, so loads run ahead of the products. Causal tiles past the
-//   diagonal are never loaded. The producer gives its registers to the
-//   consumers (setmaxnreg), which hold S (64 f32), O (D/2 f32) and P.
-// - 3-D tensor maps over [B*H, S, D] with 128-byte swizzle: a D=64 bf16 row
-//   is exactly one 128-byte swizzle row (D=128 is two 64-column boxes); a
-//   ragged tile is zero-filled by the hardware and never reads the next
-//   head's rows; zero-filled keys score 0 and are masked to -1e30.
+//   S = Q K^T with Q and K read from shared memory (K-major, as K is
+//   stored), O += P V as m64nDk16 with P in registers and V read MN-major
+//   from shared memory (no transpose pass).
+// - One producer warp starts TMA copies: Q once, then K and V tiles of
+//   kBlockN keys through a ring of kStages slots, each with a full and an
+//   empty mbarrier, so loads run ahead of the products. Causal tiles past
+//   the diagonal are never loaded, and a warpgroup skips a loaded tile
+//   that lies wholly above its rows.
+// - Registers: each consumer thread holds O (D/2 f32), S (kBlockN/2 f32)
+//   and P (kBlockN/4 pairs), under ptxas's launch cap of 168 registers a
+//   thread: the block's nine warps (two consumer warpgroups, one producer
+//   warp: 288 threads) put three warps on one of the SM's four register
+//   file quarters (16384 / 96), and setmaxnreg does not raise what ptxas
+//   allocates (a 384-thread build with setmaxnreg 24 / 240 compiles to the
+//   same 168 and spills 320 bytes at D=256). One producer warp rather than
+//   a warpgroup keeps the forward within a few percent of that layout and
+//   makes the dK/dV kernel faster (flash_attention_bwd_wgmma.cu). At
+//   D=256, O alone is 128 f32: with 64-key tiles ptxas spills 340 bytes a
+//   thread; 32-key tiles spill 68 and measured 3-6% slower on the H100 (an
+//   S product at N=32 reads more shared memory per operation), and
+//   128-key tiles do not fit shared memory. flash_ab.py rebuilds and times
+//   these variants.
+// - Shared memory: Q (128 x D) plus kStages = 2 K and V tiles: 16 + 64 KB
+//   at D=64 and 32 + 128 KB at D=128 (128-key tiles), 64 + 128 KB at D=256
+//   (64-key tiles); 128-key tiles at D=256 would need 64 + 256 KB, over the
+//   227 KB a block may use.
+// - 3-D tensor maps over [B*H, S, D] with 128-byte swizzle: each 64-column
+//   block of a row is one 128-byte swizzle row; a ragged tile is
+//   zero-filled by the hardware and never reads the next head's rows;
+//   zero-filled keys score 0 and are masked to -1e30.
 // - Each CTA owns 128 query rows of one (b, h), 64 per consumer warpgroup;
 //   the grid schedules the heaviest causal tiles (the last rows) first, so
 //   the last wave is not one long tile.
-// - The epilogue stages O (bf16) in the warpgroup's Q rows in shared memory
-//   and a TMA store writes it, clipping rows past Sq.
+// - The epilogue stages O (in T) in the warpgroup's Q rows in shared
+//   memory and a TMA store writes it, clipping rows past Sq.
 // Rounding points are the reference's: scores in f32, the scale applied to
-// the f32 scores, p rounded to bf16 before P.V while l sums the unrounded
-// p, one cast of O. At D=64 the scale (1/8) is a power of two, so scaling
-// the f32 score equals the reference's scaling of Q in bf16; at D=128 the
-// reference rounds q * scale to bf16 first (a relative difference of up to
-// 2^-9 per element of q).
+// the f32 scores, p rounded to T before P.V while l sums the unrounded p,
+// one cast of O. At D=64 and D=256 the scale (1/8, 1/16) is a power of
+// two, so scaling the f32 score equals the reference's scaling of Q in T;
+// at D=128 the reference rounds q * scale to T first (a relative
+// difference of up to one ulp of T per element of q).
 //
 // Launches on the caller's stream and allocates nothing.
 
@@ -52,15 +71,15 @@ namespace {
 using namespace hopper;
 
 constexpr int kBlockM = 128;     // query rows per CTA (2 consumer warpgroups)
-constexpr int kBlockN = 128;     // keys per K/V tile
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kConsumerThreads = 256;
-constexpr int kThreads = kConsumerThreads + 128;  // + producer warpgroup
+constexpr int kThreads = kConsumerThreads + 32;  // + producer warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int kD>
 struct Layout {
+  static constexpr int kBlockN = kD == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr int kColBlocks = kD / 64;  // 128-byte column blocks
   static constexpr int kQBytes = kBlockM * kD * 2;
   static constexpr int kKVBytes = kBlockN * kD * 2;
@@ -73,6 +92,7 @@ struct Layout {
   // Dynamic shared memory is only 16-byte aligned: ask for a swizzle atom
   // more and round the base up to 1024 bytes.
   static constexpr int kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -81,9 +101,9 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // The accumulator's register layout (hopper_tma_wgmma.cuh) makes P, packed
-// to bf16 pairs, the A operand of P.V with no shuffle: its k-step t is the
+// to pairs of T, the A operand of P.V with no shuffle: its k-step t is the
 // pairs of values 8t..8t+7.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -92,6 +112,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        float* __restrict__ lse, int hq, int hkv, int sq,
                        int sk, float scale, int causal) {
   using L = Layout<kD>;
+  constexpr int kBlockN = L::kBlockN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -126,8 +147,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (threadIdx.x >= kConsumerThreads) {
-    // Producer warpgroup: one thread starts every copy.
-    regs_dealloc<24>();
+    // Producer warp: one thread starts every copy.
     if (threadIdx.x == kConsumerThreads) {
       mbar_arrive_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < L::kColBlocks; ++c) {
@@ -154,12 +174,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // Consumer warpgroups: 64 query rows each.
-  regs_alloc<240>();
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int lane = tid % 32;
   const int r_local = (tid / 32) * 16 + lane / 4;  // row in the warpgroup
-  const int row0 = q0 + wg * 64 + r_local;         // and row0 + 8
+  const int wg_row0 = q0 + wg * 64;                // first row of the group
+  const int row0 = wg_row0 + r_local;              // and row0 + 8
   const int col_lane = 2 * (lane % 4);
   const float scale_log2 = scale * kLog2e;
   const uint32_t q_wg = q_s + wg * 64 * 128;
@@ -179,26 +199,43 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t full_parity = (kb / kStages) & 1;
     const uint32_t k_tile = k_s + s * L::kKVBytes;
     const uint32_t v_tile = v_s + s * L::kKVBytes;
+    const int k0 = kb * kBlockN;
+
+    mbar_wait(k_full(s), full_parity);
+    // Causal, 64-key tiles: the CTA's last tile lies wholly above the first
+    // group's rows. Its slot is released only after its data arrived, so
+    // the arrival counts toward this use of the slot, not the one before.
+    if (kBlockN < kBlockM && causal && k0 > wg_row0 + 63) {
+      mbar_arrive(k_empty(s));
+      mbar_wait(v_full(s), full_parity);
+      mbar_arrive(v_empty(s));
+      continue;
+    }
 
     // S = Q K^T over the head dimension, 16 columns per wgmma.
-    mbar_wait(k_full(s), full_parity);
     wgmma_fence();
     fence_regs(sc);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const uint32_t off = (kk / 4) * (kBlockM * 128) + (kk % 4) * 32;
       const uint32_t koff = (kk / 4) * (kBlockN * 128) + (kk % 4) * 32;
-      wgmma_m64n128k16_ss(sc, sw128_desc(q_wg + off, 16, 1024),
-                          sw128_desc(k_tile + koff, 16, 1024), kk > 0);
+      wgmma_ss<T, kBlockN>(sc, sw128_desc(q_wg + off, 16, 1024),
+                           sw128_desc(k_tile + koff, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(k_empty(s));
 
-    // Only the last tile can hold keys past Sk or past the causal diagonal.
-    if (kb == n_kb - 1 && (causal || sk % kBlockN != 0)) {
-      const int k0 = kb * kBlockN;
+    // Only a tile that ends past Sk, or reaches past this group's first
+    // row, can hold keys past Sk or past the causal diagonal: with 128-key
+    // tiles that is the last one (the test as written measured ~7% faster
+    // at D=64 than the general one on the H100).
+    const bool edge =
+        kBlockN == kBlockM
+            ? kb == n_kb - 1 && (causal || sk % kBlockN != 0)
+            : (causal && k0 + kBlockN - 1 > wg_row0) || k0 + kBlockN > sk;
+    if (edge) {
 #pragma unroll
       for (int i = 0; i < kBlockN / 2; ++i) {
         const int key = k0 + 8 * (i / 4) + col_lane + (i % 2);
@@ -232,11 +269,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
-    // P rounded to bf16 (the reference's rounding point) as A fragments.
+    // P rounded to T (the reference's rounding point) as A fragments.
     uint32_t p[kBlockN / 4];
 #pragma unroll
     for (int i = 0; i < kBlockN / 4; ++i) {
-      p[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+      p[i] = pack2<T>(sc[2 * i], sc[2 * i + 1]);
     }
 
     // O += P V, 16 keys per wgmma; V is MN-major (head dim contiguous).
@@ -248,13 +285,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = 0; t < kBlockN / 16; ++t) {
       const uint32_t a[4] = {p[4 * t], p[4 * t + 1], p[4 * t + 2],
                              p[4 * t + 3]};
-      const uint64_t desc_v =
-          sw128_desc(v_tile + t * 16 * 128, kBlockN * 128, 1024);
-      if constexpr (kD == 64) {
-        wgmma_m64n64k16_rs(o, a, desc_v);
-      } else {
-        wgmma_m64n128k16_rs(o, a, desc_v);
-      }
+      wgmma_rs<T, kD>(
+          o, a, sw128_desc(v_tile + t * 16 * 128, kBlockN * 128, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -276,33 +308,35 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   // Stage O in this warpgroup's Q rows (its last wgmma reading them has
   // completed), in the swizzle the TMA store reads.
-  stage_acc_bf16<kD>(smem + L::kQ, kBlockM, wg, r_local, col_lane, o, inv);
+  stage_acc<T, kD>(smem + L::kQ, kBlockM * 128, wg * 64, r_local, col_lane,
+                   o, inv);
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
-  if (tid == 0 && q0 + wg * 64 < sq) {
+  if (tid == 0 && wg_row0 < sq) {
     for (int c = 0; c < L::kColBlocks; ++c) {
-      tma_store_3d(&tm_o, q_wg + c * kBlockM * 128, 64 * c, q0 + wg * 64, bh);
+      tma_store_3d(&tm_o, q_wg + c * kBlockM * 128, 64 * c, wg_row0, bh);
     }
     tma_store_commit_and_wait();
   }
 }
 
-template <int kD>
+template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int batch, int hq, int hkv, int sq, int sk, float scale,
            int causal, cudaStream_t stream) {
+  using L = Layout<kD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  CUresult res = encode_bf16_3d(&tm_q, q, batch * hq, sq, kD, kBlockM);
+  CUresult res = encode_3d<T>(&tm_q, q, batch * hq, sq, kD, kBlockM);
   if (res == CUDA_SUCCESS)
-    res = encode_bf16_3d(&tm_k, k, batch * hkv, sk, kD, kBlockN);
+    res = encode_3d<T>(&tm_k, k, batch * hkv, sk, kD, L::kBlockN);
   if (res == CUDA_SUCCESS)
-    res = encode_bf16_3d(&tm_v, v, batch * hkv, sk, kD, kBlockN);
+    res = encode_3d<T>(&tm_v, v, batch * hkv, sk, kD, L::kBlockN);
   if (res == CUDA_SUCCESS)
-    res = encode_bf16_3d(&tm_o, o, batch * hq, sq, kD, 64);
+    res = encode_3d<T>(&tm_o, o, batch * hq, sq, kD, 64);
   if (res != CUDA_SUCCESS) return -(int)res;
 
-  auto kernel = flash_fwd_wgmma_kernel<kD>;
-  const int smem = Layout<kD>::kAlloc;
+  auto kernel = flash_fwd_wgmma_kernel<T, kD>;
+  const int smem = L::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -313,26 +347,42 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int batch, int hq, int hkv, int sq, int sk, int d, float scale,
+             int causal, cudaStream_t stream) {
+  if (d == 64)
+    return launch<T, 64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+                         causal, stream);
+  if (d == 128)
+    return launch<T, 128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+                          causal, stream);
+  return launch<T, 256>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+                        causal, stream);
+}
+
 }  // namespace
 
-// q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D], all contiguous
-// bf16 with 16-byte aligned bases; lse [B, Hq, Sq] f32; D 64 or 128.
-// Returns 0, a cudaError_t, or minus a CUresult when a tensor map cannot be
-// encoded.
+// q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D], all contiguous,
+// of one type (dtype 1: bf16, 2: f16) with 16-byte aligned bases; lse
+// [B, Hq, Sq] f32; D 64, 128 or 256. Returns 0, a cudaError_t, or minus a
+// CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int batch, int hq, int hkv, int sq,
                                          int sk, int d, float scale,
-                                         int causal, void* stream) {
+                                         int causal, int dtype,
+                                         void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 ||
-      (d != 64 && d != 128) ||
+      (d != 64 && d != 128 && d != 256) || (dtype != 1 && dtype != 2) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ||
       (sq + kBlockM - 1) / kBlockM > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
-                              causal, s)
-                 : launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
-                               scale, causal, s);
+  return dtype == 2
+             ? launch_d<__half>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                                scale, causal, s)
+             : launch_d<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv, sq,
+                                       sk, d, scale, causal, s);
 }

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
 // Accelerator and computing on warpgroup tensor-core instructions: TMA
-// tensor maps and copies, mbarriers, wgmma and its shared-memory
-// descriptors, register rebalancing between warpgroups. Plain C++/PTX, no
+// tensor maps and copies, mbarriers, wgmma (bf16 or f16 operands, f32
+// accumulators) and its shared-memory descriptors. Plain C++/PTX, no
 // PyTorch or CUTLASS headers, so a kernel library built on it compiles in
 // seconds.
 //
 // Layout convention: every shared-memory tile is stored as 128-byte rows
-// (64 bf16) in the 128-byte swizzle that a TMA copy with
+// (64 bf16 or f16 values) in the 128-byte swizzle that a TMA copy with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: the 16-byte chunk c of row r lands at
 // chunk c ^ (r % 8). A tile wider than 64 columns is a sequence of such
 // 64-column blocks. Every tile starts on a 1024-byte boundary (one
@@ -16,8 +16,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -121,18 +124,6 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// ---- register rebalancing between warpgroups -------------------------------
-
-template <int kRegs>
-__device__ __forceinline__ void regs_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-template <int kRegs>
-__device__ __forceinline__ void regs_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled tile: start
@@ -177,12 +168,20 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// ---- element types ---------------------------------------------------------
+
+// The tensor-core kernels take bf16 (__nv_bfloat16) or f16 (__half): both
+// 16-bit, with one shared-memory and register layout, so only the PTX type
+// of a wgmma, of a conversion and of a tensor map depends on T.
+template <typename T>
+constexpr bool kF16 = std::is_same<T, __half>::value;
+
 // Register layout of a wgmma f32 accumulator (64 x N over a warpgroup):
 // warp w holds rows 16w..16w+15; lane l holds rows l/4 and l/4 + 8 of
 // those; value i is column 8 * (i / 4) + 2 * (l % 4) + (i % 2) of row
-// l/4 + 8 * ((i / 2) % 2). The bf16 A operand of a register-A wgmma has the
-// same pattern per 16 columns, so an accumulator packed to bf16 pairs
-// feeds the next product directly: its k-step t is the pairs 8t..8t+7.
+// l/4 + 8 * ((i / 2) % 2). The 16-bit A operand of a register-A wgmma has
+// the same pattern per 16 columns, so an accumulator packed to pairs feeds
+// the next product directly: its k-step t is the pairs 8t..8t+7.
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -196,167 +195,169 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Two f32 values as one register of bf16 (lo in the low half), the layout
-// of a wgmma A operand in registers.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+// Two f32 values rounded to T as one register (lo in the low half), the
+// layout of a wgmma A operand in registers.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  if constexpr (kF16<T>) {
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  } else {
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  }
   return r;
 }
 
-// Stages warpgroup wg's 64 x kD f32 accumulator as bf16 into its 64 rows of
-// a shared-memory tile of `tile_rows` rows (column blocks tile_rows * 128
-// bytes apart), in the swizzle a TMA store reads; the thread's two rows
-// (r_local and r_local + 8) are multiplied by mul[0] and mul[1].
-template <int kD>
-__device__ __forceinline__ void stage_acc_bf16(uint8_t* tile, int tile_rows,
-                                               int wg, int r_local,
-                                               int col_lane,
-                                               const float (&acc)[kD / 2],
-                                               const float (&mul)[2]) {
+// Stages a warpgroup's 64 x kN f32 accumulator as T into rows row0 ..
+// row0 + 63 (row0 a multiple of 8) of a shared-memory tile whose 64-column
+// blocks lie block_bytes apart, in the swizzle a TMA store reads; the
+// thread's two rows (r_local and r_local + 8) are multiplied by mul[0] and
+// mul[1].
+template <typename T, int kN>
+__device__ __forceinline__ void stage_acc(uint8_t* tile, int block_bytes,
+                                          int row0, int r_local,
+                                          int col_lane,
+                                          const float (&acc)[kN / 2],
+                                          const float (&mul)[2]) {
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
+  for (int j = 0; j < kN / 8; ++j) {
     const int cb = j / 8;     // 64-column block
     const int chunk = j % 8;  // 16-byte chunk within the 128-byte row
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r_local + 8 * h;
-      const int off = cb * (tile_rows * 128) + wg * 64 * 128 + r * 128 +
+      const int off = cb * block_bytes + (row0 + r) * 128 +
                       ((chunk ^ (r % 8)) * 16) + col_lane * 2;
-      *reinterpret_cast<uint32_t*>(tile + off) = pack_bf16x2(
+      *reinterpret_cast<uint32_t*>(tile + off) = pack2<T>(
           acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
     }
   }
 }
 
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
-// memory (128-byte swizzle), f32 accumulators.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+// ---- wgmma shapes ----------------------------------------------------------
+
+// Operand lists of an accumulator of R f32 registers a thread: the names
+// "%0, ..., %(R-1)" for the instruction and the "+f" constraints d[i].
+#define HOPPER_R000 "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_R016 "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_R032 "%32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47"
+#define HOPPER_R048 "%48, %49, %50, %51, %52, %53, %54, %55, " \
+    "%56, %57, %58, %59, %60, %61, %62, %63"
+#define HOPPER_R064 "%64, %65, %66, %67, %68, %69, %70, %71, " \
+    "%72, %73, %74, %75, %76, %77, %78, %79"
+#define HOPPER_R080 "%80, %81, %82, %83, %84, %85, %86, %87, " \
+    "%88, %89, %90, %91, %92, %93, %94, %95"
+#define HOPPER_R096 "%96, %97, %98, %99, %100, %101, %102, %103, " \
+    "%104, %105, %106, %107, %108, %109, %110, %111"
+#define HOPPER_R112 "%112, %113, %114, %115, %116, %117, %118, %119, " \
+    "%120, %121, %122, %123, %124, %125, %126, %127"
+#define HOPPER_REGS16 HOPPER_R000
+#define HOPPER_REGS32 HOPPER_R000 ", " HOPPER_R016
+#define HOPPER_REGS64 HOPPER_REGS32 ", " HOPPER_R032 ", " HOPPER_R048
+#define HOPPER_REGS128 \
+  HOPPER_REGS64 ", " HOPPER_R064 ", " HOPPER_R080 ", " HOPPER_R096 ", " \
+  HOPPER_R112
+#define HOPPER_F4(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOPPER_F16(d, i) \
+  HOPPER_F4(d, i), HOPPER_F4(d, i + 4), HOPPER_F4(d, i + 8), \
+      HOPPER_F4(d, i + 12)
+#define HOPPER_F32(d, i) HOPPER_F16(d, i), HOPPER_F16(d, i + 16)
+#define HOPPER_F64(d, i) HOPPER_F32(d, i), HOPPER_F32(d, i + 32)
+#define HOPPER_F128(d, i) HOPPER_F64(d, i), HOPPER_F64(d, i + 64)
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B K-major in shared memory
+// (descriptors desc_a, desc_b), accumulate == 0 overwriting D. REGS and
+// OUTS name D's R = N / 2 registers; DA, DB and ACC are the operand
+// numbers R, R + 1 and R + 2; TY is the PTX type of A and B.
+#define HOPPER_WGMMA_SS(N, REGS, OUTS, DA, DB, ACC, TY)                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ACC ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY  \
+               " {" REGS "}, %" #DA ", %" #DB ", p, 1, 1, 0, 0;\n}\n"       \
+               : OUTS                                                      \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+// D[64 x N] += A[64 x 16] * B[16 x N], A in registers (a[4], pairs in the
+// accumulator's row/column pattern), B MN-major in shared memory (desc_b).
+// A0 .. DB are the operand numbers R .. R + 4, ONE the number of R + 5.
+#define HOPPER_WGMMA_RS(N, REGS, OUTS, A0, A1, A2, A3, DB, ONE, TY)         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ONE ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY  \
+               " {" REGS "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %"   \
+               #DB ", p, 1, 1, 1;\n}\n"                                     \
+               : OUTS                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),   \
+                 "r"(1))
+
+// D[64 x kN] (+)= A B with both operands in shared memory: the S-type
+// products (Q K^T and the like).
+template <typename T, int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(kN == 32 || kN == 64 || kN == 128, "wgmma_ss width");
+  if constexpr (kN == 32) {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_SS(32, HOPPER_REGS16, HOPPER_F16(d, 0), 16, 17, 18,
+                      "f16");
+    } else {
+      HOPPER_WGMMA_SS(32, HOPPER_REGS16, HOPPER_F16(d, 0), 16, 17, 18,
+                      "bf16");
+    }
+  } else if constexpr (kN == 64) {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_SS(64, HOPPER_REGS32, HOPPER_F32(d, 0), 32, 33, 34,
+                      "f16");
+    } else {
+      HOPPER_WGMMA_SS(64, HOPPER_REGS32, HOPPER_F32(d, 0), 32, 33, 34,
+                      "bf16");
+    }
+  } else {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_SS(128, HOPPER_REGS64, HOPPER_F64(d, 0), 64, 65, 66,
+                      "f16");
+    } else {
+      HOPPER_WGMMA_SS(128, HOPPER_REGS64, HOPPER_F64(d, 0), 64, 65, 66,
+                      "bf16");
+    }
+  }
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared
-// memory (128-byte swizzle), f32 accumulators.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+// D[64 x kN] += A B with A in registers: the products that take P or dS
+// as computed.
+template <typename T, int kN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(kN == 64 || kN == 128 || kN == 256, "wgmma_rs width");
+  if constexpr (kN == 64) {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_RS(64, HOPPER_REGS32, HOPPER_F32(d, 0), 32, 33, 34, 35,
+                      36, 37, "f16");
+    } else {
+      HOPPER_WGMMA_RS(64, HOPPER_REGS32, HOPPER_F32(d, 0), 32, 33, 34, 35,
+                      36, 37, "bf16");
+    }
+  } else if constexpr (kN == 128) {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_RS(128, HOPPER_REGS64, HOPPER_F64(d, 0), 64, 65, 66, 67,
+                      68, 69, "f16");
+    } else {
+      HOPPER_WGMMA_RS(128, HOPPER_REGS64, HOPPER_F64(d, 0), 64, 65, 66, 67,
+                      68, 69, "bf16");
+    }
+  } else {
+    if constexpr (kF16<T>) {
+      HOPPER_WGMMA_RS(256, HOPPER_REGS128, HOPPER_F128(d, 0), 128, 129, 130,
+                      131, 132, 133, "f16");
+    } else {
+      HOPPER_WGMMA_RS(256, HOPPER_REGS128, HOPPER_F128(d, 0), 128, 129, 130,
+                      131, 132, 133, "bf16");
+    }
+  }
 }
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs in
-// the accumulator's row/column pattern), B MN-major in shared memory
-// (128-byte swizzle), f32 accumulators.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs in
-// the accumulator's row/column pattern), B MN-major in shared memory
-// (128-byte swizzle), f32 accumulators.
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 
 // ---- host: tensor maps -----------------------------------------------------
 
@@ -388,11 +389,13 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 array [outer, rows, cols] with boxes
-// of [1, box_rows, 64] in 128-byte swizzle. Rows past `rows` read as zeros
-// and are not written, so a ragged edge never touches the next slice.
-inline CUresult encode_bf16_3d(CUtensorMap* map, const void* ptr, int outer,
-                               int rows, int cols, int box_rows) {
+// A tensor map over a contiguous 16-bit array of T [outer, rows, cols] with
+// boxes of [1, box_rows, 64] in 128-byte swizzle. Rows past `rows` read as
+// zeros and are not written, so a ragged edge never touches the next
+// slice.
+template <typename T>
+inline CUresult encode_3d(CUtensorMap* map, const void* ptr, int outer,
+                          int rows, int cols, int box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
@@ -401,8 +404,10 @@ inline CUresult encode_bf16_3d(CUtensorMap* map, const void* ptr, int outer,
                                  (cuuint64_t)rows * cols * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(ptr), dims, strides, box, elem,
+  return fn(map,
+            kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -3,18 +3,20 @@ versions (counterpart of ``ray_tpu/ops/flash_attention.py``).
 
 The forward replaces the Pallas ``_attn_kernel`` in both of its launches:
 ``_flash_forward`` (MHA) and ``_flash_forward_grouped`` (GQA, K/V at
-``n_kv_heads`` width). It has two kernels, picked by a rule of shapes
-(``_forward_variant``): bf16 with head_dim 64 or 128 runs on the tensor
-cores (``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp
-specialisation); f32, f16 and every other head_dim run on the CUDA cores
-(``csrc/flash_attention_fwd.cu``), whose f32 arithmetic the f32 limits
-rest on. Neither gives way to the other on an error: the wrapper raises. The
-backward kernels, dQ and dK/dV, replace ``_attn_bwd_dq_kernel`` and
-``_attn_bwd_dkv_kernel``, which ``_flash_bwd_rule`` launches, with the
-same rule of shapes (``_backward_variant``): bf16 at head_dim 64 or 128 on
-the tensor cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel
-also writes delta = rowsum(dO * O) for its dK/dV kernel), everything else
-up to head_dim 256 on the CUDA cores (``csrc/flash_attention_bwd.cu``).
+``n_kv_heads`` width). It has three kernels, picked by a rule of shapes
+(``_forward_variant``): bf16 and f16 with head_dim 64, 128 or 256
+(``WGMMA_DIMS``) run on the tensor cores
+(``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp specialisation);
+f32 at every head_dim, and bf16 and f16 at any other head_dim up to 256,
+run on the CUDA cores (``csrc/flash_attention_fwd.cu``), whose f32
+arithmetic the f32 limits rest on. No variant gives way to another on an
+error: the wrapper raises. The backward kernels, dQ and dK/dV, replace
+``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
+``_flash_bwd_rule`` launches, with the same rule of shapes
+(``_backward_variant``): bf16 and f16 at head_dim 64, 128 or 256 on the
+tensor cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also
+writes delta = rowsum(dO * O) for its dK/dV kernel), everything else up to
+head_dim 256 on the CUDA cores (``csrc/flash_attention_bwd.cu``).
 Every head_dim above 256 takes the ``"wide"`` variant, all three kernels
 in ``csrc/flash_attention_wide.cu``, which split the head dimension of
 their output across blocks (CUDA cores, any multiple of 8). A wrapper
@@ -46,20 +48,22 @@ NEG_INF = -1e30
 # Kernel launches made by this module's wrappers, one count per kernel
 # (callers reset them to 0 around the run they want to attribute).
 launches = 0        # forward, every variant
-wgmma_launches = 0  # forward on the tensor cores (bf16, D 64 or 128)
-simt_launches = 0   # forward on the CUDA cores (f32, f16, other D <= 256)
+wgmma_launches = 0  # forward on the tensor cores (bf16/f16, WGMMA_DIMS)
+simt_launches = 0   # forward on the CUDA cores (f32, other D <= 256)
 wide_launches = 0   # forward with D above 256 (CUDA cores, D split)
 dq_launches = 0     # backward dQ, every variant
 dkv_launches = 0    # backward dK/dV, every variant
-dq_wgmma_launches = 0   # backward on the tensor cores (bf16, D 64 or 128)
+dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, WGMMA_DIMS)
 dkv_wgmma_launches = 0
-dq_simt_launches = 0    # backward on the CUDA cores (f32, f16, D <= 256)
+dq_simt_launches = 0    # backward on the CUDA cores (f32, other D <= 256)
 dkv_simt_launches = 0
 dq_wide_launches = 0    # backward with D above 256
 dkv_wide_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
 SIMT_MAX_D = 256   # the widest head_dim of the "simt" kernels
+WGMMA_DIMS = (64, 128, 256)   # head_dims of the tensor-core kernels
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (library, function) -> argtypes.
@@ -67,15 +71,15 @@ _SIGNATURES = {
     ("flash_attention_fwd", "flash_attention_fwd"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_fwd_wgmma", "flash_attention_fwd_wgmma"):
-        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _VP],
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd", "flash_attention_bwd_dq"):
         [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd", "flash_attention_bwd_dkv"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd_wgmma", "flash_attention_bwd_dq_wgmma"):
-        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_bwd_wgmma", "flash_attention_bwd_dkv_wgmma"):
-        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide", "flash_attention_fwd_wide"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide", "flash_attention_bwd_dq_wide"):
@@ -228,12 +232,13 @@ def take_route(dtype: torch.dtype, D: int) -> str:
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
     """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
-    for bf16 with head_dim 64 or 128, ``"wide"`` (CUDA cores, the head
-    dimension split across blocks) for head_dim above ``SIMT_MAX_D``,
-    ``"simt"`` (CUDA cores) otherwise. f32 stays on the CUDA cores because
-    TF32 products would break its limit (``testing.O_ROW_TOL``); f16 has
-    no tensor-core kernel."""
-    if dtype == torch.bfloat16 and D in (64, 128):
+    for bf16 and f16 with head_dim in ``WGMMA_DIMS`` (64, 128, 256),
+    ``"wide"`` (CUDA cores, the head dimension split across blocks) for
+    head_dim above ``SIMT_MAX_D``, ``"simt"`` (CUDA cores) otherwise: f32
+    at every head_dim up to 256, because TF32 products would break its
+    limit (``testing.O_ROW_TOL``), and bf16 and f16 at the other multiples
+    of 8 up to 256."""
+    if dtype in WGMMA_DTYPES and D in WGMMA_DIMS:
         return "wgmma"
     return "wide" if D > SIMT_MAX_D else "simt"
 
@@ -265,12 +270,11 @@ def _launch(q, k, v, causal, scale):
             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
             int(bool(causal)))
     if variant == "wgmma":
-        name = "flash_attention_fwd_wgmma"
-        err = _kernel_fn(name, name)(*args, stream)
+        library = name = "flash_attention_fwd_wgmma"
     else:
         library, _, suffix = _CUDA_CORE[variant]
         name = "flash_attention_fwd" + suffix
-        err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)
+    err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)
     _check_launch(name, err)
     launches += 1
     if variant == "wgmma":
@@ -284,7 +288,8 @@ def _launch(q, k, v, causal, scale):
 
 def _backward_args(q, k, v, o, lse, do, causal, scale):
     """dO cast to q's dtype, the checks, and the scalars shared by both
-    backward kernels: (do, (B*H, Sq, Sk, D, scale, causal), stream)."""
+    backward kernels: (do, (B*H, Sq, Sk, D, scale, causal, dtype code),
+    stream)."""
     do = do.to(q.dtype).contiguous()
     _check_kernel_inputs((q, k, v, o, do), "q, k, v, o, dO")
     if k.shape[1] != q.shape[1] or o.shape != q.shape or do.shape != q.shape:
@@ -292,7 +297,8 @@ def _backward_args(q, k, v, o, lse, do, causal, scale):
                          "counts and o/dO shaped like q")
     _check_rows_f32(lse, q, "LSE")
     B, H, Sq, D = q.shape
-    scalars = (B * H, Sq, k.shape[2], D, float(scale), int(bool(causal)))
+    scalars = (B * H, Sq, k.shape[2], D, float(scale), int(bool(causal)),
+               _DTYPE_CODE[q.dtype])
     return do, scalars, torch.cuda.current_stream(q.device).cuda_stream
 
 
@@ -327,8 +333,7 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
         delta = None
         _, library, suffix = _CUDA_CORE[variant]
         name = "flash_attention_bwd_dq" + suffix
-        err = _kernel_fn(library, name)(
-            *ptrs, *scalars, _DTYPE_CODE[q.dtype], stream)
+        err = _kernel_fn(library, name)(*ptrs, *scalars, stream)
         _check_launch(name, err)
         if variant == "wide":
             dq_wide_launches += 1
@@ -363,7 +368,7 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
         err = _kernel_fn(library, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *scalars, _DTYPE_CODE[q.dtype], stream)
+            *scalars, stream)
         _check_launch(name, err)
         if variant == "wide":
             dkv_wide_launches += 1

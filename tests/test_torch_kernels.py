@@ -52,8 +52,10 @@ def _qkv(seed, B, Hq, Hkv, Sq, Sk, D, dtype, device):
             .to(device=device, dtype=dtype) for s in shapes]
 
 
-# Head dims up to 256 and float16 run on the CUDA-core kernel (D 200 and
-# 256 need more than the 48 KB default of dynamic shared memory).
+# Head dims up to 256 in each dtype, through the kernel of the rule: f32
+# and the widths the tensor cores do not take on the CUDA-core kernel (D
+# 200 and 256 need more than the 48 KB default of dynamic shared memory),
+# bf16 and f16 at 64, 128 and 256 on the tensor-core one.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -76,7 +78,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     """D=12 takes the plain route (no launch, one plain route counted)
-    and equals it; f16 runs the CUDA-core kernel; head_dim 264 launches
+    and equals it; f16 at head_dim 16 runs the CUDA-core kernel; head_dim
+    264 launches
     the wide kernel and equals the plain version; a dtype no kernel takes
     and a non-contiguous input still raise."""
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 12, torch.float32, cuda_device)
@@ -106,23 +109,27 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention_grouped(q.requires_grad_(), k, v)
 
 
-# The tensor-core forward (bf16, head_dim 64 or 128): MHA and GQA groups 2
-# and 4, lengths that fill 128-row tiles, ragged ones, the training length
-# and Sq != Sk (the reference's top-left causal mask).
+# The tensor-core forward (bf16 and f16, head_dim 64, 128 or 256): MHA and
+# GQA groups 2, 4 and 8 (one KV head, as Gemma-2B's attention), lengths
+# that fill 128-row tiles, ragged ones, the training length and Sq != Sk
+# (the reference's top-left causal mask).
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2), (8, 1)])
 @pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
                                    (77, 131)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_wgmma_kernel_matches_plain(cuda_device, D, Hq, Hkv, Sq, Sk,
-                                          causal):
-    q, k, v = _qkv(6, 2, Hq, Hkv, Sq, Sk, D, torch.bfloat16, cuda_device)
-    before = fa.wgmma_launches, fa.simt_launches
+def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
+                                          Sq, Sk, causal):
+    q, k, v = _qkv(6, 2, Hq, Hkv, Sq, Sk, D, dtype, cuda_device)
+    before = _forward_counts()
     o, lse = fa._flash_forward(q, k, v, causal)
     torch.cuda.synchronize()
-    assert (fa.wgmma_launches, fa.simt_launches) == (before[0] + 1,
-                                                     before[1])
+    after = _forward_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "wgmma": 1, "simt": 0, "wide": 0}
+    assert o.dtype == dtype
     ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
 
@@ -135,9 +142,10 @@ def _forward_counts():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
-    (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 264, "wide"),
-    (torch.bfloat16, 512, "wide")])
+    (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide"),
+    (torch.bfloat16, 512, "wide"), (torch.float16, 256, "wgmma"),
+    (torch.float16, 200, "simt"), (torch.float32, 256, "simt")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -198,8 +206,12 @@ def test_flash_wide_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
 
 
 @pytest.mark.cuda
-def test_flash_wgmma_kernel_refuses_misaligned_or_strided_input(cuda_device):
-    q, k, v = _qkv(8, 1, 2, 2, 64, 64, 64, torch.bfloat16, cuda_device)
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
+def test_flash_wgmma_kernel_refuses_misaligned_or_strided_input(cuda_device,
+                                                                dtype, D):
+    q, k, v = _qkv(8, 1, 2, 2, 64, 64, D, dtype, cuda_device)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
                           device=cuda_device)[1:].view(q.shape)
     shifted.copy_(q)
@@ -258,17 +270,20 @@ def _backward_launched(before, variant):
     return got, want
 
 
-# The tensor-core backward (bf16, head_dim 64 or 128): lengths that fill
-# 128-row tiles, ragged ones, the training length, Sq != Sk (the
-# reference's top-left causal mask) and a query count far below a tile.
+# The tensor-core backward (bf16 and f16, head_dim 64, 128 or 256):
+# lengths that fill 128-row tiles, ragged ones, the training length, Sq !=
+# Sk (the reference's top-left causal mask) and a query count far below a
+# tile.
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
                                    (77, 131), (3, 50)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_wgmma_backward_matches_plain(cuda_device, D, Sq, Sk, causal):
-    q, k, v = _qkv(9, 2, 2, 2, Sq, Sk, D, torch.bfloat16, cuda_device)
-    do = _qkv(10, 2, 2, 2, Sq, Sq, D, torch.bfloat16, cuda_device)[0]
+def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
+                                            causal):
+    q, k, v = _qkv(9, 2, 2, 2, Sq, Sk, D, dtype, cuda_device)
+    do = _qkv(10, 2, 2, 2, Sq, Sq, D, dtype, cuda_device)[0]
     o, lse = fa._flash_forward(q, k, v, causal)
     before = _backward_counts()
     grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
@@ -277,18 +292,19 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, D, Sq, Sk, causal):
     assert got == want
     ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
-        assert g.dtype == torch.bfloat16, name
+        assert g.dtype == dtype, name
         assert bool(torch.isfinite(g).all()), name
         err = grad_row_error(g, r)
-        assert err <= GRAD_ROW_TOL[torch.bfloat16], (name, err)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
-    (torch.float32, 64, "simt"), (torch.float16, 64, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float16, 264, "wide"),
-    (torch.float32, 1024, "wide")])
+    (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide"),
+    (torch.float32, 1024, "wide"), (torch.float16, 128, "wgmma"),
+    (torch.bfloat16, 200, "simt"), (torch.float32, 256, "simt")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -301,9 +317,12 @@ def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
 def test_flash_wgmma_backward_refuses_misaligned_or_strided_input(
-        cuda_device):
-    q, k, v = _qkv(12, 1, 2, 2, 64, 64, 64, torch.bfloat16, cuda_device)
+        cuda_device, dtype, D):
+    q, k, v = _qkv(12, 1, 2, 2, 64, 64, D, dtype, cuda_device)
     o, lse = fa._flash_forward(q, k, v, True)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
                           device=cuda_device)[1:].view(q.shape)

@@ -262,7 +262,7 @@ def test_entry_points_default_to_cuda_and_refuse_to_fall_back(monkeypatch):
 
 
 _PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_ab.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES,
@@ -287,6 +287,7 @@ def test_port_import_loads_no_jax_and_no_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.llm, ray_tpu_torch.ops._build, chip_smoke\n"
+        "import flash_ab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu')]\n"
         "print(bad)\n"
