@@ -14,7 +14,9 @@ non-zero without printing a result. Without a CUDA card, or without the
    instantiation (bf16 and f16 at head_dim 64, 128 and 256) must hold
    HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
    RMSNorm kernel compiles at its first launch.
-2. kernels: the forward against its plain PyTorch version on the card at
+2. kernels: the forward against its plain PyTorch version with the
+   kernels' rounding points (_dense_kernel: q * scale rounded to the input
+   type, f32 scores, as the reference's kernel rounds) on the card at
    the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
    128/512/2048, D=64, causal and not, bf16 and f32), plus S=200, Sq=77 /
    Sk=131 and one D=128 case; bf16 takes the tensor-core kernel, f32 the
@@ -35,11 +37,17 @@ non-zero without printing a result. Without a CUDA card, or without the
    f16 (GQA down to one KV head), head_dim 128 in bf16 and f16, head_dim
    64 in f16 and head_dim 200, each checked at O_ROW_TOL / GRAD_ROW_TOL
    of its dtype with a planted fault and a check of the variant launched
-   (bf16 and f16 at head_dim 64/128/256 on the tensor cores, the rest on
-   the CUDA cores); where the tensor cores take a case, the CUDA-core
-   kernels are held against the plain version on the same inputs too; at
-   S=2048 each is timed beside SDPA, the bound and, for the tensor-core
-   cases, the CUDA-core kernel. head_dim 12 takes the counted plain
+   (bf16 and f16 on the tensor cores, f32 on the CUDA cores); where the
+   tensor cores take a case, the CUDA-core kernels are held against the
+   plain version on the same inputs too; at S=2048 each is timed beside
+   SDPA, the bound and, for the tensor-core cases, the CUDA-core kernel.
+   The head dims between the tensor-core instances (ANY_DIMS: 8, 32, 80,
+   96, 136, 160, 200, 248, zero-padded to the next instance) the same way,
+   bf16 and f16, forward MHA and GQA (Hkv 8, 4, 1) and backward, at S 128,
+   200, 2048 and Sq 77 / Sk 131, causal and not, launching only the
+   tensor-core kernels; ANY_TIMED_DIMS (32, 80, 96, 160, 200) timed at
+   S=2048 beside SDPA (its backend named), the CUDA-core kernels and the
+   bound of the real head_dim's work. head_dim 12 takes the counted plain
    route: no launch, one plain_routes, the plain result; head_dim 264
    through flash_attention launches the wide kernel. The wide kernels
    (head_dim above 256, the head dimension of the output split across
@@ -51,18 +59,20 @@ non-zero without printing a result. Without a CUDA card, or without the
    plain versions with a planted fault again and timed through CUDA
    graphs beside the plain versions, SDPA (with the backend it picks) and
    the bound.
-2b. c1_models: five configs the reference serves and trains, at the
+2b. c1_models: seven configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
    and over 8 query heads and one KV head, Gemma-2B's attention widths),
    head_dim 512 (d_model 1024 over 2 heads, bf16: the wide kernels), the
-   flagship in float16 and head_dim 12 (d_model 384 over 32 heads, GQA 8,
-   bf16). Each serves 4 prompts through prefill_with_cache and 8
-   decode_steps (prefill logits equal prefill_chunk's) and takes a
-   gradient pass and 2 AdamW steps (finite, the tensor-core kernels at
-   head_dim 256 and in f16, the wide ones at 512, launched n_layers times
-   per pass and no other variant; head_dim 12 launches nothing and counts
-   n_layers plain routes per forward). From here on the flagship's phases
-   must count no plain route.
+   flagship in float16, head_dim 12 (d_model 384 over 32 heads, GQA 8,
+   bf16), head_dim 96 (Phi-3-mini's d_model 3072 over 32 heads, bf16) and
+   head_dim 80 (Phi-2's d_model 2560 over 32 heads, f16). Each serves 4
+   prompts through prefill_with_cache and 8 decode_steps (prefill logits
+   equal prefill_chunk's) and takes a gradient pass and 2 AdamW steps
+   (finite, the tensor-core kernels at head_dim 256, 96 and 80 and in f16,
+   the wide ones at 512, launched n_layers times per pass and no other
+   variant; head_dim 12 launches nothing and counts n_layers plain routes
+   per forward). From here on the flagship's phases must count no plain
+   route.
 3. model: the flagship TransformerConfig() (and its GQA variant,
    n_kv_heads=4) serves 4 prompts through prefill_with_cache (the flash
    path) and 32 greedy decode_steps; the kernel must launch n_layers times
@@ -262,11 +272,11 @@ BWD_TIMED_LEN = 2048   # the training length, where the backward is timed
 # in bf16 and f16, and f16 at head_dim 64; forward (Hkv, Sq, Sk, D,
 # dtypes) at B=4, Hq=8 (Hkv 1 is Gemma-2B's attention: 8 query heads over
 # one KV head at head_dim 256), backward (Sq, Sk, D, dtypes) at B=4, H=8.
-# bf16 and f16 at head_dim 64, 128 and 256 take the tensor-core kernels,
-# and the CUDA-core kernels that took them before are held against
-# the plain versions on the same inputs through _simt_forward /
-# _simt_backward. At S=2048 (causal) each is timed, beside the CUDA-core
-# kernel where the tensor cores take the case.
+# bf16 and f16 take the tensor-core kernels (head_dim 200 the 256-wide
+# instance, zero-padded), and the CUDA-core kernels that took them before
+# are held against the plain versions on the same inputs through
+# _simt_forward / _simt_backward. At S=2048 (causal) each is timed, beside
+# the CUDA-core kernel where the tensor cores take the case.
 _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 C1_FWD_CASES = ((8, 512, 512, 256, (_F32, _BF16, _F16)),
                 (4, 200, 200, 256, (_F32, _BF16, _F16)),
@@ -285,6 +295,22 @@ C1_BWD_CASES = ((512, 512, 256, (_F32, _BF16, _F16)),
                 (200, 200, 128, (_F16,)),
                 (2048, 2048, 64, (_F16,)), (77, 131, 64, (_F16,)),
                 (77, 131, 200, (_BF16,)))
+# Phase 2's head dims between the tensor-core instances (64, 128, 256),
+# which run the next instance up, zero-padded: 8 and 32 (a 64-column box
+# wider than the tensor), 80 (Phi-2, Pythia-2.8B), 96 (Phi-3-mini), 136
+# (8 real columns in the third 64-column block, the fourth wholly past D),
+# 160, 200 and 248. Forward at B=4, Hq=8 over (Hkv, Sq, Sk) of ANY_FWD_SHAPES
+# and backward at B=4, H=8 over (Sq, Sk) of ANY_BWD_SHAPES, bf16 and f16,
+# causal and not, each against the plain versions with a planted fault and
+# a check that only the tensor-core kernels launched, and the CUDA-core
+# kernels (the route these widths took before) against the plain versions
+# on the same inputs; ANY_TIMED_DIMS are timed at S=2048, causal, MHA.
+ANY_DIMS = (8, 32, 80, 96, 136, 160, 200, 248)
+ANY_FWD_SHAPES = tuple((Hkv, Sq, Sk) for Hkv in (8, 4, 1)
+                       for Sq, Sk in ((128, 128), (200, 200), (2048, 2048),
+                                      (77, 131)))
+ANY_BWD_SHAPES = ((128, 128), (200, 200), (2048, 2048), (77, 131))
+ANY_TIMED_DIMS = (32, 80, 96, 160, 200)
 PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
 WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
@@ -414,6 +440,12 @@ def graph_ms(fn, iters: int = 24, stream=None, replays: int = 10) -> float:
         for i in range(iters):
             fn(i)
     return cuda_ms(graph.replay, iters=replays, warmup=2) / iters
+
+
+# The CUDA-core kernels beside the tensor-core ones at S=2048 run for
+# milliseconds each (6 ms forward, 25 ms for dQ and dK/dV at head_dim 200):
+# a graph of 4 calls replayed 3 times is enough samples.
+SIMT_TIMING = {"iters": 4, "replays": 3}
 
 
 def attention_bound(B, Hq, Hkv, S, D, dtype, causal):
@@ -574,27 +606,30 @@ def compare(o, lse, ro, rlse):
 
 
 def phase_kernels(dev):
-    """Forward kernels vs plain at every listed shape; timings at S=2048
-    and at the main path's S=512. Each case checks that the variant the
-    wrapper's rule picks (bf16 D 64/128: tensor cores; f32: CUDA cores)
-    is the one that launched, and reads a planted fault (the plain version
-    with one 64-key tile of V zeroed, i.e. that tile's P.V dropped)
-    through the same comparison, failing unless the check flags it. Then
-    C1_FWD_CASES (head_dim 256, 128 and 200, f16; timed at S=2048), where
-    a case the tensor cores take also holds the CUDA-core kernel against
-    the plain version on the same inputs; and the plain route of head_dim
+    """Forward kernels vs plain (_dense_kernel) at every listed shape;
+    timings at S=2048 and at the main path's S=512. Each case checks that
+    the variant the wrapper's rule picks (bf16 and f16: tensor cores; f32:
+    CUDA cores) is the one that launched, and reads a planted fault (the
+    plain version with one 64-key tile of V zeroed, i.e. that tile's P.V
+    dropped) through the same comparison, failing unless the check flags
+    it. Then C1_FWD_CASES (head_dim 256, 128 and 200, f16; timed at
+    S=2048) and the ANY_DIMS cases (timed at ANY_TIMED_DIMS), where a case
+    the tensor cores take also holds the CUDA-core kernel against the
+    plain version on the same inputs; and the plain route of head_dim
     PLAIN_ROUTE_D."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B, Hq = 4, 8
     both = (torch.bfloat16, torch.float32)
-    cases = [(Hkv, S, S, 64, both, False) for Hkv in KV_HEADS
+    cases = [(Hkv, S, S, 64, both, "flagship") for Hkv in KV_HEADS
              for S in FWD_LENGTHS]
-    cases += [(*c, both, False) for c in FWD_EXTRA_CASES]
-    cases += [(*c, True) for c in C1_FWD_CASES]
+    cases += [(*c, both, "flagship") for c in FWD_EXTRA_CASES]
+    cases += [(*c, "c1") for c in C1_FWD_CASES]
+    cases += [(Hkv, Sq, Sk, D, (_BF16, _F16), "any") for D in ANY_DIMS
+              for Hkv, Sq, Sk in ANY_FWD_SHAPES]
     checks = []
     timing = {}
-    for Hkv, Sq, Sk, D, dtypes, c1 in cases:
+    for Hkv, Sq, Sk, D, dtypes, kind in cases:
         for dtype in dtypes:
             q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
@@ -611,8 +646,8 @@ def phase_kernels(dev):
                 o, lse = fa._flash_forward(q, k, v, causal)
                 launched = {n: c - before[n]
                             for n, c in _variant_counts(fa).items()}
-                ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
-                fo, flse = fa._dense(q, k, v_fault, causal, D ** -0.5)
+                ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+                fo, flse = fa._dense_kernel(q, k, v_fault, causal, D ** -0.5)
                 torch.cuda.synchronize()
                 err_abs, err_row, err_lse = compare(o, lse, ro, rlse)
                 _, fault_row, _ = compare(fo, flse, ro, rlse)
@@ -627,7 +662,7 @@ def phase_kernels(dev):
                          "err_o_row": err_row, "tol_o_row": tol,
                          "err_lse_of_limit": err_lse,
                          "fault_o_row": fault_row}
-                if c1 and variant == "wgmma":
+                if kind != "flagship" and variant == "wgmma":
                     so, slse = _simt_forward(fa, q, k, v, causal)
                     torch.cuda.synchronize()
                     _, simt_row, simt_lse = compare(so, slse, ro, rlse)
@@ -642,10 +677,12 @@ def phase_kernels(dev):
                         f"flash kernel disagrees with plain, the wrong "
                         f"variant launched, or the check misses a planted "
                         f"fault: {checks[-1]}")
-                if causal and Sq == Sk and ((
-                        D == 64 and Sq >= 512
-                        and (dtype == torch.bfloat16 or Hkv == Hq))
-                        or (D != 64 and Sq == 2048)):
+                if causal and Sq == Sk and (
+                        (kind == "flagship" and D == 64 and Sq >= 512
+                         and (dtype == torch.bfloat16 or Hkv == Hq))
+                        or (kind == "c1" and Sq == 2048)
+                        or (kind == "any" and Sq == 2048 and Hkv == Hq
+                            and D in ANY_TIMED_DIMS)):
                     key = f"{_dtype_name(dtype)}_Hkv{Hkv}_S{Sq}"
                     timing[key + ("" if D == 64 else f"_D{D}")] = \
                         _time_kernel(fa, q, k, v, err_abs)
@@ -682,7 +719,7 @@ def _plain_route_check(fa, gen, dev):
     before = fa.wide_launches, fa.plain_routes
     o = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    ro = fa._dense(q, k, v, True, D ** -0.5)[0]
+    ro = fa._dense_kernel(q, k, v, True, D ** -0.5)[0]
     err = ((o - ro).abs().amax(-1) / ro.abs().amax(-1)).max().item()
     out[f"D{D}"] = {"wide_launches": fa.wide_launches - before[0],
                     "plain_routes": fa.plain_routes - before[1],
@@ -761,8 +798,9 @@ def _time_kernel(fa, q, k, v, err_o):
         kernel_ms = graph_ms(lambda i: fa._flash_forward(q, k, v, True))
     simt_ms = None
     if fa._forward_variant(q.dtype, D) == "wgmma":
-        simt_ms = graph_ms(lambda i: _simt_forward(fa, q, k, v, True))
-    plain_ms = cuda_ms(lambda: fa._dense(q, k, v, True, D ** -0.5),
+        simt_ms = graph_ms(lambda i: _simt_forward(fa, q, k, v, True),
+                           **SIMT_TIMING)
+    plain_ms = cuda_ms(lambda: fa._dense_kernel(q, k, v, True, D ** -0.5),
                        iters=5)
     try:
         library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
@@ -776,6 +814,7 @@ def _time_kernel(fa, q, k, v, err_o):
     ops = 4.0 * B * Hq * S * S * D * (S + 1) / (2.0 * S)
     return {"shape": [B, Hq, Hkv, S, D], "dtype": _dtype_name(q.dtype),
             "causal": True, "variant": fa._forward_variant(q.dtype, D),
+            "sdpa_backend": _sdpa_backend(q, k, v) if Hkv == Hq else None,
             "max_abs_err": err_o, "kernel_ms": kernel_ms,
             "tflops": ops / kernel_ms * 1e-9,
             "simt_kernel_ms": simt_ms,
@@ -787,23 +826,26 @@ def phase_backward(dev):
     """Backward kernels vs the plain backward at every listed shape,
     causal and not, bf16 and f32, from the kernel forward's O and LSE (as
     training gives them). Each case checks that the variant of the rule
-    (bf16 D 64/128: tensor cores; f32: CUDA cores) launched, once per
+    (bf16 and f16: tensor cores; f32: CUDA cores) launched, once per
     kernel, and nothing else, and reads a planted fault (the plain
     backward with one 64-row tile of dO zeroed) through the same check,
     failing unless it is flagged. Timings at the training shape S=2048,
     per dtype; then C1_BWD_CASES (head_dim 256, 128 and 200, f16; timed
-    at S=2048), where a case the tensor cores take also holds the
-    CUDA-core kernels against the plain backward on the same inputs."""
+    at S=2048) and the ANY_DIMS cases (timed at ANY_TIMED_DIMS), where a
+    case the tensor cores take also holds the CUDA-core kernels against
+    the plain backward on the same inputs."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     B, H = 4, 8
     both = (torch.bfloat16, torch.float32)
-    cases = [(S, S, 64, both, False) for S in BWD_LENGTHS]
-    cases += [(*c, both, False) for c in BWD_EXTRA_CASES]
-    cases += [(*c, True) for c in C1_BWD_CASES]
+    cases = [(S, S, 64, both, "flagship") for S in BWD_LENGTHS]
+    cases += [(*c, both, "flagship") for c in BWD_EXTRA_CASES]
+    cases += [(*c, "c1") for c in C1_BWD_CASES]
+    cases += [(Sq, Sk, D, (_BF16, _F16), "any") for D in ANY_DIMS
+              for Sq, Sk in ANY_BWD_SHAPES]
     checks = []
     timing = {}
-    for Sq, Sk, D, dtypes, c1 in cases:
+    for Sq, Sk, D, dtypes, kind in cases:
         scale = D ** -0.5
         for dtype in dtypes:
             q, do = (torch.randn((B, H, Sq, D), generator=gen,
@@ -843,7 +885,7 @@ def phase_backward(dev):
                          "err_row": dict(zip(("dq", "dk", "dv"), errs)),
                          "max_abs": dict(zip(("dq", "dk", "dv"), abs_errs)),
                          "tol_row": tol, "fault_row": fault_err}
-                if c1 and variant == "wgmma":
+                if kind != "flagship" and variant == "wgmma":
                     simt = (*_simt_backward(fa, "dq", q, k, v, o, lse, do,
                                             causal),
                             *_simt_backward(fa, "dkv", q, k, v, o, lse, do,
@@ -862,7 +904,8 @@ def phase_backward(dev):
                         f"backward kernels disagree with plain, the wrong "
                         f"variant launched, or the check misses a planted "
                         f"fault: {checks[-1]}")
-                if causal and Sq == Sk == BWD_TIMED_LEN:
+                if causal and Sq == Sk == BWD_TIMED_LEN and (
+                        kind != "any" or D in ANY_TIMED_DIMS):
                     key = _dtype_name(dtype) + ("" if D == 64 else f"_D{D}")
                     timing[key] = _time_backward(fa, q, k, v, o, lse, do,
                                                  abs_errs)
@@ -935,12 +978,14 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
     simt_ms = {"dq": None, "dkv": None}
     if variant == "wgmma":
         simt_ms = {kind: graph_ms(lambda i, kind=kind: _simt_backward(
-            fa, kind, q, k, v, o, lse, do)) for kind in ("dq", "dkv")}
+            fa, kind, q, k, v, o, lse, do), **SIMT_TIMING)
+            for kind in ("dq", "dkv")}
     plain_ms = cuda_ms(lambda: fa._dense_backward(q, k, v, o, lse, do, True,
                                                   scale), iters=5)
     library_ms = _sdpa_backward_ms(q, k, v, do)
     result = {"shape": [B, H, S, D], "dtype": _dtype_name(q.dtype),
               "causal": True, "variant": variant,
+              "sdpa_backend": _sdpa_backend(q, k, v),
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library": "scaled_dot_product_attention backward (dq, dk "
                          "and dv in one call, CUDA graph; compare with the "
@@ -1006,8 +1051,8 @@ def phase_wide(dev):
                     o, lse = fa._flash_forward(q, k, v, causal)
                     launched = {n: c - before[n]
                                 for n, c in _variant_counts(fa).items()}
-                    ro, rlse = fa._dense(q, k, v, causal, scale)
-                    fo, flse = fa._dense(q, k, v_fault, causal, scale)
+                    ro, rlse = fa._dense_kernel(q, k, v, causal, scale)
+                    fo, flse = fa._dense_kernel(q, k, v_fault, causal, scale)
                     torch.cuda.synchronize()
                     err_abs, err_row, err_lse = compare(o, lse, ro, rlse)
                     fault_row = compare(fo, flse, ro, rlse)[1]
@@ -1093,10 +1138,10 @@ def _time_wide(fa, gen, dev, dtype):
               "dkv": graph_ms(lambda i: fa._launch_dkv(
                   q, k, v, o, lse, do, None, True, scale), iters=2,
                   replays=3)}
-    ro, rlse = fa._dense(q, k, v, True, scale)
+    ro, rlse = fa._dense_kernel(q, k, v, True, scale)
     v_fault = v.clone()
     v_fault[:, :, S // 2:S // 2 + 32] = 0
-    fo, flse = fa._dense(q, k, v_fault, True, scale)
+    fo, flse = fa._dense_kernel(q, k, v_fault, True, scale)
     err_o_abs, err_o_row, err_lse = compare(o, lse, ro, rlse)
     fault_o_row = compare(fo, flse, ro, rlse)[1]
     del ro, rlse, fo, flse, v_fault
@@ -1126,7 +1171,7 @@ def _time_wide(fa, gen, dev, dtype):
             f"wide kernels at {list(WIDE_TIMED)} {_dtype_name(dtype)} "
             f"disagree with plain (finite {finite}), or the check misses a "
             f"planted fault: {check}")
-    plain_fwd = cuda_ms(lambda: fa._dense(q, k, v, True, scale),
+    plain_fwd = cuda_ms(lambda: fa._dense_kernel(q, k, v, True, scale),
                         iters=3, warmup=1)
     plain_bwd = cuda_ms(lambda: fa._dense_backward(q, k, v, o, lse, do,
                                                    True, scale),
@@ -1144,7 +1189,8 @@ def _time_wide(fa, gen, dev, dtype):
            "causal": True, "variant": "wide", "check": check,
            "sdpa_backend": backend, "plain_bwd_ms": plain_bwd,
            "sdpa_bwd_ms": sdpa_bwd,
-           "plain": "_dense / _dense_backward (dq, dk and dv in one call)",
+           "plain": "_dense_kernel / _dense_backward (dq, dk and dv in "
+                    "one call)",
            "library": "scaled_dot_product_attention (backward: dq, dk and "
                       "dv in one call)"}
     for kind in ("fwd", "dq", "dkv"):
@@ -2213,7 +2259,17 @@ def _c1_configs(base):
              "wgmma"),
             ("hd12_bf16", dataclasses.replace(
                 base, d_model=384, n_heads=32, n_kv_heads=8, **cut),
-             "plain"))
+             "plain"),
+            # Phi-3-mini's attention widths: d_model 3072 over 32 heads
+            # (head_dim 96), 32 KV heads.
+            ("hd96_bf16", dataclasses.replace(
+                base, d_model=3072, n_heads=32, n_kv_heads=32, **cut),
+             "wgmma"),
+            # Phi-2's (and Pythia-2.8B's): d_model 2560 over 32 heads
+            # (head_dim 80), in float16.
+            ("hd80_f16", dataclasses.replace(
+                base, d_model=2560, n_heads=32, n_kv_heads=32,
+                dtype=torch.float16, **cut), "wgmma"))
 
 
 def phase_c1_models(dev, base, model_lens):
@@ -3375,8 +3431,8 @@ def phase_spmd_train(dev, card, base):
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
-                              "library_ms", "bound_ms", "bound_by",
-                              "max_abs_err", "shape", "dtype")}
+                              "library_ms", "sdpa_backend", "bound_ms",
+                              "bound_by", "max_abs_err", "shape", "dtype")}
 
 
 def _bwd_brief(tb, kind):
@@ -3386,7 +3442,8 @@ def _bwd_brief(tb, kind):
     return {**{k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "bound_ms",
                                  "bound_by", "max_abs_err")},
             "plain_ms": tb["plain_ms"], "library_ms": tb["library_ms"],
-            "shape": tb["shape"], "dtype": tb["dtype"]}
+            "sdpa_backend": tb["sdpa_backend"], "shape": tb["shape"],
+            "dtype": tb["dtype"]}
 
 
 def main() -> int:
@@ -3526,13 +3583,21 @@ def main() -> int:
                                    for dt in ("bfloat16", "float16")}
     # The tensor-core kernels on the shapes that the CUDA-core ones took
     # before (phase 2b's configs give the launches): head_dim 256 in bf16
-    # (f16 beside it) and the flagship in f16, timed at S=2048 (phase 2)
+    # (f16 beside it), the flagship in f16, and the padded widths of
+    # Phi-3-mini (head_dim 96, bf16; every ANY_TIMED_DIMS width and dtype
+    # beside it) and Phi-2 (head_dim 80, f16), timed at S=2048 (phase 2)
     # beside the CUDA-core kernels on the same inputs (simt_kernel_ms).
     bwd_wgmma_source = "ray_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu"
+    any_widths = [(dt, D) for D in ANY_TIMED_DIMS
+                  for dt in ("bfloat16", "float16")]
     for cfg_name, suffix, fwd_key, bwd_key in (
             ("hd256_bf16", "[D256-bf16]", "bfloat16_Hkv8_S2048_D256",
              "bfloat16_D256"),
-            ("f16", "[f16]", "float16_Hkv8_S2048", "float16")):
+            ("f16", "[f16]", "float16_Hkv8_S2048", "float16"),
+            ("hd96_bf16", "[D96-bf16]", "bfloat16_Hkv8_S2048_D96",
+             "bfloat16_D96"),
+            ("hd80_f16", "[D80-f16]", "float16_Hkv8_S2048_D80",
+             "float16_D80")):
         served = c1[cfg_name]
         t = timing[fwd_key]
         row = {
@@ -3553,6 +3618,9 @@ def main() -> int:
             row["float16"] = _fwd_brief(timing["float16_Hkv8_S2048_D256"])
             row["launches_gqa1"] = c1["hd256_gqa1_bf16"][
                 "launches_per_prefill_by_variant"]["wgmma"]
+        if cfg_name == "hd96_bf16":
+            row["widths"] = {f"{dt}_D{D}": _fwd_brief(
+                timing[f"{dt}_Hkv8_S2048_D{D}"]) for dt, D in any_widths}
         kernels.append(row)
         tb = bwd[bwd_key]
         for kind in ("dq", "dkv"):
@@ -3573,6 +3641,9 @@ def main() -> int:
                 "shape": tb["shape"], "dtype": tb["dtype"], "card": card}
             if cfg_name == "hd256_bf16":
                 row["float16"] = _bwd_brief(bwd["float16_D256"], kind)
+            if cfg_name == "hd96_bf16":
+                row["widths"] = {f"{dt}_D{D}": _bwd_brief(
+                    bwd[f"{dt}_D{D}"], kind) for dt, D in any_widths}
             kernels.append(row)
     # The wide kernels (head_dim above 256): launches from phase 2b's
     # head_dim 512 config (one prefill_with_cache and one gradient pass),

@@ -5,26 +5,36 @@ Builds the tensor-core forward and backward libraries
 (``ray_tpu_torch/ops/csrc/flash_attention_{fwd,bwd}_wgmma.cu``) of several
 designs, prints each build's ptxas registers and spills, holds each design's
 forward against this tree's (O per row within O_ROW_TOL, LSE within
-LSE_TOL) and reports this tree's against the plain version, and times the
-forward, dQ and dK/dV of every design against this tree's on the same
-inputs, in turns (other designs, this tree, this tree, the others in
-reverse), through CUDA graphs. bf16, B=4, H=8, S=2048, causal, head_dim
-64, 128 and 256 (each variant at the widths it changes).
+LSE_TOL) and reports this tree's against the plain version with the
+kernels' rounding points (``_dense_kernel``), and times the forward, dQ
+and dK/dV of every design against this tree's on the same inputs, in
+turns (other designs, this tree, this tree, the others in reverse),
+through CUDA graphs. bf16, B=4, H=8, S=2048, causal, head_dim 64, 128 and
+256 (each variant at the widths it changes).
+
+With ``--parent``, the parent's and this tree's kernels are also compared
+bit for bit: at every width the backward kernels (dQ with its delta, and
+dK/dV) on the same bf16 inputs, and at head_dim 64 and 256, where the
+scale is a power of two, the forward; and both forwards' digests are
+printed for the cases of ``ray_tpu_torch.testing.FWD_DIGESTS`` (bf16 and
+f16, causal and not, on inputs that keep q * scale exact in f16), which
+must equal each other and, where recorded, the digests there.
 
 The designs:
 - ``tree``: this checkout's sources, the kernels the port launches;
 - ``parent``: the sources under ``--parent DIR`` (a ``git archive`` of an
-  earlier commit), whose C entry points take no dtype code (bf16 only,
-  head_dim 64 and 128);
+  earlier commit whose C entry points take a dtype code, as this tree's
+  do: head_dim 64, 128 and 256);
 - textual variants of this tree's sources (``VARIANTS``): the forward with
   32-key tiles at head_dim 256, the forward with the general masking test
   at every width, and both libraries with a 384-thread block whose
   producer warpgroup hands its registers to the consumers (setmaxnreg 24 /
   240), the layout before this one.
 
-Run from the repository root: ``python3 flash_ab.py --parent DIR``. Prints
-one JSON line per build, check and timing, then the card's name and power
-limit. Exits non-zero without a card.
+Run from the repository root: ``python3 flash_ab.py --parent DIR``
+(``--variants ""`` builds no textual variant). Prints one JSON line per
+build, check and timing, then the card's name and power limit. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
+from ray_tpu_torch import testing
 from ray_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent
@@ -143,16 +154,14 @@ def build(names, parent):
 
 
 def entry_points(name, libs):
-    """(forward, dQ, dK/dV) C functions of a design, argument types set;
-    the parent's take no dtype code."""
-    extra = [] if name == "parent" else [_CI]
+    """(forward, dQ, dK/dV) C functions of a design, argument types set."""
     fwd = libs["flash_attention_fwd_wgmma"].flash_attention_fwd_wgmma
-    fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI] + extra + [_VP]
+    fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP]
     bwd = libs["flash_attention_bwd_wgmma"]
     dq = bwd.flash_attention_bwd_dq_wgmma
     dkv = bwd.flash_attention_bwd_dkv_wgmma
     for fn in (dq, dkv):
-        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI] + extra + [_VP]
+        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
     for fn in (fwd, dq, dkv):
         fn.restype = _CI
     return fwd, dq, dkv
@@ -172,11 +181,11 @@ def calls(name, fns, t):
     """Closures launching a design's three kernels on the tensors t."""
     fwd, dq, dkv = fns
     D = t["q"].shape[-1]
-    extra = () if name == "parent" else (1,)   # dtype code: bf16
+    code = cs._flash_module()._DTYPE_CODE[t["q"].dtype]
     p = {k: v.data_ptr() for k, v in t.items()}
 
     def run(fn, *args):
-        err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, code, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: launch failed ({err})")
 
@@ -192,6 +201,79 @@ def calls(name, fns, t):
     }
 
 
+def same_bits(runs, t, D):
+    """The parent's and this tree's kernels on the same inputs, bit for
+    bit: dQ (with delta) and dK/dV at every width, the forward at the
+    power-of-two scales (D 64, 256). Emits what matched; raises where a
+    kernel that must match does not."""
+    outs = {}
+    for n in ("parent", "tree"):
+        for kind, names in (("fwd", ("o2", "l2")), ("dq", ("dq2", "delta2")),
+                            ("dkv", ("dk2", "dv2"))):
+            runs[n][kind](0)
+            torch.cuda.synchronize()
+            outs[n, kind] = [t[x].clone() for x in names]
+    same = {kind: all(torch.equal(a, b) for a, b in zip(
+        outs["parent", kind], outs["tree", kind]))
+        for kind in ("fwd", "dq", "dkv")}
+    emit({"check": "parent vs tree, bit for bit", "D": D, "same": same})
+    must = ("dq", "dkv") + (("fwd",) if D in (64, 256) else ())
+    if not all(same[kind] for kind in must):
+        raise AssertionError(f"D={D}: the parent's and this tree's kernels "
+                             f"differ where they must not: {same}")
+
+
+def digests(fns, dev):
+    """Forward digests of the parent and this tree at the cases of
+    testing.FWD_DIGESTS (testing.digest_inputs: seeded, GQA, ragged
+    lengths, q kept where q * scale is exact), which must match; then the
+    same seeds without that nudge, reported only: there f16's products
+    below 2**-14 lose bits (``inexact_q`` counts them), as the reference's
+    do, and the two designs may differ."""
+    fa = cs._flash_module()
+    found = {}
+    B, Hq, Hkv, Sq, Sk = testing.FWD_DIGEST_SHAPE
+    for nudge in (True, False):
+        for dtype in (torch.bfloat16, torch.float16):
+            for D in (64, 256):
+                q, k, v = testing.digest_inputs(D, dtype, dev, nudge)
+                scale_t = torch.tensor(D ** -0.5, dtype=dtype).float()
+                inexact = int(((q.float() * scale_t).to(dtype).float()
+                               / scale_t != q.float()).sum())
+                for causal in (True, False):
+                    key = (f"{cs._dtype_name(dtype)}-D{D}-"
+                           f"{'causal' if causal else 'full'}")
+                    got = {}
+                    for n in ("parent", "tree"):
+                        o = torch.empty_like(q)
+                        lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                                          device=dev)
+                        err = fns[n][0](
+                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), lse.data_ptr(), B, Hq, Hkv, Sq,
+                            Sk, D, D ** -0.5, int(causal),
+                            fa._DTYPE_CODE[dtype],
+                            torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"{n}: launch failed ({err})")
+                        torch.cuda.synchronize()
+                        got[n] = testing.tensor_digest(o, lse)
+                    same = got["parent"] == got["tree"]
+                    if not nudge:
+                        emit({"digest_unnudged": key, "inexact_q": inexact,
+                              "same": same})
+                        continue
+                    recorded = testing.FWD_DIGESTS.get(key)
+                    emit({"digest": key, **got, "inexact_q": inexact,
+                          "recorded": recorded})
+                    found[key] = got["parent"]
+                    if not same or (recorded is not None
+                                    and recorded != got["tree"]):
+                        raise AssertionError(f"{key}: forward digests "
+                                             f"differ")
+    emit({"FWD_DIGESTS": found})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device; this script runs only on a card",
@@ -200,12 +282,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout (git archive) of the "
                     "commit to compare with")
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated textual variants to build "
+                         "(default: all)")
     args = ap.parse_args()
     fa = cs._flash_module()
-    names = ["tree", *VARIANTS] + (["parent"] if args.parent else [])
+    variants = [n for n in args.variants.split(",") if n]
+    names = ["tree", *variants] + (["parent"] if args.parent else [])
     libs = build(names, args.parent)
     fns = {n: entry_points(n, libs[n]) for n in names}
     dev = torch.device("cuda", 0)
+    if args.parent:
+        digests(fns, dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for D in DIMS:
         q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
@@ -219,13 +307,14 @@ def main() -> int:
              "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
              "dv2": torch.empty_like(v)}
         others = [n for n in names if n != "tree"
-                  and D in VARIANT_DIMS.get(n, DIMS)
-                  and not (n == "parent" and D == 256)]
+                  and D in VARIANT_DIMS.get(n, DIMS)]
         runs = {n: calls(n, fns[n], t) for n in ["tree", *others]}
+        if "parent" in others:
+            same_bits(runs, t, D)
         runs["tree"]["fwd"](0)
         torch.cuda.synchronize()
         to, tlse = t["o2"].clone(), t["l2"].clone()
-        _, err_row, err_lse = cs.compare(to, tlse, *fa._dense(
+        _, err_row, err_lse = cs.compare(to, tlse, *fa._dense_kernel(
             q, k, v, True, D ** -0.5))
         emit({"check": "tree vs plain", "D": D, "err_o_row": err_row,
               "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],

@@ -313,6 +313,10 @@ class CompiledTorchDAG:
     def __call__(self, *inputs):
         return self.execute(*inputs).get()
 
+    def teardown(self):
+        """API parity with the reference's ``CompiledJaxDAG.teardown``;
+        nothing to stop here."""
+
     def visualize_schedule(self, max_lanes: int = 8) -> str:
         """Render the compiled schedule: per-wave (and per-shard) lane
         tables with output slots, exported lanes marked ``*`` and each

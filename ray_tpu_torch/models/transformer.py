@@ -492,10 +492,17 @@ def _layer_fn(cfg, lp, x, positions, layer_idx):
                          layer_idx)[0]
 
 
-def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
+def forward(cfg: TransformerConfig, params, tokens, mesh=None, rules=None
+            ) -> torch.Tensor:
     """Cacheless forward: tokens [B, S] -> logits [B, S, V] f32.
     Differentiable; with ``cfg.remat`` each layer is checkpointed and
-    recomputed in the backward (the reference's ``jax.checkpoint``)."""
+    recomputed in the backward (the reference's ``jax.checkpoint``).
+
+    ``mesh`` and ``rules`` are taken as the reference's GSPMD path takes
+    them, which only adds sharding constraints on the activations and the
+    logits: the values are the same with or without them. Their placement
+    is not mirrored here: the computation and the result stay on the
+    device of ``params`` and ``tokens``."""
     dt = cfg.dtype
     B, S = tokens.shape
     tokens = tokens.long()
@@ -512,11 +519,13 @@ def forward(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
     return (x @ _wt(params["lm_head"], dt, x)).float()
 
 
-def loss_fn(cfg: TransformerConfig, params, tokens, targets
-            ) -> torch.Tensor:
+def loss_fn(cfg: TransformerConfig, params, tokens, targets, mesh=None,
+            rules=None) -> torch.Tensor:
     """Mean next-token NLL: log-softmax of the f32 logits, gathered at the
-    targets (reference ``loss_fn``)."""
-    logp = torch.log_softmax(forward(cfg, params, tokens), dim=-1)
+    targets (reference ``loss_fn``). ``mesh`` and ``rules`` as in
+    ``forward``: accepted, the value unchanged, placement not mirrored."""
+    logp = torch.log_softmax(forward(cfg, params, tokens, mesh, rules),
+                             dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     return nll.mean()
 

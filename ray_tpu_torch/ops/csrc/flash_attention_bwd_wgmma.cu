@@ -1,9 +1,10 @@
 // Flash-attention backward on Hopper's tensor cores (sm_90a): the FA2 split
 // into a dQ kernel and a dK/dV kernel, each with TMA-fed tiles, wgmma
 // products, one producer warp and two consumer warpgroups. bf16 or f16
-// inputs with head_dim 64, 128 or 256; f32 and other widths keep the
-// CUDA-core kernels (flash_attention_bwd.cu, flash_attention_wide.cu) by the
-// wrapper's rule of shapes.
+// inputs with head_dim any multiple of 8 up to 256, run by the instance of
+// width kD = 64, 128 or 256 that holds it (below); f32 and head dims above
+// 256 keep the CUDA-core kernels (flash_attention_bwd.cu,
+// flash_attention_wide.cu) by the wrapper's rule of shapes.
 //
 // Replaces the Pallas TPU kernels `_attn_bwd_dq_kernel` and
 // `_attn_bwd_dkv_kernel` of ray_tpu/ops/flash_attention.py, which
@@ -74,7 +75,7 @@
 //   dV D/2 each (D/4 each at D=256). At D=256 the streamed tiles are 32
 //   wide, and still dQ 128 + S 16 + dP 16 (and its dS in flight) spill
 //   216 bytes, dK 64 + dV 64 + S^T 16 + dP^T 16 with their addressing
-//   112; 64-wide tiles would add 32 registers to each.
+//   92; 64-wide tiles would add 32 registers to each.
 // - Shared memory: dQ kernel 2 * 128 * D * 2 bytes (Q, dO) + kStages * 2 *
 //   kKeys * D * 2 (K, V) = 80 KB at D=64, 160 KB at D=128, 224 KB at D=256
 //   (32-key tiles: 64-key tiles would need 320 KB); dK/dV kernel 2 * kKeys
@@ -86,6 +87,16 @@
 //   that can hold them, as does the causal diagonal; LSE and delta of
 //   columns past Sq read as 0 and are never used. Gradients are staged in
 //   shared memory and stored by TMA, which clips rows past the end.
+// - Head dims between the instances: a head_dim D (a multiple of 8) runs
+//   the instance of the next width kD up, with tensor maps over the real D,
+//   so TMA zero-fills every column past D (a 64-column box partly or
+//   wholly past D included, its full bytes counted toward the barrier).
+//   Zero columns of Q, K, V and dO add nothing to S, dP or the gradients'
+//   products, and the gradients' columns past D come out 0 and are not
+//   stored: the TMA store clips at D, and a box wholly past D is not
+//   issued. At kD = 256 the second dK/dV warpgroup's half then holds D -
+//   128 real columns. The dQ kernel reads O and dO for delta itself, D
+//   columns a row.
 // - Each CTA owns its output rows: no atomics, deterministic results.
 //
 // Launches on the caller's stream and allocates nothing.
@@ -108,17 +119,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ void release_slot(uint32_t bar, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(bar);
-}
-
-// Two values of T (one 32-bit register) as f32.
-template <typename T>
-__device__ __forceinline__ float2 to_float2(uint32_t pair) {
-  if constexpr (kF16<T>) {
-    return __half22float2(*reinterpret_cast<const __half2*>(&pair));
-  } else {
-    return __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&pair));
-  }
 }
 
 // acc + the dot product of 8 values of T in a and 8 in b.
@@ -170,7 +170,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           float* __restrict__ delta, int sq, int sk,
-                          float scale, int causal) {
+                          int d, float scale, int causal) {
   using L = DqLayout<kD>;
   constexpr int kKeys = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
@@ -237,18 +237,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t do_wg = do_s + wg * 64 * 128;
 
   // delta = rowsum(dO * O) and LSE (times log2 e) of this thread's two
-  // rows; the four lanes of a row each sum a quarter of it.
+  // rows; the four lanes of a row each sum a quarter of kD's 8-value
+  // chunks, those that lie within the row's d columns.
   float dlt[2], lse2[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     float part = 0.f;
     if (row < sq) {
-      const size_t off = ((size_t)bh * sq + row) * kD + (lane % 4) * (kD / 4);
+      const size_t off = ((size_t)bh * sq + row) * d;
       const uint4* pd = reinterpret_cast<const uint4*>(dout + off);
       const uint4* po = reinterpret_cast<const uint4*>(o + off);
+      const int chunk0 = (lane % 4) * (kD / 32);
 #pragma unroll
-      for (int j = 0; j < kD / 32; ++j) part = dot8<T>(pd[j], po[j], part);
+      for (int j = 0; j < kD / 32; ++j) {
+        if (8 * (chunk0 + j) < d) {
+          part = dot8<T>(pd[chunk0 + j], po[chunk0 + j], part);
+        }
+      }
     }
     dlt[h] = quad_sum(part);
     lse2[h] = row < sq ? lse[(size_t)bh * sq + row] * kLog2e : 0.f;
@@ -359,7 +365,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0 && q0 + wg * 64 < sq) {
-    for (int c = 0; c < L::kColBlocks; ++c) {
+    for (int c = 0; c < L::kColBlocks && 64 * c < d; ++c) {
       tma_store_3d(&tm_dq, q_wg + c * kDqRows * 128, 64 * c, q0 + wg * 64,
                    bh);
     }
@@ -404,7 +410,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_dv,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta, int sq, int sk,
-                           float scale, int causal) {
+                           int d, float scale, int causal) {
   using L = DkvLayout<kD>;
   constexpr int kBlockQ = L::kBlockQ;
   constexpr int kCols = L::kCols;
@@ -620,7 +626,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0 && key_base < sk) {
-    for (int c = blk0; c < blk0 + kCols / 64; ++c) {
+    for (int c = blk0; c < blk0 + kCols / 64 && 64 * c < d; ++c) {
       tma_store_3d(&tm_dk, k_wg + c * blk_bytes, 64 * c, key_base, bh);
       tma_store_3d(&tm_dv, v_wg + c * blk_bytes, 64 * c, key_base, bh);
     }
@@ -633,18 +639,18 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <typename T, int kD>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* dq, void* delta,
-              int bh, int sq, int sk, float scale, int causal,
+              int bh, int sq, int sk, int d, float scale, int causal,
               cudaStream_t stream) {
   using L = DqLayout<kD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  CUresult res = encode_3d<T>(&tm_q, q, bh, sq, kD, kDqRows);
+  CUresult res = encode_3d<T>(&tm_q, q, bh, sq, d, kDqRows);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_k, k, bh, sk, kD, L::kKeys);
+    res = encode_3d<T>(&tm_k, k, bh, sk, d, L::kKeys);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_v, v, bh, sk, kD, L::kKeys);
+    res = encode_3d<T>(&tm_v, v, bh, sk, d, L::kKeys);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_do, dout, bh, sq, kD, kDqRows);
-  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dq, dq, bh, sq, kD, 64);
+    res = encode_3d<T>(&tm_do, dout, bh, sq, d, kDqRows);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dq, dq, bh, sq, d, 64);
   if (res != CUDA_SUCCESS) return -(int)res;
 
   auto kernel = flash_bwd_dq_wgmma_kernel<T, kD>;
@@ -656,26 +662,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), sq, sk, scale, causal);
+      static_cast<float*>(delta), sq, sk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int kD>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
-               void* dk, void* dv, int bh, int sq, int sk, float scale,
-               int causal, cudaStream_t stream) {
+               void* dk, void* dv, int bh, int sq, int sk, int d,
+               float scale, int causal, cudaStream_t stream) {
   using L = DkvLayout<kD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
-  CUresult res = encode_3d<T>(&tm_q, q, bh, sq, kD, L::kBlockQ);
+  CUresult res = encode_3d<T>(&tm_q, q, bh, sq, d, L::kBlockQ);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_k, k, bh, sk, kD, L::kKeys);
+    res = encode_3d<T>(&tm_k, k, bh, sk, d, L::kKeys);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_v, v, bh, sk, kD, L::kKeys);
+    res = encode_3d<T>(&tm_v, v, bh, sk, d, L::kKeys);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_do, dout, bh, sq, kD, L::kBlockQ);
-  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dk, dk, bh, sk, kD, 64);
-  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dv, dv, bh, sk, kD, 64);
+    res = encode_3d<T>(&tm_do, dout, bh, sq, d, L::kBlockQ);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dk, dk, bh, sk, d, 64);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dv, dv, bh, sk, d, 64);
   if (res != CUDA_SUCCESS) return -(int)res;
 
   auto kernel = flash_bwd_dkv_wgmma_kernel<T, kD>;
@@ -686,7 +692,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   dim3 grid(bh, (sk + L::kKeys - 1) / L::kKeys);
   kernel<<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), sq, sk, scale, causal);
+      static_cast<const float*>(delta), sq, sk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -695,14 +701,14 @@ int dispatch_dq(int d, const void* q, const void* k, const void* v,
                 const void* o, const void* dout, const void* lse, void* dq,
                 void* delta, int bh, int sq, int sk, float scale, int causal,
                 cudaStream_t s) {
-  if (d == 64)
+  if (d <= 64)
     return launch_dq<T, 64>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk,
-                            scale, causal, s);
-  if (d == 128)
+                            d, scale, causal, s);
+  if (d <= 128)
     return launch_dq<T, 128>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk,
-                             scale, causal, s);
+                             d, scale, causal, s);
   return launch_dq<T, 256>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk,
-                           scale, causal, s);
+                           d, scale, causal, s);
 }
 
 template <typename T>
@@ -710,18 +716,18 @@ int dispatch_dkv(int d, const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dk, void* dv, int bh, int sq, int sk, float scale,
                  int causal, cudaStream_t s) {
-  if (d == 64)
+  if (d <= 64)
     return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
-                             scale, causal, s);
-  if (d == 128)
+                             d, scale, causal, s);
+  if (d <= 128)
     return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
-                              scale, causal, s);
+                              d, scale, causal, s);
   return launch_dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
-                            scale, causal, s);
+                            d, scale, causal, s);
 }
 
 bool bad_shape(int bh, int sq, int sk, int d, int dtype) {
-  return bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 128 && d != 256) ||
+  return bh < 1 || sq < 1 || sk < 1 || d < 8 || d > 256 || d % 8 != 0 ||
          (dtype != 1 && dtype != 2);
 }
 
@@ -730,8 +736,8 @@ bool bad_shape(int bh, int sq, int sk, int d, int dtype) {
 // q, o, dout, dq [B*H, Sq, D]; k, v [B*H, Sk, D]: contiguous, of one type
 // (dtype 1: bf16, 2: f16), with 16-byte aligned bases; lse [B*H, Sq] f32
 // as the forward writes it; delta [B*H, Sq] f32, written (the dK/dV kernel
-// reads it); D 64, 128 or 256. Returns 0, a cudaError_t, or minus a
-// CUresult when a tensor map cannot be encoded.
+// reads it); D a multiple of 8 up to 256. Returns 0, a cudaError_t, or
+// minus a CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k,
                                             const void* v, const void* o,
                                             const void* dout,

@@ -1,13 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores, one kernel
-// for MHA and GQA. The wrapper's rule of shapes sends bf16 with head_dim 64
-// or 128 to the tensor-core kernel (flash_attention_fwd_wgmma.cu); this one
-// takes f32, whose limit TF32 products would break, f16, and every other
-// head_dim that is a multiple of 8 up to 256.
+// for MHA and GQA. The wrapper's rule of shapes sends bf16 and f16 at every
+// head_dim up to 256 to the tensor-core kernel (flash_attention_fwd_wgmma.cu)
+// and f32, whose limit TF32 products would break, here, at every head_dim
+// that is a multiple of 8 up to 256. Its bf16 and f16 instances stay,
+// reached by no rule: they are the earlier design that chip_smoke.py times
+// and checks beside the tensor-core kernel.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
 // `_flash_forward_grouped` (GQA, K/V kept at n_kv_heads width). It computes
-// the same thing: O = softmax(scale * Q K^T [causal-masked]) V with an
+// the same thing: O = softmax(T(scale * Q) K^T [causal-masked]) V with an
 // online softmax in f32, and LSE = m + log(l) of the scaled scores. Masking
 // is finite (-1e30) and l is clamped at 1e-30, so a fully masked row stays
 // finite exactly as in the reference.
@@ -45,9 +47,10 @@
 // - Ragged Sq / Sk are masked: rows past Sq are not stored, K/V rows past Sk
 //   are zero-filled in shared memory and masked to -1e30.
 // - LSE is written [B, Hq, Sq] (no TPU sublane broadcast).
-// - As in the reference, p is rounded to the input type before P.V while l
-//   sums the unrounded p. Q is scaled in f32 (the reference scales in the
-//   input type), which is the one place bf16 results may differ.
+// - The reference's rounding points: Q times the scale rounded to the input
+//   type T, the product rounded to T (exact in f32 first, so this is T's
+//   own product; nothing is rounded in f32), scores in f32, p rounded to T
+//   before P.V while l sums the unrounded p.
 //
 // The kernel launches on the caller's stream and allocates nothing.
 
@@ -88,9 +91,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kMax];
   const T* qp = q + ((size_t)bh * sq + (row_valid ? qi : 0)) * d;
   load_slice<T, kSlice, kMax>(qr, qp, row_valid, slice, ds);
+  const float scale_t = round_to<T>(scale);
 #pragma unroll
   for (int i = 0; i < kMax; ++i) {
-    qr[i] *= scale;
+    qr[i] = round_to<T>(qr[i] * scale_t);
     acc[i] = 0.f;
   }
   float m = kNegInf;

@@ -1,13 +1,14 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): TMA-fed tiles,
 // wgmma products, one producer warp and two consumer warpgroups. bf16 or f16
-// inputs with head_dim 64, 128 or 256; f32 and other widths keep the
-// CUDA-core kernels (flash_attention_fwd.cu, flash_attention_wide.cu) by the
-// wrapper's rule of shapes.
+// inputs with head_dim any multiple of 8 up to 256, run by the instance of
+// width kD = 64, 128 or 256 that holds it (below); f32 and head dims above
+// 256 keep the CUDA-core kernels (flash_attention_fwd.cu,
+// flash_attention_wide.cu) by the wrapper's rule of shapes.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and
 // `_flash_forward_grouped` (GQA, K/V kept at n_kv_heads width), and
-// computes what it computes: O = softmax(scale * Q K^T [causal-masked]) V
+// computes what it computes: O = softmax(T(scale * Q) K^T [causal-masked]) V
 // with an online softmax in f32, LSE = m + log(l) of the scaled scores as
 // [B, Hq, Sq] f32 (the backward kernels read it). Masking is finite
 // (-1e30) and l is clamped at 1e-30, as in the reference.
@@ -37,7 +38,7 @@
 //   same 168 and spills 320 bytes at D=256). One producer warp rather than
 //   a warpgroup keeps the forward within a few percent of that layout and
 //   makes the dK/dV kernel faster (flash_attention_bwd_wgmma.cu). At
-//   D=256, O alone is 128 f32: with 64-key tiles ptxas spills 340 bytes a
+//   D=256, O alone is 128 f32: with 64-key tiles ptxas spills 308 bytes a
 //   thread; 32-key tiles spill 68 and measured 3-6% slower on the H100 (an
 //   S product at N=32 reads more shared memory per operation), and
 //   128-key tiles do not fit shared memory. flash_ab.py rebuilds and times
@@ -54,13 +55,22 @@
 //   the grid schedules the heaviest causal tiles (the last rows) first, so
 //   the last wave is not one long tile.
 // - The epilogue stages O (in T) in the warpgroup's Q rows in shared
-//   memory and a TMA store writes it, clipping rows past Sq.
-// Rounding points are the reference's: scores in f32, the scale applied to
-// the f32 scores, p rounded to T before P.V while l sums the unrounded p,
-// one cast of O. At D=64 and D=256 the scale (1/8, 1/16) is a power of
-// two, so scaling the f32 score equals the reference's scaling of Q in T;
-// at D=128 the reference rounds q * scale to T first (a relative
-// difference of up to one ulp of T per element of q).
+//   memory and a TMA store writes it, clipping rows past Sq and columns
+//   past D.
+// - Head dims between the instances: a head_dim D (a multiple of 8) runs
+//   the instance of the next width kD up. The tensor maps describe the
+//   real D (a row stride of 2 D bytes, 16-byte aligned), so TMA fills
+//   every column past D with zeros, a 64-column box that lies partly or
+//   wholly past D included, and still counts the box's full bytes toward
+//   the mbarrier. Zero columns add nothing to Q K^T or P V, and the store
+//   clips O at D. The work is kD's: padding shows as distance from the
+//   bound.
+// Rounding points are the reference's: Q * scale rounded to T (the scale
+// rounded to T first, as JAX's weak typing casts the Python float) in
+// shared memory before the first product, scores in f32, p rounded to T
+// before P.V while l sums the unrounded p, one cast of O. Where the scale
+// is a power of two (D = 64, 256) the rounding is exact and the results
+// are those of scaling the f32 scores, bit for bit.
 //
 // Launches on the caller's stream and allocates nothing.
 
@@ -110,7 +120,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o,
                        float* __restrict__ lse, int hq, int hkv, int sq,
-                       int sk, float scale, int causal) {
+                       int sk, int d, float scale, int causal) {
   using L = Layout<kD>;
   constexpr int kBlockN = L::kBlockN;
   extern __shared__ uint8_t smem_raw[];
@@ -181,7 +191,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg_row0 = q0 + wg * 64;                // first row of the group
   const int row0 = wg_row0 + r_local;              // and row0 + 8
   const int col_lane = 2 * (lane % 4);
-  const float scale_log2 = scale * kLog2e;
   const uint32_t q_wg = q_s + wg * 64 * 128;
 
   float o[kD / 2];
@@ -194,6 +203,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
 
   mbar_wait(q_full, 0);
+  // This warpgroup's 64 Q rows times the scale rounded to T, rounded to T
+  // in place (elementwise, so the swizzle does not matter); then the async
+  // proxy (wgmma) may read them.
+  {
+    const float scale_t = round_to<T>(scale);
+#pragma unroll
+    for (int c = 0; c < L::kColBlocks; ++c) {
+      uint4* rows = reinterpret_cast<uint4*>(
+          smem + L::kQ + c * kBlockM * 128 + wg * 64 * 128);
+#pragma unroll
+      for (int i = tid; i < 64 * 8; i += 128) {
+        rows[i] = scale4<T>(rows[i], scale_t);
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+  }
   for (int kb = 0; kb < n_kb; ++kb) {
     const int s = kb % kStages;
     const uint32_t full_parity = (kb / kStages) & 1;
@@ -254,14 +280,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = quad_max(mx[h]);
-      alpha[h] = fast_exp2((m[h] - mx[h]) * scale_log2);
-      neg[h] = -mx[h] * scale_log2;
+      alpha[h] = fast_exp2((m[h] - mx[h]) * kLog2e);
+      neg[h] = -mx[h] * kLog2e;
       m[h] = mx[h];
     }
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) {
       const int h = (i / 2) % 2;
-      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, neg[h]));
+      sc[i] = fast_exp2(fmaf(sc[i], kLog2e, neg[h]));
       sum[h] += sc[i];
     }
 #pragma unroll
@@ -295,7 +321,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(v_empty(s));
   }
 
-  // Epilogue: O = acc / l, LSE = m * scale + log(l).
+  // Epilogue: O = acc / l, LSE = m + log(l).
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -303,7 +329,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     inv[h] = 1.f / lt;
     const int row = row0 + 8 * h;
     if (lane % 4 == 0 && row < sq) {
-      lse[(size_t)bh * sq + row] = m[h] * scale + logf(lt);
+      lse[(size_t)bh * sq + row] = m[h] + logf(lt);
     }
   }
   // Stage O in this warpgroup's Q rows (its last wgmma reading them has
@@ -313,26 +339,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (tid == 0 && wg_row0 < sq) {
-    for (int c = 0; c < L::kColBlocks; ++c) {
+    for (int c = 0; c < L::kColBlocks && 64 * c < d; ++c) {
       tma_store_3d(&tm_o, q_wg + c * kBlockM * 128, 64 * c, wg_row0, bh);
     }
     tma_store_commit_and_wait();
   }
 }
 
+// Tensor maps over the real head_dim d (<= kD): TMA zero-fills the columns
+// of the kD-wide tiles past d and the store clips O there.
 template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int batch, int hq, int hkv, int sq, int sk, float scale,
+           int batch, int hq, int hkv, int sq, int sk, int d, float scale,
            int causal, cudaStream_t stream) {
   using L = Layout<kD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  CUresult res = encode_3d<T>(&tm_q, q, batch * hq, sq, kD, kBlockM);
+  CUresult res = encode_3d<T>(&tm_q, q, batch * hq, sq, d, kBlockM);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_k, k, batch * hkv, sk, kD, L::kBlockN);
+    res = encode_3d<T>(&tm_k, k, batch * hkv, sk, d, L::kBlockN);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_v, v, batch * hkv, sk, kD, L::kBlockN);
+    res = encode_3d<T>(&tm_v, v, batch * hkv, sk, d, L::kBlockN);
   if (res == CUDA_SUCCESS)
-    res = encode_3d<T>(&tm_o, o, batch * hq, sq, kD, 64);
+    res = encode_3d<T>(&tm_o, o, batch * hq, sq, d, 64);
   if (res != CUDA_SUCCESS) return -(int)res;
 
   auto kernel = flash_fwd_wgmma_kernel<T, kD>;
@@ -343,7 +371,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   dim3 grid(batch * hq, (sq + kBlockM - 1) / kBlockM);
   kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o,
                                            static_cast<float*>(lse), hq, hkv,
-                                           sq, sk, scale, causal);
+                                           sq, sk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -351,13 +379,13 @@ template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
              int batch, int hq, int hkv, int sq, int sk, int d, float scale,
              int causal, cudaStream_t stream) {
-  if (d == 64)
-    return launch<T, 64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+  if (d <= 64)
+    return launch<T, 64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
                          causal, stream);
-  if (d == 128)
-    return launch<T, 128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+  if (d <= 128)
+    return launch<T, 128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
                           causal, stream);
-  return launch<T, 256>(q, k, v, o, lse, batch, hq, hkv, sq, sk, scale,
+  return launch<T, 256>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, scale,
                         causal, stream);
 }
 
@@ -365,8 +393,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D], all contiguous,
 // of one type (dtype 1: bf16, 2: f16) with 16-byte aligned bases; lse
-// [B, Hq, Sq] f32; D 64, 128 or 256. Returns 0, a cudaError_t, or minus a
-// CUresult when a tensor map cannot be encoded.
+// [B, Hq, Sq] f32; D a multiple of 8 up to 256. Returns 0, a cudaError_t,
+// or minus a CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int batch, int hq, int hkv, int sq,
@@ -374,7 +402,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          int causal, int dtype,
                                          void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 ||
-      (d != 64 && d != 128 && d != 256) || (dtype != 1 && dtype != 2) ||
+      d < 8 || d > 256 || d % 8 != 0 || (dtype != 1 && dtype != 2) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ||
       (sq + kBlockM - 1) / kBlockM > 65535) {
     return (int)cudaErrorInvalidValue;

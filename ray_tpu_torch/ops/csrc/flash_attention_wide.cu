@@ -1,16 +1,19 @@
 // Flash attention for head dims above 256 on Hopper (sm_90a), on the CUDA
 // cores: the forward (MHA and GQA), dQ and dK/dV, in f32, bf16 and f16.
 // The wrapper's rule of shapes sends every head_dim above 256 here; the
-// kernels of flash_attention_fwd.cu / flash_attention_bwd.cu take the
-// multiples of 8 up to 256 and the tensor-core ones bf16 at 64 and 128.
+// tensor-core kernels take bf16 and f16 at the multiples of 8 up to 256, the
+// kernels of flash_attention_fwd.cu / flash_attention_bwd.cu f32 there.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
 // and `_flash_forward_grouped` (GQA) launch it, and `_attn_bwd_dq_kernel`
 // and `_attn_bwd_dkv_kernel` as `_flash_bwd_rule` launches them. The
-// arithmetic is theirs and the narrower kernels': scores in f32 from the
-// forward's LSE, finite -1e30 masking, p and dS rounded to the input type
-// before their products, f32 accumulation.
+// arithmetic is theirs and the narrower kernels': the forward's Q times the
+// scale rounded to the input type and rounded to it (as `_attn_kernel`
+// scales its Q block), the backward's scores scaled in f32 (as the
+// reference's backward kernels scale them), scores from the forward's LSE,
+// finite -1e30 masking, p and dS rounded to the input type before their
+// products, f32 accumulation.
 //
 // What stopped the narrower kernels at 256. They keep a quarter of a row
 // per thread in registers (D / 4 floats per operand), and their shared
@@ -153,6 +156,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kColSlice; ++i) acc[i] = 0.f;
   float m = kNegInf;
   float l = 0.f;
+  const float scale_t = round_to<T>(scale);
 
   int n_kb = (sk + kTile - 1) / kTile;
   if (causal) n_kb = min(n_kb, (min(q0 + kBlockQ, sq) - 1) / kTile + 1);
@@ -170,6 +174,10 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float qr[kColSlice];
       load_part(qr, qp + col0, row_valid, slice, width);
 #pragma unroll
+      for (int i = 0; i < kColSlice; ++i) {
+        qr[i] = round_to<T>(qr[i] * scale_t);
+      }
+#pragma unroll
       for (int j = 0; j < kTile; ++j) {
         float kr[kColSlice];
         read_part(kr, ks + j * kCols, slice);
@@ -179,7 +187,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sub_max = kNegInf;
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
-      const float sc = row_sum(s[j]) * scale;
+      const float sc = row_sum(s[j]);
       const int kj = k0 + j;
       s[j] = (kj < sk && (!causal || kj <= qi)) ? sc : kNegInf;
       sub_max = fmaxf(sub_max, s[j]);

@@ -208,6 +208,40 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return r;
 }
 
+// Two values of T (one 32-bit register) as f32.
+template <typename T>
+__device__ __forceinline__ float2 to_float2(uint32_t pair) {
+  if constexpr (kF16<T>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&pair));
+  } else {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&pair));
+  }
+}
+
+// x rounded to T (to nearest even) and back to f32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (kF16<T>) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+// Eight values of T times s, each product rounded to T: the product of
+// two values of T is exact in f32, so this is T's own rounded product.
+template <typename T>
+__device__ __forceinline__ uint4 scale4(uint4 x, float s) {
+  uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = to_float2<T>(w[i]);
+    w[i] = pack2<T>(f.x * s, f.y * s);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Stages a warpgroup's 64 x kN f32 accumulator as T into rows row0 ..
 // row0 + 63 (row0 a multiple of 8) of a shared-memory tile whose 64-column
 // blocks lie block_bytes apart, in the swizzle a TMA store reads; the
@@ -389,10 +423,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous 16-bit array of T [outer, rows, cols] with
-// boxes of [1, box_rows, 64] in 128-byte swizzle. Rows past `rows` read as
-// zeros and are not written, so a ragged edge never touches the next
-// slice.
+// A tensor map over a contiguous 16-bit array of T [outer, rows, cols]
+// (cols a multiple of 8, so a row is a whole number of 16-byte chunks) with
+// boxes of [1, box_rows, 64] in 128-byte swizzle. Rows past `rows` and
+// columns past `cols` read as zeros and are not written, so a ragged edge
+// never touches the next row or slice: a box that lies partly or wholly
+// past `cols` (cols below 64, or a 64-column block past the head_dim)
+// lands as a full box of zeros beyond the tensor, and counts its full
+// bytes toward the barrier of its copy.
 template <typename T>
 inline CUresult encode_3d(CUtensorMap* map, const void* ptr, int outer,
                           int rows, int cols, int box_rows) {

@@ -4,24 +4,33 @@ versions (counterpart of ``ray_tpu/ops/flash_attention.py``).
 The forward replaces the Pallas ``_attn_kernel`` in both of its launches:
 ``_flash_forward`` (MHA) and ``_flash_forward_grouped`` (GQA, K/V at
 ``n_kv_heads`` width). It has three kernels, picked by a rule of shapes
-(``_forward_variant``): bf16 and f16 with head_dim 64, 128 or 256
-(``WGMMA_DIMS``) run on the tensor cores
-(``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp specialisation);
-f32 at every head_dim, and bf16 and f16 at any other head_dim up to 256,
-run on the CUDA cores (``csrc/flash_attention_fwd.cu``), whose f32
-arithmetic the f32 limits rest on. No variant gives way to another on an
-error: the wrapper raises. The backward kernels, dQ and dK/dV, replace
-``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
+(``_forward_variant``): bf16 and f16 at every head_dim that is a multiple
+of 8 up to 256 run on the tensor cores
+(``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp specialisation;
+instantiated at head_dim 64, 128 and 256, a narrower head_dim running the
+next one up with its columns past D zero-filled by TMA); f32 up to
+head_dim 256 runs on the CUDA cores (``csrc/flash_attention_fwd.cu``),
+whose f32 arithmetic the f32 limits rest on. No variant gives way to
+another on an error: the wrapper raises. The backward kernels, dQ and
+dK/dV, replace ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
 ``_flash_bwd_rule`` launches, with the same rule of shapes
-(``_backward_variant``): bf16 and f16 at head_dim 64, 128 or 256 on the
-tensor cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also
-writes delta = rowsum(dO * O) for its dK/dV kernel), everything else up to
-head_dim 256 on the CUDA cores (``csrc/flash_attention_bwd.cu``).
-Every head_dim above 256 takes the ``"wide"`` variant, all three kernels
-in ``csrc/flash_attention_wide.cu``, which split the head dimension of
-their output across blocks (CUDA cores, any multiple of 8). A wrapper
-launches its kernel for CUDA tensors and raises on what it does not take;
-it runs the plain version only for tensors on the CPU.
+(``_backward_variant``): bf16 and f16 on the tensor cores
+(``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also writes delta
+= rowsum(dO * O) for its dK/dV kernel), f32 up to head_dim 256 on the CUDA
+cores (``csrc/flash_attention_bwd.cu``). Every head_dim above 256 takes
+the ``"wide"`` variant, all three kernels in
+``csrc/flash_attention_wide.cu``, which split the head dimension of their
+output across blocks (CUDA cores, any multiple of 8). A wrapper launches
+its kernel for CUDA tensors and raises on what it does not take; it runs
+a plain version only for tensors on the CPU.
+
+The forward kernels round where the reference's ``_attn_kernel`` does:
+q * scale in q's dtype (the scale itself rounded to that dtype first, as
+JAX's weak typing casts a Python float), scores in f32, p rounded before
+P.V. ``_dense_kernel`` is the plain version with those rounding points;
+``_dense`` rounds as the reference's ``_fallback`` does (the product Q.K^T
+in q's dtype, then its scaling). On the CPU ``_flash_forward`` takes the
+one the reference takes on those shapes (``_reference_runs_kernel``).
 
 Which route a head_dim takes is one rule, ``_attention_route``: a head_dim
 that is no multiple of 8 takes the plain path (``_fallback`` /
@@ -48,21 +57,20 @@ NEG_INF = -1e30
 # Kernel launches made by this module's wrappers, one count per kernel
 # (callers reset them to 0 around the run they want to attribute).
 launches = 0        # forward, every variant
-wgmma_launches = 0  # forward on the tensor cores (bf16/f16, WGMMA_DIMS)
-simt_launches = 0   # forward on the CUDA cores (f32, other D <= 256)
+wgmma_launches = 0  # forward on the tensor cores (bf16/f16, D <= 256)
+simt_launches = 0   # forward on the CUDA cores (f32, D <= 256)
 wide_launches = 0   # forward with D above 256 (CUDA cores, D split)
 dq_launches = 0     # backward dQ, every variant
 dkv_launches = 0    # backward dK/dV, every variant
-dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, WGMMA_DIMS)
+dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
 dkv_wgmma_launches = 0
-dq_simt_launches = 0    # backward on the CUDA cores (f32, other D <= 256)
+dq_simt_launches = 0    # backward on the CUDA cores (f32, D <= 256)
 dkv_simt_launches = 0
 dq_wide_launches = 0    # backward with D above 256
 dkv_wide_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
-SIMT_MAX_D = 256   # the widest head_dim of the "simt" kernels
-WGMMA_DIMS = (64, 128, 256)   # head_dims of the tensor-core kernels
+SIMT_MAX_D = 256   # the widest head_dim of the "simt" and "wgmma" kernels
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -141,6 +149,42 @@ def _dense(q, k, v, causal, scale):
     p = torch.softmax(s32, dim=-1).to(q.dtype)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v)
     return o.reshape(B, Hq, Sq, D), lse.reshape(B, Hq, Sq)
+
+
+def _dense_kernel(q, k, v, causal, scale):
+    """Grouped dense attention with the rounding points of the reference's
+    ``_attn_kernel``, the plain version of the forward kernels: q * scale
+    rounded to q's dtype T (the scale rounded to T first; f32 stays f32),
+    scores of that and K in f32 with -1e30 masking, p = exp(s - m) with l
+    summing the unrounded p, P.V on p rounded to T and accumulated in f32,
+    O = acc / max(l, 1e-30) cast once, LSE = m + log(l). The reference's
+    online softmax rounds p against its running maximum, one K/V block at
+    a time; this takes the row's maximum at once. Returns (O [B, Hq, Sq,
+    D], LSE [B, Hq, Sq] f32)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    T = q.dtype
+    scale_t = torch.tensor(scale, dtype=T).float()
+    qs = (q.float() * scale_t).to(T).float()
+    qg = qs.reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    if causal:
+        s = _mask_causal(s)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1).clamp_min(1e-30)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(T).float(), v.float())
+    o = (acc / l[..., None]).to(T)
+    lse = m[..., 0] + torch.log(l)
+    return o.reshape(B, Hq, Sq, D), lse.reshape(B, Hq, Sq)
+
+
+def _reference_runs_kernel(Sq: int, Sk: int, D: int) -> bool:
+    """Whether the reference's ``flash_attention`` / ``flash_attention_
+    grouped`` reach ``pl.pallas_call`` on these shapes rather than
+    ``_fallback``: both lengths at least 8 and D a multiple of 8 (its
+    block sizes always divide the lengths)."""
+    return Sq >= 8 and Sk >= 8 and D % 8 == 0
 
 
 def _fallback(q, k, v, causal, scale):
@@ -231,16 +275,20 @@ def take_route(dtype: torch.dtype, D: int) -> str:
 
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
-    """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
-    for bf16 and f16 with head_dim in ``WGMMA_DIMS`` (64, 128, 256),
-    ``"wide"`` (CUDA cores, the head dimension split across blocks) for
-    head_dim above ``SIMT_MAX_D``, ``"simt"`` (CUDA cores) otherwise: f32
-    at every head_dim up to 256, because TF32 products would break its
-    limit (``testing.O_ROW_TOL``), and bf16 and f16 at the other multiples
-    of 8 up to 256."""
-    if dtype in WGMMA_DTYPES and D in WGMMA_DIMS:
+    """Which forward kernel takes a CUDA input: ``"wide"`` (CUDA cores, the
+    head dimension split across blocks) for head_dim above
+    ``SIMT_MAX_D``; ``"wgmma"`` (tensor cores) for bf16 and f16 at every
+    multiple of 8 up to it (the kernel's template widths are 64, 128 and
+    256; a narrower head_dim runs the next one up, zero-padded);
+    ``"simt"`` (CUDA cores) otherwise: f32 up to 256, because TF32
+    products would break its limit (``testing.O_ROW_TOL``). A head_dim
+    that is no multiple of 8 gets ``"simt"``, whose wrapper raises
+    (``_attention_route`` sends it to the plain path first)."""
+    if D > SIMT_MAX_D:
+        return "wide"
+    if dtype in WGMMA_DTYPES and D % 8 == 0:
         return "wgmma"
-    return "wide" if D > SIMT_MAX_D else "simt"
+    return "simt"
 
 
 def _backward_variant(dtype: torch.dtype, D: int) -> str:
@@ -383,11 +431,15 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O [B, Hq, Sq, D] in q's dtype, LSE [B, Hq, Sq] f32). The kernel on
     a CUDA tensor (launched with q's card current, so a tensor on any card
-    of a mesh launches there), the plain version on a CPU tensor."""
+    of a mesh launches there). On a CPU tensor the plain version of what
+    the reference runs on these shapes: ``_dense_kernel`` where it reaches
+    its Pallas kernel, ``_dense`` where it takes ``_fallback``."""
     _check_shapes(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
+        if _reference_runs_kernel(q.shape[2], k.shape[2], q.shape[3]):
+            return _dense_kernel(q, k, v, causal, scale)
         return _dense(q, k, v, causal, scale)
     with torch.cuda.device(q.device):
         return _launch(q, k, v, causal, scale)

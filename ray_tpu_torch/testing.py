@@ -10,14 +10,19 @@ one device. Each limit stands beside its reason.
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
-# Flash forward. The error scale of attention output is the size of the
-# row it belongs to (|O| of a row shrinks as its keys grow), so O is held
-# per row: max|o - ro| over a row, over max|ro| of that row. bf16: the
-# plain version rounds each score twice (the product, then its scaling)
-# and p once, the kernel rounds p from f32 scores, and both round O
-# (relative ulp 2**-8 to 2**-7); a row's error sums many such roundings.
+# Flash forward, against the plain version with the kernels' rounding
+# points (``_dense_kernel``). The error scale of attention output is the
+# size of the row it belongs to (|O| of a row shrinks as its keys grow), so
+# O is held per row: max|o - ro| over a row, over max|ro| of that row.
+# bf16: both round q * scale to bf16 and keep f32 scores; the kernel rounds
+# p against its running maximum, a tile at a time, the plain version
+# against the row's, and both round O (relative ulp 2**-8 to 2**-7); a
+# row's error sums many such roundings.
 # The limit 2**-5 is 4 to 8 ulps of the row's largest element; a dropped
 # 64-key tile reads 20x more. LSE is held per element: bf16 scores rounded
 # by 2**-9 of their size move LSE by at most that, and the limit is
@@ -61,11 +66,12 @@ RMS_TOL_CAST_FIRST = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 # The bf16 flagship's training loss through the kernels against the same
 # loss through plain attention (chip_smoke.py), |loss - ref| / |ref|. The
 # two differ only in attention, which rounds at other places (the plain
-# version rounds each score to bf16 twice, the kernel keeps f32 scores): a
-# few bf16 ulps per element, within O_ROW_TOL of a row. The loss is a mean
-# over 8192 tokens of f32 log-softmax terms, so differences of either sign
-# average out; to move the loss by one bf16 ulp of itself (2**-8) every
-# token would have to move the same way by that much.
+# attention of the model rounds each score to bf16 twice; the kernel rounds
+# q * scale to bf16 once and keeps f32 scores, as the reference's kernel
+# does): a few bf16 ulps per element, within O_ROW_TOL of a row. The loss
+# is a mean over 8192 tokens of f32 log-softmax terms, so differences of
+# either sign average out; to move the loss by one bf16 ulp of itself
+# (2**-8) every token would have to move the same way by that much.
 TRAIN_LOSS_TOL_BF16 = 2.0 ** -8
 
 # Speculative decoding in bf16 (chip_smoke.py phase 6). A spec round's
@@ -131,3 +137,67 @@ def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     d = (got.float() - ref).abs().amax(-1)
     floor = max(GRAD_ROW_FLOOR * ref.abs().max().item(), 1e-30)
     return (d / ref.abs().amax(-1).clamp_min(floor)).max().item()
+
+
+def seeded_qkv(seed, B, Hq, Hkv, Sq, Sk, D, dtype, device):
+    """q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D] of standard normals drawn
+    by numpy from ``seed`` (the same values on any machine), cast to
+    ``dtype`` on ``device``."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(device=device, dtype=dtype) for s in shapes]
+
+
+def tensor_digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (16-bit types as int16)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        if t.element_size() == 2:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+# The tensor-core forward where the scale is a power of two (head_dim 64:
+# 1/8, 256: 1/16): there q * scale is exact in the input type unless the
+# product falls below f16's normal range (2**-14), where it loses bits, as
+# the reference's f16 product does; bf16 has f32's exponent range. On
+# inputs whose q keeps every product normal, the forward that rounds Q
+# before its products must give, bit for bit, what the forward that scaled
+# the f32 scores gave. The inputs are digest_inputs(D, dtype), and each
+# digest is tensor_digest(O, LSE) of that earlier forward on an H100
+# (flash_ab.py --parent prints both designs' digests).
+FWD_DIGEST_SEED = 21
+FWD_DIGEST_SHAPE = (2, 4, 2, 200, 200)   # B, Hq, Hkv, Sq, Sk
+FWD_DIGEST_MIN_Q = 2.0 ** -10   # |q| / 16 >= 2**-14: normal in f16
+FWD_DIGESTS = {
+    "bfloat16-D64-causal":
+        "fe4216c18b47c4aa0cab5bd64e38bffc75a77e35bcef22c9da2c71191d143bd2",
+    "bfloat16-D64-full":
+        "659db610284da16a43f7925ec193884911bff136771218c77e98488d3d0ae417",
+    "bfloat16-D256-causal":
+        "b4a879cdaba616c9aadb2d329237db1acdbcffa848e535695a33ed335b69ff0f",
+    "bfloat16-D256-full":
+        "040847fc084169cecf985484e7997015ff8ed05ba569b76e0b853d130ab5aa5c",
+    "float16-D64-causal":
+        "90e342e140e91880323702b0c7ee67bf297f48bc2b9cfc1bd9d099bc625ccbb1",
+    "float16-D64-full":
+        "c6bca1bb0e96cd8c70399ef870fe639d0e010405bee1cd13d2be4af9afae60f4",
+    "float16-D256-causal":
+        "90dc59d24ee799d7215e2074095dd5f5391fc196cac65a173c43b4b2aa2e8109",
+    "float16-D256-full":
+        "5db730dd45fd08b5ca7b846144b7cb91fb05008dbc422a8d2ac1bd69f92fe1b8",
+}
+
+
+def digest_inputs(D, dtype, device, nudge=True):
+    """seeded_qkv(FWD_DIGEST_SEED, *FWD_DIGEST_SHAPE, D, ...), with q moved
+    away from zero to |q| >= FWD_DIGEST_MIN_Q when ``nudge`` (so that q *
+    scale is exact in f16 at head_dim 64 and 256)."""
+    q, k, v = seeded_qkv(FWD_DIGEST_SEED, *FWD_DIGEST_SHAPE, D,
+                         torch.float32, device)
+    if nudge:
+        q = torch.copysign(q.abs().clamp_min(FWD_DIGEST_MIN_Q), q)
+    return [t.to(dtype) for t in (q, k, v)]

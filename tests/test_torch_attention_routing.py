@@ -49,8 +49,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 def test_attention_route_rule(D, dtype):
     dt = DTYPES[dtype]
     want = ("plain" if D == 12
-            else "wgmma" if dt != torch.float32 and D in (64, 128, 256)
             else "wide" if D > 256
+            else "wgmma" if dt != torch.float32
             else "simt")
     assert fa._attention_route(dt, D) == want
     before = fa.plain_routes

@@ -1,8 +1,8 @@
 """The plain versions that the card holds the tensor-core flash kernels
-against at head_dim 256 and in float16 (``_dense``, ``_fallback_grouped``
-and ``_dense_backward``), held against the JAX reference's Pallas kernels
-run in interpret mode, on the CPU, as tests/test_torch_ops.py holds them
-at the flagship's widths.
+against at head_dim 256 and in float16 (``_dense_kernel``, which the CPU
+forward runs at these shapes, and ``_dense_backward``), held against the
+JAX reference's Pallas kernels run in interpret mode, on the CPU, as
+tests/test_torch_ops.py holds them at the flagship's widths.
 
 The cases are the shapes the tensor-core kernels took over from the
 CUDA-core ones: head_dim 256 in bf16 and f16, and f16 at head_dim 64 and
@@ -30,13 +30,15 @@ SHAPES = [(jnp.bfloat16, 256), (jnp.float16, 64), (jnp.float16, 128),
 IDS = ["bf16-256", "f16-64", "f16-128", "f16-256"]
 TORCH = {jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16}
 
-# Forward output, absolute. The reference rounds q * scale to the input
-# type and keeps f32 scores; the plain version rounds the scores to the
-# input type after the einsum; both round p before P.V and round O once.
-# Scores of size up to ~4 rounded by one ulp move p by that much relative,
-# so O (of size up to ~2) moves by a few ulps of itself: one bf16 ulp of
-# an O(1) value is 2**-8, one f16 ulp 2**-11, and the limits allow about
-# five.
+# Forward output, absolute. The reference and the plain version
+# (``_dense_kernel``) both round q * scale to the input type, keep f32
+# scores, round p before P.V and round O once; the reference rounds p
+# against its running maximum, a block at a time, the plain version
+# against the row's, so a p may round to a neighbour, and O (of size up to
+# ~2) moves by a few ulps of itself: one bf16 ulp of an O(1) value is
+# 2**-8, one f16 ulp 2**-11, and the limits allow about five (set when the
+# plain version still rounded the scores to the input type, which moved
+# them more).
 O_ATOL = {jnp.bfloat16: 2e-2, jnp.float16: 2.5e-3}
 # LSE is f32 of scores rounded as above: a few ulps of scores of the size
 # of |lse| (up to ~6).
@@ -92,7 +94,7 @@ def test_dense_forward_matches_pallas_interpret(dtype, D, causal):
 def test_grouped_forward_one_kv_head_matches_pallas_interpret(dtype, D,
                                                               causal):
     """GQA with one KV head (group 4): ``flash_attention_grouped`` on the
-    CPU (the plain ``_fallback_grouped`` arithmetic, K/V never expanded)
+    CPU (the plain ``_dense_kernel`` arithmetic, K/V never expanded)
     against the reference's grouped Pallas launch."""
     B, Hq, Hkv, S = 1, 4, 1, 64
     (jq, jk, jv), (tq, tk, tv) = _inputs(
@@ -106,8 +108,9 @@ def test_grouped_forward_one_kv_head_matches_pallas_interpret(dtype, D,
     assert _launches() == before
     assert out.dtype == TORCH[dtype]
     np.testing.assert_allclose(_f32(out), _f32(ref), atol=O_ATOL[dtype])
-    # The wrapper's result is the plain grouped version's, exactly.
-    plain = fa._fallback_grouped(tq, tk, tv, causal, D ** -0.5)
+    # The wrapper's result is the plain grouped version's with the
+    # kernel's rounding points, exactly.
+    plain = fa._dense_kernel(tq, tk, tv, causal, D ** -0.5)[0]
     assert torch.equal(out, plain)
 
 

@@ -1,8 +1,9 @@
 """The flash kernels' rules of shapes (which forward and which backward
 kernels a CUDA input takes) and the CPU path, which the rules do not touch:
-a CPU tensor takes the plain version, launches nothing, and agrees with the
-JAX reference's Pallas kernel run in interpret mode (as tests/test_ops.py
-runs it; the backward's match is in tests/test_torch_ops.py).
+a CPU tensor takes the plain version with the kernel's rounding points
+(``_dense_kernel``), launches nothing, and agrees with the JAX reference's
+Pallas kernel run in interpret mode (as tests/test_ops.py runs it; the
+backward's match is in tests/test_torch_ops.py).
 
 The kernels themselves are held against the plain version on the card by
 tests/test_torch_kernels.py and chip_smoke.py.
@@ -20,25 +21,27 @@ torch.set_num_threads(1)
 jax_fa = importlib.import_module("ray_tpu.ops.flash_attention")
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
-# bf16 against the reference: the reference rounds the scaled q and the
-# scores to bf16 inside its kernel, the plain version rounds the scores
-# after the einsum; one bf16 ulp of an O(1) output is 2**-8 ~ 4e-3, so a
-# few (as tests/test_torch_ops.py allows).
+# bf16 against the reference: both round the scaled q to bf16 and keep f32
+# scores; the reference's online softmax rounds p against its running
+# maximum, a block at a time, the plain version against the row's; one
+# bf16 ulp of an O(1) output is 2**-8 ~ 4e-3, so a few (as
+# tests/test_torch_ops.py allows).
 BF16_ATOL = 2e-2
 # LSE is f32 of bf16 scores: a few ulps of scores of size ~|lse|.
 LSE_ATOL = 3e-2
 
 
 RULE = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-        (torch.bfloat16, 32, "simt"), (torch.bfloat16, 40, "simt"),
-        (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
+        (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 40, "wgmma"),
+        (torch.bfloat16, 96, "wgmma"), (torch.float32, 64, "simt"),
         (torch.float32, 128, "simt")]
 
 
 @pytest.mark.parametrize("dtype,D,variant", RULE)
 def test_forward_variant_rule(dtype, D, variant):
-    """Tensor cores for bf16 at head_dim 64 or 128 only; f32 stays on the
-    CUDA cores (TF32 would break its limit), as does every other width."""
+    """Tensor cores for bf16 at every multiple of 8 up to 256 (the kernel's
+    instances of width 64, 128 and 256, zero-padded between them); f32
+    stays on the CUDA cores (TF32 would break its limit)."""
     assert fa._forward_variant(dtype, D) == variant
 
 
@@ -58,8 +61,9 @@ def _counts():
 @pytest.mark.parametrize("grouped", [False, True])
 def test_cpu_forward_takes_plain_version_at_wgmma_shapes(D, grouped):
     """bf16 at a head_dim the tensor-core kernel takes on the card: on the
-    CPU the forward is the plain version (no launch counted) and agrees
-    with the reference's Pallas kernel in interpret mode, O and LSE."""
+    CPU the forward is the plain version with the kernel's rounding points
+    (no launch counted) and agrees with the reference's Pallas kernel in
+    interpret mode, O and LSE."""
     B, Hq, S = 1, 4, 64
     Hkv = 2 if grouped else Hq
     rng = np.random.default_rng(9)
@@ -69,7 +73,7 @@ def test_cpu_forward_takes_plain_version_at_wgmma_shapes(D, grouped):
     before = _counts()
     o, lse = fa._flash_forward(tq, tk, tv, True)
     assert _counts() == before
-    ro, rlse = fa._dense(tq, tk, tv, True, D ** -0.5)
+    ro, rlse = fa._dense_kernel(tq, tk, tv, True, D ** -0.5)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
 
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))

@@ -14,12 +14,16 @@ import torch
 
 # The limits, each with its reason, are shared with chip_smoke.py.
 from ray_tpu_torch.testing import (
+    FWD_DIGESTS,
     GRAD_ROW_TOL,
     LSE_TOL,
     O_ROW_TOL,
     RMS_TOL,
     RMS_TOL_CAST_FIRST,
+    digest_inputs,
     grad_row_error,
+    seeded_qkv,
+    tensor_digest,
 )
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
@@ -45,11 +49,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv(seed, B, Hq, Hkv, Sq, Sk, D, dtype, device):
-    rng = np.random.default_rng(seed)
-    shapes = ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))
-    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            .to(device=device, dtype=dtype) for s in shapes]
+_qkv = seeded_qkv
 
 
 # Head dims up to 256 in each dtype, through the kernel of the rule: f32
@@ -71,15 +71,15 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
     o, lse = fa._flash_forward(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     """D=12 takes the plain route (no launch, one plain route counted)
-    and equals it; f16 at head_dim 16 runs the CUDA-core kernel; head_dim
-    264 launches
+    and equals it; f16 at head_dim 16 runs the tensor-core kernel (the
+    64-wide instance, zero-padded); head_dim 264 launches
     the wide kernel and equals the plain version; a dtype no kernel takes
     and a non-contiguous input still raise."""
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 12, torch.float32, cuda_device)
@@ -89,10 +89,10 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     torch.testing.assert_close(out, fa._fallback(q, k, v, True, 12 ** -0.5),
                                atol=0, rtol=0)
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 16, torch.float32, cuda_device)
-    before = fa.simt_launches
+    before = fa.wgmma_launches
     out = fa.flash_attention(q.half(), k.half(), v.half())
     torch.cuda.synchronize()
-    assert out.dtype == torch.float16 and fa.simt_launches == before + 1
+    assert out.dtype == torch.float16 and fa.wgmma_launches == before + 1
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
@@ -102,20 +102,28 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert (fa.wide_launches, fa.plain_routes) == (before[0] + 1, before[1])
-    torch.testing.assert_close(out, fa._dense(q, k, v, True, 264 ** -0.5)[0],
-                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(
+        out, fa._dense_kernel(q, k, v, True, 264 ** -0.5)[0], atol=1e-5,
+        rtol=1e-4)
     q, k, v = _qkv(1, 1, 2, 1, 16, 16, 16, torch.float32, cuda_device)
     with pytest.raises(NotImplementedError):
         fa.flash_attention_grouped(q.requires_grad_(), k, v)
 
 
-# The tensor-core forward (bf16 and f16, head_dim 64, 128 or 256): MHA and
-# GQA groups 2, 4 and 8 (one KV head, as Gemma-2B's attention), lengths
-# that fill 128-row tiles, ragged ones, the training length and Sq != Sk
-# (the reference's top-left causal mask).
+# The tensor-core forward (bf16 and f16) at its instances' widths 64, 128
+# and 256 and at widths between them, which run the next instance up with
+# TMA zero-filling the columns past D: 8 and 32 (a 64-column box wider than
+# the tensor), 80 and 96 (Phi-2's and Phi-3-mini's heads), 136 (8 real
+# columns in the third column block, the fourth wholly past D) and 200.
+# MHA and GQA groups 2, 4 and 8 (one KV head, as Gemma-2B's attention),
+# lengths that fill 128-row tiles, ragged ones, the training length and
+# Sq != Sk (the reference's top-left causal mask).
+WGMMA_TEST_DIMS = [8, 32, 64, 80, 96, 128, 136, 200, 256]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", WGMMA_TEST_DIMS)
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2), (8, 1)])
 @pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
                                    (77, 131)])
@@ -130,7 +138,7 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
     assert {n: after[n] - before[n] for n in after} == {
         "wgmma": 1, "simt": 0, "wide": 0}
     assert o.dtype == dtype
-    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
 
 
@@ -139,13 +147,71 @@ def _forward_counts():
             "wide": fa.wide_launches}
 
 
+# Head dims 64 and 256 have power-of-two scales, where rounding q * scale
+# to the input type is exact (on inputs that keep it inside f16's normal
+# range): the forward gives, bit for bit, what it gave when it scaled the
+# f32 scores (digests of that earlier forward's O and LSE, recorded on an
+# H100, in ray_tpu_torch/testing.py).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_forward_power_of_two_scale_is_bit_identical(
+        cuda_device, dtype, D, causal):
+    q, k, v = digest_inputs(D, dtype, cuda_device)
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    key = f"{str(dtype).split('.')[1]}-D{D}-{'causal' if causal else 'full'}"
+    assert tensor_digest(o, lse) == FWD_DIGESTS[key]
+
+
+def _row_offsets(t, size=1.5):
+    """t with each row (the last axis) moved by +size or -size in turn, so
+    consecutive rows differ by 2 * size in every column."""
+    sign = 1 - 2 * (torch.arange(t.shape[-2], device=t.device) % 2)
+    return (t.float() + size * sign[:, None]).to(t.dtype).contiguous()
+
+
+# Rows that differ by large offsets: a tensor map that read past column D
+# into the next row (in place of TMA's zero fill) or a store that reached
+# past column D would move every score of the row by ~D * 2.25 * scale, far
+# outside the limits. The widths leave a box partly (8, 80, 136, 200) or,
+# at 136, wholly past D.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [8, 80, 136, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_zero_fills_past_head_dim(cuda_device, dtype, D, causal):
+    q, k, v = (_row_offsets(t) for t in _qkv(
+        16, 2, 4, 2, 200, 200, D, dtype, cuda_device))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+    k, v = (torch.repeat_interleave(t, 2, dim=1) for t in (k, v))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    do = _row_offsets(_qkv(17, 2, 4, 4, 200, 200, D, dtype,
+                           cuda_device)[0])
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wgmma")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide"),
     (torch.bfloat16, 512, "wide"), (torch.float16, 256, "wgmma"),
-    (torch.float16, 200, "simt"), (torch.float32, 256, "simt")])
+    (torch.float16, 200, "wgmma"), (torch.float32, 256, "simt")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -178,7 +244,7 @@ def test_flash_wide_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv, Sq,
     after = _forward_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "wgmma": 0, "simt": 0, "wide": 1}
-    ro, rlse = fa._dense(q, k, v, causal, D ** -0.5)
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
 
 
@@ -270,13 +336,14 @@ def _backward_launched(before, variant):
     return got, want
 
 
-# The tensor-core backward (bf16 and f16, head_dim 64, 128 or 256):
+# The tensor-core backward (bf16 and f16) at the forward's widths (at 136
+# and 200 the dK/dV kernel's second warpgroup owns 8 and 72 real columns):
 # lengths that fill 128-row tiles, ragged ones, the training length, Sq !=
 # Sk (the reference's top-left causal mask) and a query count far below a
 # tile.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", WGMMA_TEST_DIMS)
 @pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (2048, 2048),
                                    (77, 131), (3, 50)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -300,11 +367,11 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "simt"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide"),
     (torch.float32, 1024, "wide"), (torch.float16, 128, "wgmma"),
-    (torch.bfloat16, 200, "simt"), (torch.float32, 256, "simt")])
+    (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -356,7 +423,7 @@ def test_flash_attention_autograd_launches_backward_kernels(cuda_device,
     got, want = _backward_launched(before_variants, variant)
     assert got == want
     if dtype == torch.float32:
-        ref = fa._dense(q, k, v, True, 64 ** -0.5)[0]
+        ref = fa._dense_kernel(q, k, v, True, 64 ** -0.5)[0]
         ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
     else:
         # bf16: the plain backward from the kernel forward's O and LSE,

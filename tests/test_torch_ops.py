@@ -31,9 +31,11 @@ pa = importlib.import_module("ray_tpu_torch.ops.paged_attention")
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 F32_ATOL = 1e-5
-# bf16: the reference rounds the scaled q and the scores to bf16 inside the
-# kernel, the port's plain version rounds the scores after the einsum; one
-# bf16 ulp of an O(1) output is 2**-8 ~ 4e-3, so allow a few.
+# bf16: the reference and the port's plain version (``_dense_kernel``) both
+# round the scaled q to bf16 and keep f32 scores; the reference's online
+# softmax rounds p against its running maximum, a block at a time, the
+# plain version against the row's; one bf16 ulp of an O(1) output is
+# 2**-8 ~ 4e-3, so allow a few.
 BF16_ATOL = 2e-2
 
 
@@ -123,7 +125,9 @@ def test_flash_wrapper_uses_plain_version_on_cpu_without_launching():
     before = fa.launches
     out = fa.flash_attention(_t(q), _t(k), _t(v))
     assert fa.launches == before
-    ref = fa._fallback(_t(q), _t(k), _t(v), True, 8 ** -0.5)
+    # The plain version with the kernel's rounding points: the reference
+    # reaches its Pallas kernel at these shapes, not _fallback.
+    ref = fa._dense_kernel(_t(q), _t(k), _t(v), True, 8 ** -0.5)[0]
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
@@ -203,7 +207,7 @@ def test_flash_core_cpu_backward_matches_autograd_of_plain_forward(causal,
     out = fa.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, do)
     assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
-    ref_out = fa._dense(*leaves, causal, D ** -0.5)[0]
+    ref_out = fa._dense_kernel(*leaves, causal, D ** -0.5)[0]
     ref = torch.autograd.grad(ref_out, leaves, do)
     torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
     for r, g in zip(ref, grads):
