@@ -7,11 +7,13 @@ non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
-   dK/dV, each on the tensor cores, on the CUDA cores and, for head_dim
-   above 256, the wide kernels) from
+   dK/dV, each on the tensor cores and on the CUDA cores, and for head_dim
+   above 256 the wide kernels, on the CUDA cores and, forward and dK/dV,
+   on the tensor cores) from
    ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
    registers and spills per kernel; the SASS of every tensor-core kernel
-   instantiation (bf16 and f16 at head_dim 64, 128 and 256) must hold
+   instantiation (bf16 and f16 at head_dim 64, 128 and 256; the wide
+   forward and the wide dK/dV with K and V held or streamed) must hold
    HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
    RMSNorm kernel compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version with the
@@ -48,29 +50,37 @@ non-zero without printing a result. Without a CUDA card, or without the
    tensor-core kernels; ANY_TIMED_DIMS (32, 80, 96, 160, 200) timed at
    S=2048 beside SDPA (its backend named), the CUDA-core kernels and the
    bound of the real head_dim's work. head_dim 12 takes the counted plain
-   route: no launch, one plain_routes, the plain result; head_dim 264
-   through flash_attention launches the wide kernel. The wide kernels
-   (head_dim above 256, the head dimension of the output split across
-   blocks): forward, dQ and
-   dK/dV at head_dim 264, 512 and 1024 in f32, bf16 and f16 up to S=512
-   (phase 2b's shape), causal and not, against the plain versions with a
-   planted fault each, launching the wide variant once and nothing else;
-   at B=4, H=8, S=2048, D=512, causal, bf16 and f32, held against the
-   plain versions with a planted fault again and timed through CUDA
-   graphs beside the plain versions, SDPA (with the backend it picks) and
-   the bound.
-2b. c1_models: seven configs the reference serves and trains, at the
+   route: no launch, one plain_routes, the plain result; so do a query
+   or key length under 8 (Sq 4 / Sk 16, Sq 16 / Sk 5; bf16, head_dim 64,
+   MHA and GQA), as the reference falls back there; head_dim 264 (f32)
+   through flash_attention launches the CUDA-core wide kernel. The wide
+   kernels (head_dim above 256, the head dimension of the output split
+   across blocks): forward, dQ and dK/dV at head_dim 264, 512 and 1024 in
+   f32, bf16 and f16 up to S=512 (phase 2b's shape), causal and not,
+   against the plain versions with a planted fault each, launching the
+   kernels of the rule once each and nothing else (bf16 and f16: the
+   tensor-core forward and dK/dV beside the CUDA-core dQ; f32: the
+   CUDA-core three), and in bf16 and f16 the CUDA-core forward and dK/dV
+   on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
+   and f32 (and D=384 in bf16 and f16), held against the plain versions
+   with a planted fault again and timed through CUDA graphs beside the
+   CUDA-core kernels on the same inputs, the plain versions, SDPA (with
+   the backend it picks) and the bound.
+2b. c1_models: eight configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
    and over 8 query heads and one KV head, Gemma-2B's attention widths),
-   head_dim 512 (d_model 1024 over 2 heads, bf16: the wide kernels), the
+   head_dim 512 (d_model 1024 over 2 heads: in bf16 the tensor-core wide
+   forward and dK/dV beside the CUDA-core wide dQ, in f32 the CUDA-core
+   wide kernels), the
    flagship in float16, head_dim 12 (d_model 384 over 32 heads, GQA 8,
    bf16), head_dim 96 (Phi-3-mini's d_model 3072 over 32 heads, bf16) and
    head_dim 80 (Phi-2's d_model 2560 over 32 heads, f16). Each serves 4
    prompts through prefill_with_cache and 8 decode_steps (prefill logits
    equal prefill_chunk's) and takes a gradient pass and 2 AdamW steps
    (finite, the tensor-core kernels at head_dim 256, 96 and 80 and in f16,
-   the wide ones at 512, launched n_layers times per pass and no other
-   variant; head_dim 12 launches nothing and counts n_layers plain routes
+   the wide ones of the rule at 512, launched n_layers times per pass and
+   no other variant; head_dim 12 launches nothing and counts n_layers
+   plain routes
    per forward). From here on the flagship's phases must count no plain
    route.
 3. model: the flagship TransformerConfig() (and its GQA variant,
@@ -316,11 +326,15 @@ WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
 # shapes, forward at B=2, Hq=4, (Hkv, Sq, Sk) and backward at B=2, H=2,
 # (Sq, Sk), up to S=512 (phase 2b's hd512 prefill and gradient pass); then
-# checked and timed at WIDE_TIMED (B, H, S, D), causal, in bf16 and f32.
+# checked and timed at WIDE_TIMED (B, H, S, D), causal, in bf16, f16 and
+# f32, and at WIDE_TIMED_DIMS' other head_dim (384: no multiple of the
+# tensor-core forward's 256-column chunk) in bf16 and f16.
 WIDE_DIMS = (264, 512, 1024)
 WIDE_FWD_SHAPES = ((2, 77, 131), (4, 256, 256), (4, 512, 512))
 WIDE_BWD_SHAPES = ((77, 131), (256, 256), (512, 512))
 WIDE_TIMED = (4, 8, 2048, 512)
+WIDE_TIMED_DIMS = (512, 384)
+SHORT_LENGTHS = ((4, 16), (16, 5))   # Sq, Sk under 8: the plain route
 C1_DEPTH = 2         # depth of phase 2b's configs (the flagship has 4)
 C1_TRAIN_BATCH, C1_TRAIN_LEN, C1_TRAIN_STEPS = 2, 512, 2
 # Phase 7: the flagship with experts.
@@ -485,12 +499,16 @@ def backward_bound(B, H, S, D, dtype, causal, kind):
 
 KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
                     "flash_attention_bwd_wgmma", "flash_attention_bwd",
-                    "flash_attention_wide")
-WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma")
+                    "flash_attention_wide", "flash_attention_wide_wgmma")
+WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
+                   "flash_attention_wide_wgmma")
 # Kernel instantiations per tensor-core library: (bf16, f16) x head_dim
-# (64, 128, 256), once for the forward and once each for dQ and dK/dV.
+# (64, 128, 256), once for the forward and once each for dQ and dK/dV;
+# above head_dim 256 (bf16, f16) x the forward and x dK/dV with K and V
+# held (D up to 512) or streamed.
 WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
-                   "flash_attention_bwd_wgmma": 12}
+                   "flash_attention_bwd_wgmma": 12,
+                   "flash_attention_wide_wgmma": 6}
 
 
 def ptxas_summary(report: str):
@@ -498,7 +516,9 @@ def ptxas_summary(report: str):
     kernel<dtype, per-thread slice of D, register slice> for the CUDA-core
     kernels (16 being D = 64, 64 being D = 256; a slice of 0 is the
     runtime-width instance), kernel<dtype, D> for the tensor-core ones,
-    kernel<dtype> for the wide ones (head_dim above 256)."""
+    kernel<dtype> for the wide ones (head_dim above 256) and the
+    tensor-core wide forward, kernel<dtype, resident> for the tensor-core
+    wide dK/dV (K and V held in shared memory or streamed)."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -513,7 +533,14 @@ def ptxas_summary(report: str):
             wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)"
                              r"I(13__nv_bfloat16|6__half|f)E",
                              entry.group(1))
-            if wide:
+            wide_tc = re.search(r"(flash_(?:fwd|bwd_dkv)_wide_wgmma_kernel)"
+                                r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E",
+                                entry.group(1))
+            if wide_tc:
+                layout = {None: "", "1": ", resident", "0": ", streamed"}
+                name = (f"{wide_tc.group(1)}<{dtypes[wide_tc.group(2)]}"
+                        f"{layout[wide_tc.group(3)]}>")
+            elif wide:
                 name = f"{wide.group(1)}<{dtypes[wide.group(2)]}>"
             elif m:
                 name = (f"{m.group(1)}<{dtypes[m.group(2)]}, "
@@ -582,8 +609,9 @@ def phase_build():
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
     for n, counts in sass.items():
-        # Every instantiation (bf16 and f16; head_dim 64, 128 and 256) of
-        # every tensor-core kernel in the library, each on its own.
+        # Every instantiation (bf16 and f16; head_dim 64, 128 and 256, or
+        # the wide kernels' layouts) of every tensor-core kernel in the
+        # library, each on its own.
         kernels = {k: c for k, c in counts["kernels"].items()
                    if "_wgmma_kernel" in k}
         if len(kernels) != WGMMA_INSTANCES[n] or any(
@@ -696,8 +724,9 @@ def _plain_route_check(fa, gen, dev):
     """head_dim PLAIN_ROUTE_D through the public wrappers on the card:
     each call takes the plain route (one plain_routes, no launch) and
     returns the plain version's result exactly. head_dim WIDE_ROUTE_D
-    launches the wide kernel once, with no plain route, and equals the
-    plain version within O_ROW_TOL."""
+    (f32) launches the CUDA-core wide kernel once, with no plain route,
+    and equals the plain version within O_ROW_TOL. The SHORT_LENGTHS
+    (bf16, head_dim 64) take the plain route as head_dim 12 does."""
     D = PLAIN_ROUTE_D
     out = {}
     for name, Hkv in (("flash_attention", 8), ("flash_attention_grouped", 2)):
@@ -728,12 +757,37 @@ def _plain_route_check(fa, gen, dev):
             or not err <= O_ROW_TOL[q.dtype]:
         raise AssertionError(f"head_dim {D} through flash_attention: "
                              f"{out[f'D{D}']}")
+    # A query or key length under 8 (ROADMAP C.7): the plain route on the
+    # card too, as the reference falls back there, at a head_dim and dtype
+    # the kernels take.
+    for Sq, Sk in SHORT_LENGTHS:
+        for name, Hkv in (("flash_attention", 8),
+                          ("flash_attention_grouped", 2)):
+            q = torch.randn((4, 8, Sq, 64), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            k, v = (torch.randn((4, Hkv, Sk, 64), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            before = _variant_counts(fa), fa.plain_routes
+            o = getattr(fa, name)(q, k, v)
+            launched = sum(c - before[0][n]
+                           for n, c in _variant_counts(fa).items())
+            routes = fa.plain_routes - before[1]
+            exact = bool(torch.equal(o, fa._dense(q, k, v, True,
+                                                  64 ** -0.5)[0]))
+            key = f"{name}_Sq{Sq}_Sk{Sk}"
+            out[key] = {"launches": launched, "plain_routes": routes,
+                        "equals_plain": exact}
+            if launched or routes != 1 or not exact:
+                raise AssertionError(f"Sq {Sq}, Sk {Sk} through {name}: "
+                                     f"{out[key]}")
     return out
 
 
 # The kernel variants of the forward and of each backward kernel: the
-# tensor cores, the CUDA cores up to head_dim 256, and above it.
-VARIANTS = ("wgmma", "simt", "wide")
+# tensor cores and the CUDA cores up to head_dim 256, and above it the
+# CUDA cores and (forward and dK/dV) the tensor cores.
+VARIANTS = ("wgmma", "simt", "wide", "wide_wgmma")
 
 
 def _variant_want(variant, n):
@@ -743,9 +797,10 @@ def _variant_want(variant, n):
 
 
 _COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
-             "dq_launches", "dkv_launches", "dq_wgmma_launches",
-             "dkv_wgmma_launches", "dq_simt_launches", "dkv_simt_launches",
-             "dq_wide_launches", "dkv_wide_launches", "plain_routes")
+             "wide_wgmma_launches", "dq_launches", "dkv_launches",
+             "dq_wgmma_launches", "dkv_wgmma_launches", "dq_simt_launches",
+             "dkv_simt_launches", "dq_wide_launches", "dkv_wide_launches",
+             "dkv_wide_wgmma_launches", "plain_routes")
 
 
 @contextlib.contextmanager
@@ -766,24 +821,27 @@ def _dtype_name(dtype):
 
 def _variant_counts(fa):
     return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches}
+            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches}
 
 
-def _simt_forward(fa, q, k, v, causal):
-    """The CUDA-core kernel called straight through its C entry point on any
-    input it takes (bf16 and f16 included), bypassing the wrapper's rule of
-    shapes: the earlier design, checked and timed beside the tensor-core
-    kernel on the same inputs. Counts no launch."""
+def _simt_forward(fa, q, k, v, causal, wide=False):
+    """The CUDA-core kernel (``wide``: the one for head_dim above 256)
+    called straight through its C entry point on any input it takes (bf16
+    and f16 included), bypassing the wrapper's rule of shapes: the earlier
+    design, checked and timed beside the tensor-core kernel on the same
+    inputs. Counts no launch."""
     B, Hq, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    err = fa._kernel_fn("flash_attention_fwd", "flash_attention_fwd")(
+    library, _, suffix = fa._LIBRARIES["wide" if wide else "simt"]
+    err = fa._kernel_fn(library, "flash_attention_fwd" + suffix)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D, D ** -0.5,
         int(bool(causal)), fa._DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: {err}")
+        raise RuntimeError(f"flash_attention_fwd{suffix} launch failed: "
+                           f"{err}")
     return o, lse
 
 
@@ -917,26 +975,36 @@ def _backward_counts(fa):
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
-            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches}
+            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
+            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches}
 
 
 def _backward_want(variant, n):
-    """Backward launch counts when each kernel of `variant` launched n
-    times and no kernel of another variant."""
-    return {f"{kind}_{v}": c for v, c in _variant_want(variant, n).items()
-            for kind in ("dq", "dkv")}
+    """Backward launch counts when each backward kernel of the rule whose
+    forward variant is `variant` launched n times (above head_dim 256 the
+    tensor-core dK/dV kernel runs beside the CUDA-core wide dQ) and no
+    other kernel did."""
+    want = {kind: 0 for kind in _backward_counts(_flash_module())}
+    if variant is not None:
+        want[f"dq_{'wide' if variant == 'wide_wgmma' else variant}"] += n
+        want[f"dkv_{variant}"] += n
+    return want
 
 
-def _simt_backward(fa, kind, q, k, v, o, lse, do, causal=True):
-    """A CUDA-core backward kernel called straight through its C entry
-    point on any input it takes (bf16 and f16 included), bypassing the
-    wrapper's rule of shapes: the earlier design, checked and timed beside
-    the tensor-core kernels on the same inputs. Counts no launch."""
+def _simt_backward(fa, kind, q, k, v, o, lse, do, causal=True, wide=False):
+    """A CUDA-core backward kernel (``wide``: dK/dV for head_dim above
+    256) called straight through its C entry point on any input it takes
+    (bf16 and f16 included), bypassing the wrapper's rule of shapes: the
+    earlier design, checked and timed beside the tensor-core kernels on
+    the same inputs. Counts no launch."""
     B, H, Sq, D = q.shape
+    if wide and kind != "dkv":
+        raise ValueError("the wide dQ kernel is on the rule's path")
     outs = [torch.empty_like(q)] if kind == "dq" else [torch.empty_like(k),
                                                        torch.empty_like(v)]
-    name = f"flash_attention_bwd_{kind}"
-    err = fa._kernel_fn("flash_attention_bwd", name)(
+    _, library, suffix = fa._LIBRARIES["wide" if wide else "simt"]
+    name = f"flash_attention_bwd_{kind}{suffix}"
+    err = fa._kernel_fn(library, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), *[t.data_ptr() for t in outs], B * H,
         Sq, k.shape[2], D, D ** -0.5, int(bool(causal)),
@@ -1019,11 +1087,16 @@ def phase_wide(dev):
     the output split across blocks): forward and backward at every
     WIDE_DIMS x (f32, bf16, f16) on small shapes, causal and not, against
     the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL, each case
-    launching the wide variant once and no other, with no plain route,
-    and a planted fault (32 keys of V, or 32 rows of dO, zeroed in the
-    plain version) flagged; then the three kernels checked the same way
-    at WIDE_TIMED in bf16 and f32, and timed there beside the plain
-    versions, SDPA (its backend named) and the bound."""
+    launching the kernels of the rule once each and no other (bf16 and
+    f16: the tensor-core forward and dK/dV beside the CUDA-core dQ; f32:
+    the CUDA-core three), with no plain route, and a planted fault (32
+    keys of V, or 32 rows of dO, zeroed in the plain version) flagged. In
+    bf16 and f16 the CUDA-core forward and dK/dV (the earlier design) are
+    held against the plain versions on the same inputs too. Then the three
+    kernels checked the same way at WIDE_TIMED in bf16, f16 and f32 (and
+    head_dim 384 in bf16 and f16), and timed there beside the plain
+    versions, the CUDA-core kernels, SDPA (its backend named) and the
+    bound."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     checks = []
@@ -1040,6 +1113,8 @@ def phase_wide(dev):
     for D in WIDE_DIMS:
         scale = D ** -0.5
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            variant = fa._forward_variant(dtype, D)
+            tensor_cores = variant == "wide_wgmma"
             for Hkv, Sq, Sk in WIDE_FWD_SHAPES:
                 q = randn((2, 4, Sq, D), dtype)
                 k, v = randn((2, Hkv, Sk, D), dtype), randn((2, Hkv, Sk, D),
@@ -1059,16 +1134,25 @@ def phase_wide(dev):
                     tol = O_ROW_TOL[dtype]
                     ok = (err_row <= tol and err_lse <= 1.0
                           and bool(torch.isfinite(o).all())
-                          and launched == _variant_want("wide", 1)
+                          and launched == _variant_want(variant, 1)
                           and fa.plain_routes == routes)
-                    checks.append({"kind": "fwd", "D": D, "Hkv": Hkv,
-                                   "Sq": Sq, "Sk": Sk,
-                                   "dtype": _dtype_name(dtype),
-                                   "causal": causal, "launched": launched,
-                                   "err_o_abs": err_abs, "err_o_row": err_row,
-                                   "tol_o_row": tol,
-                                   "err_lse_of_limit": err_lse,
-                                   "fault_o_row": fault_row, "ok": ok})
+                    check = {"kind": "fwd", "D": D, "Hkv": Hkv, "Sq": Sq,
+                             "Sk": Sk, "dtype": _dtype_name(dtype),
+                             "causal": causal, "variant": variant,
+                             "launched": launched, "err_o_abs": err_abs,
+                             "err_o_row": err_row, "tol_o_row": tol,
+                             "err_lse_of_limit": err_lse,
+                             "fault_o_row": fault_row}
+                    if tensor_cores:
+                        so, slse = _simt_forward(fa, q, k, v, causal,
+                                                 wide=True)
+                        torch.cuda.synchronize()
+                        _, s_row, s_lse = compare(so, slse, ro, rlse)
+                        check["cuda_core"] = {"err_o_row": s_row,
+                                              "err_lse_of_limit": s_lse}
+                        ok = ok and s_row <= tol and s_lse <= 1.0 and bool(
+                            torch.isfinite(so).all())
+                    checks.append({**check, "ok": ok})
                     if not ok or fault_row <= tol:
                         fail(checks[-1])
             for Sq, Sk in WIDE_BWD_SHAPES:
@@ -1099,51 +1183,87 @@ def phase_wide(dev):
                     tol = GRAD_ROW_TOL[dtype]
                     ok = (all(bool(torch.isfinite(g).all()) for g in got)
                           and max(errs) <= tol
-                          and launched == _backward_want("wide", 1))
-                    checks.append({"kind": "bwd", "D": D, "Sq": Sq, "Sk": Sk,
-                                   "dtype": _dtype_name(dtype),
-                                   "causal": causal, "launched": launched,
-                                   "err_row": dict(zip(("dq", "dk", "dv"),
-                                                       errs)),
-                                   "tol_row": tol, "fault_row": fault_err,
-                                   "ok": ok})
+                          and launched == _backward_want(variant, 1))
+                    check = {"kind": "bwd", "D": D, "Sq": Sq, "Sk": Sk,
+                             "dtype": _dtype_name(dtype), "causal": causal,
+                             "variant": variant, "launched": launched,
+                             "err_row": dict(zip(("dq", "dk", "dv"), errs)),
+                             "tol_row": tol, "fault_row": fault_err}
+                    if tensor_cores:
+                        sk, sv = _simt_backward(fa, "dkv", q, k, v, o, lse,
+                                                do, causal, wide=True)
+                        torch.cuda.synchronize()
+                        s_errs = [grad_row_error(g, r)
+                                  for g, r in zip((sk, sv), ref[1:])]
+                        check["cuda_core_err_row"] = dict(zip(("dk", "dv"),
+                                                              s_errs))
+                        ok = ok and max(s_errs) <= tol and all(
+                            bool(torch.isfinite(g).all()) for g in (sk, sv))
+                    checks.append({**check, "ok": ok})
                     if not ok or fault_err <= tol:
                         fail(checks[-1])
-    timing = {_dtype_name(dt): _time_wide(fa, gen, dev, dt)
-              for dt in (torch.bfloat16, torch.float32)}
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for D in WIDE_TIMED_DIMS:
+            if D != WIDE_TIMED[3] and dtype == torch.float32:
+                continue
+            key = _dtype_name(dtype) + ("" if D == WIDE_TIMED[3]
+                                        else f"_D{D}")
+            timing[key] = _time_wide(fa, gen, dev, dtype, D)
     emit({"phase": "kernels_wide", "checks": checks, "timing": timing})
     return timing
 
 
-def _time_wide(fa, gen, dev, dtype):
-    """The wide forward, dQ and dK/dV at WIDE_TIMED (causal) through CUDA
-    graphs (few replays: each call takes tens of ms), held against the
-    plain versions there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL with a
-    planted fault (32 keys of V, or 32 rows of dO, zeroed in the plain
-    version) that must read above the limit, the plain versions by
-    events, and SDPA's forward and backward through CUDA graphs with the
-    backend it picks."""
-    B, H, S, D = WIDE_TIMED
+def _time_wide(fa, gen, dev, dtype, D):
+    """The wide forward, dQ and dK/dV of the rule at WIDE_TIMED's (B, H,
+    S) and head_dim D (causal) through CUDA graphs (few replays: a
+    CUDA-core call takes tens of ms), held against the plain versions
+    there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL with a planted fault (32
+    keys of V, or 32 rows of dO, zeroed in the plain version) that must
+    read above the limit; where the rule takes the tensor cores, the
+    CUDA-core forward and dK/dV on the same inputs, held and timed the
+    same way; the plain versions by events, and SDPA's forward and
+    backward through CUDA graphs with the backend it picks."""
+    B, H, S, _ = WIDE_TIMED
     scale = D ** -0.5
+    variant = fa._forward_variant(dtype, D)
+    cuda_core = variant == "wide_wgmma"
     q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
                                device=dev).to(dtype) for _ in range(4))
+    few = {"iters": 2, "replays": 3}
     with _counts_kept(fa):
         o, lse = fa._flash_forward(q, k, v, True)
-        dq, _ = fa._launch_dq(q, k, v, o, lse, do, True, scale)
-        dk, dv = fa._launch_dkv(q, k, v, o, lse, do, None, True, scale)
+        dq, delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)
+        dk, dv = fa._launch_dkv(q, k, v, o, lse, do, delta, True, scale)
+        many = few if not cuda_core else {}
         ms = {"fwd": graph_ms(lambda i: fa._flash_forward(q, k, v, True),
-                              iters=2, replays=3),
+                              **many),
               "dq": graph_ms(lambda i: fa._launch_dq(
-                  q, k, v, o, lse, do, True, scale), iters=2, replays=3),
+                  q, k, v, o, lse, do, True, scale), **few),
               "dkv": graph_ms(lambda i: fa._launch_dkv(
-                  q, k, v, o, lse, do, None, True, scale), iters=2,
-                  replays=3)}
+                  q, k, v, o, lse, do, delta, True, scale), **many)}
+    if cuda_core:
+        so, slse = _simt_forward(fa, q, k, v, True, wide=True)
+        sdk, sdv = _simt_backward(fa, "dkv", q, k, v, o, lse, do, True,
+                                  wide=True)
+        cc_ms = {"fwd": graph_ms(lambda i: _simt_forward(
+                     fa, q, k, v, True, wide=True), **few),
+                 "dkv": graph_ms(lambda i: _simt_backward(
+                     fa, "dkv", q, k, v, o, lse, do, True, wide=True),
+                     **few)}
     ro, rlse = fa._dense_kernel(q, k, v, True, scale)
     v_fault = v.clone()
     v_fault[:, :, S // 2:S // 2 + 32] = 0
     fo, flse = fa._dense_kernel(q, k, v_fault, True, scale)
     err_o_abs, err_o_row, err_lse = compare(o, lse, ro, rlse)
     fault_o_row = compare(fo, flse, ro, rlse)[1]
+    check = {}
+    if cuda_core:
+        _, s_row, s_lse = compare(so, slse, ro, rlse)
+        check["cuda_core_fwd"] = {"err_o_row": s_row,
+                                  "err_lse_of_limit": s_lse,
+                                  "max_abs_err": (so.float() - ro.float())
+                                  .abs().max().item()}
     del ro, rlse, fo, flse, v_fault
     ref = fa._dense_backward(q, k, v, o, lse, do, True, scale)
     got = (dq, dk, dv)
@@ -1153,22 +1273,35 @@ def _time_wide(fa, gen, dev, dtype):
                        for g, r in zip((dk, dv), ref[1:]))}
     err_row = dict(zip(("dq", "dk", "dv"),
                        (grad_row_error(g, r) for g, r in zip(got, ref))))
+    if cuda_core:
+        check["cuda_core_dkv"] = {
+            "err_row": dict(zip(("dk", "dv"), (grad_row_error(g, r) for g, r
+                                               in zip((sdk, sdv), ref[1:])))),
+            "max_abs_err": max((g.float() - r.float()).abs().max().item()
+                               for g, r in zip((sdk, sdv), ref[1:]))}
     do_fault = do.clone()
     do_fault[:, :, S // 2:S // 2 + 32] = 0
     fault = fa._dense_backward(q, k, v, o, lse, do_fault, True, scale)
     fault_row = max(grad_row_error(f, r) for f, r in zip(fault, ref))
     del fault, ref, do_fault
-    check = {"err_o_row": err_o_row, "tol_o_row": O_ROW_TOL[dtype],
-             "err_lse_of_limit": err_lse, "fault_o_row": fault_o_row,
-             "err_row": err_row, "tol_row": GRAD_ROW_TOL[dtype],
-             "fault_row": fault_row}
-    finite = all(bool(torch.isfinite(t).all()) for t in (o, *got))
-    if not (finite and err_o_row <= O_ROW_TOL[dtype] and err_lse <= 1.0
+    check.update({"err_o_row": err_o_row, "tol_o_row": O_ROW_TOL[dtype],
+                  "err_lse_of_limit": err_lse, "fault_o_row": fault_o_row,
+                  "err_row": err_row, "tol_row": GRAD_ROW_TOL[dtype],
+                  "fault_row": fault_row})
+    outs = (o, *got) + ((so, sdk, sdv) if cuda_core else ())
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    cc_ok = not cuda_core or (
+        check["cuda_core_fwd"]["err_o_row"] <= O_ROW_TOL[dtype]
+        and check["cuda_core_fwd"]["err_lse_of_limit"] <= 1.0
+        and max(check["cuda_core_dkv"]["err_row"].values())
+        <= GRAD_ROW_TOL[dtype])
+    if not (finite and cc_ok and err_o_row <= O_ROW_TOL[dtype]
+            and err_lse <= 1.0
             and max(err_row.values()) <= GRAD_ROW_TOL[dtype]
             and fault_o_row > O_ROW_TOL[dtype]
             and fault_row > GRAD_ROW_TOL[dtype]):
         raise AssertionError(
-            f"wide kernels at {list(WIDE_TIMED)} {_dtype_name(dtype)} "
+            f"wide kernels at {[B, H, S, D]} {_dtype_name(dtype)} "
             f"disagree with plain (finite {finite}), or the check misses a "
             f"planted fault: {check}")
     plain_fwd = cuda_ms(lambda: fa._dense_kernel(q, k, v, True, scale),
@@ -1186,7 +1319,7 @@ def _time_wide(fa, gen, dev, dtype):
         backend = f"none took the shape: {str(e)[:160]}"
     torch.cuda.empty_cache()
     out = {"shape": [B, H, S, D], "dtype": _dtype_name(dtype),
-           "causal": True, "variant": "wide", "check": check,
+           "causal": True, "variant": variant, "check": check,
            "sdpa_backend": backend, "plain_bwd_ms": plain_bwd,
            "sdpa_bwd_ms": sdpa_bwd,
            "plain": "_dense_kernel / _dense_backward (dq, dk and dv in "
@@ -1197,7 +1330,14 @@ def _time_wide(fa, gen, dev, dtype):
         bound_ms, bound_by = (
             attention_bound(B, H, H, S, D, dtype, True) if kind == "fwd"
             else backward_bound(B, H, S, D, dtype, True, kind))
+        ops = ({"fwd": 4.0, "dq": 6.0, "dkv": 8.0}[kind] * B * H * S * S * D
+               * (S + 1) / (2.0 * S))
         out[kind] = {"kernel_ms": ms[kind], "max_abs_err": errs[kind],
+                     "variant": fa._backward_variant(dtype, D, kind)
+                     if kind != "fwd" else variant,
+                     "tflops": ops / ms[kind] * 1e-9,
+                     "cuda_core_ms": (cc_ms.get(kind) if cuda_core
+                                      else None),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
                      "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
@@ -1317,7 +1457,7 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     bt = torch.from_numpy(tables).to(dev)
     tok_t = torch.from_numpy(toks).to(dev)
     fa.launches = fa.wgmma_launches = fa.simt_launches = 0
-    fa.wide_launches = 0
+    fa.wide_launches = fa.wide_wgmma_launches = 0
     logits, cache = tm.prefill_with_cache(cfg, params, cache, tok_t, lens,
                                           bt)
     torch.cuda.synchronize()
@@ -2254,7 +2394,12 @@ def _c1_configs(base):
                 base, d_model=2048, n_heads=8, n_kv_heads=1, **cut),
              "wgmma"),
             ("hd512_bf16", dataclasses.replace(
-                base, d_model=1024, n_heads=2, n_kv_heads=2, **cut), "wide"),
+                base, d_model=1024, n_heads=2, n_kv_heads=2, **cut),
+             "wide_wgmma"),
+            # The same widths in f32: the CUDA-core wide kernels.
+            ("hd512_f32", dataclasses.replace(
+                base, d_model=1024, n_heads=2, n_kv_heads=2,
+                dtype=torch.float32, **cut), "wide"),
             ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
              "wgmma"),
             ("hd12_bf16", dataclasses.replace(
@@ -2275,8 +2420,9 @@ def _c1_configs(base):
 def phase_c1_models(dev, base, model_lens):
     """Phase 2b (see the module docstring): configs beyond the bf16
     flagship serve and train through the kernels of the rule (the tensor
-    cores at head_dim 256 and in f16, the wide kernels at head_dim 512) or
-    through the counted plain route."""
+    cores at head_dim 256 and in f16; at head_dim 512 the tensor-core wide
+    forward and dK/dV beside the CUDA-core wide dQ in bf16, the CUDA-core
+    wide kernels in f32) or through the counted plain route."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -3103,10 +3249,12 @@ def _spmd_want(cfg, axes, mb):
             n[variant] += (SPMD_SHARDS // pp) * runs
         reference = SPMD_SHARDS * (L // pp) * (pp + mb - 1 if pp > 1 else 1)
     total = n["wgmma"] + n["simt"]
-    return ({"fwd": total, **n, "dq": total, "dkv": total,
-             **{f"{kind}_{v}": c for v, c in n.items()
-                for kind in ("dq", "dkv")}, "rms": 0},
-            reference)
+    want_bwd = _backward_want(None, 0)
+    for v, c in n.items():
+        for key, count in _backward_want(v, c).items():
+            want_bwd[key] += count
+    return ({"fwd": total, **n, "dq": total, "dkv": total, **want_bwd,
+             "rms": 0}, reference)
 
 
 def _spmd_tokens(cfg, dev):
@@ -3645,37 +3793,74 @@ def main() -> int:
                 row["widths"] = {f"{dt}_D{D}": _bwd_brief(
                     bwd[f"{dt}_D{D}"], kind) for dt, D in any_widths}
             kernels.append(row)
-    # The wide kernels (head_dim above 256): launches from phase 2b's
-    # head_dim 512 config (one prefill_with_cache and one gradient pass),
-    # times at WIDE_TIMED in bf16 (f32 beside them).
-    served = c1["hd512_bf16"]
+    # The wide kernels (head_dim above 256), times at WIDE_TIMED. bf16 on
+    # the tensor cores (the forward and dK/dV) beside the CUDA-core dQ:
+    # launches from phase 2b's hd512_bf16 (one prefill_with_cache and one
+    # gradient pass), f16 and head_dim 384 beside them, and the CUDA-core
+    # forward and dK/dV on the same inputs (cuda_core_ms). f32 on the CUDA
+    # cores, all three: launches from hd512_f32.
+    served, served32 = c1["hd512_bf16"], c1["hd512_f32"]
+    wide_tc_source = "ray_tpu_torch/ops/csrc/flash_attention_wide_wgmma.cu"
     wide_source = "ray_tpu_torch/ops/csrc/flash_attention_wide.cu"
-    for kind, replaces_key, launches, launches_train in (
-            ("fwd", "mha",
-             served["launches_per_prefill_by_variant"]["wide"],
-             served["launches_per_pass"]["wide"]),
-            ("dq", "dq", served["launches_per_pass"]["dq_wide"], None),
-            ("dkv", "dkv", served["launches_per_pass"]["dkv_wide"], None)):
-        t, t32 = wide["bfloat16"], wide["float32"]
-        kernels.append({
-            "name": ("flash_attention_fwd" if kind == "fwd"
-                     else f"flash_attention_bwd_{kind}") + "[wide]",
-            "route": "cuda", "variant": "wide", "source": wide_source,
-            "replaces": replaces[replaces_key],
+
+    def wide_row(name, kind, variant, source, t, launches, launches_train,
+                 launches_from, dtype, **beside):
+        r = t[kind]
+        return {
+            "name": name, "route": "cuda", "variant": variant,
+            "source": source,
+            "replaces": replaces["mha" if kind == "fwd" else kind],
             "launches": launches, "launches_train": launches_train,
-            "launches_from": "phase 2b hd512_bf16: one prefill_with_cache "
-                             "and one gradient pass",
-            "max_abs_err": t[kind]["max_abs_err"],
-            "ms": t[kind]["kernel_ms"], "kernel_ms": t[kind]["kernel_ms"],
-            "plain_ms": t[kind]["plain_ms"], "bound_ms": t[kind]["bound_ms"],
-            "bound_by": t[kind]["bound_by"],
-            "library_ms": t[kind]["library_ms"],
+            "launches_from": launches_from,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+            "tflops": r["tflops"], "cuda_core_ms": r["cuda_core_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": f"scaled_dot_product_attention "
                        f"({t['sdpa_backend']})",
-            "f32": {k: t32[kind][k] for k in (
-                "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err")} | {"sdpa_backend": t32["sdpa_backend"]},
-            "shape": t["shape"], "dtype": "bfloat16", "card": card})
+            "shape": t["shape"], "dtype": dtype, "card": card, **beside}
+
+    def brief(t, kind):
+        return {k: t[kind][k] for k in (
+            "kernel_ms", "cuda_core_ms", "plain_ms", "library_ms",
+            "bound_ms", "max_abs_err")} | {
+            "sdpa_backend": t["sdpa_backend"], "shape": t["shape"]}
+
+    from_bf16 = ("phase 2b hd512_bf16: one prefill_with_cache and one "
+                 "gradient pass")
+    from_f32 = ("phase 2b hd512_f32: one prefill_with_cache and one "
+                "gradient pass")
+    beside_tc = {"float16": None, "bfloat16_D384": None,
+                 "float16_D384": None}
+    for kind, name in (("fwd", "flash_attention_fwd[wide-wgmma]"),
+                       ("dkv", "flash_attention_bwd_dkv[wide-wgmma]")):
+        launches = (served["launches_per_prefill_by_variant"]["wide_wgmma"]
+                    if kind == "fwd"
+                    else served["launches_per_pass"]["dkv_wide_wgmma"])
+        train_launches = (served["launches_per_pass"]["wide_wgmma"]
+                          if kind == "fwd" else None)
+        kernels.append(wide_row(
+            name, kind, "wide_wgmma", wide_tc_source, wide["bfloat16"],
+            launches, train_launches, from_bf16, "bfloat16",
+            **{k: brief(wide[k], kind) for k in beside_tc}))
+    kernels.append(wide_row(
+        "flash_attention_bwd_dq[wide]", "dq", "wide", wide_source,
+        wide["bfloat16"], served["launches_per_pass"]["dq_wide"], None,
+        from_bf16, "bfloat16",
+        **{k: brief(wide[k], "dq") for k in (*beside_tc, "float32")}))
+    for kind, name in (("fwd", "flash_attention_fwd[wide]"),
+                       ("dkv", "flash_attention_bwd_dkv[wide]")):
+        launches = (served32["launches_per_prefill_by_variant"]["wide"]
+                    if kind == "fwd"
+                    else served32["launches_per_pass"]["dkv_wide"])
+        train_launches = (served32["launches_per_pass"]["wide"]
+                          if kind == "fwd" else None)
+        kernels.append(wide_row(
+            name, kind, "wide", wide_source, wide["float32"], launches,
+            train_launches, from_f32, "float32",
+            bfloat16_cuda_core_ms=wide["bfloat16"][kind]["cuda_core_ms"],
+            float16_cuda_core_ms=wide["float16"][kind]["cuda_core_ms"]))
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

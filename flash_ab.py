@@ -31,10 +31,19 @@ The designs:
   producer warpgroup hands its registers to the consumers (setmaxnreg 24 /
   240), the layout before this one.
 
+With ``--wide``, the same for the tensor-core wide kernels
+(``flash_attention_wide_wgmma.cu``: the forward and dK/dV for head_dim
+above 256) at head_dim 512 and 384, against ``WIDE_VARIANTS``: dK/dV
+with 256-column chunks (each warpgroup owning 128 columns of dK and dV,
+as first written) and the forward with a 6-slot K ring (up to head_dim
+768). dK/dV of each design is held against this tree's (per row within
+GRAD_ROW_TOL), on delta from this tree's wide dQ kernel. ``--parent`` does
+not apply there (no earlier commit has the library).
+
 Run from the repository root: ``python3 flash_ab.py --parent DIR``
-(``--variants ""`` builds no textual variant). Prints one JSON line per
-build, check and timing, then the card's name and power limit. Exits
-non-zero without a card.
+(``--variants ""`` builds no textual variant) or ``python3 flash_ab.py
+--wide``. Prints one JSON line per build, check and timing, then the
+card's name and power limit. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -101,9 +110,18 @@ VARIANTS = {
              "    const int p_lane = threadIdx.x - kConsumerThreads;\n"
              "    if (p_lane >= 32) return;\n")]},
 }
+WIDE_SOURCE = "flash_attention_wide_wgmma.cu"
+WIDE_VARIANTS = {
+    "wide_dkv_chunk256": {WIDE_SOURCE: [
+        ("constexpr int kDkvChunk = 128;", "constexpr int kDkvChunk = 256;")]},
+    "wide_fwd_kring6": {WIDE_SOURCE: [
+        ("constexpr int kFwdKStages = 4;", "constexpr int kFwdKStages = 6;"),
+        ("constexpr int kMaxD = 1024;", "constexpr int kMaxD = 768;")]},
+}
 # The head_dims where a variant's code differs from this tree's.
 VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
 DIMS = (64, 128, 256)
+WIDE_DIMS = (512, 384)
 B, H, S = 4, 8, 2048
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -119,7 +137,7 @@ def _sources(name, parent):
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
-    for fname, edits in VARIANTS.get(name, {}).items():
+    for fname, edits in {**VARIANTS, **WIDE_VARIANTS}.get(name, {}).items():
         path = dst / fname
         text = path.read_text()
         for old, new in edits:
@@ -130,13 +148,13 @@ def _sources(name, parent):
     return dst
 
 
-def build(names, parent):
-    """nvcc for every design's two libraries at once -> {name: (fwd, bwd)}
-    loaded libraries; emits each build's ptxas registers and spills."""
+def build(names, parent, libraries=LIBS):
+    """nvcc for every design's libraries at once -> {name: {library:
+    loaded library}}; emits each build's ptxas registers and spills."""
     running = []
     for name in names:
         d = _sources(name, parent)
-        for lib in LIBS:
+        for lib in libraries:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                    str(d / f"{lib}.so"), str(d / f"{lib}.cu")]
             running.append((name, lib, d, subprocess.Popen(
@@ -154,16 +172,24 @@ def build(names, parent):
 
 
 def entry_points(name, libs):
-    """(forward, dQ, dK/dV) C functions of a design, argument types set."""
-    fwd = libs["flash_attention_fwd_wgmma"].flash_attention_fwd_wgmma
+    """(forward, dQ, dK/dV) C functions of a design, argument types set
+    (the wide library has no dQ: None)."""
+    if "flash_attention_wide_wgmma" in libs:
+        wide = libs["flash_attention_wide_wgmma"]
+        fwd, dq = wide.flash_attention_fwd_wide_wgmma, None
+        dkv = wide.flash_attention_bwd_dkv_wide_wgmma
+    else:
+        fwd = libs["flash_attention_fwd_wgmma"].flash_attention_fwd_wgmma
+        bwd = libs["flash_attention_bwd_wgmma"]
+        dq = bwd.flash_attention_bwd_dq_wgmma
+        dkv = bwd.flash_attention_bwd_dkv_wgmma
     fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP]
-    bwd = libs["flash_attention_bwd_wgmma"]
-    dq = bwd.flash_attention_bwd_dq_wgmma
-    dkv = bwd.flash_attention_bwd_dkv_wgmma
     for fn in (dq, dkv):
-        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
+        if fn is not None:
+            fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
     for fn in (fwd, dq, dkv):
-        fn.restype = _CI
+        if fn is not None:
+            fn.restype = _CI
     return fwd, dq, dkv
 
 
@@ -172,6 +198,8 @@ def kinds(name):
     tree and the parent, else those of the libraries its edits touch."""
     if name in ("tree", "parent"):
         return ("fwd", "dq", "dkv")
+    if name in WIDE_VARIANTS:
+        return ("fwd",) if name == "wide_fwd_kring6" else ("dkv",)
     files = VARIANTS[name]
     return (("fwd",) if "flash_attention_fwd_wgmma.cu" in files else ()) + \
         (("dq", "dkv") if "flash_attention_bwd_wgmma.cu" in files else ())
@@ -274,6 +302,31 @@ def digests(fns, dev):
     emit({"FWD_DIGESTS": found})
 
 
+def dkv_check(runs, others, t, D):
+    """This tree's dK/dV against the plain backward, and each design's
+    against this tree's, per row within GRAD_ROW_TOL."""
+    fa = cs._flash_module()
+    runs["tree"]["dkv"](0)
+    torch.cuda.synchronize()
+    tk, tv = t["dk2"].clone(), t["dv2"].clone()
+    ref = fa._dense_backward(t["q"], t["k"], t["v"], t["o"], t["lse"],
+                             t["do"], True, D ** -0.5)
+    tol = cs.GRAD_ROW_TOL[torch.bfloat16]
+    err = max(cs.grad_row_error(g, r) for g, r in zip((tk, tv), ref[1:]))
+    emit({"check": "tree dK/dV vs plain", "D": D, "err_row": err,
+          "tol_row": tol})
+    for n in others:
+        runs[n]["dkv"](0)
+        torch.cuda.synchronize()
+        err = max(cs.grad_row_error(g, r)
+                  for g, r in zip((t["dk2"], t["dv2"]), (tk, tv)))
+        emit({"check": f"{n} dK/dV vs tree", "D": D, "err_row": err,
+              "tol_row": tol})
+        if not err <= tol:
+            raise AssertionError(f"{n} at D={D}: dK/dV disagrees with "
+                                 f"this tree's kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device; this script runs only on a card",
@@ -282,20 +335,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout (git archive) of the "
                     "commit to compare with")
-    ap.add_argument("--variants", default=",".join(VARIANTS),
+    ap.add_argument("--variants", default=None,
                     help="comma-separated textual variants to build "
-                         "(default: all)")
+                         "(default: all of the mode's)")
+    ap.add_argument("--wide", action="store_true",
+                    help="the tensor-core wide kernels (head_dim above "
+                         "256) and WIDE_VARIANTS")
     args = ap.parse_args()
+    if args.wide and args.parent:
+        ap.error("--parent does not apply to --wide")
     fa = cs._flash_module()
-    variants = [n for n in args.variants.split(",") if n]
+    default = WIDE_VARIANTS if args.wide else VARIANTS
+    variants = [n for n in (args.variants if args.variants is not None
+                            else ",".join(default)).split(",") if n]
     names = ["tree", *variants] + (["parent"] if args.parent else [])
-    libs = build(names, args.parent)
+    libs = build(names, args.parent, ("flash_attention_wide_wgmma",)
+                 if args.wide else LIBS)
     fns = {n: entry_points(n, libs[n]) for n in names}
     dev = torch.device("cuda", 0)
     if args.parent:
         digests(fns, dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    for D in DIMS:
+    for D in (WIDE_DIMS if args.wide else DIMS):
         q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
         with cs._counts_kept(fa):
@@ -307,7 +368,7 @@ def main() -> int:
              "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
              "dv2": torch.empty_like(v)}
         others = [n for n in names if n != "tree"
-                  and D in VARIANT_DIMS.get(n, DIMS)]
+                  and (args.wide or D in VARIANT_DIMS.get(n, DIMS))]
         runs = {n: calls(n, fns[n], t) for n in ["tree", *others]}
         if "parent" in others:
             same_bits(runs, t, D)
@@ -319,6 +380,8 @@ def main() -> int:
         emit({"check": "tree vs plain", "D": D, "err_o_row": err_row,
               "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],
               "err_lse_of_limit": err_lse})
+        if args.wide:
+            dkv_check(runs, others, t, D)
         for n in others:
             runs[n]["fwd"](0)
             torch.cuda.synchronize()
@@ -330,7 +393,7 @@ def main() -> int:
                     and err_lse <= 1.0):
                 raise AssertionError(f"{n} at D={D} disagrees with this "
                                      f"tree's kernel")
-        for kind in ("fwd", "dq", "dkv"):
+        for kind in ("fwd", "dkv") if args.wide else ("fwd", "dq", "dkv"):
             with_kind = [n for n in others if kind in kinds(n)]
             order = [*with_kind, "tree", "tree", *with_kind[::-1]]
             ms = {n: [] for n in ["tree", *with_kind]}

@@ -54,14 +54,14 @@ Differences from the JAX reference, none of which change results:
   ``make_train_step``: see its docstring for how its signature differs
   from the reference's.
 - ``_attention_dense`` follows one rule, ``_attention_route`` of
-  ``ops/flash_attention.py``: a head_dim that is no multiple of 8 takes
-  the dense grouped einsum, as the reference does, each such call counted
-  in ``plain_routes``. Every other head_dim takes the flash kernels on a
-  CUDA tensor (which raise above head_dim 256, where no kernel is written
-  yet and the reference runs Pallas; ROADMAP B), whatever S: the reference takes Pallas only
-  for TPU-tileable lengths (S a multiple of 128), a rule the CUDA kernels
-  do not need because they mask ragged lengths. CPU tensors take the
-  dense grouped einsum, the reference's path off the TPU.
+  ``ops/flash_attention.py``: a head_dim that is no multiple of 8, or
+  fewer than 8 tokens, takes the dense grouped einsum, as the reference's
+  flash wrappers fall back there, each such call counted in
+  ``plain_routes``. Every other call takes the flash kernels on a CUDA
+  tensor, at every ragged length: the reference takes Pallas only for
+  TPU-tileable lengths (S a multiple of 128), a rule the CUDA kernels do
+  not need because they mask ragged lengths. CPU tensors take the dense
+  grouped einsum, the reference's path off the TPU.
 - Tensor parallelism (``mesh=``/``rules=`` of ``prefill_chunk``,
   ``verify_step`` and ``decode_step``): the reference constrains
   activations and lets GSPMD insert the collectives; here the Megatron
@@ -248,12 +248,14 @@ def rope(x, positions, theta):
 def _attention_dense(q, k, v, causal=True, grad=True):
     """q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,S,Hq,Dh].
 
-    A head_dim that ``_attention_route`` sends to the plain path takes the
-    dense grouped einsum on every device (counted in ``plain_routes``).
-    Otherwise a CUDA tensor runs the flash kernels (``_attention_flash``)
-    and a CPU tensor the dense grouped einsum (under autograd when grad is
-    on), as the reference does off the TPU."""
-    if take_route(q.dtype, q.shape[-1]) != "plain" and q.is_cuda:
+    A call that ``_attention_route`` sends to the plain path (a head_dim
+    no multiple of 8, or fewer than 8 tokens, as a one-token prompt's
+    prefill) takes the dense grouped einsum on every device (counted in
+    ``plain_routes``). Otherwise a CUDA tensor runs the flash kernels
+    (``_attention_flash``) and a CPU tensor the dense grouped einsum (under
+    autograd when grad is on), as the reference does off the TPU."""
+    if (take_route(q.dtype, q.shape[-1], q.shape[1], k.shape[1]) != "plain"
+            and q.is_cuda):
         return _attention_flash(q, k, v, causal, grad)
     return _attention_einsum(q, k, v, causal)
 

@@ -1,8 +1,14 @@
 // Flash attention for head dims above 256 on Hopper (sm_90a), on the CUDA
 // cores: the forward (MHA and GQA), dQ and dK/dV, in f32, bf16 and f16.
-// The wrapper's rule of shapes sends every head_dim above 256 here; the
-// tensor-core kernels take bf16 and f16 at the multiples of 8 up to 256, the
-// kernels of flash_attention_fwd.cu / flash_attention_bwd.cu f32 there.
+// The wrapper's rule of shapes sends here, above head_dim 256: f32, all
+// three kernels; bf16 and f16 above 1024, all three; bf16 and f16 up to
+// 1024, dQ only (the tensor-core forward and dK/dV kernels of
+// flash_attention_wide_wgmma.cu take the rest; this dQ kernel writes the
+// delta their dK/dV kernel reads). bf16 and f16 at the multiples of 8 up to
+// 256 take the tensor-core kernels, f32 there those of
+// flash_attention_fwd.cu / flash_attention_bwd.cu. chip_smoke.py still
+// calls this file's bf16 and f16 forward and dK/dV through their C entry
+// points, and times them beside the tensor-core ones.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
@@ -48,7 +54,10 @@
 //   key tiles after the block's last query row, in dK/dV the query tiles
 //   before its first key row.
 // - Every block computes delta = rowsum(dO * O) over the full head
-//   dimension itself, as the narrower CUDA-core kernels do.
+//   dimension itself, as the narrower CUDA-core kernels do; the dQ
+//   kernel's blocks of chunk 0 also write it [B*H, Sq] f32 when given a
+//   buffer, for the tensor-core dK/dV kernel of
+//   flash_attention_wide_wgmma.cu, which reads it rather than O.
 // - LSE [B, Hq, Sq] f32 is written by the blocks of chunk 0.
 //
 // The kernels launch on the caller's stream and allocate nothing.
@@ -230,7 +239,8 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ o,
                          const T* __restrict__ dout,
                          const float* __restrict__ lse, T* __restrict__ dq,
-                         int sq, int sk, int d, float scale, int causal) {
+                         float* __restrict__ delta_out, int sq, int sk, int d,
+                         float scale, int causal) {
   __shared__ __align__(16) float ks[kTile * kCols];
   __shared__ __align__(16) float vs[kTile * kCols];
 
@@ -256,6 +266,9 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta += dot(dor, orow);
   }
   delta = row_sum(delta);
+  if (delta_out != nullptr && blockIdx.z == 0 && row_valid && slice == 0) {
+    delta_out[(size_t)bh * sq + qi] = delta;
+  }
   const float row_lse = row_valid ? lse[(size_t)bh * sq + qi] : 0.f;
 
   float acc[kColSlice];
@@ -466,14 +479,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
-                   void* dq, int bh, int sq, int sk, int d, float scale,
-                   int causal, cudaStream_t stream) {
+                   void* dq, void* delta, int bh, int sq, int sk, int d,
+                   float scale, int causal, cudaStream_t stream) {
   dim3 grid(bh, (sq + kBlockQ - 1) / kBlockQ, n_chunks(d));
   flash_bwd_dq_wide_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), sq, sk, d, scale, causal);
+      static_cast<T*>(dq), static_cast<float*>(delta), sq, sk, d, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -521,25 +535,27 @@ extern "C" int flash_attention_fwd_wide(const void* q, const void* k,
 }
 
 // q, o, dout, dq [B*H, Sq, D]; k, v [B*H, Sk, D] (contiguous, 16-byte
-// aligned, one dtype; D any multiple of 8); lse [B*H, Sq] f32.
+// aligned, one dtype; D any multiple of 8); lse [B*H, Sq] f32; delta null,
+// or [B*H, Sq] f32 written with rowsum(dO * O).
 extern "C" int flash_attention_bwd_dq_wide(const void* q, const void* k,
                                            const void* v, const void* o,
                                            const void* dout, const void* lse,
-                                           void* dq, int bh, int sq, int sk,
-                                           int d, float scale, int causal,
-                                           int dtype, void* stream) {
+                                           void* dq, void* delta, int bh,
+                                           int sq, int sk, int d, float scale,
+                                           int causal, int dtype,
+                                           void* stream) {
   if (bad_shape(bh, sq, sk, d, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return (int)bwd_dq<__nv_bfloat16>(q, k, v, o, dout, lse, dq, bh, sq,
-                                        sk, d, scale, causal, s);
+      return (int)bwd_dq<__nv_bfloat16>(q, k, v, o, dout, lse, dq, delta, bh,
+                                        sq, sk, d, scale, causal, s);
     case 2:
-      return (int)bwd_dq<__half>(q, k, v, o, dout, lse, dq, bh, sq, sk, d,
-                                 scale, causal, s);
+      return (int)bwd_dq<__half>(q, k, v, o, dout, lse, dq, delta, bh, sq,
+                                 sk, d, scale, causal, s);
     default:
-      return (int)bwd_dq<float>(q, k, v, o, dout, lse, dq, bh, sq, sk, d,
-                                scale, causal, s);
+      return (int)bwd_dq<float>(q, k, v, o, dout, lse, dq, delta, bh, sq,
+                                sk, d, scale, causal, s);
   }
 }
 

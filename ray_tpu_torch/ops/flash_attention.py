@@ -17,12 +17,20 @@ dK/dV, replace ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
 (``_backward_variant``): bf16 and f16 on the tensor cores
 (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also writes delta
 = rowsum(dO * O) for its dK/dV kernel), f32 up to head_dim 256 on the CUDA
-cores (``csrc/flash_attention_bwd.cu``). Every head_dim above 256 takes
-the ``"wide"`` variant, all three kernels in
-``csrc/flash_attention_wide.cu``, which split the head dimension of their
-output across blocks (CUDA cores, any multiple of 8). A wrapper launches
-its kernel for CUDA tensors and raises on what it does not take; it runs
-a plain version only for tensors on the CPU.
+cores (``csrc/flash_attention_bwd.cu``). Above head_dim 256 the kernels
+split the head dimension of their output across blocks: bf16 and f16 up
+to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
+forward and dK/dV kernels on the tensor cores
+(``csrc/flash_attention_wide_wgmma.cu``: 256 columns of O and 128 of
+dK/dV a block, the score reduction streamed over D in 64-column TMA
+boxes), beside the CUDA-core
+wide dQ kernel, which writes delta for them; f32, and bf16/f16 above
+1024, take the ``"wide"`` variant, all three kernels on the CUDA cores in
+``csrc/flash_attention_wide.cu`` (64-column chunks, any multiple of 8).
+So above 256 the backward's variant is per kernel
+(``_backward_variant(dtype, D, kernel)``). A wrapper launches its kernel
+for CUDA tensors and raises on what it does not take; it runs a plain
+version only for tensors on the CPU.
 
 The forward kernels round where the reference's ``_attn_kernel`` does:
 q * scale in q's dtype (the scale itself rounded to that dtype first, as
@@ -32,12 +40,12 @@ P.V. ``_dense_kernel`` is the plain version with those rounding points;
 in q's dtype, then its scaling). On the CPU ``_flash_forward`` takes the
 one the reference takes on those shapes (``_reference_runs_kernel``).
 
-Which route a head_dim takes is one rule, ``_attention_route``: a head_dim
-that is no multiple of 8 takes the plain path (``_fallback`` /
-``_fallback_grouped``), as the reference does on every device. Every other
-head_dim takes a kernel. ``take_route`` applies the rule and counts each
-plain route in ``plain_routes``; the model's ``_attention_dense`` uses it
-too.
+Which route a call takes is one rule, ``_attention_route``: a head_dim
+that is no multiple of 8, or a query or key length under 8, takes the
+plain path (``_fallback`` / ``_fallback_grouped``), as the reference does
+on every device. Every other call takes a kernel. ``take_route`` applies
+the rule and counts each plain route in ``plain_routes``; the model's
+``_attention_dense`` uses it too.
 
 Layouts are the reference's: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``.
 ``flash_attention`` is differentiable through ``_FlashCore`` (the
@@ -59,18 +67,22 @@ NEG_INF = -1e30
 launches = 0        # forward, every variant
 wgmma_launches = 0  # forward on the tensor cores (bf16/f16, D <= 256)
 simt_launches = 0   # forward on the CUDA cores (f32, D <= 256)
-wide_launches = 0   # forward with D above 256 (CUDA cores, D split)
+wide_launches = 0   # forward with D above 256 on the CUDA cores
+wide_wgmma_launches = 0   # forward with D above 256 on the tensor cores
 dq_launches = 0     # backward dQ, every variant
 dkv_launches = 0    # backward dK/dV, every variant
 dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
 dkv_wgmma_launches = 0
 dq_simt_launches = 0    # backward on the CUDA cores (f32, D <= 256)
 dkv_simt_launches = 0
-dq_wide_launches = 0    # backward with D above 256
+dq_wide_launches = 0    # backward with D above 256 on the CUDA cores
 dkv_wide_launches = 0
+dkv_wide_wgmma_launches = 0   # dK/dV with D above 256 on the tensor cores
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
 SIMT_MAX_D = 256   # the widest head_dim of the "simt" and "wgmma" kernels
+WIDE_WGMMA_MAX_D = 1024   # the widest head_dim of the "wide_wgmma" kernels
+MIN_KERNEL_LEN = 8   # a shorter Sq or Sk takes the plain path (reference)
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -91,15 +103,26 @@ _SIGNATURES = {
     ("flash_attention_wide", "flash_attention_fwd_wide"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide", "flash_attention_bwd_dq_wide"):
-        [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide", "flash_attention_bwd_dkv_wide"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_wgmma", "flash_attention_fwd_wide_wgmma"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_wgmma", "flash_attention_bwd_dkv_wide_wgmma"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
-# The CUDA-core variants: (forward library, backward library, suffix of
-# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv).
-_CUDA_CORE = {"simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
+# Each variant's kernels: (forward library, backward library, suffix of
+# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
+# tensor-core dK/dV kernels read delta from the dQ kernel of their rule
+# ("wide_wgmma" has no dQ kernel of its own: dQ is "wide"'s).
+_LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
+                        "flash_attention_bwd_wgmma", "_wgmma"),
+              "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
               "wide": ("flash_attention_wide", "flash_attention_wide",
-                       "_wide")}
+                       "_wide"),
+              "wide_wgmma": ("flash_attention_wide_wgmma",
+                             "flash_attention_wide_wgmma", "_wide_wgmma")}
+_READS_DELTA = ("wgmma", "wide_wgmma")   # dK/dV variants that take delta
 _bound = {}
 
 
@@ -184,7 +207,7 @@ def _reference_runs_kernel(Sq: int, Sk: int, D: int) -> bool:
     grouped`` reach ``pl.pallas_call`` on these shapes rather than
     ``_fallback``: both lengths at least 8 and D a multiple of 8 (its
     block sizes always divide the lengths)."""
-    return Sq >= 8 and Sk >= 8 and D % 8 == 0
+    return Sq >= MIN_KERNEL_LEN and Sk >= MIN_KERNEL_LEN and D % 8 == 0
 
 
 def _fallback(q, k, v, causal, scale):
@@ -253,49 +276,68 @@ def _check_kernel_inputs(tensors, names):
                          f"to the plain path")
 
 
-def _attention_route(dtype: torch.dtype, D: int) -> str:
-    """Where attention over head_dim ``D`` goes: ``"plain"`` when D is no
-    multiple of 8 (the reference's own fallback rule), else the kernel
-    variant of ``_forward_variant``. A dtype no kernel takes still gets a
-    variant, and the kernel's wrapper raises ``TypeError`` on a CUDA
-    tensor."""
-    if D % 8:
+def _attention_route(dtype: torch.dtype, D: int, Sq: Optional[int] = None,
+                     Sk: Optional[int] = None) -> str:
+    """Where attention over head_dim ``D`` (and, where given, query and key
+    lengths ``Sq`` and ``Sk``) goes: ``"plain"`` when D is no multiple of 8
+    or a length is under ``MIN_KERNEL_LEN`` (the reference's own fallback
+    rule: its Pallas kernel needs both), else the kernel variant of
+    ``_forward_variant``. A dtype no kernel takes still gets a variant,
+    and the kernel's wrapper raises ``TypeError`` on a CUDA tensor."""
+    if D % 8 or any(n is not None and n < MIN_KERNEL_LEN for n in (Sq, Sk)):
         return "plain"
     return _forward_variant(dtype, D)
 
 
-def take_route(dtype: torch.dtype, D: int) -> str:
+def take_route(dtype: torch.dtype, D: int, Sq: Optional[int] = None,
+               Sk: Optional[int] = None) -> str:
     """``_attention_route``, counting each plain route in
     ``plain_routes``."""
     global plain_routes
-    route = _attention_route(dtype, D)
+    route = _attention_route(dtype, D, Sq, Sk)
     if route == "plain":
         plain_routes += 1
     return route
 
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
-    """Which forward kernel takes a CUDA input: ``"wide"`` (CUDA cores, the
-    head dimension split across blocks) for head_dim above
-    ``SIMT_MAX_D``; ``"wgmma"`` (tensor cores) for bf16 and f16 at every
-    multiple of 8 up to it (the kernel's template widths are 64, 128 and
-    256; a narrower head_dim runs the next one up, zero-padded);
-    ``"simt"`` (CUDA cores) otherwise: f32 up to 256, because TF32
-    products would break its limit (``testing.O_ROW_TOL``). A head_dim
-    that is no multiple of 8 gets ``"simt"``, whose wrapper raises
-    (``_attention_route`` sends it to the plain path first)."""
+    """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
+    for bf16 and f16 at every multiple of 8 up to ``SIMT_MAX_D`` (the
+    kernel's template widths are 64, 128 and 256; a narrower head_dim runs
+    the next one up, zero-padded); ``"wide_wgmma"`` (tensor cores, 256
+    columns of O per block) for bf16 and f16 above it up to
+    ``WIDE_WGMMA_MAX_D``, the most whose Q rows fit a block's shared memory
+    (128 KB: 128 rows at D = 512, 64 rows at D = 1024); ``"wide"`` (CUDA
+    cores, 64 columns of O per block, any width) for bf16 and f16 above
+    ``WIDE_WGMMA_MAX_D`` and for f32 above ``SIMT_MAX_D``; ``"simt"``
+    (CUDA cores) for f32 up to ``SIMT_MAX_D``. f32 stays off the tensor
+    cores at every width because TF32 products would break its limit
+    (``testing.O_ROW_TOL``). A head_dim that is no multiple of 8 gets a
+    variant whose wrapper raises (``_attention_route`` sends it to the
+    plain path first)."""
+    wgmma = dtype in WGMMA_DTYPES and D % 8 == 0
     if D > SIMT_MAX_D:
-        return "wide"
-    if dtype in WGMMA_DTYPES and D % 8 == 0:
-        return "wgmma"
-    return "simt"
+        return "wide_wgmma" if wgmma and D <= WIDE_WGMMA_MAX_D else "wide"
+    return "wgmma" if wgmma else "simt"
 
 
-def _backward_variant(dtype: torch.dtype, D: int) -> str:
-    """Which backward kernels (dQ and dK/dV) take a CUDA input: the
-    forward's rule, for the same reason (``testing.GRAD_ROW_TOL``'s f32
-    limit and the f32 gradient checks rest on f32 products)."""
-    return _forward_variant(dtype, D)
+def _backward_variant(dtype: torch.dtype, D: int,
+                      kernel: Optional[str] = None) -> str:
+    """Which backward kernel, ``kernel`` = ``"dq"`` or ``"dkv"``, takes a
+    CUDA input: the forward's rule (``testing.GRAD_ROW_TOL``'s f32 limit
+    and the f32 gradient checks rest on f32 products), except that dQ
+    stays ``"wide"`` (CUDA cores) above ``SIMT_MAX_D`` at every dtype,
+    beside the ``"wide_wgmma"`` dK/dV kernel. With ``kernel`` None, the
+    variant both kernels share; a ``ValueError`` where they differ."""
+    variant = _forward_variant(dtype, D)
+    if variant != "wide_wgmma":
+        return variant
+    if kernel is None:
+        raise ValueError(f"the backward kernels differ at {dtype} head_dim "
+                         f"{D}: name the kernel ('dq' or 'dkv')")
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel is 'dq' or 'dkv', got {kernel!r}")
+    return "wide" if kernel == "dq" else variant
 
 
 def _check_launch(name, err):
@@ -307,6 +349,7 @@ def _check_launch(name, err):
 
 def _launch(q, k, v, causal, scale):
     global launches, wgmma_launches, simt_launches, wide_launches
+    global wide_wgmma_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -317,16 +360,15 @@ def _launch(q, k, v, causal, scale):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
             int(bool(causal)))
-    if variant == "wgmma":
-        library = name = "flash_attention_fwd_wgmma"
-    else:
-        library, _, suffix = _CUDA_CORE[variant]
-        name = "flash_attention_fwd" + suffix
+    library, _, suffix = _LIBRARIES[variant]
+    name = "flash_attention_fwd" + suffix
     err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)
     _check_launch(name, err)
     launches += 1
     if variant == "wgmma":
         wgmma_launches += 1
+    elif variant == "wide_wgmma":
+        wide_wgmma_launches += 1
     elif variant == "wide":
         wide_launches += 1
     else:
@@ -360,68 +402,73 @@ def _check_rows_f32(t, q, name):
 
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
-    delta). The tensor-core variant also writes delta = rowsum(dO * O),
-    [B, H, Sq] f32, which its dK/dV kernel reads; the CUDA-core variants
-    return None (their dK/dV kernels compute delta themselves)."""
+    delta). Where the dK/dV kernel is on the tensor cores (``"wgmma"``,
+    ``"wide_wgmma"``) the dQ kernel also writes delta = rowsum(dO * O),
+    [B, H, Sq] f32, which that dK/dV kernel reads; the CUDA-core dK/dV
+    kernels compute delta themselves, and then delta is None."""
     global dq_launches, dq_wgmma_launches, dq_simt_launches, dq_wide_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr())
-    variant = _backward_variant(q.dtype, q.shape[-1])
-    if variant == "wgmma":
+    D = q.shape[-1]
+    variant = _backward_variant(q.dtype, D, "dq")
+    _, library, suffix = _LIBRARIES[variant]
+    name = "flash_attention_bwd_dq" + suffix
+    delta = None
+    if _backward_variant(q.dtype, D, "dkv") in _READS_DELTA:
         delta = torch.empty(q.shape[:3], dtype=torch.float32,
                             device=q.device)
-        name = "flash_attention_bwd_dq_wgmma"
-        err = _kernel_fn("flash_attention_bwd_wgmma", name)(
-            *ptrs, delta.data_ptr(), *scalars, stream)
-        _check_launch(name, err)
-        dq_wgmma_launches += 1
-    else:
-        delta = None
-        _, library, suffix = _CUDA_CORE[variant]
-        name = "flash_attention_bwd_dq" + suffix
+    if variant == "simt":
         err = _kernel_fn(library, name)(*ptrs, *scalars, stream)
-        _check_launch(name, err)
-        if variant == "wide":
-            dq_wide_launches += 1
-        else:
-            dq_simt_launches += 1
+    else:
+        # delta's buffer, or null: the wide dQ kernel then writes none.
+        err = _kernel_fn(library, name)(
+            *ptrs, None if delta is None else delta.data_ptr(), *scalars,
+            stream)
+    _check_launch(name, err)
+    if variant == "wgmma":
+        dq_wgmma_launches += 1
+    elif variant == "wide":
+        dq_wide_launches += 1
+    else:
+        dq_simt_launches += 1
     dq_launches += 1
     return dq, delta
 
 
 def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv).
-    ``delta`` is ``_launch_dq``'s second result: the tensor-core variant
-    reads it, the CUDA-core variants compute delta from O themselves."""
+    ``delta`` is ``_launch_dq``'s second result: the tensor-core variants
+    read it, the CUDA-core variants compute delta from O themselves."""
     global dkv_launches, dkv_wgmma_launches, dkv_simt_launches
-    global dkv_wide_launches
+    global dkv_wide_launches, dkv_wide_wgmma_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    variant = _backward_variant(q.dtype, q.shape[-1])
-    if variant == "wgmma":
+    variant = _backward_variant(q.dtype, q.shape[-1], "dkv")
+    _, library, suffix = _LIBRARIES[variant]
+    name = "flash_attention_bwd_dkv" + suffix
+    if variant in _READS_DELTA:
         _check_rows_f32(delta, q, "delta")
-        name = "flash_attention_bwd_dkv_wgmma"
-        err = _kernel_fn("flash_attention_bwd_wgmma", name)(
+        err = _kernel_fn(library, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *scalars, stream)
-        _check_launch(name, err)
-        dkv_wgmma_launches += 1
     else:
-        _, library, suffix = _CUDA_CORE[variant]
-        name = "flash_attention_bwd_dkv" + suffix
         err = _kernel_fn(library, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *scalars, stream)
-        _check_launch(name, err)
-        if variant == "wide":
-            dkv_wide_launches += 1
-        else:
-            dkv_simt_launches += 1
+    _check_launch(name, err)
+    if variant == "wgmma":
+        dkv_wgmma_launches += 1
+    elif variant == "wide_wgmma":
+        dkv_wide_wgmma_launches += 1
+    elif variant == "wide":
+        dkv_wide_launches += 1
+    else:
+        dkv_simt_launches += 1
     dkv_launches += 1
     return dk, dv
 
@@ -485,16 +532,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts; GQA
     repeat-expands K/V first). Differentiable: the backward runs the dQ
-    and dK/dV kernels of ``_backward_variant`` on CUDA tensors. A head_dim
-    that ``_attention_route`` sends to the plain path returns
-    ``_fallback``, differentiable by autograd."""
+    and dK/dV kernels of ``_backward_variant`` on CUDA tensors. A call
+    that ``_attention_route`` sends to the plain path (head_dim no
+    multiple of 8, or a length under 8) returns ``_fallback``,
+    differentiable by autograd."""
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention wants matched head counts, got "
                          f"{q.shape[1]} and {k.shape[1]}; use "
                          f"flash_attention_grouped")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if take_route(q.dtype, q.shape[-1]) == "plain":
+    if take_route(q.dtype, q.shape[-1], q.shape[2], k.shape[2]) == "plain":
         return _fallback(q, k, v, causal, scale)
     if _wants_grad(q, k, v):
         return _FlashCore.apply(q, k, v, causal, scale)
@@ -508,8 +556,8 @@ def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor,
     [B, Hq, S, D]. K/V are never repeat-expanded: the kernel maps each
     query head to its KV head. Forward-only, as in the reference (its
     backward kernels want matched head counts): a tensor that requires
-    grad under grad mode raises. A head_dim that ``_attention_route``
-    sends to the plain path returns ``_fallback_grouped``."""
+    grad under grad mode raises. A call that ``_attention_route`` sends to
+    the plain path returns ``_fallback_grouped``."""
     if _wants_grad(q, k, v):
         raise NotImplementedError(
             "flash_attention_grouped is forward-only; the differentiable "
@@ -517,6 +565,6 @@ def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor,
     _check_shapes(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if take_route(q.dtype, q.shape[-1]) == "plain":
+    if take_route(q.dtype, q.shape[-1], q.shape[2], k.shape[2]) == "plain":
         return _fallback_grouped(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale)[0]

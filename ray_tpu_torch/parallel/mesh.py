@@ -18,7 +18,8 @@ its devices.
 
 Default devices are the visible CUDA devices. Virtual shards are never
 made implicitly: ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n`` (read only here)
-gives n shards of the first device, the counterpart of the reference
+gives n shards of the first CUDA device (a CPU shard only where the
+caller asks for ``"cpu"``), the counterpart of the reference
 tests' ``--xla_force_host_platform_device_count``; an explicit
 ``devices=`` list may repeat a device to the same effect. Each virtual
 shard owns its own tensors, so every sharded program runs for real on one
@@ -112,14 +113,14 @@ class MeshConfig:
 
 def visible_devices(device_type: Optional[str] = None
                     ) -> List[torch.device]:
-    """The devices a default mesh spans. With
-    ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n``: n virtual shards of the first
-    device (of ``device_type`` when given, else ``cuda:0`` when a card is
-    visible and the CPU when none is). Without it: every visible CUDA
-    device (none on a machine without a card), or the one CPU when
-    ``device_type`` is ``"cpu"``."""
+    """The devices a default mesh spans, of ``device_type`` (``"cuda"``
+    when not given: an entry point never drops to the CPU on its own).
+    With ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n``: n virtual shards of the
+    first device of that type (``cuda:0``, which must exist, or the CPU).
+    Without it: every visible CUDA device (none on a machine without a
+    card), or the one CPU when ``device_type`` is ``"cpu"``."""
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else None
+        device_type = "cuda"
     n_virtual = os.environ.get(VIRTUAL_DEVICES_ENV)
     if n_virtual:
         if device_type == "cuda" and not torch.cuda.is_available():

@@ -45,17 +45,72 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
-@pytest.mark.parametrize("D", [12, 64, 128, 200, 256, 264])
+@pytest.mark.parametrize("D", [12, 64, 128, 200, 256, 264, 512, 1024,
+                               1032])
 def test_attention_route_rule(D, dtype):
     dt = DTYPES[dtype]
     want = ("plain" if D == 12
-            else "wide" if D > 256
+            else "wide" if D > 256 and (dt == torch.float32 or D > 1024)
+            else "wide_wgmma" if D > 256
             else "wgmma" if dt != torch.float32
             else "simt")
     assert fa._attention_route(dt, D) == want
     before = fa.plain_routes
     assert fa.take_route(dt, D) == want
     assert fa.plain_routes - before == (want == "plain")
+
+
+@pytest.mark.parametrize("sq,sk", [(4, 16), (16, 5), (7, 7), (1, 1),
+                                   (8, 8), (16, 130)])
+@pytest.mark.parametrize("D", [64, 264])
+def test_attention_route_takes_plain_below_eight_tokens(sq, sk, D):
+    """A query or key length under 8 takes the plain path at every dtype
+    and head_dim (the reference's wrappers fall back there: its Pallas
+    kernel needs both lengths at least 8), counted in plain_routes; a call
+    without lengths keeps the head_dim rule alone."""
+    plain = sq < 8 or sk < 8
+    for dt in DTYPES.values():
+        want = "plain" if plain else fa._forward_variant(dt, D)
+        assert fa._attention_route(dt, D, sq, sk) == want
+        before = fa.plain_routes
+        assert fa.take_route(dt, D, sq, sk) == want
+        assert fa.plain_routes - before == plain
+        assert fa._attention_route(dt, D) == fa._forward_variant(dt, D)
+
+
+@pytest.mark.parametrize("sq,sk", [(4, 16), (16, 5)])
+def test_short_lengths_take_the_reference_fallback(sq, sk):
+    """flash_attention and flash_attention_grouped at a length under 8:
+    one plain route each, no launch, the plain version's result exactly
+    (``_fallback`` / ``_fallback_grouped``), equal to the reference's
+    wrappers (which fall back too); the model's ``_attention_dense`` on a
+    4-token input takes the dense einsum and counts one plain route."""
+    D = 64
+    q = np.random.default_rng(sq).standard_normal((2, 4, sq, D)).astype(
+        np.float32)
+    k, v = (np.random.default_rng(sk + i).standard_normal(
+        (2, 4, sk, D)).astype(np.float32) for i in range(2))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    before, launched = fa.plain_routes, _launch_counts()
+    out = fa.flash_attention(tq, tk, tv, causal=True)
+    grouped = fa.flash_attention_grouped(tq, tk[:, :2], tv[:, :2],
+                                         causal=True)
+    assert fa.plain_routes == before + 2
+    assert _launch_counts() == launched
+    assert torch.equal(out, fa._fallback(tq, tk, tv, True, D ** -0.5))
+    assert torch.equal(grouped, fa._fallback_grouped(
+        tq, tk[:, :2], tv[:, :2], True, D ** -0.5))
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        jfa.flash_attention(jq, jk, jv, causal=True)), atol=ATOL)
+    np.testing.assert_allclose(grouped.numpy(), np.asarray(
+        jfa.flash_attention_grouped(jq, jk[:, :2], jv[:, :2], causal=True)),
+        atol=ATOL)
+    mq, mk, mv = (t[:, :, :4].transpose(1, 2) for t in (tq, tk, tv))
+    before = fa.plain_routes
+    dense = tt._attention_dense(mq, mk, mv)
+    assert fa.plain_routes == before + 1
+    assert torch.equal(dense, tt._attention_einsum(mq, mk, mv))
 
 
 def _qkv(seed, Hq, Hkv, S, D):

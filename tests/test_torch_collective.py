@@ -195,7 +195,11 @@ def test_virtual_devices_come_only_from_the_variable_or_a_list(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmesh.make_mesh()
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "8")
-    mesh = tmesh.make_mesh(tp=4)
+    # With no card the variable gives no shards on its own: CPU shards come
+    # only from asking for them.
+    with pytest.raises(RuntimeError, match="no CUDA device to hold virtual"):
+        tmesh.make_mesh(tp=4)
+    mesh = tmesh.make_mesh(tp=4, devices=tmesh.visible_devices("cpu"))
     assert mesh.shape == {"dp": 2, "fsdp": 1, "pp": 1, "tp": 4, "sp": 1,
                           "ep": 1}
     assert list(mesh.devices.flat) == [CPU] * 8

@@ -136,7 +136,7 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
     torch.cuda.synchronize()
     after = _forward_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "wgmma": 1, "simt": 0, "wide": 0}
+        n: int(n == "wgmma") for n in after}
     assert o.dtype == dtype
     ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
@@ -144,7 +144,7 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
 
 def _forward_counts():
     return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches}
+            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches}
 
 
 # Head dims 64 and 256 have power-of-two scales, where rounding q * scale
@@ -210,8 +210,9 @@ def test_flash_wgmma_zero_fills_past_head_dim(cuda_device, dtype, D, causal):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide"),
-    (torch.bfloat16, 512, "wide"), (torch.float16, 256, "wgmma"),
-    (torch.float16, 200, "wgmma"), (torch.float32, 256, "simt")])
+    (torch.bfloat16, 512, "wide_wgmma"), (torch.float16, 256, "wgmma"),
+    (torch.float16, 200, "wgmma"), (torch.float32, 256, "simt"),
+    (torch.float16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -224,9 +225,16 @@ def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
 
 
 # Head dims above 256 take the wide kernels (the head dimension of the
-# output split across blocks): 264 has a last chunk of 8 columns, 1024
-# sweeps 16 chunks. MHA and GQA forward, ragged lengths, Sq != Sk.
-WIDE_DIMS = [264, 512, 1024]
+# output split across blocks): bf16 and f16 the tensor-core forward and
+# dK/dV beside the CUDA-core dQ, f32 the CUDA-core three. 264 has a last
+# chunk of 8 columns, 384 is no multiple of the tensor-core forward's
+# 256-column chunk, 1024 the widest the tensor cores take (K and V then
+# stream in dK/dV). MHA and GQA forward, ragged lengths, Sq != Sk.
+WIDE_DIMS = [264, 384, 512, 1024]
+
+
+def _wide_variant(dtype):
+    return "wide" if dtype == torch.float32 else "wide_wgmma"
 
 
 @pytest.mark.cuda
@@ -243,7 +251,7 @@ def test_flash_wide_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv, Sq,
     torch.cuda.synchronize()
     after = _forward_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "wgmma": 0, "simt": 0, "wide": 1}
+        n: int(n == _wide_variant(dtype)) for n in after}
     ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
     _assert_close(o, lse, ro, rlse)
 
@@ -262,13 +270,78 @@ def test_flash_wide_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
     before = _backward_counts()
     grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
     torch.cuda.synchronize()
-    got, want = _backward_launched(before, "wide")
+    got, want = _backward_launched(before, _wide_variant(dtype))
     assert got == want
     ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
         err = grad_row_error(g, r)
         assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
+# The tensor-core wide kernels on rows offset by +-1.5 in turn (as
+# test_flash_wgmma_zero_fills_past_head_dim): at D=264 the forward's second
+# 256-column chunk holds 8 real columns and three boxes wholly past D, the
+# dK/dV kernel's third 128-column chunk 8 real columns; a box that read
+# past column D into the next row, or a store past it, would move every
+# score of the row far outside the limits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_wgmma_zero_fills_past_head_dim(cuda_device, dtype,
+                                                   causal):
+    D = 264
+    q, k, v = (_row_offsets(t) for t in _qkv(
+        18, 2, 4, 2, 200, 200, D, dtype, cuda_device))
+    before = _forward_counts()
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.wide_wgmma_launches == before["wide_wgmma"] + 1
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+    k, v = (torch.repeat_interleave(t, 2, dim=1) for t in (k, v))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    do = _row_offsets(_qkv(19, 2, 4, 4, 200, 200, D, dtype,
+                           cuda_device)[0])
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wide_wgmma")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
+# A query or key length under 8 takes the plain route on the card, as the
+# reference's wrappers fall back there (ROADMAP C.7): no launch, one
+# plain_routes a call, the plain version's result exactly; so does the
+# model's attention on a 4-token prompt.
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk", [(4, 16), (16, 5)])
+def test_short_lengths_launch_nothing_on_the_card(cuda_device, Sq, Sk):
+    from ray_tpu_torch.models import transformer as tt
+
+    D = 64
+    q, k, v = _qkv(20, 2, 4, 4, Sq, Sk, D, torch.bfloat16, cuda_device)
+    counts = (_forward_counts(), _backward_counts(), fa.plain_routes)
+    out = fa.flash_attention(q, k, v)
+    grouped = fa.flash_attention_grouped(q, k[:, :2].contiguous(),
+                                         v[:, :2].contiguous())
+    torch.cuda.synchronize()
+    assert (_forward_counts(), _backward_counts()) == counts[:2]
+    assert fa.plain_routes == counts[2] + 2
+    assert torch.equal(out, fa._dense(q, k, v, True, D ** -0.5)[0])
+    assert torch.equal(grouped, fa._dense(
+        q, k[:, :2], v[:, :2], True, D ** -0.5)[0])
+    mq, mk, mv = (t[:, :, :4].transpose(1, 2) for t in (q, k, v))
+    before = fa.plain_routes
+    dense = tt._attention_dense(mq, mk, mv)
+    assert fa.plain_routes == before + 1
+    assert _forward_counts() == counts[0]
+    assert torch.equal(dense, tt._attention_einsum(mq, mk, mv))
 
 
 @pytest.mark.cuda
@@ -325,14 +398,18 @@ def _backward_counts():
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
-            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches}
+            "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
+            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches}
 
 
 def _backward_launched(before, variant):
-    """Launches since `before`, and what the rule wants: one dQ and one
-    dK/dV of `variant`, none of the others."""
+    """Launches since `before`, and what the rule wants for the forward
+    variant `variant`: one dQ and one dK/dV of it (above head_dim 256 the
+    tensor-core dK/dV beside the CUDA-core wide dQ), none of the
+    others."""
     got = {n: c - before[n] for n, c in _backward_counts().items()}
-    want = {n: int(n.endswith(variant)) for n in got}
+    dq = "wide" if variant == "wide_wgmma" else variant
+    want = {n: int(n in (f"dq_{dq}", f"dkv_{variant}")) for n in got}
     return got, want
 
 
@@ -369,9 +446,10 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide_wgmma"),
     (torch.float32, 1024, "wide"), (torch.float16, 128, "wgmma"),
-    (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt")])
+    (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
