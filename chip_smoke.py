@@ -8,14 +8,15 @@ non-zero without printing a result. Without a CUDA card, or without the
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
    dK/dV, each on the tensor cores and on the CUDA cores, and for head_dim
-   above 256 the wide kernels, on the CUDA cores and, forward and dK/dV,
-   on the tensor cores) from
+   above 256 the wide kernels: on the CUDA cores, forward and dK/dV on
+   the tensor cores, and the f32 forward and dK/dV) from
    ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
    registers and spills per kernel; the SASS of every tensor-core kernel
    instantiation (bf16 and f16 at head_dim 64, 128 and 256; the wide
    forward and the wide dK/dV with K and V held or streamed) must hold
-   HGMMA (wgmma) and UTMALDG (TMA load) instructions. The Triton
-   RMSNorm kernel compiles at its first launch.
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions, and the two f32
+   wide kernels must hold FFMA and no HMMA or HGMMA (no TF32) and spill
+   nothing. The Triton RMSNorm kernel compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version with the
    kernels' rounding points (_dense_kernel: q * scale rounded to the input
    type, f32 scores, as the reference's kernel rounds) on the card at
@@ -53,15 +54,16 @@ non-zero without printing a result. Without a CUDA card, or without the
    route: no launch, one plain_routes, the plain result; so do a query
    or key length under 8 (Sq 4 / Sk 16, Sq 16 / Sk 5; bf16, head_dim 64,
    MHA and GQA), as the reference falls back there; head_dim 264 (f32)
-   through flash_attention launches the CUDA-core wide kernel. The wide
+   through flash_attention launches the f32 wide kernel. The wide
    kernels (head_dim above 256, the head dimension of the output split
    across blocks): forward, dQ and dK/dV at head_dim 264, 512 and 1024 in
    f32, bf16 and f16 up to S=512 (phase 2b's shape), causal and not,
    against the plain versions with a planted fault each, launching the
    kernels of the rule once each and nothing else (bf16 and f16: the
-   tensor-core forward and dK/dV beside the CUDA-core dQ; f32: the
-   CUDA-core three), and in bf16 and f16 the CUDA-core forward and dK/dV
-   on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
+   tensor-core forward and dK/dV, f32: the f32 forward and dK/dV of
+   flash_attention_wide_f32.cu, each beside the CUDA-core dQ), and the
+   CUDA-core forward and dK/dV of flash_attention_wide.cu (the earlier
+   design) on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
    and f32 (and D=384 in bf16 and f16), held against the plain versions
    with a planted fault again and timed through CUDA graphs beside the
    CUDA-core kernels on the same inputs, the plain versions, SDPA (with
@@ -69,9 +71,9 @@ non-zero without printing a result. Without a CUDA card, or without the
 2b. c1_models: eight configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
    and over 8 query heads and one KV head, Gemma-2B's attention widths),
-   head_dim 512 (d_model 1024 over 2 heads: in bf16 the tensor-core wide
-   forward and dK/dV beside the CUDA-core wide dQ, in f32 the CUDA-core
-   wide kernels), the
+   head_dim 512 (d_model 1024 over 2 heads: the tensor-core wide forward
+   and dK/dV in bf16, the f32 wide forward and dK/dV in f32, each beside
+   the CUDA-core wide dQ), the
    flagship in float16, head_dim 12 (d_model 384 over 32 heads, GQA 8,
    bf16), head_dim 96 (Phi-3-mini's d_model 3072 over 32 heads, bf16) and
    head_dim 80 (Phi-2's d_model 2560 over 32 heads, f16). Each serves 4
@@ -409,7 +411,15 @@ RL_TIMED = 5   # samples or updates per smoke reading
 RL_GRAPH_TOL = 1e-5
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended ("t_s",
+    seconds since the script started), so consecutive lines give each
+    phase's time."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -499,7 +509,8 @@ def backward_bound(B, H, S, D, dtype, causal, kind):
 
 KERNEL_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_fwd",
                     "flash_attention_bwd_wgmma", "flash_attention_bwd",
-                    "flash_attention_wide", "flash_attention_wide_wgmma")
+                    "flash_attention_wide", "flash_attention_wide_wgmma",
+                    "flash_attention_wide_f32")
 WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
                    "flash_attention_wide_wgmma")
 # Kernel instantiations per tensor-core library: (bf16, f16) x head_dim
@@ -509,6 +520,9 @@ WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
 WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
                    "flash_attention_bwd_wgmma": 12,
                    "flash_attention_wide_wgmma": 6}
+# The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32.
+F32_LIBRARY = "flash_attention_wide_f32"
+F32_KERNELS = ("flash_fwd_wide_f32_kernel", "flash_bwd_dkv_wide_f32_kernel")
 
 
 def ptxas_summary(report: str):
@@ -518,7 +532,8 @@ def ptxas_summary(report: str):
     runtime-width instance), kernel<dtype, D> for the tensor-core ones,
     kernel<dtype> for the wide ones (head_dim above 256) and the
     tensor-core wide forward, kernel<dtype, resident> for the tensor-core
-    wide dK/dV (K and V held in shared memory or streamed)."""
+    wide dK/dV (K and V held in shared memory or streamed), the bare name
+    for the f32 wide kernels."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -536,7 +551,11 @@ def ptxas_summary(report: str):
             wide_tc = re.search(r"(flash_(?:fwd|bwd_dkv)_wide_wgmma_kernel)"
                                 r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E",
                                 entry.group(1))
-            if wide_tc:
+            f32 = re.search(r"flash_(?:fwd|bwd_dkv)_wide_f32_kernel",
+                            entry.group(1))
+            if f32:
+                name = f32.group(0)
+            elif wide_tc:
                 layout = {None: "", "1": ", resident", "0": ", streamed"}
                 name = (f"{wide_tc.group(1)}<{dtypes[wide_tc.group(2)]}"
                         f"{layout[wide_tc.group(3)]}>")
@@ -573,13 +592,14 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found (CUDA toolkit or Triton)")
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "FFMA")
 
 
 def sass_counts(library: Path):
-    """Counts of tensor-core (HGMMA), TMA load (UTMALDG) and TMA store
-    (UTMASTG) instructions in a library's SASS: the library's totals, and
-    per kernel function (``kernels``, keyed by its mangled name)."""
+    """Counts of tensor-core (HGMMA: wgmma; HMMA: mma.sync, TF32
+    included), TMA load (UTMALDG) and store (UTMASTG) and f32 FMA (FFMA)
+    instructions in a library's SASS: the library's totals, and per
+    kernel function (``kernels``, keyed by its mangled name)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -598,7 +618,7 @@ def phase_build():
     paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
     sass = {n: sass_counts(paths[KERNEL_LIBRARIES.index(n)])
-            for n in WGMMA_LIBRARIES}
+            for n in (*WGMMA_LIBRARIES, F32_LIBRARY)}
     emit({"phase": "build", "libraries": [p.name for p in paths],
           "seconds": seconds,
           "nvcc_seconds": {n: _build.build_info[n][0]
@@ -608,7 +628,8 @@ def phase_build():
           "sass": sass,
           "card": card_line(),
           "device_name": torch.cuda.get_device_name(0)})
-    for n, counts in sass.items():
+    for n in WGMMA_LIBRARIES:
+        counts = sass[n]
         # Every instantiation (bf16 and f16; head_dim 64, 128 and 256, or
         # the wide kernels' layouts) of every tensor-core kernel in the
         # library, each on its own.
@@ -619,6 +640,21 @@ def phase_build():
             raise AssertionError(f"{n}: a tensor-core kernel has no wgmma or "
                                  f"no TMA load in its SASS, or one is "
                                  f"missing: {counts}")
+    # The f32 wide kernels: FFMA and no tensor-core instruction in their
+    # SASS, and no spill in ptxas's report.
+    f32 = {k: c for k, c in sass[F32_LIBRARY]["kernels"].items()
+           if any(name in k for name in F32_KERNELS)}
+    spills = [ln for ln in ptxas_summary(_build.build_info[F32_LIBRARY][1])
+              if "spill" in ln]
+    if (len(f32) != len(F32_KERNELS)
+            or any(not c["FFMA"] or c["HMMA"] or c["HGMMA"]
+                   for c in f32.values())
+            or len(spills) != len(F32_KERNELS)
+            or any("0 bytes spill stores, 0 bytes spill loads" not in ln
+                   for ln in spills)):
+        raise AssertionError(f"{F32_LIBRARY}: a kernel is missing, lacks "
+                             f"FFMA, holds a tensor-core instruction or "
+                             f"spills: {f32} {spills}")
 
 
 def compare(o, lse, ro, rlse):
@@ -724,8 +760,8 @@ def _plain_route_check(fa, gen, dev):
     """head_dim PLAIN_ROUTE_D through the public wrappers on the card:
     each call takes the plain route (one plain_routes, no launch) and
     returns the plain version's result exactly. head_dim WIDE_ROUTE_D
-    (f32) launches the CUDA-core wide kernel once, with no plain route,
-    and equals the plain version within O_ROW_TOL. The SHORT_LENGTHS
+    (f32) launches the f32 wide kernel once, with no plain route, and
+    equals the plain version within O_ROW_TOL. The SHORT_LENGTHS
     (bf16, head_dim 64) take the plain route as head_dim 12 does."""
     D = PLAIN_ROUTE_D
     out = {}
@@ -745,15 +781,16 @@ def _plain_route_check(fa, gen, dev):
     D = WIDE_ROUTE_D
     q, k, v = (torch.randn((1, 2, 16, D), generator=gen, device=dev)
                for _ in range(3))
-    before = fa.wide_launches, fa.plain_routes
+    before = fa.wide_f32_launches, fa.plain_routes
     o = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ro = fa._dense_kernel(q, k, v, True, D ** -0.5)[0]
     err = ((o - ro).abs().amax(-1) / ro.abs().amax(-1)).max().item()
-    out[f"D{D}"] = {"wide_launches": fa.wide_launches - before[0],
+    out[f"D{D}"] = {"wide_f32_launches": fa.wide_f32_launches - before[0],
                     "plain_routes": fa.plain_routes - before[1],
                     "err_o_row": err}
-    if (fa.wide_launches - before[0], fa.plain_routes - before[1]) != (1, 0) \
+    if (fa.wide_f32_launches - before[0],
+            fa.plain_routes - before[1]) != (1, 0) \
             or not err <= O_ROW_TOL[q.dtype]:
         raise AssertionError(f"head_dim {D} through flash_attention: "
                              f"{out[f'D{D}']}")
@@ -786,8 +823,8 @@ def _plain_route_check(fa, gen, dev):
 
 # The kernel variants of the forward and of each backward kernel: the
 # tensor cores and the CUDA cores up to head_dim 256, and above it the
-# CUDA cores and (forward and dK/dV) the tensor cores.
-VARIANTS = ("wgmma", "simt", "wide", "wide_wgmma")
+# CUDA cores and (forward and dK/dV) the tensor cores and the f32 kernels.
+VARIANTS = ("wgmma", "simt", "wide", "wide_wgmma", "wide_f32")
 
 
 def _variant_want(variant, n):
@@ -797,10 +834,11 @@ def _variant_want(variant, n):
 
 
 _COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
-             "wide_wgmma_launches", "dq_launches", "dkv_launches",
-             "dq_wgmma_launches", "dkv_wgmma_launches", "dq_simt_launches",
-             "dkv_simt_launches", "dq_wide_launches", "dkv_wide_launches",
-             "dkv_wide_wgmma_launches", "plain_routes")
+             "wide_wgmma_launches", "wide_f32_launches", "dq_launches",
+             "dkv_launches", "dq_wgmma_launches", "dkv_wgmma_launches",
+             "dq_simt_launches", "dkv_simt_launches", "dq_wide_launches",
+             "dkv_wide_launches", "dkv_wide_wgmma_launches",
+             "dkv_wide_f32_launches", "plain_routes")
 
 
 @contextlib.contextmanager
@@ -821,7 +859,8 @@ def _dtype_name(dtype):
 
 def _variant_counts(fa):
     return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches}
+            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches,
+            "wide_f32": fa.wide_f32_launches}
 
 
 def _simt_forward(fa, q, k, v, causal, wide=False):
@@ -976,17 +1015,20 @@ def _backward_counts(fa):
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
-            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches}
+            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
+            "dkv_wide_f32": fa.dkv_wide_f32_launches}
 
 
 def _backward_want(variant, n):
     """Backward launch counts when each backward kernel of the rule whose
     forward variant is `variant` launched n times (above head_dim 256 the
-    tensor-core dK/dV kernel runs beside the CUDA-core wide dQ) and no
-    other kernel did."""
-    want = {kind: 0 for kind in _backward_counts(_flash_module())}
+    tensor-core or f32 dK/dV kernel runs beside the CUDA-core wide dQ)
+    and no other kernel did."""
+    fa = _flash_module()
+    want = {kind: 0 for kind in _backward_counts(fa)}
     if variant is not None:
-        want[f"dq_{'wide' if variant == 'wide_wgmma' else variant}"] += n
+        dq = "wide" if variant in fa._DQ_FROM_WIDE else variant
+        want[f"dq_{dq}"] += n
         want[f"dkv_{variant}"] += n
     return want
 
@@ -1088,15 +1130,15 @@ def phase_wide(dev):
     WIDE_DIMS x (f32, bf16, f16) on small shapes, causal and not, against
     the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL, each case
     launching the kernels of the rule once each and no other (bf16 and
-    f16: the tensor-core forward and dK/dV beside the CUDA-core dQ; f32:
-    the CUDA-core three), with no plain route, and a planted fault (32
-    keys of V, or 32 rows of dO, zeroed in the plain version) flagged. In
-    bf16 and f16 the CUDA-core forward and dK/dV (the earlier design) are
-    held against the plain versions on the same inputs too. Then the three
-    kernels checked the same way at WIDE_TIMED in bf16, f16 and f32 (and
-    head_dim 384 in bf16 and f16), and timed there beside the plain
-    versions, the CUDA-core kernels, SDPA (its backend named) and the
-    bound."""
+    f16: the tensor-core forward and dK/dV, f32: the f32 forward and
+    dK/dV, each beside the CUDA-core dQ), with no plain route, and a
+    planted fault (32 keys of V, or 32 rows of dO, zeroed in the plain
+    version) flagged. The CUDA-core forward and dK/dV of
+    flash_attention_wide.cu (the earlier design) are held against the
+    plain versions on the same inputs too. Then the three kernels checked
+    the same way at WIDE_TIMED in bf16, f16 and f32 (and head_dim 384 in
+    bf16 and f16), and timed there beside the plain versions, the
+    CUDA-core kernels, SDPA (its backend named) and the bound."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     checks = []
@@ -1114,7 +1156,8 @@ def phase_wide(dev):
         scale = D ** -0.5
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             variant = fa._forward_variant(dtype, D)
-            tensor_cores = variant == "wide_wgmma"
+            # The earlier CUDA-core forward and dK/dV on the same inputs.
+            earlier = variant in fa._DQ_FROM_WIDE
             for Hkv, Sq, Sk in WIDE_FWD_SHAPES:
                 q = randn((2, 4, Sq, D), dtype)
                 k, v = randn((2, Hkv, Sk, D), dtype), randn((2, Hkv, Sk, D),
@@ -1143,7 +1186,7 @@ def phase_wide(dev):
                              "err_o_row": err_row, "tol_o_row": tol,
                              "err_lse_of_limit": err_lse,
                              "fault_o_row": fault_row}
-                    if tensor_cores:
+                    if earlier:
                         so, slse = _simt_forward(fa, q, k, v, causal,
                                                  wide=True)
                         torch.cuda.synchronize()
@@ -1189,7 +1232,7 @@ def phase_wide(dev):
                              "variant": variant, "launched": launched,
                              "err_row": dict(zip(("dq", "dk", "dv"), errs)),
                              "tol_row": tol, "fault_row": fault_err}
-                    if tensor_cores:
+                    if earlier:
                         sk, sv = _simt_backward(fa, "dkv", q, k, v, o, lse,
                                                 do, causal, wide=True)
                         torch.cuda.synchronize()
@@ -1220,14 +1263,15 @@ def _time_wide(fa, gen, dev, dtype, D):
     CUDA-core call takes tens of ms), held against the plain versions
     there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL with a planted fault (32
     keys of V, or 32 rows of dO, zeroed in the plain version) that must
-    read above the limit; where the rule takes the tensor cores, the
-    CUDA-core forward and dK/dV on the same inputs, held and timed the
-    same way; the plain versions by events, and SDPA's forward and
-    backward through CUDA graphs with the backend it picks."""
+    read above the limit; where the rule takes the tensor-core or the f32
+    kernels, the CUDA-core forward and dK/dV of flash_attention_wide.cu
+    on the same inputs, held and timed the same way (few replays); the
+    plain versions by events, and SDPA's forward and backward through
+    CUDA graphs with the backend it picks."""
     B, H, S, _ = WIDE_TIMED
     scale = D ** -0.5
     variant = fa._forward_variant(dtype, D)
-    cuda_core = variant == "wide_wgmma"
+    cuda_core = variant in fa._DQ_FROM_WIDE
     q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
                                device=dev).to(dtype) for _ in range(4))
     few = {"iters": 2, "replays": 3}
@@ -1457,7 +1501,7 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     bt = torch.from_numpy(tables).to(dev)
     tok_t = torch.from_numpy(toks).to(dev)
     fa.launches = fa.wgmma_launches = fa.simt_launches = 0
-    fa.wide_launches = fa.wide_wgmma_launches = 0
+    fa.wide_launches = fa.wide_wgmma_launches = fa.wide_f32_launches = 0
     logits, cache = tm.prefill_with_cache(cfg, params, cache, tok_t, lens,
                                           bt)
     torch.cuda.synchronize()
@@ -2396,10 +2440,10 @@ def _c1_configs(base):
             ("hd512_bf16", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2, **cut),
              "wide_wgmma"),
-            # The same widths in f32: the CUDA-core wide kernels.
+            # The same widths in f32: the f32 wide forward and dK/dV.
             ("hd512_f32", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2,
-                dtype=torch.float32, **cut), "wide"),
+                dtype=torch.float32, **cut), "wide_f32"),
             ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
              "wgmma"),
             ("hd12_bf16", dataclasses.replace(
@@ -2421,8 +2465,8 @@ def phase_c1_models(dev, base, model_lens):
     """Phase 2b (see the module docstring): configs beyond the bf16
     flagship serve and train through the kernels of the rule (the tensor
     cores at head_dim 256 and in f16; at head_dim 512 the tensor-core wide
-    forward and dK/dV beside the CUDA-core wide dQ in bf16, the CUDA-core
-    wide kernels in f32) or through the counted plain route."""
+    forward and dK/dV in bf16, the f32 wide forward and dK/dV in f32, each
+    beside the CUDA-core wide dQ) or through the counted plain route."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -3797,11 +3841,13 @@ def main() -> int:
     # the tensor cores (the forward and dK/dV) beside the CUDA-core dQ:
     # launches from phase 2b's hd512_bf16 (one prefill_with_cache and one
     # gradient pass), f16 and head_dim 384 beside them, and the CUDA-core
-    # forward and dK/dV on the same inputs (cuda_core_ms). f32 on the CUDA
-    # cores, all three: launches from hd512_f32.
+    # forward and dK/dV on the same inputs (cuda_core_ms). f32: the f32
+    # forward and dK/dV beside the same CUDA-core dQ, launches from
+    # hd512_f32, the CUDA-core forward and dK/dV on the same inputs.
     served, served32 = c1["hd512_bf16"], c1["hd512_f32"]
     wide_tc_source = "ray_tpu_torch/ops/csrc/flash_attention_wide_wgmma.cu"
     wide_source = "ray_tpu_torch/ops/csrc/flash_attention_wide.cu"
+    wide_f32_source = "ray_tpu_torch/ops/csrc/flash_attention_wide_f32.cu"
 
     def wide_row(name, kind, variant, source, t, launches, launches_train,
                  launches_from, dtype, **beside):
@@ -3848,19 +3894,18 @@ def main() -> int:
         "flash_attention_bwd_dq[wide]", "dq", "wide", wide_source,
         wide["bfloat16"], served["launches_per_pass"]["dq_wide"], None,
         from_bf16, "bfloat16",
-        **{k: brief(wide[k], "dq") for k in (*beside_tc, "float32")}))
-    for kind, name in (("fwd", "flash_attention_fwd[wide]"),
-                       ("dkv", "flash_attention_bwd_dkv[wide]")):
-        launches = (served32["launches_per_prefill_by_variant"]["wide"]
+        **{k: brief(wide[k], "dq") for k in (*beside_tc, "float32")},
+        launches_f32=served32["launches_per_pass"]["dq_wide"]))
+    for kind, name in (("fwd", "flash_attention_fwd[wide-f32]"),
+                       ("dkv", "flash_attention_bwd_dkv[wide-f32]")):
+        launches = (served32["launches_per_prefill_by_variant"]["wide_f32"]
                     if kind == "fwd"
-                    else served32["launches_per_pass"]["dkv_wide"])
-        train_launches = (served32["launches_per_pass"]["wide"]
+                    else served32["launches_per_pass"]["dkv_wide_f32"])
+        train_launches = (served32["launches_per_pass"]["wide_f32"]
                           if kind == "fwd" else None)
         kernels.append(wide_row(
-            name, kind, "wide", wide_source, wide["float32"], launches,
-            train_launches, from_f32, "float32",
-            bfloat16_cuda_core_ms=wide["bfloat16"][kind]["cuda_core_ms"],
-            float16_cuda_core_ms=wide["float16"][kind]["cuda_core_ms"]))
+            name, kind, "wide_f32", wide_f32_source, wide["float32"],
+            launches, train_launches, from_f32, "float32"))
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

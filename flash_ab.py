@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timings of the tensor-core flash kernels on one NVIDIA card.
+"""A/B timings of the hand-written flash kernels on one NVIDIA card.
 
 Builds the tensor-core forward and backward libraries
 (``ray_tpu_torch/ops/csrc/flash_attention_{fwd,bwd}_wgmma.cu``) of several
@@ -40,10 +40,17 @@ as first written) and the forward with a 6-slot K ring (up to head_dim
 GRAD_ROW_TOL), on delta from this tree's wide dQ kernel. ``--parent`` does
 not apply there (no earlier commit has the library).
 
+With ``--wide-f32``, the same for the f32 wide kernels
+(``flash_attention_wide_f32.cu``) on f32 inputs at head_dim 512 and 384,
+against ``WIDE_F32_VARIANTS``: dK/dV with 128 columns of dK and dV a
+block (2.5x the real work at D = 512 against 1.5x, 64 f32 of them a
+thread, as first written) and both kernels with a 4-stage copy ring.
+
 Run from the repository root: ``python3 flash_ab.py --parent DIR``
-(``--variants ""`` builds no textual variant) or ``python3 flash_ab.py
---wide``. Prints one JSON line per build, check and timing, then the
-card's name and power limit. Exits non-zero without a card.
+(``--variants ""`` builds no textual variant), ``python3 flash_ab.py
+--wide`` or ``python3 flash_ab.py --wide-f32``. Prints one JSON line per
+build, check and timing, then the card's name and power limit. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -118,6 +125,14 @@ WIDE_VARIANTS = {
         ("constexpr int kFwdKStages = 4;", "constexpr int kFwdKStages = 6;"),
         ("constexpr int kMaxD = 1024;", "constexpr int kMaxD = 768;")]},
 }
+WIDE_F32_SOURCE = "flash_attention_wide_f32.cu"
+WIDE_F32_VARIANTS = {
+    "f32_dkv_cols128": {WIDE_F32_SOURCE: [
+        ("constexpr int kCols = 256;    // columns of dK and of dV",
+         "constexpr int kCols = 128;    // columns of dK and of dV")]},
+    "f32_stages4": {WIDE_F32_SOURCE: [
+        ("constexpr int kStages = 3;", "constexpr int kStages = 4;")]},
+}
 # The head_dims where a variant's code differs from this tree's.
 VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
 DIMS = (64, 128, 256)
@@ -137,7 +152,8 @@ def _sources(name, parent):
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
-    for fname, edits in {**VARIANTS, **WIDE_VARIANTS}.get(name, {}).items():
+    for fname, edits in {**VARIANTS, **WIDE_VARIANTS,
+                         **WIDE_F32_VARIANTS}.get(name, {}).items():
         path = dst / fname
         text = path.read_text()
         for old, new in edits:
@@ -173,8 +189,12 @@ def build(names, parent, libraries=LIBS):
 
 def entry_points(name, libs):
     """(forward, dQ, dK/dV) C functions of a design, argument types set
-    (the wide library has no dQ: None)."""
-    if "flash_attention_wide_wgmma" in libs:
+    (the wide libraries have no dQ: None)."""
+    if "flash_attention_wide_f32" in libs:
+        wide = libs["flash_attention_wide_f32"]
+        fwd, dq = wide.flash_attention_fwd_wide_f32, None
+        dkv = wide.flash_attention_bwd_dkv_wide_f32
+    elif "flash_attention_wide_wgmma" in libs:
         wide = libs["flash_attention_wide_wgmma"]
         fwd, dq = wide.flash_attention_fwd_wide_wgmma, None
         dkv = wide.flash_attention_bwd_dkv_wide_wgmma
@@ -200,6 +220,8 @@ def kinds(name):
         return ("fwd", "dq", "dkv")
     if name in WIDE_VARIANTS:
         return ("fwd",) if name == "wide_fwd_kring6" else ("dkv",)
+    if name in WIDE_F32_VARIANTS:
+        return ("dkv",) if name == "f32_dkv_cols128" else ("fwd", "dkv")
     files = VARIANTS[name]
     return (("fwd",) if "flash_attention_fwd_wgmma.cu" in files else ()) + \
         (("dq", "dkv") if "flash_attention_bwd_wgmma.cu" in files else ())
@@ -311,7 +333,7 @@ def dkv_check(runs, others, t, D):
     tk, tv = t["dk2"].clone(), t["dv2"].clone()
     ref = fa._dense_backward(t["q"], t["k"], t["v"], t["o"], t["lse"],
                              t["do"], True, D ** -0.5)
-    tol = cs.GRAD_ROW_TOL[torch.bfloat16]
+    tol = cs.GRAD_ROW_TOL[t["q"].dtype]
     err = max(cs.grad_row_error(g, r) for g, r in zip((tk, tv), ref[1:]))
     emit({"check": "tree dK/dV vs plain", "D": D, "err_row": err,
           "tol_row": tol})
@@ -341,15 +363,22 @@ def main() -> int:
     ap.add_argument("--wide", action="store_true",
                     help="the tensor-core wide kernels (head_dim above "
                          "256) and WIDE_VARIANTS")
+    ap.add_argument("--wide-f32", action="store_true",
+                    help="the f32 wide kernels (head_dim above 256) and "
+                         "WIDE_F32_VARIANTS")
     args = ap.parse_args()
+    args.wide = args.wide or args.wide_f32
     if args.wide and args.parent:
-        ap.error("--parent does not apply to --wide")
+        ap.error("--parent does not apply to --wide or --wide-f32")
     fa = cs._flash_module()
-    default = WIDE_VARIANTS if args.wide else VARIANTS
+    dtype = torch.float32 if args.wide_f32 else torch.bfloat16
+    default = (WIDE_F32_VARIANTS if args.wide_f32 else WIDE_VARIANTS
+               if args.wide else VARIANTS)
     variants = [n for n in (args.variants if args.variants is not None
                             else ",".join(default)).split(",") if n]
     names = ["tree", *variants] + (["parent"] if args.parent else [])
-    libs = build(names, args.parent, ("flash_attention_wide_wgmma",)
+    libs = build(names, args.parent, ("flash_attention_wide_f32",)
+                 if args.wide_f32 else ("flash_attention_wide_wgmma",)
                  if args.wide else LIBS)
     fns = {n: entry_points(n, libs[n]) for n in names}
     dev = torch.device("cuda", 0)
@@ -358,7 +387,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for D in (WIDE_DIMS if args.wide else DIMS):
         q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dtype) for _ in range(4))
         with cs._counts_kept(fa):
             o, lse = fa._flash_forward(q, k, v, True)
             delta = fa._launch_dq(q, k, v, o, lse, do, True, D ** -0.5)[1]
@@ -378,7 +407,7 @@ def main() -> int:
         _, err_row, err_lse = cs.compare(to, tlse, *fa._dense_kernel(
             q, k, v, True, D ** -0.5))
         emit({"check": "tree vs plain", "D": D, "err_o_row": err_row,
-              "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],
+              "tol_o_row": cs.O_ROW_TOL[dtype],
               "err_lse_of_limit": err_lse})
         if args.wide:
             dkv_check(runs, others, t, D)
@@ -387,10 +416,9 @@ def main() -> int:
             torch.cuda.synchronize()
             _, err_row, err_lse = cs.compare(t["o2"], t["l2"], to, tlse)
             emit({"check": f"{n} vs tree", "D": D, "err_o_row": err_row,
-                  "tol_o_row": cs.O_ROW_TOL[torch.bfloat16],
+                  "tol_o_row": cs.O_ROW_TOL[dtype],
                   "err_lse_of_limit": err_lse})
-            if not (err_row <= cs.O_ROW_TOL[torch.bfloat16]
-                    and err_lse <= 1.0):
+            if not (err_row <= cs.O_ROW_TOL[dtype] and err_lse <= 1.0):
                 raise AssertionError(f"{n} at D={D} disagrees with this "
                                      f"tree's kernel")
         for kind in ("fwd", "dkv") if args.wide else ("fwd", "dq", "dkv"):
@@ -399,7 +427,7 @@ def main() -> int:
             ms = {n: [] for n in ["tree", *with_kind]}
             for n in order:
                 ms[n].append(cs.graph_ms(runs[n][kind]))
-            emit({"timing": kind, "D": D, "dtype": "bfloat16",
+            emit({"timing": kind, "D": D, "dtype": cs._dtype_name(dtype),
                   "shape": [B, H, S, D], "causal": True, "ms": ms})
     print(cs.card_line(), flush=True)
     return 0

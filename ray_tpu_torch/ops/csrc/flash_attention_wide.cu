@@ -1,14 +1,15 @@
 // Flash attention for head dims above 256 on Hopper (sm_90a), on the CUDA
 // cores: the forward (MHA and GQA), dQ and dK/dV, in f32, bf16 and f16.
-// The wrapper's rule of shapes sends here, above head_dim 256: f32, all
-// three kernels; bf16 and f16 above 1024, all three; bf16 and f16 up to
-// 1024, dQ only (the tensor-core forward and dK/dV kernels of
-// flash_attention_wide_wgmma.cu take the rest; this dQ kernel writes the
-// delta their dK/dV kernel reads). bf16 and f16 at the multiples of 8 up to
+// The wrapper's rule of shapes sends here, above head_dim 256: every dQ
+// (this dQ kernel writes the delta that the dK/dV kernels of
+// flash_attention_wide_wgmma.cu and flash_attention_wide_f32.cu read), and
+// bf16 and f16 above 1024, all three kernels. The forward and dK/dV of
+// bf16 and f16 up to 1024 are flash_attention_wide_wgmma.cu's, of f32
+// flash_attention_wide_f32.cu's. bf16 and f16 at the multiples of 8 up to
 // 256 take the tensor-core kernels, f32 there those of
 // flash_attention_fwd.cu / flash_attention_bwd.cu. chip_smoke.py still
-// calls this file's bf16 and f16 forward and dK/dV through their C entry
-// points, and times them beside the tensor-core ones.
+// calls this file's forward and dK/dV in every dtype through their C entry
+// points, and times them beside the kernels that took their place.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)

@@ -1,0 +1,707 @@
+// Flash attention in float32 for head dims above 256 on Hopper (sm_90a),
+// on the CUDA cores: the forward (MHA and GQA) and the dK/dV kernel, any
+// head_dim that is a multiple of 8. The wrapper's rule of shapes sends f32
+// above head_dim 256 here; the f32 dQ kernel there stays the CUDA-core one
+// of flash_attention_wide.cu, which also writes the delta = rowsum(dO * O)
+// that this dK/dV kernel reads.
+//
+// Replaces, for those head dims in f32, the Pallas TPU kernels of
+// ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
+// and `_flash_forward_grouped` (GQA, K/V at n_kv_heads width) launch it,
+// and `_attn_bwd_dkv_kernel` as `_flash_bwd_rule` launches it. The
+// arithmetic is theirs: the forward's Q times the scale before Q K^T, f32
+// scores, the online softmax with finite -1e30 masking, l clamped at
+// 1e-30, LSE = m + log(l); the backward's scores scaled in f32, P rebuilt
+// as exp(scale * S - LSE), dS = P * (dP - delta), dV = sum P^T dO and dK =
+// scale * sum dS^T Q. Every product is an f32 FMA on the CUDA cores: no
+// TF32 and no tensor-core instruction, whose rounding would break the f32
+// limits (testing.O_ROW_TOL, LSE_TOL, GRAD_ROW_TOL).
+//
+// What bounds them on the H100: f32 operations at 67 TFLOP/s. The forward
+// does 4 * Sq * Sk * D operations per (batch, head) and dK/dV 8 * Sq * Sk
+// * D (about half of each when causal): at B=4, H=8, S=2048, D=512, causal
+// that is ~137 and ~275 GFLOP against ~0.54 and ~0.81 GB moved, 2.05 and
+// 4.10 ms at the f32 rate against 0.16 and 0.24 ms at 3.35 TB/s.
+//
+// Design, both kernels (256 threads, one block per SM):
+// - A block owns a wide slice of the output's columns: 256 columns of O
+//   (64 rows x 256 columns, 64 f32 a thread) or 256 of dK and of dV (64
+//   keys x 256 columns each, 128 f32 a thread for both). The scores need
+//   all of D, so each block reduces them over D itself and the reduction
+//   is repeated once per slice: (D / 256 + 1) / 2 times the forward's
+//   operations and (2 * D / 256 + 2) / 4 times dK/dV's, 1.5x both at D =
+//   512, against 4.5x for the 64-column slices of
+//   flash_attention_wide.cu. ptxas holds dK/dV's 128 accumulators, the
+//   score tiles and the operands in 255 registers without a spill; with
+//   128 columns (64 accumulators, 2.5x the work at D = 512) it took 238
+//   and ran 1.7x slower (flash_ab.py --wide-f32).
+// - Every product is register-tiled as a SIMT GEMM: a thread computes an
+//   8 x 4 tile of the forward's scores (64 rows x 128 keys a tile) and an
+//   8 x 8 tile of O; a 4 x 4 tile of S^T and of dP^T (64 keys x 64 query
+//   rows) and an 8 x 8 tile of dK and of dV. The operands come from
+//   shared memory as float4: 128 FMAs for 12 float4 loads in the forward's
+//   scores, 64 for 4 in P V, 128 for 16 in dK/dV's reduction and 128 for
+//   8 in its products. Box rows are padded to 36 floats so that the eight
+//   rows a warp reads at one column fall in distinct banks; P (and dS) sit
+//   in shared memory in the layout the products read, 8 consecutive keys
+//   or query rows a thread, so a warp's reads of them are conflict-free.
+// - The reduction over D streams 32-column boxes (Q and K, or K, V, Q and
+//   dO) and the products stream V (32 keys x 256 columns) or Q and dO (16
+//   rows x 256 columns) through a ring of three 16-byte cp.async stages,
+//   two boxes ahead of the one being computed, with one __syncthreads a
+//   box. The ring runs on across tiles, so the next tile's first boxes
+//   load while the current tile's products run.
+// - The forward scales Q in shared memory once per box, each thread the
+//   16-byte pieces it copied itself (visible to it after cp.async's wait),
+//   before the box's barrier. The softmax of a tile runs over P^T in
+//   shared memory, four threads a query row; the rescale factor of each
+//   row goes to shared memory for the threads that own O's rows.
+// - dK/dV reads LSE and delta, never O: the wide dQ kernel writes delta
+//   as a side output. A tile's LSE and delta are copied into the stage of
+//   its last reduction box.
+//
+// Other points:
+// - Any multiple of 8 above 256 (no upper limit): a box narrower than 32
+//   columns at the end of D (D = 264: 8 columns), a slice wider than what
+//   is left of D (D = 264: 8 of 256) and rows past Sq or Sk are
+//   zero-filled by cp.async (source size 0) and never stored.
+// - GQA: query head h reads KV head h / (Hq / Hkv).
+// - Causal (the reference's top-left mask): the forward skips key tiles
+//   past the block's last query row, dK/dV query tiles before its first
+//   key; masked scores read -1e30 (forward) or give P = 0 (dK/dV).
+// - The forward schedules the last query rows (the heaviest causal
+//   blocks) first; LSE [B, Hq, Sq] f32 is written by the blocks of the
+//   first column slice. Each block owns its outputs: no atomics.
+//
+// Launches on the caller's stream and allocates nothing.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kStages = 3;
+constexpr int kBoxCols = 32;                 // columns of D per box
+constexpr int kBoxStride = kBoxCols + 4;     // padded row of a box
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory, or 16 zero bytes (valid false:
+// the source is not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies of every group but the newest are done and visible
+// to it.
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + R) and columns [col0, col0 + W) of a [rows, d]
+// row-major matrix into shared memory (row stride DS floats), zero-filling
+// what lies past its last row or past column d. W and d are multiples of 4
+// (d of 8), so a 16-byte piece is wholly in or out.
+template <int R, int W, int DS>
+__device__ __forceinline__ void load_box(float* dst, const float* mat,
+                                         int row0, int rows, int col0,
+                                         int d) {
+  constexpr int kPieces = R * W / 4;
+  static_assert(kPieces % kThreads == 0, "whole pieces per thread");
+#pragma unroll
+  for (int i = 0; i < kPieces / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / (W / 4);
+    const int col = (c - r * (W / 4)) * 4;
+    const bool valid = row0 + r < rows && col0 + col < d;
+    cp_async16(dst + r * DS + col,
+               valid ? mat + (size_t)(row0 + r) * d + col0 + col : mat,
+               valid);
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void unpack8(float (&dst)[8], const float4& a,
+                                        const float4& b) {
+  dst[0] = a.x;
+  dst[1] = a.y;
+  dst[2] = a.z;
+  dst[3] = a.w;
+  dst[4] = b.x;
+  dst[5] = b.y;
+  dst[6] = b.z;
+  dst[7] = b.w;
+}
+
+// ------------------------------------------------------------- forward
+namespace fwd {
+
+constexpr int kRows = 64;     // query rows per block
+constexpr int kKeys = 128;    // keys per tile
+constexpr int kCols = 256;    // columns of O per block
+constexpr int kVKeys = 32;    // keys per V box
+constexpr int kVBoxes = kKeys / kVKeys;
+constexpr int kQBox = kRows * kBoxStride;
+constexpr int kKBox = kKeys * kBoxStride;
+constexpr int kVBox = kVKeys * kCols;
+constexpr int kStage = kQBox + kKBox > kVBox ? kQBox + kKBox : kVBox;
+constexpr int kPStride = kRows + 4;   // P^T: one row of kRows per key
+constexpr int kSmemFloats =
+    kStages * kStage + kKeys * kPStride + 2 * kRows;
+constexpr int kSmemBytes = kSmemFloats * 4;
+static_assert(kSmemBytes <= 232448, "227 KB a block");
+
+}  // namespace fwd
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int hq, int hkv, int sq,
+                          int sk, int d, int n_slices, float scale,
+                          int causal) {
+  using namespace fwd;
+  extern __shared__ __align__(16) float smem[];
+  float* pt = smem + kStages * kStage;        // P^T [kKeys][kPStride]
+  float* alpha_s = pt + kKeys * kPStride;     // per row: rescale of O
+  float* inv_l_s = alpha_s + kRows;           // per row: 1 / l
+
+  const int bh = blockIdx.x / n_slices;       // b * hq + h
+  const int slice = blockIdx.x - bh * n_slices;
+  const int b = bh / hq;
+  const int kv = b * hkv + (bh - b * hq) / (hq / hkv);
+  // The last query rows (the most key tiles when causal) first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int c0 = slice * kCols;
+  const float* qm = q + (size_t)bh * sq * d;
+  const float* km = k + (size_t)kv * sk * d;
+  const float* vm = v + (size_t)kv * sk * d;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // Scores: rows ty + 8 i, keys tx + 32 j. O: rows 8 ty + i, columns
+  // 4 tx + 128 j + e. A warp spans 4 values of ty and 8 of tx.
+  const int ty = (warp / 4) * 4 + lane / 8;
+  const int tx = (warp % 4) * 8 + lane % 8;
+  // Softmax: four threads (adjacent lanes) a query row, keys part + 4 e.
+  const int srow = threadIdx.x / 4;
+  const int spart = threadIdx.x % 4;
+  const int sqi = q0 + srow;
+  float m = kNegInf;
+  float l = 0.f;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+  float s[8][4];
+
+  int n_kb = (sk + kKeys - 1) / kKeys;
+  if (causal) n_kb = min(n_kb, (min(q0 + kRows, sq) - 1) / kKeys + 1);
+  const int n_sbox = (d + kBoxCols - 1) / kBoxCols;
+  const int per_tile = n_sbox + kVBoxes;
+  const int n_boxes = n_kb * per_tile;
+
+  // Box `box` of the sequence (per key tile: n_sbox boxes of Q and K over
+  // D, then kVBoxes boxes of V over the block's columns) into its stage.
+  auto issue = [&](int box) {
+    float* st = smem + (box % kStages) * kStage;
+    const int kb = box / per_tile;
+    const int idx = box - kb * per_tile;
+    if (idx < n_sbox) {
+      load_box<kRows, kBoxCols, kBoxStride>(st, qm, q0, sq, idx * kBoxCols,
+                                            d);
+      load_box<kKeys, kBoxCols, kBoxStride>(st + kQBox, km, kb * kKeys, sk,
+                                            idx * kBoxCols, d);
+    } else {
+      load_box<kVKeys, kCols, kCols>(
+          st, vm, kb * kKeys + (idx - n_sbox) * kVKeys, sk, c0, d);
+    }
+  };
+
+  issue(0);
+  cp_async_commit();
+  if (n_boxes > 1) issue(1);
+  cp_async_commit();
+  for (int bx = 0; bx < n_boxes; ++bx) {
+    const int kb = bx / per_tile;
+    const int idx = bx - kb * per_tile;
+    float* st = smem + (bx % kStages) * kStage;
+    cp_async_wait_all_but_one();
+    if (idx < n_sbox) {
+      // Q * scale, each thread on the pieces it copied.
+#pragma unroll
+      for (int i = 0; i < kRows * kBoxCols / 4 / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        float4* p = reinterpret_cast<float4*>(
+            st + (c / (kBoxCols / 4)) * kBoxStride + (c % (kBoxCols / 4)) * 4);
+        float4 x = *p;
+        x.x *= scale;
+        x.y *= scale;
+        x.z *= scale;
+        x.w *= scale;
+        *p = x;
+      }
+    }
+    // Box bx is visible to all; every thread is done with box bx - 1, whose
+    // stage box bx + 2 now takes.
+    __syncthreads();
+    if (bx + 2 < n_boxes) issue(bx + 2);
+    cp_async_commit();
+
+    if (idx < n_sbox) {
+      if (idx == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        }
+      }
+      const float* qs = st;
+      const float* ks = st + kQBox;
+#pragma unroll
+      for (int kk = 0; kk < kBoxCols; kk += 4) {
+        float4 a[8];
+        float4 bk[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          a[i] = ld4(qs + (ty + 8 * i) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bk[j] = ld4(ks + (tx + 32 * j) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], bk[j], s[i][j]);
+        }
+      }
+      if (idx == n_sbox - 1) {
+        // The tile's scores to P^T, then the online softmax over them.
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            pt[(tx + 32 * j) * kPStride + ty + 8 * i] = s[i][j];
+          }
+        }
+        __syncthreads();
+        const int k0 = kb * kKeys;
+        float x[kKeys / 4];
+        float tile_max = kNegInf;
+#pragma unroll
+        for (int e = 0; e < kKeys / 4; ++e) {
+          const int key = spart + 4 * e;
+          const int kj = k0 + key;
+          const bool keep = kj < sk && (!causal || kj <= sqi);
+          x[e] = keep ? pt[key * kPStride + srow] : kNegInf;
+          tile_max = fmaxf(tile_max, x[e]);
+        }
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+        const float m_new = fmaxf(m, tile_max);
+        const float alpha = expf(m - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < kKeys / 4; ++e) {
+          const float p = expf(x[e] - m_new);
+          pt[(spart + 4 * e) * kPStride + srow] = p;
+          sum += p;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l = l * alpha + sum;
+        m = m_new;
+        if (spart == 0) alpha_s[srow] = alpha;
+        // P and alpha are read after the next box's barrier.
+      }
+    } else {
+      const int vb = idx - n_sbox;
+      if (vb == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = alpha_s[8 * ty + i];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] *= a;
+        }
+      }
+      const float* vs = st;
+      const float* pb = pt + vb * kVKeys * kPStride + 8 * ty;
+#pragma unroll 8
+      for (int kk = 0; kk < kVKeys; ++kk) {
+        float p[8];
+        float vv[8];
+        unpack8(p, ld4(pb + kk * kPStride), ld4(pb + kk * kPStride + 4));
+        unpack8(vv, ld4(vs + kk * kCols + 4 * tx),
+                ld4(vs + kk * kCols + 4 * tx + 128));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+  if (spart == 0) {
+    const float l_safe = fmaxf(l, 1e-30f);
+    inv_l_s[srow] = 1.f / l_safe;
+    if (slice == 0 && sqi < sq) lse[(size_t)bh * sq + sqi] = m + logf(l_safe);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ty + i;
+    if (row >= sq) continue;
+    const float inv = inv_l_s[8 * ty + i];
+    float* orow = o + ((size_t)bh * sq + row) * d;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = c0 + 4 * tx + 128 * j;
+      if (col < d) {
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * j] * inv, acc[i][4 * j + 1] * inv,
+                        acc[i][4 * j + 2] * inv, acc[i][4 * j + 3] * inv);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------- dK/dV
+namespace dkv {
+
+constexpr int kKeys = 64;     // keys per block (rows of dK and dV)
+constexpr int kRows = 64;     // query rows per tile
+constexpr int kCols = 256;    // columns of dK and of dV per block
+constexpr int kThreadCols = kCols / 32;   // a thread's columns of each
+constexpr int kPRows = 4096 / kCols;      // query rows per product box
+constexpr int kPBoxes = kRows / kPRows;
+constexpr int kBox = kKeys * kBoxStride;     // one of K, V, Q, dO
+constexpr int kRowVals = 4 * kBox;           // LSE then delta of the tile
+constexpr int kStage = 4 * kBox + 2 * kRows;
+static_assert(kStage >= 2 * kPRows * kCols, "product box fits a stage");
+constexpr int kPStride = kKeys + 4;   // P and dS: one row of kKeys per query
+constexpr int kSmemFloats = kStages * kStage + 2 * kRows * kPStride;
+constexpr int kSmemBytes = kSmemFloats * 4;
+static_assert(kSmemBytes <= 232448, "227 KB a block");
+
+}  // namespace dkv
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int sq, int sk, int d, int n_slices,
+                              float scale, int causal) {
+  using namespace dkv;
+  extern __shared__ __align__(16) float smem[];
+  float* ps = smem + kStages * kStage;    // P [kRows][kPStride]
+  float* dss = ps + kRows * kPStride;     // dS [kRows][kPStride]
+
+  const int bh = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - bh * n_slices;
+  const int k0 = blockIdx.y * kKeys;
+  const int c0 = slice * kCols;
+  const float* qm = q + (size_t)bh * sq * d;
+  const float* dom = dout + (size_t)bh * sq * d;
+  const float* km = k + (size_t)bh * sk * d;
+  const float* vm = v + (size_t)bh * sk * d;
+  const float* lsem = lse + (size_t)bh * sq;
+  const float* deltam = delta + (size_t)bh * sq;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // S^T and dP^T: keys ry + 16 i, query rows rx + 16 j (a warp: 4 x 8).
+  const int ry = (warp / 2) * 4 + lane / 8;
+  const int rx = (warp % 2) * 8 + lane % 8;
+  // dK and dV: keys 8 ty + i, columns 4 tx + 128 j + e (a warp: 4 x 8).
+  const int ty = (warp / 4) * 4 + lane / 8;
+  const int tx = (warp % 4) * 8 + lane % 8;
+
+  float dk_acc[8][kThreadCols];
+  float dv_acc[8][kThreadCols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < kThreadCols; ++e) {
+      dk_acc[i][e] = 0.f;
+      dv_acc[i][e] = 0.f;
+    }
+  }
+  float s[4][4];
+  float dp[4][4];
+
+  const int n_qb = (sq + kRows - 1) / kRows;
+  // Causal: query tiles that end before this block's first key are masked.
+  const int qb0 = causal ? min(k0 / kRows, n_qb) : 0;
+  const int n_rbox = (d + kBoxCols - 1) / kBoxCols;
+  const int per_tile = n_rbox + kPBoxes;
+  const int n_boxes = (n_qb - qb0) * per_tile;
+
+  // Per query tile: n_rbox boxes of K, V, Q and dO over D (the last with
+  // the tile's LSE and delta), then kPBoxes boxes of Q and dO over the
+  // block's columns.
+  auto issue = [&](int box) {
+    float* st = smem + (box % kStages) * kStage;
+    const int tile = box / per_tile;
+    const int idx = box - tile * per_tile;
+    const int q0 = (qb0 + tile) * kRows;
+    if (idx < n_rbox) {
+      const int col0 = idx * kBoxCols;
+      load_box<kKeys, kBoxCols, kBoxStride>(st, km, k0, sk, col0, d);
+      load_box<kKeys, kBoxCols, kBoxStride>(st + kBox, vm, k0, sk, col0, d);
+      load_box<kRows, kBoxCols, kBoxStride>(st + 2 * kBox, qm, q0, sq, col0,
+                                            d);
+      load_box<kRows, kBoxCols, kBoxStride>(st + 3 * kBox, dom, q0, sq, col0,
+                                            d);
+      if (idx == n_rbox - 1 && threadIdx.x < 2 * kRows) {
+        const int r = threadIdx.x % kRows;
+        const float* src = threadIdx.x < kRows ? lsem : deltam;
+        const bool valid = q0 + r < sq;
+        cp_async4(st + kRowVals + threadIdx.x, valid ? src + q0 + r : src,
+                  valid);
+      }
+    } else {
+      const int r0 = q0 + (idx - n_rbox) * kPRows;
+      load_box<kPRows, kCols, kCols>(st, qm, r0, sq, c0, d);
+      load_box<kPRows, kCols, kCols>(st + kPRows * kCols, dom, r0, sq, c0,
+                                     d);
+    }
+  };
+
+  if (n_boxes > 0) issue(0);
+  cp_async_commit();
+  if (n_boxes > 1) issue(1);
+  cp_async_commit();
+  for (int bx = 0; bx < n_boxes; ++bx) {
+    const int tile = bx / per_tile;
+    const int idx = bx - tile * per_tile;
+    const int q0 = (qb0 + tile) * kRows;
+    const float* st = smem + (bx % kStages) * kStage;
+    cp_async_wait_all_but_one();
+    // Box bx is visible to all; every thread is done with box bx - 1, whose
+    // stage box bx + 2 now takes.
+    __syncthreads();
+    if (bx + 2 < n_boxes) issue(bx + 2);
+    cp_async_commit();
+
+    if (idx < n_rbox) {
+      if (idx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = 0.f;
+            dp[i][j] = 0.f;
+          }
+        }
+      }
+      const float* ks = st;
+      const float* vs = st + kBox;
+      const float* qs = st + 2 * kBox;
+      const float* ds = st + 3 * kBox;
+#pragma unroll
+      for (int kk = 0; kk < kBoxCols; kk += 4) {
+        float4 kf[4];
+        float4 vf[4];
+        float4 qf[4];
+        float4 df[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kf[i] = ld4(ks + (ry + 16 * i) * kBoxStride + kk);
+          vf[i] = ld4(vs + (ry + 16 * i) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qf[j] = ld4(qs + (rx + 16 * j) * kBoxStride + kk);
+          df[j] = ld4(ds + (rx + 16 * j) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = dot4(kf[i], qf[j], s[i][j]);
+            dp[i][j] = dot4(vf[i], df[j], dp[i][j]);
+          }
+        }
+      }
+      if (idx == n_rbox - 1) {
+        // P = exp(scale * S - LSE) and dS = P * (dP - delta) of the tile,
+        // read after the next box's barrier.
+        const float* lse_s = st + kRowVals;
+        const float* delta_s = lse_s + kRows;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = rx + 16 * j;
+          const int qi = q0 + row;
+          const float row_lse = lse_s[row];
+          const float row_delta = delta_s[row];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = ry + 16 * i;
+            const int kj = k0 + key;
+            const bool keep = kj < sk && qi < sq && (!causal || kj <= qi);
+            const float p = keep ? expf(s[i][j] * scale - row_lse) : 0.f;
+            ps[row * kPStride + key] = p;
+            dss[row * kPStride + key] = p * (dp[i][j] - row_delta);
+          }
+        }
+      }
+    } else {
+      const int pb = idx - n_rbox;
+      const float* qs = st;
+      const float* ds = st + kPRows * kCols;
+      const float* prow = ps + pb * kPRows * kPStride + 8 * ty;
+      const float* dsrow = dss + pb * kPRows * kPStride + 8 * ty;
+#pragma unroll 8
+      for (int r = 0; r < kPRows; ++r) {
+        float p[8];
+        float dsv[8];
+        unpack8(p, ld4(prow + r * kPStride), ld4(prow + r * kPStride + 4));
+        unpack8(dsv, ld4(dsrow + r * kPStride),
+                ld4(dsrow + r * kPStride + 4));
+#pragma unroll
+        for (int j = 0; j < kThreadCols / 4; ++j) {
+          const float4 dov = ld4(ds + r * kCols + 4 * tx + 128 * j);
+          const float4 qv = ld4(qs + r * kCols + 4 * tx + 128 * j);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float* a = dv_acc[i] + 4 * j;
+            float* g = dk_acc[i] + 4 * j;
+            a[0] = fmaf(p[i], dov.x, a[0]);
+            a[1] = fmaf(p[i], dov.y, a[1]);
+            a[2] = fmaf(p[i], dov.z, a[2]);
+            a[3] = fmaf(p[i], dov.w, a[3]);
+            g[0] = fmaf(dsv[i], qv.x, g[0]);
+            g[1] = fmaf(dsv[i], qv.y, g[1]);
+            g[2] = fmaf(dsv[i], qv.z, g[2]);
+            g[3] = fmaf(dsv[i], qv.w, g[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int kj = k0 + 8 * ty + i;
+    if (kj >= sk) continue;
+#pragma unroll
+    for (int j = 0; j < kThreadCols / 4; ++j) {
+      const int col = c0 + 4 * tx + 128 * j;
+      if (col >= d) continue;
+      const size_t off = ((size_t)bh * sk + kj) * d + col;
+      const float* g = dk_acc[i] + 4 * j;
+      const float* a = dv_acc[i] + 4 * j;
+      *reinterpret_cast<float4*>(dk + off) =
+          make_float4(g[0] * scale, g[1] * scale, g[2] * scale, g[3] * scale);
+      *reinterpret_cast<float4*>(dv + off) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
+
+}  // namespace
+
+// q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D] f32 (contiguous,
+// 16-byte aligned), lse [B, Hq, Sq] f32; D any multiple of 8; dtype must
+// be 0 (float32). The arguments of flash_attention_fwd_wide. Returns a
+// cudaError_t.
+extern "C" int flash_attention_fwd_wide_f32(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            void* lse, int batch, int hq,
+                                            int hkv, int sq, int sk, int d,
+                                            float scale, int causal,
+                                            int dtype, void* stream) {
+  const int n_qb = (sq + fwd::kRows - 1) / fwd::kRows;
+  const int n_slices = (d + fwd::kCols - 1) / fwd::kCols;
+  if (dtype != 0 || batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
+      sq < 1 || sk < 1 || d < 8 || d % 8 != 0 || n_qb > 65535 ||
+      (long long)batch * hq * n_slices > 0x7fffffffLL || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(o)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch * hq * n_slices, n_qb);
+  flash_fwd_wide_f32_kernel<<<grid, kThreads, fwd::kSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), hq, hkv, sq, sk, d, n_slices, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// q, dout [B*H, Sq, D], k, v, dk, dv [B*H, Sk, D] f32 (contiguous, 16-byte
+// aligned; D any multiple of 8); lse and delta = rowsum(dO * O) [B*H, Sq]
+// f32; dtype must be 0. The arguments of
+// flash_attention_bwd_dkv_wide_wgmma.
+extern "C" int flash_attention_bwd_dkv_wide_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+    int sk, int d, float scale, int causal, int dtype, void* stream) {
+  const int n_kb = (sk + dkv::kKeys - 1) / dkv::kKeys;
+  const int n_slices = (d + dkv::kCols - 1) / dkv::kCols;
+  if (dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
+      n_kb > 65535 || (long long)bh * n_slices > 0x7fffffffLL ||
+      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) ||
+      misaligned(dk) || misaligned(dv) || lse == nullptr ||
+      delta == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh * n_slices, n_kb);
+  flash_bwd_dkv_wide_f32_kernel<<<grid, kThreads, dkv::kSmemBytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, n_slices,
+      scale, causal);
+  return (int)cudaGetLastError();
+}

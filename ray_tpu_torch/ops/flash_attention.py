@@ -23,14 +23,17 @@ to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
 forward and dK/dV kernels on the tensor cores
 (``csrc/flash_attention_wide_wgmma.cu``: 256 columns of O and 128 of
 dK/dV a block, the score reduction streamed over D in 64-column TMA
-boxes), beside the CUDA-core
-wide dQ kernel, which writes delta for them; f32, and bf16/f16 above
-1024, take the ``"wide"`` variant, all three kernels on the CUDA cores in
-``csrc/flash_attention_wide.cu`` (64-column chunks, any multiple of 8).
-So above 256 the backward's variant is per kernel
-(``_backward_variant(dtype, D, kernel)``). A wrapper launches its kernel
-for CUDA tensors and raises on what it does not take; it runs a plain
-version only for tensors on the CPU.
+boxes); f32 at every multiple of 8 above 256 takes the ``"wide_f32"``
+forward and dK/dV kernels on the CUDA cores
+(``csrc/flash_attention_wide_f32.cu``: 256 columns of O, and of dK and
+dV, a block, register-tiled f32 FMAs fed by a cp.async ring); both run
+beside the CUDA-core wide dQ kernel, which writes delta for their dK/dV
+kernels. bf16/f16 above 1024 take the ``"wide"`` variant, all three
+kernels on the CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column
+chunks, any multiple of 8). So above 256 the backward's variant is per
+kernel (``_backward_variant(dtype, D, kernel)``). A wrapper launches its
+kernel for CUDA tensors and raises on what it does not take; it runs a
+plain version only for tensors on the CPU.
 
 The forward kernels round where the reference's ``_attn_kernel`` does:
 q * scale in q's dtype (the scale itself rounded to that dtype first, as
@@ -67,8 +70,9 @@ NEG_INF = -1e30
 launches = 0        # forward, every variant
 wgmma_launches = 0  # forward on the tensor cores (bf16/f16, D <= 256)
 simt_launches = 0   # forward on the CUDA cores (f32, D <= 256)
-wide_launches = 0   # forward with D above 256 on the CUDA cores
+wide_launches = 0   # forward with D above 256 on the CUDA cores (bf16/f16)
 wide_wgmma_launches = 0   # forward with D above 256 on the tensor cores
+wide_f32_launches = 0     # forward with D above 256 in f32
 dq_launches = 0     # backward dQ, every variant
 dkv_launches = 0    # backward dK/dV, every variant
 dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
@@ -78,6 +82,7 @@ dkv_simt_launches = 0
 dq_wide_launches = 0    # backward with D above 256 on the CUDA cores
 dkv_wide_launches = 0
 dkv_wide_wgmma_launches = 0   # dK/dV with D above 256 on the tensor cores
+dkv_wide_f32_launches = 0     # dK/dV with D above 256 in f32
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
 SIMT_MAX_D = 256   # the widest head_dim of the "simt" and "wgmma" kernels
@@ -110,19 +115,29 @@ _SIGNATURES = {
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_bwd_dkv_wide_wgmma"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_fwd_wide_f32"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_bwd_dkv_wide_f32"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
 # Each variant's kernels: (forward library, backward library, suffix of
 # their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
-# tensor-core dK/dV kernels read delta from the dQ kernel of their rule
-# ("wide_wgmma" has no dQ kernel of its own: dQ is "wide"'s).
+# dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their rule
+# ("wide_wgmma" and "wide_f32" have no dQ kernel of their own: dQ is
+# "wide"'s).
 _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                         "flash_attention_bwd_wgmma", "_wgmma"),
               "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
               "wide": ("flash_attention_wide", "flash_attention_wide",
                        "_wide"),
               "wide_wgmma": ("flash_attention_wide_wgmma",
-                             "flash_attention_wide_wgmma", "_wide_wgmma")}
-_READS_DELTA = ("wgmma", "wide_wgmma")   # dK/dV variants that take delta
+                             "flash_attention_wide_wgmma", "_wide_wgmma"),
+              "wide_f32": ("flash_attention_wide_f32",
+                           "flash_attention_wide_f32", "_wide_f32")}
+# dK/dV variants that take delta in place of O.
+_READS_DELTA = ("wgmma", "wide_wgmma", "wide_f32")
+# Variants whose dQ kernel is another variant's ("wide").
+_DQ_FROM_WIDE = ("wide_wgmma", "wide_f32")
 _bound = {}
 
 
@@ -309,14 +324,17 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
     ``WIDE_WGMMA_MAX_D``, the most whose Q rows fit a block's shared memory
     (128 KB: 128 rows at D = 512, 64 rows at D = 1024); ``"wide"`` (CUDA
     cores, 64 columns of O per block, any width) for bf16 and f16 above
-    ``WIDE_WGMMA_MAX_D`` and for f32 above ``SIMT_MAX_D``; ``"simt"``
-    (CUDA cores) for f32 up to ``SIMT_MAX_D``. f32 stays off the tensor
-    cores at every width because TF32 products would break its limit
+    ``WIDE_WGMMA_MAX_D``; ``"wide_f32"`` (CUDA cores, 256 columns of O per
+    block, any width) for f32 above ``SIMT_MAX_D``; ``"simt"`` (CUDA
+    cores) for f32 up to ``SIMT_MAX_D``. f32 stays off the tensor cores at
+    every width because TF32 products would break its limit
     (``testing.O_ROW_TOL``). A head_dim that is no multiple of 8 gets a
     variant whose wrapper raises (``_attention_route`` sends it to the
     plain path first)."""
     wgmma = dtype in WGMMA_DTYPES and D % 8 == 0
     if D > SIMT_MAX_D:
+        if dtype == torch.float32:
+            return "wide_f32"
         return "wide_wgmma" if wgmma and D <= WIDE_WGMMA_MAX_D else "wide"
     return "wgmma" if wgmma else "simt"
 
@@ -327,10 +345,11 @@ def _backward_variant(dtype: torch.dtype, D: int,
     CUDA input: the forward's rule (``testing.GRAD_ROW_TOL``'s f32 limit
     and the f32 gradient checks rest on f32 products), except that dQ
     stays ``"wide"`` (CUDA cores) above ``SIMT_MAX_D`` at every dtype,
-    beside the ``"wide_wgmma"`` dK/dV kernel. With ``kernel`` None, the
-    variant both kernels share; a ``ValueError`` where they differ."""
+    beside the ``"wide_wgmma"`` (bf16, f16) or ``"wide_f32"`` dK/dV
+    kernel. With ``kernel`` None, the variant both kernels share; a
+    ``ValueError`` where they differ."""
     variant = _forward_variant(dtype, D)
-    if variant != "wide_wgmma":
+    if variant not in _DQ_FROM_WIDE:
         return variant
     if kernel is None:
         raise ValueError(f"the backward kernels differ at {dtype} head_dim "
@@ -349,7 +368,7 @@ def _check_launch(name, err):
 
 def _launch(q, k, v, causal, scale):
     global launches, wgmma_launches, simt_launches, wide_launches
-    global wide_wgmma_launches
+    global wide_wgmma_launches, wide_f32_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -369,6 +388,8 @@ def _launch(q, k, v, causal, scale):
         wgmma_launches += 1
     elif variant == "wide_wgmma":
         wide_wgmma_launches += 1
+    elif variant == "wide_f32":
+        wide_f32_launches += 1
     elif variant == "wide":
         wide_launches += 1
     else:
@@ -402,10 +423,11 @@ def _check_rows_f32(t, q, name):
 
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
-    delta). Where the dK/dV kernel is on the tensor cores (``"wgmma"``,
-    ``"wide_wgmma"``) the dQ kernel also writes delta = rowsum(dO * O),
-    [B, H, Sq] f32, which that dK/dV kernel reads; the CUDA-core dK/dV
-    kernels compute delta themselves, and then delta is None."""
+    delta). Where the dK/dV kernel is one of ``_READS_DELTA`` (``"wgmma"``,
+    ``"wide_wgmma"``, ``"wide_f32"``) the dQ kernel also writes delta =
+    rowsum(dO * O), [B, H, Sq] f32, which that dK/dV kernel reads; the
+    other dK/dV kernels compute delta themselves, and then delta is
+    None."""
     global dq_launches, dq_wgmma_launches, dq_simt_launches, dq_wide_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
@@ -439,10 +461,11 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
 
 def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv).
-    ``delta`` is ``_launch_dq``'s second result: the tensor-core variants
-    read it, the CUDA-core variants compute delta from O themselves."""
+    ``delta`` is ``_launch_dq``'s second result: the variants of
+    ``_READS_DELTA`` read it, the others compute delta from O
+    themselves."""
     global dkv_launches, dkv_wgmma_launches, dkv_simt_launches
-    global dkv_wide_launches, dkv_wide_wgmma_launches
+    global dkv_wide_launches, dkv_wide_wgmma_launches, dkv_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -465,6 +488,8 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
         dkv_wgmma_launches += 1
     elif variant == "wide_wgmma":
         dkv_wide_wgmma_launches += 1
+    elif variant == "wide_f32":
+        dkv_wide_f32_launches += 1
     elif variant == "wide":
         dkv_wide_launches += 1
     else:

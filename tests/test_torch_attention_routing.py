@@ -50,7 +50,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 def test_attention_route_rule(D, dtype):
     dt = DTYPES[dtype]
     want = ("plain" if D == 12
-            else "wide" if D > 256 and (dt == torch.float32 or D > 1024)
+            else "wide_f32" if D > 256 and dt == torch.float32
+            else "wide" if D > 1024
             else "wide_wgmma" if D > 256
             else "wgmma" if dt != torch.float32
             else "simt")

@@ -119,8 +119,8 @@ def test_every_bf16_f16_head_dim_up_to_256_takes_the_tensor_cores(D):
 @pytest.mark.parametrize("D", [4, 12, 260, 264])
 def test_other_head_dims_keep_their_routes(dtype, D):
     """No multiple of 8: the plain path; 264: the wide kernels, on the
-    tensor cores in bf16 and f16."""
-    want = ("plain" if D % 8 else "wide" if dtype == torch.float32
+    tensor cores in bf16 and f16, the f32 CUDA-core ones in f32."""
+    want = ("plain" if D % 8 else "wide_f32" if dtype == torch.float32
             else "wide_wgmma")
     assert fa._attention_route(dtype, D) == want
 

@@ -1,7 +1,9 @@
 """The wide flash kernels (head_dim above 256) on the CPU: the rule of
 shapes that sends bf16 and f16 up to head_dim 1024 to the tensor-core
-forward and dK/dV kernels (``"wide_wgmma"``) beside the CUDA-core wide
-dQ kernel, and the plain versions the card holds them against.
+forward and dK/dV kernels (``"wide_wgmma"``) and f32 at every width to
+the f32 CUDA-core forward and dK/dV kernels (``"wide_f32"``), each beside
+the CUDA-core wide dQ kernel, and the plain versions the card holds them
+against.
 
 ``_dense_kernel`` (the forward's rounding points) is held against the
 reference's Pallas ``_attn_kernel`` in interpret mode (``_flash_forward``
@@ -61,7 +63,8 @@ def _f32(x):
 
 def _launches():
     return (fa.launches, fa.wide_wgmma_launches, fa.wide_launches,
-            fa.dq_launches, fa.dkv_launches, fa.dkv_wide_wgmma_launches)
+            fa.wide_f32_launches, fa.dq_launches, fa.dkv_launches,
+            fa.dkv_wide_wgmma_launches, fa.dkv_wide_f32_launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -69,17 +72,19 @@ def _launches():
 @pytest.mark.parametrize("D", [264, 384, 512, 1024, 1032, 2048])
 def test_wide_rule_of_shapes(dtype, D):
     """Above 256: bf16 and f16 up to 1024 take the tensor-core forward and
-    dK/dV, dQ the CUDA-core wide kernel; f32 (TF32 would break its limits)
-    and anything wider than 1024 (Q's rows no longer fit a block's shared
+    dK/dV, f32 at every width the f32 CUDA-core forward and dK/dV (TF32
+    would break its limits), each beside the CUDA-core wide dQ kernel;
+    bf16 and f16 wider than 1024 (Q's rows no longer fit a block's shared
     memory) keep the CUDA-core wide kernels, all three."""
-    tensor_cores = dtype != torch.float32 and D <= fa.WIDE_WGMMA_MAX_D
-    fwd = "wide_wgmma" if tensor_cores else "wide"
+    f32 = dtype == torch.float32
+    tensor_cores = not f32 and D <= fa.WIDE_WGMMA_MAX_D
+    fwd = "wide_f32" if f32 else "wide_wgmma" if tensor_cores else "wide"
     assert fa._forward_variant(dtype, D) == fwd
     assert fa._attention_route(dtype, D) == fwd
     assert fa._attention_route(dtype, D, 8, 8) == fwd
     assert fa._backward_variant(dtype, D, "dq") == "wide"
     assert fa._backward_variant(dtype, D, "dkv") == fwd
-    if tensor_cores:
+    if fwd != "wide":
         with pytest.raises(ValueError, match="name the kernel"):
             fa._backward_variant(dtype, D)
     else:

@@ -1,0 +1,85 @@
+"""The C entry points of the port's CUDA kernels against the ``ctypes``
+argument types the flash wrapper declares for them, on the CPU.
+
+A kernel library has a plain C interface and ``ctypes`` passes each
+argument as ``_SIGNATURES`` says: a pointer declared as an int, or an int
+declared as a float, shows only on the card, as a cut pointer or a
+garbage shape. So every ``extern "C" int name(...)`` in
+``ray_tpu_torch/ops/csrc/*.cu`` is parsed here and held against its row,
+and every kernel variant of ``_LIBRARIES`` must name entry points that
+exist.
+"""
+
+import importlib
+import re
+from pathlib import Path
+
+import pytest
+
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+CSRC = Path(fa.__file__).resolve().parent / "csrc"
+_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+
+
+def _ctype(param: str):
+    """The ``ctypes`` type a C parameter is passed as."""
+    param = " ".join(param.split())
+    if "*" in param:
+        return fa._VP
+    kind = param.split()[-2]
+    return {"int": fa._CI, "float": fa._CF}[kind]
+
+
+def _entry_points():
+    """{(library, function): [ctypes type per parameter]} of every
+    ``extern "C"`` function of every kernel source."""
+    found = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        for name, params in _ENTRY.findall(path.read_text()):
+            found[(path.stem, name)] = [_ctype(p) for p in params.split(",")]
+    return found
+
+
+ENTRY_POINTS = _entry_points()
+
+
+def test_every_kernel_source_has_entry_points():
+    assert {lib for lib, _ in ENTRY_POINTS} == {
+        p.stem for p in CSRC.glob("*.cu")}
+
+
+@pytest.mark.parametrize("key", sorted(ENTRY_POINTS),
+                         ids=lambda k: f"{k[0]}.{k[1]}")
+def test_entry_point_matches_its_signature_row(key):
+    """Pointer, int and float arguments in the C function's count and
+    order."""
+    assert key in fa._SIGNATURES, f"{key} has no _SIGNATURES row"
+    assert fa._SIGNATURES[key] == ENTRY_POINTS[key]
+
+
+@pytest.mark.parametrize("key", sorted(fa._SIGNATURES),
+                         ids=lambda k: f"{k[0]}.{k[1]}")
+def test_signature_row_names_an_entry_point(key):
+    assert key in ENTRY_POINTS, f"no extern \"C\" {key[1]} in {key[0]}.cu"
+
+
+@pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
+def test_variant_names_entry_points_that_exist(variant):
+    """The forward, dQ and dK/dV entry points of a variant (a variant of
+    ``_DQ_FROM_WIDE`` runs ``"wide"``'s dQ kernel); a dK/dV kernel of
+    ``_READS_DELTA`` takes delta and no O, the others O and no delta."""
+    fwd_lib, bwd_lib, suffix = fa._LIBRARIES[variant]
+    assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
+    dkv = (bwd_lib, "flash_attention_bwd_dkv" + suffix)
+    assert dkv in ENTRY_POINTS
+    dq_variant = "wide" if variant in fa._DQ_FROM_WIDE else variant
+    dq_lib, dq_suffix = fa._LIBRARIES[dq_variant][1:]
+    assert (dq_lib, "flash_attention_bwd_dq" + dq_suffix) in ENTRY_POINTS
+    params = re.search(
+        r'extern\s+"C"\s+int\s+' + dkv[1] + r'\s*\(([^)]*)\)',
+        (CSRC / f"{bwd_lib}.cu").read_text(), re.S).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    reads_delta = variant in fa._READS_DELTA
+    assert ("delta" in names) == reads_delta
+    assert ("o" in names) == (not reads_delta)

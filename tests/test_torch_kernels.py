@@ -79,8 +79,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, Hq, Hkv, Sq, Sk, D,
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     """D=12 takes the plain route (no launch, one plain route counted)
     and equals it; f16 at head_dim 16 runs the tensor-core kernel (the
-    64-wide instance, zero-padded); head_dim 264 launches
-    the wide kernel and equals the plain version; a dtype no kernel takes
+    64-wide instance, zero-padded); head_dim 264 (f32) launches
+    the f32 wide kernel and equals the plain version; a dtype no kernel takes
     and a non-contiguous input still raise."""
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 12, torch.float32, cuda_device)
     before = fa.launches, fa.plain_routes
@@ -98,10 +98,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), k, v)
     q, k, v = _qkv(1, 1, 2, 2, 16, 16, 264, torch.float32, cuda_device)
-    before = fa.wide_launches, fa.plain_routes
+    before = fa.wide_f32_launches, fa.plain_routes
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert (fa.wide_launches, fa.plain_routes) == (before[0] + 1, before[1])
+    assert (fa.wide_f32_launches, fa.plain_routes) == (before[0] + 1,
+                                                       before[1])
     torch.testing.assert_close(
         out, fa._dense_kernel(q, k, v, True, 264 ** -0.5)[0], atol=1e-5,
         rtol=1e-4)
@@ -144,7 +145,8 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
 
 def _forward_counts():
     return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches}
+            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches,
+            "wide_f32": fa.wide_f32_launches}
 
 
 # Head dims 64 and 256 have power-of-two scales, where rounding q * scale
@@ -209,7 +211,7 @@ def test_flash_wgmma_zero_fills_past_head_dim(cuda_device, dtype, D, causal):
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide_f32"),
     (torch.bfloat16, 512, "wide_wgmma"), (torch.float16, 256, "wgmma"),
     (torch.float16, 200, "wgmma"), (torch.float32, 256, "simt"),
     (torch.float16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
@@ -226,7 +228,8 @@ def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
 
 # Head dims above 256 take the wide kernels (the head dimension of the
 # output split across blocks): bf16 and f16 the tensor-core forward and
-# dK/dV beside the CUDA-core dQ, f32 the CUDA-core three. 264 has a last
+# dK/dV, f32 the f32 CUDA-core forward and dK/dV, each beside the
+# CUDA-core wide dQ. 264 has a last
 # chunk of 8 columns, 384 is no multiple of the tensor-core forward's
 # 256-column chunk, 1024 the widest the tensor cores take (K and V then
 # stream in dK/dV). MHA and GQA forward, ragged lengths, Sq != Sk.
@@ -234,7 +237,7 @@ WIDE_DIMS = [264, 384, 512, 1024]
 
 
 def _wide_variant(dtype):
-    return "wide" if dtype == torch.float32 else "wide_wgmma"
+    return "wide_f32" if dtype == torch.float32 else "wide_wgmma"
 
 
 @pytest.mark.cuda
@@ -313,6 +316,93 @@ def test_flash_wide_wgmma_zero_fills_past_head_dim(cuda_device, dtype,
         assert bool(torch.isfinite(g).all()), name
         err = grad_row_error(g, r)
         assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
+# The f32 wide forward and dK/dV (the "wide_f32" variant, beside the
+# CUDA-core wide dQ, which writes the delta the dK/dV kernel reads): 264
+# (a last 32-column box of 8 columns, a second 256-column slice of O of 8),
+# 384, 512 and 1032 (a third slice of 8 columns); GQA over 2 KV heads and
+# one; ragged lengths, Sq > Sk and Sq < Sk; causal and not. The backward
+# repeats K and V to the query heads, as flash_attention's caller does.
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [264, 384, 512, 1032])
+@pytest.mark.parametrize("Hkv", [2, 1])
+@pytest.mark.parametrize("Sq,Sk", [(77, 131), (130, 130), (200, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_f32_kernels_match_plain(cuda_device, D, Hkv, Sq, Sk,
+                                            causal):
+    q, k, v = _qkv(20, 2, 4, Hkv, Sq, Sk, D, torch.float32, cuda_device)
+    before = _forward_counts()
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = _forward_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "wide_f32") for n in after}
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+    k, v = (torch.repeat_interleave(t, 4 // Hkv, dim=1) for t in (k, v))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    do = _qkv(21, 2, 4, 4, Sq, Sq, D, torch.float32, cuda_device)[0]
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wide_f32")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[torch.float32], (name, err)
+
+
+# The f32 wide kernels on rows offset by +-1.5 in turn (as
+# test_flash_wgmma_zero_fills_past_head_dim): at D=264 the forward's last
+# 32-column box holds 8 real columns and its second slice of O 8 of 256,
+# dK/dV's third slice 8 of 128; a copy that read past column D into the
+# next row, or a store past it, would move every score of the row far
+# outside the limits. On these rows a dQ row sums terms that cancel to
+# many times less than their size, and the f32 plain backward's dQ reads
+# above GRAD_ROW_TOL against the same formula in float64 (ROADMAP C.9):
+# dQ (the CUDA-core wide kernel's) is held against the float64 version,
+# dK and dV against the f32 plain backward, as everywhere else.
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_f32_zero_fills_past_head_dim(cuda_device, causal):
+    D = 264
+    q, k, v = (_row_offsets(t) for t in _qkv(
+        22, 2, 4, 2, 200, 200, D, torch.float32, cuda_device))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+    k, v = (torch.repeat_interleave(t, 2, dim=1) for t in (k, v))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    do = _row_offsets(_qkv(23, 2, 4, 4, 200, 200, D, torch.float32,
+                           cuda_device)[0])
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wide_f32")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    ref = (_dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5), *ref[1:])
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[torch.float32], (name, err)
+
+
+def _dense_dq_f64(q, k, v, o, lse, do, causal, scale):
+    """dQ of ``_dense_backward``'s formula evaluated in float64 (P from the
+    given LSE, delta = rowsum(dO * O), dS = P * (dP - delta))."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = fa._mask_causal(s)
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (do * o).sum(-1)[..., None])
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
 
 
 # A query or key length under 8 takes the plain route on the card, as the
@@ -399,16 +489,17 @@ def _backward_counts():
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
-            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches}
+            "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
+            "dkv_wide_f32": fa.dkv_wide_f32_launches}
 
 
 def _backward_launched(before, variant):
     """Launches since `before`, and what the rule wants for the forward
     variant `variant`: one dQ and one dK/dV of it (above head_dim 256 the
-    tensor-core dK/dV beside the CUDA-core wide dQ), none of the
+    tensor-core or f32 dK/dV beside the CUDA-core wide dQ), none of the
     others."""
     got = {n: c - before[n] for n, c in _backward_counts().items()}
-    dq = "wide" if variant == "wide_wgmma" else variant
+    dq = "wide" if variant in fa._DQ_FROM_WIDE else variant
     want = {n: int(n in (f"dq_{dq}", f"dkv_{variant}")) for n in got}
     return got, want
 
@@ -447,7 +538,7 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide_wgmma"),
-    (torch.float32, 1024, "wide"), (torch.float16, 128, "wgmma"),
+    (torch.float32, 1024, "wide_f32"), (torch.float16, 128, "wgmma"),
     (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt"),
     (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
