@@ -8,15 +8,16 @@ non-zero without printing a result. Without a CUDA card, or without the
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
    dK/dV, each on the tensor cores and on the CUDA cores, and for head_dim
-   above 256 the wide kernels: on the CUDA cores, forward and dK/dV on
-   the tensor cores, and the f32 forward and dK/dV) from
-   ray_tpu_torch/ops/csrc, one nvcc per source, in parallel, with ptxas's
-   registers and spills per kernel; the SASS of every tensor-core kernel
-   instantiation (bf16 and f16 at head_dim 64, 128 and 256; the wide
-   forward and the wide dK/dV with K and V held or streamed) must hold
-   HGMMA (wgmma) and UTMALDG (TMA load) instructions, and the two f32
-   wide kernels must hold FFMA and no HMMA or HGMMA (no TF32) and spill
-   nothing. The Triton RMSNorm kernel compiles at its first launch.
+   above 256 the wide kernels: all three on the CUDA cores, on the tensor
+   cores, and in f32) from ray_tpu_torch/ops/csrc, one nvcc per source,
+   in parallel, with ptxas's registers and spills per kernel; the SASS of
+   every tensor-core kernel instantiation (bf16 and f16 at head_dim 64,
+   128 and 256; the wide forward, and the wide dQ and dK/dV with their
+   rows held or streamed) must hold HGMMA (wgmma) and UTMALDG (TMA load)
+   instructions, the wide tensor-core dQ must spill nothing, and the
+   three f32 wide kernels must hold FFMA and no HMMA or HGMMA (no TF32)
+   and spill nothing. The Triton RMSNorm kernel compiles at its first
+   launch.
 2. kernels: the forward against its plain PyTorch version with the
    kernels' rounding points (_dense_kernel: q * scale rounded to the input
    type, f32 scores, as the reference's kernel rounds) on the card at
@@ -58,12 +59,12 @@ non-zero without printing a result. Without a CUDA card, or without the
    kernels (head_dim above 256, the head dimension of the output split
    across blocks): forward, dQ and dK/dV at head_dim 264, 512 and 1024 in
    f32, bf16 and f16 up to S=512 (phase 2b's shape), causal and not,
-   against the plain versions with a planted fault each, launching the
-   kernels of the rule once each and nothing else (bf16 and f16: the
-   tensor-core forward and dK/dV, f32: the f32 forward and dK/dV of
-   flash_attention_wide_f32.cu, each beside the CUDA-core dQ), and the
-   CUDA-core forward and dK/dV of flash_attention_wide.cu (the earlier
-   design) on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
+   against the plain versions with a planted fault each (the dQ kernel's
+   delta against rowsum(dO * O)), launching the kernels of the rule once
+   each and nothing else (bf16 and f16: the tensor-core forward, dQ and
+   dK/dV; f32: those of flash_attention_wide_f32.cu), and the CUDA-core
+   forward, dQ and dK/dV of flash_attention_wide.cu (the earlier design)
+   on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
    and f32 (and D=384 in bf16 and f16), held against the plain versions
    with a planted fault again and timed through CUDA graphs beside the
    CUDA-core kernels on the same inputs, the plain versions, SDPA (with
@@ -71,9 +72,8 @@ non-zero without printing a result. Without a CUDA card, or without the
 2b. c1_models: eight configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
    and over 8 query heads and one KV head, Gemma-2B's attention widths),
-   head_dim 512 (d_model 1024 over 2 heads: the tensor-core wide forward
-   and dK/dV in bf16, the f32 wide forward and dK/dV in f32, each beside
-   the CUDA-core wide dQ), the
+   head_dim 512 (d_model 1024 over 2 heads: the tensor-core wide forward,
+   dQ and dK/dV in bf16, the f32 wide ones in f32), the
    flagship in float16, head_dim 12 (d_model 384 over 32 heads, GQA 8,
    bf16), head_dim 96 (Phi-3-mini's d_model 3072 over 32 heads, bf16) and
    head_dim 80 (Phi-2's d_model 2560 over 32 heads, f16). Each serves 4
@@ -247,6 +247,7 @@ try:
         SPMD_UPDATE_TOL,
         SPEC_TIE_TOL_BF16,
         TRAIN_LOSS_TOL_BF16,
+        delta_error,
         grad_row_error,
     )
 except ImportError as exc:
@@ -515,14 +516,22 @@ WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
                    "flash_attention_wide_wgmma")
 # Kernel instantiations per tensor-core library: (bf16, f16) x head_dim
 # (64, 128, 256), once for the forward and once each for dQ and dK/dV;
-# above head_dim 256 (bf16, f16) x the forward and x dK/dV with K and V
-# held (D up to 512) or streamed.
+# above head_dim 256 (bf16, f16) x the forward, x dQ with Q and dO held
+# (D up to 512) or streamed, and x dK/dV with K and V held or streamed.
 WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
                    "flash_attention_bwd_wgmma": 12,
-                   "flash_attention_wide_wgmma": 6}
+                   "flash_attention_wide_wgmma": 10}
+# Tensor-core kernels that must not spill (a spilled accumulator
+# serialises the wgmma around it): the wide dQ, every instantiation.
+NO_SPILL_WGMMA = "flash_bwd_dq_wide_wgmma_kernel"
 # The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32.
 F32_LIBRARY = "flash_attention_wide_f32"
-F32_KERNELS = ("flash_fwd_wide_f32_kernel", "flash_bwd_dkv_wide_f32_kernel")
+F32_KERNELS = ("flash_fwd_wide_f32_kernel", "flash_bwd_dq_wide_f32_kernel",
+               "flash_bwd_dkv_wide_f32_kernel")
+# The variants whose kernels replaced flash_attention_wide.cu's on the
+# rule's path: that library's forward, dQ and dK/dV (the earlier design)
+# are still held against the plain versions and timed on their inputs.
+CUDA_CORE_REPLACED = ("wide_wgmma", "wide_f32")
 
 
 def ptxas_summary(report: str):
@@ -532,8 +541,8 @@ def ptxas_summary(report: str):
     runtime-width instance), kernel<dtype, D> for the tensor-core ones,
     kernel<dtype> for the wide ones (head_dim above 256) and the
     tensor-core wide forward, kernel<dtype, resident> for the tensor-core
-    wide dK/dV (K and V held in shared memory or streamed), the bare name
-    for the f32 wide kernels."""
+    wide dQ and dK/dV (Q and dO, or K and V, held in shared memory or
+    streamed), the bare name for the f32 wide kernels."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -548,10 +557,10 @@ def ptxas_summary(report: str):
             wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)"
                              r"I(13__nv_bfloat16|6__half|f)E",
                              entry.group(1))
-            wide_tc = re.search(r"(flash_(?:fwd|bwd_dkv)_wide_wgmma_kernel)"
-                                r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E",
-                                entry.group(1))
-            f32 = re.search(r"flash_(?:fwd|bwd_dkv)_wide_f32_kernel",
+            wide_tc = re.search(
+                r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_wgmma_kernel)"
+                r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E", entry.group(1))
+            f32 = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_wide_f32_kernel",
                             entry.group(1))
             if f32:
                 name = f32.group(0)
@@ -614,6 +623,10 @@ def sass_counts(library: Path):
 def phase_build():
     from ray_tpu_torch.ops import _build
 
+    # Built afresh, so that ptxas's report (registers, spills) is this
+    # run's even where an earlier run left the libraries on disk.
+    for n in KERNEL_LIBRARIES:
+        _build.library_path(n).unlink(missing_ok=True)
     t0 = time.perf_counter()
     paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
@@ -640,6 +653,14 @@ def phase_build():
             raise AssertionError(f"{n}: a tensor-core kernel has no wgmma or "
                                  f"no TMA load in its SASS, or one is "
                                  f"missing: {counts}")
+    wide_tc = [ln for ln in ptxas_summary(
+        _build.build_info["flash_attention_wide_wgmma"][1])
+        if ln.startswith(NO_SPILL_WGMMA) and "spill" in ln]
+    if len(wide_tc) != 4 or any(
+            "0 bytes spill stores, 0 bytes spill loads" not in ln
+            for ln in wide_tc):
+        raise AssertionError(f"{NO_SPILL_WGMMA}: an instantiation is "
+                             f"missing or spills: {wide_tc}")
     # The f32 wide kernels: FFMA and no tensor-core instruction in their
     # SASS, and no spill in ptxas's report.
     f32 = {k: c for k, c in sass[F32_LIBRARY]["kernels"].items()
@@ -837,7 +858,8 @@ _COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
              "wide_wgmma_launches", "wide_f32_launches", "dq_launches",
              "dkv_launches", "dq_wgmma_launches", "dkv_wgmma_launches",
              "dq_simt_launches", "dkv_simt_launches", "dq_wide_launches",
-             "dkv_wide_launches", "dkv_wide_wgmma_launches",
+             "dkv_wide_launches", "dq_wide_wgmma_launches",
+             "dkv_wide_wgmma_launches", "dq_wide_f32_launches",
              "dkv_wide_f32_launches", "plain_routes")
 
 
@@ -1015,41 +1037,41 @@ def _backward_counts(fa):
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
+            "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
+            "dq_wide_f32": fa.dq_wide_f32_launches,
             "dkv_wide_f32": fa.dkv_wide_f32_launches}
 
 
 def _backward_want(variant, n):
-    """Backward launch counts when each backward kernel of the rule whose
-    forward variant is `variant` launched n times (above head_dim 256 the
-    tensor-core or f32 dK/dV kernel runs beside the CUDA-core wide dQ)
-    and no other kernel did."""
+    """Backward launch counts when the dQ and the dK/dV kernel of
+    `variant` (the forward's, as the rule has it at every head_dim)
+    launched n times each and no other kernel did."""
     fa = _flash_module()
     want = {kind: 0 for kind in _backward_counts(fa)}
     if variant is not None:
-        dq = "wide" if variant in fa._DQ_FROM_WIDE else variant
-        want[f"dq_{dq}"] += n
+        want[f"dq_{variant}"] += n
         want[f"dkv_{variant}"] += n
     return want
 
 
 def _simt_backward(fa, kind, q, k, v, o, lse, do, causal=True, wide=False):
-    """A CUDA-core backward kernel (``wide``: dK/dV for head_dim above
-    256) called straight through its C entry point on any input it takes
-    (bf16 and f16 included), bypassing the wrapper's rule of shapes: the
-    earlier design, checked and timed beside the tensor-core kernels on
-    the same inputs. Counts no launch."""
+    """A CUDA-core backward kernel (``wide``: the one for head_dim above
+    256; its dQ is given no delta buffer) called straight through its C
+    entry point on any input it takes (bf16 and f16 included), bypassing
+    the wrapper's rule of shapes: the earlier design, checked and timed
+    beside the kernels that replaced it on the same inputs. Counts no
+    launch."""
     B, H, Sq, D = q.shape
-    if wide and kind != "dkv":
-        raise ValueError("the wide dQ kernel is on the rule's path")
     outs = [torch.empty_like(q)] if kind == "dq" else [torch.empty_like(k),
                                                        torch.empty_like(v)]
     _, library, suffix = fa._LIBRARIES["wide" if wide else "simt"]
     name = f"flash_attention_bwd_{kind}{suffix}"
+    no_delta = (None,) if wide and kind == "dq" else ()
     err = fa._kernel_fn(library, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), *[t.data_ptr() for t in outs], B * H,
-        Sq, k.shape[2], D, D ** -0.5, int(bool(causal)),
+        do.data_ptr(), lse.data_ptr(), *[t.data_ptr() for t in outs],
+        *no_delta, B * H, Sq, k.shape[2], D, D ** -0.5, int(bool(causal)),
         fa._DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -1128,17 +1150,18 @@ def phase_wide(dev):
     """Phase 2's wide kernels (head_dim above 256, the head dimension of
     the output split across blocks): forward and backward at every
     WIDE_DIMS x (f32, bf16, f16) on small shapes, causal and not, against
-    the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL, each case
-    launching the kernels of the rule once each and no other (bf16 and
-    f16: the tensor-core forward and dK/dV, f32: the f32 forward and
-    dK/dV, each beside the CUDA-core dQ), with no plain route, and a
-    planted fault (32 keys of V, or 32 rows of dO, zeroed in the plain
-    version) flagged. The CUDA-core forward and dK/dV of
-    flash_attention_wide.cu (the earlier design) are held against the
-    plain versions on the same inputs too. Then the three kernels checked
-    the same way at WIDE_TIMED in bf16, f16 and f32 (and head_dim 384 in
-    bf16 and f16), and timed there beside the plain versions, the
-    CUDA-core kernels, SDPA (its backend named) and the bound."""
+    the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL (the dQ
+    kernel's delta against rowsum(dO * O) at testing.delta_error's
+    limit), each case launching the kernels of the rule once each and no
+    other (bf16 and f16: the tensor-core forward, dQ and dK/dV; f32: the
+    f32 ones), with no plain route, and a planted fault (32 keys of V, or
+    32 rows of dO, zeroed in the plain version) flagged. The CUDA-core
+    forward, dQ and dK/dV of flash_attention_wide.cu (the earlier design)
+    are held against the plain versions on the same inputs too. Then the
+    three kernels checked the same way at WIDE_TIMED in bf16, f16 and f32
+    (and head_dim 384 in bf16 and f16), and timed there beside the plain
+    versions, the CUDA-core kernels, SDPA (its backend named) and the
+    bound."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     checks = []
@@ -1156,8 +1179,8 @@ def phase_wide(dev):
         scale = D ** -0.5
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             variant = fa._forward_variant(dtype, D)
-            # The earlier CUDA-core forward and dK/dV on the same inputs.
-            earlier = variant in fa._DQ_FROM_WIDE
+            # The earlier CUDA-core kernels on the same inputs.
+            earlier = variant in CUDA_CORE_REPLACED
             for Hkv, Sq, Sk in WIDE_FWD_SHAPES:
                 q = randn((2, 4, Sq, D), dtype)
                 k, v = randn((2, Hkv, Sk, D), dtype), randn((2, Hkv, Sk, D),
@@ -1224,24 +1247,28 @@ def phase_wide(dev):
                     fault_err = max(grad_row_error(f, r)
                                     for f, r in zip(fault, ref))
                     tol = GRAD_ROW_TOL[dtype]
+                    err_delta = delta_error(delta, do, o)
                     ok = (all(bool(torch.isfinite(g).all()) for g in got)
-                          and max(errs) <= tol
+                          and max(errs) <= tol and err_delta <= 1.0
                           and launched == _backward_want(variant, 1))
                     check = {"kind": "bwd", "D": D, "Sq": Sq, "Sk": Sk,
                              "dtype": _dtype_name(dtype), "causal": causal,
                              "variant": variant, "launched": launched,
                              "err_row": dict(zip(("dq", "dk", "dv"), errs)),
-                             "tol_row": tol, "fault_row": fault_err}
+                             "tol_row": tol, "fault_row": fault_err,
+                             "err_delta_of_limit": err_delta}
                     if earlier:
-                        sk, sv = _simt_backward(fa, "dkv", q, k, v, o, lse,
-                                                do, causal, wide=True)
+                        cc = (*_simt_backward(fa, "dq", q, k, v, o, lse, do,
+                                              causal, wide=True),
+                              *_simt_backward(fa, "dkv", q, k, v, o, lse,
+                                              do, causal, wide=True))
                         torch.cuda.synchronize()
                         s_errs = [grad_row_error(g, r)
-                                  for g, r in zip((sk, sv), ref[1:])]
-                        check["cuda_core_err_row"] = dict(zip(("dk", "dv"),
-                                                              s_errs))
+                                  for g, r in zip(cc, ref)]
+                        check["cuda_core_err_row"] = dict(zip(
+                            ("dq", "dk", "dv"), s_errs))
                         ok = ok and max(s_errs) <= tol and all(
-                            bool(torch.isfinite(g).all()) for g in (sk, sv))
+                            bool(torch.isfinite(g).all()) for g in cc)
                     checks.append({**check, "ok": ok})
                     if not ok or fault_err <= tol:
                         fail(checks[-1])
@@ -1259,19 +1286,20 @@ def phase_wide(dev):
 
 def _time_wide(fa, gen, dev, dtype, D):
     """The wide forward, dQ and dK/dV of the rule at WIDE_TIMED's (B, H,
-    S) and head_dim D (causal) through CUDA graphs (few replays: a
-    CUDA-core call takes tens of ms), held against the plain versions
-    there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL with a planted fault (32
-    keys of V, or 32 rows of dO, zeroed in the plain version) that must
-    read above the limit; where the rule takes the tensor-core or the f32
-    kernels, the CUDA-core forward and dK/dV of flash_attention_wide.cu
-    on the same inputs, held and timed the same way (few replays); the
-    plain versions by events, and SDPA's forward and backward through
-    CUDA graphs with the backend it picks."""
+    S) and head_dim D (causal) through CUDA graphs, held against the plain
+    versions there at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL (the dQ kernel's
+    delta at testing.delta_error's limit) with a planted fault (32 keys
+    of V, or 32 rows of dO, zeroed in the plain version) that must read
+    above the limit; where the rule takes the tensor-core or the f32
+    kernels, the CUDA-core forward, dQ and dK/dV of
+    flash_attention_wide.cu on the same inputs, held and timed the same
+    way (few replays: a CUDA-core call takes tens of ms); the plain
+    versions by events, and SDPA's forward and backward through CUDA
+    graphs with the backend it picks."""
     B, H, S, _ = WIDE_TIMED
     scale = D ** -0.5
     variant = fa._forward_variant(dtype, D)
-    cuda_core = variant in fa._DQ_FROM_WIDE
+    cuda_core = variant in CUDA_CORE_REPLACED
     q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
                                device=dev).to(dtype) for _ in range(4))
     few = {"iters": 2, "replays": 3}
@@ -1283,18 +1311,21 @@ def _time_wide(fa, gen, dev, dtype, D):
         ms = {"fwd": graph_ms(lambda i: fa._flash_forward(q, k, v, True),
                               **many),
               "dq": graph_ms(lambda i: fa._launch_dq(
-                  q, k, v, o, lse, do, True, scale), **few),
+                  q, k, v, o, lse, do, True, scale), **many),
               "dkv": graph_ms(lambda i: fa._launch_dkv(
                   q, k, v, o, lse, do, delta, True, scale), **many)}
     if cuda_core:
         so, slse = _simt_forward(fa, q, k, v, True, wide=True)
+        sdq, = _simt_backward(fa, "dq", q, k, v, o, lse, do, True,
+                              wide=True)
         sdk, sdv = _simt_backward(fa, "dkv", q, k, v, o, lse, do, True,
                                   wide=True)
         cc_ms = {"fwd": graph_ms(lambda i: _simt_forward(
-                     fa, q, k, v, True, wide=True), **few),
-                 "dkv": graph_ms(lambda i: _simt_backward(
-                     fa, "dkv", q, k, v, o, lse, do, True, wide=True),
-                     **few)}
+                     fa, q, k, v, True, wide=True), **few)}
+        for kind in ("dq", "dkv"):
+            cc_ms[kind] = graph_ms(
+                lambda i, kind=kind: _simt_backward(
+                    fa, kind, q, k, v, o, lse, do, True, wide=True), **few)
     ro, rlse = fa._dense_kernel(q, k, v, True, scale)
     v_fault = v.clone()
     v_fault[:, :, S // 2:S // 2 + 32] = 0
@@ -1317,7 +1348,11 @@ def _time_wide(fa, gen, dev, dtype, D):
                        for g, r in zip((dk, dv), ref[1:]))}
     err_row = dict(zip(("dq", "dk", "dv"),
                        (grad_row_error(g, r) for g, r in zip(got, ref))))
+    err_delta = delta_error(delta, do, o)
     if cuda_core:
+        check["cuda_core_dq"] = {
+            "err_row": grad_row_error(sdq, ref[0]),
+            "max_abs_err": (sdq.float() - ref[0].float()).abs().max().item()}
         check["cuda_core_dkv"] = {
             "err_row": dict(zip(("dk", "dv"), (grad_row_error(g, r) for g, r
                                                in zip((sdk, sdv), ref[1:])))),
@@ -1331,16 +1366,17 @@ def _time_wide(fa, gen, dev, dtype, D):
     check.update({"err_o_row": err_o_row, "tol_o_row": O_ROW_TOL[dtype],
                   "err_lse_of_limit": err_lse, "fault_o_row": fault_o_row,
                   "err_row": err_row, "tol_row": GRAD_ROW_TOL[dtype],
-                  "fault_row": fault_row})
-    outs = (o, *got) + ((so, sdk, sdv) if cuda_core else ())
+                  "err_delta_of_limit": err_delta, "fault_row": fault_row})
+    outs = (o, *got) + ((so, sdq, sdk, sdv) if cuda_core else ())
     finite = all(bool(torch.isfinite(t).all()) for t in outs)
     cc_ok = not cuda_core or (
         check["cuda_core_fwd"]["err_o_row"] <= O_ROW_TOL[dtype]
         and check["cuda_core_fwd"]["err_lse_of_limit"] <= 1.0
+        and check["cuda_core_dq"]["err_row"] <= GRAD_ROW_TOL[dtype]
         and max(check["cuda_core_dkv"]["err_row"].values())
         <= GRAD_ROW_TOL[dtype])
     if not (finite and cc_ok and err_o_row <= O_ROW_TOL[dtype]
-            and err_lse <= 1.0
+            and err_lse <= 1.0 and err_delta <= 1.0
             and max(err_row.values()) <= GRAD_ROW_TOL[dtype]
             and fault_o_row > O_ROW_TOL[dtype]
             and fault_row > GRAD_ROW_TOL[dtype]):
@@ -2440,7 +2476,7 @@ def _c1_configs(base):
             ("hd512_bf16", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2, **cut),
              "wide_wgmma"),
-            # The same widths in f32: the f32 wide forward and dK/dV.
+            # The same widths in f32: the f32 wide forward, dQ and dK/dV.
             ("hd512_f32", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2,
                 dtype=torch.float32, **cut), "wide_f32"),
@@ -2465,8 +2501,8 @@ def phase_c1_models(dev, base, model_lens):
     """Phase 2b (see the module docstring): configs beyond the bf16
     flagship serve and train through the kernels of the rule (the tensor
     cores at head_dim 256 and in f16; at head_dim 512 the tensor-core wide
-    forward and dK/dV in bf16, the f32 wide forward and dK/dV in f32, each
-    beside the CUDA-core wide dQ) or through the counted plain route."""
+    kernels in bf16, the f32 wide kernels in f32) or through the counted
+    plain route."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -3838,12 +3874,13 @@ def main() -> int:
                     bwd[f"{dt}_D{D}"], kind) for dt, D in any_widths}
             kernels.append(row)
     # The wide kernels (head_dim above 256), times at WIDE_TIMED. bf16 on
-    # the tensor cores (the forward and dK/dV) beside the CUDA-core dQ:
-    # launches from phase 2b's hd512_bf16 (one prefill_with_cache and one
-    # gradient pass), f16 and head_dim 384 beside them, and the CUDA-core
-    # forward and dK/dV on the same inputs (cuda_core_ms). f32: the f32
-    # forward and dK/dV beside the same CUDA-core dQ, launches from
-    # hd512_f32, the CUDA-core forward and dK/dV on the same inputs.
+    # the tensor cores (the forward, dQ and dK/dV): launches from phase
+    # 2b's hd512_bf16 (one prefill_with_cache and one gradient pass), f16
+    # and head_dim 384 beside them, and the CUDA-core kernels on the same
+    # inputs (cuda_core_ms). f32: the f32 forward, dQ and dK/dV, launches
+    # from hd512_f32, the CUDA-core kernels on the same inputs. The
+    # CUDA-core dQ keeps its row (no main-path launch left: bf16 and f16
+    # above head_dim 1024 only), timed on both dtypes' inputs.
     served, served32 = c1["hd512_bf16"], c1["hd512_f32"]
     wide_tc_source = "ray_tpu_torch/ops/csrc/flash_attention_wide_wgmma.cu"
     wide_source = "ray_tpu_torch/ops/csrc/flash_attention_wide.cu"
@@ -3880,32 +3917,42 @@ def main() -> int:
     beside_tc = {"float16": None, "bfloat16_D384": None,
                  "float16_D384": None}
     for kind, name in (("fwd", "flash_attention_fwd[wide-wgmma]"),
+                       ("dq", "flash_attention_bwd_dq[wide-wgmma]"),
                        ("dkv", "flash_attention_bwd_dkv[wide-wgmma]")):
         launches = (served["launches_per_prefill_by_variant"]["wide_wgmma"]
                     if kind == "fwd"
-                    else served["launches_per_pass"]["dkv_wide_wgmma"])
+                    else served["launches_per_pass"][f"{kind}_wide_wgmma"])
         train_launches = (served["launches_per_pass"]["wide_wgmma"]
                           if kind == "fwd" else None)
         kernels.append(wide_row(
             name, kind, "wide_wgmma", wide_tc_source, wide["bfloat16"],
             launches, train_launches, from_bf16, "bfloat16",
             **{k: brief(wide[k], kind) for k in beside_tc}))
-    kernels.append(wide_row(
-        "flash_attention_bwd_dq[wide]", "dq", "wide", wide_source,
-        wide["bfloat16"], served["launches_per_pass"]["dq_wide"], None,
-        from_bf16, "bfloat16",
-        **{k: brief(wide[k], "dq") for k in (*beside_tc, "float32")},
-        launches_f32=served32["launches_per_pass"]["dq_wide"]))
     for kind, name in (("fwd", "flash_attention_fwd[wide-f32]"),
+                       ("dq", "flash_attention_bwd_dq[wide-f32]"),
                        ("dkv", "flash_attention_bwd_dkv[wide-f32]")):
         launches = (served32["launches_per_prefill_by_variant"]["wide_f32"]
                     if kind == "fwd"
-                    else served32["launches_per_pass"]["dkv_wide_f32"])
+                    else served32["launches_per_pass"][f"{kind}_wide_f32"])
         train_launches = (served32["launches_per_pass"]["wide_f32"]
                           if kind == "fwd" else None)
         kernels.append(wide_row(
             name, kind, "wide_f32", wide_f32_source, wide["float32"],
             launches, train_launches, from_f32, "float32"))
+    # The CUDA-core dQ, timed and held on the bf16 inputs of WIDE_TIMED
+    # beside the tensor-core dQ (its error from the same check).
+    t = wide["bfloat16"]
+    kernels.append({
+        **wide_row("flash_attention_bwd_dq[wide]", "dq", "wide",
+                   wide_source, t, served["launches_per_pass"]["dq_wide"],
+                   None, from_bf16, "bfloat16"),
+        "max_abs_err": t["check"]["cuda_core_dq"]["max_abs_err"],
+        "ms": t["dq"]["cuda_core_ms"], "kernel_ms": t["dq"]["cuda_core_ms"],
+        "tflops": t["dq"]["tflops"] * t["dq"]["kernel_ms"]
+        / t["dq"]["cuda_core_ms"], "cuda_core_ms": None,
+        "launches_f32": served32["launches_per_pass"]["dq_wide"],
+        "float32_ms": wide["float32"]["dq"]["cuda_core_ms"],
+        "float16_ms": wide["float16"]["dq"]["cuda_core_ms"]})
     t = rms["bfloat16"]
     kernels.append({
         "name": "rms_norm_fused", "route": "triton",

@@ -32,19 +32,24 @@ The designs:
   240), the layout before this one.
 
 With ``--wide``, the same for the tensor-core wide kernels
-(``flash_attention_wide_wgmma.cu``: the forward and dK/dV for head_dim
-above 256) at head_dim 512 and 384, against ``WIDE_VARIANTS``: dK/dV
-with 256-column chunks (each warpgroup owning 128 columns of dK and dV,
-as first written) and the forward with a 6-slot K ring (up to head_dim
-768). dK/dV of each design is held against this tree's (per row within
-GRAD_ROW_TOL), on delta from this tree's wide dQ kernel. ``--parent`` does
-not apply there (no earlier commit has the library).
+(``flash_attention_wide_wgmma.cu``: the forward, dQ and dK/dV for
+head_dim above 256) at head_dim 512 and 384, against ``WIDE_VARIANTS``:
+dK/dV with 256-column chunks (each warpgroup owning 128 columns of dK and
+dV, as first written), the forward with a 6-slot K ring (up to head_dim
+768) and dQ with 128-column chunks (each warpgroup owning 64 columns: 3x
+the real work at D = 512 against 1.67x). dQ (with its delta) and dK/dV
+of each design are held against this tree's (per row within
+GRAD_ROW_TOL; delta against rowsum(dO * O) at testing.delta_error's
+limit), dK/dV on delta from this tree's dQ kernel. ``--parent`` does not
+apply there (no earlier commit has the library).
 
 With ``--wide-f32``, the same for the f32 wide kernels
 (``flash_attention_wide_f32.cu``) on f32 inputs at head_dim 512 and 384,
 against ``WIDE_F32_VARIANTS``: dK/dV with 128 columns of dK and dV a
 block (2.5x the real work at D = 512 against 1.5x, 64 f32 of them a
-thread, as first written) and both kernels with a 4-stage copy ring.
+thread, as first written), all three kernels with a 4-stage copy ring,
+and dQ with 256 columns a block (64 f32 of dQ a thread, 1.67x the real
+work at D = 512 against 1x for this tree's 512).
 
 Run from the repository root: ``python3 flash_ab.py --parent DIR``
 (``--variants ""`` builds no textual variant), ``python3 flash_ab.py
@@ -124,6 +129,8 @@ WIDE_VARIANTS = {
     "wide_fwd_kring6": {WIDE_SOURCE: [
         ("constexpr int kFwdKStages = 4;", "constexpr int kFwdKStages = 6;"),
         ("constexpr int kMaxD = 1024;", "constexpr int kMaxD = 768;")]},
+    "wide_dq_chunk128": {WIDE_SOURCE: [
+        ("constexpr int kDqChunk = 256;", "constexpr int kDqChunk = 128;")]},
 }
 WIDE_F32_SOURCE = "flash_attention_wide_f32.cu"
 WIDE_F32_VARIANTS = {
@@ -132,6 +139,9 @@ WIDE_F32_VARIANTS = {
          "constexpr int kCols = 128;    // columns of dK and of dV")]},
     "f32_stages4": {WIDE_F32_SOURCE: [
         ("constexpr int kStages = 3;", "constexpr int kStages = 4;")]},
+    "f32_dq_cols256": {WIDE_F32_SOURCE: [
+        ("constexpr int kCols = 512;    // columns of dQ per block",
+         "constexpr int kCols = 256;    // columns of dQ per block")]},
 }
 # The head_dims where a variant's code differs from this tree's.
 VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
@@ -188,15 +198,16 @@ def build(names, parent, libraries=LIBS):
 
 
 def entry_points(name, libs):
-    """(forward, dQ, dK/dV) C functions of a design, argument types set
-    (the wide libraries have no dQ: None)."""
+    """(forward, dQ, dK/dV) C functions of a design, argument types set."""
     if "flash_attention_wide_f32" in libs:
         wide = libs["flash_attention_wide_f32"]
-        fwd, dq = wide.flash_attention_fwd_wide_f32, None
+        fwd = wide.flash_attention_fwd_wide_f32
+        dq = wide.flash_attention_bwd_dq_wide_f32
         dkv = wide.flash_attention_bwd_dkv_wide_f32
     elif "flash_attention_wide_wgmma" in libs:
         wide = libs["flash_attention_wide_wgmma"]
-        fwd, dq = wide.flash_attention_fwd_wide_wgmma, None
+        fwd = wide.flash_attention_fwd_wide_wgmma
+        dq = wide.flash_attention_bwd_dq_wide_wgmma
         dkv = wide.flash_attention_bwd_dkv_wide_wgmma
     else:
         fwd = libs["flash_attention_fwd_wgmma"].flash_attention_fwd_wgmma
@@ -205,11 +216,9 @@ def entry_points(name, libs):
         dkv = bwd.flash_attention_bwd_dkv_wgmma
     fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP]
     for fn in (dq, dkv):
-        if fn is not None:
-            fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
+        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
     for fn in (fwd, dq, dkv):
-        if fn is not None:
-            fn.restype = _CI
+        fn.restype = _CI
     return fwd, dq, dkv
 
 
@@ -219,9 +228,11 @@ def kinds(name):
     if name in ("tree", "parent"):
         return ("fwd", "dq", "dkv")
     if name in WIDE_VARIANTS:
-        return ("fwd",) if name == "wide_fwd_kring6" else ("dkv",)
+        return {"wide_fwd_kring6": ("fwd",), "wide_dkv_chunk256": ("dkv",),
+                "wide_dq_chunk128": ("dq",)}[name]
     if name in WIDE_F32_VARIANTS:
-        return ("dkv",) if name == "f32_dkv_cols128" else ("fwd", "dkv")
+        return {"f32_dkv_cols128": ("dkv",), "f32_dq_cols256": ("dq",),
+                "f32_stages4": ("fwd", "dq", "dkv")}[name]
     files = VARIANTS[name]
     return (("fwd",) if "flash_attention_fwd_wgmma.cu" in files else ()) + \
         (("dq", "dkv") if "flash_attention_bwd_wgmma.cu" in files else ())
@@ -349,6 +360,34 @@ def dkv_check(runs, others, t, D):
                                  f"this tree's kernel")
 
 
+def dq_check(runs, others, t, D):
+    """This tree's dQ against the plain backward and its delta against
+    rowsum(dO * O), and each design's dQ and delta against this tree's:
+    dQ per row within GRAD_ROW_TOL, delta at testing.delta_error's
+    limit."""
+    fa = cs._flash_module()
+    runs["tree"]["dq"](0)
+    torch.cuda.synchronize()
+    tq = t["dq2"].clone()
+    ref = fa._dense_backward(t["q"], t["k"], t["v"], t["o"], t["lse"],
+                             t["do"], True, D ** -0.5)[0]
+    tol = cs.GRAD_ROW_TOL[t["q"].dtype]
+    emit({"check": "tree dQ vs plain", "D": D,
+          "err_row": cs.grad_row_error(tq, ref), "tol_row": tol,
+          "err_delta_of_limit": testing.delta_error(t["delta2"], t["do"],
+                                                    t["o"])})
+    for n in others:
+        runs[n]["dq"](0)
+        torch.cuda.synchronize()
+        err = cs.grad_row_error(t["dq2"], tq)
+        err_delta = testing.delta_error(t["delta2"], t["do"], t["o"])
+        emit({"check": f"{n} dQ vs tree", "D": D, "err_row": err,
+              "tol_row": tol, "err_delta_of_limit": err_delta})
+        if not (err <= tol and err_delta <= 1.0):
+            raise AssertionError(f"{n} at D={D}: dQ or its delta disagrees "
+                                 f"with this tree's kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device; this script runs only on a card",
@@ -410,6 +449,7 @@ def main() -> int:
               "tol_o_row": cs.O_ROW_TOL[dtype],
               "err_lse_of_limit": err_lse})
         if args.wide:
+            dq_check(runs, others, t, D)
             dkv_check(runs, others, t, D)
         for n in others:
             runs[n]["fwd"](0)
@@ -421,7 +461,7 @@ def main() -> int:
             if not (err_row <= cs.O_ROW_TOL[dtype] and err_lse <= 1.0):
                 raise AssertionError(f"{n} at D={D} disagrees with this "
                                      f"tree's kernel")
-        for kind in ("fwd", "dkv") if args.wide else ("fwd", "dq", "dkv"):
+        for kind in ("fwd", "dq", "dkv"):
             with_kind = [n for n in others if kind in kinds(n)]
             order = [*with_kind, "tree", "tree", *with_kind[::-1]]
             ms = {n: [] for n in ["tree", *with_kind]}

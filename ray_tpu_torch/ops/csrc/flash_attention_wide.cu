@@ -1,15 +1,14 @@
 // Flash attention for head dims above 256 on Hopper (sm_90a), on the CUDA
 // cores: the forward (MHA and GQA), dQ and dK/dV, in f32, bf16 and f16.
-// The wrapper's rule of shapes sends here, above head_dim 256: every dQ
-// (this dQ kernel writes the delta that the dK/dV kernels of
-// flash_attention_wide_wgmma.cu and flash_attention_wide_f32.cu read), and
-// bf16 and f16 above 1024, all three kernels. The forward and dK/dV of
-// bf16 and f16 up to 1024 are flash_attention_wide_wgmma.cu's, of f32
-// flash_attention_wide_f32.cu's. bf16 and f16 at the multiples of 8 up to
-// 256 take the tensor-core kernels, f32 there those of
-// flash_attention_fwd.cu / flash_attention_bwd.cu. chip_smoke.py still
-// calls this file's forward and dK/dV in every dtype through their C entry
-// points, and times them beside the kernels that took their place.
+// The wrapper's rule of shapes sends here only bf16 and f16 above head_dim
+// 1024, all three kernels. The forward, dQ and dK/dV of bf16 and f16 up to
+// 1024 are flash_attention_wide_wgmma.cu's, of f32 at every width
+// flash_attention_wide_f32.cu's (each of those dQ kernels writes the delta
+// its dK/dV kernel reads). bf16 and f16 at the multiples of 8 up to 256
+// take the tensor-core kernels, f32 there those of flash_attention_fwd.cu
+// / flash_attention_bwd.cu. chip_smoke.py still calls this file's three
+// kernels in every dtype through their C entry points, and times them
+// beside the kernels that took their place.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
@@ -57,8 +56,8 @@
 // - Every block computes delta = rowsum(dO * O) over the full head
 //   dimension itself, as the narrower CUDA-core kernels do; the dQ
 //   kernel's blocks of chunk 0 also write it [B*H, Sq] f32 when given a
-//   buffer, for the tensor-core dK/dV kernel of
-//   flash_attention_wide_wgmma.cu, which reads it rather than O.
+//   buffer, as the dQ kernels of the other wide libraries write it for
+//   their dK/dV kernels, which read it rather than O.
 // - LSE [B, Hq, Sq] f32 is written by the blocks of chunk 0.
 //
 // The kernels launch on the caller's stream and allocate nothing.

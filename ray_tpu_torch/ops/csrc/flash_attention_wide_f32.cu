@@ -1,37 +1,40 @@
 // Flash attention in float32 for head dims above 256 on Hopper (sm_90a),
-// on the CUDA cores: the forward (MHA and GQA) and the dK/dV kernel, any
-// head_dim that is a multiple of 8. The wrapper's rule of shapes sends f32
-// above head_dim 256 here; the f32 dQ kernel there stays the CUDA-core one
-// of flash_attention_wide.cu, which also writes the delta = rowsum(dO * O)
-// that this dK/dV kernel reads.
+// on the CUDA cores: the forward (MHA and GQA), dQ and dK/dV, any head_dim
+// that is a multiple of 8. The wrapper's rule of shapes sends f32 above
+// head_dim 256 here, all three kernels; this dQ kernel also writes the
+// delta = rowsum(dO * O) that this dK/dV kernel reads.
 //
 // Replaces, for those head dims in f32, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
 // and `_flash_forward_grouped` (GQA, K/V at n_kv_heads width) launch it,
-// and `_attn_bwd_dkv_kernel` as `_flash_bwd_rule` launches it. The
-// arithmetic is theirs: the forward's Q times the scale before Q K^T, f32
-// scores, the online softmax with finite -1e30 masking, l clamped at
-// 1e-30, LSE = m + log(l); the backward's scores scaled in f32, P rebuilt
-// as exp(scale * S - LSE), dS = P * (dP - delta), dV = sum P^T dO and dK =
-// scale * sum dS^T Q. Every product is an f32 FMA on the CUDA cores: no
+// and `_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel` as
+// `_flash_bwd_rule` launches them. The arithmetic is theirs: the forward's
+// Q times the scale before Q K^T, f32 scores, the online softmax with
+// finite -1e30 masking, l clamped at 1e-30, LSE = m + log(l); the
+// backward's scores scaled in f32, P rebuilt as exp(scale * S - LSE), dS =
+// P * (dP - delta), dQ = scale * sum dS K, dV = sum P^T dO and dK = scale
+// * sum dS^T Q. Every product is an f32 FMA on the CUDA cores: no
 // TF32 and no tensor-core instruction, whose rounding would break the f32
 // limits (testing.O_ROW_TOL, LSE_TOL, GRAD_ROW_TOL).
 //
 // What bounds them on the H100: f32 operations at 67 TFLOP/s. The forward
-// does 4 * Sq * Sk * D operations per (batch, head) and dK/dV 8 * Sq * Sk
-// * D (about half of each when causal): at B=4, H=8, S=2048, D=512, causal
-// that is ~137 and ~275 GFLOP against ~0.54 and ~0.81 GB moved, 2.05 and
-// 4.10 ms at the f32 rate against 0.16 and 0.24 ms at 3.35 TB/s.
+// does 4 * Sq * Sk * D operations per (batch, head), dQ 6 * Sq * Sk * D and
+// dK/dV 8 * Sq * Sk * D (about half of each when causal): at B=4, H=8,
+// S=2048, D=512, causal that is ~137, ~206 and ~275 GFLOP against ~0.54 to
+// ~0.81 GB moved, 2.05, 3.08 and 4.10 ms at the f32 rate against 0.16 to
+// 0.24 ms at 3.35 TB/s.
 //
-// Design, both kernels (256 threads, one block per SM):
+// Design, all three kernels (256 threads, one block per SM):
 // - A block owns a wide slice of the output's columns: 256 columns of O
-//   (64 rows x 256 columns, 64 f32 a thread) or 256 of dK and of dV (64
-//   keys x 256 columns each, 128 f32 a thread for both). The scores need
-//   all of D, so each block reduces them over D itself and the reduction
-//   is repeated once per slice: (D / 256 + 1) / 2 times the forward's
-//   operations and (2 * D / 256 + 2) / 4 times dK/dV's, 1.5x both at D =
-//   512, against 4.5x for the 64-column slices of
-//   flash_attention_wide.cu. ptxas holds dK/dV's 128 accumulators, the
+//   (64 rows x 256 columns, 64 f32 a thread), 512 of dQ (64 rows x 512
+//   columns, 128 f32 a thread) or 256 of dK and of dV (64 keys x 256
+//   columns each, 128 f32 a thread for both). The scores need all of D,
+//   so each block reduces them over D itself and the reduction is
+//   repeated once per slice: (D / 256 + 1) / 2 times the forward's
+//   operations, (2 * D / 512 + 1) / 3 times dQ's and (2 * D / 256 + 2) / 4
+//   times dK/dV's: 1.5x, 1x and 1.5x at D = 512, against 4.5x and more for
+//   the 64-column slices of flash_attention_wide.cu. ptxas holds dK/dV's
+//   128 accumulators, the
 //   score tiles and the operands in 255 registers without a spill; with
 //   128 columns (64 accumulators, 2.5x the work at D = 512) it took 238
 //   and ran 1.7x slower (flash_ab.py --wide-f32).
@@ -56,9 +59,22 @@
 //   before the box's barrier. The softmax of a tile runs over P^T in
 //   shared memory, four threads a query row; the rescale factor of each
 //   row goes to shared memory for the threads that own O's rows.
-// - dK/dV reads LSE and delta, never O: the wide dQ kernel writes delta
-//   as a side output. A tile's LSE and delta are copied into the stage of
-//   its last reduction box.
+// - dK/dV reads LSE and delta, never O: the dQ kernel writes delta as a
+//   side output. A tile's LSE and delta are copied into the stage of its
+//   last reduction box.
+// - dQ is dK/dV turned around: a block owns 64 query rows x 512 columns of
+//   dQ (an 8 x 16 tile a thread: no repeated reduction up to D = 512; with
+//   256 columns, 1.67x the work at D = 512, it ran 1.7x slower,
+//   flash_ab.py --wide-f32) and streams 64-key tiles up to its last row,
+//   the reduction boxes holding Q, dO, K and V and the product boxes K's
+//   16 keys x 512 columns. dS goes to shared memory as dS^T, 8 consecutive
+//   query rows a thread for the product. Each 32-column box's partial dP
+//   starts from 0 and joins the tile's sum once done (shorter rounding
+//   chains: dP - delta cancels where dO and V are large, ROADMAP C.9); S
+//   needs no such split, and without its partials the 128 accumulators
+//   fit 254 registers with no spill. delta and LSE of the block's 64 rows
+//   are read once, before the key loop, four threads a row; the blocks of
+//   the first column slice write delta.
 //
 // Other points:
 // - Any multiple of 8 above 256 (no upper limit): a box narrower than 32
@@ -639,6 +655,252 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
   }
 }
 
+// ------------------------------------------------------------------ dQ
+namespace bwd_dq {
+
+constexpr int kRows = 64;     // query rows per block (rows of dQ)
+constexpr int kKeys = 64;     // keys per tile
+constexpr int kCols = 512;    // columns of dQ per block
+constexpr int kThreadCols = kCols / 32;   // a thread's columns
+constexpr int kPKeys = 8192 / kCols;      // keys per product box
+constexpr int kPBoxes = kKeys / kPKeys;
+constexpr int kBox = kRows * kBoxStride;  // one of Q, dO, K, V
+static_assert(kRows == kKeys, "Q, dO, K and V boxes share a size");
+constexpr int kStage = 4 * kBox;
+static_assert(kStage >= kPKeys * kCols, "product box fits a stage");
+constexpr int kPStride = kRows + 4;   // dS: one row of kRows per key
+constexpr int kSmemFloats = kStages * kStage + kKeys * kPStride + 2 * kRows;
+constexpr int kSmemBytes = kSmemFloats * 4;
+static_assert(kSmemBytes <= 232448, "227 KB a block");
+
+}  // namespace bwd_dq
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ o,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ dq,
+                             float* __restrict__ delta, int sq, int sk,
+                             int d, int n_slices, float scale, int causal) {
+  using namespace bwd_dq;
+  extern __shared__ __align__(16) float smem[];
+  float* dss = smem + kStages * kStage;   // dS [kKeys][kPStride]
+  float* lse_s = dss + kKeys * kPStride;  // per row of the block
+  float* delta_s = lse_s + kRows;
+
+  const int bh = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - bh * n_slices;
+  // The last query rows (the most key tiles when causal) first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int c0 = slice * kCols;
+  const float* qm = q + (size_t)bh * sq * d;
+  const float* dom = dout + (size_t)bh * sq * d;
+  const float* km = k + (size_t)bh * sk * d;
+  const float* vm = v + (size_t)bh * sk * d;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // S and dP: query rows ry + 16 i, keys rx + 16 j (a warp: 4 x 8).
+  const int ry = (warp / 2) * 4 + lane / 8;
+  const int rx = (warp % 2) * 8 + lane % 8;
+  // dQ: rows 8 ty + i, columns 4 tx + 128 j + e (a warp: 4 x 8).
+  const int ty = (warp / 4) * 4 + lane / 8;
+  const int tx = (warp % 4) * 8 + lane % 8;
+
+  // delta = rowsum(dO * O) and LSE of the block's rows, four threads
+  // (adjacent lanes) a row, read once; the blocks of the first slice write
+  // delta for the dK/dV kernel. Read after the first box's barrier.
+  {
+    const int r = threadIdx.x / 4;
+    const int part = threadIdx.x % 4;
+    const int qi = q0 + r;
+    float sum = 0.f;
+    if (qi < sq) {
+      const float* dor = dom + (size_t)qi * d;
+      const float* orow = o + ((size_t)bh * sq + qi) * d;
+      for (int col = 4 * part; col < d; col += 16) {
+        sum += dot4(ld4(dor + col), ld4(orow + col), 0.f);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) {
+      delta_s[r] = sum;
+      lse_s[r] = qi < sq ? lse[(size_t)bh * sq + qi] : 0.f;
+      if (slice == 0 && qi < sq) delta[(size_t)bh * sq + qi] = sum;
+    }
+  }
+
+  float acc[8][kThreadCols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < kThreadCols; ++e) acc[i][e] = 0.f;
+  }
+  float s[4][4];
+  float dp[4][4];
+
+  // Causal: key tiles past this block's last query row are masked.
+  int n_kt = (sk + kKeys - 1) / kKeys;
+  if (causal) n_kt = min(n_kt, (min(q0 + kRows, sq) - 1) / kKeys + 1);
+  const int n_rbox = (d + kBoxCols - 1) / kBoxCols;
+  const int per_tile = n_rbox + kPBoxes;
+  const int n_boxes = n_kt * per_tile;
+
+  // Per key tile: n_rbox boxes of Q, dO, K and V over D, then kPBoxes
+  // boxes of K over the block's columns.
+  auto issue = [&](int box) {
+    float* st = smem + (box % kStages) * kStage;
+    const int tile = box / per_tile;
+    const int idx = box - tile * per_tile;
+    const int k0 = tile * kKeys;
+    if (idx < n_rbox) {
+      const int col0 = idx * kBoxCols;
+      load_box<kRows, kBoxCols, kBoxStride>(st, qm, q0, sq, col0, d);
+      load_box<kRows, kBoxCols, kBoxStride>(st + kBox, dom, q0, sq, col0,
+                                            d);
+      load_box<kKeys, kBoxCols, kBoxStride>(st + 2 * kBox, km, k0, sk, col0,
+                                            d);
+      load_box<kKeys, kBoxCols, kBoxStride>(st + 3 * kBox, vm, k0, sk, col0,
+                                            d);
+    } else {
+      load_box<kPKeys, kCols, kCols>(st, km, k0 + (idx - n_rbox) * kPKeys,
+                                     sk, c0, d);
+    }
+  };
+
+  issue(0);
+  cp_async_commit();
+  if (n_boxes > 1) issue(1);
+  cp_async_commit();
+  for (int bx = 0; bx < n_boxes; ++bx) {
+    const int tile = bx / per_tile;
+    const int idx = bx - tile * per_tile;
+    const int k0 = tile * kKeys;
+    const float* st = smem + (bx % kStages) * kStage;
+    cp_async_wait_all_but_one();
+    // Box bx is visible to all; every thread is done with box bx - 1, whose
+    // stage box bx + 2 now takes.
+    __syncthreads();
+    if (bx + 2 < n_boxes) issue(bx + 2);
+    cp_async_commit();
+
+    if (idx < n_rbox) {
+      if (idx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = 0.f;
+            dp[i][j] = 0.f;
+          }
+        }
+      }
+      // Each box's 32-column sums of dP start from 0 and are added to the
+      // tile's once done: shorter chains of rounding than one chain over
+      // all of D (dP - delta cancels where dO and V are large).
+      float dpb[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dpb[i][j] = 0.f;
+      }
+      const float* qs = st;
+      const float* ds = st + kBox;
+      const float* ks = st + 2 * kBox;
+      const float* vs = st + 3 * kBox;
+#pragma unroll
+      for (int kk = 0; kk < kBoxCols; kk += 4) {
+        float4 qf[4];
+        float4 df[4];
+        float4 kf[4];
+        float4 vf[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qf[i] = ld4(qs + (ry + 16 * i) * kBoxStride + kk);
+          df[i] = ld4(ds + (ry + 16 * i) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kf[j] = ld4(ks + (rx + 16 * j) * kBoxStride + kk);
+          vf[j] = ld4(vs + (rx + 16 * j) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = dot4(qf[i], kf[j], s[i][j]);
+            dpb[i][j] = dot4(df[i], vf[j], dpb[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] += dpb[i][j];
+      }
+      if (idx == n_rbox - 1) {
+        // dS = P * (dP - delta) with P = exp(scale * S - LSE), to dS^T in
+        // shared memory, read after the next box's barrier.
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = ry + 16 * i;
+          const int qi = q0 + row;
+          const float row_lse = lse_s[row];
+          const float row_delta = delta_s[row];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = rx + 16 * j;
+            const int kj = k0 + key;
+            const bool keep = kj < sk && qi < sq && (!causal || kj <= qi);
+            const float p = keep ? expf(s[i][j] * scale - row_lse) : 0.f;
+            dss[key * kPStride + row] = p * (dp[i][j] - row_delta);
+          }
+        }
+      }
+    } else {
+      const int pb = idx - n_rbox;
+      const float* ks = st;
+      const float* dsrow = dss + pb * kPKeys * kPStride + 8 * ty;
+#pragma unroll 8
+      for (int r = 0; r < kPKeys; ++r) {
+        float dsv[8];
+        unpack8(dsv, ld4(dsrow + r * kPStride), ld4(dsrow + r * kPStride + 4));
+#pragma unroll
+        for (int j = 0; j < kThreadCols / 4; ++j) {
+          const float4 kv = ld4(ks + r * kCols + 4 * tx + 128 * j);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float* a = acc[i] + 4 * j;
+            a[0] = fmaf(dsv[i], kv.x, a[0]);
+            a[1] = fmaf(dsv[i], kv.y, a[1]);
+            a[2] = fmaf(dsv[i], kv.z, a[2]);
+            a[3] = fmaf(dsv[i], kv.w, a[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qi = q0 + 8 * ty + i;
+    if (qi >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < kThreadCols / 4; ++j) {
+      const int col = c0 + 4 * tx + 128 * j;
+      if (col >= d) continue;
+      const float* a = acc[i] + 4 * j;
+      *reinterpret_cast<float4*>(dq + ((size_t)bh * sq + qi) * d + col) =
+          make_float4(a[0] * scale, a[1] * scale, a[2] * scale,
+                      a[3] * scale);
+    }
+  }
+}
+
 bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
@@ -703,5 +965,37 @@ extern "C" int flash_attention_bwd_dkv_wide_f32(
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, n_slices,
       scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// q, o, dout, dq [B*H, Sq, D], k, v [B*H, Sk, D] f32 (contiguous, 16-byte
+// aligned; D any multiple of 8); lse [B*H, Sq] f32 as the forward writes
+// it; delta [B*H, Sq] f32, written with rowsum(dO * O) for the dK/dV kernel
+// (not null); dtype must be 0. The arguments of flash_attention_bwd_dq_wide.
+extern "C" int flash_attention_bwd_dq_wide_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* delta, int bh, int sq,
+    int sk, int d, float scale, int causal, int dtype, void* stream) {
+  const int n_qb = (sq + bwd_dq::kRows - 1) / bwd_dq::kRows;
+  const int n_slices = (d + bwd_dq::kCols - 1) / bwd_dq::kCols;
+  if (dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
+      n_qb > 65535 || (long long)bh * n_slices > 0x7fffffffLL ||
+      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(o) ||
+      misaligned(dout) || misaligned(dq) || lse == nullptr ||
+      delta == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_dq::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh * n_slices, n_qb);
+  flash_bwd_dq_wide_f32_kernel<<<grid, kThreads, bwd_dq::kSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dq), static_cast<float*>(delta), sq, sk, d,
+      n_slices, scale, causal);
   return (int)cudaGetLastError();
 }

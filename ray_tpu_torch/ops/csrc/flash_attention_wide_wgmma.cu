@@ -1,16 +1,17 @@
 // Flash attention for head dims above 256 on Hopper's tensor cores
-// (sm_90a): the forward (MHA and GQA) and the dK/dV kernel, bf16 or f16,
-// head_dim any multiple of 8 from 264 to 1024, with TMA-fed tiles, wgmma
-// products, one producer warp and consumer warpgroups. The wrapper's rule
-// of shapes sends bf16 and f16 at those head dims here; f32 and head dims
-// above 1024 keep the CUDA-core kernels of flash_attention_wide.cu, whose
-// dQ kernel also runs beside this dK/dV kernel and writes the delta it
-// reads.
+// (sm_90a): the forward (MHA and GQA), dQ and dK/dV, bf16 or f16, head_dim
+// any multiple of 8 from 264 to 1024, with TMA-fed tiles, wgmma products,
+// one producer warp and consumer warpgroups. The wrapper's rule of shapes
+// sends bf16 and f16 at those head dims here, all three kernels; f32 goes
+// to flash_attention_wide_f32.cu and bf16/f16 above 1024 to the CUDA-core
+// kernels of flash_attention_wide.cu. This dQ kernel writes the delta
+// that this dK/dV kernel reads.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
 // and `_flash_forward_grouped` (GQA, K/V at n_kv_heads width) launch it,
-// and `_attn_bwd_dkv_kernel` as `_flash_bwd_rule` launches it. The
+// and `_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel` as
+// `_flash_bwd_rule` launches them. The
 // rounding points are theirs and the narrower tensor-core kernels'
 // (flash_attention_fwd_wgmma.cu, flash_attention_bwd_wgmma.cu): Q * scale
 // rounded to the input type T (the scale rounded to T first) before the
@@ -19,10 +20,11 @@
 // backward's scores scaled in f32 and P rebuilt from the forward's LSE.
 //
 // What bounds them on the H100. The forward does 4 * Sq * Sk * D
-// operations per (batch, head) and the dK/dV kernel 8 * Sq * Sk * D (about
-// half of each when causal): at B=4, H=8, S=2048, D=512, causal that is
-// ~137 and ~275 GFLOP against ~70 and ~200 MB moved, so both are bound by
-// operations (0.139 and 0.278 ms at 989 TFLOP/s).
+// operations per (batch, head), dQ 6 * Sq * Sk * D and dK/dV 8 * Sq * Sk *
+// D (about half of each when causal): at B=4, H=8, S=2048, D=512, causal
+// that is ~137, ~206 and ~275 GFLOP against ~70 to ~200 MB moved, so all
+// three are bound by operations (0.139, 0.209 and 0.278 ms at 989
+// TFLOP/s).
 //
 // What stops the narrower tensor-core kernels at 256. A warpgroup that
 // owns 64 rows of an output D columns wide holds D / 2 f32 a thread; ptxas
@@ -31,13 +33,13 @@
 // a block has 227 KB of shared memory: 128 query rows of Q at D = 512 take
 // 128 KB, one 64-key K tile 64 KB.
 //
-// Design, both kernels:
+// Design, all three kernels:
 // - Grid z splits the output's head dimension into chunks (256 columns of
-//   O, 128 of dK and dV), as the CUDA-core wide kernels split it into 64.
-//   Each CTA reduces the scores (and dP) over all of D and writes its
-//   chunk, so the reduction is repeated once per chunk: at D = 512 the
-//   forward does 1.5x the real work and dK/dV 2.5x, against 4.5x and more
-//   for the CUDA-core kernels.
+//   O and of dQ, 128 of dK and dV), as the CUDA-core wide kernels split it
+//   into 64. Each CTA reduces the scores (and dP) over all of D and writes
+//   its chunk, so the reduction is repeated once per chunk: at D = 512 the
+//   forward does 1.5x the real work, dQ (2 * 2 + 1) / 3 = 1.67x and dK/dV
+//   2.5x, against 4.5x and more for the CUDA-core kernels.
 // - The reduction over D streams 64-column boxes (one 128-byte swizzle row
 //   of T) through a TMA ring; a box is read by 4 wgmma of depth 16.
 // - No consumer spills: a spilled accumulator makes ptxas serialize the
@@ -86,10 +88,30 @@
 // 512 K and V for the CTA's 64 keys stay in shared memory (kResident, 128
 // KB at D = 512); above it they stream with the Q and dO boxes in the same
 // slots, read again for every query tile. delta = rowsum(dO * O) [B*H,
-// Sq] f32 is the CUDA-core wide dQ kernel's side output
-// (flash_attention_wide.cu), which runs first on the same stream: streaming
-// O a second time here would add a third to the streamed bytes. The
-// producer warp copies a tile's LSE and delta into a two-slot ring.
+// Sq] f32 is the dQ kernel's side output (below), which runs first on the
+// same stream: streaming O a second time here would add a third to the
+// streamed bytes. The producer warp copies a tile's LSE and delta into a
+// two-slot ring.
+//
+// dQ (flash_bwd_dq_wide_wgmma_kernel<T, kResident>): dK/dV turned around.
+// A CTA owns 64 query rows of one (b, h) and one 256-column chunk of dQ;
+// each of its two consumer warpgroups owns 128 of the chunk's columns (64
+// f32 a thread, the budget dK/dV spends on dK and dV). Key tiles of 32
+// keys stream up to the CTA's last row when causal (the heaviest causal
+// CTAs first). The two reductions of a tile, S = Q K^T and dP = dO V^T,
+// are split between the warpgroups (the first computes S and P =
+// exp(scale * S - LSE), the second dP) and exchanged through shared
+// memory, double-buffered with one named barrier a tile. Then each forms
+// T(dS) = T(P * (dP - delta)) and adds dQ += dS K over its columns, A in
+// registers, K's chunk boxes MN-major from the ring; a tile's K and V
+// boxes (32 keys x 64 columns each, one ring slot) arrive with the
+// chunk's last, so the other slots free early. Up to D = 512 Q and dO for
+// the CTA's 64 rows stay in shared memory (kResident, 128 KB at D = 512);
+// above it they stream with the K and V boxes in the same slots. delta =
+// rowsum(dO * O) of the CTA's rows is summed from device memory once,
+// before the key loop, half of D's columns by each warpgroup; the CTAs of
+// chunk 0 write it [B*H, Sq] f32 for dK/dV. The CTA's dQ is staged in the
+// ring and stored with TMA.
 //
 // Launches on the caller's stream and allocates nothing.
 
@@ -425,12 +447,12 @@ static_assert(kDkvStages * DkvLayout<true>::kSlot >=
               "the ring holds the CTA's dK and dV");
 
 // The 64-column box of D that item j of a tile carries: first the boxes
-// outside the chunk [cb0, cb0 + kDkvChunkBoxes), in order, then the
-// chunk's (a box at or past n_boxes lies wholly past D and arrives as
-// zeros).
+// outside the chunk [cb0, cb0 + kChunkBoxes), in order, then the chunk's
+// (a box at or past n_boxes lies wholly past D and arrives as zeros).
+template <int kChunkBoxes>
 __device__ __forceinline__ int item_box(int j, int n_other, int cb0) {
   if (j >= n_other) return cb0 + (j - n_other);
-  return j < cb0 ? j : j + kDkvChunkBoxes;
+  return j < cb0 ? j : j + kChunkBoxes;
 }
 
 template <typename T, bool kResident>
@@ -518,7 +540,7 @@ flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (p_lane != 0) continue;
       for (int j = 0; j < n_items; ++j, ++n) {
         const int s = slot_of<kDkvStages>(n);
-        const int c = item_box(j, n_other, cb0);
+        const int c = item_box<kDkvChunkBoxes>(j, n_other, cb0);
         const uint32_t slot = ring + s * L::kSlot;
         mbar_wait(empty(s), parity_of<kDkvStages>(n) ^ 1);
         mbar_arrive_expect_tx(full(s), L::kSlot);
@@ -571,7 +593,7 @@ flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int n_chunk0 = n + n_other;  // ring use of the chunk's first box
     for (int j = 0; j < n_items; ++j, ++n) {
       const int s = slot_of<kDkvStages>(n);
-      const int c = item_box(j, n_other, cb0);
+      const int c = item_box<kDkvChunkBoxes>(j, n_other, cb0);
       const uint32_t slot = ring + s * L::kSlot;
       mbar_wait(full(s), parity_of<kDkvStages>(n));
       if (c < n_boxes) {
@@ -717,6 +739,355 @@ flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---- dQ -------------------------------------------------------------------
+
+constexpr int kDqRows = 64;          // query rows per CTA, both warpgroups
+constexpr int kDqKeys = 32;          // keys per streamed tile
+constexpr int kDqStages = 8;         // ring slots: a tile's chunk boxes
+                                     // held, the rest streaming
+constexpr int kDqConsumerThreads = 256;
+constexpr int kDqConsumerWarps = kDqConsumerThreads / 32;
+constexpr int kDqThreads = kDqConsumerThreads + 32;  // + producer warp
+constexpr int kKeyBox = kDqKeys * 128;   // 32 keys x 64 columns of T
+constexpr int kDqChunk = 256;            // dQ columns per CTA
+constexpr int kDqChunkBoxes = kDqChunk / 64;
+constexpr int kDqWgBoxes = kDqChunkBoxes / 2;  // 64-column boxes a group owns
+// The exchange of one tile: P then dP, 64 x 32 f32 each, in the
+// accumulators' per-thread order.
+constexpr int kDqXFloats = 2 * kDqRows * kDqKeys;
+
+template <bool kResident>
+struct DqLayout {
+  // A ring slot: the K box, the V box and, when Q and dO stream, their
+  // boxes of the CTA's rows.
+  static constexpr int kSlot = 2 * kKeyBox + (kResident ? 0 : 2 * kBox);
+  static constexpr int kMaxBoxes = (kResident ? 512 : kMaxD) / 64;
+  // Barriers in the first 512 bytes (qo_full; full and empty per ring
+  // slot), delta of the CTA's 64 rows (f32) in the next 512.
+  static constexpr int kDelta = 512;
+  static constexpr int kX = 1024;                       // exchange, 2 tiles
+  static constexpr int kRing = kX + 2 * kDqXFloats * 4;
+  static constexpr int kQO = kRing + kDqStages * kSlot;  // resident Q, dO
+  static constexpr int alloc(int n_boxes) {
+    return kQO + (kResident ? 2 * n_boxes * kBox : 0) + 1024;
+  }
+};
+static_assert(DqLayout<true>::alloc(DqLayout<true>::kMaxBoxes) <=
+                      kSmemLimit &&
+                  DqLayout<false>::alloc(DqLayout<false>::kMaxBoxes) <=
+                      kSmemLimit,
+              "over the 227 KB a block may use");
+// The epilogue stages the CTA's dQ chunk (64 rows) in the ring, and a
+// tile's chunk boxes stay in the ring for the products.
+static_assert(kDqStages * DqLayout<true>::kSlot >= kDqChunkBoxes * kBox &&
+                  kDqStages > kDqChunkBoxes,
+              "the ring holds the CTA's dQ chunk and a tile's chunk boxes");
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_o,
+                               const __grid_constant__ CUtensorMap tm_dq,
+                               const float* __restrict__ lse,
+                               float* __restrict__ delta, int sq, int sk,
+                               int d, float scale, int causal) {
+  using L = DqLayout<kResident>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t qo_full = base;
+  auto full = [&](int s) { return base + 8 * (1 + s); };
+  auto empty = [&](int s) { return base + 8 * (1 + kDqStages + s); };
+  float* delta_s = reinterpret_cast<float*>(smem + L::kDelta);
+  float* xch = reinterpret_cast<float*>(smem + L::kX);
+  const uint32_t ring = base + L::kRing;
+  const uint32_t qo_s = base + L::kQO;  // Q's D / 64 boxes, then dO's
+
+  const int n_boxes = (d + 63) / 64;
+  const int bh = blockIdx.x;
+  // Heaviest causal tiles first: blockIdx.y 0 takes the last query rows.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int c0 = blockIdx.z * kDqChunk;
+  const int cb0 = c0 / 64;
+  const int n_other = cb0 + max(0, n_boxes - cb0 - kDqChunkBoxes);
+  const int n_items = n_other + kDqChunkBoxes;
+  // Causal: key tiles past the CTA's last row are fully masked.
+  int n_kt = (sk + kDqKeys - 1) / kDqKeys;
+  if (causal) n_kt = min(n_kt, (min(q0 + kDqRows, sq) - 1) / kDqKeys + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDqConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kDqConsumerThreads) {
+    // Producer warp: one thread starts every copy. First D's boxes of O
+    // (with dO's when it streams) for delta, then per key tile D's K and V
+    // boxes; each in the order of item_box, those of the chunk last.
+    if (threadIdx.x == kDqConsumerThreads) {
+      if (kResident) {
+        mbar_arrive_expect_tx(qo_full, 2 * n_boxes * kBox);
+        for (int c = 0; c < n_boxes; ++c) {
+          tma_load_3d(qo_s + c * kBox, &tm_q, qo_full, 64 * c, q0, bh);
+          tma_load_3d(qo_s + (n_boxes + c) * kBox, &tm_do, qo_full, 64 * c,
+                      q0, bh);
+        }
+      }
+      int n = 0;  // ring uses
+      for (int j = 0; j < n_items; ++j, ++n) {
+        const int s = slot_of<kDqStages>(n);
+        const int c = item_box<kDqChunkBoxes>(j, n_other, cb0);
+        const uint32_t slot = ring + s * L::kSlot;
+        mbar_wait(empty(s), parity_of<kDqStages>(n) ^ 1);
+        mbar_arrive_expect_tx(full(s), (kResident ? 1 : 2) * kBox);
+        tma_load_3d(slot, &tm_o, full(s), 64 * c, q0, bh);
+        if (!kResident) {
+          tma_load_3d(slot + 2 * kKeyBox + kBox, &tm_do, full(s), 64 * c,
+                      q0, bh);
+        }
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * kDqKeys;
+        for (int j = 0; j < n_items; ++j, ++n) {
+          const int s = slot_of<kDqStages>(n);
+          const int c = item_box<kDqChunkBoxes>(j, n_other, cb0);
+          const uint32_t slot = ring + s * L::kSlot;
+          mbar_wait(empty(s), parity_of<kDqStages>(n) ^ 1);
+          mbar_arrive_expect_tx(full(s), L::kSlot);
+          tma_load_3d(slot, &tm_k, full(s), 64 * c, k0, bh);
+          tma_load_3d(slot + kKeyBox, &tm_v, full(s), 64 * c, k0, bh);
+          if (!kResident) {
+            tma_load_3d(slot + 2 * kKeyBox, &tm_q, full(s), 64 * c, q0, bh);
+            tma_load_3d(slot + 2 * kKeyBox + kBox, &tm_do, full(s), 64 * c,
+                        q0, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: the CTA's 64 rows each; the first reduces S (Q
+  // and K), the second dP (dO and V); each owns kDqWgBoxes boxes of the
+  // chunk's dQ.
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int r_local = (tid / 32) * 16 + lane / 4;  // row in the CTA
+  const int row0 = q0 + r_local;                   // and row0 + 8
+  const int col_lane = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[kDqKeys / 2];  // S then P (group 0), dP (group 1)
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) acc[i] = 0.f;
+  if (kResident) mbar_wait(qo_full, 0);
+
+  // delta = rowsum(dO * O) of the CTA's rows, summed as dP is: dO O^T over
+  // D's boxes in the key tiles' order, both groups at once (group wg takes
+  // O's rows 32 * wg on as its 32 "keys"), and read off the diagonal. So
+  // where O's row is a row of V (a causal first row, whose P is one key),
+  // dP - delta is exactly 0 there, as the reference's is. O is read once;
+  // the CTAs of chunk 0 write delta for the dK/dV kernel.
+  int n = 0;  // ring uses, as the producer counts them
+  {
+    wgmma_fence();
+    fence_regs(acc);
+    int pending = -1;
+    for (int j = 0; j < n_items; ++j, ++n) {
+      const int s = slot_of<kDqStages>(n);
+      const int c = item_box<kDqChunkBoxes>(j, n_other, cb0);
+      const uint32_t slot = ring + s * L::kSlot;
+      mbar_wait(full(s), parity_of<kDqStages>(n));
+      if (c < n_boxes) {
+        const uint32_t a = kResident ? qo_s + (n_boxes + c) * kBox
+                                     : slot + 2 * kKeyBox + kBox;
+        const uint32_t bt = slot + wg * kKeyBox;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<T, kDqKeys>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                               sw128_desc(bt + kk * 32, 16, 1024),
+                               j > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      if (pending >= 0) release_slot(empty(pending), lane);
+      pending = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release_slot(empty(pending), lane);
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) {
+      const int r = r_local + 8 * ((i / 2) % 2);
+      if (r == kDqKeys * wg + 8 * (i / 4) + col_lane + (i % 2)) {
+        delta_s[r] = acc[i];
+      }
+    }
+  }
+  named_barrier_sync(3, kDqConsumerThreads);
+  float dlt[2], lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    dlt[h] = delta_s[r_local + 8 * h];
+    lse2[h] = row < sq ? lse[(size_t)bh * sq + row] * kLog2e : 0.f;
+    if (blockIdx.z == 0 && wg == 0 && lane % 4 == 0 && row < sq) {
+      delta[(size_t)bh * sq + row] = dlt[h];
+    }
+  }
+
+  float dq[kDqWgBoxes][32];
+#pragma unroll
+  for (int h = 0; h < kDqWgBoxes; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[h][i] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kDqKeys;
+
+    // The reduction over D's boxes, 16 columns per wgmma: group 0 S = Q
+    // K^T, group 1 dP = dO V^T, A the CTA's rows and B the tile's keys,
+    // both K-major. The slot of a box outside the chunk is released once
+    // the next box's products are issued and its own have completed; the
+    // chunk's slots stay for the products.
+    wgmma_fence();
+    fence_regs(acc);
+    int pending = -1;
+    const int n_chunk0 = n + n_other;  // ring use of the chunk's first box
+    for (int j = 0; j < n_items; ++j, ++n) {
+      const int s = slot_of<kDqStages>(n);
+      const int c = item_box<kDqChunkBoxes>(j, n_other, cb0);
+      const uint32_t slot = ring + s * L::kSlot;
+      mbar_wait(full(s), parity_of<kDqStages>(n));
+      if (c < n_boxes) {
+        const uint32_t a = kResident ? qo_s + (wg * n_boxes + c) * kBox
+                                     : slot + 2 * kKeyBox + wg * kBox;
+        const uint32_t bt = slot + wg * kKeyBox;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<T, kDqKeys>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                               sw128_desc(bt + kk * 32, 16, 1024),
+                               j > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      if (pending >= 0) release_slot(empty(pending), lane);
+      pending = j < n_other ? s : -1;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (pending >= 0) release_slot(empty(pending), lane);
+
+    // Group 0: P = exp(scale * S - LSE[row]); keys past Sk, and keys above
+    // the diagonal, get 0 (only tiles that reach past the CTA's first row
+    // or past Sk can hold them).
+    if (wg == 0) {
+      const bool edge = (causal && k0 + kDqKeys - 1 > q0) || k0 + kDqKeys > sk;
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        const int h = (i / 2) % 2;
+        const int key = k0 + 8 * (i / 4) + col_lane + (i % 2);
+        const float p = fast_exp2(fmaf(acc[i], scale_log2, -lse2[h]));
+        acc[i] = edge && (key >= sk || (causal && key > row0 + 8 * h)) ? 0.f
+                                                                       : p;
+      }
+    }
+    // Exchange: group 0 gives P, group 1 dP; a thread of one group holds
+    // the same elements as the same thread of the other.
+    float* x = xch + (kt & 1) * kDqXFloats;
+    float* mine = x + wg * (kDqXFloats / 2);
+    const float* theirs = x + (1 - wg) * (kDqXFloats / 2);
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) mine[i * 128 + tid] = acc[i];
+    named_barrier_sync(3, kDqConsumerThreads);
+
+    // T(dS) = T(P * (dP - delta[row])) as A fragments (pair i lies in row
+    // row0 + 8 * (i % 2)).
+    uint32_t ds[kDqKeys / 4];
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 4; ++i) {
+      float p0, p1, dp0, dp1;
+      if (wg == 0) {
+        p0 = acc[2 * i];
+        p1 = acc[2 * i + 1];
+        dp0 = theirs[(2 * i) * 128 + tid];
+        dp1 = theirs[(2 * i + 1) * 128 + tid];
+      } else {
+        p0 = theirs[(2 * i) * 128 + tid];
+        p1 = theirs[(2 * i + 1) * 128 + tid];
+        dp0 = acc[2 * i];
+        dp1 = acc[2 * i + 1];
+      }
+      const float dl = dlt[i % 2];
+      ds[i] = pack2<T>(p0 * (dp0 - dl), p1 * (dp1 - dl));
+    }
+
+    // dQ += dS K over this group's boxes of the chunk, with K MN-major in
+    // the chunk's slots.
+    wgmma_fence();
+    fence_regs(ds);
+#pragma unroll
+    for (int h = 0; h < kDqWgBoxes; ++h) {
+      fence_regs(dq[h]);
+      const uint32_t kbox =
+          ring + slot_of<kDqStages>(n_chunk0 + kDqWgBoxes * wg + h) * L::kSlot;
+#pragma unroll
+      for (int t = 0; t < kDqKeys / 16; ++t) {
+        const uint32_t a[4] = {ds[4 * t], ds[4 * t + 1], ds[4 * t + 2],
+                               ds[4 * t + 3]};
+        wgmma_rs<T, 64>(dq[h], a,
+                        sw128_desc(kbox + t * 16 * 128, kKeyBox, 1024));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(ds);
+#pragma unroll
+    for (int h = 0; h < kDqWgBoxes; ++h) fence_regs(dq[h]);
+    for (int t = 0; t < kDqChunkBoxes; ++t) {
+      release_slot(empty(slot_of<kDqStages>(n_chunk0 + t)), lane);
+    }
+  }
+
+  // Epilogue: stage scale * dQ in the ring (every slot consumed by both
+  // groups first) and store it with TMA; the store clips rows past Sq.
+  named_barrier_sync(3, kDqConsumerThreads);
+  const float mul[2] = {scale, scale};
+#pragma unroll
+  for (int h = 0; h < kDqWgBoxes; ++h) {
+    const int box = kDqWgBoxes * wg + h;
+    stage_acc<T, 64>(smem + L::kRing + box * kBox, kBox, 0, r_local,
+                     col_lane, dq[h], mul);
+  }
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+  if (tid == 0) {
+    for (int h = 0; h < kDqWgBoxes; ++h) {
+      const int box = kDqWgBoxes * wg + h;
+      if (c0 + 64 * box >= d) break;
+      tma_store_3d(&tm_dq, ring + box * kBox, c0 + 64 * box, q0, bh);
+    }
+    tma_store_commit_and_wait();
+  }
+}
+
 // ---- host -----------------------------------------------------------------
 
 template <typename T>
@@ -786,6 +1157,47 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                               d, scale, causal, s);
 }
 
+template <typename T, bool kResident>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* dq, void* delta,
+              int bh, int sq, int sk, int d, float scale, int causal,
+              cudaStream_t stream) {
+  using L = DqLayout<kResident>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_o, tm_dq;
+  CUresult res = encode_3d<T>(&tm_q, q, bh, sq, d, kDqRows);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_k, k, bh, sk, d, kDqKeys);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_v, v, bh, sk, d, kDqKeys);
+  if (res == CUDA_SUCCESS)
+    res = encode_3d<T>(&tm_do, dout, bh, sq, d, kDqRows);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_o, o, bh, sq, d, kDqRows);
+  if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_dq, dq, bh, sq, d, 64);
+  if (res != CUDA_SUCCESS) return -(int)res;
+
+  auto kernel = flash_bwd_dq_wide_wgmma_kernel<T, kResident>;
+  const int smem = L::alloc((d + 63) / 64);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh, (sq + kDqRows - 1) / kDqRows,
+            (d + kDqChunk - 1) / kDqChunk);
+  kernel<<<grid, kDqThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_o, tm_dq, static_cast<const float*>(lse),
+      static_cast<float*>(delta), sq, sk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const void* lse, void* dq, void* delta,
+                int bh, int sq, int sk, int d, float scale, int causal,
+                cudaStream_t s) {
+  if (d <= DqLayout<true>::kMaxBoxes * 64)
+    return launch_dq<T, true>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk,
+                              d, scale, causal, s);
+  return launch_dq<T, false>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk, d,
+                             scale, causal, s);
+}
+
 bool bad_dims(int d, int dtype) {
   return d <= 256 || d > kMaxD || d % 8 != 0 || (dtype != 1 && dtype != 2);
 }
@@ -814,6 +1226,30 @@ extern "C" int flash_attention_fwd_wide_wgmma(const void* q, const void* k,
                                   scale, causal, s)
              : launch_fwd<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv, sq,
                                          sk, d, scale, causal, s);
+}
+
+// q, o, dout, dq [B*H, Sq, D]; k, v [B*H, Sk, D]: contiguous, of one type
+// (dtype 1: bf16, 2: f16), with 16-byte aligned bases; lse [B*H, Sq] f32 as
+// the forward writes it; delta [B*H, Sq] f32, written with rowsum(dO * O)
+// for the dK/dV kernel (not null); D a multiple of 8 above 256, at most
+// 1024. The arguments of flash_attention_bwd_dq_wide.
+extern "C" int flash_attention_bwd_dq_wide_wgmma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* delta, int bh, int sq,
+    int sk, int d, float scale, int causal, int dtype, void* stream) {
+  if (bh < 1 || sq < 1 || sk < 1 || bad_dims(d, dtype) || lse == nullptr ||
+      delta == nullptr ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)dout | (uintptr_t)dq) % 16 ||
+      (sq + kDqRows - 1) / kDqRows > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 2 ? dispatch_dq<__half>(q, k, v, o, dout, lse, dq, delta,
+                                          bh, sq, sk, d, scale, causal, s)
+                    : dispatch_dq<__nv_bfloat16>(q, k, v, o, dout, lse, dq,
+                                                 delta, bh, sq, sk, d, scale,
+                                                 causal, s);
 }
 
 // q, dout [B*H, Sq, D]; k, v, dk, dv [B*H, Sk, D]: contiguous, of one type

@@ -20,20 +20,18 @@ dK/dV, replace ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
 cores (``csrc/flash_attention_bwd.cu``). Above head_dim 256 the kernels
 split the head dimension of their output across blocks: bf16 and f16 up
 to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
-forward and dK/dV kernels on the tensor cores
-(``csrc/flash_attention_wide_wgmma.cu``: 256 columns of O and 128 of
-dK/dV a block, the score reduction streamed over D in 64-column TMA
-boxes); f32 at every multiple of 8 above 256 takes the ``"wide_f32"``
-forward and dK/dV kernels on the CUDA cores
-(``csrc/flash_attention_wide_f32.cu``: 256 columns of O, and of dK and
-dV, a block, register-tiled f32 FMAs fed by a cp.async ring); both run
-beside the CUDA-core wide dQ kernel, which writes delta for their dK/dV
-kernels. bf16/f16 above 1024 take the ``"wide"`` variant, all three
-kernels on the CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column
-chunks, any multiple of 8). So above 256 the backward's variant is per
-kernel (``_backward_variant(dtype, D, kernel)``). A wrapper launches its
-kernel for CUDA tensors and raises on what it does not take; it runs a
-plain version only for tensors on the CPU.
+kernels on the tensor cores (``csrc/flash_attention_wide_wgmma.cu``: 256
+columns of O, of dQ and 128 of dK/dV a block, the score reduction
+streamed over D in 64-column TMA boxes); f32 at every multiple of 8 above
+256 takes the ``"wide_f32"`` kernels on the CUDA cores
+(``csrc/flash_attention_wide_f32.cu``: 256 columns of O, 512 of dQ and
+256 of dK and dV a block, register-tiled f32 FMAs fed by a cp.async
+ring). In both the dQ kernel writes delta for the dK/dV kernel.
+bf16/f16 above 1024 take the ``"wide"`` variant, all three kernels on
+the CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column chunks,
+any multiple of 8). So dQ and dK/dV always share the forward's variant.
+A wrapper launches its kernel for CUDA tensors and raises on what it
+does not take; it runs a plain version only for tensors on the CPU.
 
 The forward kernels round where the reference's ``_attn_kernel`` does:
 q * scale in q's dtype (the scale itself rounded to that dtype first, as
@@ -79,10 +77,12 @@ dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
 dkv_wgmma_launches = 0
 dq_simt_launches = 0    # backward on the CUDA cores (f32, D <= 256)
 dkv_simt_launches = 0
-dq_wide_launches = 0    # backward with D above 256 on the CUDA cores
-dkv_wide_launches = 0
-dkv_wide_wgmma_launches = 0   # dK/dV with D above 256 on the tensor cores
-dkv_wide_f32_launches = 0     # dK/dV with D above 256 in f32
+dq_wide_launches = 0    # backward on the CUDA cores, bf16/f16 with D
+dkv_wide_launches = 0   # above WIDE_WGMMA_MAX_D
+dq_wide_wgmma_launches = 0    # backward with D above 256 on the tensor cores
+dkv_wide_wgmma_launches = 0
+dq_wide_f32_launches = 0      # backward with D above 256 in f32
+dkv_wide_f32_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
 SIMT_MAX_D = 256   # the widest head_dim of the "simt" and "wgmma" kernels
@@ -113,18 +113,21 @@ _SIGNATURES = {
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_fwd_wide_wgmma"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_wgmma", "flash_attention_bwd_dq_wide_wgmma"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_bwd_dkv_wide_wgmma"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_fwd_wide_f32"):
         [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_bwd_dq_wide_f32"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_bwd_dkv_wide_f32"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
 # Each variant's kernels: (forward library, backward library, suffix of
 # their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
-# dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their rule
-# ("wide_wgmma" and "wide_f32" have no dQ kernel of their own: dQ is
-# "wide"'s).
+# dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their
+# variant.
 _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                         "flash_attention_bwd_wgmma", "_wgmma"),
               "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
@@ -136,8 +139,6 @@ _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                            "flash_attention_wide_f32", "_wide_f32")}
 # dK/dV variants that take delta in place of O.
 _READS_DELTA = ("wgmma", "wide_wgmma", "wide_f32")
-# Variants whose dQ kernel is another variant's ("wide").
-_DQ_FROM_WIDE = ("wide_wgmma", "wide_f32")
 _bound = {}
 
 
@@ -341,22 +342,13 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
 
 def _backward_variant(dtype: torch.dtype, D: int,
                       kernel: Optional[str] = None) -> str:
-    """Which backward kernel, ``kernel`` = ``"dq"`` or ``"dkv"``, takes a
-    CUDA input: the forward's rule (``testing.GRAD_ROW_TOL``'s f32 limit
-    and the f32 gradient checks rest on f32 products), except that dQ
-    stays ``"wide"`` (CUDA cores) above ``SIMT_MAX_D`` at every dtype,
-    beside the ``"wide_wgmma"`` (bf16, f16) or ``"wide_f32"`` dK/dV
-    kernel. With ``kernel`` None, the variant both kernels share; a
-    ``ValueError`` where they differ."""
-    variant = _forward_variant(dtype, D)
-    if variant not in _DQ_FROM_WIDE:
-        return variant
-    if kernel is None:
-        raise ValueError(f"the backward kernels differ at {dtype} head_dim "
-                         f"{D}: name the kernel ('dq' or 'dkv')")
-    if kernel not in ("dq", "dkv"):
+    """Which backward kernel, ``kernel`` = ``"dq"``, ``"dkv"`` or None
+    (both), takes a CUDA input: the forward's rule at every head_dim, for
+    dQ and dK/dV alike (``testing.GRAD_ROW_TOL``'s f32 limit and the f32
+    gradient checks rest on f32 products)."""
+    if kernel not in (None, "dq", "dkv"):
         raise ValueError(f"kernel is 'dq' or 'dkv', got {kernel!r}")
-    return "wide" if kernel == "dq" else variant
+    return _forward_variant(dtype, D)
 
 
 def _check_launch(name, err):
@@ -429,6 +421,7 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
     other dK/dV kernels compute delta themselves, and then delta is
     None."""
     global dq_launches, dq_wgmma_launches, dq_simt_launches, dq_wide_launches
+    global dq_wide_wgmma_launches, dq_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -438,19 +431,23 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
     _, library, suffix = _LIBRARIES[variant]
     name = "flash_attention_bwd_dq" + suffix
     delta = None
-    if _backward_variant(q.dtype, D, "dkv") in _READS_DELTA:
+    if variant in _READS_DELTA:
         delta = torch.empty(q.shape[:3], dtype=torch.float32,
                             device=q.device)
     if variant == "simt":
         err = _kernel_fn(library, name)(*ptrs, *scalars, stream)
     else:
-        # delta's buffer, or null: the wide dQ kernel then writes none.
+        # delta's buffer, or null: "wide"'s dQ kernel then writes none.
         err = _kernel_fn(library, name)(
             *ptrs, None if delta is None else delta.data_ptr(), *scalars,
             stream)
     _check_launch(name, err)
     if variant == "wgmma":
         dq_wgmma_launches += 1
+    elif variant == "wide_wgmma":
+        dq_wide_wgmma_launches += 1
+    elif variant == "wide_f32":
+        dq_wide_f32_launches += 1
     elif variant == "wide":
         dq_wide_launches += 1
     else:

@@ -130,6 +130,21 @@ SPMD_UPDATE_TOL = 1e-3
 SPMD_LOSS_TOL = 1e-5
 
 
+def delta_error(delta: torch.Tensor, do: torch.Tensor,
+                o: torch.Tensor) -> float:
+    """delta = rowsum(dO * O) of a dQ kernel against the same sum in f32,
+    as a fraction of its limit, max over rows. Each side adds a row's D
+    products in its own order (the products of bf16 or f16 values are
+    exact in f32; an f32 kernel's fused multiply-add skips one rounding of
+    each): two such f32 sums of D terms differ by at most 2 * D * 2**-24
+    of the terms' absolute sum, which is the limit. A row summed over half
+    its columns misses by a sum of D / 2 terms, hundreds of limits."""
+    terms = do.float() * o.float()
+    lim = 2 * terms.shape[-1] * 2.0 ** -24 * terms.abs().sum(-1)
+    err = (delta - terms.sum(-1)).abs() / lim.clamp_min(1e-30)
+    return err.max().item()
+
+
 def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Max over rows of max|got - ref| in the row, over the row's largest
     |ref| floored at GRAD_ROW_FLOOR of the tensor's largest |ref|."""

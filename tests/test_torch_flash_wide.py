@@ -1,9 +1,8 @@
 """The wide flash kernels (head_dim above 256) on the CPU: the rule of
 shapes that sends bf16 and f16 up to head_dim 1024 to the tensor-core
-forward and dK/dV kernels (``"wide_wgmma"``) and f32 at every width to
-the f32 CUDA-core forward and dK/dV kernels (``"wide_f32"``), each beside
-the CUDA-core wide dQ kernel, and the plain versions the card holds them
-against.
+forward, dQ and dK/dV kernels (``"wide_wgmma"``) and f32 at every width
+to the f32 CUDA-core forward, dQ and dK/dV kernels (``"wide_f32"``), and
+the plain versions the card holds them against.
 
 ``_dense_kernel`` (the forward's rounding points) is held against the
 reference's Pallas ``_attn_kernel`` in interpret mode (``_flash_forward``
@@ -71,24 +70,36 @@ def _launches():
                                    torch.float16])
 @pytest.mark.parametrize("D", [264, 384, 512, 1024, 1032, 2048])
 def test_wide_rule_of_shapes(dtype, D):
-    """Above 256: bf16 and f16 up to 1024 take the tensor-core forward and
-    dK/dV, f32 at every width the f32 CUDA-core forward and dK/dV (TF32
-    would break its limits), each beside the CUDA-core wide dQ kernel;
-    bf16 and f16 wider than 1024 (Q's rows no longer fit a block's shared
-    memory) keep the CUDA-core wide kernels, all three."""
+    """Above 256: bf16 and f16 up to 1024 take the tensor-core forward, dQ
+    and dK/dV, f32 at every width the f32 CUDA-core forward, dQ and dK/dV
+    (TF32 would break its limits); bf16 and f16 wider than 1024 (Q's rows
+    no longer fit a block's shared memory) keep the CUDA-core wide
+    kernels, all three. Both backward kernels take the forward's
+    variant."""
     f32 = dtype == torch.float32
     tensor_cores = not f32 and D <= fa.WIDE_WGMMA_MAX_D
     fwd = "wide_f32" if f32 else "wide_wgmma" if tensor_cores else "wide"
     assert fa._forward_variant(dtype, D) == fwd
     assert fa._attention_route(dtype, D) == fwd
     assert fa._attention_route(dtype, D, 8, 8) == fwd
-    assert fa._backward_variant(dtype, D, "dq") == "wide"
+    assert fa._backward_variant(dtype, D, "dq") == fwd
     assert fa._backward_variant(dtype, D, "dkv") == fwd
-    if fwd != "wide":
-        with pytest.raises(ValueError, match="name the kernel"):
-            fa._backward_variant(dtype, D)
-    else:
-        assert fa._backward_variant(dtype, D) == "wide"
+    assert fa._backward_variant(dtype, D) == fwd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [264, 384, 512, 1024, 1032, 2048])
+def test_dq_follows_the_forward_variant(dtype, D):
+    """dQ's variant is the forward's at every wide head_dim, and its
+    entry point is that variant's own (no variant borrows another's dQ);
+    a variant whose dK/dV reads delta gets it from that dQ."""
+    variant = fa._backward_variant(dtype, D, "dq")
+    assert variant == fa._forward_variant(dtype, D)
+    _, library, suffix = fa._LIBRARIES[variant]
+    key = (library, "flash_attention_bwd_dq" + suffix)
+    assert key in fa._SIGNATURES
+    assert library == fa._LIBRARIES[fa._backward_variant(dtype, D, "dkv")][1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

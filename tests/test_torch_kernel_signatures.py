@@ -64,22 +64,41 @@ def test_signature_row_names_an_entry_point(key):
     assert key in ENTRY_POINTS, f"no extern \"C\" {key[1]} in {key[0]}.cu"
 
 
+def _param_names(library, function):
+    params = re.search(
+        r'extern\s+"C"\s+int\s+' + function + r'\s*\(([^)]*)\)',
+        (CSRC / f"{library}.cu").read_text(), re.S).group(1)
+    return [p.split()[-1].lstrip("*") for p in params.split(",")]
+
+
 @pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
 def test_variant_names_entry_points_that_exist(variant):
-    """The forward, dQ and dK/dV entry points of a variant (a variant of
-    ``_DQ_FROM_WIDE`` runs ``"wide"``'s dQ kernel); a dK/dV kernel of
-    ``_READS_DELTA`` takes delta and no O, the others O and no delta."""
+    """The forward, dQ and dK/dV entry points of a variant, each in the
+    variant's own libraries; a dK/dV kernel of ``_READS_DELTA`` takes
+    delta and no O, the others O and no delta."""
     fwd_lib, bwd_lib, suffix = fa._LIBRARIES[variant]
     assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
     dkv = (bwd_lib, "flash_attention_bwd_dkv" + suffix)
     assert dkv in ENTRY_POINTS
-    dq_variant = "wide" if variant in fa._DQ_FROM_WIDE else variant
-    dq_lib, dq_suffix = fa._LIBRARIES[dq_variant][1:]
-    assert (dq_lib, "flash_attention_bwd_dq" + dq_suffix) in ENTRY_POINTS
-    params = re.search(
-        r'extern\s+"C"\s+int\s+' + dkv[1] + r'\s*\(([^)]*)\)',
-        (CSRC / f"{bwd_lib}.cu").read_text(), re.S).group(1)
-    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert (bwd_lib, "flash_attention_bwd_dq" + suffix) in ENTRY_POINTS
+    names = _param_names(*dkv)
     reads_delta = variant in fa._READS_DELTA
     assert ("delta" in names) == reads_delta
     assert ("o" in names) == (not reads_delta)
+
+
+@pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
+def test_variant_dq_entry_point_takes_delta(variant):
+    """Every variant's dQ entry point exists in its own backward library
+    and takes O and dO; it takes a delta buffer wherever its dK/dV kernel
+    reads delta, and so do all the wide ones ("wide"'s takes null). Only
+    the f32 CUDA-core pair up to 256 ("simt") computes delta in both
+    kernels and passes none."""
+    _, bwd_lib, suffix = fa._LIBRARIES[variant]
+    key = (bwd_lib, "flash_attention_bwd_dq" + suffix)
+    assert key in ENTRY_POINTS and key in fa._SIGNATURES
+    names = _param_names(*key)
+    assert "o" in names and "dout" in names
+    assert ("delta" in names) == (variant != "simt")
+    if variant in fa._READS_DELTA:
+        assert "delta" in names

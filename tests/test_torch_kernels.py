@@ -20,6 +20,7 @@ from ray_tpu_torch.testing import (
     O_ROW_TOL,
     RMS_TOL,
     RMS_TOL_CAST_FIRST,
+    delta_error,
     digest_inputs,
     grad_row_error,
     seeded_qkv,
@@ -227,9 +228,8 @@ def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
 
 
 # Head dims above 256 take the wide kernels (the head dimension of the
-# output split across blocks): bf16 and f16 the tensor-core forward and
-# dK/dV, f32 the f32 CUDA-core forward and dK/dV, each beside the
-# CUDA-core wide dQ. 264 has a last
+# output split across blocks): bf16 and f16 the tensor-core forward, dQ
+# and dK/dV, f32 the f32 CUDA-core forward, dQ and dK/dV. 264 has a last
 # chunk of 8 columns, 384 is no multiple of the tensor-core forward's
 # 256-column chunk, 1024 the widest the tensor cores take (K and V then
 # stream in dK/dV). MHA and GQA forward, ragged lengths, Sq != Sk.
@@ -318,8 +318,8 @@ def test_flash_wide_wgmma_zero_fills_past_head_dim(cuda_device, dtype,
         assert err <= GRAD_ROW_TOL[dtype], (name, err)
 
 
-# The f32 wide forward and dK/dV (the "wide_f32" variant, beside the
-# CUDA-core wide dQ, which writes the delta the dK/dV kernel reads): 264
+# The f32 wide forward, dQ and dK/dV (the "wide_f32" variant; its dQ
+# writes the delta the dK/dV kernel reads): 264
 # (a last 32-column box of 8 columns, a second 256-column slice of O of 8),
 # 384, 512 and 1032 (a third slice of 8 columns); GQA over 2 KV heads and
 # one; ragged lengths, Sq > Sk and Sq < Sk; causal and not. The backward
@@ -364,8 +364,8 @@ def test_flash_wide_f32_kernels_match_plain(cuda_device, D, Hkv, Sq, Sk,
 # outside the limits. On these rows a dQ row sums terms that cancel to
 # many times less than their size, and the f32 plain backward's dQ reads
 # above GRAD_ROW_TOL against the same formula in float64 (ROADMAP C.9):
-# dQ (the CUDA-core wide kernel's) is held against the float64 version,
-# dK and dV against the f32 plain backward, as everywhere else.
+# dQ (the f32 wide dQ kernel's) is held against the float64 version, dK
+# and dV against the f32 plain backward, as everywhere else.
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wide_f32_zero_fills_past_head_dim(cuda_device, causal):
@@ -403,6 +403,95 @@ def _dense_dq_f64(q, k, v, o, lse, do, causal, scale):
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
     ds = p * (dp - (do * o).sum(-1)[..., None])
     return torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+
+
+# The wide dQ kernels on their own (``_launch_dq``): the tensor-core one
+# (bf16, f16 up to 1024: 264 has a second 256-column chunk of 8 columns,
+# 384 a ragged one, 1024 streams Q and dO with K and V) and the f32 one
+# (264 and 1032: a last slice of 8 columns; 2048: eight slices), against
+# the plain backward's dQ per row (f32: the same formula in float64, as
+# ROADMAP C.9 proposes: at D=2048 the f32 plain dQ's causal first row, 0
+# in exact arithmetic, holds more rounding noise than GRAD_ROW_TOL allows
+# against either kernel, the old one included), their delta against
+# rowsum(dO * O) in f32, and the CUDA-core wide dQ of
+# flash_attention_wide.cu (the kernel they replace, called through its C
+# entry point) on the same inputs. Ragged lengths, Sq > Sk and Sq < Sk,
+# Sq = 3, causal and not.
+WIDE_DQ_CASES = ([(dt, D) for dt in (torch.bfloat16, torch.float16)
+                  for D in (264, 384, 512, 1024)]
+                 + [(torch.float32, D) for D in (264, 512, 1024, 1032, 2048)])
+
+
+def _cuda_core_dq(q, k, v, o, lse, do, causal):
+    """The CUDA-core wide dQ kernel of flash_attention_wide.cu on any
+    dtype, through its C entry point (no delta buffer); counts no
+    launch."""
+    B, H, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    err = fa._kernel_fn("flash_attention_wide", "flash_attention_bwd_dq_wide")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), None, B * H, Sq,
+        k.shape[2], D, D ** -0.5, int(causal), fa._DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", WIDE_DQ_CASES)
+@pytest.mark.parametrize("Sq,Sk", [(77, 131), (130, 130), (3, 50),
+                                   (200, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_dq_kernels_match_plain(cuda_device, dtype, D, Sq, Sk,
+                                           causal):
+    variant = fa._forward_variant(dtype, D)
+    assert variant == ("wide_f32" if dtype == torch.float32
+                       else "wide_wgmma")
+    q, k, v = _qkv(24, 2, 2, 2, Sq, Sk, D, dtype, cuda_device)
+    do = _qkv(25, 2, 2, 2, Sq, Sq, D, dtype, cuda_device)[0]
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = _backward_counts()
+    dq, delta = fa._launch_dq(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got = {n: c - before[n] for n, c in _backward_counts().items()}
+    assert got == {n: int(n == f"dq_{variant}") for n in got}
+    if dtype == torch.float32:
+        ref = _dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5)
+    else:
+        ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)[0]
+    assert dq.dtype == dtype and bool(torch.isfinite(dq).all())
+    assert grad_row_error(dq, ref) <= GRAD_ROW_TOL[dtype]
+    assert delta.shape == (2, 2, Sq) and delta.dtype == torch.float32
+    assert delta_error(delta, do, o) <= 1.0
+    old = _cuda_core_dq(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert grad_row_error(dq, old) <= GRAD_ROW_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_wide_dq_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No delta buffer, a head_dim the kernel does not take, another
+    dtype: cudaErrorInvalidValue (1), no launch."""
+    for dtype, D, name, lib in (
+            (torch.bfloat16, 512, "flash_attention_bwd_dq_wide_wgmma",
+             "flash_attention_wide_wgmma"),
+            (torch.float32, 512, "flash_attention_bwd_dq_wide_f32",
+             "flash_attention_wide_f32")):
+        q, k, v = _qkv(26, 1, 2, 2, 64, 64, D, dtype, cuda_device)
+        lse = torch.zeros((1, 2, 64), device=cuda_device)
+        dq = torch.empty_like(q)
+        fn = fa._kernel_fn(lib, name)
+        stream = torch.cuda.current_stream().cuda_stream
+        p = [t.data_ptr() for t in (q, k, v, q, q, lse, dq)]
+        code = fa._DTYPE_CODE[dtype]
+        assert fn(*p, None, 2, 64, 64, D, 0.1, 1, code, stream) == 1
+        assert fn(*p, lse.data_ptr(), 2, 64, 64, D, 0.1, 1,
+                  1 - code if code else 2, stream) == 1
+        if dtype == torch.bfloat16:
+            assert fn(*p, lse.data_ptr(), 2, 64, 64, 256, 0.1, 1, code,
+                      stream) == 1
+            assert fn(*p, lse.data_ptr(), 2, 64, 64, 1032, 0.1, 1, code,
+                      stream) == 1
 
 
 # A query or key length under 8 takes the plain route on the card, as the
@@ -489,18 +578,17 @@ def _backward_counts():
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
+            "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
+            "dq_wide_f32": fa.dq_wide_f32_launches,
             "dkv_wide_f32": fa.dkv_wide_f32_launches}
 
 
 def _backward_launched(before, variant):
     """Launches since `before`, and what the rule wants for the forward
-    variant `variant`: one dQ and one dK/dV of it (above head_dim 256 the
-    tensor-core or f32 dK/dV beside the CUDA-core wide dQ), none of the
-    others."""
+    variant `variant`: one dQ and one dK/dV of it, none of the others."""
     got = {n: c - before[n] for n, c in _backward_counts().items()}
-    dq = "wide" if variant in fa._DQ_FROM_WIDE else variant
-    want = {n: int(n in (f"dq_{dq}", f"dkv_{variant}")) for n in got}
+    want = {n: int(n in (f"dq_{variant}", f"dkv_{variant}")) for n in got}
     return got, want
 
 
@@ -540,7 +628,8 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
     (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide_wgmma"),
     (torch.float32, 1024, "wide_f32"), (torch.float16, 128, "wgmma"),
     (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt"),
-    (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
+    (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide"),
+    (torch.float32, 264, "wide_f32"), (torch.float16, 2048, "wide")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
