@@ -7,17 +7,19 @@ non-zero without printing a result. Without a CUDA card, or without the
 ``ray_tpu_torch`` package beside it, it exits non-zero at once.
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
-   dK/dV, each on the tensor cores and on the CUDA cores, and for head_dim
-   above 256 the wide kernels: all three on the CUDA cores, on the tensor
-   cores, and in f32) from ray_tpu_torch/ops/csrc, one nvcc per source,
+   dK/dV, each on the tensor cores and on the CUDA cores, the tiled f32
+   dQ and dK/dV up to head_dim 256, and for head_dim above 256 the wide
+   kernels: all three on the CUDA cores, on the tensor cores, and in f32)
+   from ray_tpu_torch/ops/csrc, one nvcc per source,
    in parallel, with ptxas's registers and spills per kernel; the SASS of
    every tensor-core kernel instantiation (bf16 and f16 at head_dim 64,
    128 and 256; the wide forward, and the wide dQ and dK/dV with their
    rows held or streamed) must hold HGMMA (wgmma) and UTMALDG (TMA load)
-   instructions, the wide tensor-core dQ must spill nothing, and the
-   three f32 wide kernels must hold FFMA and no HMMA or HGMMA (no TF32)
-   and spill nothing. The Triton RMSNorm kernel compiles at its first
-   launch.
+   instructions, the wide tensor-core dQ must spill nothing, and every
+   instance of the f32 library's kernels (the wide forward, dQ and dK/dV,
+   and the tiled dQ and dK/dV up to head_dim 256) must hold FFMA and no
+   HMMA or HGMMA (no TF32) and spill nothing. The Triton RMSNorm kernel
+   compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version with the
    kernels' rounding points (_dense_kernel: q * scale rounded to the input
    type, f32 scores, as the reference's kernel rounds) on the card at
@@ -31,25 +33,30 @@ non-zero without printing a result. Without a CUDA card, or without the
    card's bound. Then the
    backward kernels against the plain backward (B=4, H=8, D=64, S
    128/512/2048/200, plus D=128 at S 512/200 and Sq=77 / Sk=131), bf16 on
-   the tensor cores and f32 on the CUDA cores, each case checking which
-   variant launched and reading a planted fault; at S=2048 both dtypes are
-   timed through CUDA graphs beside the plain backward, SDPA's backward
-   and the bound, bf16 also beside the CUDA-core kernels on the same
-   inputs; and the RMSNorm kernel at [4*2048, 512], timed beside
+   the tensor cores and f32 on the tiled f32 pair (CUDA cores), each case
+   checking which variant launched and reading a planted fault, and the
+   earlier f32 pair (flash_attention_bwd.cu, reached by no rule) held
+   against the plain backward on the same f32 inputs; at S=2048 both
+   dtypes are timed through CUDA graphs beside the plain backward, SDPA's
+   backward and the bound, and beside the CUDA-core kernels that the rule
+   took before on the same inputs; and the RMSNorm kernel at [4*2048,
+   512], timed beside
    torch.nn.functional.rms_norm. The shapes and dtypes beyond the bf16
    flagship (C1_FWD_CASES, C1_BWD_CASES): head_dim 256 in f32, bf16 and
-   f16 (GQA down to one KV head), head_dim 128 in bf16 and f16, head_dim
-   64 in f16 and head_dim 200, each checked at O_ROW_TOL / GRAD_ROW_TOL
-   of its dtype with a planted fault and a check of the variant launched
-   (bf16 and f16 on the tensor cores, f32 on the CUDA cores); where the
-   tensor cores take a case, the CUDA-core kernels are held against the
+   f16 (GQA down to one KV head), head_dim 128 in bf16 and f16 (and f32
+   for the backward), head_dim 64 in f16 and head_dim 200, each checked
+   at O_ROW_TOL / GRAD_ROW_TOL of its dtype with a planted fault and a
+   check of the variant launched (bf16 and f16 on the tensor cores, f32
+   on the CUDA cores: the forward's "simt", the backward's tiled pair);
+   the CUDA-core kernels that took a case before are held against the
    plain version on the same inputs too; at S=2048 each is timed beside
-   SDPA, the bound and, for the tensor-core cases, the CUDA-core kernel.
+   SDPA, the bound and those earlier kernels.
    The head dims between the tensor-core instances (ANY_DIMS: 8, 32, 80,
    96, 136, 160, 200, 248, zero-padded to the next instance) the same way,
-   bf16 and f16, forward MHA and GQA (Hkv 8, 4, 1) and backward, at S 128,
-   200, 2048 and Sq 77 / Sk 131, causal and not, launching only the
-   tensor-core kernels; ANY_TIMED_DIMS (32, 80, 96, 160, 200) timed at
+   bf16 and f16, forward MHA and GQA (Hkv 8, 4, 1) and backward (and the
+   f32 backward at ANY_F32_BWD_DIMS, 96 and 200), at S 128, 200, 2048 and
+   Sq 77 / Sk 131, causal and not, launching only the kernels of the
+   rule; ANY_TIMED_DIMS (32, 80, 96, 160, 200) timed (bf16 and f16) at
    S=2048 beside SDPA (its backend named), the CUDA-core kernels and the
    bound of the real head_dim's work. head_dim 12 takes the counted plain
    route: no launch, one plain_routes, the plain result; so do a query
@@ -99,7 +106,8 @@ non-zero without printing a result. Without a CUDA card, or without the
    fault (GQA heads expanded in the wrong order) reads above the
    tolerance; each pass
    launches the CUDA-core forward n_layers times (2 * n_layers with remat)
-   and each CUDA-core backward kernel n_layers times. In bf16, the loss
+   and each kernel of the tiled f32 backward pair n_layers times. In bf16,
+   the loss
    through the kernels equals the loss through plain attention
    (TRAIN_LOSS_TOL_BF16), and a pass launches the tensor-core forward
    n_layers times (2 * n_layers with remat) and each tensor-core backward
@@ -304,10 +312,10 @@ C1_BWD_CASES = ((512, 512, 256, (_F32, _BF16, _F16)),
                 (200, 200, 256, (_F32, _BF16, _F16)),
                 (77, 131, 256, (_BF16, _F16)),
                 (2048, 2048, 256, (_F32, _BF16, _F16)),
-                (2048, 2048, 128, (_BF16, _F16)),
+                (2048, 2048, 128, (_F32, _BF16, _F16)),
                 (200, 200, 128, (_F16,)),
                 (2048, 2048, 64, (_F16,)), (77, 131, 64, (_F16,)),
-                (77, 131, 200, (_BF16,)))
+                (77, 131, 200, (_F32, _BF16)))
 # Phase 2's head dims between the tensor-core instances (64, 128, 256),
 # which run the next instance up, zero-padded: 8 and 32 (a 64-column box
 # wider than the tensor), 80 (Phi-2, Pythia-2.8B), 96 (Phi-3-mini), 136
@@ -324,6 +332,10 @@ ANY_FWD_SHAPES = tuple((Hkv, Sq, Sk) for Hkv in (8, 4, 1)
                                       (77, 131)))
 ANY_BWD_SHAPES = ((128, 128), (200, 200), (2048, 2048), (77, 131))
 ANY_TIMED_DIMS = (32, 80, 96, 160, 200)
+# ANY_DIMS whose backward cases run in f32 too (the tiled f32 pair: 96 on
+# the 128-column instance, 32 of its columns past D; 200 on the 256-column
+# one, its last 32-column box 8 columns in).
+ANY_F32_BWD_DIMS = (96, 200)
 PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
 WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
@@ -524,8 +536,12 @@ WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
 # Tensor-core kernels that must not spill (a spilled accumulator
 # serialises the wgmma around it): the wide dQ, every instantiation.
 NO_SPILL_WGMMA = "flash_bwd_dq_wide_wgmma_kernel"
-# The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32.
+# The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32. Its
+# instances: the wide forward; dQ wide and tiled at 64, 128 and 256
+# columns; dK/dV wide (which is also the tiled one at 256) and tiled at 64
+# and 128 columns.
 F32_LIBRARY = "flash_attention_wide_f32"
+F32_INSTANCES = 8
 F32_KERNELS = ("flash_fwd_wide_f32_kernel", "flash_bwd_dq_wide_f32_kernel",
                "flash_bwd_dkv_wide_f32_kernel")
 # The variants whose kernels replaced flash_attention_wide.cu's on the
@@ -542,7 +558,8 @@ def ptxas_summary(report: str):
     kernel<dtype> for the wide ones (head_dim above 256) and the
     tensor-core wide forward, kernel<dtype, resident> for the tensor-core
     wide dQ and dK/dV (Q and dO, or K and V, held in shared memory or
-    streamed), the bare name for the f32 wide kernels."""
+    streamed), the bare name for the f32 wide forward and kernel<rows or
+    keys, columns, box columns> for the f32 dQ and dK/dV instances."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -562,7 +579,11 @@ def ptxas_summary(report: str):
                 r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E", entry.group(1))
             f32 = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_wide_f32_kernel",
                             entry.group(1))
-            if f32:
+            shape = re.search(r"(?:Dkv|Dq)ShapeILi(\d+)ELi(\d+)ELi(\d+)E",
+                              entry.group(1))
+            if f32 and shape:
+                name = f"{f32.group(0)}<{', '.join(shape.groups())}>"
+            elif f32:
                 name = f32.group(0)
             elif wide_tc:
                 layout = {None: "", "1": ", resident", "0": ", streamed"}
@@ -630,8 +651,18 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all(KERNEL_LIBRARIES)
     seconds = time.perf_counter() - t0
-    sass = {n: sass_counts(paths[KERNEL_LIBRARIES.index(n)])
-            for n in (*WGMMA_LIBRARIES, F32_LIBRARY)}
+    # The SASS of each checked library, read by one cuobjdump each, all
+    # at once.
+    checked = (*WGMMA_LIBRARIES, F32_LIBRARY)
+    sass = {}
+    readers = [threading.Thread(target=lambda n=n: sass.__setitem__(
+        n, sass_counts(paths[KERNEL_LIBRARIES.index(n)]))) for n in checked]
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join()
+    if len(sass) != len(checked):
+        raise RuntimeError(f"cuobjdump read {sorted(sass)} of {checked}")
     emit({"phase": "build", "libraries": [p.name for p in paths],
           "seconds": seconds,
           "nvcc_seconds": {n: _build.build_info[n][0]
@@ -661,16 +692,16 @@ def phase_build():
             for ln in wide_tc):
         raise AssertionError(f"{NO_SPILL_WGMMA}: an instantiation is "
                              f"missing or spills: {wide_tc}")
-    # The f32 wide kernels: FFMA and no tensor-core instruction in their
-    # SASS, and no spill in ptxas's report.
+    # Every instance of the f32 library (wide and tiled): FFMA and no
+    # tensor-core instruction in its SASS, and no spill in ptxas's report.
     f32 = {k: c for k, c in sass[F32_LIBRARY]["kernels"].items()
            if any(name in k for name in F32_KERNELS)}
     spills = [ln for ln in ptxas_summary(_build.build_info[F32_LIBRARY][1])
               if "spill" in ln]
-    if (len(f32) != len(F32_KERNELS)
+    if (len(f32) != F32_INSTANCES
             or any(not c["FFMA"] or c["HMMA"] or c["HGMMA"]
                    for c in f32.values())
-            or len(spills) != len(F32_KERNELS)
+            or len(spills) != F32_INSTANCES
             or any("0 bytes spill stores, 0 bytes spill loads" not in ln
                    for ln in spills)):
         raise AssertionError(f"{F32_LIBRARY}: a kernel is missing, lacks "
@@ -857,7 +888,8 @@ def _variant_want(variant, n):
 _COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
              "wide_wgmma_launches", "wide_f32_launches", "dq_launches",
              "dkv_launches", "dq_wgmma_launches", "dkv_wgmma_launches",
-             "dq_simt_launches", "dkv_simt_launches", "dq_wide_launches",
+             "dq_tiled_f32_launches", "dkv_tiled_f32_launches",
+             "dq_wide_launches",
              "dkv_wide_launches", "dq_wide_wgmma_launches",
              "dkv_wide_wgmma_launches", "dq_wide_f32_launches",
              "dkv_wide_f32_launches", "plain_routes")
@@ -945,14 +977,16 @@ def phase_backward(dev):
     """Backward kernels vs the plain backward at every listed shape,
     causal and not, bf16 and f32, from the kernel forward's O and LSE (as
     training gives them). Each case checks that the variant of the rule
-    (bf16 and f16: tensor cores; f32: CUDA cores) launched, once per
-    kernel, and nothing else, and reads a planted fault (the plain
-    backward with one 64-row tile of dO zeroed) through the same check,
-    failing unless it is flagged. Timings at the training shape S=2048,
-    per dtype; then C1_BWD_CASES (head_dim 256, 128 and 200, f16; timed
-    at S=2048) and the ANY_DIMS cases (timed at ANY_TIMED_DIMS), where a
-    case the tensor cores take also holds the CUDA-core kernels against
-    the plain backward on the same inputs."""
+    (bf16 and f16: tensor cores; f32: the tiled f32 pair on the CUDA
+    cores) launched, once per kernel, and nothing else, and reads a
+    planted fault (the plain backward with one 64-row tile of dO zeroed)
+    through the same check, failing unless it is flagged. Timings at the
+    training shape S=2048, per dtype; then C1_BWD_CASES (head_dim 256, 128
+    and 200, f16; timed at S=2048) and the ANY_DIMS cases (timed at
+    ANY_TIMED_DIMS). Every f32 case, and every case of those two lists
+    that the tensor cores take, also holds the CUDA-core pair that the
+    rule took before (flash_attention_bwd.cu) against the plain backward
+    on the same inputs."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     B, H = 4, 8
@@ -960,8 +994,9 @@ def phase_backward(dev):
     cases = [(S, S, 64, both, "flagship") for S in BWD_LENGTHS]
     cases += [(*c, both, "flagship") for c in BWD_EXTRA_CASES]
     cases += [(*c, "c1") for c in C1_BWD_CASES]
-    cases += [(Sq, Sk, D, (_BF16, _F16), "any") for D in ANY_DIMS
-              for Sq, Sk in ANY_BWD_SHAPES]
+    cases += [(Sq, Sk, D, (_BF16, _F16) + ((_F32,) if D in ANY_F32_BWD_DIMS
+                                           else ()), "any")
+              for D in ANY_DIMS for Sq, Sk in ANY_BWD_SHAPES]
     checks = []
     timing = {}
     for Sq, Sk, D, dtypes, kind in cases:
@@ -1004,7 +1039,9 @@ def phase_backward(dev):
                          "err_row": dict(zip(("dq", "dk", "dv"), errs)),
                          "max_abs": dict(zip(("dq", "dk", "dv"), abs_errs)),
                          "tol_row": tol, "fault_row": fault_err}
-                if kind != "flagship" and variant == "wgmma":
+                simt_abs = None
+                if variant == "tiled_f32" or (kind != "flagship"
+                                              and variant == "wgmma"):
                     simt = (*_simt_backward(fa, "dq", q, k, v, o, lse, do,
                                             causal),
                             *_simt_backward(fa, "dkv", q, k, v, o, lse, do,
@@ -1012,6 +1049,8 @@ def phase_backward(dev):
                     torch.cuda.synchronize()
                     simt_errs = [grad_row_error(g, r)
                                  for g, r in zip(simt, ref)]
+                    simt_abs = [(g.float() - r.float()).abs().max().item()
+                                for g, r in zip(simt, ref)]
                     check["simt_err_row"] = dict(zip(("dq", "dk", "dv"),
                                                      simt_errs))
                     ok = ok and max(simt_errs) <= tol and all(
@@ -1023,11 +1062,13 @@ def phase_backward(dev):
                         f"backward kernels disagree with plain, the wrong "
                         f"variant launched, or the check misses a planted "
                         f"fault: {checks[-1]}")
+                # f32 is timed at the flagship's D=64 and at 128 and 256.
                 if causal and Sq == Sk == BWD_TIMED_LEN and (
-                        kind != "any" or D in ANY_TIMED_DIMS):
+                        kind != "any" or (D in ANY_TIMED_DIMS
+                                          and dtype != _F32)):
                     key = _dtype_name(dtype) + ("" if D == 64 else f"_D{D}")
                     timing[key] = _time_backward(fa, q, k, v, o, lse, do,
-                                                 abs_errs)
+                                                 abs_errs, simt_abs)
     emit({"phase": "kernels_backward", "checks": checks, "timing": timing})
     return timing
 
@@ -1035,7 +1076,8 @@ def phase_backward(dev):
 def _backward_counts(fa):
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
-            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
+            "dq_tiled_f32": fa.dq_tiled_f32_launches,
+            "dkv_tiled_f32": fa.dkv_tiled_f32_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
             "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
@@ -1044,9 +1086,9 @@ def _backward_counts(fa):
 
 
 def _backward_want(variant, n):
-    """Backward launch counts when the dQ and the dK/dV kernel of
-    `variant` (the forward's, as the rule has it at every head_dim)
-    launched n times each and no other kernel did."""
+    """Backward launch counts when the dQ and the dK/dV kernel of the
+    backward variant `variant` launched n times each and no other kernel
+    did."""
     fa = _flash_module()
     want = {kind: 0 for kind in _backward_counts(fa)}
     if variant is not None:
@@ -1093,11 +1135,13 @@ def _sdpa_backward_ms(q, k, v, do, iters=24, replays=10):
                     iters=iters, stream=side, replays=replays)
 
 
-def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
+def _time_backward(fa, q, k, v, o, lse, do, abs_errs, simt_abs=None):
     """Device times through CUDA graphs of the dQ and dK/dV kernels of the
-    rule, of the CUDA-core kernels on the same inputs where the rule picks
-    the tensor cores, and of SDPA's backward; the plain backward by
-    events."""
+    rule, of the CUDA-core pair of flash_attention_bwd.cu on the same
+    inputs where the rule picks another pair (the tensor cores, or the
+    tiled f32 pair; ``simt_abs``: its max abs errors of dq, dk and dv
+    against the plain backward), and of SDPA's backward; the plain
+    backward by events."""
     B, H, S, D = q.shape
     scale = D ** -0.5
     variant = fa._backward_variant(q.dtype, D)
@@ -1108,7 +1152,7 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
         dkv_ms = graph_ms(lambda i: fa._launch_dkv(q, k, v, o, lse, do,
                                                    delta, True, scale))
     simt_ms = {"dq": None, "dkv": None}
-    if variant == "wgmma":
+    if variant in ("wgmma", "tiled_f32"):
         simt_ms = {kind: graph_ms(lambda i, kind=kind: _simt_backward(
             fa, kind, q, k, v, o, lse, do), **SIMT_TIMING)
             for kind in ("dq", "dkv")}
@@ -1131,6 +1175,9 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs):
         result[kind] = {"kernel_ms": ms, "simt_kernel_ms": simt_ms[kind],
                         "tflops": ops / ms * 1e-9, "max_abs_err": err,
                         "bound_ms": bound_ms, "bound_by": bound_by}
+        if simt_abs is not None:
+            result[kind]["simt_max_abs_err"] = (
+                simt_abs[0] if kind == "dq" else max(simt_abs[1:]))
     return result
 
 
@@ -1758,11 +1805,19 @@ def _counts():
             "rms": fused.launches}
 
 
-def _want_counts(variant, fwd, bwd):
+# The backward variant beside each forward variant on a model path: f32
+# up to head_dim 256 takes the tiled f32 pair, everything else the
+# forward's variant.
+BACKWARD_OF = {"simt": "tiled_f32"}
+
+
+def _want_counts(variants, fwd, bwd):
     """_counts() of a run that launched the forward `fwd` times and each
-    backward kernel `bwd` times, all of `variant`, and no RMSNorm."""
-    return {"fwd": fwd, **_variant_want(variant, fwd), "dq": bwd,
-            "dkv": bwd, **_backward_want(variant, bwd), "rms": 0}
+    backward kernel `bwd` times, of `variants` = (forward variant,
+    backward variant), and no RMSNorm."""
+    fwd_variant, bwd_variant = variants
+    return {"fwd": fwd, **_variant_want(fwd_variant, fwd), "dq": bwd,
+            "dkv": bwd, **_backward_want(bwd_variant, bwd), "rms": 0}
 
 
 def _zero_counts():
@@ -1889,8 +1944,8 @@ def phase_train(dev, card, base):
                 grads_f = _loss_and_grads(cfg32, params, inputs, targets)[1]
             err_fault = _grad_errors(grads_f, grads_p)
             del grads_f
-        want = _want_counts("simt", L, L)
-        want_remat = _want_counts("simt", 2 * L, L)
+        want = _want_counts(("simt", "tiled_f32"), L, L)
+        want_remat = _want_counts(("simt", "tiled_f32"), 2 * L, L)
         err_plain = _grad_errors(grads_k, grads_p)
         err_remat = _grad_errors(grads_r, grads_k)
         res = {"n_kv_heads": cfg.n_kv_heads, "f32_loss_kernels": loss_k,
@@ -1931,8 +1986,8 @@ def phase_train(dev, card, base):
         with _attention_swapped("plain"):
             loss_pb = _loss_and_grads(cfg, params, inputs, targets)[0]
         err_loss = abs(loss_kb - loss_pb) / abs(loss_pb)
-        want_b = _want_counts("wgmma", L, L)
-        want_b_remat = _want_counts("wgmma", 2 * L, L)
+        want_b = _want_counts(("wgmma", "wgmma"), L, L)
+        want_b_remat = _want_counts(("wgmma", "wgmma"), 2 * L, L)
         res.update({"bf16_loss_kernels": loss_kb, "bf16_loss_plain": loss_pb,
                     "bf16_loss_err_vs_plain": err_loss,
                     "bf16_loss_tol": TRAIN_LOSS_TOL_BF16,
@@ -1960,7 +2015,7 @@ def phase_train(dev, card, base):
             losses.append(loss)
         counts = _counts()
         n = TRAIN_STEPS
-        want = _want_counts("wgmma", n * L, n * L)
+        want = _want_counts(("wgmma", "wgmma"), n * L, n * L)
         res.update({"bf16_losses": losses, "bf16_launches": counts,
                     "bf16_step_s": step_s,
                     "bf16_step_profile": _profile_steps(step, inputs,
@@ -2545,8 +2600,9 @@ def phase_c1_models(dev, base, model_lens):
         torch.cuda.synchronize()
         del master, step
         torch.cuda.empty_cache()
-        want_pass = (_want_counts("simt", 0, 0) if route == "plain"
-                     else _want_counts(route, L, L))
+        want_pass = (_want_counts((None, None), 0, 0) if route == "plain"
+                     else _want_counts((route, BACKWARD_OF.get(route, route)),
+                                       L, L))
         res = {"head_dim": cfg.head_dim, "dtype": _dtype_name(cfg.dtype),
                "n_layers": L, "route": route,
                "launches_per_prefill_by_variant": variants,
@@ -2854,7 +2910,7 @@ def phase_moe(dev, card, base, model_lens, lens, new_tokens):
         raise AssertionError(f"MoE f32: routing flips {flips} between the "
                              f"kernel and plain passes (smallest top-two "
                              f"gap {min_gap})")
-    if bad or counts32 != _want_counts("simt", L, L):
+    if bad or counts32 != _want_counts(("simt", "tiled_f32"), L, L):
         emit({"phase": "moe", "results": res})
         raise AssertionError(f"MoE f32 gradients through the kernels differ "
                              f"from plain attention in {bad}, or launches "
@@ -2870,7 +2926,8 @@ def phase_moe(dev, card, base, model_lens, lens, new_tokens):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     counts = _counts()
-    want = _want_counts("wgmma", TRAIN_STEPS * L, TRAIN_STEPS * L)
+    want = _want_counts(("wgmma", "wgmma"), TRAIN_STEPS * L,
+                        TRAIN_STEPS * L)
     later = sorted(step_s[1:])
     res["bf16"] = {"losses": losses, "launches": counts, "step_s": step_s,
                    "profile": _profile_steps(step, inputs, targets)}
@@ -3313,10 +3370,11 @@ def _spmd_want(cfg, axes, mb):
     launches of the same step in the reference's). Under sp > 1 ring
     attention is plain: no launch. Otherwise each shard runs each of its
     stage's layers once per microbatch (pp > 1) or once; the layer's
-    variant follows its input's type: f32 takes the CUDA cores, bf16 the
-    tensor cores, and under ep a bf16 model's residual stream is f32 from
-    layer 1 on (ROADMAP C.4). The reference runs every stage on each of
-    its pp + M - 1 ticks."""
+    variant follows its input's type: f32 takes the CUDA cores (the
+    forward's "simt", the tiled f32 backward pair), bf16 the tensor cores,
+    and under ep a bf16 model's residual stream is f32 from layer 1 on
+    (ROADMAP C.4). The reference runs every stage on each of its pp + M - 1
+    ticks."""
     pp, L = axes.get("pp", 1), cfg.n_layers
     runs = mb if pp > 1 else 1
     n = _variant_want(None, 0)
@@ -3331,7 +3389,7 @@ def _spmd_want(cfg, axes, mb):
     total = n["wgmma"] + n["simt"]
     want_bwd = _backward_want(None, 0)
     for v, c in n.items():
-        for key, count in _backward_want(v, c).items():
+        for key, count in _backward_want(BACKWARD_OF.get(v, v), c).items():
             want_bwd[key] += count
     return ({"fwd": total, **n, "dq": total, "dkv": total, **want_bwd,
              "rms": 0}, reference)
@@ -3721,10 +3779,12 @@ def main() -> int:
             if dtype not in ("f32", "bf16"):
                 continue
             c = run["launches_per_step"]
-            for kind, prefix in (("fwd", ""), ("dq", "dq_"),
-                                 ("dkv", "dkv_")):
+            for kind, prefix, variants in (
+                    ("fwd", "", ("wgmma", "simt")),
+                    ("dq", "dq_", ("wgmma", "tiled_f32")),
+                    ("dkv", "dkv_", ("wgmma", "tiled_f32"))):
                 launches_spmd[kind][f"{name} {dtype}"] = {
-                    v: c[prefix + v] for v in ("wgmma", "simt")}
+                    v: c[prefix + v] for v in variants}
 
     replaces = {
         "mha": "ray_tpu/ops/flash_attention.py:341 (_attn_kernel via "
@@ -3780,13 +3840,15 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"], "dtype": "float32", "card": card})
     # The backward pair: bf16 on the tensor cores (the train steps), f32 on
-    # the CUDA cores (phase 5's f32 gradient passes).
+    # the tiled f32 pair (phase 5's f32 gradient passes; D=128 and 256
+    # beside it), the CUDA-core pair it replaced timed on the same inputs
+    # (simt_kernel_ms).
     for dtype, suffix, variant, source, launches_of in (
             ("bfloat16", "", "wgmma",
              "ray_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
              train["mha"]["bf16_launches"]),
-            ("float32", "[f32]", "simt",
-             "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            ("float32", "[f32]", "tiled_f32",
+             "ray_tpu_torch/ops/csrc/flash_attention_wide_f32.cu",
              train["mha"]["launches_per_pass"])):
         tb = bwd[dtype]
         for kind in ("dq", "dkv"):
@@ -3809,6 +3871,30 @@ def main() -> int:
                                    for dt in ("bfloat16", "float16")}
             kernels[-1]["D128"] = {dt: _bwd_brief(bwd[f"{dt}_D128"], "dkv")
                                    for dt in ("bfloat16", "float16")}
+        else:
+            for i, kind in ((-2, "dq"), (-1, "dkv")):
+                kernels[i].update({f"D{D}": _bwd_brief(
+                    bwd[f"float32_D{D}"], kind) for D in (128, 256)})
+    # The CUDA-core f32 pair that the tiled one replaced (no main-path
+    # launch left), timed and held on the same f32 inputs at S=2048.
+    tb = bwd["float32"]
+    for kind in ("dq", "dkv"):
+        t = tb[kind]
+        kernels.append({
+            "name": f"flash_attention_bwd_{kind}[f32-simt]",
+            "route": "cuda", "variant": "simt",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": replaces[kind], "launches": 0,
+            "launches_from": "reached by no rule",
+            "max_abs_err": t["simt_max_abs_err"],
+            "ms": t["simt_kernel_ms"], "kernel_ms": t["simt_kernel_ms"],
+            "plain_ms": tb["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": tb["library_ms"],
+            "plain": tb["plain"], "library": tb["library"],
+            "shape": tb["shape"], "dtype": "float32",
+            **{f"D{D}_ms": bwd[f"float32_D{D}"][kind]["simt_kernel_ms"]
+               for D in (128, 256)},
+            "card": card})
     # The tensor-core kernels on the shapes that the CUDA-core ones took
     # before (phase 2b's configs give the launches): head_dim 256 in bf16
     # (f16 beside it), the flagship in f16, and the padded widths of

@@ -51,9 +51,26 @@ thread, as first written), all three kernels with a 4-stage copy ring,
 and dQ with 256 columns a block (64 f32 of dQ a thread, 1.67x the real
 work at D = 512 against 1x for this tree's 512).
 
+With ``--f32``, the f32 backward pairs up to head_dim 256 on f32 inputs
+at head_dim 64, 128 and 256: the earlier CUDA-core pair
+(``flash_attention_bwd.cu``), the wide instances of
+``flash_attention_wide_f32.cu`` called through their C entry points at
+those widths, this tree's tiled pair (the same library's tiled
+instances) and ``F32_TILED_VARIANTS`` (textual edits of those instances),
+each held against the plain backward (dQ also against the float64
+formula, delta against rowsum(dO * O)) and timed in turns beside SDPA's
+backward and the bound. With ``--parent``
+(an earlier commit's ``flash_attention_wide_f32.cu``), the wide dQ, delta
+and dK/dV of both are compared bit for bit at head_dim 264, 1032 and 512
+and timed at 512. Then the CUDA-core wide kernels
+(``flash_attention_wide.cu``: bf16/f16 above head_dim 1024) at head_dim
+1032 and 2048 in bf16, held against the plain versions and timed once
+each beside SDPA and the bound.
+
 Run from the repository root: ``python3 flash_ab.py --parent DIR``
 (``--variants ""`` builds no textual variant), ``python3 flash_ab.py
---wide`` or ``python3 flash_ab.py --wide-f32``. Prints one JSON line per
+--wide``, ``python3 flash_ab.py --wide-f32`` or ``python3 flash_ab.py
+--f32 [--parent DIR]``. Prints one JSON line per
 build, check and timing, then the card's name and power limit. Exits
 non-zero without a card.
 """
@@ -135,14 +152,40 @@ WIDE_VARIANTS = {
 WIDE_F32_SOURCE = "flash_attention_wide_f32.cu"
 WIDE_F32_VARIANTS = {
     "f32_dkv_cols128": {WIDE_F32_SOURCE: [
-        ("constexpr int kCols = 256;    // columns of dK and of dV",
-         "constexpr int kCols = 128;    // columns of dK and of dV")]},
+        ("using DkvWide = DkvShape<64, 256, 32>;",
+         "using DkvWide = DkvShape<64, 128, 32>;")]},
     "f32_stages4": {WIDE_F32_SOURCE: [
         ("constexpr int kStages = 3;", "constexpr int kStages = 4;")]},
     "f32_dq_cols256": {WIDE_F32_SOURCE: [
-        ("constexpr int kCols = 512;    // columns of dQ per block",
-         "constexpr int kCols = 256;    // columns of dQ per block")]},
+        ("using DqWide = DqShape<64, 512, 32, false>;",
+         "using DqWide = DqShape<64, 256, 32, false>;")]},
 }
+# --f32: the f32 backward pairs at head_dim up to 256, and textual
+# variants of this tree's tiled instances: dK/dV at D <= 128 with 128 keys
+# a block (128 f32 of dK and dV a thread, 16-column boxes), dQ at D <= 128
+# with 64 rows a block (32 f32 of dQ a thread), dQ at D <= 64 with
+# 16-column boxes. F32_VARIANT_SCOPE: the head_dims and kernels each
+# changes.
+F32_LIB = "flash_attention_wide_f32"
+F32_DIMS = (64, 128, 256)
+F32_TILED_VARIANTS = {
+    "tiled_dkv128_keys128": {WIDE_F32_SOURCE: [
+        ("using DkvTiled128 = DkvShape<64, 128, 32>;",
+         "using DkvTiled128 = DkvShape<128, 128, 16>;")]},
+    "tiled_dq128_rows64": {WIDE_F32_SOURCE: [
+        ("using DqTiled128 = DqShape<128, 128, 32, true>;",
+         "using DqTiled128 = DqShape<64, 128, 32, true>;")]},
+    "tiled_dq64_box16": {WIDE_F32_SOURCE: [
+        ("using DqTiled64 = DqShape<128, 64, 32, true>;",
+         "using DqTiled64 = DqShape<128, 64, 16, true>;")]},
+}
+F32_VARIANT_SCOPE = {"tiled_dkv128_keys128": ((128,), ("dkv",)),
+                     "tiled_dq128_rows64": ((128,), ("dq",)),
+                     "tiled_dq64_box16": ((64,), ("dq",))}
+F32_TIMING = {"iters": 8, "replays": 5}
+# The CUDA-core wide kernels (flash_attention_wide.cu: bf16/f16 above
+# 1024), timed once each.
+WIDE_CC_DIMS = (1032, 2048)
 # The head_dims where a variant's code differs from this tree's.
 VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
 DIMS = (64, 128, 256)
@@ -162,8 +205,8 @@ def _sources(name, parent):
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
-    for fname, edits in {**VARIANTS, **WIDE_VARIANTS,
-                         **WIDE_F32_VARIANTS}.get(name, {}).items():
+    for fname, edits in {**VARIANTS, **WIDE_VARIANTS, **WIDE_F32_VARIANTS,
+                         **F32_TILED_VARIANTS}.get(name, {}).items():
         path = dst / fname
         text = path.read_text()
         for old, new in edits:
@@ -388,6 +431,242 @@ def dq_check(runs, others, t, D):
                                  f"with this tree's kernel")
 
 
+def _bwd_fns(lib, suffix):
+    """(dQ, dK/dV) C functions of an f32 library, argument types set."""
+    fns = []
+    for kind in ("dq", "dkv"):
+        fn = getattr(lib, f"flash_attention_bwd_{kind}{suffix}")
+        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
+        fn.restype = _CI
+        fns.append(fn)
+    return fns
+
+
+def f32_calls(name, lib, suffix, t):
+    """Closures launching dQ (with delta) and dK/dV (on this tree's delta)
+    of an f32 design through its C entry points, into t's output
+    buffers."""
+    dq, dkv = _bwd_fns(lib, suffix)
+    B, H, Sq, D = t["q"].shape
+    Sk = t["k"].shape[2]
+    p = {k: v.data_ptr() for k, v in t.items() if torch.is_tensor(v)}
+
+    def run(fn, *args):
+        err = fn(*args, B * H, Sq, Sk, D, D ** -0.5, int(t["causal"]), 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name}: launch failed ({err})")
+
+    return {"dq": lambda i: run(dq, p["q"], p["k"], p["v"], p["o"], p["do"],
+                                p["lse"], p["dq2"], p["delta2"]),
+            "dkv": lambda i: run(dkv, p["q"], p["k"], p["v"], p["do"],
+                                 p["lse"], p["delta"], p["dk2"], p["dv2"])}
+
+
+def old_calls(t):
+    """The earlier f32 pair (flash_attention_bwd.cu, computing delta itself)
+    through its C entry points, into t's output buffers."""
+    fa = cs._flash_module()
+    B, H, Sq, D = t["q"].shape
+    lib = fa._LIBRARIES["simt"][1]
+    fns = {kind: fa._kernel_fn(lib, f"flash_attention_bwd_{kind}")
+           for kind in ("dq", "dkv")}
+    p = {k: v.data_ptr() for k, v in t.items() if torch.is_tensor(v)}
+
+    def run(kind, *outs):
+        err = fns[kind](p["q"], p["k"], p["v"], p["o"], p["do"], p["lse"],
+                        *outs, B * H, Sq, t["k"].shape[2], D, D ** -0.5,
+                        int(t["causal"]), 0,
+                        torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old pair: launch failed ({err})")
+
+    return {"dq": lambda i: run("dq", p["dq2"]),
+            "dkv": lambda i: run("dkv", p["dk2"], p["dv2"])}
+
+
+def f32_inputs(gen, dev, B, H, Sq, Sk, D, causal):
+    """Seeded f32 inputs, this tree's forward O and LSE, the delta of this
+    tree's dQ kernel, and output buffers."""
+    fa = cs._flash_module()
+    q, do = (torch.randn((B, H, Sq, D), generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((B, H, Sk, D), generator=gen, device=dev)
+            for _ in range(2))
+    with cs._counts_kept(fa):
+        o, lse = fa._flash_forward(q, k, v, causal)
+        delta = fa._launch_dq(q, k, v, o, lse, do, causal, D ** -0.5)[1]
+    return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+            "delta": delta, "causal": causal, "dq2": torch.empty_like(q),
+            "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
+            "dv2": torch.empty_like(v)}
+
+
+def f32_check(name, run, t, ref, dq64):
+    """One design's dQ (against the float64 formula and the f32 plain one;
+    its delta, where it writes one, against rowsum(dO * O)) and dK/dV
+    (against the f32 plain backward), per row within GRAD_ROW_TOL."""
+    tol = cs.GRAD_ROW_TOL[torch.float32]
+    t["delta2"].fill_(float("nan"))
+    run["dq"](0)
+    run["dkv"](0)
+    torch.cuda.synchronize()
+    got = {"dq_vs_f64": cs.grad_row_error(t["dq2"], dq64),
+           "dq": cs.grad_row_error(t["dq2"], ref[0]),
+           "dk": cs.grad_row_error(t["dk2"], ref[1]),
+           "dv": cs.grad_row_error(t["dv2"], ref[2])}
+    if name != "old":
+        got["delta_of_limit"] = testing.delta_error(t["delta2"], t["do"],
+                                                    t["o"])
+    D = t["q"].shape[-1]
+    emit({"check": f"{name} vs plain", "D": D, "causal": t["causal"],
+          "shape": list(t["q"].shape), "err_row": got, "tol_row": tol})
+    if not (max(got[k] for k in ("dq_vs_f64", "dk", "dv")) <= tol
+            and got.get("delta_of_limit", 0.0) <= 1.0):
+        raise AssertionError(f"{name} at D={D}: disagrees with plain {got}")
+
+
+def f32_bits(runs, t, names):
+    """The designs' dQ, delta, dK and dV on the same inputs, bit for
+    bit."""
+    outs = {}
+    for n in names:
+        runs[n]["dq"](0)
+        runs[n]["dkv"](0)
+        torch.cuda.synchronize()
+        outs[n] = [t[x].clone() for x in ("dq2", "delta2", "dk2", "dv2")]
+    same = all(torch.equal(a, b) for a, b in zip(*outs.values()))
+    emit({"check": f"{' vs '.join(names)}, bit for bit",
+          "shape": list(t["q"].shape), "causal": t["causal"],
+          "same": same})
+    if not same:
+        raise AssertionError(f"{names} differ at {list(t['q'].shape)}")
+
+
+def f32_main(args, dev, gen):
+    """--f32: the f32 backward pairs at B=4, H=8, S=2048, causal, D in
+    F32_DIMS: flash_attention_bwd.cu's pair (``old``), the wide instances
+    through their C entry points (``wide``), this tree's tiled instances
+    (``tree``) and F32_TILED_VARIANTS, each held against plain and timed
+    in turns beside SDPA's backward and the bound; with ``--parent``, the
+    parent's and this tree's wide instances bit for bit above 256 and
+    timed at D=512. Then the CUDA-core wide kernels (bf16) at
+    WIDE_CC_DIMS."""
+    fa = cs._flash_module()
+    # The libraries this mode loads through the wrapper, built together.
+    _build.build_all(("flash_attention_fwd", "flash_attention_bwd",
+                      "flash_attention_wide", F32_LIB))
+    variants = [n for n in (args.variants if args.variants is not None
+                            else ",".join(F32_TILED_VARIANTS)).split(",")
+                if n]
+    names = ["tree", *variants] + (["parent"] if args.parent else [])
+    libs = {n: lib[F32_LIB] for n, lib in build(names, args.parent,
+                                                 (F32_LIB,)).items()}
+    if args.parent:
+        for D, shape in ((264, (2, 2, 200, 200)), (1032, (2, 2, 77, 131)),
+                         (512, (B, H, S, S))):
+            for causal in (True, False):
+                if D == 512 and not causal:
+                    continue
+                t = f32_inputs(gen, dev, *shape[:2], *shape[2:], D, causal)
+                runs = {n: f32_calls(n, libs[n], "_wide_f32", t)
+                        for n in ("parent", "tree")}
+                f32_bits(runs, t, ("parent", "tree"))
+        for kind in ("dq", "dkv"):
+            ms = {"parent": [], "tree": []}
+            for n in ("parent", "tree", "tree", "parent"):
+                ms[n].append(cs.graph_ms(runs[n][kind], **F32_TIMING))
+            emit({"timing": f"{kind}_wide_f32", "D": 512, "dtype": "float32",
+                  "shape": [B, H, S, 512], "causal": True, "ms": ms})
+    for D in F32_DIMS:
+        t = f32_inputs(gen, dev, B, H, S, S, D, True)
+        here = [n for n in variants if D in F32_VARIANT_SCOPE[n][0]]
+        runs = {"old": old_calls(t),
+                "wide": f32_calls("wide", libs["tree"], "_wide_f32", t),
+                **{n: f32_calls(n, libs[n], "_tiled_f32", t)
+                   for n in ["tree", *here]}}
+        ref = fa._dense_backward(t["q"], t["k"], t["v"], t["o"], t["lse"],
+                                 t["do"], True, D ** -0.5)
+        dq64 = testing.dense_dq_f64(t["q"], t["k"], t["v"], t["o"],
+                                    t["lse"], t["do"], True, D ** -0.5)
+        for n, run in runs.items():
+            f32_check(n, run, t, ref, dq64)
+        del ref, dq64
+        torch.cuda.empty_cache()
+        for kind in ("dq", "dkv"):
+            others = ["old", "wide", *[n for n in here
+                                       if kind in F32_VARIANT_SCOPE[n][1]]]
+            order = [*others, "tree", "tree", *others[::-1]]
+            ms = {n: [] for n in ["tree", *others]}
+            for n in order:
+                ms[n].append(cs.graph_ms(runs[n][kind], **F32_TIMING))
+            bound_ms, bound_by = cs.backward_bound(B, H, S, D, torch.float32,
+                                                   True, kind)
+            emit({"timing": kind, "D": D, "dtype": "float32",
+                  "shape": [B, H, S, D], "causal": True, "ms": ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by})
+        emit({"timing": "sdpa_backward", "D": D, "dtype": "float32",
+              "shape": [B, H, S, D], "causal": True,
+              "sdpa_backend": cs._sdpa_backend(t["q"], t["k"], t["v"]),
+              "ms": cs._sdpa_backward_ms(t["q"], t["k"], t["v"], t["do"])})
+        del t, runs
+        torch.cuda.empty_cache()
+    for D in WIDE_CC_DIMS:
+        wide_cuda_core(fa, gen, dev, D)
+
+
+def wide_cuda_core(fa, gen, dev, D):
+    """The CUDA-core wide forward, dQ and dK/dV (flash_attention_wide.cu,
+    the rule's kernels for bf16/f16 above 1024) at B, H, S and head_dim D,
+    causal, bf16, through their C entry points: held against the plain
+    versions and timed through CUDA graphs of one call (each call takes
+    hundreds of ms), beside SDPA (its backend named) and the bound."""
+    dtype = torch.bfloat16
+    scale = D ** -0.5
+    q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    o, lse = cs._simt_forward(fa, q, k, v, True, wide=True)
+    dq, = cs._simt_backward(fa, "dq", q, k, v, o, lse, do, True, wide=True)
+    dk, dv = cs._simt_backward(fa, "dkv", q, k, v, o, lse, do, True,
+                               wide=True)
+    ro, rlse = fa._dense_kernel(q, k, v, True, scale)
+    _, err_o_row, err_lse = cs.compare(o, lse, ro, rlse)
+    del ro, rlse
+    ref = fa._dense_backward(q, k, v, o, lse, do, True, scale)
+    err = {n: cs.grad_row_error(g, r)
+           for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    del ref
+    torch.cuda.empty_cache()
+    ok = (err_o_row <= cs.O_ROW_TOL[dtype] and err_lse <= 1.0
+          and max(err.values()) <= cs.GRAD_ROW_TOL[dtype])
+    emit({"check": "wide vs plain", "D": D, "dtype": "bfloat16",
+          "err_o_row": err_o_row, "err_lse_of_limit": err_lse,
+          "err_row": err, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the wide kernels at D={D} disagree with "
+                             f"plain")
+    one = {"iters": 1, "replays": 2}
+    ms = {"fwd": cs.graph_ms(lambda i: cs._simt_forward(
+              fa, q, k, v, True, wide=True), **one)}
+    for kind in ("dq", "dkv"):
+        ms[kind] = cs.graph_ms(lambda i, kind=kind: cs._simt_backward(
+            fa, kind, q, k, v, o, lse, do, True, wide=True), **one)
+    bound = {"fwd": cs.attention_bound(B, H, H, S, D, dtype, True),
+             **{kind: cs.backward_bound(B, H, S, D, dtype, True, kind)
+                for kind in ("dq", "dkv")}}
+    backend = cs._sdpa_backend(q, k, v)
+    try:
+        sdpa = {"fwd": cs.graph_ms(lambda i: cs.F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), iters=2, replays=3),
+                "bwd": cs._sdpa_backward_ms(q, k, v, do, iters=2,
+                                            replays=3)}
+    except RuntimeError as e:   # no backend took the shape
+        sdpa, backend = None, f"none took the shape: {str(e)[:160]}"
+    emit({"timing": "wide", "D": D, "dtype": "bfloat16",
+          "shape": [B, H, S, D], "causal": True, "ms": ms, "bound": bound,
+          "sdpa_ms": sdpa, "sdpa_backend": backend})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device; this script runs only on a card",
@@ -405,7 +684,16 @@ def main() -> int:
     ap.add_argument("--wide-f32", action="store_true",
                     help="the f32 wide kernels (head_dim above 256) and "
                          "WIDE_F32_VARIANTS")
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32 backward pairs at head_dim up to 256 "
+                         "and F32_TILED_VARIANTS, then the CUDA-core "
+                         "wide kernels at WIDE_CC_DIMS")
     args = ap.parse_args()
+    if args.f32:
+        dev = torch.device("cuda", 0)
+        f32_main(args, dev, torch.Generator(device=dev).manual_seed(cs.SEED))
+        print(cs.card_line(), flush=True)
+        return 0
     args.wide = args.wide or args.wide_f32
     if args.wide and args.parent:
         ap.error("--parent does not apply to --wide or --wide-f32")

@@ -71,15 +71,29 @@ def build_all(names: Iterable[str]) -> List[Path]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
-    failures = []
-    for name, out, tmp, proc, t0 in running:
+    # Each process's output is read, and its time taken, on a thread of its
+    # own, so that a build's seconds are its own, not the slowest before it.
+    done = {}
+
+    def finish(name, proc, t0):
         stdout, stderr = proc.communicate()
+        done[name] = (stdout, stderr, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=finish, args=(name, proc, t0))
+               for name, _, _, proc, t0 in running]
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join()
+    failures = []
+    for name, out, tmp, proc, _ in running:
+        stdout, stderr, seconds = done[name]
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name} ({proc.returncode}):"
                             f"\n{stdout}\n{stderr}")
             continue
         os.replace(tmp, out)
-        build_info[name] = (time.perf_counter() - t0, stderr)
+        build_info[name] = (seconds, stderr)
     if failures:
         raise RuntimeError("\n".join(failures))
     return outs

@@ -1,6 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a): the FA2 split into a dQ
 // kernel and a dK/dV kernel.
 //
+// No rule of shapes reaches these kernels any more: bf16 and f16 take
+// flash_attention_bwd_wgmma.cu's, f32 up to head_dim 256 the tiled
+// instances of flash_attention_wide_f32.cu. chip_smoke.py calls them
+// through their C entry points, holds them against the plain backward and
+// times them beside the kernels that took their place.
+//
 // Replaces the Pallas TPU kernels of ray_tpu/ops/flash_attention.py that
 // `_flash_bwd_rule` launches: `_attn_bwd_dq_kernel` (dQ) and
 // `_attn_bwd_dkv_kernel` (dK, dV). Both rebuild each probability tile from

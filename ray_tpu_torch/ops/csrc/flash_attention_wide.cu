@@ -5,10 +5,10 @@
 // 1024 are flash_attention_wide_wgmma.cu's, of f32 at every width
 // flash_attention_wide_f32.cu's (each of those dQ kernels writes the delta
 // its dK/dV kernel reads). bf16 and f16 at the multiples of 8 up to 256
-// take the tensor-core kernels, f32 there those of flash_attention_fwd.cu
-// / flash_attention_bwd.cu. chip_smoke.py still calls this file's three
-// kernels in every dtype through their C entry points, and times them
-// beside the kernels that took their place.
+// take the tensor-core kernels, f32 there flash_attention_fwd.cu's forward
+// and flash_attention_wide_f32.cu's tiled dQ and dK/dV. chip_smoke.py
+// still calls this file's three kernels in every dtype through their C
+// entry points, and times them beside the kernels that took their place.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)

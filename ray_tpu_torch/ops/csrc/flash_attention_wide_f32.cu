@@ -1,8 +1,12 @@
-// Flash attention in float32 for head dims above 256 on Hopper (sm_90a),
-// on the CUDA cores: the forward (MHA and GQA), dQ and dK/dV, any head_dim
-// that is a multiple of 8. The wrapper's rule of shapes sends f32 above
-// head_dim 256 here, all three kernels; this dQ kernel also writes the
-// delta = rowsum(dO * O) that this dK/dV kernel reads.
+// Flash attention in float32 on Hopper (sm_90a), on the CUDA cores: the
+// forward (MHA and GQA) for head dims above 256, and dQ and dK/dV at every
+// head_dim that is a multiple of 8. The wrapper's rule of shapes sends f32
+// above head_dim 256 here, all three kernels ("wide_f32": the output's
+// head dimension split into slices across blocks), and the f32 backward up
+// to 256 ("tiled_f32": instances of the same dQ and dK/dV templates whose
+// block covers all of D; the f32 forward there is flash_attention_fwd.cu's).
+// Each dQ kernel also writes the delta = rowsum(dO * O) that the dK/dV
+// kernel reads.
 //
 // Replaces, for those head dims in f32, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
@@ -22,9 +26,17 @@
 // dK/dV 8 * Sq * Sk * D (about half of each when causal): at B=4, H=8,
 // S=2048, D=512, causal that is ~137, ~206 and ~275 GFLOP against ~0.54 to
 // ~0.81 GB moved, 2.05, 3.08 and 4.10 ms at the f32 rate against 0.16 to
-// 0.24 ms at 3.35 TB/s.
+// 0.24 ms at 3.35 TB/s; at D=64, 0.385 ms (dQ) and 0.513 ms (dK/dV)
+// against 0.06 to 0.08 ms. The earlier f32 pair up to 256
+// (flash_attention_bwd.cu, 4 threads a row, each reading two operand
+// floats from shared memory per FMA, spilling at D=256) ran the pair at
+// 25% (D=64) and 13% (D=256) of that rate, the tiled instances at 43% and
+// 46% (flash_ab.py --f32 on an H100 SXM at 700 W).
 //
-// Design, all three kernels (256 threads, one block per SM):
+// Design, all three kernels (256 threads, one block per SM), as the wide
+// instances have it; the dQ and dK/dV kernels are templates over their
+// block's shape (DqShape, DkvShape), and the tiled instances below differ
+// only in those shapes:
 // - A block owns a wide slice of the output's columns: 256 columns of O
 //   (64 rows x 256 columns, 64 f32 a thread), 512 of dQ (64 rows x 512
 //   columns, 128 f32 a thread) or 256 of dK and of dV (64 keys x 256
@@ -76,11 +88,43 @@
 //   are read once, before the key loop, four threads a row; the blocks of
 //   the first column slice write delta.
 //
+// The tiled instances (f32 dQ and dK/dV up to head_dim 256). A block
+// covers all of D, so the score reduction is never repeated; each width
+// runs the narrowest instance whose columns reach it, the columns past D
+// zero-filled and never stored (the products' padding waste: D=8 8x,
+// 32 2x, 96 1.33x, 200 1.28x, 248 1.03x; the reduction runs over the real
+// D in whole boxes). A thread's tile of the output keeps 8 rows (dQ) or
+// keys (dK/dV) of whole float4s, so at narrow D a block takes more rows
+// or keys rather than fewer columns a thread:
+// - dK/dV: 128 keys x 64 columns (D <= 64: 16-column boxes, since the
+//   128-key K and V boxes and 128-key P and dS fill shared memory at 32;
+//   8 x 4 S^T and dP^T tiles), 64 keys x 128 columns (D <= 128) and the
+//   wide instance, 64 keys x 256 columns (D <= 256: exactly the work).
+// - dQ: 128 rows x 64 and x 128 columns (8 x 4 S and dP tiles), 64 rows
+//   x 256 columns. Each sums delta as dP is summed: per 32-column box a
+//   chain of FMAs from 0, the pieces added in box order. Where O's row is
+//   a key's V row (a causal first row: P = 1 on one key), dP - delta is
+//   then exactly 0 and so is that row of dQ, as the exact formula has it.
+// - The S and dP products of a reduction step load their operands in two
+//   halves (Q and K, then dO and V), which keeps the 8-row tiles' operands
+//   out of registers at once; each accumulator's chain of FMAs is the
+//   wide instances' own.
+// - Causal (the reference's top-left mask): dQ skips key tiles past its
+//   block's last row and runs the last rows (the most tiles) first;
+//   dK/dV skips query tiles before its first key and runs the first keys
+//   first.
+// - 256 threads and one block an SM, every instance: ptxas holds each in
+//   238 to 255 registers without a spill. 128 keys x 128 columns of dK
+//   and dV (128 f32 of them a thread) spilled 208 bytes and ran 15%
+//   slower than 64 x 128; 64 rows x 128 columns of dQ ran 10% slower than
+//   128 x 128, and 16-column boxes for dQ at D <= 64 8% slower than 32
+//   (flash_ab.py --f32).
+//
 // Other points:
-// - Any multiple of 8 above 256 (no upper limit): a box narrower than 32
-//   columns at the end of D (D = 264: 8 columns), a slice wider than what
-//   is left of D (D = 264: 8 of 256) and rows past Sq or Sk are
-//   zero-filled by cp.async (source size 0) and never stored.
+// - Any multiple of 8 (the wide instances: no upper limit): a box
+//   narrower than 32 columns at the end of D (D = 264: 8 columns), a slice
+//   wider than what is left of D (D = 264: 8 of 256) and rows past Sq or
+//   Sk are zero-filled by cp.async (source size 0) and never stored.
 // - GQA: query head h reads KV head h / (Hq / Hkv).
 // - Causal (the reference's top-left mask): the forward skips key tiles
 //   past the block's last query row, dK/dV query tiles before its first
@@ -418,25 +462,41 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
 }
 
 // --------------------------------------------------------------- dK/dV
-namespace dkv {
+// The largest power of two p <= most with p <= limit.
+constexpr int fit_pow2(int limit, int most) {
+  return most <= limit ? most : fit_pow2(limit, most / 2);
+}
 
-constexpr int kKeys = 64;     // keys per block (rows of dK and dV)
-constexpr int kRows = 64;     // query rows per tile
-constexpr int kCols = 256;    // columns of dK and of dV per block
-constexpr int kThreadCols = kCols / 32;   // a thread's columns of each
-constexpr int kPRows = 4096 / kCols;      // query rows per product box
-constexpr int kPBoxes = kRows / kPRows;
-constexpr int kBox = kKeys * kBoxStride;     // one of K, V, Q, dO
-constexpr int kRowVals = 4 * kBox;           // LSE then delta of the tile
-constexpr int kStage = 4 * kBox + 2 * kRows;
-static_assert(kStage >= 2 * kPRows * kCols, "product box fits a stage");
-constexpr int kPStride = kKeys + 4;   // P and dS: one row of kKeys per query
-constexpr int kSmemFloats = kStages * kStage + 2 * kRows * kPStride;
-constexpr int kSmemBytes = kSmemFloats * 4;
-static_assert(kSmemBytes <= 232448, "227 KB a block");
+// A dK/dV block: kKeys keys x kCols columns of dK and of dV, 64-row query
+// tiles streamed over them, kBoxCols columns of D per reduction box.
+template <int kKeys_, int kCols_, int kBoxCols_>
+struct DkvShape {
+  static constexpr int kKeys = kKeys_;
+  static constexpr int kCols = kCols_;
+  static constexpr int kBoxCols = kBoxCols_;
+  static constexpr int kRows = 64;                 // query rows per tile
+  static constexpr int kBoxStride = kBoxCols + 4;  // padded row of a box
+  static constexpr int kKeyTiles = kKeys / 16;     // S^T: keys ry + 16 i
+  static constexpr int kTy = kKeys / 8;            // dK, dV: 8 keys a thread
+  static constexpr int kTx = kThreads / kTy;
+  static constexpr int kThreadCols = kCols / kTx;  // a thread's columns
+  static constexpr int kKBox = kKeys * kBoxStride;   // K or V
+  static constexpr int kQBox = kRows * kBoxStride;   // Q or dO
+  static constexpr int kRowVals = 2 * kKBox + 2 * kQBox;   // LSE, delta
+  static constexpr int kStage = kRowVals + 2 * kRows;
+  // Query rows per product box (Q and dO over the block's columns).
+  static constexpr int kPRows = fit_pow2(kStage / (2 * kCols), kRows);
+  static constexpr int kPBoxes = kRows / kPRows;
+  static constexpr int kPStride = kKeys + 4;  // P, dS: a row of kKeys a query
+  static constexpr int kSmemFloats = kStages * kStage + 2 * kRows * kPStride;
+  static constexpr int kSmemBytes = kSmemFloats * 4;
+  static_assert(kKeys % 16 == 0 && kTy * kTx == kThreads && kTx % 8 == 0 &&
+                    kThreadCols % 4 == 0 && kBoxCols % 16 == 0,
+                "thread tiles of whole float4s");
+  static_assert(kSmemBytes <= 232448, "227 KB a block");
+};
 
-}  // namespace dkv
-
+template <class Shape>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -447,7 +507,21 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int sq, int sk, int d, int n_slices,
                               float scale, int causal) {
-  using namespace dkv;
+  constexpr int kKeys = Shape::kKeys;
+  constexpr int kRows = Shape::kRows;
+  constexpr int kCols = Shape::kCols;
+  constexpr int kBoxCols = Shape::kBoxCols;
+  constexpr int kBoxStride = Shape::kBoxStride;
+  constexpr int kKeyTiles = Shape::kKeyTiles;
+  constexpr int kTx = Shape::kTx;
+  constexpr int kThreadCols = Shape::kThreadCols;
+  constexpr int kKBox = Shape::kKBox;
+  constexpr int kQBox = Shape::kQBox;
+  constexpr int kRowVals = Shape::kRowVals;
+  constexpr int kStage = Shape::kStage;
+  constexpr int kPRows = Shape::kPRows;
+  constexpr int kPBoxes = Shape::kPBoxes;
+  constexpr int kPStride = Shape::kPStride;
   extern __shared__ __align__(16) float smem[];
   float* ps = smem + kStages * kStage;    // P [kRows][kPStride]
   float* dss = ps + kRows * kPStride;     // dS [kRows][kPStride]
@@ -468,9 +542,9 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
   // S^T and dP^T: keys ry + 16 i, query rows rx + 16 j (a warp: 4 x 8).
   const int ry = (warp / 2) * 4 + lane / 8;
   const int rx = (warp % 2) * 8 + lane % 8;
-  // dK and dV: keys 8 ty + i, columns 4 tx + 128 j + e (a warp: 4 x 8).
-  const int ty = (warp / 4) * 4 + lane / 8;
-  const int tx = (warp % 4) * 8 + lane % 8;
+  // dK and dV: keys 8 ty + i, columns 4 tx + 4 kTx j + e (a warp: 4 x 8).
+  const int ty = (warp / (kTx / 8)) * 4 + lane / 8;
+  const int tx = (warp % (kTx / 8)) * 8 + lane % 8;
 
   float dk_acc[8][kThreadCols];
   float dv_acc[8][kThreadCols];
@@ -482,8 +556,8 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
       dv_acc[i][e] = 0.f;
     }
   }
-  float s[4][4];
-  float dp[4][4];
+  float s[kKeyTiles][4];
+  float dp[kKeyTiles][4];
 
   const int n_qb = (sq + kRows - 1) / kRows;
   // Causal: query tiles that end before this block's first key are masked.
@@ -503,11 +577,11 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
     if (idx < n_rbox) {
       const int col0 = idx * kBoxCols;
       load_box<kKeys, kBoxCols, kBoxStride>(st, km, k0, sk, col0, d);
-      load_box<kKeys, kBoxCols, kBoxStride>(st + kBox, vm, k0, sk, col0, d);
-      load_box<kRows, kBoxCols, kBoxStride>(st + 2 * kBox, qm, q0, sq, col0,
+      load_box<kKeys, kBoxCols, kBoxStride>(st + kKBox, vm, k0, sk, col0, d);
+      load_box<kRows, kBoxCols, kBoxStride>(st + 2 * kKBox, qm, q0, sq, col0,
                                             d);
-      load_box<kRows, kBoxCols, kBoxStride>(st + 3 * kBox, dom, q0, sq, col0,
-                                            d);
+      load_box<kRows, kBoxCols, kBoxStride>(st + 2 * kKBox + kQBox, dom, q0,
+                                            sq, col0, d);
       if (idx == n_rbox - 1 && threadIdx.x < 2 * kRows) {
         const int r = threadIdx.x % kRows;
         const float* src = threadIdx.x < kRows ? lsem : deltam;
@@ -542,7 +616,7 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
     if (idx < n_rbox) {
       if (idx == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kKeyTiles; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             s[i][j] = 0.f;
@@ -551,30 +625,40 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
         }
       }
       const float* ks = st;
-      const float* vs = st + kBox;
-      const float* qs = st + 2 * kBox;
-      const float* ds = st + 3 * kBox;
+      const float* vs = st + kKBox;
+      const float* qs = st + 2 * kKBox;
+      const float* ds = st + 2 * kKBox + kQBox;
 #pragma unroll
       for (int kk = 0; kk < kBoxCols; kk += 4) {
-        float4 kf[4];
-        float4 vf[4];
+        float4 kf[kKeyTiles];
         float4 qf[4];
-        float4 df[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kKeyTiles; ++i) {
           kf[i] = ld4(ks + (ry + 16 * i) * kBoxStride + kk);
-          vf[i] = ld4(vs + (ry + 16 * i) * kBoxStride + kk);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           qf[j] = ld4(qs + (rx + 16 * j) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < kKeyTiles; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dot4(kf[i], qf[j], s[i][j]);
+        }
+        float4 vf[kKeyTiles];
+        float4 df[4];
+#pragma unroll
+        for (int i = 0; i < kKeyTiles; ++i) {
+          vf[i] = ld4(vs + (ry + 16 * i) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
           df[j] = ld4(ds + (rx + 16 * j) * kBoxStride + kk);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kKeyTiles; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = dot4(kf[i], qf[j], s[i][j]);
             dp[i][j] = dot4(vf[i], df[j], dp[i][j]);
           }
         }
@@ -591,7 +675,7 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
           const float row_lse = lse_s[row];
           const float row_delta = delta_s[row];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < kKeyTiles; ++i) {
             const int key = ry + 16 * i;
             const int kj = k0 + key;
             const bool keep = kj < sk && qi < sq && (!causal || kj <= qi);
@@ -616,8 +700,8 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
                 ld4(dsrow + r * kPStride + 4));
 #pragma unroll
         for (int j = 0; j < kThreadCols / 4; ++j) {
-          const float4 dov = ld4(ds + r * kCols + 4 * tx + 128 * j);
-          const float4 qv = ld4(qs + r * kCols + 4 * tx + 128 * j);
+          const float4 dov = ld4(ds + r * kCols + 4 * tx + 4 * kTx * j);
+          const float4 qv = ld4(qs + r * kCols + 4 * tx + 4 * kTx * j);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             float* a = dv_acc[i] + 4 * j;
@@ -642,7 +726,7 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
     if (kj >= sk) continue;
 #pragma unroll
     for (int j = 0; j < kThreadCols / 4; ++j) {
-      const int col = c0 + 4 * tx + 128 * j;
+      const int col = c0 + 4 * tx + 4 * kTx * j;
       if (col >= d) continue;
       const size_t off = ((size_t)bh * sk + kj) * d + col;
       const float* g = dk_acc[i] + 4 * j;
@@ -656,25 +740,43 @@ flash_bwd_dkv_wide_f32_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------------------ dQ
-namespace bwd_dq {
+// A dQ block: kRows query rows x kCols columns of dQ, 64-key tiles
+// streamed over them, kBoxCols columns of D per reduction box.
+// kDeltaInDpOrder: delta = rowsum(dO * O) is summed as dP is, in the same
+// per-box pieces and order, so that dP - delta is exactly 0 wherever O's
+// row is the key's V row (a causal first row: its dQ is exactly 0); else
+// four threads a row sum it in strides of 16 columns.
+template <int kRows_, int kCols_, int kBoxCols_, bool kDeltaInDpOrder_>
+struct DqShape {
+  static constexpr int kRows = kRows_;
+  static constexpr int kCols = kCols_;
+  static constexpr int kBoxCols = kBoxCols_;
+  static constexpr bool kDeltaInDpOrder = kDeltaInDpOrder_;
+  static constexpr int kKeys = 64;                 // keys per tile
+  static constexpr int kBoxStride = kBoxCols + 4;  // padded row of a box
+  static constexpr int kRowTiles = kRows / 16;     // S: rows ry + 16 i
+  static constexpr int kTy = kRows / 8;            // dQ: 8 rows a thread
+  static constexpr int kTx = kThreads / kTy;
+  static constexpr int kThreadCols = kCols / kTx;  // a thread's columns
+  static constexpr int kQBox = kRows * kBoxStride;   // Q or dO
+  static constexpr int kKBox = kKeys * kBoxStride;   // K or V
+  static constexpr int kStage = 2 * kQBox + 2 * kKBox;
+  // Keys per product box (K over the block's columns).
+  static constexpr int kPKeys = fit_pow2(kStage / kCols, kKeys);
+  static constexpr int kPBoxes = kKeys / kPKeys;
+  static constexpr int kPStride = kRows + 4;  // dS^T: a row of kRows a key
+  static constexpr int kSmemFloats =
+      kStages * kStage + kKeys * kPStride + 2 * kRows;
+  static constexpr int kSmemBytes = kSmemFloats * 4;
+  static_assert(kRows % 16 == 0 && kTy * kTx == kThreads && kTx % 8 == 0 &&
+                    kThreadCols % 4 == 0 && kBoxCols % 16 == 0,
+                "thread tiles of whole float4s");
+  static_assert(kDeltaInDpOrder || kRows * 4 == kThreads,
+                "four threads a row sum delta");
+  static_assert(kSmemBytes <= 232448, "227 KB a block");
+};
 
-constexpr int kRows = 64;     // query rows per block (rows of dQ)
-constexpr int kKeys = 64;     // keys per tile
-constexpr int kCols = 512;    // columns of dQ per block
-constexpr int kThreadCols = kCols / 32;   // a thread's columns
-constexpr int kPKeys = 8192 / kCols;      // keys per product box
-constexpr int kPBoxes = kKeys / kPKeys;
-constexpr int kBox = kRows * kBoxStride;  // one of Q, dO, K, V
-static_assert(kRows == kKeys, "Q, dO, K and V boxes share a size");
-constexpr int kStage = 4 * kBox;
-static_assert(kStage >= kPKeys * kCols, "product box fits a stage");
-constexpr int kPStride = kRows + 4;   // dS: one row of kRows per key
-constexpr int kSmemFloats = kStages * kStage + kKeys * kPStride + 2 * kRows;
-constexpr int kSmemBytes = kSmemFloats * 4;
-static_assert(kSmemBytes <= 232448, "227 KB a block");
-
-}  // namespace bwd_dq
-
+template <class Shape>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -685,9 +787,22 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
                              float* __restrict__ dq,
                              float* __restrict__ delta, int sq, int sk,
                              int d, int n_slices, float scale, int causal) {
-  using namespace bwd_dq;
+  constexpr int kRows = Shape::kRows;
+  constexpr int kKeys = Shape::kKeys;
+  constexpr int kCols = Shape::kCols;
+  constexpr int kBoxCols = Shape::kBoxCols;
+  constexpr int kBoxStride = Shape::kBoxStride;
+  constexpr int kRowTiles = Shape::kRowTiles;
+  constexpr int kTx = Shape::kTx;
+  constexpr int kThreadCols = Shape::kThreadCols;
+  constexpr int kQBox = Shape::kQBox;
+  constexpr int kKBox = Shape::kKBox;
+  constexpr int kStage = Shape::kStage;
+  constexpr int kPKeys = Shape::kPKeys;
+  constexpr int kPBoxes = Shape::kPBoxes;
+  constexpr int kPStride = Shape::kPStride;
   extern __shared__ __align__(16) float smem[];
-  float* dss = smem + kStages * kStage;   // dS [kKeys][kPStride]
+  float* dss = smem + kStages * kStage;   // dS^T [kKeys][kPStride]
   float* lse_s = dss + kKeys * kPStride;  // per row of the block
   float* delta_s = lse_s + kRows;
 
@@ -706,14 +821,36 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
   // S and dP: query rows ry + 16 i, keys rx + 16 j (a warp: 4 x 8).
   const int ry = (warp / 2) * 4 + lane / 8;
   const int rx = (warp % 2) * 8 + lane % 8;
-  // dQ: rows 8 ty + i, columns 4 tx + 128 j + e (a warp: 4 x 8).
-  const int ty = (warp / 4) * 4 + lane / 8;
-  const int tx = (warp % 4) * 8 + lane % 8;
+  // dQ: rows 8 ty + i, columns 4 tx + 4 kTx j + e (a warp: 4 x 8).
+  const int ty = (warp / (kTx / 8)) * 4 + lane / 8;
+  const int tx = (warp % (kTx / 8)) * 8 + lane % 8;
 
-  // delta = rowsum(dO * O) and LSE of the block's rows, four threads
-  // (adjacent lanes) a row, read once; the blocks of the first slice write
-  // delta for the dK/dV kernel. Read after the first box's barrier.
-  {
+  // delta = rowsum(dO * O) and LSE of the block's rows, read once; the
+  // blocks of the first slice write delta for the dK/dV kernel. Read after
+  // the first box's barrier.
+  if constexpr (Shape::kDeltaInDpOrder) {
+    if (threadIdx.x < kRows) {
+      const int r = threadIdx.x;
+      const int qi = q0 + r;
+      float sum = 0.f;
+      if (qi < sq) {
+        const float* dor = dom + (size_t)qi * d;
+        const float* orow = o + ((size_t)bh * sq + qi) * d;
+        for (int col0 = 0; col0 < d; col0 += kBoxCols) {
+          // One box's piece, a chain over its columns as dP's partials.
+          float piece = 0.f;
+          const int end = min(col0 + kBoxCols, d);
+          for (int col = col0; col < end; col += 4) {
+            piece = dot4(ld4(dor + col), ld4(orow + col), piece);
+          }
+          sum += piece;
+        }
+      }
+      delta_s[r] = sum;
+      lse_s[r] = qi < sq ? lse[(size_t)bh * sq + qi] : 0.f;
+      if (slice == 0 && qi < sq) delta[(size_t)bh * sq + qi] = sum;
+    }
+  } else {
     const int r = threadIdx.x / 4;
     const int part = threadIdx.x % 4;
     const int qi = q0 + r;
@@ -740,8 +877,8 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < kThreadCols; ++e) acc[i][e] = 0.f;
   }
-  float s[4][4];
-  float dp[4][4];
+  float s[kRowTiles][4];
+  float dp[kRowTiles][4];
 
   // Causal: key tiles past this block's last query row are masked.
   int n_kt = (sk + kKeys - 1) / kKeys;
@@ -760,12 +897,12 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
     if (idx < n_rbox) {
       const int col0 = idx * kBoxCols;
       load_box<kRows, kBoxCols, kBoxStride>(st, qm, q0, sq, col0, d);
-      load_box<kRows, kBoxCols, kBoxStride>(st + kBox, dom, q0, sq, col0,
+      load_box<kRows, kBoxCols, kBoxStride>(st + kQBox, dom, q0, sq, col0,
                                             d);
-      load_box<kKeys, kBoxCols, kBoxStride>(st + 2 * kBox, km, k0, sk, col0,
+      load_box<kKeys, kBoxCols, kBoxStride>(st + 2 * kQBox, km, k0, sk, col0,
                                             d);
-      load_box<kKeys, kBoxCols, kBoxStride>(st + 3 * kBox, vm, k0, sk, col0,
-                                            d);
+      load_box<kKeys, kBoxCols, kBoxStride>(st + 2 * kQBox + kKBox, vm, k0,
+                                            sk, col0, d);
     } else {
       load_box<kPKeys, kCols, kCols>(st, km, k0 + (idx - n_rbox) * kPKeys,
                                      sk, c0, d);
@@ -791,7 +928,7 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
     if (idx < n_rbox) {
       if (idx == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowTiles; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             s[i][j] = 0.f;
@@ -799,46 +936,56 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
           }
         }
       }
-      // Each box's 32-column sums of dP start from 0 and are added to the
-      // tile's once done: shorter chains of rounding than one chain over
-      // all of D (dP - delta cancels where dO and V are large).
-      float dpb[4][4];
+      // Each box's sums of dP start from 0 and are added to the tile's
+      // once done: shorter chains of rounding than one chain over all of D
+      // (dP - delta cancels where dO and V are large).
+      float dpb[kRowTiles][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kRowTiles; ++i) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) dpb[i][j] = 0.f;
       }
       const float* qs = st;
-      const float* ds = st + kBox;
-      const float* ks = st + 2 * kBox;
-      const float* vs = st + 3 * kBox;
+      const float* ds = st + kQBox;
+      const float* ks = st + 2 * kQBox;
+      const float* vs = st + 2 * kQBox + kKBox;
 #pragma unroll
       for (int kk = 0; kk < kBoxCols; kk += 4) {
-        float4 qf[4];
-        float4 df[4];
+        float4 qf[kRowTiles];
         float4 kf[4];
-        float4 vf[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowTiles; ++i) {
           qf[i] = ld4(qs + (ry + 16 * i) * kBoxStride + kk);
-          df[i] = ld4(ds + (ry + 16 * i) * kBoxStride + kk);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           kf[j] = ld4(ks + (rx + 16 * j) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < kRowTiles; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dot4(qf[i], kf[j], s[i][j]);
+        }
+        float4 df[kRowTiles];
+        float4 vf[4];
+#pragma unroll
+        for (int i = 0; i < kRowTiles; ++i) {
+          df[i] = ld4(ds + (ry + 16 * i) * kBoxStride + kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
           vf[j] = ld4(vs + (rx + 16 * j) * kBoxStride + kk);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowTiles; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = dot4(qf[i], kf[j], s[i][j]);
             dpb[i][j] = dot4(df[i], vf[j], dpb[i][j]);
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kRowTiles; ++i) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) dp[i][j] += dpb[i][j];
       }
@@ -846,7 +993,7 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
         // dS = P * (dP - delta) with P = exp(scale * S - LSE), to dS^T in
         // shared memory, read after the next box's barrier.
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowTiles; ++i) {
           const int row = ry + 16 * i;
           const int qi = q0 + row;
           const float row_lse = lse_s[row];
@@ -871,7 +1018,7 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
         unpack8(dsv, ld4(dsrow + r * kPStride), ld4(dsrow + r * kPStride + 4));
 #pragma unroll
         for (int j = 0; j < kThreadCols / 4; ++j) {
-          const float4 kv = ld4(ks + r * kCols + 4 * tx + 128 * j);
+          const float4 kv = ld4(ks + r * kCols + 4 * tx + 4 * kTx * j);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             float* a = acc[i] + 4 * j;
@@ -891,7 +1038,7 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
     if (qi >= sq) continue;
 #pragma unroll
     for (int j = 0; j < kThreadCols / 4; ++j) {
-      const int col = c0 + 4 * tx + 128 * j;
+      const int col = c0 + 4 * tx + 4 * kTx * j;
       if (col >= d) continue;
       const float* a = acc[i] + 4 * j;
       *reinterpret_cast<float4*>(dq + ((size_t)bh * sq + qi) * d + col) =
@@ -901,7 +1048,86 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
   }
 }
 
+// ----------------------------------------------------------- instances
+// Above head_dim 256 ("wide_f32"): 64 keys x 256 columns of dK and dV,
+// 64 rows x 512 columns of dQ a block, D split into slices of those
+// columns. Up to 256 ("tiled_f32"): one block covers all of D, the
+// narrowest instance whose columns reach D (the columns past D
+// zero-filled and never stored); at narrow D a block takes more keys or
+// rows, so that a thread's tile of the output keeps 8 rows of whole
+// float4s.
+using DkvWide = DkvShape<64, 256, 32>;       // 128 f32 of dK, dV a thread
+using DkvTiled64 = DkvShape<128, 64, 16>;    // 64 a thread, D <= 64
+using DkvTiled128 = DkvShape<64, 128, 32>;   // 64 a thread, D <= 128
+using DkvTiled256 = DkvWide;                 // D <= 256: the real work
+using DqWide = DqShape<64, 512, 32, false>;  // 128 f32 of dQ a thread
+using DqTiled64 = DqShape<128, 64, 32, true>;     // 32 a thread
+using DqTiled128 = DqShape<128, 128, 32, true>;   // 64 a thread
+using DqTiled256 = DqShape<64, 256, 32, true>;    // 64 a thread
+
 bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
+
+bool bad_bwd_shape(int bh, int sq, int sk, int d, int dtype, long long rows,
+                   long long slices) {
+  return dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
+         rows > 65535 || bh * slices > 0x7fffffffLL;
+}
+
+template <class Shape>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int bh, int sq, int sk, int d, float scale, int causal,
+               int dtype, void* stream) {
+  const int n_kb = (sk + Shape::kKeys - 1) / Shape::kKeys;
+  const int n_slices = (d + Shape::kCols - 1) / Shape::kCols;
+  if (bad_bwd_shape(bh, sq, sk, d, dtype, n_kb, n_slices) || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(dout) || misaligned(dk) ||
+      misaligned(dv) || lse == nullptr || delta == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_f32_kernel<Shape>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh * n_slices, n_kb);
+  flash_bwd_dkv_wide_f32_kernel<Shape>
+      <<<grid, kThreads, Shape::kSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d,
+          n_slices, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <class Shape>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* dq, void* delta,
+              int bh, int sq, int sk, int d, float scale, int causal,
+              int dtype, void* stream) {
+  const int n_qb = (sq + Shape::kRows - 1) / Shape::kRows;
+  const int n_slices = (d + Shape::kCols - 1) / Shape::kCols;
+  if (bad_bwd_shape(bh, sq, sk, d, dtype, n_qb, n_slices) || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(o) || misaligned(dout) ||
+      misaligned(dq) || lse == nullptr || delta == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_f32_kernel<Shape>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh * n_slices, n_qb);
+  flash_bwd_dq_wide_f32_kernel<Shape>
+      <<<grid, kThreads, Shape::kSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(o),
+          static_cast<const float*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(dq), static_cast<float*>(delta), sq, sk, d,
+          n_slices, scale, causal);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -939,63 +1165,69 @@ extern "C" int flash_attention_fwd_wide_f32(const void* q, const void* k,
 // q, dout [B*H, Sq, D], k, v, dk, dv [B*H, Sk, D] f32 (contiguous, 16-byte
 // aligned; D any multiple of 8); lse and delta = rowsum(dO * O) [B*H, Sq]
 // f32; dtype must be 0. The arguments of
-// flash_attention_bwd_dkv_wide_wgmma.
+// flash_attention_bwd_dkv_wide_wgmma. Every D runs the wide instance
+// (256-column slices).
 extern "C" int flash_attention_bwd_dkv_wide_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
     int sk, int d, float scale, int causal, int dtype, void* stream) {
-  const int n_kb = (sk + dkv::kKeys - 1) / dkv::kKeys;
-  const int n_slices = (d + dkv::kCols - 1) / dkv::kCols;
-  if (dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
-      n_kb > 65535 || (long long)bh * n_slices > 0x7fffffffLL ||
-      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) ||
-      misaligned(dk) || misaligned(dv) || lse == nullptr ||
-      delta == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh * n_slices, n_kb);
-  flash_bwd_dkv_wide_f32_kernel<<<grid, kThreads, dkv::kSmemBytes,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, n_slices,
-      scale, causal);
-  return (int)cudaGetLastError();
+  return launch_dkv<DkvWide>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                             d, scale, causal, dtype, stream);
 }
 
 // q, o, dout, dq [B*H, Sq, D], k, v [B*H, Sk, D] f32 (contiguous, 16-byte
 // aligned; D any multiple of 8); lse [B*H, Sq] f32 as the forward writes
 // it; delta [B*H, Sq] f32, written with rowsum(dO * O) for the dK/dV kernel
 // (not null); dtype must be 0. The arguments of flash_attention_bwd_dq_wide.
+// Every D runs the wide instance (512-column slices).
 extern "C" int flash_attention_bwd_dq_wide_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta, int bh, int sq,
     int sk, int d, float scale, int causal, int dtype, void* stream) {
-  const int n_qb = (sq + bwd_dq::kRows - 1) / bwd_dq::kRows;
-  const int n_slices = (d + bwd_dq::kCols - 1) / bwd_dq::kCols;
-  if (dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
-      n_qb > 65535 || (long long)bh * n_slices > 0x7fffffffLL ||
-      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(o) ||
-      misaligned(dout) || misaligned(dq) || lse == nullptr ||
-      delta == nullptr) {
-    return (int)cudaErrorInvalidValue;
+  return launch_dq<DqWide>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk, d,
+                           scale, causal, dtype, stream);
+}
+
+
+// The arguments of flash_attention_bwd_dkv_wide_f32, D a multiple of 8 up
+// to 256: the tiled instance whose columns reach D.
+extern "C" int flash_attention_bwd_dkv_tiled_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+    int sk, int d, float scale, int causal, int dtype, void* stream) {
+  if (d <= DkvTiled64::kCols) {
+    return launch_dkv<DkvTiled64>(q, k, v, dout, lse, delta, dk, dv, bh, sq,
+                                  sk, d, scale, causal, dtype, stream);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_dq::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh * n_slices, n_qb);
-  flash_bwd_dq_wide_f32_kernel<<<grid, kThreads, bwd_dq::kSmemBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(dq), static_cast<float*>(delta), sq, sk, d,
-      n_slices, scale, causal);
-  return (int)cudaGetLastError();
+  if (d <= DkvTiled128::kCols) {
+    return launch_dkv<DkvTiled128>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                   sq, sk, d, scale, causal, dtype, stream);
+  }
+  if (d <= DkvTiled256::kCols) {
+    return launch_dkv<DkvTiled256>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                   sq, sk, d, scale, causal, dtype, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The arguments of flash_attention_bwd_dq_wide_f32, D a multiple of 8 up to
+// 256: the tiled instance whose columns reach D; delta is summed in dP's
+// order.
+extern "C" int flash_attention_bwd_dq_tiled_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* delta, int bh, int sq,
+    int sk, int d, float scale, int causal, int dtype, void* stream) {
+  if (d <= DqTiled64::kCols) {
+    return launch_dq<DqTiled64>(q, k, v, o, dout, lse, dq, delta, bh, sq, sk,
+                                d, scale, causal, dtype, stream);
+  }
+  if (d <= DqTiled128::kCols) {
+    return launch_dq<DqTiled128>(q, k, v, o, dout, lse, dq, delta, bh, sq,
+                                 sk, d, scale, causal, dtype, stream);
+  }
+  if (d <= DqTiled256::kCols) {
+    return launch_dq<DqTiled256>(q, k, v, o, dout, lse, dq, delta, bh, sq,
+                                 sk, d, scale, causal, dtype, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

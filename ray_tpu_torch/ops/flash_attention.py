@@ -13,25 +13,29 @@ head_dim 256 runs on the CUDA cores (``csrc/flash_attention_fwd.cu``),
 whose f32 arithmetic the f32 limits rest on. No variant gives way to
 another on an error: the wrapper raises. The backward kernels, dQ and
 dK/dV, replace ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
-``_flash_bwd_rule`` launches, with the same rule of shapes
-(``_backward_variant``): bf16 and f16 on the tensor cores
-(``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also writes delta
-= rowsum(dO * O) for its dK/dV kernel), f32 up to head_dim 256 on the CUDA
-cores (``csrc/flash_attention_bwd.cu``). Above head_dim 256 the kernels
-split the head dimension of their output across blocks: bf16 and f16 up
-to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
+``_flash_bwd_rule`` launches, by a rule of their own
+(``_backward_variant``): bf16 and f16 up to head_dim 256 on the tensor
+cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also writes
+delta = rowsum(dO * O) for its dK/dV kernel), f32 up to head_dim 256 on
+the CUDA cores as the ``"tiled_f32"`` pair (``csrc/flash_attention_wide_
+f32.cu``'s dQ and dK/dV templates at instances whose block covers all of
+D: register-tiled f32 FMAs fed by a cp.async ring; a backward-only
+variant: the f32 forward there stays ``"simt"``). Above head_dim 256 the
+kernels split the head dimension of their output across blocks: bf16 and
+f16 up to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
 kernels on the tensor cores (``csrc/flash_attention_wide_wgmma.cu``: 256
 columns of O, of dQ and 128 of dK/dV a block, the score reduction
 streamed over D in 64-column TMA boxes); f32 at every multiple of 8 above
 256 takes the ``"wide_f32"`` kernels on the CUDA cores
 (``csrc/flash_attention_wide_f32.cu``: 256 columns of O, 512 of dQ and
-256 of dK and dV a block, register-tiled f32 FMAs fed by a cp.async
-ring). In both the dQ kernel writes delta for the dK/dV kernel.
-bf16/f16 above 1024 take the ``"wide"`` variant, all three kernels on
-the CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column chunks,
-any multiple of 8). So dQ and dK/dV always share the forward's variant.
-A wrapper launches its kernel for CUDA tensors and raises on what it
-does not take; it runs a plain version only for tensors on the CPU.
+256 of dK and dV a block). Every dQ kernel but ``"wide"``'s writes delta
+for its dK/dV kernel. bf16/f16 above 1024 take the ``"wide"`` variant,
+all three kernels on the CUDA cores in ``csrc/flash_attention_wide.cu``
+(64-column chunks, any multiple of 8). So dQ and dK/dV share a variant,
+the forward's everywhere but in f32 up to 256. The earlier f32 pair up
+to 256 (``csrc/flash_attention_bwd.cu``) stays, reached by no rule. A
+wrapper launches its kernel for CUDA tensors and raises on what it does
+not take; it runs a plain version only for tensors on the CPU.
 
 The forward kernels round where the reference's ``_attn_kernel`` does:
 q * scale in q's dtype (the scale itself rounded to that dtype first, as
@@ -75,8 +79,8 @@ dq_launches = 0     # backward dQ, every variant
 dkv_launches = 0    # backward dK/dV, every variant
 dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
 dkv_wgmma_launches = 0
-dq_simt_launches = 0    # backward on the CUDA cores (f32, D <= 256)
-dkv_simt_launches = 0
+dq_tiled_f32_launches = 0     # backward on the CUDA cores (f32, D <= 256)
+dkv_tiled_f32_launches = 0
 dq_wide_launches = 0    # backward on the CUDA cores, bf16/f16 with D
 dkv_wide_launches = 0   # above WIDE_WGMMA_MAX_D
 dq_wide_wgmma_launches = 0    # backward with D above 256 on the tensor cores
@@ -123,11 +127,16 @@ _SIGNATURES = {
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_bwd_dkv_wide_f32"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_bwd_dq_tiled_f32"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_bwd_dkv_tiled_f32"):
+        [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
 # Each variant's kernels: (forward library, backward library, suffix of
-# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
-# dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their
-# variant.
+# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv); a
+# backward-only variant names no forward library. The dK/dV kernels of
+# _READS_DELTA read delta from the dQ kernel of their variant. "simt"'s
+# backward pair is reached by no rule (chip_smoke.py still calls it).
 _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                         "flash_attention_bwd_wgmma", "_wgmma"),
               "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
@@ -136,9 +145,10 @@ _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
               "wide_wgmma": ("flash_attention_wide_wgmma",
                              "flash_attention_wide_wgmma", "_wide_wgmma"),
               "wide_f32": ("flash_attention_wide_f32",
-                           "flash_attention_wide_f32", "_wide_f32")}
+                           "flash_attention_wide_f32", "_wide_f32"),
+              "tiled_f32": (None, "flash_attention_wide_f32", "_tiled_f32")}
 # dK/dV variants that take delta in place of O.
-_READS_DELTA = ("wgmma", "wide_wgmma", "wide_f32")
+_READS_DELTA = ("wgmma", "wide_wgmma", "wide_f32", "tiled_f32")
 _bound = {}
 
 
@@ -343,11 +353,16 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
 def _backward_variant(dtype: torch.dtype, D: int,
                       kernel: Optional[str] = None) -> str:
     """Which backward kernel, ``kernel`` = ``"dq"``, ``"dkv"`` or None
-    (both), takes a CUDA input: the forward's rule at every head_dim, for
-    dQ and dK/dV alike (``testing.GRAD_ROW_TOL``'s f32 limit and the f32
-    gradient checks rest on f32 products)."""
+    (both), takes a CUDA input, for dQ and dK/dV alike: ``"tiled_f32"``
+    (CUDA cores, one block across all of D) for f32 up to ``SIMT_MAX_D``,
+    where the forward takes ``"simt"``; everywhere else the forward's
+    rule. f32 stays on f32 products at every width
+    (``testing.GRAD_ROW_TOL``'s f32 limit and the f32 gradient checks rest
+    on them)."""
     if kernel not in (None, "dq", "dkv"):
         raise ValueError(f"kernel is 'dq' or 'dkv', got {kernel!r}")
+    if dtype == torch.float32 and D <= SIMT_MAX_D:
+        return "tiled_f32"
     return _forward_variant(dtype, D)
 
 
@@ -415,13 +430,12 @@ def _check_rows_f32(t, q, name):
 
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
-    delta). Where the dK/dV kernel is one of ``_READS_DELTA`` (``"wgmma"``,
-    ``"wide_wgmma"``, ``"wide_f32"``) the dQ kernel also writes delta =
-    rowsum(dO * O), [B, H, Sq] f32, which that dK/dV kernel reads; the
-    other dK/dV kernels compute delta themselves, and then delta is
-    None."""
-    global dq_launches, dq_wgmma_launches, dq_simt_launches, dq_wide_launches
-    global dq_wide_wgmma_launches, dq_wide_f32_launches
+    delta). Where the dK/dV kernel is one of ``_READS_DELTA`` (every
+    variant but ``"wide"``) the dQ kernel also writes delta = rowsum(dO *
+    O), [B, H, Sq] f32, which that dK/dV kernel reads; ``"wide"``'s dK/dV
+    kernel computes delta itself, and then delta is None."""
+    global dq_launches, dq_wgmma_launches, dq_tiled_f32_launches
+    global dq_wide_launches, dq_wide_wgmma_launches, dq_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -434,24 +448,20 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
     if variant in _READS_DELTA:
         delta = torch.empty(q.shape[:3], dtype=torch.float32,
                             device=q.device)
-    if variant == "simt":
-        err = _kernel_fn(library, name)(*ptrs, *scalars, stream)
-    else:
-        # delta's buffer, or null: "wide"'s dQ kernel then writes none.
-        err = _kernel_fn(library, name)(
-            *ptrs, None if delta is None else delta.data_ptr(), *scalars,
-            stream)
+    # delta's buffer, or null: "wide"'s dQ kernel then writes none.
+    err = _kernel_fn(library, name)(
+        *ptrs, None if delta is None else delta.data_ptr(), *scalars, stream)
     _check_launch(name, err)
     if variant == "wgmma":
         dq_wgmma_launches += 1
+    elif variant == "tiled_f32":
+        dq_tiled_f32_launches += 1
     elif variant == "wide_wgmma":
         dq_wide_wgmma_launches += 1
     elif variant == "wide_f32":
         dq_wide_f32_launches += 1
-    elif variant == "wide":
-        dq_wide_launches += 1
     else:
-        dq_simt_launches += 1
+        dq_wide_launches += 1
     dq_launches += 1
     return dq, delta
 
@@ -459,9 +469,8 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
 def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     """dK/dV kernel (replaces ``_attn_bwd_dkv_kernel``) -> (dk, dv).
     ``delta`` is ``_launch_dq``'s second result: the variants of
-    ``_READS_DELTA`` read it, the others compute delta from O
-    themselves."""
-    global dkv_launches, dkv_wgmma_launches, dkv_simt_launches
+    ``_READS_DELTA`` read it, ``"wide"`` computes delta from O itself."""
+    global dkv_launches, dkv_wgmma_launches, dkv_tiled_f32_launches
     global dkv_wide_launches, dkv_wide_wgmma_launches, dkv_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
@@ -483,14 +492,14 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     _check_launch(name, err)
     if variant == "wgmma":
         dkv_wgmma_launches += 1
+    elif variant == "tiled_f32":
+        dkv_tiled_f32_launches += 1
     elif variant == "wide_wgmma":
         dkv_wide_wgmma_launches += 1
     elif variant == "wide_f32":
         dkv_wide_f32_launches += 1
-    elif variant == "wide":
-        dkv_wide_launches += 1
     else:
-        dkv_simt_launches += 1
+        dkv_wide_launches += 1
     dkv_launches += 1
     return dk, dv
 

@@ -154,6 +154,24 @@ def grad_row_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (d / ref.abs().amax(-1).clamp_min(floor)).max().item()
 
 
+def dense_dq_f64(q, k, v, o, lse, do, causal, scale) -> torch.Tensor:
+    """dQ of the plain backward's formula in float64: P = exp(scale * S -
+    LSE) from the given LSE (-1e30 masking, as the kernels mask), delta =
+    rowsum(dO * O), dS = P * (dP - delta), dQ = scale * dS K. The f32 dQ
+    kernels are held against it where dP - delta cancels (ROADMAP C.9):
+    there the f32 plain backward's own rounding exceeds GRAD_ROW_TOL."""
+    from ray_tpu_torch.ops.flash_attention import _mask_causal
+
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = _mask_causal(s)
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (do * o).sum(-1)[..., None])
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+
+
 def seeded_qkv(seed, B, Hq, Hkv, Sq, Sk, D, dtype, device):
     """q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D] of standard normals drawn
     by numpy from ``seed`` (the same values on any machine), cast to

@@ -59,6 +59,11 @@ def test_attention_route_rule(D, dtype):
     before = fa.plain_routes
     assert fa.take_route(dt, D) == want
     assert fa.plain_routes - before == (want == "plain")
+    # The backward pair takes the forward's variant, but f32 up to 256
+    # takes the tiled f32 pair (the forward stays "simt").
+    if want != "plain":
+        assert fa._backward_variant(dt, D) == (
+            "tiled_f32" if want == "simt" else want)
 
 
 @pytest.mark.parametrize("sq,sk", [(4, 16), (16, 5), (7, 7), (1, 1),

@@ -111,7 +111,7 @@ def test_every_bf16_f16_head_dim_up_to_256_takes_the_tensor_cores(D):
         assert fa._backward_variant(dtype, D) == "wgmma"
         assert fa._attention_route(dtype, D) == "wgmma"
     assert fa._forward_variant(torch.float32, D) == "simt"
-    assert fa._backward_variant(torch.float32, D) == "simt"
+    assert fa._backward_variant(torch.float32, D) == "tiled_f32"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

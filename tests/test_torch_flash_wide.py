@@ -105,7 +105,7 @@ def test_dq_follows_the_forward_variant(dtype, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 256])
 def test_backward_kernels_share_the_variant_up_to_256(dtype, D):
-    want = "simt" if dtype == torch.float32 else "wgmma"
+    want = "tiled_f32" if dtype == torch.float32 else "wgmma"
     for kernel in (None, "dq", "dkv"):
         assert fa._backward_variant(dtype, D, kernel) == want
     with pytest.raises(ValueError, match="'dq' or 'dkv'"):

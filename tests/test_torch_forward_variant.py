@@ -45,12 +45,21 @@ def test_forward_variant_rule(dtype, D, variant):
     assert fa._forward_variant(dtype, D) == variant
 
 
-@pytest.mark.parametrize("dtype,D,variant", RULE)
+# The backward pair (dQ and dK/dV): the forward's rule, but f32 up to 256
+# takes the tiled f32 pair (CUDA cores, f32 products: its limit
+# GRAD_ROW_TOL and the f32 gradient checks rest on them).
+BACKWARD_RULE = [(dtype, D, "tiled_f32" if dtype == torch.float32 else v)
+                 for dtype, D, v in RULE]
+
+
+@pytest.mark.parametrize("dtype,D,variant", BACKWARD_RULE)
 def test_backward_variant_rule(dtype, D, variant):
-    """The backward pair (dQ and dK/dV) follows the forward's rule: its f32
-    limit (GRAD_ROW_TOL) and the f32 gradient checks rest on f32
-    products."""
+    """The backward pair (dQ and dK/dV) follows the forward's rule for
+    bf16; f32 takes the tiled f32 pair, while its forward stays on the
+    CUDA-core kernel ("simt")."""
     assert fa._backward_variant(dtype, D) == variant
+    if dtype == torch.float32:
+        assert fa._forward_variant(dtype, D) == "simt"
 
 
 def _counts():

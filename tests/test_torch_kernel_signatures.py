@@ -73,11 +73,14 @@ def _param_names(library, function):
 
 @pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
 def test_variant_names_entry_points_that_exist(variant):
-    """The forward, dQ and dK/dV entry points of a variant, each in the
-    variant's own libraries; a dK/dV kernel of ``_READS_DELTA`` takes
+    """The forward (where the variant has one: ``"tiled_f32"`` is a
+    backward-only pair), dQ and dK/dV entry points of a variant, each in
+    the variant's own libraries; a dK/dV kernel of ``_READS_DELTA`` takes
     delta and no O, the others O and no delta."""
     fwd_lib, bwd_lib, suffix = fa._LIBRARIES[variant]
-    assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
+    assert (fwd_lib is None) == (variant == "tiled_f32")
+    if fwd_lib is not None:
+        assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
     dkv = (bwd_lib, "flash_attention_bwd_dkv" + suffix)
     assert dkv in ENTRY_POINTS
     assert (bwd_lib, "flash_attention_bwd_dq" + suffix) in ENTRY_POINTS
@@ -92,8 +95,9 @@ def test_variant_dq_entry_point_takes_delta(variant):
     """Every variant's dQ entry point exists in its own backward library
     and takes O and dO; it takes a delta buffer wherever its dK/dV kernel
     reads delta, and so do all the wide ones ("wide"'s takes null). Only
-    the f32 CUDA-core pair up to 256 ("simt") computes delta in both
-    kernels and passes none."""
+    the earlier f32 CUDA-core pair up to 256 ("simt"'s, which the
+    backward rule no longer reaches) computes delta in both kernels and
+    passes none."""
     _, bwd_lib, suffix = fa._LIBRARIES[variant]
     key = (bwd_lib, "flash_attention_bwd_dq" + suffix)
     assert key in ENTRY_POINTS and key in fa._SIGNATURES
@@ -102,3 +106,21 @@ def test_variant_dq_entry_point_takes_delta(variant):
     assert ("delta" in names) == (variant != "simt")
     if variant in fa._READS_DELTA:
         assert "delta" in names
+
+
+def test_every_backward_variant_of_the_rule_names_its_entry_points():
+    """Each variant ``_backward_variant`` can return, at every head_dim
+    that is a multiple of 8 up to 2048 in each dtype, is in
+    ``_LIBRARIES`` with its dQ and dK/dV entry points: f32 up to 256
+    the backward-only ``"tiled_f32"`` pair, never ``"simt"``'s."""
+    import torch
+
+    seen = {fa._backward_variant(dtype, D)
+            for dtype in (torch.float32, torch.bfloat16, torch.float16)
+            for D in range(8, 2049, 8)}
+    assert seen == {"tiled_f32", "wgmma", "wide_f32", "wide_wgmma", "wide"}
+    for variant in seen:
+        _, bwd_lib, suffix = fa._LIBRARIES[variant]
+        for kind in ("dq", "dkv"):
+            assert (bwd_lib, f"flash_attention_bwd_{kind}{suffix}") \
+                in ENTRY_POINTS

@@ -21,6 +21,7 @@ from ray_tpu_torch.testing import (
     RMS_TOL,
     RMS_TOL_CAST_FIRST,
     delta_error,
+    dense_dq_f64,
     digest_inputs,
     grad_row_error,
     seeded_qkv,
@@ -385,24 +386,11 @@ def test_flash_wide_f32_zero_fills_past_head_dim(cuda_device, causal):
     got, want = _backward_launched(before, "wide_f32")
     assert got == want
     ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
-    ref = (_dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5), *ref[1:])
+    ref = (dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5), *ref[1:])
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert bool(torch.isfinite(g).all()), name
         err = grad_row_error(g, r)
         assert err <= GRAD_ROW_TOL[torch.float32], (name, err)
-
-
-def _dense_dq_f64(q, k, v, o, lse, do, causal, scale):
-    """dQ of ``_dense_backward``'s formula evaluated in float64 (P from the
-    given LSE, delta = rowsum(dO * O), dS = P * (dP - delta))."""
-    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if causal:
-        s = fa._mask_causal(s)
-    p = torch.exp(s - lse.double()[..., None])
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
-    ds = p * (dp - (do * o).sum(-1)[..., None])
-    return torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
 
 
 # The wide dQ kernels on their own (``_launch_dq``): the tensor-core one
@@ -456,7 +444,7 @@ def test_flash_wide_dq_kernels_match_plain(cuda_device, dtype, D, Sq, Sk,
     got = {n: c - before[n] for n, c in _backward_counts().items()}
     assert got == {n: int(n == f"dq_{variant}") for n in got}
     if dtype == torch.float32:
-        ref = _dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5)
+        ref = dense_dq_f64(q, k, v, o, lse, do, causal, D ** -0.5)
     else:
         ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)[0]
     assert dq.dtype == dtype and bool(torch.isfinite(dq).all())
@@ -492,6 +480,108 @@ def test_flash_wide_dq_kernels_refuse_what_they_do_not_take(cuda_device):
                       stream) == 1
             assert fn(*p, lse.data_ptr(), 2, 64, 64, 1032, 0.1, 1, code,
                       stream) == 1
+
+
+# The f32 backward pair up to head_dim 256 ("tiled_f32": the dQ and dK/dV
+# templates of flash_attention_wide_f32.cu at instances whose block covers
+# all of D), through _launch_dq / _launch_dkv: the instances' widths (64,
+# 128, 256) and widths between them (8 and 32: the 64-column instance, 8
+# a 16-column box half past D; 96; 200 and 248: the 256-column one, a last
+# 32-column box partly past D), lengths that fill the tiles, ragged ones,
+# Sq < Sk and the training length, causal and not. dQ against the float64
+# formula (ROADMAP C.9: the f32 plain dQ's own rounding is of the limit's
+# size where dP - delta cancels), dK and dV against the plain backward,
+# delta against rowsum(dO * O); a dropped 64-row tile of dO in the plain
+# version must read above the limit.
+TILED_F32_DIMS = [8, 32, 64, 96, 128, 200, 248, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", TILED_F32_DIMS)
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (77, 131),
+                                   (2048, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_f32_backward_matches_plain(cuda_device, D, Sq, Sk,
+                                                causal):
+    B, H = (1, 2) if Sq == 2048 else (2, 2)
+    scale = D ** -0.5
+    q, k, v = _qkv(30, B, H, H, Sq, Sk, D, torch.float32, cuda_device)
+    do = _qkv(31, B, H, H, Sq, Sq, D, torch.float32, cuda_device)[0]
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = _backward_counts()
+    dq, delta = fa._launch_dq(q, k, v, o, lse, do, causal, scale)
+    dk, dv = fa._launch_dkv(q, k, v, o, lse, do, delta, causal, scale)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "tiled_f32")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, scale)
+    oracle = (dense_dq_f64(q, k, v, o, lse, do, causal, scale), *ref[1:])
+    tol = GRAD_ROW_TOL[torch.float32]
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), oracle):
+        assert g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= tol, (name, err)
+    assert delta.shape == (B, H, Sq) and delta.dtype == torch.float32
+    assert delta_error(delta, do, o) <= 1.0
+    t0 = 64 * ((Sq // 2) // 64)
+    do_fault = do.clone()
+    do_fault[:, :, t0:t0 + 64] = 0
+    fault = fa._dense_backward(q, k, v, o, lse, do_fault, causal, scale)
+    assert max(grad_row_error(f, r) for f, r in zip(fault, ref)) > tol
+
+
+# The tiled f32 pair on rows offset by +-1.5 in turn (as
+# test_flash_wide_f32_zero_fills_past_head_dim): a copy that read past
+# column D into the next row, or a store past it, would move every score
+# of the row far outside the limits; a causal first row's dQ, 0 in exact
+# arithmetic, is exactly 0 (its delta summed in dP's order).
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 96, 200, 248])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_f32_zero_fills_past_head_dim(cuda_device, D, causal):
+    scale = D ** -0.5
+    q, k, v = (_row_offsets(t) for t in _qkv(
+        32, 2, 4, 4, 200, 200, D, torch.float32, cuda_device))
+    do = _row_offsets(_qkv(33, 2, 4, 4, 200, 200, D, torch.float32,
+                           cuda_device)[0])
+    o, lse = fa._flash_forward(q, k, v, causal)
+    before = _backward_counts()
+    dq, dk, dv = fa._flash_backward(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "tiled_f32")
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, scale)
+    ref = (dense_dq_f64(q, k, v, o, lse, do, causal, scale), *ref[1:])
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[torch.float32], (name, err)
+    if causal:
+        assert not dq[:, :, 0].any()
+
+
+@pytest.mark.cuda
+def test_flash_tiled_f32_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A head_dim above 256 or no multiple of 8, no delta buffer, another
+    dtype: cudaErrorInvalidValue (1), no launch."""
+    lib = fa._LIBRARIES["tiled_f32"][1]
+    dq_fn = fa._kernel_fn(lib, "flash_attention_bwd_dq_tiled_f32")
+    dkv_fn = fa._kernel_fn(lib, "flash_attention_bwd_dkv_tiled_f32")
+    stream = torch.cuda.current_stream().cuda_stream
+    for D, code, with_delta in ((264, 0, True), (60, 0, True),
+                                (64, 0, False), (64, 1, True)):
+        q, k, v = _qkv(34, 1, 2, 2, 64, 64, max(D, 64), torch.float32,
+                       cuda_device)
+        lse = torch.zeros((1, 2, 64), device=cuda_device)
+        delta = lse.data_ptr() if with_delta else None
+        out = torch.empty_like(q)
+        assert dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
+                     q.data_ptr(), lse.data_ptr(), out.data_ptr(), delta, 2,
+                     64, 64, D, 0.1, 1, code, stream) == 1
+        assert dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
+                      lse.data_ptr(), delta, out.data_ptr(), out.data_ptr(),
+                      2, 64, 64, D, 0.1, 1, code, stream) == 1
 
 
 # A query or key length under 8 takes the plain route on the card, as the
@@ -576,7 +666,8 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, H, Sq, Sk,
 def _backward_counts():
     return {"dq_wgmma": fa.dq_wgmma_launches,
             "dkv_wgmma": fa.dkv_wgmma_launches,
-            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
+            "dq_tiled_f32": fa.dq_tiled_f32_launches,
+            "dkv_tiled_f32": fa.dkv_tiled_f32_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
             "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
@@ -585,7 +676,7 @@ def _backward_counts():
 
 
 def _backward_launched(before, variant):
-    """Launches since `before`, and what the rule wants for the forward
+    """Launches since `before`, and what the rule wants for the backward
     variant `variant`: one dQ and one dK/dV of it, none of the others."""
     got = {n: c - before[n] for n, c in _backward_counts().items()}
     want = {n: int(n in (f"dq_{variant}", f"dkv_{variant}")) for n in got}
@@ -624,10 +715,10 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
-    (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
+    (torch.float32, 64, "tiled_f32"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide_wgmma"),
     (torch.float32, 1024, "wide_f32"), (torch.float16, 128, "wgmma"),
-    (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "tiled_f32"),
     (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide"),
     (torch.float32, 264, "wide_f32"), (torch.float16, 2048, "wide")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
@@ -665,7 +756,7 @@ def test_flash_wgmma_backward_refuses_misaligned_or_strided_input(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "tiled_f32"),
                                            (torch.bfloat16, "wgmma")])
 def test_flash_attention_autograd_launches_backward_kernels(cuda_device,
                                                             dtype, variant):

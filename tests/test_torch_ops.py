@@ -157,7 +157,7 @@ def _rel(ref, got):
 def _backward_launches():
     return (fa.launches, fa.dq_launches, fa.dkv_launches,
             fa.dq_wgmma_launches, fa.dkv_wgmma_launches,
-            fa.dq_simt_launches, fa.dkv_simt_launches)
+            fa.dq_tiled_f32_launches, fa.dkv_tiled_f32_launches)
 
 
 # D=64 is a width the tensor-core backward takes in bf16 on the card; on
