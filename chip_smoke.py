@@ -889,7 +889,7 @@ _COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
              "wide_wgmma_launches", "wide_f32_launches", "dq_launches",
              "dkv_launches", "dq_wgmma_launches", "dkv_wgmma_launches",
              "dq_tiled_f32_launches", "dkv_tiled_f32_launches",
-             "dq_wide_launches",
+             "dq_simt_launches", "dkv_simt_launches", "dq_wide_launches",
              "dkv_wide_launches", "dq_wide_wgmma_launches",
              "dkv_wide_wgmma_launches", "dq_wide_f32_launches",
              "dkv_wide_f32_launches", "plain_routes")
@@ -1078,6 +1078,7 @@ def _backward_counts(fa):
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_tiled_f32": fa.dq_tiled_f32_launches,
             "dkv_tiled_f32": fa.dkv_tiled_f32_launches,
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
             "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
@@ -3884,8 +3885,9 @@ def main() -> int:
             "name": f"flash_attention_bwd_{kind}[f32-simt]",
             "route": "cuda", "variant": "simt",
             "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "replaces": replaces[kind], "launches": 0,
-            "launches_from": "reached by no rule",
+            "replaces": replaces[kind],
+            "launches": train["mha"]["launches_per_pass"][f"{kind}_simt"],
+            "launches_from": "phase 5's f32 pass (reached by no rule)",
             "max_abs_err": t["simt_max_abs_err"],
             "ms": t["simt_kernel_ms"], "kernel_ms": t["simt_kernel_ms"],
             "plain_ms": tb["plain_ms"], "bound_ms": t["bound_ms"],

@@ -178,10 +178,16 @@ F32_TILED_VARIANTS = {
     "tiled_dq64_box16": {WIDE_F32_SOURCE: [
         ("using DqTiled64 = DqShape<128, 64, 32, true>;",
          "using DqTiled64 = DqShape<128, 64, 16, true>;")]},
+    # 256 rows: 64 dQ accumulators a thread at D <= 64, but 256 floats of
+    # S, dP and its per-box partials; 16-column boxes to fit 227 KB.
+    "tiled_dq64_rows256": {WIDE_F32_SOURCE: [
+        ("using DqTiled64 = DqShape<128, 64, 32, true>;",
+         "using DqTiled64 = DqShape<256, 64, 16, true>;")]},
 }
 F32_VARIANT_SCOPE = {"tiled_dkv128_keys128": ((128,), ("dkv",)),
                      "tiled_dq128_rows64": ((128,), ("dq",)),
-                     "tiled_dq64_box16": ((64,), ("dq",))}
+                     "tiled_dq64_box16": ((64,), ("dq",)),
+                     "tiled_dq64_rows256": ((64,), ("dq",))}
 F32_TIMING = {"iters": 8, "replays": 5}
 # The CUDA-core wide kernels (flash_attention_wide.cu: bf16/f16 above
 # 1024), timed once each.

@@ -1055,7 +1055,10 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
 // narrowest instance whose columns reach D (the columns past D
 // zero-filled and never stored); at narrow D a block takes more keys or
 // rows, so that a thread's tile of the output keeps 8 rows of whole
-// float4s.
+// float4s. dQ at D <= 64 keeps 32 accumulators a thread: 64 take 256 rows
+// a block, whose 256 floats of S, dP and dP's per-box partials a thread
+// spill (364 bytes) and ran 1.6x slower on an H100 (flash_ab.py --f32,
+// variant tiled_dq64_rows256).
 using DkvWide = DkvShape<64, 256, 32>;       // 128 f32 of dK, dV a thread
 using DkvTiled64 = DkvShape<128, 64, 16>;    // 64 a thread, D <= 64
 using DkvTiled128 = DkvShape<64, 128, 32>;   // 64 a thread, D <= 128

@@ -81,6 +81,8 @@ dq_wgmma_launches = 0   # backward on the tensor cores (bf16/f16, D <= 256)
 dkv_wgmma_launches = 0
 dq_tiled_f32_launches = 0     # backward on the CUDA cores (f32, D <= 256)
 dkv_tiled_f32_launches = 0
+dq_simt_launches = 0    # the earlier f32 pair (D <= 256), reached by no
+dkv_simt_launches = 0   # rule: stays 0 on every path
 dq_wide_launches = 0    # backward on the CUDA cores, bf16/f16 with D
 dkv_wide_launches = 0   # above WIDE_WGMMA_MAX_D
 dq_wide_wgmma_launches = 0    # backward with D above 256 on the tensor cores
@@ -431,11 +433,13 @@ def _check_rows_f32(t, q, name):
 def _launch_dq(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (replaces ``_attn_bwd_dq_kernel``) -> (dq in q's dtype,
     delta). Where the dK/dV kernel is one of ``_READS_DELTA`` (every
-    variant but ``"wide"``) the dQ kernel also writes delta = rowsum(dO *
-    O), [B, H, Sq] f32, which that dK/dV kernel reads; ``"wide"``'s dK/dV
-    kernel computes delta itself, and then delta is None."""
+    variant but ``"wide"`` and ``"simt"``) the dQ kernel also writes delta = rowsum(dO *
+    O), [B, H, Sq] f32, which that dK/dV kernel reads; ``"wide"``'s and
+    ``"simt"``'s dK/dV kernels compute delta themselves, and then delta is
+    None."""
     global dq_launches, dq_wgmma_launches, dq_tiled_f32_launches
-    global dq_wide_launches, dq_wide_wgmma_launches, dq_wide_f32_launches
+    global dq_simt_launches, dq_wide_launches, dq_wide_wgmma_launches
+    global dq_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -448,9 +452,13 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
     if variant in _READS_DELTA:
         delta = torch.empty(q.shape[:3], dtype=torch.float32,
                             device=q.device)
-    # delta's buffer, or null: "wide"'s dQ kernel then writes none.
-    err = _kernel_fn(library, name)(
-        *ptrs, None if delta is None else delta.data_ptr(), *scalars, stream)
+    if variant == "simt":
+        err = _kernel_fn(library, name)(*ptrs, *scalars, stream)
+    else:
+        # delta's buffer, or null: "wide"'s dQ kernel then writes none.
+        err = _kernel_fn(library, name)(
+            *ptrs, None if delta is None else delta.data_ptr(), *scalars,
+            stream)
     _check_launch(name, err)
     if variant == "wgmma":
         dq_wgmma_launches += 1
@@ -460,8 +468,13 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
         dq_wide_wgmma_launches += 1
     elif variant == "wide_f32":
         dq_wide_f32_launches += 1
-    else:
+    elif variant == "wide":
         dq_wide_launches += 1
+    elif variant == "simt":
+        dq_simt_launches += 1
+    else:
+        raise RuntimeError(f"no launch count for the dq kernel of "
+                           f"variant {variant!r}")
     dq_launches += 1
     return dq, delta
 
@@ -471,7 +484,8 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     ``delta`` is ``_launch_dq``'s second result: the variants of
     ``_READS_DELTA`` read it, ``"wide"`` computes delta from O itself."""
     global dkv_launches, dkv_wgmma_launches, dkv_tiled_f32_launches
-    global dkv_wide_launches, dkv_wide_wgmma_launches, dkv_wide_f32_launches
+    global dkv_simt_launches, dkv_wide_launches, dkv_wide_wgmma_launches
+    global dkv_wide_f32_launches
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -498,8 +512,13 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
         dkv_wide_wgmma_launches += 1
     elif variant == "wide_f32":
         dkv_wide_f32_launches += 1
-    else:
+    elif variant == "wide":
         dkv_wide_launches += 1
+    elif variant == "simt":
+        dkv_simt_launches += 1
+    else:
+        raise RuntimeError(f"no launch count for the dkv kernel of "
+                           f"variant {variant!r}")
     dkv_launches += 1
     return dk, dv
 

@@ -124,3 +124,19 @@ def test_every_backward_variant_of_the_rule_names_its_entry_points():
         for kind in ("dq", "dkv"):
             assert (bwd_lib, f"flash_attention_bwd_{kind}{suffix}") \
                 in ENTRY_POINTS
+
+
+@pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
+def test_variant_counts_its_backward_launches_under_its_name(variant):
+    """``_launch_dq`` and ``_launch_dkv`` count each variant's launches
+    in its own counters (``dq_<variant>_launches``, ``dkv_<…>``), each
+    under a branch of its own: no variant is counted as another's."""
+    import inspect
+
+    for kind, fn in (("dq", fa._launch_dq), ("dkv", fa._launch_dkv)):
+        counter = f"{kind}_{variant}_launches"
+        assert getattr(fa, counter) >= 0
+        source = inspect.getsource(fn)
+        assert re.search(r'variant == "' + variant + r'":\n\s+' + counter
+                         + r" \+= 1", source), (kind, variant)
+        assert "raise RuntimeError" in source.split(counter)[-1]

@@ -668,6 +668,7 @@ def _backward_counts():
             "dkv_wgmma": fa.dkv_wgmma_launches,
             "dq_tiled_f32": fa.dq_tiled_f32_launches,
             "dkv_tiled_f32": fa.dkv_tiled_f32_launches,
+            "dq_simt": fa.dq_simt_launches, "dkv_simt": fa.dkv_simt_launches,
             "dq_wide": fa.dq_wide_launches, "dkv_wide": fa.dkv_wide_launches,
             "dq_wide_wgmma": fa.dq_wide_wgmma_launches,
             "dkv_wide_wgmma": fa.dkv_wide_wgmma_launches,
