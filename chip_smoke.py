@@ -8,27 +8,30 @@ non-zero without printing a result. Without a CUDA card, or without the
 
 1. build: compile the flash-attention kernels (forward and backward dQ,
    dK/dV, each on the tensor cores and on the CUDA cores, the tiled f32
-   dQ and dK/dV up to head_dim 256, and for head_dim above 256 the wide
-   kernels: all three on the CUDA cores, on the tensor cores, and in f32)
-   from ray_tpu_torch/ops/csrc, one nvcc per source,
-   in parallel, with ptxas's registers and spills per kernel; the SASS of
+   forward, dQ and dK/dV up to head_dim 256, and for head_dim above 256
+   the wide kernels: all three on the CUDA cores, on the tensor cores,
+   and in f32) from ray_tpu_torch/ops/csrc, one nvcc per source (the two
+   libraries no rule reaches with nvcc's split compilation), in parallel,
+   with ptxas's registers and spills per kernel; the SASS of
    every tensor-core kernel instantiation (bf16 and f16 at head_dim 64,
    128 and 256; the wide forward, and the wide dQ and dK/dV with their
    rows held or streamed) must hold HGMMA (wgmma) and UTMALDG (TMA load)
    instructions, the wide tensor-core dQ must spill nothing, and every
    instance of the f32 library's kernels (the wide forward, dQ and dK/dV,
-   and the tiled dQ and dK/dV up to head_dim 256) must hold FFMA and no
-   HMMA or HGMMA (no TF32) and spill nothing. The Triton RMSNorm kernel
-   compiles at its first launch.
+   and the tiled forward, dQ and dK/dV up to head_dim 256) must hold FFMA
+   and no HMMA or HGMMA (no TF32) and spill nothing. The Triton RMSNorm
+   kernel compiles at its first launch.
 2. kernels: the forward against its plain PyTorch version with the
    kernels' rounding points (_dense_kernel: q * scale rounded to the input
    type, f32 scores, as the reference's kernel rounds) on the card at
    the flagship's prefill widths (B=4, Hq=8, Hkv 8, 4 or 2, S
    128/512/2048, D=64, causal and not, bf16 and f32), plus S=200, Sq=77 /
    Sk=131 and one D=128 case; bf16 takes the tensor-core kernel, f32 the
-   CUDA-core one, and each case checks which launched. Times at S=2048
-   and S=512 beside the plain version's, the CUDA-core kernel on the same
-   bf16 inputs (the earlier design), PyTorch's
+   tiled f32 one (CUDA cores), and each case checks which launched; the
+   earlier CUDA-core forward (flash_attention_fwd.cu, reached by no rule)
+   is held against the plain version on every f32 case's inputs. Times at
+   S=2048 and S=512 beside the plain version's, the earlier CUDA-core
+   kernel on the same inputs, PyTorch's
    scaled_dot_product_attention (a yardstick the port never calls) and the
    card's bound. Then the
    backward kernels against the plain backward (B=4, H=8, D=64, S
@@ -47,14 +50,14 @@ non-zero without printing a result. Without a CUDA card, or without the
    for the backward), head_dim 64 in f16 and head_dim 200, each checked
    at O_ROW_TOL / GRAD_ROW_TOL of its dtype with a planted fault and a
    check of the variant launched (bf16 and f16 on the tensor cores, f32
-   on the CUDA cores: the forward's "simt", the backward's tiled pair);
+   on the CUDA cores: the tiled f32 forward, dQ and dK/dV);
    the CUDA-core kernels that took a case before are held against the
    plain version on the same inputs too; at S=2048 each is timed beside
    SDPA, the bound and those earlier kernels.
    The head dims between the tensor-core instances (ANY_DIMS: 8, 32, 80,
    96, 136, 160, 200, 248, zero-padded to the next instance) the same way,
-   bf16 and f16, forward MHA and GQA (Hkv 8, 4, 1) and backward (and the
-   f32 backward at ANY_F32_BWD_DIMS, 96 and 200), at S 128, 200, 2048 and
+   bf16 and f16, forward MHA and GQA (Hkv 8, 4, 1) and backward (and f32
+   at ANY_F32_DIMS, 96 and 200), at S 128, 200, 2048 and
    Sq 77 / Sk 131, causal and not, launching only the kernels of the
    rule; ANY_TIMED_DIMS (32, 80, 96, 160, 200) timed (bf16 and f16) at
    S=2048 beside SDPA (its backend named), the CUDA-core kernels and the
@@ -105,7 +108,7 @@ non-zero without printing a result. Without a CUDA card, or without the
    those through plain attention, with and without remat, and a planted
    fault (GQA heads expanded in the wrong order) reads above the
    tolerance; each pass
-   launches the CUDA-core forward n_layers times (2 * n_layers with remat)
+   launches the tiled f32 forward n_layers times (2 * n_layers with remat)
    and each kernel of the tiled f32 backward pair n_layers times. In bf16,
    the loss
    through the kernels equals the loss through plain attention
@@ -202,7 +205,8 @@ non-zero without printing a result. Without a CUDA card, or without the
    TRAIN_LOSS_TOL_BF16 of one device's. Every run counts the K1/K3/K4
    launches of a step by variant against the port's schedule: none under
    sp > 1, the tensor cores on the bf16 dense meshes, and on the bf16 ep
-   mesh the tensor cores for layer 0 and the CUDA cores for layers 1-3
+   mesh the tensor cores for layer 0 and the tiled f32 kernels for layers
+   1-3
    (the reference's f32 promotion, ROADMAP C.4). Smoke readings: step
    time, host launches, peak memory, device idle share, bytes per
    collective and the fraction of tokens dropped.
@@ -301,10 +305,10 @@ BWD_TIMED_LEN = 2048   # the training length, where the backward is timed
 _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 C1_FWD_CASES = ((8, 512, 512, 256, (_F32, _BF16, _F16)),
                 (4, 200, 200, 256, (_F32, _BF16, _F16)),
-                (1, 512, 512, 256, (_BF16, _F16)),
-                (1, 77, 131, 256, (_BF16, _F16)),
+                (1, 512, 512, 256, (_F32, _BF16, _F16)),
+                (1, 77, 131, 256, (_F32, _BF16, _F16)),
                 (8, 2048, 2048, 256, (_F32, _BF16, _F16)),
-                (8, 2048, 2048, 128, (_BF16, _F16)),
+                (8, 2048, 2048, 128, (_F32, _BF16, _F16)),
                 (2, 200, 200, 128, (_F16,)),
                 (8, 2048, 2048, 64, (_F16,)), (4, 77, 131, 64, (_F16,)),
                 (4, 512, 512, 200, (_BF16,)))
@@ -332,10 +336,11 @@ ANY_FWD_SHAPES = tuple((Hkv, Sq, Sk) for Hkv in (8, 4, 1)
                                       (77, 131)))
 ANY_BWD_SHAPES = ((128, 128), (200, 200), (2048, 2048), (77, 131))
 ANY_TIMED_DIMS = (32, 80, 96, 160, 200)
-# ANY_DIMS whose backward cases run in f32 too (the tiled f32 pair: 96 on
-# the 128-column instance, 32 of its columns past D; 200 on the 256-column
-# one, its last 32-column box 8 columns in).
-ANY_F32_BWD_DIMS = (96, 200)
+# ANY_DIMS whose forward and backward cases run in f32 too (the tiled f32
+# kernels: 96 on the 128-column instances, 32 of their columns past D; 200
+# on the 256-column ones, the last 32-column box 8 columns in); f32 is
+# timed at the instances' own widths (64, 128, 256) only.
+ANY_F32_DIMS = (96, 200)
 PLAIN_ROUTE_D = 12   # a head_dim the rule sends to the plain path
 WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # Phase 2's wide kernels (head_dim above 256): every (D, dtype) on small
@@ -537,11 +542,11 @@ WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
 # serialises the wgmma around it): the wide dQ, every instantiation.
 NO_SPILL_WGMMA = "flash_bwd_dq_wide_wgmma_kernel"
 # The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32. Its
-# instances: the wide forward; dQ wide and tiled at 64, 128 and 256
-# columns; dK/dV wide (which is also the tiled one at 256) and tiled at 64
-# and 128 columns.
+# instances: the forward wide and tiled at 64, 128 and 256 columns; dQ
+# wide and tiled at 64, 128 and 256 columns; dK/dV wide (which is also the
+# tiled one at 256) and tiled at 64 and 128 columns.
 F32_LIBRARY = "flash_attention_wide_f32"
-F32_INSTANCES = 8
+F32_INSTANCES = 11
 F32_KERNELS = ("flash_fwd_wide_f32_kernel", "flash_bwd_dq_wide_f32_kernel",
                "flash_bwd_dkv_wide_f32_kernel")
 # The variants whose kernels replaced flash_attention_wide.cu's on the
@@ -558,8 +563,9 @@ def ptxas_summary(report: str):
     kernel<dtype> for the wide ones (head_dim above 256) and the
     tensor-core wide forward, kernel<dtype, resident> for the tensor-core
     wide dQ and dK/dV (Q and dO, or K and V, held in shared memory or
-    streamed), the bare name for the f32 wide forward and kernel<rows or
-    keys, columns, box columns> for the f32 dQ and dK/dV instances."""
+    streamed), kernel<rows, keys, columns, V keys> for the f32 forward
+    instances and kernel<rows or keys, columns, box columns> for the f32
+    dQ and dK/dV instances."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name = [], "?"
     for ln in report.splitlines():
@@ -579,10 +585,11 @@ def ptxas_summary(report: str):
                 r"I(13__nv_bfloat16|6__half)(?:Lb(\d))?E", entry.group(1))
             f32 = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_wide_f32_kernel",
                             entry.group(1))
-            shape = re.search(r"(?:Dkv|Dq)ShapeILi(\d+)ELi(\d+)ELi(\d+)E",
-                              entry.group(1))
+            shape = re.search(r"(?:Fwd|Dkv|Dq)ShapeILi(\d+)ELi(\d+)ELi"
+                              r"(\d+)E(?:Li(\d+)E)?", entry.group(1))
             if f32 and shape:
-                name = f"{f32.group(0)}<{', '.join(shape.groups())}>"
+                name = (f"{f32.group(0)}<"
+                        f"{', '.join(g for g in shape.groups() if g)}>")
             elif f32:
                 name = f32.group(0)
             elif wide_tc:
@@ -725,14 +732,15 @@ def phase_kernels(dev):
     """Forward kernels vs plain (_dense_kernel) at every listed shape;
     timings at S=2048 and at the main path's S=512. Each case checks that
     the variant the wrapper's rule picks (bf16 and f16: tensor cores; f32:
-    CUDA cores) is the one that launched, and reads a planted fault (the
+    the tiled f32 kernel on the CUDA cores) is the one that launched, and
+    reads a planted fault (the
     plain version with one 64-key tile of V zeroed, i.e. that tile's P.V
     dropped) through the same comparison, failing unless the check flags
     it. Then C1_FWD_CASES (head_dim 256, 128 and 200, f16; timed at
-    S=2048) and the ANY_DIMS cases (timed at ANY_TIMED_DIMS), where a case
-    the tensor cores take also holds the CUDA-core kernel against the
-    plain version on the same inputs; and the plain route of head_dim
-    PLAIN_ROUTE_D."""
+    S=2048) and the ANY_DIMS cases (timed at ANY_TIMED_DIMS, bf16 and
+    f16), where a case the tensor cores take, and every f32 case, also
+    holds the earlier CUDA-core kernel against the plain version on the
+    same inputs; and the plain route of head_dim PLAIN_ROUTE_D."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B, Hq = 4, 8
@@ -741,8 +749,9 @@ def phase_kernels(dev):
              for S in FWD_LENGTHS]
     cases += [(*c, both, "flagship") for c in FWD_EXTRA_CASES]
     cases += [(*c, "c1") for c in C1_FWD_CASES]
-    cases += [(Hkv, Sq, Sk, D, (_BF16, _F16), "any") for D in ANY_DIMS
-              for Hkv, Sq, Sk in ANY_FWD_SHAPES]
+    cases += [(Hkv, Sq, Sk, D, (_BF16, _F16) + ((_F32,) if D in ANY_F32_DIMS
+                                                 else ()), "any")
+              for D in ANY_DIMS for Hkv, Sq, Sk in ANY_FWD_SHAPES]
     checks = []
     timing = {}
     for Hkv, Sq, Sk, D, dtypes, kind in cases:
@@ -778,10 +787,13 @@ def phase_kernels(dev):
                          "err_o_row": err_row, "tol_o_row": tol,
                          "err_lse_of_limit": err_lse,
                          "fault_o_row": fault_row}
-                if kind != "flagship" and variant == "wgmma":
+                simt_abs = None
+                if variant == "tiled_f32" or (kind != "flagship"
+                                              and variant == "wgmma"):
                     so, slse = _simt_forward(fa, q, k, v, causal)
                     torch.cuda.synchronize()
-                    _, simt_row, simt_lse = compare(so, slse, ro, rlse)
+                    simt_abs, simt_row, simt_lse = compare(so, slse, ro,
+                                                           rlse)
                     check.update(simt_err_o_row=simt_row,
                                  simt_err_lse_of_limit=simt_lse)
                     ok = ok and simt_row <= tol and simt_lse <= 1.0 and \
@@ -798,10 +810,10 @@ def phase_kernels(dev):
                          and (dtype == torch.bfloat16 or Hkv == Hq))
                         or (kind == "c1" and Sq == 2048)
                         or (kind == "any" and Sq == 2048 and Hkv == Hq
-                            and D in ANY_TIMED_DIMS)):
+                            and D in ANY_TIMED_DIMS and dtype != _F32)):
                     key = f"{_dtype_name(dtype)}_Hkv{Hkv}_S{Sq}"
                     timing[key + ("" if D == 64 else f"_D{D}")] = \
-                        _time_kernel(fa, q, k, v, err_abs)
+                        _time_kernel(fa, q, k, v, err_abs, simt_abs)
     plain_route = _plain_route_check(fa, gen, dev)
     emit({"phase": "kernels", "checks": checks, "timing": timing,
           "plain_route": plain_route})
@@ -873,10 +885,11 @@ def _plain_route_check(fa, gen, dev):
     return out
 
 
-# The kernel variants of the forward and of each backward kernel: the
-# tensor cores and the CUDA cores up to head_dim 256, and above it the
-# CUDA cores and (forward and dK/dV) the tensor cores and the f32 kernels.
-VARIANTS = ("wgmma", "simt", "wide", "wide_wgmma", "wide_f32")
+# The kernel variants of the forward: the tensor cores and the tiled f32
+# kernel up to head_dim 256 (and the earlier CUDA-core kernel, reached by
+# no rule), and above it the CUDA cores, the tensor cores and the f32
+# kernels.
+VARIANTS = ("wgmma", "tiled_f32", "simt", "wide", "wide_wgmma", "wide_f32")
 
 
 def _variant_want(variant, n):
@@ -885,7 +898,8 @@ def _variant_want(variant, n):
     return {v: n if v == variant else 0 for v in VARIANTS}
 
 
-_COUNTERS = ("launches", "wgmma_launches", "simt_launches", "wide_launches",
+_COUNTERS = ("launches", "wgmma_launches", "tiled_f32_launches",
+             "simt_launches", "wide_launches",
              "wide_wgmma_launches", "wide_f32_launches", "dq_launches",
              "dkv_launches", "dq_wgmma_launches", "dkv_wgmma_launches",
              "dq_tiled_f32_launches", "dkv_tiled_f32_launches",
@@ -912,8 +926,9 @@ def _dtype_name(dtype):
 
 
 def _variant_counts(fa):
-    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches,
+    return {"wgmma": fa.wgmma_launches, "tiled_f32": fa.tiled_f32_launches,
+            "simt": fa.simt_launches, "wide": fa.wide_launches,
+            "wide_wgmma": fa.wide_wgmma_launches,
             "wide_f32": fa.wide_f32_launches}
 
 
@@ -921,8 +936,8 @@ def _simt_forward(fa, q, k, v, causal, wide=False):
     """The CUDA-core kernel (``wide``: the one for head_dim above 256)
     called straight through its C entry point on any input it takes (bf16
     and f16 included), bypassing the wrapper's rule of shapes: the earlier
-    design, checked and timed beside the tensor-core kernel on the same
-    inputs. Counts no launch."""
+    design, checked and timed beside the tensor-core or the tiled f32
+    kernel on the same inputs. Counts no launch."""
     B, Hq, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -938,17 +953,19 @@ def _simt_forward(fa, q, k, v, causal, wide=False):
     return o, lse
 
 
-def _time_kernel(fa, q, k, v, err_o):
-    """Device times of the kernel, the CUDA-core kernel on the same inputs
-    and SDPA through CUDA graphs (at S=512 the tensor-core kernel is shorter
-    than the wrapper's host cost, which launch-by-launch timing would
-    read); the plain version by events."""
+def _time_kernel(fa, q, k, v, err_o, simt_err_o=None):
+    """Device times of the kernel, the earlier CUDA-core kernel on the same
+    inputs where the rule picks another (the tensor cores, or the tiled f32
+    kernel; ``simt_err_o``: its max abs error of O against the plain
+    version) and SDPA through CUDA graphs (at S=512 the tensor-core kernel
+    is shorter than the wrapper's host cost, which launch-by-launch timing
+    would read); the plain version by events."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     with _counts_kept(fa):
         kernel_ms = graph_ms(lambda i: fa._flash_forward(q, k, v, True))
     simt_ms = None
-    if fa._forward_variant(q.dtype, D) == "wgmma":
+    if fa._forward_variant(q.dtype, D) in ("wgmma", "tiled_f32"):
         simt_ms = graph_ms(lambda i: _simt_forward(fa, q, k, v, True),
                            **SIMT_TIMING)
     plain_ms = cuda_ms(lambda: fa._dense_kernel(q, k, v, True, D ** -0.5),
@@ -968,7 +985,7 @@ def _time_kernel(fa, q, k, v, err_o):
             "sdpa_backend": _sdpa_backend(q, k, v) if Hkv == Hq else None,
             "max_abs_err": err_o, "kernel_ms": kernel_ms,
             "tflops": ops / kernel_ms * 1e-9,
-            "simt_kernel_ms": simt_ms,
+            "simt_kernel_ms": simt_ms, "simt_max_abs_err": simt_err_o,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -994,7 +1011,7 @@ def phase_backward(dev):
     cases = [(S, S, 64, both, "flagship") for S in BWD_LENGTHS]
     cases += [(*c, both, "flagship") for c in BWD_EXTRA_CASES]
     cases += [(*c, "c1") for c in C1_BWD_CASES]
-    cases += [(Sq, Sk, D, (_BF16, _F16) + ((_F32,) if D in ANY_F32_BWD_DIMS
+    cases += [(Sq, Sk, D, (_BF16, _F16) + ((_F32,) if D in ANY_F32_DIMS
                                            else ()), "any")
               for D in ANY_DIMS for Sq, Sk in ANY_BWD_SHAPES]
     checks = []
@@ -1009,7 +1026,7 @@ def phase_backward(dev):
             t0 = 64 * ((Sq // 2) // 64)
             do_fault = do.clone()
             do_fault[:, :, t0:t0 + 64] = 0
-            variant = fa._backward_variant(dtype, D)
+            variant = fa._forward_variant(dtype, D)
             for causal in (True, False):
                 o, lse = fa._flash_forward(q, k, v, causal)
                 before = _backward_counts(fa)
@@ -1145,7 +1162,7 @@ def _time_backward(fa, q, k, v, o, lse, do, abs_errs, simt_abs=None):
     backward by events."""
     B, H, S, D = q.shape
     scale = D ** -0.5
-    variant = fa._backward_variant(q.dtype, D)
+    variant = fa._forward_variant(q.dtype, D)
     with _counts_kept(fa):
         delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)[1]
         dq_ms = graph_ms(lambda i: fa._launch_dq(q, k, v, o, lse, do, True,
@@ -1461,8 +1478,7 @@ def _time_wide(fa, gen, dev, dtype, D):
         ops = ({"fwd": 4.0, "dq": 6.0, "dkv": 8.0}[kind] * B * H * S * S * D
                * (S + 1) / (2.0 * S))
         out[kind] = {"kernel_ms": ms[kind], "max_abs_err": errs[kind],
-                     "variant": fa._backward_variant(dtype, D, kind)
-                     if kind != "fwd" else variant,
+                     "variant": variant,
                      "tflops": ops / ms[kind] * 1e-9,
                      "cuda_core_ms": (cc_ms.get(kind) if cuda_core
                                       else None),
@@ -1584,7 +1600,8 @@ def flash_path(cfg, params, prompts, pad_to, decode_steps, dev):
     lens = torch.tensor([len(p) for p in prompts], device=dev)
     bt = torch.from_numpy(tables).to(dev)
     tok_t = torch.from_numpy(toks).to(dev)
-    fa.launches = fa.wgmma_launches = fa.simt_launches = 0
+    fa.launches = fa.wgmma_launches = fa.tiled_f32_launches = 0
+    fa.simt_launches = 0
     fa.wide_launches = fa.wide_wgmma_launches = fa.wide_f32_launches = 0
     logits, cache = tm.prefill_with_cache(cfg, params, cache, tok_t, lens,
                                           bt)
@@ -1806,19 +1823,12 @@ def _counts():
             "rms": fused.launches}
 
 
-# The backward variant beside each forward variant on a model path: f32
-# up to head_dim 256 takes the tiled f32 pair, everything else the
-# forward's variant.
-BACKWARD_OF = {"simt": "tiled_f32"}
-
-
-def _want_counts(variants, fwd, bwd):
+def _want_counts(variant, fwd, bwd):
     """_counts() of a run that launched the forward `fwd` times and each
-    backward kernel `bwd` times, of `variants` = (forward variant,
-    backward variant), and no RMSNorm."""
-    fwd_variant, bwd_variant = variants
-    return {"fwd": fwd, **_variant_want(fwd_variant, fwd), "dq": bwd,
-            "dkv": bwd, **_backward_want(bwd_variant, bwd), "rms": 0}
+    backward kernel `bwd` times, all of kernel variant `variant`, and no
+    RMSNorm."""
+    return {"fwd": fwd, **_variant_want(variant, fwd), "dq": bwd,
+            "dkv": bwd, **_backward_want(variant, bwd), "rms": 0}
 
 
 def _zero_counts():
@@ -1945,8 +1955,8 @@ def phase_train(dev, card, base):
                 grads_f = _loss_and_grads(cfg32, params, inputs, targets)[1]
             err_fault = _grad_errors(grads_f, grads_p)
             del grads_f
-        want = _want_counts(("simt", "tiled_f32"), L, L)
-        want_remat = _want_counts(("simt", "tiled_f32"), 2 * L, L)
+        want = _want_counts("tiled_f32", L, L)
+        want_remat = _want_counts("tiled_f32", 2 * L, L)
         err_plain = _grad_errors(grads_k, grads_p)
         err_remat = _grad_errors(grads_r, grads_k)
         res = {"n_kv_heads": cfg.n_kv_heads, "f32_loss_kernels": loss_k,
@@ -1987,8 +1997,8 @@ def phase_train(dev, card, base):
         with _attention_swapped("plain"):
             loss_pb = _loss_and_grads(cfg, params, inputs, targets)[0]
         err_loss = abs(loss_kb - loss_pb) / abs(loss_pb)
-        want_b = _want_counts(("wgmma", "wgmma"), L, L)
-        want_b_remat = _want_counts(("wgmma", "wgmma"), 2 * L, L)
+        want_b = _want_counts("wgmma", L, L)
+        want_b_remat = _want_counts("wgmma", 2 * L, L)
         res.update({"bf16_loss_kernels": loss_kb, "bf16_loss_plain": loss_pb,
                     "bf16_loss_err_vs_plain": err_loss,
                     "bf16_loss_tol": TRAIN_LOSS_TOL_BF16,
@@ -2016,7 +2026,7 @@ def phase_train(dev, card, base):
             losses.append(loss)
         counts = _counts()
         n = TRAIN_STEPS
-        want = _want_counts(("wgmma", "wgmma"), n * L, n * L)
+        want = _want_counts("wgmma", n * L, n * L)
         res.update({"bf16_losses": losses, "bf16_launches": counts,
                     "bf16_step_s": step_s,
                     "bf16_step_profile": _profile_steps(step, inputs,
@@ -2601,9 +2611,8 @@ def phase_c1_models(dev, base, model_lens):
         torch.cuda.synchronize()
         del master, step
         torch.cuda.empty_cache()
-        want_pass = (_want_counts((None, None), 0, 0) if route == "plain"
-                     else _want_counts((route, BACKWARD_OF.get(route, route)),
-                                       L, L))
+        want_pass = (_want_counts(None, 0, 0) if route == "plain"
+                     else _want_counts(route, L, L))
         res = {"head_dim": cfg.head_dim, "dtype": _dtype_name(cfg.dtype),
                "n_layers": L, "route": route,
                "launches_per_prefill_by_variant": variants,
@@ -2911,7 +2920,7 @@ def phase_moe(dev, card, base, model_lens, lens, new_tokens):
         raise AssertionError(f"MoE f32: routing flips {flips} between the "
                              f"kernel and plain passes (smallest top-two "
                              f"gap {min_gap})")
-    if bad or counts32 != _want_counts(("simt", "tiled_f32"), L, L):
+    if bad or counts32 != _want_counts("tiled_f32", L, L):
         emit({"phase": "moe", "results": res})
         raise AssertionError(f"MoE f32 gradients through the kernels differ "
                              f"from plain attention in {bad}, or launches "
@@ -2927,7 +2936,7 @@ def phase_moe(dev, card, base, model_lens, lens, new_tokens):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     counts = _counts()
-    want = _want_counts(("wgmma", "wgmma"), TRAIN_STEPS * L,
+    want = _want_counts("wgmma", TRAIN_STEPS * L,
                         TRAIN_STEPS * L)
     later = sorted(step_s[1:])
     res["bf16"] = {"losses": losses, "launches": counts, "step_s": step_s,
@@ -3371,8 +3380,8 @@ def _spmd_want(cfg, axes, mb):
     launches of the same step in the reference's). Under sp > 1 ring
     attention is plain: no launch. Otherwise each shard runs each of its
     stage's layers once per microbatch (pp > 1) or once; the layer's
-    variant follows its input's type: f32 takes the CUDA cores (the
-    forward's "simt", the tiled f32 backward pair), bf16 the tensor cores,
+    variant follows its input's type: f32 takes the CUDA cores (the tiled
+    f32 forward, dQ and dK/dV), bf16 the tensor cores,
     and under ep a bf16 model's residual stream is f32 from layer 1 on
     (ROADMAP C.4). The reference runs every stage on each of its pp + M - 1
     ticks."""
@@ -3384,13 +3393,13 @@ def _spmd_want(cfg, axes, mb):
         for i in range(L):
             promoted = bool(cfg.num_experts) and axes.get("ep", 1) > 1 and i
             variant = ("wgmma" if cfg.dtype == torch.bfloat16
-                       and not promoted else "simt")
+                       and not promoted else "tiled_f32")
             n[variant] += (SPMD_SHARDS // pp) * runs
         reference = SPMD_SHARDS * (L // pp) * (pp + mb - 1 if pp > 1 else 1)
-    total = n["wgmma"] + n["simt"]
+    total = n["wgmma"] + n["tiled_f32"]
     want_bwd = _backward_want(None, 0)
     for v, c in n.items():
-        for key, count in _backward_want(BACKWARD_OF.get(v, v), c).items():
+        for key, count in _backward_want(v, c).items():
             want_bwd[key] += count
     return ({"fwd": total, **n, "dq": total, "dkv": total, **want_bwd,
              "rms": 0}, reference)
@@ -3719,7 +3728,8 @@ def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
                               "library_ms", "sdpa_backend", "bound_ms",
-                              "bound_by", "max_abs_err", "shape", "dtype")}
+                              "bound_by", "max_abs_err", "tflops", "shape",
+                              "dtype")}
 
 
 def _bwd_brief(tb, kind):
@@ -3781,7 +3791,7 @@ def main() -> int:
                 continue
             c = run["launches_per_step"]
             for kind, prefix, variants in (
-                    ("fwd", "", ("wgmma", "simt")),
+                    ("fwd", "", ("wgmma", "tiled_f32")),
                     ("dq", "dq_", ("wgmma", "tiled_f32")),
                     ("dkv", "dkv_", ("wgmma", "tiled_f32"))):
                 launches_spmd[kind][f"{name} {dtype}"] = {
@@ -3800,7 +3810,7 @@ def main() -> int:
     }
     kernels = []
     wgmma_source = "ray_tpu_torch/ops/csrc/flash_attention_fwd_wgmma.cu"
-    simt_source = "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu"
+    f32_source = "ray_tpu_torch/ops/csrc/flash_attention_wide_f32.cu"
     for name, Hkv in (("mha", model["mha"]["n_kv_heads"]),
                       ("gqa", model["gqa"]["n_kv_heads"])):
         t = timing[f"bfloat16_Hkv{Hkv}_S2048"]
@@ -3826,20 +3836,43 @@ def main() -> int:
             "D128": {dt: _fwd_brief(timing[f"{dt}_Hkv8_S2048_D128"])
                      for dt in ("bfloat16", "float16")},
             "card": card})
-    # The CUDA-core variant on the main path: f32 (phase 5's f32 gradient
-    # passes, phase 4's f32 engine check), timed on f32 inputs.
+    # The tiled f32 forward on the main path: f32 (phase 5's f32 gradient
+    # passes, phase 4's f32 engine check), timed on f32 inputs at D=64 (128
+    # and 256 beside it), the earlier CUDA-core forward on the same inputs
+    # (simt_kernel_ms).
     t = timing["float32_Hkv8_S2048"]
     kernels.append({
         "name": "flash_attention_fwd[f32]",
-        "route": "cuda", "variant": "simt", "source": simt_source,
+        "route": "cuda", "variant": "tiled_f32", "source": f32_source,
         "replaces": replaces["mha"],
-        "launches": train["mha"]["launches_per_pass"]["simt"],
+        "launches": train["mha"]["launches_per_pass"]["tiled_f32"],
         "launches_spmd": launches_spmd["fwd"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+        "tflops": t["tflops"], "simt_kernel_ms": t["simt_kernel_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "shape": t["shape"], "dtype": "float32", "card": card})
+        "shape": t["shape"], "dtype": "float32",
+        **{f"D{D}": _fwd_brief(timing[f"float32_Hkv8_S2048_D{D}"])
+           for D in (128, 256)},
+        "card": card})
+    # The CUDA-core f32 forward that the tiled one replaced (no main-path
+    # launch left), held and timed on the same f32 inputs.
+    kernels.append({
+        "name": "flash_attention_fwd[f32-simt]",
+        "route": "cuda", "variant": "simt",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "replaces": replaces["mha"],
+        "launches": train["mha"]["launches_per_pass"]["simt"],
+        "launches_from": "phase 5's f32 pass (reached by no rule)",
+        "max_abs_err": t["simt_max_abs_err"],
+        "ms": t["simt_kernel_ms"], "kernel_ms": t["simt_kernel_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"], "dtype": "float32",
+        **{f"D{D}_ms": timing[f"float32_Hkv8_S2048_D{D}"]["simt_kernel_ms"]
+           for D in (128, 256)},
+        "card": card})
     # The backward pair: bf16 on the tensor cores (the train steps), f32 on
     # the tiled f32 pair (phase 5's f32 gradient passes; D=128 and 256
     # beside it), the CUDA-core pair it replaced timed on the same inputs
@@ -3848,8 +3881,7 @@ def main() -> int:
             ("bfloat16", "", "wgmma",
              "ray_tpu_torch/ops/csrc/flash_attention_bwd_wgmma.cu",
              train["mha"]["bf16_launches"]),
-            ("float32", "[f32]", "tiled_f32",
-             "ray_tpu_torch/ops/csrc/flash_attention_wide_f32.cu",
+            ("float32", "[f32]", "tiled_f32", f32_source,
              train["mha"]["launches_per_pass"])):
         tb = bwd[dtype]
         for kind in ("dq", "dkv"):

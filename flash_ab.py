@@ -51,16 +51,17 @@ thread, as first written), all three kernels with a 4-stage copy ring,
 and dQ with 256 columns a block (64 f32 of dQ a thread, 1.67x the real
 work at D = 512 against 1x for this tree's 512).
 
-With ``--f32``, the f32 backward pairs up to head_dim 256 on f32 inputs
-at head_dim 64, 128 and 256: the earlier CUDA-core pair
-(``flash_attention_bwd.cu``), the wide instances of
-``flash_attention_wide_f32.cu`` called through their C entry points at
-those widths, this tree's tiled pair (the same library's tiled
-instances) and ``F32_TILED_VARIANTS`` (textual edits of those instances),
-each held against the plain backward (dQ also against the float64
-formula, delta against rowsum(dO * O)) and timed in turns beside SDPA's
-backward and the bound. With ``--parent``
-(an earlier commit's ``flash_attention_wide_f32.cu``), the wide dQ, delta
+With ``--f32``, the f32 forward and backward pairs up to head_dim 256 on
+f32 inputs at head_dim 64, 128 and 256: the earlier CUDA-core kernels
+(``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``), the wide
+instances of ``flash_attention_wide_f32.cu`` called through their C entry
+points at those widths, this tree's tiled kernels (the same library's
+tiled instances) and ``F32_TILED_VARIANTS`` (textual edits of those
+instances), each held against the plain versions (the forward's O and LSE
+against ``_dense_kernel``; dQ also against the float64 formula, delta
+against rowsum(dO * O)) and timed in turns beside SDPA (forward, and
+backward) and the bound. With ``--parent`` (an earlier commit's
+``flash_attention_wide_f32.cu``), the wide forward (O and LSE), dQ, delta
 and dK/dV of both are compared bit for bit at head_dim 264, 1032 and 512
 and timed at 512. Then the CUDA-core wide kernels
 (``flash_attention_wide.cu``: bf16/f16 above head_dim 1024) at head_dim
@@ -160,11 +161,16 @@ WIDE_F32_VARIANTS = {
         ("using DqWide = DqShape<64, 512, 32, false>;",
          "using DqWide = DqShape<64, 256, 32, false>;")]},
 }
-# --f32: the f32 backward pairs at head_dim up to 256, and textual
-# variants of this tree's tiled instances: dK/dV at D <= 128 with 128 keys
-# a block (128 f32 of dK and dV a thread, 16-column boxes), dQ at D <= 128
-# with 64 rows a block (32 f32 of dQ a thread), dQ at D <= 64 with
-# 16-column boxes. F32_VARIANT_SCOPE: the head_dims and kernels each
+# --f32: the f32 forward and backward pairs at head_dim up to 256, and
+# textual variants of this tree's tiled instances: dK/dV at D <= 128 with
+# 128 keys a block (128 f32 of dK and dV a thread, 16-column boxes), dQ at
+# D <= 128 with 64 rows a block (32 f32 of dQ a thread), dQ at D <= 64
+# with 16-column boxes; the forward at D <= 64 with 64-key tiles (an 8 x 4
+# score tile a thread) or with two 64-key V boxes a tile, at D <= 128
+# with 64-key tiles or with 64 rows a block (the wide instance's layout
+# at 128 columns), and at every D <= 256 with Q re-streamed and re-scaled
+# for every key tile, as the wide instance does (at 256: the wide
+# instance itself). F32_VARIANT_SCOPE: the head_dims and kernels each
 # changes.
 F32_LIB = "flash_attention_wide_f32"
 F32_DIMS = (64, 128, 256)
@@ -184,10 +190,37 @@ F32_TILED_VARIANTS = {
         ("using DqTiled64 = DqShape<128, 64, 32, true>;",
          "using DqTiled64 = DqShape<256, 64, 16, true>;")]},
 }
+F32_FWD_VARIANTS = {
+    "fwd64_keys64": {WIDE_F32_SOURCE: [
+        ("using FwdTiled64 = FwdShape<128, 128, 64, 128, true>;",
+         "using FwdTiled64 = FwdShape<128, 64, 64, 64, true>;")]},
+    "fwd64_vkeys64": {WIDE_F32_SOURCE: [
+        ("using FwdTiled64 = FwdShape<128, 128, 64, 128, true>;",
+         "using FwdTiled64 = FwdShape<128, 128, 64, 64, true>;")]},
+    "fwd128_keys64": {WIDE_F32_SOURCE: [
+        ("using FwdTiled128 = FwdShape<128, 128, 128, 32, true>;",
+         "using FwdTiled128 = FwdShape<128, 64, 128, 32, true>;")]},
+    "fwd128_rows64": {WIDE_F32_SOURCE: [
+        ("using FwdTiled128 = FwdShape<128, 128, 128, 32, true>;",
+         "using FwdTiled128 = FwdShape<64, 128, 128, 32, true>;")]},
+    "fwd_stream_q": {WIDE_F32_SOURCE: [
+        ("using FwdTiled64 = FwdShape<128, 128, 64, 128, true>;",
+         "using FwdTiled64 = FwdShape<128, 128, 64, 128, false>;"),
+        ("using FwdTiled128 = FwdShape<128, 128, 128, 32, true>;",
+         "using FwdTiled128 = FwdShape<128, 128, 128, 32, false>;"),
+        ("using FwdTiled256 = FwdShape<64, 128, 256, 32, true>;",
+         "using FwdTiled256 = FwdWide;")]},
+}
+F32_TILED_VARIANTS.update(F32_FWD_VARIANTS)
 F32_VARIANT_SCOPE = {"tiled_dkv128_keys128": ((128,), ("dkv",)),
                      "tiled_dq128_rows64": ((128,), ("dq",)),
                      "tiled_dq64_box16": ((64,), ("dq",)),
-                     "tiled_dq64_rows256": ((64,), ("dq",))}
+                     "tiled_dq64_rows256": ((64,), ("dq",)),
+                     "fwd64_keys64": ((64,), ("fwd",)),
+                     "fwd64_vkeys64": ((64,), ("fwd",)),
+                     "fwd128_keys64": ((128,), ("fwd",)),
+                     "fwd128_rows64": ((128,), ("fwd",)),
+                     "fwd_stream_q": ((64, 128, 256), ("fwd",))}
 F32_TIMING = {"iters": 8, "replays": 5}
 # The CUDA-core wide kernels (flash_attention_wide.cu: bf16/f16 above
 # 1024), timed once each.
@@ -230,7 +263,7 @@ def build(names, parent, libraries=LIBS):
     for name in names:
         d = _sources(name, parent)
         for lib in libraries:
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+            cmd = [_build._nvcc(), *_build.nvcc_flags(lib), "-o",
                    str(d / f"{lib}.so"), str(d / f"{lib}.cu")]
             running.append((name, lib, d, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -437,58 +470,70 @@ def dq_check(runs, others, t, D):
                                  f"with this tree's kernel")
 
 
-def _bwd_fns(lib, suffix):
-    """(dQ, dK/dV) C functions of an f32 library, argument types set."""
-    fns = []
+def _f32_fns(lib, suffix):
+    """(forward, dQ, dK/dV) C functions of an f32 library, argument types
+    set."""
+    fns = [getattr(lib, f"flash_attention_fwd{suffix}")]
+    fns[0].argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP]
     for kind in ("dq", "dkv"):
-        fn = getattr(lib, f"flash_attention_bwd_{kind}{suffix}")
-        fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
+        fns.append(getattr(lib, f"flash_attention_bwd_{kind}{suffix}"))
+        fns[-1].argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
+    for fn in fns:
         fn.restype = _CI
-        fns.append(fn)
     return fns
 
 
 def f32_calls(name, lib, suffix, t):
-    """Closures launching dQ (with delta) and dK/dV (on this tree's delta)
-    of an f32 design through its C entry points, into t's output
-    buffers."""
-    dq, dkv = _bwd_fns(lib, suffix)
+    """Closures launching the forward (MHA), dQ (with delta) and dK/dV (on
+    this tree's delta) of an f32 design through its C entry points, into
+    t's output buffers."""
+    fwd, dq, dkv = _f32_fns(lib, suffix)
     B, H, Sq, D = t["q"].shape
     Sk = t["k"].shape[2]
     p = {k: v.data_ptr() for k, v in t.items() if torch.is_tensor(v)}
+    tail = (D ** -0.5, int(t["causal"]), 0)
 
     def run(fn, *args):
-        err = fn(*args, B * H, Sq, Sk, D, D ** -0.5, int(t["causal"]), 0,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: launch failed ({err})")
 
-    return {"dq": lambda i: run(dq, p["q"], p["k"], p["v"], p["o"], p["do"],
-                                p["lse"], p["dq2"], p["delta2"]),
+    return {"fwd": lambda i: run(fwd, p["q"], p["k"], p["v"], p["o2"],
+                                 p["l2"], B, H, H, Sq, Sk, D),
+            "dq": lambda i: run(dq, p["q"], p["k"], p["v"], p["o"], p["do"],
+                                p["lse"], p["dq2"], p["delta2"], B * H, Sq,
+                                Sk, D),
             "dkv": lambda i: run(dkv, p["q"], p["k"], p["v"], p["do"],
-                                 p["lse"], p["delta"], p["dk2"], p["dv2"])}
+                                 p["lse"], p["delta"], p["dk2"], p["dv2"],
+                                 B * H, Sq, Sk, D)}
 
 
 def old_calls(t):
-    """The earlier f32 pair (flash_attention_bwd.cu, computing delta itself)
-    through its C entry points, into t's output buffers."""
+    """The earlier f32 kernels (flash_attention_fwd.cu; flash_attention_
+    bwd.cu's pair, computing delta itself) through their C entry points,
+    into t's output buffers."""
     fa = cs._flash_module()
     B, H, Sq, D = t["q"].shape
-    lib = fa._LIBRARIES["simt"][1]
+    Sk = t["k"].shape[2]
+    fwd_lib, lib, _ = fa._LIBRARIES["simt"]
     fns = {kind: fa._kernel_fn(lib, f"flash_attention_bwd_{kind}")
            for kind in ("dq", "dkv")}
+    fns["fwd"] = fa._kernel_fn(fwd_lib, "flash_attention_fwd")
     p = {k: v.data_ptr() for k, v in t.items() if torch.is_tensor(v)}
+    tail = (D ** -0.5, int(t["causal"]), 0)
 
-    def run(kind, *outs):
-        err = fns[kind](p["q"], p["k"], p["v"], p["o"], p["do"], p["lse"],
-                        *outs, B * H, Sq, t["k"].shape[2], D, D ** -0.5,
-                        int(t["causal"]), 0,
+    def run(kind, *args):
+        err = fns[kind](*args, *tail,
                         torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"old pair: launch failed ({err})")
+            raise RuntimeError(f"old {kind}: launch failed ({err})")
 
-    return {"dq": lambda i: run("dq", p["dq2"]),
-            "dkv": lambda i: run("dkv", p["dk2"], p["dv2"])}
+    bwd_in = (p["q"], p["k"], p["v"], p["o"], p["do"], p["lse"])
+    return {"fwd": lambda i: run("fwd", p["q"], p["k"], p["v"], p["o2"],
+                                 p["l2"], B, H, H, Sq, Sk, D),
+            "dq": lambda i: run("dq", *bwd_in, p["dq2"], B * H, Sq, Sk, D),
+            "dkv": lambda i: run("dkv", *bwd_in, p["dk2"], p["dv2"], B * H,
+                                 Sq, Sk, D)}
 
 
 def f32_inputs(gen, dev, B, H, Sq, Sk, D, causal):
@@ -503,21 +548,30 @@ def f32_inputs(gen, dev, B, H, Sq, Sk, D, causal):
         o, lse = fa._flash_forward(q, k, v, causal)
         delta = fa._launch_dq(q, k, v, o, lse, do, causal, D ** -0.5)[1]
     return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
-            "delta": delta, "causal": causal, "dq2": torch.empty_like(q),
+            "delta": delta, "causal": causal, "o2": torch.empty_like(q),
+            "l2": torch.empty_like(lse), "dq2": torch.empty_like(q),
             "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
             "dv2": torch.empty_like(v)}
 
 
-def f32_check(name, run, t, ref, dq64):
-    """One design's dQ (against the float64 formula and the f32 plain one;
-    its delta, where it writes one, against rowsum(dO * O)) and dK/dV
-    (against the f32 plain backward), per row within GRAD_ROW_TOL."""
+def f32_check(name, run, t, ref, dq64, ref_fwd):
+    """One design's forward (O per row within O_ROW_TOL and LSE within
+    LSE_TOL of ``ref_fwd``, the plain version's), dQ (against the float64
+    formula and the f32 plain one; its delta, where it writes one, against
+    rowsum(dO * O)) and dK/dV (against the f32 plain backward), per row
+    within GRAD_ROW_TOL."""
     tol = cs.GRAD_ROW_TOL[torch.float32]
     t["delta2"].fill_(float("nan"))
+    t["o2"].fill_(float("nan"))
+    run["fwd"](0)
     run["dq"](0)
     run["dkv"](0)
     torch.cuda.synchronize()
-    got = {"dq_vs_f64": cs.grad_row_error(t["dq2"], dq64),
+    _, err_o_row, err_lse = cs.compare(t["o2"], t["l2"], *ref_fwd)
+    fwd_ok = (err_o_row <= cs.O_ROW_TOL[torch.float32] and err_lse <= 1.0
+              and bool(torch.isfinite(t["o2"]).all()))
+    got = {"o_row": err_o_row, "lse_of_limit": err_lse,
+           "dq_vs_f64": cs.grad_row_error(t["dq2"], dq64),
            "dq": cs.grad_row_error(t["dq2"], ref[0]),
            "dk": cs.grad_row_error(t["dk2"], ref[1]),
            "dv": cs.grad_row_error(t["dv2"], ref[2])}
@@ -527,20 +581,21 @@ def f32_check(name, run, t, ref, dq64):
     D = t["q"].shape[-1]
     emit({"check": f"{name} vs plain", "D": D, "causal": t["causal"],
           "shape": list(t["q"].shape), "err_row": got, "tol_row": tol})
-    if not (max(got[k] for k in ("dq_vs_f64", "dk", "dv")) <= tol
+    if not (fwd_ok and max(got[k] for k in ("dq_vs_f64", "dk", "dv")) <= tol
             and got.get("delta_of_limit", 0.0) <= 1.0):
         raise AssertionError(f"{name} at D={D}: disagrees with plain {got}")
 
 
 def f32_bits(runs, t, names):
-    """The designs' dQ, delta, dK and dV on the same inputs, bit for
-    bit."""
+    """The designs' O, LSE, dQ, delta, dK and dV on the same inputs, bit
+    for bit."""
     outs = {}
     for n in names:
-        runs[n]["dq"](0)
-        runs[n]["dkv"](0)
+        for kind in ("fwd", "dq", "dkv"):
+            runs[n][kind](0)
         torch.cuda.synchronize()
-        outs[n] = [t[x].clone() for x in ("dq2", "delta2", "dk2", "dv2")]
+        outs[n] = [t[x].clone() for x in ("o2", "l2", "dq2", "delta2",
+                                          "dk2", "dv2")]
     same = all(torch.equal(a, b) for a, b in zip(*outs.values()))
     emit({"check": f"{' vs '.join(names)}, bit for bit",
           "shape": list(t["q"].shape), "causal": t["causal"],
@@ -550,14 +605,14 @@ def f32_bits(runs, t, names):
 
 
 def f32_main(args, dev, gen):
-    """--f32: the f32 backward pairs at B=4, H=8, S=2048, causal, D in
-    F32_DIMS: flash_attention_bwd.cu's pair (``old``), the wide instances
-    through their C entry points (``wide``), this tree's tiled instances
+    """--f32: the f32 forward and backward pairs at B=4, H=8, S=2048,
+    causal, D in F32_DIMS: flash_attention_fwd.cu's forward and
+    flash_attention_bwd.cu's pair (``old``), the wide instances through
+    their C entry points (``wide``), this tree's tiled instances
     (``tree``) and F32_TILED_VARIANTS, each held against plain and timed
-    in turns beside SDPA's backward and the bound; with ``--parent``, the
-    parent's and this tree's wide instances bit for bit above 256 and
-    timed at D=512. Then the CUDA-core wide kernels (bf16) at
-    WIDE_CC_DIMS."""
+    in turns beside SDPA and the bound; with ``--parent``, the parent's
+    and this tree's wide instances bit for bit above 256 and timed at
+    D=512. Then the CUDA-core wide kernels (bf16) at WIDE_CC_DIMS."""
     fa = cs._flash_module()
     # The libraries this mode loads through the wrapper, built together.
     _build.build_all(("flash_attention_fwd", "flash_attention_bwd",
@@ -578,7 +633,7 @@ def f32_main(args, dev, gen):
                 runs = {n: f32_calls(n, libs[n], "_wide_f32", t)
                         for n in ("parent", "tree")}
                 f32_bits(runs, t, ("parent", "tree"))
-        for kind in ("dq", "dkv"):
+        for kind in ("fwd", "dq", "dkv"):
             ms = {"parent": [], "tree": []}
             for n in ("parent", "tree", "tree", "parent"):
                 ms[n].append(cs.graph_ms(runs[n][kind], **F32_TIMING))
@@ -595,26 +650,34 @@ def f32_main(args, dev, gen):
                                  t["do"], True, D ** -0.5)
         dq64 = testing.dense_dq_f64(t["q"], t["k"], t["v"], t["o"],
                                     t["lse"], t["do"], True, D ** -0.5)
+        ref_fwd = fa._dense_kernel(t["q"], t["k"], t["v"], True, D ** -0.5)
         for n, run in runs.items():
-            f32_check(n, run, t, ref, dq64)
-        del ref, dq64
+            f32_check(n, run, t, ref, dq64, ref_fwd)
+        del ref, dq64, ref_fwd
         torch.cuda.empty_cache()
-        for kind in ("dq", "dkv"):
+        for kind in ("fwd", "dq", "dkv"):
             others = ["old", "wide", *[n for n in here
                                        if kind in F32_VARIANT_SCOPE[n][1]]]
             order = [*others, "tree", "tree", *others[::-1]]
             ms = {n: [] for n in ["tree", *others]}
             for n in order:
                 ms[n].append(cs.graph_ms(runs[n][kind], **F32_TIMING))
-            bound_ms, bound_by = cs.backward_bound(B, H, S, D, torch.float32,
-                                                   True, kind)
+            bound_ms, bound_by = (
+                cs.attention_bound(B, H, H, S, D, torch.float32, True)
+                if kind == "fwd" else
+                cs.backward_bound(B, H, S, D, torch.float32, True, kind))
             emit({"timing": kind, "D": D, "dtype": "float32",
                   "shape": [B, H, S, D], "causal": True, "ms": ms,
                   "bound_ms": bound_ms, "bound_by": bound_by})
-        emit({"timing": "sdpa_backward", "D": D, "dtype": "float32",
+        emit({"timing": "sdpa", "D": D, "dtype": "float32",
               "shape": [B, H, S, D], "causal": True,
               "sdpa_backend": cs._sdpa_backend(t["q"], t["k"], t["v"]),
-              "ms": cs._sdpa_backward_ms(t["q"], t["k"], t["v"], t["do"])})
+              "forward_ms": cs.graph_ms(
+                  lambda i: cs.F.scaled_dot_product_attention(
+                      t["q"], t["k"], t["v"], is_causal=True),
+                  **F32_TIMING),
+              "backward_ms": cs._sdpa_backward_ms(t["q"], t["k"], t["v"],
+                                                  t["do"])})
         del t, runs
         torch.cuda.empty_cache()
     for D in WIDE_CC_DIMS:
@@ -691,9 +754,9 @@ def main() -> int:
                     help="the f32 wide kernels (head_dim above 256) and "
                          "WIDE_F32_VARIANTS")
     ap.add_argument("--f32", action="store_true",
-                    help="the f32 backward pairs at head_dim up to 256 "
-                         "and F32_TILED_VARIANTS, then the CUDA-core "
-                         "wide kernels at WIDE_CC_DIMS")
+                    help="the f32 forward and backward pairs at head_dim "
+                         "up to 256 and F32_TILED_VARIANTS, then the "
+                         "CUDA-core wide kernels at WIDE_CC_DIMS")
     args = ap.parse_args()
     if args.f32:
         dev = torch.device("cuda", 0)

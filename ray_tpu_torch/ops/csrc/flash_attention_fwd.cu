@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores, one kernel
-// for MHA and GQA. The wrapper's rule of shapes sends bf16 and f16 at every
-// head_dim up to 256 to the tensor-core kernel (flash_attention_fwd_wgmma.cu)
-// and f32, whose limit TF32 products would break, here, at every head_dim
-// that is a multiple of 8 up to 256. Its bf16 and f16 instances stay,
-// reached by no rule: they are the earlier design that chip_smoke.py times
-// and checks beside the tensor-core kernel.
+// for MHA and GQA, reached by no rule of shapes: the wrapper sends bf16 and
+// f16 at every head_dim up to 256 to the tensor-core kernel
+// (flash_attention_fwd_wgmma.cu) and f32 up to 256 to the tiled f32 forward
+// (flash_attention_wide_f32.cu). Every instance here, f32, bf16 and f16,
+// stays as the earlier design that chip_smoke.py checks against the plain
+// version and times beside the kernels that replaced it.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` of
 // ray_tpu/ops/flash_attention.py as launched by `_flash_forward` (MHA) and

@@ -1,10 +1,9 @@
 // Flash attention in float32 on Hopper (sm_90a), on the CUDA cores: the
-// forward (MHA and GQA) for head dims above 256, and dQ and dK/dV at every
-// head_dim that is a multiple of 8. The wrapper's rule of shapes sends f32
-// above head_dim 256 here, all three kernels ("wide_f32": the output's
-// head dimension split into slices across blocks), and the f32 backward up
-// to 256 ("tiled_f32": instances of the same dQ and dK/dV templates whose
-// block covers all of D; the f32 forward there is flash_attention_fwd.cu's).
+// forward (MHA and GQA), dQ and dK/dV at every head_dim that is a multiple
+// of 8. The wrapper's rule of shapes sends every f32 call here, all three
+// kernels: above head_dim 256 "wide_f32" (the output's head dimension
+// split into slices across blocks), up to 256 "tiled_f32" (instances of
+// the same forward, dQ and dK/dV templates whose block covers all of D).
 // Each dQ kernel also writes the delta = rowsum(dO * O) that the dK/dV
 // kernel reads.
 //
@@ -27,16 +26,19 @@
 // S=2048, D=512, causal that is ~137, ~206 and ~275 GFLOP against ~0.54 to
 // ~0.81 GB moved, 2.05, 3.08 and 4.10 ms at the f32 rate against 0.16 to
 // 0.24 ms at 3.35 TB/s; at D=64, 0.385 ms (dQ) and 0.513 ms (dK/dV)
-// against 0.06 to 0.08 ms. The earlier f32 pair up to 256
-// (flash_attention_bwd.cu, 4 threads a row, each reading two operand
-// floats from shared memory per FMA, spilling at D=256) ran the pair at
-// 25% (D=64) and 13% (D=256) of that rate, the tiled instances at 43% and
-// 46% (flash_ab.py --f32 on an H100 SXM at 700 W).
+// against 0.06 to 0.08 ms; the forward at D=64 0.257 ms, at 256 1.026 ms.
+// The earlier f32 kernels up to 256 (flash_attention_fwd.cu and
+// flash_attention_bwd.cu, 4 threads a row, each reading an operand float
+// from shared memory per FMA, spilling above D=128) ran the backward pair
+// at 25% (D=64) and 13% (D=256) of that rate and the forward at 18% and
+// 17%; the tiled instances run the backward pair at 43% and 46% and the
+// forward at 48% and 50% (flash_ab.py --f32 and chip_smoke.py on an H100
+// SXM at 700 W).
 //
 // Design, all three kernels (256 threads, one block per SM), as the wide
-// instances have it; the dQ and dK/dV kernels are templates over their
-// block's shape (DqShape, DkvShape), and the tiled instances below differ
-// only in those shapes:
+// instances have it; the kernels are templates over their block's shape
+// (FwdShape, DqShape, DkvShape), and the tiled instances below differ only
+// in those shapes:
 // - A block owns a wide slice of the output's columns: 256 columns of O
 //   (64 rows x 256 columns, 64 f32 a thread), 512 of dQ (64 rows x 512
 //   columns, 128 f32 a thread) or 256 of dK and of dV (64 keys x 256
@@ -88,14 +90,24 @@
 //   are read once, before the key loop, four threads a row; the blocks of
 //   the first column slice write delta.
 //
-// The tiled instances (f32 dQ and dK/dV up to head_dim 256). A block
-// covers all of D, so the score reduction is never repeated; each width
+// The tiled instances (the f32 forward, dQ and dK/dV up to head_dim 256).
+// A block covers all of D, so the score reduction is never repeated; each
+// width
 // runs the narrowest instance whose columns reach it, the columns past D
 // zero-filled and never stored (the products' padding waste: D=8 8x,
 // 32 2x, 96 1.33x, 200 1.28x, 248 1.03x; the reduction runs over the real
-// D in whole boxes). A thread's tile of the output keeps 8 rows (dQ) or
+// D in whole boxes). A thread's tile of the output keeps 8 rows (O, dQ) or
 // keys (dK/dV) of whole float4s, so at narrow D a block takes more rows
 // or keys rather than fewer columns a thread:
+// - forward: 128 rows x 64 columns (D <= 64: an 8 x 4 O tile a thread,
+//   one 128-key V box a tile), 128 x 128 (D <= 128: 8 x 8) and 64 x 256
+//   (D <= 256: the wide instance's shape, exactly the work, and its order
+//   of operations, so its results bit for bit), each over 128-key tiles
+//   (8 x 8 score tiles a thread at 128 rows, 8 x 4 at 64). Each copies
+//   the block's Q into shared memory with the first box and scales it
+//   there once, so that only K and V stream; the wide instance copies and
+//   scales Q's box again for every key tile. The softmax takes 256 / rows
+//   threads a query row.
 // - dK/dV: 128 keys x 64 columns (D <= 64: 16-column boxes, since the
 //   128-key K and V boxes and 128-key P and dS fill shared memory at 32;
 //   8 x 4 S^T and dP^T tiles), 64 keys x 128 columns (D <= 128) and the
@@ -118,7 +130,11 @@
 //   and dV (128 f32 of them a thread) spilled 208 bytes and ran 15%
 //   slower than 64 x 128; 64 rows x 128 columns of dQ ran 10% slower than
 //   128 x 128, and 16-column boxes for dQ at D <= 64 8% slower than 32
-//   (flash_ab.py --f32).
+//   (flash_ab.py --f32). The forward's 128 x 128 instances hold their 8 x
+//   8 score tile in 255 registers; 64-key tiles ran 4-6% slower, 64 rows
+//   at D <= 128 11-16% slower, Q streamed again for every key tile 1-4%
+//   slower, and two blocks an SM at D <= 64 (128 registers) spilled and
+//   ran 5-11% slower.
 //
 // Other points:
 // - Any multiple of 8 (the wide instances: no upper limit): a box
@@ -225,25 +241,42 @@ __device__ __forceinline__ void unpack8(float (&dst)[8], const float4& a,
 }
 
 // ------------------------------------------------------------- forward
-namespace fwd {
+// A forward block: kRows query rows x kCols columns of O, kKeys keys a
+// tile, each tile's V streamed in boxes of kVKeys keys x kCols columns.
+// kHoldQ: the block's Q (all of D, which kCols must then reach) is copied
+// into shared memory once and scaled once, and only K and V stream; else
+// Q's box is copied and scaled beside K's for every key tile.
+template <int kRows_, int kKeys_, int kCols_, int kVKeys_, bool kHoldQ_>
+struct FwdShape {
+  static constexpr int kRows = kRows_;
+  static constexpr int kKeys = kKeys_;
+  static constexpr int kCols = kCols_;
+  static constexpr int kVKeys = kVKeys_;
+  static constexpr bool kHoldQ = kHoldQ_;
+  static constexpr int kVBoxes = kKeys / kVKeys;
+  static constexpr int kTy = kRows / 8;        // S: rows ty + kTy i
+  static constexpr int kTx = kThreads / kTy;   // S: keys tx + kTx j
+  static constexpr int kKeyTiles = kKeys / kTx;    // a thread's keys of S
+  static constexpr int kThreadCols = kCols / kTx;  // a thread's columns of O
+  static constexpr int kParts = kThreads / kRows;  // softmax: threads a row
+  static constexpr int kQBox = kRows * kBoxStride;
+  static constexpr int kKBox = kKeys * kBoxStride;
+  static constexpr int kVBox = kVKeys * kCols;
+  static constexpr int kRBox = kHoldQ ? kKBox : kQBox + kKBox;
+  static constexpr int kStage = kRBox > kVBox ? kRBox : kVBox;
+  static constexpr int kPStride = kRows + 4;   // P^T: one row of kRows a key
+  static constexpr int kHeldQ = kHoldQ ? kCols / kBoxCols * kQBox : 0;
+  static constexpr int kSmemFloats =
+      kStages * kStage + kKeys * kPStride + 2 * kRows + kHeldQ;
+  static constexpr int kSmemBytes = kSmemFloats * 4;
+  static_assert(kTy * kTx == kThreads && kTx % 8 == 0 && kKeys % kTx == 0 &&
+                    kThreadCols % 4 == 0 && kKeys % kVKeys == 0 &&
+                    kCols % kBoxCols == 0 && (kParts & (kParts - 1)) == 0,
+                "thread tiles of whole float4s");
+  static_assert(kSmemBytes <= 232448, "227 KB a block");
+};
 
-constexpr int kRows = 64;     // query rows per block
-constexpr int kKeys = 128;    // keys per tile
-constexpr int kCols = 256;    // columns of O per block
-constexpr int kVKeys = 32;    // keys per V box
-constexpr int kVBoxes = kKeys / kVKeys;
-constexpr int kQBox = kRows * kBoxStride;
-constexpr int kKBox = kKeys * kBoxStride;
-constexpr int kVBox = kVKeys * kCols;
-constexpr int kStage = kQBox + kKBox > kVBox ? kQBox + kKBox : kVBox;
-constexpr int kPStride = kRows + 4;   // P^T: one row of kRows per key
-constexpr int kSmemFloats =
-    kStages * kStage + kKeys * kPStride + 2 * kRows;
-constexpr int kSmemBytes = kSmemFloats * 4;
-static_assert(kSmemBytes <= 232448, "227 KB a block");
-
-}  // namespace fwd
-
+template <class Shape>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wide_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -251,11 +284,24 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
                           float* __restrict__ lse, int hq, int hkv, int sq,
                           int sk, int d, int n_slices, float scale,
                           int causal) {
-  using namespace fwd;
+  constexpr int kRows = Shape::kRows;
+  constexpr int kKeys = Shape::kKeys;
+  constexpr int kCols = Shape::kCols;
+  constexpr int kVKeys = Shape::kVKeys;
+  constexpr int kVBoxes = Shape::kVBoxes;
+  constexpr int kTy = Shape::kTy;
+  constexpr int kTx = Shape::kTx;
+  constexpr int kKeyTiles = Shape::kKeyTiles;
+  constexpr int kThreadCols = Shape::kThreadCols;
+  constexpr int kParts = Shape::kParts;
+  constexpr int kQBox = Shape::kQBox;
+  constexpr int kStage = Shape::kStage;
+  constexpr int kPStride = Shape::kPStride;
   extern __shared__ __align__(16) float smem[];
   float* pt = smem + kStages * kStage;        // P^T [kKeys][kPStride]
   float* alpha_s = pt + kKeys * kPStride;     // per row: rescale of O
   float* inv_l_s = alpha_s + kRows;           // per row: 1 / l
+  float* qh = inv_l_s + kRows;                // kHoldQ: Q's boxes over D
 
   const int bh = blockIdx.x / n_slices;       // b * hq + h
   const int slice = blockIdx.x - bh * n_slices;
@@ -270,24 +316,25 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // Scores: rows ty + 8 i, keys tx + 32 j. O: rows 8 ty + i, columns
-  // 4 tx + 128 j + e. A warp spans 4 values of ty and 8 of tx.
-  const int ty = (warp / 4) * 4 + lane / 8;
-  const int tx = (warp % 4) * 8 + lane % 8;
-  // Softmax: four threads (adjacent lanes) a query row, keys part + 4 e.
-  const int srow = threadIdx.x / 4;
-  const int spart = threadIdx.x % 4;
+  // Scores: rows ty + kTy i, keys tx + kTx j. O: rows 8 ty + i, columns
+  // 4 tx + 4 kTx j + e. A warp spans 4 values of ty and 8 of tx.
+  const int ty = (warp / (kTx / 8)) * 4 + lane / 8;
+  const int tx = (warp % (kTx / 8)) * 8 + lane % 8;
+  // Softmax: kParts threads (adjacent lanes) a query row, keys part +
+  // kParts e.
+  const int srow = threadIdx.x / kParts;
+  const int spart = threadIdx.x % kParts;
   const int sqi = q0 + srow;
   float m = kNegInf;
   float l = 0.f;
 
-  float acc[8][8];
+  float acc[8][kThreadCols];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kThreadCols; ++c) acc[i][c] = 0.f;
   }
-  float s[8][4];
+  float s[8][kKeyTiles];
 
   int n_kb = (sk + kKeys - 1) / kKeys;
   if (causal) n_kb = min(n_kb, (min(q0 + kRows, sq) - 1) / kKeys + 1);
@@ -295,23 +342,50 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
   const int per_tile = n_sbox + kVBoxes;
   const int n_boxes = n_kb * per_tile;
 
-  // Box `box` of the sequence (per key tile: n_sbox boxes of Q and K over
-  // D, then kVBoxes boxes of V over the block's columns) into its stage.
+  // Box `box` of the sequence (per key tile: n_sbox boxes of K, and of Q
+  // unless held, over D, then kVBoxes boxes of V over the block's columns)
+  // into its stage.
   auto issue = [&](int box) {
     float* st = smem + (box % kStages) * kStage;
     const int kb = box / per_tile;
     const int idx = box - kb * per_tile;
     if (idx < n_sbox) {
-      load_box<kRows, kBoxCols, kBoxStride>(st, qm, q0, sq, idx * kBoxCols,
-                                            d);
-      load_box<kKeys, kBoxCols, kBoxStride>(st + kQBox, km, kb * kKeys, sk,
+      if constexpr (!Shape::kHoldQ) {
+        load_box<kRows, kBoxCols, kBoxStride>(st, qm, q0, sq,
+                                              idx * kBoxCols, d);
+      }
+      load_box<kKeys, kBoxCols, kBoxStride>(st + Shape::kRBox - Shape::kKBox,
+                                            km, kb * kKeys, sk,
                                             idx * kBoxCols, d);
     } else {
       load_box<kVKeys, kCols, kCols>(
           st, vm, kb * kKeys + (idx - n_sbox) * kVKeys, sk, c0, d);
     }
   };
+  // Q * scale, each thread on the 16-byte pieces of a Q box it copied
+  // (load_box's order), visible to it after cp.async's wait.
+  auto scale_q = [&](float* box) {
+#pragma unroll
+    for (int i = 0; i < kRows * kBoxCols / 4 / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      float4* p = reinterpret_cast<float4*>(
+          box + (c / (kBoxCols / 4)) * kBoxStride + (c % (kBoxCols / 4)) * 4);
+      float4 x = *p;
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+      *p = x;
+    }
+  };
 
+  if constexpr (Shape::kHoldQ) {
+    // The block's Q, copied with the first box.
+    for (int idx = 0; idx < n_sbox; ++idx) {
+      load_box<kRows, kBoxCols, kBoxStride>(qh + idx * kQBox, qm, q0, sq,
+                                            idx * kBoxCols, d);
+    }
+  }
   issue(0);
   cp_async_commit();
   if (n_boxes > 1) issue(1);
@@ -321,20 +395,12 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
     const int idx = bx - kb * per_tile;
     float* st = smem + (bx % kStages) * kStage;
     cp_async_wait_all_but_one();
-    if (idx < n_sbox) {
-      // Q * scale, each thread on the pieces it copied.
-#pragma unroll
-      for (int i = 0; i < kRows * kBoxCols / 4 / kThreads; ++i) {
-        const int c = threadIdx.x + i * kThreads;
-        float4* p = reinterpret_cast<float4*>(
-            st + (c / (kBoxCols / 4)) * kBoxStride + (c % (kBoxCols / 4)) * 4);
-        float4 x = *p;
-        x.x *= scale;
-        x.y *= scale;
-        x.z *= scale;
-        x.w *= scale;
-        *p = x;
+    if constexpr (Shape::kHoldQ) {
+      if (bx == 0) {
+        for (int i = 0; i < n_sbox; ++i) scale_q(qh + i * kQBox);
       }
+    } else {
+      if (idx < n_sbox) scale_q(st);
     }
     // Box bx is visible to all; every thread is done with box bx - 1, whose
     // stage box bx + 2 now takes.
@@ -347,27 +413,29 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+          for (int j = 0; j < kKeyTiles; ++j) s[i][j] = 0.f;
         }
       }
-      const float* qs = st;
-      const float* ks = st + kQBox;
+      const float* qs = Shape::kHoldQ ? qh + idx * kQBox : st;
+      const float* ks = st + Shape::kRBox - Shape::kKBox;
 #pragma unroll
       for (int kk = 0; kk < kBoxCols; kk += 4) {
         float4 a[8];
-        float4 bk[4];
+        float4 bk[kKeyTiles];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          a[i] = ld4(qs + (ty + 8 * i) * kBoxStride + kk);
+          a[i] = ld4(qs + (ty + kTy * i) * kBoxStride + kk);
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bk[j] = ld4(ks + (tx + 32 * j) * kBoxStride + kk);
+        for (int j = 0; j < kKeyTiles; ++j) {
+          bk[j] = ld4(ks + (tx + kTx * j) * kBoxStride + kk);
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], bk[j], s[i][j]);
+          for (int j = 0; j < kKeyTiles; ++j) {
+            s[i][j] = dot4(a[i], bk[j], s[i][j]);
+          }
         }
       }
       if (idx == n_sbox - 1) {
@@ -375,35 +443,40 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            pt[(tx + 32 * j) * kPStride + ty + 8 * i] = s[i][j];
+          for (int j = 0; j < kKeyTiles; ++j) {
+            pt[(tx + kTx * j) * kPStride + ty + kTy * i] = s[i][j];
           }
         }
         __syncthreads();
         const int k0 = kb * kKeys;
-        float x[kKeys / 4];
+        float x[kKeys / kParts];
         float tile_max = kNegInf;
 #pragma unroll
-        for (int e = 0; e < kKeys / 4; ++e) {
-          const int key = spart + 4 * e;
+        for (int e = 0; e < kKeys / kParts; ++e) {
+          const int key = spart + kParts * e;
           const int kj = k0 + key;
           const bool keep = kj < sk && (!causal || kj <= sqi);
           x[e] = keep ? pt[key * kPStride + srow] : kNegInf;
           tile_max = fmaxf(tile_max, x[e]);
         }
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+#pragma unroll
+        for (int lanes = 1; lanes < kParts; lanes *= 2) {
+          tile_max =
+              fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, lanes));
+        }
         const float m_new = fmaxf(m, tile_max);
         const float alpha = expf(m - m_new);
         float sum = 0.f;
 #pragma unroll
-        for (int e = 0; e < kKeys / 4; ++e) {
+        for (int e = 0; e < kKeys / kParts; ++e) {
           const float p = expf(x[e] - m_new);
-          pt[(spart + 4 * e) * kPStride + srow] = p;
+          pt[(spart + kParts * e) * kPStride + srow] = p;
           sum += p;
         }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+        for (int lanes = 1; lanes < kParts; lanes *= 2) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
+        }
         l = l * alpha + sum;
         m = m_new;
         if (spart == 0) alpha_s[srow] = alpha;
@@ -416,7 +489,7 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
         for (int i = 0; i < 8; ++i) {
           const float a = alpha_s[8 * ty + i];
 #pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] *= a;
+          for (int c = 0; c < kThreadCols; ++c) acc[i][c] *= a;
         }
       }
       const float* vs = st;
@@ -424,14 +497,18 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
 #pragma unroll 8
       for (int kk = 0; kk < kVKeys; ++kk) {
         float p[8];
-        float vv[8];
         unpack8(p, ld4(pb + kk * kPStride), ld4(pb + kk * kPStride + 4));
-        unpack8(vv, ld4(vs + kk * kCols + 4 * tx),
-                ld4(vs + kk * kCols + 4 * tx + 128));
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int j = 0; j < kThreadCols / 4; ++j) {
+          const float4 vv = ld4(vs + kk * kCols + 4 * tx + 4 * kTx * j);
 #pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+          for (int i = 0; i < 8; ++i) {
+            float* a = acc[i] + 4 * j;
+            a[0] = fmaf(p[i], vv.x, a[0]);
+            a[1] = fmaf(p[i], vv.y, a[1]);
+            a[2] = fmaf(p[i], vv.z, a[2]);
+            a[3] = fmaf(p[i], vv.w, a[3]);
+          }
         }
       }
     }
@@ -450,12 +527,12 @@ flash_fwd_wide_f32_kernel(const float* __restrict__ q,
     const float inv = inv_l_s[8 * ty + i];
     float* orow = o + ((size_t)bh * sq + row) * d;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = c0 + 4 * tx + 128 * j;
+    for (int j = 0; j < kThreadCols / 4; ++j) {
+      const int col = c0 + 4 * tx + 4 * kTx * j;
       if (col < d) {
+        const float* a = acc[i] + 4 * j;
         *reinterpret_cast<float4*>(orow + col) =
-            make_float4(acc[i][4 * j] * inv, acc[i][4 * j + 1] * inv,
-                        acc[i][4 * j + 2] * inv, acc[i][4 * j + 3] * inv);
+            make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
       }
     }
   }
@@ -1059,6 +1136,10 @@ flash_bwd_dq_wide_f32_kernel(const float* __restrict__ q,
 // a block, whose 256 floats of S, dP and dP's per-box partials a thread
 // spill (364 bytes) and ran 1.6x slower on an H100 (flash_ab.py --f32,
 // variant tiled_dq64_rows256).
+using FwdWide = FwdShape<64, 128, 256, 32, false>;   // 64 f32 of O a thread
+using FwdTiled64 = FwdShape<128, 128, 64, 128, true>;   // 32 a thread
+using FwdTiled128 = FwdShape<128, 128, 128, 32, true>;  // 64 a thread
+using FwdTiled256 = FwdShape<64, 128, 256, 32, true>;  // FwdWide, Q held
 using DkvWide = DkvShape<64, 256, 32>;       // 128 f32 of dK, dV a thread
 using DkvTiled64 = DkvShape<128, 64, 16>;    // 64 a thread, D <= 64
 using DkvTiled128 = DkvShape<64, 128, 32>;   // 64 a thread, D <= 128
@@ -1074,6 +1155,34 @@ bool bad_bwd_shape(int bh, int sq, int sk, int d, int dtype, long long rows,
                    long long slices) {
   return dtype != 0 || bh < 1 || sq < 1 || sk < 1 || d < 8 || d % 8 != 0 ||
          rows > 65535 || bh * slices > 0x7fffffffLL;
+}
+
+template <class Shape>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int batch, int hq, int hkv, int sq, int sk, int d,
+               float scale, int causal, int dtype, void* stream) {
+  const int n_qb = (sq + Shape::kRows - 1) / Shape::kRows;
+  const int n_slices = (d + Shape::kCols - 1) / Shape::kCols;
+  if (dtype != 0 || batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
+      sq < 1 || sk < 1 || d < 8 || d % 8 != 0 || n_qb > 65535 ||
+      (Shape::kHoldQ && n_slices != 1) ||
+      (long long)batch * hq * n_slices > 0x7fffffffLL || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(o)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_f32_kernel<Shape>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(batch * hq * n_slices, n_qb);
+  flash_fwd_wide_f32_kernel<Shape>
+      <<<grid, kThreads, Shape::kSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<float*>(lse), hq, hkv, sq, sk, d, n_slices, scale,
+          causal);
+  return (int)cudaGetLastError();
 }
 
 template <class Shape>
@@ -1144,25 +1253,8 @@ extern "C" int flash_attention_fwd_wide_f32(const void* q, const void* k,
                                             int hkv, int sq, int sk, int d,
                                             float scale, int causal,
                                             int dtype, void* stream) {
-  const int n_qb = (sq + fwd::kRows - 1) / fwd::kRows;
-  const int n_slices = (d + fwd::kCols - 1) / fwd::kCols;
-  if (dtype != 0 || batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
-      sq < 1 || sk < 1 || d < 8 || d % 8 != 0 || n_qb > 65535 ||
-      (long long)batch * hq * n_slices > 0x7fffffffLL || misaligned(q) ||
-      misaligned(k) || misaligned(v) || misaligned(o)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fwd::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(batch * hq * n_slices, n_qb);
-  flash_fwd_wide_f32_kernel<<<grid, kThreads, fwd::kSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, sk, d, n_slices, scale, causal);
-  return (int)cudaGetLastError();
+  return launch_fwd<FwdWide>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                             scale, causal, dtype, stream);
 }
 
 // q, dout [B*H, Sq, D], k, v, dk, dv [B*H, Sk, D] f32 (contiguous, 16-byte
@@ -1231,6 +1323,29 @@ extern "C" int flash_attention_bwd_dq_tiled_f32(
   if (d <= DqTiled256::kCols) {
     return launch_dq<DqTiled256>(q, k, v, o, dout, lse, dq, delta, bh, sq,
                                  sk, d, scale, causal, dtype, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The arguments of flash_attention_fwd_wide_f32, D a multiple of 8 up to
+// 256: the tiled instance whose columns reach D.
+extern "C" int flash_attention_fwd_tiled_f32(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int batch, int hq,
+                                             int hkv, int sq, int sk, int d,
+                                             float scale, int causal,
+                                             int dtype, void* stream) {
+  if (d <= FwdTiled64::kCols) {
+    return launch_fwd<FwdTiled64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
+                                  scale, causal, dtype, stream);
+  }
+  if (d <= FwdTiled128::kCols) {
+    return launch_fwd<FwdTiled128>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
+                                   d, scale, causal, dtype, stream);
+  }
+  if (d <= FwdTiled256::kCols) {
+    return launch_fwd<FwdTiled256>(q, k, v, o, lse, batch, hq, hkv, sq, sk,
+                                   d, scale, causal, dtype, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

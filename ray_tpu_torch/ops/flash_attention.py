@@ -3,39 +3,35 @@ versions (counterpart of ``ray_tpu/ops/flash_attention.py``).
 
 The forward replaces the Pallas ``_attn_kernel`` in both of its launches:
 ``_flash_forward`` (MHA) and ``_flash_forward_grouped`` (GQA, K/V at
-``n_kv_heads`` width). It has three kernels, picked by a rule of shapes
-(``_forward_variant``): bf16 and f16 at every head_dim that is a multiple
-of 8 up to 256 run on the tensor cores
-(``csrc/flash_attention_fwd_wgmma.cu``: TMA, wgmma, warp specialisation;
-instantiated at head_dim 64, 128 and 256, a narrower head_dim running the
-next one up with its columns past D zero-filled by TMA); f32 up to
-head_dim 256 runs on the CUDA cores (``csrc/flash_attention_fwd.cu``),
-whose f32 arithmetic the f32 limits rest on. No variant gives way to
-another on an error: the wrapper raises. The backward kernels, dQ and
-dK/dV, replace ``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
-``_flash_bwd_rule`` launches, by a rule of their own
-(``_backward_variant``): bf16 and f16 up to head_dim 256 on the tensor
-cores (``csrc/flash_attention_bwd_wgmma.cu``, whose dQ kernel also writes
-delta = rowsum(dO * O) for its dK/dV kernel), f32 up to head_dim 256 on
-the CUDA cores as the ``"tiled_f32"`` pair (``csrc/flash_attention_wide_
-f32.cu``'s dQ and dK/dV templates at instances whose block covers all of
-D: register-tiled f32 FMAs fed by a cp.async ring; a backward-only
-variant: the f32 forward there stays ``"simt"``). Above head_dim 256 the
-kernels split the head dimension of their output across blocks: bf16 and
-f16 up to head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"``
-kernels on the tensor cores (``csrc/flash_attention_wide_wgmma.cu``: 256
-columns of O, of dQ and 128 of dK/dV a block, the score reduction
-streamed over D in 64-column TMA boxes); f32 at every multiple of 8 above
-256 takes the ``"wide_f32"`` kernels on the CUDA cores
-(``csrc/flash_attention_wide_f32.cu``: 256 columns of O, 512 of dQ and
-256 of dK and dV a block). Every dQ kernel but ``"wide"``'s writes delta
-for its dK/dV kernel. bf16/f16 above 1024 take the ``"wide"`` variant,
-all three kernels on the CUDA cores in ``csrc/flash_attention_wide.cu``
-(64-column chunks, any multiple of 8). So dQ and dK/dV share a variant,
-the forward's everywhere but in f32 up to 256. The earlier f32 pair up
-to 256 (``csrc/flash_attention_bwd.cu``) stays, reached by no rule. A
-wrapper launches its kernel for CUDA tensors and raises on what it does
-not take; it runs a plain version only for tensors on the CPU.
+``n_kv_heads`` width); the backward kernels, dQ and dK/dV, replace
+``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``, which
+``_flash_bwd_rule`` launches. One rule of shapes (``_forward_variant``)
+picks the variant of all three kernels. bf16 and f16 at every head_dim
+that is a multiple of 8 up to 256 run on the tensor cores
+(``"wgmma"``: ``csrc/flash_attention_fwd_wgmma.cu`` and ``csrc/flash_
+attention_bwd_wgmma.cu``, TMA, wgmma, warp specialisation; instantiated
+at head_dim 64, 128 and 256, a narrower head_dim running the next one up
+with its columns past D zero-filled by TMA). f32 up to head_dim 256 runs
+on the CUDA cores as ``"tiled_f32"``: the forward, dQ and dK/dV templates
+of ``csrc/flash_attention_wide_f32.cu`` at instances whose block covers
+all of D (register-tiled f32 FMAs fed by a cp.async ring), whose f32
+arithmetic the f32 limits rest on. Above head_dim 256 the kernels split
+the head dimension of their output across blocks: bf16 and f16 up to
+head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"`` kernels on
+the tensor cores (``csrc/flash_attention_wide_wgmma.cu``: 256 columns of
+O, of dQ and 128 of dK/dV a block, the score reduction streamed over D in
+64-column TMA boxes); f32 at every multiple of 8 above 256 takes the
+``"wide_f32"`` kernels on the CUDA cores (the wide instances of the same
+templates: 256 columns of O, 512 of dQ and 256 of dK and dV a block);
+bf16/f16 above 1024 take the ``"wide"`` variant, all three kernels on the
+CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column chunks, any
+multiple of 8). Every dQ kernel but ``"wide"``'s writes delta =
+rowsum(dO * O) for its dK/dV kernel. The earlier f32 kernels up to 256,
+``"simt"`` (``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``), stay, reached by no rule. No variant
+gives way to another on an error: a wrapper launches its kernel for CUDA
+tensors and raises on what it does not take; it runs a plain version only
+for tensors on the CPU.
 
 The forward kernels round where the reference's ``_attn_kernel`` does:
 q * scale in q's dtype (the scale itself rounded to that dtype first, as
@@ -71,7 +67,9 @@ NEG_INF = -1e30
 # (callers reset them to 0 around the run they want to attribute).
 launches = 0        # forward, every variant
 wgmma_launches = 0  # forward on the tensor cores (bf16/f16, D <= 256)
-simt_launches = 0   # forward on the CUDA cores (f32, D <= 256)
+tiled_f32_launches = 0    # forward on the CUDA cores (f32, D <= 256)
+simt_launches = 0   # the earlier f32 forward (D <= 256), reached by no
+                    # rule: stays 0 on every path
 wide_launches = 0   # forward with D above 256 on the CUDA cores (bf16/f16)
 wide_wgmma_launches = 0   # forward with D above 256 on the tensor cores
 wide_f32_launches = 0     # forward with D above 256 in f32
@@ -91,7 +89,7 @@ dq_wide_f32_launches = 0      # backward with D above 256 in f32
 dkv_wide_f32_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
-SIMT_MAX_D = 256   # the widest head_dim of the "simt" and "wgmma" kernels
+SIMT_MAX_D = 256   # the widest head_dim of the "tiled_f32" and "wgmma" kernels
 WIDE_WGMMA_MAX_D = 1024   # the widest head_dim of the "wide_wgmma" kernels
 MIN_KERNEL_LEN = 8   # a shorter Sq or Sk takes the plain path (reference)
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
@@ -129,16 +127,18 @@ _SIGNATURES = {
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_bwd_dkv_wide_f32"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+    ("flash_attention_wide_f32", "flash_attention_fwd_tiled_f32"):
+        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_bwd_dq_tiled_f32"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_f32", "flash_attention_bwd_dkv_tiled_f32"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
 }
 # Each variant's kernels: (forward library, backward library, suffix of
-# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv); a
-# backward-only variant names no forward library. The dK/dV kernels of
-# _READS_DELTA read delta from the dQ kernel of their variant. "simt"'s
-# backward pair is reached by no rule (chip_smoke.py still calls it).
+# their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
+# dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their
+# variant. "simt"'s kernels are reached by no rule (chip_smoke.py still
+# calls them).
 _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                         "flash_attention_bwd_wgmma", "_wgmma"),
               "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
@@ -148,7 +148,8 @@ _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                              "flash_attention_wide_wgmma", "_wide_wgmma"),
               "wide_f32": ("flash_attention_wide_f32",
                            "flash_attention_wide_f32", "_wide_f32"),
-              "tiled_f32": (None, "flash_attention_wide_f32", "_tiled_f32")}
+              "tiled_f32": ("flash_attention_wide_f32",
+                            "flash_attention_wide_f32", "_tiled_f32")}
 # dK/dV variants that take delta in place of O.
 _READS_DELTA = ("wgmma", "wide_wgmma", "wide_f32", "tiled_f32")
 _bound = {}
@@ -329,43 +330,29 @@ def take_route(dtype: torch.dtype, D: int, Sq: Optional[int] = None,
 
 
 def _forward_variant(dtype: torch.dtype, D: int) -> str:
-    """Which forward kernel takes a CUDA input: ``"wgmma"`` (tensor cores)
-    for bf16 and f16 at every multiple of 8 up to ``SIMT_MAX_D`` (the
-    kernel's template widths are 64, 128 and 256; a narrower head_dim runs
-    the next one up, zero-padded); ``"wide_wgmma"`` (tensor cores, 256
-    columns of O per block) for bf16 and f16 above it up to
-    ``WIDE_WGMMA_MAX_D``, the most whose Q rows fit a block's shared memory
-    (128 KB: 128 rows at D = 512, 64 rows at D = 1024); ``"wide"`` (CUDA
-    cores, 64 columns of O per block, any width) for bf16 and f16 above
-    ``WIDE_WGMMA_MAX_D``; ``"wide_f32"`` (CUDA cores, 256 columns of O per
-    block, any width) for f32 above ``SIMT_MAX_D``; ``"simt"`` (CUDA
-    cores) for f32 up to ``SIMT_MAX_D``. f32 stays off the tensor cores at
-    every width because TF32 products would break its limit
-    (``testing.O_ROW_TOL``). A head_dim that is no multiple of 8 gets a
-    variant whose wrapper raises (``_attention_route`` sends it to the
+    """Which kernels, the forward and the backward's dQ and dK/dV alike,
+    take a CUDA input: ``"wgmma"`` (tensor cores) for bf16 and f16 at
+    every multiple of 8 up to ``SIMT_MAX_D`` (the kernels' template widths
+    are 64, 128 and 256; a narrower head_dim runs the next one up,
+    zero-padded); ``"wide_wgmma"`` (tensor cores, 256 columns of O per
+    block) for bf16 and f16 above it up to ``WIDE_WGMMA_MAX_D``, the most
+    whose Q rows fit a block's shared memory (128 KB: 128 rows at D = 512,
+    64 rows at D = 1024); ``"wide"`` (CUDA cores, 64 columns of O per
+    block, any width) for bf16 and f16 above ``WIDE_WGMMA_MAX_D``;
+    ``"wide_f32"`` (CUDA cores, 256 columns of O per block, any width) for
+    f32 above ``SIMT_MAX_D``; ``"tiled_f32"`` (CUDA cores, one block
+    across all of D) for f32 up to ``SIMT_MAX_D``. f32 stays off the
+    tensor cores at every width because TF32 products would break its
+    limits (``testing.O_ROW_TOL``, ``GRAD_ROW_TOL``). A head_dim that is no
+    multiple of 8, or a dtype no kernel takes, gets a variant whose
+    wrapper raises (``_attention_route`` sends such a head_dim to the
     plain path first)."""
     wgmma = dtype in WGMMA_DTYPES and D % 8 == 0
     if D > SIMT_MAX_D:
         if dtype == torch.float32:
             return "wide_f32"
         return "wide_wgmma" if wgmma and D <= WIDE_WGMMA_MAX_D else "wide"
-    return "wgmma" if wgmma else "simt"
-
-
-def _backward_variant(dtype: torch.dtype, D: int,
-                      kernel: Optional[str] = None) -> str:
-    """Which backward kernel, ``kernel`` = ``"dq"``, ``"dkv"`` or None
-    (both), takes a CUDA input, for dQ and dK/dV alike: ``"tiled_f32"``
-    (CUDA cores, one block across all of D) for f32 up to ``SIMT_MAX_D``,
-    where the forward takes ``"simt"``; everywhere else the forward's
-    rule. f32 stays on f32 products at every width
-    (``testing.GRAD_ROW_TOL``'s f32 limit and the f32 gradient checks rest
-    on them)."""
-    if kernel not in (None, "dq", "dkv"):
-        raise ValueError(f"kernel is 'dq' or 'dkv', got {kernel!r}")
-    if dtype == torch.float32 and D <= SIMT_MAX_D:
-        return "tiled_f32"
-    return _forward_variant(dtype, D)
+    return "wgmma" if wgmma else "tiled_f32"
 
 
 def _check_launch(name, err):
@@ -376,8 +363,8 @@ def _check_launch(name, err):
 
 
 def _launch(q, k, v, causal, scale):
-    global launches, wgmma_launches, simt_launches, wide_launches
-    global wide_wgmma_launches, wide_f32_launches
+    global launches, wgmma_launches, tiled_f32_launches, simt_launches
+    global wide_launches, wide_wgmma_launches, wide_f32_launches
     _check_kernel_inputs((q, k, v), "q, k, v")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -392,17 +379,22 @@ def _launch(q, k, v, causal, scale):
     name = "flash_attention_fwd" + suffix
     err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)
     _check_launch(name, err)
-    launches += 1
     if variant == "wgmma":
         wgmma_launches += 1
+    elif variant == "tiled_f32":
+        tiled_f32_launches += 1
     elif variant == "wide_wgmma":
         wide_wgmma_launches += 1
     elif variant == "wide_f32":
         wide_f32_launches += 1
     elif variant == "wide":
         wide_launches += 1
-    else:
+    elif variant == "simt":
         simt_launches += 1
+    else:
+        raise RuntimeError(f"no launch count for the forward kernel of "
+                           f"variant {variant!r}")
+    launches += 1
     return o, lse
 
 
@@ -445,7 +437,7 @@ def _launch_dq(q, k, v, o, lse, do, causal, scale):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr())
     D = q.shape[-1]
-    variant = _backward_variant(q.dtype, D, "dq")
+    variant = _forward_variant(q.dtype, D)
     _, library, suffix = _LIBRARIES[variant]
     name = "flash_attention_bwd_dq" + suffix
     delta = None
@@ -489,7 +481,7 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, scale):
     do, scalars, stream = _backward_args(q, k, v, o, lse, do, causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    variant = _backward_variant(q.dtype, q.shape[-1], "dkv")
+    variant = _forward_variant(q.dtype, q.shape[-1])
     _, library, suffix = _LIBRARIES[variant]
     name = "flash_attention_bwd_dkv" + suffix
     if variant in _READS_DELTA:
@@ -582,7 +574,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q/k/v: [B, H, S, D] -> [B, H, S, D] (matched head counts; GQA
     repeat-expands K/V first). Differentiable: the backward runs the dQ
-    and dK/dV kernels of ``_backward_variant`` on CUDA tensors. A call
+    and dK/dV kernels of ``_forward_variant`` on CUDA tensors. A call
     that ``_attention_route`` sends to the plain path (head_dim no
     multiple of 8, or a length under 8) returns ``_fallback``,
     differentiable by autograd."""

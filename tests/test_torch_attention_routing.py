@@ -54,16 +54,15 @@ def test_attention_route_rule(D, dtype):
             else "wide" if D > 1024
             else "wide_wgmma" if D > 256
             else "wgmma" if dt != torch.float32
-            else "simt")
+            else "tiled_f32")
     assert fa._attention_route(dt, D) == want
     before = fa.plain_routes
     assert fa.take_route(dt, D) == want
     assert fa.plain_routes - before == (want == "plain")
-    # The backward pair takes the forward's variant, but f32 up to 256
-    # takes the tiled f32 pair (the forward stays "simt").
+    # The backward pair takes the forward's variant: one rule for both
+    # directions (f32 up to 256: the tiled f32 forward and pair).
     if want != "plain":
-        assert fa._backward_variant(dt, D) == (
-            "tiled_f32" if want == "simt" else want)
+        assert fa._forward_variant(dt, D) == want
 
 
 @pytest.mark.parametrize("sq,sk", [(4, 16), (16, 5), (7, 7), (1, 1),

@@ -57,8 +57,8 @@ def _f32(x):
 
 
 def _launches():
-    return (fa.launches, fa.wgmma_launches, fa.simt_launches,
-            fa.wide_launches)
+    return (fa.launches, fa.wgmma_launches, fa.tiled_f32_launches,
+            fa.simt_launches, fa.wide_launches)
 
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16],
@@ -108,10 +108,9 @@ def test_dense_rounding_reads_the_fault_in_bf16(D):
 def test_every_bf16_f16_head_dim_up_to_256_takes_the_tensor_cores(D):
     for dtype in (torch.bfloat16, torch.float16):
         assert fa._forward_variant(dtype, D) == "wgmma"
-        assert fa._backward_variant(dtype, D) == "wgmma"
         assert fa._attention_route(dtype, D) == "wgmma"
-    assert fa._forward_variant(torch.float32, D) == "simt"
-    assert fa._backward_variant(torch.float32, D) == "tiled_f32"
+    assert fa._forward_variant(torch.float32, D) == "tiled_f32"
+    assert fa._attention_route(torch.float32, D) == "tiled_f32"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -135,7 +135,7 @@ def test_dense_backward_matches_pallas_interpret_vjp(dtype, D, causal):
     before = _launches()
     grads = fa._flash_backward(tq, tk, tv, o, lse, tdo, causal, D ** -0.5)
     assert _launches() == before
-    assert fa._backward_variant(tq.dtype, D) == "wgmma"
+    assert fa._forward_variant(tq.dtype, D) == "wgmma"
     for name, r, g in zip(("dq", "dk", "dv"), ref, grads):
         assert g.dtype == TORCH[dtype], name
         r32 = _f32(r)

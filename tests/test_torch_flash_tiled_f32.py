@@ -1,8 +1,13 @@
-"""The plain backward that the card holds the f32 backward pair up to
-head_dim 256 against (``"tiled_f32"``, ``csrc/flash_attention_wide_f32.cu``;
-its rule of shapes is pinned in tests/test_torch_flash_any_dim.py,
-test_torch_forward_variant.py and test_torch_attention_routing.py), on
-the CPU.
+"""The plain versions that the card holds the f32 forward and backward
+pair up to head_dim 256 against (``"tiled_f32"``,
+``csrc/flash_attention_wide_f32.cu``; its rule of shapes is pinned in
+tests/test_torch_flash_any_dim.py, test_torch_forward_variant.py and
+test_torch_attention_routing.py), on the CPU.
+
+``_dense_kernel`` in f32 (what the f32 forward runs on a CPU tensor) is
+held against the reference's ``_flash_forward`` and
+``_flash_forward_grouped`` (the Pallas ``_attn_kernel`` in interpret mode)
+at head_dim 64, 128 and 256, MHA and GQA, causal and not.
 
 ``_dense_backward`` in f32 is held against ``jax.vjp`` of the reference's
 ``flash_attention`` (its ``_flash_bwd_rule``: the dQ and dK/dV Pallas
@@ -115,3 +120,54 @@ def test_dense_backward_f32_matches_pallas_interpret_vjp(D, offsets, causal):
         else:
             rel = np.abs(r - g.numpy()).max() / np.abs(r).max()
             assert rel <= BWD_REL, (name, rel)
+
+
+# Forward, f32: the port's plain version with the kernels' rounding points
+# (``_dense_kernel``: f32 scores, -1e30 masking, the row's maximum taken at
+# once) against the reference's online softmax, one 32-key block at a
+# time. Both are f32 throughout; they differ in summation order and in the
+# running maximum that each p is taken against, each rounding at ~1e-7 of
+# its terms: O as max|port - ref| over the largest |ref| within FWD_REL,
+# LSE per element within FWD_REL * (|lse| + 1).
+FWD_REL = 1e-5
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("grouped", [False, True], ids=["mha", "gqa"])
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_forward_matches_pallas_interpret(D, grouped, Sq, Sk, causal):
+    """The f32 forward that the card runs as the tiled f32 kernel: on the
+    CPU it is ``_dense_kernel`` (no launch counted), held against the
+    reference's ``_flash_forward`` (MHA: O and LSE) and
+    ``_flash_forward_grouped`` (GQA, 4 query heads over 2 KV heads: O) in
+    Pallas interpret mode."""
+    Hq, Hkv = (4, 2) if grouped else (H, H)
+    rng = np.random.default_rng(11 * D + 3 * grouped + Sq + causal)
+    q = rng.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32)
+            for _ in range(2))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = _launches() + (fa.tiled_f32_launches, fa.simt_launches)
+    o, lse = fa._flash_forward(tq, tk, tv, causal)
+    assert _launches() + (fa.tiled_f32_launches, fa.simt_launches) == before
+    assert fa._forward_variant(tq.dtype, D) == "tiled_f32"
+    ro, rlse = fa._dense_kernel(tq, tk, tv, causal, D ** -0.5)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    if grouped:
+        ref = jax_fa._flash_forward_grouped(jq, jk, jv, causal, D ** -0.5,
+                                            BLOCK, BLOCK, True)
+        ref_lse = None   # the grouped launch returns O only
+    else:
+        ref, ref_lse = jax_fa._flash_forward(jq, jk, jv, causal, D ** -0.5,
+                                             BLOCK, BLOCK, True)
+        ref_lse = np.asarray(ref_lse[:, :, 0])
+    ref = np.asarray(ref)
+    assert o.dtype == torch.float32
+    rel = np.abs(o.numpy() - ref).max() / np.abs(ref).max()
+    assert rel <= FWD_REL, rel
+    if ref_lse is not None:
+        err = np.abs(lse.numpy() - ref_lse) / (np.abs(ref_lse) + 1)
+        assert err.max() <= FWD_REL, err.max()

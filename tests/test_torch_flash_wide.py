@@ -82,9 +82,11 @@ def test_wide_rule_of_shapes(dtype, D):
     assert fa._forward_variant(dtype, D) == fwd
     assert fa._attention_route(dtype, D) == fwd
     assert fa._attention_route(dtype, D, 8, 8) == fwd
-    assert fa._backward_variant(dtype, D, "dq") == fwd
-    assert fa._backward_variant(dtype, D, "dkv") == fwd
-    assert fa._backward_variant(dtype, D) == fwd
+    # dQ and dK/dV run the same variant's kernels (one rule).
+    _, bwd_library, suffix = fa._LIBRARIES[fwd]
+    for kind in ("dq", "dkv"):
+        assert (bwd_library, f"flash_attention_bwd_{kind}{suffix}") \
+            in fa._SIGNATURES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -94,22 +96,22 @@ def test_dq_follows_the_forward_variant(dtype, D):
     """dQ's variant is the forward's at every wide head_dim, and its
     entry point is that variant's own (no variant borrows another's dQ);
     a variant whose dK/dV reads delta gets it from that dQ."""
-    variant = fa._backward_variant(dtype, D, "dq")
-    assert variant == fa._forward_variant(dtype, D)
+    variant = fa._forward_variant(dtype, D)
     _, library, suffix = fa._LIBRARIES[variant]
     key = (library, "flash_attention_bwd_dq" + suffix)
     assert key in fa._SIGNATURES
-    assert library == fa._LIBRARIES[fa._backward_variant(dtype, D, "dkv")][1]
+    assert (library, "flash_attention_bwd_dkv" + suffix) in fa._SIGNATURES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 256])
 def test_backward_kernels_share_the_variant_up_to_256(dtype, D):
     want = "tiled_f32" if dtype == torch.float32 else "wgmma"
-    for kernel in (None, "dq", "dkv"):
-        assert fa._backward_variant(dtype, D, kernel) == want
-    with pytest.raises(ValueError, match="'dq' or 'dkv'"):
-        fa._backward_variant(torch.bfloat16, 512, "dk")
+    assert fa._forward_variant(dtype, D) == want
+    _, bwd_library, suffix = fa._LIBRARIES[want]
+    for kind in ("dq", "dkv"):
+        assert (bwd_library, f"flash_attention_bwd_{kind}{suffix}") \
+            in fa._SIGNATURES
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)

@@ -33,19 +33,20 @@ LSE_ATOL = 3e-2
 
 RULE = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
         (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 40, "wgmma"),
-        (torch.bfloat16, 96, "wgmma"), (torch.float32, 64, "simt"),
-        (torch.float32, 128, "simt")]
+        (torch.bfloat16, 96, "wgmma"), (torch.float32, 64, "tiled_f32"),
+        (torch.float32, 128, "tiled_f32")]
 
 
 @pytest.mark.parametrize("dtype,D,variant", RULE)
 def test_forward_variant_rule(dtype, D, variant):
     """Tensor cores for bf16 at every multiple of 8 up to 256 (the kernel's
     instances of width 64, 128 and 256, zero-padded between them); f32
-    stays on the CUDA cores (TF32 would break its limit)."""
+    stays on the CUDA cores, the tiled f32 kernels (TF32 would break its
+    limit)."""
     assert fa._forward_variant(dtype, D) == variant
 
 
-# The backward pair (dQ and dK/dV): the forward's rule, but f32 up to 256
+# The backward pair (dQ and dK/dV): the forward's rule; f32 up to 256
 # takes the tiled f32 pair (CUDA cores, f32 products: its limit
 # GRAD_ROW_TOL and the f32 gradient checks rest on them).
 BACKWARD_RULE = [(dtype, D, "tiled_f32" if dtype == torch.float32 else v)
@@ -54,16 +55,19 @@ BACKWARD_RULE = [(dtype, D, "tiled_f32" if dtype == torch.float32 else v)
 
 @pytest.mark.parametrize("dtype,D,variant", BACKWARD_RULE)
 def test_backward_variant_rule(dtype, D, variant):
-    """The backward pair (dQ and dK/dV) follows the forward's rule for
-    bf16; f32 takes the tiled f32 pair, while its forward stays on the
-    CUDA-core kernel ("simt")."""
-    assert fa._backward_variant(dtype, D) == variant
-    if dtype == torch.float32:
-        assert fa._forward_variant(dtype, D) == "simt"
+    """The backward pair (dQ and dK/dV) runs the kernels of the forward's
+    variant, one rule for both directions: f32 the tiled f32 forward and
+    pair, bf16 the tensor cores."""
+    assert fa._forward_variant(dtype, D) == variant
+    _, library, suffix = fa._LIBRARIES[variant]
+    for kind in ("dq", "dkv"):
+        assert (library, f"flash_attention_bwd_{kind}{suffix}") \
+            in fa._SIGNATURES
 
 
 def _counts():
-    return fa.launches, fa.wgmma_launches, fa.simt_launches
+    return (fa.launches, fa.wgmma_launches, fa.tiled_f32_launches,
+            fa.simt_launches)
 
 
 @pytest.mark.parametrize("D", [64, 128])

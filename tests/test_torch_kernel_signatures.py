@@ -73,14 +73,12 @@ def _param_names(library, function):
 
 @pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
 def test_variant_names_entry_points_that_exist(variant):
-    """The forward (where the variant has one: ``"tiled_f32"`` is a
-    backward-only pair), dQ and dK/dV entry points of a variant, each in
-    the variant's own libraries; a dK/dV kernel of ``_READS_DELTA`` takes
-    delta and no O, the others O and no delta."""
+    """The forward, dQ and dK/dV entry points of a variant (every variant
+    has all three), each in the variant's own libraries; a dK/dV kernel of
+    ``_READS_DELTA`` takes delta and no O, the others O and no delta."""
     fwd_lib, bwd_lib, suffix = fa._LIBRARIES[variant]
-    assert (fwd_lib is None) == (variant == "tiled_f32")
-    if fwd_lib is not None:
-        assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
+    assert fwd_lib is not None
+    assert (fwd_lib, "flash_attention_fwd" + suffix) in ENTRY_POINTS
     dkv = (bwd_lib, "flash_attention_bwd_dkv" + suffix)
     assert dkv in ENTRY_POINTS
     assert (bwd_lib, "flash_attention_bwd_dq" + suffix) in ENTRY_POINTS
@@ -95,9 +93,8 @@ def test_variant_dq_entry_point_takes_delta(variant):
     """Every variant's dQ entry point exists in its own backward library
     and takes O and dO; it takes a delta buffer wherever its dK/dV kernel
     reads delta, and so do all the wide ones ("wide"'s takes null). Only
-    the earlier f32 CUDA-core pair up to 256 ("simt"'s, which the
-    backward rule no longer reaches) computes delta in both kernels and
-    passes none."""
+    the earlier f32 CUDA-core pair up to 256 ("simt"'s, which the rule
+    no longer reaches) computes delta in both kernels and passes none."""
     _, bwd_lib, suffix = fa._LIBRARIES[variant]
     key = (bwd_lib, "flash_attention_bwd_dq" + suffix)
     assert key in ENTRY_POINTS and key in fa._SIGNATURES
@@ -109,13 +106,14 @@ def test_variant_dq_entry_point_takes_delta(variant):
 
 
 def test_every_backward_variant_of_the_rule_names_its_entry_points():
-    """Each variant ``_backward_variant`` can return, at every head_dim
-    that is a multiple of 8 up to 2048 in each dtype, is in
-    ``_LIBRARIES`` with its dQ and dK/dV entry points: f32 up to 256
-    the backward-only ``"tiled_f32"`` pair, never ``"simt"``'s."""
+    """Each variant ``_forward_variant`` (the rule of the forward and the
+    backward alike) can return, at every head_dim that is a multiple of 8
+    up to 2048 in each dtype, is in ``_LIBRARIES`` with its dQ and dK/dV
+    entry points: f32 up to 256 the ``"tiled_f32"`` pair, never
+    ``"simt"``'s."""
     import torch
 
-    seen = {fa._backward_variant(dtype, D)
+    seen = {fa._forward_variant(dtype, D)
             for dtype in (torch.float32, torch.bfloat16, torch.float16)
             for D in range(8, 2049, 8)}
     assert seen == {"tiled_f32", "wgmma", "wide_f32", "wide_wgmma", "wide"}
@@ -124,6 +122,21 @@ def test_every_backward_variant_of_the_rule_names_its_entry_points():
         for kind in ("dq", "dkv"):
             assert (bwd_lib, f"flash_attention_bwd_{kind}{suffix}") \
                 in ENTRY_POINTS
+
+
+@pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))
+def test_variant_counts_its_forward_launches_under_its_name(variant):
+    """``_launch`` counts each variant's forward launches in its own
+    counter (``<variant>_launches``), under a branch of its own: no
+    variant is counted as another's, and an unknown one raises."""
+    import inspect
+
+    counter = f"{variant}_launches"
+    assert getattr(fa, counter) >= 0
+    source = inspect.getsource(fa._launch)
+    assert re.search(r'variant == "' + variant + r'":\n\s+' + counter
+                     + r" \+= 1", source), variant
+    assert "raise RuntimeError" in source.split(counter)[-1]
 
 
 @pytest.mark.parametrize("variant", sorted(fa._LIBRARIES))

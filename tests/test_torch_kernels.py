@@ -55,9 +55,8 @@ _qkv = seeded_qkv
 
 
 # Head dims up to 256 in each dtype, through the kernel of the rule: f32
-# and the widths the tensor cores do not take on the CUDA-core kernel (D
-# 200 and 256 need more than the 48 KB default of dynamic shared memory),
-# bf16 and f16 at 64, 128 and 256 on the tensor-core one.
+# on the tiled f32 kernel (CUDA cores), bf16 and f16 on the tensor-core
+# one (a width between 64, 128 and 256 on the next instance up).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -146,8 +145,9 @@ def test_flash_wgmma_kernel_matches_plain(cuda_device, dtype, D, Hq, Hkv,
 
 
 def _forward_counts():
-    return {"wgmma": fa.wgmma_launches, "simt": fa.simt_launches,
-            "wide": fa.wide_launches, "wide_wgmma": fa.wide_wgmma_launches,
+    return {"wgmma": fa.wgmma_launches, "tiled_f32": fa.tiled_f32_launches,
+            "simt": fa.simt_launches, "wide": fa.wide_launches,
+            "wide_wgmma": fa.wide_wgmma_launches,
             "wide_f32": fa.wide_f32_launches}
 
 
@@ -212,10 +212,10 @@ def test_flash_wgmma_zero_fills_past_head_dim(cuda_device, dtype, D, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
-    (torch.float32, 64, "simt"), (torch.float16, 64, "wgmma"),
+    (torch.float32, 64, "tiled_f32"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide_f32"),
     (torch.bfloat16, 512, "wide_wgmma"), (torch.float16, 256, "wgmma"),
-    (torch.float16, 200, "wgmma"), (torch.float32, 256, "simt"),
+    (torch.float16, 200, "wgmma"), (torch.float32, 256, "tiled_f32"),
     (torch.float16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
@@ -480,6 +480,131 @@ def test_flash_wide_dq_kernels_refuse_what_they_do_not_take(cuda_device):
                       stream) == 1
             assert fn(*p, lse.data_ptr(), 2, 64, 64, 1032, 0.1, 1, code,
                       stream) == 1
+
+
+# The f32 forward up to head_dim 256 ("tiled_f32": the forward template
+# of flash_attention_wide_f32.cu at instances whose block covers all of
+# D), through _flash_forward: the instances' widths (64, 128, 256) and
+# widths between them (8: the 64-column instance, one 32-column box a
+# quarter full; 96: the 128-column one, its last box wholly past D; 200:
+# the 256-column one, the last box 8 columns in), MHA and GQA down to one
+# KV head, lengths that fill the tiles, ragged ones, Sq < Sk and the
+# training length, causal and not: O and LSE against the plain version
+# with the kernels' rounding points; a dropped 64-key tile of V in the
+# plain version must read above the limit.
+TILED_F32_FWD_DIMS = [8, 64, 96, 128, 200, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", TILED_F32_FWD_DIMS)
+@pytest.mark.parametrize("Hkv", [8, 4, 1])
+@pytest.mark.parametrize("Sq,Sk", [(128, 128), (200, 200), (77, 131),
+                                   (2048, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_f32_forward_matches_plain(cuda_device, D, Hkv, Sq, Sk,
+                                               causal):
+    B = 1 if Sq == 2048 else 2
+    scale = D ** -0.5
+    q, k, v = _qkv(40, B, 8, Hkv, Sq, Sk, D, torch.float32, cuda_device)
+    before = _forward_counts()
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = _forward_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "tiled_f32") for n in after}
+    assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    ro, rlse = fa._dense_kernel(q, k, v, causal, scale)
+    _assert_close(o, lse, ro, rlse)
+    t0 = 64 * ((Sk // 2) // 64)
+    v_fault = v.clone()
+    v_fault[:, :, t0:t0 + 64] = 0
+    fo = fa._dense_kernel(q, k, v_fault, causal, scale)[0]
+    fault = ((fo - ro).abs().amax(-1)
+             / ro.abs().amax(-1).clamp_min(1e-30)).max().item()
+    assert fault > O_ROW_TOL[torch.float32], fault
+
+
+# The tiled f32 forward on rows offset by +-1.5 in turn (as
+# test_flash_wgmma_zero_fills_past_head_dim): a copy that read past column
+# D into the next row, or a store past it, would move every score of the
+# row far outside the limits. GQA over 2 KV heads.
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 96, 200, 248])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_f32_forward_zero_fills_past_head_dim(cuda_device, D,
+                                                          causal):
+    q, k, v = (_row_offsets(t) for t in _qkv(
+        41, 2, 4, 2, 200, 200, D, torch.float32, cuda_device))
+    before = fa.tiled_f32_launches
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.tiled_f32_launches == before + 1
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+
+
+def _f32_forward_entry(name, q, k, v, causal):
+    """(O, LSE) of an f32 forward C entry point of the f32 library (or of
+    flash_attention_fwd.cu's, for the earlier kernel), counting no
+    launch."""
+    B, Hq, Sq, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = (fa._LIBRARIES["simt"][0] if name == "flash_attention_fwd"
+           else fa._LIBRARIES["tiled_f32"][0])
+    err = fa._kernel_fn(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D, D ** -0.5,
+        int(causal), 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return o, lse
+
+
+# At head_dim 256 the tiled forward is the wide instance's shape and
+# order of operations with Q held in shared memory rather than streamed
+# again for every key tile: the two entry points agree bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_f32_forward_at_256_equals_the_wide_instance(
+        cuda_device, causal):
+    q, k, v = _qkv(42, 2, 4, 2, 200, 131, 256, torch.float32, cuda_device)
+    tiled = _f32_forward_entry("flash_attention_fwd_tiled_f32", q, k, v,
+                               causal)
+    wide = _f32_forward_entry("flash_attention_fwd_wide_f32", q, k, v,
+                              causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(tiled, wide))
+
+
+# The earlier f32 forward (flash_attention_fwd.cu, reached by no rule
+# since the tiled one took f32) still holds against the plain version:
+# chip_smoke.py times it beside the tiled one.
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_simt_f32_forward_still_matches_plain(cuda_device, D, causal):
+    q, k, v = _qkv(43, 2, 4, 2, 77, 131, D, torch.float32, cuda_device)
+    o, lse = _f32_forward_entry("flash_attention_fwd", q, k, v, causal)
+    torch.cuda.synchronize()
+    _assert_close(o, lse, *fa._dense_kernel(q, k, v, causal, D ** -0.5))
+
+
+@pytest.mark.cuda
+def test_flash_tiled_f32_forward_refuses_what_it_does_not_take(cuda_device):
+    """A head_dim above 256 or no multiple of 8, another dtype, a query
+    head count that the KV heads do not divide: cudaErrorInvalidValue (1),
+    no launch."""
+    fn = fa._kernel_fn(fa._LIBRARIES["tiled_f32"][0],
+                       "flash_attention_fwd_tiled_f32")
+    stream = torch.cuda.current_stream().cuda_stream
+    for D, code, hkv in ((264, 0, 2), (60, 0, 2), (64, 1, 2), (64, 0, 3)):
+        q, k, v = _qkv(44, 1, 2, 2, 64, 64, max(D, 64), torch.float32,
+                       cuda_device)
+        lse = torch.empty((1, 2, 64), device=cuda_device)
+        o = torch.empty_like(q)
+        assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), 1, 2, hkv, 64, 64, D, 0.1, 1, code,
+                  stream) == 1
 
 
 # The f32 backward pair up to head_dim 256 ("tiled_f32": the dQ and dK/dV
