@@ -14,9 +14,10 @@ non-zero without printing a result. Without a CUDA card, or without the
    libraries no rule reaches with nvcc's split compilation), in parallel,
    with ptxas's registers and spills per kernel; the SASS of
    every tensor-core kernel instantiation (bf16 and f16 at head_dim 64,
-   128 and 256; the wide forward, and the wide dQ and dK/dV with their
-   rows held or streamed) must hold HGMMA (wgmma) and UTMALDG (TMA load)
-   instructions, the wide tensor-core dQ must spill nothing, and every
+   128 and 256; the wide forward, dQ and dK/dV with their rows held or
+   streamed) must hold HGMMA (wgmma) and UTMALDG (TMA load)
+   instructions, the wide tensor-core forward and dQ must spill nothing,
+   and every
    instance of the f32 library's kernels (the wide forward, dQ and dK/dV,
    and the tiled forward, dQ and dK/dV up to head_dim 256) must hold FFMA
    and no HMMA or HGMMA (no TF32) and spill nothing. The Triton RMSNorm
@@ -68,29 +69,36 @@ non-zero without printing a result. Without a CUDA card, or without the
    through flash_attention launches the f32 wide kernel. The wide
    kernels (head_dim above 256, the head dimension of the output split
    across blocks): forward, dQ and dK/dV at head_dim 264, 512 and 1024 in
-   f32, bf16 and f16 up to S=512 (phase 2b's shape), causal and not,
+   f32, bf16 and f16, and at 1032 and 2048 (the tensor-core forward
+   streams Q) in bf16 and f16, up to S=512 (phase 2b's shape), causal and
+   not,
    against the plain versions with a planted fault each (the dQ kernel's
    delta against rowsum(dO * O)), launching the kernels of the rule once
    each and nothing else (bf16 and f16: the tensor-core forward, dQ and
    dK/dV; f32: those of flash_attention_wide_f32.cu), and the CUDA-core
    forward, dQ and dK/dV of flash_attention_wide.cu (the earlier design)
    on the same inputs; at B=4, H=8, S=2048, D=512, causal, in bf16, f16
-   and f32 (and D=384 in bf16 and f16), held against the plain versions
-   with a planted fault again and timed through CUDA graphs beside the
-   CUDA-core kernels on the same inputs, the plain versions, SDPA (with
-   the backend it picks) and the bound.
-2b. c1_models: eight configs the reference serves and trains, at the
+   and f32 (and D=384 in bf16 and f16, and D 1032 and 2048 in bf16),
+   held against the plain versions with a planted fault again and timed
+   through CUDA graphs beside the CUDA-core kernels on the same inputs
+   (above 1024, where each takes up to seconds, one call each by CUDA
+   events), the plain versions, SDPA (with the backend it picks) and the
+   bound.
+2b. c1_models: nine configs the reference serves and trains, at the
    flagship's depth-2 cut: head_dim 256 (d_model 2048 over 8 heads, bf16;
    and over 8 query heads and one KV head, Gemma-2B's attention widths),
    head_dim 512 (d_model 1024 over 2 heads: the tensor-core wide forward,
-   dQ and dK/dV in bf16, the f32 wide ones in f32), the
+   dQ and dK/dV in bf16, the f32 wide ones in f32), head_dim 1032
+   (d_model 2064 over 2 heads, bf16: the tensor-core wide kernels, the
+   forward streaming Q, a last chunk of 8 columns), the
    flagship in float16, head_dim 12 (d_model 384 over 32 heads, GQA 8,
    bf16), head_dim 96 (Phi-3-mini's d_model 3072 over 32 heads, bf16) and
    head_dim 80 (Phi-2's d_model 2560 over 32 heads, f16). Each serves 4
    prompts through prefill_with_cache and 8 decode_steps (prefill logits
    equal prefill_chunk's) and takes a gradient pass and 2 AdamW steps
    (finite, the tensor-core kernels at head_dim 256, 96 and 80 and in f16,
-   the wide ones of the rule at 512, launched n_layers times per pass and
+   the wide ones of the rule at 512 and 1032, launched n_layers times per
+   pass and
    no other variant; head_dim 12 launches nothing and counts n_layers
    plain routes
    per forward). From here on the flagship's phases must count no plain
@@ -348,8 +356,13 @@ WIDE_ROUTE_D = 264   # above 256: the wide kernels, last chunk 8 columns
 # (Sq, Sk), up to S=512 (phase 2b's hd512 prefill and gradient pass); then
 # checked and timed at WIDE_TIMED (B, H, S, D), causal, in bf16, f16 and
 # f32, and at WIDE_TIMED_DIMS' other head_dim (384: no multiple of the
-# tensor-core forward's 256-column chunk) in bf16 and f16.
+# tensor-core forward's 256-column chunk) in bf16 and f16. Above 1024 the
+# tensor-core forward streams Q: WIDE_STREAMED_DIMS (1032: 8 real columns
+# in the last 64-column box and the last chunk of O, dQ and dK/dV; 2048)
+# in bf16 and f16 on the small shapes, and timed at WIDE_TIMED's B, H and
+# S in bf16.
 WIDE_DIMS = (264, 512, 1024)
+WIDE_STREAMED_DIMS = (1032, 2048)
 WIDE_FWD_SHAPES = ((2, 77, 131), (4, 256, 256), (4, 512, 512))
 WIDE_BWD_SHAPES = ((77, 131), (256, 256), (512, 512))
 WIDE_TIMED = (4, 8, 2048, 512)
@@ -533,14 +546,17 @@ WGMMA_LIBRARIES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
                    "flash_attention_wide_wgmma")
 # Kernel instantiations per tensor-core library: (bf16, f16) x head_dim
 # (64, 128, 256), once for the forward and once each for dQ and dK/dV;
-# above head_dim 256 (bf16, f16) x the forward, x dQ with Q and dO held
-# (D up to 512) or streamed, and x dK/dV with K and V held or streamed.
+# above head_dim 256 (bf16, f16) x the forward with Q held (D up to 1024)
+# or streamed, x dQ with Q and dO held (D up to 512) or streamed, and x
+# dK/dV with K and V held or streamed.
 WGMMA_INSTANCES = {"flash_attention_fwd_wgmma": 6,
                    "flash_attention_bwd_wgmma": 12,
-                   "flash_attention_wide_wgmma": 10}
+                   "flash_attention_wide_wgmma": 12}
 # Tensor-core kernels that must not spill (a spilled accumulator
-# serialises the wgmma around it): the wide dQ, every instantiation.
-NO_SPILL_WGMMA = "flash_bwd_dq_wide_wgmma_kernel"
+# serialises the wgmma around it): the wide forward and dQ, every
+# instantiation (bf16 and f16, rows held or streamed).
+NO_SPILL_WGMMA = ("flash_fwd_wide_wgmma_kernel",
+                  "flash_bwd_dq_wide_wgmma_kernel")
 # The f32 library's kernels: f32 FMAs on the CUDA cores, never TF32. Its
 # instances: the forward wide and tiled at 64, 128 and 256 columns; dQ
 # wide and tiled at 64, 128 and 256 columns; dK/dV wide (which is also the
@@ -560,10 +576,10 @@ def ptxas_summary(report: str):
     kernel<dtype, per-thread slice of D, register slice> for the CUDA-core
     kernels (16 being D = 64, 64 being D = 256; a slice of 0 is the
     runtime-width instance), kernel<dtype, D> for the tensor-core ones,
-    kernel<dtype> for the wide ones (head_dim above 256) and the
-    tensor-core wide forward, kernel<dtype, resident> for the tensor-core
-    wide dQ and dK/dV (Q and dO, or K and V, held in shared memory or
-    streamed), kernel<rows, keys, columns, V keys> for the f32 forward
+    kernel<dtype> for the wide ones (head_dim above 256),
+    kernel<dtype, resident> for the tensor-core wide forward, dQ and dK/dV
+    (Q, Q and dO, or K and V held in shared memory or streamed),
+    kernel<rows, keys, columns, V keys> for the f32 forward
     instances and kernel<rows or keys, columns, box columns> for the f32
     dQ and dK/dV instances."""
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
@@ -694,7 +710,7 @@ def phase_build():
     wide_tc = [ln for ln in ptxas_summary(
         _build.build_info["flash_attention_wide_wgmma"][1])
         if ln.startswith(NO_SPILL_WGMMA) and "spill" in ln]
-    if len(wide_tc) != 4 or any(
+    if len(wide_tc) != 4 * len(NO_SPILL_WGMMA) or any(
             "0 bytes spill stores, 0 bytes spill loads" not in ln
             for ln in wide_tc):
         raise AssertionError(f"{NO_SPILL_WGMMA}: an instantiation is "
@@ -1214,7 +1230,8 @@ def _sdpa_backend(q, k, v):
 def phase_wide(dev):
     """Phase 2's wide kernels (head_dim above 256, the head dimension of
     the output split across blocks): forward and backward at every
-    WIDE_DIMS x (f32, bf16, f16) on small shapes, causal and not, against
+    WIDE_DIMS x (f32, bf16, f16) and WIDE_STREAMED_DIMS x (bf16, f16) on
+    small shapes, causal and not, against
     the plain versions at O_ROW_TOL / LSE_TOL / GRAD_ROW_TOL (the dQ
     kernel's delta against rowsum(dO * O) at testing.delta_error's
     limit), each case launching the kernels of the rule once each and no
@@ -1224,9 +1241,9 @@ def phase_wide(dev):
     forward, dQ and dK/dV of flash_attention_wide.cu (the earlier design)
     are held against the plain versions on the same inputs too. Then the
     three kernels checked the same way at WIDE_TIMED in bf16, f16 and f32
-    (and head_dim 384 in bf16 and f16), and timed there beside the plain
-    versions, the CUDA-core kernels, SDPA (its backend named) and the
-    bound."""
+    (and head_dim 384 in bf16 and f16, and WIDE_STREAMED_DIMS in bf16),
+    and timed there beside the plain versions, the CUDA-core kernels, SDPA
+    (its backend named) and the bound."""
     fa = _flash_module()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     checks = []
@@ -1240,9 +1257,13 @@ def phase_wide(dev):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for D in WIDE_DIMS:
+    cases = [(D, (torch.float32, torch.bfloat16, torch.float16))
+             for D in WIDE_DIMS]
+    cases += [(D, (torch.bfloat16, torch.float16))
+              for D in WIDE_STREAMED_DIMS]
+    for D, dtypes in cases:
         scale = D ** -0.5
-        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for dtype in dtypes:
             variant = fa._forward_variant(dtype, D)
             # The earlier CUDA-core kernels on the same inputs.
             earlier = variant in CUDA_CORE_REPLACED
@@ -1345,6 +1366,9 @@ def phase_wide(dev):
             key = _dtype_name(dtype) + ("" if D == WIDE_TIMED[3]
                                         else f"_D{D}")
             timing[key] = _time_wide(fa, gen, dev, dtype, D)
+    for D in WIDE_STREAMED_DIMS:
+        timing[f"bfloat16_D{D}"] = _time_wide(fa, gen, dev, torch.bfloat16,
+                                              D)
     emit({"phase": "kernels_wide", "checks": checks, "timing": timing})
     return timing
 
@@ -1358,9 +1382,11 @@ def _time_wide(fa, gen, dev, dtype, D):
     above the limit; where the rule takes the tensor-core or the f32
     kernels, the CUDA-core forward, dQ and dK/dV of
     flash_attention_wide.cu on the same inputs, held and timed the same
-    way (few replays: a CUDA-core call takes tens of ms); the plain
-    versions by events, and SDPA's forward and backward through CUDA
-    graphs with the backend it picks."""
+    way (few replays: a CUDA-core call takes tens of ms; at
+    WIDE_STREAMED_DIMS, where it takes up to seconds, the check's call
+    warms it and one more call is timed by CUDA events, and the rule's
+    kernels get few replays too); the plain versions by events, and SDPA's
+    forward and backward through CUDA graphs with the backend it picks."""
     B, H, S, _ = WIDE_TIMED
     scale = D ** -0.5
     variant = fa._forward_variant(dtype, D)
@@ -1368,11 +1394,12 @@ def _time_wide(fa, gen, dev, dtype, D):
     q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
                                device=dev).to(dtype) for _ in range(4))
     few = {"iters": 2, "replays": 3}
+    streamed = D in WIDE_STREAMED_DIMS
     with _counts_kept(fa):
         o, lse = fa._flash_forward(q, k, v, True)
         dq, delta = fa._launch_dq(q, k, v, o, lse, do, True, scale)
         dk, dv = fa._launch_dkv(q, k, v, o, lse, do, delta, True, scale)
-        many = few if not cuda_core else {}
+        many = few if not cuda_core or streamed else {}
         ms = {"fwd": graph_ms(lambda i: fa._flash_forward(q, k, v, True),
                               **many),
               "dq": graph_ms(lambda i: fa._launch_dq(
@@ -1385,12 +1412,14 @@ def _time_wide(fa, gen, dev, dtype, D):
                               wide=True)
         sdk, sdv = _simt_backward(fa, "dkv", q, k, v, o, lse, do, True,
                                   wide=True)
-        cc_ms = {"fwd": graph_ms(lambda i: _simt_forward(
-                     fa, q, k, v, True, wide=True), **few)}
+        cc_calls = {"fwd": lambda: _simt_forward(fa, q, k, v, True,
+                                                 wide=True)}
         for kind in ("dq", "dkv"):
-            cc_ms[kind] = graph_ms(
-                lambda i, kind=kind: _simt_backward(
-                    fa, kind, q, k, v, o, lse, do, True, wide=True), **few)
+            cc_calls[kind] = lambda kind=kind: _simt_backward(
+                fa, kind, q, k, v, o, lse, do, True, wide=True)
+        cc_ms = {kind: cuda_ms(fn, iters=1, warmup=0) if streamed
+                 else graph_ms(lambda i, fn=fn: fn(), **few)
+                 for kind, fn in cc_calls.items()}
     ro, rlse = fa._dense_kernel(q, k, v, True, scale)
     v_fault = v.clone()
     v_fault[:, :, S // 2:S // 2 + 32] = 0
@@ -2546,6 +2575,12 @@ def _c1_configs(base):
             ("hd512_f32", dataclasses.replace(
                 base, d_model=1024, n_heads=2, n_kv_heads=2,
                 dtype=torch.float32, **cut), "wide_f32"),
+            # head_dim 1032 (d_model 2064 over 2 heads): the tensor-core
+            # wide kernels past 1024, the forward streaming Q, the last
+            # chunk of O, dQ and dK/dV 8 columns wide.
+            ("hd1032_bf16", dataclasses.replace(
+                base, d_model=2064, n_heads=2, n_kv_heads=2, **cut),
+             "wide_wgmma"),
             ("f16", dataclasses.replace(base, dtype=torch.float16, **cut),
              "wgmma"),
             ("hd12_bf16", dataclasses.replace(
@@ -2567,8 +2602,9 @@ def phase_c1_models(dev, base, model_lens):
     """Phase 2b (see the module docstring): configs beyond the bf16
     flagship serve and train through the kernels of the rule (the tensor
     cores at head_dim 256 and in f16; at head_dim 512 the tensor-core wide
-    kernels in bf16, the f32 wide kernels in f32) or through the counted
-    plain route."""
+    kernels in bf16, the f32 wide kernels in f32; at head_dim 1032 the
+    tensor-core wide kernels, the forward streaming Q) or through the
+    counted plain route."""
     from ray_tpu_torch import models as tm
 
     fa = _flash_module()
@@ -4059,6 +4095,26 @@ def main() -> int:
         kernels.append(wide_row(
             name, kind, "wide_f32", wide_f32_source, wide["float32"],
             launches, train_launches, from_f32, "float32"))
+    # The tensor-core wide kernels past head_dim 1024 (the forward
+    # streaming Q): launches from phase 2b's hd1032_bf16, times at
+    # WIDE_TIMED's B, H and S at head_dim 1032 (2048 beside them), the
+    # CUDA-core kernels they replaced on the same inputs (cuda_core_ms).
+    wide1032 = c1["hd1032_bf16"]
+    from_1032 = ("phase 2b hd1032_bf16: one prefill_with_cache and one "
+                 "gradient pass")
+    for kind, name in (
+            ("fwd", "flash_attention_fwd[wide-wgmma-streamed-q]"),
+            ("dq", "flash_attention_bwd_dq[wide-wgmma-D1032]"),
+            ("dkv", "flash_attention_bwd_dkv[wide-wgmma-D1032]")):
+        launches = (wide1032["launches_per_prefill_by_variant"]["wide_wgmma"]
+                    if kind == "fwd"
+                    else wide1032["launches_per_pass"][f"{kind}_wide_wgmma"])
+        train_launches = (wide1032["launches_per_pass"]["wide_wgmma"]
+                          if kind == "fwd" else None)
+        kernels.append(wide_row(
+            name, kind, "wide_wgmma", wide_tc_source, wide["bfloat16_D1032"],
+            launches, train_launches, from_1032, "bfloat16",
+            bfloat16_D2048=brief(wide["bfloat16_D2048"], kind)))
     # The CUDA-core dQ, timed and held on the bf16 inputs of WIDE_TIMED
     # beside the tensor-core dQ (its error from the same check).
     t = wide["bfloat16"]

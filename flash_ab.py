@@ -33,15 +33,29 @@ The designs:
 
 With ``--wide``, the same for the tensor-core wide kernels
 (``flash_attention_wide_wgmma.cu``: the forward, dQ and dK/dV for
-head_dim above 256) at head_dim 512 and 384, against ``WIDE_VARIANTS``:
-dK/dV with 256-column chunks (each warpgroup owning 128 columns of dK and
-dV, as first written), the forward with a 6-slot K ring (up to head_dim
-768) and dQ with 128-column chunks (each warpgroup owning 64 columns: 3x
-the real work at D = 512 against 1.67x). dQ (with its delta) and dK/dV
-of each design are held against this tree's (per row within
-GRAD_ROW_TOL; delta against rowsum(dO * O) at testing.delta_error's
-limit), dK/dV on delta from this tree's dQ kernel. ``--parent`` does not
-apply there (no earlier commit has the library).
+head_dim above 256) at head_dim 512, 384, 1024, 1032 and 2048 (above
+1024 the forward streams Q), against ``WIDE_VARIANTS``, each at the
+widths of ``WIDE_VARIANT_DIMS``: dK/dV with 256-column chunks (each
+warpgroup owning 128 columns of dK and dV, as first written), the forward
+with a 6-slot K ring (Q held up to head_dim 768) and dQ with 128-column
+chunks (each warpgroup owning 64 columns: 3x the real work at D = 512
+against 1.67x) at 512 and 384; the forward streaming Q at every width
+(the streamed instance at 512 and 1024, where this tree holds Q); and
+above 1024 the forward whose consumers scale each streamed Q box in
+shared memory (a proxy fence and a named barrier per box) in place of
+this tree's pre-pass. dQ (with its delta) and dK/dV of each design are
+held against this tree's (per row within GRAD_ROW_TOL; delta against
+rowsum(dO * O) at testing.delta_error's limit), dK/dV on delta from this
+tree's dQ kernel; whether a forward equals this tree's bit for bit is
+printed. Above 1024 the CUDA-core wide kernels (``flash_attention_
+wide.cu``, the ones the rule took there before) run in turns too (one
+call each by CUDA events: they take up to seconds), held against the
+plain versions. With ``--parent`` (an earlier commit's
+``flash_attention_wide_wgmma.cu``, whose forward takes no work buffer),
+the parent's and this tree's forward (O and LSE), dQ, delta and dK/dV are
+first compared bit for bit at head_dim 264, 512 and 1024 in bf16 and
+f16, causal and not, and the parent is timed beside this tree up to
+1024.
 
 With ``--wide-f32``, the same for the f32 wide kernels
 (``flash_attention_wide_f32.cu``) on f32 inputs at head_dim 512 and 384,
@@ -70,8 +84,8 @@ each beside SDPA and the bound.
 
 Run from the repository root: ``python3 flash_ab.py --parent DIR``
 (``--variants ""`` builds no textual variant), ``python3 flash_ab.py
---wide``, ``python3 flash_ab.py --wide-f32`` or ``python3 flash_ab.py
---f32 [--parent DIR]``. Prints one JSON line per
+--wide [--parent DIR]``, ``python3 flash_ab.py --wide-f32`` or
+``python3 flash_ab.py --f32 [--parent DIR]``. Prints one JSON line per
 build, check and timing, then the card's name and power limit. Exits
 non-zero without a card.
 """
@@ -146,10 +160,34 @@ WIDE_VARIANTS = {
         ("constexpr int kDkvChunk = 128;", "constexpr int kDkvChunk = 256;")]},
     "wide_fwd_kring6": {WIDE_SOURCE: [
         ("constexpr int kFwdKStages = 4;", "constexpr int kFwdKStages = 6;"),
-        ("constexpr int kMaxD = 1024;", "constexpr int kMaxD = 768;")]},
+        ("constexpr int kFwdResidentMaxD = 1024;",
+         "constexpr int kFwdResidentMaxD = 768;")]},
     "wide_dq_chunk128": {WIDE_SOURCE: [
         ("constexpr int kDqChunk = 256;", "constexpr int kDqChunk = 128;")]},
+    "wide_fwd_stream_q": {WIDE_SOURCE: [
+        ("constexpr int kFwdResidentMaxD = 1024;",
+         "constexpr int kFwdResidentMaxD = 256;")]},
+    "wide_fwd_scale_in_place": {WIDE_SOURCE: [
+        ("  if (!kResident) {\n    // The streamed boxes arrive as they are:",
+         "  if (false) {\n    // The streamed boxes arrive as they are:"),
+        ("      mbar_wait(k_full(s), parity_of<kFwdKStages>(kn));\n",
+         "      mbar_wait(k_full(s), parity_of<kFwdKStages>(kn));\n"
+         "      if (!kResident) {\n"
+         "        uint4* box =\n"
+         "            reinterpret_cast<uint4*>(smem + (qbox - base));\n"
+         "        for (int i = tid; i < kBox / 16; i += kFwdConsumers) {\n"
+         "          box[i] = scale4<T>(box[i], round_to<T>(scale));\n"
+         "        }\n"
+         "        fence_proxy_async();\n"
+         "        named_barrier_sync(1, kFwdConsumers);\n"
+         "      }\n")]},
 }
+# The head_dims each wide variant runs at, and the kernels it changes.
+WIDE_VARIANT_SCOPE = {"wide_dkv_chunk256": ((512, 384, 2048), ("dkv",)),
+                      "wide_fwd_kring6": ((512, 384), ("fwd",)),
+                      "wide_dq_chunk128": ((512, 384), ("dq",)),
+                      "wide_fwd_stream_q": ((512, 1024), ("fwd",)),
+                      "wide_fwd_scale_in_place": ((1032, 2048), ("fwd",))}
 WIDE_F32_SOURCE = "flash_attention_wide_f32.cu"
 WIDE_F32_VARIANTS = {
     "f32_dkv_cols128": {WIDE_F32_SOURCE: [
@@ -228,7 +266,16 @@ WIDE_CC_DIMS = (1032, 2048)
 # The head_dims where a variant's code differs from this tree's.
 VARIANT_DIMS = {"fwd_n32": (256,), "fwd_general_mask": (64, 128)}
 DIMS = (64, 128, 256)
-WIDE_DIMS = (512, 384)
+WIDE_DIMS = (512, 384, 1024, 1032, 2048)
+WIDE_F32_DIMS = (512, 384)
+# Above 1024: fewer graph replays (a call takes milliseconds to tens of
+# them), and the CUDA-core wide kernels (a call takes up to seconds) one
+# call each by events.
+WIDE_HEAVY_TIMING = {"iters": 4, "replays": 3}
+# The parent's and this tree's tensor-core wide kernels bit for bit:
+# (head_dim, B, H, Sq, Sk).
+WIDE_BIT_CASES = ((264, 2, 2, 200, 200), (512, 4, 8, 2048, 2048),
+                  (1024, 2, 2, 77, 131))
 B, H, S = 4, 8, 2048
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -280,7 +327,9 @@ def build(names, parent, libraries=LIBS):
 
 
 def entry_points(name, libs):
-    """(forward, dQ, dK/dV) C functions of a design, argument types set."""
+    """(forward, dQ, dK/dV) C functions of a design, argument types set
+    (this tree's tensor-core wide forward takes a work buffer after lse,
+    the parent's does not)."""
     if "flash_attention_wide_f32" in libs:
         wide = libs["flash_attention_wide_f32"]
         fwd = wide.flash_attention_fwd_wide_f32
@@ -296,7 +345,9 @@ def entry_points(name, libs):
         bwd = libs["flash_attention_bwd_wgmma"]
         dq = bwd.flash_attention_bwd_dq_wgmma
         dkv = bwd.flash_attention_bwd_dkv_wgmma
-    fwd.argtypes = [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP]
+    work = _takes_work(name, libs)
+    fwd.argtypes = [_VP] * (6 if work else 5) + [_CI] * 6 + [_CF, _CI, _CI,
+                                                             _VP]
     for fn in (dq, dkv):
         fn.argtypes = [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP]
     for fn in (fwd, dq, dkv):
@@ -304,14 +355,20 @@ def entry_points(name, libs):
     return fwd, dq, dkv
 
 
+def _takes_work(name, libs):
+    """Whether a design's forward entry point takes a work buffer: this
+    tree's tensor-core wide forward and its variants."""
+    return "flash_attention_wide_wgmma" in libs and name != "parent"
+
+
 def kinds(name):
     """The kernels a design changes against this tree: all three for the
-    tree and the parent, else those of the libraries its edits touch."""
-    if name in ("tree", "parent"):
+    tree, the parent and the CUDA-core wide kernels (``cuda_core``), else
+    those of the libraries its edits touch."""
+    if name in ("tree", "parent", "cuda_core"):
         return ("fwd", "dq", "dkv")
     if name in WIDE_VARIANTS:
-        return {"wide_fwd_kring6": ("fwd",), "wide_dkv_chunk256": ("dkv",),
-                "wide_dq_chunk128": ("dq",)}[name]
+        return WIDE_VARIANT_SCOPE[name][1]
     if name in WIDE_F32_VARIANTS:
         return {"f32_dkv_cols128": ("dkv",), "f32_dq_cols256": ("dq",),
                 "f32_stages4": ("fwd", "dq", "dkv")}[name]
@@ -320,28 +377,149 @@ def kinds(name):
         (("dq", "dkv") if "flash_attention_bwd_wgmma.cu" in files else ())
 
 
-def calls(name, fns, t):
-    """Closures launching a design's three kernels on the tensors t."""
+def calls(name, fns, t, work=False, causal=True):
+    """Closures launching a design's three kernels on the tensors t
+    (``work``: the forward takes t's work buffer after lse)."""
     fwd, dq, dkv = fns
-    D = t["q"].shape[-1]
+    B, H, Sq, D = t["q"].shape
+    Sk = t["k"].shape[2]
     code = cs._flash_module()._DTYPE_CODE[t["q"].dtype]
     p = {k: v.data_ptr() for k, v in t.items()}
+    fwd_out = (p["o2"], p["l2"]) + ((p["work"],) if work else ())
+    tail = (D ** -0.5, int(causal), code)
 
     def run(fn, *args):
-        err = fn(*args, code, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: launch failed ({err})")
 
     return {
-        "fwd": lambda i: run(fwd, p["q"], p["k"], p["v"], p["o2"], p["l2"],
-                             B, H, H, S, S, D, D ** -0.5, 1),
+        "fwd": lambda i: run(fwd, p["q"], p["k"], p["v"], *fwd_out,
+                             B, H, H, Sq, Sk, D),
         "dq": lambda i: run(dq, p["q"], p["k"], p["v"], p["o"], p["do"],
-                            p["lse"], p["dq2"], p["delta2"], B * H, S, S, D,
-                            D ** -0.5, 1),
+                            p["lse"], p["dq2"], p["delta2"], B * H, Sq, Sk,
+                            D),
         "dkv": lambda i: run(dkv, p["q"], p["k"], p["v"], p["do"], p["lse"],
-                             p["delta"], p["dk2"], p["dv2"], B * H, S, S, D,
-                             D ** -0.5, 1),
+                             p["delta"], p["dk2"], p["dv2"], B * H, Sq, Sk,
+                             D),
     }
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def wide_tma_bytes(kind, B, H, S, D, causal=True):
+    """Bytes the tensor-core wide kernel ``kind`` ("fwd", "dq" or "dkv")
+    copies into shared memory by TMA at [B, H, S, D] (Sq = Sk = S), as its
+    loops issue them: every box counted in full (a box past D lands as
+    zeros), each re-read counted again. These come from L2 (or HBM where
+    L2 misses); the bound counts each input once."""
+    box, rbox = 64 * 128, 32 * 128       # 64 or 32 rows x 64 columns of T
+    nb = _cdiv(D, 64)
+    total = 0
+    for row0 in range(0, S, 64):        # the CTA's 64 query rows or keys
+        last = min(row0 + 64, S) - 1
+        if kind == "fwd":               # per 256 columns of O
+            held = D <= 1024
+            tiles = min(_cdiv(S, 64), last // 64 + 1) if causal \
+                else _cdiv(S, 64)
+            once = nb * box if held else 0
+            per_tile = nb * box * (1 if held else 2) + 4 * box  # K (Q), V
+            total += _cdiv(D, 256) * (once + tiles * per_tile)
+            continue
+        held = D <= 512
+        width = 4 if kind == "dq" else 2    # 64-column boxes of a chunk
+        for c in range(_cdiv(D, 64 * width)):
+            n_items = c * width + max(0, nb - c * width - width) + width
+            once = 2 * nb * box if held else 0
+            if kind == "dq":                # delta's pass, then key tiles
+                once += n_items * box * (1 if held else 2)
+                tiles = min(_cdiv(S, 32), last // 32 + 1) if causal \
+                    else _cdiv(S, 32)
+            else:                           # query tiles from the diagonal
+                tiles = _cdiv(S, 32) - (min(row0 // 32, _cdiv(S, 32))
+                                        if causal else 0)
+            per_item = 2 * rbox + (0 if held else 2 * box)
+            total += once + tiles * n_items * per_item
+    return total * B * H
+
+
+def cuda_core_calls(t):
+    """Closures launching the CUDA-core wide forward, dQ and dK/dV
+    (flash_attention_wide.cu: its dQ writes no delta, its dK/dV reads O)
+    on the tensors t through their C entry points."""
+    fa = cs._flash_module()
+    B, H, S, D = t["q"].shape
+    fwd, dq, dkv = (fa._kernel_fn("flash_attention_wide", name) for name in (
+        "flash_attention_fwd_wide", "flash_attention_bwd_dq_wide",
+        "flash_attention_bwd_dkv_wide"))
+    p = {k: v.data_ptr() for k, v in t.items()}
+    tail = (D ** -0.5, 1, fa._DTYPE_CODE[t["q"].dtype])
+
+    def run(fn, *args):
+        err = fn(*args, *tail, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cuda_core: launch failed ({err})")
+
+    bwd_in = (p["q"], p["k"], p["v"], p["o"], p["do"], p["lse"])
+    return {"fwd": lambda i: run(fwd, p["q"], p["k"], p["v"], p["o2"],
+                                 p["l2"], B, H, H, S, S, D),
+            "dq": lambda i: run(dq, *bwd_in, p["dq2"], None, B * H, S, S, D),
+            "dkv": lambda i: run(dkv, *bwd_in, p["dk2"], p["dv2"], B * H, S,
+                                 S, D)}
+
+
+def wide_inputs(gen, dev, dtype, B, H, Sq, Sk, D, causal):
+    """Seeded inputs, this tree's forward O and LSE and dQ's delta (through
+    the wrapper, counts kept), and output buffers (a work buffer for the
+    tensor-core wide forward)."""
+    fa = cs._flash_module()
+    q, do = (torch.randn((B, H, Sq, D), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, H, Sk, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    with cs._counts_kept(fa):
+        o, lse = fa._flash_forward(q, k, v, causal)
+        delta = fa._launch_dq(q, k, v, o, lse, do, causal, D ** -0.5)[1]
+    return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+            "delta": delta, "o2": torch.empty_like(q),
+            "l2": torch.empty_like(lse), "dq2": torch.empty_like(q),
+            "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
+            "dv2": torch.empty_like(v), "work": torch.empty_like(q)}
+
+
+def wide_same_bits(fns, libs, gen, dev):
+    """The parent's and this tree's tensor-core wide forward (O and LSE),
+    dQ (with delta) and dK/dV bit for bit at WIDE_BIT_CASES, bf16 and f16,
+    causal and not (the full-size case causal only); raises where any
+    differs."""
+    for D, B_, H_, Sq, Sk in WIDE_BIT_CASES:
+        for dtype in (torch.bfloat16, torch.float16):
+            for causal in (True, False):
+                if Sq == S and not causal:
+                    continue
+                t = wide_inputs(gen, dev, dtype, B_, H_, Sq, Sk, D, causal)
+                outs = {}
+                for n in ("parent", "tree"):
+                    run = calls(n, fns[n], t, _takes_work(n, libs[n]),
+                                causal)
+                    for kind in ("fwd", "dq", "dkv"):
+                        run[kind](0)
+                    torch.cuda.synchronize()
+                    outs[n] = [t[x].clone() for x in (
+                        "o2", "l2", "dq2", "delta2", "dk2", "dv2")]
+                same = dict(zip(("o", "lse", "dq", "delta", "dk", "dv"), (
+                    torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                      outs["tree"]))))
+                emit({"check": "parent vs tree, bit for bit", "D": D,
+                      "dtype": cs._dtype_name(dtype), "causal": causal,
+                      "shape": [B_, H_, Sq, Sk], "same": same})
+                if not all(same.values()):
+                    raise AssertionError(f"D={D}: the parent's and this "
+                                         f"tree's wide kernels differ")
+                del t, outs
+    torch.cuda.empty_cache()
 
 
 def same_bits(runs, t, D):
@@ -419,7 +597,8 @@ def digests(fns, dev):
 
 def dkv_check(runs, others, t, D):
     """This tree's dK/dV against the plain backward, and each design's
-    against this tree's, per row within GRAD_ROW_TOL."""
+    against this tree's (``cuda_core``, the CUDA-core wide kernels, against
+    the plain one), per row within GRAD_ROW_TOL."""
     fa = cs._flash_module()
     runs["tree"]["dkv"](0)
     torch.cuda.synchronize()
@@ -433,20 +612,23 @@ def dkv_check(runs, others, t, D):
     for n in others:
         runs[n]["dkv"](0)
         torch.cuda.synchronize()
+        against = "plain" if n == "cuda_core" else "tree"
         err = max(cs.grad_row_error(g, r)
-                  for g, r in zip((t["dk2"], t["dv2"]), (tk, tv)))
-        emit({"check": f"{n} dK/dV vs tree", "D": D, "err_row": err,
+                  for g, r in zip((t["dk2"], t["dv2"]),
+                                  ref[1:] if n == "cuda_core" else (tk, tv)))
+        emit({"check": f"{n} dK/dV vs {against}", "D": D, "err_row": err,
               "tol_row": tol})
         if not err <= tol:
             raise AssertionError(f"{n} at D={D}: dK/dV disagrees with "
-                                 f"this tree's kernel")
+                                 f"{against}")
 
 
 def dq_check(runs, others, t, D):
     """This tree's dQ against the plain backward and its delta against
     rowsum(dO * O), and each design's dQ and delta against this tree's:
-    dQ per row within GRAD_ROW_TOL, delta at testing.delta_error's
-    limit."""
+    dQ per row within GRAD_ROW_TOL, delta at testing.delta_error's limit
+    (``cuda_core``, the CUDA-core wide kernels, whose dQ writes no delta:
+    its dQ against the plain one)."""
     fa = cs._flash_module()
     runs["tree"]["dq"](0)
     torch.cuda.synchronize()
@@ -461,6 +643,14 @@ def dq_check(runs, others, t, D):
     for n in others:
         runs[n]["dq"](0)
         torch.cuda.synchronize()
+        if n == "cuda_core":
+            err = cs.grad_row_error(t["dq2"], ref)
+            emit({"check": "cuda_core dQ vs plain", "D": D, "err_row": err,
+                  "tol_row": tol})
+            if not err <= tol:
+                raise AssertionError(f"cuda_core at D={D}: dQ disagrees with "
+                                     f"plain")
+            continue
         err = cs.grad_row_error(t["dq2"], tq)
         err_delta = testing.delta_error(t["delta2"], t["do"], t["o"])
         emit({"check": f"{n} dQ vs tree", "D": D, "err_row": err,
@@ -763,9 +953,10 @@ def main() -> int:
         f32_main(args, dev, torch.Generator(device=dev).manual_seed(cs.SEED))
         print(cs.card_line(), flush=True)
         return 0
+    if args.wide_f32 and args.parent:
+        ap.error("--parent does not apply to --wide-f32")
+    tc_wide = args.wide and not args.wide_f32
     args.wide = args.wide or args.wide_f32
-    if args.wide and args.parent:
-        ap.error("--parent does not apply to --wide or --wide-f32")
     fa = cs._flash_module()
     dtype = torch.float32 if args.wide_f32 else torch.bfloat16
     default = (WIDE_F32_VARIANTS if args.wide_f32 else WIDE_VARIANTS
@@ -778,30 +969,42 @@ def main() -> int:
                  if args.wide else LIBS)
     fns = {n: entry_points(n, libs[n]) for n in names}
     dev = torch.device("cuda", 0)
-    if args.parent:
-        digests(fns, dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    for D in (WIDE_DIMS if args.wide else DIMS):
-        q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
-                       .to(dtype) for _ in range(4))
-        with cs._counts_kept(fa):
-            o, lse = fa._flash_forward(q, k, v, True)
-            delta = fa._launch_dq(q, k, v, o, lse, do, True, D ** -0.5)[1]
-        t = {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
-             "delta": delta, "o2": torch.empty_like(q),
-             "l2": torch.empty_like(lse), "dq2": torch.empty_like(q),
-             "delta2": torch.empty_like(lse), "dk2": torch.empty_like(k),
-             "dv2": torch.empty_like(v)}
-        others = [n for n in names if n != "tree"
-                  and (args.wide or D in VARIANT_DIMS.get(n, DIMS))]
-        runs = {n: calls(n, fns[n], t) for n in ["tree", *others]}
-        if "parent" in others:
+    if args.parent:
+        if tc_wide:
+            wide_same_bits(fns, libs, gen, dev)
+        else:
+            digests(fns, dev)
+
+    def in_scope(n, D):
+        if n == "parent":
+            return not tc_wide or D <= 1024   # the parent held Q
+        if n in WIDE_VARIANT_SCOPE:
+            return D in WIDE_VARIANT_SCOPE[n][0]
+        return args.wide or D in VARIANT_DIMS.get(n, DIMS)
+
+    def timed(fn, n, D):
+        if n == "cuda_core":
+            return cs.cuda_ms(lambda: fn(0), iters=1, warmup=0)
+        return cs.graph_ms(fn, **(WIDE_HEAVY_TIMING if D >= 1024 else {}))
+
+    dims = WIDE_F32_DIMS if args.wide_f32 else WIDE_DIMS if args.wide \
+        else DIMS
+    for D in dims:
+        t = wide_inputs(gen, dev, dtype, B, H, S, S, D, True)
+        others = [n for n in names if n != "tree" and in_scope(n, D)]
+        runs = {n: calls(n, fns[n], t, _takes_work(n, libs[n]))
+                for n in ["tree", *others]}
+        if tc_wide and D > 1024:
+            runs["cuda_core"] = cuda_core_calls(t)
+            others.append("cuda_core")
+        if "parent" in others and not tc_wide:
             same_bits(runs, t, D)
         runs["tree"]["fwd"](0)
         torch.cuda.synchronize()
         to, tlse = t["o2"].clone(), t["l2"].clone()
-        _, err_row, err_lse = cs.compare(to, tlse, *fa._dense_kernel(
-            q, k, v, True, D ** -0.5))
+        ro, rlse = fa._dense_kernel(t["q"], t["k"], t["v"], True, D ** -0.5)
+        _, err_row, err_lse = cs.compare(to, tlse, ro, rlse)
         emit({"check": "tree vs plain", "D": D, "err_o_row": err_row,
               "tol_o_row": cs.O_ROW_TOL[dtype],
               "err_lse_of_limit": err_lse})
@@ -811,24 +1014,45 @@ def main() -> int:
         for n in others:
             runs[n]["fwd"](0)
             torch.cuda.synchronize()
-            _, err_row, err_lse = cs.compare(t["o2"], t["l2"], to, tlse)
-            emit({"check": f"{n} vs tree", "D": D, "err_o_row": err_row,
-                  "tol_o_row": cs.O_ROW_TOL[dtype],
-                  "err_lse_of_limit": err_lse})
+            # The CUDA-core kernels against the plain version, the rest against
+            # this tree's.
+            against = "plain" if n == "cuda_core" else "tree"
+            _, err_row, err_lse = cs.compare(
+                t["o2"], t["l2"], *((ro, rlse) if n == "cuda_core"
+                                    else (to, tlse)))
+            emit({"check": f"{n} vs {against}", "D": D,
+                  "err_o_row": err_row, "tol_o_row": cs.O_ROW_TOL[dtype],
+                  "err_lse_of_limit": err_lse,
+                  "same_bits": torch.equal(t["o2"], to)
+                  and torch.equal(t["l2"], tlse)})
             if not (err_row <= cs.O_ROW_TOL[dtype] and err_lse <= 1.0):
-                raise AssertionError(f"{n} at D={D} disagrees with this "
-                                     f"tree's kernel")
+                raise AssertionError(f"{n} at D={D} disagrees with "
+                                     f"{against}")
+        del ro, rlse
+        torch.cuda.empty_cache()
         for kind in ("fwd", "dq", "dkv"):
             with_kind = [n for n in others if kind in kinds(n)]
             order = [*with_kind, "tree", "tree", *with_kind[::-1]]
             ms = {n: [] for n in ["tree", *with_kind]}
             for n in order:
-                ms[n].append(cs.graph_ms(runs[n][kind]))
-            emit({"timing": kind, "D": D, "dtype": cs._dtype_name(dtype),
-                  "shape": [B, H, S, D], "causal": True, "ms": ms})
+                ms[n].append(timed(runs[n][kind], n, D))
+            bound_ms, bound_by = (
+                cs.attention_bound(B, H, H, S, D, dtype, True)
+                if kind == "fwd" else
+                cs.backward_bound(B, H, S, D, dtype, True, kind))
+            line = {"timing": kind, "D": D, "dtype": cs._dtype_name(dtype),
+                    "shape": [B, H, S, D], "causal": True, "ms": ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+            if tc_wide:
+                # This tree's TMA copies, and their rate at its best time.
+                nbytes = wide_tma_bytes(kind, B, H, S, D)
+                line.update(tma_gb=nbytes / 1e9,
+                            tma_tb_per_s=nbytes / min(ms["tree"]) / 1e9)
+            emit(line)
+        del t, runs
+        torch.cuda.empty_cache()
     print(cs.card_line(), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,11 +7,12 @@ at the repository root, keyed by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
 unchanged one loads from disk. Delete that directory to force a rebuild.
 ``build_all`` starts one ``nvcc`` per source, all at once.
-``SPLIT_COMPILE`` names the libraries that no rule of shapes reaches (the
-earlier CUDA-core kernels, kept as baselines): their many template
-instances made them the build's critical path, so their ``nvcc`` runs its
-optimisation on parallel threads (``--split-compile``); the libraries the
-port launches build on one thread each, their code unchanged.
+``SPLIT_COMPILE`` names two libraries that no rule of shapes reaches (the
+earlier CUDA-core kernels up to head_dim 256, kept as baselines): their
+many template instances made them the build's critical path, so their
+``nvcc`` runs its optimisation on parallel threads (``--split-compile``);
+the libraries the port launches build on one thread each, their code
+unchanged.
 
 The Triton kernel of ``ops/fused.py`` is not built here: Triton compiles
 it at its first launch, into Triton's own cache.

@@ -1,11 +1,10 @@
 // Flash attention for head dims above 256 on Hopper's tensor cores
 // (sm_90a): the forward (MHA and GQA), dQ and dK/dV, bf16 or f16, head_dim
-// any multiple of 8 from 264 to 1024, with TMA-fed tiles, wgmma products,
-// one producer warp and consumer warpgroups. The wrapper's rule of shapes
+// any multiple of 8 above 256, with TMA-fed tiles, wgmma products, one
+// producer warp and consumer warpgroups. The wrapper's rule of shapes
 // sends bf16 and f16 at those head dims here, all three kernels; f32 goes
-// to flash_attention_wide_f32.cu and bf16/f16 above 1024 to the CUDA-core
-// kernels of flash_attention_wide.cu. This dQ kernel writes the delta
-// that this dK/dV kernel reads.
+// to flash_attention_wide_f32.cu. This dQ kernel writes the delta that
+// this dK/dV kernel reads.
 //
 // Replaces, for those head dims, the Pallas TPU kernels of
 // ray_tpu/ops/flash_attention.py: `_attn_kernel` as `_flash_forward` (MHA)
@@ -24,7 +23,12 @@
 // D (about half of each when causal): at B=4, H=8, S=2048, D=512, causal
 // that is ~137, ~206 and ~275 GFLOP against ~70 to ~200 MB moved, so all
 // three are bound by operations (0.139, 0.209 and 0.278 ms at 989
-// TFLOP/s).
+// TFLOP/s). What they reach is set by another count: the bytes their CTAs
+// copy by TMA from L2 into shared memory, each box again for every tile
+// and chunk that reads it. Above D = 1024, where Q (forward), Q and dO
+// (dQ) or K and V (dK/dV) stream, that is 26 to 425 GB at D = 1032 and
+// 2048, copied at 3.2 to 5.1 TB/s on an H100 (flash_ab.py --wide prints
+// the count beside each time; PERF.md).
 //
 // What stops the narrower tensor-core kernels at 256. A warpgroup that
 // owns 64 rows of an output D columns wide holds D / 2 f32 a thread; ptxas
@@ -56,15 +60,22 @@
 //   or P = 0 (backward); the TMA stores clip rows past the end.
 // - Each CTA owns its outputs: no atomics, deterministic results.
 //
-// Forward (flash_fwd_wide_wgmma_kernel<T>): a CTA owns 64 query rows of one
-// (b, h) and one 256-column chunk of O, in one consumer warpgroup (128 f32
-// of O a thread; 160 threads, so ptxas may give a thread up to 255
-// registers, and it uses 202 without spilling) and a producer warp. Q's
+// Forward (flash_fwd_wide_wgmma_kernel<T, kResident>): a CTA owns 64 query
+// rows of one (b, h) and one 256-column chunk of O, in one consumer
+// warpgroup (128 f32 of O a thread; 160 threads, so ptxas may give a
+// thread up to 255 registers, and it uses 202 without spilling) and a
+// producer warp. K streams as 64-key x 64-column boxes through a ring of
+// kFwdKStages slots, and V as 64-key x 256-column tiles of the chunk
+// through a ring of kFwdVStages. Up to D = 1024 (kFwdResidentMaxD) Q's
 // rows stay in shared memory over all of D (64 KB at D = 512, 128 KB at
-// D = 1024, the widest this kernel takes), scaled and rounded there once;
-// K streams as 64-key x 64-column boxes through a ring of kFwdKStages
-// slots, and V as 64-key x 256-column tiles of the chunk through a ring of
-// kFwdVStages. Per key tile S = Q K^T accumulates over D's boxes, then the
+// D = 1024), scaled and rounded there once. Above it they no longer fit
+// beside the rings, so Q streams too: each K slot also holds the Q box of
+// the CTA's rows that meets its K box, read again for every key tile (from
+// L2: the CTA's rows stay hot there). A streamed box cannot be scaled
+// where it lands without a barrier per box, so a pre-pass
+// (wide_q_scale_kernel) writes q * scale rounded to T once into a buffer
+// the caller gives (one more read and write of Q), which the boxes then
+// stream from. Per key tile S = Q K^T accumulates over D's boxes, then the
 // online softmax, then O += P V with P in registers. The last query rows
 // (the heaviest causal tiles) are scheduled first. LSE is written by the
 // CTAs of chunk 0.
@@ -115,6 +126,8 @@
 //
 // Launches on the caller's stream and allocates nothing.
 
+#include <algorithm>
+
 #include "hopper_tma_wgmma.cuh"
 
 namespace {
@@ -124,7 +137,6 @@ using namespace hopper;
 constexpr int kChunk = 256;                // columns of O per forward CTA
 constexpr int kChunkBoxes = kChunk / 64;   // 64-column boxes of a chunk
 constexpr int kBox = 64 * 128;             // 64 rows x 64 columns of T
-constexpr int kMaxD = 1024;
 constexpr int kSmemLimit = 232448;         // 227 KB a block may use
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -162,23 +174,49 @@ constexpr int kFwdConsumers = 128;
 constexpr int kFwdThreads = kFwdConsumers + 32;  // + producer warp
 constexpr int kFwdVBytes = kFwdKeys * kChunk * 2;  // a V tile of the chunk
 
+// Q's rows stay in shared memory up to this head_dim; above it they stream.
+constexpr int kFwdResidentMaxD = 1024;
+
 // Barriers in the first 1024 bytes: q_full, then k_full and k_empty per K
 // slot, then v_full and v_empty per V slot; then the K ring, the V ring
-// and Q's D / 64 boxes.
+// and, when Q is held, Q's D / 64 boxes.
+template <bool kResident>
 struct FwdLayout {
+  // A K ring slot: a K box and, when Q streams, the Q box it meets.
+  static constexpr int kSlot = (kResident ? 1 : 2) * kBox;
   static constexpr int kK = 1024;
-  static constexpr int kV = kK + kFwdKStages * kBox;
+  static constexpr int kV = kK + kFwdKStages * kSlot;
   static constexpr int kQ = kV + kFwdVStages * kFwdVBytes;
   // Dynamic shared memory is only 16-byte aligned: a swizzle atom more
   // lets the base be rounded up to 1024 bytes.
   static constexpr int alloc(int n_boxes) {
-    return kQ + n_boxes * kBox + 1024;
+    return kQ + (kResident ? n_boxes * kBox : 0) + 1024;
   }
 };
-static_assert(FwdLayout::alloc(kMaxD / 64) <= kSmemLimit,
+static_assert(FwdLayout<true>::alloc(kFwdResidentMaxD / 64) <= kSmemLimit &&
+                  FwdLayout<false>::alloc(0) <= kSmemLimit,
               "over the 227 KB a block may use");
+// Where Q streams, the epilogue stages the CTA's O chunk in the V ring.
+static_assert(kFwdVStages * kFwdVBytes >= kChunkBoxes * kBox,
+              "the V ring holds the CTA's O chunk");
 
+// The streamed forward's pre-pass: out = q * scale rounded to T, the scale
+// rounded to T first (the held rows' arithmetic, scale4), over n groups of
+// eight values.
 template <typename T>
+__global__ void __launch_bounds__(256)
+wide_q_scale_kernel(const uint4* __restrict__ q, uint4* __restrict__ out,
+                    size_t n, float scale) {
+  const float scale_t = round_to<T>(scale);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    out[i] = scale4<T>(q[i], scale_t);
+  }
+}
+
+// tm_q: the rows as they are where Q is held (kResident), the pre-pass's
+// scaled rows where it streams.
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -186,7 +224,7 @@ flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_o,
                             float* __restrict__ lse, int hq, int hkv, int sq,
                             int sk, int d, float scale, int causal) {
-  using L = FwdLayout;
+  using L = FwdLayout<kResident>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -228,20 +266,26 @@ flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x >= kFwdConsumers) {
     // Producer warp: one thread starts every copy. Per key tile, D's K
-    // boxes in order, then the chunk's V tile.
+    // boxes in order (each with its Q box where Q streams), then the
+    // chunk's V tile.
     if (threadIdx.x == kFwdConsumers) {
-      mbar_arrive_expect_tx(q_full, n_boxes * kBox);
-      for (int c = 0; c < n_boxes; ++c) {
-        tma_load_3d(q_s + c * kBox, &tm_q, q_full, 64 * c, q0, bh);
+      if (kResident) {
+        mbar_arrive_expect_tx(q_full, n_boxes * kBox);
+        for (int c = 0; c < n_boxes; ++c) {
+          tma_load_3d(q_s + c * kBox, &tm_q, q_full, 64 * c, q0, bh);
+        }
       }
       int kn = 0;
       for (int kb = 0; kb < n_kb; ++kb) {
         for (int c = 0; c < n_boxes; ++c, ++kn) {
           const int s = slot_of<kFwdKStages>(kn);
+          const uint32_t slot = k_s + s * L::kSlot;
           mbar_wait(k_empty(s), parity_of<kFwdKStages>(kn) ^ 1);
-          mbar_arrive_expect_tx(k_full(s), kBox);
-          tma_load_3d(k_s + s * kBox, &tm_k, k_full(s), 64 * c,
-                      kb * kFwdKeys, kv_bh);
+          mbar_arrive_expect_tx(k_full(s), L::kSlot);
+          tma_load_3d(slot, &tm_k, k_full(s), 64 * c, kb * kFwdKeys, kv_bh);
+          if (!kResident) {
+            tma_load_3d(slot + kBox, &tm_q, k_full(s), 64 * c, q0, bh);
+          }
         }
         const int s = slot_of<kFwdVStages>(kb);
         mbar_wait(v_empty(s), parity_of<kFwdVStages>(kb) ^ 1);
@@ -271,10 +315,10 @@ flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < kFwdKeys / 2; ++i) sc[i] = 0.f;
 
-  mbar_wait(q_full, 0);
-  // Q times the scale rounded to T, rounded to T in place over all of D
-  // (elementwise, so the swizzle does not matter).
-  {
+  // Held Q times the scale rounded to T, rounded to T in place over all of
+  // D (elementwise, so the swizzle does not matter).
+  if (kResident) {
+    mbar_wait(q_full, 0);
     const float scale_t = round_to<T>(scale);
     uint4* rows = reinterpret_cast<uint4*>(smem + L::kQ);
     for (int i = tid; i < n_boxes * 64 * 8; i += kFwdConsumers) {
@@ -297,12 +341,13 @@ flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     int pending = -1;
     for (int c = 0; c < n_boxes; ++c, ++kn) {
       const int s = slot_of<kFwdKStages>(kn);
+      const uint32_t slot = k_s + s * L::kSlot;
+      const uint32_t qbox = kResident ? q_s + c * kBox : slot + kBox;
       mbar_wait(k_full(s), parity_of<kFwdKStages>(kn));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_ss<T, kFwdKeys>(sc,
-                              sw128_desc(q_s + c * kBox + kk * 32, 16, 1024),
-                              sw128_desc(k_s + s * kBox + kk * 32, 16, 1024),
+        wgmma_ss<T, kFwdKeys>(sc, sw128_desc(qbox + kk * 32, 16, 1024),
+                              sw128_desc(slot + kk * 32, 16, 1024),
                               c > 0 || kk > 0);
       }
       wgmma_commit();
@@ -387,15 +432,22 @@ flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       lse[(size_t)bh * sq + row] = m[h] + logf(lt);
     }
   }
-  // Stage O in Q's first four boxes (the last wgmma reading them has
-  // completed; D > 256 gives Q at least five), in the swizzle the TMA
-  // store reads.
-  stage_acc<T, kChunk>(smem + L::kQ, kBox, 0, r_local, col_lane, o, inv);
+  // Stage O, in the swizzle the TMA store reads, in held Q's first four
+  // boxes (a warp's rows of Q, which only its own completed wgmma read;
+  // D > 256 gives Q at least five), or where Q streams in the V ring once
+  // every warp's last products (reading all of a V tile's rows) are done.
+  uint32_t o_s = q_s;
+  if (!kResident) {
+    o_s = v_s;
+    named_barrier_sync(1, kFwdConsumers);
+  }
+  stage_acc<T, kChunk>(smem + (o_s - base), kBox, 0, r_local, col_lane, o,
+                       inv);
   fence_proxy_async();
   named_barrier_sync(1, kFwdConsumers);
   if (tid == 0) {
     for (int j = 0; j < kChunkBoxes && c0 + 64 * j < d; ++j) {
-      tma_store_3d(&tm_o, q_s + j * kBox, c0 + 64 * j, q0, bh);
+      tma_store_3d(&tm_o, o_s + j * kBox, c0 + 64 * j, q0, bh);
     }
     tma_store_commit_and_wait();
   }
@@ -423,7 +475,8 @@ struct DkvLayout {
   // A ring slot: the Q box, the dO box and, when K and V stream, their
   // boxes of the CTA's keys.
   static constexpr int kSlot = 2 * kRowBox + (kResident ? 0 : 2 * kBox);
-  static constexpr int kMaxBoxes = (kResident ? 512 : kMaxD) / 64;
+  // D's boxes of K and V held at most; streamed, D is not bounded here.
+  static constexpr int kMaxBoxes = 512 / 64;
   // Barriers in the first 512 bytes (kv_full; full and empty per ring
   // slot; stat_full and stat_empty per stats slot), the two stats slots
   // (LSE * log2 e and delta of 32 rows) in the next 512.
@@ -437,8 +490,7 @@ struct DkvLayout {
 };
 static_assert(DkvLayout<true>::alloc(DkvLayout<true>::kMaxBoxes) <=
                       kSmemLimit &&
-                  DkvLayout<false>::alloc(DkvLayout<false>::kMaxBoxes) <=
-                      kSmemLimit,
+                  DkvLayout<false>::alloc(0) <= kSmemLimit,
               "over the 227 KB a block may use");
 // The epilogue stages the CTA's dK and dV (a box a warpgroup each) in the
 // ring.
@@ -761,7 +813,8 @@ struct DqLayout {
   // A ring slot: the K box, the V box and, when Q and dO stream, their
   // boxes of the CTA's rows.
   static constexpr int kSlot = 2 * kKeyBox + (kResident ? 0 : 2 * kBox);
-  static constexpr int kMaxBoxes = (kResident ? 512 : kMaxD) / 64;
+  // D's boxes of Q and dO held at most; streamed, D is not bounded here.
+  static constexpr int kMaxBoxes = 512 / 64;
   // Barriers in the first 512 bytes (qo_full; full and empty per ring
   // slot), delta of the CTA's 64 rows (f32) in the next 512.
   static constexpr int kDelta = 512;
@@ -774,8 +827,7 @@ struct DqLayout {
 };
 static_assert(DqLayout<true>::alloc(DqLayout<true>::kMaxBoxes) <=
                       kSmemLimit &&
-                  DqLayout<false>::alloc(DqLayout<false>::kMaxBoxes) <=
-                      kSmemLimit,
+                  DqLayout<false>::alloc(0) <= kSmemLimit,
               "over the 227 KB a block may use");
 // The epilogue stages the CTA's dQ chunk (64 rows) in the ring, and a
 // tile's chunk boxes stay in the ring for the products.
@@ -1090,10 +1142,21 @@ flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host -----------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kResident>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-               float scale, int causal, cudaStream_t stream) {
+               void* lse, void* work, int batch, int hq, int hkv, int sq,
+               int sk, int d, float scale, int causal, cudaStream_t stream) {
+  if (!kResident) {
+    // The streamed boxes arrive as they are: the pre-pass writes q * scale
+    // rounded to T into work once, and the boxes stream from there.
+    const size_t n = (size_t)batch * hq * sq * d / 8;
+    const int blocks = (int)std::min<size_t>((n + 255) / 256, 132 * 16);
+    wide_q_scale_kernel<T><<<blocks, 256, 0, stream>>>(
+        static_cast<const uint4*>(q), static_cast<uint4*>(work), n, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    q = work;
+  }
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   CUresult res = encode_3d<T>(&tm_q, q, batch * hq, sq, d, kFwdRows);
   if (res == CUDA_SUCCESS)
@@ -1103,8 +1166,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   if (res == CUDA_SUCCESS) res = encode_3d<T>(&tm_o, o, batch * hq, sq, d, 64);
   if (res != CUDA_SUCCESS) return -(int)res;
 
-  auto kernel = flash_fwd_wide_wgmma_kernel<T>;
-  const int smem = FwdLayout::alloc((d + 63) / 64);
+  auto kernel = flash_fwd_wide_wgmma_kernel<T, kResident>;
+  const int smem = FwdLayout<kResident>::alloc((d + 63) / 64);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1114,6 +1177,17 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                                               static_cast<float*>(lse), hq,
                                               hkv, sq, sk, d, scale, causal);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_fwd(const void* q, const void* k, const void* v, void* o,
+                 void* lse, void* work, int batch, int hq, int hkv, int sq,
+                 int sk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= kFwdResidentMaxD)
+    return launch_fwd<T, true>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk,
+                               d, scale, causal, s);
+  return launch_fwd<T, false>(q, k, v, o, lse, work, batch, hq, hkv, sq, sk,
+                              d, scale, causal, s);
 }
 
 template <typename T, bool kResident>
@@ -1199,40 +1273,46 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
 }
 
 bool bad_dims(int d, int dtype) {
-  return d <= 256 || d > kMaxD || d % 8 != 0 || (dtype != 1 && dtype != 2);
+  return d <= 256 || d % 8 != 0 || (dtype != 1 && dtype != 2);
 }
 
 }  // namespace
 
 // q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o [B, Hq, Sq, D], all contiguous,
 // of one type (dtype 1: bf16, 2: f16) with 16-byte aligned bases; lse
-// [B, Hq, Sq] f32; D a multiple of 8 above 256, at most 1024. Returns 0, a
-// cudaError_t, or minus a CUresult when a tensor map cannot be encoded.
+// [B, Hq, Sq] f32; work a buffer shaped and typed like q, 16-byte aligned,
+// which the kernel fills with q * scale rounded to T where Q streams (D
+// above 1024; below, it is not touched and may be null); D a multiple of 8
+// above 256. Returns 0, a cudaError_t, or minus a CUresult when a tensor
+// map cannot be encoded.
 extern "C" int flash_attention_fwd_wide_wgmma(const void* q, const void* k,
                                               const void* v, void* o,
-                                              void* lse, int batch, int hq,
-                                              int hkv, int sq, int sk, int d,
+                                              void* lse, void* work,
+                                              int batch, int hq, int hkv,
+                                              int sq, int sk, int d,
                                               float scale, int causal,
                                               int dtype, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 ||
       bad_dims(d, dtype) ||
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ||
-      (sq + 63) / 64 > 65535) {
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)work) % 16 ||
+      (d > kFwdResidentMaxD && work == nullptr) || (sq + 63) / 64 > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 2
-             ? launch_fwd<__half>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d,
-                                  scale, causal, s)
-             : launch_fwd<__nv_bfloat16>(q, k, v, o, lse, batch, hq, hkv, sq,
-                                         sk, d, scale, causal, s);
+             ? dispatch_fwd<__half>(q, k, v, o, lse, work, batch, hq, hkv, sq,
+                                    sk, d, scale, causal, s)
+             : dispatch_fwd<__nv_bfloat16>(q, k, v, o, lse, work, batch, hq,
+                                           hkv, sq, sk, d, scale, causal, s);
 }
 
 // q, o, dout, dq [B*H, Sq, D]; k, v [B*H, Sk, D]: contiguous, of one type
 // (dtype 1: bf16, 2: f16), with 16-byte aligned bases; lse [B*H, Sq] f32 as
 // the forward writes it; delta [B*H, Sq] f32, written with rowsum(dO * O)
-// for the dK/dV kernel (not null); D a multiple of 8 above 256, at most
-// 1024. The arguments of flash_attention_bwd_dq_wide.
+// for the dK/dV kernel (not null); D a multiple of 8 above 256 (Q and dO
+// held in shared memory up to 512, streamed above). The arguments of
+// flash_attention_bwd_dq_wide.
 extern "C" int flash_attention_bwd_dq_wide_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta, int bh, int sq,
@@ -1255,7 +1335,8 @@ extern "C" int flash_attention_bwd_dq_wide_wgmma(
 // q, dout [B*H, Sq, D]; k, v, dk, dv [B*H, Sk, D]: contiguous, of one type
 // (dtype 1: bf16, 2: f16), with 16-byte aligned bases; lse [B*H, Sq] f32 as
 // the forward writes it; delta [B*H, Sq] f32 = rowsum(dO * O), as the wide
-// dQ kernel writes it; D a multiple of 8 above 256, at most 1024.
+// dQ kernel writes it; D a multiple of 8 above 256 (K and V held in shared
+// memory up to 512, streamed above).
 extern "C" int flash_attention_bwd_dkv_wide_wgmma(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,

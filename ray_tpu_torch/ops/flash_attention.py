@@ -16,19 +16,21 @@ on the CUDA cores as ``"tiled_f32"``: the forward, dQ and dK/dV templates
 of ``csrc/flash_attention_wide_f32.cu`` at instances whose block covers
 all of D (register-tiled f32 FMAs fed by a cp.async ring), whose f32
 arithmetic the f32 limits rest on. Above head_dim 256 the kernels split
-the head dimension of their output across blocks: bf16 and f16 up to
-head_dim 1024 (``WIDE_WGMMA_MAX_D``) take the ``"wide_wgmma"`` kernels on
-the tensor cores (``csrc/flash_attention_wide_wgmma.cu``: 256 columns of
-O, of dQ and 128 of dK/dV a block, the score reduction streamed over D in
-64-column TMA boxes); f32 at every multiple of 8 above 256 takes the
-``"wide_f32"`` kernels on the CUDA cores (the wide instances of the same
-templates: 256 columns of O, 512 of dQ and 256 of dK and dV a block);
-bf16/f16 above 1024 take the ``"wide"`` variant, all three kernels on the
-CUDA cores in ``csrc/flash_attention_wide.cu`` (64-column chunks, any
-multiple of 8). Every dQ kernel but ``"wide"``'s writes delta =
-rowsum(dO * O) for its dK/dV kernel. The earlier f32 kernels up to 256,
-``"simt"`` (``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``), stay, reached by no rule. No variant
+the head dimension of their output across blocks: bf16 and f16 at every
+multiple of 8 above 256 take the ``"wide_wgmma"`` kernels on the tensor
+cores (``csrc/flash_attention_wide_wgmma.cu``: 256 columns of O, of dQ
+and 128 of dK/dV a block, the score reduction streamed over D in
+64-column TMA boxes; the forward's Q rows held in shared memory up to
+head_dim 1024 and streamed with the K boxes above, from a copy of q *
+scale that a pre-pass writes into a buffer this wrapper allocates); f32
+at every multiple of 8 above 256 takes the ``"wide_f32"`` kernels on the
+CUDA cores (the wide instances of the same templates: 256 columns of O,
+512 of dQ and 256 of dK and dV a block). Every dQ kernel but ``"wide"``'s
+writes delta = rowsum(dO * O) for its dK/dV kernel. The earlier kernels
+stay, reached by no rule: ``"simt"``, the f32 kernels up to 256
+(``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``),
+and ``"wide"``, the CUDA-core kernels above 256 (``csrc/flash_attention_
+wide.cu``, 64-column chunks of the output, any multiple of 8). No variant
 gives way to another on an error: a wrapper launches its kernel for CUDA
 tensors and raises on what it does not take; it runs a plain version only
 for tensors on the CPU.
@@ -70,7 +72,8 @@ wgmma_launches = 0  # forward on the tensor cores (bf16/f16, D <= 256)
 tiled_f32_launches = 0    # forward on the CUDA cores (f32, D <= 256)
 simt_launches = 0   # the earlier f32 forward (D <= 256), reached by no
                     # rule: stays 0 on every path
-wide_launches = 0   # forward with D above 256 on the CUDA cores (bf16/f16)
+wide_launches = 0   # forward with D above 256 on the CUDA cores (bf16/f16),
+                    # reached by no rule: stays 0 on every path
 wide_wgmma_launches = 0   # forward with D above 256 on the tensor cores
 wide_f32_launches = 0     # forward with D above 256 in f32
 dq_launches = 0     # backward dQ, every variant
@@ -82,7 +85,7 @@ dkv_tiled_f32_launches = 0
 dq_simt_launches = 0    # the earlier f32 pair (D <= 256), reached by no
 dkv_simt_launches = 0   # rule: stays 0 on every path
 dq_wide_launches = 0    # backward on the CUDA cores, bf16/f16 with D
-dkv_wide_launches = 0   # above WIDE_WGMMA_MAX_D
+dkv_wide_launches = 0   # above 256, reached by no rule: stays 0
 dq_wide_wgmma_launches = 0    # backward with D above 256 on the tensor cores
 dkv_wide_wgmma_launches = 0
 dq_wide_f32_launches = 0      # backward with D above 256 in f32
@@ -90,7 +93,6 @@ dkv_wide_f32_launches = 0
 plain_routes = 0    # calls that _attention_route sent to the plain path
 
 SIMT_MAX_D = 256   # the widest head_dim of the "tiled_f32" and "wgmma" kernels
-WIDE_WGMMA_MAX_D = 1024   # the widest head_dim of the "wide_wgmma" kernels
 MIN_KERNEL_LEN = 8   # a shorter Sq or Sk takes the plain path (reference)
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -116,7 +118,7 @@ _SIGNATURES = {
     ("flash_attention_wide", "flash_attention_bwd_dkv_wide"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_fwd_wide_wgmma"):
-        [_VP] * 5 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
+        [_VP] * 6 + [_CI] * 6 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_bwd_dq_wide_wgmma"):
         [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
     ("flash_attention_wide_wgmma", "flash_attention_bwd_dkv_wide_wgmma"):
@@ -137,8 +139,8 @@ _SIGNATURES = {
 # Each variant's kernels: (forward library, backward library, suffix of
 # their C entry points flash_attention_fwd, _bwd_dq and _bwd_dkv). The
 # dK/dV kernels of _READS_DELTA read delta from the dQ kernel of their
-# variant. "simt"'s kernels are reached by no rule (chip_smoke.py still
-# calls them).
+# variant. "simt"'s and "wide"'s kernels are reached by no rule
+# (chip_smoke.py still calls them).
 _LIBRARIES = {"wgmma": ("flash_attention_fwd_wgmma",
                         "flash_attention_bwd_wgmma", "_wgmma"),
               "simt": ("flash_attention_fwd", "flash_attention_bwd", ""),
@@ -335,13 +337,12 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
     every multiple of 8 up to ``SIMT_MAX_D`` (the kernels' template widths
     are 64, 128 and 256; a narrower head_dim runs the next one up,
     zero-padded); ``"wide_wgmma"`` (tensor cores, 256 columns of O per
-    block) for bf16 and f16 above it up to ``WIDE_WGMMA_MAX_D``, the most
-    whose Q rows fit a block's shared memory (128 KB: 128 rows at D = 512,
-    64 rows at D = 1024); ``"wide"`` (CUDA cores, 64 columns of O per
-    block, any width) for bf16 and f16 above ``WIDE_WGMMA_MAX_D``;
-    ``"wide_f32"`` (CUDA cores, 256 columns of O per block, any width) for
-    f32 above ``SIMT_MAX_D``; ``"tiled_f32"`` (CUDA cores, one block
-    across all of D) for f32 up to ``SIMT_MAX_D``. f32 stays off the
+    block, any width) for bf16 and f16 above it; ``"wide_f32"`` (CUDA
+    cores, 256 columns of O per block, any width) for f32 above
+    ``SIMT_MAX_D``; ``"tiled_f32"`` (CUDA cores, one block across all of
+    D) for f32 up to ``SIMT_MAX_D``. No rule reaches ``"simt"`` or
+    ``"wide"`` (the CUDA-core kernels that the tiled f32 and the
+    tensor-core wide ones replaced). f32 stays off the
     tensor cores at every width because TF32 products would break its
     limits (``testing.O_ROW_TOL``, ``GRAD_ROW_TOL``). A head_dim that is no
     multiple of 8, or a dtype no kernel takes, gets a variant whose
@@ -349,9 +350,7 @@ def _forward_variant(dtype: torch.dtype, D: int) -> str:
     plain path first)."""
     wgmma = dtype in WGMMA_DTYPES and D % 8 == 0
     if D > SIMT_MAX_D:
-        if dtype == torch.float32:
-            return "wide_f32"
-        return "wide_wgmma" if wgmma and D <= WIDE_WGMMA_MAX_D else "wide"
+        return "wide_wgmma" if wgmma else "wide_f32"
     return "wgmma" if wgmma else "tiled_f32"
 
 
@@ -375,6 +374,11 @@ def _launch(q, k, v, causal, scale):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
             int(bool(causal)))
+    if variant == "wide_wgmma":
+        # Room for q * scale rounded to q's dtype, which the kernel writes
+        # and streams where Q's rows outgrow shared memory (D above 1024).
+        work = torch.empty_like(q)
+        args = (*args[:5], work.data_ptr(), *args[5:])
     library, _, suffix = _LIBRARIES[variant]
     name = "flash_attention_fwd" + suffix
     err = _kernel_fn(library, name)(*args, _DTYPE_CODE[q.dtype], stream)

@@ -51,7 +51,6 @@ def test_attention_route_rule(D, dtype):
     dt = DTYPES[dtype]
     want = ("plain" if D == 12
             else "wide_f32" if D > 256 and dt == torch.float32
-            else "wide" if D > 1024
             else "wide_wgmma" if D > 256
             else "wgmma" if dt != torch.float32
             else "tiled_f32")
@@ -166,9 +165,11 @@ def test_flash_attention_grouped_plain_route_matches_reference():
 
 # Configs the reference computes and the port once refused on the card:
 # head_dim 12 (d_model 48 over 4 heads), head_dim 256 (d_model 512 over
-# 2), head_dim 264 and head_dim 512 (d_model 1024 over 2 heads), the last
-# two on the wide kernels' route, which computes on the card and runs the
-# plain version on the CPU.
+# 2), head_dim 264, head_dim 512 (d_model 1024 over 2 heads) and head_dim
+# 1032 (d_model 2064 over 2 heads: the tensor-core forward streams Q, and
+# its last 256-column chunk holds 8 columns), the last three on the wide
+# kernels' route, which computes on the card and runs the plain version
+# on the CPU.
 BASE = jm.TransformerConfig(vocab_size=64, d_model=48, n_layers=2,
                             n_heads=4, n_kv_heads=2, d_ff=64,
                             dtype=jnp.float32)
@@ -180,6 +181,8 @@ CONFIGS = {
                                  n_kv_heads=1, n_layers=1),
     "hd512": dataclasses.replace(BASE, d_model=1024, n_heads=2,
                                  n_kv_heads=2, n_layers=1),
+    "hd1032": dataclasses.replace(BASE, d_model=2064, n_heads=2,
+                                  n_kv_heads=2, n_layers=1),
 }
 
 
@@ -261,3 +264,29 @@ def test_low_precision_config_serves_like_reference(name, dtype):
         torch.from_numpy(table))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
                                atol=LOW_PRECISION_ATOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["hd512", "hd1032"])
+def test_wide_config_prefill_matches_reference(name):
+    """The wide configs in f32: prefill_with_cache logits (ragged lengths,
+    a paged cache) against the reference's at the forward's tolerance,
+    through the kernel route (the plain version on the CPU), no plain
+    route counted."""
+    cfg = CONFIGS[name]
+    jp, tp = _pair(cfg)
+    tcfg = _port_cfg(cfg)
+    tokens = np.random.default_rng(7).integers(0, 64, (2, 12)).astype(
+        np.int32)
+    table = np.arange(1, 4, dtype=np.int32)[None].repeat(2, 0)
+    table[1] += 3
+    lens = np.array([12, 9], np.int32)
+    jl, _ = jm.prefill_with_cache(cfg, jp, jm.init_kv_cache(cfg, 7, 4),
+                                  jnp.asarray(tokens), jnp.asarray(lens),
+                                  jnp.asarray(table))
+    before = fa.plain_routes
+    tl, _ = tm.prefill_with_cache(
+        tcfg, tp, tm.init_kv_cache(tcfg, 7, 4, device="cpu"),
+        torch.from_numpy(tokens), torch.from_numpy(lens),
+        torch.from_numpy(table))
+    assert fa.plain_routes == before
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)

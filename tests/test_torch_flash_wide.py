@@ -1,8 +1,8 @@
 """The wide flash kernels (head_dim above 256) on the CPU: the rule of
-shapes that sends bf16 and f16 up to head_dim 1024 to the tensor-core
-forward, dQ and dK/dV kernels (``"wide_wgmma"``) and f32 at every width
-to the f32 CUDA-core forward, dQ and dK/dV kernels (``"wide_f32"``), and
-the plain versions the card holds them against.
+shapes that sends bf16 and f16 at every width to the tensor-core forward,
+dQ and dK/dV kernels (``"wide_wgmma"``) and f32 at every width to the f32
+CUDA-core forward, dQ and dK/dV kernels (``"wide_f32"``), and the plain
+versions the card holds them against.
 
 ``_dense_kernel`` (the forward's rounding points) is held against the
 reference's Pallas ``_attn_kernel`` in interpret mode (``_flash_forward``
@@ -70,15 +70,13 @@ def _launches():
                                    torch.float16])
 @pytest.mark.parametrize("D", [264, 384, 512, 1024, 1032, 2048])
 def test_wide_rule_of_shapes(dtype, D):
-    """Above 256: bf16 and f16 up to 1024 take the tensor-core forward, dQ
-    and dK/dV, f32 at every width the f32 CUDA-core forward, dQ and dK/dV
-    (TF32 would break its limits); bf16 and f16 wider than 1024 (Q's rows
-    no longer fit a block's shared memory) keep the CUDA-core wide
-    kernels, all three. Both backward kernels take the forward's
-    variant."""
-    f32 = dtype == torch.float32
-    tensor_cores = not f32 and D <= fa.WIDE_WGMMA_MAX_D
-    fwd = "wide_f32" if f32 else "wide_wgmma" if tensor_cores else "wide"
+    """Above 256: bf16 and f16 at every width take the tensor-core
+    forward, dQ and dK/dV (wider than 1024 the forward streams Q's rows,
+    which no longer fit a block's shared memory), f32 at every width the
+    f32 CUDA-core forward, dQ and dK/dV (TF32 would break its limits); the
+    CUDA-core wide kernels ("wide") are reached at none. Both backward
+    kernels take the forward's variant."""
+    fwd = "wide_f32" if dtype == torch.float32 else "wide_wgmma"
     assert fa._forward_variant(dtype, D) == fwd
     assert fa._attention_route(dtype, D) == fwd
     assert fa._attention_route(dtype, D, 8, 8) == fwd

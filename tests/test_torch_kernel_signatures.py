@@ -110,13 +110,14 @@ def test_every_backward_variant_of_the_rule_names_its_entry_points():
     backward alike) can return, at every head_dim that is a multiple of 8
     up to 2048 in each dtype, is in ``_LIBRARIES`` with its dQ and dK/dV
     entry points: f32 up to 256 the ``"tiled_f32"`` pair, never
-    ``"simt"``'s."""
+    ``"simt"``'s; bf16 and f16 above 256 the tensor-core wide kernels,
+    never ``"wide"``'s."""
     import torch
 
     seen = {fa._forward_variant(dtype, D)
             for dtype in (torch.float32, torch.bfloat16, torch.float16)
             for D in range(8, 2049, 8)}
-    assert seen == {"tiled_f32", "wgmma", "wide_f32", "wide_wgmma", "wide"}
+    assert seen == {"tiled_f32", "wgmma", "wide_f32", "wide_wgmma"}
     for variant in seen:
         _, bwd_lib, suffix = fa._LIBRARIES[variant]
         for kind in ("dq", "dkv"):
@@ -153,3 +154,25 @@ def test_variant_counts_its_backward_launches_under_its_name(variant):
         assert re.search(r'variant == "' + variant + r'":\n\s+' + counter
                          + r" \+= 1", source), (kind, variant)
         assert "raise RuntimeError" in source.split(counter)[-1]
+
+
+@pytest.mark.parametrize("variant", ["wide", "simt"])
+def test_earlier_variant_is_reached_by_no_rule_but_keeps_its_kernels(
+        variant):
+    """No dtype at any head_dim that is a multiple of 8 up to 8192 routes
+    to the earlier CUDA-core kernels (``"wide"`` above 256, ``"simt"`` up
+    to it), on the forward's rule or the route rule; each keeps its three
+    C entry points in ``_SIGNATURES`` and in its source, which chip_smoke.py
+    calls by name as the baseline."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for D in range(8, 8193, 8):
+            assert fa._forward_variant(dtype, D) != variant, (dtype, D)
+            assert fa._attention_route(dtype, D, 64, 64) != variant
+    fwd_lib, bwd_lib, suffix = fa._LIBRARIES[variant]
+    for lib, name in ((fwd_lib, "flash_attention_fwd" + suffix),
+                      (bwd_lib, "flash_attention_bwd_dq" + suffix),
+                      (bwd_lib, "flash_attention_bwd_dkv" + suffix)):
+        assert (lib, name) in fa._SIGNATURES
+        assert (lib, name) in ENTRY_POINTS

@@ -216,7 +216,8 @@ def test_flash_wgmma_zero_fills_past_head_dim(cuda_device, dtype, D, causal):
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 264, "wide_f32"),
     (torch.bfloat16, 512, "wide_wgmma"), (torch.float16, 256, "wgmma"),
     (torch.float16, 200, "wgmma"), (torch.float32, 256, "tiled_f32"),
-    (torch.float16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide")])
+    (torch.float16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide_wgmma"),
+    (torch.float16, 2048, "wide_wgmma")])
 def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                         D, variant):
     q, k, v = _qkv(7, 1, 2, 2, 96, 96, D, dtype, cuda_device)
@@ -232,9 +233,11 @@ def test_flash_forward_launches_the_variant_of_its_rule(cuda_device, dtype,
 # output split across blocks): bf16 and f16 the tensor-core forward, dQ
 # and dK/dV, f32 the f32 CUDA-core forward, dQ and dK/dV. 264 has a last
 # chunk of 8 columns, 384 is no multiple of the tensor-core forward's
-# 256-column chunk, 1024 the widest the tensor cores take (K and V then
-# stream in dK/dV). MHA and GQA forward, ragged lengths, Sq != Sk.
-WIDE_DIMS = [264, 384, 512, 1024]
+# 256-column chunk, 1024 the widest whose Q rows the tensor-core forward
+# holds (K and V stream in dK/dV), 1032 and 2048 stream Q in the forward
+# (1032: 8 real columns in the last 64-column box and the last chunk of
+# O, dQ and dK/dV). MHA and GQA forward, ragged lengths, Sq != Sk.
+WIDE_DIMS = [264, 384, 512, 1024, 1032, 2048]
 
 
 def _wide_variant(dtype):
@@ -275,6 +278,38 @@ def test_flash_wide_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
     grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
     torch.cuda.synchronize()
     got, want = _backward_launched(before, _wide_variant(dtype))
+    assert got == want
+    ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        err = grad_row_error(g, r)
+        assert err <= GRAD_ROW_TOL[dtype], (name, err)
+
+
+# The tensor-core wide kernels at head_dim 4096 on a short length: 64
+# boxes of the score reduction, 16 chunks of O and dQ and 32 of dK/dV,
+# GQA over 2 KV heads in the forward.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_wgmma_at_4096_matches_plain(cuda_device, dtype, causal):
+    D = 4096
+    q, k, v = _qkv(16, 1, 4, 2, 40, 72, D, dtype, cuda_device)
+    before = _forward_counts()
+    o, lse = fa._flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = _forward_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "wide_wgmma") for n in after}
+    ro, rlse = fa._dense_kernel(q, k, v, causal, D ** -0.5)
+    _assert_close(o, lse, ro, rlse)
+    k, v = (torch.repeat_interleave(t, 2, dim=1) for t in (k, v))
+    o, lse = fa._flash_forward(q, k, v, causal)
+    do = _qkv(17, 1, 4, 4, 40, 40, D, dtype, cuda_device)[0]
+    before = _backward_counts()
+    grads = fa._flash_backward(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    got, want = _backward_launched(before, "wide_wgmma")
     assert got == want
     ref = fa._dense_backward(q, k, v, o, lse, do, causal, D ** -0.5)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
@@ -394,8 +429,9 @@ def test_flash_wide_f32_zero_fills_past_head_dim(cuda_device, causal):
 
 
 # The wide dQ kernels on their own (``_launch_dq``): the tensor-core one
-# (bf16, f16 up to 1024: 264 has a second 256-column chunk of 8 columns,
-# 384 a ragged one, 1024 streams Q and dO with K and V) and the f32 one
+# (bf16, f16: 264 has a second 256-column chunk of 8 columns, 384 a
+# ragged one, 1024 streams Q and dO with K and V, 1032 a last chunk of 8
+# columns, 2048 32 boxes) and the f32 one
 # (264 and 1032: a last slice of 8 columns; 2048: eight slices), against
 # the plain backward's dQ per row (f32: the same formula in float64, as
 # ROADMAP C.9 proposes: at D=2048 the f32 plain dQ's causal first row, 0
@@ -406,7 +442,7 @@ def test_flash_wide_f32_zero_fills_past_head_dim(cuda_device, causal):
 # entry point) on the same inputs. Ragged lengths, Sq > Sk and Sq < Sk,
 # Sq = 3, causal and not.
 WIDE_DQ_CASES = ([(dt, D) for dt in (torch.bfloat16, torch.float16)
-                  for D in (264, 384, 512, 1024)]
+                  for D in (264, 384, 512, 1024, 1032, 2048)]
                  + [(torch.float32, D) for D in (264, 512, 1024, 1032, 2048)])
 
 
@@ -478,8 +514,33 @@ def test_flash_wide_dq_kernels_refuse_what_they_do_not_take(cuda_device):
         if dtype == torch.bfloat16:
             assert fn(*p, lse.data_ptr(), 2, 64, 64, 256, 0.1, 1, code,
                       stream) == 1
-            assert fn(*p, lse.data_ptr(), 2, 64, 64, 1032, 0.1, 1, code,
+            assert fn(*p, lse.data_ptr(), 2, 64, 64, 1036, 0.1, 1, code,
                       stream) == 1
+
+
+@pytest.mark.cuda
+def test_flash_wide_wgmma_forward_refuses_what_it_does_not_take(cuda_device):
+    """Above head_dim 1024 (Q streams from the pre-pass's buffer) no
+    work buffer, or a misaligned one; a head_dim no multiple of 8:
+    cudaErrorInvalidValue (1), no launch. At 1024 (Q held) no buffer is
+    needed."""
+    fn = fa._kernel_fn("flash_attention_wide_wgmma",
+                       "flash_attention_fwd_wide_wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+    for D in (1024, 1032):
+        q, k, v = _qkv(27, 1, 2, 2, 64, 64, D, torch.bfloat16, cuda_device)
+        o = torch.empty_like(q)
+        lse = torch.empty((1, 2, 64), device=cuda_device)
+        work = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda_device)
+        p = [t.data_ptr() for t in (q, k, v, o, lse)]
+        shape = (1, 2, 2, 64, 64)
+        want = 1 if D > 1024 else 0
+        assert fn(*p, None, *shape, D, D ** -0.5, 1, 1, stream) == want
+        assert fn(*p, work.data_ptr() + 2, *shape, D, D ** -0.5, 1, 1,
+                  stream) == 1
+        assert fn(*p, work.data_ptr(), *shape, D - 4, D ** -0.5, 1, 1,
+                  stream) == 1
+    torch.cuda.synchronize()
 
 
 # The f32 forward up to head_dim 256 ("tiled_f32": the forward template
@@ -845,8 +906,9 @@ def test_flash_wgmma_backward_matches_plain(cuda_device, dtype, D, Sq, Sk,
     (torch.bfloat16, 256, "wgmma"), (torch.float16, 264, "wide_wgmma"),
     (torch.float32, 1024, "wide_f32"), (torch.float16, 128, "wgmma"),
     (torch.bfloat16, 200, "wgmma"), (torch.float32, 256, "tiled_f32"),
-    (torch.bfloat16, 1024, "wide_wgmma"), (torch.bfloat16, 1032, "wide"),
-    (torch.float32, 264, "wide_f32"), (torch.float16, 2048, "wide")])
+    (torch.bfloat16, 1024, "wide_wgmma"),
+    (torch.bfloat16, 1032, "wide_wgmma"), (torch.float32, 264, "wide_f32"),
+    (torch.float16, 2048, "wide_wgmma")])
 def test_flash_backward_launches_the_variant_of_its_rule(cuda_device, dtype,
                                                          D, variant):
     q, k, v = _qkv(11, 1, 2, 2, 96, 96, D, dtype, cuda_device)
