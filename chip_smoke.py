@@ -127,7 +127,18 @@ non-zero without printing a result. Without a CUDA card, or without the
    (make_train_step) on one fixed batch: finite losses, the last below
    the first, and the step time as a smoke reading; then 2 more steps
    under torch.profiler split the step into kernel time (flash kernels
-   and the rest) and the device's idle share.
+   and the rest) and the device's idle share. The flagship (MHA) then
+   takes one more step under ray_tpu_torch.util.profiling.profile_trace
+   inside an annotate span: the Chrome trace must hold the span and, by
+   name, as many CUDA kernel events of the tensor-core forward, dQ and
+   dK/dV as the launch counters say ran (one line prints the counts).
+   Last, checkpoints (ray_tpu_torch.train.Checkpoint): 4 bf16 AdamW steps
+   from f32 masters run through, against 2 steps, a checkpoint of the
+   parameters and the AdamW state in a temporary directory, a fresh step
+   built from other initial weights with both restored, and 2 more:
+   losses and parameters equal bit for bit (a second uninterrupted run
+   says whether an op is nondeterministic); save and load ms and the
+   checkpoint's bytes are printed.
 6. spec_disagg: speculative decoding and the engine side of
    disaggregated serving at the flagship's width, on phase 4's 8 prompts
    (32 new tokens, spec_k 4, 512 blocks), through the engines' paged
@@ -222,13 +233,19 @@ non-zero without printing a result. Without a CUDA card, or without the
    CartPole, PPO with hidden (64, 64), 64 envs x 128 steps. A rollout
    captured as one CUDA graph equals the same rollout run eagerly from
    the same generator state (twice in a row, generators left in the same
-   state), and a PPO update captured as a graph equals it run eagerly. 10
+   state), and a PPO update captured as a graph equals it run eagerly.
+   IMPALA's V-trace update (ray_tpu_torch.rl.IMPALA) at its defaults (32
+   envs x 64 steps) and at 64 x 128, on the runner's rollouts: as a graph
+   equal to the same update run eagerly from the same state, twice in a
+   row; then 5 more updates each way, finite, the graph replayed once per
+   update, both timed. 10
    PPO iterations (lr 3e-3, tests/test_rl.py's learning check): the last
    episode_len_mean above 1.5x the first; then a greedy evaluate. 3 DQN
    iterations past min_buffer_size give finite losses; 3 MultiAgentPPO
    iterations on the coordination game. Smoke readings: env steps/s of
    the 64 x 128 rollout eager and as a graph, bench.py's 64 x 512 rollout
-   both ways, host launches per rollout both ways, PPO update ms, DQN
+   both ways, host launches per rollout both ways, PPO update ms, IMPALA
+   update ms (graph and eager), DQN
    train_many ms (one iteration of 32 steps, sampling included), and the
    device's idle share over one Algorithm.train under torch.profiler. No
    kernel of phases 1-2 runs here: the RL programs are small tensor ops.
@@ -243,10 +260,12 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -422,6 +441,17 @@ RMS_CAST_FIRST_SHAPE = (4 * 2048 + 100, 512)
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
 PROFILED_STEPS = 2   # bf16 steps traced by torch.profiler after the 5
+# Phase 5 (d): one bf16 step traced by profile_trace must hold its
+# annotate span and the tensor-core kernels that the launch counters say
+# ran. (e): the flagship's AdamW steps resumed from a checkpoint taken
+# after RESUME_AT of RESUME_STEPS steps must equal the uninterrupted run
+# bit for bit (the same operations on the same values; the flash backward
+# pair uses no atomics).
+RESUME_STEPS, RESUME_AT = 4, 2
+TRACE_SPAN = "chip_smoke_train_step"
+TRACE_KERNELS = {"wgmma": "flash_fwd_wgmma_kernel",
+                 "dq_wgmma": "flash_bwd_dq_wgmma_kernel",
+                 "dkv_wgmma": "flash_bwd_dkv_wgmma_kernel"}
 # Phase 6: speculative decoding and KV shipping on phase 4's prompts.
 SPEC_K = 4
 SPEC_NUM_BLOCKS = 512
@@ -440,6 +470,9 @@ RL_PPO_ITERS, RL_PPO_LR, RL_IMPROVE = 10, 3e-3, 1.5
 RL_DQN_ITERS, RL_MA_ITERS = 3, 3
 RL_TIMED = 5   # samples or updates per smoke reading
 RL_GRAPH_TOL = 1e-5
+# IMPALA's learner at its defaults (32 envs x 64 steps, hidden (64, 64))
+# and at phase 12's PPO sample size.
+RL_IMPALA_SIZES = ((32, 64), (RL_ENVS, RL_ROLLOUT))
 
 
 _STARTED = time.perf_counter()
@@ -1949,6 +1982,95 @@ def _profile_steps(step, inputs, targets, steps=PROFILED_STEPS):
             "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]}
 
 
+def _resumed_steps(cfg, dev, inputs, targets):
+    """Phase 5 (e): RESUME_STEPS bf16 AdamW steps (make_train_step, f32
+    masters) run through, against RESUME_AT steps, a checkpoint of the
+    parameters and the optimizer's state in a temporary directory, a
+    fresh step built from other initial weights with both restored, and
+    the remaining steps. A second uninterrupted run tells a
+    nondeterministic op apart from a faulty checkpoint."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.train import Checkpoint
+
+    def steps(step, n):
+        return [step(inputs, targets).item() for _ in range(n)]
+
+    runs = []
+    for _ in range(2):
+        params = tm.init_params(cfg, SEED, device=dev)
+        runs.append((steps(tm.make_train_step(cfg, params), RESUME_STEPS),
+                     params))
+    (want, ref), (again, ref_again) = runs
+    first = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, first)
+    got = steps(step, RESUME_AT)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = Checkpoint.from_pytree(
+            {"params": first, "opt": step.optimizer.state_dict()},
+            os.path.join(tmp, "ck"))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size
+                     for f in Path(ck.as_directory()).rglob("*"))
+        del first, step
+        fresh = tm.init_params(cfg, SEED + 1, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ck.to_pytree(device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    src = dict(_named_leaves(restored["params"]))
+    with torch.no_grad():
+        for name, t in _named_leaves(fresh):
+            t.copy_(src[name])
+    step = tm.make_train_step(cfg, fresh)
+    step.optimizer.load_state_dict(restored["opt"])
+    got += steps(step, RESUME_STEPS - RESUME_AT)
+    diff = {n: (t - r).abs().max().item() for (n, t), (_, r) in zip(
+        _named_leaves(fresh), _named_leaves(ref))}
+    diff_again = {n: (t - r).abs().max().item() for (n, t), (_, r) in zip(
+        _named_leaves(ref_again), _named_leaves(ref))}
+    ok = got == want and not any(diff.values())
+    return ok, {"steps": RESUME_STEPS, "checkpoint_after": RESUME_AT,
+                "losses_uninterrupted": want, "losses_resumed": got,
+                "param_max_abs_diff": max(diff.values()),
+                "leaves_differing": [n for n, d in diff.items() if d],
+                "uninterrupted_repeat_equal": again == want and not any(
+                    diff_again.values()),
+                "save_ms": save_ms, "load_ms": load_ms,
+                "checkpoint_bytes": nbytes}
+
+
+def _traced_step(dev, step, inputs, targets):
+    """Phase 5 (d): one bf16 step under profile_trace inside an annotate
+    span; the trace's CUDA kernel events by TRACE_KERNELS name, its span
+    events, and the launch counters over the same step."""
+    from ray_tpu_torch.util import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        _zero_counts()
+        with profiling.profile_trace(tmp, device=dev):
+            with profiling.annotate(TRACE_SPAN):
+                step(inputs, targets)
+            torch.cuda.synchronize()
+        counters = _counts()
+        (path,) = profiling.trace_files(tmp)
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    in_trace = {c: sum(name in e.get("name", "") for e in kernels)
+                for c, name in TRACE_KERNELS.items()}
+    spans = sum(e.get("name") == TRACE_SPAN for e in events)
+    launched = {c: counters[c] for c in TRACE_KERNELS}
+    ok = spans >= 1 and in_trace == launched and all(launched.values())
+    return ok, {"span_events": spans, "kernel_events": len(kernels),
+                "flash_kernel_events": in_trace,
+                "launch_counters": launched, "trace_bytes": trace_bytes}
+
+
 def phase_train(dev, card, base):
     from ray_tpu_torch import models as tm
 
@@ -2060,6 +2182,9 @@ def phase_train(dev, card, base):
                     "bf16_step_s": step_s,
                     "bf16_step_profile": _profile_steps(step, inputs,
                                                         targets)})
+        if name == "mha":   # (d) one more step, traced
+            traced_ok, res["traced_step"] = _traced_step(dev, step, inputs,
+                                                         targets)
         del params, step
         torch.cuda.empty_cache()
         if (counts != want or not all(np.isfinite(losses))
@@ -2068,6 +2193,22 @@ def phase_train(dev, card, base):
             raise AssertionError(f"{name}: bf16 steps gave losses {losses} "
                                  f"and launches {counts}, expected finite, "
                                  f"falling losses and {want}")
+        if name != "mha":
+            continue
+        emit({"train_trace": res["traced_step"], "card": card})
+        if not traced_ok:
+            emit({"phase": "train", "results": results})
+            raise AssertionError(
+                f"the profiled step's trace lacks its span or disagrees "
+                f"with the launch counters: {res['traced_step']}")
+        # (e) The flagship's steps resumed from a checkpoint.
+        resume_ok, res["resume"] = _resumed_steps(cfg, dev, inputs, targets)
+        torch.cuda.empty_cache()
+        emit({"train_resume": res["resume"], "card": card})
+        if not resume_ok:
+            emit({"phase": "train", "results": results})
+            raise AssertionError(f"the resumed steps differ from the "
+                                 f"uninterrupted run: {res['resume']}")
     emit({"phase": "train", "results": results})
     for name, res in results.items():
         later = sorted(res["bf16_step_s"][1:])
@@ -2734,6 +2875,51 @@ def _steps_per_s(runner, params, dev, n=RL_TIMED):
     return runner.steps_per_sample() * n / (time.perf_counter() - t0)
 
 
+def _impala_updates(env, dev, graph):
+    """Phase 12 (c'): IMPALA's update at RL_IMPALA_SIZES on the runner's
+    rollouts. A learner whose update is a graph against one that runs
+    the same update eagerly from the same state, twice in a row; then
+    RL_TIMED updates each way, timed (one host sync each, as ``update``
+    reads its loss), with finite losses and the graph replayed once per
+    update."""
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.ppo import leaves
+
+    out, ok = {}, True
+    for envs, T in RL_IMPALA_SIZES:
+        runner = rl.EnvRunner(env, envs, T, seed=SEED, device=dev)
+        graphed, eager = (rl.IMPALA(env, num_envs=envs, rollout_len=T,
+                                    seed=SEED, device=dev)
+                          for _ in range(2))
+        diff = {"loss": 0.0, "params": 0.0}
+        for _ in range(2):
+            ro = runner.sample(graphed.get_weights())
+            loss_g, loss_e = graphed.update(ro), float(eager._update(ro))
+            diff["loss"] = max(diff["loss"], abs(loss_g - loss_e))
+            diff["params"] = max(diff["params"], *(
+                (x - y).abs().max().item() for x, y in zip(
+                    leaves(graphed.params), leaves(eager.params))))
+        ro = runner.sample(graphed.get_weights())
+        ms, losses = {}, {}
+        for way, update in (("graph", graphed.update),
+                            ("eager", lambda r: float(eager._update(r)))):
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses[way] = [update(ro) for _ in range(RL_TIMED)]
+            _sync(dev)
+            ms[way] = (time.perf_counter() - t0) * 1e3 / RL_TIMED
+        (_, program), = graphed._programs.values()
+        replays_want = 2 + RL_TIMED if graph else 0
+        out[f"{envs}x{T}"] = {
+            "transitions": envs * T, "graph_vs_eager_max_diff": diff,
+            "tol": RL_GRAPH_TOL, "losses": losses,
+            "graph_replays": program.replays, "update_ms": ms}
+        ok = ok and (max(diff.values()) <= RL_GRAPH_TOL
+                     and all(np.isfinite(losses["graph"]))
+                     and program.replays == replays_want)
+    return out, ok
+
+
 def phase_rl(dev, card):
     """Phase 12 (see the module docstring): the RL slice at the
     reference's defaults."""
@@ -2802,6 +2988,7 @@ def phase_rl(dev, card):
     for _ in range(RL_TIMED):
         upd_g.update(ro)
     readings["ppo_update_ms"] = (time.perf_counter() - t0) * 1e3 / RL_TIMED
+    impala, impala_ok = _impala_updates(env, dev, graph)
     # (d) PPO training at the defaults (tests/test_rl.py's lr).
     algo = (rl.AlgorithmConfig("PPO", device=dev)
             .env_runners(num_envs_per_env_runner=RL_ENVS,
@@ -2843,6 +3030,7 @@ def phase_rl(dev, card):
         "update_graph_vs_eager": {"max_param_diff": update_diff,
                                   "loss": [loss_g, loss_e],
                                   "tol": RL_GRAPH_TOL},
+        "impala": impala,
         "ppo_episode_len_mean": lens, "ppo_greedy_return": greedy,
         "ppo_losses": [r["loss"] for r in ppo],
         "dqn_losses": dqn_losses,
@@ -2850,7 +3038,7 @@ def phase_rl(dev, card):
                          "losses": r["losses"]} for r in ma_out],
         "readings": readings, "card": card}
     emit({"phase": "rl", **result})
-    ok = (rollout_ok and dones > 0 and update_ok
+    ok = (rollout_ok and dones > 0 and update_ok and impala_ok
           and lens[-1] > RL_IMPROVE * lens[0]
           and all(np.isfinite(dqn_losses))
           and all(np.isfinite(list(r["losses"].values())).all()

@@ -545,7 +545,9 @@ def make_train_step(cfg: TransformerConfig, params, lr: float = 3e-4
     not reach (the dense MLP when ``moe_every == 1``) gets a zero gradient,
     as under ``jax.grad``, so AdamW still decays it. Returns
     ``step(tokens, targets) -> loss`` (the loss before the update,
-    detached)."""
+    detached); ``step.optimizer`` is the AdamW, so that a checkpoint of
+    ``{"params": params, "opt": step.optimizer.state_dict()}`` resumes
+    into a fresh step (``ray_tpu_torch.train.checkpoint``)."""
     leaves = _leaves(params)
     for t in leaves:
         if t.dtype != torch.float32:
@@ -565,6 +567,7 @@ def make_train_step(cfg: TransformerConfig, params, lr: float = 3e-4
         opt.step()
         return loss.detach()
 
+    step.optimizer = opt
     return step
 
 

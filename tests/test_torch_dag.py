@@ -427,6 +427,8 @@ def test_port_import_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.dag, ray_tpu_torch.models\n"
         "import ray_tpu_torch.remote_function, ray_tpu_torch.llm\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.collective\n"
+        "import ray_tpu_torch.rl.impala, ray_tpu_torch.train\n"
+        "import ray_tpu_torch.util.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu')]\n"
         "print(bad)\n"

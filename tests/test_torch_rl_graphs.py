@@ -67,6 +67,23 @@ def test_ppo_update_graph_equals_eager(cuda_device):
 
 
 @pytest.mark.cuda
+def test_impala_update_graph_equals_eager(cuda_device):
+    env = rl.CartPole()
+    runner = rl.EnvRunner(env, 32, 64, device=cuda_device)
+    graphed, eager = (rl.IMPALA(env, seed=2, device=cuda_device)
+                      for _ in range(2))
+    for _ in range(2):
+        ro = runner.sample(graphed.get_weights())
+        loss_g = graphed.update(ro)
+        loss_e = float(eager._update(ro))
+        assert abs(loss_g - loss_e) <= GRAPH_TOL
+        for x, y in zip(leaves(graphed.params), leaves(eager.params)):
+            assert (x - y).abs().max().item() <= GRAPH_TOL
+    (_, program), = graphed._programs.values()
+    assert program.replays == 2
+
+
+@pytest.mark.cuda
 def test_dqn_train_many_graph_equals_eager(cuda_device):
     env = rl.CartPole()
     cfg = rl.DQNConfig(batch_size=32, train_steps_per_iter=4,
