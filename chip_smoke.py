@@ -249,6 +249,28 @@ non-zero without printing a result. Without a CUDA card, or without the
    train_many ms (one iteration of 32 steps, sampling included), and the
    device's idle share over one Algorithm.train under torch.profiler. No
    kernel of phases 1-2 runs here: the RL programs are small tensor ops.
+13. serve: the one-process runtime and Serve (ray_tpu_torch.init,
+   serve.run(build_llm_app(EngineConfig(model=TransformerConfig()))))
+   serving the flagship at full width (bf16, weights from param_seed 0 in
+   the replica). Phase 4's 8 prompts (16-1000 tokens, 32 new), one at a
+   time through handle.options(stream=True) and through the HTTP proxy's
+   ?stream=1: each stream equal, token for token, to the same engine
+   config's own InferenceEngine.generate of the prompt; then all 8 at
+   once on a fresh deployment, equal to those (phase 4's check). The GQA
+   variant (n_kv_heads 4) on 2 prompts the same way. A 400-token stream
+   closed after its first token frees its KV blocks (blocks_in_use and
+   running reach 0 within a bounded poll). Two replicas warmed with a
+   64-token system prompt: a request with that prefix is routed by
+   prefix overlap to a replica whose prefix_cache_hits rises. A CUDA
+   tensor's put/get and task round trips come back on cuda:0 with equal
+   values. The flash counters are read over the served runs: the engine
+   prefills and decodes through paged attention (plain PyTorch, as the
+   reference's engine does in plain JAX), so no kernel of phases 1-2
+   runs on the served path and every counter, plain_routes included,
+   must stay 0. Smoke readings, no limits: TTFT and token gap p50
+   through the handle and through HTTP beside the engine direct, us per
+   trivial task and per actor call (batched and one at a time), and the
+   CUDA put/get round trip beside the two device copies it makes.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -473,6 +495,18 @@ RL_GRAPH_TOL = 1e-5
 # IMPALA's learner at its defaults (32 envs x 64 steps, hidden (64, 64))
 # and at phase 12's PPO sample size.
 RL_IMPALA_SIZES = ((32, 64), (RL_ENVS, RL_ROLLOUT))
+# Phase 13 (serve): the KV pool of every served engine, the system prompt
+# the two routing replicas are warmed with, the cancelled stream's
+# length, the GQA prompts, and the runtime's timed calls.
+SERVE_NUM_BLOCKS = 512
+SERVE_WARM_PREFIX = 64
+SERVE_CANCEL_TOKENS = 400
+SERVE_GQA_PROMPTS = 2
+SERVE_POLL_S = 30.0        # bound on each poll and get of the phase
+SERVE_TASKS = 2000         # trivial tasks / actor calls, submitted at once
+SERVE_SYNC_CALLS = 200     # the same, one get at a time
+SERVE_TENSOR_SHAPE = (4096, 4096)   # f32, 64 MiB through the store
+SERVE_TENSOR_ITERS = 10
 
 
 _STARTED = time.perf_counter()
@@ -3948,6 +3982,327 @@ def phase_spmd_train(dev, card, base):
     return results
 
 
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _timed_stream(items):
+    """Consume a token iterator: (tokens, seconds to the first token,
+    gaps between tokens), timed from the call that made ``items``."""
+    t0 = last = time.perf_counter()
+    toks, ttft, gaps = [], None, []
+    for tok in items():
+        now = time.perf_counter()
+        if toks:
+            gaps.append(now - last)
+        else:
+            ttft = now - t0
+        last = now
+        toks.append(tok)
+    return toks, ttft, gaps
+
+
+def _http_tokens(proxy, name, prompt, new_tokens):
+    """POST /<name>?stream=1 and read the chunked JSON lines as they
+    arrive."""
+    import http.client
+
+    conn = http.client.HTTPConnection(proxy.host, proxy.port,
+                                      timeout=SERVE_POLL_S * 4)
+    try:
+        conn.request("POST", f"/{name}?stream=1", body=json.dumps(
+            {"prompt": prompt, "max_new_tokens": new_tokens}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {resp.read()!r}")
+        while True:
+            line = resp.readline()
+            if not line:
+                return
+            item = json.loads(line)
+            if not isinstance(item, int):
+                raise AssertionError(f"HTTP stream item {item!r}")
+            yield item
+    finally:
+        conn.close()
+
+
+def _engine_streams(cfg, dev, prompts, new_tokens):
+    """The engine's own generate of each prompt alone, timed."""
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(EngineConfig(
+        model=cfg, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+        device=str(dev)))
+    out = []
+    try:
+        for p in prompts:
+            out.append(_timed_stream(
+                lambda: engine.generate(p, max_new_tokens=new_tokens)))
+            if not engine.wait_idle(120):
+                raise AssertionError("engine did not go idle")
+    finally:
+        engine.shutdown()
+    return out
+
+
+def _served_streams(handle, prompts, new_tokens):
+    return [_timed_stream(lambda: handle.options(stream=True).remote(
+        {"prompt": p, "max_new_tokens": new_tokens})) for p in prompts]
+
+
+def _served_concurrent(handle, prompts, new_tokens):
+    outs = [None] * len(prompts)
+
+    def consume(i):
+        outs[i] = list(handle.options(stream=True).remote(
+            {"prompt": prompts[i], "max_new_tokens": new_tokens}))
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads) or any(o is None for o in outs):
+        raise AssertionError("concurrent served requests did not complete")
+    return outs
+
+
+def _must_equal(name, got, want):
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{name}: streams {bad} differ from the "
+                             f"engine's own generate")
+
+
+def _replica_stats(info):
+    import ray_tpu_torch as rt
+
+    return [rt.get(r.handle_request.remote("stats", (), {}),
+                   timeout=SERVE_POLL_S) for r in info.replicas]
+
+
+def _serve_cancel(handle, prompt):
+    """A SERVE_CANCEL_TOKENS stream closed after its first token: its
+    blocks are freed within a bounded poll."""
+    gen = handle.options(stream=True).remote(
+        {"prompt": prompt, "max_new_tokens": SERVE_CANCEL_TOKENS})
+    next(gen)
+    busy = handle.stats.remote().result(timeout=SERVE_POLL_S)
+    t0 = time.perf_counter()
+    gen.close()
+    deadline = time.monotonic() + SERVE_POLL_S
+    while time.monotonic() < deadline:
+        st = handle.stats.remote().result(timeout=SERVE_POLL_S)
+        if st["blocks_in_use"] == 0 and st["running"] == 0:
+            break
+        time.sleep(0.01)
+    freed_s = time.perf_counter() - t0
+    if st["blocks_in_use"] or st["running"]:
+        raise AssertionError(f"cancelled stream left blocks_in_use "
+                             f"{st['blocks_in_use']}, running "
+                             f"{st['running']}")
+    return {"blocks_in_use_before_close": busy["blocks_in_use"],
+            "freed_within_s": freed_s}
+
+
+def _serve_prefix_routing(cfg, dev, rng):
+    """Two replicas warmed with one system prompt: a request with that
+    prefix is routed by overlap (prefix_routed) to a replica whose
+    prefix_cache_hits rises."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, build_llm_app
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    system = rng.integers(1, cfg.vocab_size, SERVE_WARM_PREFIX).tolist()
+    tail = rng.integers(1, cfg.vocab_size, 40).tolist()
+    handle = serve.run(build_llm_app(
+        EngineConfig(model=cfg, num_blocks=SERVE_NUM_BLOCKS,
+                     block_size=BLOCK_SIZE, device=str(dev)),
+        name="llm_prefix", num_replicas=2, warm_prefix=system))
+    ctrl = get_or_create_controller()
+    info = ctrl.deployment_info("llm_prefix")
+    ctrl.poll_prefix_digests_of(info)   # the poll loop's work, at once
+    rs = info.replica_set
+    before = [s["prefix_cache_hits"] for s in _replica_stats(info)]
+    routed = rs.prefix_routed
+    toks = list(handle.options(stream=True).remote(
+        {"prompt": system + tail, "max_new_tokens": 4}))
+    after = [s["prefix_cache_hits"] for s in _replica_stats(info)]
+    rose = [i for i, (a, b) in enumerate(zip(before, after)) if b > a]
+    if rs.prefix_routed != routed + 1 or len(rose) != 1 or len(toks) != 4:
+        raise AssertionError(
+            f"prefix routing: prefix_routed {routed} -> {rs.prefix_routed}, "
+            f"prefix_cache_hits {before} -> {after}")
+    serve.delete("llm_prefix")
+    return {"replicas": 2, "warm_prefix_tokens": SERVE_WARM_PREFIX,
+            "prefix_routed": rs.prefix_routed,
+            "prefix_overlap_tokens": rs.prefix_overlap_tokens,
+            "prefix_cache_hits_before": before,
+            "prefix_cache_hits_after": after}
+
+
+def _runtime_readings():
+    """us per trivial task and per actor call, submitted at once and one
+    at a time."""
+    import ray_tpu_torch as rt
+
+    @rt.remote
+    def noop(i):
+        return i
+
+    @rt.remote
+    class Echo:
+        def echo(self, i):
+            return i
+
+    actor = Echo.remote()
+    out = {}
+    for name, call in (("task", noop.remote), ("actor_call",
+                                               actor.echo.remote)):
+        rt.get([call(i) for i in range(100)], timeout=SERVE_POLL_S)  # warm
+        t0 = time.perf_counter()
+        got = rt.get([call(i) for i in range(SERVE_TASKS)],
+                     timeout=SERVE_POLL_S * 4)
+        batched = (time.perf_counter() - t0) / SERVE_TASKS
+        if got != list(range(SERVE_TASKS)):
+            raise AssertionError(f"{name}: wrong results")
+        t0 = time.perf_counter()
+        for i in range(SERVE_SYNC_CALLS):
+            if rt.get(call(i), timeout=SERVE_POLL_S) != i:
+                raise AssertionError(f"{name}: wrong result")
+        sync = (time.perf_counter() - t0) / SERVE_SYNC_CALLS
+        out[f"{name}_us_batched"] = batched * 1e6
+        out[f"{name}_us_sync"] = sync * 1e6
+    rt.kill(actor)
+    return out
+
+
+def _cuda_object_store(dev):
+    """A CUDA tensor's put/get and task round trips stay on the card with
+    equal values; the round trip timed beside the two device copies it
+    makes (put keeps a copy, get hands out another)."""
+    import ray_tpu_torch as rt
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    x = torch.randn(*SERVE_TENSOR_SHAPE, device=dev, generator=gen)
+    back = rt.get(rt.put(x), timeout=SERVE_POLL_S)
+    if back.device != x.device or not torch.equal(back, x):
+        raise AssertionError(f"put/get gave {back.device}, equal "
+                             f"{torch.equal(back.cpu(), x.cpu())}")
+
+    @rt.remote
+    def twice(t):
+        if t.device != x.device:
+            raise AssertionError(f"task argument on {t.device}")
+        return t * 2.0
+
+    out = rt.get(twice.remote(rt.put(x)), timeout=SERVE_POLL_S)
+    if out.device != x.device or not torch.equal(out, x * 2.0):
+        raise AssertionError("task round trip differs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_TENSOR_ITERS):
+        rt.get(rt.put(x), timeout=SERVE_POLL_S)
+    torch.cuda.synchronize()
+    round_trip = (time.perf_counter() - t0) / SERVE_TENSOR_ITERS * 1e3
+    two_clones = cuda_ms(lambda: x.clone().clone(), iters=SERVE_TENSOR_ITERS)
+    return {"shape": list(SERVE_TENSOR_SHAPE), "dtype": "float32",
+            "bytes": x.numel() * x.element_size(),
+            "device": str(back.device), "put_get_equal": True,
+            "task_equal": True, "put_get_ms": round_trip,
+            "two_device_copies_ms": two_clones}
+
+
+def phase_serve(dev, card, cfg, lens, new_tokens):
+    """Phase 13 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, build_llm_app
+
+    fa = _flash_module()
+    prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                       cfg.vocab_size)
+    gqa = dataclasses.replace(cfg, n_kv_heads=4)
+    gqa_prompts = prompts[:SERVE_GQA_PROMPTS]
+
+    def app(model, name="llm"):
+        return build_llm_app(EngineConfig(
+            model=model, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+            device=str(dev)), name=name)
+
+    # A throwaway engine first, so the timed engine-direct run does not
+    # pay the process's first-use costs (its prompt shares no block with
+    # the timed ones, and that engine's cache goes with it).
+    _engine_streams(cfg, dev, [[1] * (2 * BLOCK_SIZE)], 4)
+    direct = _engine_streams(cfg, dev, prompts, new_tokens)
+    direct_gqa = _engine_streams(gqa, dev, gqa_prompts, new_tokens)
+    want = [d[0] for d in direct]
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        with _counts_kept(fa):
+            for n in _COUNTERS:
+                setattr(fa, n, 0)
+            handle = serve.run(app(cfg))
+            served = _served_streams(handle, prompts, new_tokens)
+            _must_equal("served (handle)", [s[0] for s in served], want)
+            proxy = serve.start_proxy(port=0)
+            via_http = [_timed_stream(lambda: _http_tokens(
+                proxy, "llm", p, new_tokens)) for p in prompts]
+            _must_equal("served (HTTP)", [s[0] for s in via_http], want)
+            cancel = _serve_cancel(handle, prompts[0])
+            serve.delete("llm")
+            fresh = serve.run(app(cfg, "llm_concurrent"))
+            concurrent = _served_concurrent(fresh, prompts, new_tokens)
+            _must_equal("served (concurrent)", concurrent, want)
+            serve.delete("llm_concurrent")
+            gqa_handle = serve.run(app(gqa, "llm_gqa"))
+            served_gqa = _served_streams(gqa_handle, gqa_prompts,
+                                         new_tokens)
+            _must_equal("served GQA", [s[0] for s in served_gqa],
+                        [d[0] for d in direct_gqa])
+            serve.delete("llm_gqa")
+            counts = {n: getattr(fa, n) for n in _COUNTERS}
+        if any(counts.values()):
+            raise AssertionError(
+                f"the served path launched flash kernels or took the "
+                f"plain route: {counts}")
+        prefix = _serve_prefix_routing(cfg, dev,
+                                       np.random.default_rng(SEED + 3))
+        store = _cuda_object_store(dev)
+        runtime = _runtime_readings()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+
+    def readings(runs):
+        return {"ttft_p50_s": _p50([r[1] for r in runs]),
+                "token_gap_p50_s": _p50([g for r in runs for g in r[2]])}
+
+    out = {"phase": "serve",
+           "model": {"vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+                     "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
+                     "n_kv_heads": cfg.n_kv_heads,
+                     "dtype": _dtype_name(cfg.dtype)},
+           "requests": len(prompts), "prompt_lens": lens,
+           "new_tokens": new_tokens,
+           "handle_equals_engine": True, "http_equals_engine": True,
+           "concurrent_equals_sequential": True,
+           "gqa": {"n_kv_heads": gqa.n_kv_heads,
+                   "requests": len(gqa_prompts), "equals_engine": True},
+           "flash_counters_on_served_path": counts,
+           "engine_direct": readings(direct),
+           "handle": readings(served), "http": readings(via_http),
+           "cancel": cancel, "prefix_routing": prefix,
+           "cuda_object_store": store, "runtime": runtime, "card": card}
+    emit(out)
+    return out
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -4006,6 +4361,7 @@ def main() -> int:
     phase_tp(dev, card, flagship, ENGINE_LENS, 32)
     spmd = phase_spmd_train(dev, card, flagship)
     phase_rl(dev, card)
+    phase_serve(dev, card, flagship, ENGINE_LENS, 32)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}

@@ -5,20 +5,60 @@ and imports nothing of it or of JAX. It covers the flagship decoder's
 serving and one-card training paths, dense or MoE: ``models`` (prefill
 with cache, chunked prefill, decode over a paged KV cache, on one device
 or tensor-parallel; the differentiable ``forward``, ``loss_fn`` and an
-AdamW ``make_train_step``), ``llm`` (the continuous-batching engine) and
-``ops`` (hand-written flash-attention forward and backward kernels for
-sm_90a, a Triton RMSNorm kernel, plain PyTorch paged attention); the
-compiled-DAG wave executor, on one device or sharded over a mesh:
-``dag`` with the bind-only ``remote`` of ``remote_function``; and the
+AdamW ``make_train_step``), ``llm`` (the continuous-batching engine and
+``build_llm_app``, its Serve deployment) and ``ops`` (hand-written
+flash-attention forward and backward kernels for sm_90a, a Triton
+RMSNorm kernel, plain PyTorch paged attention); the one-process runtime
+(tasks, actors, ObjectRefs and streaming generators on threads in the
+calling process: ``init``, ``remote``, ``get``, ``put``, ``wait``, ``cancel``,
+``kill``, ``shutdown``) and ``serve`` on top of it; the compiled-DAG
+wave executor, on one device or sharded over a mesh (``dag``); the
 one-controller mesh and its collectives, ``parallel`` and
 ``collective``; and reinforcement learning, ``rl`` (tensor-native
 environments, PPO, DQN and multi-agent PPO, each rollout and update one
 CUDA graph on the card). Entry points take a ``device`` that defaults to
-``"cuda"``; tests pass ``device="cpu"``.
+``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
+thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``
+joins them.
 """
 
-from ray_tpu_torch import rl
-from ray_tpu_torch.remote_function import remote
+from ray_tpu_torch._private.worker import (
+    ObjectRef,
+    ObjectRefGenerator,
+    cancel,
+    get,
+    init,
+    is_initialized,
+    put,
+    shutdown,
+    wait,
+)
+from ray_tpu_torch.actor import ActorClass, ActorHandle, get_actor, kill
+from ray_tpu_torch.remote_function import RemoteFunction, method, remote
+from ray_tpu_torch.runtime_context import get_runtime_context
+from ray_tpu_torch import exceptions, llm, rl, serve
 
 __version__ = "0.1.0"
-__all__ = ["remote", "rl"]
+__all__ = [
+    "ActorClass",
+    "ActorHandle",
+    "ObjectRef",
+    "ObjectRefGenerator",
+    "RemoteFunction",
+    "cancel",
+    "exceptions",
+    "get",
+    "get_actor",
+    "get_runtime_context",
+    "init",
+    "is_initialized",
+    "kill",
+    "llm",
+    "method",
+    "put",
+    "remote",
+    "rl",
+    "serve",
+    "shutdown",
+    "wait",
+]

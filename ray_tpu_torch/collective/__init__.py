@@ -2,7 +2,7 @@
 ``ray_tpu/collective``, the in-program plane only): operations over the
 per-shard tensors of a mesh axis, or of every group of a mesh along an
 axis, driven by one process (ops.py). The
-reference's out-of-program actor groups need the runtime (ROADMAP A.5).
+reference's out-of-program actor groups are not ported yet (ROADMAP A.5).
 """
 
 from ray_tpu_torch.collective.ops import (

@@ -4,7 +4,7 @@
 See dag_node.py (authoring) and torch_executor.py (the device-resident
 wave executor, ``experimental_compile(backend="torch")``, on one device
 or, with ``mesh=``, sharded over a mesh axis). The actor-loop
-backend and interpreted execution wait for the runtime (ROADMAP A.5).
+backend and interpreted execution are not ported yet (ROADMAP A.5).
 """
 
 from ray_tpu_torch.dag.dag_node import (

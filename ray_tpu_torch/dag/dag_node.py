@@ -3,18 +3,19 @@
 
 A DAG is built by ``.bind()`` calls on ``ray_tpu_torch.remote`` functions
 and compiled with ``experimental_compile(backend="torch")`` to the wave
-executor of ``dag/torch_executor.py``. What needs a task runtime and
-channels (ROADMAP A.5) is not ported: the interpreted ``execute``, the
-actor-loop backend (``backend="actor"``) and the actor nodes
-(``ClassNode``, ``ClassMethodNode``) raise ``NotImplementedError``.
+executor of ``dag/torch_executor.py``. What runs a DAG on the task
+runtime's actors and channels (ROADMAP A.5) is not ported yet: the
+interpreted ``execute``, the actor-loop backend (``backend="actor"``) and
+the actor nodes (``ClassNode``, ``ClassMethodNode``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
-_NEEDS_RUNTIME = ("needs the task runtime and channels, not ported yet "
-                  "(ROADMAP A.5); compile with "
+_NEEDS_RUNTIME = ("runs on the runtime's actors and channels, not "
+                  "ported yet (ROADMAP A.5); compile with "
                   "experimental_compile(backend='torch')")
 
 

@@ -17,10 +17,15 @@ the engine side of disaggregated prefill/decode.
   ``begin_adopted``/``adopt_kv``/``commit_adopted`` are the two halves
   of a disaggregated hop (the servers of ``llm/disagg.py`` are not
   ported).
+- ``build_llm_app`` / ``LLMServer`` (api.py): the engine as a Serve
+  deployment; token streams ride ``handle.options(stream=True)`` and the
+  HTTP proxy's chunked path, a closed stream frees its sequence, and
+  replicas report prefix digests the Serve router scores.
 """
 
 from ray_tpu_torch.exceptions import KVCacheOOM
-from ray_tpu_torch.llm.engine import EngineConfig, InferenceEngine
+from ray_tpu_torch.llm.api import LLMServer, build_llm_app
+from ray_tpu_torch.llm.engine import EngineConfig, InferenceEngine, live_engines
 from ray_tpu_torch.llm.kv_cache import PagedKVCache, chain_digests
 from ray_tpu_torch.llm.scheduler import EngineQueueFull, Request, Scheduler
 
@@ -29,8 +34,11 @@ __all__ = [
     "EngineQueueFull",
     "InferenceEngine",
     "KVCacheOOM",
+    "LLMServer",
     "PagedKVCache",
     "Request",
     "Scheduler",
+    "build_llm_app",
     "chain_digests",
+    "live_engines",
 ]

@@ -55,9 +55,11 @@ import the ``ray_tpu`` runtime.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -87,10 +89,23 @@ from ray_tpu_torch.models.transformer import (
 from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh, visible_devices
 from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
 
-__all__ = ["EngineConfig", "InferenceEngine"]
+__all__ = ["EngineConfig", "InferenceEngine", "live_engines"]
 
 _DONE = "__done__"
 _ERROR = "__error__"
+
+# Live engines in this process (weak: observability must never keep a
+# dead engine's KV pool alive).
+_ENGINES: "weakref.WeakValueDictionary[int, InferenceEngine]" = \
+    weakref.WeakValueDictionary()
+_engine_ids = itertools.count(1)
+
+
+def live_engines() -> List["InferenceEngine"]:
+    """Engines constructed in this process and not yet collected (a shut
+    down engine stays listed until collected: its final counters are
+    still readable)."""
+    return [e for _, e in sorted(_ENGINES.items())]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +220,8 @@ class InferenceEngine:
         self.spec_fallback_rounds = 0    # rounds vanilla-decoded instead
         # Per-request TTFT decomposition records, bounded.
         self._timings: "deque" = deque(maxlen=2048)
+        self.engine_id = next(_engine_ids)
+        _ENGINES[self.engine_id] = self
 
     # ------------------------------------------------------ tensor parallel
     @staticmethod
@@ -252,6 +269,9 @@ class InferenceEngine:
             for seq_id in list(self._held):
                 self.release_held(seq_id)
         self._work.set()
+        loop = self._loop_thread
+        if loop is not None and loop is not threading.current_thread():
+            loop.join(timeout=5.0)
 
     def _loop(self):
         while not self._stop.is_set():

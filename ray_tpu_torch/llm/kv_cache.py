@@ -539,6 +539,17 @@ class PagedKVCache:
             self._registered_upto[seq_id] = max(start, upto)
             return new
 
+    def prefix_digest(self, limit: Optional[int] = None) -> List[str]:
+        """Report of every registered chain digest (live and cached-
+        free): what a Serve replica publishes so the router can score it
+        by cached-prefix overlap. Unbounded by default (at most
+        ``usable_blocks`` entries); with ``limit``, the FIRST-registered
+        digests are kept: registration runs prefix to tail, so a
+        truncated report loses long chains' tails, never their heads."""
+        with self._lock:
+            out = list(self._key_block.keys())
+        return out if limit is None else out[:limit]
+
     def refcount(self, block: int) -> int:
         with self._lock:
             return self._ref.get(block, 0)

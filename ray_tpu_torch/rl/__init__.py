@@ -7,8 +7,9 @@ PPO update and DQN's ``train_many`` each run as one device program: one
 CUDA graph per call on the card, eager on the CPU. ``Algorithm`` trains
 PPO or DQN over a local runner; ``MultiAgentPPO`` runs independent PPO
 over a policy mapping; ``IMPALA`` is IMPALA's V-trace learner, its update
-one device program. Remote runners and IMPALA's asynchronous loop wait
-for the runtime (ROADMAP A.5), ``offline.py`` for the Data layer.
+one device program. Remote runners and IMPALA's asynchronous loop on
+the runtime are not ported yet (ROADMAP A.5), ``offline.py`` waits for the
+Data layer.
 """
 
 from ray_tpu_torch.rl.env import CartPole, Pendulum, TorchEnv, gym_adapter

@@ -1,7 +1,7 @@
 """Algorithm orchestration (counterpart of ``ray_tpu/rl/algorithm.py``):
 ``AlgorithmConfig`` (chained setters) and ``Algorithm`` for PPO and DQN
-over a local ``EnvRunner``. Remote runners and IMPALA need the port's
-runtime (actors), which is not ported yet (ROADMAP A.5), and raise.
+over a local ``EnvRunner``. Remote runners and IMPALA on the port's
+runtime (actors) are not ported yet (ROADMAP A.5), and raise.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from ray_tpu_torch.rl.env_runner import EnvRunner
 from ray_tpu_torch.rl.ppo import PPOConfig, PPOLearner, policy_logits
 
 _ENVS = {"CartPole-v1": CartPole, "Pendulum-v1": Pendulum}
-_NEEDS_RUNTIME = ("needs the port's runtime (actors and remote tasks), "
-                  "which is not ported yet: ROADMAP A.5")
+_NEEDS_RUNTIME = ("needs remote runners on the port's runtime (actors "
+                  "and remote tasks), not ported yet: ROADMAP A.5")
 
 
 class AlgorithmConfig:

@@ -139,5 +139,5 @@ class EnvRunner:
     def as_actor(env: TorchEnv, num_envs: int = 64, rollout_len: int = 128,
                  seed: int = 0):
         raise NotImplementedError(
-            "remote env runners need the port's runtime (actors), which is "
-            "not ported yet: ROADMAP A.5")
+            "remote env runners on the port's runtime (actors) are not "
+            "ported yet: ROADMAP A.5")

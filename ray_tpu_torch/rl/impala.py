@@ -5,8 +5,9 @@ CUDA graph on the card, eager on the CPU).
 The reference's learner is an asynchronous actor loop: env-runner actors
 keep one sample in flight each while the learner runs the V-trace update
 on whichever rollout lands first. That loop (``IMPALA.__init__``'s
-runners, ``train`` and ``stop``) needs the runtime's actors, ``wait``,
-``get`` and ``kill``, which the port does not have yet (ROADMAP A.5): here
+runners, ``train`` and ``stop``) runs on the runtime's actors, ``wait``,
+``get`` and ``kill``, and is not ported onto the port's runtime yet
+(ROADMAP A.5): here
 ``IMPALA`` owns the parameters and the optimizer, ``update(rollout)`` is
 the learner step the reference's loop runs on each rollout, and ``train``
 and ``stop`` raise.
@@ -39,9 +40,9 @@ from ray_tpu_torch.rl.ppo import (
     value_fn,
 )
 
-_NEEDS_RUNTIME = ("IMPALA's asynchronous actor loop needs the port's "
-                  "runtime (actors, wait, get, kill), which is not ported "
-                  "yet: ROADMAP A.5")
+_NEEDS_RUNTIME = ("IMPALA's asynchronous actor loop on the port's "
+                  "runtime (actors, wait, get, kill) is not ported yet: "
+                  "ROADMAP A.5")
 
 
 @dataclasses.dataclass(frozen=True)

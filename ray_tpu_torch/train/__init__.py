@@ -1,5 +1,5 @@
 """ray_tpu_torch.train (counterpart of ``ray_tpu.train``): checkpoints.
-The trainers, sessions and storage URIs wait for the runtime (ROADMAP
+The trainers and storage URIs are not ported yet (ROADMAP
 A.5, A.6)."""
 
 from ray_tpu_torch.train.checkpoint import (

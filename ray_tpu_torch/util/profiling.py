@@ -12,7 +12,7 @@ One profiler runs in a process at a time: ``profile_trace`` refuses to
 start inside another, and stops and writes its own in a ``finally``
 block, so a failure inside the block never leaves the profiler running.
 Registering the trace with the flight recorder's debug bundles waits for
-the runtime (ROADMAP A.5).
+the flight recorder, which is not ported (ROADMAP A.5).
 """
 
 from __future__ import annotations

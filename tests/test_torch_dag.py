@@ -405,8 +405,14 @@ def test_what_waits_for_the_runtime_or_the_mesh_raises():
         node.experimental_compile(backend="actor")
     with pytest.raises(NotImplementedError, match="A.5"):
         node.execute(1.0)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TORCH.ops["inc"].remote(1.0)
+    # The task runtime is ported: .remote() runs the task.
+    import ray_tpu_torch
+
+    try:
+        assert ray_tpu_torch.get(TORCH.ops["inc"].remote(1.0),
+                                 timeout=30) == _inc(1.0)
+    finally:
+        ray_tpu_torch.shutdown()
     with pytest.raises(NotImplementedError, match="A.5"):
         tdag.ClassNode(object, (), {})
     with pytest.raises(ValueError, match="unknown compile backend"):
