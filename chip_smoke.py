@@ -188,7 +188,18 @@ non-zero without printing a result. Without a CUDA card, or without the
    Readings: tasks/s over DAG_EXECS back-to-back data-dependent executes
    with one sync at the end, p50 / p99 of a synchronous execute + get,
    graph replays and host launches per execute, and under torch.profiler
-   the device's busy time per execute and idle share.
+   the device's busy time per execute and idle share. Then the
+   actor-loop backend (experimental_compile(backend="actor")) on the
+   one-process runtime: a 4-stage actor pipeline (Plus(i), 10 executes)
+   gives i + 10; a 2-stage pipeline hands back the very CUDA tensor it
+   was given (out is x, on cuda:0); tests/test_dag.py's mixed DAG on
+   CUDA tensors fuses its two device stages into one driver stage beside
+   the fused tail (two driver stages), its actor sees a CUDA tensor and
+   the values are right; a stage's ValueError reaches get; an allreduce
+   of 4 actor ranks (ray_tpu_torch.collective.collective) gives their
+   sum on the card. Readings: us per synchronous execute + get of the
+   4-stage pipeline (p50) and per pipelined execute, beside the torch
+   executor's chain_1k_noop p50.
 9. dag_mesh: phase 8's DAGs, static and dynamic, sharded over an
    8-shard virtual mesh of the card (make_mesh over [cuda:0] * 8; the
    reference tests' 8 shards): each output equals the plain evaluator's
@@ -249,6 +260,18 @@ non-zero without printing a result. Without a CUDA card, or without the
    train_many ms (one iteration of 32 steps, sampling included), and the
    device's idle share over one Algorithm.train under torch.profiler. No
    kernel of phases 1-2 runs here: the RL programs are small tensor ops.
+   Then the runners as actors of the one-process runtime, each
+   on a CUDA stream of its own: Algorithm (PPO) with num_env_runners=2,
+   runner i's rollouts (twice) equal a local EnvRunner(seed=SEED + i)'s
+   on the card, and two train() iterations give finite losses; IMPALA's
+   asynchronous loop at tests/test_rl_async.py's settings (2 runners, 32
+   envs x 64 steps, lr 4e-3, entropy 0.005) over 4 and then 60 updates:
+   the reference test's limits, the last episode_len_mean above 1.5x the
+   first and collection_update_overlap_s above 0. Readings: env steps/s
+   and the update wall of both runs, beside twice one runner actor's
+   rate alone (the runners' graphs overlap the learner on the card when
+   the loop comes near it) and two runner actors sampling at once with
+   no learner (whether the runners' graphs overlap each other).
 13. serve: the one-process runtime and Serve (ray_tpu_torch.init,
    serve.run(build_llm_app(EngineConfig(model=TransformerConfig()))))
    serving the flagship at full width (bf16, weights from param_seed 0 in
@@ -271,6 +294,19 @@ non-zero without printing a result. Without a CUDA card, or without the
    through the handle and through HTTP beside the engine direct, us per
    trivial task and per actor call (batched and one at a time), and the
    CUDA put/get round trip beside the two device copies it makes.
+   Then disaggregated serving of the flagship: one prefill and
+   one decode replica on cuda:0 (build_disagg_llm_app, serve.run of both
+   apps, DisaggHandle.from_deployments()). The 8 prompts through
+   DisaggHandle.stream equal the engine's generate, paired 8 and
+   prefill_fallbacks 0; a prompt sharing the 570-token prompt's blocks
+   through stream_planned ships fewer blocks than it holds and streams
+   equal too; the publish/ack ledger balances (kv_acks == kv_publishes,
+   nothing outstanding, the prefill pool's blocks_in_use 0 within a
+   bounded poll); a dead ticket falls back to a local re-prefill with
+   equal tokens; every flash counter stays 0 over all of it. Readings:
+   TTFT and token gap p50 through DisaggHandle beside the colocated
+   handle's, transfer_p50_s of the decode pool's TTFT decomposition, KV
+   bytes per prompt.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -420,6 +456,12 @@ DAG_TENSOR_WIDTH, DAG_TENSOR_DEPTH = 64, 15
 DAG_EXECS = 300       # back-to-back executes per tasks/s reading
 DAG_SYNC_EXECS = 100  # synchronous execute + get, for p50 / p99
 DAG_PROFILED_EXECS = 20   # executes traced by torch.profiler
+# Phase 8's actor backend: pipeline depth, checked executes, timed
+# executes, and the ranks of the actor-plane allreduce.
+DAG_ACTOR_STAGES = 4
+DAG_ACTOR_EXECS = 10
+DAG_ACTOR_TIMED = 200
+DAG_ACTOR_RANKS = 4
 # Phase 9: the same DAGs on a virtual mesh of the card (the reference
 # tests' 8 shards); fewer timed executes, since n shards launch n times
 # the kernels of one device.
@@ -495,6 +537,13 @@ RL_GRAPH_TOL = 1e-5
 # IMPALA's learner at its defaults (32 envs x 64 steps, hidden (64, 64))
 # and at phase 12's PPO sample size.
 RL_IMPALA_SIZES = ((32, 64), (RL_ENVS, RL_ROLLOUT))
+# Phase 12's runner actors, and IMPALA's asynchronous loop at
+# tests/test_rl_async.py's settings (2 runners, 32 x 64, its config) and
+# update counts.
+RL_REMOTE_RUNNERS = 2
+RL_IMPALA_LOOP = {"lr": 4e-3, "entropy_coef": 0.005}
+RL_IMPALA_SHAPE = (32, 64)
+RL_IMPALA_UPDATES = (4, 60)
 # Phase 13 (serve): the KV pool of every served engine, the system prompt
 # the two routing replicas are warmed with, the cancelled stream's
 # length, the GQA prompts, and the runtime's timed calls.
@@ -507,6 +556,10 @@ SERVE_TASKS = 2000         # trivial tasks / actor calls, submitted at once
 SERVE_SYNC_CALLS = 200     # the same, one get at a time
 SERVE_TENSOR_SHAPE = (4096, 4096)   # f32, 64 MiB through the store
 SERVE_TENSOR_ITERS = 10
+# Phase 13's disaggregated case: the prompt whose blocks the
+# planned request shares (ENGINE_LENS[4], 570 tokens) and its own tail.
+SERVE_DISAGG_SHARED = 4
+SERVE_DISAGG_TAIL = 40
 
 
 _STARTED = time.perf_counter()
@@ -2951,7 +3004,104 @@ def _impala_updates(env, dev, graph):
         ok = ok and (max(diff.values()) <= RL_GRAPH_TOL
                      and all(np.isfinite(losses["graph"]))
                      and program.replays == replays_want)
+        graphed.stop()
+        eager.stop()
     return out, ok
+
+
+def _rollout_diff(got, want, diff):
+    from ray_tpu_torch.rl.ppo import Rollout
+
+    for name, x, y in zip(Rollout._fields, got, want):
+        y = y.to(x.device)
+        d = ((x - y).abs().max().item() if x.dtype.is_floating_point
+             else int((x != y).sum()))
+        diff[name] = max(diff.get(name, 0), d)
+
+
+def _remote_rl(env, dev):
+    """Phase 12's runner actors and IMPALA's asynchronous loop
+    (module docstring). Returns (readings, checks)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.ppo import clone_params
+
+    out, checks = {}, {}
+    wait_s = SERVE_POLL_S * 4
+    rt.init(num_cpus=4, ignore_reinit_error=True)
+    try:
+        algo = (rl.AlgorithmConfig("PPO", device=dev)
+                .env_runners(num_env_runners=RL_REMOTE_RUNNERS,
+                             num_envs_per_env_runner=RL_ENVS,
+                             rollout_fragment_length=RL_ROLLOUT)
+                .debugging(seed=SEED).build())
+        try:
+            params = algo.learner.get_weights()
+            local = [rl.EnvRunner(env, RL_ENVS, RL_ROLLOUT, seed=SEED + i,
+                                  device=dev)
+                     for i in range(RL_REMOTE_RUNNERS)]
+            diff = {}
+            for _ in range(2):
+                host = clone_params(params, device="cpu")
+                remote = rt.get([r.sample.remote(host)
+                                 for r in algo._runners], timeout=wait_s)
+                for got, runner in zip(remote, local):
+                    _rollout_diff(got, runner.sample(params), diff)
+            checks["runners_equal_local"] = all(
+                v <= RL_GRAPH_TOL for v in diff.values())
+            iters = [algo.train() for _ in range(2)]
+            checks["remote_ppo_finite"] = all(
+                np.isfinite(r["loss"]) for r in iters)
+        finally:
+            algo.stop()
+        out["remote_runners"] = {
+            "runners": RL_REMOTE_RUNNERS, "max_diff_vs_local": diff,
+            "tol": RL_GRAPH_TOL,
+            "iteration_ms": [r["time_total_s"] * 1e3 for r in iters],
+            "env_steps_per_s": [r["env_steps_per_sec"] for r in iters]}
+        # Runner actors at IMPALA's shape without a learner: one alone,
+        # then two sampling at once (their graphs on two streams).
+        envs, T = RL_IMPALA_SHAPE
+        host = clone_params(params, device="cpu")
+        pair = [rl.EnvRunner.as_actor(env, envs, T, seed=SEED + i,
+                                      device=dev) for i in range(2)]
+        rt.get([r.sample.remote(host) for r in pair],
+               timeout=wait_s)  # captures
+        rates = {}
+        for name, runners in (("one", pair[:1]), ("two_at_once", pair)):
+            t0 = time.perf_counter()
+            for _ in range(RL_TIMED):
+                rt.get([r.sample.remote(host) for r in runners],
+                       timeout=wait_s)
+            rates[name] = (envs * T * RL_TIMED * len(runners)
+                           / (time.perf_counter() - t0))
+        for r in pair:
+            rt.kill(r)
+        one_runner = rates["one"]
+        impala = rl.IMPALA(env, rl.IMPALAConfig(**RL_IMPALA_LOOP),
+                           num_runners=2, num_envs=envs, rollout_len=T,
+                           seed=SEED, device=dev)
+        try:
+            first, last = (impala.train(num_updates=n)
+                           for n in RL_IMPALA_UPDATES)
+        finally:
+            impala.stop()
+        checks["impala_learns"] = bool(
+            np.isfinite(last["loss"])
+            and last["episode_len_mean"] > RL_IMPROVE
+            * first["episode_len_mean"])
+        checks["impala_overlap"] = last["collection_update_overlap_s"] > 0
+        out["impala_loop"] = {
+            "config": {**RL_IMPALA_LOOP, "num_runners": 2, "num_envs": envs,
+                       "rollout_len": T, "updates": RL_IMPALA_UPDATES},
+            "first": first, "last": last,
+            "one_runner_env_steps_per_s": one_runner,
+            "twice_one_runner_env_steps_per_s": 2 * one_runner,
+            "two_runners_at_once_env_steps_per_s": rates["two_at_once"]}
+    finally:
+        rt.shutdown()
+    out["checks"] = checks
+    return out, checks
 
 
 def phase_rl(dev, card):
@@ -3023,6 +3173,7 @@ def phase_rl(dev, card):
         upd_g.update(ro)
     readings["ppo_update_ms"] = (time.perf_counter() - t0) * 1e3 / RL_TIMED
     impala, impala_ok = _impala_updates(env, dev, graph)
+    remote, remote_checks = _remote_rl(env, dev)
     # (d) PPO training at the defaults (tests/test_rl.py's lr).
     algo = (rl.AlgorithmConfig("PPO", device=dev)
             .env_runners(num_envs_per_env_runner=RL_ENVS,
@@ -3064,7 +3215,7 @@ def phase_rl(dev, card):
         "update_graph_vs_eager": {"max_param_diff": update_diff,
                                   "loss": [loss_g, loss_e],
                                   "tol": RL_GRAPH_TOL},
-        "impala": impala,
+        "impala": impala, "remote": remote,
         "ppo_episode_len_mean": lens, "ppo_greedy_return": greedy,
         "ppo_losses": [r["loss"] for r in ppo],
         "dqn_losses": dqn_losses,
@@ -3073,13 +3224,15 @@ def phase_rl(dev, card):
         "readings": readings, "card": card}
     emit({"phase": "rl", **result})
     ok = (rollout_ok and dones > 0 and update_ok and impala_ok
+          and all(remote_checks.values())
           and lens[-1] > RL_IMPROVE * lens[0]
           and all(np.isfinite(dqn_losses))
           and all(np.isfinite(list(r["losses"].values())).all()
                   for r in ma_out))
     if not ok:
         raise AssertionError(
-            f"rl: graph and eager apart, PPO did not improve past "
+            f"rl: graph and eager apart, a remote check failed, PPO did "
+            f"not improve past "
             f"{RL_IMPROVE}x, or a non-finite loss: {result}")
     return result
 
@@ -3404,7 +3557,167 @@ def phase_dag(dev, card):
             res["profile"] = _dag_device_time(compiled, x)
             del compiled
     emit({"phase": "dag", "results": results, "card": card})
+    _dag_actor_backend(
+        dev, card, results["chain_1k_noop[static]"]["sync_exec_p50_us"])
     return results
+
+
+def _run_actor_dag(leaf, *inputs):
+    """Compile ``leaf`` to the actor backend, execute it once per input,
+    tear it down: (outputs, the compiled DAG)."""
+    compiled = leaf.experimental_compile(backend="actor")
+    try:
+        return [compiled.execute(x).get(timeout=SERVE_POLL_S)
+                for x in inputs], compiled
+    finally:
+        compiled.teardown()
+
+
+def _dag_actor_backend(dev, card, chain_p50_us):
+    """Phase 8's actor-loop backend on the one-process
+    runtime (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.collective import collective as col
+    from ray_tpu_torch.dag import InputNode
+
+    @rt.remote
+    class Plus:
+        def __init__(self, n):
+            self.n = n
+
+        def apply(self, x):
+            return x + self.n
+
+    @rt.remote
+    class Same:
+        def apply(self, x):
+            return x
+
+    @rt.remote
+    class Gate:
+        def __init__(self):
+            self.seen = []
+
+        def apply(self, x):
+            self.seen.append((type(x).__name__, str(x.device)))
+            return x
+
+    @rt.remote
+    class Bad:
+        def apply(self, x):
+            raise ValueError("stage failed")
+
+    @rt.remote
+    class Rank:
+        def __init__(self, rank):
+            self.rank = rank
+
+        def collective_join(self, world_size, rank, backend, group):
+            col.init_collective_group(world_size, rank, backend, group)
+            return rank
+
+        def reduce(self, group):
+            return col.allreduce(torch.full((1024,), float(self.rank + 1),
+                                            device=dev), group_name=group)
+
+    @rt.remote
+    def scale(x):
+        return x * 2.0
+
+    @rt.remote
+    def shift(x):
+        return x + 1.0
+
+    @rt.remote
+    def finish(x):
+        return x - 3.0
+
+    checks, out = {}, {"card": card}
+    rt.init(num_cpus=4, ignore_reinit_error=True)
+    try:
+        # (a) The 4-stage pipeline: values, then its latency.
+        with InputNode() as inp:
+            node = inp
+            for i in range(1, DAG_ACTOR_STAGES + 1):
+                node = Plus.remote(i).apply.bind(node)
+        compiled = node.experimental_compile(backend="actor")
+        try:
+            got = [compiled.execute(i).get(timeout=SERVE_POLL_S)
+                   for i in range(DAG_ACTOR_EXECS)]
+            offset = sum(range(1, DAG_ACTOR_STAGES + 1))
+            checks["pipeline_values"] = got == [
+                i + offset for i in range(DAG_ACTOR_EXECS)]
+            lat = []
+            for i in range(DAG_ACTOR_TIMED):
+                t0 = time.perf_counter()
+                compiled.execute(i).get(timeout=SERVE_POLL_S)
+                lat.append(time.perf_counter() - t0)
+            # Two executions in flight (the channels hold two each).
+            t0 = time.perf_counter()
+            pending = []
+            for i in range(DAG_ACTOR_TIMED):
+                pending.append(compiled.execute(i))
+                if len(pending) == 2:
+                    pending.pop(0).get(timeout=SERVE_POLL_S)
+            for ref in pending:
+                ref.get(timeout=SERVE_POLL_S)
+            pipelined = (time.perf_counter() - t0) / DAG_ACTOR_TIMED
+        finally:
+            compiled.teardown()
+        out["pipeline"] = {
+            "stages": DAG_ACTOR_STAGES, "execs_checked": DAG_ACTOR_EXECS,
+            "sync_exec_p50_us": _p50(lat) * 1e6,
+            "sync_exec_p99_us": sorted(lat)[int(0.99 * len(lat))] * 1e6,
+            "pipelined_us_per_execute": pipelined * 1e6,
+            "torch_executor_chain_1k_sync_p50_us": chain_p50_us}
+        # (b) A CUDA tensor through two actor stages, by reference.
+        with InputNode() as inp:
+            leaf = Same.remote().apply.bind(Same.remote().apply.bind(inp))
+        x = torch.arange(1024.0, device=dev)
+        (y,), _ = _run_actor_dag(leaf, x)
+        checks["same_tensor"] = y is x and y.device == x.device
+        # (c) tests/test_dag.py's mixed DAG on CUDA tensors.
+        g = Gate.remote()
+        with InputNode() as inp:
+            a = scale.bind(inp).with_tensor_transport("device")
+            b = shift.bind(a).with_tensor_transport("device")
+            d = finish.bind(g.apply.bind(b)).with_tensor_transport("device")
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        (y,), compiled = _run_actor_dag(d, x)
+        seen = list(g._runtime.instance.seen)
+        driver_stages = len(compiled._loops["__driver__"])
+        checks["mixed"] = (driver_stages == 2
+                           and seen == [("Tensor", str(x.device))]
+                           and y.device == x.device
+                           and torch.equal(y, x * 2.0 + 1.0 - 3.0))
+        out["mixed"] = {"driver_stages": driver_stages, "actor_saw": seen}
+        # (d) A stage's error reaches get.
+        with InputNode() as inp:
+            leaf = Bad.remote().apply.bind(inp)
+        try:
+            _run_actor_dag(leaf, 1)
+            checks["stage_error"] = False
+        except ValueError as exc:
+            checks["stage_error"] = "stage failed" in str(exc)
+        # (e) An allreduce of DAG_ACTOR_RANKS actor ranks on the card.
+        ranks = [Rank.remote(i) for i in range(DAG_ACTOR_RANKS)]
+        col.create_collective_group(ranks, DAG_ACTOR_RANKS,
+                                    list(range(DAG_ACTOR_RANKS)),
+                                    group_name="chip_smoke")
+        sums = rt.get([r.reduce.remote("chip_smoke") for r in ranks],
+                      timeout=SERVE_POLL_S)
+        total = float(sum(range(1, DAG_ACTOR_RANKS + 1)))
+        checks["allreduce"] = all(
+            o.device == x.device and torch.equal(
+                o, torch.full((1024,), total, device=dev)) for o in sums)
+        col.destroy_collective_group("chip_smoke")
+    finally:
+        rt.shutdown()
+    out["checks"] = checks
+    emit({"phase": "dag_actor", **out})
+    if not all(checks.values()):
+        raise AssertionError(f"dag_actor: a check failed: {checks}")
+    return out
 
 
 # ---------------------------------------------------------- phase 9: dag_mesh
@@ -4217,6 +4530,100 @@ def _cuda_object_store(dev):
             "two_device_copies_ms": two_clones}
 
 
+def _prefill_stats(handle):
+    return handle.stats.remote().result(timeout=SERVE_POLL_S)
+
+
+def _serve_disagg(cfg, dev, prompts, want, shared, shared_want, new_tokens):
+    """Phase 13's disaggregated serving of the flagship (module
+    docstring). Returns its readings; raises on a failed check."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (
+        DisaggHandle,
+        EngineConfig,
+        build_disagg_llm_app,
+    )
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    papp, dapp = build_disagg_llm_app(EngineConfig(
+        model=cfg, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+        device=str(dev)))
+    serve.run(papp, name="prefill")
+    serve.run(dapp, name="decode")
+    h = DisaggHandle.from_deployments()
+    ph = serve.get_deployment_handle("llm-prefill")
+    dh = serve.get_deployment_handle("llm-decode")
+    runs, kv_bytes = [], []
+    for p in prompts:
+        before = _prefill_stats(ph)["kv_bytes_published"]
+        runs.append(_timed_stream(lambda: h.stream(
+            {"prompt": p, "max_new_tokens": new_tokens})))
+        kv_bytes.append(_prefill_stats(ph)["kv_bytes_published"] - before)
+    _must_equal("disagg", [r[0] for r in runs], want)
+    if (h.paired, h.prefill_fallbacks) != (len(prompts), 0):
+        raise AssertionError(f"disagg: paired {h.paired}, prefill "
+                             f"fallbacks {h.prefill_fallbacks}")
+    # A prompt sharing the cached prompt's blocks ships only its tail.
+    ctrl = get_or_create_controller()
+    ctrl.poll_prefix_digests_of(ctrl.deployment_info("llm-decode"))
+    skip = h._plan_skip_blocks(shared, BLOCK_SIZE)
+    before = _prefill_stats(ph)["kv_blocks_published"]
+    planned = list(h.stream_planned(
+        {"prompt": shared, "max_new_tokens": new_tokens}, BLOCK_SIZE))
+    shipped = _prefill_stats(ph)["kv_blocks_published"] - before
+    holds = -(-len(shared) // BLOCK_SIZE)
+    _must_equal("disagg planned", [planned], [shared_want])
+    if not 0 < shipped < holds:
+        raise AssertionError(f"disagg planned: shipped {shipped} of "
+                             f"{holds} blocks (skip {skip})")
+    # The ledger balances: every publication acked, no block held.
+    deadline = time.monotonic() + SERVE_POLL_S
+    while True:
+        st = _prefill_stats(ph)
+        if ((st["kv_publications_outstanding"] == 0
+                and st["blocks_in_use"] == 0)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.01)
+    ledger = {k: st[k] for k in (
+        "kv_publishes", "kv_acks", "kv_expiries",
+        "kv_publications_outstanding", "blocks_in_use", "held_sequences",
+        "kv_blocks_published", "kv_bytes_published")}
+    if (ledger["kv_acks"] != ledger["kv_publishes"]
+            or ledger["kv_publishes"] != len(prompts) + 1
+            or ledger["kv_publications_outstanding"]
+            or ledger["blocks_in_use"] or ledger["held_sequences"]):
+        raise AssertionError(f"disagg: the ledger does not balance: "
+                             f"{ledger}")
+    # A dead ticket falls back to a local re-prefill.
+    bad = {"prompt": prompts[0], "max_new_tokens": new_tokens,
+           "_disagg": {"ref": None, "first_token": want[0][0],
+                       "pub_id": -1, "start_block": 0, "blocks": 0,
+                       "block_size": BLOCK_SIZE, "bytes": 0}}
+    t0 = time.perf_counter()
+    dead = list(dh.options(stream=True).remote(bad))
+    dead_s = time.perf_counter() - t0
+    _must_equal("disagg dead ticket", [dead], [want[0]])
+    dst = dh.stats.remote().result(timeout=SERVE_POLL_S)
+    if (dst["disagg_adopted"], dst["disagg_fallbacks"]) != (
+            len(prompts) + 1, 1):
+        raise AssertionError(f"disagg: adopted {dst['disagg_adopted']}, "
+                             f"fallbacks {dst['disagg_fallbacks']}")
+    serve.delete("llm-prefill")
+    serve.delete("llm-decode")
+    return {"runs": runs, "paired": h.paired,
+            "prefill_fallbacks": h.prefill_fallbacks,
+            "kv_bytes_per_prompt": kv_bytes,
+            "planned": {"prompt_len": len(shared), "skip_blocks": skip,
+                        "blocks_shipped": shipped, "blocks_held": holds,
+                        "equals_engine": True},
+            "ledger": ledger, "dead_ticket_equals_engine": True,
+            "dead_ticket_s": dead_s,
+            "decode_pool": {k: dst[k] for k in (
+                "disagg_adopted", "disagg_fallbacks", "blocks_grafted")},
+            "ttft_decomposition": dst["ttft_decomposition"]}
+
+
 def phase_serve(dev, card, cfg, lens, new_tokens):
     """Phase 13 (module docstring)."""
     import ray_tpu_torch as rt
@@ -4241,6 +4648,9 @@ def phase_serve(dev, card, cfg, lens, new_tokens):
     direct = _engine_streams(cfg, dev, prompts, new_tokens)
     direct_gqa = _engine_streams(gqa, dev, gqa_prompts, new_tokens)
     want = [d[0] for d in direct]
+    shared = prompts[SERVE_DISAGG_SHARED] + np.random.default_rng(
+        SEED + 4).integers(1, cfg.vocab_size, SERVE_DISAGG_TAIL).tolist()
+    (shared_want, _, _), = _engine_streams(cfg, dev, [shared], new_tokens)
     rt.shutdown()
     rt.init(num_cpus=4)
     try:
@@ -4266,6 +4676,8 @@ def phase_serve(dev, card, cfg, lens, new_tokens):
             _must_equal("served GQA", [s[0] for s in served_gqa],
                         [d[0] for d in direct_gqa])
             serve.delete("llm_gqa")
+            disagg = _serve_disagg(cfg, dev, prompts, want, shared,
+                                   shared_want, new_tokens)
             counts = {n: getattr(fa, n) for n in _COUNTERS}
         if any(counts.values()):
             raise AssertionError(
@@ -4297,6 +4709,11 @@ def phase_serve(dev, card, cfg, lens, new_tokens):
            "flash_counters_on_served_path": counts,
            "engine_direct": readings(direct),
            "handle": readings(served), "http": readings(via_http),
+           "disagg": {**{k: v for k, v in disagg.items() if k != "runs"},
+                      "equals_engine": True,
+                      **readings(disagg["runs"]),
+                      "transfer_p50_s": disagg["ttft_decomposition"].get(
+                          "transfer_p50_s")},
            "cancel": cancel, "prefix_routing": prefix,
            "cuda_object_store": store, "runtime": runtime, "card": card}
     emit(out)

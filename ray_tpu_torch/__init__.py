@@ -11,12 +11,15 @@ flash-attention forward and backward kernels for sm_90a, a Triton
 RMSNorm kernel, plain PyTorch paged attention); the one-process runtime
 (tasks, actors, ObjectRefs and streaming generators on threads in the
 calling process: ``init``, ``remote``, ``get``, ``put``, ``wait``, ``cancel``,
-``kill``, ``shutdown``) and ``serve`` on top of it; the compiled-DAG
-wave executor, on one device or sharded over a mesh (``dag``); the
-one-controller mesh and its collectives, ``parallel`` and
-``collective``; and reinforcement learning, ``rl`` (tensor-native
-environments, PPO, DQN and multi-agent PPO, each rollout and update one
-CUDA graph on the card). Entry points take a ``device`` that defaults to
+``kill``, ``shutdown``, ``available_resources``, ``cluster_resources``)
+and ``serve`` on top of it, disaggregated prefill/decode serving among
+``llm``'s apps; DAGs (``dag``): interpreted on the runtime, compiled to
+actor loops over channels (``channels``), or compiled to the wave
+executor, on one device or sharded over a mesh; the one-controller mesh
+and its collectives, ``parallel`` and ``collective`` (with the actor
+plane's groups); and reinforcement learning, ``rl`` (tensor-native
+environments, PPO, DQN, IMPALA and multi-agent PPO, each rollout and
+update one CUDA graph on the card, runners local or remote actors). Entry points take a ``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
 thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``
 joins them.
@@ -39,13 +42,32 @@ from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch import exceptions, llm, rl, serve
 
 __version__ = "0.1.0"
+
+
+def available_resources():
+    """Resources not held by running tasks: ``{"CPU": n, "GPU": m,
+    ...}``."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    return global_worker().resource_pool.available()
+
+
+def cluster_resources():
+    """Every resource of the runtime, held or not (one process: one
+    node)."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    return global_worker().resource_pool.total
+
 __all__ = [
     "ActorClass",
     "ActorHandle",
     "ObjectRef",
     "ObjectRefGenerator",
     "RemoteFunction",
+    "available_resources",
     "cancel",
+    "cluster_resources",
     "exceptions",
     "get",
     "get_actor",

@@ -107,3 +107,18 @@ _D("serve_wake_timeout_s", float, 30.0,
    "Scale-to-zero wake bound: a request arriving at a deployment with "
    "zero replicas queues while the controller scales it back up, and "
    "fails typed only past this many seconds.")
+_D("channel_read_timeout_s", float, 60.0,
+   "Default bound on a compiled-DAG channel read or write.")
+_D("llm_kv_publish_ttl_s", float, 30.0,
+   "Disaggregated serving publish TTL: a prefill replica's exported KV "
+   "blocks (held for a decode replica's pull) free automatically this "
+   "many seconds after publication if never acked, so a crashed or "
+   "rerouted decode side can never leak prefill-pool blocks.")
+_D("llm_disagg_pull_timeout_s", float, 10.0,
+   "Disaggregated serving pull bound: how long a decode replica waits "
+   "for a published KV payload before abandoning the graft and "
+   "re-prefilling locally (typed fallback, not a hang).")
+_D("llm_disagg_prefill_timeout_s", float, 30.0,
+   "Disaggregated serving prefill RPC bound: how long the pairing layer "
+   "waits for a prefill replica's ticket before falling back to the "
+   "colocated path on the decode pool.")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import atexit
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Union
@@ -378,6 +379,10 @@ class Worker:
         self.actors: Dict[Any, Any] = {}  # ActorID -> _ActorRuntime
         self.named_actors: Dict[tuple, Any] = {}  # (namespace, name) -> handle
         self.namespace = "default"
+        # Internal KV (the reference's GCS-KV, here local to the process):
+        # the rendezvous of the actor-plane collective groups.
+        self._kv: Dict[bytes, bytes] = {}
+        self._kv_lock = threading.Lock()
 
     # ------------------------------------------------------------------- api
     def current_task_id(self) -> TaskID:
@@ -424,6 +429,26 @@ class Worker:
     def wait(self, object_ids: List[ObjectID], num_returns: int,
              timeout: Optional[float]):
         return self.store.wait(object_ids, num_returns, timeout)
+
+    # -------------------------------------------------------- internal KV ---
+    def kv_put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:
+        with self._kv_lock:
+            if not overwrite and key in self._kv:
+                return False
+            self._kv[key] = value
+            return True
+
+    def kv_get(self, key: bytes) -> Optional[bytes]:
+        with self._kv_lock:
+            return self._kv.get(key)
+
+    def kv_del(self, key: bytes) -> bool:
+        with self._kv_lock:
+            return self._kv.pop(key, None) is not None
+
+    def kv_keys(self, prefix: bytes = b"") -> List[bytes]:
+        with self._kv_lock:
+            return [k for k in self._kv if k.startswith(prefix)]
 
     def shutdown(self):
         """Stop every actor loop and the scheduler, fail every waiter,
@@ -506,6 +531,11 @@ def shutdown():
 
     _http.stop_proxy()
     _controller.shutdown_controller()
+    # Compiled DAGs' exec loops occupy their actors' loop threads until
+    # teardown: end them first, so the actors' joins below can finish.
+    compiled_dag = sys.modules.get("ray_tpu_torch.dag.compiled_dag")
+    if compiled_dag is not None:
+        compiled_dag._teardown_all()
     with _init_lock:
         if _global_worker is None:
             return

@@ -42,6 +42,17 @@ from ray_tpu_torch.exceptions import (
 _TERMINATE = object()
 
 
+class _ClosureCall:
+    """A raw closure run on the actor's execution loop with the
+    instance: a compiled DAG hosts its long-running exec loop in the
+    actor this way (serialised with normal method calls)."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+
 class _MethodCall:
     __slots__ = ("method_name", "args", "kwargs", "return_ids", "name",
                  "cancelled", "streaming", "backpressure")
@@ -129,14 +140,20 @@ class _ActorRuntime:
                     call = mailbox.get()
                     if call is _TERMINATE:
                         return
-                    pool.submit(self._execute_call, worker, call)
+                    if isinstance(call, _ClosureCall):
+                        pool.submit(call.fn, self.instance)
+                    else:
+                        pool.submit(self._execute_call, worker, call)
             finally:
                 pool.shutdown()
         while True:
             call = mailbox.get()
             if call is _TERMINATE:
                 return
-            self._execute_call(worker, call)
+            if isinstance(call, _ClosureCall):
+                call.fn(self.instance)
+            else:
+                self._execute_call(worker, call)
 
     def _run_async(self, mailbox):
         loop = asyncio.new_event_loop()
@@ -155,6 +172,11 @@ class _ActorRuntime:
                 call = await loop.run_in_executor(None, mailbox.get)
                 if call is _TERMINATE:
                     return
+                if isinstance(call, _ClosureCall):
+                    # A blocking exec loop runs off the event loop, so the
+                    # actor's coroutines stay responsive.
+                    loop.run_in_executor(None, call.fn, self.instance)
+                    continue
                 await sem.acquire()
 
                 async def _run(call=call):
@@ -303,6 +325,8 @@ class _ActorRuntime:
                 continue
             if call is _TERMINATE:
                 return
+            if isinstance(call, _ClosureCall):
+                continue  # a compiled-DAG loop: its compile-time check reports
             self._fail_call(worker, call, err)
 
     # ------------------------------------------------------------ submission
@@ -335,6 +359,13 @@ class _ActorRuntime:
             streaming=True,
             backpressure=GlobalConfig.generator_backpressure_items))
         return gen
+
+    def submit_exec_loop(self, fn):
+        """Enqueue a long-running closure (a compiled DAG's exec loop):
+        it runs on the actor's loop thread with the instance and occupies
+        the actor until it returns (at teardown)."""
+        with self._lock:
+            self._mailbox.put(_ClosureCall(fn))
 
     def _enqueue(self, worker, call: _MethodCall):
         with self._lock:

@@ -1,10 +1,11 @@
 """DAG authoring and the compiled wave executor of the PyTorch/CUDA port
 (counterpart of ``ray_tpu/dag``).
 
-See dag_node.py (authoring) and torch_executor.py (the device-resident
-wave executor, ``experimental_compile(backend="torch")``, on one device
-or, with ``mesh=``, sharded over a mesh axis). The actor-loop
-backend and interpreted execution are not ported yet (ROADMAP A.5).
+See dag_node.py (authoring and the interpreted ``execute`` on the
+runtime), compiled_dag.py (the actor-loop backend over channels,
+``experimental_compile(backend="actor")``) and torch_executor.py (the
+device-resident wave executor, ``experimental_compile(backend="torch")``,
+on one device or, with ``mesh=``, sharded over a mesh axis).
 """
 
 from ray_tpu_torch.dag.dag_node import (
@@ -17,6 +18,7 @@ from ray_tpu_torch.dag.dag_node import (
     MultiOutputNode,
     reduce_tree,
 )
+from ray_tpu_torch.dag.compiled_dag import CompiledDAG, CompiledDAGRef
 from ray_tpu_torch.dag.torch_executor import (
     CompiledTorchDAG,
     ShardedTorchDAG,
@@ -27,6 +29,8 @@ from ray_tpu_torch.dag.torch_executor import (
 __all__ = [
     "ClassMethodNode",
     "ClassNode",
+    "CompiledDAG",
+    "CompiledDAGRef",
     "CompiledTorchDAG",
     "DAGNode",
     "FunctionNode",

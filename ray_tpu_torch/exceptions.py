@@ -114,6 +114,14 @@ class ObjectLostError(RayTpuError):
         super().__init__(message or f"object {object_ref} was lost")
 
 
+class ChannelError(RayTpuError):
+    """Compiled-graph channel failure (closed, timeout, version skew)."""
+
+
+class ChannelTimeoutError(ChannelError, TimeoutError):
+    pass
+
+
 class RequestSheddedError(RayTpuError):
     """The request was refused (or evicted pre-admission) by the load-
     shedding policy under overload, not a failure of the request itself.

@@ -15,29 +15,43 @@ the engine side of disaggregated prefill/decode.
   tensor-parallel over a one-controller mesh (the pool held per shard);
   ``spec_k``/``draft_model`` arm speculative decoding; ``hold_after_prefill`` and
   ``begin_adopted``/``adopt_kv``/``commit_adopted`` are the two halves
-  of a disaggregated hop (the servers of ``llm/disagg.py`` are not
-  ported).
+  of a disaggregated hop.
 - ``build_llm_app`` / ``LLMServer`` (api.py): the engine as a Serve
   deployment; token streams ride ``handle.options(stream=True)`` and the
   HTTP proxy's chunked path, a closed stream frees its sequence, and
   replicas report prefix digests the Serve router scores.
+- ``build_disagg_llm_app`` / ``PrefillLLMServer`` / ``DecodeLLMServer`` /
+  ``DisaggHandle`` (disagg.py): disaggregated serving, a prefill pool that
+  publishes each prompt's KV blocks and a decode pool that grafts them and
+  streams, with the publish/ack/TTL ledger, tail-only shipping and a
+  counted local re-prefill fallback.
 """
 
 from ray_tpu_torch.exceptions import KVCacheOOM
 from ray_tpu_torch.llm.api import LLMServer, build_llm_app
+from ray_tpu_torch.llm.disagg import (
+    DecodeLLMServer,
+    DisaggHandle,
+    PrefillLLMServer,
+    build_disagg_llm_app,
+)
 from ray_tpu_torch.llm.engine import EngineConfig, InferenceEngine, live_engines
 from ray_tpu_torch.llm.kv_cache import PagedKVCache, chain_digests
 from ray_tpu_torch.llm.scheduler import EngineQueueFull, Request, Scheduler
 
 __all__ = [
+    "DecodeLLMServer",
+    "DisaggHandle",
     "EngineConfig",
     "EngineQueueFull",
     "InferenceEngine",
     "KVCacheOOM",
     "LLMServer",
     "PagedKVCache",
+    "PrefillLLMServer",
     "Request",
     "Scheduler",
+    "build_disagg_llm_app",
     "build_llm_app",
     "chain_digests",
     "live_engines",

@@ -5,10 +5,11 @@ Environments are batched tensor programs (``TorchEnv``); an EnvRunner's
 whole vectorised rollout (env step, policy forward, value bootstrap), the
 PPO update and DQN's ``train_many`` each run as one device program: one
 CUDA graph per call on the card, eager on the CPU. ``Algorithm`` trains
-PPO or DQN over a local runner; ``MultiAgentPPO`` runs independent PPO
-over a policy mapping; ``IMPALA`` is IMPALA's V-trace learner, its update
-one device program. Remote runners and IMPALA's asynchronous loop on
-the runtime are not ported yet (ROADMAP A.5), ``offline.py`` waits for the
+PPO or DQN over a local runner or over runner actors of the one-process
+runtime (``EnvRunner.as_actor``, each on a CUDA stream of its own);
+``MultiAgentPPO`` runs independent PPO over a policy mapping; ``IMPALA``
+is the asynchronous actor-learner, runner actors streaming rollouts into
+its V-trace update (one device program). ``offline.py`` waits for the
 Data layer.
 """
 

@@ -1,7 +1,9 @@
 """Algorithm orchestration (counterpart of ``ray_tpu/rl/algorithm.py``):
-``AlgorithmConfig`` (chained setters) and ``Algorithm`` for PPO and DQN
-over a local ``EnvRunner``. Remote runners and IMPALA on the port's
-runtime (actors) are not ported yet (ROADMAP A.5), and raise.
+``AlgorithmConfig`` (chained setters), ``Algorithm`` for PPO and DQN over
+a local ``EnvRunner`` or, with ``num_env_runners > 0``, over that many
+runner actors of the one-process runtime (runner ``i`` seeded
+``seed + i``), and ``build()`` of ``"IMPALA"``, the asynchronous learner
+of ``rl/impala.py``.
 """
 
 from __future__ import annotations
@@ -13,15 +15,21 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.rl.dqn import DQNConfig, DQNLearner
 from ray_tpu_torch.rl.env import CartPole, Pendulum, TorchEnv
 from ray_tpu_torch.rl.env_runner import EnvRunner
-from ray_tpu_torch.rl.ppo import PPOConfig, PPOLearner, policy_logits
+from ray_tpu_torch.rl.ppo import (
+    PPOConfig,
+    PPOLearner,
+    clone_params,
+    policy_logits,
+)
 
 _ENVS = {"CartPole-v1": CartPole, "Pendulum-v1": Pendulum}
-_NEEDS_RUNTIME = ("needs remote runners on the port's runtime (actors "
-                  "and remote tasks), not ported yet: ROADMAP A.5")
+# Bound on a round of remote samples (the first captures each graph).
+SAMPLE_TIMEOUT_S = 120.0
 
 
 class AlgorithmConfig:
@@ -30,6 +38,8 @@ class AlgorithmConfig:
     places the learner and the runner (default the card)."""
 
     def __init__(self, algo: str = "PPO", device="cuda"):
+        from ray_tpu_torch.rl.impala import IMPALAConfig
+
         self.algo = algo
         self.device = device
         self.env_name = "CartPole-v1"
@@ -37,7 +47,10 @@ class AlgorithmConfig:
         self.num_env_runners = 0
         self.num_envs_per_runner = 64
         self.rollout_len = 128
-        self.train_config = DQNConfig() if algo == "DQN" else PPOConfig()
+        self.train_config = (
+            DQNConfig() if algo == "DQN"
+            else IMPALAConfig() if algo == "IMPALA"
+            else PPOConfig())
         self.seed = 0
 
     def environment(self, env: str = None, *, env_factory=None
@@ -67,7 +80,17 @@ class AlgorithmConfig:
 
     def build(self):
         if self.algo == "IMPALA":
-            raise NotImplementedError(f"IMPALA {_NEEDS_RUNTIME}")
+            from ray_tpu_torch.rl.impala import IMPALA
+
+            factory = self.env_factory or _ENVS.get(self.env_name)
+            if factory is None:
+                raise ValueError(f"unknown env {self.env_name!r}")
+            return IMPALA(
+                factory(), self.train_config,
+                num_runners=max(self.num_env_runners, 1),
+                num_envs=self.num_envs_per_runner,
+                rollout_len=self.rollout_len, seed=self.seed,
+                device=self.device)
         return Algorithm(self)
 
     # reference alias
@@ -75,15 +98,13 @@ class AlgorithmConfig:
 
 
 class Algorithm:
-    """PPO or DQN training over a local env runner."""
+    """PPO or DQN training over a local env runner or remote ones."""
 
     def __init__(self, config: AlgorithmConfig):
         if config.algo not in ("PPO", "DQN"):
             raise NotImplementedError(
                 f"algorithm {config.algo!r}; PPO (on-policy) and DQN "
                 f"(off-policy replay) are implemented natively")
-        if config.num_env_runners > 0:
-            raise NotImplementedError(f"remote env runners {_NEEDS_RUNTIME}")
         self.config = config
         self.device = resolve_device(config.device)
         factory = config.env_factory or _ENVS.get(config.env_name)
@@ -95,15 +116,29 @@ class Algorithm:
         learner = DQNLearner if config.algo == "DQN" else PPOLearner
         self.learner = learner(self.env, config.train_config, config.seed,
                                device=self.device)
-        self._runners = [EnvRunner(
-            self.env, config.num_envs_per_runner, config.rollout_len,
-            seed=config.seed, device=self.device)]
+        if config.num_env_runners > 0:
+            ray_tpu_torch.init(ignore_reinit_error=True)
+            self._runners = [
+                EnvRunner.as_actor(self.env, config.num_envs_per_runner,
+                                   config.rollout_len, seed=config.seed + i,
+                                   device=self.device)
+                for i in range(config.num_env_runners)]
+        else:
+            self._runners = [EnvRunner(
+                self.env, config.num_envs_per_runner, config.rollout_len,
+                seed=config.seed, device=self.device)]
         self._iter = 0
 
     def train(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
         params = self.learner.get_weights()
-        rollouts = [r.sample(params) for r in self._runners]
+        if self.config.num_env_runners > 0:
+            host = clone_params(params, device="cpu")
+            rollouts = ray_tpu_torch.get(
+                [r.sample.remote(host) for r in self._runners],
+                timeout=SAMPLE_TIMEOUT_S)
+        else:
+            rollouts = [r.sample(params) for r in self._runners]
         sample_time = time.perf_counter() - t0
 
         losses = []
@@ -155,4 +190,7 @@ class Algorithm:
         return self.learner.get_weights()
 
     def stop(self):
-        self._runners = []
+        runners, self._runners = self._runners, []
+        if self.config.num_env_runners > 0:
+            for r in runners:
+                ray_tpu_torch.kill(r)

@@ -14,14 +14,28 @@ uniforms from the runner's generator; ``make_rollout_fn(...).with_draws``
 takes them as arguments instead, so a test can pass the reference's.
 Actions are ``argmax(logits + Gumbel)``, the reference's
 ``jax.random.categorical``.
+
+``EnvRunner.as_actor`` runs a runner as an actor of the one-process
+runtime (a thread of this process). The actor owns a CUDA stream of its
+own: the runner's state is made, its graph captured and replayed, and
+its rollout copied to the host on that stream, so two runners and the
+learner (on the default stream) may overlap on the card. The stream
+comes from PyTorch's high-priority pool, apart from the streams captures
+run on. ``sample`` returns the rollout as host tensors after that copy,
+as the reference's actor returns ``jax.device_get`` of it: a sample that
+is ready is collected.
+Construction and each step of a sample run as ``device_work()``, which
+no capture of another thread overlaps (``rl/_graph.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.rl._graph import GraphProgram
+from ray_tpu_torch.rl._graph import GraphProgram, device_work
 from ray_tpu_torch.rl.env import TorchEnv
 from ray_tpu_torch.rl.ppo import (
     Rollout,
@@ -111,11 +125,14 @@ class _EnvRunnerImpl:
         return rollout
 
     def sample(self, params) -> Rollout:
-        if self._params is None:
-            self._params = clone_params(params)
-        else:
-            copy_params_(self._params, params)
-        return Rollout(*(t.clone() for t in self._program()))
+        with device_work():
+            if self._params is None:
+                self._params = clone_params(params, device=self.device)
+            else:
+                copy_params_(self._params, params)
+        out = self._program()
+        with device_work():
+            return Rollout(*(t.clone() for t in out))
 
     def steps_per_sample(self) -> int:
         return self.num_envs * self.rollout_len
@@ -137,7 +154,40 @@ class EnvRunner:
 
     @staticmethod
     def as_actor(env: TorchEnv, num_envs: int = 64, rollout_len: int = 128,
-                 seed: int = 0):
-        raise NotImplementedError(
-            "remote env runners on the port's runtime (actors) are not "
-            "ported yet: ROADMAP A.5")
+                 seed: int = 0, device="cuda"):
+        """A runner on the runtime's actors: ``sample.remote(params)``
+        returns an ObjectRef of the rollout as host tensors; ``params``
+        may lie on the host or on the runner's device."""
+        import ray_tpu_torch
+
+        device = resolve_device(device)
+
+        @ray_tpu_torch.remote
+        class EnvRunnerActor:
+            def __init__(self):
+                # From the high-priority pool, which no capture draws
+                # from (rl/_graph.py): PyTorch hands pool streams out
+                # round-robin, so a default-priority one may be the very
+                # stream another thread is capturing on.
+                self._stream = (torch.cuda.Stream(device, priority=-1)
+                                if device.type == "cuda" else None)
+                with self._on_stream(), device_work():
+                    self._impl = _EnvRunnerImpl(env, num_envs, rollout_len,
+                                                seed, device)
+
+            def _on_stream(self):
+                if self._stream is None:
+                    return contextlib.nullcontext()
+                return torch.cuda.stream(self._stream)
+
+            def sample(self, params) -> Rollout:
+                with self._on_stream():
+                    rollout = self._impl.sample(params)
+                    # The copy to the host syncs this runner's stream.
+                    with device_work():
+                        return Rollout(*(t.cpu() for t in rollout))
+
+            def steps_per_sample(self) -> int:
+                return self._impl.steps_per_sample()
+
+        return EnvRunnerActor.remote()

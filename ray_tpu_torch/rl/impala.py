@@ -1,19 +1,21 @@
-"""IMPALA's learner (counterpart of ``ray_tpu/rl/impala.py``): the
-V-trace targets and the learner update, the update one device program (a
-CUDA graph on the card, eager on the CPU).
+"""IMPALA (counterpart of ``ray_tpu/rl/impala.py``): env-runner actors
+stream rollouts into a learner that updates while collection goes on,
+with V-trace importance correction for the policy lag.
 
-The reference's learner is an asynchronous actor loop: env-runner actors
-keep one sample in flight each while the learner runs the V-trace update
-on whichever rollout lands first. That loop (``IMPALA.__init__``'s
-runners, ``train`` and ``stop``) runs on the runtime's actors, ``wait``,
-``get`` and ``kill``, and is not ported onto the port's runtime yet
-(ROADMAP A.5): here
-``IMPALA`` owns the parameters and the optimizer, ``update(rollout)`` is
-the learner step the reference's loop runs on each rollout, and ``train``
-and ``stop`` raise.
+Each runner actor's whole vectorised rollout is one device program (a
+CUDA graph on the card, on the actor's own stream: ``rl/env_runner.py``);
+the learner's V-trace update is one device program (a graph on the
+calling thread's stream). Asynchrony is the scheduling layer between
+them, on the one-process runtime's actors, ``wait``, ``get`` and
+``kill``: one sample stays in flight PER RUNNER at all times. When a
+rollout lands, its runner is re-armed with the freshest weights BEFORE
+the learner consumes it, so collection overlaps the update, and
+``train()`` measures that overlap falsifiably: a sample submitted
+before the update and still not ready after it.
 
-Parameters keep the reference's policy tree and are updated in place (the
-graph's static buffers). The optimizer is the reference's
+Parameters keep the reference's policy tree and are updated in place
+(the graph's static buffers); a runner gets a host copy, as the
+reference's ``jax.device_get``. The optimizer is the reference's
 ``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))``, written
 out as PPO's ``_Adam``.
 """
@@ -21,14 +23,18 @@ out as PPO's ``_Adam``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.rl._graph import GraphProgram
+from ray_tpu_torch.rl._graph import GraphProgram, device_work
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rl.env import TorchEnv
+from ray_tpu_torch.rl.env_runner import EnvRunner
 from ray_tpu_torch.rl.ppo import (
     Rollout,
     _Adam,
@@ -40,9 +46,8 @@ from ray_tpu_torch.rl.ppo import (
     value_fn,
 )
 
-_NEEDS_RUNTIME = ("IMPALA's asynchronous actor loop on the port's "
-                  "runtime (actors, wait, get, kill) is not ported yet: "
-                  "ROADMAP A.5")
+# Bound on the wait for the next landed sample.
+WAIT_TIMEOUT_S = 120.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,23 +108,29 @@ def impala_loss(params, rollout: Rollout, cfg: IMPALAConfig):
 
 
 class IMPALA:
-    """IMPALA's learner: the parameters, the optimizer and the V-trace
-    update as one device program per rollout shape. ``num_envs`` and
-    ``rollout_len`` give ``steps_per_sample``, the transitions of one
-    runner's sample; ``num_runners`` is the reference's and starts no
-    runner here (the runners wait for A.5)."""
+    """Asynchronous actor-learner: ``num_runners`` runner actors (runner
+    ``i`` seeded ``seed + i``), each sampling ``num_envs`` x
+    ``rollout_len`` transitions, and the learner's parameters, optimizer
+    and V-trace update (one device program per rollout shape).
+    Construction starts the runtime (``init(ignore_reinit_error=True)``)
+    and the runners; ``stop()`` kills them."""
 
     def __init__(self, env: TorchEnv, config: IMPALAConfig = IMPALAConfig(),
                  *, num_runners: int = 2, num_envs: int = 32,
                  rollout_len: int = 64, seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        ray_tpu_torch.init(ignore_reinit_error=True)
         self.env = env
         self.config = config
-        self.device = resolve_device(device)
         init = torch.Generator(device=self.device).manual_seed(seed)
         self.params = clone_params(init_policy(
             init, env.obs_dim, env.num_actions, config.hidden), True)
         self._leaves = leaves(self.params)
         self._opt = _Adam(self._leaves, config.lr, config.max_grad_norm)
+        self._runners = [
+            EnvRunner.as_actor(env, num_envs, rollout_len, seed=seed + i,
+                               device=self.device)
+            for i in range(num_runners)]
         self.steps_per_sample = num_envs * rollout_len
         # Rollout shapes -> (static rollout, GraphProgram).
         self._programs: Dict[tuple, tuple] = {}
@@ -148,10 +159,12 @@ class IMPALA:
         """One learner step on ``rollout`` (the step the reference's loop
         runs on each landed sample); returns the loss before the step."""
         static, program = self._program(rollout)
-        with torch.no_grad():
+        with torch.no_grad(), device_work():
             for dst, src in zip(static, rollout):
                 dst.copy_(src)
-        return float(program())
+        loss = program()
+        with device_work():
+            return float(loss)
 
     def get_weights(self):
         return self.params
@@ -168,8 +181,78 @@ class IMPALA:
         algo.learner.set_weights(self.params)
         return algo.evaluate(num_episodes)
 
+    # ------------------------------------------------------------- training
+    def _host_params(self):
+        with device_work():
+            return clone_params(self.params, device="cpu")
+
     def train(self, num_updates: int = 50) -> Dict[str, float]:
-        raise NotImplementedError(_NEEDS_RUNTIME)
+        """Run the asynchronous loop for ``num_updates`` learner steps.
+        Returns the stats, the measured collection/update overlap
+        among them."""
+        t_start = time.perf_counter()
+        host_params = self._host_params()
+        inflight = {}
+        submit_ts = {}
+        for i, r in enumerate(self._runners):
+            ref = r.sample.remote(host_params)
+            inflight[ref] = i
+            submit_ts[ref] = time.perf_counter()
+        losses = []
+        update_wall = 0.0
+        overlap_s = 0.0
+        done_rates = []
+        updates = 0
+        while updates < num_updates:
+            ready, _ = ray_tpu_torch.wait(list(inflight), num_returns=1,
+                                          timeout=WAIT_TIMEOUT_S)
+            if not ready:
+                raise TimeoutError("env runners stalled")
+            ref = ready[0]
+            idx = inflight.pop(ref)
+            submit_ts.pop(ref, None)
+            rollout = ray_tpu_torch.get(ref, timeout=WAIT_TIMEOUT_S)
+            # Re-arm the runner FIRST: its next rollout collects while
+            # the learner runs the update below.
+            host_params = self._host_params()
+            ref2 = self._runners[idx].sample.remote(host_params)
+            inflight[ref2] = idx
+            submit_ts[ref2] = time.perf_counter()
+            pre_update = list(submit_ts)
+            t0 = time.perf_counter()
+            loss = self.update(rollout)  # reads the loss: a host sync
+            t1 = time.perf_counter()
+            update_wall += t1 - t0
+            # Overlap (falsifiable): a sample submitted before the update
+            # and STILL not ready after it was being collected for the
+            # update's whole duration. Serialised collection earns none.
+            if pre_update:
+                _, not_ready = ray_tpu_torch.wait(
+                    pre_update, num_returns=len(pre_update), timeout=0)
+                if not_ready:
+                    overlap_s += t1 - t0
+            losses.append(loss)
+            done_rates.append(float(rollout.dones.float().mean()))
+            updates += 1
+        wall = time.perf_counter() - t_start
+        self.stats = {
+            "updates": updates,
+            "loss": float(np.mean(losses[-10:])),
+            "env_steps": updates * self.steps_per_sample,
+            "env_steps_per_sec": updates * self.steps_per_sample / wall,
+            "update_wall_s": update_wall,
+            "collection_update_overlap_s": overlap_s,
+            "total_wall_s": wall,
+            "episode_len_mean": (1.0 / np.mean(done_rates[-10:])
+                                 if np.mean(done_rates[-10:]) > 0
+                                 else float("nan")),
+        }
+        return dict(self.stats)
 
     def stop(self) -> None:
-        raise NotImplementedError(_NEEDS_RUNTIME)
+        runners, self._runners = self._runners, []
+        for r in runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:  # noqa: BLE001 — runtime already down
+                pass

@@ -77,9 +77,15 @@ def leaves(params: Dict) -> List[torch.Tensor]:
             for k in ("w", "b")]
 
 
-def clone_params(params: Dict, requires_grad: bool = False) -> Dict:
-    return {tower: [{k: t.detach().clone().requires_grad_(requires_grad)
-                     for k, t in lyr.items()} for lyr in layers]
+def clone_params(params: Dict, requires_grad: bool = False,
+                 device=None) -> Dict:
+    """A copy of the tree, on ``device`` when given (else on its own)."""
+    def copy(t):
+        t = t.detach()
+        t = t.clone() if device is None else t.to(device, copy=True)
+        return t.requires_grad_(requires_grad)
+
+    return {tower: [{k: copy(t) for k, t in lyr.items()} for lyr in layers]
             for tower, layers in params.items()}
 
 

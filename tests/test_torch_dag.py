@@ -401,20 +401,21 @@ def test_what_waits_for_the_runtime_or_the_mesh_raises():
     mesh = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("dag",))
     with pytest.raises(ValueError, match="no axis 'tp'"):
         TORCH.compile(node, mesh=mesh, mesh_axis="tp")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        node.experimental_compile(backend="actor")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        node.execute(1.0)
-    # The task runtime is ported: .remote() runs the task.
+    # The runtime's paths are ported (tests/test_torch_dag_actor.py):
+    # .remote(), the interpreted execute and the actor backend run.
     import ray_tpu_torch
 
     try:
         assert ray_tpu_torch.get(TORCH.ops["inc"].remote(1.0),
                                  timeout=30) == _inc(1.0)
+        assert ray_tpu_torch.get(node.execute(1.0), timeout=30) == _inc(1.0)
+        compiled = node.experimental_compile(backend="actor")
+        try:
+            assert compiled.execute(1.0).get(timeout=30) == _inc(1.0)
+        finally:
+            compiled.teardown()
     finally:
         ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tdag.ClassNode(object, (), {})
     with pytest.raises(ValueError, match="unknown compile backend"):
         node.experimental_compile(backend="jax")
 
@@ -434,7 +435,9 @@ def test_port_import_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.remote_function, ray_tpu_torch.llm\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.collective\n"
         "import ray_tpu_torch.rl.impala, ray_tpu_torch.train\n"
-        "import ray_tpu_torch.util.profiling\n"
+        "import ray_tpu_torch.util.profiling, ray_tpu_torch.llm.disagg\n"
+        "import ray_tpu_torch.dag.compiled_dag, ray_tpu_torch.channels\n"
+        "import ray_tpu_torch.collective.collective\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu')]\n"
         "print(bad)\n"

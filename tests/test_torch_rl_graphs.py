@@ -12,6 +12,7 @@ capture); integers and booleans agree exactly.
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import rl
 from ray_tpu_torch.rl import multi_agent as ma
 from ray_tpu_torch.rl.ppo import Rollout, leaves
@@ -24,7 +25,8 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    ray_tpu_torch.shutdown()   # IMPALA starts the runtime and runners
 
 
 def _assert_rollouts_equal(a, b):

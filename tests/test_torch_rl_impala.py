@@ -35,6 +35,7 @@ import optax
 import pytest
 import torch
 
+import ray_tpu_torch
 from ray_tpu.rl import impala as jimpala
 from ray_tpu.rl import ppo as jppo
 from ray_tpu_torch import rl as trl
@@ -50,6 +51,14 @@ UPDATE_ATOL = 1e-5
 ADAM_FLOOR = 1e-7
 CPU = "cpu"
 T, N = 16, 8
+
+
+@pytest.fixture(autouse=True)
+def _port_runtime_down():
+    """``IMPALA`` starts the port's runtime and its runner actors: each
+    test takes them down again."""
+    yield
+    ray_tpu_torch.shutdown()
 
 
 def _t(a):
@@ -222,16 +231,6 @@ def test_config_and_exports_mirror_reference():
               for _ in range(2)]
     for a, b in zip(*(tppo.leaves(s.params) for s in seeded)):
         assert torch.equal(a, b)
-
-
-def test_async_loop_raises_until_the_runtime_is_ported():
-    learner = timpala.IMPALA(tenv.CartPole(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        learner.train()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        learner.stop()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        trl.AlgorithmConfig("IMPALA", device=CPU).build()
 
 
 def test_defaults_to_the_card_and_refuses_to_fall_back(monkeypatch):
