@@ -307,6 +307,37 @@ non-zero without printing a result. Without a CUDA card, or without the
    TTFT and token gap p50 through DisaggHandle beside the colocated
    handle's, transfer_p50_s of the decode pool's TTFT decomposition, KV
    bytes per prompt.
+14. trainer: Train's worker-group trainer on the one-process runtime
+   (ray_tpu_torch.train), the flagship at full width (bf16 compute over
+   f32 masters, 4 x 2048 tokens a step) fed by a Dataset
+   (data.from_columns of a seeded [64, 2049] int64 token array,
+   parallelism 4; iter_torch_batches onto the card). (a) A
+   DataParallelTrainer with one worker, a checkpoint (parameters, AdamW
+   state, step) every 4 of 12 steps to memory://smoke14 (num_to_keep 2,
+   async_save): its 12 losses equal, bit for bit, make_train_step called
+   directly on the same batches from the same seed; the forward, dQ and
+   dK/dV launch 4 / 4 / 4 times a step on the tensor cores in both, no
+   plain route; 2 checkpoints stored. (d) The step-12 checkpoint (about
+   545 MB) through Checkpoint.to_uri and from_uri over memory:// and a
+   file:// directory: every leaf back bit for bit; s3:// raises
+   ValueError; CheckpointStore.persist and persist_async (wait raises an
+   upload error) timed. (b) The same run with FailureConfig(max_failures=
+   1) and a failure planted before step 9 of the first attempt: the group
+   restarts from the step-8 checkpoint and steps 9-12 equal (a)'s bit for
+   bit; with max_failures=0 the run raises TrainingFailedError. (c)
+   DataParallelTrainer.restore("memory://smoke14/a") (configs from its
+   trainer.pkl) runs 4 more steps equal to steps 13-16 of the direct
+   loop, bit for bit; the store then holds at most 2 checkpoints. (e) A
+   TorchTrainer with 2 workers on the card: an MLP at the flagship's
+   widths (512 -> 1376 -> 512, f32) under prepare_model, each rank on its
+   half of 4096 rows from Dataset.split, 10 AdamW steps: the ranks'
+   parameters bit-equal, within TRAINER_MLP_TOL of one worker on the
+   whole batch, the loss falling. Smoke readings (no limits): step time
+   p50 through the trainer beside the direct loop, iter_torch_batches
+   seconds a batch, checkpoint save, persist and persist_async seconds,
+   upload and download seconds over memory:// and file://, restart
+   seconds, the two-rank step time and the allreduce's share of it. Every
+   temporary checkpoint directory is removed at the end.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -560,6 +591,23 @@ SERVE_TENSOR_ITERS = 10
 # planned request shares (ENGINE_LENS[4], 570 tokens) and its own tail.
 SERVE_DISAGG_SHARED = 4
 SERVE_DISAGG_TAIL = 40
+# Phase 14 (trainer): the flagship through DataParallelTrainer on
+# TRAIN_BATCH x TRAIN_LEN batches, a checkpoint (parameters, AdamW state,
+# step) every TRAINER_CKPT_EVERY steps to TRAINER_ROOT, TRAINER_KEEP kept;
+# the planted failure before step TRAINER_FAIL_AT of the first attempt;
+# restore runs TRAINER_MORE steps past TRAINER_STEPS. The two-rank case:
+# an MLP at the flagship's widths (d_model -> d_ff -> d_model), f32,
+# TRAINER_MLP_ROWS rows split between the ranks, TRAINER_MLP_STEPS AdamW
+# steps at TRAINER_MLP_LR. Against one worker on the whole batch the
+# parameters differ only by the rounding of two half-batch gradient means
+# against one full-batch mean (~1e-7 after AdamW's normalisation); a
+# rank left unsynchronised would drift by about one step's lr (1e-3) per
+# step, so TRAINER_MLP_TOL is a tenth of one step.
+TRAINER_ROOT = "memory://smoke14"
+TRAINER_STEPS, TRAINER_MORE = 12, 4
+TRAINER_CKPT_EVERY, TRAINER_KEEP, TRAINER_FAIL_AT = 4, 2, 9
+TRAINER_MLP_ROWS, TRAINER_MLP_STEPS, TRAINER_MLP_LR = 4096, 10, 1e-3
+TRAINER_MLP_TOL = 1e-4
 
 
 _STARTED = time.perf_counter()
@@ -4720,6 +4768,404 @@ def phase_serve(dev, card, cfg, lens, new_tokens):
     return out
 
 
+# ------------------------------------------------------- phase 14: trainer
+def _trainer_loop(config):
+    """Phase 14's train_loop_per_worker: the flagship's bf16 AdamW steps
+    (make_train_step over f32 masters) on the worker's dataset shard,
+    resumed from the session's checkpoint, with a checkpoint of the
+    parameters, the AdamW state and the step every TRAINER_CKPT_EVERY
+    steps, and an optional planted failure before step
+    ``config["fail_before"]`` of a run that started from step 0. Module
+    level, so that the trainer's state stores it by name."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import train
+
+    cfg, dev = config["cfg"], torch.device(config["device"])
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    start, ckpt = 0, train.get_checkpoint()
+    if ckpt is not None:
+        tree = ckpt.to_pytree(device=dev)
+        src = dict(_named_leaves(tree["params"]))
+        with torch.no_grad():
+            for name, t in _named_leaves(params):
+                t.copy_(src[name])
+        step.optimizer.load_state_dict(tree["opt"])
+        start = tree["step"]
+        del tree, src
+    batches = train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=TRAIN_BATCH, device=dev)
+    for _ in range(start):   # the batches of the steps already taken
+        next(batches)
+    for i in range(start + 1, config["steps"] + 1):
+        t0 = time.perf_counter()
+        tokens = next(batches)["tokens"]
+        batch_s = time.perf_counter() - t0
+        if i == config.get("fail_before") and start == 0:
+            config["failed_at"] = time.perf_counter()
+            raise RuntimeError(f"planted failure before step {i}")
+        t0 = time.perf_counter()
+        loss = step(tokens[:, :-1], tokens[:, 1:]).item()
+        metrics = {"step": i, "loss": loss, "batch_s": batch_s,
+                   "step_s": time.perf_counter() - t0,
+                   "t": time.perf_counter()}
+        ckpt = None
+        if i % TRAINER_CKPT_EVERY == 0:
+            t0 = time.perf_counter()
+            ckpt = train.Checkpoint.from_pytree(
+                {"params": params, "opt": step.optimizer.state_dict(),
+                 "step": i},
+                os.path.join(config["tmp"], f"step{i}_{time.time_ns()}"))
+            metrics["save_s"] = time.perf_counter() - t0
+        train.report(metrics, checkpoint=ckpt)
+
+
+def _trainer_direct(cfg, dev, tokens, steps):
+    """The oracle of phase 14: make_train_step called directly on the
+    same batches from the same seed. Its losses, step times and the
+    K1/K3/K4 launches (and plain routes) of the run."""
+    from ray_tpu_torch import models as tm
+
+    fa = _flash_module()
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, step_s = [], []
+    _zero_counts()
+    plain = fa.plain_routes
+    for i in range(steps):
+        batch = torch.tensor(tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                             device=dev)
+        t0 = time.perf_counter()
+        losses.append(step(batch[:, :-1], batch[:, 1:]).item())
+        step_s.append(time.perf_counter() - t0)
+    counts = _counts()
+    del params, step
+    torch.cuda.empty_cache()
+    return losses, step_s, counts, fa.plain_routes - plain
+
+
+def _same_leaves(a, b):
+    """Two checkpoints' saved trees alike bit for bit: the same structure
+    and every leaf's bytes."""
+    def read(d):
+        with open(os.path.join(d, "pytree", "structure.pkl"), "rb") as f:
+            return f.read()
+
+    if read(a) != read(b):
+        return False
+    with np.load(os.path.join(a, "pytree", "leaves.npz")) as x, \
+            np.load(os.path.join(b, "pytree", "leaves.npz")) as y:
+        return x.files == y.files and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x.files)
+
+
+def _mlp_loop(config):
+    """Phase 14 (e)'s loop: an MLP at the flagship's widths under
+    prepare_model (rank 0's initial weights broadcast, gradients averaged
+    once per backward pass), TRAINER_MLP_STEPS f32 AdamW steps on the
+    rank's shard; the ranks' parameters gathered at the end."""
+    import torch.nn as nn
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.collective import collective
+    from ray_tpu_torch.train.torch import prepare_model
+
+    ctx = train.get_context()
+    dev = torch.device(config["device"])
+    d, f = config["widths"]
+    model = nn.Sequential(nn.Linear(d, f), nn.SiLU(), nn.Linear(f, d))
+    rng = np.random.default_rng(SEED + 100 + ctx.get_world_rank())
+    with torch.no_grad():   # per-rank initial weights, drawn apart
+        for p in model.parameters():
+            p.copy_(torch.from_numpy((rng.standard_normal(p.shape)
+                                      / np.sqrt(p.shape[-1])
+                                      ).astype(np.float32)))
+    model = prepare_model(model.to(dev))
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAINER_MLP_LR)
+    rows = TRAINER_MLP_ROWS // ctx.get_world_size()
+    batch = next(train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=rows, device=dev))
+    losses, step_s = [], []
+    for _ in range(TRAINER_MLP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = F.mse_loss(model(batch["x"]), batch["y"])
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    flats = collective.allgather(flat, group_name=ctx.collective_group)
+    train.report({"losses": losses, "step_s": step_s, "rows": rows,
+                  "ranks_equal": all(torch.equal(g, flats[0])
+                                     for g in flats),
+                  "params": flat.cpu()})
+
+
+def _two_ranks(dev, cfg, ds_of):
+    """Phase 14 (e): TorchTrainer with two workers on the card against
+    one worker on the whole batch, with the allreduce of prepare_model
+    timed (a sync after each call)."""
+    from ray_tpu_torch.collective import collective
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    ar_s = []
+    allreduce = collective.allreduce
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = allreduce(*args, **kwargs)
+        torch.cuda.synchronize()
+        ar_s.append(time.perf_counter() - t0)
+        return out
+
+    config = {"device": str(dev), "widths": (cfg.d_model, cfg.d_ff)}
+    runs = {}
+    with _patched(collective, "allreduce", timed):
+        for n in (2, 1):
+            runs[n] = TorchTrainer(
+                _mlp_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=n, use_gpu=True),
+                datasets={"train": ds_of()}).fit().metrics
+    two, one = runs[2], runs[1]
+    diff = (two["params"] - one["params"]).abs().max().item()
+    later = sorted(two["step_s"][1:])
+    p50 = later[len(later) // 2]
+    return {"ranks": 2, "widths": [cfg.d_model, cfg.d_ff, cfg.d_model],
+            "rows_per_rank": two["rows"], "steps": TRAINER_MLP_STEPS,
+            "ranks_bit_equal": two["ranks_equal"],
+            "max_abs_diff_vs_one_worker": diff, "tol": TRAINER_MLP_TOL,
+            "losses": two["losses"], "losses_one_worker": one["losses"],
+            "step_ms_p50": p50 * 1e3,
+            "one_worker_step_ms_p50": sorted(one["step_s"][1:])[
+                len(one["step_s"][1:]) // 2] * 1e3,
+            "allreduce_calls": len(ar_s),
+            "allreduce_ms_mean": 1e3 * sum(ar_s) / max(len(ar_s), 1),
+            "allreduce_share_of_step": (sum(ar_s) / max(len(ar_s), 1)) / p50}
+
+
+def phase_trainer(dev, card, cfg):
+    """Phase 14 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data.filesystem import MemoryFilesystem
+    from ray_tpu_torch.train import (
+        Checkpoint,
+        CheckpointConfig,
+        CheckpointStore,
+        DataParallelTrainer,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+    )
+
+    t_phase = time.perf_counter()
+    fa = _flash_module()
+    L, n_all = cfg.n_layers, TRAINER_STEPS + TRAINER_MORE
+    tokens = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, (n_all * TRAIN_BATCH, TRAIN_LEN + 1))
+    direct, direct_s, direct_counts, direct_plain = _trainer_direct(
+        cfg, dev, tokens, n_all)
+    tmp_root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    cc = CheckpointConfig(num_to_keep=TRAINER_KEEP, async_save=True)
+    checks, out, fetched = {}, {}, []
+
+    def loop_config(name, steps, **extra):
+        return {"cfg": cfg, "device": str(dev), "steps": steps,
+                "tmp": os.path.join(tmp_root, name), **extra}
+
+    def stored(name):
+        store = CheckpointStore(f"{TRAINER_ROOT}/{name}")
+        try:
+            return store.list_checkpoints()
+        finally:
+            store.close()
+
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        ds = data.from_columns({"tokens": tokens}, parallelism=4)
+        # (a) the trainer against the direct loop.
+        _zero_counts()
+        plain = fa.plain_routes
+        t0 = time.perf_counter()
+        res_a = DataParallelTrainer(
+            _trainer_loop, train_loop_config=loop_config("a", TRAINER_STEPS),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="a", storage_path=TRAINER_ROOT,
+                                 checkpoint_config=cc),
+            datasets={"train": ds}).fit()
+        fit_a_s = time.perf_counter() - t0
+        counts_a, plain_a = _counts(), fa.plain_routes - plain
+        hist = res_a.metrics_history
+        listed_a = stored("a")
+        checks["a_losses_bit_equal"] = [m["loss"] for m in hist] == direct[
+            :TRAINER_STEPS]
+        checks["a_launches_per_step"] = (
+            counts_a == _want_counts("wgmma", TRAINER_STEPS * L,
+                                     TRAINER_STEPS * L)
+            and direct_counts == _want_counts("wgmma", n_all * L, n_all * L))
+        checks["a_plain_routes_0"] = plain_a == 0 and direct_plain == 0
+        checks["a_retention"] = len(listed_a) == TRAINER_KEEP
+        later = sorted(m["step_s"] for m in hist[1:])
+        direct_later = sorted(direct_s[1:])
+        out["a"] = {
+            "steps": len(hist), "losses": [m["loss"] for m in hist],
+            "direct_losses": direct[:TRAINER_STEPS],
+            "launches_per_step": {k: v / TRAINER_STEPS
+                                  for k, v in counts_a.items() if v},
+            "direct_launches_per_step": {k: v / n_all for k, v in
+                                         direct_counts.items() if v},
+            "plain_routes": plain_a, "stored": len(listed_a),
+            "fit_s": fit_a_s,
+            "step_ms_p50": later[len(later) // 2] * 1e3,
+            "direct_step_ms_p50": direct_later[len(direct_later) // 2] * 1e3,
+            "step_ms": [m["step_s"] * 1e3 for m in hist],
+            "direct_step_ms": [t * 1e3 for t in direct_s[:TRAINER_STEPS]],
+            "iter_torch_batches_s_per_batch": sum(
+                m["batch_s"] for m in hist) / len(hist),
+            "checkpoint_save_s": [m["save_s"] for m in hist
+                                  if "save_s" in m]}
+
+        # (d) URI round trips of the step-12 checkpoint, then the store's
+        # persist and persist_async (whose wait raises an upload error).
+        ck = res_a.checkpoint
+        nbytes = sum(f.stat().st_size for f in Path(ck.path).rglob("*")
+                     if f.is_file())
+        trips = {}
+        for kind, uri in (("memory", f"{TRAINER_ROOT}/roundtrip"),
+                          ("file", f"file://{tmp_root}/roundtrip")):
+            t0 = time.perf_counter()
+            ck.to_uri(uri)
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = Checkpoint.from_uri(uri)
+            down_s = time.perf_counter() - t0
+            same = _same_leaves(ck.path, back.path)
+            shutil.rmtree(back.path)
+            trips[kind] = {"upload_s": up_s, "download_s": down_s,
+                           "bit_equal": same}
+            checks[f"d_{kind}_bit_equal"] = same
+        try:
+            ck.to_uri("s3://smoke14/x")
+            s3 = "no error"
+        except Exception as exc:  # noqa: BLE001 — the type is the check
+            s3 = type(exc).__name__
+        checks["d_s3_value_error"] = s3 == "ValueError"
+        store = CheckpointStore(f"{TRAINER_ROOT}/timing")
+        try:
+            t0 = time.perf_counter()
+            store.persist(ck, "checkpoint_sync")
+            persist_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            store.persist_async(ck, "checkpoint_async")
+            dispatch_s = time.perf_counter() - t0
+            store.wait(timeout=300)
+            async_s = time.perf_counter() - t0
+        finally:
+            store.close()
+        out["d"] = {"checkpoint_bytes": nbytes, "round_trips": trips,
+                    "s3": s3, "persist_s": persist_s,
+                    "persist_async_return_s": dispatch_s,
+                    "persist_async_done_s": async_s}
+        shutil.rmtree(os.path.join(tmp_root, "a"))
+
+        # (b) a planted failure before step TRAINER_FAIL_AT: the group
+        # restarts from the step-8 checkpoint (the local copy, as the
+        # upload may still run).
+        config_b = loop_config("b", TRAINER_STEPS,
+                               fail_before=TRAINER_FAIL_AT)
+        res_b = DataParallelTrainer(
+            _trainer_loop, train_loop_config=config_b,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="b", storage_path=TRAINER_ROOT, checkpoint_config=cc,
+                failure_config=FailureConfig(max_failures=1)),
+            datasets={"train": ds}).fit()
+        hist = res_b.metrics_history
+        checks["b_resumed_at_fail_step"] = [m["step"] for m in hist] == list(
+            range(TRAINER_FAIL_AT, TRAINER_STEPS + 1))
+        checks["b_losses_bit_equal"] = [m["loss"] for m in hist] == direct[
+            TRAINER_FAIL_AT - 1:TRAINER_STEPS]
+        try:
+            DataParallelTrainer(
+                _trainer_loop,
+                train_loop_config=loop_config("b0", TRAINER_STEPS,
+                                              fail_before=1),
+                run_config=RunConfig(
+                    failure_config=FailureConfig(max_failures=0)),
+                datasets={"train": ds}).fit()
+            exhausted = "no error"
+        except Exception as exc:  # noqa: BLE001 — the type is the check
+            exhausted = type(exc).__name__
+        checks["b_exhausted_training_failed_error"] = (
+            exhausted == "TrainingFailedError")
+        out["b"] = {"steps": [m["step"] for m in hist],
+                    "losses": [m["loss"] for m in hist],
+                    "restart_s": hist[0]["t"] - hist[0]["step_s"]
+                    - config_b["failed_at"] if hist else None,
+                    "max_failures_0_error": exhausted}
+        shutil.rmtree(os.path.join(tmp_root, "b"))
+
+        # (c) restore run "a" from its URI: 4 more steps.
+        restored = DataParallelTrainer.restore(
+            f"{TRAINER_ROOT}/a", train_loop_per_worker=_trainer_loop,
+            train_loop_config=loop_config("c", n_all),
+            datasets={"train": ds})
+        if restored._restore_from is not None:
+            fetched.append(restored._restore_from.path)
+        state = (restored._run_config.name == "a"
+                 and restored._run_config.checkpoint_config == cc)
+        res_c = restored.fit()
+        hist = res_c.metrics_history
+        listed_c = stored("a")
+        checks["c_state_from_trainer_pkl"] = state
+        checks["c_resumed_past_step_12"] = [m["step"] for m in hist] == list(
+            range(TRAINER_STEPS + 1, n_all + 1))
+        checks["c_losses_bit_equal"] = [m["loss"] for m in hist] == direct[
+            TRAINER_STEPS:]
+        checks["c_retention"] = len(listed_c) <= TRAINER_KEEP
+        out["c"] = {"steps": [m["step"] for m in hist],
+                    "losses": [m["loss"] for m in hist],
+                    "direct_losses": direct[TRAINER_STEPS:],
+                    "stored": len(listed_c)}
+
+        # (e) two ranks on the card.
+        rng = np.random.default_rng(SEED + 15)
+        x = rng.standard_normal((TRAINER_MLP_ROWS, cfg.d_model)).astype(
+            np.float32)
+        w = (rng.standard_normal((cfg.d_model, cfg.d_model))
+             / np.sqrt(cfg.d_model)).astype(np.float32)
+        y = np.tanh(x @ w)
+        out["e"] = e = _two_ranks(dev, cfg, lambda: data.from_columns(
+            {"x": x, "y": y}, parallelism=4))
+        checks["e_ranks_bit_equal"] = e["ranks_bit_equal"]
+        checks["e_matches_one_worker"] = (
+            e["max_abs_diff_vs_one_worker"] <= TRAINER_MLP_TOL)
+        checks["e_loss_falls"] = e["losses"][-1] < e["losses"][0]
+    finally:
+        MemoryFilesystem.clear()
+        rt.shutdown()
+        for d in fetched + [tmp_root]:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    result = {"phase": "trainer", "config": {
+        "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "dtype": _dtype_name(cfg.dtype), "batch": [TRAIN_BATCH, TRAIN_LEN],
+        "steps": n_all, "checkpoint_every": TRAINER_CKPT_EVERY,
+        "num_to_keep": TRAINER_KEEP, "storage": TRAINER_ROOT},
+        "checks": checks, **out, "phase_s": time.perf_counter() - t_phase,
+        "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14 (trainer) failed {failed}")
+    return result
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -4779,6 +5225,7 @@ def main() -> int:
     spmd = phase_spmd_train(dev, card, flagship)
     phase_rl(dev, card)
     phase_serve(dev, card, flagship, ENGINE_LENS, 32)
+    phase_trainer(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}

@@ -17,9 +17,14 @@ and ``serve`` on top of it, disaggregated prefill/decode serving among
 actor loops over channels (``channels``), or compiled to the wave
 executor, on one device or sharded over a mesh; the one-controller mesh
 and its collectives, ``parallel`` and ``collective`` (with the actor
-plane's groups); and reinforcement learning, ``rl`` (tensor-native
+plane's groups); reinforcement learning, ``rl`` (tensor-native
 environments, PPO, DQN, IMPALA and multi-agent PPO, each rollout and
-update one CUDA graph on the card, runners local or remote actors). Entry points take a ``device`` that defaults to
+update one CUDA graph on the card, runners local or remote actors); and
+``train`` with ``data`` on the runtime: worker-group trainers
+(``DataParallelTrainer``, ``TorchTrainer``) with checkpoints persisted to
+storage URIs, group restarts and ``restore``, fed by a ``Dataset``
+streamed onto the card (``iter_torch_batches``). Entry points take a
+``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
 thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``
 joins them.

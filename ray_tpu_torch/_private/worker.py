@@ -209,6 +209,12 @@ class ObjectRefGenerator:
         task finished (value = total yield count; errors raise)."""
         return self._end_ref
 
+    def wait_refs(self) -> List[ObjectRef]:
+        """Refs to pass to ``wait`` for "the next ``next()`` would make
+        progress": the next item's ref and the end marker, so a scheduler
+        can multiplex many streams without blocking on one."""
+        return [self._item_ref(), self._end_ref]
+
     @property
     def task_id(self) -> TaskID:
         return self._task_id
@@ -478,6 +484,13 @@ _atexit_registered = False
 
 def _try_global_worker() -> Optional[Worker]:
     return _global_worker
+
+
+def try_live_worker() -> Optional[Worker]:
+    """The global worker if one is up and alive, else None; never starts a
+    runtime (the check of the KV-backed ``memory://`` filesystem)."""
+    w = _global_worker
+    return w if w is not None and w.is_alive else None
 
 
 def global_worker() -> Worker:

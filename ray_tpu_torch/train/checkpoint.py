@@ -14,8 +14,8 @@ as what they were: a tensor on the ``device`` given to ``load_pytree``, a
 numpy array, a number of its own type. A tensor whose dtype numpy lacks
 (bfloat16) is stored as its raw bits, an integer view of the same width,
 with its dtype named in the structure, and comes back bit for bit.
-Uploading to a storage URI needs the runtime's storage layer (ROADMAP
-A.5).
+``to_uri`` and ``from_uri`` move a checkpoint to and from a storage URI
+(``memory://``, ``file://`` or a local path) through ``train/storage.py``.
 """
 
 from __future__ import annotations
@@ -32,8 +32,6 @@ import torch
 
 from ray_tpu_torch.device import resolve_device
 
-_NEEDS_RUNTIME = ("storage URIs need the runtime's storage layer "
-                  "(train/storage.py), which is not ported yet: ROADMAP A.5")
 _LEAVES, _STRUCTURE = "leaves.npz", "structure.pkl"
 # Raw-bit views for tensor dtypes that numpy has no type for.
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -81,11 +79,18 @@ class Checkpoint:
 
     # ----------------------------------------------------------- URI plane
     def to_uri(self, uri: str) -> str:
-        raise NotImplementedError(_NEEDS_RUNTIME)
+        """Upload this checkpoint to a storage URI through the filesystem
+        registry."""
+        from ray_tpu_torch.train.storage import upload_dir
+
+        return upload_dir(self.path, uri)
 
     @staticmethod
     def from_uri(uri: str) -> "Checkpoint":
-        raise NotImplementedError(_NEEDS_RUNTIME)
+        """Materialize a stored checkpoint locally from its URI."""
+        from ray_tpu_torch.train.storage import download_dir
+
+        return Checkpoint(download_dir(uri))
 
     def __repr__(self):
         return f"Checkpoint({self.path})"
