@@ -338,6 +338,45 @@ non-zero without printing a result. Without a CUDA card, or without the
    upload and download seconds over memory:// and file://, restart
    seconds, the two-rank step time and the allreduce's share of it. Every
    temporary checkpoint directory is removed at the end.
+15. observe: the tracing plane, the task events and the flight recorder
+   (ray_tpu_torch._private.tracing, task_events, flight; util.state,
+   util.metrics). (a) With RAY_TPU_TRACE and RAY_TPU_FLIGHT unset: a
+   task, an actor call and phase 13's 8 prompts served through the handle
+   leave the tracer and the recorder off, zero spans, no _trace key in
+   the request dicts the replica sees, the engine's tokens. (b) A fresh
+   init() with both set: the 8 prompts through the handle, through the
+   HTTP proxy and through a disaggregated prefill/decode pair, one at a
+   time: every stream equals the engine's generate; each request is one
+   trace of exactly the reference's spans (http.request for HTTP, then
+   serve.request, the replica call's task.queue and task.exec, the
+   engine's llm.queue, llm.prefill and llm.decode, and llm.kv_ship on the
+   decode hop), each under serve.request, none of the engine's starting
+   before it, one first_token event inside llm.decode, no error; the
+   kv_ship tags equal the blocks and bytes export_blocks shipped. (c) The
+   flagship's bf16 make_train_step as an actor method, 6 steps of 4 x 2048
+   tokens inside the span smoke.train, steps 3-4 inside profile_trace
+   ((a) runs them too, untraced): losses equal the direct call's bit for
+   bit, 4 / 4 / 4 wgmma launches a
+   step and no plain route, timeline() holds the 6 calls FINISHED and
+   timeline(trace_id=...) their task.queue and task.exec under
+   smoke.train. (d) debug_dump(): manifest.json and driver.json, whose
+   sections hold runtime, serve and one llm.engine-<id> per engine built
+   since arming, whose artifacts name (c)'s logdir, whose stacks name the
+   actor's thread and whose metrics parse as Prometheus text with
+   ray_tpu_trace_spans_recorded > 0. (e) A lock noted held past 0.2 s
+   fires the lock-hold watchdog once and writes one auto dump. Smoke
+   readings (no limits): TTFT and token gap p50 armed against (a)'s
+   unarmed run, each span's p50 per request kind (host clock), the
+   prefill hop's time outside its engine spans, us per trivial task
+   armed and unarmed (one get at a time and 2000 at once) with the traced
+   tasks' task.queue and task.exec p50, spans a request and a train step, the traced actor step's p50 against the unarmed actor's
+   and the direct call's, the profiled steps' device time from the trace,
+   debug_dump seconds and bundle bytes. The tracer and the recorder are
+   off again at the end, and every temporary directory is removed.
+
+``--only observe`` runs phase 15 alone and ``--only rl --armed`` phase 12
+under the flight recorder and its stack sampler (kernels build at first
+use).
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -608,6 +647,15 @@ TRAINER_STEPS, TRAINER_MORE = 12, 4
 TRAINER_CKPT_EVERY, TRAINER_KEEP, TRAINER_FAIL_AT = 4, 2, 9
 TRAINER_MLP_ROWS, TRAINER_MLP_STEPS, TRAINER_MLP_LR = 4096, 10, 1e-3
 TRAINER_MLP_TOL = 1e-4
+# Phase 15 (observe): OBSERVE_TRAIN_STEPS bf16 steps as actor calls, the
+# OBSERVE_PROFILED ones (1-based) inside profile_trace; the planted lock
+# held past OBSERVE_LOCK_S fires the lock-hold watchdog once; every poll
+# for a span or a fire is bounded by OBSERVE_POLL_S.
+OBSERVE_TRAIN_STEPS = 6
+OBSERVE_PROFILED = (3, 4)
+OBSERVE_LOCK_S = 0.2
+OBSERVE_POLL_S = 10.0
+OBSERVE_ENV = ("RAY_TPU_TRACE", "RAY_TPU_FLIGHT", "RAY_TPU_PROFILE")
 
 
 _STARTED = time.perf_counter()
@@ -5166,6 +5214,630 @@ def phase_trainer(dev, card, cfg):
     return result
 
 
+# ------------------------------------------------------- phase 15: observe
+@contextlib.contextmanager
+def _observe_env(armed):
+    """OBSERVE_ENV unset for the block, or RAY_TPU_TRACE and
+    RAY_TPU_FLIGHT set to 1 when ``armed``; the process's values come
+    back after it."""
+    kept = {k: os.environ.get(k) for k in OBSERVE_ENV}
+    for k in OBSERVE_ENV:
+        os.environ.pop(k, None)
+    if armed:
+        os.environ["RAY_TPU_TRACE"] = os.environ["RAY_TPU_FLIGHT"] = "1"
+    try:
+        yield
+    finally:
+        for k, v in kept.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _poll_until(cond, bound=OBSERVE_POLL_S):
+    deadline = time.monotonic() + bound
+    out = cond()
+    while not out and time.monotonic() < deadline:
+        time.sleep(0.01)
+        out = cond()
+    return out
+
+
+def _new_request_traces(before, roots, n):
+    """The traces rooted at a span named in ``roots`` that appeared since
+    ``before`` (a set of trace ids), once ``n`` of them hold their
+    engine's llm.decode and their replica call's task.exec (both land a
+    beat after the stream's last item); bounded by OBSERVE_POLL_S."""
+    from ray_tpu_torch._private import tracing
+
+    def ready():
+        index = tracing.trace_index()
+        tids = [t for t, r in index.items()
+                if t not in before and r["root"] in roots]
+        done = [t for t in tids if {"llm.decode", "task.exec"} <= {
+            s["name"] for s in tracing.local_spans(t)}]
+        return tids if len(done) >= n else None
+
+    tids = _poll_until(ready)
+    if tids is None:
+        raise AssertionError(f"no {n} complete {roots} traces within "
+                             f"{OBSERVE_POLL_S}s")
+    return tids
+
+
+def _check_request_trace(tid, http=False, kv_ship=None):
+    """One served request's trace (phase 15 (b)): exactly the reference's
+    spans (http.request for HTTP requests, serve.request, the replica
+    call's task.queue and task.exec, the engine's llm.queue, llm.prefill,
+    llm.kv_ship for an adopted sequence, llm.decode), each parented as in
+    the reference, none of the engine's starting before serve.request,
+    one first_token event inside llm.decode (1 us of slack for the float
+    rounding of two wall-clock sums), no error; an adopted sequence's
+    kv_ship tags equal ``kv_ship`` (blocks, bytes). Returns each span's
+    seconds (host clock: a span around device work times its enqueue and
+    the engine's host syncs) and the span count."""
+    from ray_tpu_torch.util import state
+
+    summary = state.trace_summary(tid)
+    spans = summary["spans"]
+    by = {}
+    for sp in spans:
+        by.setdefault(sp["name"], []).append(sp)
+    want = ["serve.request", "task.queue", "task.exec", "llm.queue",
+            "llm.prefill", "llm.decode"]
+    if http:
+        want.append("http.request")
+    if kv_ship is not None:
+        want.append("llm.kv_ship")
+    names = sorted(sp["name"] for sp in spans)
+    if names != sorted(want) or summary["errors"]:
+        raise AssertionError(f"trace {tid}: spans {names}, errors "
+                             f"{summary['errors']}")
+    req = by["serve.request"][0]
+    if req["parent_id"] != (by["http.request"][0]["span_id"] if http
+                            else ""):
+        raise AssertionError(f"trace {tid}: serve.request's parent")
+    for name in want:
+        if name in ("serve.request", "http.request"):
+            continue
+        sp = by[name][0]
+        if sp["parent_id"] != req["span_id"] or sp["t0"] < req["t0"]:
+            raise AssertionError(f"trace {tid}: {name} not under "
+                                 f"serve.request")
+    dec = by["llm.decode"][0]
+    events = dec["events"]
+    if (len(events) != 1 or events[0][1] != "first_token"
+            or not dec["t0"] <= events[0][0]
+            <= dec["t0"] + dec["dur"] + 1e-6):
+        raise AssertionError(f"trace {tid}: llm.decode events {events}")
+    if kv_ship is not None:
+        tags = by["llm.kv_ship"][0]["tags"]
+        if (int(tags["blocks"]), int(tags["bytes"])) != kv_ship:
+            raise AssertionError(f"trace {tid}: kv_ship tags {tags}, "
+                                 f"export_blocks shipped {kv_ship}")
+    return {n: by[n][0]["dur"] for n in want}, len(spans)
+
+
+def _ms(seconds):
+    return [x * 1e3 for x in seconds]
+
+
+def _span_p50_ms(rows):
+    return {n: _p50([r[n] for r in rows]) * 1e3 for n in sorted(rows[0])}
+
+
+def _task_readings(traced):
+    """us per trivial task, SERVE_SYNC_CALLS one get at a time and
+    SERVE_TASKS submitted at once (after a warm-up); ``traced``: each
+    run under a span, with its tasks' task.queue and task.exec p50 (the
+    bridge's spans: pending -> RUNNING, RUNNING -> FINISHED; host
+    clock)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import tracing
+
+    @rt.remote
+    def noop(i):
+        return i
+
+    rt.get([noop.remote(i) for i in range(100)], timeout=SERVE_POLL_S)
+    out = {}
+    for kind, n in (("sync", SERVE_SYNC_CALLS), ("bulk", SERVE_TASKS)):
+        with tracing.start_span(f"smoke.tasks.{kind}") as span:
+            t0 = time.perf_counter()
+            if kind == "sync":
+                got = [rt.get(noop.remote(i), timeout=SERVE_POLL_S)
+                       for i in range(n)]
+            else:
+                got = rt.get([noop.remote(i) for i in range(n)],
+                             timeout=SERVE_POLL_S * 4)
+            wall = time.perf_counter() - t0
+        if got != list(range(n)):
+            raise AssertionError(f"trivial tasks ({kind}): wrong results")
+        out[kind] = {"tasks": n, "us_per_task": wall / n * 1e6}
+        if not traced:
+            continue
+
+        def spans():
+            ss = tracing.local_spans(span.ctx.trace_id)
+            return ss if sum(x["name"] == "task.exec" for x in ss) >= n \
+                else None
+
+        ss = _poll_until(spans) or []
+        for name in ("task.queue", "task.exec"):
+            durs = [x["dur"] for x in ss if x["name"] == name]
+            if len(durs) != n:
+                raise AssertionError(f"{kind}: {len(durs)} {name} spans "
+                                     f"for {n} tasks")
+            out[kind][f"{name}_us_p50"] = _p50(durs) * 1e6
+    return out
+
+
+def _observe_app(cfg, dev, name="llm"):
+    from ray_tpu_torch.llm import EngineConfig, build_llm_app
+
+    return build_llm_app(EngineConfig(
+        model=cfg, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+        device=str(dev)), name=name)
+
+
+def _observe_inert(cfg, dev, prompts, want, new_tokens, tokens, direct):
+    """Phase 15 (a): with OBSERVE_ENV unset, a task, an actor call, the
+    served prompts and the flagship's steps as actor calls leave the
+    tracer and the recorder off, zero spans, no _trace key in the request
+    dicts the replica sees, the engine's tokens, the direct call's losses
+    and 4 / 4 / 4 launches a step. Returns the served streams, the
+    request keys and the actor's step seconds."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import flight, tracing
+    from ray_tpu_torch.llm import api as llm_api
+
+    seen = []
+    call = llm_api.LLMServer.__call__
+
+    def recording(self, request):
+        seen.append(dict(request) if isinstance(request, dict) else request)
+        return call(self, request)
+
+    rt.init(num_cpus=4)
+    try:
+        @rt.remote
+        def echo(x):
+            return x
+
+        @rt.remote
+        class Echo:
+            def echo(self, x):
+                return x
+
+        actor = Echo.remote()
+        values = (rt.get(echo.remote(1), timeout=SERVE_POLL_S),
+                  rt.get(actor.echo.remote(2), timeout=SERVE_POLL_S))
+        tasks = _task_readings(traced=False)
+        with _patched(llm_api.LLMServer, "__call__", recording):
+            handle = serve.run(_observe_app(cfg, dev))
+            served = _served_streams(handle, prompts, new_tokens)
+        losses, counts, plain, step_s, trainer, _ = _actor_steps(
+            cfg, dev, tokens)
+        rt.kill(trainer)
+        _check_actor_steps("unarmed", direct, losses, counts, plain,
+                           cfg.n_layers)
+        keys = sorted({k for r in seen if isinstance(r, dict) for k in r})
+        armed = (tracing.tracer(), flight.recorder())
+        spans = len(tracing.local_spans())
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    _must_equal("unarmed served", [s[0] for s in served], want)
+    if (values != (1, 2) or armed != (None, None) or spans
+            or "_trace" in keys or len(seen) != len(prompts)):
+        raise AssertionError(f"unarmed: values {values}, tracer/recorder "
+                             f"{armed}, spans {spans}, request keys {keys}")
+    return served, keys, step_s, tasks
+
+
+def _observe_served(cfg, dev, prompts, want, new_tokens):
+    """Phase 15 (b): the flagship served through the handle, the HTTP
+    proxy and a disaggregated prefill/decode pair, one request at a time,
+    each request's trace checked (_check_request_trace). Returns the
+    readings."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.llm import (
+        DisaggHandle,
+        EngineConfig,
+        build_disagg_llm_app,
+    )
+
+    handle = serve.run(_observe_app(cfg, dev))
+    proxy = serve.start_proxy(port=0)
+    runs = {"handle": [], "http": [], "disagg": []}
+    span_s = {"handle": [], "http": [], "disagg_prefill": [],
+              "disagg_decode": []}
+    n_spans = {k: [] for k in span_s}
+    for p in prompts:
+        for kind, root, items in (
+                ("handle", "serve.request",
+                 lambda: handle.options(stream=True).remote(
+                     {"prompt": p, "max_new_tokens": new_tokens})),
+                ("http", "http.request",
+                 lambda: _http_tokens(proxy, "llm", p, new_tokens))):
+            before = set(tracing.trace_index())
+            runs[kind].append(_timed_stream(items))
+            tids = _new_request_traces(before, (root,), 1)
+            if len(tids) != 1:
+                raise AssertionError(f"{kind}: {len(tids)} traces for one "
+                                     f"request")
+            secs, count = _check_request_trace(tids[0],
+                                               http=kind == "http")
+            span_s[kind].append(secs)
+            n_spans[kind].append(count)
+    for kind in ("handle", "http"):
+        _must_equal(f"traced {kind}", [r[0] for r in runs[kind]], want)
+    papp, dapp = build_disagg_llm_app(EngineConfig(
+        model=cfg, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+        device=str(dev)))
+    serve.run(papp, name="prefill")
+    serve.run(dapp, name="decode")
+    pair = DisaggHandle.from_deployments()
+    ph = serve.get_deployment_handle("llm-prefill")
+    for p in prompts:
+        st = _prefill_stats(ph)
+        before = set(tracing.trace_index())
+        runs["disagg"].append(_timed_stream(lambda: pair.stream(
+            {"prompt": p, "max_new_tokens": new_tokens})))
+        tids = _new_request_traces(before, ("serve.request",), 2)
+        after = _prefill_stats(ph)
+        shipped = (after["kv_blocks_published"] - st["kv_blocks_published"],
+                   after["kv_bytes_published"] - st["kv_bytes_published"])
+        hops = {("llm.kv_ship" in {s["name"] for s in
+                                   tracing.local_spans(t)}): t
+                for t in tids}
+        if len(tids) != 2 or set(hops) != {True, False}:
+            raise AssertionError(f"disagg: traces {tids}")
+        secs, count = _check_request_trace(hops[False])
+        span_s["disagg_prefill"].append(secs)
+        n_spans["disagg_prefill"].append(count)
+        secs, count = _check_request_trace(hops[True], kv_ship=shipped)
+        span_s["disagg_decode"].append(secs)
+        n_spans["disagg_decode"].append(count)
+    _must_equal("traced disagg", [r[0] for r in runs["disagg"]], want)
+    if (pair.paired, pair.prefill_fallbacks) != (len(prompts), 0):
+        raise AssertionError(f"disagg: paired {pair.paired}, prefill "
+                             f"fallbacks {pair.prefill_fallbacks}")
+    return runs, {
+        "requests_each": len(prompts),
+        "traces_checked": sum(len(v) for v in span_s.values()),
+        "spans_per_request": {k: v[0] if len(set(v)) == 1 else v
+                              for k, v in n_spans.items()},
+        "span_p50_ms": {k: _span_p50_ms(v) for k, v in span_s.items()},
+        # The prefill hop's replica call outside its engine spans: the
+        # export's gather and host copy, and the put of the payload.
+        "prefill_hop_outside_engine_ms_p50": _p50([
+            r["task.exec"] - sum(v for n, v in r.items()
+                                 if n.startswith("llm."))
+            for r in span_s["disagg_prefill"]]) * 1e3}
+
+
+def _actor_steps(cfg, dev, tokens, trace_dir=None):
+    """The flagship's bf16 make_train_step as an actor method,
+    OBSERVE_TRAIN_STEPS calls on the seeded batches, each call's launch
+    counts and plain routes read around it. Phase 15 (c) (``trace_dir``
+    given): the calls inside the span smoke.train, the OBSERVE_PROFILED
+    ones inside profile_trace(trace_dir); (a): none of that. Returns the
+    losses, counts, plain routes and step seconds, the actor, and the
+    span's context (None untraced)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.util import profiling
+
+    @rt.remote
+    class SmokeTrainer:
+        def __init__(self):
+            from ray_tpu_torch import models as tm
+
+            self.step_fn = tm.make_train_step(
+                cfg, tm.init_params(cfg, SEED, device=dev))
+
+        def step(self, batch_tokens):
+            batch = torch.tensor(batch_tokens, device=dev)
+            return self.step_fn(batch[:, :-1], batch[:, 1:]).item()
+
+    fa = _flash_module()
+    trainer = SmokeTrainer.remote()
+    losses, counts, plain, step_s = [], [], [], []
+    span = tracing.start_span("smoke.train") if trace_dir else \
+        contextlib.nullcontext()
+    with span as ctx, contextlib.ExitStack() as profiled:
+        for i in range(OBSERVE_TRAIN_STEPS):
+            if trace_dir and i + 1 == OBSERVE_PROFILED[0]:
+                profiled.enter_context(
+                    profiling.profile_trace(trace_dir, device=dev))
+            _zero_counts()
+            plain0 = fa.plain_routes
+            t0 = time.perf_counter()
+            losses.append(rt.get(trainer.step.remote(
+                tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]),
+                timeout=SERVE_POLL_S * 4))
+            step_s.append(time.perf_counter() - t0)
+            counts.append(_counts())
+            plain.append(fa.plain_routes - plain0)
+            if trace_dir and i + 1 == OBSERVE_PROFILED[-1]:
+                torch.cuda.synchronize()
+                profiled.close()
+    return (losses, counts, plain, step_s, trainer,
+            ctx.ctx if ctx is not None else None)
+
+
+def _check_actor_steps(name, direct, losses, counts, plain, L):
+    if losses != direct:
+        raise AssertionError(f"{name} actor losses {losses} differ from "
+                             f"the direct call's {direct}")
+    if any(c != _want_counts("wgmma", L, L) for c in counts) or any(plain):
+        raise AssertionError(f"{name} actor steps launched {counts}, "
+                             f"plain routes {plain}")
+
+
+def _observe_timeline(span):
+    """Phase 15 (c)'s timelines: timeline() holds each SmokeTrainer.step
+    call, RUNNING through to FINISHED; timeline(trace_id=...) holds each
+    call's task.queue and task.exec under smoke.train (``span``). Both
+    land a beat after get() returns: polled, bounded."""
+    import ray_tpu_torch as rt
+
+    def calls():
+        ev = [e for e in rt.timeline() if e["name"] == "SmokeTrainer.step"]
+        return ev if len(ev) >= OBSERVE_TRAIN_STEPS else None
+
+    def under():
+        ev = [e for e in rt.timeline(trace_id=span.trace_id)
+              if e["name"] in ("task.queue", "task.exec")
+              and e["args"]["parent_id"] == span.span_id
+              and e["args"].get("task") == "SmokeTrainer.step"]
+        return ev if len(ev) >= 2 * OBSERVE_TRAIN_STEPS else None
+
+    got_calls, got_under = _poll_until(calls) or [], _poll_until(under) or []
+    if (len(got_calls) != OBSERVE_TRAIN_STEPS
+            or any(e["args"]["state"] != "FINISHED" for e in got_calls)
+            or len(got_under) != 2 * OBSERVE_TRAIN_STEPS):
+        raise AssertionError(
+            f"timeline: actor calls {[e['args'] for e in got_calls]}, "
+            f"{len(got_under)} task spans under smoke.train")
+    return got_calls, got_under
+
+
+def _trace_device_ms(trace_dir, steps):
+    """Device time per step from profile_trace's Chrome trace: every
+    kernel event's duration, and the flash kernels' event counts."""
+    from ray_tpu_torch.util import profiling
+
+    (path,) = profiling.trace_files(trace_dir)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return {"device_ms_per_step": "not measured: the trace holds no "
+                                      "kernel events",
+                "trace_bytes": os.path.getsize(path)}
+    return {"device_ms_per_step":
+            sum(e.get("dur", 0.0) for e in kernels) / 1e3 / steps,
+            "kernel_events_per_step": len(kernels) / steps,
+            "flash_kernel_events": {
+                c: sum(name in e.get("name", "") for e in kernels)
+                for c, name in TRACE_KERNELS.items()},
+            "trace_bytes": os.path.getsize(path)}
+
+
+def _prometheus_samples(text):
+    """{name{labels}: value} of Prometheus text; raises on a line that
+    is not a comment or a sample."""
+    pat = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pat.match(line)
+        if m is None:
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _observe_dump(dump_dir, trace_dir, first_engine_id):
+    """Phase 15 (d): debug_dump()'s incident directory, its sections (the
+    runtime, Serve, one llm.engine-<id> per engine built since the
+    recorder was armed), its artifacts, stacks and metrics. Returns
+    the readings."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import live_engines
+
+    t0 = time.perf_counter()
+    incident = rt.debug_dump(dump_dir)
+    dump_s = time.perf_counter() - t0
+    files = sorted(os.listdir(incident))
+    with open(os.path.join(incident, "manifest.json")) as f:
+        manifest = json.load(f)
+    path = os.path.join(incident, "driver.json")
+    with open(path) as f:
+        bundle = json.load(f)
+    sections = bundle["sections"]
+    engines = {f"llm.engine-{e.engine_id}" for e in live_engines()
+               if e.engine_id >= first_engine_id}
+    engine_sections = {k for k in sections if k.startswith("llm.engine-")}
+    samples = _prometheus_samples(bundle["metrics"])
+    spans_recorded = samples.get("ray_tpu_trace_spans_recorded", 0.0)
+    broken = [k for k, v in sections.items()
+              if isinstance(v, dict) and ("error" in v or "gone" in v)]
+    actor_stacks = [k for k in bundle["stacks"]
+                    if k.startswith("actor-SmokeTrainer")]
+    ok = (files == ["driver.json", "manifest.json"]
+          and set(manifest["sources"]) == {"driver"}
+          and {"runtime", "serve"} <= set(sections)
+          and engine_sections == engines and len(engines) == 3
+          and not broken
+          and os.path.abspath(trace_dir) in bundle["artifacts"]
+          and actor_stacks and spans_recorded > 0)
+    out = {"files": files, "sections": sorted(sections),
+           "engines_since_armed": sorted(engines),
+           "artifacts": bundle["artifacts"],
+           "actor_stacks": actor_stacks,
+           "trace_spans_recorded": spans_recorded,
+           "metric_samples": len(samples),
+           "debug_dump_s": dump_s, "bundle_bytes": os.path.getsize(path)}
+    if not ok:
+        raise AssertionError(f"debug_dump: {out}, sections in error "
+                             f"{broken}")
+    return out
+
+
+def _observe_watchdog(incident_dir):
+    """Phase 15 (e): a lock noted held past OBSERVE_LOCK_S fires the
+    lock-hold watchdog exactly once and writes one auto dump; two more
+    watchdog periods add no fire. Returns the readings."""
+    from ray_tpu_torch._private import flight
+    from ray_tpu_torch._private.config import GlobalConfig
+
+    rec = flight.recorder()
+
+    def lock_fires():
+        return sum(k == "lock-hold" for _, k, _ in list(rec.watchdog_last))
+
+    def dumps():
+        return sorted(f for f in os.listdir(incident_dir)
+                      if "-lock-hold-" in f and f.endswith(".json"))
+
+    GlobalConfig.set("flight_lock_watchdog_s", OBSERVE_LOCK_S)
+    GlobalConfig.set("flight_dump_min_interval_s", 0.0)
+    fires0, held, release = lock_fires(), threading.Event(), \
+        threading.Event()
+
+    def holder():
+        flight.note_lock_acquired("smoke.planted_lock")
+        held.set()
+        release.wait(OBSERVE_POLL_S)
+        flight.note_lock_released("smoke.planted_lock")
+
+    t = threading.Thread(target=holder, name="smoke-lock-holder",
+                         daemon=True)
+    t.start()
+    try:
+        held.wait(OBSERVE_POLL_S)
+        t0 = time.monotonic()
+        fired = _poll_until(lambda: dumps() and lock_fires() > fires0)
+        fire_s = time.monotonic() - t0
+        time.sleep(2 * rec._wd_period + 0.1)
+    finally:
+        release.set()
+        t.join(OBSERVE_POLL_S)
+        GlobalConfig.reset()
+    out = {"lock_hold_fires": lock_fires() - fires0,
+           "auto_dumps": len(dumps()), "fire_after_s": fire_s,
+           "bound_s": OBSERVE_LOCK_S, "watchdog_period_s": rec._wd_period}
+    if not fired or out["lock_hold_fires"] != 1 or out["auto_dumps"] != 1:
+        raise AssertionError(f"the lock-hold watchdog: {out}")
+    return out
+
+
+def phase_observe(dev, card, cfg, lens, new_tokens):
+    """Phase 15 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import flight, tracing
+    from ray_tpu_torch.llm import live_engines
+
+    L = cfg.n_layers
+    prompts = _prompts(np.random.default_rng(SEED + 2), lens,
+                       cfg.vocab_size)
+    want = [d[0] for d in _engine_streams(cfg, dev, prompts, new_tokens)]
+    tokens = np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, (OBSERVE_TRAIN_STEPS * TRAIN_BATCH,
+                            TRAIN_LEN + 1))
+    direct, direct_s, direct_counts, direct_plain = _trainer_direct(
+        cfg, dev, tokens, OBSERVE_TRAIN_STEPS)
+    if (direct_counts != _want_counts("wgmma", OBSERVE_TRAIN_STEPS * L,
+                                      OBSERVE_TRAIN_STEPS * L)
+            or direct_plain):
+        raise AssertionError(f"the direct steps launched {direct_counts}, "
+                             f"plain routes {direct_plain}")
+    rt.shutdown()
+    with tempfile.TemporaryDirectory() as root:
+        with _observe_env(armed=False):
+            inert, request_keys, inert_step_s, inert_tasks = \
+                _observe_inert(cfg, dev, prompts, want, new_tokens, tokens,
+                               direct)
+        with _observe_env(armed=True):
+            first_engine = max([e.engine_id for e in live_engines()],
+                               default=0) + 1
+            rt.init(num_cpus=4)
+            try:
+                if tracing.tracer() is None or flight.recorder() is None:
+                    raise AssertionError("init() did not arm the tracer "
+                                         "and the recorder")
+                incidents = os.path.join(root, "incidents")
+                os.makedirs(incidents)
+                flight.recorder().dump_dir = incidents
+                runs, served = _observe_served(cfg, dev, prompts, want,
+                                               new_tokens)
+                tasks = _task_readings(traced=True)
+                trace_dir = os.path.join(root, "trace")
+                losses, counts, plain, step_s, trainer, span = \
+                    _actor_steps(cfg, dev, tokens, trace_dir)
+                _check_actor_steps("traced", direct, losses, counts, plain,
+                                   L)
+                calls, under = _observe_timeline(span)
+                spans_train = len(tracing.local_spans(span.trace_id))
+                dump = _observe_dump(os.path.join(root, "dumps"),
+                                     trace_dir, first_engine)
+                device = _trace_device_ms(trace_dir, len(OBSERVE_PROFILED))
+                watchdog = _observe_watchdog(incidents)
+                rt.kill(trainer)
+            finally:
+                serve.shutdown()
+                rt.shutdown()
+        left = (tracing.tracer(), flight.recorder(),
+                [t.name for t in threading.enumerate()
+                 if t.name.startswith("ray_tpu_flight")])
+    if left != (None, None, []):
+        raise AssertionError(f"shutdown left the tracer, the recorder or "
+                             f"its threads: {left}")
+
+    def readings(rs):
+        return {"ttft_p50_s": _p50([r[1] for r in rs]),
+                "token_gap_p50_s": _p50([g for r in rs for g in r[2]])}
+
+    skip = {0} | {i - 1 for i in OBSERVE_PROFILED}
+    out = {"phase": "observe",
+           "inert": {"tracer": None, "recorder": None, "spans": 0,
+                     "request_keys": request_keys, "equals_engine": True},
+           "served": {**served, "equals_engine": True,
+                      "unarmed_handle": readings(inert),
+                      **{k: readings(v) for k, v in runs.items()}},
+           "train": {"steps": OBSERVE_TRAIN_STEPS,
+                     "losses_equal_direct": True,
+                     "launches_per_step": counts[0],
+                     "plain_routes": sum(plain),
+                     "timeline_actor_calls_finished": len(calls),
+                     "spans_under_smoke_train": len(under),
+                     "spans_per_step": spans_train / OBSERVE_TRAIN_STEPS,
+                     "step_ms_p50_unarmed_direct":
+                         _p50(direct_s[1:]) * 1e3,
+                     "step_ms_p50_unarmed_actor":
+                         _p50(inert_step_s[1:]) * 1e3,
+                     "step_ms_p50_traced_actor": _p50(
+                         [s for i, s in enumerate(step_s)
+                          if i not in skip]) * 1e3,
+                     "step_ms": {"unarmed_direct": _ms(direct_s),
+                                 "unarmed_actor": _ms(inert_step_s),
+                                 "traced_actor": _ms(step_s)},
+                     "profiled_steps": list(OBSERVE_PROFILED),
+                     "profiled": device},
+           "tasks": {"unarmed": inert_tasks, "traced": tasks},
+           "debug_dump": dump, "watchdog": watchdog, "card": card}
+    emit(out)
+    return out
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -5185,7 +5857,49 @@ def _bwd_brief(tb, kind):
             "dtype": tb["dtype"]}
 
 
-def main() -> int:
+def _run_only(name, armed, dev, card):
+    """One phase alone (``--only``), its kernels built at first use:
+    ``observe`` is phase 15; ``rl`` is phase 12, with ``armed`` under the
+    flight recorder and its stack sampler for the whole phase (the
+    runtime's shutdown inside it leaves them armed), which must have
+    sampled while the RL graphs captured."""
+    from ray_tpu_torch._private import flight
+    from ray_tpu_torch.models import TransformerConfig
+
+    if name == "observe":
+        phase_observe(dev, card, TransformerConfig(), ENGINE_LENS, 32)
+        return
+    rec = flight.install(profile=True) if armed else None
+    try:
+        with contextlib.ExitStack() as stack:
+            if armed:
+                stack.enter_context(
+                    _patched(flight, "uninstall", lambda: None))
+            phase_rl(dev, card)
+    finally:
+        flight.uninstall()
+    if armed:
+        out = {"phase": "rl_armed", "samples_taken":
+               rec.sampler.samples_taken,
+               "events_recorded": rec.events_recorded,
+               "watchdog_fires": rec.watchdog_fires, "card": card}
+        emit(out)
+        if not out["samples_taken"]:
+            raise AssertionError("the stack sampler took no sample "
+                                 "during phase 12")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
+                                             "card (module docstring).")
+    ap.add_argument("--only", choices=("observe", "rl"),
+                    help="run one phase alone: 15 (observe) or 12 (rl)")
+    ap.add_argument("--armed", action="store_true",
+                    help="with --only rl: the flight recorder and its "
+                         "stack sampler armed through the phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
@@ -5195,6 +5909,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = card_line()
+    if args.only:
+        _run_only(args.only, args.armed, dev, card)
+        emit({"seconds_total": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
 
     from ray_tpu_torch.models import TransformerConfig
 
@@ -5226,6 +5948,7 @@ def main() -> int:
     phase_rl(dev, card)
     phase_serve(dev, card, flagship, ENGINE_LENS, 32)
     phase_trainer(dev, card, flagship)
+    phase_observe(dev, card, flagship, ENGINE_LENS, 32)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}

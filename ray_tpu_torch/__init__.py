@@ -23,7 +23,10 @@ update one CUDA graph on the card, runners local or remote actors); and
 ``train`` with ``data`` on the runtime: worker-group trainers
 (``DataParallelTrainer``, ``TorchTrainer``) with checkpoints persisted to
 storage URIs, group restarts and ``restore``, fed by a ``Dataset``
-streamed onto the card (``iter_torch_batches``). Entry points take a
+streamed onto the card (``iter_torch_batches``); the observability plane:
+task events, tracing (``util.tracing``), the flight recorder, the
+metrics registry (``util.metrics``) and the state API (``util.state``),
+read through ``timeline`` and ``debug_dump``. Entry points take a
 ``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
 thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``
@@ -64,6 +67,41 @@ def cluster_resources():
 
     return global_worker().resource_pool.total
 
+
+def timeline(trace_id=None, filename=None):
+    """Chrome-tracing JSON. Without ``trace_id``: the task-event timeline
+    (one event per task or actor call that ran to FINISHED or FAILED).
+    With ``trace_id`` (tracing armed by ``RAY_TPU_TRACE``): that trace's
+    spans. ``filename`` writes the JSON for chrome://tracing or Perfetto
+    and returns the path."""
+    if trace_id is not None:
+        from ray_tpu_torch.util.state import trace_summary
+
+        events = trace_summary(trace_id)["chrome_trace"]
+    else:
+        from ray_tpu_torch.util.state import get_timeline
+
+        events = get_timeline()
+    if filename is not None:
+        import json as _json
+
+        with open(filename, "w") as f:
+            _json.dump(events, f)
+        return filename
+    return events
+
+
+def debug_dump(out_dir=None):
+    """Postmortem collection (the flight recorder, armed by
+    ``RAY_TPU_FLIGHT`` / ``RAY_TPU_PROFILE``): this process's debug
+    bundle (all-thread stacks, event ring, profile aggregate, metrics
+    snapshot, subsystem sections, device-trace artifacts) written as one
+    directory-per-incident archive. Returns the incident directory."""
+    from ray_tpu_torch.util.state import cluster_dump
+
+    return cluster_dump(out_dir)
+
+
 __all__ = [
     "ActorClass",
     "ActorHandle",
@@ -73,6 +111,7 @@ __all__ = [
     "available_resources",
     "cancel",
     "cluster_resources",
+    "debug_dump",
     "exceptions",
     "get",
     "get_actor",
@@ -87,5 +126,6 @@ __all__ = [
     "rl",
     "serve",
     "shutdown",
+    "timeline",
     "wait",
 ]

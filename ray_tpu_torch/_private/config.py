@@ -72,6 +72,11 @@ class ConfigRegistry:
         with self._lock:
             self._overrides[name] = value
 
+    def reset(self):
+        """Drop every override (test boundaries)."""
+        with self._lock:
+            self._overrides.clear()
+
     def apply_system_config(self, system_config: Dict[str, Any]):
         for k, v in (system_config or {}).items():
             if k not in self._flags:
@@ -122,3 +127,54 @@ _D("llm_disagg_prefill_timeout_s", float, 30.0,
    "Disaggregated serving prefill RPC bound: how long the pairing layer "
    "waits for a prefill replica's ticket before falling back to the "
    "colocated path on the decode pool.")
+_D("task_events_max_buffer", int, 100_000,
+   "Ring-buffer capacity for task state events (state API/timeline).")
+_D("trace_max_spans", int, 65536,
+   "Per-process span ring capacity of the tracing plane (RAY_TPU_TRACE "
+   "arms tracing at init(); off = zero spans, no payload keys).")
+_D("trace_cold_start_window_s", float, 180.0,
+   "How long a context parked in the cold-start stash (a Serve wake) "
+   "stays adoptable: a replica constructed inside the window parents "
+   "its replica.init span to it; past it, a later unrelated replica "
+   "start is not attributed to a finished trace.")
+_D("profile_hz", float, 19.0,
+   "Flight-recorder stack sampler frequency (RAY_TPU_PROFILE arms the "
+   "sampler; the interval is jittered +-50% so periodic work is not "
+   "phase-locked out of the profile).")
+_D("profile_max_stacks", int, 2048,
+   "Bound on DISTINCT folded stacks the sampler aggregates; overflow "
+   "counts into stacks_dropped instead of growing memory.")
+_D("flight_event_capacity", int, 4096,
+   "Per-process flight-recorder event ring capacity (state "
+   "transitions, lock-hold outliers, GC pauses).")
+_D("flight_dir", str, "",
+   "Directory for the watchdogs' auto dumps and the default root of "
+   "debug_dump() archives ('' = a ray_tpu_torch directory under the "
+   "temporary directory).")
+_D("flight_gc_ms", float, 20.0,
+   "GC pauses at or above this many milliseconds become gc.pause "
+   "events in the flight ring (gc.callbacks hook).")
+_D("flight_lock_hold_ms", float, 50.0,
+   "Noted lock hold time above which the release records a lock.hold "
+   "outlier event in the flight ring.")
+_D("flight_lock_watchdog_s", float, 10.0,
+   "Noted lock hold time above which the lock-hold watchdog fires an "
+   "automatic local dump (the shape of a deadlock or of a lock held "
+   "across blocking work).")
+_D("flight_heartbeat_gap_s", float, 30.0,
+   "Gap since the last flight.beat() above which the heartbeat-gap "
+   "watchdog fires an automatic local dump (one fire per gap episode; "
+   "beats resuming re-arm it).")
+_D("flight_loop_lag_s", float, 2.0,
+   "Watchdog-loop wake overshoot above which the loop-lag watchdog "
+   "fires: no thread scheduled for this long is a process-wide stall.")
+_D("flight_watchdog_period_s", float, 1.0,
+   "Flight watchdog check period (also the loop-lag probe's expected "
+   "sleep).")
+_D("flight_dump_min_interval_s", float, 5.0,
+   "Rate limit between watchdog auto dumps: a flapping watchdog must "
+   "not fill the disk with incident files.")
+_D("flight_task_stuck_s", float, 300.0,
+   "An executing task or actor call past this bound fires the "
+   "task-stuck watchdog (diagnostics only, never a kill; one fire per "
+   "task).")

@@ -228,6 +228,16 @@ class ObjectStore:
             self._cv.notify_all()
 
     # ----------------------------------------------------------------- stats
+    def entries_snapshot(self):
+        """(object_id, ready, size, local_refs, submitted_refs, spilled)
+        rows for the state API (nothing spills here: always False)."""
+        with self._cv:
+            return [
+                (oid, e.ready, e.size, e.local_refs, e.submitted_refs,
+                 False)
+                for oid, e in self._entries.items()
+            ]
+
     def stats(self) -> Dict[str, Any]:
         with self._cv:
             return {

@@ -6,9 +6,13 @@ lineage, as nothing here reconstructs a lost object).
 A submitted task waits for its top-level ``ObjectRef`` arguments, then
 queues by resource shape; the dispatcher thread hands every task whose
 resources fit to a pool of executor threads, and an executor that
-finishes a task pulls the next fitting one itself. Not ported: the
-native ready-ring, the process plane (worker processes over the shm
-store) and spillback to other nodes. The executor threads are daemons
+finishes a task pulls the next fitting one itself. Each task records its
+state transitions into the worker's task-event ring (PENDING_ARGS_AVAIL,
+PENDING_NODE_ASSIGNMENT, RUNNING, FINISHED, FAILED, as the reference's
+scheduler does) and marks its execution for the flight recorder's
+task-stuck watchdog. Not ported: the native ready-ring, the process
+plane (worker processes over the shm store) and spillback to other
+nodes. The executor threads are daemons
 that ``shutdown`` stops and joins (bounded), so no drive hangs at
 interpreter exit.
 """
@@ -23,6 +27,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private import flight as _flight
 from ray_tpu_torch._private.ids import ObjectID, TaskID
 from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch.exceptions import RayTaskError, TaskCancelledError
@@ -54,6 +59,9 @@ class TaskSpec:
     # producer pausing at `backpressure` committed-but-unconsumed items.
     streaming: bool = False
     backpressure: int = 0
+    # Trace context wire form ((trace_id, span_id) or None): captured
+    # from the submitting thread's ambient context when tracing is armed.
+    trace: Any = None
     # Filled by the scheduler:
     attempt: int = 0
 
@@ -157,9 +165,11 @@ class LocalScheduler:
     """Dependency-resolving, resource-aware FIFO dispatcher over a pool of
     executor threads, with retry + cancellation support."""
 
-    def __init__(self, store, resource_pool: ResourcePool, num_workers: int):
+    def __init__(self, store, resource_pool: ResourcePool, num_workers: int,
+                 task_events=None):
         self._store = store
         self._resources = resource_pool
+        self._events = task_events
         self._lock = threading.Lock()
         # Runnable tasks bucketed by resource shape: dispatch picks the
         # lowest-sequence head whose shape fits *now*, trying each
@@ -170,6 +180,7 @@ class LocalScheduler:
         self._pending_deps: Dict[TaskID, int] = {}
         self._cancelled: set = set()
         self._running: Dict[TaskID, threading.Event] = {}
+        self._num_finished = 0
         self._shutdown = False
         self._dispatch_cv = threading.Condition(self._lock)
         self._pool = _ExecutorThreads(num_workers, "ray_tpu_torch_worker")
@@ -185,6 +196,9 @@ class LocalScheduler:
     # ------------------------------------------------------------ submission
     def submit(self, spec: TaskSpec):
         """Owner-side submit: wait for deps, then queue."""
+        if self._events:
+            self._events.record(spec.task_id, "PENDING_ARGS_AVAIL",
+                                name=spec.name)
         dep_refs = _collect_refs(spec.args, spec.kwargs)
         with self._lock:
             if not dep_refs:
@@ -215,6 +229,9 @@ class LocalScheduler:
             dq = self._runnable[key] = deque()
         dq.append((self._runnable_seq, spec))
         self._runnable_count += 1
+        if self._events:
+            self._events.record(spec.task_id, "PENDING_NODE_ASSIGNMENT",
+                                name=spec.name)
         self._dispatch_cv.notify_all()
 
     # -------------------------------------------------------------- dispatch
@@ -298,12 +315,18 @@ class LocalScheduler:
             self._finish_cancelled(spec)
             return self._pick_next_inline()
 
+        if self._events:
+            self._events.record(spec.task_id, "RUNNING", name=spec.name)
+        start = time.monotonic()
         retry_spec = None
         try:
             args, kwargs = _resolve_args(self._store, spec.args, spec.kwargs)
             ctx = worker_mod._task_context
             ctx.current_task_id = spec.task_id
             ctx.task_name = spec.name
+            # The flight recorder's task-stuck watchdog feed.
+            if _flight._FLIGHT is not None:
+                _flight.note_task_started(spec.name)
             try:
                 result = spec.function(*args, **kwargs)
                 if spec.streaming:
@@ -311,13 +334,20 @@ class LocalScheduler:
             finally:
                 ctx.current_task_id = None
                 ctx.task_name = None
+                if _flight._FLIGHT is not None:
+                    _flight.note_task_finished()
             if not spec.streaming:
                 self._store_outputs(spec, result)
+            if self._events:
+                self._events.record(
+                    spec.task_id, "FINISHED", name=spec.name,
+                    duration=time.monotonic() - start)
         except Exception as exc:  # noqa: BLE001 — task error boundary
             retry_spec = self._handle_failure(spec, exc)
         finally:
             with self._lock:
                 self._running.pop(spec.task_id, None)
+                self._num_finished += 1
             self._resources.release(spec.resources)
             # Enqueue the retry only after this attempt's bookkeeping is
             # gone, so the retry's _running entry can't be popped by us.
@@ -392,6 +422,8 @@ class LocalScheduler:
         retriable = spec.attempt < spec.max_retries and (
             spec.retry_exceptions or not is_app_error
         )
+        if self._events:
+            self._events.record(spec.task_id, "FAILED", name=spec.name)
         if retriable and not isinstance(exc, TaskCancelledError):
             return dataclasses.replace(spec, attempt=spec.attempt + 1)
         if isinstance(exc, (TaskCancelledError, RayTaskError)):
@@ -452,6 +484,21 @@ class LocalScheduler:
             self._runnable_count -= 1
         self._finish_cancelled(spec)
         return True
+
+    def backlog_size(self) -> int:
+        """Tasks waiting for arguments, queued, or running."""
+        with self._lock:
+            return (len(self._pending_deps) + self._runnable_count
+                    + len(self._running))
+
+    def num_running(self) -> int:
+        with self._lock:
+            return len(self._running)
+
+    def num_finished(self) -> int:
+        """Executions ended (finished, failed or retried)."""
+        with self._lock:
+            return self._num_finished
 
     def shutdown(self):
         """Stop dispatching, signal every running task's cancel event,

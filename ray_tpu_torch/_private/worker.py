@@ -7,8 +7,13 @@ registry; ``init()`` boots it and ``shutdown()`` tears it down, joining
 every thread it started. ObjectRefs count local references on
 construction and destruction (owner-side refcounting).
 
-Not ported: the head client and its failover, pulls from other processes, the
-flight recorder and tracing, the worker-process pool and client mode.
+The worker owns the task-event ring (``task_events``), and ``init()``
+arms the tracing plane (``RAY_TPU_TRACE``) and the flight recorder
+(``RAY_TPU_FLIGHT`` / ``RAY_TPU_PROFILE``), with the ``runtime`` section
+in every flight bundle; ``shutdown()`` uninstalls both and joins their
+threads. Not ported: the head client and its failover, pulls from other
+processes, the worker-process pool and client mode, and with them the
+trace and flight spill directories of worker processes (ROADMAP A.5a).
 The reference's device probe (JAX's TPUs) becomes a ``"GPU"`` resource
 of ``torch.cuda.device_count()`` cards, counted without creating a CUDA
 context; ``num_gpus=`` overrides it.
@@ -23,6 +28,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
+from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch._private.ids import (
     JobID,
@@ -45,6 +51,7 @@ from ray_tpu_torch._private.streaming import (
     stream_end_id,
     stream_item_id,
 )
+from ray_tpu_torch._private.task_events import TaskEventBuffer
 from ray_tpu_torch.exceptions import RayTaskError, RayTpuError
 
 
@@ -376,9 +383,13 @@ class Worker:
             total["GPU"] = float(num_gpus)
         total.update(resources or {})
         self.resource_pool = ResourcePool(total)
+        # Task state events (state API, timeline, the tracing bridge).
+        self.task_events = TaskEventBuffer(
+            GlobalConfig.task_events_max_buffer)
         pool_size = GlobalConfig.worker_pool_size or max(int(num_cpus), 4)
         self.scheduler = LocalScheduler(self.store, self.resource_pool,
-                                        pool_size)
+                                        pool_size,
+                                        task_events=self.task_events)
         self.submission_counter = _Counter()
         self.put_counter = _Counter()
         self.actor_counter = _Counter()
@@ -389,6 +400,20 @@ class Worker:
         # the rendezvous of the actor-plane collective groups.
         self._kv: Dict[bytes, bytes] = {}
         self._kv_lock = threading.Lock()
+        flight.add_section("runtime", self._flight_section)
+
+    def _flight_section(self) -> dict:
+        """Runtime depths for this process's flight bundle: the queue and
+        backlog numbers a postmortem reads first."""
+        s = self.scheduler
+        return {
+            "backlog": s.backlog_size(),
+            "running": s.num_running(),
+            "finished": s.num_finished(),
+            "store_objects": len(self.store._entries),
+            "resources_available": self.resource_pool.available(),
+            "actors": len(self.actors),
+        }
 
     # ------------------------------------------------------------------- api
     def current_task_id(self) -> TaskID:
@@ -418,6 +443,12 @@ class Worker:
         return value
 
     def submit_task(self, spec: TaskSpec) -> List[ObjectRef]:
+        if tracing._TRACER is not None and spec.trace is None:
+            # The submitting thread's ambient context: the task's spans
+            # bridge off its task events under it.
+            spec.trace = tracing.inject()
+            if spec.trace is not None:
+                tracing.register_task(spec.task_id.binary(), spec.trace)
         # Pin args that are refs for the duration of the task
         # (submitted refs in the reference's refcount protocol).
         dep_refs = _collect_refs(spec.args, spec.kwargs)
@@ -525,8 +556,18 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
                 "ignore_reinit_error=True to allow.")
         if _system_config:
             GlobalConfig.apply_system_config(_system_config)
-        _global_worker = Worker(num_cpus=num_cpus, num_gpus=num_gpus,
-                                resources=resources)
+        # Tracing (RAY_TPU_TRACE) and the flight recorder
+        # (RAY_TPU_FLIGHT / RAY_TPU_PROFILE) arm before the worker, so its
+        # runtime section registers; one `is None` branch each when off.
+        tracing.install_from_env(component="driver")
+        flight.install_from_env(component="driver")
+        try:
+            _global_worker = Worker(num_cpus=num_cpus, num_gpus=num_gpus,
+                                    resources=resources)
+        except BaseException:
+            tracing.uninstall()
+            flight.uninstall()
+            raise
         _global_worker.namespace = namespace
         if not _atexit_registered:
             atexit.register(shutdown)
@@ -536,8 +577,9 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
 
 def shutdown():
     """Tear the runtime down: Serve (controller loops, replicas, the HTTP
-    proxy) first, then actors, the scheduler and the store. Every drive
-    ends with it."""
+    proxy) first, then actors, the scheduler and the store; then the
+    tracer and the flight recorder (its threads joined). Every drive ends
+    with it."""
     global _global_worker
     from ray_tpu_torch.serve import controller as _controller
     from ray_tpu_torch.serve import http as _http
@@ -550,10 +592,11 @@ def shutdown():
     if compiled_dag is not None:
         compiled_dag._teardown_all()
     with _init_lock:
-        if _global_worker is None:
-            return
-        _global_worker.shutdown()
-        _global_worker = None
+        if _global_worker is not None:
+            _global_worker.shutdown()
+            _global_worker = None
+        tracing.uninstall()
+        flight.uninstall()
 
 
 def auto_init() -> Worker:

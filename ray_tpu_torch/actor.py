@@ -9,7 +9,12 @@ in order and return ObjectRefs; generator methods
 (``num_returns="streaming"``) stream on the same plane as generator
 tasks. ``max_restarts`` restarts a killed actor with fresh state; named
 actors resolve through ``get_actor``; ``kill`` ends an actor, after
-which its calls fail with ``ActorDiedError``. Not ported: the process
+which its calls fail with ``ActorDiedError``. Each call records
+PENDING_ACTOR_TASK at submit and RUNNING, then FINISHED or FAILED, as it
+executes into the worker's task-event ring (the reference records the
+execution states on the sync loops; here the async loop records them
+too), registers the caller's trace context when tracing is armed, and
+marks its execution for the flight recorder. Not ported: the process
 plane (an actor in its own worker process) and handles to actors of
 other processes.
 """
@@ -22,6 +27,7 @@ import queue
 import threading
 from typing import Any, Dict, Optional
 
+from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID
 from ray_tpu_torch._private.scheduler import _ExecutorThreads
@@ -199,6 +205,10 @@ class _ActorRuntime:
         if call.cancelled:
             self._fail_call(worker, call, TaskCancelledError())
             return
+        task_id = call.return_ids[0].task_id()
+        worker.task_events.record(task_id, "RUNNING", name=call.name)
+        if flight._FLIGHT is not None:
+            flight.note_task_started(call.name)
         try:
             method = getattr(self.instance, call.method_name)
             args, kwargs = _resolve_actor_args(worker, call)
@@ -207,9 +217,14 @@ class _ActorRuntime:
                 self._stream_call_outputs(worker, call, result)
             else:
                 self._store_outputs(worker, call, result)
+            worker.task_events.record(task_id, "FINISHED", name=call.name)
         except Exception as exc:  # noqa: BLE001 — method error boundary
             self._fail_call(
                 worker, call, RayTaskError.from_exception(call.name, exc))
+            worker.task_events.record(task_id, "FAILED", name=call.name)
+        finally:
+            if flight._FLIGHT is not None:
+                flight.note_task_finished()
 
     def _stream_call_outputs(self, worker, call: _MethodCall, result):
         """Generator method: commit one object per yield (the consumer's
@@ -246,6 +261,9 @@ class _ActorRuntime:
         if call.cancelled:
             self._fail_call(worker, call, TaskCancelledError())
             return
+        # Many coroutines share this thread, so no task-stuck mark here.
+        task_id = call.return_ids[0].task_id()
+        worker.task_events.record(task_id, "RUNNING", name=call.name)
         try:
             method = getattr(self.instance, call.method_name)
             args, kwargs = _resolve_actor_args(worker, call)
@@ -263,11 +281,13 @@ class _ActorRuntime:
                     await loop.run_in_executor(
                         None, self._stream_call_outputs, worker, call,
                         result)
-                return
-            self._store_outputs(worker, call, result)
+            else:
+                self._store_outputs(worker, call, result)
+            worker.task_events.record(task_id, "FINISHED", name=call.name)
         except Exception as exc:  # noqa: BLE001 — method error boundary
             self._fail_call(
                 worker, call, RayTaskError.from_exception(call.name, exc))
+            worker.task_events.record(task_id, "FAILED", name=call.name)
 
     async def _stream_call_outputs_async(self, worker, call: _MethodCall,
                                          agen):
@@ -368,8 +388,16 @@ class _ActorRuntime:
             self._mailbox.put(_ClosureCall(fn))
 
     def _enqueue(self, worker, call: _MethodCall):
+        task_id = call.return_ids[0].task_id()
         with self._lock:
             if not self.dead:
+                if tracing._TRACER is not None:
+                    # The caller's ambient context -> this call's queue
+                    # and exec spans, through the task-event bridge.
+                    tracing.register_task(task_id.binary(),
+                                          tracing.inject())
+                worker.task_events.record(task_id, "PENDING_ACTOR_TASK",
+                                          name=call.name)
                 self._mailbox.put(call)
                 return
         err = ActorDiedError(self.actor_id,

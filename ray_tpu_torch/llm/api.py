@@ -15,9 +15,13 @@ exhausted or closed, so a deployment built with ``autoscaling_config=``
 scales up under streaming load. Every replica exposes
 ``prefix_digest()``, the chain digests of its cached KV blocks; the
 Serve controller polls it off the request path and the router scores
-replicas by cached-prefix overlap with each prompt. The reference's
-replica-init span and the request dict's ``_trace`` key wait for the
-tracing plane, which is not ported.
+replicas by cached-prefix overlap with each prompt.
+
+Tracing: a replica's construction is one ``replica.init`` span, parented
+to the cold-start stash when a Serve wake started it; a traced handle
+injects its ``serve.request`` context into the request dict as
+``_trace`` (``LLMServer`` is marked ``_consumes_llm_requests``), and
+``__call__`` lifts it into the engine's ``generate(trace=...)``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Iterator, Optional, Union
 
+from ray_tpu_torch._private import tracing
 from ray_tpu_torch.llm.engine import EngineConfig, InferenceEngine
 
 __all__ = ["build_llm_app", "LLMServer"]
@@ -40,22 +45,41 @@ class LLMServer:
     feeds the engine's load-shedding admission.
     """
 
+    # Deployments of this class consume LLM request dicts, so a traced
+    # handle reshapes the request to carry its context.
+    _consumes_llm_requests = True
+
     def __init__(self, engine_config: Optional[EngineConfig] = None,
                  params: Optional[dict] = None,
                  warm_prefix: Optional[list] = None):
         self.init_started_monotonic = time.monotonic()
         self.first_token_monotonic: Optional[float] = None
         self.warmed_prefix_tokens = 0
-        self.engine = InferenceEngine(engine_config, params=params)
-        if warm_prefix:
-            # Prefill the shared prompt ONCE at replica start, so it
-            # registers as shared blocks before the first request and the
-            # controller's next prefix_digest poll advertises it.
-            tokens = [int(t) for t in warm_prefix]
-            for _ in self.engine.generate(tokens, max_new_tokens=1):
-                pass
-            self.warmed_prefix_tokens = len(tokens)
+        # Cold-start chain: a replica constructed because a traced
+        # request woke its deployment parents its init span to the
+        # wake's stashed context.
+        init_span = tracing.begin(
+            "replica.init", parent=tracing.cold_start_parent(),
+            component="replica") if tracing.active() else None
+        try:
+            self.engine = InferenceEngine(engine_config, params=params)
+            if warm_prefix:
+                # Prefill the shared prompt ONCE at replica start, so it
+                # registers as shared blocks before the first request and
+                # the controller's next prefix_digest poll advertises it.
+                tokens = [int(t) for t in warm_prefix]
+                for _ in self.engine.generate(tokens, max_new_tokens=1):
+                    pass
+                self.warmed_prefix_tokens = len(tokens)
+        except BaseException:
+            # Close the span AND restore the thread's ambient context:
+            # a dangling replica.init context would adopt every later
+            # span on this thread.
+            tracing.finish(init_span, status="error")
+            raise
         self.ready_monotonic = time.monotonic()
+        tracing.finish(init_span,
+                       warmed_prefix_tokens=self.warmed_prefix_tokens)
 
     def __call__(self, request: Union[Dict[str, Any], list]
                  ) -> Iterator[int]:
@@ -64,6 +88,10 @@ class LLMServer:
             kwargs = {k: request[k] for k in
                       ("max_new_tokens", "eos_token_id", "temperature",
                        "seed", "priority") if k in request}
+            if request.get("_trace") is not None:
+                # The trace context rode the request dict: the engine
+                # stamps its queue/prefill/decode spans under it.
+                kwargs["trace"] = request["_trace"]
         else:
             prompt, kwargs = request, {}
         # A cancelled stream raises GeneratorExit through here; the

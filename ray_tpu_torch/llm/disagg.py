@@ -32,8 +32,11 @@ depth (``queue_depth``), the decode pool on KV blocks in use
 
 Both pools run on the one-process runtime: a replica is an actor thread
 of the calling process, the KV hop is one ``put`` and one ``get`` of
-host tensors through the object store. The reference's ``_trace`` key is
-parsed and not forwarded (the tracing plane is not ported).
+host tensors through the object store. A request dict's ``_trace`` key
+(a traced handle's ``serve.request`` context) is forwarded into the
+prefill engine's ``submit`` and the decode engine's ``begin_adopted``, so
+each hop's ``llm.*`` spans, ``llm.kv_ship`` among them, land in that
+hop's trace.
 
 Wiring::
 
@@ -110,14 +113,15 @@ class PrefillLLMServer(LLMServer):
         are not shipped. Returns the ticket ``{"ref", "first_token",
         "pub_id", "start_block", "blocks", "block_size", "bytes"}``."""
         self._expire_published()
-        prompt, kwargs, _trace = _parse(request)
+        prompt, kwargs, trace = _parse(request)
         skip = 0
         if isinstance(request, dict):
             skip = max(0, int(request.get("_skip_blocks", 0)))
         # The whole completion budget stays on the decode side; here
         # only the first token (from the final chunk's logits) matters.
         kwargs["max_new_tokens"] = 1
-        req = self.engine.submit(prompt, hold_after_prefill=True, **kwargs)
+        req = self.engine.submit(prompt, trace=trace,
+                                 hold_after_prefill=True, **kwargs)
         first: Optional[int] = None
         while True:
             item = req.output_queue.get(
@@ -231,8 +235,8 @@ class DecodeLLMServer(LLMServer):
 
     def _adopted_stream(self, request: Dict[str, Any]) -> Iterator[int]:
         ticket = request["_disagg"]
-        prompt, kwargs, _trace = _parse(request)
-        req = self.engine.begin_adopted(prompt, **kwargs)
+        prompt, kwargs, trace = _parse(request)
+        req = self.engine.begin_adopted(prompt, trace=trace, **kwargs)
         if req is not None:
             # The remote prefill is done when the ticket lands here: from
             # this stamp to the graft is the TRANSFER phase of the TTFT

@@ -47,9 +47,14 @@ programs tensor-parallel (``models/transformer.py``), the host-side
 scheduler and block manager unchanged. Speculative decoding under
 ``tp_size > 1`` raises, as in the reference.
 
-Not ported yet: the servers of ``llm/disagg.py``, and the tracing and
-flight-recorder hooks (the ``llm.kv_ship`` span among them), which
-import the ``ray_tpu`` runtime.
+Observability: ``submit``, ``generate`` and ``begin_adopted`` take the
+request's ``trace`` context, and a traced request's finish emits
+``llm.queue``, ``llm.prefill``, ``llm.kv_ship`` (adopted sequences) and
+``llm.decode`` spans with a ``first_token`` event, anchored to the
+submit's wall clock (host times: a span around device work times its
+enqueue and the step's host sync, not the kernels). With the flight
+recorder armed each engine renders an ``llm.engine-<id>`` section (its
+``stats()``, host counters only) into every debug bundle.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.exceptions import KVCacheOOM, RequestSheddedError
 from ray_tpu_torch.llm.kv_cache import PagedKVCache
@@ -222,6 +228,17 @@ class InferenceEngine:
         self._timings: "deque" = deque(maxlen=2048)
         self.engine_id = next(_engine_ids)
         _ENGINES[self.engine_id] = self
+        # Flight-recorder section: this engine's waitqueue depth, KV
+        # occupancy and TTFT decomposition in every debug bundle
+        # (weakly held: a collected engine reports itself gone).
+        if flight.active():
+            eid = self.engine_id
+
+            def _section(_id=eid):
+                e = _ENGINES.get(_id)
+                return e.stats() if e is not None else {"gone": True}
+
+            flight.add_section(f"llm.engine-{eid}", _section)
 
     # ------------------------------------------------------ tensor parallel
     @staticmethod
@@ -306,10 +323,12 @@ class InferenceEngine:
                temperature: float = 0.0,
                seed: Optional[int] = None,
                priority: int = 0,
+               trace=None,
                hold_after_prefill: bool = False) -> Request:
         """Enqueue a request. Past the bounded waitqueue the lowest
         priority class is shed with a typed ``RequestSheddedError``.
         Tokens arrive on ``req.output_queue`` as iterations commit them.
+        ``trace`` (a wire context) parents the request's ``llm.*`` spans.
         With ``hold_after_prefill`` the finished request keeps its blocks
         for export until ``release_held``."""
         req = Request(
@@ -319,6 +338,7 @@ class InferenceEngine:
             eos_token_id=(eos_token_id if eos_token_id is not None
                           else self.config.eos_token_id),
             temperature=temperature, seed=seed, priority=priority)
+        req.trace = trace
         req.hold_after_prefill = bool(hold_after_prefill)
         total = len(req.prompt) + req.max_new_tokens
         max_len = self.model_cfg.max_seq_len
@@ -350,13 +370,14 @@ class InferenceEngine:
                  temperature: float = 0.0,
                  seed: Optional[int] = None,
                  priority: int = 0,
-                 timeout_s: float = 120.0) -> Iterator[int]:
+                 timeout_s: float = 120.0,
+                 trace=None) -> Iterator[int]:
         """Streaming generator of token ids. Closing it mid-generation
         frees the sequence's private KV blocks immediately."""
         req = self.submit(prompt, max_new_tokens=max_new_tokens,
                           eos_token_id=eos_token_id,
                           temperature=temperature, seed=seed,
-                          priority=priority)
+                          priority=priority, trace=trace)
         try:
             while True:
                 try:
@@ -437,7 +458,8 @@ class InferenceEngine:
                       eos_token_id: Optional[int] = None,
                       temperature: float = 0.0,
                       seed: Optional[int] = None,
-                      priority: int = 0) -> Optional[Request]:
+                      priority: int = 0,
+                      trace=None) -> Optional[Request]:
         """Disaggregated decode, step 1 of 3: allocate the prompt's block
         table as admission would (sharing every prefix-cached leading
         block) so a prefill replica's exported KV can be grafted into it.
@@ -451,6 +473,7 @@ class InferenceEngine:
             eos_token_id=(eos_token_id if eos_token_id is not None
                           else self.config.eos_token_id),
             temperature=temperature, seed=seed, priority=priority)
+        req.trace = trace
         if len(req.prompt) + req.max_new_tokens > self.model_cfg.max_seq_len:
             return None
         with self._lock:
@@ -537,9 +560,12 @@ class InferenceEngine:
 
     def _record_timing(self, req: Request, status: str):
         """TTFT decomposition record (queue / prefill / transfer / decode
-        seconds). Adopted sequences add a transfer phase (pull + graft)
-        between prefill and decode; colocated ones have none and their
-        decode starts at ``t_prefill_done``."""
+        seconds) and, for a request that carried a trace context, the
+        ``llm.queue`` / ``llm.prefill`` / ``llm.kv_ship`` / ``llm.decode``
+        spans with a ``first_token`` event (``llm.<status>`` for one
+        never scheduled). Adopted sequences add a transfer phase (pull +
+        graft) between prefill and decode; colocated ones have none and
+        their decode starts at ``t_prefill_done``."""
         t_end = req.t_finish
         queue_s = ((req.t_sched - req.t_submit)
                    if req.t_sched is not None else t_end - req.t_submit)
@@ -563,6 +589,51 @@ class InferenceEngine:
                        if req.t_first_token is not None else None),
             "total_s": t_end - req.t_submit,
         })
+        t = tracing.tracer()
+        if t is None or req.trace is None:
+            return
+        ctx = tracing.extract(req.trace)
+        if ctx is None:
+            return
+
+        # Monotonic stamps anchor to the submit's wall clock for spans.
+        def wall(mono):
+            return req.wall_submit + (mono - req.t_submit)
+
+        ok = "ok" if status == FINISHED else "error"
+        if req.t_sched is not None:
+            t.emit(ctx.trace_id, tracing._new_id(), ctx.span_id,
+                   "llm.queue", wall(req.t_submit), queue_s,
+                   component="llm", tags={"seq": req.seq_id})
+            if req.t_prefill_done is not None:
+                t.emit(ctx.trace_id, tracing._new_id(), ctx.span_id,
+                       "llm.prefill", wall(req.t_sched), prefill_s,
+                       component="llm",
+                       tags={"seq": req.seq_id,
+                             "cached_tokens": req.cached_prompt_tokens})
+                if req.t_transfer_done is not None:
+                    blocks, nbytes = req.kv_ship or (0, 0)
+                    t.emit(ctx.trace_id, tracing._new_id(), ctx.span_id,
+                           "llm.kv_ship", wall(req.t_prefill_done),
+                           transfer_s, component="llm",
+                           tags={"seq": req.seq_id, "blocks": blocks,
+                                 "bytes": nbytes})
+                events = []
+                if req.t_first_token is not None:
+                    events.append([wall(req.t_first_token),
+                                   "first_token"])
+                t.emit(ctx.trace_id, tracing._new_id(), ctx.span_id,
+                       "llm.decode", wall(t_decode0), decode_s,
+                       status=ok, component="llm",
+                       tags={"seq": req.seq_id,
+                             "tokens": len(req.out_tokens)},
+                       events=events)
+        else:
+            # Never scheduled (shed or cancelled in the waitqueue).
+            t.emit(ctx.trace_id, tracing._new_id(), ctx.span_id,
+                   "llm." + status.lower(), wall(req.t_submit), queue_s,
+                   status=ok, component="llm",
+                   tags={"seq": req.seq_id})
 
     # ----------------------------------------------------------------- step
     def step(self) -> bool:
@@ -801,6 +872,7 @@ class InferenceEngine:
 
     def stats(self) -> Dict[str, Any]:
         out = {
+            "engine_id": self.engine_id,
             "device": str(self.device),
             "tp_size": self.config.tp_size,
             "steps": self.num_steps,

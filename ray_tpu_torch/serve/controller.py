@@ -8,10 +8,14 @@ max_replicas], down to zero and back (the wake path). A second loop
 polls LLM replicas' prefix digests for the router. Replicas are the
 port's actors (``max_concurrency=100``); ``scheduling_strategy="SPREAD"``
 is accepted and does nothing on one machine, as in the reference
-standalone. Not ported: the KV-stream fallback (``handle_stream``), as no
-handle leaves the process, and the flight-recorder and tracing hooks.
-``shutdown`` stops both loops, stops every replica's user object (its
-``shutdown()``, where the deployment's class has one: an LLM replica's
+standalone. With the flight recorder armed the controller renders a
+``serve`` section (``status()``) into every debug bundle; with tracing
+armed a wake from zero replicas is one ``serve.wake`` span whose context
+waits in the cold-start stash while the wake starts replicas, each of
+which constructs under it. Not ported: the KV-stream fallback
+(``handle_stream``), as no handle leaves the process. ``shutdown`` stops
+both loops, stops every replica's user object (its ``shutdown()``,
+where the deployment's class has one: an LLM replica's
 engine loop) and kills the replicas.
 """
 
@@ -23,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch.serve.router import ReplicaSet
 
@@ -117,6 +122,10 @@ class ServeController:
             target=self._prefix_poll_loop, daemon=True,
             name="serve-prefix-poll")
         self._prefix_thread.start()
+        # Flight-recorder section: deployment and replica state in every
+        # debug bundle.
+        if flight.active():
+            flight.add_section("serve", self.status)
 
     # -------------------------------------------------------------- deploy
     def deploy(self, name: str, cls: type, init_args, init_kwargs,
@@ -286,11 +295,15 @@ class ServeController:
     def _start_replica(self, info: DeploymentInfo):
         user_cls = info.cls
         init_args, init_kwargs = info.init_args, info.init_kwargs
+        # A replica started for a traced wake constructs under the wake's
+        # context (its constructor runs later, on the actor's thread).
+        parent = tracing.cold_start_parent()
 
         @ray_tpu_torch.remote
         class Replica:
             def __init__(self):
-                self._user = user_cls(*init_args, **init_kwargs)
+                with tracing.use_context(parent):
+                    self._user = user_cls(*init_args, **init_kwargs)
 
             def _resolved(self, method, args, kwargs):
                 # User args travel packed in a tuple, so chained
@@ -391,36 +404,61 @@ class ServeController:
         from ray_tpu_torch.exceptions import GetTimeoutError
 
         t0 = time.monotonic()
-        with self._lock:
-            info = self._deployments.get(name)
-            if info is None:
-                raise KeyError(f"no deployment named {name!r}")
-            if info.num_replicas == 0:
-                info.wake_events += 1
-                _record_scale_event(info.scale_events, {
-                    "t_decision": t0, "from": 0, "to": 1,
-                    "reason": "wake"})
-                info.num_replicas = 1
-                info.last_scale_change = t0
-        deadline = t0 + float(GlobalConfig.serve_wake_timeout_s)
-        while time.monotonic() < deadline:
-            self._reconcile_once()
+        # Traced wake: the whole scale-from-zero wait is one span, and
+        # its context waits in the cold-start stash, so the replica it
+        # starts parents its replica.init span to it.
+        span = tracing.begin("serve.wake", deployment=name) \
+            if tracing.active() else None
+        tracing.stash_cold_start()
+        try:
             with self._lock:
                 info = self._deployments.get(name)
-                size = info.replica_set.size() if info else 0
-            if info is None:
-                raise KeyError(f"no deployment named {name!r}")
-            if size > 0:
+                if info is None:
+                    raise KeyError(f"no deployment named {name!r}")
+                if info.num_replicas == 0:
+                    info.wake_events += 1
+                    _record_scale_event(info.scale_events, {
+                        "t_decision": t0, "from": 0, "to": 1,
+                        "reason": "wake"})
+                    info.num_replicas = 1
+                    info.last_scale_change = t0
+            deadline = t0 + float(GlobalConfig.serve_wake_timeout_s)
+            while time.monotonic() < deadline:
+                self._reconcile_once()
                 with self._lock:
-                    info.last_wake_latency_s = time.monotonic() - t0
-                return
-            time.sleep(0.25)
-        raise GetTimeoutError(
-            f"deployment {name!r} did not wake from zero replicas "
-            f"within {GlobalConfig.serve_wake_timeout_s:.0f}s "
-            f"(RAY_TPU_SERVE_WAKE_TIMEOUT_S)")
+                    info = self._deployments.get(name)
+                    size = info.replica_set.size() if info else 0
+                if info is None:
+                    raise KeyError(f"no deployment named {name!r}")
+                if size > 0:
+                    with self._lock:
+                        info.last_wake_latency_s = time.monotonic() - t0
+                    tracing.finish(span)
+                    # Satisfied: drop the stash, so a later unrelated
+                    # replica start does not adopt this finished trace.
+                    tracing.clear_cold_start(span.ctx if span else None)
+                    return
+                time.sleep(0.25)
+            raise GetTimeoutError(
+                f"deployment {name!r} did not wake from zero replicas "
+                f"within {GlobalConfig.serve_wake_timeout_s:.0f}s "
+                f"(RAY_TPU_SERVE_WAKE_TIMEOUT_S)")
+        except BaseException:
+            # Any exit but success closes the span AND restores the
+            # thread's ambient context.
+            tracing.finish(span, status="error")
+            tracing.clear_cold_start(span.ctx if span else None)
+            raise
 
     # ------------------------------------------------------------- queries
+    def consumes_llm_requests(self, name: str) -> bool:
+        """Whether the deployment's served class opted into LLM
+        request-dict reshaping (the ``_consumes_llm_requests`` marker)."""
+        with self._lock:
+            info = self._deployments.get(name)
+        return bool(getattr(getattr(info, "cls", None),
+                            "_consumes_llm_requests", False))
+
     def deployment_info(self, name: str) -> DeploymentInfo:
         with self._lock:
             info = self._deployments.get(name)

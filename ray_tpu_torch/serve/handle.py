@@ -2,9 +2,12 @@
 ``ray_tpu/serve/handle.py``): composable handles whose responses chain,
 and streaming responses over the streaming task plane.
 
+With tracing armed, ``remote`` is one ``serve.request`` span (routing,
+wake and submission) under the caller's ambient context, and an LLM
+deployment's request dict carries that span's context as ``_trace``.
 Not ported: the KV-polling stream fallback and the detached router,
 which serve handles that crossed a process boundary (they wait with the
-process plane), and the tracing hooks.
+process plane).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import threading
 from typing import Any, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch._private import tracing
 
 
 class DeploymentResponse:
@@ -149,6 +153,39 @@ class DeploymentHandle:
             priority=self._priority if priority is None else int(priority))
 
     def remote(self, *args, **kwargs):
+        span = None
+        if tracing._TRACER is not None:
+            # Serve entry point: inherit the caller's ambient context (or
+            # root a fresh trace); the span covers routing, wake and
+            # submission, and replica and engine spans parent to it.
+            span = tracing.begin("serve.request", deployment=self._name,
+                                 method=self._method,
+                                 priority=self._priority)
+            # Only deployments that consume LLM request dicts get the
+            # context injected into their request; other deployments'
+            # arguments are never reshaped by tracing.
+            if self._controller.consumes_llm_requests(self._name):
+                if args and isinstance(args[0], dict) \
+                        and "prompt" in args[0]:
+                    args = ({**args[0],
+                             "_trace": tracing.inject(span.ctx)},) \
+                        + args[1:]
+                elif isinstance(kwargs.get("request"), dict) \
+                        and "prompt" in kwargs["request"]:
+                    kwargs = dict(kwargs)
+                    kwargs["request"] = {**kwargs["request"],
+                                         "_trace":
+                                         tracing.inject(span.ctx)}
+        try:
+            result = self._remote_inner(args, kwargs)
+        except BaseException as exc:
+            tracing.finish(span, status="error",
+                           error=type(exc).__name__)
+            raise
+        tracing.finish(span)
+        return result
+
+    def _remote_inner(self, args, kwargs):
         rs = self._controller._replica_set(self._name)
         # Prefix-aware tier: when any replica has reported a prefix
         # digest (LLM deployments), score replicas by cached-prefix

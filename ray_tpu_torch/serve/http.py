@@ -6,9 +6,10 @@ through the same router as handle calls and answers ``{"result": ...}``;
 ``?stream=1`` streams the response with chunked transfer, one JSON line
 per generator item, as the replica yields; a request refused by priority
 admission answers 503 with ``Retry-After``. The priority class comes
-from the ``X-Request-Priority`` header or ``?priority=``. Not ported:
-the ASGI ingress path and the tracing hooks. ``stop_proxy`` shuts the
-server down and joins its thread.
+from the ``X-Request-Priority`` header or ``?priority=``. With tracing
+armed every request is one ``http.request`` span, the root of its trace,
+under which the handle's ``serve.request`` opens. Not ported: the ASGI
+ingress path. ``stop_proxy`` shuts the server down and joins its thread.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ray_tpu_torch._private import tracing
 from ray_tpu_torch.exceptions import RequestSheddedError
 from ray_tpu_torch.serve.controller import get_or_create_controller
 from ray_tpu_torch.serve.handle import DeploymentHandle
@@ -31,6 +33,16 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
     def _route(self):
+        if tracing._TRACER is None:
+            self._route_inner()
+            return
+        # HTTP entry point: one trace per proxy request; the handle's
+        # serve.request span (and everything below it) parents here.
+        with tracing.start_span("http.request", path=self.path,
+                                method=self.command):
+            self._route_inner()
+
+    def _route_inner(self):
         from urllib.parse import parse_qs, urlparse
 
         parsed = urlparse(self.path)

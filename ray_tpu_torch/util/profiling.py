@@ -11,8 +11,9 @@ found in the device view. ``trace_files`` lists what captures wrote.
 One profiler runs in a process at a time: ``profile_trace`` refuses to
 start inside another, and stops and writes its own in a ``finally``
 block, so a failure inside the block never leaves the profiler running.
-Registering the trace with the flight recorder's debug bundles waits for
-the flight recorder, which is not ported (ROADMAP A.5).
+Each capture's logdir is registered with the flight recorder, so a debug
+bundle's ``artifacts`` name every device trace of the session (a no-op
+while the recorder is disarmed).
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ def profile_trace(logdir: str, host_tracer_level: Optional[int] = None,
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             logdir, f"trace_{os.getpid()}_{time.time_ns()}{TRACE_SUFFIX}"))
+        from ray_tpu_torch._private import flight
+
+        flight.note_artifact(os.path.abspath(logdir))
 
 
 def annotate(name: str):
