@@ -374,9 +374,44 @@ non-zero without printing a result. Without a CUDA card, or without the
    debug_dump seconds and bundle bytes. The tracer and the recorder are
    off again at the end, and every temporary directory is removed.
 
-``--only observe`` runs phase 15 alone and ``--only rl --armed`` phase 12
-under the flight recorder and its stack sampler (kernels build at first
-use).
+16. data: Data's all-to-all operators, its file readers and writers,
+   custom sources and sinks, and offline RL (ray_tpu_torch.data,
+   ray_tpu_torch.rl.offline). (a) Phase 14's seeded [64, 2049] int64
+   token table through write_tfrecords and read_tfrecords, through
+   np.save and read_numpy, and one file through read_binary_files: every
+   row back bit for bit; a record with one flipped payload byte raises
+   under check_integrity=True. (b) The TFRecord dataset stacked into a
+   [rows, 2049] column and random_shuffle(seed=24), fed to a
+   DataParallelTrainer with one worker: the flagship at full width and
+   depth, bf16 compute over f32 masters, 4 x 2048 tokens a step, 12
+   steps. Two executions of the shuffled dataset give the same order, a
+   permutation of the written rows; the worker takes the rows in that
+   order; its losses equal make_train_step called directly on those rows,
+   bit for bit; the forward, dQ and dK/dV launch 4 / 4 / 4 times a step
+   on the tensor cores in both, no plain route. (c) A seeded table of
+   4,194,304 rows (about 80 MB) in 32 blocks: random_shuffle is a
+   permutation of the rows; sort("key") both ways equals the stable
+   argsort order, row for row; groupby("bucket").aggregate(Count, Sum,
+   Mean, Min, Max, Std) equals numpy within DATA_AGG_RTOL;
+   repartition(7) keeps every row in 7 blocks; zip of two equal-length
+   datasets lines the rows up, and unequal lengths raise ValueError. (d)
+   An online DQN on CartPole at tests/test_rl_async.py's settings on the
+   card; its buffer through buffer_to_dataset, write_tfrecords,
+   read_tfrecords and train_dqn_offline (40 iterations, seed 7, on the
+   card): the buffer comes back bit for bit, the offline learner's greedy
+   return reaches 0.6 of the online one, and one offline iteration as a
+   CUDA graph equals the same iteration run eagerly within RL_GRAPH_TOL.
+   (e) A custom Datasource round-trips rows; a custom Datasink sees
+   start, its writes and complete, and on a planted failure
+   on_write_failed before the error re-raises. Smoke readings (no
+   limits): write_tfrecords and read_tfrecords seconds and MB/s, (c)'s
+   operators' seconds, the trainer's step p50 beside the direct loop's,
+   offline DQN seconds an iteration, the phase's seconds. Every temporary
+   directory is removed.
+
+``--only data`` runs phase 16 alone, ``--only observe`` phase 15 and
+``--only rl --armed`` phase 12 under the flight recorder and its stack
+sampler (kernels build at first use).
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -656,6 +691,30 @@ OBSERVE_PROFILED = (3, 4)
 OBSERVE_LOCK_S = 0.2
 OBSERVE_POLL_S = 10.0
 OBSERVE_ENV = ("RAY_TPU_TRACE", "RAY_TPU_FLIGHT", "RAY_TPU_PROFILE")
+# Phase 16 (data): DATA_TRAIN_STEPS flagship steps from phase 14's token
+# table written as TFRecords and shuffled with DATA_SHUFFLE_SEED; the
+# all-to-all operators over DATA_ROWS rows (about 80 MB: key int64 in
+# [0, DATA_KEY_RANGE), bucket = key % DATA_BUCKETS, x float32) in
+# DATA_BLOCKS blocks. Each group's aggregates sum its values in the
+# table's order, as numpy does over the group's mask, so they agree
+# exactly in practice; DATA_AGG_RTOL (the CPU twins' bound) allows for
+# another pairwise grouping of the same sums. The offline DQN takes
+# tests/test_rl_async.py's settings: 32 envs x 64 steps, 22 online
+# iterations, 40 offline ones from seed 7, and the reference's criterion
+# (greedy return offline at least DATA_DQN_PARITY of online).
+DATA_TRAIN_STEPS = 12
+DATA_SHUFFLE_SEED = 24
+DATA_ROWS, DATA_BLOCKS, DATA_KEY_RANGE, DATA_BUCKETS = 4_194_304, 32, \
+    1 << 20, 64
+DATA_AGG_RTOL = 1e-12
+DATA_REPARTITION = 7
+DATA_DQN_ENVS = (32, 64)
+DATA_DQN_TRAIN = {"train_steps_per_iter": 96, "batch_size": 128,
+                  "lr": 2e-3, "target_update_freq": 150}
+DATA_DQN_MIN_BUFFER = 256
+DATA_DQN_ONLINE_ITERS, DATA_DQN_OFFLINE_ITERS, DATA_DQN_SEED = 22, 40, 7
+DATA_DQN_PARITY = 0.6
+DATA_CUSTOM_ROWS = 1000
 
 
 _STARTED = time.perf_counter()
@@ -5838,6 +5897,422 @@ def phase_observe(dev, card, cfg, lens, new_tokens):
     return out
 
 
+# ---------------------------------------------------------- phase 16: data
+def _stack_tokens(batch):
+    """read_tfrecords gives a multi-element feature as an object column of
+    per-row arrays (the reference's column semantics); the trainer feeds
+    it as one [rows, 2049] int64 array."""
+    return {"tokens": np.stack(list(batch["tokens"])).astype(np.int64)}
+
+
+def _tokens_of(ds):
+    """Every row of ``ds``'s tokens column, in the dataset's order."""
+    return np.concatenate([np.stack(list(b["tokens"])) for b in
+                           ds.iter_blocks()]).astype(np.int64)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _data_loop(config):
+    """Phase 16 (b)'s train_loop_per_worker: the flagship's bf16 AdamW
+    steps on the worker's shard of the shuffled TFRecord dataset,
+    reporting each step's loss, its time and the rows it took."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import train
+
+    cfg, dev = config["cfg"], torch.device(config["device"])
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    batches = train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=TRAIN_BATCH, device=dev)
+    for i in range(1, config["steps"] + 1):
+        tokens = next(batches)["tokens"]
+        t0 = time.perf_counter()
+        loss = step(tokens[:, :-1], tokens[:, 1:]).item()
+        train.report({"step": i, "loss": loss,
+                      "step_s": time.perf_counter() - t0,
+                      "rows": tokens.cpu().numpy()})
+
+
+def _data_round_trips(data, tokens, root):
+    """Phase 16 (a): the token table through TFRecords, .npy and one
+    binary file, each back bit for bit; a flipped payload byte raises
+    under check_integrity."""
+    checks, out = {}, {}
+    tfr = os.path.join(root, "tfr")
+    src = data.from_columns({"tokens": tokens}, parallelism=4)
+    t0 = time.perf_counter()
+    src.write_tfrecords(tfr)
+    write_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(tfr)
+    t0 = time.perf_counter()
+    back = _tokens_of(data.read_tfrecords(tfr))
+    read_s = time.perf_counter() - t0
+    checks["a_tfrecords_bit_equal"] = (back.shape == tokens.shape
+                                       and np.array_equal(back, tokens))
+    npy = os.path.join(root, "npy")
+    os.makedirs(npy)
+    np.save(os.path.join(npy, "tokens.npy"), tokens)
+    got = [b["data"] for b in data.read_numpy(npy).iter_blocks()]
+    checks["a_numpy_bit_equal"] = (len(got) == 1 and got[0].dtype
+                                   == tokens.dtype
+                                   and np.array_equal(got[0], tokens))
+    first = sorted(os.listdir(tfr))[0]
+    with open(os.path.join(tfr, first), "rb") as fh:
+        raw = fh.read()
+    rows = data.read_binary_files(os.path.join(tfr, first)).take_all()
+    checks["a_binary_bit_equal"] = (len(rows) == 1
+                                    and rows[0]["bytes"] == raw)
+    bad = os.path.join(root, "bad")
+    os.makedirs(bad)
+    flipped = bytearray(raw)
+    flipped[12] ^= 0xFF   # the first payload byte of the first record
+    with open(os.path.join(bad, first), "wb") as fh:
+        fh.write(bytes(flipped))
+    try:
+        data.read_tfrecords(bad, check_integrity=True).materialize()
+        err = "no error"
+    except ValueError as exc:   # the read task's error, its last line
+        err = str(exc).strip().splitlines()[-1]
+    checks["a_flipped_byte_raises"] = "data CRC" in err
+    out["a"] = {"rows": int(tokens.shape[0]), "row_len": int(tokens.shape[1]),
+                "files": len(os.listdir(tfr)), "tfrecord_bytes": nbytes,
+                "write_tfrecords_s": write_s, "read_tfrecords_s": read_s,
+                "write_MBps": nbytes / write_s / 1e6,
+                "read_MBps": nbytes / read_s / 1e6,
+                "flipped_byte_error": err}
+    return tfr, checks, out
+
+
+def _data_trainer(data, cfg, dev, tokens, tfr):
+    """Phase 16 (b): the flagship trained through DataParallelTrainer from
+    the shuffled TFRecord dataset, against make_train_step called
+    directly on the rows the worker took."""
+    from ray_tpu_torch.train import DataParallelTrainer, ScalingConfig
+
+    fa, L, steps = _flash_module(), cfg.n_layers, DATA_TRAIN_STEPS
+    checks = {}
+    ds = data.read_tfrecords(tfr).map_batches(
+        _stack_tokens, batch_size=None).random_shuffle(seed=DATA_SHUFFLE_SEED)
+    first, second = _tokens_of(ds), _tokens_of(ds)
+    where = {r.tobytes(): i for i, r in enumerate(tokens)}
+    perm = [where.get(r.tobytes(), -1) for r in first]
+    checks["b_two_executions_same_order"] = np.array_equal(first, second)
+    checks["b_shuffled_is_permutation"] = sorted(perm) == list(
+        range(len(tokens)))
+    _zero_counts()
+    plain = fa.plain_routes
+    res = DataParallelTrainer(
+        _data_loop, train_loop_config={"cfg": cfg, "device": str(dev),
+                                       "steps": steps},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        datasets={"train": ds}).fit()
+    counts, plain_t = _counts(), fa.plain_routes - plain
+    hist = res.metrics_history
+    taken = np.concatenate([m["rows"] for m in hist])
+    direct, direct_s, direct_counts, direct_plain = _trainer_direct(
+        cfg, dev, taken, steps)
+    checks["b_worker_rows_in_shuffled_order"] = np.array_equal(
+        taken, first[:len(taken)])
+    checks["b_losses_bit_equal"] = [m["loss"] for m in hist] == direct
+    want = _want_counts("wgmma", steps * L, steps * L)
+    checks["b_launches_per_step"] = counts == want and direct_counts == want
+    checks["b_plain_routes_0"] = plain_t == 0 and direct_plain == 0
+    return checks, {
+        "steps": len(hist), "shuffle_seed": DATA_SHUFFLE_SEED,
+        "first_rows": perm[:8], "losses": [m["loss"] for m in hist],
+        "direct_losses": direct,
+        "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+        "plain_routes": plain_t,
+        "step_ms_p50": _p50([m["step_s"] for m in hist[1:]]) * 1e3,
+        "direct_step_ms_p50": _p50(direct_s[1:]) * 1e3}
+
+
+def _data_all_to_all(data):
+    """Phase 16 (c): shuffle, sort both ways, groupby with every
+    aggregate, repartition and zip over DATA_ROWS rows in DATA_BLOCKS
+    blocks, each against numpy on the same table."""
+    rng = np.random.default_rng(SEED + 16)
+    key = rng.integers(0, DATA_KEY_RANGE, DATA_ROWS).astype(np.int64)
+    table = {"key": key, "bucket": key % DATA_BUCKETS,
+             "x": rng.standard_normal(DATA_ROWS).astype(np.float32)}
+    ds = data.from_columns(table, parallelism=DATA_BLOCKS)
+    checks, secs = {}, {}
+
+    def columns(d, name):
+        t0 = time.perf_counter()
+        blocks = [b for b in d.iter_blocks() if b]
+        secs[name] = time.perf_counter() - t0
+        return {k: np.concatenate([b[k] for b in blocks]) for k in table}
+
+    def rows_sorted(cols):
+        order = np.lexsort((cols["x"], cols["key"]))
+        return {k: v[order] for k, v in cols.items()}
+
+    shuffled = columns(ds.random_shuffle(seed=DATA_SHUFFLE_SEED),
+                       "random_shuffle")
+    checks["c_shuffle_is_permutation"] = all(
+        np.array_equal(a, b) for a, b in zip(
+            rows_sorted(shuffled).values(), rows_sorted(table).values()))
+    checks["c_shuffle_moved_rows"] = not np.array_equal(shuffled["key"], key)
+    order = np.argsort(key, kind="stable")
+    for desc in (False, True):
+        want_order = order[::-1] if desc else order
+        got = columns(ds.sort("key", descending=desc),
+                      "sort_descending" if desc else "sort")
+        checks[f"c_sort{'_descending' if desc else ''}_equals_argsort"] = \
+            all(np.array_equal(got[k], table[k][want_order]) for k in table)
+    t0 = time.perf_counter()
+    agg = [b for b in ds.groupby("bucket").aggregate(
+        data.Count(), data.Sum("x"), data.Mean("x"), data.Min("x"),
+        data.Max("x"), data.Std("x")).iter_blocks() if b]
+    secs["groupby"] = time.perf_counter() - t0
+    agg = {k: np.concatenate([b[k] for b in agg]) for k in agg[0]}
+    want = {"count()": [], "sum(x)": [], "mean(x)": [], "min(x)": [],
+            "max(x)": [], "std(x)": []}
+    for g in range(DATA_BUCKETS):
+        x = table["x"][table["bucket"] == g]
+        for name, v in (("count()", len(x)), ("sum(x)", float(np.sum(x))),
+                        ("mean(x)", float(np.sum(x)) / len(x)),
+                        ("min(x)", float(x.min())), ("max(x)", float(x.max())),
+                        ("std(x)", float(np.std(x)))):
+            want[name].append(v)
+    agg_err = max(float(np.max(np.abs(agg[k] - np.asarray(v))
+                                / np.maximum(np.abs(np.asarray(v)), 1e-30)))
+                  for k, v in want.items())
+    checks["c_groupby_equals_numpy"] = (
+        np.array_equal(agg["bucket"], np.arange(DATA_BUCKETS))
+        and np.array_equal(agg["count()"], want["count()"])
+        and agg_err <= DATA_AGG_RTOL)
+    rep = ds.repartition(DATA_REPARTITION).materialize()
+    got = columns(rep, "repartition")
+    checks["c_repartition_keeps_rows"] = (
+        rep.num_blocks() == DATA_REPARTITION
+        and all(np.array_equal(got[k], table[k]) for k in table))
+    left = data.from_columns({"key": key, "bucket": table["bucket"]},
+                             parallelism=DATA_BLOCKS)
+    zipped = columns(left.zip(data.from_columns(
+        {"x": table["x"]}, parallelism=DATA_BLOCKS // 2)), "zip")
+    checks["c_zip_lines_rows_up"] = all(
+        np.array_equal(zipped[k], table[k]) for k in table)
+    try:
+        left.zip(data.from_columns({"x": table["x"][:-1]})).materialize()
+        unequal = "no error"
+    except ValueError as exc:
+        unequal = type(exc).__name__
+    checks["c_zip_unequal_value_error"] = unequal == "ValueError"
+    return checks, {"rows": DATA_ROWS, "blocks": DATA_BLOCKS,
+                    "table_MB": sum(v.nbytes for v in table.values()) / 1e6,
+                    "seconds": secs, "groupby_max_rel_err": agg_err,
+                    "groupby_rtol": DATA_AGG_RTOL,
+                    "zip_unequal": unequal}
+
+
+class _EagerProgram:
+    """A GraphProgram that runs eagerly on the card: the graph's twin."""
+
+    def __new__(cls, *args, **kwargs):
+        from ray_tpu_torch.rl._graph import GraphProgram
+
+        program = GraphProgram(*args, **kwargs)
+        program.graph = False
+        return program
+
+
+def _data_offline_dqn(dev, root):
+    """Phase 16 (d): an online DQN on CartPole at the reference's
+    settings, its buffer through TFRecords, then a DQN trained offline
+    from the files on the card; one offline iteration as a CUDA graph
+    against the same iteration run eagerly."""
+    from ray_tpu_torch import data, rl
+    from ray_tpu_torch.rl import dqn as dqn_module
+    from ray_tpu_torch.rl.ppo import clone_params, leaves
+
+    checks = {}
+    train_kw = dict(DATA_DQN_TRAIN)
+    online = (rl.AlgorithmConfig("DQN", device=dev)
+              .environment("CartPole-v1")
+              .env_runners(num_envs_per_env_runner=DATA_DQN_ENVS[0],
+                           rollout_fragment_length=DATA_DQN_ENVS[1])
+              .training(min_buffer_size=DATA_DQN_MIN_BUFFER, **train_kw)
+              .debugging(seed=SEED).build())
+    t0 = time.perf_counter()
+    for _ in range(DATA_DQN_ONLINE_ITERS):
+        online.train()
+    online_s = time.perf_counter() - t0
+    online_eval = online.evaluate(num_episodes=5)["episode_return_mean"]
+    buf = online.learner._buffer
+    path = os.path.join(root, "transitions")
+    t0 = time.perf_counter()
+    rl.buffer_to_dataset(buf).write_tfrecords(path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = data.read_tfrecords(path).materialize()   # read once, used thrice
+    read_s = time.perf_counter() - t0
+    config = rl.DQNConfig(**train_kw)
+    t0 = time.perf_counter()
+    offline = rl.train_dqn_offline(
+        online.env, ds, config=config,
+        num_iterations=DATA_DQN_OFFLINE_ITERS, seed=DATA_DQN_SEED,
+        device=dev)
+    _sync(dev)
+    offline_s = time.perf_counter() - t0
+    checks["d_buffer_back_bit_equal"] = len(offline._buffer) == len(buf) \
+        and all(np.array_equal(offline._buffer._store[k][:len(buf)],
+                               v[:len(buf)]) for k, v in buf._store.items())
+    online_params = clone_params(online.learner.params)
+    online.learner.set_weights(offline.params)
+    offline_eval = online.evaluate(num_episodes=5)["episode_return_mean"]
+    online.learner.set_weights(online_params)
+    checks["d_offline_reaches_0.6_of_online"] = (
+        offline_eval >= DATA_DQN_PARITY * online_eval)
+    checks["d_offline_graphed"] = offline._program is not None and \
+        offline._program.graph == (dev.type == "cuda")
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED):
+        offline.train_from_buffer()
+    _sync(dev)
+    iteration_s = (time.perf_counter() - t0) / RL_TIMED
+    # One offline iteration, graph against eager, from the same buffer,
+    # parameters and numpy generator.
+    graphed = rl.train_dqn_offline(online.env, ds, config=config,
+                                   num_iterations=0, seed=DATA_DQN_SEED,
+                                   device=dev)
+    with _patched(dqn_module, "GraphProgram", _EagerProgram):
+        eager = rl.train_dqn_offline(online.env, ds, config=config,
+                                     num_iterations=0, seed=DATA_DQN_SEED,
+                                     device=dev)
+        loss_e = eager.train_from_buffer()
+    loss_g = graphed.train_from_buffer()
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        leaves(graphed.params), leaves(eager.params)))
+    checks["d_graph_equals_eager"] = (diff <= RL_GRAPH_TOL
+                                      and abs(loss_g - loss_e) <= RL_GRAPH_TOL)
+    online.stop()
+    return checks, {
+        "env": "CartPole-v1", "num_envs": DATA_DQN_ENVS[0],
+        "rollout_len": DATA_DQN_ENVS[1], **train_kw,
+        "online_iterations": DATA_DQN_ONLINE_ITERS,
+        "offline_iterations": DATA_DQN_OFFLINE_ITERS,
+        "transitions": len(buf), "online_eval": online_eval,
+        "offline_eval": offline_eval, "parity": DATA_DQN_PARITY,
+        "online_s": online_s, "write_tfrecords_s": write_s,
+        "read_tfrecords_s": read_s, "transitions_MB": _dir_bytes(path) / 1e6,
+        "train_dqn_offline_s": offline_s,
+        "offline_iteration_ms": iteration_s * 1e3,
+        "graph_vs_eager": {"max_param_diff": diff, "loss": [loss_g, loss_e],
+                           "tol": RL_GRAPH_TOL}}
+
+
+def _data_custom_io(data):
+    """Phase 16 (e): a custom Datasource round-trips rows; a custom
+    Datasink sees start, its writes and complete, and on a planted
+    failure on_write_failed before the error re-raises."""
+    n = DATA_CUSTOM_ROWS
+
+    class Squares(data.Datasource):
+        def get_read_tasks(self, parallelism, **_):
+            per = -(-n // parallelism)
+            return [data.ReadTask(
+                lambda lo=lo: [{"i": np.arange(lo, min(lo + per, n)),
+                                "sq": np.arange(lo, min(lo + per, n)) ** 2}],
+                num_rows=min(per, n - lo)) for lo in range(0, n, per)]
+
+    class Sink(data.Datasink):
+        def __init__(self, fail_at=None):
+            self.events, self.rows, self.fail_at = [], 0, fail_at
+
+        def on_write_start(self):
+            self.events.append("start")
+
+        def write(self, blocks):
+            self.events.append("write")
+            if self.fail_at is not None and len(self.events) - 1 == \
+                    self.fail_at:
+                raise RuntimeError("planted sink failure")
+            wrote = sum(len(b["i"]) for b in blocks)
+            self.rows += wrote
+            return wrote
+
+        def on_write_complete(self, results):
+            self.events.append("complete")
+
+        def on_write_failed(self, error):
+            self.events.append(f"failed:{error}")
+
+    ds = data.read_datasource(Squares(), parallelism=8)
+    rows = ds.take_all()
+    sink = Sink()
+    results = ds.write_datasink(sink)
+    bad = Sink(fail_at=3)
+    try:
+        ds.write_datasink(bad)
+        raised = "no error"
+    except RuntimeError as exc:
+        raised = str(exc)
+    checks = {
+        "e_source_round_trips": [(int(r["i"]), int(r["sq"])) for r in rows]
+        == [(i, i * i) for i in range(n)],
+        "e_sink_lifecycle": (sink.events == ["start"] + ["write"] * 8
+                             + ["complete"] and sum(results) == n
+                             and sink.rows == n),
+        "e_sink_failure_hook": (
+            raised == "planted sink failure"
+            and bad.events == ["start", "write", "write", "write",
+                               "failed:planted sink failure"])}
+    return checks, {"rows": n, "sink_events": sink.events,
+                    "failed_sink_events": bad.events}
+
+
+def phase_data(dev, card, cfg):
+    """Phase 16 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, ((TRAINER_STEPS + TRAINER_MORE) * TRAIN_BATCH,
+                            TRAIN_LEN + 1))
+    checks, out, part_s = {}, {}, {}
+    rt.shutdown()
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rt.init(num_cpus=4)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        c, o = fn(*args)
+        part_s[name] = time.perf_counter() - t0
+        checks.update(c)
+        return o
+
+    try:
+        t0 = time.perf_counter()
+        tfr, c, out_a = _data_round_trips(data, tokens, root)
+        part_s["a"] = time.perf_counter() - t0
+        checks.update(c)
+        out.update(out_a)
+        out["b"] = part("b", _data_trainer, data, cfg, dev, tokens, tfr)
+        out["c"] = part("c", _data_all_to_all, data)
+        out["d"] = part("d", _data_offline_dqn, dev, root)
+        out["e"] = part("e", _data_custom_io, data)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    result = {"phase": "data", "checks": checks, **out, "part_s": part_s,
+              "phase_s": time.perf_counter() - t_phase,
+              "temporary_dirs_left": os.path.exists(root), "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed or result["temporary_dirs_left"]:
+        raise AssertionError(f"phase 16 (data) failed {failed}")
+    return result
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -5859,7 +6334,7 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``observe`` is phase 15; ``rl`` is phase 12, with ``armed`` under the
+    ``data`` is phase 16, ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
     runtime's shutdown inside it leaves them armed), which must have
     sampled while the RL graphs captured."""
@@ -5868,6 +6343,9 @@ def _run_only(name, armed, dev, card):
 
     if name == "observe":
         phase_observe(dev, card, TransformerConfig(), ENGINE_LENS, 32)
+        return
+    if name == "data":
+        phase_data(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -5894,8 +6372,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
-    ap.add_argument("--only", choices=("observe", "rl"),
-                    help="run one phase alone: 15 (observe) or 12 (rl)")
+    ap.add_argument("--only", choices=("data", "observe", "rl"),
+                    help="run one phase alone: 16 (data), 15 (observe) or "
+                         "12 (rl)")
     ap.add_argument("--armed", action="store_true",
                     help="with --only rl: the flight recorder and its "
                          "stack sampler armed through the phase")
@@ -5949,6 +6428,7 @@ def main(argv=None) -> int:
     phase_serve(dev, card, flagship, ENGINE_LENS, 32)
     phase_trainer(dev, card, flagship)
     phase_observe(dev, card, flagship, ENGINE_LENS, 32)
+    phase_data(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}

@@ -6,8 +6,9 @@ iter_batches / iter_torch_batches) plans and runs the streaming
 executor. A MaterializedDataset pins its block refs so repeated
 consumption is free. ``iter_torch_batches`` takes the place of the
 reference's ``iter_jax_batches``: batches of tensors on the card (or
-sharded over a mesh). Not ported yet: shuffle, sort, groupby,
-repartition, zip, the writers and ``to_pandas``.
+sharded over a mesh). The writers are ``write_tfrecords`` and
+``write_datasink``; the parquet, CSV and JSON writers and ``to_pandas``
+are left out (the card's machine has no ``pyarrow`` or ``pandas``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,16 @@ from ray_tpu_torch.data.block import (
     normalize_block,
 )
 from ray_tpu_torch.data.executor import (
+    AllToAllOperator,
     LimitOperator,
     MapOperator,
     Operator,
+    RangeShuffleOperator,
+    ShuffleOperator,
     execute_plan,
     stream_plan,
 )
+from ray_tpu_torch.data.grouped import GroupedData
 from ray_tpu_torch.data.logical import LogicalOp, LogicalPlan, physical_op
 from ray_tpu_torch.data.stats import DatasetStats
 
@@ -103,6 +108,9 @@ class Dataset:
                 f"Physical:  {phys}")
 
     # ------------------------------------------------------------ transforms
+    def _append(self, op: Operator) -> "Dataset":
+        return Dataset(self._logical.append(physical_op(op)))
+
     def _append_map(self, name: str, block_fn,
                     row_preserving: bool = False) -> "Dataset":
         return Dataset(self._logical.append(LogicalOp(
@@ -186,6 +194,63 @@ class Dataset:
             kind="limit", name=f"Limit[{n}]", limit=n,
             make_physical=lambda lo: LimitOperator(lo.limit))))
 
+    def repartition(self, num_blocks: int) -> "Dataset":
+        def fn(blocks: List[Block]) -> List[Block]:
+            merged = concat_blocks(blocks)
+            n = block_num_rows(merged)
+            if n == 0:
+                return []
+            per = math.ceil(n / num_blocks)
+            return [block_slice(merged, i * per, min((i + 1) * per, n))
+                    for i in range(num_blocks) if i * per < n]
+
+        return self._append(AllToAllOperator(
+            f"Repartition[{num_blocks}]", fn))
+
+    def random_shuffle(self, *, seed: Optional[int] = None) -> "Dataset":
+        # Two-stage push shuffle: map tasks scatter rows to partitions,
+        # reduce tasks permute each partition locally, with no
+        # whole-dataset barrier on the driver. The seeds are the
+        # reference's, so a seeded shuffle of the same blocks gives its
+        # rows in its order.
+        def partition(block: Block, P: int, idx: int) -> List[Block]:
+            n = block_num_rows(block)
+            rng = np.random.default_rng(
+                None if seed is None else seed + idx * 9973)
+            assign = rng.integers(0, P, size=n)
+            return [block_take_indices(block, np.nonzero(assign == p)[0])
+                    for p in range(P)]
+
+        def reduce(parts: List[Block], p: int) -> List[Block]:
+            merged = concat_blocks(parts)
+            n = block_num_rows(merged)
+            if n == 0:
+                return []
+            rng = np.random.default_rng(
+                None if seed is None else seed * 31 + p)
+            return [block_take_indices(merged, rng.permutation(n))]
+
+        return self._append(ShuffleOperator(
+            "RandomShuffle", partition, reduce))
+
+    def sort(self, key: str, descending: bool = False) -> "Dataset":
+        # Range-partitioned shuffle sort: sampled boundaries, per-range
+        # reduce sorts, ordered concat is globally sorted.
+        def reduce(parts: List[Block], _p: int) -> List[Block]:
+            merged = concat_blocks(parts)
+            if block_num_rows(merged) == 0:
+                return []
+            idx = np.argsort(merged[key], kind="stable")
+            if descending:
+                idx = idx[::-1]
+            return [block_take_indices(merged, idx)]
+
+        return self._append(RangeShuffleOperator(
+            f"Sort({key})", key, reduce, descending=descending))
+
+    def groupby(self, key: str) -> GroupedData:
+        return GroupedData(self, key)
+
     def union(self, *others: "Dataset") -> "Dataset":
         all_ds = (self,) + others
 
@@ -199,6 +264,26 @@ class Dataset:
                 return refs
 
         return Dataset([UnionOperator()])
+
+    def zip(self, other: "Dataset") -> "Dataset":
+        left, right = self, other
+
+        class ZipOperator(Operator):
+            name = "Zip"
+
+            def execute(self, in_refs, stats):
+                lb = concat_blocks(
+                    [rt.get(r) for r in left._materialize_refs()])
+                rb = concat_blocks(
+                    [rt.get(r) for r in right._materialize_refs()])
+                if block_num_rows(lb) != block_num_rows(rb):
+                    raise ValueError("zip requires equal row counts")
+                out = dict(lb)
+                for k, v in rb.items():
+                    out[k if k not in out else f"{k}_1"] = v
+                return [rt.put(out)]
+
+        return Dataset([ZipOperator()])
 
     # ---------------------------------------------------------- consumption
     def _materialize_refs(self) -> List[Any]:
@@ -320,6 +405,48 @@ class Dataset:
             shard_rows[i] += meta.num_rows
         return [MaterializedDataset(shard_refs[i], shard_metas[i], None)
                 for i in range(n)]
+
+    # --------------------------------------------------------------- writes
+    @staticmethod
+    def _out_fs(path: str):
+        """(filesystem, stripped path) with the output dir ensured: write
+        paths accept any registered scheme (local, memory://)."""
+        from ray_tpu_torch.data.filesystem import resolve_filesystem
+
+        fs, p = resolve_filesystem(path)
+        fs.makedirs(p)
+        return fs, p.rstrip("/")
+
+    def write_tfrecords(self, path: str) -> None:
+        """Write blocks as TFRecord files of tf.train.Example protos (one
+        file per block; no tensorflow dependency)."""
+        from ray_tpu_torch.data.tfrecords import encode_example, write_record
+
+        fs, p = self._out_fs(path)
+        for i, block in enumerate(self.iter_blocks()):
+            with fs.open(f"{p}/part-{i:05d}.tfrecords", "wb") as fh:
+                n = block_num_rows(block)
+                for r in range(n):
+                    row = {k: v[r] for k, v in block.items()}
+                    write_record(fh, encode_example(row))
+
+    def write_datasink(self, sink) -> list:
+        """Stream this dataset's blocks into a custom Datasink with the
+        start/complete/failure lifecycle: ``on_write_failed`` sees the
+        error before it re-raises."""
+        sink.on_write_start()
+        results = []
+        try:
+            for block in self.iter_blocks():
+                results.append(sink.write([block]))
+        except Exception as exc:
+            try:
+                sink.on_write_failed(exc)
+            except Exception:  # noqa: BLE001 — a bug in the sink's hook
+                pass
+            raise
+        sink.on_write_complete(results)
+        return results
 
     def stats(self) -> str:
         if self._stats is None:

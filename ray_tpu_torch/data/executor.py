@@ -13,12 +13,14 @@ never round-trip through the driver between map-class stages:
   last;
 - backpressure is two-sided: per-operator ``max_in_flight`` tasks plus a
   bounded inter-operator queue, and the sink generator only pumps the
-  loop when the consumer pulls (``iter_batches`` streams end to end).
+  loop when the consumer pulls (``iter_batches`` streams end to end);
+- all-to-all operators (sort/shuffle/groupby/repartition) remain
+  barriers by nature: they run when their upstream completes, as
+  parallel task fan-outs whose reduce outputs are again task-side puts.
 
 Block order is part of the Dataset contract: completions are harvested
 in submission order per operator (head-of-line), which preserves order
-while still overlapping stages. The reference's all-to-all operators
-(shuffle, range shuffle, repartition) are not ported yet.
+while still overlapping stages.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ import time
 from collections import deque
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
+import numpy as np
+
 import ray_tpu_torch as rt
-from ray_tpu_torch.data.block import Block, block_num_rows
+from ray_tpu_torch.data.block import (
+    Block,
+    block_num_rows,
+    block_take_indices,
+)
 from ray_tpu_torch.data.logical import _compose
 from ray_tpu_torch.data.stats import DatasetStats, OpStats
 
@@ -54,6 +62,12 @@ class Operator:
         sink passes None through — nothing fetches blocks to count)."""
         refs = self.execute([r for r, _ in in_bundles], stats)
         return [(r, None) for r in refs]
+
+
+def _put_blocks_remote(blocks: List[Block]) -> List[RefBundle]:
+    """Task-side block publication: store each output block from inside
+    the task and ship only (ref, rows) metadata back."""
+    return [(rt.put(b), block_num_rows(b)) for b in blocks]
 
 
 def _stream_blocks_remote(blocks) -> Iterator[RefBundle]:
@@ -174,6 +188,178 @@ def fuse_plan(operators: List[Operator]) -> List[Operator]:
             continue
         fused.append(op)
     return fused
+
+
+class ShuffleOperator(Operator):
+    """Two-stage push shuffle: map tasks partition each input block into
+    P parts, then one reduce task per partition combines its parts from
+    every map. Both stages run as parallel tasks; reduce outputs are
+    task-side puts, so the driver never touches block bytes."""
+
+    MAX_PARTITIONS = 32
+
+    def __init__(self, name: str, partition_fn, reduce_fn):
+        self.name = name
+        self._partition_fn = partition_fn  # (block, P, block_idx) -> [P]
+        self._reduce_fn = reduce_fn        # (List[Block], p) -> List[Block]
+
+    def _choose_partitions(self, in_refs) -> int:
+        return min(max(len(in_refs), 1), self.MAX_PARTITIONS)
+
+    def execute_bundles(self, in_bundles, stats):
+        t0 = time.perf_counter()
+        in_refs = [r for r, _ in in_bundles]
+        if not in_refs:
+            stats.ops.append(OpStats(self.name, 0.0, 0, 0))
+            return []
+        P = self._choose_partitions(in_refs)
+        part = self._partition_fn
+        red = self._reduce_fn
+
+        @rt.remote
+        def _map(block, idx):
+            # Part p's ref commits as soon as it is yielded, so reduce p
+            # dispatches while this task still emits parts p+1..P-1.
+            yield from part(block, P, idx)
+
+        @rt.remote
+        def _reduce(p, *parts):
+            return _put_blocks_remote(red(list(parts), p))
+
+        map_gens = [
+            _map.options(num_returns="streaming").remote(ref, i)
+            for i, ref in enumerate(in_refs)
+        ]
+        out: List[RefBundle] = []
+        rows = 0
+        reduce_refs = []
+        # Opportunistic harvest instead of lockstep next(): with a
+        # backpressure budget < P, maps holding every worker slot park at
+        # the budget while a not-yet-scheduled map's first yield is
+        # awaited, and a strict round-robin next() deadlocks there.
+        # Draining whichever map has committed parts keeps every
+        # producer's acks flowing; reduce p still launches on every map's
+        # p-th yield.
+        parts: List[List] = [[] for _ in map_gens]
+        done = [False] * len(map_gens)
+        next_p = 0
+        while next_p < P:
+            progressed = False
+            for mi, gen in enumerate(map_gens):
+                while not done[mi]:
+                    try:
+                        ref = gen.try_next()
+                    except StopIteration:
+                        done[mi] = True
+                        if len(parts[mi]) < P:
+                            raise RuntimeError(
+                                f"shuffle map {mi} of {self.name!r} "
+                                f"yielded {len(parts[mi])} partitions, "
+                                f"expected {P}")
+                        break
+                    if ref is None:
+                        break
+                    parts[mi].append(ref)
+                    progressed = True
+            while next_p < P and all(len(b) > next_p for b in parts):
+                reduce_refs.append(_reduce.remote(
+                    next_p, *[b[next_p] for b in parts]))
+                next_p += 1
+                progressed = True
+            if next_p < P and not progressed:
+                pending = [r for mi, gen in enumerate(map_gens)
+                           if not done[mi] for r in gen.wait_refs()]
+                if pending:
+                    rt.wait(pending, num_returns=1, timeout=1.0)
+        for mi, gen in enumerate(map_gens):
+            if not done[mi]:  # settle the end markers (errors re-raise)
+                for _ in gen:
+                    pass
+        for rref in reduce_refs:  # partition order IS output order
+            for ref, n in rt.get(rref):
+                rows += n
+                out.append((ref, n))
+        stats.ops.append(OpStats(
+            name=self.name, wall_s=time.perf_counter() - t0,
+            output_blocks=len(out), output_rows=rows))
+        return out
+
+
+class RangeShuffleOperator(ShuffleOperator):
+    """Range-partitioned shuffle: samples the key column to pick P-1
+    boundaries, partitions by ``searchsorted``, reduces per range, so
+    the ordered concatenation of partition outputs is globally
+    key-ordered (what sort and sorted groupby need)."""
+
+    def __init__(self, name: str, key: str, reduce_fn,
+                 descending: bool = False):
+        self.key = key
+        self.descending = descending
+        super().__init__(name, None, reduce_fn)
+
+    def execute_bundles(self, in_bundles, stats):
+        in_refs = [r for r, _ in in_bundles]
+        if not in_refs:
+            stats.ops.append(OpStats(self.name, 0.0, 0, 0))
+            return []
+        P = self._choose_partitions(in_refs)
+        key, desc = self.key, self.descending
+
+        @rt.remote
+        def _sample(block):
+            vals = np.asarray(block[key])
+            if len(vals) == 0:
+                return vals
+            k = min(len(vals), 64)
+            sel = np.linspace(0, len(vals) - 1, k).astype(np.int64)
+            return np.sort(vals)[sel]
+
+        samples = np.concatenate(
+            [np.asarray(s) for s in
+             rt.get([_sample.remote(r) for r in in_refs])])
+        if len(samples) and P > 1:
+            samples = np.sort(samples)
+            if samples.dtype.kind in "iuf":
+                qs = np.linspace(0.0, 1.0, P + 1)[1:-1]
+                bounds = np.quantile(samples, qs)
+            else:  # strings etc.: evenly spaced sorted sample elements
+                sel = np.linspace(0, len(samples) - 1, P + 1)[1:-1]
+                bounds = samples[sel.astype(np.int64)]
+        else:
+            bounds = np.asarray([])
+
+        def partition(block, P, _idx, bounds=bounds):
+            vals = np.asarray(block[key])
+            pidx = np.searchsorted(bounds, vals, side="right")
+            if desc:
+                pidx = (P - 1) - pidx
+            return [block_take_indices(block, np.nonzero(pidx == p)[0])
+                    for p in range(P)]
+
+        self._partition_fn = partition
+        return super().execute_bundles(in_bundles, stats)
+
+
+class AllToAllOperator(Operator):
+    """Barrier operator: consumes all blocks, emits a new block list.
+    Runs driver-side (whole-dataset reshapes like repartition, where one
+    function sees every block)."""
+
+    def __init__(self, name: str,
+                 fn: Callable[[List[Block]], List[Block]]):
+        self.name = name
+        self._fn = fn
+
+    def execute(self, in_refs, stats):
+        t0 = time.perf_counter()
+        blocks = [rt.get(r) for r in in_refs]
+        out_blocks = self._fn(blocks)
+        refs = [rt.put(b) for b in out_blocks]
+        rows = sum(block_num_rows(b) for b in out_blocks)
+        stats.ops.append(OpStats(
+            name=self.name, wall_s=time.perf_counter() - t0,
+            output_blocks=len(refs), output_rows=rows))
+        return refs
 
 
 class LimitOperator(Operator):

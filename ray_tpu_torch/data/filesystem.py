@@ -1,5 +1,6 @@
 """Filesystems for storage URIs (counterpart of
-``ray_tpu/data/filesystem.py``, trimmed to what checkpoint storage uses).
+``ray_tpu/data/filesystem.py``, trimmed to what checkpoint storage and
+the Data readers and writers use).
 
 A path may carry a URI scheme (``memory://bucket/x``, ``file:///tmp/x``);
 the registry resolves the scheme to a ``Filesystem``. ``file`` (or no
@@ -37,6 +38,9 @@ class Filesystem:
     def makedirs(self, path: str) -> None:
         raise NotImplementedError
 
+    def isdir(self, path: str) -> bool:
+        raise NotImplementedError
+
 
 class LocalFilesystem(Filesystem):
     def open(self, path, mode="rb"):
@@ -56,6 +60,9 @@ class LocalFilesystem(Filesystem):
 
     def makedirs(self, path):
         os.makedirs(path, exist_ok=True)
+
+    def isdir(self, path):
+        return os.path.isdir(path)
 
 
 class _MemFile(io.BytesIO):
@@ -125,6 +132,9 @@ class MemoryFilesystem(Filesystem):
 
     def makedirs(self, path):
         pass  # flat namespace
+
+    def isdir(self, path):
+        return bool(self._keys(path.rstrip("/") + "/"))
 
     def delete(self, path):
         w = self._worker()

@@ -9,8 +9,8 @@ PPO or DQN over a local runner or over runner actors of the one-process
 runtime (``EnvRunner.as_actor``, each on a CUDA stream of its own);
 ``MultiAgentPPO`` runs independent PPO over a policy mapping; ``IMPALA``
 is the asynchronous actor-learner, runner actors streaming rollouts into
-its V-trace update (one device program). ``offline.py`` waits for the
-Data layer.
+its V-trace update (one device program). ``offline.py`` moves replay
+buffers to and from Datasets and trains a DQN from a Dataset alone.
 """
 
 from ray_tpu_torch.rl.env import CartPole, Pendulum, TorchEnv, gym_adapter
@@ -22,6 +22,11 @@ from ray_tpu_torch.rl.ppo import (
 )
 from ray_tpu_torch.rl.dqn import DQNConfig, DQNLearner
 from ray_tpu_torch.rl.replay import ReplayBuffer
+from ray_tpu_torch.rl.offline import (
+    buffer_to_dataset,
+    dataset_to_buffer,
+    train_dqn_offline,
+)
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rl.env_runner import EnvRunner
 from ray_tpu_torch.rl.impala import IMPALA, IMPALAConfig, vtrace
@@ -51,7 +56,10 @@ __all__ = [
     "ReplayBuffer",
     "Rollout",
     "TorchEnv",
+    "buffer_to_dataset",
+    "dataset_to_buffer",
     "gym_adapter",
     "policy_params_from_jax",
+    "train_dqn_offline",
     "vtrace",
 ]

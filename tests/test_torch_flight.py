@@ -36,15 +36,26 @@ SIDES = {"reference": (ref_flight, RefConfig),
          "port": (port_flight, PortConfig)}
 
 
+def _uninstall_both():
+    """Uninstall both recorders and wait (bounded) for their threads to
+    end. The reference's ``uninstall`` stops its sampler without joining
+    it, so a case that follows a reference case could otherwise find
+    that sampler, still named ``ray_tpu_flight_sampler``, among the live
+    threads it samples."""
+    for fl, cfg in SIDES.values():
+        fl.uninstall()
+        cfg.reset()
+    deadline = time.monotonic() + T
+    for t in threading.enumerate():
+        if t.name.startswith("ray_tpu_flight"):
+            t.join(max(deadline - time.monotonic(), 0.0))
+
+
 @pytest.fixture(autouse=True)
 def _clean_flight():
-    for fl, cfg in SIDES.values():
-        fl.uninstall()
-        cfg.reset()
+    _uninstall_both()
     yield
-    for fl, cfg in SIDES.values():
-        fl.uninstall()
-        cfg.reset()
+    _uninstall_both()
 
 
 def _wait_for(cond, bound=5.0):
@@ -153,16 +164,27 @@ def test_sampler_excludes_itself_and_bounds_distinct_stacks(side):
     rec = fl.install(component="t", profile=True)
     s = rec.sampler
     s.set_running(False)
-    s.sample_once()
-    assert not any("ray_tpu_flight_sampler" in ln for ln in s.collapsed())
-    with s._lock:
-        s._agg.clear()
-        for i in range(s.max_stacks):
-            s._agg[f"synthetic;stack{i}"] = 1
-    before = len(s._agg)
-    s.sample_once()
-    assert len(s._agg) == before
-    assert s.stacks_dropped >= 1
+    # A parked thread of the test's own, so that a stack exists to drop
+    # whatever else lives in the process.
+    stop = threading.Event()
+    t = threading.Thread(target=_leaf_park, args=(stop,),
+                         name="parked", daemon=True)
+    t.start()
+    try:
+        s.sample_once()
+        assert not any("ray_tpu_flight_sampler" in ln
+                       for ln in s.collapsed())
+        with s._lock:
+            s._agg.clear()
+            for i in range(s.max_stacks):
+                s._agg[f"synthetic;stack{i}"] = 1
+        before = len(s._agg)
+        s.sample_once()
+        assert len(s._agg) == before
+        assert s.stacks_dropped >= 1
+    finally:
+        stop.set()
+        t.join(T)
     assert fl.set_profiling(True) is True
     assert fl.set_profiling(False) is False
 
