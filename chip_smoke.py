@@ -409,7 +409,43 @@ non-zero without printing a result. Without a CUDA card, or without the
    offline DQN seconds an iteration, the phase's seconds. Every temporary
    directory is removed.
 
-``--only data`` runs phase 16 alone, ``--only observe`` phase 15 and
+17. tune: Tune and durable workflows (ray_tpu_torch.tune,
+   ray_tpu_torch.workflow), each driving the flagship's bf16 train step
+   at full width and depth, 4 x 2048 tokens a step, on phase 14's token
+   table. (a) A Tuner over TUNE_LRS under ASHA (max_t 8, grace 2,
+   reduction factor 2), two trials at once on the card; each trial
+   make_train_step at its learning rate from seed-0 parameters, one
+   tune.report of the loss a step, a flat checkpoint (parameters, AdamW
+   state, step) in the reports at a rung or at max_t. Every trial's
+   losses equal make_train_step called directly at its learning rate,
+   bit for bit, for the steps it ran; ASHA cut at least one trial; each
+   trial's last report carries its checkpoint; get_best_result() names
+   the lowest final loss; the best trial's checkpoint resumes one more
+   step whose loss and parameters equal the direct run's, bit for bit;
+   the forward, dQ and dK/dV launch 4 / 4 / 4 times a trial step on the
+   tensor cores, no plain route. (b) A workflow: the token table, four
+   segments of 3 steps (each commits the parameters and the AdamW state,
+   on the card), the evaluation loss. A child driver (this file imported
+   as the module chip_smoke), started while (a) runs, opens its CUDA
+   context and runtime and waits for (b)'s go; it runs the workflow
+   until segment 2 parks at its start and is killed with SIGKILL; it
+   built no kernel (the parent's are on disk). The parent resumes it,
+   traced: the workflow was RUNNING with
+   three steps committed; every step ran exactly once across the two
+   processes (the side-effect log); the losses, the final parameters and
+   the evaluation loss equal an uninterrupted run bit for bit; a
+   committed CUDA tensor comes back on the card, as does the live value
+   passed on; util.state.list_workflows() shows it SUCCESS; one
+   workflow.step span per step run here; 4 / 4 / 4 launches a segment
+   step (and 4 forward for the evaluation), no second build. Smoke
+   readings: trial wall seconds, step ms with one trial and with two at
+   once beside the direct loop, report-to-ack ms p50 / p99, launches per
+   trial step; commit seconds and bytes per segment, resume seconds,
+   launches per segment step, the child's seconds to ready and from go
+   to the hold. Every temporary directory is removed.
+
+``--only tune`` runs phase 17 alone, ``--only data`` phase 16, ``--only
+observe`` phase 15 and
 ``--only rl --armed`` phase 12 under the flight recorder and its stack
 sampler (kernels build at first use).
 
@@ -424,8 +460,10 @@ import dataclasses
 import importlib
 import json
 import os
+import pickle
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -715,6 +753,22 @@ DATA_DQN_MIN_BUFFER = 256
 DATA_DQN_ONLINE_ITERS, DATA_DQN_OFFLINE_ITERS, DATA_DQN_SEED = 22, 40, 7
 DATA_DQN_PARITY = 0.6
 DATA_CUSTOM_ROWS = 1000
+# Phase 17 (tune): a grid of TUNE_LRS (largest first) under ASHA
+# (max_t TUNE_MAX_T, grace TUNE_GRACE, reduction factor TUNE_RF), at most
+# TUNE_CONCURRENT trials at once; each trial the flagship's bf16 steps
+# from seed-0 parameters on phase 14's token table, one report a step. A
+# trial can be cut only at a rung or end at max_t, so its reports there
+# carry a checkpoint (parameters, AdamW state, step). The workflow: a
+# token table, WF_SEGMENTS segments of WF_SEGMENT_STEPS steps each (one
+# commit of parameters and AdamW state each), then an evaluation loss on
+# the next batch. The child driver parks at the start of segment
+# WF_HOLD_AT (0-based) and is killed there; it must reach the hold within
+# WF_CHILD_S, and holds at most WF_HOLD_S.
+TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)
+TUNE_MAX_T, TUNE_GRACE, TUNE_RF, TUNE_CONCURRENT = 8, 2, 2, 2
+WF_SEGMENTS, WF_SEGMENT_STEPS, WF_HOLD_AT, WF_LR = 4, 3, 2, 3e-4
+WF_CHILD_S, WF_HOLD_S = 240.0, 300.0
+WF_ID = "smoke17"
 
 
 _STARTED = time.perf_counter()
@@ -6313,6 +6367,589 @@ def phase_data(dev, card, cfg):
     return result
 
 
+# ---------------------------------------------------------- phase 17: tune
+# Each trial's report-to-ack seconds (the trainables append; phase 17
+# reads and clears).
+_TUNE_ACKS = []
+
+
+def _tune_trainable(config):
+    """Phase 17 (a)'s trainable: the flagship's bf16 AdamW steps at
+    ``config["lr"]`` from seed-0 parameters, one ``tune.report`` of the
+    loss a step; at the steps of ``config["ckpt_at"]`` the report carries
+    a flat checkpoint of the parameters, the AdamW state and the step,
+    and the trial's previous checkpoint is removed once the controller
+    has acked the new one."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import Checkpoint
+
+    cfg, dev, tokens = config["cfg"], torch.device(config["device"]), \
+        config["tokens"]
+    t_start = time.perf_counter()
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params, lr=config["lr"])
+    kept = None
+    for i in range(1, TUNE_MAX_T + 1):
+        batch = torch.tensor(tokens[(i - 1) * TRAIN_BATCH:i * TRAIN_BATCH],
+                             device=dev)
+        t0 = time.perf_counter()
+        loss = step(batch[:, :-1], batch[:, 1:]).item()
+        t1 = time.perf_counter()
+        ckpt = None
+        if i in config["ckpt_at"]:
+            ckpt = Checkpoint.from_pytree(
+                {"params": params, "opt": step.optimizer.state_dict(),
+                 "step": i},
+                os.path.join(config["tmp"], f"lr{config['lr']}_step{i}"))
+        t2 = time.perf_counter()
+        try:
+            tune.report({"loss": loss, "step": i, "t_start": t_start,
+                         "t0": t0, "t1": t1, "save_s": t2 - t1},
+                        checkpoint=ckpt)
+        finally:
+            _TUNE_ACKS.append(time.perf_counter() - t2)
+        if ckpt is not None:
+            if kept is not None:
+                shutil.rmtree(kept.path, ignore_errors=True)
+            kept = ckpt
+
+
+def _tune_direct(cfg, dev, tokens, lr, steps):
+    """make_train_step at ``lr`` called directly for ``steps`` steps on
+    the trials' batches: the losses, step seconds and parameters."""
+    from ray_tpu_torch import models as tm
+
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params, lr=lr)
+    losses, step_s = [], []
+    for i in range(steps):
+        batch = torch.tensor(tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                             device=dev)
+        t0 = time.perf_counter()
+        losses.append(step(batch[:, :-1], batch[:, 1:]).item())
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s, params
+
+
+def _overlapping(spans):
+    """For each (trial, t0, t1) step interval, whether another trial's
+    step interval overlaps it."""
+    return [any(o != tid and a < t1 and t0 < b for o, a, b in spans)
+            for tid, t0, t1 in spans]
+
+
+def _tune_part(cfg, dev, tokens, tmp):
+    """Phase 17 (a): the Tuner over the learning-rate grid under ASHA."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import tune
+
+    fa, L = _flash_module(), cfg.n_layers
+    checks = {}
+    _tune_direct(cfg, dev, tokens, TUNE_LRS[0], 1)   # the kernels loaded
+    torch.cuda.empty_cache()
+    asha = tune.ASHAScheduler(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                              grace_period=TUNE_GRACE,
+                              reduction_factor=TUNE_RF)
+    ckpt_at = tuple(asha.rungs) + (TUNE_MAX_T,)
+    _TUNE_ACKS.clear()
+    _zero_counts()
+    plain = fa.plain_routes
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        _tune_trainable,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS)), "cfg": cfg,
+                     "device": str(dev), "tokens": tokens, "tmp": tmp,
+                     "ckpt_at": ckpt_at},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            max_concurrent_trials=TUNE_CONCURRENT, scheduler=asha)).fit()
+    fit_s = time.perf_counter() - t0
+    counts, plain = _counts(), fa.plain_routes - plain
+    trials = {r.config["lr"]: r for r in grid}
+    ran = {lr: len(r.metrics_history) for lr, r in trials.items()}
+    n_steps = sum(ran.values())
+    best = grid.get_best_result()
+    best_lr = best.config["lr"]
+    # The direct loops: each learning rate for the steps its trial ran,
+    # the best one step further.
+    direct, ref_params = {}, None
+    for lr in TUNE_LRS:
+        losses, step_s, params = _tune_direct(
+            cfg, dev, tokens, lr, ran[lr] + (lr == best_lr))
+        direct[lr] = (losses, step_s)
+        if lr == best_lr:
+            ref_params = params
+        del params
+    checks["a_no_trial_error"] = all(r.error is None for r in grid)
+    checks["a_losses_bit_equal_direct"] = all(
+        [m["loss"] for m in r.metrics_history] == direct[lr][0][:ran[lr]]
+        for lr, r in trials.items())
+    checks["a_asha_cut_a_trial"] = min(ran.values()) < TUNE_MAX_T
+    checks["a_last_report_has_checkpoint"] = all(
+        r.checkpoint is not None and ran[lr] in ckpt_at
+        for lr, r in trials.items())
+    final = {lr: direct[lr][0][ran[lr] - 1] for lr in TUNE_LRS}
+    checks["a_best_is_lowest_final_loss"] = (
+        best.metrics["loss"] == min(final.values())
+        and final[best_lr] == min(final.values()))
+    checks["a_launches_per_step"] = counts == _want_counts(
+        "wgmma", n_steps * L, n_steps * L)
+    checks["a_plain_routes_0"] = plain == 0
+    # The best trial's checkpoint resumes one more step, bit for bit.
+    n = ran[best_lr]
+    tree = best.checkpoint.to_pytree(device=dev)
+    checks["a_checkpoint_step"] = tree["step"] == n
+    params = tm.init_params(cfg, SEED, device=dev)
+    with torch.no_grad():
+        src = dict(_named_leaves(tree["params"]))
+        for name, t in _named_leaves(params):
+            t.copy_(src[name])
+    step = tm.make_train_step(cfg, params, lr=best_lr)
+    step.optimizer.load_state_dict(tree["opt"])
+    del tree, src
+    batch = torch.tensor(tokens[n * TRAIN_BATCH:(n + 1) * TRAIN_BATCH],
+                         device=dev)
+    resumed = step(batch[:, :-1], batch[:, 1:]).item()
+    checks["a_resumed_step_bit_equal"] = (
+        resumed == direct[best_lr][0][n]
+        and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _named_leaves(params), _named_leaves(ref_params))))
+    del params, step, ref_params
+    torch.cuda.empty_cache()
+    # Readings: step intervals with another trial's step overlapping them
+    # ("two at once") or not ("one"), beside the direct loop.
+    spans, step_ms = [], []
+    for r in grid:
+        for m in r.metrics_history:
+            spans.append((r.trial_id, m["t0"], m["t1"]))
+            step_ms.append((m["t1"] - m["t0"]) * 1e3)
+    both = _overlapping(spans)
+    acks = sorted(_TUNE_ACKS)
+    out = {
+        "lrs": list(TUNE_LRS), "steps_run": {str(lr): ran[lr]
+                                             for lr in TUNE_LRS},
+        "rungs": list(asha.rungs), "best_lr": best_lr,
+        "final_loss": {str(lr): final[lr] for lr in TUNE_LRS},
+        "losses": {str(lr): [m["loss"] for m in trials[lr].metrics_history]
+                   for lr in TUNE_LRS},
+        "resumed_loss": resumed, "fit_s": fit_s,
+        "trial_wall_s": {str(lr): r.metrics_history[-1]["t1"]
+                         - r.metrics_history[-1]["t_start"]
+                         for lr, r in trials.items()},
+        "step_ms_p50_two_at_once": _p50(
+            [t for t, o in zip(step_ms, both) if o]),
+        "step_ms_p50_one_in_tuner": _p50(
+            [t for t, o in zip(step_ms, both) if not o]),
+        "steps_two_at_once": sum(both), "steps_one": len(both) - sum(both),
+        "direct_step_ms_p50": _p50([t * 1e3 for lr in TUNE_LRS
+                                    for t in direct[lr][1][1:]]),
+        "checkpoint_save_s": [m["save_s"] for r in grid
+                              for m in r.metrics_history
+                              if m["step"] in ckpt_at],
+        "report_ack_ms_p50": acks[len(acks) // 2] * 1e3,
+        "report_ack_ms_p99": acks[min(len(acks) - 1,
+                                      int(0.99 * len(acks)))] * 1e3,
+        "reports": len(acks),
+        "launches_per_trial_step": {k: v / n_steps
+                                    for k, v in counts.items() if v},
+        "plain_routes": plain}
+    return checks, out
+
+
+def _wf_effect(ctl, tag):
+    """A step's side effect: its tag and process appended to the log,
+    flushed to disk."""
+    with open(ctl["effects"], "a") as f:
+        f.write(f"{tag} {os.getpid()}\n")
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _wf_table(ctl):
+    """Phase 14's token table, cut to the workflow's batches."""
+    rows = (WF_SEGMENTS * WF_SEGMENT_STEPS + 1) * ctl["batch"]
+    return np.random.default_rng(SEED + 14).integers(
+        0, ctl["cfg"].vocab_size, (rows, ctl["seq"] + 1))
+
+
+def _wf_tokens(ctl):
+    """The workflow's first step: the token table."""
+    _wf_effect(ctl, "tokens")
+    return _wf_table(ctl)
+
+
+def _wf_segment(ctl, tokens, state, k):
+    """Segment ``k``: WF_SEGMENT_STEPS flagship steps from the state the
+    previous segment committed (seed-0 parameters for the first). Its
+    output holds the parameters and the AdamW state, on the card, every
+    segment's losses so far, and the device each later segment found the
+    parameters on. At
+    ``ctl["hold_at"]`` it parks at its start while the hold file exists,
+    after writing the kernels' build record to the held file."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.ops import _build
+
+    if k == ctl["hold_at"] and os.path.exists(ctl["hold"]):
+        with open(ctl["held"], "w") as f:
+            json.dump({"pid": os.getpid(), "nvcc_s": {
+                name: info[0] for name, info in _build.build_info.items()}},
+                f)
+        deadline = time.monotonic() + WF_HOLD_S
+        while os.path.exists(ctl["hold"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError("segment held past WF_HOLD_S")
+            time.sleep(0.02)
+    _wf_effect(ctl, f"segment{k}")
+    cfg, dev = ctl["cfg"], torch.device(ctl["device"])
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params, lr=WF_LR)
+    in_devices, losses = [], []
+    if state is not None:
+        in_devices = state["in_devices"] + [
+            str(state["params"]["embed"].device)]
+        losses = list(state["losses"])
+        with torch.no_grad():
+            src = dict(_named_leaves(state["params"]))
+            for name, t in _named_leaves(params):
+                t.copy_(src[name])
+        step.optimizer.load_state_dict(state["opt"])
+    B = ctl["batch"]
+    for j in range(WF_SEGMENT_STEPS):
+        i = k * WF_SEGMENT_STEPS + j
+        batch = torch.tensor(tokens[i * B:(i + 1) * B], device=dev)
+        losses.append(step(batch[:, :-1], batch[:, 1:]).item())
+    return {"params": params, "opt": step.optimizer.state_dict(),
+            "losses": losses, "in_devices": in_devices}
+
+
+def _wf_eval(ctl, tokens, state):
+    """The last step: the loss of the trained parameters on the batch
+    after the segments' (no gradient)."""
+    from ray_tpu_torch import models as tm
+
+    _wf_effect(ctl, "eval")
+    i, B = WF_SEGMENTS * WF_SEGMENT_STEPS, ctl["batch"]
+    batch = torch.tensor(tokens[i * B:(i + 1) * B],
+                         device=torch.device(ctl["device"]))
+    with torch.no_grad():
+        loss = tm.loss_fn(ctl["cfg"], state["params"], batch[:, :-1],
+                          batch[:, 1:]).item()
+    return {"loss": loss, "in_device": str(state["params"]["embed"].device)}
+
+
+def _wf_dag(ctl):
+    """The workflow: tokens, WF_SEGMENTS chained segments, the
+    evaluation."""
+    from ray_tpu_torch import workflow
+
+    tokens = workflow.step(_wf_tokens).options(name="tokens").bind(ctl)
+    state = None
+    for k in range(WF_SEGMENTS):
+        state = workflow.step(_wf_segment).options(name="segment").bind(
+            ctl, tokens, state, k)
+    return workflow.step(_wf_eval).options(name="eval").bind(
+        ctl, tokens, state)
+
+
+@contextlib.contextmanager
+def _timed_commits(path):
+    """Every WorkflowStorage.commit_step of this process timed: one JSON
+    line (step, seconds, bytes of the output file) appended to ``path``
+    per commit."""
+    from ray_tpu_torch.workflow.storage import WorkflowStorage
+
+    commit = WorkflowStorage.commit_step
+
+    def timed(self, workflow_id, step_id, value, meta=None):
+        t0 = time.perf_counter()
+        won, marker = commit(self, workflow_id, step_id, value, meta)
+        seconds = time.perf_counter() - t0
+        out = os.path.join(self.root, workflow_id, "steps", step_id,
+                           f"output.{marker['token']}.pkl")
+        with open(path, "a") as f:
+            f.write(json.dumps({"step": step_id, "s": seconds,
+                                "bytes": os.path.getsize(out),
+                                "pid": os.getpid()}) + "\n")
+        return won, marker
+
+    with _patched(WorkflowStorage, "commit_step", timed):
+        yield
+
+
+def _workflow_child(ctl_path):
+    """Phase 17 (b)'s child driver (another process, which imports this
+    file as the module ``chip_smoke``): started while part (a) runs, it
+    opens its CUDA context and the runtime, writes the ready file, waits
+    (bounded) for the go file, then runs the workflow until the held
+    segment, where the parent kills it."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(ctl_path, "rb") as f:
+        ctl = pickle.load(f)
+    torch.zeros(1, device=ctl["device"])   # the CUDA context
+    rt.init(num_cpus=2)
+    try:
+        with open(ctl["ready"], "w") as f:
+            json.dump({"t": time.time()}, f)
+        deadline = time.monotonic() + WF_CHILD_S
+        while not os.path.exists(ctl["go"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError("no go file within WF_CHILD_S")
+            time.sleep(0.02)
+        with _timed_commits(ctl["commits"]):
+            workflow.run(_wf_dag(ctl), workflow_id=WF_ID,
+                         storage=ctl["root"])
+    finally:
+        rt.shutdown()
+    return 0
+
+
+def _read_lines(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return f.read().split("\n")
+
+
+def _workflow_start(cfg, dev, tmp):
+    """Phase 17 (b)'s child driver, started: (ctl, the process, the
+    wall time it was started at)."""
+    os.makedirs(tmp)
+    ctl = {"root": os.path.join(tmp, "wf_storage"),
+           "effects": os.path.join(tmp, "effects.log"),
+           "hold": os.path.join(tmp, "hold"),
+           "held": os.path.join(tmp, "held.json"),
+           "ready": os.path.join(tmp, "ready.json"),
+           "go": os.path.join(tmp, "go"),
+           "commits": os.path.join(tmp, "commits.jsonl"),
+           "log": os.path.join(tmp, "child.log"),
+           "device": str(dev), "hold_at": WF_HOLD_AT, "cfg": cfg,
+           "batch": TRAIN_BATCH, "seq": TRAIN_LEN}
+    with open(ctl["hold"], "w"):
+        pass
+    ctl_path = os.path.join(tmp, "ctl.pkl")
+    with open(ctl_path, "wb") as f:
+        pickle.dump(ctl, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    started = time.time()
+    with open(ctl["log"], "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); "
+             "import chip_smoke; sys.exit(chip_smoke._workflow_child("
+             "sys.argv[2]))", here, ctl_path],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT)
+    return ctl, child, started
+
+
+def _wait_for_file(path, child, ctl, what):
+    """Poll for ``path`` (bounded by WF_CHILD_S) while the child lives."""
+    deadline = time.monotonic() + WF_CHILD_S
+    while not os.path.exists(path):
+        if child.poll() is not None or time.monotonic() > deadline:
+            with open(ctl["log"]) as f:
+                tail = "".join(f.readlines()[-20:])
+            raise AssertionError(f"phase 17 (b): the child driver did not "
+                                 f"reach {what} (exit {child.poll()}): "
+                                 f"{tail}")
+        time.sleep(0.02)
+
+
+def _workflow_part(cfg, dev, ctl, child, started):
+    """Phase 17 (b): the workflow, its child driver killed with SIGKILL at
+    a held segment and resumed here."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.util import state as rt_state
+    from ray_tpu_torch.workflow.executor import step_ids_for
+
+    fa, L = _flash_module(), cfg.n_layers
+    checks = {}
+    root = ctl["root"]
+    _wait_for_file(ctl["ready"], child, ctl, "its ready file")
+    with open(ctl["ready"]) as f:
+        ready_s = json.load(f)["t"] - started
+    t0 = time.perf_counter()
+    with open(ctl["go"], "w"):
+        pass
+    try:
+        # While the child runs its first segments: the uninterrupted run,
+        # make_train_step called directly on the same batches, then the
+        # evaluation loss.
+        tokens = _wf_table(ctl)
+        direct_losses, _, direct_params = _tune_direct(
+            cfg, dev, tokens, WF_LR, WF_SEGMENTS * WF_SEGMENT_STEPS)
+        i = WF_SEGMENTS * WF_SEGMENT_STEPS
+        batch = torch.tensor(tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                             device=dev)
+        with torch.no_grad():
+            direct_eval = tm.loss_fn(cfg, direct_params, batch[:, :-1],
+                                     batch[:, 1:]).item()
+        _wait_for_file(ctl["held"], child, ctl, "the hold")
+        time.sleep(0.2)   # the held marker is written, then the poll starts
+        to_hold_s = time.perf_counter() - t0
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    os.unlink(ctl["hold"])
+    with open(ctl["held"]) as f:
+        held = json.load(f)
+    checks["b_child_built_nothing"] = not any(held["nvcc_s"].values())
+    checks["b_child_killed"] = child.returncode == -signal.SIGKILL
+    dag = _wf_dag(ctl)
+    ids = [sid for sid, _ in step_ids_for(dag)]
+    store = workflow.WorkflowStorage(root)
+    committed_before = [sid for sid in ids
+                        if store.step_commit_record(WF_ID, sid)]
+    checks["b_interrupted_running"] = (
+        workflow.get_status(WF_ID, storage=root) == workflow.RUNNING)
+    checks["b_committed_before_kill"] = committed_before == ids[:WF_HOLD_AT
+                                                                 + 1]
+    # The resume, here: traced, its commits timed, its launches counted.
+    built = {k: v[0] for k, v in _build.build_info.items()}
+    tracing.install()
+    _zero_counts()
+    plain = fa.plain_routes
+    try:
+        with _timed_commits(ctl["commits"]):
+            t0 = time.perf_counter()
+            result = workflow.resume(WF_ID, storage=root)
+            resume_s = time.perf_counter() - t0
+        spans = [sp for sp in tracing.local_spans()
+                 if sp["name"] == "workflow.step"]
+    finally:
+        tracing.uninstall()
+    counts, plain = _counts(), fa.plain_routes - plain
+    ran_here = ids[WF_HOLD_AT + 1:]
+    n_steps = (WF_SEGMENTS - WF_HOLD_AT) * WF_SEGMENT_STEPS
+    checks["b_no_second_build"] = built == {
+        k: v[0] for k, v in _build.build_info.items()}
+    checks["b_launches_per_step"] = counts == _want_counts(
+        "wgmma", (n_steps + 1) * L, n_steps * L)
+    checks["b_plain_routes_0"] = plain == 0
+    checks["b_span_per_step_here"] = sorted(
+        (sp["tags"]["step"], sp["tags"]["attempt"]) for sp in spans) == [
+        (sid, "1") for sid in sorted(ran_here)]
+    effects = [line.split() for line in _read_lines(ctl["effects"]) if line]
+    want = ["tokens"] + [f"segment{k}" for k in range(WF_SEGMENTS)] + [
+        "eval"]
+    checks["b_each_step_exactly_once"] = sorted(t for t, _ in effects) == \
+        sorted(want)
+    in_child = want[:WF_HOLD_AT + 1]
+    checks["b_steps_split_across_processes"] = (
+        {p for t, p in effects if t in in_child} == {str(held["pid"])}
+        and {p for t, p in effects if t not in in_child}
+        == {str(os.getpid())})
+    # The first segment's output (the child committed it) and the last's.
+    first, last = (store.load_step_output(WF_ID, sid)
+                   for sid in (ids[1], ids[-2]))
+    checks["b_losses_bit_equal_uninterrupted"] = \
+        last["losses"] == direct_losses
+    checks["b_final_params_bit_equal"] = all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            _named_leaves(last["params"]), _named_leaves(direct_params)))
+    checks["b_eval_loss_bit_equal"] = result["loss"] == direct_eval
+    checks["b_committed_tensor_on_its_device"] = (
+        str(first["params"]["embed"].device) == str(dev)
+        and last["in_devices"] == [str(dev)] * (WF_SEGMENTS - 1)
+        and result["in_device"] == str(dev))
+    workflow.init(root)
+    listed = rt_state.list_workflows()
+    checks["b_listed_success"] = [(w.workflow_id, w.status)
+                                  for w in listed] == [(WF_ID, "SUCCESS")]
+    commits = [json.loads(line) for line in _read_lines(ctl["commits"])
+               if line]
+    seg_ids = set(ids[1:-1])
+    seg_losses = last["losses"]
+    del first, last, direct_params
+    torch.cuda.empty_cache()
+    out = {
+        "steps": ids, "committed_before_kill": committed_before,
+        "ran_after_resume": ran_here, "child_start_to_ready_s": ready_s,
+        "child_go_to_hold_s": to_hold_s,
+        "child_nvcc_s": held["nvcc_s"], "resume_s": resume_s,
+        "segment_commit_s": [c["s"] for c in commits
+                             if c["step"] in seg_ids],
+        "segment_commit_bytes": [c["bytes"] for c in commits
+                                 if c["step"] in seg_ids],
+        "commits_by_process": {"child": sum(c["pid"] == held["pid"]
+                                            for c in commits),
+                               "parent": sum(c["pid"] == os.getpid()
+                                             for c in commits)},
+        "eval_loss": result["loss"], "direct_eval_loss": direct_eval,
+        "losses": seg_losses,
+        "launches_per_segment_step": {k: v / n_steps
+                                      for k, v in counts.items() if v},
+        "plain_routes": plain, "spans": len(spans),
+        "workflows_listed": [(w.workflow_id, w.status) for w in listed],
+        "summary": rt_state.summarize_workflows(listed)}
+    return checks, out
+
+
+def phase_tune(dev, card, cfg):
+    """Phase 17 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.workflow import api as workflow_api
+
+    t_phase = time.perf_counter()
+    tokens = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, ((TRAINER_STEPS + TRAINER_MORE) * TRAIN_BATCH,
+                            TRAIN_LEN + 1))
+    checks, out, part_s = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    kept_storage = workflow_api._global_storage
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    child = None
+    try:
+        # (b)'s child driver starts first: its imports, CUDA context and
+        # runtime come up while (a) runs; it waits for (b)'s go file.
+        ctl, child, started = _workflow_start(cfg, dev,
+                                              os.path.join(tmp, "b"))
+        t0 = time.perf_counter()
+        c, out["a"] = _tune_part(cfg, dev, tokens, os.path.join(tmp, "a"))
+        part_s["a"] = time.perf_counter() - t0
+        checks.update(c)
+        t0 = time.perf_counter()
+        c, out["b"] = _workflow_part(cfg, dev, ctl, child, started)
+        part_s["b"] = time.perf_counter() - t0
+        checks.update(c)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        workflow_api._global_storage = kept_storage
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    result = {"phase": "tune", "config": {
+        "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+        "dtype": _dtype_name(cfg.dtype), "batch": [TRAIN_BATCH, TRAIN_LEN],
+        "tune": {"lrs": list(TUNE_LRS), "max_t": TUNE_MAX_T,
+                 "grace_period": TUNE_GRACE, "reduction_factor": TUNE_RF,
+                 "max_concurrent_trials": TUNE_CONCURRENT},
+        "workflow": {"segments": WF_SEGMENTS,
+                     "steps_per_segment": WF_SEGMENT_STEPS,
+                     "killed_at_segment": WF_HOLD_AT}},
+        "checks": checks, **out, "part_s": part_s,
+        "phase_s": time.perf_counter() - t_phase,
+        "temporary_dirs_left": os.path.exists(tmp), "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed or result["temporary_dirs_left"]:
+        raise AssertionError(f"phase 17 (tune) failed {failed}")
+    return result
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -6334,7 +6971,8 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``data`` is phase 16, ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
+    ``tune`` is phase 17, ``data`` phase 16, ``observe`` phase 15; ``rl``
+    is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
     runtime's shutdown inside it leaves them armed), which must have
     sampled while the RL graphs captured."""
@@ -6346,6 +6984,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "data":
         phase_data(dev, card, TransformerConfig())
+        return
+    if name == "tune":
+        phase_tune(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -6372,9 +7013,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
-    ap.add_argument("--only", choices=("data", "observe", "rl"),
-                    help="run one phase alone: 16 (data), 15 (observe) or "
-                         "12 (rl)")
+    ap.add_argument("--only", choices=("tune", "data", "observe", "rl"),
+                    help="run one phase alone: 17 (tune), 16 (data), 15 "
+                         "(observe) or 12 (rl)")
     ap.add_argument("--armed", action="store_true",
                     help="with --only rl: the flight recorder and its "
                          "stack sampler armed through the phase")
@@ -6429,6 +7070,7 @@ def main(argv=None) -> int:
     phase_trainer(dev, card, flagship)
     phase_observe(dev, card, flagship, ENGINE_LENS, 32)
     phase_data(dev, card, flagship)
+    tune = phase_tune(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -6751,6 +7393,19 @@ def main(argv=None) -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"], "card": card})
+    # Phase 17's launches per step: a Tuner trial's and a workflow
+    # segment's (the segments' steps and the evaluation's forward).
+    for row in kernels:
+        kind = {"flash_attention_fwd[mha]": "fwd_wgmma",
+                "flash_attention_bwd_dq": "dq_wgmma",
+                "flash_attention_bwd_dkv": "dkv_wgmma"}.get(row["name"])
+        if kind is not None:
+            row["launches_tune"] = {
+                "per_trial_step": tune["a"]["launches_per_trial_step"].get(
+                    kind.replace("fwd_", ""), 0.0),
+                "per_workflow_segment_step": tune["b"][
+                    "launches_per_segment_step"].get(
+                    kind.replace("fwd_", ""), 0.0)}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -26,7 +26,11 @@ storage URIs, group restarts and ``restore``, fed by a ``Dataset``
 streamed onto the card (``iter_torch_batches``); the observability plane:
 task events, tracing (``util.tracing``), the flight recorder, the
 metrics registry (``util.metrics``) and the state API (``util.state``),
-read through ``timeline`` and ``debug_dump``. Entry points take a
+read through ``timeline`` and ``debug_dump``; ``tune`` (the Tuner and its
+trial controller, search spaces, searchers and schedulers) and
+``workflow`` (durable step DAGs and virtual actors that survive their
+driver's death), each a subpackage imported on its own, as in the
+reference. Entry points take a
 ``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
 thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``

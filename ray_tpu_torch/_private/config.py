@@ -174,6 +174,9 @@ _D("flight_watchdog_period_s", float, 1.0,
 _D("flight_dump_min_interval_s", float, 5.0,
    "Rate limit between watchdog auto dumps: a flapping watchdog must "
    "not fill the disk with incident files.")
+_D("workflow_storage", str, "",
+   "Default workflow storage root ('' = ~/.ray_tpu_torch/workflows; a "
+   "local path or a registered scheme such as memory://).")
 _D("flight_task_stuck_s", float, 300.0,
    "An executing task or actor call past this bound fires the "
    "task-stuck watchdog (diagnostics only, never a kill; one fire per "

@@ -1,6 +1,6 @@
 """Filesystems for storage URIs (counterpart of
-``ray_tpu/data/filesystem.py``, trimmed to what checkpoint storage and
-the Data readers and writers use).
+``ray_tpu/data/filesystem.py``, trimmed to what checkpoint storage, the
+Data readers and writers and the workflow journal use).
 
 A path may carry a URI scheme (``memory://bucket/x``, ``file:///tmp/x``);
 the registry resolves the scheme to a ``Filesystem``. ``file`` (or no
@@ -28,6 +28,11 @@ class Filesystem:
     # cannot alias each other's keys.
     keeps_scheme = False
 
+    # True when put_if_absent is a real atomic create (O_EXCL, the KV's
+    # overwrite=False). Consumers that need one winner (workflow commit
+    # markers) check it, to warn on a best-effort backend.
+    atomic_put_if_absent = False
+
     def open(self, path: str, mode: str = "rb"):
         raise NotImplementedError
 
@@ -35,7 +40,37 @@ class Filesystem:
         """Recursive FILE listing under a directory path."""
         raise NotImplementedError
 
+    def children(self, path: str) -> List[str]:
+        """Immediate child names under a directory (one path segment,
+        files and subdirectories alike), from the recursive listing
+        unless a backend has a shallow scan."""
+        base = path.rstrip("/") + "/"
+        names = set()
+        for key in self.listdir(path.rstrip("/")):
+            rel = key[len(base):] if key.startswith(base) else None
+            if rel:
+                names.add(rel.split("/", 1)[0])
+        return sorted(names)
+
+    def put_if_absent(self, path: str, data: bytes) -> bool:
+        """Create ``path`` holding ``data`` iff it does not exist; True
+        when this call created it. Here exists, write and read back: best
+        effort, not atomic (a backend with an exclusive create
+        overrides it)."""
+        if self.exists(path):
+            return False
+        with self.open(path, "wb") as f:
+            f.write(data)
+        try:
+            with self.open(path, "rb") as f:
+                return f.read() == data
+        except OSError:
+            return False
+
     def makedirs(self, path: str) -> None:
+        raise NotImplementedError
+
+    def exists(self, path: str) -> bool:
         raise NotImplementedError
 
     def isdir(self, path: str) -> bool:
@@ -43,6 +78,8 @@ class Filesystem:
 
 
 class LocalFilesystem(Filesystem):
+    atomic_put_if_absent = True  # O_EXCL
+
     def open(self, path, mode="rb"):
         return open(path, mode)
 
@@ -52,6 +89,20 @@ class LocalFilesystem(Filesystem):
             out.extend(os.path.join(root, f) for f in files)
         return sorted(out)
 
+    def children(self, path):
+        try:
+            return sorted(e.name for e in os.scandir(path))
+        except OSError:
+            return []
+
+    def put_if_absent(self, path, data):
+        try:
+            with open(path, "xb") as f:  # O_EXCL: the kernel's atomic create
+                f.write(data)
+            return True
+        except FileExistsError:
+            return False
+
     def delete(self, path):
         try:
             os.remove(path)
@@ -60,6 +111,9 @@ class LocalFilesystem(Filesystem):
 
     def makedirs(self, path):
         os.makedirs(path, exist_ok=True)
+
+    def exists(self, path):
+        return os.path.exists(path)
 
     def isdir(self, path):
         return os.path.isdir(path)
@@ -84,6 +138,7 @@ class MemoryFilesystem(Filesystem):
     what the driver wrote; a process-local dict otherwise."""
 
     keeps_scheme = True  # keys stay scheme-qualified in the shared store
+    atomic_put_if_absent = True  # the KV's overwrite=False, under its lock
     _KV_PREFIX = b"memfs|"
     _store: Dict[str, bytes] = {}  # no-runtime fallback
     _lock = threading.Lock()
@@ -101,6 +156,20 @@ class MemoryFilesystem(Filesystem):
             return
         with self._lock:
             self._store[key] = data
+
+    def put_if_absent(self, path, data):
+        path = path.rstrip("/")
+        w = self._worker()
+        if w is not None:
+            # overwrite=False is decided under the KV's own lock: an
+            # atomic create.
+            return bool(w.kv_put(self._KV_PREFIX + path.encode(), data,
+                                 overwrite=False))
+        with self._lock:
+            if path in self._store:
+                return False
+            self._store[path] = data
+            return True
 
     def _get(self, key: str):
         w = self._worker()
@@ -132,6 +201,11 @@ class MemoryFilesystem(Filesystem):
 
     def makedirs(self, path):
         pass  # flat namespace
+
+    def exists(self, path):
+        path = path.rstrip("/")
+        return self._get(path) is not None or bool(
+            self._keys(path + "/"))
 
     def isdir(self, path):
         return bool(self._keys(path.rstrip("/") + "/"))

@@ -7,8 +7,9 @@ registries and this process's tracer and flight recorder.
 Every function covers this process only, as the reference's do without a
 head client. Not ported: ``chaos_summary`` (with the chaos plane),
 ``autoscaler_summary`` and ``ownership_summary`` (with the cluster,
-ROADMAP A.5b), ``list_placement_groups`` (with ``util/placement_group``)
-and the workflow listings (with ``workflow/``).
+ROADMAP A.5b) and ``list_placement_groups`` (with
+``util/placement_group``). The workflow listings read the storage root
+of ``workflow.init`` (or the default root).
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ class ActorState:
     name: Optional[str]
     state: str
     num_restarts: int
+
+
+@dataclass
+class WorkflowState:
+    workflow_id: str
+    status: str
+    root: str
+    updated_at: Optional[float]
 
 
 @dataclass
@@ -126,6 +135,36 @@ def list_objects(filters: Optional[List] = None,
         if len(out) >= limit:
             break
     return out
+
+
+def list_workflows(filters: Optional[List] = None,
+                   limit: int = 1000) -> List[WorkflowState]:
+    """Durable workflows under the process-global workflow storage root
+    (set by ``workflow.init`` or the first run or resume)."""
+    from ray_tpu_torch.workflow.api import _ensure_storage
+
+    out: List[WorkflowState] = []
+    for rec in _ensure_storage(None).list_workflows():
+        st = WorkflowState(
+            workflow_id=rec.get("workflow_id", "?"),
+            status=rec.get("status", "?"),
+            root=rec.get("root", ""),
+            updated_at=rec.get("updated_at"))
+        if _matches(st, filters):
+            out.append(st)
+        if len(out) >= limit:
+            break
+    return out
+
+
+def summarize_workflows(
+        workflows: Optional[List[WorkflowState]] = None) -> Dict[str, int]:
+    """Workflows per status; pass a ``list_workflows`` result to skip a
+    second scan of the storage."""
+    counts: Dict[str, int] = {}
+    for wf in (workflows if workflows is not None else list_workflows()):
+        counts[wf.status] = counts.get(wf.status, 0) + 1
+    return counts
 
 
 def list_llm_engines(limit: int = 100) -> List[LLMEngineState]:
