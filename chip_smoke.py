@@ -428,7 +428,10 @@ non-zero without printing a result. Without a CUDA card, or without the
    on the card), the evaluation loss. A child driver (this file imported
    as the module chip_smoke), started while (a) runs, opens its CUDA
    context and runtime and waits for (b)'s go; it runs the workflow
-   until segment 2 parks at its start and is killed with SIGKILL; it
+   until segment 2 parks at its start and is killed with SIGKILL by
+   the chaos plane (a seeded NodeKiller over popen_kill_target, started
+   when the child parks, max_kills=1: chaos.snapshot() counts one kill
+   and util.state.chaos_summary() shows it, with the child's pid); it
    built no kernel (the parent's are on disk). The parent resumes it,
    traced: the workflow was RUNNING with
    three steps committed; every step ran exactly once across the two
@@ -444,10 +447,38 @@ non-zero without printing a result. Without a CUDA card, or without the
    launches per segment step, the child's seconds to ready and from go
    to the hold. Every temporary directory is removed.
 
-``--only tune`` runs phase 17 alone, ``--only data`` phase 16, ``--only
-observe`` phase 15 and
-``--only rl --armed`` phase 12 under the flight recorder and its stack
-sampler (kernels build at first use).
+18. util: util's placement groups, the sanitizer and loadgen, and
+   Serve's batch, on the flagship at full width and depth (bf16). (a)
+   placement_group([{"CPU": 1}], "PACK") is ready; available_resources()
+   shows the reservation and list_placement_groups() shows it CREATED;
+   an actor created with PlacementGroupSchedulingStrategy(pg, 0) runs 4
+   train steps of 4 x 2048 tokens, whose losses equal make_train_step
+   called directly, bit for bit, with the forward, dQ and dK/dV launched
+   4 / 4 / 4 times a step on the tensor cores and no plain route;
+   STRICT_SPREAD over two bundles raises ValueError; removing the group
+   gives the CPU back. (b) A @serve.batch deployment (max 4, 50 ms wait)
+   pads each batch to a fixed [4, 512] and runs forward under no_grad; 16
+   concurrent requests through the handle (prompts of 8-512 tokens) come
+   back in batches of which one holds more than one request; each
+   request's greedy token equals a direct forward of the same fixed
+   shape with the prompt in the same row, and its last-position logits
+   are within UTIL_BATCH_LOGIT_TOL of it; 4 forward launches a batch on
+   the tensor cores. (c) The sanitizer armed before init (the runtime
+   starts its stall watchdog), phase 13's LLMServer through the handle,
+   driven by a seeded loadgen episode Ramp(2, 16, 2 s) >> Spike(32, 1 s)
+   >> Ramp(16, 2, 2 s) over 8 prompts, 16 new tokens each: every request
+   is ok and its tokens equal the engine's own generate of its prompt;
+   the same seed replays the same schedule; no flash kernel launched;
+   sanitizer.violations() is empty; shutdown joined the watchdog and the
+   generator's threads ended. Smoke readings: (a)'s step p50 beside the
+   direct loop's; (b)'s batch sizes and logit error; (c)'s summary (p50 /
+   p99 latency, max_lag_s) and TTFT p50 over 8 sequential requests with
+   the sanitizer armed and unarmed.
+
+``--only util`` runs phase 18 alone, ``--only tune`` phase 17, ``--only
+data`` phase 16, ``--only observe`` phase 15 and ``--only rl --armed``
+phase 12 under the flight recorder and its stack sampler (kernels build
+at first use).
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -768,7 +799,29 @@ TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)
 TUNE_MAX_T, TUNE_GRACE, TUNE_RF, TUNE_CONCURRENT = 8, 2, 2, 2
 WF_SEGMENTS, WF_SEGMENT_STEPS, WF_HOLD_AT, WF_LR = 4, 3, 2, 3e-4
 WF_CHILD_S, WF_HOLD_S = 240.0, 300.0
+WF_KILL_AFTER_S = 0.2
 WF_ID = "smoke17"
+# Phase 18 (util): (a) UTIL_TRAIN_STEPS bf16 flagship steps in an actor
+# placed with a placement group's strategy; (b) UTIL_BATCH_PROMPTS
+# concurrent requests to a @serve.batch deployment that pads each batch
+# to a fixed [UTIL_BATCH_ROWS, UTIL_BATCH_LEN] and runs forward; each
+# request's last-position logits within UTIL_BATCH_LOGIT_TOL of a direct
+# forward of the same fixed shape (bf16: a few units in the last place at
+# the logits' size), its greedy token equal; (c) a seeded loadgen episode
+# of UTIL_LOADGEN_SHAPE (Ramp, Spike, Ramp phases) over the served
+# flagship, UTIL_LOADGEN_PROMPTS distinct prompts of UTIL_LOADGEN_LENS
+# tokens, UTIL_LOADGEN_TOKENS new tokens each, with the sanitizer armed;
+# UTIL_TTFT_REQUESTS sequential requests give the TTFT armed and unarmed.
+UTIL_TRAIN_STEPS = 4
+UTIL_BATCH_ROWS, UTIL_BATCH_LEN, UTIL_BATCH_PROMPTS = 4, 512, 16
+UTIL_BATCH_WAIT_S = 0.05
+UTIL_BATCH_LOGIT_TOL = 0.05
+UTIL_LOADGEN_SHAPE = ((2.0, 16.0, 2.0), (32.0, 1.0), (16.0, 2.0, 2.0))
+UTIL_LOADGEN_SEED = 18
+UTIL_LOADGEN_LENS = (16, 40, 64, 100, 150, 200, 260, 300)
+UTIL_LOADGEN_PROMPTS = len(UTIL_LOADGEN_LENS)
+UTIL_LOADGEN_TOKENS = 16
+UTIL_TTFT_REQUESTS = 8
 
 
 _STARTED = time.perf_counter()
@@ -6766,6 +6819,7 @@ def _workflow_part(cfg, dev, ctl, child, started):
     from ray_tpu_torch import workflow
     from ray_tpu_torch._private import tracing
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.util import chaos
     from ray_tpu_torch.util import state as rt_state
     from ray_tpu_torch.workflow.executor import step_ids_for
 
@@ -6792,10 +6846,17 @@ def _workflow_part(cfg, dev, ctl, child, started):
             direct_eval = tm.loss_fn(cfg, direct_params, batch[:, :-1],
                                      batch[:, 1:]).item()
         _wait_for_file(ctl["held"], child, ctl, "the hold")
-        time.sleep(0.2)   # the held marker is written, then the poll starts
         to_hold_s = time.perf_counter() - t0
-        child.send_signal(signal.SIGKILL)
-        child.wait(timeout=60)
+        # The chaos plane deals the SIGKILL: a seeded NodeKiller, started
+        # when the child parks, kills it once after WF_KILL_AFTER_S (the
+        # held marker is written, then the child's poll starts).
+        killer = chaos.NodeKiller(
+            [chaos.popen_kill_target("workflow_child", child,
+                                     kind="driver")],
+            seed=SEED + 17, interval_s=(WF_KILL_AFTER_S, WF_KILL_AFTER_S),
+            max_kills=1)
+        with killer:
+            child.wait(timeout=60)
     finally:
         if child.poll() is None:
             child.kill()
@@ -6805,6 +6866,15 @@ def _workflow_part(cfg, dev, ctl, child, started):
         held = json.load(f)
     checks["b_child_built_nothing"] = not any(held["nvcc_s"].values())
     checks["b_child_killed"] = child.returncode == -signal.SIGKILL
+    snap = chaos.snapshot()
+    chaos_kills = [(k["name"], k["kind"], k.get("pid"))
+                   for k in rt_state.chaos_summary()["kills"]]
+    checks["b_one_kill_recorded"] = (
+        snap["num_kills"] == 1 and [(k["name"], k.get("pid"))
+                                    for k in killer.kills]
+        == [("workflow_child", child.pid)])
+    checks["b_chaos_summary_shows_kill"] = chaos_kills == [
+        ("workflow_child", "driver", child.pid)]
     dag = _wf_dag(ctl)
     ids = [sid for sid, _ in step_ids_for(dag)]
     store = workflow.WorkflowStorage(root)
@@ -6877,6 +6947,7 @@ def _workflow_part(cfg, dev, ctl, child, started):
         "ran_after_resume": ran_here, "child_start_to_ready_s": ready_s,
         "child_go_to_hold_s": to_hold_s,
         "child_nvcc_s": held["nvcc_s"], "resume_s": resume_s,
+        "chaos_kills": chaos_kills,
         "segment_commit_s": [c["s"] for c in commits
                              if c["step"] in seg_ids],
         "segment_commit_bytes": [c["bytes"] for c in commits
@@ -6950,6 +7021,292 @@ def phase_tune(dev, card, cfg):
     return result
 
 
+# ------------------------------------------------------- phase 18: util
+def _util_placement(cfg, dev):
+    """Phase 18 (a): the flagship's bf16 train step in an actor placed by
+    a placement group's strategy. Returns (checks, readings)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import util
+    from ray_tpu_torch.util import state as rt_state
+
+    fa, L = _flash_module(), cfg.n_layers
+    checks = {}
+    tokens = np.random.default_rng(SEED + 18).integers(
+        0, cfg.vocab_size, (UTIL_TRAIN_STEPS * TRAIN_BATCH, TRAIN_LEN + 1))
+    direct, direct_s, _, _ = _trainer_direct(cfg, dev, tokens,
+                                             UTIL_TRAIN_STEPS)
+    total = rt.cluster_resources()["CPU"]
+    pg = util.placement_group([{"CPU": 1}], strategy="PACK")
+    checks["a_group_ready"] = pg.wait(SERVE_POLL_S)
+    checks["a_reservation_shown"] = \
+        rt.available_resources()["CPU"] == total - 1
+    listed = rt_state.list_placement_groups()
+    checks["a_listed_created"] = [(g["strategy"], g["state"])
+                                  for g in listed] == [("PACK", "CREATED")]
+
+    @rt.remote
+    class PlacedTrainer:
+        def __init__(self):
+            from ray_tpu_torch import models as tm
+
+            self.step_fn = tm.make_train_step(
+                cfg, tm.init_params(cfg, SEED, device=dev))
+
+        def step(self, batch_tokens):
+            batch = torch.tensor(batch_tokens, device=dev)
+            return self.step_fn(batch[:, :-1], batch[:, 1:]).item()
+
+    trainer = PlacedTrainer.options(
+        scheduling_strategy=util.PlacementGroupSchedulingStrategy(
+            pg, 0)).remote()
+    losses, counts, plain, step_s = [], [], [], []
+    for i in range(UTIL_TRAIN_STEPS):
+        _zero_counts()
+        plain0 = fa.plain_routes
+        t0 = time.perf_counter()
+        losses.append(rt.get(trainer.step.remote(
+            tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]),
+            timeout=SERVE_POLL_S * 4))
+        step_s.append(time.perf_counter() - t0)
+        counts.append(_counts())
+        plain.append(fa.plain_routes - plain0)
+    rt.kill(trainer)
+    _check_actor_steps("phase 18 (a)", direct, losses, counts, plain, L)
+    checks["a_losses_bit_equal_direct"] = True
+    checks["a_launches_per_step"] = True
+    try:
+        util.placement_group([{"CPU": 1}, {"CPU": 1}],
+                             strategy="STRICT_SPREAD")
+        checks["a_strict_spread_raises"] = False
+    except ValueError:
+        checks["a_strict_spread_raises"] = True
+    util.remove_placement_group(pg)
+    checks["a_resources_returned"] = \
+        rt.available_resources()["CPU"] == total
+    checks["a_table_empty"] = rt_state.list_placement_groups() == []
+    del trainer
+    torch.cuda.empty_cache()
+    return checks, {
+        "losses": losses, "direct_losses": direct,
+        "step_ms_p50": _p50(step_s) * 1e3,
+        "direct_step_ms_p50": _p50(direct_s) * 1e3,
+        "launches_per_step": counts[-1], "plain_routes": sum(plain)}
+
+
+def _util_batch(cfg, dev):
+    """Phase 18 (b): @serve.batch over the flagship's forward, each batch
+    padded to a fixed [UTIL_BATCH_ROWS, UTIL_BATCH_LEN]. Returns (checks,
+    readings)."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch import serve
+
+    fa = _flash_module()
+    params = tm.init_params(cfg, SEED, device=dev)
+    rng = np.random.default_rng(SEED + 19)
+    lens = rng.integers(8, UTIL_BATCH_LEN + 1, UTIL_BATCH_PROMPTS).tolist()
+    prompts = _prompts(rng, lens, cfg.vocab_size)
+
+    def fixed_forward(rows):
+        """forward over one fixed [UTIL_BATCH_ROWS, UTIL_BATCH_LEN]
+        batch; rows[i] is the prompt in row i (None: zeros). Each
+        prompt's last-position logits on the host."""
+        tokens = torch.zeros(UTIL_BATCH_ROWS, UTIL_BATCH_LEN,
+                             dtype=torch.long, device=dev)
+        for i, p in enumerate(rows):
+            if p is not None:
+                tokens[i, :len(p)] = torch.tensor(p, device=dev)
+        with torch.no_grad():
+            logits = tm.forward(cfg, params, tokens)
+        return [None if p is None else logits[i, len(p) - 1].cpu()
+                for i, p in enumerate(rows)]
+
+    @serve.deployment
+    class BatchedLM:
+        def __init__(self):
+            self.sizes = []
+
+        @serve.batch(max_batch_size=UTIL_BATCH_ROWS,
+                     batch_wait_timeout_s=UTIL_BATCH_WAIT_S)
+        def __call__(self, batch):
+            self.sizes.append(len(batch))
+            rows = fixed_forward(batch)
+            return [{"row": i, "size": len(batch), "logits": r,
+                     "token": int(r.argmax())} for i, r in enumerate(rows)]
+
+        def batch_sizes(self):
+            return list(self.sizes)
+
+    handle = serve.run(BatchedLM.bind(), name="batched_lm")
+    handle.remote(prompts[0]).result(timeout=SERVE_POLL_S * 4)  # warm-up
+    with _counts_kept(fa):
+        _zero_counts()
+        plain0 = fa.plain_routes
+        t0 = time.perf_counter()
+        responses = [handle.remote(p) for p in prompts]
+        served = [r.result(timeout=SERVE_POLL_S * 4) for r in responses]
+        wall = time.perf_counter() - t0
+        counts, plain = _counts(), fa.plain_routes - plain0
+    sizes = handle.batch_sizes.remote().result(timeout=SERVE_POLL_S)[1:]
+    serve.delete("batched_lm")
+    with _counts_kept(fa):
+        direct = [fixed_forward([None] * s["row"] + [p]
+                                + [None] * (UTIL_BATCH_ROWS - 1 - s["row"])
+                                )[s["row"]]
+                  for s, p in zip(served, prompts)]
+    errs = [(s["logits"] - d).abs().max().item()
+            for s, d in zip(served, direct)]
+    checks = {
+        "b_coalesced": max(sizes) > 1,
+        "b_every_request_served": sum(sizes) == len(prompts),
+        "b_tokens_equal_direct": [s["token"] for s in served]
+        == [int(d.argmax()) for d in direct],
+        "b_logits_within_tol": max(errs) <= UTIL_BATCH_LOGIT_TOL,
+        "b_launches_per_batch": counts == _want_counts(
+            "wgmma", cfg.n_layers * len(sizes), 0) and plain == 0}
+    del params
+    torch.cuda.empty_cache()
+    return checks, {
+        "batch_sizes": sizes, "batches": len(sizes),
+        "logit_max_abs_err": max(errs), "wall_s": wall,
+        "launches": counts, "plain_routes": plain,
+        "launches_per_batch": counts["fwd"] / len(sizes)}
+
+
+def _loadgen_shape():
+    from ray_tpu_torch.util import loadgen
+
+    (r0, r1, d0), (peak, d1), (r2, r3, d2) = UTIL_LOADGEN_SHAPE
+    return (loadgen.Ramp(r0, r1, d0) >> loadgen.Spike(peak, d1)
+            >> loadgen.Ramp(r2, r3, d2))
+
+
+def _util_loadgen(cfg, dev):
+    """Phase 18 (c): the served flagship (phase 13's LLMServer through
+    the handle) unarmed, then armed with the sanitizer and driven by a
+    seeded loadgen episode. Returns (checks, readings)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, build_llm_app
+    from ray_tpu_torch.util import loadgen, sanitizer
+
+    fa = _flash_module()
+    prompts = _prompts(np.random.default_rng(SEED + 20), UTIL_LOADGEN_LENS,
+                       cfg.vocab_size)
+    n_new = UTIL_LOADGEN_TOKENS
+    want = [d[0] for d in _engine_streams(cfg, dev, prompts, n_new)]
+    app = build_llm_app(EngineConfig(
+        model=cfg, num_blocks=SERVE_NUM_BLOCKS, block_size=BLOCK_SIZE,
+        device=str(dev)), name="llm_util")
+    ttft = {}
+    checks = {}
+    for armed in (False, True):
+        rt.shutdown()
+        sanitizer.enable(armed)
+        sanitizer.clear()
+        rt.init(num_cpus=4)
+        try:
+            checks[f"c_watchdog_{'armed' if armed else 'off'}"] = (
+                (rt._private.worker.global_worker().sanitizer_watchdog
+                 is not None) == armed)
+            handle = serve.run(app)
+            # The first request pays the replica's first-use costs.
+            list(handle.options(stream=True).remote(
+                {"prompt": prompts[0], "max_new_tokens": 2}))
+            runs = _served_streams(
+                handle, [prompts[i % len(prompts)]
+                         for i in range(UTIL_TTFT_REQUESTS)], n_new)
+            ttft["armed" if armed else "unarmed"] = _p50(
+                [r[1] for r in runs])
+            if not armed:
+                continue
+            outs = {}
+
+            def fire(i, t):
+                p = i % len(prompts)
+                toks = list(handle.options(stream=True).remote(
+                    {"prompt": prompts[p], "max_new_tokens": n_new}))
+                outs[i] = (p, toks)
+                return len(toks)
+
+            shape = _loadgen_shape()
+            with _counts_kept(fa):
+                _zero_counts()
+                plain0 = fa.plain_routes
+                gen = loadgen.LoadGenerator(shape, fire,
+                                            seed=UTIL_LOADGEN_SEED)
+                records = gen.run(timeout_s=SERVE_POLL_S * 4)
+                counts = {n: getattr(fa, n) for n in _COUNTERS}
+                counts["plain_routes"] = fa.plain_routes - plain0
+            summary = gen.summary()
+            ok = [r for r in records if r.outcome == "ok"]
+            checks["c_every_request_ok"] = len(ok) == len(records) > 0
+            checks["c_ok_tokens_equal_engine"] = all(
+                outs[r.index][1] == want[outs[r.index][0]] for r in ok)
+            checks["c_schedule_replays"] = (
+                shape.schedule(UTIL_LOADGEN_SEED) == gen.schedule
+                == loadgen.LoadGenerator(_loadgen_shape(), fire,
+                                         seed=UTIL_LOADGEN_SEED).schedule)
+            checks["c_no_flash_launch"] = not any(counts.values())
+            checks["c_no_violation"] = sanitizer.violations() == []
+            violations = sanitizer.violations()
+        finally:
+            serve.shutdown()
+            rt.shutdown()
+            sanitizer.enable(False)
+    # The runtime's shutdown joined the watchdog; the generator's pool
+    # threads end once their last fire has returned (bounded wait).
+    for t in threading.enumerate():
+        if t.name.startswith(("ray_tpu_sanitizer_watch", "ray_tpu_loadgen")):
+            t.join(SERVE_POLL_S)
+    checks["c_threads_joined"] = not [
+        t for t in threading.enumerate()
+        if t.name.startswith(("ray_tpu_sanitizer_watch", "ray_tpu_loadgen"))]
+    return checks, {
+        "shape": _loadgen_shape().describe(), "seed": UTIL_LOADGEN_SEED,
+        "summary": summary, "violations": violations,
+        "ttft_p50_s": ttft,
+        "flash_counters_on_served_path": counts}
+
+
+def phase_util(dev, card, cfg):
+    """Phase 18 (module docstring)."""
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    checks, out, part_s = {}, {}, {}
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        for part, fn in (("a", _util_placement), ("b", _util_batch)):
+            t0 = time.perf_counter()
+            c, out[part] = fn(cfg, dev)
+            part_s[part] = time.perf_counter() - t0
+            checks.update(c)
+    finally:
+        from ray_tpu_torch import serve
+
+        serve.shutdown()
+        rt.shutdown()
+    t0 = time.perf_counter()
+    c, out["c"] = _util_loadgen(cfg, dev)
+    part_s["c"] = time.perf_counter() - t0
+    checks.update(c)
+    result = {"phase": "util", "config": {
+        "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+        "dtype": _dtype_name(cfg.dtype),
+        "train_batch": [TRAIN_BATCH, TRAIN_LEN],
+        "serve_batch": [UTIL_BATCH_ROWS, UTIL_BATCH_LEN],
+        "loadgen_prompt_lens": list(UTIL_LOADGEN_LENS),
+        "loadgen_new_tokens": UTIL_LOADGEN_TOKENS},
+        "checks": checks, **out, "part_s": part_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 18 (util) failed {failed}")
+    return result
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -6971,8 +7328,8 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``tune`` is phase 17, ``data`` phase 16, ``observe`` phase 15; ``rl``
-    is phase 12, with ``armed`` under the
+    ``util`` is phase 18, ``tune`` phase 17, ``data`` phase 16,
+    ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
     runtime's shutdown inside it leaves them armed), which must have
     sampled while the RL graphs captured."""
@@ -6987,6 +7344,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "tune":
         phase_tune(dev, card, TransformerConfig())
+        return
+    if name == "util":
+        phase_util(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -7013,9 +7373,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
-    ap.add_argument("--only", choices=("tune", "data", "observe", "rl"),
-                    help="run one phase alone: 17 (tune), 16 (data), 15 "
-                         "(observe) or 12 (rl)")
+    ap.add_argument("--only",
+                    choices=("util", "tune", "data", "observe", "rl"),
+                    help="run one phase alone: 18 (util), 17 (tune), 16 "
+                         "(data), 15 (observe) or 12 (rl)")
     ap.add_argument("--armed", action="store_true",
                     help="with --only rl: the flight recorder and its "
                          "stack sampler armed through the phase")
@@ -7071,6 +7432,7 @@ def main(argv=None) -> int:
     phase_observe(dev, card, flagship, ENGINE_LENS, 32)
     phase_data(dev, card, flagship)
     tune = phase_tune(dev, card, flagship)
+    util = phase_util(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -7406,6 +7768,13 @@ def main(argv=None) -> int:
                 "per_workflow_segment_step": tune["b"][
                     "launches_per_segment_step"].get(
                     kind.replace("fwd_", ""), 0.0)}
+            # Phase 18's: a step in an actor placed by a placement
+            # group's strategy, and a @serve.batch batch (forward only).
+            row["launches_util"] = {
+                "per_step_in_placement_group": util["a"][
+                    "launches_per_step"][kind.replace("fwd_", "")],
+                "per_serve_batch": util["b"]["launches"][
+                    kind.replace("fwd_", "")] / util["b"]["batches"]}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -26,7 +26,10 @@ storage URIs, group restarts and ``restore``, fed by a ``Dataset``
 streamed onto the card (``iter_torch_batches``); the observability plane:
 task events, tracing (``util.tracing``), the flight recorder, the
 metrics registry (``util.metrics``) and the state API (``util.state``),
-read through ``timeline`` and ``debug_dump``; ``tune`` (the Tuner and its
+read through ``timeline`` and ``debug_dump``; ``util``'s placement
+groups, scheduling strategies and pub/sub, with its ``sanitizer``
+(host-plane invariant checks), ``loadgen`` (seeded traffic shapes) and
+``chaos`` (seeded fault decisions and process kills); ``tune`` (the Tuner and its
 trial controller, search spaces, searchers and schedulers) and
 ``workflow`` (durable step DAGs and virtual actors that survive their
 driver's death), each a subpackage imported on its own, as in the

@@ -34,7 +34,8 @@ renderer reads host state only, so they can run beside a CUDA graph
 capture. Not ported: the bundle spill of worker processes
 (``spill_once``, the spill loop, ``read_spilled_bundles``), which waits
 for the process plane (ROADMAP A.5a). The bundle's ``chaos`` entry is
-``{}``, as the reference writes it without a chaos plane.
+the chaos plane's ``wire_counters()`` (``{}`` with no injector
+installed).
 """
 
 from __future__ import annotations
@@ -470,7 +471,9 @@ class FlightRecorder:
         from ray_tpu_torch.util.metrics import export_prometheus
 
         bundle["metrics"] = export_prometheus()
-        bundle["chaos"] = {}
+        from ray_tpu_torch._private.chaos import wire_counters
+
+        bundle["chaos"] = wire_counters()
         # Span-ring tail (tracing armed): the last slice of what this
         # process was doing request-wise, bounded.
         from ray_tpu_torch._private import tracing

@@ -164,6 +164,7 @@ class ObjectStore:
             if entry is None:
                 return
             entry.local_refs -= 1
+            self._sanitize_refcounts(object_id, entry)
             self._maybe_evict_locked(object_id, entry)
 
     def add_submitted_ref(self, object_id: ObjectID):
@@ -176,7 +177,18 @@ class ObjectStore:
             if entry is None:
                 return
             entry.submitted_refs -= 1
+            self._sanitize_refcounts(object_id, entry)
             self._maybe_evict_locked(object_id, entry)
+
+    @staticmethod
+    def _sanitize_refcounts(object_id, entry):
+        """Debug-mode underflow check (RAY_TPU_SANITIZE=1): a negative
+        refcount is a double-release race."""
+        from ray_tpu_torch.util import sanitizer  # late: store imports early
+
+        if sanitizer.enabled():
+            sanitizer.check_refcount(
+                object_id, entry.local_refs, entry.submitted_refs)
 
     def _maybe_evict_locked(self, object_id: ObjectID, entry: _Entry):
         if entry.local_refs > 0 or entry.submitted_refs > 0:

@@ -89,6 +89,10 @@ class ResourcePool:
         with self._cv:
             return dict(self._available)
 
+    def fits(self, demand: Dict[str, float]) -> bool:
+        """Whether ``demand`` fits the pool's total (held or not)."""
+        return all(self._total.get(k, 0.0) >= v for k, v in demand.items())
+
     def try_acquire(self, demand: Dict[str, float]) -> bool:
         with self._cv:
             if all(self._available.get(k, 0.0) >= v - 1e-9

@@ -390,10 +390,21 @@ class Worker:
         self.scheduler = LocalScheduler(self.store, self.resource_pool,
                                         pool_size,
                                         task_events=self.task_events)
+        # Debug-mode host-plane sanitizer (RAY_TPU_SANITIZE=1): refcount
+        # underflow and channel protocol checks hook in at their sites;
+        # the stall watchdog needs the runtime handles.
+        self.sanitizer_watchdog = None
+        from ray_tpu_torch.util import sanitizer as _sanitizer
+
+        if _sanitizer.enabled():
+            self.sanitizer_watchdog = _sanitizer.StallWatchdog(
+                self.scheduler, self.resource_pool)
         self.submission_counter = _Counter()
         self.put_counter = _Counter()
         self.actor_counter = _Counter()
         self.actors: Dict[Any, Any] = {}  # ActorID -> _ActorRuntime
+        # Placement groups of util/placement_group.py, by id.
+        self.placement_groups: Dict[str, Any] = {}
         self.named_actors: Dict[tuple, Any] = {}  # (namespace, name) -> handle
         self.namespace = "default"
         # Internal KV (the reference's GCS-KV, here local to the process):
@@ -491,6 +502,9 @@ class Worker:
         """Stop every actor loop and the scheduler, fail every waiter,
         and join the threads (each join bounded)."""
         self.is_alive = False
+        if self.sanitizer_watchdog is not None:
+            self.sanitizer_watchdog.stop()
+            self.sanitizer_watchdog = None
         actors = list(self.actors.values())
         for actor in actors:
             try:
@@ -577,14 +591,16 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
 
 def shutdown():
     """Tear the runtime down: Serve (controller loops, replicas, the HTTP
-    proxy) first, then actors, the scheduler and the store; then the
+    and gRPC proxies) first, then actors, the scheduler and the store; then the
     tracer and the flight recorder (its threads joined). Every drive ends
     with it."""
     global _global_worker
     from ray_tpu_torch.serve import controller as _controller
+    from ray_tpu_torch.serve import grpc as _grpc
     from ray_tpu_torch.serve import http as _http
 
     _http.stop_proxy()
+    _grpc.stop_grpc_proxy()
     _controller.shutdown_controller()
     # Compiled DAGs' exec loops occupy their actors' loop threads until
     # teardown: end them first, so the actors' joins below can finish.

@@ -15,6 +15,7 @@ from typing import Any, List, Optional
 
 from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch.exceptions import ChannelError, ChannelTimeoutError
+from ray_tpu_torch.util import sanitizer as _sanitizer
 
 
 class Channel:
@@ -81,6 +82,14 @@ class IntraProcessChannel(Channel):
                 self._cv.wait(remaining)
             if self._closed and self._read_version[reader_id] >= self._version:
                 raise ChannelError("channel is closed")
+            if _sanitizer.enabled():
+                # Version-succession invariant: readers must see each
+                # version exactly once, in order (v+1, v+2, …). Keyed by
+                # a stable token — id() reuse after GC would alias.
+                if not hasattr(self, "_san_id"):
+                    self._san_id = _sanitizer.new_channel_id()
+                _sanitizer.channel_checker.observe(
+                    self._san_id, reader_id, self._version)
             self._read_version[reader_id] = self._version
             value = self._value
             self._reads_left -= 1

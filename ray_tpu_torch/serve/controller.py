@@ -14,9 +14,11 @@ armed a wake from zero replicas is one ``serve.wake`` span whose context
 waits in the cold-start stash while the wake starts replicas, each of
 which constructs under it. Not ported: the KV-stream fallback
 (``handle_stream``), as no handle leaves the process. ``shutdown`` stops
-both loops, stops every replica's user object (its ``shutdown()``,
-where the deployment's class has one: an LLM replica's
-engine loop) and kills the replicas.
+both loops, stops every replica's user object (an ingress class's ASGI
+loop thread, then its ``shutdown()``, where the deployment's class has
+one: an LLM replica's engine loop) and kills the replicas.
+``is_ingress`` tells the HTTP proxy which deployments are ASGI ingress
+classes (``serve.ingress``).
 """
 
 from __future__ import annotations
@@ -157,15 +159,18 @@ class ServeController:
                 self._stop_replica(info, r)
 
     def _stop_replica(self, info: DeploymentInfo, replica) -> None:
-        """Stop the replica's user object (its ``shutdown()``, where the
-        class has one), then kill the replica's actor."""
-        if callable(getattr(info.cls, "shutdown", None)) and \
-                not replica._runtime.dead:
+        """Stop the replica's user object (an ingress class's ASGI loop,
+        then its ``shutdown()``, where the class has them), then kill the
+        replica's actor."""
+        for hook in ("__serve_asgi_stop__", "shutdown"):
+            if not callable(getattr(info.cls, hook, None)) or \
+                    replica._runtime.dead:
+                continue
             try:
                 ray_tpu_torch.get(replica.handle_request.remote(
-                    "shutdown", (), {}), timeout=_STOP_TIMEOUT_S)
+                    hook, (), {}), timeout=_STOP_TIMEOUT_S)
             except Exception as exc:  # noqa: BLE001 — kill regardless
-                log.warning("replica shutdown() of %r failed: %r",
+                log.warning("replica %s() of %r failed: %r", hook,
                             info.name, exc)
         ray_tpu_torch.kill(replica)
 
@@ -458,6 +463,12 @@ class ServeController:
             info = self._deployments.get(name)
         return bool(getattr(getattr(info, "cls", None),
                             "_consumes_llm_requests", False))
+
+    def is_ingress(self, name: str) -> bool:
+        with self._lock:
+            info = self._deployments.get(name)
+        return bool(info is not None
+                    and getattr(info.cls, "__serve_ingress__", None))
 
     def deployment_info(self, name: str) -> DeploymentInfo:
         with self._lock:

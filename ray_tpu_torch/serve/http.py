@@ -8,8 +8,10 @@ per generator item, as the replica yields; a request refused by priority
 admission answers 503 with ``Retry-After``. The priority class comes
 from the ``X-Request-Priority`` header or ``?priority=``. With tracing
 armed every request is one ``http.request`` span, the root of its trace,
-under which the handle's ``serve.request`` opens. Not ported: the ASGI
-ingress path. ``stop_proxy`` shuts the server down and joins its thread.
+under which the handle's ``serve.request`` opens. A deployment whose
+class is an ASGI ingress (``serve.ingress``) takes every method on
+``/<deployment>/<subpath>``, its app seeing ``path=/<subpath>``.
+``stop_proxy`` shuts the server down and joins its thread.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ class _Handler(BaseHTTPRequestHandler):
         from urllib.parse import parse_qs, urlparse
 
         parsed = urlparse(self.path)
-        name = parsed.path.strip("/").split("/")[0]
+        segments = parsed.path.strip("/").split("/")
+        name = segments[0]
         if not name:
             self.send_response(404)
             self.end_headers()
@@ -55,6 +58,9 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0) or 0)
         body = self.rfile.read(length) if length else b""
         controller = get_or_create_controller()
+        if controller.is_ingress(name):
+            self._route_asgi(controller, name, parsed, segments, body)
+            return
         qs = parse_qs(parsed.query)
         stream = qs.get("stream", ["0"])[0] in ("1", "true")
         try:
@@ -123,8 +129,46 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(payload)
 
+    def _route_asgi(self, controller, name, parsed, segments, body):
+        """ASGI ingress: ``/<deployment>/<subpath>`` drives the bound app
+        with ``path=/<subpath>`` inside the replica. ASGI-3's scope path is
+        percent-decoded; a trailing slash is routing-significant and
+        survives."""
+        from urllib.parse import unquote
+
+        sub_path = "/" + "/".join(unquote(s) for s in segments[1:])
+        if parsed.path.endswith("/") and sub_path != "/":
+            sub_path += "/"
+        request = {
+            "method": self.command,
+            "path": sub_path,
+            "query_string": (parsed.query or "").encode(),
+            "headers": list(self.headers.items()),
+            "body": body,
+        }
+        try:
+            handle = DeploymentHandle(name, controller)
+            out = handle.options("__serve_asgi__").remote(
+                request).result(timeout=_RESULT_TIMEOUT_S)
+            payload = out.get("body", b"")
+            self.send_response(int(out.get("status", 200)))
+            for k, v in out.get("headers", []):
+                if k.lower() not in ("content-length", "transfer-encoding"):
+                    self.send_header(k, v)
+        except Exception as exc:  # noqa: BLE001 — request error boundary
+            payload = json.dumps({"error": repr(exc)}).encode()
+            self.send_response(500)
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
+
     do_GET = _route
     do_POST = _route
+    do_PUT = _route
+    do_DELETE = _route
+    do_PATCH = _route
+    do_HEAD = _route
+    do_OPTIONS = _route
 
 
 class HTTPProxy:

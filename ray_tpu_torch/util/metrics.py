@@ -285,9 +285,14 @@ def refresh_framework_metrics(worker) -> None:
 
     t = tracing.tracer()
     m["trace_spans"].set(float(t.spans_recorded if t is not None else 0))
+    from ray_tpu_torch.util import sanitizer
+
     rec = flight.recorder()
-    m["watchdog_fires"].set(
-        float(rec.watchdog_fires if rec is not None else 0))
+    # Exactly one counter takes each stall fire (the recorder's when it
+    # is armed, the sanitizer's otherwise): the gauge sums the two.
+    m["watchdog_fires"].set(float(
+        (rec.watchdog_fires if rec is not None else 0)
+        + sanitizer.watchdog_fires))
     m["flight_events"].set(
         float(rec.events_recorded if rec is not None else 0))
 

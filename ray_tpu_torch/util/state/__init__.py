@@ -5,11 +5,9 @@ the debug bundle archive, backed by the worker's task-event buffer, its
 registries and this process's tracer and flight recorder.
 
 Every function covers this process only, as the reference's do without a
-head client. Not ported: ``chaos_summary`` (with the chaos plane),
-``autoscaler_summary`` and ``ownership_summary`` (with the cluster,
-ROADMAP A.5b) and ``list_placement_groups`` (with
-``util/placement_group``). The workflow listings read the storage root
-of ``workflow.init`` (or the default root).
+head client. Not ported: ``autoscaler_summary`` and ``ownership_summary``
+(with the cluster, ROADMAP A.5b). The workflow listings read the storage
+root of ``workflow.init`` (or the default root).
 """
 
 from __future__ import annotations
@@ -199,6 +197,56 @@ def summarize_llm_engines(
         "prefix_cache_hit_rate": (
             saved / (saved + computed) if (saved + computed) else 0.0),
     }
+
+
+def chaos_summary() -> Dict[str, Any]:
+    """Chaos and load-shedding panel: the active fault config and
+    per-site fault counters, every kill recorded by NodeKillers in this
+    process, and shed/admission stats from both shedding tiers — Serve
+    deployments (priority admission in the router) and LLM engines
+    (waitqueue eviction). Always safe to call; all-zero/empty when chaos
+    never ran and nothing shed."""
+    import sys
+
+    from ray_tpu_torch._private import chaos as _chaos
+
+    out: Dict[str, Any] = _chaos.snapshot()
+
+    # Serve-tier shedding: per-deployment admission stats off the live
+    # controller singleton (never constructs one just to report zeros).
+    serve_shedding: Dict[str, Any] = {}
+    ctl_mod = sys.modules.get("ray_tpu_torch.serve.controller")
+    ctl = getattr(ctl_mod, "_controller", None)
+    if ctl is not None:
+        with ctl._lock:
+            infos = list(ctl._deployments.values())
+        for info in infos:
+            serve_shedding[info.name] = info.replica_set.admission_stats()
+    out["serve_shedding"] = serve_shedding
+    out["serve_shed_total"] = sum(
+        s.get("shed_total", 0) for s in serve_shedding.values())
+
+    # LLM-tier shedding: waitqueue evictions per engine, read only when
+    # the llm layer is already loaded.
+    llm_shedding: Dict[int, Any] = {}
+    engine_mod = sys.modules.get("ray_tpu_torch.llm.engine")
+    for eng in (engine_mod.live_engines() if engine_mod else ()):
+        st = eng.stats()
+        llm_shedding[st["engine_id"]] = {
+            "shed_requests": st.get("shed_requests", 0),
+            "shed_by_class": st.get("shed_by_class", {}),
+            "submitted_by_class": st.get("submitted_by_class", {}),
+        }
+    out["llm_shedding"] = llm_shedding
+    out["llm_shed_total"] = sum(
+        s.get("shed_requests", 0) for s in llm_shedding.values())
+    return out
+
+
+def list_placement_groups(limit: int = 1000) -> List[Dict[str, Any]]:
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    return list(placement_group_table().values())[:limit]
 
 
 def summarize_tasks() -> Dict[str, int]:

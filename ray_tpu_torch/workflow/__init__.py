@@ -11,10 +11,12 @@ exclusive create) and runs only the rest; ``resume_all()`` sweeps every
 interrupted workflow. Durable virtual actors snapshot named stateful
 objects through the same storage.
 
-Steps and their values are pickled with the standard library's
-``pickle``: a step resumed from another process must be defined at
-module level (a step defined inside a function works for a rerun or
-resume in the process that ran it; ``workflow/storage.py``).
+Steps and their values are pickled with ``cloudpickle`` where it
+imports, else with the standard library's ``pickle``, as in the
+reference. Without ``cloudpickle`` a step resumed from another process
+must be defined at module level (a step defined inside a function works
+for a rerun or resume in the process that ran it;
+``workflow/storage.py``).
 
     from ray_tpu_torch import workflow
 

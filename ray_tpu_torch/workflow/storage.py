@@ -23,13 +23,15 @@ The workflow's status is also journaled in the runtime's KV under
 ``wfj|<id>`` while a runtime is up, so ``list_workflows`` finds it
 without a scan.
 
-Everything is pickled with the standard library's ``pickle`` (the
-card's machine has no ``cloudpickle``), so a step's function pickles by
-reference. Where pickle refuses the DAG (a step defined inside a
-function), ``save_dag`` keeps it in a table of this process, keyed by
-root and id, and the status record names the step: a rerun or resume
-in this process works; a resume in another process raises
-``ValueError`` naming the step to define at module level.
+Everything is pickled as the reference pickles it: with ``cloudpickle``
+where it imports, else with the standard library's ``pickle``. With
+``cloudpickle`` a step defined inside a function is stored by value, and
+another process can resume its workflow. With ``pickle`` a step's
+function pickles by reference; where pickle refuses the DAG (a step
+defined inside a function), ``save_dag`` keeps it in a table of this
+process, keyed by root and id, and the status record names the step: a
+rerun or resume in this process works; a resume in another process
+raises ``ValueError`` naming the step to define at module level.
 """
 
 from __future__ import annotations
@@ -57,7 +59,19 @@ _HELD_DAGS: Dict[Tuple[str, str], Tuple[Any, Optional[str]]] = {}
 _held_lock = threading.Lock()
 
 
+def _cloudpickle():
+    """The ``cloudpickle`` module, or None where it does not import."""
+    try:
+        import cloudpickle
+    except ImportError:
+        return None
+    return cloudpickle
+
+
 def _dumps(value: Any) -> bytes:
+    cp = _cloudpickle()
+    if cp is not None:
+        return cp.dumps(value)
     return pickle.dumps(value, protocol=5)
 
 
@@ -139,12 +153,16 @@ class WorkflowStorage:
 
     # ------------------------------------------------------- workflow meta
     def save_dag(self, workflow_id: str, dag: Any) -> None:
-        """``dag.pkl`` when pickle takes the DAG; else the DAG is held in
-        this process (module docstring)."""
+        """``dag.pkl``. With the standard library's pickle, a DAG that
+        pickle refuses is held in this process instead (module
+        docstring); ``cloudpickle``'s refusals raise, as the
+        reference's do."""
         key = (self.root, workflow_id)
         try:
             data = _dumps(dag)
         except Exception:  # noqa: BLE001 — pickle's refusals vary in type
+            if _cloudpickle() is not None:
+                raise
             with _held_lock:
                 _HELD_DAGS[key] = (dag, _unpicklable_step(dag))
             if hasattr(self._fs, "delete") and self._exists(

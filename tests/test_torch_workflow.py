@@ -6,12 +6,14 @@ scenarios run each side's driver in a child process; the file names under
 the storage root, and the state API's workflow listings, are compared.
 
 Both runtimes run in one process (the reference on
-``ray_tpu.init(worker_mode="thread")``). The port pickles with the
-standard library only: steps defined inside a test function are held by
-the process that ran them, which is enough for every same-process case;
-the child-process scenarios take their steps from this module, which both
-processes import (``port_link``). ``test_local_steps_resume_only_in_
-their_process`` pins that rule. Every wait is bounded.
+``ray_tpu.init(worker_mode="thread")``). Both sides pickle with
+``cloudpickle`` where it imports (it does here) and with the standard
+library's pickle otherwise; the crash scenarios take their steps from
+this module, which both processes import (``port_link``).
+``test_local_steps_resume_elsewhere_with_cloudpickle`` resumes a step
+defined inside a function from another process on both sides;
+``test_local_steps_resume_only_in_their_process`` pins the stdlib rule
+with ``cloudpickle`` made unimportable. Every wait is bounded.
 """
 
 import os
@@ -449,55 +451,97 @@ def test_module_level_steps_pickle_by_name(runtimes, tmp_path):
         "dag_held_in_process")
 
 
-def test_local_steps_resume_only_in_their_process(runtimes, tmp_path):
-    """The stdlib-pickle rule: a workflow whose step is defined inside a
-    function keeps its DAG in this process; a resume from another process
-    raises ValueError naming that step, a resume here completes it."""
-    root = str(tmp_path / "held")
-    gate = tmp_path / "gate"
+def _held_workflow(s, root, gate):
+    """A workflow whose steps are defined inside a function, run once
+    with its gate closed: it fails at ``gated`` after ``first``
+    committed."""
 
-    @tworkflow.step
+    @s.wf.step
     def first():
         return 4
 
-    @tworkflow.step
+    @s.wf.step
     def gated(x):
         if not gate.exists():
             raise RuntimeError("gate closed")
         return x + 1
 
     with pytest.raises(RuntimeError, match="gate closed"):
-        tworkflow.run(gated.bind(first.bind()), workflow_id="held",
-                      storage=root)
+        s.wf.run(gated.bind(first.bind()), workflow_id="held",
+                 storage=root)
+
+
+def _resume_elsewhere(side, root, hide_cloudpickle=False):
+    """Resume workflow ``held`` under ``root`` in a child process of
+    ``side``'s runtime; its stdout names the result or the error."""
+    hide = ('import sys; sys.modules["cloudpickle"] = None\n'
+            if hide_cloudpickle else "")
+    child = subprocess.run(
+        [sys.executable, "-c", hide + _RESUME_ELSEWHERE[side], root],
+        capture_output=True, text=True, timeout=T, cwd=REPO,
+        env=_child_env())
+    assert child.returncode == 0, child.stderr
+    return child.stdout.strip()
+
+
+def test_local_steps_resume_elsewhere_with_cloudpickle(runtimes, tmp_path):
+    """With ``cloudpickle`` (as on this box) both sides store a step
+    defined inside a function by value: another process resumes the
+    workflow, and the two sides' results and statuses are equal."""
+    pytest.importorskip("cloudpickle")
+    out = {}
+    for name, s in SIDES.items():
+        root = str(tmp_path / name / "wf")
+        gate = tmp_path / name / "gate"
+        _held_workflow(s, root, gate)
+        assert os.path.exists(os.path.join(root, "held", "dag.pkl"))
+        gate.write_text("open")
+        out[name] = (_resume_elsewhere(name, root),
+                     s.wf.get_status("held", storage=root),
+                     s.wf.get_output("held", storage=root))
+    assert out["port"] == out["ref"] == ("resumed 5", "SUCCESS", 5)
+    rec = tworkflow.WorkflowStorage(
+        str(tmp_path / "port" / "wf")).get_status("held")
+    assert "dag_held_in_process" not in rec
+
+
+def test_local_steps_resume_only_in_their_process(runtimes, tmp_path,
+                                                  monkeypatch):
+    """The rule without ``cloudpickle`` (made unimportable here, in this
+    process and in the child): a workflow
+    whose step is defined inside a function keeps its DAG in this
+    process; a resume from another process raises ValueError naming
+    that step, a resume here completes it."""
+    monkeypatch.setitem(sys.modules, "cloudpickle", None)
+    root = str(tmp_path / "held")
+    gate = tmp_path / "gate"
+    _held_workflow(PORT, root, gate)
     rec = tworkflow.WorkflowStorage(root).get_status("held")
     assert rec["status"] == "FAILED"
     assert rec["dag_held_in_process"] == "first"
     assert not os.path.exists(os.path.join(root, "held", "dag.pkl"))
-    child = subprocess.run(
-        [sys.executable, "-c", _RESUME_ELSEWHERE, root],
-        capture_output=True, text=True, timeout=T, cwd=REPO,
-        env=_child_env())
-    assert child.returncode == 0, child.stderr
-    assert "ValueError" in child.stdout and "'first'" in child.stdout
-    assert "module level" in child.stdout
+    said = _resume_elsewhere("port", root, hide_cloudpickle=True)
+    assert "ValueError" in said and "'first'" in said
+    assert "module level" in said
     gate.write_text("open")
     assert tworkflow.resume("held", storage=root) == 5
     assert tworkflow.get_status("held", storage=root) == "SUCCESS"
 
 
-_RESUME_ELSEWHERE = r"""
+_RESUME_ELSEWHERE = {side: r"""
 import sys
-import ray_tpu_torch
-from ray_tpu_torch import workflow
-ray_tpu_torch.init(num_cpus=1)
+import {rt}
+from {rt} import workflow
+{rt}.init(num_cpus=1{mode})
 try:
-    workflow.resume("held", storage=sys.argv[1])
-    print("resumed")
+    print("resumed", workflow.resume("held", storage=sys.argv[1]))
 except Exception as exc:
     print(type(exc).__name__, exc)
 finally:
-    ray_tpu_torch.shutdown()
-"""
+    {rt}.shutdown()
+""".format(rt=rt, mode=mode) for side, rt, mode in (
+    ("ref", "ray_tpu", ', worker_mode="thread"'),
+    ("port", "ray_tpu_torch", ""))}
 
 
 # ---------------------------------------------------------- crash-resume
