@@ -475,7 +475,36 @@ non-zero without printing a result. Without a CUDA card, or without the
    p99 latency, max_lag_s) and TTFT p50 over 8 sequential requests with
    the sanitizer armed and unarmed.
 
-``--only util`` runs phase 18 alone, ``--only tune`` phase 17, ``--only
+19. process: the process plane (init(worker_mode="process",
+   num_cpus=4)) beside the card, at the flagship's full width and depth
+   (bf16). /dev/shm's free bytes are printed (and must hold the shm
+   store). (a) A task, and one asking num_gpus=1, run in another pid
+   with CUDA_VISIBLE_DEVICES="" and torch.cuda.is_available() False; the
+   driver's resources still show the card. (b) A Dataset's map_batches
+   stage builds token batches in worker processes (the stage's pids are
+   the pool's, not the driver's) and feeds PROC_TRAIN_STEPS bf16 train
+   steps on the card in the driver through iter_torch_batches onto
+   cuda:0; the losses equal the same pipeline and steps on the thread
+   plane bit for bit, with the forward, dQ and dK/dV launched 4 / 4 / 4
+   times a step on the tensor cores and no plain route. (c) A CUDA
+   tensor as an argument, and a driver put of one passed by ref, arrive
+   in the worker as CPU tensors with equal values (the driver's own get
+   keeps the card); a 64 MiB return rides the shm store back equal. (d)
+   A worker SIGKILLed in the middle of one of (b)'s map tasks: with
+   retries the losses still equal the thread plane's; a SIGKILLed
+   process-backed actor answers ActorDiedError while the driver's step
+   and the card go on; an actor created with runtime="driver" builds the
+   flagship on cuda:0 and takes the same step. (e) A worker's print
+   reaches the session's log files and the driver's stderr through the
+   log monitor. After shutdown every worker process has exited and the
+   segment is unlinked. Smoke readings: worker boot (spawn to first
+   reply) p50, a trivial task's round trip p50 on each plane, shm put and
+   get of 64 MiB in GB/s, and (b)'s step p10 / p50 / p90 over the
+   PROC_TRAIN_STEPS - 1 steps after the first, beside the thread-fed
+   step's.
+
+``--only process`` runs phase 19 alone, ``--only util`` phase 18,
+``--only tune`` phase 17, ``--only
 data`` phase 16, ``--only observe`` phase 15 and ``--only rl --armed``
 phase 12 under the flight recorder and its stack sampler (kernels build
 at first use).
@@ -822,6 +851,17 @@ UTIL_LOADGEN_LENS = (16, 40, 64, 100, 150, 200, 260, 300)
 UTIL_LOADGEN_PROMPTS = len(UTIL_LOADGEN_LENS)
 UTIL_LOADGEN_TOKENS = 16
 UTIL_TTFT_REQUESTS = 8
+# Phase 19 (process): PROC_TRAIN_STEPS flagship steps fed by a Dataset
+# whose map_batches stage runs in worker processes (one TRAIN_BATCH-row
+# batch per map task; the first attempt of batch PROC_KILL_BATCH is
+# SIGKILLed in (d)); the step times after the first (23) resolve the
+# process-fed step against the thread-fed one. PROC_BOOTS worker boots,
+# PROC_ROUND_TRIPS trivial tasks per plane, PROC_SHM_ITERS puts and gets
+# of PROC_SHM_BYTES; every wait bounded by PROC_POLL_S.
+PROC_TRAIN_STEPS, PROC_KILL_BATCH = 24, 1
+PROC_BOOTS, PROC_ROUND_TRIPS = 5, 50
+PROC_SHM_BYTES, PROC_SHM_ITERS = 64 << 20, 5
+PROC_POLL_S = 60.0
 
 
 _STARTED = time.perf_counter()
@@ -7307,6 +7347,443 @@ def phase_util(dev, card, cfg):
     return result
 
 
+# -------------------------------------------------------- phase 19: process
+def _proc_token_rows(batch, vocab, length, kill_row, kill_dir=None):
+    """Phase 19 (b)'s map_batches stage, in a worker process: each row id
+    becomes ``length`` seeded tokens, with the worker's pid beside them.
+    With ``kill_dir`` the first attempt of the batch that starts at row
+    ``kill_row`` writes its pid there and waits to be SIGKILLed."""
+    ids = np.asarray(batch["id"])
+    if kill_dir is not None and int(ids[0]) == kill_row:
+        flag = os.path.join(kill_dir, "victim")
+        if not os.path.exists(flag):
+            with open(flag + ".tmp", "w") as fh:
+                fh.write(str(os.getpid()))
+            os.replace(flag + ".tmp", flag)
+            time.sleep(PROC_POLL_S)
+    tokens = np.stack([np.random.default_rng(SEED + 19_000 + int(i)).integers(
+        0, vocab, length) for i in ids]).astype(np.int64)
+    return {"tokens": tokens,
+            "pid": np.full(len(ids), os.getpid(), dtype=np.int64)}
+
+
+def _proc_probe():
+    """What a task sees of the card: its pid, CUDA_VISIBLE_DEVICES and
+    torch.cuda.is_available()."""
+    import torch as _torch
+
+    return (os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES"),
+            _torch.cuda.is_available())
+
+
+def _proc_describe(t):
+    return t.device.type, str(t.dtype), tuple(t.shape), t
+
+
+def _proc_big(n):
+    import torch as _torch
+
+    return _torch.arange(n, dtype=_torch.float32)
+
+
+def _proc_nop():
+    return None
+
+
+def _proc_say(tag):
+    print(tag, flush=True)
+    return os.getpid()
+
+
+class _ProcVictim:
+    def pid(self):
+        return os.getpid()
+
+    def ping(self):
+        return 1
+
+
+class _ProcCardActor:
+    """Phase 19 (d)'s actor with runtime="driver": it builds the flagship
+    on the card and takes one train step."""
+
+    def __init__(self, cfg, dev):
+        from ray_tpu_torch import models as tm
+
+        self.params = tm.init_params(cfg, SEED, device=dev)
+        self.step = tm.make_train_step(cfg, self.params)
+
+    def train(self, tokens):
+        t = torch.as_tensor(tokens, device=self.params["embed"].device)
+        loss = self.step(t[:, :-1], t[:, 1:]).item()
+        return str(self.params["embed"].device), loss
+
+
+def _proc_pipeline(data, cfg, dev, kill_dir=None):
+    """Phase 19 (b): PROC_TRAIN_STEPS flagship bf16 steps in the driver,
+    each on a batch that the Dataset's map_batches stage built (in worker
+    processes on the process plane), through iter_torch_batches onto the
+    card. Returns the losses, step seconds, the stage's pids, the K1/K3/K4
+    launches and plain routes of the run, and (with ``kill_dir``) the pid
+    SIGKILLed mid-map."""
+    from ray_tpu_torch import models as tm
+
+    fa = _flash_module()
+    killed = []
+    watcher = None
+    if kill_dir is not None:
+        def _watch():
+            flag = os.path.join(kill_dir, "victim")
+            deadline = time.monotonic() + PROC_POLL_S
+            while not os.path.exists(flag) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            if os.path.exists(flag):
+                with open(flag) as fh:
+                    pid = int(fh.read())
+                os.kill(pid, signal.SIGKILL)
+                killed.append(pid)
+
+        watcher = threading.Thread(target=_watch, daemon=True)
+        watcher.start()
+    ds = data.range(PROC_TRAIN_STEPS * TRAIN_BATCH,
+                    parallelism=PROC_TRAIN_STEPS).map_batches(
+        _proc_token_rows, batch_size=TRAIN_BATCH,
+        fn_kwargs={"vocab": cfg.vocab_size, "length": TRAIN_LEN + 1,
+                   "kill_row": PROC_KILL_BATCH * TRAIN_BATCH,
+                   "kill_dir": kill_dir})
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, step_s, pids = [], [], set()
+    _zero_counts()
+    plain = fa.plain_routes
+    for batch in ds.iter_torch_batches(batch_size=TRAIN_BATCH, device=dev):
+        tokens = batch["tokens"]
+        pids.update(int(p) for p in batch["pid"].tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(tokens[:, :-1], tokens[:, 1:]).item())
+        step_s.append(time.perf_counter() - t0)
+    counts, plain_t = _counts(), fa.plain_routes - plain
+    if watcher is not None:
+        watcher.join(PROC_POLL_S)
+    del params, step
+    torch.cuda.empty_cache()
+    return losses, step_s, pids, counts, plain_t, killed
+
+
+def _proc_round_trips(rt):
+    """Seconds of PROC_ROUND_TRIPS trivial tasks, one get at a time,
+    after one warm-up."""
+    fn = rt.remote(_proc_nop)
+    rt.get(fn.remote(), timeout=PROC_POLL_S)
+    out = []
+    for _ in range(PROC_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        rt.get(fn.remote(), timeout=PROC_POLL_S)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _proc_boots(w):
+    """Worker boot, from spawn to its first reply (a ping), PROC_BOOTS
+    times."""
+    from ray_tpu_torch._private.config import GlobalConfig
+    from ray_tpu_torch._private.worker_pool import WorkerProcess
+
+    out = []
+    for _ in range(PROC_BOOTS):
+        t0 = time.perf_counter()
+        wp = WorkerProcess(w.shm_store,
+                           max_msg=GlobalConfig.worker_channel_bytes)
+        try:
+            wp.request(("ping",), timeout=PROC_POLL_S)
+            out.append(time.perf_counter() - t0)
+        finally:
+            wp.shutdown()
+    return out
+
+
+def _proc_shm_rates(store):
+    """GB/s of a 64 MiB put into the shm store and of its get back out,
+    PROC_SHM_ITERS times each; the bytes come back equal."""
+    data = np.random.default_rng(SEED + 19).bytes(PROC_SHM_BYTES)
+    puts, gets, equal = [], [], True
+    for i in range(PROC_SHM_ITERS):
+        key = 0x0B19_0000 + i
+        t0 = time.perf_counter()
+        store.put(key, data)
+        t1 = time.perf_counter()
+        back = store.get(key)
+        t2 = time.perf_counter()
+        equal = equal and back == data
+        store.delete(key)
+        puts.append(PROC_SHM_BYTES / (t1 - t0) / 1e9)
+        gets.append(PROC_SHM_BYTES / (t2 - t1) / 1e9)
+    return _p50(puts), _p50(gets), equal
+
+
+def _proc_crossing(rt, dev):
+    """Phase 19 (c): a CUDA tensor as an argument and a driver put of one
+    passed by ref arrive in the worker as CPU tensors with equal values;
+    the driver's own get keeps the card; a 64 MiB return rides the shm
+    store back."""
+    checks = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x = torch.randn(1024, 1024, device=dev, generator=gen)
+    describe, big = rt.remote(_proc_describe), rt.remote(_proc_big)
+    kind, dtype, shape, back = rt.get(describe.remote(x),
+                                      timeout=PROC_POLL_S)
+    checks["c_cuda_arg_arrives_on_cpu"] = (
+        kind == "cpu" and dtype == "torch.float32" and shape == (1024, 1024)
+        and back.device.type == "cpu" and torch.equal(back, x.cpu()))
+    ref = rt.put(x)
+    kind, _, _, back = rt.get(describe.remote(ref), timeout=PROC_POLL_S)
+    checks["c_put_ref_arrives_on_cpu"] = (kind == "cpu"
+                                          and torch.equal(back, x.cpu()))
+    mine = rt.get(ref, timeout=PROC_POLL_S)
+    checks["c_driver_get_keeps_the_card"] = (
+        mine.device == x.device and torch.equal(mine, x))
+    n = PROC_SHM_BYTES // 4
+    t0 = time.perf_counter()
+    got = rt.get(big.remote(n), timeout=PROC_POLL_S)
+    big_s = time.perf_counter() - t0
+    checks["c_64MiB_return_equal"] = (
+        got.device.type == "cpu" and got.numel() == n
+        and torch.equal(got, torch.arange(n, dtype=torch.float32)))
+    return checks, {"return_64MiB_s": big_s}
+
+
+def _proc_isolation(rt, cfg, dev, w):
+    """Phase 19 (d)'s actors: a SIGKILLed process actor answers
+    ActorDiedError while the driver's step and the card go on; an actor
+    with runtime="driver" builds the flagship on the card."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    checks = {}
+    victim = rt.remote(_ProcVictim).remote()
+    vpid = rt.get(victim.pid.remote(), timeout=PROC_POLL_S)
+    os.kill(vpid, signal.SIGKILL)
+    try:
+        rt.get(victim.ping.remote(), timeout=PROC_POLL_S)
+        died = "no error"
+    except ActorDiedError as exc:
+        died = type(exc).__name__
+    checks["d_killed_actor_died"] = (died == "ActorDiedError"
+                                     and vpid != os.getpid())
+    tokens = np.random.default_rng(SEED + 19).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1))
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    t = torch.as_tensor(tokens, device=dev)
+    loss = step(t[:, :-1], t[:, 1:]).item()
+    checks["d_driver_step_after_kill"] = bool(np.isfinite(loss))
+    del params, step
+    card = rt.remote(runtime="driver")(_ProcCardActor).remote(cfg, dev)
+    where, aloss = rt.get(card.train.remote(tokens), timeout=PROC_POLL_S)
+    checks["d_driver_actor_on_card"] = (
+        where == str(torch.device(dev.type, 0) if dev.type == "cuda"
+                     else dev) and aloss == loss)
+    rt.kill(card)
+    torch.cuda.empty_cache()
+    return checks, {"killed_actor_pid": vpid, "driver_actor_device": where}
+
+
+class _Tee:
+    """The log monitor's sink in phase 19 (e): the driver's stderr, and a
+    copy the phase reads."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        sys.stderr.write(s)
+        self.parts.append(s)
+
+    def flush(self):
+        sys.stderr.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _proc_logs(rt, w):
+    checks = {}
+    tee = _Tee()
+    w.log_monitor._sink = tee
+    tag = f"chip_smoke-phase19-{os.getpid()}"
+    wpid = rt.get(rt.remote(_proc_say).remote(tag), timeout=PROC_POLL_S)
+    log_dir = os.path.join(w.session_dir, "logs")
+
+    def _in_files():
+        for name in os.listdir(log_dir):
+            with open(os.path.join(log_dir, name), errors="replace") as fh:
+                if tag in fh.read():
+                    return name
+        return None
+
+    deadline = time.monotonic() + PROC_POLL_S
+    while (tag not in tee.text() or _in_files() is None) and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    checks["e_print_in_session_log"] = _in_files() is not None
+    checks["e_print_on_driver_stderr"] = (
+        f"pid={wpid}) {tag}" in tee.text())
+    return checks, {"log_file": _in_files(), "session_dir": w.session_dir}
+
+
+def phase_process(dev, card, cfg):
+    """Phase 19 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch._private.config import GlobalConfig
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    checks, out, part_s = {}, {}, {}
+    shm_free = shutil.disk_usage("/dev/shm").free
+    need = GlobalConfig.shm_store_bytes
+    out["dev_shm_free_bytes"] = shm_free
+    print(f"chip_smoke: /dev/shm has {shm_free} bytes free; the process "
+          f"plane's store maps {need}", flush=True)
+    if shm_free < need:
+        raise AssertionError(
+            f"phase 19 (process): /dev/shm has {shm_free} bytes free, "
+            f"under the {need} the shm store maps")
+    # The thread plane: the oracle's losses and step times, and its
+    # trivial round trip.
+    rt.shutdown()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        t_losses, t_step_s, t_pids, _, _, _ = _proc_pipeline(data, cfg, dev)
+        t_trips = _proc_round_trips(rt)
+    finally:
+        rt.shutdown()
+    part_s["thread"] = time.perf_counter() - t0
+    checks["thread_stage_in_driver"] = t_pids == {os.getpid()}
+    kill_dir = tempfile.mkdtemp(prefix="chip_smoke_proc_")
+    rt.init(num_cpus=4, worker_mode="process")
+    w = rt._private.worker.global_worker()
+    children, segment = set(), w.shm_store.name
+    try:
+        # (a) Workers see no card; the driver's resources keep it.
+        t0 = time.perf_counter()
+        probe = rt.remote(_proc_probe)
+        gpus = rt.cluster_resources().get("GPU", 0.0)
+        a = [rt.get(probe.remote(), timeout=PROC_POLL_S)]
+        if gpus:   # a task that asks for the card runs without it too
+            a.append(rt.get(probe.options(num_gpus=1).remote(),
+                            timeout=PROC_POLL_S))
+        checks["a_tasks_see_no_card"] = all(
+            pid != os.getpid() and cvd == "" and not avail
+            for pid, cvd, avail in a)
+        checks["a_driver_keeps_the_card"] = (
+            gpus == float(torch.cuda.device_count()) and (
+                dev.type != "cuda" or gpus >= 1.0))
+        out["a"] = {"probes": a, "driver_gpus": gpus}
+        boots = _proc_boots(w)
+        p_trips = _proc_round_trips(rt)
+        part_s["a"] = time.perf_counter() - t0
+        # (b) The flagship's train step fed from worker processes.
+        t0 = time.perf_counter()
+        losses, step_s, pids, counts, plain_t, _ = _proc_pipeline(
+            data, cfg, dev)
+        children.update(w.worker_pool.pids())
+        want = _want_counts("wgmma", PROC_TRAIN_STEPS * L,
+                            PROC_TRAIN_STEPS * L)
+        checks["b_stage_in_worker_processes"] = bool(pids) and (
+            os.getpid() not in pids and pids <= set(w.worker_pool.pids()))
+        checks["b_losses_bit_equal_thread_plane"] = (
+            len(losses) == PROC_TRAIN_STEPS and losses == t_losses)
+        checks["b_launches_per_step"] = counts == want
+        checks["b_plain_routes_0"] = plain_t == 0
+        out["b"] = {"losses": losses, "thread_losses": t_losses,
+                    "stage_pids": sorted(pids),
+                    "launches_per_step": {k: v / PROC_TRAIN_STEPS
+                                          for k, v in counts.items() if v},
+                    "plain_routes": plain_t}
+        part_s["b"] = time.perf_counter() - t0
+        # (c) Crossing the boundary.
+        t0 = time.perf_counter()
+        c, out["c"] = _proc_crossing(rt, dev)
+        checks.update(c)
+        shm_put, shm_get, shm_equal = _proc_shm_rates(w.shm_store)
+        checks["c_shm_bytes_equal"] = shm_equal
+        part_s["c"] = time.perf_counter() - t0
+        # (d) Isolation beside the card.
+        t0 = time.perf_counter()
+        k_losses, _, k_pids, _, _, killed = _proc_pipeline(
+            data, cfg, dev, kill_dir=kill_dir)
+        children.update(w.worker_pool.pids())
+        checks["d_map_worker_killed"] = len(killed) == 1 and (
+            killed[0] not in k_pids)
+        checks["d_losses_after_kill_bit_equal"] = k_losses == t_losses
+        c, out["d"] = _proc_isolation(rt, cfg, dev, w)
+        checks.update(c)
+        out["d"]["killed_map_pid"] = killed
+        part_s["d"] = time.perf_counter() - t0
+        # (e) Logs.
+        t0 = time.perf_counter()
+        c, out["e"] = _proc_logs(rt, w)
+        checks.update(c)
+        part_s["e"] = time.perf_counter() - t0
+        children.update(w.worker_pool.pids())
+        children.update(a.pid for a in w.actors.values() if a.pid)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(kill_dir, ignore_errors=True)
+    deadline = time.monotonic() + 10.0
+    while any(_alive(p) for p in children) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    checks["workers_gone_after_shutdown"] = not any(
+        _alive(p) for p in children)
+    checks["segment_unlinked"] = not os.path.exists("/dev/shm" + segment)
+    result = {
+        "phase": "process", "config": {
+            "d_model": cfg.d_model, "n_layers": L,
+            "dtype": _dtype_name(cfg.dtype),
+            "train_batch": [TRAIN_BATCH, TRAIN_LEN],
+            "steps": PROC_TRAIN_STEPS, "num_cpus": 4},
+        "checks": checks, **out,
+        "readings": {
+            "worker_boot_s_p50": _p50(boots),
+            "worker_boot_s": boots,
+            "task_round_trip_ms_p50": _p50(p_trips) * 1e3,
+            "thread_task_round_trip_ms_p50": _p50(t_trips) * 1e3,
+            "shm_put_64MiB_GBps": shm_put, "shm_get_64MiB_GBps": shm_get,
+            "timed_steps": len(step_s) - 1,
+            "step_ms_p50": _p50(step_s[1:]) * 1e3,
+            "thread_fed_step_ms_p50": _p50(t_step_s[1:]) * 1e3,
+            "step_ms_p10_p50_p90": _deciles_ms(step_s[1:]),
+            "thread_fed_step_ms_p10_p50_p90": _deciles_ms(t_step_s[1:]),
+            "step_ms": [x * 1e3 for x in step_s],
+            "thread_fed_step_ms": [x * 1e3 for x in t_step_s]},
+        "part_s": part_s, "phase_s": time.perf_counter() - t_phase,
+        "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 19 (process) failed {failed}")
+    return result
+
+
+def _deciles_ms(xs):
+    """p10, p50 and p90 of ``xs`` seconds, in ms (nearest rank)."""
+    xs = sorted(xs)
+    return [xs[min(int(q * len(xs)), len(xs) - 1)] * 1e3
+            for q in (0.1, 0.5, 0.9)] if xs else None
+
+
+def _alive(pid: int) -> bool:
+    """The process runs (not gone, not a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except (OSError, IndexError):
+        return False
+
+
 def _fwd_brief(t):
     """A forward timing of phase 2, as a sub-row of the kernels line."""
     return {k: t[k] for k in ("kernel_ms", "simt_kernel_ms", "plain_ms",
@@ -7328,7 +7805,8 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``util`` is phase 18, ``tune`` phase 17, ``data`` phase 16,
+    ``process`` is phase 19, ``util`` phase 18, ``tune`` phase 17,
+    ``data`` phase 16,
     ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
     runtime's shutdown inside it leaves them armed), which must have
@@ -7347,6 +7825,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "util":
         phase_util(dev, card, TransformerConfig())
+        return
+    if name == "process":
+        phase_process(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -7374,9 +7855,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
     ap.add_argument("--only",
-                    choices=("util", "tune", "data", "observe", "rl"),
-                    help="run one phase alone: 18 (util), 17 (tune), 16 "
-                         "(data), 15 (observe) or 12 (rl)")
+                    choices=("process", "util", "tune", "data", "observe",
+                             "rl"),
+                    help="run one phase alone: 19 (process), 18 (util), 17 "
+                         "(tune), 16 (data), 15 (observe) or 12 (rl)")
     ap.add_argument("--armed", action="store_true",
                     help="with --only rl: the flight recorder and its "
                          "stack sampler armed through the phase")
@@ -7433,6 +7915,7 @@ def main(argv=None) -> int:
     phase_data(dev, card, flagship)
     tune = phase_tune(dev, card, flagship)
     util = phase_util(dev, card, flagship)
+    phase_process(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}

@@ -13,7 +13,10 @@ RMSNorm kernel, plain PyTorch paged attention); the one-process runtime
 calling process: ``init``, ``remote``, ``get``, ``put``, ``wait``, ``cancel``,
 ``kill``, ``shutdown``, ``available_resources``, ``cluster_resources``)
 and ``serve`` on top of it, disaggregated prefill/decode serving among
-``llm``'s apps; DAGs (``dag``): interpreted on the runtime, compiled to
+``llm``'s apps; the process plane (``init(worker_mode="process")``:
+tasks and actors in worker processes over a native shared-memory store,
+which never reach the card; the default ``worker_mode`` stays
+``"thread"``); DAGs (``dag``): interpreted on the runtime, compiled to
 actor loops over channels (``channels``), or compiled to the wave
 executor, on one device or sharded over a mesh; the one-controller mesh
 and its collectives, ``parallel`` and ``collective`` (with the actor
@@ -33,7 +36,8 @@ groups, scheduling strategies and pub/sub, with its ``sanitizer``
 trial controller, search spaces, searchers and schedulers) and
 ``workflow`` (durable step DAGs and virtual actors that survive their
 driver's death), each a subpackage imported on its own, as in the
-reference. Entry points take a
+reference. ``llm``, ``rl`` and ``serve`` load at first use. Entry
+points take a
 ``device`` that defaults to
 ``"cuda"``; tests pass ``device="cpu"``. Importing the package starts no
 thread: ``init`` (or the first ``.remote()``) does, and ``shutdown``
@@ -54,9 +58,22 @@ from ray_tpu_torch._private.worker import (
 from ray_tpu_torch.actor import ActorClass, ActorHandle, get_actor, kill
 from ray_tpu_torch.remote_function import RemoteFunction, method, remote
 from ray_tpu_torch.runtime_context import get_runtime_context
-from ray_tpu_torch import exceptions, llm, rl, serve
+from ray_tpu_torch import exceptions
 
 __version__ = "0.1.0"
+
+# Loaded at first use (PEP 562): a worker process of the process plane
+# imports this package to run a task and must not pay for torch and the
+# model code unless the task uses them.
+_LAZY_SUBMODULES = ("llm", "rl", "serve")
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f"ray_tpu_torch.{name}")
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
 
 
 def available_resources():

@@ -16,8 +16,9 @@ Two layers:
   a seeded schedule thread that SIGKILLs a random target (a subprocess,
   or whatever pid a callable resolves) at jittered intervals during a
   live workload, recording every kill. ``stop()`` joins the thread
-  (bounded). Not ported: ``worker_kill_target`` (worker processes, ROADMAP
-  A.5a) and ``head_kill_target`` (the head, A.5b).
+  (bounded). ``worker_kill_target`` SIGKILLs a worker process of the
+  process plane's pool. Not ported: ``head_kill_target`` (the head,
+  A.5b).
 
 Activation: the ``RAY_TPU_CHAOS`` env var (a JSON object) through
 :func:`install_from_env`, or :func:`install` / :func:`uninstall` from a
@@ -48,6 +49,7 @@ __all__ = [
     "active",
     "wire_counters",
     "snapshot",
+    "worker_kill_target",
 ]
 
 ENV_VAR = "RAY_TPU_CHAOS"
@@ -216,6 +218,30 @@ class KillTarget:
     kind: str                      # "worker" | "daemon" | "head" | ...
     kill: Callable[[], Any]
     once: bool = False
+
+
+def worker_kill_target(worker=None, name: str = "worker",
+                       seed: int = 0) -> KillTarget:
+    """Target that SIGKILLs a random live worker process of the runtime's
+    pool (the process plane). The victim pid draws from the target's OWN
+    seeded RNG, so a NodeKiller schedule replays for a given (seed, pid
+    pool)."""
+    rng = random.Random(seed)
+
+    def _kill():
+        from ray_tpu_torch._private.worker import global_worker
+
+        w = worker if worker is not None else global_worker()
+        pool = getattr(w, "worker_pool", None)
+        pids = sorted(p for p in (pool.pids() if pool is not None else [])
+                      if p and p != os.getpid())
+        if not pids:
+            raise RuntimeError("no live worker pids to kill")
+        pid = rng.choice(pids)
+        os.kill(pid, signal.SIGKILL)
+        return {"pid": pid}
+
+    return KillTarget(name=name, kind="worker", kill=_kill)
 
 
 def popen_kill_target(name: str, proc, kind: str = "daemon",

@@ -4,8 +4,10 @@ runtime reads).
 
 Every knob is declared once with a type and default, overridable by a
 ``RAY_TPU_<NAME>`` environment variable or a ``_system_config`` dict
-passed to ``init()``. The port has one execution plane (threads in the
-calling process), so the reference's ``worker_mode`` is not a flag here.
+passed to ``init()``. ``worker_mode`` picks the execution plane; its
+default, ``"thread"``, is the one flag whose default differs from the
+reference's (``"process"``): the port's card paths run CUDA work inside
+tasks and actors, and a worker process never reaches the card.
 """
 
 from __future__ import annotations
@@ -181,3 +183,23 @@ _D("flight_task_stuck_s", float, 300.0,
    "An executing task or actor call past this bound fires the "
    "task-stuck watchdog (diagnostics only, never a kill; one fire per "
    "task).")
+_D("worker_mode", str, "thread",
+   "Task execution plane: 'thread' (executor threads in the driver, the "
+   "port's default: tasks and actors reach the card) or 'process' "
+   "(worker processes over the native shm store, the reference's "
+   "default; a worker never reaches the card). RAY_TPU_WORKER_MODE.")
+_D("shm_store_bytes", int, 256 * 1024 * 1024,
+   "Shared-memory segment size of the process plane's native object "
+   "store.")
+_D("shm_store_slots", int, 4096,
+   "Max concurrent objects in the native shared-memory store.")
+_D("worker_channel_bytes", int, 1024 * 1024,
+   "Request/reply channel buffer size per worker process (its channels "
+   "live in the shm store; larger blobs are staged as shm objects).")
+_D("memory_monitor_threshold", float, 0.95,
+   "System memory-used fraction above which the monitor kills the "
+   "youngest running process task (OutOfMemoryError, retriable). "
+   "0 disables the monitor.")
+_D("object_store_memory_bytes", int, 512 * 1024 * 1024,
+   "Host bytes the driver's object store holds before it spills sealed "
+   "host payloads to disk (device tensors neither spill nor count).")

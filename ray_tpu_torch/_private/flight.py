@@ -32,8 +32,8 @@ None of the recorder's threads makes a CUDA call: the sampler and the
 watchdog walk Python frames and read host counters, and a section
 renderer reads host state only, so they can run beside a CUDA graph
 capture. Not ported: the bundle spill of worker processes
-(``spill_once``, the spill loop, ``read_spilled_bundles``), which waits
-for the process plane (ROADMAP A.5a). The bundle's ``chaos`` entry is
+(``spill_once``, the spill loop, ``read_spilled_bundles``), one of the
+process plane's users (ROADMAP A.5a). The bundle's ``chaos`` entry is
 the chaos plane's ``wire_counters()`` (``{}`` with no injector
 installed).
 """

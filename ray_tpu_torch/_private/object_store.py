@@ -1,21 +1,27 @@
-"""In-process object store with reference counts and eviction
-(counterpart of ``ray_tpu/_private/object_store.py``, trimmed).
+"""In-process object store with reference counts, eviction and
+spilling (counterpart of ``ray_tpu/_private/object_store.py``).
 
 Objects are stored as ``SerializedObject`` payloads (or errors); futures
 resolve through a condition variable; an entry is evicted when its last
-local reference and its last pin by a submitted task are gone. The
-reference's spilling to disk and the process plane's evict callbacks
-are not ported: everything lives in this process's memory (device tensors
-on their device). ``close`` (at ``shutdown``) fails every waiter, so no
-thread stays blocked in ``get`` past the runtime's end.
+local reference and its last pin by a submitted task are gone, and each
+eviction calls the registered evict callbacks (the process plane drops
+the object's copy in the shm store there). When the host bytes held pass
+``object_store_memory_bytes``, sealed host payloads spill to disk,
+largest and oldest first, and ``get`` restores them transparently. Only
+host payloads spill: an entry that holds device tensors (or a value held
+by reference) is no spill candidate, and its device bytes do not count
+against the host cap. ``close`` (at ``shutdown``) fails every waiter, so
+no thread stays blocked in ``get`` past the runtime's end.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.serialization import SerializedObject
 from ray_tpu_torch.exceptions import (
@@ -27,7 +33,8 @@ from ray_tpu_torch.exceptions import (
 
 
 class _Entry:
-    __slots__ = ("serialized", "error", "ready", "size", "local_refs",
+    __slots__ = ("serialized", "error", "ready", "size", "host_size",
+                 "spilled_path", "create_time", "local_refs",
                  "submitted_refs", "callbacks", "dropped")
 
     def __init__(self):
@@ -35,6 +42,9 @@ class _Entry:
         self.error: Optional[BaseException] = None
         self.ready = False
         self.size = 0
+        self.host_size = 0          # the part of size in host memory
+        self.spilled_path: Optional[str] = None
+        self.create_time = time.monotonic()
         self.local_refs = 0
         self.submitted_refs = 0
         self.callbacks: List[Callable[[], None]] = []
@@ -46,11 +56,15 @@ class _Entry:
 class ObjectStore:
     """Owner-local object table: futures, payloads, refcounts."""
 
-    def __init__(self):
+    def __init__(self, spill_dir: Optional[str] = None):
         self._entries: Dict[ObjectID, _Entry] = {}
         self._cv = threading.Condition()
-        self._memory_used = 0
+        self._memory_used = 0       # host bytes of resident payloads
         self._closed = False
+        self._spill_dir = spill_dir
+        self._spilled_bytes = 0
+        self._restored_bytes = 0
+        self._evict_callbacks: List[Callable[[ObjectID], None]] = []
 
     # ------------------------------------------------------------------ puts
     def put(self, object_id: ObjectID, serialized: SerializedObject):
@@ -60,10 +74,12 @@ class ObjectStore:
                 return  # idempotent (e.g. retry produced the same object)
             entry.serialized = serialized
             entry.size = serialized.total_bytes()
+            entry.host_size = serialized.host_bytes()
             entry.ready = True
-            self._memory_used += entry.size
+            self._memory_used += entry.host_size
             callbacks, entry.callbacks = entry.callbacks, []
             self._cv.notify_all()
+            self._maybe_spill_locked()
         for cb in callbacks:
             cb()
         self._evict_if_dropped(object_id)
@@ -106,7 +122,7 @@ class ObjectStore:
                     raise err.as_instanceof_cause()
                 raise err
             if entry.serialized is None:
-                raise ObjectLostError(object_id)
+                return self._restore_locked(object_id, entry)
             return entry.serialized
 
     def peek_error(self, object_id: ObjectID) -> Optional[BaseException]:
@@ -149,6 +165,10 @@ class ObjectStore:
                 entry.callbacks.append(callback)
                 return
         callback()
+
+    def contains(self, object_id: ObjectID) -> bool:
+        with self._cv:
+            return object_id in self._entries
 
     def cancel(self, object_id: ObjectID, task_id=None):
         self.put_error(object_id, TaskCancelledError(task_id))
@@ -197,8 +217,29 @@ class ObjectStore:
             entry.dropped = True
             return
         if entry.serialized is not None:
-            self._memory_used -= entry.size
+            self._memory_used -= entry.host_size
+        self._unlink_spilled(entry)
         del self._entries[object_id]
+        for cb in self._evict_callbacks:
+            try:
+                cb(object_id)
+            except Exception:  # noqa: BLE001 — eviction must not fail
+                pass
+
+    def set_evict_callback(self, callback: Callable[[ObjectID], None]):
+        """Register a callback invoked with each ObjectID as its entry is
+        evicted, under the store's lock (it must be cheap and take no lock
+        that nests around the store's); the process plane releases the
+        object's shm copy there."""
+        with self._cv:
+            self._evict_callbacks.append(callback)
+
+    def remove_evict_callback(self, callback):
+        with self._cv:
+            try:
+                self._evict_callbacks.remove(callback)
+            except ValueError:
+                pass
 
     def _evict_if_dropped(self, object_id: ObjectID):
         with self._cv:
@@ -225,8 +266,9 @@ class ObjectStore:
                 if entry is None or not entry.ready:
                     continue
                 if entry.serialized is not None:
-                    self._memory_used -= entry.size
+                    self._memory_used -= entry.host_size
                     entry.serialized = None
+                self._unlink_spilled(entry)
                 if entry.local_refs <= 0 and entry.submitted_refs <= 0:
                     del self._entries[oid]
                 else:
@@ -239,14 +281,59 @@ class ObjectStore:
             self._closed = True
             self._cv.notify_all()
 
+    # -------------------------------------------------------------- spilling
+    def _maybe_spill_locked(self):
+        cap = GlobalConfig.object_store_memory_bytes
+        if self._memory_used <= cap or self._spill_dir is None:
+            return
+        # Largest and oldest sealed host payloads first, until under the
+        # cap; device tensors and held values stay where they are.
+        candidates = sorted(
+            ((oid, e) for oid, e in self._entries.items()
+             if e.ready and e.serialized is not None
+             and e.serialized.on_host() and e.host_size > 4096),
+            key=lambda kv: (-kv[1].host_size, kv[1].create_time))
+        os.makedirs(self._spill_dir, exist_ok=True)
+        for oid, entry in candidates:
+            if self._memory_used <= cap:
+                break
+            path = os.path.join(self._spill_dir, oid.hex())
+            with open(path, "wb") as f:
+                f.write(entry.serialized.to_bytes())
+            entry.spilled_path = path
+            self._memory_used -= entry.host_size
+            self._spilled_bytes += entry.host_size
+            entry.serialized = None
+
+    def _restore_locked(self, object_id: ObjectID, entry: _Entry
+                        ) -> SerializedObject:
+        if entry.spilled_path is None:
+            raise ObjectLostError(object_id)
+        with open(entry.spilled_path, "rb") as f:
+            serialized = SerializedObject.from_bytes(f.read())
+        self._unlink_spilled(entry)
+        entry.serialized = serialized
+        self._memory_used += entry.host_size
+        self._restored_bytes += entry.host_size
+        return serialized
+
+    @staticmethod
+    def _unlink_spilled(entry: _Entry):
+        if entry.spilled_path:
+            try:
+                os.unlink(entry.spilled_path)
+            except OSError:
+                pass
+            entry.spilled_path = None
+
     # ----------------------------------------------------------------- stats
     def entries_snapshot(self):
         """(object_id, ready, size, local_refs, submitted_refs, spilled)
-        rows for the state API (nothing spills here: always False)."""
+        rows for the state API."""
         with self._cv:
             return [
                 (oid, e.ready, e.size, e.local_refs, e.submitted_refs,
-                 False)
+                 e.spilled_path is not None)
                 for oid, e in self._entries.items()
             ]
 
@@ -255,4 +342,6 @@ class ObjectStore:
             return {
                 "num_objects": len(self._entries),
                 "memory_used_bytes": self._memory_used,
+                "spilled_bytes": self._spilled_bytes,
+                "restored_bytes": self._restored_bytes,
             }

@@ -1,17 +1,17 @@
-"""Serialization context: stdlib pickle protocol 5 with out-of-band
-buffers, and device tensors kept on their device (counterpart of
+"""Serialization context: pickle protocol 5 with out-of-band buffers, and
+device tensors kept on their device (counterpart of
 ``ray_tpu/_private/serialization.py``).
 
-The reference pickles with ``cloudpickle``, which the card's machine
-does not have. In one process functions and classes never cross a
-process boundary (tasks carry the callable itself), so stdlib ``pickle``
-covers what the store holds: values, isolated from the caller by a copy
-as the reference isolates them. Large host buffers (numpy arrays) ride
-pickle 5's out-of-band buffers, as in the reference.
+In the driver's store (the thread plane, and ``put``/``get`` made in the
+driver) values pickle with stdlib ``pickle``: tasks carry the callable
+itself, so no function crosses a process boundary there, and a value is
+isolated from the caller by a copy as the reference isolates it. Large
+host buffers (numpy arrays) ride pickle 5's out-of-band buffers, as in
+the reference.
 
 A tensor on a device other than the CPU (a CUDA tensor) never goes
-through host bytes. The pickler's ``persistent_id`` takes it out of the
-stream: ``serialize`` keeps a copy made on its device
+through host bytes in the driver. The pickler's ``persistent_id`` takes
+it out of the stream: ``serialize`` keeps a copy made on its device
 (``tensor.detach().clone()``, on that device's current stream) in the
 ``SerializedObject`` beside the pickle, and ``deserialize`` hands each
 reader a fresh device copy of that (``clone()`` again), with the
@@ -22,18 +22,66 @@ later in-place updates nor a reader's reach the stored copy.
 
 A value that stdlib pickle refuses (a lambda, a local class, an object
 holding a lock or a thread, such as a Serve handle) is held as it is, by
-reference: no process boundary asks for a copy.
+reference, while it stays in the driver.
+
+**Across a process boundary** (the process plane: arguments and results
+of worker processes, and the API calls a worker makes back to the
+driver) a value goes through host bytes, the *wire* form (``wire_dumps``
+/ ``wire_loads``, and ``SerializedObject.to_bytes`` / ``from_bytes``):
+``cloudpickle``, as the reference pickles, so functions and classes
+cross by value; every strided tensor, CUDA or CPU, pickles as a CPU
+tensor whose storage is one pickle-5 out-of-band buffer, with its dtype,
+shape, ``requires_grad`` and ``nn.Parameter`` type. A worker process
+never reaches the card, so a CUDA tensor bound for it arrives as a CPU
+tensor with the same values, and a worker's result reaches the driver on
+the CPU (the caller moves it to the card).
+
+``torch`` is imported here only when ``sys.modules`` already holds it: a
+value can hold a tensor only if torch is loaded, and a worker process
+that runs no torch code boots without it.
 """
 
 from __future__ import annotations
 
 import io
 import pickle
+import sys
 from typing import Any, List, Tuple
 
-import torch
-
 _UNPICKLABLE = (pickle.PicklingError, TypeError, AttributeError)
+
+
+def _torch():
+    """The torch module if this process has imported it, else None."""
+    return sys.modules.get("torch")
+
+
+def cloudpickle_module():
+    """The ``cloudpickle`` module, or None where it does not import."""
+    try:
+        import cloudpickle
+    except ImportError:
+        return None
+    return cloudpickle
+
+
+def require_cloudpickle():
+    """``cloudpickle``, which the process plane needs to ship functions
+    and classes; an ImportError that names it where it is missing."""
+    cp = cloudpickle_module()
+    if cp is None:
+        raise ImportError(
+            "worker_mode='process' needs the cloudpickle package (functions "
+            "and classes cross to worker processes by value)")
+    return cp
+
+
+def dumps_by_value(value: Any) -> bytes:
+    """``value`` pickled for storage: with ``cloudpickle`` where it
+    imports, as the reference pickles, so a closure or a function defined
+    inside another is stored by value; else with stdlib pickle, which
+    stores a function by its import path."""
+    return (cloudpickle_module() or pickle).dumps(value, protocol=5)
 
 
 class SerializedObject:
@@ -45,27 +93,79 @@ class SerializedObject:
     _NOTHING = object()
 
     def __init__(self, data: bytes, buffers: List[pickle.PickleBuffer],
-                 device_tensors: List[Tuple[torch.Tensor, bool, bool]],
+                 device_tensors: List[Tuple[Any, bool, bool]],
                  held: Any = _NOTHING):
         self.data = data
         self.buffers = buffers
         self.device_tensors = device_tensors
         self.held = held
 
+    def host_bytes(self) -> int:
+        """Bytes this payload holds in host memory (what spilling can
+        move to disk)."""
+        return len(self.data) + sum(b.raw().nbytes for b in self.buffers)
+
     def total_bytes(self) -> int:
-        return (len(self.data)
-                + sum(b.raw().nbytes for b in self.buffers)
-                + sum(t.numel() * t.element_size()
-                      for t, _, _ in self.device_tensors))
+        return self.host_bytes() + sum(
+            t.numel() * t.element_size() for t, _, _ in self.device_tensors)
+
+    def on_host(self) -> bool:
+        """Whether the payload is wholly host bytes: no device tensor and
+        no value held by reference."""
+        return (not self.device_tensors
+                and self.held is SerializedObject._NOTHING)
+
+    def to_bytes(self) -> bytes:
+        """One flat buffer (for spilling and for a worker process): a
+        header of lengths, the pickle, then each out-of-band buffer. A
+        payload with device tensors or a held value is first re-pickled
+        in the wire form (module docstring)."""
+        if not self.on_host():
+            return wire_dumps(SerializationContext().deserialize(self))
+        return _frame(self.data, self.buffers)
+
+    @classmethod
+    def from_bytes(cls, raw) -> "SerializedObject":
+        data, buffers = _unframe(raw)
+        return cls(data, buffers, [])
+
+
+def _frame(data: bytes, buffers) -> bytes:
+    out = io.BytesIO()
+    header = pickle.dumps((len(data), [b.raw().nbytes for b in buffers]))
+    out.write(len(header).to_bytes(8, "little"))
+    out.write(header)
+    out.write(data)
+    for b in buffers:
+        out.write(b.raw())
+    return out.getvalue()
+
+
+def _unframe(raw) -> Tuple[bytes, List[pickle.PickleBuffer]]:
+    view = memoryview(raw)
+    hlen = int.from_bytes(view[:8], "little")
+    data_len, buf_lens = pickle.loads(view[8:8 + hlen])
+    off = 8 + hlen
+    data = bytes(view[off:off + data_len])
+    off += data_len
+    buffers = []
+    for n in buf_lens:
+        buffers.append(pickle.PickleBuffer(view[off:off + n]))
+        off += n
+    return data, buffers
 
 
 class _Pickler(pickle.Pickler):
     def __init__(self, file, buffers, device_tensors):
         super().__init__(file, protocol=5, buffer_callback=buffers.append)
         self._device_tensors = device_tensors
+        self._tensor_type = getattr(_torch(), "Tensor", None)
 
     def persistent_id(self, obj):
-        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+        if (self._tensor_type is not None
+                and isinstance(obj, self._tensor_type)
+                and obj.device.type != "cpu"):
+            torch = _torch()
             self._device_tensors.append(
                 (obj.detach().clone(), obj.requires_grad,
                  isinstance(obj, torch.nn.Parameter)))
@@ -82,7 +182,7 @@ class _Unpickler(pickle.Unpickler):
         stored, requires_grad, parameter = self._device_tensors[pid]
         out = stored.clone()
         if parameter:
-            return torch.nn.Parameter(out, requires_grad=requires_grad)
+            return _torch().nn.Parameter(out, requires_grad=requires_grad)
         return out.requires_grad_(requires_grad)
 
 
@@ -98,7 +198,98 @@ class SerializationContext:
         return SerializedObject(out.getvalue(), buffers, device_tensors)
 
     def deserialize(self, serialized: SerializedObject) -> Any:
+        if isinstance(serialized, (bytes, bytearray, memoryview)):
+            return wire_loads(serialized)   # a worker process's bytes
         if serialized.held is not SerializedObject._NOTHING:
             return serialized.held
         return _Unpickler(io.BytesIO(serialized.data), serialized.buffers,
                           serialized.device_tensors).load()
+
+
+# ------------------------------------------------------------- wire form
+def _rebuild_tensor(buf, dtype, shape, requires_grad, parameter):
+    """Inverse of the wire pickler's tensor reduction: a CPU tensor that
+    owns a copy of ``buf``'s bytes."""
+    import numpy as np
+    import torch
+
+    raw = np.frombuffer(buf, dtype=np.uint8).copy()
+    if raw.size:
+        t = torch.from_numpy(raw).view(dtype).reshape(shape)
+    else:   # an empty tensor: nothing to view
+        t = torch.empty(shape, dtype=dtype)
+    if parameter:
+        return torch.nn.Parameter(t, requires_grad=requires_grad)
+    return t.requires_grad_(requires_grad) if requires_grad else t
+
+
+def _wire_pickler_class():
+    cloudpickle = require_cloudpickle()
+
+    class _WirePickler(cloudpickle.CloudPickler):
+        def __init__(self, file, buffers):
+            super().__init__(file, protocol=5,
+                             buffer_callback=buffers.append)
+            self._tensor_type = getattr(_torch(), "Tensor", None)
+
+        def reducer_override(self, obj):
+            if (self._tensor_type is not None
+                    and isinstance(obj, self._tensor_type)):
+                reduced = _reduce_tensor(obj)
+                if reduced is not None:
+                    return reduced
+            return super().reducer_override(obj)
+
+    return _WirePickler
+
+
+_WIRE_PICKLER = None
+
+
+def _reduce_tensor(obj):
+    """A strided tensor as (rebuild, (host bytes out of band, dtype,
+    shape, requires_grad, is Parameter)); None for other layouts and
+    subclasses, which keep torch's own reduction."""
+    torch = _torch()
+    if (obj.layout != torch.strided or obj.is_quantized
+            or type(obj) not in (torch.Tensor, torch.nn.Parameter)):
+        return None
+    t = obj.detach()
+    if t.device.type != "cpu":
+        t = t.cpu()
+    t = t.contiguous()
+    flat = t.reshape(-1).view(torch.uint8)
+    return (_rebuild_tensor,
+            (pickle.PickleBuffer(flat.numpy()), t.dtype, tuple(t.shape),
+             obj.requires_grad, isinstance(obj, torch.nn.Parameter)))
+
+
+def wire_dumps(value: Any) -> bytes:
+    """The wire form of ``value`` (module docstring): framed
+    cloudpickle with every tensor's storage out of band, on the CPU."""
+    global _WIRE_PICKLER
+    if _WIRE_PICKLER is None:
+        _WIRE_PICKLER = _wire_pickler_class()
+    buffers: List[pickle.PickleBuffer] = []
+    out = io.BytesIO()
+    _WIRE_PICKLER(out, buffers).dump(value)
+    return _frame(out.getvalue(), buffers)
+
+
+def wire_loads(raw) -> Any:
+    """Inverse of ``wire_dumps`` (and of ``SerializedObject.to_bytes``)."""
+    data, buffers = _unframe(raw)
+    return pickle.loads(data, buffers=buffers)
+
+
+class WireSerializationContext:
+    """The serialization context of a worker process: values become wire
+    bytes (what crosses to the driver, e.g. a collective's KV post)."""
+
+    def serialize(self, value: Any) -> bytes:
+        return wire_dumps(value)
+
+    def deserialize(self, serialized) -> Any:
+        if isinstance(serialized, SerializedObject):
+            return SerializationContext().deserialize(serialized)
+        return wire_loads(serialized)

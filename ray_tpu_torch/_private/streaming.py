@@ -20,7 +20,7 @@ so the completion machinery (submitted-ref release, typed errors,
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from ray_tpu_torch._private.ids import STREAM_END_INDEX, ObjectID, TaskID
 
@@ -45,7 +45,8 @@ class StreamState:
     """Producer/consumer bookkeeping for one streaming-generator task."""
 
     __slots__ = ("task_id", "_cv", "committed", "consumed", "finished",
-                 "error", "cancelled")
+                 "error", "cancelled", "peak_unconsumed", "paused_events",
+                 "_consume_cbs")
 
     def __init__(self, task_id: TaskID):
         self.task_id = task_id
@@ -55,6 +56,13 @@ class StreamState:
         self.finished: Optional[int] = None  # total items once producer ends
         self.error: Optional[BaseException] = None
         self.cancelled = False
+        # The most committed-but-unconsumed items this producer reached,
+        # and how often it paused at its budget.
+        self.peak_unconsumed = 0
+        self.paused_events = 0
+        # Consumption listeners: the process plane forwards each new
+        # watermark to the producing worker process.
+        self._consume_cbs: List[Callable[[int], None]] = []
 
     # ------------------------------------------------------------- producer
     def commit(self, index: int):
@@ -62,6 +70,9 @@ class StreamState:
         with self._cv:
             if index + 1 > self.committed:
                 self.committed = index + 1
+            gap = self.committed - self.consumed
+            if gap > self.peak_unconsumed:
+                self.peak_unconsumed = gap
             self._cv.notify_all()
 
     def wait_capacity(self, budget: int,
@@ -72,11 +83,15 @@ class StreamState:
         stream was cancelled (the yield loop should stop)."""
         if budget <= 0:
             return not self.cancelled
+        first = True
         with self._cv:
             while (self.committed - self.consumed >= budget
                    and not self.cancelled):
                 if cancel_event is not None and cancel_event.is_set():
                     return False
+                if first:
+                    self.paused_events += 1
+                    first = False
                 # The cv wakes on advance_consumed/cancel; the bounded
                 # wait only covers an external cancel_event flip.
                 self._cv.wait(poll_s)
@@ -101,11 +116,20 @@ class StreamState:
     # ------------------------------------------------------------- consumer
     def advance_consumed(self, n: int):
         """Consumption watermark moved to ``n`` (monotonic): wakes the
-        paused yield loop."""
+        paused yield loop and fires the consumption listeners (outside
+        the lock)."""
         with self._cv:
-            if n > self.consumed:
-                self.consumed = n
-                self._cv.notify_all()
+            if n <= self.consumed:
+                return
+            self.consumed = n
+            cbs = list(self._consume_cbs)
+            self._cv.notify_all()
+        for cb in cbs:
+            cb(n)
+
+    def add_consume_listener(self, cb: Callable[[int], None]):
+        with self._cv:
+            self._consume_cbs.append(cb)
 
 
 class StreamRegistry:

@@ -21,8 +21,8 @@ Off by default. With tracing off the module-global ``_TRACER`` slot is
 :func:`install` arms it.
 
 Not ported: the spill directory through which the reference's worker
-processes surface their spans (``RAY_TPU_TRACE_DIR``; it waits for the
-process plane, ROADMAP A.5a) and ``RAY_TPU_TRACE_PARENT``, the context
+processes surface their spans (``RAY_TPU_TRACE_DIR``; one of the
+process plane's users, ROADMAP A.5a) and ``RAY_TPU_TRACE_PARENT``, the context
 that an autoscaler-launched daemon inherits (A.5b). The cold-start chain
 is in-process here: a Serve wake parks its context in the stash, and a
 replica constructed meanwhile parents its ``replica.init`` span to it

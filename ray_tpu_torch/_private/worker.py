@@ -1,21 +1,35 @@
 """Global worker: init/shutdown, ObjectRef, get/put/wait/cancel
-(counterpart of ``ray_tpu/_private/worker.py``, trimmed to one process).
+(counterpart of ``ray_tpu/_private/worker.py``, for one node).
 
 One process-global ``Worker`` owns the serialization context, the object
-store, the streaming registry, the local scheduler and the actor
-registry; ``init()`` boots it and ``shutdown()`` tears it down, joining
-every thread it started. ObjectRefs count local references on
-construction and destruction (owner-side refcounting).
+store (spilling to the session's ``spill`` directory), the streaming
+registry, the local scheduler and the actor registry; ``init()`` boots it
+and ``shutdown()`` tears it down, joining every thread it started.
+ObjectRefs count local references on construction and destruction
+(owner-side refcounting). ``init()`` creates a session directory
+(``<tmp>/ray_tpu_torch/session_<hex>``, linked as ``session_latest``)
+with the workers' ``logs``.
+
+``worker_mode`` picks the execution plane. ``"thread"``, the port's
+default, runs tasks and actors on threads of this process, where they
+reach the card. ``"process"`` (``init(worker_mode="process")`` or
+``RAY_TPU_WORKER_MODE=process``, the reference's default) creates, in the
+reference's order, the native shm store, the worker pool, the log
+monitor and the memory monitor: tasks and actors then run in worker
+processes that never see the card (README, the process plane). In a
+worker process the global worker is a ``ClientWorker`` that forwards the
+API to the driver. A failed native build raises; nothing falls back to
+the thread plane in silence.
 
 The worker owns the task-event ring (``task_events``), and ``init()``
 arms the tracing plane (``RAY_TPU_TRACE``) and the flight recorder
 (``RAY_TPU_FLIGHT`` / ``RAY_TPU_PROFILE``), with the ``runtime`` section
-in every flight bundle; ``shutdown()`` uninstalls both and joins their
-threads. Not ported: the head client and its failover, pulls from other
-processes, the worker-process pool and client mode, and with them the
-trace and flight spill directories of worker processes (ROADMAP A.5a).
-The reference's device probe (JAX's TPUs) becomes a ``"GPU"`` resource
-of ``torch.cuda.device_count()`` cards, counted without creating a CUDA
+(``worker_mode`` among it) in every flight bundle; ``shutdown()``
+uninstalls both and joins their threads. Not ported: the head client and
+its failover, pulls from other processes, and the trace and flight spill
+directories of worker processes (ROADMAP A.5a's users, A.5b). The
+reference's device probe (JAX's TPUs) becomes a ``"GPU"`` resource of
+``torch.cuda.device_count()`` cards, counted without creating a CUDA
 context; ``num_gpus=`` overrides it.
 """
 
@@ -24,8 +38,10 @@ from __future__ import annotations
 import atexit
 import os
 import sys
+import tempfile
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Union
 
 from ray_tpu_torch._private import flight, tracing
@@ -363,14 +379,22 @@ def _count_gpus() -> int:
 class Worker:
     def __init__(self, num_cpus: Optional[int] = None,
                  num_gpus: Optional[int] = None,
-                 resources: Optional[Dict[str, float]] = None):
+                 resources: Optional[Dict[str, float]] = None,
+                 worker_mode: Optional[str] = None,
+                 session_dir: Optional[str] = None):
         self.is_alive = True
         self.job_id = JobID.from_int(os.getpid() & 0xFFFFFFFF)
         self.worker_id = WorkerID.from_random()
         self.node_id = NodeID.from_random()
         self.job_task_id = TaskID.for_job(self.job_id)
+        self.worker_mode = worker_mode or GlobalConfig.worker_mode
+        if self.worker_mode not in ("thread", "process"):
+            raise ValueError(
+                f"worker_mode must be 'thread' or 'process', got "
+                f"{self.worker_mode!r}")
+        self.session_dir = session_dir or _new_session_dir()
         self.serialization_context = SerializationContext()
-        self.store = ObjectStore()
+        self.store = ObjectStore(os.path.join(self.session_dir, "spill"))
         # Streaming-generator plane: per-task stream state (yield commit
         # counters, backpressure watermarks) for num_returns="streaming".
         self.streams = StreamRegistry()
@@ -387,9 +411,32 @@ class Worker:
         self.task_events = TaskEventBuffer(
             GlobalConfig.task_events_max_buffer)
         pool_size = GlobalConfig.worker_pool_size or max(int(num_cpus), 4)
+        # The process plane, in the reference's order: the shm store,
+        # the worker pool, the log monitor; the memory monitor after the
+        # scheduler. A partial build is undone before the error goes up.
+        self.shm_store = None
+        self.worker_pool = None
+        self.log_monitor = None
+        self.memory_monitor = None
+        self._channel_store = None   # SharedMemoryChannel's own segment
+        if self.worker_mode == "process":
+            try:
+                self._start_process_plane(num_cpus)
+            except BaseException:
+                self._stop_process_plane()
+                raise
         self.scheduler = LocalScheduler(self.store, self.resource_pool,
                                         pool_size,
-                                        task_events=self.task_events)
+                                        task_events=self.task_events,
+                                        worker_pool=self.worker_pool,
+                                        shm_store=self.shm_store)
+        if (self.worker_pool is not None
+                and GlobalConfig.memory_monitor_threshold > 0):
+            from ray_tpu_torch._private.memory_monitor import MemoryMonitor
+
+            self.memory_monitor = MemoryMonitor(
+                self.scheduler,
+                threshold_fraction=GlobalConfig.memory_monitor_threshold)
         # Debug-mode host-plane sanitizer (RAY_TPU_SANITIZE=1): refcount
         # underflow and channel protocol checks hook in at their sites;
         # the stall watchdog needs the runtime handles.
@@ -413,11 +460,52 @@ class Worker:
         self._kv_lock = threading.Lock()
         flight.add_section("runtime", self._flight_section)
 
+    def _start_process_plane(self, num_cpus):
+        from ray_tpu_torch._native.store import NativeObjectStore
+        from ray_tpu_torch._private.log_monitor import LogMonitor
+        from ray_tpu_torch._private.serialization import require_cloudpickle
+        from ray_tpu_torch._private.worker_pool import WorkerPool
+
+        require_cloudpickle()
+        self.shm_store = NativeObjectStore.create(
+            capacity=GlobalConfig.shm_store_bytes,
+            max_objects=GlobalConfig.shm_store_slots)
+        log_dir = os.path.join(self.session_dir, "logs")
+        self.worker_pool = WorkerPool(
+            self.shm_store, num_workers=max(int(num_cpus), 1),
+            max_msg=GlobalConfig.worker_channel_bytes, log_dir=log_dir)
+        # Worker prints stream back to this process's stderr.
+        self.log_monitor = LogMonitor(log_dir)
+
+    def _stop_workers(self):
+        """Stop the memory monitor and every worker process of the pool
+        (a task blocked on one wakes); each runs once."""
+        if self.memory_monitor is not None:
+            self.memory_monitor.stop()
+            self.memory_monitor = None
+        if self.worker_pool is not None:
+            self.worker_pool.shutdown()
+            self.worker_pool = None
+
+    def _stop_process_plane(self):
+        """Stop the process plane in the reverse of its start (the pool,
+        the log monitor, then the store) and unlink the shm segments."""
+        self._stop_workers()
+        if self.log_monitor is not None:
+            self.log_monitor.stop()
+            self.log_monitor = None
+        for attr in ("_channel_store", "shm_store"):
+            store = getattr(self, attr)
+            if store is not None:
+                store.close()
+                setattr(self, attr, None)
+
     def _flight_section(self) -> dict:
         """Runtime depths for this process's flight bundle: the queue and
         backlog numbers a postmortem reads first."""
         s = self.scheduler
         return {
+            "worker_mode": self.worker_mode,
             "backlog": s.backlog_size(),
             "running": s.num_running(),
             "finished": s.num_finished(),
@@ -466,6 +554,10 @@ class Worker:
         for ref in dep_refs:
             self.store.add_submitted_ref(ref.object_id)
         refs = [ObjectRef(oid) for oid in spec.return_ids]
+        if self.worker_pool is not None and spec.resources.get("GPU"):
+            from ray_tpu_torch._private.worker_pool import warn_no_card
+
+            warn_no_card("task", spec.name, spec.resources["GPU"])
         if dep_refs:
             def _release(_refs=dep_refs):
                 for r in _refs:
@@ -500,7 +592,10 @@ class Worker:
 
     def shutdown(self):
         """Stop every actor loop and the scheduler, fail every waiter,
-        and join the threads (each join bounded)."""
+        and join the threads (each join bounded). On the process plane
+        the worker processes go first (a task blocked on one wakes), and
+        the shm store is unmapped and unlinked last, after the actors'
+        loops, which tear their channels down, have been joined."""
         self.is_alive = False
         if self.sanitizer_watchdog is not None:
             self.sanitizer_watchdog.stop()
@@ -511,6 +606,7 @@ class Worker:
                 actor.terminate(no_restart=True)
             except Exception:  # noqa: BLE001
                 pass
+        self._stop_workers()
         self.scheduler.shutdown()
         self.store.close()
         for actor in actors:
@@ -520,11 +616,28 @@ class Worker:
                 pass
         self.actors.clear()
         self.named_actors.clear()
+        self._stop_process_plane()
 
 
 _global_worker: Optional[Worker] = None
 _init_lock = threading.Lock()
 _atexit_registered = False
+
+
+def _new_session_dir() -> str:
+    """A fresh session directory with its ``logs`` (and the
+    ``session_latest`` link beside it)."""
+    base = os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
+    path = os.path.join(base, f"session_{uuid.uuid4().hex[:12]}")
+    os.makedirs(os.path.join(path, "logs"), exist_ok=True)
+    link = os.path.join(base, "session_latest")
+    try:
+        if os.path.islink(link):
+            os.unlink(link)
+        os.symlink(path, link)
+    except OSError:
+        pass
+    return path
 
 
 def _try_global_worker() -> Optional[Worker]:
@@ -555,11 +668,13 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
          resources: Optional[Dict[str, float]] = None,
          _system_config: Optional[Dict[str, Any]] = None,
          ignore_reinit_error: bool = False, namespace: str = "default",
+         worker_mode: Optional[str] = None,
          **_ignored) -> "Worker":
-    """Start the one-process runtime: the scheduler's dispatcher and
-    executor threads. Resources: ``num_cpus`` (default: the host's
-    cores), ``num_gpus`` (default: the visible CUDA cards) and custom
-    ``resources``."""
+    """Start the runtime: the scheduler's dispatcher and executor threads,
+    and with ``worker_mode="process"`` (default: the ``worker_mode`` flag,
+    ``"thread"``) the shm store, the worker pool and the monitors.
+    Resources: ``num_cpus`` (default: the host's cores), ``num_gpus``
+    (default: the visible CUDA cards) and custom ``resources``."""
     global _global_worker, _atexit_registered
     with _init_lock:
         if _global_worker is not None:
@@ -577,7 +692,8 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
         flight.install_from_env(component="driver")
         try:
             _global_worker = Worker(num_cpus=num_cpus, num_gpus=num_gpus,
-                                    resources=resources)
+                                    resources=resources,
+                                    worker_mode=worker_mode)
         except BaseException:
             tracing.uninstall()
             flight.uninstall()
@@ -595,13 +711,17 @@ def shutdown():
     tracer and the flight recorder (its threads joined). Every drive ends
     with it."""
     global _global_worker
-    from ray_tpu_torch.serve import controller as _controller
-    from ray_tpu_torch.serve import grpc as _grpc
-    from ray_tpu_torch.serve import http as _http
-
-    _http.stop_proxy()
-    _grpc.stop_grpc_proxy()
-    _controller.shutdown_controller()
+    # Serve's pieces stop only where Serve was loaded (a worker process
+    # or a task-only drive never imports it).
+    http = sys.modules.get("ray_tpu_torch.serve.http")
+    if http is not None:
+        http.stop_proxy()
+    grpc = sys.modules.get("ray_tpu_torch.serve.grpc")
+    if grpc is not None:
+        grpc.stop_grpc_proxy()
+    controller = sys.modules.get("ray_tpu_torch.serve.controller")
+    if controller is not None:
+        controller.shutdown_controller()
     # Compiled DAGs' exec loops occupy their actors' loop threads until
     # teardown: end them first, so the actors' joins below can finish.
     compiled_dag = sys.modules.get("ray_tpu_torch.dag.compiled_dag")

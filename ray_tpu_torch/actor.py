@@ -14,15 +14,25 @@ PENDING_ACTOR_TASK at submit and RUNNING, then FINISHED or FAILED, as it
 executes into the worker's task-event ring (the reference records the
 execution states on the sync loops; here the async loop records them
 too), registers the caller's trace context when tracing is armed, and
-marks its execution for the flight recorder. Not ported: the process
-plane (an actor in its own worker process) and handles to actors of
-other processes.
+marks its execution for the flight recorder.
+
+On the process plane (``init(worker_mode="process")``) every actor
+flavor lives in a worker process of its own (``_run_proc`` for a sync
+actor, ``_run_proc_mux`` for async and threaded ones), so its crash or
+``kill -9`` fails only its calls (``ActorDiedError``) and ``max_restarts``
+restarts it with fresh state. Such an actor never reaches the card; one
+created with ``runtime="driver"`` (an actor option) stays in the
+driver's process, where it does. A handle passed into a worker process
+forwards its calls to the driver (``ClientActorHandle``). Not ported:
+handles to actors of other drivers, and ``start_dag_loop`` (the compiled
+DAG's shm plane, the next slice).
 """
 
 from __future__ import annotations
 
 import asyncio
 import inspect
+import os
 import queue
 import threading
 from typing import Any, Dict, Optional
@@ -30,6 +40,7 @@ from typing import Any, Dict, Optional
 from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID
+from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch._private.scheduler import _ExecutorThreads
 from ray_tpu_torch._private.streaming import stream_end_id, stream_item_id
 from ray_tpu_torch._private.worker import (
@@ -43,7 +54,10 @@ from ray_tpu_torch.exceptions import (
     RayActorError,
     RayTaskError,
     TaskCancelledError,
+    WorkerCrashedError,
 )
+
+log = get_logger(__name__)
 
 _TERMINATE = object()
 
@@ -82,7 +96,8 @@ class _ActorRuntime:
 
     def __init__(self, actor_id: ActorID, cls: type, init_args, init_kwargs,
                  *, max_concurrency: Optional[int], max_restarts: int,
-                 name: str, actor_name: Optional[str]):
+                 name: str, actor_name: Optional[str],
+                 runtime_target: Optional[str] = None):
         self.actor_id = actor_id
         self.cls = cls
         self.init_args = init_args
@@ -107,13 +122,31 @@ class _ActorRuntime:
         if max_concurrency is None:
             max_concurrency = 1000 if self.is_async else 1
         self.max_concurrency = max(int(max_concurrency), 1)
+        # The process plane: every actor flavor lives in a worker process
+        # of its own, so its crash or kill -9 never touches the driver.
+        # A sync single-threaded actor uses the request/reply channel;
+        # async and threaded actors the multiplexed submit/calldone
+        # protocol. runtime="driver" keeps the actor in this process
+        # (where it reaches the card).
+        worker = global_worker()
+        self.runtime_target = runtime_target
+        self.use_process = (getattr(worker, "shm_store", None) is not None
+                            and runtime_target != "driver")
+        self.use_mux = self.use_process and (
+            self.is_async or self.max_concurrency > 1)
+        self._proc = None
+        self._restart_pending = False
+        self.pid: Optional[int] = None
         self._start_loop()
 
     # ---------------------------------------------------------------- loops
     def _start_loop(self):
         self._instance_ready = threading.Event()
         self._init_error: Optional[BaseException] = None
-        target = self._run_async if self.is_async else self._run_sync
+        if self.use_process:
+            target = self._run_proc_mux if self.use_mux else self._run_proc
+        else:
+            target = self._run_async if self.is_async else self._run_sync
         thread = threading.Thread(
             target=target, args=(self._mailbox,),
             daemon=True, name=f"actor-{self.class_name}",
@@ -201,6 +234,550 @@ class _ActorRuntime:
         finally:
             loop.close()
 
+    # ------------------------------------------------- process-backed actor
+    def _spawn_proc(self):
+        """Spawn the actor's own worker process and construct the
+        instance in it (fresh state); raises when construction fails."""
+        from ray_tpu_torch._private.serialization import require_cloudpickle
+        from ray_tpu_torch._private.worker_pool import (
+            WorkerProcess,
+            maybe_stage,
+            pack_args,
+        )
+
+        worker = global_worker()
+        shm = worker.shm_store
+        proc = WorkerProcess(shm, max_msg=GlobalConfig.worker_channel_bytes,
+                             log_dir=os.path.join(worker.session_dir, "logs"))
+        staged = []
+        try:
+            args, kwargs = _resolve_values(worker, self.init_args,
+                                           self.init_kwargs)
+            payload, staged = pack_args(shm, args, kwargs)
+            limit = max(proc.max_msg // 4, 64 * 1024)
+            cls_bytes, st = maybe_stage(
+                shm, require_cloudpickle().dumps(self.cls), limit)
+            staged += st
+            payload, st = maybe_stage(shm, payload, limit)
+            staged += st
+            if self.use_mux:
+                mode = "async" if self.is_async else "threaded"
+                proc.request(("actor_new2", cls_bytes, payload, mode,
+                              self.max_concurrency))
+            else:
+                proc.request(("actor_new", cls_bytes, payload))
+        except BaseException:
+            proc.shutdown(timeout=0.1)
+            raise
+        finally:
+            _delete_keys(shm, staged)
+        return proc
+
+    def _proc_started(self, mailbox) -> bool:
+        """Spawn the process; on failure mark the actor dead and fail its
+        queued calls. Returns whether it started."""
+        try:
+            self._proc = self._spawn_proc()
+            self.pid = self._proc.pid
+            self._init_error = None
+        except BaseException as e:  # noqa: BLE001 — init error boundary
+            self._init_error = e
+            self.dead = True
+            self.death_cause = f"__init__ failed: {e!r}"
+            self._instance_ready.set()
+            self._drain_with_error(mailbox)
+            return False
+        # A compiled DAG's exec loop sees a proxy whose method calls go
+        # into the worker process on this thread.
+        self.instance = _ProcessActorProxy(self)
+        return True
+
+    def _run_closure(self, call: "_ClosureCall"):
+        try:
+            call.fn(self.instance)
+        except Exception as exc:  # noqa: BLE001 — exec loop boundary
+            log.warning("actor closure call failed; exec loop continues: "
+                        "%r", exc)
+
+    def _run_proc(self, mailbox):
+        worker = global_worker()
+        if not self._proc_started(mailbox):
+            return
+        self._instance_ready.set()
+        while True:
+            call = mailbox.get()
+            if call is _TERMINATE:
+                if self._proc is not None:
+                    self._proc.shutdown(timeout=0.5)
+                return
+            if isinstance(call, _ClosureCall):
+                self._run_closure(call)
+                continue
+            if self._restart_pending and not self.dead:
+                try:
+                    self._proc.shutdown(timeout=0.1)
+                    self._proc = self._spawn_proc()
+                    self.pid = self._proc.pid
+                except BaseException as e:  # noqa: BLE001
+                    self.dead = True
+                    self.death_cause = f"restart failed: {e!r}"
+                finally:
+                    self._restart_pending = False
+            if self.dead:
+                self._fail_call(worker, call, ActorDiedError(
+                    self.actor_id, self.death_cause or "actor is dead"))
+                continue
+            self._execute_call_proc(worker, call)
+
+    def _run_proc_mux(self, mailbox):
+        """Mailbox loop of an async or threaded actor in a worker
+        process: calls are fire-and-forget 'actor_submit' writes and a
+        pump thread matches the out-of-order ('calldone', call_id, ...)
+        completions, so up to max_concurrency calls overlap inside the
+        worker while this loop keeps dispatching."""
+        worker = global_worker()
+        if not self._proc_started(mailbox):
+            return
+        self._mux_pending: Dict[int, dict] = {}
+        self._mux_lock = threading.Lock()
+        self._mux_call_counter = 0
+        self._start_pump(worker)
+        self._instance_ready.set()
+        while True:
+            call = mailbox.get()
+            if call is _TERMINATE:
+                if self._proc is not None:
+                    self._proc.shutdown(timeout=0.5)
+                return
+            if isinstance(call, _ClosureCall):
+                self._run_closure(call)
+                continue
+            if (self._restart_pending or not self._proc.alive()) \
+                    and not self.dead:
+                self._mux_respawn(worker)
+            if self.dead:
+                self._fail_call(worker, call, ActorDiedError(
+                    self.actor_id, self.death_cause or "actor is dead"))
+                continue
+            self._mux_dispatch(worker, call)
+
+    def _mux_fail_pending(self, worker):
+        """Fail every call in flight against the current process (and
+        wake proxy waiters): their process is gone."""
+        with self._mux_lock:
+            pending, self._mux_pending = dict(self._mux_pending), {}
+        err = ActorDiedError(
+            self.actor_id, self.death_cause or "actor worker process died")
+        for entry in pending.values():
+            if "waiter" in entry:
+                entry["status"] = "died"
+                entry["waiter"].set()
+                continue
+            self._fail_call(worker, entry["call"], err)
+            _delete_keys(worker.shm_store, entry["staged"])
+
+    def _mux_respawn(self, worker):
+        """Replace a dead or killed worker process by a fresh one (fresh
+        actor state), consuming restart budget unless terminate() counted
+        it already."""
+        if self._restart_pending:
+            consume = False
+        elif self.restarts_used < self.max_restarts:
+            consume = True
+        else:
+            self.dead = True
+            self.death_cause = (self.death_cause
+                                or "actor worker process died")
+            return
+        self._restart_pending = False
+        if consume:
+            self.restarts_used += 1
+        # Calls in flight against the dead process fail first: its pump
+        # may exit on its process-identity check without failing them.
+        self._mux_fail_pending(worker)
+        try:
+            self._proc.shutdown(timeout=0.1)
+            self._proc = self._spawn_proc()
+            self.pid = self._proc.pid
+            self._start_pump(worker)
+        except BaseException as e:  # noqa: BLE001
+            self.dead = True
+            self.death_cause = f"restart failed: {e!r}"
+
+    def _mux_dispatch(self, worker, call: _MethodCall):
+        from ray_tpu_torch._private.worker_pool import (
+            maybe_stage,
+            oid_key,
+            pack_args,
+        )
+
+        if call.cancelled:
+            self._fail_call(worker, call, TaskCancelledError())
+            return
+        shm = worker.shm_store
+        task_id = call.return_ids[0].task_id()
+        worker.task_events.record(task_id, "RUNNING", name=call.name)
+        staged: list = []
+        ret_keys = [oid_key(oid) for oid in call.return_ids]
+        call_id = None
+        try:
+            args, kwargs = _resolve_actor_args(worker, call)
+            payload, staged = pack_args(shm, args, kwargs)
+            payload, st = maybe_stage(
+                shm, payload, max(self._proc.max_msg // 4, 64 * 1024))
+            staged += st
+            _delete_keys(shm, ret_keys)
+            entry = {"call": call, "staged": staged, "ret_keys": ret_keys}
+            stream_budget = None
+            if call.streaming:
+                # Items come back as ("calldone", call_id, "item", ...);
+                # consumption acks go out as stream_ack requests, which
+                # the worker's main loop drains continuously.
+                stream_budget = int(call.backpressure)
+                stream = worker.streams.get_or_create(task_id)
+                entry["stream"] = stream
+                entry["cancel_sent"] = False
+                proc = self._proc
+                tid_bin = task_id.binary()
+
+                def _wire_ack(n, _p=proc, _t=tid_bin, _e=entry):
+                    try:
+                        _p._req.write(("stream_ack", _t, int(n)),
+                                      timeout=5.0)
+                        if n > _e.get("acked", 0):
+                            _e["acked"] = n
+                    except Exception:  # noqa: BLE001 — the pump re-sends
+                        pass
+                stream.add_consume_listener(_wire_ack)
+            with self._mux_lock:
+                self._mux_call_counter += 1
+                call_id = self._mux_call_counter
+                self._mux_pending[call_id] = entry
+            self._proc._req.write(
+                ("actor_submit", call_id, call.method_name, payload,
+                 ret_keys, len(call.return_ids), task_id.binary(),
+                 call.name, stream_budget), timeout=60.0)
+        except BaseException as exc:  # noqa: BLE001 — dispatch boundary
+            with self._mux_lock:
+                if call_id is not None:
+                    self._mux_pending.pop(call_id, None)
+            _delete_keys(shm, staged)
+            self._fail_call(worker, call, exc if isinstance(
+                exc, RayTaskError) else RayTaskError.from_exception(
+                    call.name, exc))
+            worker.task_events.record(task_id, "FAILED", name=call.name)
+
+    def _start_pump(self, worker):
+        thread = threading.Thread(
+            target=self._pump_loop, args=(worker, self._proc), daemon=True,
+            name=f"actor-pump-{self.class_name}")
+        self._threads.append(thread)
+        thread.start()
+
+    def _pump_loop(self, worker, proc):
+        """Read the out-of-order completions off the reply channel; when
+        the worker dies, fail every call in flight with ActorDiedError
+        (an interrupted call is NOT retried, as in the reference)."""
+        import pickle
+
+        from ray_tpu_torch._private.serialization import SerializedObject
+        from ray_tpu_torch.exceptions import ChannelTimeoutError
+
+        shm = worker.shm_store
+        while True:
+            try:
+                msg = proc._rep.read(timeout=0.2)
+            except ChannelTimeoutError:
+                if not proc.alive() or proc is not self._proc:
+                    break
+                self._mux_propagate_cancels(proc)
+                self._mux_resend_watermarks(proc)
+                continue
+            except Exception as exc:  # noqa: BLE001 — channel torn down
+                log.debug("mux reply channel torn down; pump exiting: "
+                          "%r", exc)
+                break
+            if not msg or msg[0] != "calldone":
+                continue
+            _, call_id, status, value = msg
+            if status == "item":
+                # A yield mid-stream: commit it, keep the entry.
+                with self._mux_lock:
+                    entry = self._mux_pending.get(call_id)
+                stream = (entry or {}).get("stream")
+                if stream is None:
+                    continue   # a stale frame of a replaced worker
+                try:
+                    idx, field = value
+                    if isinstance(field, (tuple, list)) and field and \
+                            field[0] == "shm":
+                        raw = bytes(shm.get(field[1]))
+                        _delete_keys(shm, [field[1]])
+                    else:
+                        raw = bytes(field)
+                    tid = entry["call"].return_ids[0].task_id()
+                    worker.store.put(stream_item_id(tid, int(idx)),
+                                     SerializedObject.from_bytes(raw))
+                    stream.commit(int(idx))
+                except Exception as exc:  # noqa: BLE001 — the terminal
+                    # frame settles the call
+                    log.warning("dropping corrupt stream item frame: "
+                                "%r", exc)
+                self._mux_propagate_cancels(proc)
+                continue
+            with self._mux_lock:
+                entry = self._mux_pending.pop(call_id, None)
+            if entry is None:
+                continue
+            if "waiter" in entry:   # a proxy apply: hand over, notify
+                entry["status"], entry["value"] = status, value
+                entry["waiter"].set()
+                continue
+            call = entry["call"]
+            tid = call.return_ids[0].task_id()
+            try:
+                if status == "ok":
+                    for oid, key in zip(call.return_ids,
+                                        entry["ret_keys"]):
+                        raw = bytes(shm.get(key))
+                        worker.store.put(
+                            oid, SerializedObject.from_bytes(raw))
+                        _delete_keys(shm, [key])
+                    worker.task_events.record(tid, "FINISHED",
+                                              name=call.name)
+                elif status == "ok_stream":
+                    total = int(value)
+                    worker.store.put(
+                        stream_end_id(tid),
+                        worker.serialization_context.serialize(total))
+                    entry["stream"].finish(total)
+                    worker.task_events.record(tid, "FINISHED",
+                                              name=call.name)
+                elif status == "cancelled":
+                    self._fail_call(worker, call, TaskCancelledError(tid))
+                elif status == "err":
+                    self._fail_call(worker, call, pickle.loads(value))
+                    worker.task_events.record(tid, "FAILED",
+                                              name=call.name)
+                else:
+                    self._fail_call(worker, call, RayActorError(
+                        self.actor_id, f"unexpected status {status!r}"))
+            except Exception as exc:  # noqa: BLE001 — completion boundary
+                self._fail_call(
+                    worker, call,
+                    RayTaskError.from_exception(call.name, exc))
+            finally:
+                _delete_keys(shm, entry["staged"])
+        # The worker died (or was replaced): fail what is still in
+        # flight against THIS process.
+        if proc is self._proc:
+            self._mux_fail_pending(worker)
+
+    def _mux_propagate_cancels(self, proc):
+        """A consumer dropped its generator mid-stream: tell the worker
+        (once per call), so its yield loop stops between yields."""
+        with self._mux_lock:
+            entries = [e for e in self._mux_pending.values()
+                       if e.get("stream") is not None
+                       and e["stream"].cancelled
+                       and not e.get("cancel_sent")]
+            for e in entries:
+                e["cancel_sent"] = True
+        for e in entries:
+            try:
+                proc._req.write(
+                    ("stream_ack",
+                     e["call"].return_ids[0].task_id().binary(), -1),
+                    timeout=1.0)
+            except Exception:  # noqa: BLE001 — the worker died
+                pass
+
+    def _mux_resend_watermarks(self, proc):
+        """Ack-loss recovery: an ack write that timed out would park a
+        stream at its budget for good, so the pump's idle slices re-send
+        any watermark ahead of the last one delivered."""
+        with self._mux_lock:
+            stale = [(e, e["stream"].consumed)
+                     for e in self._mux_pending.values()
+                     if e.get("stream") is not None
+                     and not e["stream"].cancelled
+                     and e["stream"].consumed > e.get("acked", 0)]
+        for e, n in stale:
+            try:
+                proc._req.write(
+                    ("stream_ack",
+                     e["call"].return_ids[0].task_id().binary(), int(n)),
+                    timeout=1.0)
+                if n > e.get("acked", 0):
+                    e["acked"] = n
+            except Exception:  # noqa: BLE001 — retried next idle slice
+                pass
+
+    def _execute_call_proc(self, worker, call: _MethodCall):
+        from ray_tpu_torch._private.scheduler import pump_stream_replies
+        from ray_tpu_torch._private.serialization import SerializedObject
+        from ray_tpu_torch._private.worker_pool import (
+            maybe_stage,
+            oid_key,
+            pack_args,
+        )
+
+        if call.cancelled:
+            self._fail_call(worker, call, TaskCancelledError())
+            return
+        shm = worker.shm_store
+        task_id = call.return_ids[0].task_id()
+        worker.task_events.record(task_id, "RUNNING", name=call.name)
+        staged: list = []
+        ret_keys = [oid_key(oid) for oid in call.return_ids]
+        try:
+            args, kwargs = _resolve_actor_args(worker, call)
+            payload, staged = pack_args(shm, args, kwargs)
+            payload, st = maybe_stage(
+                shm, payload, max(self._proc.max_msg // 4, 64 * 1024))
+            staged += st
+            if call.streaming:
+                # A generator method: the streaming task's item-frame
+                # pump (the pause protocol is in worker_main, the acks
+                # on the ack channel).
+                stream = worker.streams.get_or_create(task_id)
+                self._proc._req.write(
+                    ("actor_stream", call.method_name, payload,
+                     task_id.binary(), call.name, int(call.backpressure)),
+                    timeout=60.0)
+                pump_stream_replies(
+                    self._proc, task_id, call.name, stream, worker.store,
+                    shm, worker.serialization_context)
+            else:
+                _delete_keys(shm, ret_keys)   # a crashed attempt's keys
+                self._proc.request(
+                    ("actor_call", call.method_name, payload, ret_keys,
+                     len(call.return_ids), task_id.binary(), call.name))
+                for oid, key in zip(call.return_ids, ret_keys):
+                    raw = bytes(shm.get(key))
+                    worker.store.put(oid, SerializedObject.from_bytes(raw))
+                    _delete_keys(shm, [key])
+            worker.task_events.record(task_id, "FINISHED", name=call.name)
+        except WorkerCrashedError as e:
+            self._on_proc_crash(worker, call, e)
+            worker.task_events.record(task_id, "FAILED", name=call.name)
+        except BaseException as exc:  # noqa: BLE001 — method error boundary
+            if isinstance(exc, (RayTaskError, TaskCancelledError)):
+                self._fail_call(worker, call, exc)
+            else:
+                self._fail_call(
+                    worker, call, RayTaskError.from_exception(call.name, exc))
+            worker.task_events.record(task_id, "FAILED", name=call.name)
+        finally:
+            _delete_keys(shm, staged)
+
+    def _proxy_apply(self, method_name: str, args, kwargs):
+        """A synchronous method call for _ProcessActorProxy (on the actor
+        loop thread; the result rides the reply channel)."""
+        from ray_tpu_torch._private.serialization import wire_loads
+        from ray_tpu_torch._private.worker_pool import maybe_stage, pack_args
+
+        worker = global_worker()
+        if self.dead or self._proc is None or not self._proc.alive():
+            raise ActorDiedError(self.actor_id,
+                                 self.death_cause or "actor is dead")
+        if self.use_mux:
+            return self._proxy_apply_mux(worker, method_name, args, kwargs)
+        shm = worker.shm_store
+        payload, staged = pack_args(shm, args, kwargs)
+        payload, st = maybe_stage(
+            shm, payload, max(self._proc.max_msg // 4, 64 * 1024))
+        staged += st
+        try:
+            raw = self._proc.request(
+                ("actor_call", method_name, payload, [], 1, b"",
+                 method_name))
+            return wire_loads(raw)
+        except RayTaskError as e:
+            # The original exception's type: the caller wraps it once,
+            # as on the in-driver path.
+            raise e.as_instanceof_cause() from None
+        except WorkerCrashedError as e:
+            self.dead = True
+            self.death_cause = f"actor worker process died: {e}"
+            raise ActorDiedError(self.actor_id, self.death_cause) from e
+        finally:
+            _delete_keys(shm, staged)
+
+    def _proxy_apply_mux(self, worker, method_name: str, args, kwargs):
+        """A proxy call over the multiplexed channel: a waiter the pump
+        resolves (the pump owns the reply channel)."""
+        import pickle
+
+        from ray_tpu_torch._private.serialization import wire_loads
+        from ray_tpu_torch._private.worker_pool import maybe_stage, pack_args
+
+        shm = worker.shm_store
+        payload, staged = pack_args(shm, args, kwargs)
+        payload, st = maybe_stage(
+            shm, payload, max(self._proc.max_msg // 4, 64 * 1024))
+        staged += st
+        entry = {"waiter": threading.Event(), "status": None, "value": None}
+        proc = self._proc   # liveness follows the process dispatched to
+        try:
+            with self._mux_lock:
+                self._mux_call_counter += 1
+                call_id = self._mux_call_counter
+                self._mux_pending[call_id] = entry
+            proc._req.write(
+                ("actor_submit", call_id, method_name, payload, [], 1,
+                 b"", method_name, None), timeout=60.0)
+            while not entry["waiter"].wait(timeout=0.5):
+                if not proc.alive():
+                    with self._mux_lock:
+                        self._mux_pending.pop(call_id, None)
+                    if entry["status"] is None:
+                        entry["status"] = "died"
+                    break
+            status, value = entry["status"], entry["value"]
+            if status == "okv":
+                return wire_loads(value)
+            if status == "okshm":
+                raw = bytes(shm.get(value))
+                _delete_keys(shm, [value])
+                return wire_loads(raw)
+            if status == "err":
+                raise pickle.loads(value).as_instanceof_cause() from None
+            # The worker died mid-call. The actor is not marked dead here:
+            # _mux_respawn may have restarted it within its budget.
+            raise ActorDiedError(
+                self.actor_id,
+                self.death_cause or "actor worker process died mid-call")
+        finally:
+            _delete_keys(shm, staged)
+
+    def _on_proc_crash(self, worker, call: _MethodCall, exc: BaseException):
+        """The actor's worker died mid-call: fail that call, then restart
+        with fresh state if the policy allows (the interrupted call is
+        NOT retried, as in the reference)."""
+        self._fail_call(worker, call, ActorDiedError(
+            self.actor_id, f"actor worker process died: {exc}"))
+        if self._restart_pending:
+            consume = False   # terminate(no_restart=False) counted it
+        elif not self.dead and self.restarts_used < self.max_restarts:
+            consume = True
+        else:
+            self.dead = True
+            self.death_cause = (self.death_cause
+                                or f"actor worker process died: {exc}")
+            return
+        self._restart_pending = False
+        if consume:
+            self.restarts_used += 1
+        try:
+            self._proc.shutdown(timeout=0.1)
+            self._proc = self._spawn_proc()
+            self.pid = self._proc.pid
+        except BaseException as e:  # noqa: BLE001
+            self.dead = True
+            self.death_cause = f"restart failed: {e!r}"
+
+    # ------------------------------------------------------------ execution
     def _execute_call(self, worker, call: _MethodCall):
         if call.cancelled:
             self._fail_call(worker, call, TaskCancelledError())
@@ -407,10 +984,20 @@ class _ActorRuntime:
     # ------------------------------------------------------------- lifecycle
     def terminate(self, no_restart: bool = True):
         if self.dead and no_restart:
+            # A process-backed loop outlives its actor's death (it fails
+            # later calls): end it too.
+            self._mailbox.put(_TERMINATE)
             return
         with self._lock:
             if not no_restart and self.restarts_used < self.max_restarts:
                 self.restarts_used += 1
+                if self.use_process:
+                    # Kill the worker (interrupting a call in flight); the
+                    # loop spawns a fresh process before the next call.
+                    self._restart_pending = True
+                    if self._proc is not None:
+                        self._proc.kill()
+                    return
                 # Fresh mailbox for the restarted loop; the old loop drains
                 # its own mailbox and exits on the _TERMINATE sentinel.
                 old_mailbox = self._mailbox
@@ -420,12 +1007,58 @@ class _ActorRuntime:
                 return
             self.dead = True
             self.death_cause = "killed via ray_tpu_torch.kill()"
+            if self.use_process and self._proc is not None:
+                self._proc.kill()
             self._mailbox.put(_TERMINATE)
 
     def join(self, timeout=None):
         for t in list(self._threads):
             if t is not threading.current_thread():
                 t.join(timeout)
+
+
+class _ProcessActorProxy:
+    """``runtime.instance`` of a process-backed actor: a method access
+    gives a callable that calls into the actor's worker process
+    synchronously (a compiled DAG's exec loop runs in the driver and
+    calls its stages this way)."""
+
+    __slots__ = ("_rt",)
+
+    def __init__(self, runtime: "_ActorRuntime"):
+        self._rt = runtime
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        rt = self._rt
+
+        def _call(*args, **kwargs):
+            return rt._proxy_apply(name, args, kwargs)
+
+        _call.__name__ = name
+        return _call
+
+
+def _delete_keys(shm, keys):
+    for key in keys:
+        try:
+            shm.delete(key)
+        except Exception:  # noqa: BLE001 — already reclaimed
+            pass
+
+
+def _resolve_values(worker, args, kwargs):
+    """Top-level ObjectRefs resolved to values (an actor's init
+    arguments)."""
+
+    def _resolve(v):
+        if isinstance(v, ObjectRef):
+            return worker.get_object(v)
+        return v
+
+    return (tuple(_resolve(a) for a in args),
+            {k: _resolve(v) for k, v in kwargs.items()})
 
 
 def _resolve_actor_args(worker, call: _MethodCall):
@@ -504,8 +1137,22 @@ class ActorHandle:
                 f"{self._actor_id.hex()[:12]}…)")
 
 
+def _client_worker(worker):
+    """``worker`` if it is a worker process's ClientWorker, else None."""
+    from ray_tpu_torch._private.client_worker import ClientWorker
+
+    return worker if isinstance(worker, ClientWorker) else None
+
+
 def _rebuild_handle(actor_id: ActorID) -> ActorHandle:
-    runtime = global_worker().actors.get(actor_id)
+    worker = global_worker()
+    if _client_worker(worker) is not None:
+        # The handle crossed into a worker process: its calls go back
+        # through the driver's API service.
+        from ray_tpu_torch._private.client_worker import ClientActorHandle
+
+        return ClientActorHandle(actor_id)
+    runtime = worker.actors.get(actor_id)
     if runtime is None:
         raise RayActorError(actor_id, "actor not found in this runtime")
     return ActorHandle(runtime)
@@ -525,8 +1172,18 @@ class ActorClass:
         """Create the actor. Resource options (``num_cpus``,
         ``num_gpus``, ``resources``) and ``scheduling_strategy`` are
         accepted and reserve nothing, as actors in the reference's
-        process do not; ``lifetime`` is accepted too."""
+        process do not; ``lifetime`` is accepted too. ``runtime="driver"``
+        keeps the actor in the driver's process on the process plane."""
         worker = auto_init()
+        if _client_worker(worker) is not None:
+            # Inside a worker process: the driver owns every actor.
+            from ray_tpu_torch._private.client_worker import (
+                ClientActorHandle,
+            )
+
+            actor_id = worker.actor_create(self._cls, args, kwargs,
+                                           self._options)
+            return ClientActorHandle(actor_id, self._cls.__name__)
         opts = self._options
         actor_name = opts.get("name")
         namespace = opts.get("namespace", worker.namespace)
@@ -544,12 +1201,18 @@ class ActorClass:
         max_restarts = opts.get("max_restarts")
         if max_restarts is None:
             max_restarts = GlobalConfig.actor_max_restarts
+        if (getattr(worker, "shm_store", None) is not None
+                and opts.get("num_gpus") and opts.get("runtime") != "driver"):
+            from ray_tpu_torch._private.worker_pool import warn_no_card
+
+            warn_no_card("actor", self._cls.__name__, opts["num_gpus"])
         runtime = _ActorRuntime(
             actor_id, self._cls, args, kwargs,
             max_concurrency=opts.get("max_concurrency"),
             max_restarts=max_restarts,
             name=self._cls.__name__,
             actor_name=actor_name,
+            runtime_target=opts.get("runtime"),
         )
         worker.actors[actor_id] = runtime
         handle = ActorHandle(runtime)
@@ -570,6 +1233,10 @@ class ActorClass:
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
     worker = global_worker()
+    if _client_worker(worker) is not None:
+        from ray_tpu_torch._private.client_worker import ClientActorHandle
+
+        return ClientActorHandle(worker.actor_named(name, namespace), name)
     ns = namespace or worker.namespace
     handle = worker.named_actors.get((ns, name))
     if handle is not None and not handle._runtime.dead:

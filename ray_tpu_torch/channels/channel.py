@@ -1,10 +1,12 @@
-"""Channel implementations (copy of ``ray_tpu/channels/channel.py``,
-without the shared-memory channel of process-backed actors).
+"""Channel implementations (copy of ``ray_tpu/channels/channel.py``).
 
 Semantics mirror the reference's mutable-object channels: a write blocks
 until all readers of the previous version have consumed it (single
 outstanding version), each reader sees each version exactly once, and
-close() unblocks everyone with ChannelError.
+close() unblocks everyone with ChannelError. ``ShmBufferedChannel``
+crosses processes over the native shm store's mutable objects (values in
+stdlib pickle there, so host values); the others live in this process and
+pass values by reference.
 """
 
 from __future__ import annotations
@@ -150,6 +152,72 @@ class BufferedChannel(Channel):
     def close(self):
         for s in self._slots:
             s.close()
+
+
+class ShmBufferedChannel(Channel):
+    """Cross-process buffered channel: a ring of native shared-memory
+    mutable objects (the reference's BufferedSharedMemoryChannel role,
+    which keeps the driver out of the data path between worker-process
+    stages).
+
+    Every participating process builds its own instance over the SAME
+    slot ids (``create=True`` only in the allocating driver); cursors are
+    per process, which is sound as each edge has one writer process and
+    each reader id lives in one process. A timed-out read or write leaves
+    the cursors where they were, so a retry resumes cleanly."""
+
+    def __init__(self, store, slot_ids: List[int], max_size: int,
+                 num_readers: int = 1, create: bool = True):
+        from ray_tpu_torch._native.store import NativeMutableChannel
+
+        self.slot_ids = list(slot_ids)
+        self.max_size = max_size
+        self.num_readers = num_readers
+        self._slots = [
+            NativeMutableChannel(store, sid, max_size=max_size,
+                                 num_readers=num_readers, create=create)
+            for sid in slot_ids
+        ]
+        self._w = 0
+        self._r = [0] * num_readers
+
+    def spec(self) -> tuple:
+        """The wire description a peer process rebuilds the channel from."""
+        return (tuple(self.slot_ids), self.max_size, self.num_readers)
+
+    @classmethod
+    def attach(cls, store, spec: tuple) -> "ShmBufferedChannel":
+        slot_ids, max_size, num_readers = spec
+        return cls(store, list(slot_ids), max_size, num_readers,
+                   create=False)
+
+    def write(self, value: Any, timeout: Optional[float] = None):
+        from ray_tpu_torch._native.store import NativeError
+
+        slot = self._slots[self._w % len(self._slots)]
+        try:
+            slot.write(value, timeout)
+        except NativeError as e:
+            if e.code == -3:   # the payload exceeds a slot's capacity
+                raise ChannelError(
+                    f"payload exceeds the shm channel capacity "
+                    f"({self.max_size} bytes)") from None
+            raise
+        self._w += 1   # advanced only after success (retry-safe)
+
+    def read(self, reader_id: int = 0, timeout: Optional[float] = None):
+        slot = self._slots[self._r[reader_id] % len(self._slots)]
+        value = slot.read(reader_id, timeout)
+        self._r[reader_id] += 1
+        return value
+
+    def close(self):
+        for s in self._slots:
+            s.close()
+
+    def destroy(self):
+        for s in self._slots:
+            s.destroy()
 
 
 class CompositeChannel(Channel):

@@ -122,6 +122,19 @@ class ChannelTimeoutError(ChannelError, TimeoutError):
     pass
 
 
+class WorkerCrashedError(RayTpuError):
+    pass
+
+
+class WorkerPoolExhaustedError(RayTpuError):
+    """No worker process became idle within the lease deadline. System
+    condition (pool pressure), not a task failure — treated as retriable."""
+
+
+class OutOfMemoryError(RayTpuError):
+    pass
+
+
 class RequestSheddedError(RayTpuError):
     """The request was refused (or evicted pre-admission) by the load-
     shedding policy under overload, not a failure of the request itself.

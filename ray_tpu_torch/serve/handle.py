@@ -6,8 +6,8 @@ With tracing armed, ``remote`` is one ``serve.request`` span (routing,
 wake and submission) under the caller's ambient context, and an LLM
 deployment's request dict carries that span's context as ``_trace``.
 Not ported: the KV-polling stream fallback and the detached router,
-which serve handles that crossed a process boundary (they wait with the
-process plane).
+which serve handles that crossed a process boundary (the users of the
+process plane, ROADMAP A.5a).
 """
 
 from __future__ import annotations

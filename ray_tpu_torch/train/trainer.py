@@ -30,6 +30,7 @@ import torch
 
 import ray_tpu_torch as rt
 from ray_tpu_torch._private.log import get_logger
+from ray_tpu_torch._private.serialization import dumps_by_value
 from ray_tpu_torch._private.worker import global_worker
 from ray_tpu_torch.collective import collective
 from ray_tpu_torch.data.filesystem import resolve_filesystem
@@ -156,21 +157,22 @@ class DataParallelTrainer:
     def _save_trainer_state(self):
         """Persist enough to rebuild this trainer (loop and configs) so
         ``restore(uri)`` works from storage alone (``trainer.pkl`` in the
-        run directory). Stdlib pickle, as the card's machine has no
-        cloudpickle: a loop pickles by its import path, and a loop that
-        will not pickle (a closure) leaves no state."""
+        run directory). ``cloudpickle`` where it imports, as the
+        reference pickles it, so a loop that is a closure is stored by
+        value; else stdlib pickle, where a loop pickles by its import path
+        and a loop that will not pickle leaves no state."""
         root = self._storage_dir()
         if root is None:
             return
         try:
             # Dump INSIDE the guard: an unpicklable loop must not fail
             # fit(); restore() then requires an explicit loop argument.
-            state = pickle.dumps({
+            state = dumps_by_value({
                 "loop": self._loop,
                 "loop_config": self._loop_config,
                 "scaling": self._scaling,
                 "run_config": self._run_config,
-            }, protocol=5)
+            })
             fs, p = resolve_filesystem(root)
             fs.makedirs(p)
             with fs.open(p.rstrip("/") + "/trainer.pkl", "wb") as f:

@@ -20,9 +20,9 @@ Quickstart::
 
 ``chaos.snapshot()`` (and ``util.state.chaos_summary()``) reports the
 active config, per-site fault counters and every recorded kill;
-all-zero when chaos never ran. Not ported: ``worker_kill_target`` (the
-process plane, ROADMAP A.5a) and ``head_kill_target`` (the cluster,
-A.5b).
+all-zero when chaos never ran. ``worker_kill_target()`` SIGKILLs a
+worker process of the process plane's pool. Not ported:
+``head_kill_target`` (the cluster, A.5b).
 """
 
 from ray_tpu_torch._private.chaos import (  # noqa: F401
@@ -40,6 +40,7 @@ from ray_tpu_torch._private.chaos import (  # noqa: F401
     snapshot,
     uninstall,
     wire_counters,
+    worker_kill_target,
 )
 
 __all__ = [
@@ -57,4 +58,5 @@ __all__ = [
     "snapshot",
     "uninstall",
     "wire_counters",
+    "worker_kill_target",
 ]

@@ -43,6 +43,10 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private.serialization import (
+    cloudpickle_module,
+    dumps_by_value,
+)
 from ray_tpu_torch.data.filesystem import resolve_filesystem
 
 # Workflow status lifecycle (journaled and stored in meta.json).
@@ -57,22 +61,6 @@ HELD_KEY = "dag_held_in_process"
 # (root, workflow_id) -> (dag, step name): DAGs that pickle refused.
 _HELD_DAGS: Dict[Tuple[str, str], Tuple[Any, Optional[str]]] = {}
 _held_lock = threading.Lock()
-
-
-def _cloudpickle():
-    """The ``cloudpickle`` module, or None where it does not import."""
-    try:
-        import cloudpickle
-    except ImportError:
-        return None
-    return cloudpickle
-
-
-def _dumps(value: Any) -> bytes:
-    cp = _cloudpickle()
-    if cp is not None:
-        return cp.dumps(value)
-    return pickle.dumps(value, protocol=5)
 
 
 def _loads(data: bytes) -> Any:
@@ -159,9 +147,9 @@ class WorkflowStorage:
         reference's do."""
         key = (self.root, workflow_id)
         try:
-            data = _dumps(dag)
+            data = dumps_by_value(dag)
         except Exception:  # noqa: BLE001 — pickle's refusals vary in type
-            if _cloudpickle() is not None:
+            if cloudpickle_module() is not None:
                 raise
             with _held_lock:
                 _HELD_DAGS[key] = (dag, _unpicklable_step(dag))
@@ -301,7 +289,7 @@ class WorkflowStorage:
             return False, existing
         token = uuid.uuid4().hex
         base = f"{workflow_id}/steps/{step_id}"
-        self._write(f"{base}/output.{token}.pkl", _dumps(value))
+        self._write(f"{base}/output.{token}.pkl", dumps_by_value(value))
         marker = dict(meta or {})
         marker["token"] = token
         marker["committed_at"] = time.time()
@@ -332,7 +320,7 @@ class WorkflowStorage:
 
     # ------------------------------------------------------- final result
     def save_result(self, workflow_id: str, value: Any) -> None:
-        self._write(f"{workflow_id}/result.pkl", _dumps(value))
+        self._write(f"{workflow_id}/result.pkl", dumps_by_value(value))
 
     def load_result(self, workflow_id: str) -> Any:
         raw = self._read(f"{workflow_id}/result.pkl")
@@ -356,7 +344,7 @@ class WorkflowStorage:
         when a concurrent writer committed this seq first."""
         token = uuid.uuid4().hex
         base = f"virtual_actors/{actor_id}"
-        self._write(f"{base}/state.{token}.pkl", _dumps(state))
+        self._write(f"{base}/state.{token}.pkl", dumps_by_value(state))
         won = self._write_if_absent(
             f"{base}/commit.{seq:08d}.json", json.dumps(
                 {"token": token, "seq": seq,

@@ -276,9 +276,8 @@ def test_trainer_callbacks_log_the_result_stream(runtimes, tmp_path):
 
 # --------------------------------------------- storage URIs and restore
 def _resume_loop(config):
-    """A module-level loop, so that stdlib pickle stores it in
-    ``trainer.pkl`` (the port has no cloudpickle) and ``restore`` finds it
-    without being handed it."""
+    """A module-level loop: ``trainer.pkl`` stores it by its import path
+    and ``restore`` finds it without being handed it."""
     train = SIDES[config["side"]].train
     prev = train.get_checkpoint()
     start = prev.to_dict()["step"] if prev is not None else 0
@@ -306,6 +305,39 @@ def test_trainer_restore_from_uri(runtimes):
     assert _both(case) == ("ok", (
         {"step": 2, "resumed_from": 0}, {"step": 4, "resumed_from": 2},
         {"step": 2}, 4, True))
+
+
+def test_closure_loop_restores_from_storage_alone(runtimes):
+    """A loop that is a closure goes into ``trainer.pkl`` by value
+    (``cloudpickle``), so ``restore`` rebuilds it from storage alone and
+    resumes from the latest checkpoint."""
+    def case(s):
+        offset = 10
+
+        def loop(config):
+            prev = s.train.get_checkpoint()
+            start = prev.to_dict()["step"] if prev is not None else 0
+            for i in (1, 2):
+                step = start + i
+                s.train.report({"step": step, "value": step + offset,
+                                "scale": config["scale"]},
+                               checkpoint=s.train.Checkpoint.from_dict(
+                                   {"step": step}))
+
+        result = s.Trainer(
+            loop, train_loop_config={"scale": 3},
+            scaling_config=s.train.ScalingConfig(num_workers=1),
+            run_config=s.train.RunConfig(name="closure",
+                                         storage_path="memory://cl")).fit()
+        restored = s.Trainer.restore("memory://cl/closure")
+        result2 = restored.fit()
+        return (result.metrics, result2.metrics,
+                restored._restore_from.to_dict(),
+                restored._loop is not loop)
+
+    assert _both(case) == ("ok", (
+        {"step": 2, "value": 12, "scale": 3},
+        {"step": 4, "value": 14, "scale": 3}, {"step": 2}, True))
 
 
 def test_restore_without_state_needs_the_loop(runtimes):
