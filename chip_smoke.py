@@ -503,7 +503,40 @@ non-zero without printing a result. Without a CUDA card, or without the
    PROC_TRAIN_STEPS - 1 steps after the first, beside the thread-fed
    step's.
 
-``--only process`` runs phase 19 alone, ``--only util`` phase 18,
+20. cluster: the cluster's control plane, at the flagship's full width
+   and depth (bf16, 4 x 2048 tokens a step). A port head starts
+   (python -m ray_tpu_torch._private.head_service --port 0 --state
+   <tmp>); this driver attaches on the process plane with tracing and
+   the flight recorder armed, and hosts the named actor
+   "flagship_trainer" (runtime="driver": make_train_step on cuda:0). (a)
+   A peer driver (a subprocess with CUDA_VISIBLE_DEVICES="") attaches to
+   the same head, puts and announces CLUSTER_STEPS seeded token batches
+   (CPU tensors) and calls get_actor("flagship_trainer").step.remote(ref)
+   for each; the actor pulls each batch through the head. Its losses
+   equal a direct loop in this driver on the same batches bit for bit,
+   with the forward, dQ and dK/dV launched 4 / 4 / 4 times a step on the
+   tensor cores and no plain route; the peer never initialised CUDA. (b)
+   The actor publishes each step's loss on a topic the peer subscribed
+   to: the peer receives all CLUSTER_STEPS, in order. (c) The peer is
+   SIGKILLed: within the head's client timeout its client leaves
+   cluster_info, and the trainer still answers this driver; then the
+   head is SIGKILLed and restarted on the same port and --state: this
+   driver's client reconnects, the head resolves "flagship_trainer" to
+   it again, and a further step relayed through the head equals the
+   direct loop's step CLUSTER_STEPS + 1. (d) A compiled DAG of two
+   process-backed actor stages on the shm plane (a seeded draw, then the
+   shift into inputs and labels) builds CLUSTER_DAG_STEPS batches that
+   this driver feeds to a fresh step: the losses equal the direct loop's;
+   a traced task's worker.exec span (in a worker process) appears in
+   timeline(trace_id), and the worker processes' flight bundles in
+   debug_dump(). Smoke readings: head boot s; the relayed trivial call's
+   round trip p50 / p99 (at the peer); the step p50 through the relay
+   (at the peer and in the actor) beside the direct loop's; a 64 MiB
+   object pulled from the peer in GB/s; the head's restart and the
+   client's reconnect in s.
+
+``--only cluster`` runs phase 20 alone, ``--only process`` phase 19,
+``--only util`` phase 18,
 ``--only tune`` phase 17, ``--only
 data`` phase 16, ``--only observe`` phase 15 and ``--only rl --armed``
 phase 12 under the flight recorder and its stack sampler (kernels build
@@ -862,6 +895,20 @@ PROC_TRAIN_STEPS, PROC_KILL_BATCH = 24, 1
 PROC_BOOTS, PROC_ROUND_TRIPS = 5, 50
 PROC_SHM_BYTES, PROC_SHM_ITERS = 64 << 20, 5
 PROC_POLL_S = 60.0
+
+# Phase 20 (cluster): CLUSTER_STEPS relayed flagship steps, one more
+# after the head's restart, CLUSTER_DAG_STEPS fed by the shm DAG;
+# CLUSTER_RELAY_CALLS trivial relayed calls for the round trip;
+# CLUSTER_PULL_BYTES pulled across drivers; the head's client timeout
+# (a dead peer's entries leave within it); every wait bounded by
+# CLUSTER_POLL_S.
+CLUSTER_STEPS, CLUSTER_DAG_STEPS = 24, 8
+CLUSTER_RELAY_CALLS = 200
+CLUSTER_PULL_BYTES = 64 << 20
+CLUSTER_CLIENT_TIMEOUT_S = 3.0
+CLUSTER_POLL_S = 60.0
+CLUSTER_ACTOR = "flagship_trainer"
+CLUSTER_TOPIC = "chip_smoke:losses"
 
 
 _STARTED = time.perf_counter()
@@ -7768,6 +7815,500 @@ def phase_process(dev, card, cfg):
     return result
 
 
+def _cluster_batch(i, vocab, batch, length):
+    """Phase 20's batch ``i``: [batch, length] seeded int64 tokens on the
+    CPU (inputs are ``[:, :-1]``, labels ``[:, 1:]``)."""
+    rng = np.random.default_rng(SEED + 20_000 + i)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, length)))
+
+
+class _ClusterTrainer:
+    """Phase 20's named actor: make_train_step on its device. ``step``
+    takes a batch (pulled through the head when another driver sent it),
+    publishes ``[i, loss]`` on ``topic`` and returns the loss."""
+
+    def __init__(self, cfg, dev, topic, params=None):
+        from ray_tpu_torch import models as tm
+
+        self.params = (params if params is not None
+                       else tm.init_params(cfg, SEED, device=dev))
+        self.step_fn = tm.make_train_step(cfg, self.params)
+        self.dev, self.topic = torch.device(dev), topic
+        self.steps, self.step_s = 0, []
+
+    def ping(self):
+        return self.steps
+
+    def step(self, tokens):
+        from ray_tpu_torch.util import pubsub
+
+        t = torch.as_tensor(tokens).to(self.dev)
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        loss = self.step_fn(t[:, :-1], t[:, 1:]).item()
+        self.step_s.append(time.perf_counter() - t0)
+        pubsub.publish(self.topic, [self.steps, loss])
+        self.steps += 1
+        return loss
+
+    def step_seconds(self):
+        return list(self.step_s)
+
+
+def _cluster_peer(spec_json: str) -> int:
+    """Phase 20's peer driver (a subprocess: ``python -c "import
+    chip_smoke, sys; sys.exit(chip_smoke._cluster_peer(sys.argv[1]))"
+    SPEC``). It attaches to the head at spec["address"], subscribes to
+    the topic, times spec["relay_calls"] relayed pings, puts, announces
+    and steps spec["steps"] batches through get_actor(spec["actor"]),
+    reads the topic, then announces a spec["pull_bytes"] object (none for
+    0); batches start at spec.get("first", 0), and with spec["go"] it
+    puts spec["key"] + "/attached" and waits for that go key before it
+    resolves the actor. Its results go to
+    the KV under spec["key"] as JSON. It holds its objects
+    until spec["key"] + "/done" appears or it is killed."""
+    import traceback
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import pubsub
+
+    spec = json.loads(spec_json)
+    w = rt.init(num_cpus=1, address=spec["address"])
+    out = {"pid": os.getpid(), "client": w.head_client.client_id}
+    poll = spec["poll_s"]
+    try:
+        if spec.get("go"):
+            w.kv_put((spec["key"] + "/attached").encode(), b"1")
+            deadline = time.monotonic() + 4 * poll
+            while w.kv_get(spec["go"].encode()) is None:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("no go key")
+                time.sleep(0.05)
+        # (A subscription made before a head restart is re-asserted by
+        # the next heartbeat: a message published before that is lost,
+        # at most once as in the reference. Subscribe after the go.)
+        sub = pubsub.subscribe(spec["topic"])
+        deadline = time.monotonic() + poll
+        while True:
+            try:
+                trainer = rt.get_actor(spec["actor"])
+                break
+            except ValueError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+        out["handle"] = type(trainer).__name__
+        rt.get(trainer.ping.remote(), timeout=poll)
+        trips = []
+        for _ in range(spec["relay_calls"]):
+            t0 = time.perf_counter()
+            rt.get(trainer.ping.remote(), timeout=poll)
+            trips.append(time.perf_counter() - t0)
+        losses, step_s = [], []
+        for i in range(spec.get("first", 0),
+                       spec.get("first", 0) + spec["steps"]):
+            ref = rt.put(_cluster_batch(i, spec["vocab"], spec["batch"],
+                                        spec["length"]))
+            rt.announce_object(ref)
+            t0 = time.perf_counter()
+            losses.append(rt.get(trainer.step.remote(ref), timeout=poll))
+            step_s.append(time.perf_counter() - t0)
+        msgs = [sub.get(timeout=poll) for _ in range(spec["steps"])]
+        if spec["pull_bytes"]:
+            big = np.random.default_rng(SEED + 20_001).integers(
+                0, 256, spec["pull_bytes"], dtype=np.uint8)
+            bref = rt.put(big)
+            rt.announce_object(bref)
+            out.update(big_oid=bref.hex(),
+                       big_sum=int(big.sum(dtype=np.int64)))
+        out.update(losses=losses, step_s=step_s, trips_s=trips,
+                   msgs=[list(m) for m in msgs],
+                   cuda_initialized=torch.cuda.is_initialized(),
+                   cuda_available=torch.cuda.is_available(),
+                   visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+    except BaseException:  # noqa: BLE001 — reported to the smoke driver
+        out["error"] = traceback.format_exc()
+    w.kv_put(spec["key"].encode(), json.dumps(out).encode())
+    done = (spec["key"] + "/done").encode()
+    deadline = time.monotonic() + spec["hold_s"]
+    while time.monotonic() < deadline and w.kv_get(done) is None:
+        time.sleep(0.05)
+    rt.shutdown()
+    return 0 if "error" not in out else 1
+
+
+def _cluster_env(**extra):
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def _start_head(state, port=0, env=None):
+    """A port head process on ``port`` over ``state``: (process, address,
+    seconds to its address line)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch._private.head_service",
+         "--port", str(port), "--state", state],
+        stdout=subprocess.PIPE, text=True, env=env or _cluster_env())
+    try:
+        line = _read_line(proc, CLUSTER_POLL_S)
+    except TimeoutError:
+        line = None
+    if line is None or not line.startswith(
+            "ray_tpu_torch head listening on "):
+        proc.kill()
+        proc.wait(timeout=10)
+        raise RuntimeError(f"the head did not start within "
+                           f"{CLUSTER_POLL_S} s: {line!r}")
+    return proc, line.strip().rsplit(" ", 1)[-1], time.perf_counter() - t0
+
+
+def _read_line(proc, bound):
+    """The next line of ``proc``'s piped stdout, or TimeoutError past
+    ``bound`` seconds (the process is left running)."""
+    import selectors
+
+    with selectors.DefaultSelector() as sel:
+        sel.register(proc.stdout, selectors.EVENT_READ)
+        if not sel.select(timeout=bound):
+            raise TimeoutError(f"no line from pid {proc.pid} within "
+                               f"{bound} s")
+    return proc.stdout.readline()
+
+
+def _start_peer(spec):
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke._cluster_peer(sys.argv[1]))",
+         json.dumps(spec)],
+        env=_cluster_env(CUDA_VISIBLE_DEVICES=""))
+
+
+def _wait_json(w, key, peer, bound):
+    deadline = time.monotonic() + bound
+    while time.monotonic() < deadline:
+        raw = w.kv_get(key.encode())
+        if raw is not None:
+            return json.loads(raw)
+        if peer.poll() is not None:
+            raise RuntimeError(f"the peer driver exited ({peer.returncode}) "
+                               f"before reporting")
+        time.sleep(0.05)
+    raise TimeoutError(f"the peer driver did not report within {bound} s")
+
+
+def _cluster_direct(cfg, dev, n):
+    """The oracle: make_train_step in this driver on batches 0..n-1
+    (inputs and labels shifted here). Returns the losses and step
+    seconds."""
+    from ray_tpu_torch import models as tm
+
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, step_s = [], []
+    for i in range(n):
+        t = _cluster_batch(i, cfg.vocab_size, TRAIN_BATCH,
+                           TRAIN_LEN + 1).to(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(step(t[:, :-1], t[:, 1:]).item())
+        step_s.append(time.perf_counter() - t0)
+    del params, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses, step_s
+
+
+class _DagDraw:
+    """Phase 20 (d)'s first stage: batch ``i`` (a seeded draw)."""
+
+    def __init__(self, vocab, batch, length):
+        self.shape = (vocab, batch, length)
+
+    def draw(self, i):
+        return (os.getpid(), _cluster_batch(i, *self.shape).numpy())
+
+
+class _DagShift:
+    """Phase 20 (d)'s second stage: the shift into inputs and labels."""
+
+    def shift(self, drawn):
+        pid, tokens = drawn
+        return ([pid, os.getpid()], np.ascontiguousarray(tokens[:, :-1]),
+                np.ascontiguousarray(tokens[:, 1:]))
+
+
+def _cluster_nop(x):
+    return x + 1
+
+
+def _cluster_dag(rt, cfg, dev, direct, tmp, draw, shift):
+    """Phase 20 (d): the shm DAG over the process-backed actors ``draw``
+    and ``shift`` feeds a fresh step; a traced task's worker span and the
+    workers' flight bundles reach this driver."""
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.dag import InputNode
+
+    checks, out = {}, {}
+    with InputNode() as inp:
+        dag = shift.shift.bind(draw.draw.bind(inp))
+    compiled = dag.experimental_compile(
+        backend="actor",
+        channel_bytes=4 * TRAIN_BATCH * (TRAIN_LEN + 1) * 8)
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, pids = [], set()
+    try:
+        checks["d_shm_plane"] = bool(compiled._shm_mode)
+        for i in range(CLUSTER_DAG_STEPS):
+            stage_pids, inputs, labels = compiled.execute(i).get(
+                timeout=CLUSTER_POLL_S)
+            pids.update(stage_pids)
+            losses.append(step(torch.from_numpy(inputs).to(dev),
+                               torch.from_numpy(labels).to(dev)).item())
+    finally:
+        compiled.teardown()
+    del params, step
+    checks["d_stages_in_two_worker_processes"] = (
+        len(pids) == 2 and os.getpid() not in pids)
+    checks["d_losses_equal_thread_fed"] = (
+        losses == direct[:CLUSTER_DAG_STEPS])
+    out["d"] = {"losses": losses, "stage_pids": sorted(pids)}
+    # A traced task: its worker.exec span, recorded in the worker
+    # process, reaches timeline(trace_id) through the session's traces
+    # directory.
+    nop = rt.remote(_cluster_nop)
+    with tracing.start_span("chip_smoke_cluster") as root:
+        rt.get(nop.remote(1), timeout=CLUSTER_POLL_S)
+    events = []
+    deadline = time.monotonic() + CLUSTER_POLL_S
+    while time.monotonic() < deadline:
+        events = [e for e in rt.timeline(trace_id=root.ctx.trace_id)
+                  if e.get("name") == "worker.exec"]
+        if events:
+            break
+        time.sleep(0.05)
+    checks["d_worker_span_in_timeline"] = bool(events) and all(
+        e["pid"] != os.getpid() for e in events)
+    incident = rt.debug_dump(os.path.join(tmp, "dump"))
+    with open(os.path.join(incident, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    driver = manifest["sources"].get("driver", {})
+    checks["d_worker_bundles_in_debug_dump"] = (
+        driver.get("num_workers", 0) >= 1
+        and "head" in manifest["sources"])
+    out["d"].update(worker_spans=len(events),
+                    dump_sources=sorted(manifest["sources"]),
+                    worker_bundles=driver.get("num_workers", 0))
+    return checks, out
+
+
+def _p99(xs):
+    xs = sorted(xs)
+    return xs[min(int(0.99 * len(xs)), len(xs) - 1)] if xs else None
+
+
+def phase_cluster(dev, card, cfg):
+    """Phase 20 (module docstring). The peers' boots overlap the work
+    before them: the first peer starts with the head (it waits for the
+    trainer's name), the second before the failures of (c) (it waits for
+    a key to step after the head's restart), and (d)'s actors spawn while
+    (c) waits for the dead peer to leave."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch._private.worker import ObjectRef
+    from ray_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    fa = _flash_module()
+    checks, out, readings, part_s = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":   # both at once (built already in the script)
+        _build.build_all(("flash_attention_fwd_wgmma",
+                          "flash_attention_bwd_wgmma"))
+    part_s["build"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    state = os.path.join(tmp, "head_state.log")
+    # Tracing and the flight recorder armed for the head, the drivers
+    # and the worker processes (the environment inherits).
+    armed = {k: os.environ.get(k) for k in (
+        "RAY_TPU_TRACE", "RAY_TPU_FLIGHT")}
+    os.environ["RAY_TPU_TRACE"] = os.environ["RAY_TPU_FLIGHT"] = "1"
+    head_env = _cluster_env(
+        RAY_TPU_HEAD_CLIENT_TIMEOUT_S=str(CLUSTER_CLIENT_TIMEOUT_S))
+    peer = peer2 = head = head2 = None
+    rt.shutdown()
+    try:
+        t0 = time.perf_counter()
+        head, address, readings["head_boot_s"] = _start_head(
+            state, env=head_env)
+        port = int(address.rsplit(":", 1)[1])
+        key = "chip_smoke/cluster/peer"
+        spec = {"address": address, "actor": CLUSTER_ACTOR,
+                "topic": CLUSTER_TOPIC, "key": key,
+                "steps": CLUSTER_STEPS, "relay_calls": CLUSTER_RELAY_CALLS,
+                "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+                "length": TRAIN_LEN + 1, "pull_bytes": CLUSTER_PULL_BYTES,
+                "poll_s": CLUSTER_POLL_S, "hold_s": 4 * CLUSTER_POLL_S}
+        peer = _start_peer(spec)
+        # The oracle: the direct loop, one step more than the relay's.
+        direct, direct_s = _cluster_direct(cfg, dev, CLUSTER_STEPS + 1)
+        part_s["direct"] = time.perf_counter() - t0
+        # (a) + (b): the peer drives the trainer through the head.
+        t0 = time.perf_counter()
+        w = rt.init(num_cpus=4, worker_mode="process", address=address)
+        _zero_counts()
+        plain = fa.plain_routes
+        trainer = rt.remote(runtime="driver")(_ClusterTrainer).options(
+            name=CLUSTER_ACTOR).remote(cfg, dev, CLUSTER_TOPIC)
+        got = _wait_json(w, key, peer, 4 * CLUSTER_POLL_S)
+        counts, plain_t = _counts(), fa.plain_routes - plain
+        if "error" in got:
+            raise AssertionError(f"phase 20's peer failed:\n{got['error']}")
+        losses = got["losses"]
+        want = _want_counts("wgmma", CLUSTER_STEPS * L, CLUSTER_STEPS * L)
+        checks["a_handle_is_cross_driver"] = (
+            got["handle"] == "CrossDriverActorHandle")
+        checks["a_losses_bit_equal_direct"] = (
+            losses == direct[:CLUSTER_STEPS])
+        checks["a_launches_per_step"] = counts == want
+        checks["a_plain_routes_0"] = plain_t == 0
+        checks["a_peer_never_initialised_cuda"] = (
+            not got["cuda_initialized"] and not got["cuda_available"]
+            and got["visible"] == "")
+        checks["b_messages_in_order"] = got["msgs"] == [
+            [i, loss] for i, loss in enumerate(losses)]
+        out["a"] = {"losses": losses, "direct_losses": direct,
+                    "launches_per_step": {k: v / CLUSTER_STEPS
+                                          for k, v in counts.items() if v},
+                    "plain_routes": plain_t, "peer_pid": got["pid"]}
+        actor_s = rt.get(trainer.step_seconds.remote(),
+                         timeout=CLUSTER_POLL_S)
+        readings.update({
+            "relay_round_trip_ms_p50": _p50(got["trips_s"]) * 1e3,
+            "relay_round_trip_ms_p99": _p99(got["trips_s"]) * 1e3,
+            "relayed_step_ms_p50_at_peer": _p50(got["step_s"][1:]) * 1e3,
+            "relayed_step_ms_p50_in_actor": _p50(actor_s[1:]) * 1e3,
+            "direct_step_ms_p50": _p50(direct_s[1:]) * 1e3,
+            "relayed_step_ms_at_peer": [x * 1e3 for x in got["step_s"]]})
+        # The 64 MiB object, pulled from the peer's object server.
+        t1 = time.perf_counter()
+        big = rt.get(ObjectRef(ObjectID.from_hex(got["big_oid"])),
+                     timeout=CLUSTER_POLL_S)
+        pull_s = time.perf_counter() - t1
+        checks["a_big_object_equal"] = (
+            big.nbytes == CLUSTER_PULL_BYTES
+            and int(big.sum(dtype=np.int64)) == got["big_sum"])
+        readings["pull_64MiB_GBps"] = CLUSTER_PULL_BYTES / pull_s / 1e9
+        del big
+        part_s["a"] = time.perf_counter() - t0
+        # (c) The second peer boots (it steps after the head's restart),
+        # and (d)'s stage actors spawn, while the first peer dies: its
+        # client leaves cluster_info within the head's client timeout,
+        # and the trainer still answers here.
+        t0 = time.perf_counter()
+        key2 = key + "/after_restart"
+        peer2 = _start_peer(dict(spec, key=key2, first=CLUSTER_STEPS,
+                                 steps=1, relay_calls=0, pull_bytes=0,
+                                 go=key2 + "/go"))
+        draw = rt.remote(_DagDraw).remote(cfg.vocab_size, TRAIN_BATCH,
+                                          TRAIN_LEN + 1)
+        shift = rt.remote(_DagShift).remote()
+        hc = w.head_client
+        peer.send_signal(signal.SIGKILL)
+        peer.wait(timeout=CLUSTER_POLL_S)
+        t1 = time.monotonic()
+        gone = False
+        while time.monotonic() - t1 < CLUSTER_CLIENT_TIMEOUT_S + 3.0:
+            if got["client"] not in hc.cluster_info()["clients"]:
+                gone = True
+                break
+            time.sleep(0.1)
+        readings["dead_peer_gone_s"] = time.monotonic() - t1
+        checks["c_dead_peer_leaves_cluster_info"] = gone
+        checks["c_trainer_answers_after_peer_kill"] = rt.get(
+            trainer.ping.remote(), timeout=CLUSTER_POLL_S) == CLUSTER_STEPS
+        # The head dies (once the second peer is attached) and restarts
+        # on its port and state log; this driver's client reconnects and
+        # the head resolves the trainer to it again; the second peer,
+        # reconnected too, resolves it through the new head and steps
+        # batch CLUSTER_STEPS.
+        _wait_json(w, key2 + "/attached", peer2, 4 * CLUSTER_POLL_S)
+        head.send_signal(signal.SIGKILL)
+        head.wait(timeout=CLUSTER_POLL_S)
+        t1 = time.perf_counter()
+        head2, _, readings["head_restart_boot_s"] = _start_head(
+            state, port=port, env=head_env)
+        entry = None
+        deadline = time.monotonic() + CLUSTER_POLL_S
+        while entry is None and time.monotonic() < deadline:
+            try:
+                entry = hc.actor_lookup("default", CLUSTER_ACTOR)
+            except ConnectionError:
+                time.sleep(0.1)
+        readings["head_reresolve_s"] = time.perf_counter() - t1
+        checks["c_head_resolves_trainer_after_restart"] = (
+            entry is not None and entry[0] == hc.client_id)
+        w.kv_put((key2 + "/go").encode(), b"1")
+        got2 = _wait_json(w, key2, peer2, 4 * CLUSTER_POLL_S)
+        if "error" in got2:
+            raise AssertionError(
+                f"phase 20's second peer failed:\n{got2['error']}")
+        readings["second_peer_step_after_restart_s"] = (
+            time.perf_counter() - t1)
+        loss25 = got2["losses"][0]
+        checks["c_step_after_restart_equals_direct"] = (
+            loss25 == direct[CLUSTER_STEPS])
+        checks["c_second_peer_message"] = got2["msgs"] == [
+            [CLUSTER_STEPS, loss25]]
+        checks["c_head_epoch_2"] = hc.head_epoch == 2
+        out["c"] = {"loss_after_restart": loss25, "epoch": hc.head_epoch}
+        w.kv_put((key2 + "/done").encode(), b"1")
+        peer2.wait(timeout=CLUSTER_POLL_S)
+        rt.kill(trainer)
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        part_s["c"] = time.perf_counter() - t0
+        # (d) The shm DAG; the workers' spans and bundles.
+        t0 = time.perf_counter()
+        c, d_out = _cluster_dag(rt, cfg, dev, direct, tmp, draw, shift)
+        checks.update(c)
+        out.update(d_out)
+        part_s["d"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        for k, v in armed.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for proc in (peer, peer2, head, head2):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {
+        "phase": "cluster", "config": {
+            "d_model": cfg.d_model, "n_layers": L,
+            "dtype": _dtype_name(cfg.dtype),
+            "train_batch": [TRAIN_BATCH, TRAIN_LEN],
+            "steps": CLUSTER_STEPS, "dag_steps": CLUSTER_DAG_STEPS,
+            "client_timeout_s": CLUSTER_CLIENT_TIMEOUT_S},
+        "checks": checks, **out, "readings": readings, "part_s": part_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 20 (cluster) failed {failed}")
+    return result
+
+
 def _deciles_ms(xs):
     """p10, p50 and p90 of ``xs`` seconds, in ms (nearest rank)."""
     xs = sorted(xs)
@@ -7805,7 +8346,7 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``process`` is phase 19, ``util`` phase 18, ``tune`` phase 17,
+    ``cluster`` is phase 20, ``process`` phase 19, ``util`` phase 18, ``tune`` phase 17,
     ``data`` phase 16,
     ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
@@ -7828,6 +8369,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "process":
         phase_process(dev, card, TransformerConfig())
+        return
+    if name == "cluster":
+        phase_cluster(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -7855,10 +8399,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
     ap.add_argument("--only",
-                    choices=("process", "util", "tune", "data", "observe",
-                             "rl"),
-                    help="run one phase alone: 19 (process), 18 (util), 17 "
-                         "(tune), 16 (data), 15 (observe) or 12 (rl)")
+                    choices=("cluster", "process", "util", "tune", "data",
+                             "observe", "rl"),
+                    help="run one phase alone: 20 (cluster), 19 (process), "
+                         "18 (util), 17 (tune), 16 (data), 15 (observe) or "
+                         "12 (rl)")
     ap.add_argument("--armed", action="store_true",
                     help="with --only rl: the flight recorder and its "
                          "stack sampler armed through the phase")
@@ -7916,6 +8461,7 @@ def main(argv=None) -> int:
     tune = phase_tune(dev, card, flagship)
     util = phase_util(dev, card, flagship)
     phase_process(dev, card, flagship)
+    cluster = phase_cluster(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -8258,6 +8804,11 @@ def main(argv=None) -> int:
                     "launches_per_step"][kind.replace("fwd_", "")],
                 "per_serve_batch": util["b"]["launches"][
                     kind.replace("fwd_", "")] / util["b"]["batches"]}
+            # Phase 20's: a step relayed through the head from a second
+            # driver.
+            row["launches_cluster"] = {
+                "per_relayed_step": cluster["a"]["launches_per_step"].get(
+                    kind.replace("fwd_", ""), 0.0)}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

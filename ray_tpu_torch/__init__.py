@@ -29,7 +29,12 @@ storage URIs, group restarts and ``restore``, fed by a ``Dataset``
 streamed onto the card (``iter_torch_batches``); the observability plane:
 task events, tracing (``util.tracing``), the flight recorder, the
 metrics registry (``util.metrics``) and the state API (``util.state``),
-read through ``timeline`` and ``debug_dump``; ``util``'s placement
+read through ``timeline`` and ``debug_dump``; the cluster's control
+plane (a head service, ``python -m ray_tpu_torch._private.head_service``,
+that drivers attach to with ``init(address="host:port")``: a
+cluster-global KV, named actors called across drivers, objects pulled
+across drivers with ``announce_object``, pub/sub, and a head restart
+survived); ``util``'s placement
 groups, scheduling strategies and pub/sub, with its ``sanitizer``
 (host-plane invariant checks), ``loadgen`` (seeded traffic shapes) and
 ``chaos`` (seeded fault decisions and process kills); ``tune`` (the Tuner and its
@@ -92,6 +97,14 @@ def cluster_resources():
     return global_worker().resource_pool.total
 
 
+def announce_object(ref) -> None:
+    """Publish an object to the head's object directory so other
+    attached drivers can ``get`` it (needs ``init(address=...)``)."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    global_worker().announce_object(ref)
+
+
 def timeline(trace_id=None, filename=None):
     """Chrome-tracing JSON. Without ``trace_id``: the task-event timeline
     (one event per task or actor call that ran to FINISHED or FAILED).
@@ -132,6 +145,7 @@ __all__ = [
     "ObjectRef",
     "ObjectRefGenerator",
     "RemoteFunction",
+    "announce_object",
     "available_resources",
     "cancel",
     "cluster_resources",

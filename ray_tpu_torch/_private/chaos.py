@@ -8,17 +8,18 @@ Two layers:
   (drop, delay, dup, corrupt, reset) come from one seeded
   ``random.Random``, so a run is reproducible, and per-(site, fault)
   counters record every decision. The reference's transport consults the
-  slot on every frame send (``ChaosInjector.on_send``); the port has no
-  transport yet, so the frame hook and the cells that open sockets wait
-  for it (ROADMAP A.5b). The slot lives here until then.
+  slot on every frame send (``ChaosInjector.on_send``); the port's
+  transport (``_private/transport.py``) has no frame hook yet: the hook
+  and the cells that open sockets come with the node plane's wire faults
+  (ROADMAP A.5b). The slot lives here until then.
 
 - **Process faults** (:class:`NodeKiller` / :class:`ChaosController`):
   a seeded schedule thread that SIGKILLs a random target (a subprocess,
   or whatever pid a callable resolves) at jittered intervals during a
   live workload, recording every kill. ``stop()`` joins the thread
   (bounded). ``worker_kill_target`` SIGKILLs a worker process of the
-  process plane's pool. Not ported: ``head_kill_target`` (the head,
-  A.5b).
+  process plane's pool. Not ported: ``head_kill_target`` (with the node
+  plane's daemon kills, A.5b).
 
 Activation: the ``RAY_TPU_CHAOS`` env var (a JSON object) through
 :func:`install_from_env`, or :func:`install` / :func:`uninstall` from a

@@ -203,3 +203,22 @@ _D("memory_monitor_threshold", float, 0.95,
 _D("object_store_memory_bytes", int, 512 * 1024 * 1024,
    "Host bytes the driver's object store holds before it spills sealed "
    "host payloads to disk (device tensors neither spill nor count).")
+# The cluster's control plane (the head service, its client, the
+# transport and the object server).
+_D("dep_wait_s", float, 300.0,
+   "Bound on waiting for an object another driver has not announced "
+   "yet (get() with no timeout); GetTimeoutError past it "
+   "(RAY_TPU_DEP_WAIT_S).")
+_D("head_client_timeout_s", float, 5.0,
+   "Heartbeat silence after which the head marks a client dead and "
+   "collects its named actors and objects.")
+_D("head_log_compact_records", int, 50000,
+   "Compact the head's append-only state log once it holds this many "
+   "records (snapshot + truncate; 0 disables compaction).")
+_D("head_addresses", str, "",
+   "Comma-separated head addresses, primary first then standbys "
+   "(RAY_TPU_HEAD_ADDRESSES), merged into every HeadClient's dial "
+   "list.")
+_D("flight_spill_max_records", int, 8,
+   "Past this many snapshot lines a worker's bundle spill file restarts "
+   "at the newest window.")

@@ -31,9 +31,12 @@ Both are read at ``init()``.
 None of the recorder's threads makes a CUDA call: the sampler and the
 watchdog walk Python frames and read host counters, and a section
 renderer reads host state only, so they can run beside a CUDA graph
-capture. Not ported: the bundle spill of worker processes
-(``spill_once``, the spill loop, ``read_spilled_bundles``), one of the
-process plane's users (ROADMAP A.5a). The bundle's ``chaos`` entry is
+capture. A worker process of the process plane, which nothing can
+dial, spills a bundle snapshot into ``RAY_TPU_FLIGHT_DIR`` every
+``_SPILL_PERIOD_S`` seconds (``spill_once``); the hosting runtime's
+``debug_dump`` merges the newest snapshot of each
+(``read_spilled_bundles``, ``local_bundle(include_dir=True)``). The
+bundle's ``chaos`` entry is
 the chaos plane's ``wire_counters()`` (``{}`` with no injector
 installed).
 """
@@ -50,6 +53,7 @@ import tempfile
 import threading
 import time
 import traceback
+import uuid
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
@@ -59,11 +63,18 @@ __all__ = [
     "note_lock_acquired", "note_lock_released", "note_task_started",
     "note_task_finished", "note_watchdog_fire", "add_section",
     "remove_section", "note_artifact", "local_bundle", "auto_dump",
-    "set_profiling", "collapsed_stacks",
+    "set_profiling", "collapsed_stacks", "read_spilled_bundles",
 ]
 
 ENV_VAR = "RAY_TPU_FLIGHT"
 ENV_PROFILE = "RAY_TPU_PROFILE"
+# Dump and spill directory; worker processes inherit it.
+ENV_DIR = "RAY_TPU_FLIGHT_DIR"
+# Marks ENV_DIR as pointed by a runtime (its session directory), so a
+# later runtime re-points it; an operator-set ENV_DIR stays.
+ENV_DIR_AUTO = "RAY_TPU_FLIGHT_DIR_AUTO"
+# Node identity a head-attached runtime gives its worker processes.
+ENV_NODE = "RAY_TPU_FLIGHT_NODE"
 
 # Recorder slot: None = off, every hot-path site guards with one global
 # load + `is None` branch.
@@ -73,6 +84,11 @@ _install_lock = threading.Lock()
 
 # Bound on joining the recorder's threads at uninstall.
 _JOIN_TIMEOUT_S = 2.0
+# A worker spills a bundle snapshot every _SPILL_PERIOD_S (jittered
+# +-20%); a merged dump leaves out snapshots older than _BUNDLE_STALE_S
+# (a pooled worker that exited).
+_SPILL_PERIOD_S = 5.0
+_BUNDLE_STALE_S = 120.0
 
 
 def _cfg(name: str, default):
@@ -215,7 +231,7 @@ class FlightRecorder:
     watchdogs, section providers and bundle assembly."""
 
     def __init__(self, component: str = "driver", node: str = "",
-                 profile: bool = False,
+                 profile: bool = False, spill: bool = False,
                  event_capacity: Optional[int] = None):
         self.component = component
         self.node = node
@@ -254,7 +270,7 @@ class FlightRecorder:
         # Device traces captured this session (util.profiling logdirs).
         self._artifacts: List[str] = []
         # Where auto dumps land ('' = <tmp>/ray_tpu_torch_flight).
-        self.dump_dir = _cfg("flight_dir", "")
+        self.dump_dir = os.environ.get(ENV_DIR) or _cfg("flight_dir", "")
         self.sampler: Optional[_StackSampler] = None
         if profile:
             self.sampler = _StackSampler(
@@ -272,6 +288,26 @@ class FlightRecorder:
             target=self._watchdog_loop, daemon=True,
             name="ray_tpu_flight_watchdog")
         self._wd_thread.start()
+        # Worker-process spill: a bundle snapshot lands in the dump dir
+        # every period, the first at once (a short-lived worker still
+        # leaves one).
+        self._spill_path: Optional[str] = None
+        self._spill_records = 0
+        self._spill_cap = max(int(_cfg("flight_spill_max_records", 8)), 1)
+        self._spill_thread = None
+        if spill and self.dump_dir:
+            try:
+                os.makedirs(self.dump_dir, exist_ok=True)
+                self._spill_path = os.path.join(
+                    self.dump_dir,
+                    f"bundle-{self.pid}-{uuid.uuid4().hex[:8]}.jsonl")
+            except OSError:
+                self._spill_path = None
+            if self._spill_path:
+                self._spill_thread = threading.Thread(
+                    target=self._spill_loop, daemon=True,
+                    name="ray_tpu_flight_spill")
+                self._spill_thread.start()
 
     # ------------------------------------------------------------ identity
     def set_identity(self, component: Optional[str] = None,
@@ -435,7 +471,7 @@ class FlightRecorder:
             out[f"{names.get(tid, 'tid')}-{tid}"] = rendered
         return out
 
-    def local_bundle(self) -> dict:
+    def local_bundle(self, include_dir: bool = False) -> dict:
         """This process's flight bundle: identity, all-thread stacks,
         event ring, profile aggregate, metrics snapshot, watchdog state,
         device-trace artifacts and registered subsystem sections."""
@@ -481,7 +517,7 @@ class FlightRecorder:
         t = tracing.tracer()
         if t is not None:
             bundle["spans_recorded"] = t.spans_recorded
-            bundle["span_tail"] = t.dump()[-256:]
+            bundle["span_tail"] = t.dump(include_dir=False)[-256:]
         else:
             bundle["spans_recorded"] = 0
             bundle["span_tail"] = []
@@ -493,6 +529,9 @@ class FlightRecorder:
                     if f.startswith("incident-"))
             except OSError:
                 bundle["incidents"] = []
+        if include_dir:
+            bundle["workers"] = read_spilled_bundles(
+                self.dump_dir, exclude_pid=self.pid)
         return bundle
 
     def _render_sections(self, timeout_s: float = 2.0) -> Dict[str, Any]:
@@ -566,9 +605,35 @@ class FlightRecorder:
             return None
         return base + ".json"
 
+    # -------------------------------------------------------------- spill
+    def _spill_loop(self):
+        period = _SPILL_PERIOD_S
+        self.spill_once()
+        while not self._stop.wait(period * random.uniform(0.8, 1.2)):
+            self.spill_once()
+
+    def spill_once(self) -> None:
+        """Append one bundle snapshot line to this worker's spill file,
+        restarted at the newest window past ``flight_spill_max_records``
+        lines."""
+        if not self._spill_path:
+            return
+        try:
+            line = json.dumps(self.local_bundle()) + "\n"
+            mode = "a"
+            if self._spill_records >= self._spill_cap:
+                mode = "w"
+                self._spill_records = 0
+            with open(self._spill_path, mode) as f:
+                f.write(line)
+            self._spill_records += 1
+        except (OSError, ValueError):
+            self._spill_path = None  # disk gone: ring-only from here
+
     # --------------------------------------------------------------- stop
     def stop(self, timeout: float = _JOIN_TIMEOUT_S):
-        """Stop and join the watchdog and the sampler, unhook GC."""
+        """Stop and join the watchdog, the spill loop and the sampler,
+        unhook GC."""
         self._stop.set()
         if self.sampler is not None:
             self.sampler.stop(timeout)
@@ -576,8 +641,9 @@ class FlightRecorder:
             gc.callbacks.remove(self._on_gc)
         except ValueError:
             pass
-        if self._wd_thread is not threading.current_thread():
-            self._wd_thread.join(timeout)
+        for t in (self._wd_thread, self._spill_thread):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout)
 
 
 def _jsonable(v):
@@ -594,9 +660,53 @@ def _jsonable(v):
     return repr(v)
 
 
+def read_spilled_bundles(spill_dir: Optional[str],
+                         exclude_pid: Optional[int] = None,
+                         stale_s: Optional[float] = None) -> List[dict]:
+    """The newest bundle snapshot of each spill file under
+    ``spill_dir``, skipping files this process wrote and snapshots older
+    than ``stale_s`` (default ``_BUNDLE_STALE_S``: a pooled worker
+    that exited must not pass for a live one)."""
+    if not spill_dir:
+        return []
+    if stale_s is None:
+        stale_s = _BUNDLE_STALE_S
+    prefix_self = f"bundle-{exclude_pid}-" if exclude_pid else None
+    try:
+        names = sorted(os.listdir(spill_dir))
+    except OSError:
+        return []
+    out: List[dict] = []
+    now = time.time()
+    for name in names:
+        if not name.startswith("bundle-") or not name.endswith(".jsonl"):
+            continue
+        if prefix_self and name.startswith(prefix_self):
+            continue
+        last = None
+        try:
+            with open(os.path.join(spill_dir, name)) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        last = line
+        except OSError:
+            continue
+        if not last:
+            continue
+        try:
+            bundle = json.loads(last)
+        except ValueError:
+            continue  # racing writer mid-line / rotation
+        if now - float(bundle.get("ts", 0.0)) > stale_s:
+            continue
+        out.append(bundle)
+    return out
+
+
 # ------------------------------------------------------------ installation
 def install(component: str = "driver", node: str = "",
-            profile: bool = False,
+            profile: bool = False, spill: bool = False,
             event_capacity: Optional[int] = None) -> FlightRecorder:
     """Arm the flight recorder process-wide (idempotent: a second install
     re-labels the existing recorder, and adds a sampler if
@@ -611,12 +721,12 @@ def install(component: str = "driver", node: str = "",
                     _cfg("profile_max_stacks", 2048))
             return _FLIGHT
         _FLIGHT = FlightRecorder(
-            component=component, node=node, profile=profile,
+            component=component, node=node, profile=profile, spill=spill,
             event_capacity=event_capacity)
         return _FLIGHT
 
 
-def install_from_env(component: str = "driver"
+def install_from_env(component: str = "driver", spill: bool = False
                      ) -> Optional[FlightRecorder]:
     """Arm iff ``RAY_TPU_FLIGHT`` or ``RAY_TPU_PROFILE`` is truthy
     (profiling implies the recorder); None otherwise."""
@@ -624,7 +734,8 @@ def install_from_env(component: str = "driver"
     profiled = _truthy(os.environ.get(ENV_PROFILE))
     if not (armed or profiled):
         return None
-    return install(component=component, profile=profiled)
+    return install(component=component, profile=profiled, spill=spill,
+                   node=os.environ.get(ENV_NODE, ""))
 
 
 def uninstall() -> None:
@@ -725,11 +836,11 @@ def note_artifact(path: str) -> None:
     r.note_artifact(path)
 
 
-def local_bundle() -> Optional[dict]:
+def local_bundle(include_dir: bool = False) -> Optional[dict]:
     r = _FLIGHT
     if r is None:
         return None
-    return r.local_bundle()
+    return r.local_bundle(include_dir=include_dir)
 
 
 def auto_dump(reason: str) -> Optional[str]:

@@ -35,7 +35,8 @@ from ray_tpu_torch.exceptions import (
 class _Entry:
     __slots__ = ("serialized", "error", "ready", "size", "host_size",
                  "spilled_path", "create_time", "local_refs",
-                 "submitted_refs", "callbacks", "dropped")
+                 "submitted_refs", "callbacks", "dropped", "local_producer",
+                 "lost")
 
     def __init__(self):
         self.serialized: Optional[SerializedObject] = None
@@ -51,6 +52,12 @@ class _Entry:
         # Every reference went before the value came (a task's output
         # nobody kept): evict the value as soon as it lands.
         self.dropped = False
+        # A task or actor call of this process will produce the value: a
+        # head-attached driver never pulls it from another driver.
+        self.local_producer = False
+        # Its node died on the simulated cluster (cluster_utils): pending
+        # again, for lineage to rebuild.
+        self.lost = False
 
 
 class ObjectStore:
@@ -76,6 +83,7 @@ class ObjectStore:
             entry.size = serialized.total_bytes()
             entry.host_size = serialized.host_bytes()
             entry.ready = True
+            entry.lost = False
             self._memory_used += entry.host_size
             callbacks, entry.callbacks = entry.callbacks, []
             self._cv.notify_all()
@@ -169,6 +177,43 @@ class ObjectStore:
     def contains(self, object_id: ObjectID) -> bool:
         with self._cv:
             return object_id in self._entries
+
+    def mark_local_producer(self, object_id: ObjectID):
+        with self._cv:
+            self._entries.setdefault(object_id, _Entry()).local_producer = \
+                True
+
+    def mark_lost(self, object_id: ObjectID):
+        """Simulated node loss (``cluster_utils``): drop the payload (and
+        its spill file); the entry reverts to pending with the lost
+        flag, so its owner rebuilds it from lineage."""
+        with self._cv:
+            e = self._entries.get(object_id)
+            if e is None or not e.ready:
+                return
+            if e.serialized is not None:
+                self._memory_used -= e.host_size
+            self._unlink_spilled(e)
+            e.serialized = None
+            e.error = None
+            e.ready = False
+            e.lost = True
+
+    def is_lost(self, object_id: ObjectID) -> bool:
+        with self._cv:
+            e = self._entries.get(object_id)
+            return e is not None and e.lost and not e.ready
+
+    def clear_lost(self, object_id: ObjectID):
+        with self._cv:
+            e = self._entries.get(object_id)
+            if e is not None:
+                e.lost = False
+
+    def has_local_producer(self, object_id: ObjectID) -> bool:
+        with self._cv:
+            e = self._entries.get(object_id)
+            return e is not None and e.local_producer
 
     def cancel(self, object_id: ObjectID, task_id=None):
         self.put_error(object_id, TaskCancelledError(task_id))

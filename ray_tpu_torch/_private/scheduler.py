@@ -111,6 +111,14 @@ class ResourcePool:
         """Whether ``demand`` fits the pool's total (held or not)."""
         return all(self._total.get(k, 0.0) >= v for k, v in demand.items())
 
+    def utilization(self) -> float:
+        """The most-used resource's held fraction (the cluster's
+        placement policies read it)."""
+        with self._cv:
+            fracs = [1.0 - self._available.get(k, 0.0) / v
+                     for k, v in self._total.items() if v > 0]
+            return max(fracs) if fracs else 0.0
+
     def try_acquire(self, demand: Dict[str, float]) -> bool:
         with self._cv:
             if all(self._available.get(k, 0.0) >= v - 1e-9
@@ -188,10 +196,14 @@ class LocalScheduler:
     executor threads, with retry + cancellation support."""
 
     def __init__(self, store, resource_pool: ResourcePool, num_workers: int,
-                 task_events=None, worker_pool=None, shm_store=None):
+                 task_events=None, worker_pool=None, shm_store=None,
+                 lineage: Optional[dict] = None):
         self._store = store
         self._resources = resource_pool
         self._events = task_events
+        # Submitted specs by task id, when a lineage table is given (the
+        # simulated cluster's, for reconstruction after a node's loss).
+        self._lineage = lineage
         self._lock = threading.Lock()
         # Runnable tasks bucketed by resource shape: dispatch picks the
         # lowest-sequence head whose shape fits *now*, trying each
@@ -238,10 +250,13 @@ class LocalScheduler:
 
     # ------------------------------------------------------------ submission
     def submit(self, spec: TaskSpec):
-        """Owner-side submit: wait for deps, then queue."""
+        """Owner-side submit: record lineage (if kept), wait for deps,
+        then queue."""
         if self._events:
             self._events.record(spec.task_id, "PENDING_ARGS_AVAIL",
                                 name=spec.name)
+        if self._lineage is not None:
+            self._lineage[spec.return_ids[0].task_id()] = spec
         dep_refs = _collect_refs(spec.args, spec.kwargs)
         with self._lock:
             if not dep_refs:
@@ -593,9 +608,13 @@ class LocalScheduler:
             with self._lock:
                 self._proc_running[spec.task_id] = w
             try:
-                w.request(("task", digest, fn_field, payload, ret_keys,
-                           spec.num_returns, spec.task_id.binary(),
-                           spec.name), cancel_event=cancelled_event)
+                msg = ("task", digest, fn_field, payload, ret_keys,
+                       spec.num_returns, spec.task_id.binary(), spec.name)
+                if spec.trace is not None:
+                    # Traced: the worker records its exec span under
+                    # the submitter's context (off = no extra field).
+                    msg = msg + (tuple(spec.trace),)
+                w.request(msg, cancel_event=cancelled_event)
             finally:
                 with self._lock:
                     self._proc_running.pop(spec.task_id, None)
@@ -795,6 +814,17 @@ class LocalScheduler:
         self._finish_cancelled(spec)
         return True
 
+    def queued_specs(self) -> List[TaskSpec]:
+        """Runnable tasks not dispatched yet, in FIFO order."""
+        with self._lock:
+            items = [item for dq in self._runnable.values() for item in dq]
+        items.sort(key=lambda it: it[0])
+        return [spec for _, spec in items]
+
+    def running_task_ids(self) -> List[TaskID]:
+        with self._lock:
+            return list(self._running)
+
     def backlog_size(self) -> int:
         """Tasks waiting for arguments, queued, or running."""
         with self._lock:
@@ -813,6 +843,13 @@ class LocalScheduler:
     def shutdown(self):
         """Stop dispatching, signal every running task's cancel event,
         and join the dispatcher and the executor threads (bounded)."""
+        self.stop()
+        self.join()
+
+    def stop(self):
+        """Stop dispatching and signal every running task's cancel event,
+        without waiting for them (a simulated node's death: its tasks are
+        resubmitted elsewhere before the join)."""
         if self._shm_store is not None:
             self._store.remove_evict_callback(self._release_shm_resident)
         with self._lock:
@@ -821,6 +858,8 @@ class LocalScheduler:
             self._dispatch_cv.notify_all()
         for ev in running:
             ev.set()
+
+    def join(self):
         self._dispatcher.join(timeout=_JOIN_TIMEOUT_S)
         self._pool.shutdown()
 

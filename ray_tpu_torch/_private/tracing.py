@@ -20,10 +20,12 @@ Off by default. With tracing off the module-global ``_TRACER`` slot is
 ``RAY_TPU_TRACE`` (any truthy value, read at ``init()``) or a call of
 :func:`install` arms it.
 
-Not ported: the spill directory through which the reference's worker
-processes surface their spans (``RAY_TPU_TRACE_DIR``; one of the
-process plane's users, ROADMAP A.5a) and ``RAY_TPU_TRACE_PARENT``, the context
-that an autoscaler-launched daemon inherits (A.5b). The cold-start chain
+Worker processes of the process plane, which nothing can dial, append
+their finished spans to a spill file in ``RAY_TPU_TRACE_DIR`` (the
+hosting runtime points it at its session's ``traces`` directory);
+``Tracer.dump`` and ``trace_index`` merge those files. Not ported:
+``RAY_TPU_TRACE_PARENT``, the context that an autoscaler-launched
+daemon inherits (the node plane, ROADMAP A.5b). The cold-start chain
 is in-process here: a Serve wake parks its context in the stash, and a
 replica constructed meanwhile parents its ``replica.init`` span to it
 (:func:`cold_start_parent`).
@@ -32,6 +34,7 @@ replica constructed meanwhile parents its ``replica.init`` span to it
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -49,6 +52,10 @@ __all__ = [
 ]
 
 ENV_VAR = "RAY_TPU_TRACE"
+# Spill directory of worker processes (set by the hosting runtime).
+ENV_DIR = "RAY_TPU_TRACE_DIR"
+# Node identity a head-attached runtime gives its worker processes.
+ENV_NODE = "RAY_TPU_TRACE_NODE"
 
 # Tracing slot: None = off, every hot-path site guards with one global
 # load + `is None` branch.
@@ -115,11 +122,12 @@ class _SpanHandle:
 
 
 class Tracer:
-    """Per-process span sink: a bounded ring of completed spans and the
-    task-id -> context map of the task-event bridge."""
+    """Per-process span sink: a bounded ring of completed spans, the
+    task-id -> context map of the task-event bridge and, in a worker
+    process, a spill file."""
 
     def __init__(self, capacity: int = 65536, component: str = "driver",
-                 node: str = ""):
+                 node: str = "", spill_dir: Optional[str] = None):
         self.component = component
         self.node = node
         self.pid = os.getpid()
@@ -133,6 +141,19 @@ class Tracer:
         # task_id bin -> TraceContext, bounded FIFO.
         self._task_ctx: Dict[bytes, TraceContext] = {}
         self._task_order: "deque[bytes]" = deque()
+        self._spill_path: Optional[str] = None
+        self._spill_file = None
+        self._spill_lock = threading.Lock()
+        self._spill_cap = self._spans.maxlen
+        self._spilled = 0
+        if spill_dir:
+            try:
+                os.makedirs(spill_dir, exist_ok=True)
+                self._spill_path = os.path.join(
+                    spill_dir,
+                    f"spans-{self.pid}-{uuid.uuid4().hex[:8]}.jsonl")
+            except OSError:
+                self._spill_path = None
 
     # ------------------------------------------------------------ identity
     def set_identity(self, component: Optional[str] = None,
@@ -156,6 +177,34 @@ class Tracer:
         with self._lock:
             self._spans.append(rec)
             self.spans_recorded += 1
+        if self._spill_path is not None:
+            self._spill(self._as_dict(rec))
+
+    def _spill(self, span: dict):
+        """Append one span to the spill file, restarted at the newest
+        window once it holds the ring's capacity (bounded on disk as the
+        ring is in memory)."""
+        line = json.dumps(span) + "\n"
+        with self._spill_lock:
+            try:
+                if self._spill_file is None:
+                    self._spill_file = open(  # noqa: SIM115 — long-lived
+                        self._spill_path, "a", buffering=1)
+                elif self._spilled >= self._spill_cap:
+                    self._spill_file.close()
+                    self._spill_file = open(  # noqa: SIM115 — long-lived
+                        self._spill_path, "w", buffering=1)
+                    self._spilled = 0
+                self._spill_file.write(line)
+                self._spilled += 1
+            except OSError:
+                self._spill_path = None  # disk gone: ring-only from here
+
+    def close_spill(self):
+        with self._spill_lock:
+            if self._spill_file is not None:
+                self._spill_file.close()
+                self._spill_file = None
 
     def _as_dict(self, rec: tuple) -> dict:
         tags, events = rec[8], rec[9]
@@ -190,35 +239,58 @@ class Tracer:
             return self._task_ctx.get(tid_bin)
 
     # ---------------------------------------------------------------- read
-    def dump(self, trace_id: Optional[str] = None) -> List[dict]:
-        """This process's spans, oldest first (of one trace, if given)."""
+    def dump(self, trace_id: Optional[str] = None,
+             include_dir: bool = True) -> List[dict]:
+        """This process's spans, oldest first (of one trace, if given),
+        and with ``include_dir`` those its worker processes spilled into
+        ``RAY_TPU_TRACE_DIR``."""
         with self._lock:
             recs = list(self._spans)
         if trace_id:
             recs = [r for r in recs if r[0] == trace_id]
-        return [self._as_dict(r) for r in recs]
+        spans = [self._as_dict(r) for r in recs]
+        if include_dir:
+            extra = _read_spill_dir(os.environ.get(ENV_DIR),
+                                    exclude_pid=self.pid)
+            if trace_id:
+                extra = [s for s in extra
+                         if s.get("trace_id") == trace_id]
+            spans.extend(extra)
+        return spans
 
-    def trace_index(self) -> Dict[str, dict]:
-        """Per-trace aggregates over the ring: span count, first start,
-        errors, the root span's name, processes and components."""
+    def trace_index(self, include_dir: bool = True) -> Dict[str, dict]:
+        """Per-trace aggregates over the ring (and the worker processes'
+        spill files): span count, first start, errors, the root span's
+        name, processes and components."""
         out: Dict[str, dict] = {}
+
+        def add(tid, t0, status, comp, proc, name, parent):
+            rec = out.get(tid)
+            if rec is None:
+                rec = out[tid] = {
+                    "num_spans": 0, "first_t0": t0, "errors": 0,
+                    "root": "", "pids": set(), "components": set()}
+            rec["num_spans"] += 1
+            rec["first_t0"] = min(rec["first_t0"], t0)
+            if status == "error":
+                rec["errors"] += 1
+            if not parent:
+                rec["root"] = name
+            rec["pids"].add(proc)
+            rec["components"].add(comp)
+
         with self._lock:
             recs = list(self._spans)
         proc = process_key(self.node, self.pid)
         for r in recs:
-            rec = out.get(r[0])
-            if rec is None:
-                rec = out[r[0]] = {
-                    "num_spans": 0, "first_t0": float(r[4]), "errors": 0,
-                    "root": "", "pids": set(), "components": set()}
-            rec["num_spans"] += 1
-            rec["first_t0"] = min(rec["first_t0"], float(r[4]))
-            if r[6] == "error":
-                rec["errors"] += 1
-            if not r[2]:
-                rec["root"] = r[3]
-            rec["pids"].add(proc)
-            rec["components"].add(r[7])
+            add(r[0], float(r[4]), r[6], r[7], proc, r[3], r[2])
+        if include_dir:
+            for s in _read_spill_dir(os.environ.get(ENV_DIR),
+                                     exclude_pid=self.pid):
+                add(s.get("trace_id", ""), float(s.get("t0", 0.0)),
+                    s.get("status", "ok"), s.get("component", ""),
+                    process_key(s.get("node", ""), s.get("pid", 0)),
+                    s.get("name", ""), s.get("parent_id", ""))
         for rec in out.values():
             rec["pids"] = sorted(rec["pids"])
             rec["components"] = sorted(rec["components"])
@@ -228,6 +300,34 @@ class Tracer:
 def process_key(node: str, pid) -> str:
     """Process identity for assembled views (``node:pid``)."""
     return f"{node or ''}:{pid}"
+
+
+def _read_spill_dir(spill_dir: Optional[str],
+                    exclude_pid: Optional[int] = None) -> List[dict]:
+    """Spans spilled by worker processes into ``spill_dir``; files this
+    process wrote itself are skipped (its ring holds them)."""
+    if not spill_dir:
+        return []
+    out: List[dict] = []
+    prefix_self = f"spans-{exclude_pid}-" if exclude_pid else None
+    try:
+        names = sorted(os.listdir(spill_dir))
+    except OSError:
+        return []
+    for name in names:
+        if not name.endswith(".jsonl") or not name.startswith("spans-"):
+            continue
+        if prefix_self and name.startswith(prefix_self):
+            continue
+        try:
+            with open(os.path.join(spill_dir, name)) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        out.append(json.loads(line))
+        except (OSError, ValueError):
+            continue  # racing writer mid-line / rotated file
+    return out
 
 
 # ------------------------------------------------------------ installation
@@ -241,9 +341,11 @@ def _capacity() -> int:
 
 
 def install(component: str = "driver", node: str = "",
-            capacity: Optional[int] = None) -> Tracer:
+            capacity: Optional[int] = None, spill: bool = False) -> Tracer:
     """Arm tracing process-wide (idempotent: a second install re-labels
-    the existing tracer instead of dropping its ring)."""
+    the existing tracer instead of dropping its ring). ``spill=True`` (a
+    worker process) also appends finished spans to
+    ``RAY_TPU_TRACE_DIR``."""
     global _TRACER
     with _install_lock:
         if _TRACER is not None:
@@ -251,21 +353,26 @@ def install(component: str = "driver", node: str = "",
             return _TRACER
         _TRACER = Tracer(
             capacity=capacity if capacity is not None else _capacity(),
-            component=component, node=node)
+            component=component, node=node,
+            spill_dir=os.environ.get(ENV_DIR) if spill else None)
         return _TRACER
 
 
-def install_from_env(component: str = "driver") -> Optional[Tracer]:
+def install_from_env(component: str = "driver",
+                     spill: bool = False) -> Optional[Tracer]:
     raw = (os.environ.get(ENV_VAR) or "").strip().lower()
     if not raw or raw in ("0", "false", "off"):
         return None
-    return install(component=component)
+    return install(component=component,
+                   node=os.environ.get(ENV_NODE, ""), spill=spill)
 
 
 def uninstall() -> None:
     global _TRACER, _cold_start_ctx
     with _install_lock:
-        _TRACER = None
+        t, _TRACER = _TRACER, None
+    if t is not None:
+        t.close_spill()
     with _cold_start_lock:
         _cold_start_ctx = None
 

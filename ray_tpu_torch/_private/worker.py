@@ -25,10 +25,26 @@ The worker owns the task-event ring (``task_events``), and ``init()``
 arms the tracing plane (``RAY_TPU_TRACE``) and the flight recorder
 (``RAY_TPU_FLIGHT`` / ``RAY_TPU_PROFILE``), with the ``runtime`` section
 (``worker_mode`` among it) in every flight bundle; ``shutdown()``
-uninstalls both and joins their threads. Not ported: the head client and
-its failover, pulls from other processes, and the trace and flight spill
-directories of worker processes (ROADMAP A.5a's users, A.5b). The
-reference's device probe (JAX's TPUs) becomes a ``"GPU"`` resource of
+uninstalls both and joins their threads. Spawned worker processes spill
+their spans and flight bundles into the session's ``traces`` and
+``flight`` directories (``RAY_TPU_TRACE_DIR``, ``RAY_TPU_FLIGHT_DIR``),
+which ``timeline``, ``trace_dump`` and ``debug_dump`` merge.
+
+``init(address="host:port")`` (``"auto"`` and ``"local"`` mean
+``127.0.0.1:6380``; a comma-separated list adds standby heads) attaches
+this driver to a head service (``_private/head_service.py``) through a
+``HeadClient``: the KV becomes cluster-global (Data's ``memory://``,
+Tune's reports and the workflow journal share it), named actors
+register with the head and resolve across drivers (their calls relay
+head -> owning driver and run on this runtime), ``announce_object``
+publishes an object that other drivers then pull (``_pull_wait``), and
+the tracer and flight recorder take the client id as their node. A head
+that cannot be reached raises: the driver never goes on with a local KV.
+Not ported yet, with the node plane (ROADMAP A.5b): ``remote_router``
+and ``owner_resolver`` stay None (with no daemon nodes the reference's
+router routes nothing either), and ``address="ray://..."`` (thin-client
+mode) raises ``ClusterModeNotPortedError``. The reference's device
+probe (JAX's TPUs) becomes a ``"GPU"`` resource of
 ``torch.cuda.device_count()`` cards, counted without creating a CUDA
 context; ``num_gpus=`` overrides it.
 """
@@ -46,6 +62,7 @@ from typing import Any, Dict, List, Optional, Union
 
 from ray_tpu_torch._private import flight, tracing
 from ray_tpu_torch._private.config import GlobalConfig
+from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch._private.ids import (
     JobID,
     NodeID,
@@ -69,6 +86,8 @@ from ray_tpu_torch._private.streaming import (
 )
 from ray_tpu_torch._private.task_events import TaskEventBuffer
 from ray_tpu_torch.exceptions import RayTaskError, RayTpuError
+
+log = get_logger(__name__)
 
 
 class _TaskContext:
@@ -381,18 +400,42 @@ class Worker:
                  num_gpus: Optional[int] = None,
                  resources: Optional[Dict[str, float]] = None,
                  worker_mode: Optional[str] = None,
-                 session_dir: Optional[str] = None):
+                 session_dir: Optional[str] = None,
+                 head_address: Optional[str] = None):
         self.is_alive = True
-        self.job_id = JobID.from_int(os.getpid() & 0xFFFFFFFF)
-        self.worker_id = WorkerID.from_random()
-        self.node_id = NodeID.from_random()
-        self.job_task_id = TaskID.for_job(self.job_id)
         self.worker_mode = worker_mode or GlobalConfig.worker_mode
         if self.worker_mode not in ("thread", "process"):
             raise ValueError(
                 f"worker_mode must be 'thread' or 'process', got "
                 f"{self.worker_mode!r}")
+        # Control plane: with an address, this driver joins the head
+        # service; a head that cannot be reached raises here.
+        self.head_client = None
+        self.remote_router = None    # the node plane's (ROADMAP A.5b)
+        self.owner_resolver = None   # likewise
+        # The simulated cluster (cluster_utils.Cluster) routes this
+        # runtime's tasks while it is connected.
+        self.cluster = None
+        if head_address:
+            from ray_tpu_torch._private.head_client import HeadClient
+
+            self.head_client = HeadClient(head_address)
+        try:
+            self._start_runtime(num_cpus, num_gpus, resources, session_dir)
+        except BaseException:
+            # No connected client outlives a failed start: the head
+            # would count this driver as live until the process exits.
+            if self.head_client is not None:
+                self.head_client.close()
+            raise
+
+    def _start_runtime(self, num_cpus, num_gpus, resources, session_dir):
+        self.job_id = JobID.from_int(os.getpid() & 0xFFFFFFFF)
+        self.worker_id = WorkerID.from_random()
+        self.node_id = NodeID.from_random()
+        self.job_task_id = TaskID.for_job(self.job_id)
         self.session_dir = session_dir or _new_session_dir()
+        self._point_spill_dirs()
         self.serialization_context = SerializationContext()
         self.store = ObjectStore(os.path.join(self.session_dir, "spill"))
         # Streaming-generator plane: per-task stream state (yield commit
@@ -459,6 +502,62 @@ class Worker:
         self._kv: Dict[bytes, bytes] = {}
         self._kv_lock = threading.Lock()
         flight.add_section("runtime", self._flight_section)
+        if self.head_client is not None:
+            # A promoted head replayed the shared log: re-registering
+            # this driver's live named actors reconciles what its torn
+            # tail lost.
+            self.head_client.failover_callbacks.append(
+                self._on_head_failover)
+
+    def _point_spill_dirs(self):
+        """Point spawned worker processes (the environment inherits) at
+        this session's ``traces`` and ``flight`` directories, where they
+        spill their spans and flight bundles for this runtime's
+        ``timeline`` and ``debug_dump`` to merge; with a head, qualify
+        this process's spans and bundles by its client id. An
+        operator-set ``RAY_TPU_FLIGHT_DIR`` stays; one a runtime set
+        (``RAY_TPU_FLIGHT_DIR_AUTO``) is re-pointed."""
+        if os.environ.get(tracing.ENV_VAR):
+            os.environ[tracing.ENV_DIR] = os.path.join(
+                self.session_dir, "traces")
+        if (os.environ.get(flight.ENV_VAR)
+                or os.environ.get(flight.ENV_PROFILE)):
+            if (not os.environ.get(flight.ENV_DIR)
+                    or os.environ.get(flight.ENV_DIR_AUTO)):
+                os.environ[flight.ENV_DIR] = os.path.join(
+                    self.session_dir, "flight")
+                os.environ[flight.ENV_DIR_AUTO] = "1"
+        rec = flight.recorder()
+        if rec is not None:
+            rec.dump_dir = os.environ.get(flight.ENV_DIR, rec.dump_dir)
+        if self.head_client is None:
+            return
+        node = self.head_client.client_id
+        tracer = tracing.tracer()
+        if tracer is not None:
+            tracer.set_identity(node=node)
+            os.environ[tracing.ENV_NODE] = node
+        if rec is not None:
+            rec.set_identity(node=node)
+            os.environ[flight.ENV_NODE] = node
+
+    def _on_head_failover(self, old_epoch: int, new_epoch: int) -> None:
+        """Re-register this driver's live named actors with a promoted
+        head (a re-registration by the same owner reconciles)."""
+        hc = self.head_client
+        if hc is None or not self.is_alive:
+            return
+        for (ns, name), handle in list(self.named_actors.items()):
+            runtime = handle._runtime
+            if runtime.dead:
+                continue
+            try:
+                hc.actor_register(ns, name, runtime.actor_id.binary(),
+                                  runtime.class_name)
+            except Exception as exc:  # noqa: BLE001 — replayed entry
+                log.warning("named-actor re-register of %r after head "
+                            "failover failed (the replayed directory "
+                            "entry still serves): %r", name, exc)
 
     def _start_process_plane(self, num_cpus):
         from ray_tpu_torch._native.store import NativeObjectStore
@@ -534,7 +633,86 @@ class Worker:
         self.store.put(oid, serialized)
         return ObjectRef(oid)
 
+    def announce_object(self, ref: ObjectRef):
+        """Publish this object's location to the head's object directory
+        so other drivers can pull it."""
+        if self.head_client is None:
+            raise RayTpuError(
+                "announce_object needs a head service "
+                "(ray_tpu_torch.init(address=...))")
+        if not self.store.is_ready(ref.object_id):
+            raise RayTpuError(
+                "announce_object: the object is not materialized locally "
+                "yet; ray_tpu_torch.wait() on the ref first")
+        self.head_client.object_announce(ref.object_id.binary())
+
+    def _is_local(self, object_id: ObjectID) -> bool:
+        return (self.store.is_ready(object_id)
+                or self.store.has_local_producer(object_id))
+
+    def _maybe_pull_from_head(self, object_id: ObjectID) -> None:
+        """Pull an object of another driver once: its wire bytes, direct
+        from the owner's object server or relayed by the head. Objects
+        this driver produces never pull."""
+        if self.head_client is None or self._is_local(object_id):
+            return
+        raw = self.head_client.object_pull(object_id.binary())
+        if raw is not None:
+            from ray_tpu_torch._private.serialization import (
+                SerializedObject,
+            )
+
+            self.store.put(object_id, SerializedObject.from_bytes(raw))
+
+    def _pull_wait(self, object_id: ObjectID, timeout: Optional[float]):
+        """Resolve an object of another driver: subscribe to the head's
+        ``obj|<hex>`` topic first, then pull, and pull again on each
+        announce, up to ``timeout`` (``dep_wait_s`` when None); a
+        ``GetTimeoutError`` past it."""
+        import queue as _queue
+
+        from ray_tpu_torch.exceptions import GetTimeoutError
+
+        if self._is_local(object_id):
+            return
+        bound = (float(GlobalConfig.dep_wait_s) if timeout is None
+                 else float(timeout))
+        deadline = time.monotonic() + bound
+        sub = self.head_client.subscribe("obj|" + object_id.binary().hex())
+        try:
+            while True:
+                self._maybe_pull_from_head(object_id)
+                if self._is_local(object_id):
+                    return
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise GetTimeoutError(
+                        f"foreign object {object_id.hex()[:16]}… was "
+                        f"never announced within {bound:.0f}s "
+                        f"(RAY_TPU_DEP_WAIT_S)")
+                try:
+                    sub.get(timeout=min(remaining, 5.0))
+                except _queue.Empty:
+                    pass  # deadline re-check; no announce yet
+        finally:
+            sub.close()
+
     def get_object(self, ref: ObjectRef, timeout: Optional[float] = None):
+        if self.head_client is not None:
+            self._pull_wait(ref.object_id, timeout)
+        if self.store.is_lost(ref.object_id):
+            # Its node died on the simulated cluster: rebuild it from
+            # lineage (the producer runs again).
+            if (self.cluster is not None
+                    and self.cluster.recover_object(ref.object_id)):
+                self.store.clear_lost(ref.object_id)
+            else:
+                from ray_tpu_torch.exceptions import ObjectLostError
+
+                raise ObjectLostError(
+                    ref.object_id,
+                    f"object {ref.object_id.hex()[:16]}… lost and no "
+                    f"lineage is available to reconstruct it")
         serialized = self.store.get(ref.object_id, timeout=timeout)
         value = self.serialization_context.deserialize(serialized)
         if isinstance(value, RayTaskError):
@@ -554,6 +732,9 @@ class Worker:
         for ref in dep_refs:
             self.store.add_submitted_ref(ref.object_id)
         refs = [ObjectRef(oid) for oid in spec.return_ids]
+        if self.head_client is not None:
+            for oid in spec.return_ids:
+                self.store.mark_local_producer(oid)
         if self.worker_pool is not None and spec.resources.get("GPU"):
             from ray_tpu_torch._private.worker_pool import warn_no_card
 
@@ -563,15 +744,24 @@ class Worker:
                 for r in _refs:
                     self.store.remove_submitted_ref(r.object_id)
             self.store.on_ready(spec.return_ids[0], _release)
-        self.scheduler.submit(spec)
+        if self.cluster is not None:
+            self.cluster.submit(spec)
+        else:
+            self.scheduler.submit(spec)
         return refs
 
     def wait(self, object_ids: List[ObjectID], num_returns: int,
              timeout: Optional[float]):
+        for oid in object_ids:
+            self._maybe_pull_from_head(oid)
         return self.store.wait(object_ids, num_returns, timeout)
 
     # -------------------------------------------------------- internal KV ---
+    # With a head attached the KV is cluster-global; standalone it is
+    # local to this process.
     def kv_put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:
+        if self.head_client is not None:
+            return self.head_client.kv_put(key, value, overwrite)
         with self._kv_lock:
             if not overwrite and key in self._kv:
                 return False
@@ -579,14 +769,20 @@ class Worker:
             return True
 
     def kv_get(self, key: bytes) -> Optional[bytes]:
+        if self.head_client is not None:
+            return self.head_client.kv_get(key)
         with self._kv_lock:
             return self._kv.get(key)
 
     def kv_del(self, key: bytes) -> bool:
+        if self.head_client is not None:
+            return self.head_client.kv_del(key)
         with self._kv_lock:
             return self._kv.pop(key, None) is not None
 
     def kv_keys(self, prefix: bytes = b"") -> List[bytes]:
+        if self.head_client is not None:
+            return self.head_client.kv_keys(prefix)
         with self._kv_lock:
             return [k for k in self._kv if k.startswith(prefix)]
 
@@ -616,6 +812,11 @@ class Worker:
                 pass
         self.actors.clear()
         self.named_actors.clear()
+        # The head client goes after the actors (their kills deregister
+        # their names) and before the shm store.
+        if self.head_client is not None:
+            self.head_client.close()
+            self.head_client = None
         self._stop_process_plane()
 
 
@@ -669,12 +870,15 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
          _system_config: Optional[Dict[str, Any]] = None,
          ignore_reinit_error: bool = False, namespace: str = "default",
          worker_mode: Optional[str] = None,
+         address: Optional[str] = None,
          **_ignored) -> "Worker":
     """Start the runtime: the scheduler's dispatcher and executor threads,
     and with ``worker_mode="process"`` (default: the ``worker_mode`` flag,
     ``"thread"``) the shm store, the worker pool and the monitors.
     Resources: ``num_cpus`` (default: the host's cores), ``num_gpus``
-    (default: the visible CUDA cards) and custom ``resources``."""
+    (default: the visible CUDA cards) and custom ``resources``.
+    ``address`` attaches this driver to a head service (module
+    docstring); ``"ray://..."`` raises ``ClusterModeNotPortedError``."""
     global _global_worker, _atexit_registered
     with _init_lock:
         if _global_worker is not None:
@@ -685,6 +889,17 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
                 "ignore_reinit_error=True to allow.")
         if _system_config:
             GlobalConfig.apply_system_config(_system_config)
+        if address in ("auto", "local"):
+            from ray_tpu_torch._private.head_service import DEFAULT_PORT
+
+            address = f"127.0.0.1:{DEFAULT_PORT}"
+        if address and address.startswith("ray://"):
+            from ray_tpu_torch.exceptions import ClusterModeNotPortedError
+
+            raise ClusterModeNotPortedError(
+                f"init(address={address!r}): thin-client mode comes with "
+                f"the node plane (node daemons and the remote router, "
+                f"ROADMAP A.5b); attach with address='host:port'")
         # Tracing (RAY_TPU_TRACE) and the flight recorder
         # (RAY_TPU_FLIGHT / RAY_TPU_PROFILE) arm before the worker, so its
         # runtime section registers; one `is None` branch each when off.
@@ -693,7 +908,8 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
         try:
             _global_worker = Worker(num_cpus=num_cpus, num_gpus=num_gpus,
                                     resources=resources,
-                                    worker_mode=worker_mode)
+                                    worker_mode=worker_mode,
+                                    head_address=address)
         except BaseException:
             tracing.uninstall()
             flight.uninstall()

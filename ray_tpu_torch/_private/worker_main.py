@@ -18,9 +18,12 @@ in the driver or in an actor created with ``runtime="driver"``.
 
 Branches: a task, a process-backed actor (sync; or async and threaded
 ones on the multiplexed submit/calldone protocol), and streaming yields
-for each. Not ported: the compiled DAG's ``dag_exec`` loop (the next
-slice, with the DAG's shm plane), the runtime env's per-task staging,
-and the trace and flight spill of worker processes.
+for each; and the compiled DAG's ``dag_exec`` loop, which runs a
+process-backed actor's stages over the native shm channels. Tracing and
+the flight recorder arm from the inherited environment and, since
+nothing can dial a worker, spill to the hosting runtime's
+``RAY_TPU_TRACE_DIR`` and ``RAY_TPU_FLIGHT_DIR``. Not ported: the
+runtime env's per-task staging.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import threading
 import traceback
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch._private import tracing
 from ray_tpu_torch._private.serialization import wire_dumps, wire_loads
 
 
@@ -82,6 +86,45 @@ def _store_outputs(store, return_keys: List[int], result: Any,
                 f"{len(outputs)} values")
     for key, value in zip(return_keys, outputs):
         store.put(key, wire_dumps(value))
+
+
+def _run_dag_stages(store, desc: dict, actor_instance) -> None:
+    """A compiled DAG's stage schedule for this worker's actor, run over
+    the shm channels until teardown closes them. Never raises: a failure
+    is logged to stderr and ends the loop (the caller replies exactly
+    once on the request channel)."""
+    from ray_tpu_torch.channels.channel import ShmBufferedChannel
+    from ray_tpu_torch.dag.compiled_dag import _Stage
+    from ray_tpu_torch.exceptions import ChannelError, ChannelTimeoutError
+
+    try:
+        chans = {cid: ShmBufferedChannel.attach(store, spec)
+                 for cid, spec in desc["channels"].items()}
+        stages = []
+        for sd in desc["stages"]:
+            sources = []
+            for kind, a, b in sd["arg_sources"]:
+                if kind == "const":
+                    sources.append(("const", pickle.loads(a), None))
+                else:
+                    sources.append(("chan", chans[a], b))
+            stages.append(_Stage(
+                node=None, fn=None, arg_sources=sources,
+                out_channel=chans[sd["out_channel"]],
+                method_name=sd["method_name"]))
+        while True:
+            try:
+                for stage in stages:
+                    stage.run_once(actor_instance)
+            except ChannelTimeoutError:
+                if _orphaned():
+                    return  # the driver died without a teardown
+                continue  # a producer or consumer is slow: retry
+            except ChannelError:
+                return  # teardown closed the channels
+    except BaseException:  # noqa: BLE001 — log, never propagate
+        print("ray_tpu_torch compiled-DAG worker loop failed:\n"
+              + traceback.format_exc(), file=sys.stderr, flush=True)
 
 
 def _run_stream_yields(gen, max_msg: int, stage_result, emit, wait_acks):
@@ -402,14 +445,23 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
                 _reply(("ok", os.getpid()))
             elif kind == "task":
                 (_, digest, fn_bytes, payload, return_keys, num_returns,
-                 task_id_bin, name) = msg
+                 task_id_bin, name) = msg[:8]
+                trace_wire = msg[8] if len(msg) > 8 else None
                 fn = _load_fn(digest, fn_bytes)
                 args, kwargs = _load_payload(store,
                                              _fetch_blob(store, payload))
                 _set_task_ctx(task_id_bin, name)
+                span = tracing.begin(
+                    "worker.exec", parent=tracing.extract(trace_wire),
+                    task=name) if trace_wire is not None else None
                 try:
                     result = fn(*args, **kwargs)
+                except BaseException:
+                    tracing.finish(span, status="error")
+                    span = None
+                    raise
                 finally:
+                    tracing.finish(span)
                     _set_task_ctx(None, None)
                 _store_outputs(store, return_keys, result, num_returns)
                 _reply(("ok", None))
@@ -417,6 +469,20 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
                 _, cls_bytes, payload = msg
                 actor_instance = _new_actor(cls_bytes, payload)
                 _reply(("ok", None))
+            elif kind == "dag_exec":
+                # The compiled DAG's shm plane: run this actor's stages
+                # here until teardown; the one reply releases the
+                # driver's closure, whatever happened.
+                try:
+                    desc = pickle.loads(_fetch_blob(store, msg[1]))
+                    _run_dag_stages(store, desc, actor_instance)
+                except BaseException:  # noqa: BLE001 — the outer boundary
+                    # would send a second reply and desync the channel.
+                    print("ray_tpu_torch dag_exec setup failed:\n"
+                          + traceback.format_exc(), file=sys.stderr,
+                          flush=True)
+                finally:
+                    _reply(("ok", None))
             elif kind == "actor_new2":
                 # Concurrent actor plane: an async actor gets an asyncio
                 # loop thread, a threaded one a pool; calls arrive as
@@ -608,6 +674,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-msg", type=int, default=1 << 20)
     args = ap.parse_args(argv)
     _install_pdeathsig()
+    from ray_tpu_torch._private import flight
+
+    tracing.install_from_env(component="worker", spill=True)
+    flight.install_from_env(component="worker", spill=True)
     worker_loop(args.store, args.req_id, args.rep_id, args.worker_id,
                 args.max_msg, args.api_req_id, args.api_rep_id,
                 args.ack_id)

@@ -23,9 +23,17 @@ actor, ``_run_proc_mux`` for async and threaded ones), so its crash or
 restarts it with fresh state. Such an actor never reaches the card; one
 created with ``runtime="driver"`` (an actor option) stays in the
 driver's process, where it does. A handle passed into a worker process
-forwards its calls to the driver (``ClientActorHandle``). Not ported:
-handles to actors of other drivers, and ``start_dag_loop`` (the compiled
-DAG's shm plane, the next slice).
+forwards its calls to the driver (``ClientActorHandle``). A compiled
+DAG's stages on a process-backed actor run inside its worker process
+(``start_dag_loop``) over the native shm channels.
+
+On a driver attached to a head (``init(address=...)``), a named actor
+registers its name with the head before its runtime is built, and
+releases it on ``kill`` and at shutdown; ``get_actor`` resolves a name
+that another driver registered to a ``CrossDriverActorHandle``, whose
+calls relay head -> owning driver and resolve to the owner's results,
+pulled back by id. Not ported: actors placed on node daemons (the node
+plane, ROADMAP A.5b).
 """
 
 from __future__ import annotations
@@ -106,6 +114,8 @@ class _ActorRuntime:
         self.restarts_used = 0
         self.class_name = name
         self.actor_name = actor_name
+        # (namespace, name) registered with the head, released on kill.
+        self._registered_name: Optional[tuple] = None
         self.dead = False
         self.death_cause: Optional[str] = None
         self._mailbox: "queue.Queue" = queue.Queue()
@@ -941,6 +951,9 @@ class _ActorRuntime:
         ]
         worker = global_worker()
         refs = [ObjectRef(oid) for oid in return_ids]
+        if worker.head_client is not None:
+            for oid in return_ids:
+                worker.store.mark_local_producer(oid)
         self._enqueue(worker, _MethodCall(method_name, args, kwargs,
                                           return_ids, name))
         return refs
@@ -950,9 +963,12 @@ class _ActorRuntime:
         ObjectRefGenerator whose item refs materialize per yield."""
         worker = global_worker()
         task_id = self._next_task_id()
+        end_id = stream_end_id(task_id)
+        if worker.head_client is not None:
+            worker.store.mark_local_producer(end_id)
         gen = ObjectRefGenerator(task_id, worker)
         self._enqueue(worker, _MethodCall(
-            method_name, args, kwargs, [stream_end_id(task_id)], name,
+            method_name, args, kwargs, [end_id], name,
             streaming=True,
             backpressure=GlobalConfig.generator_backpressure_items))
         return gen
@@ -963,6 +979,41 @@ class _ActorRuntime:
         the actor until it returns (at teardown)."""
         with self._lock:
             self._mailbox.put(_ClosureCall(fn))
+
+    def start_dag_loop(self, desc_bytes: bytes, teardown_event):
+        """Ship a compiled DAG's stage schedule into this actor's worker
+        process (the worker's ``dag_exec``): its stages run there over
+        the native shm channels and the driver never touches the
+        payloads between them. The closure holds the actor's mailbox
+        until the DAG tears down, as on the channel plane."""
+        from ray_tpu_torch._private.worker_pool import maybe_stage
+
+        worker = global_worker()
+
+        def run(_instance):
+            staged: list = []
+            try:
+                limit = max(self._proc.max_msg // 4, 64 * 1024)
+                field, staged = maybe_stage(
+                    worker.shm_store, desc_bytes, limit)
+                # Blocks until the worker's loop exits (its channels
+                # closed at teardown).
+                self._proc.request(("dag_exec", field))
+            except Exception as exc:  # noqa: BLE001 — crash boundary
+                # The worker never ran its stages: the DAG's next read
+                # times out, and this names the cause.
+                self._dag_loop_error = exc
+                if not teardown_event.is_set():
+                    log.error("compiled-DAG loop of actor %r failed to "
+                              "start: %r", self.class_name, exc)
+            finally:
+                for key in staged:
+                    try:
+                        worker.shm_store.delete(key)
+                    except Exception:  # noqa: BLE001
+                        pass
+
+        self.submit_exec_loop(run)
 
     def _enqueue(self, worker, call: _MethodCall):
         task_id = call.return_ids[0].task_id()
@@ -1010,6 +1061,18 @@ class _ActorRuntime:
             if self.use_process and self._proc is not None:
                 self._proc.kill()
             self._mailbox.put(_TERMINATE)
+        # Release the cluster-wide name so it can be reused while this
+        # driver lives.
+        reg = self._registered_name
+        if reg is not None:
+            from ray_tpu_torch._private.worker import _try_global_worker
+
+            w = _try_global_worker()
+            if w is not None and w.head_client is not None:
+                try:
+                    w.head_client.actor_deregister(*reg)
+                except Exception:  # noqa: BLE001 — head gone at teardown
+                    pass
 
     def join(self, timeout=None):
         for t in list(self._threads):
@@ -1198,6 +1261,12 @@ class ActorClass:
         actor_id = ActorID.of(
             worker.job_id, worker.current_task_id(),
             worker.actor_counter.next())
+        if actor_name and worker.head_client is not None:
+            # Reserve the cluster-wide name before building the runtime:
+            # a refusal must not leave a live actor holding it locally.
+            worker.head_client.actor_register(
+                namespace, actor_name, actor_id.binary(),
+                self._cls.__name__)
         max_restarts = opts.get("max_restarts")
         if max_restarts is None:
             max_restarts = GlobalConfig.actor_max_restarts
@@ -1206,18 +1275,30 @@ class ActorClass:
             from ray_tpu_torch._private.worker_pool import warn_no_card
 
             warn_no_card("actor", self._cls.__name__, opts["num_gpus"])
-        runtime = _ActorRuntime(
-            actor_id, self._cls, args, kwargs,
-            max_concurrency=opts.get("max_concurrency"),
-            max_restarts=max_restarts,
-            name=self._cls.__name__,
-            actor_name=actor_name,
-            runtime_target=opts.get("runtime"),
-        )
+        try:
+            runtime = _ActorRuntime(
+                actor_id, self._cls, args, kwargs,
+                max_concurrency=opts.get("max_concurrency"),
+                max_restarts=max_restarts,
+                name=self._cls.__name__,
+                actor_name=actor_name,
+                runtime_target=opts.get("runtime"),
+            )
+        except BaseException:
+            if actor_name and worker.head_client is not None:
+                # Release the reserved name, or retries fail "already
+                # taken" for as long as this driver lives.
+                try:
+                    worker.head_client.actor_deregister(
+                        namespace, actor_name)
+                except Exception:  # noqa: BLE001
+                    pass
+            raise
         worker.actors[actor_id] = runtime
         handle = ActorHandle(runtime)
         if actor_name:
             worker.named_actors[(namespace, actor_name)] = handle
+            runtime._registered_name = (namespace, actor_name)
         return handle
 
     def bind(self, *args, **kwargs):
@@ -1241,8 +1322,76 @@ def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
     handle = worker.named_actors.get((ns, name))
     if handle is not None and not handle._runtime.dead:
         return handle
+    if worker.head_client is not None:
+        entry = worker.head_client.actor_lookup(ns, name)
+        if entry is not None:
+            owner_id, actor_bin, class_name = entry
+            if owner_id != worker.head_client.client_id:
+                return CrossDriverActorHandle(
+                    owner_id, bytes(actor_bin), class_name)
     raise ValueError(
         f"no live actor named {name!r} in namespace {ns!r}")
+
+
+class CrossDriverActorHandle:
+    """Handle to a named actor owned by another driver attached to the
+    same head. A method call relays through the head to the owning
+    driver, which runs it on its runtime and announces the result; the
+    result's wire bytes are then pulled back by id (peer to peer, or
+    relayed by the head), so large results never ride the relay.
+    Arguments cross in the wire form; an ObjectRef argument must be
+    announced by its owner (the owning driver pulls it)."""
+
+    def __init__(self, owner_id: str, actor_bin: bytes, class_name: str):
+        self._owner_id = owner_id
+        self._actor_bin = actor_bin
+        self._class_name = class_name
+
+    def __getattr__(self, item: str):
+        if item.startswith("_"):
+            raise AttributeError(item)
+        return _CrossDriverMethod(self, item)
+
+    def __repr__(self):
+        return (f"CrossDriverActorHandle({self._class_name}, "
+                f"owner={self._owner_id})")
+
+
+class _CrossDriverMethod:
+    def __init__(self, handle: CrossDriverActorHandle, method: str):
+        self._handle = handle
+        self._method = method
+
+    def remote(self, *args, **kwargs):
+        worker = global_worker()
+        h = self._handle
+        oid = ObjectID.for_put(worker.current_task_id(),
+                               worker.put_counter.next())
+        ref = ObjectRef(oid)
+        # The relay thread below produces it: never pulled from the head.
+        worker.store.mark_local_producer(oid)
+
+        def _run():
+            try:
+                oid_bins = worker.head_client.actor_call(
+                    h._owner_id, h._actor_bin, self._method, args, kwargs,
+                    1)
+                raw = worker.head_client.object_pull(oid_bins[0])
+                if raw is None:
+                    raise ActorDiedError(
+                        None, "cross-driver call result vanished before "
+                        "it could be pulled (owner died?)")
+                from ray_tpu_torch._private.serialization import (
+                    SerializedObject,
+                )
+
+                worker.store.put(oid, SerializedObject.from_bytes(raw))
+            except BaseException as exc:  # noqa: BLE001 — relay boundary
+                worker.store.put_error(oid, exc)
+
+        threading.Thread(target=_run, daemon=True,
+                         name="ray_tpu_cross_driver_call").start()
+        return ref
 
 
 def kill(actor: ActorHandle, *, no_restart: bool = True):

@@ -9,13 +9,22 @@ and returns a ref; ``get()`` reads the output channel. Stages without an
 actor (remote functions, input projections) run on one driver loop
 thread.
 
-Every actor of the port is a thread of this process, so every edge is a
-channel of this process (``channels/``) and values cross it BY
+On the thread plane every actor is a thread of this process, so every
+edge is a channel of this process (``channels/``) and values cross it BY
 REFERENCE: a CUDA tensor reaches the next stage as the same tensor, on
-its device, with no copy. The reference's shared-memory channel plane
-(``with_tensor_transport("shm")``, stage loops inside worker processes)
-needs process-backed actors, which the port does not have; such a hint
-raises at compile.
+its device, with no copy.
+
+The shared-memory plane (the reference's ``with_tensor_transport("shm")``,
+chosen by itself under ``"auto"`` when every actor stage is a
+process-backed sync actor on ``init(worker_mode="process")``): every
+edge is a ``ShmBufferedChannel`` in the native shm store, and each
+actor's stage schedule ships into its worker process
+(``_ActorRuntime.start_dag_loop``, the worker's ``dag_exec``), so
+payloads between worker-resident stages never touch the driver. A value
+crosses such an edge pickled (a CUDA tensor written by the driver
+arrives in a worker on the CPU). ``channel_bytes`` caps a slot
+(``CHANNEL_BUFFER_BYTES`` by default); a bigger payload fails its write
+with a ``ChannelError`` naming the cap.
 
 Mixed DAGs: contiguous ``with_tensor_transport("device")`` function
 stages fuse into ONE stage on the driver loop, across sole-argument,
@@ -28,7 +37,10 @@ channels, and its output crosses to the next stage as a live tensor.
 from __future__ import annotations
 
 import atexit
+import os
+import pickle
 import threading
+import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -56,6 +68,8 @@ _UNREAD = object()
 _POLL_S = 0.5
 # Bound on an actor's __init__ at compile time.
 _ACTOR_READY_S = 30.0
+# Default slot capacity of a shm-plane channel.
+CHANNEL_BUFFER_BYTES = 1 << 20
 
 # Live DAGs are torn down at interpreter exit, so exec loops hosted on
 # actor threads cannot hang process shutdown.
@@ -124,9 +138,11 @@ class _Stage:
 
 class CompiledDAG:
     def __init__(self, leaf: DAGNode, max_buffered_executions: int = 2,
-                 **_options):
+                 channel_bytes: Optional[int] = None, **_options):
         self._leaf = leaf
         self._buffer = max(int(max_buffered_executions), 1)
+        # The shm plane's slot capacity (None: CHANNEL_BUFFER_BYTES).
+        self._channel_bytes = channel_bytes
         self._lock = threading.Lock()
         self._read_lock = threading.Lock()
         self._exec_count = 0
@@ -178,7 +194,7 @@ class CompiledDAG:
         else:
             _count_consumer(self._leaf)
 
-        self._shm_mode = self._select_transport(order)
+        self._shm_mode = self._select_transport(order, exec_nodes)
 
         # Mixed DAGs: contiguous device-hinted FunctionNode chains fuse
         # into ONE stage; their inner edges never exist as channels.
@@ -267,7 +283,10 @@ class CompiledDAG:
 
         # Start the loops: the driver's stages on a thread of their own,
         # each actor's as a closure occupying its mailbox (the
-        # reference's do_exec_tasks), on the actor's loop thread.
+        # reference's do_exec_tasks), on the actor's loop thread; on the
+        # shm plane the closure ships the stage schedule into the actor's
+        # worker process and holds the mailbox until teardown.
+        self._teardown_event = threading.Event()
         for key, stages in self._loops.items():
             if key == "__driver__":
                 t = threading.Thread(
@@ -275,6 +294,9 @@ class CompiledDAG:
                     name="compiled-dag-loop-driver")
                 t.start()
                 self._threads.append(t)
+            elif self._shm_mode:
+                key.start_dag_loop(self._stage_descriptor(stages),
+                                   self._teardown_event)
             else:
                 key.submit_exec_loop(
                     lambda instance, stages=stages:
@@ -331,27 +353,91 @@ class CompiledDAG:
             getattr(f, "__name__", "stage") for f in fns)
         return composed
 
-    def _select_transport(self, order) -> bool:
-        """The reference's transport choice. Every port actor is a
-        thread, so the shared-memory plane is never eligible: ``"shm"``
-        raises as the reference does for an ineligible DAG, and every
-        other hint keeps the channel plane of this process."""
+    def _stage_descriptor(self, stages: List[_Stage]) -> bytes:
+        """One actor's stage schedule in the form its worker process
+        rebuilds it from: channel specs and each stage's sources and
+        sink."""
+        channels: Dict[int, tuple] = {}
+
+        def _cid(ch) -> int:
+            cid = ch.slot_ids[0]
+            channels[cid] = ch.spec()
+            return cid
+
+        descs = []
+        for stage in stages:
+            sources = []
+            for kind, a, b in stage.arg_sources:
+                if kind == "const":
+                    sources.append(("const", pickle.dumps(a, protocol=5),
+                                    None))
+                else:
+                    sources.append(("chan", _cid(a), b))
+            descs.append({
+                "method_name": stage.method_name,
+                "arg_sources": sources,
+                "out_channel": _cid(stage.out_channel),
+            })
+        return pickle.dumps({"channels": channels, "stages": descs},
+                            protocol=5)
+
+    def _select_transport(self, order, exec_nodes) -> bool:
+        """The reference's transport choice: ``"device"`` and
+        ``"driver"`` keep the channel plane of this process; otherwise
+        the shm plane when the native store is up and every actor stage
+        is a process-backed sync actor (``"shm"`` raises when it is
+        not)."""
         hints = {getattr(n, "_transport_hint", "auto") for n in order}
-        if "shm" in hints and ("driver" in hints or "device" in hints):
+        want_shm = "shm" in hints
+        if want_shm and ("driver" in hints or "device" in hints):
             raise ValueError(
                 "conflicting tensor transports: 'shm' cannot mix with "
                 "'driver'/'device' hints in one DAG")
-        if "shm" in hints:
+        if "device" in hints or "driver" in hints:
+            return False
+        from ray_tpu_torch._private.worker import global_worker
+
+        eligible = getattr(global_worker(), "shm_store", None) is not None
+        if eligible:
+            for node in exec_nodes:
+                if not isinstance(node, ClassMethodNode):
+                    continue  # driver-loop stages work over shm too
+                rt = node._bound_method()._runtime
+                if not rt.use_process or rt.is_async:
+                    eligible = False
+                    break
+        if want_shm and not eligible:
             raise ValueError(
                 "with_tensor_transport('shm') requires every actor stage "
                 "to be a process-backed sync actor and the native shm "
-                "store to be available; every actor of ray_tpu_torch is "
-                "a thread of this process")
-        return False
+                "store to be available")
+        return eligible
 
     def _make_channel(self, num_readers: int):
-        return BufferedChannel(num_readers=num_readers,
-                               buffer_count=self._buffer)
+        if not self._shm_mode:
+            return BufferedChannel(num_readers=num_readers,
+                                   buffer_count=self._buffer)
+        from ray_tpu_torch._private.worker import global_worker
+        from ray_tpu_torch.channels import ShmBufferedChannel
+
+        slot_ids = [self._next_chan_id() for _ in range(self._buffer)]
+        return ShmBufferedChannel(
+            global_worker().shm_store, slot_ids,
+            max_size=self._channel_bytes or CHANNEL_BUFFER_BYTES,
+            num_readers=num_readers, create=True)
+
+    _chan_counter = [0]
+    _chan_lock = threading.Lock()
+
+    @classmethod
+    def _next_chan_id(cls) -> int:
+        # A range of its own: never collides with the worker channels
+        # (0xC...), staging (0xA...) or hashed object keys.
+        with cls._chan_lock:
+            cls._chan_counter[0] += 1
+            return (0xDA60_0000_0000_0000
+                    | (os.getpid() & 0xFFFF) << 24
+                    | (cls._chan_counter[0] & 0xFF_FFFF))
 
     def _exec_loop(self, stages: List[_Stage], instance):
         """Run the static schedule until teardown. A timeout only means a
@@ -410,10 +496,17 @@ class CompiledDAG:
 
     def teardown(self):
         """Close every channel (each loop exits at its next read or
-        write) and join the driver loop's thread (bounded)."""
+        write) and join the driver loop's thread (bounded); on the shm
+        plane, reclaim the channels' arenas once the worker loops have
+        seen them closed."""
         self._torn_down = True
+        self._teardown_event.set()
         for ch in self._channels.values():
             ch.close()
         for t in self._threads:
             t.join(timeout=2)
+        if self._shm_mode:
+            time.sleep(0.05)
+            for ch in self._channels.values():
+                ch.destroy()
         _LIVE_DAGS.discard(self)

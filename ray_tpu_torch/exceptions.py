@@ -152,5 +152,27 @@ class RequestSheddedError(RayTpuError):
                        f"{retry_after_s:.1f}s")
 
 
+class HeadFailedOverError(RayTpuError, ConnectionError):
+    """The head failed over (or fenced itself after losing a promotion
+    race) while this call was in flight. Surfaced only for calls that
+    cannot be replayed: idempotent head RPCs replay against the promoted
+    head, but a relayed actor call whose reply was lost may or may not
+    have run. Also the typed refusal a fenced old primary answers every
+    request with. Subclasses ConnectionError, so reconnect-on-
+    ConnectionError paths keep working."""
+
+    def __init__(self, message: str = "", epoch: int = 0):
+        self.epoch = epoch
+        super().__init__(
+            message or "the head failed over while this call was in "
+                       "flight; the call may or may not have executed")
+
+
+class ClusterModeNotPortedError(RayTpuError, NotImplementedError):
+    """``init(address="ray://...")`` (thin-client mode) was asked for:
+    it comes with the node plane, the next slice of the cluster
+    (ROADMAP A.5b). Raised instead of running locally."""
+
+
 class KVCacheOOM(RuntimeError):
     """No free blocks for a required allocation (after eviction)."""

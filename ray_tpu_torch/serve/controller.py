@@ -12,8 +12,8 @@ standalone. With the flight recorder armed the controller renders a
 ``serve`` section (``status()``) into every debug bundle; with tracing
 armed a wake from zero replicas is one ``serve.wake`` span whose context
 waits in the cold-start stash while the wake starts replicas, each of
-which constructs under it. Not ported: the KV-stream fallback
-(``handle_stream``), as no handle leaves the process. ``shutdown`` stops
+which constructs under it. A replica also serves the KV-stream fallback
+(``handle_stream``, with its cancel handshake). ``shutdown`` stops
 both loops, stops every replica's user object (an ingress class's ASGI
 loop thread, then its ``shutdown()``, where the deployment's class has
 one: an LLM replica's engine loop) and kills the replicas.
@@ -343,6 +343,60 @@ class ServeController:
                 yields."""
                 fn, args, kwargs = self._resolved(method, args, kwargs)
                 yield from fn(*args, **kwargs)
+
+            def handle_stream(self, method, args, kwargs, stream_id):
+                """Fallback: items stream through the runtime's KV under
+                (stream_id, seq) keys, which the caller's
+                ``_KVStreamFallbackGenerator`` polls in order (for a
+                runtime without the streaming actor plane; the primary
+                path is ``handle_stream_gen`` above).
+
+                Cancellation protocol: the consumer's ``close()`` writes a
+                ``|cancel`` marker; this loop checks it each yield, and a
+                cancelled (or cancel-raced) producer sweeps every key it
+                wrote instead of committing ``|end`` — abandoned fallback
+                streams must not leak their buffered payloads in the KV."""
+                import pickle as _pickle
+
+                from ray_tpu_torch._private.worker import auto_init
+
+                w = auto_init()
+                base = f"serve|stream|{stream_id}"
+                cancel_key = f"{base}|cancel".encode()
+                fn, args, kwargs = self._resolved(method, args, kwargs)
+                seq = 0
+                cancelled = False
+                try:
+                    for item in fn(*args, **kwargs):
+                        if w.kv_get(cancel_key) is not None:
+                            cancelled = True
+                            break
+                        w.kv_put(f"{base}|{seq}".encode(),
+                                 _pickle.dumps(item, protocol=5))
+                        seq += 1
+                except Exception as exc:  # noqa: BLE001 — stream error
+                    w.kv_put(f"{base}|err".encode(), _pickle.dumps(exc))
+                # Cancel handshake (with handle._KVStreamFallbackGenerator
+                # .close): the cancelled side owns the sweep, the normal
+                # side owns committing |end. The producer re-checks the
+                # marker AFTER putting |end and the consumer re-checks
+                # |end AFTER putting |cancel, so whichever write lands
+                # last, one side is guaranteed to observe the other and
+                # run the sweep — no interleaving leaks a key.
+                def sweep():
+                    for i in range(seq):
+                        w.kv_del(f"{base}|{i}".encode())
+                    w.kv_del(f"{base}|err".encode())
+                    w.kv_del(f"{base}|end".encode())
+                    w.kv_del(cancel_key)
+
+                if cancelled or w.kv_get(cancel_key) is not None:
+                    sweep()
+                    return seq
+                w.kv_put(f"{base}|end".encode(), str(seq).encode())
+                if w.kv_get(cancel_key) is not None:
+                    sweep()  # close() raced our final check: we own it
+                return seq
 
             def health_check(self):
                 return True

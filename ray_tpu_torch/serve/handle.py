@@ -5,9 +5,11 @@ and streaming responses over the streaming task plane.
 With tracing armed, ``remote`` is one ``serve.request`` span (routing,
 wake and submission) under the caller's ambient context, and an LLM
 deployment's request dict carries that span's context as ``_trace``.
-Not ported: the KV-polling stream fallback and the detached router,
-which serve handles that crossed a process boundary (the users of the
-process plane, ROADMAP A.5a).
+Where a replica's runtime has no streaming plane, a streaming response
+falls back to polling the KV (``_KVStreamFallbackGenerator`` over the
+replica's ``handle_stream``), with the cancel handshake that sweeps the
+stream's keys. Not ported: the detached router that serves a handle
+pickled into another process (with the node plane, ROADMAP A.5b).
 """
 
 from __future__ import annotations
@@ -133,6 +135,128 @@ def _extract_prefix_tokens(args, kwargs):
     return None
 
 
+class _KVStreamFallbackGenerator:
+    """Fallback stream: items arrive through the runtime's KV under
+    (stream_id, seq) keys, polled in order. Used only where the streaming
+    actor plane is unavailable: a replica whose runtime has no
+    generator methods (``handle_stream_gen`` raises). The primary path is
+    ``DeploymentResponseGenerator`` over ``ObjectRefGenerator``; this
+    poller trades latency (2 ms poll cadence, no backpressure) for
+    working over nothing but the KV (cluster-global with a head)."""
+
+    def __init__(self, ref, replica_set, replica_key, stream_id: str):
+        self._inner = DeploymentResponse(ref, replica_set, replica_key)
+        self._stream_id = stream_id
+        self._seq = 0
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def close(self):
+        """Stop consuming: best-effort cancel of the producing replica
+        task, release the router's in-flight slot NOW — an abandoned
+        fallback stream must stop counting as an ongoing request (the
+        autoscaler reads those counts) — and clean the stream's KV keys.
+        Sweep protocol: if the producer already committed ``|end`` it has
+        exited, so this side sweeps everything; otherwise a ``|cancel``
+        marker is written and the still-running producer sweeps its own
+        writes (covering items committed after this sweep)."""
+        if self._done:
+            return
+        self._done = True
+        try:
+            ray_tpu_torch.cancel(self._inner._to_object_ref())
+        except Exception:  # noqa: BLE001 — cancel is advisory here
+            pass
+        try:
+            from ray_tpu_torch._private.worker import global_worker
+
+            w = global_worker()
+            base = f"serve|stream|{self._stream_id}"
+
+            def sweep_items(seq):
+                while w.kv_del(f"{base}|{seq}".encode()):
+                    seq += 1
+                return seq
+
+            seq = sweep_items(self._seq)
+            w.kv_del(f"{base}|err".encode())
+            if w.kv_del(f"{base}|end".encode()):
+                # Producer exited: re-sweep items it committed between
+                # our first pass and |end landing (TOCTOU window).
+                sweep_items(seq)
+                w.kv_del(f"{base}|err".encode())
+            else:
+                # Producer still running: hand it the sweep baton — and
+                # re-check |end, which closes the handshake against a
+                # producer that committed |end before seeing the marker
+                # (it re-checks |cancel after |end; we re-check |end
+                # after |cancel, so one side always observes the other).
+                w.kv_put(f"{base}|cancel".encode(), b"1")
+                if w.kv_del(f"{base}|end".encode()):
+                    sweep_items(seq)
+                    w.kv_del(f"{base}|err".encode())
+                    w.kv_del(f"{base}|cancel".encode())
+        except Exception:  # noqa: BLE001 — KV cleanup is best-effort
+            pass
+        self._inner._release()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter-teardown safety
+            pass
+
+    def __next__(self):
+        import pickle
+        import time
+
+        from ray_tpu_torch._private.worker import global_worker
+
+        if self._done:
+            raise StopIteration
+        w = global_worker()
+        base = f"serve|stream|{self._stream_id}"
+        deadline = time.monotonic() + 60.0
+        oref = None
+        try:
+            oref = self._inner._to_object_ref()
+        except Exception:  # noqa: BLE001 — no ref (test stub): poll only
+            pass
+        while True:
+            raw = w.kv_get(f"{base}|{self._seq}".encode())
+            if raw is not None:
+                w.kv_del(f"{base}|{self._seq}".encode())
+                self._seq += 1
+                return pickle.loads(raw)
+            err = w.kv_get(f"{base}|err".encode())
+            if err is not None:
+                w.kv_del(f"{base}|err".encode())
+                self.close()  # sweep unconsumed items + markers
+                raise pickle.loads(err)
+            end = w.kv_get(f"{base}|end".encode())
+            if end is not None and self._seq >= int(end):
+                self.close()
+                raise StopIteration
+            if oref is not None:
+                # Dead-producer fast path: a killed replica's in-flight
+                # call materializes a typed error into the result ref
+                # (ActorDiedError via the node-death watcher) — surface
+                # it NOW so the client retries in seconds, instead of
+                # burning the full stall bound per stream (a mid-kill
+                # episode otherwise serializes every open stream behind
+                # a 60 s poll timeout).
+                call_err = w.store.peek_error(oref.object_id)
+                if call_err is not None:
+                    self.close()
+                    raise call_err
+            if time.monotonic() > deadline:
+                self.close()
+                raise TimeoutError("stream stalled for 60s")
+            time.sleep(0.002)
+
+
 class DeploymentHandle:
     def __init__(self, deployment_name: str, controller,
                  method_name: str = "__call__", stream: bool = False,
@@ -227,10 +351,25 @@ class DeploymentHandle:
         }
         self._controller._record_request(self._name)
         if self._stream:
-            ref_gen = replica.handle_stream_gen.options(
-                num_returns="streaming").remote(self._method, args, kwargs)
-            return DeploymentResponseGenerator(
-                ref_gen, rs, key, replica=replica)
+            try:
+                # Primary: the streaming task plane; the replica's
+                # generator yields straight into item refs consumed here
+                # incrementally (with backpressure).
+                ref_gen = replica.handle_stream_gen.options(
+                    num_returns="streaming").remote(
+                        self._method, args, kwargs)
+                return DeploymentResponseGenerator(
+                    ref_gen, rs, key, replica=replica)
+            except (ValueError, AttributeError, TypeError):
+                # The replica's runtime has no streaming plane: fall back
+                # to (stream_id, seq) KV polling.
+                pass
+            import uuid
+
+            stream_id = uuid.uuid4().hex
+            ref = replica.handle_stream.remote(
+                self._method, args, kwargs, stream_id)
+            return _KVStreamFallbackGenerator(ref, rs, key, stream_id)
         ref = replica.handle_request.remote(self._method, args, kwargs)
         return DeploymentResponse(ref, rs, key, replica=replica)
 

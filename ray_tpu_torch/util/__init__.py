@@ -3,7 +3,10 @@ groups and scheduling strategies, topic pub/sub, and device profiling.
 ``tracing``, ``metrics`` and ``state`` (the observability plane),
 ``sanitizer`` (the host-plane invariant checks), ``loadgen`` (seeded
 traffic shapes) and ``chaos`` (seeded fault injection) are its
-submodules."""
+submodules. ``profiling``'s names (``annotate``, ``profile_trace``,
+``trace_files``) load at first use: they need torch, and a process that
+imports ``util`` for its host-plane pieces (the head service, a worker
+process) boots without it."""
 
 from ray_tpu_torch.util.placement_group import (
     PlacementGroup,
@@ -12,7 +15,6 @@ from ray_tpu_torch.util.placement_group import (
     placement_group_table,
     remove_placement_group,
 )
-from ray_tpu_torch.util.profiling import annotate, profile_trace, trace_files
 from ray_tpu_torch.util.scheduling_strategies import (
     DEFAULT,
     SPREAD,
@@ -21,6 +23,17 @@ from ray_tpu_torch.util.scheduling_strategies import (
 )
 
 from ray_tpu_torch.util import pubsub  # noqa: F401 — general topic pub/sub
+
+_PROFILING_NAMES = ("annotate", "profile_trace", "trace_files")
+
+
+def __getattr__(name):
+    if name in _PROFILING_NAMES:
+        from ray_tpu_torch.util import profiling
+
+        return getattr(profiling, name)
+    raise AttributeError(
+        f"module 'ray_tpu_torch.util' has no attribute {name!r}")
 
 __all__ = [
     "pubsub",

@@ -22,7 +22,7 @@ Quickstart::
 active config, per-site fault counters and every recorded kill;
 all-zero when chaos never ran. ``worker_kill_target()`` SIGKILLs a
 worker process of the process plane's pool. Not ported:
-``head_kill_target`` (the cluster, A.5b).
+``head_kill_target`` (with the node plane's daemon kills, A.5b).
 """
 
 from ray_tpu_torch._private.chaos import (  # noqa: F401

@@ -1,9 +1,11 @@
-"""Placement groups (counterpart of ``ray_tpu/util/placement_group.py``,
-its single-node branch; groups across nodes wait for the cluster, ROADMAP
-A.5b).
+"""Placement groups (counterpart of ``ray_tpu/util/placement_group.py``).
 
-A placement group atomically reserves resource bundles against the
-runtime's ``ResourcePool``. On one node ``STRICT_SPREAD`` over more than
+A placement group atomically reserves resource bundles. On the simulated
+cluster (``cluster_utils.Cluster``) each bundle maps to a node by the
+group's strategy and reserves there (``bundle_nodes``), and a task with
+``PlacementGroupSchedulingStrategy`` runs on its bundle's node; groups
+across node daemons wait for the node plane (ROADMAP A.5b). On one node
+every bundle reserves against the runtime's ``ResourcePool``: there ``STRICT_SPREAD`` over more than
 one bundle cannot be honoured and raises ``ValueError``, as does a demand
 that exceeds the pool's total. A group that fits the total but not what
 is free now stays ``PENDING``; nothing reserves it later, and its
@@ -39,6 +41,8 @@ class PlacementGroup:
         self._ready = threading.Event()
         self._removed = False
         self._reserved: Optional[Dict[str, float]] = None
+        # The node (hex id) of each bundle on the simulated cluster.
+        self.bundle_nodes: List[Optional[str]] = [None] * len(bundles)
 
     def ready(self):
         """An ObjectRef that resolves ``True``: ``get(pg.ready())``."""
@@ -78,6 +82,10 @@ def placement_group(bundles: List[Dict[str, float]],
     worker = auto_init()
     pg = PlacementGroup(uuid.uuid4().hex, [dict(b) for b in bundles],
                         strategy, name)
+    if worker.cluster is not None:
+        worker.cluster.reserve_placement_group(pg)
+        worker.placement_groups[pg.id] = pg
+        return pg
     if strategy == "STRICT_SPREAD" and len(bundles) > 1:
         raise ValueError(
             "STRICT_SPREAD needs one node per bundle; single-node "
@@ -106,6 +114,8 @@ def remove_placement_group(pg: PlacementGroup) -> None:
     stored._removed = True
     if stored._reserved:
         worker.resource_pool.release(stored._reserved)
+    if worker.cluster is not None:
+        worker.cluster.release_placement_group(stored)
 
 
 def get_placement_group(name: str) -> PlacementGroup:

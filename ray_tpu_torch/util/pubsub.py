@@ -1,11 +1,9 @@
-"""General topic pub/sub (counterpart of ``ray_tpu/util/pubsub.py``, its
-in-process registry).
+"""General topic pub/sub (counterpart of ``ray_tpu/util/pubsub.py``).
 
-The reference's head-attached drivers publish and subscribe cluster-wide
-through the head's event channels; a driver with no head attachment gets
-the same API over an in-process registry, so libraries can publish
-unconditionally. The port has no head yet (ROADMAP A.5b): ``_head_client``
-returns None, and every topic lives in this process.
+Head-attached drivers publish and subscribe cluster-wide through the
+head's event channels (``HeadClient.subscribe`` / ``publish``); a driver
+with no head attachment gets the same API over an in-process registry,
+so libraries can publish unconditionally.
 """
 
 from __future__ import annotations
@@ -36,8 +34,11 @@ class LocalSubscription:
 
 
 def _head_client():
-    """The head attachment: None until the cluster is ported."""
-    return None
+    """The live runtime's head attachment, or None."""
+    from ray_tpu_torch._private.worker import try_live_worker
+
+    w = try_live_worker()
+    return getattr(w, "head_client", None) if w is not None else None
 
 
 def subscribe(topic: str, callback: Optional[Callable[[Any], None]] = None):
@@ -54,8 +55,8 @@ def subscribe(topic: str, callback: Optional[Callable[[Any], None]] = None):
 
 
 def publish(topic: str, payload: Any) -> int:
-    """Publish to every subscriber; returns the number of local handlers
-    it was delivered to."""
+    """Publish to every subscriber; returns the number of clients the
+    head pushed to (attached) or of local handlers (not attached)."""
     hc = _head_client()
     if hc is not None:
         return hc.publish(topic, payload)

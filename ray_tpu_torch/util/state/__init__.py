@@ -4,8 +4,11 @@ engines, the task-event timeline, trace assembly, the metrics scrape and
 the debug bundle archive, backed by the worker's task-event buffer, its
 registries and this process's tracer and flight recorder.
 
-Every function covers this process only, as the reference's do without a
-head client. Not ported: ``autoscaler_summary`` and ``ownership_summary``
+Every function covers this process and its worker processes (their
+spilled spans and flight bundles), as the reference's do without node
+daemons; ``debug_dump`` adds the head's bundle when this driver is
+attached to one. Not ported: the cluster-wide pulls from node daemons,
+``autoscaler_summary`` and ``ownership_summary``
 (with the cluster, ROADMAP A.5b). The workflow listings read the storage
 root of ``workflow.init`` (or the default root).
 """
@@ -388,15 +391,26 @@ def cluster_metrics() -> str:
 
 # ------------------------------------------------------- flight recorder
 def collect_debug_bundles() -> Dict[str, dict]:
-    """This process's flight bundle under ``"driver"``, with the
-    framework gauges refreshed first; empty while the recorder is
-    disarmed."""
+    """This process's flight bundle under ``"driver"`` (the framework
+    gauges refreshed first), with the newest bundle each of its worker
+    processes spilled under its ``"workers"``, and the head's bundle
+    under ``"head"`` when this driver is attached to one. A source whose
+    recorder is disarmed is absent."""
     from ray_tpu_torch._private import flight
     from ray_tpu_torch.util.metrics import refresh_framework_metrics
 
-    refresh_framework_metrics(global_worker())
-    local = flight.local_bundle()
-    return {"driver": local} if local else {}
+    w = global_worker()
+    refresh_framework_metrics(w)
+    out: Dict[str, dict] = {}
+    local = flight.local_bundle(include_dir=True)
+    if local:
+        out["driver"] = local
+    hc = getattr(w, "head_client", None)
+    if hc is not None:
+        head_bundle = hc.debug_dump()
+        if head_bundle:
+            out["head"] = head_bundle
+    return out
 
 
 def _dump_root() -> str:
@@ -409,8 +423,10 @@ def _dump_root() -> str:
 def cluster_dump(out_dir: Optional[str] = None) -> str:
     """Write ONE directory-per-incident archive,
     ``<out_dir>/debug-<stamp>-<id>/``, holding one ``<source>.json`` per
-    process (here ``driver.json``, when the recorder is armed) and a
-    ``manifest.json`` index. Returns the incident directory."""
+    process (``driver.json`` when the recorder is armed, ``head.json``
+    with an armed head; worker processes' bundles split out as
+    ``<source>.worker-<pid>.json``) and a ``manifest.json`` index.
+    Returns the incident directory."""
     bundles = collect_debug_bundles()
     root = out_dir or _dump_root()
     incident = os.path.join(
@@ -419,17 +435,25 @@ def cluster_dump(out_dir: Optional[str] = None) -> str:
     os.makedirs(incident, exist_ok=True)
     manifest = {"ts": time.time(), "sources": {}}
     for source, bundle in sorted(bundles.items()):
+        workers = bundle.pop("workers", []) or []
         with open(os.path.join(incident, f"{source}.json"), "w") as f:
             json.dump(bundle, f, indent=1)
+        files = [f"{source}.json"]
+        for wb in workers:
+            wname = f"{source}.worker-{wb.get('pid', 0)}.json"
+            with open(os.path.join(incident, wname), "w") as f:
+                json.dump(wb, f, indent=1)
+            files.append(wname)
         manifest["sources"][source] = {
-            "files": [f"{source}.json"],
+            "files": files,
             "pid": bundle.get("pid"),
             "component": bundle.get("component"),
             "node": bundle.get("node"),
             "watchdog_fires": bundle.get("watchdog_fires", 0),
-            "num_workers": 0,
+            "num_workers": len(workers),
         }
-    manifest["num_processes"] = len(manifest["sources"])
+    manifest["num_processes"] = sum(
+        1 + s["num_workers"] for s in manifest["sources"].values())
     with open(os.path.join(incident, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     return incident
