@@ -535,7 +535,48 @@ non-zero without printing a result. Without a CUDA card, or without the
    object pulled from the peer in GB/s; the head's restart and the
    client's reconnect in s.
 
-``--only cluster`` runs phase 20 alone, ``--only process`` phase 19,
+21. nodes: the node plane, at the flagship's full width and depth (bf16,
+   4 x 2048 tokens a step). A port head and five node daemons start at
+   once (python -m ray_tpu_torch._private.node_daemon): card nodes A and
+   B (--worker-mode thread, {"card_a": 1} / {"card_b": 1}; each sees the
+   card and advertises GPU 1), feed nodes F1 and F2 (--worker-mode
+   process, {"feed": 1}, CUDA_VISIBLE_DEVICES="") and T (thread, no card,
+   launched under RAY_TPU_TRACE_PARENT); each must print its joined line
+   within NODE_JOIN_S. This driver attaches with num_cpus=0, num_gpus=0
+   and keeps the card only for the direct loop (the oracle). (a) The
+   named actor "flagship_node_trainer" (num_gpus=1, max_restarts=1) is
+   placed by the router on a card node and steps NODE_STEPS batches,
+   each made by a seeded feed task (resources {"feed": 1}) whose ref goes
+   straight into trainer.step.remote(ref): the card node pulls it from
+   the feed node peer to peer. Its losses equal the direct loop's bit for
+   bit, with the forward, dQ and dK/dV launched 4 / 4 / 4 times a step on
+   the tensor cores inside the daemon's process (counted there and
+   returned by the actor) and no plain route; the feed tasks ran in F1's
+   and F2's workers; no push was relayed by the head after the first
+   wave. (b) A thin client (a subprocess with CUDA_VISIBLE_DEVICES="",
+   init(address="ray://H:P")) resolves the actor by name and steps
+   NODE_PEER_STEPS more batches that its own feed tasks make (refs it
+   owns, resolved by the card node through it): steps 25-32 equal the
+   direct loop's, the client has no CPU and never initialised CUDA. (c)
+   F1 is SIGKILLed under a wave of NODE_WAVE feed tasks: every batch
+   arrives (rerouted to F2 or re-executed from lineage) and the next step
+   equals the direct loop's; then the card node hosting the trainer is
+   SIGKILLed: the call in flight fails with ActorDiedError, the actor
+   restarts with fresh state on the other card node, and its first
+   NODE_RESTART_STEPS steps equal the direct loop's first ones. (d)
+   Tracing and the flight recorder are armed: a traced feed and step
+   bring the feed node's and the card node's spans into this driver's
+   timeline(trace_id); debug_dump() holds a bundle and cluster_metrics()
+   the registry of every live daemon; T's node.init span is in the trace
+   its RAY_TPU_TRACE_PARENT named. Smoke readings: daemon boot (spawn to
+   the joined line), a trivial task's round trip p50 / p99, the step p50
+   through the placed actor and from the thin client beside the direct
+   loop's, a 64 MiB object pulled from F1 to the card node in GB/s, and
+   the seconds from each kill to the rerouted wave and to the restarted
+   actor's first step.
+
+``--only nodes`` runs phase 21 alone,
+``--only cluster`` phase 20, ``--only process`` phase 19,
 ``--only util`` phase 18,
 ``--only tune`` phase 17, ``--only
 data`` phase 16, ``--only observe`` phase 15 and ``--only rl --armed``
@@ -909,6 +950,22 @@ CLUSTER_CLIENT_TIMEOUT_S = 3.0
 CLUSTER_POLL_S = 60.0
 CLUSTER_ACTOR = "flagship_trainer"
 CLUSTER_TOPIC = "chip_smoke:losses"
+
+# Phase 21 (nodes): NODE_STEPS steps through the placed trainer,
+# NODE_PEER_STEPS more from the ray:// client, NODE_RESTART_STEPS after
+# its restart; NODE_WAVE feed tasks in flight when feed node F1 dies;
+# NODE_TRIPS trivial tasks for the round trip; NODE_PULL_BYTES pulled
+# from F1 to the card node; each daemon's joined line within
+# NODE_JOIN_S, every other wait within NODE_POLL_S; the head's client
+# timeout (a dead node leaves the membership within it).
+NODE_STEPS, NODE_PEER_STEPS, NODE_RESTART_STEPS = 24, 8, 4
+NODE_WAVE = 8
+NODE_TRIPS = 200
+NODE_PULL_BYTES = 64 << 20
+NODE_JOIN_S = 60.0
+NODE_POLL_S = 60.0
+NODE_CLIENT_TIMEOUT_S = 2.0
+NODE_ACTOR = "flagship_node_trainer"
 
 
 _STARTED = time.perf_counter()
@@ -8041,6 +8098,28 @@ class _DagShift:
                 np.ascontiguousarray(tokens[:, 1:]))
 
 
+def _await_relays(hc, bound):
+    """Block until the head pushes to this client's event channel again
+    (after a head restart): a probe topic this client subscribes to
+    reaches one subscriber."""
+    topic = "chip_smoke:relay_probe:" + hc.client_id
+    sub = hc.subscribe(topic)
+    deadline = time.monotonic() + bound
+    try:
+        while True:
+            try:
+                if hc.publish(topic, 0) >= 1:
+                    return
+            except ConnectionError:
+                pass  # the head is not back yet
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the head did not relay to this driver "
+                                   f"within {bound} s of its restart")
+            time.sleep(0.05)
+    finally:
+        sub.close()
+
+
 def _cluster_nop(x):
     return x + 1
 
@@ -8254,6 +8333,10 @@ def phase_cluster(dev, card, cfg):
         readings["head_reresolve_s"] = time.perf_counter() - t1
         checks["c_head_resolves_trainer_after_restart"] = (
             entry is not None and entry[0] == hc.client_id)
+        # The request channel answers first; a relay to this driver needs
+        # its event channel too, re-dialled on its own 0.5 s cadence.
+        _await_relays(hc, CLUSTER_POLL_S)
+        readings["head_relays_back_s"] = time.perf_counter() - t1
         w.kv_put((key2 + "/go").encode(), b"1")
         got2 = _wait_json(w, key2, peer2, 4 * CLUSTER_POLL_S)
         if "error" in got2:
@@ -8309,6 +8392,637 @@ def phase_cluster(dev, card, cfg):
     return result
 
 
+# ------------------------------------------------------------ phase 21
+def _shipped(obj):
+    """``obj`` as the importable module ``chip_smoke`` holds it: run as a
+    script, this module is ``__main__``, whose functions and classes
+    cloudpickle would copy by value into the payloads a node receives;
+    the module's own are sent by reference (node daemons import it)."""
+    if __name__ != "__main__":
+        return obj
+    return getattr(importlib.import_module("chip_smoke"), obj.__name__)
+
+
+def _node_batch(i, vocab, batch, length):
+    """Phase 21's batch ``i``: [batch, length] seeded int64 tokens on the
+    CPU (inputs are ``[:, :-1]``, labels ``[:, 1:]``)."""
+    rng = np.random.default_rng(SEED + 21_000 + i)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, length)))
+
+
+def _node_feed(i, vocab, batch, length, delay_s=0.0):
+    """Phase 21's feed task (on a feed node): batch ``i`` as a host
+    tensor, with the pid that made it."""
+    if delay_s:
+        time.sleep(delay_s)
+    return os.getpid(), _node_batch(i, vocab, batch, length)
+
+
+def _node_big(n):
+    """A seeded ``n``-byte array, made on the node the task runs on."""
+    return np.random.default_rng(SEED + 21_001).integers(
+        0, 256, n, dtype=np.uint8)
+
+
+def _node_pull(wrapped):
+    """Runs on a card node: pull the object behind ``wrapped[0]`` (a ref
+    nested in a list, so it arrives unresolved) and time the pull."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    arr = rt.get(wrapped[0], timeout=NODE_POLL_S)
+    seconds = time.perf_counter() - t0
+    return int(arr.nbytes), int(arr.sum(dtype=np.int64)), seconds
+
+
+class _NodeTrainer:
+    """Phase 21's placed actor: make_train_step on its process's
+    ``dev``, which must be there (a card node's daemon owns ``cuda:0``).
+    ``step`` takes a feed task's ``(pid, tokens)``; ``report`` returns
+    the launch counts and plain routes counted in this process since
+    ``reset``, the feed pids and the step seconds."""
+
+    def __init__(self, cfg, dev, params=None):
+        from ray_tpu_torch import models as tm
+
+        self.dev = torch.device(dev)
+        if self.dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("the trainer was placed on a node that "
+                                   "sees no card")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.params = (params if params is not None
+                       else tm.init_params(cfg, SEED, device=self.dev))
+        self.step_fn = tm.make_train_step(cfg, self.params)
+        self.reset()
+
+    def reset(self):
+        self.feed_pids, self.step_s = [], []
+        self.plain0 = 0
+        if self.dev.type == "cuda":
+            _zero_counts()
+            self.plain0 = _flash_module().plain_routes
+        return os.getpid()
+
+    def step(self, fed):
+        pid, tokens = fed
+        t = torch.as_tensor(tokens).to(self.dev)
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        loss = self.step_fn(t[:, :-1], t[:, 1:]).item()
+        self.step_s.append(time.perf_counter() - t0)
+        self.feed_pids.append(pid)
+        return loss
+
+    def hold(self, seconds):
+        time.sleep(seconds)
+        return os.getpid()
+
+    def report(self):
+        out = {"pid": os.getpid(), "device": str(self.dev),
+               "feed_pids": list(self.feed_pids),
+               "step_s": list(self.step_s),
+               "cuda_initialized": torch.cuda.is_initialized()}
+        if self.dev.type == "cuda":
+            out["counts"] = _counts()
+            out["plain_routes"] = _flash_module().plain_routes - self.plain0
+        return out
+
+
+def _node_peer(spec_json: str) -> int:
+    """Phase 21 (b)'s thin client (a subprocess: ``python -c "import
+    chip_smoke, sys; sys.exit(chip_smoke._node_peer(sys.argv[1]))"
+    SPEC``). It attaches with ``ray://``, waits for the go key, resolves
+    spec["actor"], then steps spec["steps"] batches from spec["first"]
+    on, each made by its own feed task; its results go to the KV under
+    spec["key"] as JSON."""
+    import traceback
+
+    import ray_tpu_torch as rt
+
+    spec = json.loads(spec_json)
+    w = rt.init(address="ray://" + spec["address"])
+    out = {"pid": os.getpid(), "client": w.head_client.client_id}
+    poll = spec["poll_s"]
+    try:
+        # The go key comes once the trainer is placed: resolved before,
+        # its name would find no placement yet and relay through the
+        # owning driver (CrossDriverActorHandle).
+        deadline = time.monotonic() + 4 * poll
+        while w.kv_get(spec["go"].encode()) is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError("no go key")
+            time.sleep(0.05)
+        trainer = rt.get_actor(spec["actor"])
+        out["handle"] = type(trainer).__name__
+        feed = rt.remote(_shipped(_node_feed)).options(
+            resources={"feed": 1})
+        losses, step_s, fed_by = [], [], []
+        for i in range(spec["first"], spec["first"] + spec["steps"]):
+            ref = feed.remote(i, spec["vocab"], spec["batch"],
+                              spec["length"])
+            fed_by.append(w.borrowed_owner(ref.object_id.binary()) is None
+                          and w.remote_router.handles(ref.object_id))
+            t0 = time.perf_counter()
+            losses.append(rt.get(trainer.step.remote(ref), timeout=poll))
+            step_s.append(time.perf_counter() - t0)
+        out.update(losses=losses, step_s=step_s, owns_feed_refs=all(fed_by),
+                   cpus=w.resource_pool.total.get("CPU", 0.0),
+                   client_mode=w.client_mode,
+                   cuda_initialized=torch.cuda.is_initialized(),
+                   cuda_available=torch.cuda.is_available(),
+                   visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+    except BaseException:  # noqa: BLE001 — reported to the smoke driver
+        out["error"] = traceback.format_exc()
+    w.kv_put(spec["key"].encode(), json.dumps(out).encode())
+    rt.shutdown()
+    return 0 if "error" not in out else 1
+
+
+def _spawn_daemons(address, specs, env_of):
+    """Start one node daemon per ``(name, num_cpus, resources, mode)``,
+    all at once: ({name: process}, {name: spawn time})."""
+    procs, t0 = {}, {}
+    for name, num_cpus, resources, mode in specs:
+        t0[name] = time.perf_counter()
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
+             "--address", address, "--num-cpus", str(num_cpus),
+             "--resources", json.dumps(resources), "--worker-mode", mode],
+            stdout=subprocess.PIPE, text=True, env=env_of(name))
+    return procs, t0
+
+
+def _await_joined(procs, t0):
+    """Read each daemon's joined line, all within NODE_JOIN_S of now:
+    ({name: seconds from spawn to the line}, [names that did not
+    join]). A daemon that prints anything else raises."""
+    import selectors
+
+    joined, deadline = {}, time.monotonic() + NODE_JOIN_S
+    with selectors.DefaultSelector() as sel:
+        for name, p in procs.items():
+            sel.register(p.stdout, selectors.EVENT_READ, name)
+        while len(joined) < len(procs):
+            ready = sel.select(timeout=max(deadline - time.monotonic(), 0))
+            if not ready:
+                break
+            for key, _ in ready:
+                name = key.data
+                line = procs[name].stdout.readline()
+                sel.unregister(key.fileobj)
+                if "joined" not in line:
+                    raise RuntimeError(f"node daemon {name} did not join: "
+                                       f"{line!r}")
+                joined[name] = time.perf_counter() - t0[name]
+    return joined, sorted(set(procs) - set(joined))
+
+
+def _start_daemons(address, specs, env_of):
+    """Spawn the daemons at once and wait for their joined lines:
+    (processes, join seconds, names that did not join)."""
+    procs, t0 = _spawn_daemons(address, specs, env_of)
+    joined, missing = _await_joined(procs, t0)
+    return procs, joined, missing
+
+
+def _node_warm():
+    """Runs on a card node: create its CUDA context and a cuBLAS handle
+    and load the flash kernels' libraries (no kernel launches), so that
+    an actor started there later starts warm."""
+    from ray_tpu_torch.ops import _build
+
+    x = torch.ones(64, 64, device="cuda")
+    (x @ x).sum().item()
+    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma"):
+        _build.load_library(name)
+    return os.getpid()
+
+
+def _node_import_warm(seconds):
+    """Runs on a feed node's worker: this module (and torch) imported,
+    then held ``seconds`` so that the node's other worker takes the
+    next one."""
+    time.sleep(seconds)
+    return os.getpid()
+
+
+def _ppid(pid: int) -> int:
+    """The parent pid of a live process (0 when it is gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return int(fh.read().rsplit(")", 1)[1].split()[1])
+    except (OSError, IndexError, ValueError):
+        return 0
+
+
+def _node_direct(cfg, dev, n):
+    """The oracle: make_train_step in this driver on phase 21's batches
+    0..n-1. Returns the losses and step seconds."""
+    from ray_tpu_torch import models as tm
+
+    params = tm.init_params(cfg, SEED, device=dev)
+    step = tm.make_train_step(cfg, params)
+    losses, step_s = [], []
+    for i in range(n):
+        t = _node_batch(i, cfg.vocab_size, TRAIN_BATCH,
+                        TRAIN_LEN + 1).to(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(step(t[:, :-1], t[:, 1:]).item())
+        step_s.append(time.perf_counter() - t0)
+    del params, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses, step_s
+
+
+def _node_rec(w, name):
+    """Daemon ``name``'s membership record (found by its resources)."""
+    res = {"A": "card_a", "B": "card_b", "F1": "feed_1", "F2": "feed_2",
+           "T": "traced"}[name]
+    for n in w.head_client.node_list():
+        if res in (n.get("resources") or {}):
+            return n
+    raise RuntimeError(f"daemon {name} is not in the membership")
+
+
+def _node_failures(rt, w, cfg, procs, trainer, direct, node_of, checks,
+                   readings, out):
+    """Phase 21 (c): SIGKILL feed node F1 under a wave of feed tasks, then
+    the card node that hosts the trainer."""
+    feed = rt.remote(_shipped(_node_feed)).options(
+        resources={"feed": 1})
+    first = NODE_STEPS + NODE_PEER_STEPS
+    wave = [feed.remote(first + k, cfg.vocab_size, TRAIN_BATCH,
+                        TRAIN_LEN + 1, 0.5) for k in range(NODE_WAVE)]
+    time.sleep(0.2)   # the wave's first tasks are running on F1 and F2
+    t_kill = time.perf_counter()
+    procs["F1"].kill()
+    procs["F1"].wait(timeout=10)
+    fed = rt.get(wave, timeout=NODE_POLL_S)
+    readings["f1_kill_to_wave_s"] = time.perf_counter() - t_kill
+    checks["c_wave_arrived_intact"] = all(
+        torch.equal(t, _node_batch(first + k, cfg.vocab_size, TRAIN_BATCH,
+                                   TRAIN_LEN + 1))
+        for k, (_, t) in enumerate(fed))
+    loss = rt.get(trainer.step.remote(wave[0]), timeout=NODE_POLL_S)
+    checks["c_step_after_f1_kill_equals_direct"] = loss == direct[first]
+    # The card node that hosts the trainer.
+    host = node_of["trainer"]
+    other = "B" if host == "A" else "A"
+    held = trainer.hold.remote(30.0)
+    time.sleep(0.5)   # the call is running on the host
+    t_kill = time.perf_counter()
+    procs[host].kill()
+    procs[host].wait(timeout=10)
+    try:
+        rt.get(held, timeout=NODE_POLL_S)
+        died = "no error"
+    except Exception as exc:  # noqa: BLE001 — the expected death
+        died = type(exc).__name__
+    checks["c_inflight_call_actor_died"] = died == "ActorDiedError"
+    other_client = node_of[other + "_client"]
+    deadline = time.monotonic() + NODE_POLL_S
+    rec = None
+    while time.monotonic() < deadline:
+        rec = w.head_client.actor_locate(trainer._actor_id.binary())
+        if rec is not None and rec.get("alive") \
+                and rec.get("node") == other_client:
+            break
+        time.sleep(0.05)
+    checks["c_restarted_on_other_card_node"] = (
+        rec is not None and rec.get("node") == other_client)
+    feed2 = [feed.remote(i, cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN + 1)
+             for i in range(NODE_RESTART_STEPS)]
+    rt.get(trainer.reset.remote(), timeout=NODE_POLL_S)
+    losses = []
+    for i in range(NODE_RESTART_STEPS):
+        losses.append(rt.get(trainer.step.remote(feed2[i]),
+                             timeout=NODE_POLL_S))
+        if i == 0:
+            readings["card_kill_to_restarted_step_s"] = (
+                time.perf_counter() - t_kill)
+    rep = rt.get(trainer.report.remote(), timeout=NODE_POLL_S)
+    L = cfg.n_layers
+    checks["c_restarted_losses_equal_direct_first"] = (
+        losses == direct[:NODE_RESTART_STEPS])
+    checks["c_restarted_in_other_card_node"] = (
+        rep["pid"] == procs[other].pid and rep["device"] == node_of["dev"])
+    checks["c_restarted_launches"] = rep.get("counts") == _want_counts(
+        "wgmma", NODE_RESTART_STEPS * L, NODE_RESTART_STEPS * L)
+    checks["c_restarted_plain_routes_0"] = rep.get("plain_routes") == 0
+    out["c"] = {"restart_losses": losses, "died": died, "host": host,
+                "restarted_on": other}
+    return other
+
+
+def _node_observe(rt, w, trainer, vocab, clients, trace_ctx, checks, out):
+    """Phase 21 (d): a traced feed + step reach this driver's timeline
+    from the feed and card nodes (``clients["feed"]``, ``["card"]``);
+    debug_dump and cluster_metrics hold every live daemon; the daemon
+    launched under RAY_TPU_TRACE_PARENT (``clients["traced"]``) shows its
+    node.init span in that trace."""
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.util import state
+
+    feed_node, card_node = clients["feed"], clients["card"]
+    feed = rt.remote(_shipped(_node_feed)).options(
+        resources={"feed": 1})
+    with tracing.start_span("smoke.nodes") as span:
+        ref = feed.remote(0, vocab, TRAIN_BATCH, TRAIN_LEN + 1)
+        rt.get(trainer.step.remote(ref), timeout=NODE_POLL_S)
+    spans = []
+    deadline = time.monotonic() + NODE_POLL_S
+    while time.monotonic() < deadline:
+        spans = rt.timeline(trace_id=span.ctx.trace_id)
+        by_node = {}
+        for e in spans:
+            args = e.get("args") or {}
+            by_node.setdefault(args.get("node", ""), set()).add(e["name"])
+        if card_node in by_node and feed_node in by_node:
+            break
+        time.sleep(0.2)
+    checks["d_timeline_has_card_node_spans"] = card_node in by_node
+    checks["d_timeline_has_feed_node_spans"] = feed_node in by_node
+    out["d"] = {"span_names_by_node": {k: sorted(v)
+                                       for k, v in by_node.items()}}
+    incident = rt.debug_dump()
+    with open(os.path.join(incident, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    sources = set(manifest["sources"])
+    live_clients = {n["client_id"] for n in w.head_client.node_list()
+                    if n.get("alive")}
+    checks["d_debug_dump_every_live_daemon"] = (
+        {f"node-{c}" for c in live_clients} <= sources)
+    text = state.cluster_metrics()
+    checks["d_cluster_metrics_every_live_daemon"] = all(
+        f'node="{c}"' in text for c in live_clients)
+    shutil.rmtree(incident, ignore_errors=True)
+    init_spans = [s for s in state.collect_trace_spans(trace_ctx.trace_id)
+                  if s.get("name") == "node.init"]
+    checks["d_cold_start_node_init_span"] = (
+        len(init_spans) == 1
+        and init_spans[0].get("parent_id") == trace_ctx.span_id
+        and init_spans[0].get("node") == clients["traced"])
+    out["d"].update(sources=sorted(sources),
+                    live_daemons=sorted(live_clients),
+                    node_init_spans=len(init_spans))
+
+
+def phase_nodes(dev, card, cfg):
+    """Phase 21 (module docstring). The five daemons boot at once; the
+    thin client starts with them and waits for the trainer's name and a
+    go key."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    checks, out, readings, part_s = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":   # both at once (built already in the script)
+        _build.build_all(("flash_attention_fwd_wgmma",
+                          "flash_attention_bwd_wgmma"))
+    part_s["build"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nodes_")
+    armed = {k: os.environ.get(k) for k in (
+        "RAY_TPU_TRACE", "RAY_TPU_FLIGHT")}
+    os.environ["RAY_TPU_TRACE"] = os.environ["RAY_TPU_FLIGHT"] = "1"
+    base_env = _cluster_env(
+        RAY_TPU_HEAD_CLIENT_TIMEOUT_S=str(NODE_CLIENT_TIMEOUT_S))
+    # The cold-start parent a launched daemon inherits (its node.init
+    # span joins this trace).
+    trace_ctx = tracing.TraceContext(os.urandom(16).hex(),
+                                     os.urandom(8).hex())
+
+    def env_of(name):
+        env = dict(base_env)
+        if name in ("F1", "F2", "T"):
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        if name == "T":
+            env[tracing.ENV_PARENT] = tracing.encode_cold_start_parent(
+                trace_ctx)
+        return env
+
+    head = peer = None
+    procs = {}
+    rt.shutdown()
+    try:
+        t0 = time.perf_counter()
+        head, address, readings["head_boot_s"] = _start_head(
+            os.path.join(tmp, "head_state.log"), env=base_env)
+        procs, spawned = _spawn_daemons(address, [
+            ("A", 2, {"card_a": 1}, "thread"),
+            ("B", 2, {"card_b": 1}, "thread"),
+            ("F1", 2, {"feed": 1, "feed_1": 1}, "process"),
+            ("F2", 2, {"feed": 1, "feed_2": 1}, "process"),
+            ("T", 1, {"traced": 1}, "thread")], env_of)
+        key = "chip_smoke/nodes/peer"
+        peer = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke._node_peer(sys.argv[1]))",
+             json.dumps({"address": address, "actor": NODE_ACTOR,
+                         "key": key, "go": key + "/go",
+                         "first": NODE_STEPS, "steps": NODE_PEER_STEPS,
+                         "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+                         "length": TRAIN_LEN + 1,
+                         "poll_s": NODE_POLL_S})],
+            env=_cluster_env(CUDA_VISIBLE_DEVICES=""))
+        # This driver attaches now: the warm-ups below park until their
+        # node joins, and run while the oracle does. Each card node gets
+        # its CUDA context, cuBLAS and the kernels' libraries (the
+        # restart of (c) finds the other one warm); each feed node's two
+        # workers import this module.
+        w = rt.init(num_cpus=0, num_gpus=0, address=address)
+        warm_card = [rt.remote(_shipped(_node_warm)).options(
+            resources={res: 0.01}).remote() for res in ("card_a", "card_b")]
+        warm_feed = [rt.remote(_shipped(_node_import_warm)).options(
+            resources={res: 0.01}).remote(1.0)
+            for res in ("feed_1", "feed_2") for _ in range(2)]
+        # The oracle runs while the daemons boot; a thread reads their
+        # joined lines as they come.
+        boot = {}
+        reader = threading.Thread(
+            target=lambda: boot.update(
+                zip(("joined", "missing"), _await_joined(procs, spawned))),
+            daemon=True)
+        reader.start()
+        t1 = time.perf_counter()
+        n_direct = NODE_STEPS + NODE_PEER_STEPS + 1
+        direct, direct_s = _node_direct(cfg, dev, n_direct)
+        part_s["direct"] = time.perf_counter() - t1
+        reader.join(NODE_JOIN_S + 5)
+        if "joined" not in boot:
+            raise AssertionError("the node daemons' joined lines were not "
+                                 "read")
+        joined, missing = boot["joined"], boot["missing"]
+        if missing:
+            raise AssertionError(f"node daemons {missing} did not join "
+                                 f"within {NODE_JOIN_S} s")
+        readings["daemon_boot_s"] = joined
+        part_s["boot_and_direct"] = time.perf_counter() - t0
+        # (a) the trainer, placed by the router on a card node.
+        t0 = time.perf_counter()
+        node_of = {"dev": str(dev)}
+        for name in procs:
+            node_of[name + "_client"] = _node_rec(w, name)[
+                "client_id"]
+        checks["a_card_nodes_advertise_gpu"] = all(
+            _node_rec(w, n)["resources"].get("GPU") == 1.0
+            for n in ("A", "B"))
+        checks["a_feed_nodes_advertise_no_gpu"] = not any(
+            _node_rec(w, n)["resources"].get("GPU")
+            for n in ("F1", "F2", "T"))
+        trainer = rt.remote(_shipped(_NodeTrainer)).options(
+            name=NODE_ACTOR, num_gpus=1, max_restarts=1).remote(cfg,
+                                                                str(dev))
+        rt.get(trainer.reset.remote(), timeout=NODE_POLL_S)
+        readings["trainer_ready_s"] = time.perf_counter() - t0
+        checks["a_card_nodes_warm"] = sorted(
+            rt.get(warm_card, timeout=NODE_POLL_S)) == sorted(
+            (procs["A"].pid, procs["B"].pid))
+        checks["a_feed_nodes_warm"] = {
+            _ppid(p) for p in rt.get(warm_feed, timeout=NODE_POLL_S)} == {
+            procs["F1"].pid, procs["F2"].pid}
+        rec = w.head_client.actor_locate(trainer._actor_id.binary())
+        host = next((n for n in ("A", "B")
+                     if rec and rec.get("node") == node_of[n + "_client"]),
+                    None)
+        node_of["trainer"] = host
+        checks["a_trainer_placed_on_a_card_node"] = host is not None
+        feed = rt.remote(_shipped(_node_feed)).options(
+            resources={"feed": 1})
+        router = w.remote_router
+        losses, relayed_after_first = [], None
+        for i in range(NODE_STEPS):
+            ref = feed.remote(i, cfg.vocab_size, TRAIN_BATCH, TRAIN_LEN + 1)
+            losses.append(rt.get(trainer.step.remote(ref),
+                                 timeout=NODE_POLL_S))
+            if i == 0:
+                relayed_after_first = router.relayed_pushes
+        rep = rt.get(trainer.report.remote(), timeout=NODE_POLL_S)
+        want = _want_counts("wgmma", NODE_STEPS * L, NODE_STEPS * L)
+        checks["a_losses_bit_equal_direct"] = losses == direct[:NODE_STEPS]
+        checks["a_launches_in_card_node"] = rep.get("counts") == want
+        checks["a_plain_routes_0"] = rep.get("plain_routes") == 0
+        checks["a_trainer_runs_in_card_node_daemon"] = (
+            host is not None and rep["pid"] == procs[host].pid
+            and rep["device"] == str(dev))
+        # Feed nodes run the process plane: their tasks run in worker
+        # processes whose parent is the F1 or F2 daemon.
+        feed_pids = set(rep["feed_pids"])
+        checks["a_feed_tasks_on_feed_nodes"] = bool(feed_pids) and all(
+            _ppid(p) in (procs["F1"].pid, procs["F2"].pid)
+            for p in feed_pids)
+        checks["a_no_relayed_push_after_first_wave"] = (
+            router.relayed_pushes == relayed_after_first)
+        out["a"] = {"losses": losses, "direct_losses": direct,
+                    "host": host, "feed_pids": sorted(feed_pids),
+                    "launches_per_step": {
+                        k: v / NODE_STEPS
+                        for k, v in rep.get("counts", {}).items() if v},
+                    "plain_routes": rep.get("plain_routes"),
+                    "direct_pushes": router.direct_pushes,
+                    "relayed_pushes": router.relayed_pushes}
+        readings["step_ms_p50_placed_actor"] = _p50(rep["step_s"][1:]) * 1e3
+        readings["step_ms_p50_direct"] = _p50(direct_s[1:]) * 1e3
+        nop = rt.remote(_shipped(_cluster_nop)).options(
+            resources={"feed": 1})
+        rt.get(nop.remote(0), timeout=NODE_POLL_S)
+        trips = []
+        for i in range(NODE_TRIPS):
+            t1 = time.perf_counter()
+            rt.get(nop.remote(i), timeout=NODE_POLL_S)
+            trips.append(time.perf_counter() - t1)
+        readings["task_round_trip_ms_p50"] = _p50(trips) * 1e3
+        readings["task_round_trip_ms_p99"] = _p99(trips) * 1e3
+        strategies = importlib.import_module(
+            "ray_tpu_torch.util.scheduling_strategies")
+        f1_id = _node_rec(w, "F1")["node_id"]
+        a_id = _node_rec(w, host)["node_id"]
+        big = rt.remote(_shipped(_node_big)).options(
+            scheduling_strategy=strategies.NodeAffinitySchedulingStrategy(
+                f1_id)).remote(NODE_PULL_BYTES)
+        # Wait for the object without pulling it here: the card node
+        # must find it on F1.
+        done = router._done.get(big.object_id.task_id())
+        if done is None or not done.wait(NODE_POLL_S):
+            raise AssertionError("the 64 MiB object was never made on F1")
+        puller = rt.remote(_shipped(_node_pull))
+        nbytes, total, pull_s = rt.get(puller.options(
+            scheduling_strategy=strategies.NodeAffinitySchedulingStrategy(
+                a_id)).remote([big]), timeout=NODE_POLL_S)
+        checks["a_pull_intact"] = (
+            nbytes == NODE_PULL_BYTES
+            and total == int(_node_big(NODE_PULL_BYTES).sum(dtype=np.int64)))
+        readings["pull_64mib_f1_to_card_gbps"] = nbytes / pull_s / 1e9
+        part_s["a"] = time.perf_counter() - t0
+        # (b) the thin client steps the same trainer.
+        t0 = time.perf_counter()
+        w.kv_put((key + "/go").encode(), b"1")
+        got = _wait_json(w, key, peer, 4 * NODE_POLL_S)
+        if "error" in got:
+            raise AssertionError(f"phase 21's thin client failed:\n"
+                                 f"{got['error']}")
+        checks["b_losses_bit_equal_direct"] = got["losses"] == direct[
+            NODE_STEPS:NODE_STEPS + NODE_PEER_STEPS]
+        checks["b_client_mode_no_cpu"] = (got["client_mode"]
+                                          and got["cpus"] == 0.0)
+        checks["b_client_owns_its_feed_refs"] = got["owns_feed_refs"]
+        checks["b_client_never_initialised_cuda"] = (
+            not got["cuda_initialized"] and not got["cuda_available"]
+            and got["visible"] == "")
+        checks["b_handle_is_placed_actor"] = got["handle"] == "ActorHandle"
+        rep = rt.get(trainer.report.remote(), timeout=NODE_POLL_S)
+        n_ab = NODE_STEPS + NODE_PEER_STEPS
+        checks["b_launches_in_card_node"] = rep.get(
+            "counts") == _want_counts("wgmma", n_ab * L, n_ab * L)
+        out["b"] = {"losses": got["losses"], "peer_pid": got["pid"]}
+        readings["step_ms_p50_thin_client"] = _p50(got["step_s"][1:]) * 1e3
+        part_s["b"] = time.perf_counter() - t0
+        # (c) failures.
+        t0 = time.perf_counter()
+        other = _node_failures(rt, w, cfg, procs, trainer, direct, node_of,
+                               checks, readings, out)
+        part_s["c"] = time.perf_counter() - t0
+        # (d) observability over the live daemons (B or A, F2, T).
+        t0 = time.perf_counter()
+        _node_observe(rt, w, trainer, cfg.vocab_size, {
+            "feed": node_of["F2_client"], "card": node_of[other + "_client"],
+            "traced": node_of["T_client"]}, trace_ctx, checks, out)
+        part_s["d"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        for k, v in armed.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for proc in [peer, head, *procs.values()]:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {
+        "phase": "nodes", "config": {
+            "d_model": cfg.d_model, "n_layers": L,
+            "dtype": _dtype_name(cfg.dtype),
+            "train_batch": [TRAIN_BATCH, TRAIN_LEN],
+            "steps": NODE_STEPS, "peer_steps": NODE_PEER_STEPS,
+            "restart_steps": NODE_RESTART_STEPS,
+            "client_timeout_s": NODE_CLIENT_TIMEOUT_S},
+        "checks": checks, **out, "readings": readings, "part_s": part_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 21 (nodes) failed {failed}")
+    return result
+
+
 def _deciles_ms(xs):
     """p10, p50 and p90 of ``xs`` seconds, in ms (nearest rank)."""
     xs = sorted(xs)
@@ -8346,7 +9060,8 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``cluster`` is phase 20, ``process`` phase 19, ``util`` phase 18, ``tune`` phase 17,
+    ``nodes`` is phase 21, ``cluster`` phase 20, ``process`` phase 19,
+    ``util`` phase 18, ``tune`` phase 17,
     ``data`` phase 16,
     ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
@@ -8372,6 +9087,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "cluster":
         phase_cluster(dev, card, TransformerConfig())
+        return
+    if name == "nodes":
+        phase_nodes(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -8399,9 +9117,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
     ap.add_argument("--only",
-                    choices=("cluster", "process", "util", "tune", "data",
-                             "observe", "rl"),
-                    help="run one phase alone: 20 (cluster), 19 (process), "
+                    choices=("nodes", "cluster", "process", "util", "tune",
+                             "data", "observe", "rl"),
+                    help="run one phase alone: 21 (nodes), 20 (cluster), "
+                         "19 (process), "
                          "18 (util), 17 (tune), 16 (data), 15 (observe) or "
                          "12 (rl)")
     ap.add_argument("--armed", action="store_true",
@@ -8462,6 +9181,7 @@ def main(argv=None) -> int:
     util = phase_util(dev, card, flagship)
     phase_process(dev, card, flagship)
     cluster = phase_cluster(dev, card, flagship)
+    nodes = phase_nodes(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -8808,6 +9528,11 @@ def main(argv=None) -> int:
             # driver.
             row["launches_cluster"] = {
                 "per_relayed_step": cluster["a"]["launches_per_step"].get(
+                    kind.replace("fwd_", ""), 0.0)}
+            # Phase 21's: a step in the actor placed on a card node,
+            # counted in the node daemon's process.
+            row["launches_nodes"] = {
+                "per_placed_step": nodes["a"]["launches_per_step"].get(
                     kind.replace("fwd_", ""), 0.0)}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})

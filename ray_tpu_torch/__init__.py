@@ -34,7 +34,12 @@ plane (a head service, ``python -m ray_tpu_torch._private.head_service``,
 that drivers attach to with ``init(address="host:port")``: a
 cluster-global KV, named actors called across drivers, objects pulled
 across drivers with ``announce_object``, pub/sub, and a head restart
-survived); ``util``'s placement
+survived) and its node plane (node daemons,
+``python -m ray_tpu_torch._private.node_daemon --address host:port``,
+onto which an attached driver routes tasks and places actors peer to
+peer, refs resolving through their owner, work surviving a dead node;
+``init(address="ray://host:port")`` attaches a thin client that runs
+nothing itself); ``util``'s placement
 groups, scheduling strategies and pub/sub, with its ``sanitizer``
 (host-plane invariant checks), ``loadgen`` (seeded traffic shapes) and
 ``chaos`` (seeded fault decisions and process kills); ``tune`` (the Tuner and its
@@ -132,7 +137,8 @@ def debug_dump(out_dir=None):
     """Postmortem collection (the flight recorder, armed by
     ``RAY_TPU_FLIGHT`` / ``RAY_TPU_PROFILE``): this process's debug
     bundle (all-thread stacks, event ring, profile aggregate, metrics
-    snapshot, subsystem sections, device-trace artifacts) written as one
+    snapshot, subsystem sections, device-trace artifacts), with a head
+    the head's and every live node daemon's, written as one
     directory-per-incident archive. Returns the incident directory."""
     from ray_tpu_torch.util.state import cluster_dump
 

@@ -3,23 +3,26 @@ killer (counterpart of ``ray_tpu/_private/chaos.py``).
 
 Two layers:
 
-- **Wire faults** (:class:`ChaosConfig` / :class:`ChaosInjector`): one
-  module-level slot (``_CHAOS``) holds the installed injector. Decisions
-  (drop, delay, dup, corrupt, reset) come from one seeded
-  ``random.Random``, so a run is reproducible, and per-(site, fault)
-  counters record every decision. The reference's transport consults the
-  slot on every frame send (``ChaosInjector.on_send``); the port's
-  transport (``_private/transport.py``) has no frame hook yet: the hook
-  and the cells that open sockets come with the node plane's wire faults
-  (ROADMAP A.5b). The slot lives here until then.
+- **Wire faults** (:class:`ChaosConfig` / :class:`ChaosInjector`):
+  ``transport.FramedConnection`` consults one module-level slot
+  (``transport._CHAOS``) on every frame send
+  (:meth:`ChaosInjector.on_send`). With chaos off the slot is ``None``
+  and the send path pays one global load and an ``is None`` branch. With
+  chaos on, a frame may be dropped, delayed, duplicated, corrupted (one
+  byte flipped, so the receiver's decode fails) or its connection reset
+  (closed, with ``ConnectionResetError`` at the sender). Decisions come
+  from one seeded ``random.Random``, so a run is reproducible, and
+  per-(site, fault) counters record every decision. Sites are the
+  connections' labels (``head``, ``peer``, ``object``, ``conn``);
+  ``ChaosConfig.sites`` scopes injection to some of them.
 
 - **Process faults** (:class:`NodeKiller` / :class:`ChaosController`):
   a seeded schedule thread that SIGKILLs a random target (a subprocess,
   or whatever pid a callable resolves) at jittered intervals during a
   live workload, recording every kill. ``stop()`` joins the thread
   (bounded). ``worker_kill_target`` SIGKILLs a worker process of the
-  process plane's pool. Not ported: ``head_kill_target`` (with the node
-  plane's daemon kills, A.5b).
+  process plane's pool, ``popen_kill_target`` a node daemon and
+  ``head_kill_target`` the head.
 
 Activation: the ``RAY_TPU_CHAOS`` env var (a JSON object) through
 :func:`install_from_env`, or :func:`install` / :func:`uninstall` from a
@@ -51,6 +54,7 @@ __all__ = [
     "wire_counters",
     "snapshot",
     "worker_kill_target",
+    "head_kill_target",
 ]
 
 ENV_VAR = "RAY_TPU_CHAOS"
@@ -149,6 +153,42 @@ class ChaosInjector:
                     return fault
         return None
 
+    def on_send(self, conn, payload) -> Optional[list]:
+        """Called by the transport for each outbound frame. Returns the
+        payloads to write instead (empty: dropped, two: duplicated), or
+        None to send the original unchanged. May sleep (delay), or close
+        the connection and raise ``ConnectionResetError`` (reset)."""
+        site = getattr(conn, "site", "conn")
+        if not self._targets(site):
+            return None
+        fault = self.decide(site)
+        if fault is None:
+            return None
+        if fault == "drop":
+            return []
+        if fault == "delay":
+            time.sleep(self.config.delay_ms / 1e3)
+            return None
+        if fault == "dup":
+            return [payload, payload]
+        if fault == "corrupt":
+            corrupted = bytearray(payload)
+            if corrupted:
+                # Flip the high bit at a seeded position: the length
+                # stays, so the fault lands in the receiver's decode.
+                with self._lock:
+                    pos = self._rng.randrange(len(corrupted))
+                corrupted[pos] ^= 0x80
+            return [bytes(corrupted)]
+        # reset: tear the socket down under the peer and fail the sender
+        # as a mid-write RST does.
+        try:
+            conn.close()
+        except Exception:  # noqa: BLE001 — the raise below is the fault
+            pass
+        raise ConnectionResetError(
+            f"chaos: injected connection reset at site {site!r}")
+
     def totals(self) -> Dict[str, int]:
         """Cross-site totals per fault kind (convenient assertions)."""
         out: Dict[str, int] = {}
@@ -167,18 +207,24 @@ class ChaosInjector:
 
 
 # ------------------------------------------------------------ installation
+# Re-entrant: install() can trigger transport's first import, whose
+# bootstrap (RAY_TPU_CHAOS set) calls install_from_env -> install on the
+# same thread.
 _lock = threading.RLock()
-# The installed injector, or None (chaos off).
-_CHAOS: Optional[ChaosInjector] = None
+
+
+def _transport():
+    from ray_tpu_torch._private import transport
+
+    return transport
 
 
 def install(config: ChaosConfig) -> ChaosInjector:
-    """Activate fault injection process-wide. Returns the injector (its
-    counters are live). Replaces any previous injector."""
-    global _CHAOS
+    """Activate wire-fault injection process-wide. Returns the injector
+    (its counters are live). Replaces any previous injector."""
     injector = ChaosInjector(config)
     with _lock:
-        _CHAOS = injector
+        _transport()._CHAOS = injector
     return injector
 
 
@@ -188,22 +234,21 @@ def install_from_env() -> Optional[ChaosInjector]:
 
 
 def uninstall() -> None:
-    global _CHAOS
     with _lock:
-        _CHAOS = None
+        _transport()._CHAOS = None
 
 
 def active() -> bool:
-    return _CHAOS is not None
+    return _transport()._CHAOS is not None
 
 
 def current() -> Optional[ChaosInjector]:
-    return _CHAOS
+    return _transport()._CHAOS
 
 
 def wire_counters() -> Dict[str, Dict[str, int]]:
     """Per-site injected-fault counters ({} when chaos is off)."""
-    inj = _CHAOS
+    inj = _transport()._CHAOS
     return inj.counters_snapshot() if inj is not None else {}
 
 
@@ -256,6 +301,13 @@ def popen_kill_target(name: str, proc, kind: str = "daemon",
         return {"pid": proc.pid}
 
     return KillTarget(name=name, kind=kind, kill=_kill, once=once)
+
+
+def head_kill_target(proc, name: str = "head") -> KillTarget:
+    """Target that SIGKILLs the head process (the control plane itself).
+    ``once``: a dead primary stays dead; the warm standby promotes over
+    the shared state log and clients fail over by epoch."""
+    return popen_kill_target(name, proc, kind="head", once=True)
 
 
 def pid_kill_target(name: str, pid_fn: Callable[[], Optional[int]],

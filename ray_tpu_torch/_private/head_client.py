@@ -43,8 +43,9 @@ blackout (``last_blackout_s``).
 Values cross in the process plane's wire form
 (``serialization.wire_dumps``: cloudpickle, tensors as host bytes): a
 relayed call's arguments, and every pulled object. The ``node_*`` and
-``task_*`` RPCs are ported as calls; nothing serves them until the node
-plane (node daemons, ROADMAP A.5b) comes.
+``task_*`` RPCs serve the node plane: node daemons register and take
+relayed pushes through them, and drivers push task batches to a
+daemon's own server (``task_push_direct``).
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ token, no pickle in the envelope. Services:
   the serialized bytes peer to peer, or through the head in bounded
   chunks.
 - **Node membership**: the ``node_register`` RPC, ``node_list`` and the
-  ``ray_tpu:node_events`` topic. The node daemons that register come
-  with the node plane (ROADMAP A.5b); the head already serves them.
+  ``ray_tpu:node_events`` topic, which node daemons
+  (``_private/node_daemon.py``) join through.
 - **Failure detection**: clients heartbeat; a monitor thread expires
   silent clients and collects their directory entries.
 - **Fault tolerance**: the KV, the directories and the node registry
@@ -23,9 +23,9 @@ token, no pickle in the envelope. Services:
   it and surviving clients reconnect and resume. ``--standby-of`` runs a
   warm standby that promotes over the shared log.
 
-Not ported: the cluster metrics scrape (``serve_cluster_metrics``,
-``--metrics-port``), which pulls node daemons' registries (with the node
-plane, ROADMAP A.5b).
+Not ported: the head's cluster metrics scrape (``serve_cluster_metrics``,
+``--metrics-port``), which pulls node daemons' registries; a driver
+pulls them with ``util.state.cluster_metrics()`` (ROADMAP A.5b).
 
 Run ``python -m ray_tpu_torch._private.head_service --port 0 [--state
 PATH]``: the first line of its output is ``ray_tpu_torch head listening

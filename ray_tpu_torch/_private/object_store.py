@@ -143,6 +143,20 @@ class ObjectStore:
             e = self._entries.get(object_id)
             return e is not None and e.ready
 
+    def size_of(self, object_id: ObjectID) -> int:
+        """Serialized size of a ready value (0 for errors and unknown
+        ids): the node plane's locality scoring reads it."""
+        with self._cv:
+            e = self._entries.get(object_id)
+            return e.size if e is not None and e.ready else 0
+
+    def holds_in_memory(self, object_id: ObjectID) -> bool:
+        """Ready with its payload resident (not spilled, not an error):
+        the gate for inlining a result into its completion report."""
+        with self._cv:
+            e = self._entries.get(object_id)
+            return e is not None and e.ready and e.serialized is not None
+
     def wait(self, object_ids: List[ObjectID], num_returns: int,
              timeout: Optional[float]):
         deadline = None if timeout is None else time.monotonic() + timeout

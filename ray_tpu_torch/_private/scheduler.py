@@ -24,9 +24,10 @@ monitor's kill surfaces as ``OutOfMemoryError``. Dependencies between
 pending tasks are tracked in Python on both planes: the reference's
 native ready-ring (``_submit_native``) is left out, as no reading showed
 it faster than this path, and ``NativeDynQueue`` stays a library of
-``_native``. Not ported: spillback to other nodes. The executor threads
-are daemons that ``shutdown`` stops and joins (bounded), so no drive
-hangs at interpreter exit.
+``_native``. Spillback to other nodes is the router's
+(``_private/remote_router.py``, ahead of this scheduler). The executor
+threads are daemons that ``shutdown`` stops and joins (bounded), so no
+drive hangs at interpreter exit.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Streaming-generator plane: per-task stream state + registry (copy of
-``ray_tpu/_private/streaming.py``, trimmed to one process).
+``ray_tpu/_private/streaming.py``).
 
 A ``num_returns="streaming"`` task commits one object per yield,
 ``ObjectID.for_task_return(task_id, i)``: item refs derived from the task
 id exactly like static returns. One ``StreamState`` per task holds both
-roles in the one process: the producer counts committed yields and
+roles in one process (across nodes, the producing node's commit
+listeners report each yield and the consumer's consume listeners ack
+it back): the producer counts committed yields and
 pauses its yield loop while committed-but-unconsumed items reach the
 backpressure budget (``RAY_TPU_GENERATOR_BACKPRESSURE_ITEMS``); the
 consumer (the ``ObjectRefGenerator``) advances the consumed watermark at
@@ -46,7 +48,7 @@ class StreamState:
 
     __slots__ = ("task_id", "_cv", "committed", "consumed", "finished",
                  "error", "cancelled", "peak_unconsumed", "paused_events",
-                 "_consume_cbs")
+                 "_commit_cbs", "_consume_cbs", "known_remote_sizes")
 
     def __init__(self, task_id: TaskID):
         self.task_id = task_id
@@ -60,9 +62,16 @@ class StreamState:
         # and how often it paused at its budget.
         self.peak_unconsumed = 0
         self.paused_events = 0
+        # Commit listeners: a node daemon reports each yield to the
+        # consuming driver (item_done).
+        self._commit_cbs: List[Callable[[int, ObjectID], None]] = []
         # Consumption listeners: the process plane forwards each new
-        # watermark to the producing worker process.
+        # watermark to the producing worker process, the node plane to
+        # the producing node.
         self._consume_cbs: List[Callable[[int], None]] = []
+        # Consumer side: item index -> byte size of items whose bytes
+        # stayed on the producing node (pulled at next()).
+        self.known_remote_sizes: Dict[int, int] = {}
 
     # ------------------------------------------------------------- producer
     def commit(self, index: int):
@@ -73,7 +82,11 @@ class StreamState:
             gap = self.committed - self.consumed
             if gap > self.peak_unconsumed:
                 self.peak_unconsumed = gap
+            cbs = list(self._commit_cbs)
             self._cv.notify_all()
+        oid = stream_item_id(self.task_id, index)
+        for cb in cbs:  # outside the lock: listeners take their own locks
+            cb(index, oid)
 
     def wait_capacity(self, budget: int,
                       cancel_event: Optional[threading.Event] = None,
@@ -126,6 +139,10 @@ class StreamState:
             self._cv.notify_all()
         for cb in cbs:
             cb(n)
+
+    def add_commit_listener(self, cb: Callable[[int, ObjectID], None]):
+        with self._cv:
+            self._commit_cbs.append(cb)
 
     def add_consume_listener(self, cb: Callable[[int], None]):
         with self._cv:

@@ -5,9 +5,10 @@ Every task and actor call records its state transitions with timestamps
 into a bounded ring; ``util.state`` lists and summarises them and
 ``ray_tpu_torch.timeline()`` renders them as Chrome-tracing JSON. When
 tracing is armed, every recorded transition also bridges into
-``_private/tracing.py`` spans (time spent per state). ``ingest`` and
-``drain_since`` are the reference's cluster shipping; the one-process
-runtime ships nothing, and they stay for A.5b's node daemons.
+``_private/tracing.py`` spans (time spent per state). Node daemons
+ship their rings home piggybacked on their completion reports
+(``drain_since`` on the node, ``ingest`` on the driver), so a driver's
+``util.state.list_tasks()`` sees cluster tasks with no new head RPC.
 """
 
 from __future__ import annotations

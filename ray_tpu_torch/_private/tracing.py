@@ -23,12 +23,16 @@ Off by default. With tracing off the module-global ``_TRACER`` slot is
 Worker processes of the process plane, which nothing can dial, append
 their finished spans to a spill file in ``RAY_TPU_TRACE_DIR`` (the
 hosting runtime points it at its session's ``traces`` directory);
-``Tracer.dump`` and ``trace_index`` merge those files. Not ported:
-``RAY_TPU_TRACE_PARENT``, the context that an autoscaler-launched
-daemon inherits (the node plane, ROADMAP A.5b). The cold-start chain
-is in-process here: a Serve wake parks its context in the stash, and a
-replica constructed meanwhile parents its ``replica.init`` span to it
-(:func:`cold_start_parent`).
+``Tracer.dump`` and ``trace_index`` merge those files. Node daemons
+serve their rings to peers (``trace_dump``), and ``timeline`` pulls
+every live daemon's.
+
+The cold-start chain: a Serve wake parks its context in the stash, and
+a replica constructed meanwhile parents its ``replica.init`` span to it.
+A process launched for a traced request (a node daemon) inherits
+``RAY_TPU_TRACE_PARENT`` (:func:`encode_cold_start_parent`, with its
+expiry in the value) and parents its ``node.init`` span to it
+(:func:`cold_start_parent` reads the variable before the stash).
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ __all__ = [
     "event", "inject", "extract", "current_context", "use_context",
     "register_task", "task_context", "on_task_event", "stash_cold_start",
     "take_cold_start", "take_cold_start_timed", "clear_cold_start",
-    "cold_start_parent", "local_spans", "trace_index", "chrome_trace",
+    "cold_start_parent", "encode_cold_start_parent", "local_spans",
+    "trace_index", "chrome_trace",
 ]
 
 ENV_VAR = "RAY_TPU_TRACE"
@@ -56,6 +61,8 @@ ENV_VAR = "RAY_TPU_TRACE"
 ENV_DIR = "RAY_TPU_TRACE_DIR"
 # Node identity a head-attached runtime gives its worker processes.
 ENV_NODE = "RAY_TPU_TRACE_NODE"
+# Trace context a launched process (a node daemon) parents its init to.
+ENV_PARENT = "RAY_TPU_TRACE_PARENT"
 
 # Tracing slot: None = off, every hot-path site guards with one global
 # load + `is None` branch.
@@ -662,13 +669,32 @@ def take_cold_start_timed() -> Optional[Tuple[TraceContext, float]]:
     return (ctx, deadline)
 
 
+def encode_cold_start_parent(ctx: TraceContext) -> str:
+    """``RAY_TPU_TRACE_PARENT``'s value for a process launched for
+    ``ctx``: ``trace_id:span_id:expires_epoch``. The expiry rides the
+    value, since environment copies outlive the launch."""
+    return (f"{ctx.trace_id}:{ctx.span_id}:"
+            f"{time.time() + _cold_start_window_s():.0f}")
+
+
 def cold_start_parent() -> Optional[TraceContext]:
-    """The context a replica's init span parents to: the stash, read
-    without taking it (several replicas of one wake share it), or None
-    past its window. The reference reads ``RAY_TPU_TRACE_PARENT`` here,
-    which a launched daemon inherits (A.5b)."""
+    """The context an init span parents to: the one a parent process
+    put in ``RAY_TPU_TRACE_PARENT`` (None past its baked-in expiry), else
+    the stash, read without taking it (several replicas of one wake
+    share it), or None past its window."""
     if _TRACER is None:
         return None
+    raw = os.environ.get(ENV_PARENT, "")
+    if raw:
+        parts = raw.split(":")
+        if len(parts) >= 3:
+            try:
+                if time.time() > float(parts[2]):
+                    return None
+            except ValueError:
+                pass
+            return TraceContext(parts[0], parts[1]) if parts[0] else None
+        return TraceContext.decode(raw)
     with _cold_start_lock:
         stashed = _cold_start_ctx
     if stashed is None or time.monotonic() > stashed[1]:

@@ -31,9 +31,14 @@ reconstructed from a module whitelist (``builtins`` and the port's
 
 Token files live under ``<tmp>/ray_tpu_torch/``, not the reference's
 ``<tmp>/ray_tpu/``: a port head and a reference head on one machine
-never read each other's token. Not ported yet: the chaos plane's frame
-hook (``ChaosInjector.on_send``, the wire faults), which comes with the
-node plane (ROADMAP A.5b).
+never read each other's token.
+
+Wire faults: every frame send consults one module slot, ``_CHAOS``
+(``_private/chaos.py`` installs a ``ChaosInjector`` there; the
+``RAY_TPU_CHAOS`` environment variable installs one at import). With
+chaos off the send paths pay one global load and an ``is None`` branch.
+Each connection's ``site`` label (``head``, ``peer``, ``object``,
+``conn``) scopes the injection.
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ import msgpack
 
 MAX_FRAME = 1 << 30  # 1 GiB: chunked pulls should keep frames far below this
 _LEN = struct.Struct(">I")
+
+# The installed ChaosInjector, or None (chaos off).
+_CHAOS = None
 
 # Scatter-gather writes are chunked to stay under the kernel's iovec
 # limit (UIO_MAXIOV is 1024 on Linux; each frame is 2 buffers).
@@ -172,8 +180,8 @@ class FramedConnection:
         self._closed = False
         self._hdr = bytearray(4)  # reused header recv buffer
         self._rbuf = bytearray(64 * 1024)  # reused payload recv buffer
-        # Coarse plane label ("head", "peer", "object", ...); owners
-        # overwrite it right after construction.
+        # Coarse plane label ("head", "peer", "object", ...) that scopes
+        # chaos injection; owners overwrite it right after construction.
         self.site = "conn"
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
@@ -200,6 +208,13 @@ class FramedConnection:
         n = len(payload)
         if n > MAX_FRAME:
             raise ValueError(f"frame too large: {n}")
+        if _CHAOS is not None:
+            faulted = _CHAOS.on_send(self, payload)  # may sleep / raise
+            if faulted is not None:
+                with self._sendlock:
+                    for p in faulted:
+                        self._send_buffers_locked([_LEN.pack(len(p)), p])
+                return
         with self._sendlock:
             self._send_buffers_locked([_LEN.pack(n), payload])
 
@@ -209,6 +224,12 @@ class FramedConnection:
         for p in payloads:
             if len(p) > MAX_FRAME:
                 raise ValueError(f"frame too large: {len(p)}")
+        if _CHAOS is not None:
+            out = []
+            for p in payloads:
+                faulted = _CHAOS.on_send(self, p)  # may sleep / raise
+                out.extend(faulted if faulted is not None else [p])
+            payloads = out
         with self._sendlock:
             for i in range(0, len(payloads), _IOV_FRAMES):
                 bufs = []
@@ -424,3 +445,15 @@ def connect(host: str, port: int, token: str,
         raise
     sock.settimeout(None)
     return conn
+
+
+# RAY_TPU_CHAOS in the environment arms wire faults for this process (and
+# every daemon or worker it spawns, which inherit the variable).
+if os.environ.get("RAY_TPU_CHAOS"):
+    def _bootstrap_chaos():
+        from ray_tpu_torch._private.chaos import install_from_env
+
+        install_from_env()
+
+    _bootstrap_chaos()
+    del _bootstrap_chaos

@@ -35,18 +35,22 @@ which ``timeline``, ``trace_dump`` and ``debug_dump`` merge.
 this driver to a head service (``_private/head_service.py``) through a
 ``HeadClient``: the KV becomes cluster-global (Data's ``memory://``,
 Tune's reports and the workflow journal share it), named actors
-register with the head and resolve across drivers (their calls relay
-head -> owning driver and run on this runtime), ``announce_object``
+register with the head and resolve across drivers, ``announce_object``
 publishes an object that other drivers then pull (``_pull_wait``), and
 the tracer and flight recorder take the client id as their node. A head
 that cannot be reached raises: the driver never goes on with a local KV.
-Not ported yet, with the node plane (ROADMAP A.5b): ``remote_router``
-and ``owner_resolver`` stay None (with no daemon nodes the reference's
-router routes nothing either), and ``address="ray://..."`` (thin-client
-mode) raises ``ClusterModeNotPortedError``. The reference's device
-probe (JAX's TPUs) becomes a ``"GPU"`` resource of
-``torch.cuda.device_count()`` cards, counted without creating a CUDA
-context; ``num_gpus=`` overrides it.
+With a head the worker also builds the node plane's two halves: a
+``RemoteRouter`` (``_private/remote_router.py``), which routes tasks and
+places actors onto node daemons and owns the refs they return, and an
+``OwnerResolver`` (``_private/ownership.py``), which resolves a borrowed
+ref through its owner (a pickled ref carries its owner's id and
+address). ``address="ray://host:port"`` is the thin client: this
+process keeps no capacity of its own (``num_cpus=0``, no GPU, the
+thread plane unless asked), every ``.remote()`` routes onto the
+daemons, and a task no daemon can take raises ``RayTpuError``. The reference's device probe
+(JAX's TPUs) becomes a ``"GPU"`` resource of ``torch.cuda.device_count()``
+cards, counted without creating a CUDA context; ``num_gpus=`` overrides
+it.
 """
 
 from __future__ import annotations
@@ -183,11 +187,21 @@ class ObjectRef:
 
     def __reduce__(self):
         w = _try_global_worker()
+        owner_info = None
         if w is not None:
             # Borrowed: keep alive for the borrower's lifetime (simplified,
             # as in the reference).
             w.store.add_local_ref(self.object_id)
-        return (_deserialize_ref, (self.object_id,))
+            # Ownership: a pickled ref carries its owner's id and direct
+            # address, so a foreign runtime resolves it owner-direct; a
+            # ref this runtime borrowed carries the original owner. (A
+            # worker process's stub has no head client: its refs stay
+            # owner-less.)
+            hc = getattr(w, "head_client", None)
+            if hc is not None:
+                owner_info = w.borrowed_owner(self.object_id.binary()) \
+                    or (hc.client_id, list(hc._object_server.address))
+        return (_deserialize_ref, (self.object_id, owner_info))
 
     def __del__(self):
         w = self._owner
@@ -207,7 +221,12 @@ class ObjectRef:
         return f"ObjectRef({self.object_id.hex()[:16]}…)"
 
 
-def _deserialize_ref(object_id: ObjectID) -> ObjectRef:
+def _deserialize_ref(object_id: ObjectID, owner_info=None) -> ObjectRef:
+    w = _try_global_worker()
+    if owner_info is not None and w is not None \
+            and getattr(w, "head_client", None) is not None \
+            and owner_info[0] != w.head_client.client_id:
+        w.record_borrowed_owner(object_id.binary(), owner_info)
     return ObjectRef(object_id, _add_ref=False)
 
 
@@ -326,11 +345,19 @@ class ObjectRefGenerator:
                 raise StopIteration
             if not block:
                 return None
+            # A remote stream's large item stayed on the producing node:
+            # drive its pull.
+            router = getattr(self._worker, "remote_router", None)
+            if router is not None and router.handles(oid) and \
+                    self._index in self._stream.known_remote_sizes:
+                router.prefetch(oid)
             if self._total is not None:
-                # Task done but item i < total is not in the store (freed):
-                # bound the wait so a lost item cannot hang us.
+                # Task done but item i < total is not local: still in
+                # flight (a pull), or freed. Bound the wait so a lost item
+                # cannot hang us.
                 if end_grace is None:
-                    end_grace = time.monotonic() + 5.0
+                    end_grace = time.monotonic() + (
+                        30.0 if router is not None else 5.0)
                 elif time.monotonic() > end_grace:
                     from ray_tpu_torch.exceptions import ObjectLostError
 
@@ -359,6 +386,9 @@ class ObjectRefGenerator:
             if not w.store.is_ready(self._end_oid):
                 self._stream.cancel()
                 w.scheduler.cancel(self._task_id)
+                router = getattr(w, "remote_router", None)
+                if router is not None and router.handles(self._end_oid):
+                    router.cancel_stream(self._task_id)
                 # Materialize the typed cancellation end so any other
                 # waiter (wait on completed()) unblocks.
                 w.store.cancel(self._end_oid, self._task_id)
@@ -403,6 +433,7 @@ class Worker:
                  session_dir: Optional[str] = None,
                  head_address: Optional[str] = None):
         self.is_alive = True
+        self.client_mode = False     # a ray:// thin client (init sets it)
         self.worker_mode = worker_mode or GlobalConfig.worker_mode
         if self.worker_mode not in ("thread", "process"):
             raise ValueError(
@@ -411,8 +442,8 @@ class Worker:
         # Control plane: with an address, this driver joins the head
         # service; a head that cannot be reached raises here.
         self.head_client = None
-        self.remote_router = None    # the node plane's (ROADMAP A.5b)
-        self.owner_resolver = None   # likewise
+        self.remote_router = None    # with a head: routes onto node daemons
+        self.owner_resolver = None   # with a head: resolves borrowed refs
         # The simulated cluster (cluster_utils.Cluster) routes this
         # runtime's tasks while it is connected.
         self.cluster = None
@@ -502,10 +533,19 @@ class Worker:
         self._kv: Dict[bytes, bytes] = {}
         self._kv_lock = threading.Lock()
         flight.add_section("runtime", self._flight_section)
+        # Ownership plane: owners of refs borrowed from other runtimes
+        # (recorded when a pickled ref carrying its owner arrives).
+        self.borrowed_owners: Dict[bytes, tuple] = {}
+        self._borrowed_lock = threading.Lock()
         if self.head_client is not None:
+            from ray_tpu_torch._private.ownership import OwnerResolver
+            from ray_tpu_torch._private.remote_router import RemoteRouter
+
+            self.remote_router = RemoteRouter(self)
+            self.owner_resolver = OwnerResolver(self)
             # A promoted head replayed the shared log: re-registering
-            # this driver's live named actors reconciles what its torn
-            # tail lost.
+            # this driver's live named actors and cluster-actor
+            # placements reconciles what its torn tail lost.
             self.head_client.failover_callbacks.append(
                 self._on_head_failover)
 
@@ -558,6 +598,24 @@ class Worker:
                 log.warning("named-actor re-register of %r after head "
                             "failover failed (the replayed directory "
                             "entry still serves): %r", name, exc)
+        from ray_tpu_torch._private.remote_actor import RemoteActorRuntime
+
+        for runtime in list(self.actors.values()):
+            if not isinstance(runtime, RemoteActorRuntime) \
+                    or runtime.dead or runtime.borrower:
+                continue
+            try:
+                hc.actor_place(runtime.actor_id.binary(), {
+                    "node": runtime.node_client,
+                    "driver": hc.client_id,
+                    "cls": runtime._cls_bytes,
+                    "class_name": runtime.class_name,
+                    "detached": runtime.opts.get("lifetime") == "detached",
+                })
+            except Exception as exc:  # noqa: BLE001 — same fallback
+                log.warning("cluster-actor re-place after head failover "
+                            "failed (the replayed placement still "
+                            "serves): %r", exc)
 
     def _start_process_plane(self, num_cpus):
         from ray_tpu_torch._native.store import NativeObjectStore
@@ -603,7 +661,7 @@ class Worker:
         """Runtime depths for this process's flight bundle: the queue and
         backlog numbers a postmortem reads first."""
         s = self.scheduler
-        return {
+        out = {
             "worker_mode": self.worker_mode,
             "backlog": s.backlog_size(),
             "running": s.num_running(),
@@ -612,6 +670,11 @@ class Worker:
             "resources_available": self.resource_pool.available(),
             "actors": len(self.actors),
         }
+        r = self.remote_router
+        if r is not None:
+            out["router"] = {"direct_pushes": r.direct_pushes,
+                             "relayed_pushes": r.relayed_pushes}
+        return out
 
     # ------------------------------------------------------------------- api
     def current_task_id(self) -> TaskID:
@@ -664,11 +727,25 @@ class Worker:
 
             self.store.put(object_id, SerializedObject.from_bytes(raw))
 
+    def record_borrowed_owner(self, oid_bin: bytes, owner_info):
+        with self._borrowed_lock:
+            if len(self.borrowed_owners) > 131072:
+                # A hint table (resolution falls back to the head):
+                # recency-bounded through dict insertion order.
+                self.borrowed_owners.pop(next(iter(self.borrowed_owners)))
+            self.borrowed_owners[oid_bin] = (
+                owner_info[0], tuple(owner_info[1]))
+
+    def borrowed_owner(self, oid_bin: bytes):
+        with self._borrowed_lock:
+            return self.borrowed_owners.get(oid_bin)
+
     def _pull_wait(self, object_id: ObjectID, timeout: Optional[float]):
-        """Resolve an object of another driver: subscribe to the head's
-        ``obj|<hex>`` topic first, then pull, and pull again on each
-        announce, up to ``timeout`` (``dep_wait_s`` when None); a
-        ``GetTimeoutError`` past it."""
+        """Resolve an object of another runtime, up to ``timeout``
+        (``dep_wait_s`` when None; a ``GetTimeoutError`` past it). A ref
+        whose owner is known resolves owner-direct (``OwnerResolver``);
+        an owner-less one subscribes to the head's ``obj|<hex>`` topic
+        first, then pulls, and pulls again on each announce."""
         import queue as _queue
 
         from ray_tpu_torch.exceptions import GetTimeoutError
@@ -678,6 +755,11 @@ class Worker:
         bound = (float(GlobalConfig.dep_wait_s) if timeout is None
                  else float(timeout))
         deadline = time.monotonic() + bound
+        owner = self.borrowed_owner(object_id.binary())
+        if owner is not None and self.owner_resolver is not None:
+            self.owner_resolver.resolve(
+                object_id.binary(), owner[1], owner[0], deadline=deadline)
+            return
         sub = self.head_client.subscribe("obj|" + object_id.binary().hex())
         try:
             while True:
@@ -698,7 +780,11 @@ class Worker:
             sub.close()
 
     def get_object(self, ref: ObjectRef, timeout: Optional[float] = None):
-        if self.head_client is not None:
+        router = self.remote_router
+        if router is not None and not self.store.is_ready(ref.object_id) \
+                and router.handles(ref.object_id):
+            router.ensure_local(ref.object_id, timeout=timeout)
+        elif self.head_client is not None:
             self._pull_wait(ref.object_id, timeout)
         if self.store.is_lost(ref.object_id):
             # Its node died on the simulated cluster: rebuild it from
@@ -731,19 +817,36 @@ class Worker:
         dep_refs = _collect_refs(spec.args, spec.kwargs)
         for ref in dep_refs:
             self.store.add_submitted_ref(ref.object_id)
+        routed = (self.cluster is None and self.remote_router is not None
+                  and self.remote_router.maybe_route(spec))
+        if not routed and self.client_mode:
+            # A thin client never runs a task itself: an unroutable one
+            # fails loudly instead of queueing on capacity that will
+            # never exist here.
+            for ref in dep_refs:
+                self.store.remove_submitted_ref(ref.object_id)
+            raise RayTpuError(
+                "client-mode driver (ray://) has no local execution "
+                "capacity and no feasible cluster node accepted the task "
+                "— start node daemons with `python -m "
+                "ray_tpu_torch._private.node_daemon --address=`")
         refs = [ObjectRef(oid) for oid in spec.return_ids]
-        if self.head_client is not None:
+        if self.head_client is not None and not routed:
+            # A routed task's results arrive from its node (the router
+            # tracks them); a producer mark would stop their pull.
             for oid in spec.return_ids:
                 self.store.mark_local_producer(oid)
-        if self.worker_pool is not None and spec.resources.get("GPU"):
-            from ray_tpu_torch._private.worker_pool import warn_no_card
-
-            warn_no_card("task", spec.name, spec.resources["GPU"])
         if dep_refs:
             def _release(_refs=dep_refs):
                 for r in _refs:
                     self.store.remove_submitted_ref(r.object_id)
             self.store.on_ready(spec.return_ids[0], _release)
+        if routed:
+            return refs  # the router owns dispatch and completion
+        if self.worker_pool is not None and spec.resources.get("GPU"):
+            from ray_tpu_torch._private.worker_pool import warn_no_card
+
+            warn_no_card("task", spec.name, spec.resources["GPU"])
         if self.cluster is not None:
             self.cluster.submit(spec)
         else:
@@ -752,8 +855,21 @@ class Worker:
 
     def wait(self, object_ids: List[ObjectID], num_returns: int,
              timeout: Optional[float]):
+        router = self.remote_router
         for oid in object_ids:
-            self._maybe_pull_from_head(oid)
+            if self.store.is_ready(oid):
+                continue
+            if router is not None and router.handles(oid):
+                # A completed remote result counts as ready once local:
+                # fetch it in the background so wait() sees it promptly.
+                router.prefetch(oid)
+                continue
+            owner = self.borrowed_owner(oid.binary())
+            if owner is not None and self.owner_resolver is not None:
+                # Borrowed: resolve through its owner in the background.
+                self.owner_resolver.prefetch(oid.binary(), owner)
+            else:
+                self._maybe_pull_from_head(oid)
         return self.store.wait(object_ids, num_returns, timeout)
 
     # -------------------------------------------------------- internal KV ---
@@ -798,6 +914,8 @@ class Worker:
             self.sanitizer_watchdog = None
         actors = list(self.actors.values())
         for actor in actors:
+            if getattr(actor, "borrower", False):
+                continue  # not ours to kill: the owning driver decides
             try:
                 actor.terminate(no_restart=True)
             except Exception:  # noqa: BLE001
@@ -812,8 +930,12 @@ class Worker:
                 pass
         self.actors.clear()
         self.named_actors.clear()
-        # The head client goes after the actors (their kills deregister
-        # their names) and before the shm store.
+        # The router hands its owner table to the head; the head client
+        # goes after the actors (their kills deregister their names) and
+        # before the shm store.
+        if self.remote_router is not None:
+            self.remote_router.shutdown()
+            self.remote_router = None
         if self.head_client is not None:
             self.head_client.close()
             self.head_client = None
@@ -878,7 +1000,7 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
     Resources: ``num_cpus`` (default: the host's cores), ``num_gpus``
     (default: the visible CUDA cards) and custom ``resources``.
     ``address`` attaches this driver to a head service (module
-    docstring); ``"ray://..."`` raises ``ClusterModeNotPortedError``."""
+    docstring); ``"ray://host:port"`` attaches a thin client."""
     global _global_worker, _atexit_registered
     with _init_lock:
         if _global_worker is not None:
@@ -893,13 +1015,16 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
             from ray_tpu_torch._private.head_service import DEFAULT_PORT
 
             address = f"127.0.0.1:{DEFAULT_PORT}"
-        if address and address.startswith("ray://"):
-            from ray_tpu_torch.exceptions import ClusterModeNotPortedError
-
-            raise ClusterModeNotPortedError(
-                f"init(address={address!r}): thin-client mode comes with "
-                f"the node plane (node daemons and the remote router, "
-                f"ROADMAP A.5b); attach with address='host:port'")
+        client_mode = bool(address) and address.startswith("ray://")
+        if client_mode:
+            # The thin client keeps no execution capacity: every
+            # .remote() routes onto the cluster's node daemons, and
+            # results pull back on demand.
+            address = address[len("ray://"):]
+            num_cpus = 0
+            num_gpus = 0
+            resources = {}
+            worker_mode = worker_mode or "thread"
         # Tracing (RAY_TPU_TRACE) and the flight recorder
         # (RAY_TPU_FLIGHT / RAY_TPU_PROFILE) arm before the worker, so its
         # runtime section registers; one `is None` branch each when off.
@@ -914,6 +1039,7 @@ def init(num_cpus: Optional[int] = None, num_gpus: Optional[int] = None,
             tracing.uninstall()
             flight.uninstall()
             raise
+        _global_worker.client_mode = client_mode
         _global_worker.namespace = namespace
         if not _atexit_registered:
             atexit.register(shutdown)
@@ -971,6 +1097,20 @@ def get(refs: Union[ObjectRef, List[ObjectRef]],
         raise TypeError(
             f"get() expects an ObjectRef or list of ObjectRefs, got "
             f"{type(refs)}")
+    # Pipelined prefetch: start the pulls of every remote ref up front,
+    # so the loop below finds most bytes local.
+    router = getattr(worker, "remote_router", None)
+    if router is not None:
+        for r in refs:
+            if worker.store.is_ready(r.object_id):
+                continue
+            if router.handles(r.object_id):
+                router.prefetch(r.object_id)
+            else:
+                owner = worker.borrowed_owner(r.object_id.binary())
+                if owner is not None and worker.owner_resolver is not None:
+                    worker.owner_resolver.prefetch(
+                        r.object_id.binary(), owner)
     # One overall deadline across the whole list, not per ref.
     deadline = None if timeout is None else time.monotonic() + timeout
     out = []

@@ -32,8 +32,11 @@ registers its name with the head before its runtime is built, and
 releases it on ``kill`` and at shutdown; ``get_actor`` resolves a name
 that another driver registered to a ``CrossDriverActorHandle``, whose
 calls relay head -> owning driver and resolve to the owner's results,
-pulled back by id. Not ported: actors placed on node daemons (the node
-plane, ROADMAP A.5b).
+pulled back by id. With node daemons in the cluster, the router may
+place an actor on one (``RemoteRouter.place_actor``): its runtime is
+then a ``RemoteActorRuntime`` (``_private/remote_actor.py``) whose calls
+go direct to the hosting node, and ``get_actor`` and an unpickled handle
+borrow such an actor through the head's placement directory.
 """
 
 from __future__ import annotations
@@ -958,6 +961,18 @@ class _ActorRuntime:
                                           return_ids, name))
         return refs
 
+    def submit_prepared(self, method_name: str, args, kwargs, return_ids,
+                        name: str):
+        """Submit with return ids the caller minted (the node plane's
+        actor host: the remote driver allocated them)."""
+        worker = global_worker()
+        for oid in return_ids:
+            worker.store.mark_local_producer(oid)
+        refs = [ObjectRef(oid) for oid in return_ids]
+        self._enqueue(worker, _MethodCall(method_name, args, kwargs,
+                                          return_ids, name))
+        return refs
+
     def submit_stream(self, method_name: str, args, kwargs, name: str):
         """Submit a generator method (num_returns="streaming"): returns an
         ObjectRefGenerator whose item refs materialize per yield."""
@@ -1185,7 +1200,12 @@ class ActorHandle:
     def __getattr__(self, item: str):
         if item.startswith("_"):
             raise AttributeError(item)
-        fn = getattr(self._runtime.cls, item, None)
+        cls = self._runtime.cls
+        if cls is None:
+            # A borrowed cluster actor whose class does not unpickle here:
+            # the hosting node validates the method.
+            return ActorMethod(self._runtime, item, {})
+        fn = getattr(cls, item, None)
         if fn is None:
             raise AttributeError(
                 f"actor {self._runtime.class_name!r} has no method {item!r}")
@@ -1215,7 +1235,12 @@ def _rebuild_handle(actor_id: ActorID) -> ActorHandle:
         from ray_tpu_torch._private.client_worker import ClientActorHandle
 
         return ClientActorHandle(actor_id)
-    runtime = worker.actors.get(actor_id)
+    # A handle to a cluster-placed actor may have crossed onto this
+    # runtime (pickled into a task pushed to another node): borrow it,
+    # and its calls go direct to the hosting node.
+    from ray_tpu_torch._private.remote_actor import resolve_or_borrow
+
+    runtime = resolve_or_borrow(worker, actor_id)
     if runtime is None:
         raise RayActorError(actor_id, "actor not found in this runtime")
     return ActorHandle(runtime)
@@ -1232,11 +1257,14 @@ class ActorClass:
         return ActorClass(self._cls, merged)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
-        """Create the actor. Resource options (``num_cpus``,
-        ``num_gpus``, ``resources``) and ``scheduling_strategy`` are
-        accepted and reserve nothing, as actors in the reference's
-        process do not; ``lifetime`` is accepted too. ``runtime="driver"``
-        keeps the actor in the driver's process on the process plane."""
+        """Create the actor. On a driver attached to a head, the router
+        places it (``RemoteRouter.place_actor``): on a node daemon for a
+        demand this process cannot meet, a ``NodeAffinitySchedulingStrategy``
+        or ``"SPREAD"``, and always on a ``ray://`` thin client; its
+        calls then go direct to that node. Otherwise it lives here, and
+        its resource options reserve nothing, as actors in the
+        reference's process do not. ``runtime="driver"`` keeps a local
+        actor in the driver's process on the process plane."""
         worker = auto_init()
         if _client_worker(worker) is not None:
             # Inside a worker process: the driver owns every actor.
@@ -1270,20 +1298,45 @@ class ActorClass:
         max_restarts = opts.get("max_restarts")
         if max_restarts is None:
             max_restarts = GlobalConfig.actor_max_restarts
-        if (getattr(worker, "shm_store", None) is not None
-                and opts.get("num_gpus") and opts.get("runtime") != "driver"):
-            from ray_tpu_torch._private.worker_pool import warn_no_card
-
-            warn_no_card("actor", self._cls.__name__, opts["num_gpus"])
         try:
-            runtime = _ActorRuntime(
-                actor_id, self._cls, args, kwargs,
-                max_concurrency=opts.get("max_concurrency"),
-                max_restarts=max_restarts,
-                name=self._cls.__name__,
-                actor_name=actor_name,
-                runtime_target=opts.get("runtime"),
-            )
+            # Cluster placement: the router decides whether this actor
+            # lives here or on a node daemon.
+            node = None
+            if worker.remote_router is not None:
+                node = worker.remote_router.place_actor(opts)
+            if node is not None:
+                from ray_tpu_torch._private.remote_actor import (
+                    RemoteActorRuntime,
+                )
+
+                runtime = RemoteActorRuntime(
+                    worker, actor_id, self._cls, args, kwargs,
+                    node=node,
+                    max_restarts=max_restarts,
+                    max_concurrency=opts.get("max_concurrency"),
+                    actor_name=actor_name,
+                    opts=opts,
+                    registered_name=(
+                        (namespace, actor_name) if actor_name else None),
+                )
+            else:
+                if (getattr(worker, "shm_store", None) is not None
+                        and opts.get("num_gpus")
+                        and opts.get("runtime") != "driver"):
+                    from ray_tpu_torch._private.worker_pool import (
+                        warn_no_card,
+                    )
+
+                    warn_no_card("actor", self._cls.__name__,
+                                 opts["num_gpus"])
+                runtime = _ActorRuntime(
+                    actor_id, self._cls, args, kwargs,
+                    max_concurrency=opts.get("max_concurrency"),
+                    max_restarts=max_restarts,
+                    name=self._cls.__name__,
+                    actor_name=actor_name,
+                    runtime_target=opts.get("runtime"),
+                )
         except BaseException:
             if actor_name and worker.head_client is not None:
                 # Release the reserved name, or retries fail "already
@@ -1327,6 +1380,17 @@ def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
         if entry is not None:
             owner_id, actor_bin, class_name = entry
             if owner_id != worker.head_client.client_id:
+                # A cluster-placed actor is callable direct to its node
+                # from any driver: prefer the placement directory to the
+                # owner-driver relay.
+                from ray_tpu_torch._private.remote_actor import (
+                    resolve_or_borrow,
+                )
+
+                runtime = resolve_or_borrow(
+                    worker, ActorID(bytes(actor_bin)))
+                if runtime is not None:
+                    return ActorHandle(runtime)
                 return CrossDriverActorHandle(
                     owner_id, bytes(actor_bin), class_name)
     raise ValueError(

@@ -64,10 +64,24 @@ def _worker():
 
 
 def _post(w, key: bytes, value) -> None:
-    w.kv_put(key, w.serialization_context.serialize(value))
+    serialized = w.serialization_context.serialize(value)
+    # A head-backed KV (a driver or node daemon attached to a head)
+    # carries bytes: the wire form, tensors as host bytes.
+    w.kv_put(key, serialized if getattr(w, "head_client", None) is None
+             else serialized.to_bytes())
 
 
-def _read(w, stored):
+def _read(w, stored, device=None):
+    """A posted value; one that crossed a head-backed KV comes back on
+    the host and moves to ``device`` (the caller's tensor's)."""
+    if isinstance(stored, (bytes, bytearray, memoryview)):
+        from ray_tpu_torch._private.serialization import SerializedObject
+
+        value = w.serialization_context.deserialize(
+            SerializedObject.from_bytes(stored))
+        if device is not None and isinstance(value, torch.Tensor):
+            value = value.to(device)
+        return value
     return w.serialization_context.deserialize(stored)
 
 
@@ -195,7 +209,8 @@ def _collect(group_name: str, value, combine, timeout: float):
             if r not in vals:
                 stored = w.kv_get(_round_key(group_name, seq, r))
                 if stored is not None:
-                    vals[r] = _read(w, stored)
+                    vals[r] = _read(w, stored, getattr(value, "device",
+                                                       None))
         if len(vals) == ws:
             break
         if time.monotonic() > deadline:

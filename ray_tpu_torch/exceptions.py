@@ -114,6 +114,11 @@ class ObjectLostError(RayTpuError):
         super().__init__(message or f"object {object_ref} was lost")
 
 
+class OwnerDiedError(ObjectLostError):
+    """The owner of a borrowed object died and neither its location nor
+    a copy reached the head's fallback directory."""
+
+
 class ChannelError(RayTpuError):
     """Compiled-graph channel failure (closed, timeout, version skew)."""
 
@@ -168,10 +173,20 @@ class HeadFailedOverError(RayTpuError, ConnectionError):
                        "flight; the call may or may not have executed")
 
 
-class ClusterModeNotPortedError(RayTpuError, NotImplementedError):
-    """``init(address="ray://...")`` (thin-client mode) was asked for:
-    it comes with the node plane, the next slice of the cluster
-    (ROADMAP A.5b). Raised instead of running locally."""
+class PlacementInfeasibleError(RayTpuError, ValueError):
+    """No local capacity and no feasible cluster node for an actor's
+    resource demand. Subclasses ValueError, as the reference's does."""
+
+
+class NodeDrainingError(RayTpuError):
+    """A task push landed on a node that is draining: the node refused
+    it, and the router reroutes the task."""
+
+    def __init__(self, node_client: str = ""):
+        self.node_client = node_client
+        super().__init__(
+            f"node {node_client!r} is draining for reap and refuses "
+            f"new work (rerouted)")
 
 
 class KVCacheOOM(RuntimeError):

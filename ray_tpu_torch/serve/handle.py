@@ -8,8 +8,10 @@ deployment's request dict carries that span's context as ``_trace``.
 Where a replica's runtime has no streaming plane, a streaming response
 falls back to polling the KV (``_KVStreamFallbackGenerator`` over the
 replica's ``handle_stream``), with the cancel handshake that sweeps the
-stream's keys. Not ported: the detached router that serves a handle
-pickled into another process (with the node plane, ROADMAP A.5b).
+stream's keys. A handle pickled into another process (a task on a
+node daemon, a replica's constructor) routes there over a snapshot of
+the deployment's replica handles (``_DetachedRouter``), which resolve
+as cluster actors through the placement directory.
 """
 
 from __future__ import annotations
@@ -257,6 +259,39 @@ class _KVStreamFallbackGenerator:
             time.sleep(0.002)
 
 
+class _DetachedRouter:
+    """The controller's stand-in for a handle that crossed a process
+    boundary: it routes over a snapshot of the deployment's replica
+    actor handles (which pickle). Scaling after the snapshot is not
+    seen, and the admission bound applies per holding process."""
+
+    def __init__(self, replicas, admission=None):
+        from ray_tpu_torch.serve.router import ReplicaSet
+
+        self._rs = ReplicaSet()
+        self._rs.update(list(replicas))
+        if admission:
+            self._rs.configure_admission(admission.get("max_ongoing"),
+                                         admission.get("fractions"))
+
+    def _replica_set(self, name):
+        return self._rs
+
+    def _record_request(self, name):
+        pass
+
+
+def _rebuild_deployment_handle(name, method, stream, replicas,
+                               priority=0, admission=None):
+    handle = DeploymentHandle.__new__(DeploymentHandle)
+    handle._name = name
+    handle._controller = _DetachedRouter(replicas, admission=admission)
+    handle._method = method
+    handle._stream = stream
+    handle._priority = priority
+    return handle
+
+
 class DeploymentHandle:
     def __init__(self, deployment_name: str, controller,
                  method_name: str = "__call__", stream: bool = False,
@@ -266,6 +301,14 @@ class DeploymentHandle:
         self._method = method_name
         self._stream = stream
         self._priority = priority
+
+    def __reduce__(self):
+        rs = self._controller._replica_set(self._name)
+        admission = {"max_ongoing": rs._max_ongoing,
+                     "fractions": list(rs._class_fractions)}
+        return (_rebuild_deployment_handle,
+                (self._name, self._method, self._stream,
+                 list(rs._replicas), self._priority, admission))
 
     def options(self, method_name: Optional[str] = None, *,
                 stream: Optional[bool] = None,
@@ -288,7 +331,7 @@ class DeploymentHandle:
             # Only deployments that consume LLM request dicts get the
             # context injected into their request; other deployments'
             # arguments are never reshaped by tracing.
-            if self._controller.consumes_llm_requests(self._name):
+            if self._targets_llm():
                 if args and isinstance(args[0], dict) \
                         and "prompt" in args[0]:
                     args = ({**args[0],
@@ -309,6 +352,12 @@ class DeploymentHandle:
         tracing.finish(span)
         return result
 
+    def _targets_llm(self) -> bool:
+        """Whether this deployment consumes LLM request dicts; a
+        detached handle has no deployment registry and injects none."""
+        consumes = getattr(self._controller, "consumes_llm_requests", None)
+        return consumes is not None and consumes(self._name)
+
     def _remote_inner(self, args, kwargs):
         rs = self._controller._replica_set(self._name)
         # Prefix-aware tier: when any replica has reported a prefix
@@ -327,9 +376,13 @@ class DeploymentHandle:
             # Zero replicas: a scaled-to-zero deployment WAKES (the
             # request queues while the controller scales back up,
             # bounded) instead of failing; the woken replica may die
-            # before the re-choose, so the wake is retried (bounded).
+            # before the re-choose, so the wake is retried (bounded). A
+            # detached router has no controller and keeps the raise.
+            wake = getattr(self._controller, "wake_and_wait", None)
+            if wake is None:
+                raise
             for attempt in range(3):
-                self._controller.wake_and_wait(self._name)
+                wake(self._name)
                 rs = self._controller._replica_set(self._name)
                 try:
                     key, replica = rs.choose(

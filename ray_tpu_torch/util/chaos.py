@@ -21,8 +21,8 @@ Quickstart::
 ``chaos.snapshot()`` (and ``util.state.chaos_summary()``) reports the
 active config, per-site fault counters and every recorded kill;
 all-zero when chaos never ran. ``worker_kill_target()`` SIGKILLs a
-worker process of the process plane's pool. Not ported:
-``head_kill_target`` (with the node plane's daemon kills, A.5b).
+worker process of the process plane's pool, ``head_kill_target(proc)``
+the head.
 """
 
 from ray_tpu_torch._private.chaos import (  # noqa: F401
@@ -33,6 +33,7 @@ from ray_tpu_torch._private.chaos import (  # noqa: F401
     NodeKiller,
     active,
     current,
+    head_kill_target,
     install,
     install_from_env,
     pid_kill_target,
@@ -51,6 +52,7 @@ __all__ = [
     "NodeKiller",
     "active",
     "current",
+    "head_kill_target",
     "install",
     "install_from_env",
     "pid_kill_target",

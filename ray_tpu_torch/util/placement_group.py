@@ -3,8 +3,10 @@
 A placement group atomically reserves resource bundles. On the simulated
 cluster (``cluster_utils.Cluster``) each bundle maps to a node by the
 group's strategy and reserves there (``bundle_nodes``), and a task with
-``PlacementGroupSchedulingStrategy`` runs on its bundle's node; groups
-across node daemons wait for the node plane (ROADMAP A.5b). On one node
+``PlacementGroupSchedulingStrategy`` runs on its bundle's node. As in
+the reference, groups reserve nothing on node daemons: there a bundle's
+shape only steers the router's placement of an actor that carries the
+strategy (``RemoteRouter.actor_demand``). On one node
 every bundle reserves against the runtime's ``ResourcePool``: there ``STRICT_SPREAD`` over more than
 one bundle cannot be honoured and raises ``ValueError``, as does a demand
 that exceeds the pool's total. A group that fits the total but not what

@@ -5,12 +5,13 @@ the debug bundle archive, backed by the worker's task-event buffer, its
 registries and this process's tracer and flight recorder.
 
 Every function covers this process and its worker processes (their
-spilled spans and flight bundles), as the reference's do without node
-daemons; ``debug_dump`` adds the head's bundle when this driver is
-attached to one. Not ported: the cluster-wide pulls from node daemons,
-``autoscaler_summary`` and ``ownership_summary``
-(with the cluster, ROADMAP A.5b). The workflow listings read the storage
-root of ``workflow.init`` (or the default root).
+spilled spans and flight bundles). On a driver attached to a head, the
+trace, metrics and flight collections also take the head's and pull
+every live node daemon's (``_pull_live_nodes``: the daemon's direct
+server first, the head relay as the fallback), and ``ownership_summary``
+reports the ownership plane's counters. Not ported: ``autoscaler_summary``
+(with ``autoscaler.py``). The workflow listings read the storage root of
+``workflow.init`` (or the default root).
 """
 
 from __future__ import annotations
@@ -273,20 +274,101 @@ def summarize_objects() -> Dict[str, Any]:
     }
 
 
+def ownership_summary() -> Dict[str, Any]:
+    """The ownership plane's counters: this runtime's owner side
+    (locations tracked, owner-direct locates and pulls served, direct
+    and relayed completion reports), its resolver side, and the head's
+    RPC and state-log counters (the head stays O(membership), not
+    O(objects)). Safe without a head (the local side only)."""
+    w = global_worker()
+    out: Dict[str, Any] = {"ownership_directory": True}
+    router = w.remote_router
+    if router is not None:
+        directory = router.owner_directory
+        with router._lock:
+            tracked = len(router._oid_owner)
+        out["owner"] = {
+            "locations_tracked": tracked,
+            "locates_served": directory.locates_served,
+            "notifies_sent": directory.notifies_sent,
+            "owner_table_pulls": router.owner_table_pulls,
+            "direct_done_reports": router.direct_done_reports,
+            "relayed_done_reports": router.relayed_done_reports,
+        }
+    if w.owner_resolver is not None:
+        out["resolver"] = w.owner_resolver.counters()
+    if w.head_client is not None:
+        try:
+            out["head"] = w.head_client.head_stats()
+        except Exception as exc:  # noqa: BLE001 — head down: local view
+            out["head"] = {"error": repr(exc)}
+    return out
+
+
 def get_timeline() -> List[dict]:
     """Chrome-tracing events of the task-event ring."""
     return global_worker().task_events.to_chrome_trace()
 
 
 # ------------------------------------------------------------ tracing
+def _pull_live_nodes(direct_msg: tuple, relay_fn) -> List[tuple]:
+    """One payload from every live node daemon, pulled concurrently:
+    the node's direct object-server call (``direct_msg``) first, the
+    head relay (``relay_fn(client_id)``) as the fallback. Returns
+    ``(node, payload)`` pairs; a node that answers neither way is
+    skipped, so one dead dial bounds the wall time, not their sum."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    w = global_worker()
+    hc = w.head_client
+    router = w.remote_router
+    if hc is None or router is None:
+        return []
+    nodes = [n for n in router.nodes(refresh=True) if n.get("alive")]
+    if not nodes:
+        return []
+
+    def fetch(n):
+        addr = n.get("peer_addr")
+        if addr:
+            try:
+                return hc._peers.call((str(addr[0]), int(addr[1])),
+                                      direct_msg)
+            except Exception:  # noqa: BLE001 — dead dial: the relay
+                pass
+        try:
+            return relay_fn(n["client_id"])
+        except Exception:  # noqa: BLE001 — node mid-death: skipped
+            return None
+
+    with ThreadPoolExecutor(
+            max_workers=min(8, len(nodes)),
+            thread_name_prefix="state-node-pull") as pool:
+        results = list(pool.map(fetch, nodes))
+    return [(n, r) for n, r in zip(nodes, results) if r]
+
+
 def collect_trace_spans(trace_id: Optional[str] = None) -> List[dict]:
-    """This process's spans (of one trace, if given), deduplicated and
-    sorted by start. Empty when tracing is off."""
+    """Spans (of one trace, if given) of this process (and its worker
+    processes' spills), the head's ring and every live node daemon's
+    ``trace_dump``, deduplicated and sorted by start. Empty when
+    tracing is off everywhere."""
     from ray_tpu_torch._private import tracing
 
+    spans: List[dict] = list(tracing.local_spans(trace_id))
+    hc = global_worker().head_client
+    if hc is not None:
+        try:
+            spans.extend(hc.trace_dump(trace_id or ""))
+        except Exception:  # noqa: BLE001 — head down: local view only
+            pass
+        for _n, dumped in _pull_live_nodes(
+                ("trace_dump", trace_id or ""),
+                lambda cid: hc.node_trace_dump(cid, trace_id or "")):
+            spans.extend(dict(s) for s in dumped)
     seen = set()
     out = []
-    for s in tracing.local_spans(trace_id):
+    for s in spans:
         key = (s.get("span_id"), s.get("t0"), s.get("name"))
         if key in seen:
             continue
@@ -297,17 +379,38 @@ def collect_trace_spans(trace_id: Optional[str] = None) -> List[dict]:
 
 
 def collect_trace_index() -> Dict[str, Dict[str, Any]]:
-    """Per-trace aggregates of this process's ring."""
+    """Per-trace aggregates, from the same sources as
+    :func:`collect_trace_spans` (each ships O(traces) aggregates)."""
     from ray_tpu_torch._private import tracing
 
     merged: Dict[str, Dict[str, Any]] = {}
-    for tid, r in tracing.trace_index().items():
-        merged[tid] = {
-            "num_spans": int(r["num_spans"]),
-            "processes": set(r["pids"]),
-            "components": set(r["components"]),
-            "first_t0": r["first_t0"], "errors": int(r["errors"]),
-            "root": r["root"]}
+
+    def fold(idx):
+        for tid, r in (idx or {}).items():
+            rec = merged.setdefault(tid, {
+                "num_spans": 0, "processes": set(), "components": set(),
+                "first_t0": r.get("first_t0", 0.0), "errors": 0,
+                "root": ""})
+            rec["num_spans"] += int(r.get("num_spans", 0))
+            rec["processes"].update(r.get("pids", ()))
+            rec["components"].update(r.get("components", ()))
+            rec["first_t0"] = min(rec["first_t0"],
+                                  r.get("first_t0", rec["first_t0"]))
+            rec["errors"] += int(r.get("errors", 0))
+            if not rec["root"] and r.get("root"):
+                rec["root"] = r["root"]
+
+    fold(tracing.trace_index())
+    hc = global_worker().head_client
+    if hc is not None:
+        try:
+            fold(hc.trace_index())
+        except Exception:  # noqa: BLE001 — head down: local view only
+            pass
+        for _n, idx in _pull_live_nodes(
+                ("trace_dump", "", True),
+                lambda cid: hc.node_trace_index(cid)):
+            fold(idx)
     return merged
 
 
@@ -375,8 +478,9 @@ def trace_waterfall(trace_id: str) -> List[Dict[str, Any]]:
 
 
 def cluster_metrics() -> str:
-    """This process's registry as one Prometheus text blob, its samples
-    tagged ``node``/``component`` as the reference tags the driver's."""
+    """One Prometheus text blob: this process's registry and every live
+    node daemon's ``metrics_dump``, each sample tagged with its source's
+    ``node``/``component``."""
     from ray_tpu_torch.util.metrics import (
         export_prometheus,
         merge_prometheus,
@@ -384,18 +488,27 @@ def cluster_metrics() -> str:
         relabel_prometheus,
     )
 
-    refresh_framework_metrics(global_worker())
-    return merge_prometheus([relabel_prometheus(
-        export_prometheus(), {"node": "driver", "component": "driver"})])
+    w = global_worker()
+    refresh_framework_metrics(w)
+    parts = [relabel_prometheus(
+        export_prometheus(), {"node": "driver", "component": "driver"})]
+    hc = w.head_client
+    if hc is not None:
+        for n, text in _pull_live_nodes(
+                ("metrics_dump",), lambda cid: hc.node_metrics_dump(cid)):
+            parts.append(relabel_prometheus(
+                str(text), {"node": n["client_id"], "component": "node"}))
+    return merge_prometheus(parts)
 
 
 # ------------------------------------------------------- flight recorder
 def collect_debug_bundles() -> Dict[str, dict]:
     """This process's flight bundle under ``"driver"`` (the framework
     gauges refreshed first), with the newest bundle each of its worker
-    processes spilled under its ``"workers"``, and the head's bundle
-    under ``"head"`` when this driver is attached to one. A source whose
-    recorder is disarmed is absent."""
+    processes spilled under its ``"workers"``; with a head, the head's
+    bundle under ``"head"`` and every live node daemon's under
+    ``"node-<client>"`` (its worker processes' nested under its
+    ``"workers"``). A source whose recorder is disarmed is absent."""
     from ray_tpu_torch._private import flight
     from ray_tpu_torch.util.metrics import refresh_framework_metrics
 
@@ -410,6 +523,9 @@ def collect_debug_bundles() -> Dict[str, dict]:
         head_bundle = hc.debug_dump()
         if head_bundle:
             out["head"] = head_bundle
+        for n, bundle in _pull_live_nodes(
+                ("debug_dump",), lambda cid: hc.node_debug_dump(cid)):
+            out[f"node-{n['client_id']}"] = dict(bundle)
     return out
 
 
@@ -460,11 +576,26 @@ def cluster_dump(out_dir: Optional[str] = None) -> str:
 
 
 def set_cluster_profiling(on: bool) -> Dict[str, bool]:
-    """Pause or resume this process's stack sampler. Returns
-    ``{"driver": running}``."""
+    """Pause or resume the stack sampler of this process, the head and
+    every live node daemon. Returns ``{source: running}`` for each
+    sampler reached (an unreachable node is absent)."""
     from ray_tpu_torch._private import flight
 
-    return {"driver": flight.set_profiling(on)}
+    out = {"driver": flight.set_profiling(on)}
+    hc = global_worker().head_client
+    if hc is not None:
+        try:
+            head_state = hc.flight_ctl_head(on)
+            if head_state:
+                out["head"] = bool(head_state.get("running"))
+        except Exception:  # noqa: BLE001 — head down: partial toggle
+            pass
+        for n, state in _pull_live_nodes(
+                ("flight_ctl", "profile", bool(on)),
+                lambda cid: hc.node_flight_ctl(cid, on)):
+            if isinstance(state, dict):
+                out[f"node-{n['client_id']}"] = bool(state.get("running"))
+    return out
 
 
 def _matches(item, filters) -> bool:

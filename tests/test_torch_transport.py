@@ -10,9 +10,10 @@ and runs once per side; the values and the error type names must be
 equal. The reference's 5 ms bound on the release -> dispatch edge
 (``test_dispatch_edge_is_event_driven_no_sleep_poll``) is a wall-clock
 bound: its twin checks the order of the events instead (the follower
-starts after the blocker returns, on the one CPU). The case of
-``node_daemon.prefetch_serialized`` waits for the node plane. Both sides
-use ``msgpack``, the codec of the reference's frames.
+starts after the blocker returns, on the one CPU), and so is the 0.45 s
+bound of ``test_argument_prefetch_overlaps_pulls``: its twin checks
+that every pull starts before the first one ends. Both sides use
+``msgpack``, the codec of the reference's frames.
 """
 
 import importlib
@@ -69,6 +70,40 @@ def _raw_pair(side):
     srv = lis.accept_raw()
     lis.close()
     return cli, srv
+
+
+# ------------------------------------------------------------ prefetch ----
+def test_argument_prefetch_overlaps_pulls():
+    """``node_daemon.prefetch_serialized``: the second argument pull
+    starts before the first one ends (the pulls are pipelined)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def case(side):
+        daemon = importlib.import_module(f"{side.name}._private.node_daemon")
+        spans, lock = {}, threading.Lock()
+
+        def slow_pull(ob):
+            t0 = time.perf_counter()
+            time.sleep(0.2)
+            with lock:
+                spans[ob] = (t0, time.perf_counter())
+            return b"raw-" + ob
+
+        def failing_pull(ob):
+            raise KeyError(ob)
+
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            out = daemon.prefetch_serialized(slow_pull, [b"a", b"b", b"c"],
+                                             pool)
+            failed = daemon.prefetch_serialized(failing_pull, [b"x", b"x"],
+                                                pool)
+        first_end = min(e for _, e in spans.values())
+        return (out, all(st < first_end for st, _ in spans.values()),
+                {k: type(v).__name__ for k, v in failed.items()})
+
+    assert twin(case) == ("ok", ({b"a": b"raw-a", b"b": b"raw-b",
+                                  b"c": b"raw-c"}, True,
+                                 {b"x": "KeyError"}))
 
 
 # ------------------------------------------------------------- framing ----
