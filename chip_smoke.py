@@ -575,13 +575,58 @@ non-zero without printing a result. Without a CUDA card, or without the
    the seconds from each kill to the rerouted wave and to the restarted
    actor's first step.
 
-``--only nodes`` runs phase 21 alone,
+22. elastic: the cluster's operator surface, at the flagship's full
+   width and depth (bf16, 4 x 2048 tokens a step). A port head starts
+   through the port's CLI (python -m ray_tpu_torch.scripts.cli start
+   --head --port 0 --metrics-port 0); this driver attaches with no CPU
+   and no GPU and runs a ClusterAutoscaler (node types "card" {"CPU": 2,
+   "GPU": 1}, max 1, and "feed" {"CPU": 2, "feed": 1}, max 2, both min
+   0, launched by LocalSubprocessProvider on the thread plane, the feed
+   type with the card hidden; idle timeout ELASTIC_IDLE_S) and the
+   dashboard. At the start the head is the only member. (a)
+   JobSubmissionClient submits the job driver chip_smoke_job.py (which
+   imports no torch, so it makes its demand within a second of its
+   start) with a runtime_env (env_vars, working_dir): it attaches with no CPU
+   and no GPU and creates the named actor "flagship_elastic_trainer"
+   (num_gpus=1); its ELASTIC_STEPS feed tasks (resources {"feed": 1},
+   env var FEED_TAG under a runtime_env), submitted at once, make seeded
+   batches whose refs go straight into trainer.step.remote(ref). No node
+   can place any of them, so the autoscaler launches both types in one
+   update (the feed type up to its cap of 2: one node a task's shape);
+   the direct loop runs here meanwhile. The feed nodes go idle once the
+   batches are made and may be reaped before the job ends. The job SUCCEEDS, its losses equal the direct
+   loop's bit for bit, the forward, dQ and dK/dV launch 4 / 4 / 4 times a
+   step on the tensor cores in the launched card daemon's process with
+   no plain route, every feed task saw its tag and ran in a feed daemon,
+   the card node advertises GPU 1 and no feed node any,
+   autoscaler_summary() shows one card launch, at least one feed launch,
+   no failure and the join latencies, and the dashboard's /api/elastic
+   and /api/snapshot agree with it. (b) Both types go idle and are
+   drained and reaped (no untransferred object) until the head is the
+   only member again; a second job (ELASTIC_STEPS_2 steps, fresh seed-0
+   weights) launches both again and its losses equal the direct loop's
+   first ones. (c) While its nodes live: the CLI's debug --address
+   archives a bundle of every live daemon and the head's, the
+   dashboard's /metrics and the head's --metrics-port scrape hold every
+   live daemon's registry, and the CLI's job submit runs a command and
+   prints its log. Smoke readings (host clock): each job's submit to its
+   first step, each type's launch (spawn to the joined line) in each job,
+   the trainer's creation (the parameters on the card, make_train_step),
+   the job's step p50 beside the direct loop's, and idle to reaped.
+
+``--only elastic`` runs phase 22 alone, ``--only nodes`` phase 21,
 ``--only cluster`` phase 20, ``--only process`` phase 19,
 ``--only util`` phase 18,
 ``--only tune`` phase 17, ``--only
 data`` phase 16, ``--only observe`` phase 15 and ``--only rl --armed``
 phase 12 under the flight recorder and its stack sampler (kernels build
 at first use).
+
+The processes the script starts (heads, node daemons, workers, job
+drivers) share their compiled bytecode under build/pycache, written even
+where the environment sets PYTHONDONTWRITEBYTECODE: without a bytecode
+cache every new process compiles torch's sources again, which makes a
+node's cold start mostly compilation.
 
 The last lines are the kernels table, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -966,6 +1011,15 @@ NODE_JOIN_S = 60.0
 NODE_POLL_S = 60.0
 NODE_CLIENT_TIMEOUT_S = 2.0
 NODE_ACTOR = "flagship_node_trainer"
+# Phase 22: ELASTIC_STEPS steps in the first submitted job and
+# ELASTIC_STEPS_2 in the second; the autoscaler reaps a node idle for
+# ELASTIC_IDLE_S, within ELASTIC_REAP_S more; every other wait within
+# ELASTIC_POLL_S.
+ELASTIC_STEPS, ELASTIC_STEPS_2 = 16, 8
+ELASTIC_IDLE_S = 4.0
+ELASTIC_REAP_S = 20.0
+ELASTIC_POLL_S = 60.0
+ELASTIC_ACTOR = "flagship_elastic_trainer"
 
 
 _STARTED = time.perf_counter()
@@ -8440,11 +8494,15 @@ class _NodeTrainer:
     ``dev``, which must be there (a card node's daemon owns ``cuda:0``).
     ``step`` takes a feed task's ``(pid, tokens)``; ``report`` returns
     the launch counts and plain routes counted in this process since
-    ``reset``, the feed pids and the step seconds."""
+    ``reset``, the feed pids, the step seconds and the construction's
+    seconds (``init_s``), split into the parameters on ``dev`` and
+    ``make_train_step`` (whose AdamW imports torch's compiler stack the
+    first time in a process)."""
 
     def __init__(self, cfg, dev, params=None):
         from ray_tpu_torch import models as tm
 
+        t0 = time.perf_counter()
         self.dev = torch.device(dev)
         if self.dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -8454,8 +8512,12 @@ class _NodeTrainer:
             torch.backends.cudnn.allow_tf32 = False
         self.params = (params if params is not None
                        else tm.init_params(cfg, SEED, device=self.dev))
+        t1 = time.perf_counter()
         self.step_fn = tm.make_train_step(cfg, self.params)
         self.reset()
+        self.init_s = time.perf_counter() - t0
+        self.init_split_s = {"params": t1 - t0,
+                             "train_step": self.init_s - (t1 - t0)}
 
     def reset(self):
         self.feed_pids, self.step_s = [], []
@@ -8481,6 +8543,7 @@ class _NodeTrainer:
 
     def report(self):
         out = {"pid": os.getpid(), "device": str(self.dev),
+               "init_s": self.init_s, "init_split_s": self.init_split_s,
                "feed_pids": list(self.feed_pids),
                "step_s": list(self.step_s),
                "cuda_initialized": torch.cuda.is_initialized()}
@@ -8617,17 +8680,19 @@ def _ppid(pid: int) -> int:
         return 0
 
 
-def _node_direct(cfg, dev, n):
+def _node_direct(cfg, dev, n, batch_of=None):
     """The oracle: make_train_step in this driver on phase 21's batches
-    0..n-1. Returns the losses and step seconds."""
+    0..n-1 (``batch_of``'s, when given). Returns the losses and step
+    seconds."""
     from ray_tpu_torch import models as tm
 
+    batch_of = batch_of or _node_batch
     params = tm.init_params(cfg, SEED, device=dev)
     step = tm.make_train_step(cfg, params)
     losses, step_s = [], []
     for i in range(n):
-        t = _node_batch(i, cfg.vocab_size, TRAIN_BATCH,
-                        TRAIN_LEN + 1).to(dev)
+        t = batch_of(i, cfg.vocab_size, TRAIN_BATCH,
+                     TRAIN_LEN + 1).to(dev)
         _sync(dev)
         t0 = time.perf_counter()
         losses.append(step(t[:, :-1], t[:, 1:]).item())
@@ -9023,6 +9088,422 @@ def phase_nodes(dev, card, cfg):
     return result
 
 
+# ------------------------------------------------------------ phase 22
+def _elastic_batch(i, vocab, batch, length):
+    """Phase 22's batch ``i``: [batch, length] seeded int64 tokens on the
+    CPU (inputs are ``[:, :-1]``, labels ``[:, 1:]``)."""
+    rng = np.random.default_rng(SEED + 22_000 + i)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, length)))
+
+
+def _elastic_feed(i, vocab, batch, length):
+    """Phase 22's feed task (on an autoscaled feed node, under a
+    runtime_env): its pid, the FEED_TAG it read, and batch ``i``."""
+    return (os.getpid(), os.environ.get("FEED_TAG"),
+            _elastic_batch(i, vocab, batch, length))
+
+
+class _ElasticTrainer(_NodeTrainer):
+    """Phase 22's trainer: phase 21's, fed ``(pid, tag, tokens)``; its
+    report adds the feed tasks' tags."""
+
+    def reset(self):
+        self.feed_tags = []
+        return super().reset()
+
+    def step(self, fed):
+        pid, tag, tokens = fed
+        self.feed_tags.append(tag)
+        return super().step((pid, tokens))
+
+    def report(self):
+        out = super().report()
+        out["feed_tags"] = list(self.feed_tags)
+        return out
+
+
+def _cfg_spec(cfg) -> dict:
+    """A TransformerConfig as JSON fields (dtype by name)."""
+    fields = dataclasses.asdict(cfg)
+    fields["dtype"] = _dtype_name(cfg.dtype)
+    return fields
+
+
+def _elastic_trainer(fields, dev, params_path=None):
+    """Phase 22's trainer, built where the job's actor lives: the config
+    from its JSON fields, the parameters from ``params_path`` (a
+    ``torch.save``d tree) or seed SEED."""
+    from ray_tpu_torch.models import TransformerConfig
+
+    fields = dict(fields)
+    fields["dtype"] = getattr(torch, fields["dtype"])
+    params = (torch.load(params_path, weights_only=False)
+              if params_path else None)
+    return _ElasticTrainer(TransformerConfig(**fields), dev, params)
+
+
+def _elastic_submit(client, spec, tag):
+    """Submit phase 22's job driver (``chip_smoke_job.main``) with
+    ``spec``: its runtime_env sets PYTHONPATH, hides the card from the job
+    driver and runs it in the repository root. Returns (job id, submit
+    wall time)."""
+    import shlex
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    entry = (f"{shlex.quote(sys.executable)} -c "
+             + shlex.quote("import sys, chip_smoke_job; "
+                           "sys.exit(chip_smoke_job.main(sys.argv[1]))")
+             + " " + shlex.quote(json.dumps(spec)))
+    t = time.time()
+    job = client.submit_job(entrypoint=entry, runtime_env={
+        "env_vars": {"PYTHONPATH": root + os.pathsep
+                     + os.environ.get("PYTHONPATH", ""),
+                     "CUDA_VISIBLE_DEVICES": "", "ELASTIC_JOB_TAG": tag},
+        "working_dir": root})
+    return job, t
+
+
+def _elastic_line(client, job, bound, done=False):
+    """The job's ``ELASTIC_JOB`` JSON, read from its log within
+    ``bound`` s (``done``: also wait for the job to end). A job that
+    ends without the line, or FAILED, raises with its log."""
+    from ray_tpu_torch.job_submission import JobStatus
+
+    deadline = time.monotonic() + bound
+    got = None
+    while time.monotonic() < deadline:
+        status = client.get_job_status(job)
+        if got is None:
+            for line in client.get_job_logs(job).splitlines():
+                if line.startswith("ELASTIC_JOB "):
+                    got = json.loads(line[len("ELASTIC_JOB "):])
+        ended = status not in (JobStatus.PENDING, JobStatus.RUNNING)
+        if ended and status != JobStatus.SUCCEEDED:
+            raise AssertionError(f"job {job} ended {status.value}:\n"
+                                 f"{client.get_job_logs(job)}")
+        if got is not None and (ended or not done):
+            return got, status
+        time.sleep(0.1)
+    raise TimeoutError(f"job {job} gave no result within {bound} s:\n"
+                       f"{client.get_job_logs(job)}")
+
+
+def _launch_s(events):
+    """{type: [spawn to joined line s, ...]} of autoscaler scale events."""
+    return {k: [e["join_latency_s"] for e in events
+                if e["type"] == k and e.get("joined")]
+            for k in ("card", "feed")}
+
+
+def _elastic_nodes(scaler):
+    """{client id: type} of the nodes the autoscaler manages now."""
+    with scaler._lock:
+        return {m.client_id: m.type_name for m in scaler._managed}
+
+
+def _http_json(url, bound=30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=bound) as r:
+        body = r.read().decode()
+    return json.loads(body) if "/api/" in url else body
+
+
+def phase_elastic(dev, card, cfg):
+    """Phase 22 (module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import dashboard
+    from ray_tpu_torch.autoscaler import (
+        ClusterAutoscaler,
+        LocalSubprocessProvider,
+        NodeTypeConfig,
+    )
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    checks, out, readings, part_s = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":   # both at once (built already in the script)
+        _build.build_all(("flash_attention_fwd_wgmma",
+                          "flash_attention_bwd_wgmma"))
+    part_s["build"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    env = _cluster_env(RAY_TPU_HEAD_CLIENT_TIMEOUT_S=str(
+        NODE_CLIENT_TIMEOUT_S), RAY_TPU_FLIGHT="1")
+    client = JobSubmissionClient()
+    head = scaler = None
+    jobs = []
+    hold = "chip_smoke/elastic/hold"
+    rt.shutdown()
+    try:
+        # The head, through the port's CLI, with its metrics scrape.
+        t0 = time.perf_counter()
+        head = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "start",
+             "--head", "--port", "0", "--state",
+             os.path.join(tmp, "head_state.log"), "--metrics-port", "0"],
+            stdout=subprocess.PIPE, text=True, env=env)
+        line = _read_line(head, ELASTIC_POLL_S)
+        if not line.startswith("ray_tpu_torch head listening on "):
+            raise AssertionError(f"the CLI's head did not start: {line!r}")
+        address = line.strip().rsplit(" ", 1)[-1]
+        metrics_at = _read_line(head, ELASTIC_POLL_S).strip().rsplit(
+            " ", 1)[-1]
+        readings["head_boot_s"] = time.perf_counter() - t0
+        w = rt.init(num_cpus=0, num_gpus=0, address=address)
+        scaler = ClusterAutoscaler(
+            address,
+            [NodeTypeConfig("card", {"CPU": 2, "GPU": 1}, 0, 1),
+             NodeTypeConfig("feed", {"CPU": 2, "feed": 1}, 0, 2)],
+            LocalSubprocessProvider(address, worker_mode="thread", env=env),
+            idle_timeout_s=ELASTIC_IDLE_S, update_interval_s=0.5)
+        dash = dashboard.start_dashboard(port=0)
+        checks["a_only_the_head_at_start"] = not any(
+            n.get("alive") for n in w.head_client.node_list())
+        spec = {"address": address, "actor": ELASTIC_ACTOR,
+                "cfg": _cfg_spec(cfg), "dev": str(dev), "tag": "job1",
+                "steps": ELASTIC_STEPS, "batch": TRAIN_BATCH,
+                "length": TRAIN_LEN + 1, "poll_s": ELASTIC_POLL_S}
+        # (a) The job; the direct loop runs while its nodes boot.
+        t0 = time.perf_counter()
+        mono0 = time.monotonic()
+        job1, submitted = _elastic_submit(client, spec, "job1")
+        jobs.append(job1)
+        # Each launched node's advertised resources and pid, read while
+        # it lives (a feed node may be reaped before the job ends).
+        seen, pids = {}, {}
+
+        def watch():
+            deadline = time.monotonic() + 4 * ELASTIC_POLL_S
+            while client.get_job_status(job1) in (
+                    JobStatus.PENDING, JobStatus.RUNNING) \
+                    and time.monotonic() < deadline:
+                for n in w.head_client.node_list():
+                    if n.get("alive"):
+                        seen[n["client_id"]] = dict(n.get("resources")
+                                                    or {})
+                with scaler._lock:
+                    pids.update((m.client_id, m.handle["proc"].pid)
+                                for m in scaler._managed)
+                time.sleep(0.2)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        direct, direct_s = _node_direct(cfg, dev, ELASTIC_STEPS,
+                                        _elastic_batch)
+        part_s["direct"] = time.perf_counter() - t0
+        got, status = _elastic_line(client, job1, 4 * ELASTIC_POLL_S,
+                                    done=True)
+        watcher.join(ELASTIC_POLL_S)
+        if "error" in got:
+            raise AssertionError(f"phase 22's job failed:\n{got['error']}")
+        info = client.get_job_info(job1)
+        summary = scaler.summary()
+        rep = got["report"]
+        kinds = {e["client_id"]: e["type"] for e in summary["scale_events"]
+                 if e.get("joined")}
+        checks["a_job_succeeded"] = status == JobStatus.SUCCEEDED
+        checks["a_losses_bit_equal_direct"] = got["losses"] == direct
+        checks["a_launches_in_launched_card_node"] = rep.get(
+            "counts") == _want_counts("wgmma", ELASTIC_STEPS * L,
+                                      ELASTIC_STEPS * L)
+        checks["a_plain_routes_0"] = rep.get("plain_routes") == 0
+        card_ids = [c for c, k in kinds.items() if k == "card"]
+        feed_ids = [c for c, k in kinds.items() if k == "feed"]
+        checks["a_trainer_in_card_daemon"] = (
+            rep["device"] == str(dev)
+            and rep["pid"] in {pids.get(c) for c in card_ids}
+            and rep["pid"] not in (os.getpid(), got["pid"]))
+        feed_pids = {pids.get(c) for c in feed_ids}
+        checks["a_feed_tags_seen"] = rep["feed_tags"] == [
+            f"job1-{i}" for i in range(ELASTIC_STEPS)]
+        checks["a_feed_tasks_in_feed_daemons"] = bool(rep["feed_pids"]) \
+            and set(rep["feed_pids"]) <= feed_pids \
+            and not {os.getpid(), got["pid"]} & set(rep["feed_pids"])
+        checks["a_card_node_advertises_gpu_1"] = bool(card_ids) and all(
+            seen.get(c, {}).get("GPU") == 1.0 for c in card_ids)
+        checks["a_feed_nodes_advertise_no_gpu"] = bool(feed_ids) and all(
+            c in seen and not seen[c].get("GPU") for c in feed_ids)
+        checks["a_job_driver_saw_its_env"] = (
+            got["job_tag"] == "job1" and got["cuda_visible"] == ""
+            and os.path.realpath(got["cwd"]) == os.path.realpath(
+                os.path.dirname(os.path.abspath(__file__))))
+        checks["a_one_card_launch"] = summary["launched"].count("card") == 1
+        checks["a_feed_launched"] = summary["launched"].count("feed") >= 1
+        checks["a_no_launch_failure"] = (summary["launch_failures"] == 0
+                                         and summary["launch_errors"] == 0)
+        checks["a_join_latency_recorded"] = all(
+            e.get("join_latency_s", 0) > 0
+            for e in summary["scale_events"])
+        elastic = state.autoscaler_summary()
+        api = _http_json(dash.url + "/api/elastic")
+        snap = _http_json(dash.url + "/api/snapshot")
+        checks["a_state_and_dashboard_agree"] = (
+            elastic["autoscalers"][0]["launched"] == summary["launched"]
+            == api["autoscalers"][0]["launched"]
+            == snap["elastic"]["autoscalers"][0]["launched"])
+        readings["job1_submit_to_first_step_s"] = (
+            got["first_step_wall"] - submitted)
+        # Where job 1's wait went (host clock, from its submission).
+        readings["job1_timeline_s"] = {
+            "driver_attached": got["attached_wall"] - submitted,
+            "launches": [[e["type"], e["launch_started"] - mono0,
+                          e["joined"] - mono0]
+                         for e in summary["scale_events"]
+                         if e.get("joined")],
+            "trainer_placed": got["placed_wall"] - submitted,
+            "trainer_init": rep["init_s"],
+            "trainer_init_split": rep["init_split_s"],
+            "first_step": rep["step_s"][0],
+            "first_step_done": got["first_step_wall"] - submitted}
+        readings["launch_s"] = _launch_s(summary["scale_events"])
+        n_events = len(summary["scale_events"])
+        readings["step_ms_p50_job"] = _p50(rep["step_s"][1:]) * 1e3
+        readings["step_ms_p50_direct"] = _p50(direct_s[1:]) * 1e3
+        out["a"] = {"losses": got["losses"], "direct_losses": direct,
+                    "launches_per_step": {
+                        k: v / ELASTIC_STEPS
+                        for k, v in rep.get("counts", {}).items() if v},
+                    "plain_routes": rep.get("plain_routes"),
+                    "launched": summary["launched"],
+                    "advertised": {kinds.get(c, c): r
+                                   for c, r in seen.items()}}
+        part_s["a"] = time.perf_counter() - t0
+        # (b) Scale to zero, then up again for a second job, whose
+        # driver boots and attaches meanwhile but makes no demand before
+        # the go key.
+        t0 = time.perf_counter()
+        go = "chip_smoke/elastic/go"
+        spec2 = dict(spec, tag="job2", steps=ELASTIC_STEPS_2, hold=hold,
+                     go=go)
+        job2, submitted2 = _elastic_submit(client, spec2, "job2")
+        jobs.append(job2)
+        deadline = time.monotonic() + ELASTIC_IDLE_S + ELASTIC_REAP_S
+        while len(scaler.terminated) < len(scaler.launched) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        reaped = time.time()
+        summary = scaler.summary()
+        alive = [n for n in w.head_client.node_list() if n.get("alive")]
+        checks["b_reaped_to_zero"] = (
+            scaler.num_nodes_of_type("card") == 0
+            and scaler.num_nodes_of_type("feed") == 0)
+        checks["b_every_reap_drained"] = (
+            summary["drained_nodes"] == len(summary["launched"])
+            == len(summary["terminated"]))
+        checks["b_no_untransferred_object"] = summary[
+            "drain_untransferred_objects"] == 0
+        deadline = time.monotonic() + ELASTIC_REAP_S
+        while alive and time.monotonic() < deadline:
+            time.sleep(0.1)
+            alive = [n for n in w.head_client.node_list() if n.get("alive")]
+        checks["b_membership_head_alone"] = not alive
+        readings["idle_to_reaped_s"] = reaped - info.end_time
+        out["b_scale_events_s"] = [
+            [e["type"], e["launch_started"] - mono0,
+             e["joined"] - mono0 if e.get("joined") else None]
+            for e in summary["scale_events"]]
+        went = time.time()
+        w.kv_put(go.encode(), b"1")
+        got2, _ = _elastic_line(client, job2, 4 * ELASTIC_POLL_S)
+        if "error" in got2:
+            raise AssertionError(f"phase 22's second job failed:\n"
+                                 f"{got2['error']}")
+        summary = scaler.summary()
+        checks["b_losses_bit_equal_direct"] = got2["losses"] == direct[
+            :ELASTIC_STEPS_2]
+        checks["b_relaunched_both_types"] = (
+            summary["launched"].count("card") == 2
+            and summary["launched"].count("feed") >= 2)
+        checks["b_launches_in_card_node"] = got2["report"].get(
+            "counts") == _want_counts("wgmma", ELASTIC_STEPS_2 * L,
+                                      ELASTIC_STEPS_2 * L)
+        readings["job2_submit_to_first_step_s"] = (
+            got2["first_step_wall"] - submitted2)
+        readings["job2_go_to_first_step_s"] = got2["first_step_wall"] - went
+        readings["job2_launch_s"] = _launch_s(
+            summary["scale_events"][n_events:])
+        readings["job2_trainer_init_s"] = got2["report"]["init_s"]
+        readings["job2_trainer_init_split_s"] = got2["report"][
+            "init_split_s"]
+        out["b"] = {"losses": got2["losses"],
+                    "launched": summary["launched"],
+                    "terminated": summary["terminated"]}
+        part_s["b"] = time.perf_counter() - t0
+        # (c) The operator's tools, while the second job's nodes live.
+        t0 = time.perf_counter()
+        # The two CLI commands run at once, the scrapes meanwhile.
+        live = _elastic_nodes(scaler)
+        command = f"{sys.executable} -c \"print('elastic-cli-job-ok')\""
+        cli = {name: subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for name, argv in (
+                ("debug", ["debug", "--address", address, "--output",
+                           os.path.join(tmp, "debug")]),
+                ("job", ["job", "submit", command]))}
+        metrics = _http_json(dash.url + "/metrics")
+        scraped = _http_json(f"http://{metrics_at}/metrics")
+        checks["c_dashboard_metrics_every_live_daemon"] = bool(live) and all(
+            f'node="{c}"' in metrics for c in live)
+        checks["c_head_scrape_every_live_daemon"] = bool(live) and all(
+            f'node="{c}"' in scraped for c in live)
+        done = {}
+        for name, proc in cli.items():
+            try:
+                stdout, _ = proc.communicate(timeout=ELASTIC_POLL_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, _ = proc.communicate()
+            done[name] = (proc.returncode, stdout)
+        try:
+            sources = set(json.loads(done["debug"][1])["sources"])
+        except ValueError:
+            sources = set()
+        want = {"head"} | {f"node-{c}" for c in live}
+        checks["c_debug_bundles_every_live_daemon"] = (
+            done["debug"][0] == 0 and bool(live) and want <= sources)
+        checks["c_cli_job_submit"] = (done["job"][0] == 0
+                                      and "elastic-cli-job-ok"
+                                      in done["job"][1])
+        w.kv_put(hold.encode(), b"1")
+        _, status2 = _elastic_line(client, job2, ELASTIC_POLL_S, done=True)
+        checks["c_second_job_succeeded"] = status2 == JobStatus.SUCCEEDED
+        out["c"] = {"debug_sources": sorted(sources),
+                    "live": sorted(live.values()),
+                    "debug_rc": done["debug"][0],
+                    "cli_job_rc": done["job"][0]}
+        part_s["c"] = time.perf_counter() - t0
+    finally:
+        dashboard.stop_dashboard()
+        for job in jobs:
+            client.stop_job(job)
+        if scaler is not None:
+            scaler.shutdown()
+        rt.shutdown()
+        if head is not None and head.poll() is None:
+            head.kill()
+            head.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {
+        "phase": "elastic", "config": {
+            "d_model": cfg.d_model, "n_layers": L,
+            "dtype": _dtype_name(cfg.dtype),
+            "train_batch": [TRAIN_BATCH, TRAIN_LEN],
+            "steps": ELASTIC_STEPS, "steps_second_job": ELASTIC_STEPS_2,
+            "idle_timeout_s": ELASTIC_IDLE_S},
+        "checks": checks, **out, "readings": readings, "part_s": part_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 22 (elastic) failed {failed}")
+    return result
+
+
 def _deciles_ms(xs):
     """p10, p50 and p90 of ``xs`` seconds, in ms (nearest rank)."""
     xs = sorted(xs)
@@ -9060,8 +9541,8 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``nodes`` is phase 21, ``cluster`` phase 20, ``process`` phase 19,
-    ``util`` phase 18, ``tune`` phase 17,
+    ``elastic`` is phase 22, ``nodes`` phase 21, ``cluster`` phase 20,
+    ``process`` phase 19, ``util`` phase 18, ``tune`` phase 17,
     ``data`` phase 16,
     ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
     flight recorder and its stack sampler for the whole phase (the
@@ -9091,6 +9572,9 @@ def _run_only(name, armed, dev, card):
     if name == "nodes":
         phase_nodes(dev, card, TransformerConfig())
         return
+    if name == "elastic":
+        phase_elastic(dev, card, TransformerConfig())
+        return
     rec = flight.install(profile=True) if armed else None
     try:
         with contextlib.ExitStack() as stack:
@@ -9111,15 +9595,30 @@ def _run_only(name, armed, dev, card):
                                  "during phase 12")
 
 
+def _share_bytecode() -> dict:
+    """This process and those it starts write and read compiled bytecode
+    under build/pycache (module docstring). Returns the prefix and
+    whether the environment had turned bytecode writing off."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "pycache")
+    was_off = sys.dont_write_bytecode
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return {"pycache_prefix": prefix, "writing_was_off": was_off}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
     ap.add_argument("--only",
-                    choices=("nodes", "cluster", "process", "util", "tune",
-                             "data", "observe", "rl"),
-                    help="run one phase alone: 21 (nodes), 20 (cluster), "
+                    choices=("elastic", "nodes", "cluster", "process",
+                             "util", "tune", "data", "observe", "rl"),
+                    help="run one phase alone: 22 (elastic), 21 (nodes), "
+                         "20 (cluster), "
                          "19 (process), "
                          "18 (util), 17 (tune), 16 (data), 15 (observe) or "
                          "12 (rl)")
@@ -9131,6 +9630,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
+    emit({"phase": "bytecode", **_share_bytecode()})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -9182,6 +9682,7 @@ def main(argv=None) -> int:
     phase_process(dev, card, flagship)
     cluster = phase_cluster(dev, card, flagship)
     nodes = phase_nodes(dev, card, flagship)
+    elastic = phase_elastic(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -9533,6 +10034,11 @@ def main(argv=None) -> int:
             # counted in the node daemon's process.
             row["launches_nodes"] = {
                 "per_placed_step": nodes["a"]["launches_per_step"].get(
+                    kind.replace("fwd_", ""), 0.0)}
+            # Phase 22's: a step of a submitted job, in the actor on the
+            # card node the autoscaler launched, counted in that daemon.
+            row["launches_elastic"] = {
+                "per_job_step": elastic["a"]["launches_per_step"].get(
                     kind.replace("fwd_", ""), 0.0)}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})

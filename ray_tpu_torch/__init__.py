@@ -39,7 +39,12 @@ survived) and its node plane (node daemons,
 onto which an attached driver routes tasks and places actors peer to
 peer, refs resolving through their owner, work surviving a dead node;
 ``init(address="ray://host:port")`` attaches a thin client that runs
-nothing itself); ``util``'s placement
+nothing itself); the operator's surface on that cluster: per-task
+runtime envs (``runtime_env``: env vars, a working directory, import
+paths, a pip or uv venv), the demand-driven ``autoscaler`` that launches
+and reaps node daemons, ``job_submission``, the ``dashboard`` and the
+command line (``python -m ray_tpu_torch.scripts.cli``: ``start``,
+``autoscale``, ``job submit``, ``debug``, ...); ``util``'s placement
 groups, scheduling strategies and pub/sub, with its ``sanitizer``
 (host-plane invariant checks), ``loadgen`` (seeded traffic shapes) and
 ``chaos`` (seeded fault decisions and process kills); ``tune`` (the Tuner and its

@@ -219,6 +219,20 @@ _D("head_addresses", str, "",
    "Comma-separated head addresses, primary first then standbys "
    "(RAY_TPU_HEAD_ADDRESSES), merged into every HeadClient's dial "
    "list.")
+_D("runtime_env_cache", str, "",
+   "Directory for built runtime-env (pip/uv) environments "
+   "('' = ~/.cache/ray_tpu_torch/runtime_envs).")
+_D("autoscaler_launch_retries", int, 3,
+   "Provider node launches retry up to this many times (jittered "
+   "exponential backoff) before the autoscaler surfaces a typed "
+   "NodeLaunchFailedError instead of silent membership absence.")
+_D("autoscaler_launch_backoff_s", float, 0.5,
+   "Base backoff between node-launch attempts (doubled per attempt, "
+   "jittered x0.5-1.5 so concurrent launch storms spread).")
+_D("autoscaler_launch_grace_s", float, 60.0,
+   "Grace window for a LAUNCHING node: the bound on reading its joined "
+   "line, and the window in which a node never seen busy is not "
+   "idle-reaped while unmet demand remains.")
 _D("flight_spill_max_records", int, 8,
    "Past this many snapshot lines a worker's bundle spill file restarts "
    "at the newest window.")

@@ -23,13 +23,17 @@ token, no pickle in the envelope. Services:
   it and surviving clients reconnect and resume. ``--standby-of`` runs a
   warm standby that promotes over the shared log.
 
-Not ported: the head's cluster metrics scrape (``serve_cluster_metrics``,
-``--metrics-port``), which pulls node daemons' registries; a driver
-pulls them with ``util.state.cluster_metrics()`` (ROADMAP A.5b).
+- **Cluster metrics**: ``--metrics-port`` (``serve_cluster_metrics``)
+  serves one Prometheus ``/metrics`` for the cluster: the head's own
+  registry and every live node daemon's (pulled from its direct server,
+  the event-channel relay as the fallback), each series tagged
+  ``node``/``component``. A driver pulls the same with
+  ``util.state.cluster_metrics()``.
 
 Run ``python -m ray_tpu_torch._private.head_service --port 0 [--state
 PATH]``: the first line of its output is ``ray_tpu_torch head listening
-on HOST:PORT``. Drivers attach with ``ray_tpu_torch.init(address=
+on HOST:PORT``; with ``--metrics-port`` the second is ``ray_tpu_torch head
+metrics on HOST:PORT``. Drivers attach with ``ray_tpu_torch.init(address=
 "HOST:PORT")``. The head process imports neither torch nor JAX.
 """
 
@@ -372,6 +376,8 @@ class HeadService:
         # round trips instead of serializing them.
         self._rpc_pool = ThreadPoolExecutor(
             max_workers=16, thread_name_prefix="head-rpc")
+        self._metrics_peers = None
+        self._metrics_server = None
         self.batches_received = 0
         # Per-kind RPC counters (the ownership flatness observable:
         # steady-state object-plane kinds must stay O(membership), not
@@ -1215,8 +1221,108 @@ class HeadService:
             except OSError:
                 pass
         self._rpc_pool.shutdown(wait=False, cancel_futures=True)
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            self._metrics_server.server_close()
+        if self._metrics_peers is not None:
+            self._metrics_peers.close()
         if self._log is not None:
             self._log.close()
+
+    # ------------------------------------------------------ cluster metrics
+    def serve_cluster_metrics(self, host: str = "127.0.0.1",
+                              port: int = 0):
+        """One Prometheus surface for the whole cluster: GET /metrics
+        scrapes this head's registry plus every live node's (direct
+        object-server pull, event-channel relay fallback), each series
+        relabeled with ``node``/``component`` tags. Returns the (host,
+        port) bound."""
+        import http.server
+
+        from ray_tpu_torch._private.object_server import PeerPool
+        from ray_tpu_torch.util.metrics import Gauge
+
+        # Made here, once: the handler runs on a thread per request, and
+        # made there lazily it would race (duplicate gauge families, a
+        # second PeerPool's sockets).
+        self._m_rpc_total = Gauge(
+            "ray_tpu_head_rpc_total",
+            "Total control RPCs this head has served")
+        self._m_nodes_alive = Gauge(
+            "ray_tpu_head_nodes_alive", "Live node daemons")
+        self._metrics_peers = PeerPool(self.token)
+        svc = self
+
+        class _MetricsHandler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                if self.path != "/metrics":
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = svc._cluster_metrics_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._metrics_server = http.server.ThreadingHTTPServer(
+            (host, port), _MetricsHandler)
+        threading.Thread(
+            target=self._metrics_server.serve_forever, daemon=True,
+            name="ray_tpu_torch_head_metrics").start()
+        return self._metrics_server.server_address[:2]
+
+    def _cluster_metrics_text(self) -> str:
+        from ray_tpu_torch.util.metrics import (
+            export_prometheus,
+            merge_prometheus,
+            relabel_prometheus,
+        )
+
+        with self._lock:
+            self._m_rpc_total.set(float(sum(self.rpc_counts.values())))
+            nodes = [(c.client_id, c.peer_addr)
+                     for c in self._clients.values()
+                     if c.is_node and c.alive]
+        self._m_nodes_alive.set(float(len(nodes)))
+        parts = [relabel_prometheus(
+            export_prometheus(), {"node": "head", "component": "head"})]
+
+        def scrape_one(item):
+            cid, addr = item
+            if addr is not None:
+                try:
+                    return self._metrics_peers.call(
+                        tuple(addr), ("metrics_dump",))
+                except Exception as exc:  # noqa: BLE001 — dead dial
+                    log.debug("direct metrics scrape of %s failed; "
+                              "trying the relay: %r", cid, exc)
+            try:
+                status, text = self._relay(
+                    cid, ("metrics_dump",), timeout=5.0)
+                return text if status == "ok" else None
+            except Exception as exc:  # noqa: BLE001 — node mid-death
+                log.debug("relayed metrics scrape of %s failed; "
+                          "node skipped this scrape: %r", cid, exc)
+                return None
+
+        if nodes:
+            # Concurrent: unreachable nodes cost one dial and relay
+            # window together, not one each.
+            with ThreadPoolExecutor(
+                    max_workers=min(8, len(nodes)),
+                    thread_name_prefix="head-metrics-scrape") as pool:
+                texts = list(pool.map(scrape_one, nodes))
+            for (cid, _addr), text in zip(nodes, texts):
+                if text:
+                    parts.append(relabel_prometheus(
+                        str(text), {"node": cid, "component": "node"}))
+        return merge_prometheus(parts)
 
 
 def run_standby(primary: str, token: str,
@@ -1274,6 +1380,11 @@ def main(argv=None) -> int:
     ap.add_argument("--standby-of", default=None, metavar="HOST:PORT",
                     help="run as a warm standby: serve only after this "
                          "primary (sharing --state) stops answering")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="cluster Prometheus scrape endpoint: the head "
+                         "pulls every live node's registry and serves "
+                         "the merged, node-tagged series on /metrics "
+                         "(0 = any free port, -1 = disabled)")
     args = ap.parse_args(argv)
     if args.standby_of:
         token = (args.token or os.environ.get("RAY_TPU_CLUSTER_TOKEN"))
@@ -1292,6 +1403,10 @@ def main(argv=None) -> int:
     # line — existing launchers readline() exactly once for it).
     print(f"ray_tpu_torch head listening on {svc.host}:{svc.port}",
           flush=True)
+    if args.metrics_port >= 0:
+        mhost, mport = svc.serve_cluster_metrics(
+            args.host, args.metrics_port)
+        print(f"ray_tpu_torch head metrics on {mhost}:{mport}", flush=True)
     svc.serve_forever()
     return 0
 

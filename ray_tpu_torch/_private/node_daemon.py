@@ -59,6 +59,7 @@ from ray_tpu_torch._private.ids import ObjectID, TaskID
 from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch._private.scheduler import TaskSpec
 from ray_tpu_torch._private import tracing
+from ray_tpu_torch.runtime_env import coerce_runtime_env
 
 log = get_logger(__name__)
 
@@ -776,6 +777,7 @@ class NodeDaemon:
                 resources=dict(payload["resources"]),
                 max_retries=payload["max_retries"],
                 retry_exceptions=payload["retry_exceptions"],
+                runtime_env=coerce_runtime_env(payload.get("runtime_env")),
                 streaming=streaming,
                 backpressure=int(payload.get("backpressure", 0)),
                 trace=payload.get("trace"))

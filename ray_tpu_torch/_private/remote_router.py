@@ -970,6 +970,10 @@ class RemoteRouter:
             "resources": spec.resources,
             "max_retries": spec.max_retries,
             "retry_exceptions": spec.retry_exceptions,
+            # The task's runtime env (a dict on the wire); the daemon's
+            # scheduler applies it as this process's would.
+            "runtime_env": (dict(spec.runtime_env)
+                            if spec.runtime_env is not None else None),
             "fn_digest": digest,
             "args": [_wire_arg(a) for a in spec.args],
             "kwargs": {k: _wire_arg(v) for k, v in spec.kwargs.items()},

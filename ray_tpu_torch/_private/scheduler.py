@@ -46,6 +46,7 @@ from ray_tpu_torch._private.log import get_logger
 from ray_tpu_torch.exceptions import (
     OutOfMemoryError,
     RayTaskError,
+    RuntimeEnvSetupError,
     TaskCancelledError,
     WorkerCrashedError,
     WorkerPoolExhaustedError,
@@ -73,6 +74,9 @@ class TaskSpec:
     max_retries: int = 0
     retry_exceptions: bool = False
     scheduling_strategy: Any = None
+    # A RuntimeEnv (runtime_env.py) or None: applied around the call on
+    # the thread plane, shipped to the worker on the process plane.
+    runtime_env: Any = None
     # Streaming generator (num_returns="streaming"): return_ids holds only
     # the END MARKER; item objects commit dynamically per yield, with the
     # producer pausing at `backpressure` committed-but-unconsumed items.
@@ -83,6 +87,12 @@ class TaskSpec:
     trace: Any = None
     # Filled by the scheduler:
     attempt: int = 0
+
+
+def _env_fields(spec: TaskSpec):
+    """The task's runtime env as a plain dict for the worker's message
+    (None without one)."""
+    return dict(spec.runtime_env) if spec.runtime_env is not None else None
 
 
 class ResourcePool:
@@ -424,9 +434,27 @@ class LocalScheduler:
         if _flight._FLIGHT is not None:
             _flight.note_task_started(spec.name)
         try:
-            result = spec.function(*args, **kwargs)
-            if spec.streaming:
-                self._stream_outputs(spec, result, cancelled_event)
+            renv = spec.runtime_env
+            if renv is not None and (renv.get("pip") or renv.get("uv")):
+                # Thread-plane tasks share this interpreter; a
+                # venv-backed env cannot apply here.
+                raise RuntimeEnvSetupError(
+                    "pip/uv runtime envs need process workers "
+                    "(worker_mode='process')")
+
+            def _invoke():
+                result = spec.function(*args, **kwargs)
+                if spec.streaming:
+                    # The yield loop runs inside the env, so the
+                    # generator's body sees it.
+                    self._stream_outputs(spec, result, cancelled_event)
+                return result
+
+            if renv is not None:
+                with renv.stage().applied():
+                    result = _invoke()
+            else:
+                result = _invoke()
         finally:
             ctx.current_task_id = None
             ctx.task_name = None
@@ -589,7 +617,7 @@ class LocalScheduler:
         through the shm store and stay resident there."""
         from ray_tpu_torch._private.serialization import SerializedObject
 
-        w = self._worker_pool.lease()
+        w = self._worker_pool.lease(runtime_env=spec.runtime_env)
         staged: list = []
         ret_keys = [self._ret_key(oid, spec.attempt)
                     for oid in spec.return_ids]
@@ -610,7 +638,8 @@ class LocalScheduler:
                 self._proc_running[spec.task_id] = w
             try:
                 msg = ("task", digest, fn_field, payload, ret_keys,
-                       spec.num_returns, spec.task_id.binary(), spec.name)
+                       spec.num_returns, spec.task_id.binary(), spec.name,
+                       _env_fields(spec))
                 if spec.trace is not None:
                     # Traced: the worker records its exec span under
                     # the submitter's context (off = no extra field).
@@ -647,7 +676,7 @@ class LocalScheduler:
 
         worker = global_worker()
         stream = worker.streams.get_or_create(spec.task_id)
-        w = self._worker_pool.lease()
+        w = self._worker_pool.lease(runtime_env=spec.runtime_env)
         staged: list = []
         try:
             digest, fn_field, payload, staged = self._stage_task(
@@ -657,7 +686,8 @@ class LocalScheduler:
             try:
                 w._req.write(("task_stream", digest, fn_field, payload,
                               spec.task_id.binary(), spec.name,
-                              int(spec.backpressure)), timeout=60.0)
+                              _env_fields(spec), int(spec.backpressure)),
+                             timeout=60.0)
                 pump_stream_replies(w, spec.task_id, spec.name, stream,
                                     self._store, self._shm_store,
                                     worker.serialization_context,

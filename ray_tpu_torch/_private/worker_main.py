@@ -22,8 +22,10 @@ for each; and the compiled DAG's ``dag_exec`` loop, which runs a
 process-backed actor's stages over the native shm channels. Tracing and
 the flight recorder arm from the inherited environment and, since
 nothing can dial a worker, spill to the hosting runtime's
-``RAY_TPU_TRACE_DIR`` and ``RAY_TPU_FLIGHT_DIR``. Not ported: the
-runtime env's per-task staging.
+``RAY_TPU_TRACE_DIR`` and ``RAY_TPU_FLIGHT_DIR``. A task's runtime env
+(``env_vars``, ``working_dir``, ``py_modules``) is staged once per
+distinct env in this process and applied around each call; a pip/uv env
+is this process's interpreter, chosen by the pool at spawn.
 """
 
 from __future__ import annotations
@@ -445,8 +447,8 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
                 _reply(("ok", os.getpid()))
             elif kind == "task":
                 (_, digest, fn_bytes, payload, return_keys, num_returns,
-                 task_id_bin, name) = msg[:8]
-                trace_wire = msg[8] if len(msg) > 8 else None
+                 task_id_bin, name, env_fields) = msg[:9]
+                trace_wire = msg[9] if len(msg) > 9 else None
                 fn = _load_fn(digest, fn_bytes)
                 args, kwargs = _load_payload(store,
                                              _fetch_blob(store, payload))
@@ -455,7 +457,11 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
                     "worker.exec", parent=tracing.extract(trace_wire),
                     task=name) if trace_wire is not None else None
                 try:
-                    result = fn(*args, **kwargs)
+                    if env_fields:
+                        with _cached_runtime_env(env_fields).applied():
+                            result = fn(*args, **kwargs)
+                    else:
+                        result = fn(*args, **kwargs)
                 except BaseException:
                     tracing.finish(span, status="error")
                     span = None
@@ -556,18 +562,26 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
                     stream_ack_cv.notify_all()
             elif kind == "task_stream":
                 (_, digest, fn_bytes, payload, task_id_bin, name,
-                 budget) = msg
+                 env_fields, budget) = msg
                 fn = _load_fn(digest, fn_bytes)
                 args, kwargs = _load_payload(store,
                                              _fetch_blob(store, payload))
                 _set_task_ctx(task_id_bin, name)
                 try:
-                    total, was_cancelled = _run_stream_yields(
-                        fn(*args, **kwargs), max_msg, _stage_result,
-                        lambda i, f: _reply(("item", i, f)),
-                        _ack_chan_waiter(bytes(task_id_bin), budget))
-                    _reply(("cancelled",) if was_cancelled
-                           else ("ok", total))
+                    def _go():
+                        total, was_cancelled = _run_stream_yields(
+                            fn(*args, **kwargs), max_msg, _stage_result,
+                            lambda i, f: _reply(("item", i, f)),
+                            _ack_chan_waiter(bytes(task_id_bin), budget))
+                        _reply(("cancelled",) if was_cancelled
+                               else ("ok", total))
+
+                    # The generator's body runs inside the env.
+                    if env_fields:
+                        with _cached_runtime_env(env_fields).applied():
+                            _go()
+                    else:
+                        _go()
                 finally:
                     _set_task_ctx(None, None)
             elif kind == "actor_stream":
@@ -625,6 +639,26 @@ def worker_loop(store_name: str, req_id: int, rep_id: int,
             else:
                 name = "task"
             _reply(("err", _error_bytes(name, exc)))
+
+
+_renv_cache: Dict[bytes, Any] = {}
+
+
+def _cached_runtime_env(env_fields):
+    """One staged RuntimeEnv per distinct env per worker process: staging
+    copies working_dir into a tempdir, which must not repeat (or leak)
+    per task. A pip/uv env's interpreter is this process's own (the pool
+    spawned it under the venv), so only its other fields apply here."""
+    from ray_tpu_torch.runtime_env import RuntimeEnv
+
+    fields = {k: v for k, v in env_fields.items()
+              if k in ("env_vars", "working_dir", "py_modules", "pip")}
+    key = pickle.dumps(sorted(fields.items()))
+    renv = _renv_cache.get(key)
+    if renv is None:
+        renv = RuntimeEnv(**fields).stage()
+        _renv_cache[key] = renv
+    return renv
 
 
 def _orphaned() -> bool:

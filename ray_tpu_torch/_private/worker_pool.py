@@ -18,8 +18,11 @@ without the card; ``warn_no_card`` logs that once per function or class.
 Each worker's stdout and stderr are pumped
 into ``worker-<id>-<pid>.out`` / ``.err`` under the session's log
 directory, which the log monitor tails back to the driver's stderr.
-Values cross in the wire form (``serialization.wire_dumps``). Not
-ported: the pip runtime env's sub-pools (``_lease_env``, A.5b).
+Values cross in the wire form (``serialization.wire_dumps``). A task
+whose runtime env names a pip/uv venv leases from that env's own
+sub-pool (``_lease_env``): its workers run under the venv's interpreter,
+built at the first lease; idle workers of one sub-pool are evicted when
+the other needs the slot.
 """
 
 from __future__ import annotations
@@ -90,7 +93,9 @@ class WorkerProcess:
     _id_lock = threading.Lock()
 
     def __init__(self, store, max_msg: int = 1 << 20,
-                 log_dir: Optional[str] = None):
+                 log_dir: Optional[str] = None,
+                 python_exe: Optional[str] = None,
+                 env_key: Optional[str] = None):
         from ray_tpu_torch._native.store import NativeMutableChannel
 
         with WorkerProcess._id_lock:
@@ -98,6 +103,10 @@ class WorkerProcess:
             self.worker_id = WorkerProcess._id_counter[0]
         self._store = store
         self.max_msg = max_msg
+        # A pip/uv runtime env's worker runs under its venv's interpreter
+        # and returns to that env's sub-pool (env_key).
+        self.python_exe = python_exe or sys.executable
+        self.env_key = env_key
         # Channel object ids live in a reserved high range, apart from
         # task-return and put keys (which hash whole ObjectIDs).
         base = (0xC0FF_EE00_0000_0000
@@ -122,7 +131,7 @@ class WorkerProcess:
         self._api_rep = NativeMutableChannel(
             store, self._api_rep_id, max_size=max_msg, num_readers=1)
         cmd = [
-            sys.executable, "-m", "ray_tpu_torch._private.worker_main",
+            self.python_exe, "-m", "ray_tpu_torch._private.worker_main",
             "--store", store.name,
             "--req-id", str(self._req_id),
             "--rep-id", str(self._rep_id),
@@ -265,6 +274,8 @@ class WorkerPool:
         self._log_dir = log_dir
         self._lock = threading.Lock()
         self._idle: "queue.Queue[WorkerProcess]" = queue.Queue()
+        # Idle workers of each pip/uv runtime env, by env_key.
+        self._env_idle: Dict[str, "queue.Queue[WorkerProcess]"] = {}
         self._all: List[WorkerProcess] = []
         self._shutdown = False
         self._spawning = 0   # growth slots reserved, not yet spawned
@@ -274,7 +285,9 @@ class WorkerPool:
         # deadlocking.
         self._max_workers = max_workers or self._base_workers * 4
 
-    def _try_spawn(self, limit: int) -> Optional[WorkerProcess]:
+    def _try_spawn(self, limit: int, python_exe: Optional[str] = None,
+                   env_key: Optional[str] = None
+                   ) -> Optional[WorkerProcess]:
         """Reserve a slot under ``limit`` and spawn outside the lock."""
         with self._lock:
             if (self._shutdown
@@ -283,7 +296,8 @@ class WorkerPool:
             self._spawning += 1
         try:
             fresh = WorkerProcess(self._store, max_msg=self._max_msg,
-                                  log_dir=self._log_dir)
+                                  log_dir=self._log_dir,
+                                  python_exe=python_exe, env_key=env_key)
         except Exception as exc:  # noqa: BLE001 — e.g. the shm store full
             log.warning("worker spawn failed: %r", exc)
             fresh = None
@@ -296,7 +310,11 @@ class WorkerPool:
             fresh.shutdown(timeout=0.1)
         return None
 
-    def lease(self, timeout: float = 60.0) -> WorkerProcess:
+    def lease(self, timeout: float = 60.0,
+              runtime_env=None) -> WorkerProcess:
+        env_key = runtime_env.env_key() if runtime_env is not None else None
+        if env_key is not None:
+            return self._lease_env(runtime_env, env_key, timeout)
         deadline = time.monotonic() + timeout
         while True:
             if self._shutdown:
@@ -318,6 +336,10 @@ class WorkerPool:
                 w = self._idle.get(timeout=0.5)
             except queue.Empty:
                 fresh = self._try_spawn(self._max_workers)
+                if fresh is None and self._evict_idle_env_worker():
+                    # At the cap with idle env workers: one makes room,
+                    # so neither sub-pool starves behind the other.
+                    fresh = self._try_spawn(self._max_workers)
                 if fresh is not None:
                     return fresh
                 if time.monotonic() >= deadline:
@@ -330,13 +352,87 @@ class WorkerPool:
                 return w
             self._replace(w)   # crashed while idle
 
+    def _evict_idle_env_worker(self) -> bool:
+        with self._lock:
+            queues = list(self._env_idle.values())
+        for q in queues:
+            try:
+                w = q.get_nowait()
+            except queue.Empty:
+                continue
+            self._remove_dead(w)
+            return True
+        return False
+
+    def _lease_env(self, runtime_env, env_key: str,
+                   timeout: float) -> WorkerProcess:
+        """Lease a worker bound to a pip/uv runtime env. The venv is
+        built at the first lease that needs it, before the deadline
+        starts (a long first install must not fake pool exhaustion)."""
+        with self._lock:
+            q = self._env_idle.setdefault(env_key, queue.Queue())
+        python_exe = runtime_env.python_executable()
+        deadline = time.monotonic() + timeout
+        while True:
+            if self._shutdown:
+                raise WorkerPoolExhaustedError("worker pool is shut down")
+            try:
+                w = q.get_nowait()
+            except queue.Empty:
+                fresh = self._try_spawn(self._max_workers,
+                                        python_exe=python_exe,
+                                        env_key=env_key)
+                if fresh is None:
+                    # At the cap with idle default workers: evict one,
+                    # so env demand does not starve behind them.
+                    try:
+                        idle_default = self._idle.get_nowait()
+                    except queue.Empty:
+                        pass
+                    else:
+                        self._remove_dead(idle_default)
+                        fresh = self._try_spawn(self._max_workers,
+                                                python_exe=python_exe,
+                                                env_key=env_key)
+                if fresh is not None:
+                    return fresh
+                try:
+                    w = q.get(timeout=0.5)
+                except queue.Empty:
+                    if time.monotonic() >= deadline:
+                        raise WorkerPoolExhaustedError(
+                            f"no idle worker for runtime env {env_key} "
+                            f"within {timeout:.0f}s") from None
+                    continue
+            if w.alive():
+                return w
+            self._remove_dead(w)
+
+    def _remove_dead(self, dead: WorkerProcess):
+        """Drop a worker from the pool without a replacement (env workers
+        and evictions respawn on demand)."""
+        with self._lock:
+            try:
+                self._all.remove(dead)
+            except ValueError:
+                pass
+        dead.shutdown(timeout=0.1)
+
     def release(self, w: WorkerProcess):
         if self._shutdown:
             return
         if not w.alive():
-            self._replace(w)
+            if w.env_key is not None:
+                self._remove_dead(w)
+            else:
+                self._replace(w)
             return
-        self._idle.put(w)
+        if w.env_key is not None:
+            with self._lock:
+                q = self._env_idle.setdefault(w.env_key, queue.Queue())
+            q.put(w)
+        else:
+            self._idle.put(w)
 
     def _replace(self, dead: WorkerProcess):
         with self._lock:

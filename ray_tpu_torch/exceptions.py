@@ -189,5 +189,25 @@ class NodeDrainingError(RayTpuError):
             f"new work (rerouted)")
 
 
+class RuntimeEnvSetupError(RayTpuError):
+    """A task's ``runtime_env`` could not be set up: a pip/uv venv build
+    failed, or the env needs a worker process the plane cannot give."""
+
+
+class NodeLaunchFailedError(RayTpuError):
+    """The autoscaler's provider could not bring a node up within its
+    bounded, jittered retry budget — a typed infrastructure failure,
+    not silent membership absence. ``attempts`` is how many launches
+    were tried; ``node_type`` names the shape that failed."""
+
+    def __init__(self, node_type: str = "", attempts: int = 0,
+                 message: str = ""):
+        self.node_type = node_type
+        self.attempts = attempts
+        super().__init__(
+            message or f"node type {node_type!r} failed to launch after "
+                       f"{attempts} attempt(s)")
+
+
 class KVCacheOOM(RuntimeError):
     """No free blocks for a required allocation (after eviction)."""

@@ -6,7 +6,8 @@
 ObjectRef(s) (an ``ObjectRefGenerator`` with
 ``num_returns="streaming"``); ``.options(...)`` overrides per-call
 options (num_returns, num_cpus, num_gpus, resources, max_retries,
-retry_exceptions, name, scheduling_strategy). On a class ``@remote``
+retry_exceptions, name, scheduling_strategy, runtime_env: a
+``RuntimeEnv`` or a plain dict, coerced at submit). On a class ``@remote``
 gives an ``ActorClass``. A function can also be bound into a DAG
 (``.bind()``) and compiled with ``experimental_compile(backend="torch")``;
 ``_function`` is the plain function the compiled executor runs.
@@ -20,10 +21,11 @@ from typing import Any, Callable, Dict, Optional
 from ray_tpu_torch._private.config import GlobalConfig
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.scheduler import TaskSpec
+from ray_tpu_torch.runtime_env import coerce_runtime_env as _coerce_env
 
 _OPTION_KEYS = frozenset({
     "num_returns", "num_cpus", "num_gpus", "resources", "max_retries",
-    "retry_exceptions", "name", "scheduling_strategy",
+    "retry_exceptions", "name", "scheduling_strategy", "runtime_env",
 })
 
 
@@ -95,6 +97,7 @@ class RemoteFunction:
             max_retries=max_retries,
             retry_exceptions=bool(opts.get("retry_exceptions", False)),
             scheduling_strategy=opts.get("scheduling_strategy"),
+            runtime_env=_coerce_env(opts.get("runtime_env")),
             streaming=streaming,
             backpressure=(GlobalConfig.generator_backpressure_items
                           if streaming else 0),

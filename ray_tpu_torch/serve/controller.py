@@ -149,7 +149,18 @@ class ServeController:
                 info.replica_set = old.replica_set
             info.replica_set.configure_admission(max_ongoing_requests)
             self._deployments[name] = info
-        self._reconcile_once()
+        from ray_tpu_torch.exceptions import PlacementInfeasibleError
+
+        try:
+            self._reconcile_once()
+        except PlacementInfeasibleError as exc:
+            # Infeasible now is a capacity condition: the ask is parked
+            # as an unmet shape (the autoscaler's signal) and the
+            # reconcile loop retries. Anything else (a broken replica
+            # constructor) reaches the caller.
+            log.warning("initial reconcile for %r deferred (%r); the "
+                        "reconcile loop retries as capacity appears",
+                        name, exc)
 
     def delete(self, name: str) -> None:
         with self._lock:
@@ -460,7 +471,10 @@ class ServeController:
         ``RAY_TPU_SERVE_WAKE_TIMEOUT_S``, past which a typed
         ``GetTimeoutError`` surfaces."""
         from ray_tpu_torch._private.config import GlobalConfig
-        from ray_tpu_torch.exceptions import GetTimeoutError
+        from ray_tpu_torch.exceptions import (
+            GetTimeoutError,
+            PlacementInfeasibleError,
+        )
 
         t0 = time.monotonic()
         # Traced wake: the whole scale-from-zero wait is one span, and
@@ -483,7 +497,12 @@ class ServeController:
                     info.last_scale_change = t0
             deadline = t0 + float(GlobalConfig.serve_wake_timeout_s)
             while time.monotonic() < deadline:
-                self._reconcile_once()
+                try:
+                    self._reconcile_once()
+                except PlacementInfeasibleError as exc:
+                    # Capacity pending (an autoscaler may launch it).
+                    log.debug("wake reconcile retry pending capacity: %r",
+                              exc)
                 with self._lock:
                     info = self._deployments.get(name)
                     size = info.replica_set.size() if info else 0
@@ -533,9 +552,17 @@ class ServeController:
 
     def _replica_set(self, name: str) -> ReplicaSet:
         info = self.deployment_info(name)
-        # Lazily ensure replicas exist before first routing.
+        # Lazily ensure replicas exist before first routing. An
+        # infeasible placement (a replica awaiting an autoscaled node)
+        # is not a routing error: the empty set makes the handle's wake
+        # path queue the request until capacity appears.
         if info.replica_set.size() == 0:
-            self._reconcile_once()
+            from ray_tpu_torch.exceptions import PlacementInfeasibleError
+
+            try:
+                self._reconcile_once()
+            except PlacementInfeasibleError as exc:
+                log.debug("lazy reconcile for %r deferred: %r", name, exc)
         return info.replica_set
 
     def _record_request(self, name: str):

@@ -9,8 +9,9 @@ spilled spans and flight bundles). On a driver attached to a head, the
 trace, metrics and flight collections also take the head's and pull
 every live node daemon's (``_pull_live_nodes``: the daemon's direct
 server first, the head relay as the fallback), and ``ownership_summary``
-reports the ownership plane's counters. Not ported: ``autoscaler_summary``
-(with ``autoscaler.py``). The workflow listings read the storage root of
+reports the ownership plane's counters. ``autoscaler_summary`` reads
+every ``ClusterAutoscaler`` alive in this process and Serve's scale and
+wake records. The workflow listings read the storage root of
 ``workflow.init`` (or the default root).
 """
 
@@ -244,6 +245,53 @@ def chaos_summary() -> Dict[str, Any]:
     out["llm_shedding"] = llm_shedding
     out["llm_shed_total"] = sum(
         s.get("shed_requests", 0) for s in llm_shedding.values())
+    return out
+
+
+def autoscaler_summary() -> Dict[str, Any]:
+    """Elasticity panel (``/api/elastic``): every live
+    ClusterAutoscaler's launch and drain counters and scale-up events
+    (``launch_attempts``/``launch_failures`` are the provider-level
+    tries behind the typed ``NodeLaunchFailedError``; ``scale_events``
+    carry join latency, the node half of the cold start), plus each
+    Serve deployment's scale and wake record (the replica half). Safe
+    in any process; empty sections when nothing autoscales here."""
+    import sys
+
+    scalers = []
+    mod = sys.modules.get("ray_tpu_torch.autoscaler")
+    try:
+        for sc in (mod.live_autoscalers() if mod is not None else ()):
+            scalers.append(sc.summary())
+    except Exception:  # noqa: BLE001 — panel must not fail the API
+        pass
+    out: Dict[str, Any] = {
+        "autoscalers": scalers,
+        **{k: sum(s.get(k, 0) for s in scalers) for k in (
+            "launch_attempts", "launch_failures", "launch_errors",
+            "drained_nodes", "drain_transferred_objects",
+            "drain_untransferred_objects")},
+    }
+    serve_scaling: Dict[str, Any] = {}
+    ctl_mod = sys.modules.get("ray_tpu_torch.serve.controller")
+    ctl = getattr(ctl_mod, "_controller", None)
+    if ctl is not None:
+        try:
+            for name, st in ctl.status().items():
+                serve_scaling[name] = {k: st[k] for k in (
+                    "replicas", "target_replicas", "scale_events",
+                    "wake_events", "last_wake_latency_s")}
+        except Exception:  # noqa: BLE001 — panel must not fail the API
+            pass
+    out["serve_scaling"] = serve_scaling
+    try:
+        router = global_worker().remote_router
+    except Exception:  # noqa: BLE001 — no runtime in this process
+        router = None
+    if router is not None:
+        out["drain_reroutes"] = router.drain_reroutes
+        out["offloaded_objects"] = router.offloaded_objects
+        out["fn_preship_sent"] = router.fn_preship_sent
     return out
 
 

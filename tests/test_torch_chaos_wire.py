@@ -17,6 +17,14 @@ hanging one is cut off; the exhausted pull counts its retries; the
 absent answer counts none; the lost object's error lands before
 ``ensure_local``'s own timeout. The head-kill cell starts a head pair
 and two node daemons a side and is marked slow.
+
+The autoscaler's cells (``tests/test_chaos_matrix.py``'s elasticity
+rows): a node daemon SIGKILLed while the provider launches it (the
+bounded retry absorbs it), and a node launched with seeded wire delays
+(it still joins inside the launch grace, the reference's bound on its
+join latency checked as no failed launch), each on its own head; and a
+head SIGKILLed as the autoscaler's first launch spawns (the daemon lands
+on the promoted standby), on a head pair, marked slow.
 """
 
 import contextlib
@@ -473,3 +481,209 @@ def test_matrix_headkill_x_task_fanout_survives(tmp_path, monkeypatch):
 
     assert twin(case) == ("ok", (True, [0, 2, 4, 6], True, 1, "head", True,
                                  1, 2, True, 2, False, True, 200))
+
+
+# ------------------------------------------------------- autoscaler cells
+def _head(s, tmp_path, env):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{s.pkg}._private.head_service", "--port",
+         "0", "--state", str(tmp_path / f"{s.pkg}.autoscale_state.log")],
+        stdout=subprocess.PIPE, text=True, env=env)
+    return proc, _read_line(proc).strip().rsplit(" ", 1)[-1]
+
+
+def _stop(*procs):
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def test_matrix_nodekill_during_launch_x_retry_path(tmp_path, monkeypatch):
+    """Cell (NodeKiller x node launch): the seeded killer SIGKILLs a
+    daemon while the provider launches it (before its joined line); the
+    bounded retry's next attempt joins, and the counters record the
+    murdered try."""
+    monkeypatch.setenv("RAY_TPU_HEAD_CLIENT_TIMEOUT_S", "2.0")
+
+    def case(s):
+        au = importlib.import_module(f"{s.pkg}.autoscaler")
+        cfg = s.config.GlobalConfig
+        head, address = _head(s, tmp_path, _env())
+        spawned = []
+        try:
+            cfg.set("autoscaler_launch_retries", 3)
+            cfg.set("autoscaler_launch_backoff_s", 0.05)
+            prov = au.LocalSubprocessProvider(address, worker_mode="thread",
+                                              env=_env())
+            real_spawn = prov._spawn
+            fired = []
+
+            def killing_spawn(node_type):
+                proc = real_spawn(node_type)
+                spawned.append(proc)
+                if len(spawned) == 1:
+                    killer = s.chaos.NodeKiller(
+                        [s.chaos.pid_kill_target(
+                            "launching-node", lambda: proc.pid,
+                            kind="daemon", once=True)],
+                        seed=5, interval_s=(0.0, 0.01), max_kills=1)
+                    killer.start()
+                    for _ in range(200):
+                        if proc.poll() is not None:
+                            break
+                        time.sleep(0.05)
+                    killer.stop()
+                    fired.extend(k for k in killer.kills
+                                 if "error" not in k)
+                return proc
+
+            prov._spawn = killing_spawn
+            handle = prov.launch(au.NodeTypeConfig("base", {"CPU": 1}))
+            out = (bool(fired), bool(handle["client_id"]),
+                   prov.launch_attempts, prov.launch_failures,
+                   spawned[0].poll() is not None, spawned[1].poll() is None)
+            prov.terminate(handle)
+            return out
+        finally:
+            cfg.reset()
+            _stop(*spawned, head)
+
+    assert twin(case) == ("ok", (True, True, 2, 1, True, True))
+
+
+def test_matrix_wire_delay_x_scale_up_cold_start_bounded(tmp_path,
+                                                          monkeypatch):
+    """Cell (frame delay x scale-up): a node launched with seeded wire
+    delays armed (inherited through RAY_TPU_CHAOS) still joins inside the
+    launch grace, with no failed launch, and serves a task end to end."""
+    import json
+
+    monkeypatch.setenv("RAY_TPU_HEAD_CLIENT_TIMEOUT_S", "2.0")
+    chaos_env = {"RAY_TPU_CHAOS": json.dumps({
+        "seed": 6, "delay": 0.3, "delay_ms": 5, "sites": ["head"]})}
+
+    def case(s):
+        au = importlib.import_module(f"{s.pkg}.autoscaler")
+        cfg = s.config.GlobalConfig
+        head, address = _head(s, tmp_path, _env())
+        scaler = None
+        try:
+            gpu = {"num_tpus": 0} if s.pkg == "ray_tpu" else {"num_gpus": 0}
+            s.rt.init(num_cpus=0, worker_mode="thread", address=address,
+                      **gpu)
+            cfg.set("autoscaler_launch_grace_s", 30.0)
+            scaler = au.ClusterAutoscaler(
+                address,
+                [au.NodeTypeConfig("base", {"CPU": 2}, min_workers=1,
+                                   max_workers=1)],
+                provider=au.LocalSubprocessProvider(
+                    address, worker_mode="thread", env=_env(**chaos_env)),
+                idle_timeout_s=3600.0, update_interval_s=0.5)
+            summ = scaler.summary()
+            events = [e for e in summ["scale_events"] if e.get("joined")]
+
+            @s.rt.remote
+            def probe(x):
+                return x + 1
+
+            return (summ["launch_failures"], len(events),
+                    s.rt.get(probe.remote(1), timeout=60))
+        finally:
+            if scaler is not None:
+                scaler.shutdown()
+            s.rt.shutdown()
+            cfg.reset()
+            _stop(head)
+
+    assert twin(case) == ("ok", (0, 1, 2))
+
+
+@pytest.mark.slow
+def test_matrix_headkill_x_scale_up_resumes(tmp_path, monkeypatch):
+    """Cell (head SIGKILL x scale-up): the head dies as the autoscaler's
+    first launch spawns; the provider's bounded retry and the inherited
+    standby list (RAY_TPU_HEAD_ADDRESSES) land the node on the promoted
+    head, parked demand is kept, and the episode completes."""
+    token = "feedface%08x" % (os.getpid() & 0xFFFFFFFF)
+    monkeypatch.setenv("RAY_TPU_CLUSTER_TOKEN", token)
+    monkeypatch.setenv("RAY_TPU_HEAD_CLIENT_TIMEOUT_S", "2.0")
+
+    def case(s):
+        au = importlib.import_module(f"{s.pkg}.autoscaler")
+        cfg = s.config.GlobalConfig
+        env = _env(RAY_TPU_CLUSTER_TOKEN=token,
+                   RAY_TPU_HEAD_STANDBY_PROBE_PERIOD_S="0.2",
+                   RAY_TPU_HEAD_STANDBY_MISSES_TO_PROMOTE="2")
+        state = str(tmp_path / f"{s.pkg}.shared_scale_state.log")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            standby_port = sk.getsockname()[1]
+        procs, scaler = [], None
+        try:
+            primary = subprocess.Popen(
+                [sys.executable, "-m", f"{s.pkg}._private.head_service",
+                 "--port", "0", "--state", state, "--token", token],
+                stdout=subprocess.PIPE, text=True, env=env)
+            procs.append(primary)
+            address = _read_line(primary).strip().rsplit(" ", 1)[-1]
+            standby = subprocess.Popen(
+                [sys.executable, "-m", f"{s.pkg}._private.head_service",
+                 "--port", str(standby_port), "--state", state,
+                 "--token", token, "--standby-of", address],
+                stdout=subprocess.PIPE, text=True, env=env)
+            procs.append(standby)
+            standing = "standing by" in _read_line(standby)
+            addresses = f"{address},127.0.0.1:{standby_port}"
+            env["RAY_TPU_HEAD_ADDRESSES"] = addresses
+            gpu = {"num_tpus": 0} if s.pkg == "ray_tpu" else {"num_gpus": 0}
+            w = s.rt.init(num_cpus=0, worker_mode="thread",
+                          address=addresses, **gpu)
+            cfg.set("autoscaler_launch_retries", 5)
+            cfg.set("autoscaler_launch_backoff_s", 0.3)
+            cfg.set("autoscaler_launch_grace_s", 30.0)
+            prov = au.LocalSubprocessProvider(addresses, worker_mode="thread",
+                                              env=env)
+            real_spawn = prov._spawn
+            fired = []
+
+            def killing_spawn(node_type):
+                if not procs[2:]:
+                    killer = s.chaos.NodeKiller(
+                        [s.chaos.head_kill_target(primary)],
+                        seed=16, interval_s=(0.0, 0.01), max_kills=1)
+                    killer.start()
+                    time.sleep(0.3)
+                    killer.stop()
+                    fired.extend(k for k in killer.kills
+                                 if "error" not in k)
+                proc = real_spawn(node_type)
+                procs.append(proc)
+                return proc
+
+            prov._spawn = killing_spawn
+            scaler = au.ClusterAutoscaler(
+                addresses,
+                [au.NodeTypeConfig("base", {"CPU": 2}, min_workers=0,
+                                   max_workers=1)],
+                provider=prov, idle_timeout_s=3600.0,
+                update_interval_s=0.3)
+
+            @s.rt.remote
+            def work(x):
+                return x + 1
+
+            done = s.rt.get([work.remote(i) for i in range(4)],
+                            timeout=120)
+            summ = scaler.summary()
+            return (standing, bool(fired), done, w.head_client.head_epoch,
+                    summ["managed_nodes"],
+                    any(e.get("joined") for e in summ["scale_events"]))
+        finally:
+            if scaler is not None:
+                scaler.shutdown()
+            s.rt.shutdown()
+            cfg.reset()
+            _stop(*reversed(procs))
+
+    assert twin(case) == ("ok", (True, True, [1, 2, 3, 4], 2, 1, True))

@@ -12,9 +12,6 @@ The process-plane parametrisation of the reference's cluster fixture and
 the cases that kill a node get a cluster of their own and are marked
 slow, as the reference's module is. Every wait is bounded and every
 subprocess is killed in a ``finally``.
-
-Not twinned: ``test_remote_task_env_vars_runtime_env`` (no module of the
-port applies ``runtime_env`` yet; it comes with ``runtime_env.py``).
 """
 
 import importlib
@@ -362,6 +359,33 @@ def test_ray_client_mode_without_nodes_errors():
         assert twin(case, attach=False) == ("ok", True)
     finally:
         _stop(*procs)
+
+
+def test_remote_task_env_vars_runtime_env(clusters):
+    """runtime_env crosses the push: env_vars apply in the node-side
+    execution, and a task without one there does not see them."""
+
+    def case(s):
+        rt = s.rt
+
+        @rt.remote(resources={"n1": 0.1},
+                   runtime_env={"env_vars": {"RTE_PROBE": "crossed"}})
+        def read_env():
+            import os as _os
+
+            return _os.environ.get("RTE_PROBE"), _os.getpid()
+
+        @rt.remote(resources={"n1": 0.1})
+        def read_plain():
+            import os as _os
+
+            return _os.environ.get("RTE_PROBE")
+
+        value, pid = rt.get(read_env.remote(), timeout=T)
+        return value, pid == s.c.node1.pid, rt.get(read_plain.remote(),
+                                                   timeout=T)
+
+    assert twin(case, clusters) == ("ok", ("crossed", True, None))
 
 
 def test_direct_peer_object_pull(clusters):

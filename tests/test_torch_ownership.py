@@ -14,8 +14,9 @@ wait is bounded and every subprocess is killed in a ``finally``.
 
 ``test_unresolvable_foreign_ref_times_out_typed``'s wall-clock bound (the
 get returns within 10 s) is checked as an order of events instead: the
-get raises ``GetTimeoutError`` at its own 2 s timeout. Not twinned:
-``test_dashboard_api_head`` (it waits for ``dashboard.py``).
+get raises ``GetTimeoutError`` at its own 2 s timeout.
+``test_dashboard_api_head`` reads ``/api/head`` from each side's
+dashboard.
 """
 
 import importlib
@@ -353,3 +354,25 @@ def test_head_stats_and_state_surface(heads):
                 summary["head"]["rpc_total"] >= stats["rpc_total"])
 
     assert twin(case, heads) == ("ok", (True,) * 6)
+
+
+def test_dashboard_api_head(heads):
+    """tests/test_ownership.py::test_dashboard_api_head: the dashboard's
+    ``/api/head`` serves the ownership summary with the head's RPC
+    counters."""
+    import json
+    import urllib.request
+
+    def case(s):
+        dashboard = importlib.import_module(f"{s.pkg}.dashboard")
+        dash = dashboard.start_dashboard(port=0)
+        try:
+            with urllib.request.urlopen(dash.url + "/api/head",
+                                        timeout=10) as r:
+                payload = json.loads(r.read())
+            return (payload["ownership_directory"] is True,
+                    "rpc_counts" in payload["head"])
+        finally:
+            dashboard.stop_dashboard()
+
+    assert twin(case, heads) == ("ok", (True, True))
