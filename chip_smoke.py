@@ -614,7 +614,36 @@ non-zero without printing a result. Without a CUDA card, or without the
    the trainer's creation (the parameters on the card, make_train_step),
    the job's step p50 beside the direct loop's, and idle to reaped.
 
-``--only elastic`` runs phase 22 alone, ``--only nodes`` phase 21,
+23. distributed: the multi-process device plane (ray_tpu_torch.parallel.
+   distributed), the flagship at full width and depth (bf16,
+   DIST_BATCH x DIST_LEN = 4 x 2048 global tokens a step). (a) One
+   process: initialize() with no coordinator is a no-op (one process,
+   index 0, the whole batch), and a sum over each tier of
+   make_hybrid_mesh(dcn dp 2, ici tp 2) over 4 virtual shards of the card
+   gives every shard the total, exactly. (b) Two processes on this one
+   card (torch_distributed_worker.py) join over gloo, which a line names
+   (NCCL refuses two ranks on one device), their address, size and rank
+   from the RAY_TPU_* environment variables; each builds
+   make_spmd_train_step on make_mesh(dp=2), whose dp crosses them, and
+   takes DIST_STEPS steps of the default AdamW, then DIST_SGD_STEPS of
+   SGD from fresh weights, on its own rows (host_local_batch_slice) of
+   each global batch. Their losses and every leaf of their shards equal,
+   to DIST_LOSS_TOL and DIST_UPDATE_TOL, the one-process dp-2 mesh over 2
+   virtual shards of the card on the whole batches; each process launches
+   the forward, dQ and dK/dV n_layers times a step on the tensor cores
+   (counted in it, zeroed just before its steps) and imports neither JAX
+   nor ray_tpu. Smoke reading: the step p50 on the host clock, beside the
+   one-process mesh's. (c) Where at least two cards are visible, NCCL
+   with a process per card: the same two jobs (DIST_NCCL_STEPS of AdamW),
+   every loss held to DIST_LOSS_TOL and every leaf to DIST_UPDATE_TOL
+   against one process over every card (peer copies), the same launch
+   and import checks; the flagship's step p50 on one card, in one process
+   over every card and in a process per card over NCCL, and the
+   all-reduce of the 181.7 MB f32 gradient alone (p50 and bus GB/s); with
+   one card a line says (c) did not run.
+
+``--only distributed`` runs phase 23 alone, ``--only elastic`` phase 22,
+``--only nodes`` phase 21,
 ``--only cluster`` phase 20, ``--only process`` phase 19,
 ``--only util`` phase 18,
 ``--only tune`` phase 17, ``--only
@@ -1020,6 +1049,28 @@ ELASTIC_IDLE_S = 4.0
 ELASTIC_REAP_S = 20.0
 ELASTIC_POLL_S = 60.0
 ELASTIC_ACTOR = "flagship_elastic_trainer"
+# Phase 23: the flagship (bf16) over DIST_BATCH x DIST_LEN global tokens a
+# step, in DIST_MICROBATCHES microbatches. Every run takes DIST_STEPS
+# steps in (b), DIST_NCCL_STEPS in (c), of the default AdamW (the first
+# step untimed), then DIST_SGD_STEPS of SGD(DIST_SGD_LR) from fresh
+# weights: AdamW's update hardly changes when every gradient is scaled
+# alike, SGD's scales with it, so a mis-scaled gradient sync shows in the
+# SGD leaves. DIST_ALLREDUCE_ITERS timed all-reduces of the f32 gradient
+# in (c); every wait within DIST_POLL_S. (b)'s two processes and the
+# one-process dp-2 mesh run the same kernels on the same rows and sum the
+# same two gradients (a + b either way), so every loss agrees to
+# DIST_LOSS_TOL (relative) and every f32 leaf to DIST_UPDATE_TOL: a
+# skipped sync moves a leaf by ~lr = 3e-4. (c)'s NCCL sums the n
+# gradients in another order than one process's fold (a + b + c + d
+# left to right): on four H100s its losses came within 1.8e-7 and its
+# leaves within 3.7e-9 of one process's (PERF.md, PR 31), so they are
+# held to the same DIST_LOSS_TOL and DIST_UPDATE_TOL, far below what a
+# skipped or mis-scaled sync moves (a loss by 3e-4, a leaf by 1e-3).
+DIST_BATCH, DIST_LEN, DIST_MICROBATCHES = 4, 2048, 2
+DIST_STEPS, DIST_NCCL_STEPS, DIST_ALLREDUCE_ITERS = 8, 6, 10
+DIST_SGD_STEPS, DIST_SGD_LR = 2, 0.1
+DIST_LOSS_TOL, DIST_UPDATE_TOL = 1e-6, 1e-6
+DIST_POLL_S = 300.0
 
 
 _STARTED = time.perf_counter()
@@ -9504,6 +9555,305 @@ def phase_elastic(dev, card, cfg):
     return result
 
 
+def _dist_tokens(cfg, steps):
+    """Phase 23's global batches: [steps, DIST_BATCH, DIST_LEN + 1] on the
+    host, from a seed."""
+    rng = np.random.default_rng(SEED + 23)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (steps, DIST_BATCH, DIST_LEN + 1)))
+
+
+def _dist_leaves(shards):
+    """Every shard's f32 leaves on the host, by "<shard>/<path>" (the
+    names torch_distributed_worker.py writes)."""
+    import torch_distributed_worker as worker
+
+    return {f"{j}/{path}": leaf.detach().cpu().numpy()
+            for j, tree in shards for path, leaf in worker._flat(tree)}
+
+
+def _dist_steps(step, tokens, rows, dev, steps):
+    """``steps`` steps on ``rows`` of each global batch: (losses, the
+    seconds of each step, host clock, the card synchronised)."""
+    losses, secs = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = tokens[i, rows].to(dev)
+        losses.append(step(batch[:, :-1], batch[:, 1:]).item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def _dist_jobs(cfg, processes, steps):
+    """The step jobs of phase 23's workers (torch_distributed_worker.py):
+    ``steps`` steps of the default AdamW with the launches counted, then
+    DIST_SGD_STEPS of SGD, each on make_mesh(dp=processes) from the seed's
+    weights."""
+    base = {"kind": "step", "cfg": _cfg_spec(cfg), "mesh": {"dp": processes},
+            "init_seed": SEED, "microbatches": DIST_MICROBATCHES}
+    return [dict(base, name="adamw", optimizer="default", steps=steps,
+                 counts=True),
+            dict(base, name="sgd", optimizer="sgd", lr=DIST_SGD_LR,
+                 steps=DIST_SGD_STEPS, counts=True)]
+
+
+def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0):
+    """Phase 23's worker processes (torch_distributed_worker.py), one for
+    each entry of ``ids`` (its cards), over ``backend``: _dist_jobs, then,
+    given ``allreduce_elements``, DIST_ALLREDUCE_ITERS timed all-reduces
+    of that many f32. Returns (each process's report, each one's leaves
+    by job); every wait within DIST_POLL_S, every process killed on the
+    way out."""
+    import torch_distributed_worker as worker
+
+    jobs = _dist_jobs(cfg, len(ids), steps)
+    if allreduce_elements:
+        jobs.append({"kind": "allreduce", "elements": allreduce_elements,
+                     "iters": DIST_ALLREDUCE_ITERS})
+    tokens = _dist_tokens(cfg, steps).numpy()
+    outs = worker.launch(jobs, tmp, processes=len(ids), backend=backend,
+                         local_device_ids=ids,
+                         arrays={"tokens": tokens[:, :, :-1],
+                                 "targets": tokens[:, :, 1:]},
+                         timeout_s=DIST_POLL_S)
+    reports, leaves = [], []
+    for out in outs:
+        r = {"rank": int(out["process_index"]),
+             "devices": out["devices"].tolist(), "backend": backend,
+             "jax_imported": bool(out["jax_imported"]),
+             "ray_tpu_imported": bool(out["ray_tpu_imported"])}
+        mine = {}
+        for job in ("adamw", "sgd"):
+            r[job] = {"local_indices": out[f"{job}/local_indices"].tolist(),
+                      "losses": out[f"{job}/losses"].tolist(),
+                      "step_s": out[f"{job}/seconds"].tolist(),
+                      "build_s": float(out[f"{job}/build_s"]),
+                      "counts": json.loads(str(out[f"{job}/counts"]))}
+            mine[job] = {k.split("/", 1)[1]: v for k, v in out.items()
+                         if k.startswith(job + "/")
+                         and k.split("/")[1].isdigit()}
+        if allreduce_elements:
+            r["allreduce"] = {"bytes": 4 * allreduce_elements,
+                              "elements": allreduce_elements,
+                              "s": out["allreduce/seconds"].tolist(),
+                              "exact": bool(out["allreduce/exact"])}
+        reports.append(r)
+        leaves.append(mine)
+    return reports, leaves
+
+
+def _dist_one_process(cfg, devices, steps, sgd=False):
+    """The oracle: the flagship's step (the default AdamW, or SGD) on
+    make_mesh(dp=len(devices)) in this process over the whole of each
+    batch: (losses, step seconds, shards)."""
+    from ray_tpu_torch.models import init_params, make_spmd_train_step
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(dp=len(devices)), devices=devices)
+    step, _, shards = make_spmd_train_step(
+        cfg, mesh, init_params(cfg, SEED, device=devices[0]),
+        optimizer=((lambda ls: torch.optim.SGD(ls, lr=DIST_SGD_LR))
+                   if sgd else None),
+        n_microbatches=DIST_MICROBATCHES)
+    losses, secs = _dist_steps(step, _dist_tokens(cfg, steps),
+                               slice(None), devices[0], steps)
+    return losses, secs, shards
+
+
+def _dist_oracle(cfg, devices, steps):
+    """Both jobs' oracles on ``devices``: per job, (losses, step seconds,
+    every shard's leaves)."""
+    out = {}
+    for job, n, sgd in (("adamw", steps, False),
+                        ("sgd", DIST_SGD_STEPS, True)):
+        losses, secs, shards = _dist_one_process(cfg, devices, n, sgd)
+        out[job] = (losses, secs, _dist_leaves(enumerate(shards)))
+        del shards
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_check(tag, cfg, reports, leaves, oracle, loss_tol, leaf_tol,
+                fails):
+    """Holds each process of ``reports`` against the one-process
+    ``oracle`` job by job: every loss to ``loss_tol`` (relative) and
+    every leaf of its shards to ``leaf_tol`` (absolute), its launches
+    (forward, dQ and dK/dV n_layers times a step on the tensor cores), its
+    shard (its rank) and its imports. Returns per job the largest errors
+    and how many leaf elements differ by more than 1e-7 .. 1e-4."""
+    per_step = _want_counts("wgmma", cfg.n_layers, cfg.n_layers)
+    errs = {}
+    for job, (want, _, ref) in oracle.items():
+        leaf_err, loss_err, beyond = 0.0, 0.0, [0, 0, 0, 0]
+        for r, mine in zip(reports, leaves):
+            got, rj = mine[job], r[job]
+            if sorted(got) != sorted(k for k in ref if int(k.split(
+                    "/")[0]) in rj["local_indices"]):
+                fails.append(f"{tag} rank {r['rank']} {job}: "
+                             f"{len(got)} leaves")
+            for k, v in got.items():
+                d = np.abs(v - ref[k])
+                leaf_err = max(leaf_err, float(d.max()))
+                beyond = [b + int((d > t).sum()) for b, t in
+                          zip(beyond, (1e-7, 1e-6, 1e-5, 1e-4))]
+            err = max(abs(g - w) / abs(w)
+                      for g, w in zip(rj["losses"], want))
+            loss_err = max(loss_err, err)
+            steps = len(rj["losses"])
+            counts = {k: v / steps for k, v in rj["counts"].items()}
+            rj.update(loss_err=err, launches_per_step=counts)
+            if (not err <= loss_tol or counts != per_step
+                    or r["jax_imported"] or r["ray_tpu_imported"]
+                    or rj["local_indices"] != [r["rank"]]
+                    or len(rj["losses"]) != len(want)):
+                fails.append(f"{tag} rank {r['rank']} {job}: loss err "
+                             f"{err}, launches {counts} != {per_step}, "
+                             f"shards {rj['local_indices']}, jax "
+                             f"{r['jax_imported']}")
+        errs[job] = {"loss_err": loss_err, "update_err": leaf_err,
+                     "elements_beyond_1e-7_1e-6_1e-5_1e-4": beyond,
+                     "loss_tol": loss_tol, "update_tol": leaf_tol}
+        if not leaf_err <= leaf_tol or not all(np.isfinite(want)):
+            fails.append(f"{tag} {job}: leaf err {leaf_err} > {leaf_tol}, "
+                         f"losses {want}")
+    return errs
+
+
+def phase_distributed(dev, card, cfg):
+    """Phase 23 (see the module docstring): the multi-process device
+    plane."""
+    from ray_tpu_torch import collective as tops
+    from ray_tpu_torch.parallel import (
+        HybridMeshConfig,
+        distributed,
+        make_hybrid_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    fails, res = [], {"card": card}
+    # (a) One process: initialize() is a no-op; a sum over each tier of
+    # the hybrid mesh over 4 virtual shards of the card.
+    distributed.initialize()
+    a = {"is_initialized": distributed.is_initialized(),
+         "process_count": distributed.process_count(),
+         "process_index": distributed.process_index(),
+         "batch_slice": list(distributed.host_local_batch_slice(
+             DIST_BATCH))}
+    mesh = make_hybrid_mesh(HybridMeshConfig(dcn={"dp": 2},
+                                             ici={"tp": 2}),
+                            devices=[dev] * 4)
+    x = torch.arange(4 * 8, dtype=torch.float32, device=dev).reshape(4, 8)
+    got = tops.allreduce(tops.allreduce(list(x.split(1)), mesh, "tp"),
+                         mesh, "dp")
+    a.update(axis_names=list(mesh.axis_names),
+             spans_processes=mesh.spans_processes,
+             tier_sums_exact=all(bool((g == x.sum(0, keepdim=True)).all())
+                                 for g in got))
+    distributed.shutdown()
+    a["after_shutdown"] = distributed.is_initialized()
+    res["a"] = a
+    if a != {"is_initialized": True, "process_count": 1, "process_index": 0,
+             "batch_slice": [0, DIST_BATCH], "axis_names": ["dp", "tp"],
+             "spans_processes": False, "tier_sums_exact": True,
+             "after_shutdown": False}:
+        fails.append(f"(a) {a}")
+    # (b) Two processes on this one card over gloo, dp 2 across them,
+    # against the one-process dp-2 mesh over 2 virtual shards of the card.
+    emit({"distributed_b_backend": "gloo",
+          "why": "NCCL refuses two ranks on one device, so the two "
+                 "processes on the one card meet over gloo; NCCL runs in "
+                 "(c), a process per card"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        oracle = _dist_oracle(cfg, [dev, dev], DIST_STEPS)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reports, leaves = _dist_run(cfg, [[0], [0]], "gloo", DIST_STEPS,
+                                    tmp)
+        run_s = time.perf_counter() - t0
+        b = {"one_process_s": one_s, "two_processes_s": run_s,
+             "losses_one_process": {j: o[0] for j, o in oracle.items()},
+             "reports": reports,
+             "errors": _dist_check("(b)", cfg, reports, leaves, oracle,
+                                   DIST_LOSS_TOL, DIST_UPDATE_TOL, fails),
+             "step_p50_ms": {
+                 "two_processes_gloo": _p50(
+                     [s for r in reports
+                      for s in r["adamw"]["step_s"][1:]]) * 1e3,
+                 "one_process_two_virtual_shards": _p50(
+                     oracle["adamw"][1][1:]) * 1e3}}
+        del oracle, leaves
+        res["b"] = b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (c) NCCL, a process per card.
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit({"distributed_c": "skipped", "why": f"{n} CUDA card visible; "
+              f"NCCL between processes needs a card each, so (c) runs "
+              f"where at least two cards are"})
+        res["c"] = None
+    else:
+        res["c"] = _dist_nccl(cfg, [torch.device("cuda", i)
+                                    for i in range(n)], fails)
+    emit({"phase": "distributed", "results": res,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if fails:
+        raise AssertionError(f"phase 23: {fails}")
+    b = res["b"]
+    emit({"distributed_step_smoke_reading": "b",
+          "tokens_per_step": DIST_BATCH * DIST_LEN,
+          "step_p50_ms_host_clock": b["step_p50_ms"], "card": card})
+    if res["c"] is not None:
+        emit({"distributed_step_smoke_reading": "c",
+              **{k: res["c"][k] for k in (
+                  "cards", "step_p50_ms", "allreduce", "errors")},
+              "tokens_per_step": DIST_BATCH * DIST_LEN, "card": card})
+    return res
+
+
+def _dist_nccl(cfg, cards, fails, backend="nccl"):
+    """Phase 23 (c): the flagship's step p50 on one card, in one process
+    over the n ``cards`` (peer copies), and in n processes over NCCL (one
+    card each), whose losses and leaves are held against the one process
+    over the n cards; and the all-reduce of its f32 gradient alone."""
+    n = len(cards)
+    _, one_s, _ = _dist_one_process(cfg, cards[:1], DIST_NCCL_STEPS)
+    torch.cuda.empty_cache()
+    oracle = _dist_oracle(cfg, cards, DIST_NCCL_STEPS)
+    elements = sum(v.size for k, v in oracle["adamw"][2].items()
+                   if k.startswith("0/"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        reports, leaves = _dist_run(cfg, [[i] for i in range(n)], backend,
+                                    DIST_NCCL_STEPS, tmp,
+                                    allreduce_elements=elements)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ar = reports[0]["allreduce"]
+    ar_s = _p50([s for r in reports for s in r["allreduce"]["s"]])
+    c = {"cards": n,
+         "losses_one_process_n_cards": {j: o[0] for j, o in oracle.items()},
+         "reports": reports,
+         "errors": _dist_check("(c)", cfg, reports, leaves, oracle,
+                               DIST_LOSS_TOL, DIST_UPDATE_TOL, fails),
+         "step_p50_ms": {
+             "one_card": _p50(one_s[1:]) * 1e3,
+             "one_process_n_cards_peer_copies": _p50(
+                 oracle["adamw"][1][1:]) * 1e3,
+             "n_processes_nccl": _p50([s for r in reports
+                                       for s in r["adamw"]["step_s"][1:]])
+             * 1e3},
+         "allreduce": {"bytes": ar["bytes"], "p50_ms": ar_s * 1e3,
+                       "bus_GBps": ar["bytes"] * 2 * (n - 1) / n / ar_s
+                       / 1e9}}
+    if not all(r["allreduce"]["exact"] for r in reports):
+        fails.append("(c) the timed all-reduce is not exact")
+    return c
+
+
 def _deciles_ms(xs):
     """p10, p50 and p90 of ``xs`` seconds, in ms (nearest rank)."""
     xs = sorted(xs)
@@ -9541,7 +9891,7 @@ def _bwd_brief(tb, kind):
 
 def _run_only(name, armed, dev, card):
     """One phase alone (``--only``), its kernels built at first use:
-    ``elastic`` is phase 22, ``nodes`` phase 21, ``cluster`` phase 20,
+    ``distributed`` is phase 23, ``elastic`` phase 22, ``nodes`` phase 21, ``cluster`` phase 20,
     ``process`` phase 19, ``util`` phase 18, ``tune`` phase 17,
     ``data`` phase 16,
     ``observe`` phase 15; ``rl`` is phase 12, with ``armed`` under the
@@ -9574,6 +9924,9 @@ def _run_only(name, armed, dev, card):
         return
     if name == "elastic":
         phase_elastic(dev, card, TransformerConfig())
+        return
+    if name == "distributed":
+        phase_distributed(dev, card, TransformerConfig())
         return
     rec = flight.install(profile=True) if armed else None
     try:
@@ -9615,9 +9968,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive ray_tpu_torch on one "
                                              "card (module docstring).")
     ap.add_argument("--only",
-                    choices=("elastic", "nodes", "cluster", "process",
-                             "util", "tune", "data", "observe", "rl"),
-                    help="run one phase alone: 22 (elastic), 21 (nodes), "
+                    choices=("distributed", "elastic", "nodes", "cluster",
+                             "process", "util", "tune", "data", "observe",
+                             "rl"),
+                    help="run one phase alone: 23 (distributed), "
+                         "22 (elastic), 21 (nodes), "
                          "20 (cluster), "
                          "19 (process), "
                          "18 (util), 17 (tune), 16 (data), 15 (observe) or "
@@ -9683,6 +10038,7 @@ def main(argv=None) -> int:
     cluster = phase_cluster(dev, card, flagship)
     nodes = phase_nodes(dev, card, flagship)
     elastic = phase_elastic(dev, card, flagship)
+    dist = phase_distributed(dev, card, flagship)
     # K1/K3/K4 launches per sharded step by variant (phase 11), per mesh
     # and dtype.
     launches_spmd = {kind: {} for kind in ("fwd", "dq", "dkv")}
@@ -10040,6 +10396,16 @@ def main(argv=None) -> int:
             row["launches_elastic"] = {
                 "per_job_step": elastic["a"]["launches_per_step"].get(
                     kind.replace("fwd_", ""), 0.0)}
+            # Phase 23's: a step in each of two processes whose dp crosses
+            # them (gloo on the one card; NCCL, a card each, where there
+            # are several).
+            row["launches_distributed"] = {
+                "per_process_step_gloo": [
+                    r["adamw"]["launches_per_step"][kind.replace("fwd_", "")]
+                    for r in dist["b"]["reports"]],
+                "per_process_step_nccl": None if dist["c"] is None else [
+                    r["adamw"]["launches_per_step"][kind.replace("fwd_", "")]
+                    for r in dist["c"]["reports"]]}
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

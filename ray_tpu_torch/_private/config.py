@@ -222,6 +222,9 @@ _D("head_addresses", str, "",
 _D("runtime_env_cache", str, "",
    "Directory for built runtime-env (pip/uv) environments "
    "('' = ~/.cache/ray_tpu_torch/runtime_envs).")
+_D("coordinator_address", str, "",
+   "Multi-process device-plane coordinator address for "
+   "parallel.distributed.initialize ('' = single-process mesh).")
 _D("autoscaler_launch_retries", int, 3,
    "Provider node launches retry up to this many times (jittered "
    "exponential backoff) before the autoscaler surfaces a typed "

@@ -22,15 +22,19 @@ cards its process sees, while the bin-packer plans on the shape a type
 DECLARES, so the provider makes the two meet: a type that declares no
 ``GPU`` is launched with ``CUDA_VISIBLE_DEVICES=""`` (it advertises no
 card, and the router never places card work there); a type that
-declares ``GPU: n`` is launched with the provider's visibility as it is,
-and once it joins the provider reads the count it advertises from the
-head. The count the daemon sees wins, and a launch whose count differs
-from the declared one is a failed attempt: the node is killed before it
-is handed to the autoscaler, and when the attempts run out the launch
-raises ``NodeLaunchFailedError``. A host with more cards than a type
-declares fails the same way (no card is assigned to a node by itself).
-``GPU`` never rides ``--resources``, so no node advertises a card it
-cannot see.
+declares ``GPU: n`` is given n cards of the provider's own through
+``CUDA_VISIBLE_DEVICES``, so that nodes on a many-card host hold
+disjoint cards. The provider's cards are the ``CUDA_VISIBLE_DEVICES``
+list of its ``env`` (else of its own environment), else every card the
+host has; a card is free again once the node that held it has exited
+(reaped, or dead). A launch that finds fewer free cards than its type
+declares is a failed attempt before anything is spawned. Once the node
+joins, the provider reads the count it advertises from the head. The
+count the daemon sees wins, and a launch whose count differs from the
+declared one is a failed attempt: the node is killed before it is
+handed to the autoscaler. When the attempts run out the launch raises
+``NodeLaunchFailedError``. ``GPU`` never rides ``--resources``,
+so no node advertises a card it cannot see.
 """
 
 from __future__ import annotations
@@ -313,13 +317,29 @@ class NodeProvider:
         raise NotImplementedError
 
 
+class _CardsShort(Exception):
+    """Fewer free cards than a node type declares: a failed attempt."""
+
+
+class _Reserved:
+    """The holder of a card between its reservation and its node's
+    launch: held (``poll`` says running)."""
+
+    @staticmethod
+    def poll():
+        return None
+
+
+_RESERVED = _Reserved()
+
+
 class LocalSubprocessProvider(NodeProvider):
     """Launches genuine ``node_daemon`` OS processes against a head —
     the FakeMultiNodeProvider analogue, except the nodes are real: they
     register with the head, lease tasks, host actors, and die by
-    SIGTERM. A type without ``GPU`` is launched with the card hidden; a
-    node of a type that declares ``GPU`` must advertise that count
-    (module docstring).
+    SIGTERM. A type without ``GPU`` is launched with the cards hidden; a
+    type that declares ``GPU: n`` gets n of the provider's cards and must
+    advertise that count (module docstring).
 
     Launch failures are TYPED: each attempt waits out the launching-
     node grace window (``RAY_TPU_AUTOSCALER_LAUNCH_GRACE_S`` — a slow
@@ -338,8 +358,48 @@ class LocalSubprocessProvider(NodeProvider):
         self.launch_attempts = 0   # every provider launch try
         self.launch_failures = 0   # tries that did not produce a node
         self._count_lock = threading.Lock()   # launches run concurrently
+        self._cards: Optional[List[str]] = None   # _card_pool
+        self._holders: Dict[str, Any] = {}    # card -> the node's process
+
+    def _card_pool(self) -> List[str]:
+        """The cards this provider hands out (module docstring)."""
+        if self._cards is None:
+            import os
+
+            env = self.env if self.env is not None else os.environ
+            visible = env.get("CUDA_VISIBLE_DEVICES")
+            if visible is not None:
+                self._cards = [c.strip() for c in visible.split(",")
+                               if c.strip()]
+            else:
+                import torch
+
+                self._cards = [str(i)
+                               for i in range(torch.cuda.device_count())]
+        return self._cards
+
+    def _take_cards(self, n: int) -> List[str]:
+        """Up to n free cards, reserved until ``_hold`` hands them to the
+        node's process (or ``None``: free again)."""
+        with self._count_lock:
+            free = [c for c in self._card_pool()
+                    if c not in self._holders
+                    or self._holders[c].poll() is not None][:n]
+            for c in free:
+                self._holders[c] = _RESERVED
+            return free
+
+    def _hold(self, cards: List[str], proc) -> None:
+        with self._count_lock:
+            for c in cards:
+                if proc is None:
+                    del self._holders[c]
+                else:
+                    self._holders[c] = proc
 
     def _spawn(self, node_type: "NodeTypeConfig"):
+        """The node's daemon, seeing cards of its own (``_CardsShort``
+        before anything is spawned when too few are free)."""
         import json
         import os
         import subprocess
@@ -347,15 +407,20 @@ class LocalSubprocessProvider(NodeProvider):
 
         res = dict(node_type.resources)
         cpus = int(res.pop("CPU", 1))
-        gpus = res.pop("GPU", 0)
+        need = int(res.pop("GPU", 0))
+        cards = self._take_cards(need) if need else []
+        if len(cards) < need:
+            self._hold(cards, None)
+            raise _CardsShort(f"a node launched on the {len(cards)} free "
+                              f"card(s) advertises GPU {len(cards)} where "
+                              f"its type declares {need}")
         cmd = [sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
                "--address", self.address, "--num-cpus", str(cpus),
                "--resources", json.dumps(res)]
         if self.worker_mode:
             cmd += ["--worker-mode", self.worker_mode]
         env = dict(self.env if self.env is not None else os.environ)
-        if not gpus:
-            env["CUDA_VISIBLE_DEVICES"] = ""
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
         # Standby list inheritance: a daemon launched mid-failover (or
         # alive across one) must know every head it may need to dial —
         # the provider's own address list (which may already be
@@ -377,8 +442,14 @@ class LocalSubprocessProvider(NodeProvider):
             env[tracing.ENV_PARENT] = tracing.encode_cold_start_parent(ctx)
         else:
             env.pop(tracing.ENV_PARENT, None)
-        return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
-                                env=env)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                    env=env)
+        except BaseException:
+            self._hold(cards, None)
+            raise
+        self._hold(cards, proc)
+        return proc
 
     @staticmethod
     def _read_join_line(proc, grace_s: float) -> Optional[str]:
@@ -445,26 +516,32 @@ class LocalSubprocessProvider(NodeProvider):
         for attempt in range(attempts):
             with self._count_lock:
                 self.launch_attempts += 1
-            proc = self._spawn(node_type)
-            line = self._read_join_line(proc, grace)
-            if line is not None:
-                client_id = line.strip().rsplit(" ", 1)[-1]
-                mismatch = self._gpu_mismatch(client_id, declared)
-                if mismatch is None:
-                    return {"proc": proc, "client_id": client_id}
-                last = mismatch
+            try:
+                proc = self._spawn(node_type)
+            except _CardsShort as short:
+                proc, last = None, str(short)
             else:
-                rc = proc.poll()
-                last = (f"daemon exited rc={rc} before joining" if rc
-                        is not None else
-                        f"no join within the {grace:.0f}s launch grace")
+                line = self._read_join_line(proc, grace)
+                if line is not None:
+                    client_id = line.strip().rsplit(" ", 1)[-1]
+                    mismatch = self._gpu_mismatch(client_id, declared)
+                    if mismatch is None:
+                        return {"proc": proc, "client_id": client_id}
+                    last = mismatch
+                else:
+                    rc = proc.poll()
+                    last = (f"daemon exited rc={rc} before joining" if rc
+                            is not None else
+                            f"no join within the {grace:.0f}s launch "
+                            f"grace")
             with self._count_lock:
                 self.launch_failures += 1
-            proc.kill()
-            try:
-                proc.wait(timeout=5)
-            except Exception:  # noqa: BLE001 — unreaped zombie at worst
-                pass
+            if proc is not None:
+                proc.kill()
+                try:
+                    proc.wait(timeout=5)
+                except Exception:  # noqa: BLE001 — unreaped zombie at worst
+                    pass
             log.warning("node launch attempt %d/%d for type %r failed "
                         "(%s); %s", attempt + 1, attempts,
                         node_type.name, last,

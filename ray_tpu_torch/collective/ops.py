@@ -16,12 +16,33 @@ there with ``.to(device, copy=True)``: on one device a copy, across GPUs
 a peer copy. The reductions run on a group's first shard's device in
 shard order.
 
+A mesh that spans processes (``parallel.distributed``) takes the list of
+this process's shards, in the mesh's flat order. A group whose members
+all live here runs as above. ``allreduce``, ``allgather``,
+``reducescatter`` and ``broadcast`` also take groups that cross
+processes: first the members held here are combined onto the group's
+first local shard, as above; then ``torch.distributed`` carries the
+combined value between the group's processes, over a process group made
+for that set of processes, on this process's first device of the mesh;
+then the result goes to each local member. Results keep ``lax``'s
+row-major order, which is process-major. ``reducescatter`` is an
+all-reduce followed by each member's block. Gloo has only ``all_reduce``
+and ``broadcast`` for CUDA tensors, so on gloo an ``allgather`` of CUDA
+tensors is an all-reduce of each process's block placed in zeros.
+``permute``, ``send_recv`` and ``all_to_all`` across processes raise
+(ROADMAP A.7).
+
 Every op is built of differentiable tensor operations (``.to``, sums,
 ``cat``, ``chunk``), so under autograd its backward is the transpose
 that ``jax`` gives its ``lax`` counterpart: ``allreduce``'s is an
 ``allreduce`` of the cotangents delivered to every member, ``permute``'s
 the inverse permutation and ``all_to_all``'s the inverse exchange
-(``tests/test_torch_parallel.py`` holds each against ``jax.grad``).
+(``tests/test_torch_parallel.py`` holds each against ``jax.grad``). The
+step across processes is a ``torch.autograd.Function`` whose backward is
+the same transpose over ``torch.distributed``; it needs one device in
+each process (a card, or CPU shards), so that every process runs the
+backward's exchanges in one order, and raises otherwise (the training
+step syncs its gradients outside autograd).
 
 ``permute`` and ``send_recv`` keep ``ppermute``'s rule: a shard that
 receives nothing holds zeros.
@@ -34,7 +55,9 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ray_tpu_torch.parallel import distributed
 from ray_tpu_torch.parallel.mesh import Mesh
 
 AxisName = Union[str, Sequence[str]]
@@ -64,14 +87,14 @@ def axis_indices(mesh: Mesh, axis: AxisName) -> List[int]:
     """Every shard's position along ``axis`` (a tuple of names: row-major
     over them), in the order of ``mesh.devices.flat``: what
     ``lax.axis_index`` gives each shard of a ``shard_map`` over the whole
-    mesh."""
+    mesh. Of a mesh that spans processes, this process's shards'."""
     axis_size(mesh, axis)
     coords = np.indices(mesh.devices.shape).reshape(mesh.devices.ndim, -1)
     index = np.zeros(mesh.size, dtype=np.int64)
     for a in _names(axis):
         k = mesh.axis_names.index(a)
         index = index * mesh.devices.shape[k] + coords[k]
-    return index.tolist()
+    return index[mesh.local_indices].tolist()
 
 
 def groups(mesh: Mesh, axis: AxisName) -> List[List[int]]:
@@ -86,22 +109,185 @@ def groups(mesh: Mesh, axis: AxisName) -> List[List[int]]:
     return flat.transpose(others + ks).reshape(-1, n).tolist()
 
 
+# op(parts, pos, n, cross): the members of one group of n held here
+# (``parts``, at positions ``pos`` of the group), with ``cross`` None when
+# the whole group lives in this process, else its ``_Cross``.
+GroupOp = Callable[[List[torch.Tensor], List[int], int,
+                    Optional["_Cross"]], List[torch.Tensor]]
+
+
 def _per_group(xs: Sequence[torch.Tensor], mesh: Mesh, axis: AxisName,
-               op: Callable[[List[torch.Tensor]], List[torch.Tensor]]
+               op: GroupOp, local_only: Optional[str] = None
                ) -> List[torch.Tensor]:
     """``op`` on the shards of one group (``xs`` as long as the axis), or
-    on every group of the mesh (``xs`` as long as the mesh)."""
+    on every group of the mesh (``xs`` as long as the mesh, or, of a mesh
+    that spans processes, this process's shards). ``local_only`` names
+    an op that refuses groups across processes."""
     n = axis_size(mesh, axis)
-    if len(xs) == n:
-        return op(list(xs))
-    if len(xs) != mesh.size:
+    if len(xs) == n and not mesh.spans_processes:
+        return op(list(xs), list(range(n)), n, None)
+    if len(xs) != mesh.local_size:
         raise ValueError(f"{len(xs)} shard tensors for axis {axis!r} of "
-                         f"size {n} (or a mesh of {mesh.size})")
-    out: List[Optional[torch.Tensor]] = [None] * mesh.size
-    for g in groups(mesh, axis):
-        for j, r in zip(g, op([xs[j] for j in g])):
-            out[j] = r
+                         f"size {n} (or a mesh of which this process "
+                         f"holds {mesh.local_size})")
+    owner = mesh.processes.reshape(-1)
+    where = {j: i for i, j in enumerate(mesh.local_indices)}
+    gs = groups(mesh, axis)
+    owners = [[int(owner[j]) for j in g] for g in gs]
+    crossing = sorted({tuple(sorted(set(o))) for o in owners
+                       if len(set(o)) > 1})
+    if crossing and local_only:
+        raise NotImplementedError(
+            f"{local_only} over axis {axis!r}, whose groups cross "
+            f"processes, waits for ROADMAP A.7 (across processes: "
+            f"allreduce, allgather, reducescatter, broadcast)")
+    if crossing and torch.is_grad_enabled() and any(
+            x.requires_grad for x in xs) and len(
+            {str(d) for d in mesh.local_devices}) > 1:
+        raise NotImplementedError(
+            f"autograd through a collective across processes with "
+            f"{len({str(d) for d in mesh.local_devices})} devices in a "
+            f"process waits for ROADMAP A.7: the backward's exchanges "
+            f"would run in the order the devices' autograd threads reach "
+            f"them, which differs between processes")
+    # Every process asks for every crossing group's process group, in one
+    # order (distributed.process_group).
+    pgs = {ranks: distributed.process_group(ranks) for ranks in crossing}
+    home = mesh.local_devices[0]
+    out = [None] * len(xs)
+    for g, o in zip(gs, owners):
+        pos = [k for k, j in enumerate(g) if j in where]
+        if not pos:
+            continue
+        cross = (None if len(pos) == n
+                 else _Cross(pgs[tuple(sorted(set(o)))], o, home))
+        for k, r in zip(pos, op([xs[where[g[k]]] for k in pos], pos, n,
+                                cross)):
+            out[where[g[k]]] = r
     return out
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
+def _contiguous(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+class _AllReduce(torch.autograd.Function):
+    """``dist.all_reduce``; the backward all-reduces the cotangent. For
+    max and min, ``ties`` counts the members behind each element of this
+    process's ``x`` that hold it; the cotangent goes to the processes
+    whose ``x`` holds the result, in proportion to their ties, so every
+    member that holds it gets an even share."""
+
+    @staticmethod
+    def forward(ctx, x, pg, op, ties):
+        y = _contiguous(x)
+        dist.all_reduce(y, op=_REDUCE_OPS[op], group=pg)
+        ctx.pg, ctx.op = pg, op
+        if op != "sum":
+            ctx.save_for_backward(x, y, ties)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _contiguous(g)
+        dist.all_reduce(g, group=ctx.pg)
+        if ctx.op != "sum":
+            x, y, ties = ctx.saved_tensors
+            share = (x == y).to(g.dtype) * ties
+            total = _contiguous(share)
+            dist.all_reduce(total, group=ctx.pg)
+            g = g * share / total
+        return g, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Each process's block [k, ...] -> every block in rank order
+    [P * k, ...]; the backward all-reduces the cotangent and keeps this
+    process's block."""
+
+    @staticmethod
+    def forward(ctx, block, pg):
+        n, r, k = dist.get_world_size(pg), dist.get_rank(pg), block.shape[0]
+        ctx.pg, ctx.rows = pg, slice(r * k, (r + 1) * k)
+        if block.is_cuda and dist.get_backend(pg) == "gloo":
+            full = block.new_zeros((n * k,) + tuple(block.shape[1:]))
+            full[ctx.rows] = block
+            dist.all_reduce(full, group=pg)
+            return full
+        outs = [torch.empty_like(block, memory_format=torch.contiguous_format)
+                for _ in range(n)]
+        dist.all_gather(outs, _contiguous(block), group=pg)
+        return torch.cat(outs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _contiguous(g)
+        dist.all_reduce(g, group=ctx.pg)
+        return g[ctx.rows], None
+
+
+class _Broadcast(torch.autograd.Function):
+    """``dist.broadcast`` from global rank ``src``; the backward sums the
+    cotangent onto the source (zeros elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, x, src, pg):
+        y = _contiguous(x)
+        dist.broadcast(y, src=src, group=pg)
+        ctx.src, ctx.pg = src, pg
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _contiguous(g)
+        dist.all_reduce(g, group=ctx.pg)
+        if dist.get_rank() != ctx.src:
+            g = torch.zeros_like(g)
+        return g, None, None
+
+
+class _Cross:
+    """The step of one group across processes: ``owners[k]`` is the
+    process of the group's k-th member, ``pg`` their process group and
+    ``home`` the device this process exchanges on."""
+
+    def __init__(self, pg, owners: List[int], home: torch.device):
+        self.pg, self.owners, self.home = pg, owners, home
+
+    def allreduce(self, x: torch.Tensor, op: str,
+                  ties: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if ties is not None:
+            ties = ties.to(self.home)
+        return _AllReduce.apply(x.to(self.home), self.pg, op,
+                                ties).to(x.device)
+
+    def allgather(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every member's tensor in group order, from this process's
+        members' (in group order)."""
+        ranks = sorted(set(self.owners))
+        k = len(parts)
+        if any(self.owners.count(q) != k for q in ranks):
+            raise ValueError(f"an allgather across processes needs as many "
+                             f"members in each; the group's owners are "
+                             f"{self.owners}")
+        full = _AllGather.apply(
+            torch.stack([p.to(self.home) for p in parts]), self.pg)
+        seen = dict.fromkeys(ranks, 0)
+        rows = []
+        for q in self.owners:
+            rows.append(ranks.index(q) * k + seen[q])
+            seen[q] += 1
+        return [full[r].to(parts[0].device) for r in rows]
+
+    def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """The root member's ``x`` (on its process; elsewhere ``x`` gives
+        only the shape and type)."""
+        return _Broadcast.apply(x.to(self.home), self.owners[root],
+                                self.pg).to(x.device)
 
 
 def _deliver(values: Sequence[torch.Tensor], xs: Sequence[torch.Tensor]
@@ -115,24 +301,36 @@ def _on_first(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [x.to(dev) for x in xs]
 
 
+def _fold(parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
+    """The members' reduction on the first one's device: a sum in order,
+    or ``amax``/``amin``, whose gradient goes evenly to the members that
+    hold the result (as ``jnp.max``'s does)."""
+    parts = _on_first(parts)
+    if op in ("max", "min"):
+        stacked = torch.stack(parts)
+        return stacked.amax(0) if op == "max" else stacked.amin(0)
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = acc + x
+    return acc
+
+
 def allreduce(xs, mesh: Mesh, axis: AxisName, op: str = "sum"
               ) -> List[torch.Tensor]:
     if op not in ("sum", "mean", "max", "min"):
         raise ValueError(f"unsupported reduce op {op!r}")
 
-    def reduce(g):
-        parts = _on_first(g)
-        acc = parts[0]
-        for x in parts[1:]:
-            if op in ("sum", "mean"):
-                acc = acc + x
-            elif op == "max":
-                acc = torch.maximum(acc, x)
-            else:
-                acc = torch.minimum(acc, x)
+    def reduce(parts, pos, n, cross):
+        acc = _fold(parts, op)
+        if cross is not None and op in ("max", "min"):
+            ties = (torch.stack(_on_first(parts)).detach()
+                    == acc.detach()).sum(0).to(acc.dtype)
+            acc = cross.allreduce(acc, op, ties)
+        elif cross is not None:
+            acc = cross.allreduce(acc, "sum")
         if op == "mean":
-            acc = acc / len(g)
-        return _deliver([acc] * len(g), g)
+            acc = acc / n
+        return _deliver([acc] * len(parts), parts)
 
     return _per_group(xs, mesh, axis, reduce)
 
@@ -141,11 +339,13 @@ def allgather(xs, mesh: Mesh, axis: AxisName, *, tiled: bool = True,
               gather_axis: int = 0) -> List[torch.Tensor]:
     """Every shard gets every shard's tensor: concatenated along
     ``gather_axis`` (tiled) or stacked on a new axis there."""
-    def gather(g):
-        parts = _on_first(g)
-        joined = (torch.cat(parts, dim=gather_axis) if tiled
-                  else torch.stack(parts, dim=gather_axis))
-        return _deliver([joined] * len(g), g)
+    def gather(parts, pos, n, cross):
+        every = _on_first(parts)
+        if cross is not None:
+            every = cross.allgather(every)
+        joined = (torch.cat(every, dim=gather_axis) if tiled
+                  else torch.stack(every, dim=gather_axis))
+        return _deliver([joined] * len(parts), parts)
 
     return _per_group(xs, mesh, axis, gather)
 
@@ -154,9 +354,10 @@ def reducescatter(xs, mesh: Mesh, axis: AxisName, *, scatter_axis: int = 0,
                   tiled: bool = True) -> List[torch.Tensor]:
     """The sum, split along ``scatter_axis``: shard j gets block j (tiled),
     or index j of an axis of size n, which it drops (not tiled)."""
-    def scatter(g):
-        n = len(g)
-        total = allreduce(g, mesh, axis)[0]
+    def scatter(parts, pos, n, cross):
+        total = _fold(parts, "sum")
+        if cross is not None:
+            total = cross.allreduce(total, "sum")
         size = total.shape[scatter_axis]
         if tiled:
             if size % n:
@@ -168,7 +369,7 @@ def reducescatter(xs, mesh: Mesh, axis: AxisName, *, scatter_axis: int = 0,
                 raise ValueError(f"untiled scatter axis of size {size} "
                                  f"needs {n} (the axis size)")
             pieces = total.unbind(scatter_axis)
-        return _deliver(pieces, g)
+        return _deliver([pieces[k] for k in pos], parts)
 
     return _per_group(xs, mesh, axis, scatter)
 
@@ -176,23 +377,40 @@ def reducescatter(xs, mesh: Mesh, axis: AxisName, *, scatter_axis: int = 0,
 def broadcast(xs, mesh: Mesh, axis: str, root: int = 0
               ) -> List[torch.Tensor]:
     """Every shard gets the root shard's value."""
-    return _per_group(xs, mesh, axis,
-                      lambda g: _deliver([g[root]] * len(g), g))
+    def bcast(parts, pos, n, cross):
+        if cross is None:
+            value = parts[root]
+        else:
+            # Elsewhere a stand-in of the root's shape, which needs grad
+            # where the members do: every process then runs the backward's
+            # all-reduce.
+            mine = parts[pos.index(root)] if root in pos else \
+                torch.zeros_like(parts[0],
+                                 requires_grad=parts[0].requires_grad)
+            value = cross.broadcast(mine, root)
+        return _deliver([value] * len(parts), parts)
+
+    return _per_group(xs, mesh, axis, bcast)
 
 
-def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
-            ) -> List[torch.Tensor]:
-    """Shard dst gets shard src's value for each (src, dst) pair; a shard
-    that receives nothing holds zeros (``ppermute``)."""
+def _permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]],
+             name: str) -> List[torch.Tensor]:
     perm = [(int(s), int(d)) for s, d in perm]
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"permutation {perm} repeats a source or a "
                          f"destination")
     sent = dict((d, s) for s, d in perm)
-    return _per_group(xs, mesh, axis, lambda g: [
+    return _per_group(xs, mesh, axis, lambda g, pos, n, cross: [
         g[sent[j]].to(x.device, copy=True) if j in sent
-        else torch.zeros_like(x) for j, x in enumerate(g)])
+        else torch.zeros_like(x) for j, x in enumerate(g)], name)
+
+
+def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
+            ) -> List[torch.Tensor]:
+    """Shard dst gets shard src's value for each (src, dst) pair; a shard
+    that receives nothing holds zeros (``ppermute``)."""
+    return _permute(xs, mesh, axis, perm, "permute")
 
 
 def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
@@ -201,8 +419,7 @@ def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
     order: concatenated along ``concat_axis`` (tiled), or, for a split
     axis of size n, which each piece drops, stacked on a new axis at
     ``concat_axis`` (not tiled)."""
-    def exchange(g):
-        n = len(g)
+    def exchange(g, pos, n, cross):
         parts = _on_first(g)
         if tiled:
             blocks = [torch.chunk(x, n, dim=split_axis) for x in parts]
@@ -219,11 +436,11 @@ def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
                                dim=concat_axis) for j in range(n)]
         return _deliver(out, g)
 
-    return _per_group(xs, mesh, axis, exchange)
+    return _per_group(xs, mesh, axis, exchange, "all_to_all")
 
 
 def send_recv(xs, mesh: Mesh, axis: str, src: int, dst: int
               ) -> List[torch.Tensor]:
     """Point to point: dst receives src's value; everyone else holds
     zeros (``ppermute``'s rule)."""
-    return permute(xs, mesh, axis, [(src, dst)])
+    return _permute(xs, mesh, axis, [(src, dst)], "send_recv")

@@ -52,7 +52,9 @@ Differences from the JAX reference, none of which change results:
   losses gives each shard the gradient the reference's ``jax.grad``
   gives it inside ``shard_map``. Its state lives in place, as in
   ``make_train_step``: see its docstring for how its signature differs
-  from the reference's.
+  from the reference's. On a mesh that spans processes
+  (``parallel.distributed``) each process runs this program over its own
+  shards, and the gradient sync and the loss's mean cross processes.
 - ``_attention_dense`` follows one rule, ``_attention_route`` of
   ``ops/flash_attention.py``: a head_dim that is no multiple of 8, or
   fewer than 8 tokens, takes the dense grouped einsum, as the reference's
@@ -109,8 +111,8 @@ from ray_tpu_torch.parallel.pipeline import pipeline_spmd
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.parallel.sharding import (
     ShardingRules,
+    shard_host_local,
     shard_params,
-    shard_tensor,
 )
 
 
@@ -673,6 +675,14 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
     reference's default. tokens and targets are the global [B, S]
     batch; the loss returned is the shards' mean (detached).
 
+    On a mesh that spans processes (``parallel.distributed``) every
+    process builds the step alike: ``shards`` are this process's, and
+    each process passes ``step`` only its rows of the global batch
+    (``distributed.host_local_batch_slice``). The loss is the global
+    mean and each shard updates as under the one-process step over the
+    whole batch: only the gradient sync and the loss's mean cross
+    processes, over ``dp``, the one axis that may.
+
     Raises ``ValueError`` where the reference does: here for
     ``n_layers % pp``, heads % tp and experts % ep; at the step for a
     local batch that the microbatches do not divide (and for a batch or
@@ -754,8 +764,9 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
         return losses
 
     def step(tokens, targets):
-        toks = [t.long() for t in shard_tensor(tokens, mesh, DATA_SPEC)]
-        tgts = [t.long() for t in shard_tensor(targets, mesh, DATA_SPEC)]
+        toks = [t.long() for t in shard_host_local(tokens, mesh, DATA_SPEC)]
+        tgts = [t.long()
+                for t in shard_host_local(targets, mesh, DATA_SPEC)]
         opt.zero_grad(set_to_none=True)
         losses = local_losses(toks, tgts)
         first = losses[0].device

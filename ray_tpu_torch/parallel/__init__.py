@@ -5,8 +5,8 @@ per-shard tensors (sharding.py), and the strategies of the multi-axis
 training step over per-shard tensor lists: ring attention
 (ring_attention.py) and Ulysses (ulysses.py) over sp, MoE dispatch and
 combine over ep (moe.py) and the GPipe pipeline over pp (pipeline.py).
-The reference's multi-host bootstrap (``distributed.py``) waits for
-transport across hosts (ROADMAP A.7).
+``distributed.py`` joins several processes into one device plane
+(``torch.distributed``, NCCL between cards) whose meshes span them.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -22,6 +22,7 @@ from ray_tpu_torch.parallel.mesh import (
 from ray_tpu_torch.parallel.sharding import (
     ShardingRules,
     kv_cache_specs,
+    shard_host_local,
     shard_params,
     shard_tensor,
 )
@@ -33,9 +34,15 @@ from ray_tpu_torch.parallel.moe import (
     top1_router,
 )
 from ray_tpu_torch.parallel.pipeline import pipeline_spmd
+from ray_tpu_torch.parallel import distributed
+from ray_tpu_torch.parallel.distributed import (
+    HybridMeshConfig,
+    make_hybrid_mesh,
+)
 
 __all__ = [
     "AXES",
+    "HybridMeshConfig",
     "Mesh",
     "MeshConfig",
     "ShardingRules",
@@ -45,9 +52,11 @@ __all__ = [
     "make_mesh",
     "mesh_context",
     "mesh_shape",
+    "make_hybrid_mesh",
     "moe_dispatch_combine",
     "pipeline_spmd",
     "ring_attention",
+    "shard_host_local",
     "shard_params",
     "shard_tensor",
     "top1_router",

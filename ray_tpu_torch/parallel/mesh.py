@@ -16,6 +16,17 @@ numpy object array of ``torch.device`` with named axes, driven by one
 process; ``ray_tpu_torch.collective`` exchanges per-shard tensors between
 its devices.
 
+Several processes (``parallel.distributed.initialize``): every process
+builds the same mesh over every process's devices, laid out
+process-major as ``jax.devices()`` orders them, so the outermost axes
+cross processes. ``Mesh.processes`` records which process owns each
+entry; each process holds the shards of its own entries, and every
+per-shard list (``shard_params``, ``shard_tensor``, the collectives, the
+training step's ``shards``) holds this process's shards only, in the
+mesh's flat order. Only ``dp`` may cross processes
+(``CROSS_PROCESS_AXES``): the reference lets ``dp`` and ``pp`` cross
+DCN, and the port's pipeline is still one-controller (ROADMAP A.7).
+
 Default devices are the visible CUDA devices. Virtual shards are never
 made implicitly: ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n`` (read only here)
 gives n shards of the first CUDA device (a CPU shard only where the
@@ -39,6 +50,8 @@ import numpy as np
 import torch
 
 AXES = ("dp", "fsdp", "pp", "tp", "sp", "ep")
+# The axes a mesh may lay across processes (module docstring).
+CROSS_PROCESS_AXES = ("dp",)
 
 VIRTUAL_DEVICES_ENV = "RAY_TPU_TORCH_VIRTUAL_DEVICES"
 
@@ -48,15 +61,40 @@ _local = threading.local()
 class Mesh:
     """Devices laid out on named axes: ``devices`` is a numpy object array
     of ``torch.device`` whose dimensions are ``axis_names``; ``shape``
-    maps each axis name to its size, as ``jax.sharding.Mesh.shape`` does."""
+    maps each axis name to its size, as ``jax.sharding.Mesh.shape`` does.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``processes`` (same shape, default all 0) is the process that owns
+    each entry, and ``process`` this process's index: ``local_indices``
+    are the flat indices of this process's entries, whose devices it
+    drives (an entry of another process names the device as that process
+    does). An axis along which the owner changes crosses processes, and
+    only ``CROSS_PROCESS_AXES`` may."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 processes: Optional[np.ndarray] = None, process: int = 0):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of {devices.ndim} dimensions cannot "
                              f"take axis names {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.processes = (np.zeros(devices.shape, dtype=np.int64)
+                          if processes is None
+                          else np.asarray(processes, dtype=np.int64))
+        if self.processes.shape != devices.shape:
+            raise ValueError(f"processes of shape {self.processes.shape} "
+                             f"for devices of shape {devices.shape}")
+        self.process = int(process)
+        self.local_indices = np.flatnonzero(
+            self.processes.reshape(-1) == self.process).tolist()
+        for k, a in enumerate(self.axis_names):
+            if a not in CROSS_PROCESS_AXES and np.any(
+                    np.diff(self.processes, axis=k)):
+                raise ValueError(
+                    f"mesh axis {a!r} crosses processes; only "
+                    f"{CROSS_PROCESS_AXES} may (ICI-bound axes must not "
+                    f"cross DCN, and pp across processes waits for "
+                    f"ROADMAP A.7)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -65,6 +103,24 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def spans_processes(self) -> bool:
+        return bool(np.any(self.processes != self.process))
+
+    @property
+    def local_size(self) -> int:
+        return len(self.local_indices)
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """This process's devices, in the mesh's flat order."""
+        return [self.devices.flat[i] for i in self.local_indices]
+
+    def sub(self, index) -> "Mesh":
+        """The sub-mesh at numpy ``index`` (slices keep every axis)."""
+        return Mesh(self.devices[index], self.axis_names,
+                    self.processes[index], self.process)
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along ``axis`` at position 0 of every other axis:
@@ -79,7 +135,9 @@ class Mesh:
         return list(self.devices[tuple(index)])
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
+        procs = (f", processes={self.processes.reshape(-1).tolist()}"
+                 if self.spans_processes else "")
+        return f"Mesh({self.shape}, devices={list(self.devices.flat)}{procs})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,22 +202,38 @@ def make_mesh(
     axes: ``make_mesh(dp=2, tp=4)`` or ``make_mesh(MeshConfig(tp=4))``.
     Devices are laid out as the reference lays them out, ``reshape(sizes)``
     over ``AXES`` with tp/sp/ep innermost, so the axes that exchange most
-    land on adjacent devices."""
+    land on adjacent devices.
+
+    After ``parallel.distributed.initialize`` with several processes,
+    every process calls this alike: ``devices`` (default: the process's
+    own, ``distributed.local_devices()``) are this process's, and the
+    mesh spans every process's devices, process-major (module
+    docstring)."""
+    # distributed imports this module, so it is imported here.
+    from ray_tpu_torch.parallel import distributed
+
     if config is None:
         config = MeshConfig(**axis_sizes) if axis_sizes else MeshConfig()
     elif axis_sizes:
         raise ValueError("pass either a MeshConfig or axis kwargs, not both")
+    multi = distributed.process_count() > 1
     if devices is None:
-        devices = visible_devices()
+        devices = distributed.local_devices() if multi else visible_devices()
         if not devices:
             raise RuntimeError(
                 f"no CUDA device is visible; pass devices= or set "
                 f"{VIRTUAL_DEVICES_ENV}")
     devs = [torch.device(d) for d in devices]
+    processes = None
+    if multi:
+        devs, processes = distributed.global_devices(devs)
     sizes = config.sizes(len(devs))
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(sizes), AXES)
+    if processes is not None:
+        processes = np.asarray(processes).reshape(sizes)
+    return Mesh(arr.reshape(sizes), AXES, processes,
+                distributed.process_index())
 
 
 def mesh_shape(mesh: Mesh) -> dict:

@@ -42,7 +42,7 @@ def stage_mesh(mesh: Mesh, axis_name: str, stage: int) -> Mesh:
     k = mesh.axis_names.index(axis_name)
     index = [slice(None)] * mesh.devices.ndim
     index[k] = slice(stage, stage + 1)
-    return Mesh(mesh.devices[tuple(index)], mesh.axis_names)
+    return mesh.sub(tuple(index))
 
 
 def pipeline_spmd(
@@ -60,7 +60,9 @@ def pipeline_spmd(
     ``acts`` their per-shard lists in its flat order; ``acts'`` keeps each
     activation's structure and shapes). It may hold collectives over that
     sub-mesh's other axes. ``stage_params`` and ``microbatches`` are
-    per-shard lists over the mesh (``mesh.devices.flat`` order); every
+    per-shard lists over the mesh (``mesh.devices.flat`` order; of a
+    mesh that spans processes, this process's shards, ``axis_name``
+    staying inside each process); every
     leaf of a microbatch pytree has a leading axis M, and only stage 0's
     are read. Returns the per-shard list of the last stage's outputs
     stacked over M, delivered to every shard as the reference's masked
@@ -76,6 +78,7 @@ def pipeline_spmd(
                           for mb in microbatches]) for i in range(M)]
         return [_tree_map(lambda *xs: torch.stack(xs), *per)
                 for per in zip(*outs)]
+    devices = mesh.local_devices
     stage_of = np.asarray(cops.axis_indices(mesh, axis_name))
     members = [np.flatnonzero(stage_of == s).tolist() for s in range(n)]
     meshes = [stage_mesh(mesh, axis_name, s) for s in range(n)]
@@ -97,18 +100,21 @@ def pipeline_spmd(
         # The hop to the next stage (ppermute j -> j + 1), active pairs.
         act_in = [None] + [
             None if act_out[s] is None else [
-                _tree_map(lambda a, d=mesh.devices.flat[j]:
-                          a.to(d, copy=True), a)
+                _tree_map(lambda a, d=devices[j]: a.to(d, copy=True), a)
                 for a, j in zip(act_out[s], members[s + 1])]
             for s in range(n - 1)]
     # The last stage's outputs [M, ...] on each of its shards, broadcast
     # along the axis to every shard (the reference's masked psum).
     last = [_tree_map(lambda *xs: torch.stack(xs), *per)
             for per in zip(*results)]
-    out: List[Any] = [None] * mesh.size
+    where = {j: i for i, j in enumerate(mesh.local_indices)}
+    out: List[Any] = [None] * mesh.local_size
     for g in cops.groups(mesh, axis_name):
+        if g[0] not in where:
+            continue                 # a group of another process
+        g = [where[j] for j in g]
         src = last[members[n - 1].index(g[-1])]
         for j in g:
-            out[j] = _tree_map(lambda a, d=mesh.devices.flat[j]:
-                               a.to(d, copy=True), src)
+            out[j] = _tree_map(lambda a, d=devices[j]: a.to(d, copy=True),
+                               src)
     return out

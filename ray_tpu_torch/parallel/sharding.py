@@ -82,24 +82,55 @@ def _block(mesh: Mesh, coord: Tuple[int, ...], entry: MeshAxis
 
 def shard_tensor(x: torch.Tensor, mesh: Mesh, spec: Spec
                  ) -> List[torch.Tensor]:
-    """``x`` cut by ``spec``: one tensor per device of the mesh, in the
-    order of ``mesh.devices.flat``, each a contiguous copy of its block on
-    its device."""
+    """``x`` cut by ``spec``: one tensor per device of this process in the
+    mesh (every device of a one-process mesh), in the order of
+    ``mesh.devices.flat``, each a contiguous copy of its block on its
+    device."""
+    return _cut(x, mesh, spec, rows=None)
+
+
+def shard_host_local(x: torch.Tensor, mesh: Mesh, spec: Spec
+                     ) -> List[torch.Tensor]:
+    """``shard_tensor`` of a global array of which ``x`` holds only this
+    process's rows (dimension 0), as
+    ``distributed.host_local_batch_slice`` gives them: the mesh's
+    processes hold equal slices in process order. Each of this process's
+    shards takes its block of the global array from ``x``; a block that
+    lies outside this process's rows raises. With one process it is
+    ``shard_tensor``."""
+    procs = sorted(set(mesh.processes.reshape(-1).tolist()))
+    return _cut(x, mesh, spec,
+                rows=(procs.index(mesh.process) * x.shape[0],
+                      x.shape[0] * len(procs)))
+
+
+def _cut(x, mesh, spec, rows):
+    """This process's blocks of ``x`` by ``spec``; ``rows`` is None (``x``
+    is the whole array) or (start, total) of the rows of the global
+    array that ``x`` holds."""
     if len(spec) > x.dim():
         raise ValueError(f"spec {spec} has more entries than the "
                          f"{x.dim()}-d array")
     out = []
-    for coord in np.ndindex(*mesh.devices.shape):
+    for flat in mesh.local_indices:
+        coord = np.unravel_index(flat, mesh.devices.shape)
         index = []
         for dim, entry in enumerate(spec):
             i, n = _block(mesh, coord, entry)
-            size = x.shape[dim]
+            start, size = (rows if dim == 0 and rows is not None
+                           else (0, x.shape[dim]))
             if size % n:
                 raise ValueError(
                     f"dimension {dim} of size {size} does not divide "
                     f"{n} shards (spec {spec})")
             step = size // n
-            index.append(slice(i * step, (i + 1) * step))
+            lo = i * step - start
+            if not 0 <= lo <= x.shape[dim] - step:
+                raise ValueError(
+                    f"shard {flat}'s rows [{i * step}, {(i + 1) * step}) "
+                    f"are not among this process's rows [{start}, "
+                    f"{start + x.shape[0]})")
+            index.append(slice(lo, lo + step))
         out.append(x[tuple(index)].to(
             device=mesh.devices[coord], copy=True,
             memory_format=torch.contiguous_format))
@@ -108,8 +139,8 @@ def shard_tensor(x: torch.Tensor, mesh: Mesh, spec: Spec
 
 def shard_params(params: Any, mesh: Mesh, spec_tree: Any) -> List[Any]:
     """Cut a parameter tree by a matching tree of specs (a model's
-    ``param_specs()``): the list of per-shard trees, one per device of the
-    mesh in the order of ``mesh.devices.flat``."""
+    ``param_specs()``): the list of per-shard trees, one per device of
+    this process in the mesh, in the order of ``mesh.devices.flat``."""
     def cut(tree, specs):
         if isinstance(tree, dict):
             return {k: cut(tree[k], specs[k]) for k in tree}
@@ -121,4 +152,4 @@ def shard_params(params: Any, mesh: Mesh, spec_tree: Any) -> List[Any]:
         return tree[j]
 
     pieces = cut(params, spec_tree)
-    return [pick(pieces, j) for j in range(mesh.size)]
+    return [pick(pieces, j) for j in range(mesh.local_size)]

@@ -407,3 +407,67 @@ def test_provider_declared_gpu_meets_the_card_count(monkeypatch, tmp_path):
             hc.close()
         head.kill()
         head.wait(timeout=10)
+
+
+def test_provider_gives_each_card_node_cards_of_its_own(monkeypatch):
+    """On a host of four cards (the provider's ``CUDA_VISIBLE_DEVICES``),
+    each ``GPU: 2`` node gets two cards no other live node holds, through
+    ``CUDA_VISIBLE_DEVICES``; a launch that finds fewer free cards than
+    its type declares is a failed attempt that spawns nothing; a card is
+    free again once its node is reaped (``terminate``) or has died."""
+    from ray_tpu_torch import autoscaler as au
+    from ray_tpu_torch._private.config import GlobalConfig
+    from ray_tpu_torch.exceptions import NodeLaunchFailedError
+
+    pair = au.NodeTypeConfig("pair", {"CPU": 1, "GPU": 2})
+    visible = []
+    real_popen = subprocess.Popen
+
+    def recording_popen(cmd, **kw):
+        visible.append(kw["env"]["CUDA_VISIBLE_DEVICES"])
+        return real_popen([sys.executable, "-c",
+                           "import time; time.sleep(60)"],
+                          stdout=subprocess.PIPE, text=True)
+
+    def advertised(self, client_id, declared):
+        # The daemon advertises the cards it sees.
+        seen = len([c for c in visible[-1].split(",") if c])
+        return None if seen == declared else (
+            f"node advertises GPU {seen} where its type declares "
+            f"{declared:g}")
+
+    monkeypatch.setattr(subprocess, "Popen", recording_popen)
+    monkeypatch.setattr(au.LocalSubprocessProvider, "_read_join_line",
+                        staticmethod(lambda proc, grace:
+                                     f"node joined h:1 as c{proc.pid}\n"))
+    monkeypatch.setattr(au.LocalSubprocessProvider, "_gpu_mismatch",
+                        advertised)
+    GlobalConfig.set("autoscaler_launch_retries", 1)
+    prov = au.LocalSubprocessProvider(
+        "127.0.0.1:1", env={"CUDA_VISIBLE_DEVICES": "0,1,2,3"})
+    handles = []
+    try:
+        handles += [prov.launch(pair), prov.launch(pair)]
+        assert visible == ["0,1", "2,3"]
+        with pytest.raises(NodeLaunchFailedError,
+                           match="advertises GPU 0 where its type "
+                                 "declares 2"):
+            prov.launch(pair)
+        assert len(visible) == 2            # nothing spawned
+        assert (prov.launch_attempts, prov.launch_failures) == (3, 1)
+        prov.terminate(handles[0])          # reaped: 0 and 1 are free
+        handles.append(prov.launch(pair))
+        assert visible[-1] == "0,1"
+        handles[1]["proc"].kill()           # died: 2 and 3 are free
+        handles[1]["proc"].wait(timeout=10)
+        handles.append(prov.launch(pair))
+        assert visible[-1] == "2,3"
+        # A type without GPU sees no card and takes none.
+        handles.append(prov.launch(au.NodeTypeConfig("cpu", {"CPU": 1})))
+        assert visible[-1] == ""
+    finally:
+        GlobalConfig.reset()
+        for h in handles:
+            if h["proc"].poll() is None:
+                h["proc"].kill()
+                h["proc"].wait(timeout=10)

@@ -1,0 +1,412 @@
+"""Parity of the port's multi-process device plane
+(``ray_tpu_torch.parallel.distributed``: the bootstrap, meshes that span
+processes, collectives across processes and the training step whose
+``dp`` crosses them) with the reference, on the CPU.
+
+The one-process twins hold ``tests/test_parallel.py``'s three tests of
+``ray_tpu/parallel/distributed.py`` (the bootstrap, the axis tiers, a
+sum over each tier) against the port on 8 virtual CPU shards, and pin
+ROADMAP C.16 on both sides. The multi-process cases run two worker
+processes (``torch_distributed_worker.py``, which imports no JAX),
+each with 4 CPU shards, joined over gloo through a TCP store on a free
+port; this process runs the reference on its 8-device CPU mesh and hands
+the workers their inputs through files. Every wait is bounded
+(``WORKER_TIMEOUT_S``) and every worker is killed on the way out.
+
+Tolerances: the steps are ``tests/test_torch_spmd.py``'s (f32 on both
+sides, sums ordered otherwise): each loss to LOSS_RTOL = 1e-6 relative,
+every leaf after two SGD(0.1) steps to PARAM_ATOL = 1e-6 and after two
+AdamW steps to ADAM_ATOL = lr / 10, which a sign error, a skipped sync
+or a missing update breaks. The collectives run on integers held as
+floats, so values and gradients are exact.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+from jax import lax
+from jax.sharding import PartitionSpec as P
+
+import ray_tpu.models as jm
+from ray_tpu.parallel import distributed as jdist
+from ray_tpu.parallel.mesh import MeshConfig as JMeshConfig
+from ray_tpu.parallel.mesh import make_mesh as jmake_mesh
+import ray_tpu_torch.collective as tops
+from ray_tpu_torch import models as tm
+from ray_tpu_torch.parallel import distributed as tdist
+from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel.sharding import shard_host_local
+
+import torch_distributed_worker as worker
+from test_torch_spmd import LOSS_RTOL, PARAM_ATOL, _flat, _port_cfg
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+WORKER_TIMEOUT_S = 120.0
+PROCESSES, SHARDS_EACH = 2, 4
+LR_ADAM = 1e-3
+ADAM_ATOL = LR_ADAM / 10
+STEPS, BATCH, LEN = 2, 8, 16
+
+CFG = jm.TransformerConfig(
+    vocab_size=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
+    d_ff=128, dtype=jnp.float32)
+
+STEP_CASES = {
+    "dp2-tp4-sgd": (dict(dp=2, tp=4), "sgd", 1),
+    "dp2-tp4-adamw": (dict(dp=2, tp=4), "adamw", 1),
+    "dp4-tp2-sgd": (dict(dp=4, tp=2), "sgd", 1),
+    "dp4-tp2-adamw": (dict(dp=4, tp=2), "adamw", 1),
+    "dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2),
+}
+COLLECTIVE_MESHES = {"dp2-tp4": dict(dp=2, tp=4), "dp4-tp2": dict(dp=4, tp=2)}
+
+
+def _jax_broadcast(a, root=1):
+    return lax.psum(jnp.where(lax.axis_index("dp") == root, a, 0), "dp")
+
+
+# name -> the lax counterpart. pmax has no transpose rule in jax: its
+# counterpart is the max of an all_gather, whose gradient goes evenly to
+# the members that hold the max, as the port's does.
+JAX_OPS = {
+    "allreduce_dp": lambda a: lax.psum(a, "dp"),
+    "allreduce_dp_tp_mean": lambda a: lax.pmean(a, ("dp", "tp")),
+    "allreduce_dp_max": lambda a: jnp.max(lax.all_gather(a, "dp", axis=0),
+                                          axis=0),
+    "allgather_dp": lambda a: lax.all_gather(a, "dp", axis=0, tiled=True),
+    "allgather_dp_tp_stacked": lambda a: lax.all_gather(
+        a, ("dp", "tp"), axis=0, tiled=False),
+    "reducescatter_dp": lambda a: lax.psum_scatter(
+        a, "dp", scatter_dimension=0, tiled=True),
+    "broadcast_dp_root1": _jax_broadcast,
+    "allreduce_tp": lambda a: lax.psum(a, "tp"),
+    "permute_tp": None,     # built per mesh (the ring over tp)
+}
+def _jax_op(name, tp):
+    if name == "permute_tp":
+        return lambda a: lax.ppermute(a, "tp", [(j, (j + 1) % tp)
+                                                for j in range(tp)])
+    return JAX_OPS[name]
+
+
+def _jmesh(**sizes):
+    return jmake_mesh(JMeshConfig(**sizes), devices=jax.devices("cpu")[:8])
+
+
+# ------------------------------------------------------- one-process twins
+def test_distributed_single_host_bootstrap():
+    """tests/test_parallel.py:141 on both sides: with no coordinator
+    ``initialize()`` is a one-process no-op."""
+    for dist in (jdist, tdist):
+        dist.initialize()
+        assert dist.is_initialized()
+        assert dist.process_count() == 1
+        assert dist.process_index() == 0
+        assert dist.host_local_batch_slice(64) == (0, 64)
+        dist.shutdown()
+        assert not dist.is_initialized()
+
+
+def test_hybrid_mesh_axis_tiers(eight_device_mesh):
+    """tests/test_parallel.py:155: DCN axes outermost, ICI axes inner,
+    an ICI-bound axis on the DCN tier refused, on both sides."""
+    for dist, devices in ((jdist, eight_device_mesh), (tdist, [CPU] * 8)):
+        mesh = dist.make_hybrid_mesh(
+            dist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 2, "sp": 2}),
+            devices=devices)
+        assert mesh.axis_names == ("dp", "tp", "sp")
+        assert dict(mesh.shape) == {"dp": 2, "tp": 2, "sp": 2}
+        with pytest.raises(ValueError, match="must not cross DCN"):
+            dist.make_hybrid_mesh(
+                dist.HybridMeshConfig(dcn={"tp": 2}, ici={"dp": 4}),
+                devices=devices)
+        with pytest.raises(ValueError, match="mesh asks for 4 devices"):
+            dist.make_hybrid_mesh(
+                dist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 2}),
+                devices=devices)
+
+
+def test_hybrid_mesh_runs_collectives(eight_device_mesh):
+    """tests/test_parallel.py:173: a sum over each tier of
+    ``make_hybrid_mesh(dcn dp 2, ici tp 4)``, shard by shard."""
+    x = np.arange(8.0, dtype=np.float32)
+    jmesh = jdist.make_hybrid_mesh(
+        jdist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 4}),
+        devices=eight_device_mesh)
+    want = np.asarray(jax.jit(jax.shard_map(
+        lambda a: lax.psum(lax.psum(a, "tp"), "dp"), mesh=jmesh,
+        in_specs=P(("dp", "tp")), out_specs=P(("dp", "tp")),
+        check_vma=False))(jnp.asarray(x)))
+    assert float(want.sum()) == float(x.sum()) * 8
+    mesh = tdist.make_hybrid_mesh(
+        tdist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 4}),
+        devices=[CPU] * 8)
+    xs = [torch.from_numpy(b) for b in np.split(x, 8)]
+    got = tops.allreduce(tops.allreduce(xs, mesh, "tp"), mesh, "dp")
+    np.testing.assert_array_equal(torch.cat(got).numpy(), want)
+
+
+def test_hybrid_mesh_step_raises_keyerror_pp(eight_device_mesh):
+    """ROADMAP C.16, a fault of the reference that the port mirrors:
+    ``make_hybrid_mesh`` keeps only the axes larger than 1 and
+    ``make_spmd_train_step`` reads all six, so the step cannot be built
+    on a hybrid mesh (KeyError 'pp') on either side."""
+    cfg = dataclasses.replace(CFG, n_layers=2)
+    params = jm.init_params(cfg, jax.random.PRNGKey(0))
+    config = jdist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 4})
+    with pytest.raises(KeyError, match="pp"):
+        jm.make_spmd_train_step(
+            cfg, jdist.make_hybrid_mesh(config, devices=eight_device_mesh),
+            params, optimizer=optax.sgd(0.1))
+    tree = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              _port_cfg(cfg), device="cpu")
+    mesh = tdist.make_hybrid_mesh(
+        tdist.HybridMeshConfig(dcn={"dp": 2}, ici={"tp": 4}),
+        devices=[CPU] * 8)
+    with pytest.raises(KeyError, match="pp"):
+        tm.make_spmd_train_step(_port_cfg(cfg), mesh, tree,
+                                optimizer=lambda ls: torch.optim.SGD(
+                                    ls, lr=0.1))
+
+
+def test_one_process_mesh_is_unchanged():
+    """Without ``initialize`` a mesh is one process's: every entry local,
+    no axis crossing, the per-shard lists whole."""
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(dp=2, tp=4), devices=[CPU] * 8)
+    assert not mesh.spans_processes
+    assert mesh.local_indices == list(range(8))
+    assert mesh.local_size == mesh.size == 8
+    with pytest.raises(ValueError, match="'tp' crosses processes"):
+        tmesh.Mesh(mesh.devices, mesh.axis_names,
+                   np.arange(8).reshape(mesh.devices.shape) % 2)
+
+
+# ------------------------------------------------ two processes over gloo
+def _inputs():
+    params = jm.init_params(CFG, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, CFG.vocab_size, (STEPS, BATCH, LEN)).astype(
+        np.int32)
+    targets = rng.integers(0, CFG.vocab_size, (STEPS, BATCH, LEN)).astype(
+        np.int32)
+    return params, tokens, targets
+
+
+def _x(mesh_size=8):
+    rng = np.random.default_rng(0)
+    return rng.integers(-8, 9, (mesh_size * 4, 4)).astype(np.float32)
+
+
+def _jax_collective(name, sizes, x, w):
+    """The shard_map'd lax op on the reference's mesh: its value (every
+    shard's blocks concatenated in flat order) and the gradient of
+    sum(w * value) (the vjp of ``w``)."""
+    jmesh = _jmesh(**sizes)
+    spec = P(tuple(tmesh.AXES))
+    run = jax.shard_map(_jax_op(name, sizes["tp"]), mesh=jmesh,
+                        in_specs=spec, out_specs=spec, check_vma=False)
+    val, grad = jax.jit(lambda a, c: (run(a), jax.vjp(run, a)[1](c)[0]))(
+        x, w)
+    return np.asarray(val), np.asarray(grad)
+
+
+def _one_process(name, sizes, x, w=None):
+    """The op over 8 virtual CPU shards of one process: its value and,
+    given weights, the gradient of sum(w * value)."""
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**sizes), devices=[CPU] * 8)
+    xs = [torch.tensor(b, requires_grad=True) for b in np.split(x, 8)]
+    outs = worker.OPS[name](xs, mesh)
+    val = torch.cat([o.detach() for o in outs]).numpy()
+    if w is None:
+        return val, None
+    sum(torch.sum(o * torch.from_numpy(wj))
+        for o, wj in zip(outs, np.split(w, 8))).backward()
+    return val, torch.cat([torch.zeros_like(t) if t.grad is None
+                           else t.grad for t in xs]).numpy()
+
+
+@pytest.fixture(scope="module")
+def two_processes(tmp_path_factory):
+    """Every multi-process job in one pair of workers: the steps of
+    STEP_CASES, each op of the worker's OPS on both meshes of
+    COLLECTIVE_MESHES, the hybrid mesh's sums and the refusals. The
+    reference's collectives run while the workers do."""
+    params, tokens, targets = _inputs()
+    tree = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              _port_cfg(CFG), device="cpu")
+    arrays = {f"params/{path}": leaf.numpy() for path, leaf in _flat(tree)}
+    arrays.update(tokens=tokens, targets=targets, x=_x())
+    rng = np.random.default_rng(7)
+    for mesh_name, sizes in COLLECTIVE_MESHES.items():
+        for op in worker.OPS:
+            shape = _one_process(op, sizes, arrays["x"])[0].shape
+            arrays[f"w/{mesh_name}/{op}"] = np.stack(np.split(
+                rng.integers(-8, 9, shape).astype(np.float32), 8))
+    cfg = {f.name: getattr(CFG, f.name)
+           for f in dataclasses.fields(CFG) if f.name != "dtype"}
+    jobs = [{"kind": "step", "name": name, "cfg": cfg, "mesh": sizes,
+             "optimizer": opt, "lr": 0.1 if opt == "sgd" else LR_ADAM,
+             "steps": STEPS, "microbatches": mb}
+            for name, (sizes, opt, mb) in STEP_CASES.items()]
+    jobs += [{"kind": "collectives", "name": mesh_name, "mesh": sizes,
+              "ops": list(worker.OPS)}
+             for mesh_name, sizes in COLLECTIVE_MESHES.items()]
+    jobs += [{"kind": "hybrid"}, {"kind": "refusals"}]
+    workers = worker.start(jobs, tmp_path_factory.mktemp("dist"),
+                           processes=PROCESSES, backend="gloo",
+                           devices=["cpu"] * SHARDS_EACH, arrays=arrays,
+                           timeout_s=WORKER_TIMEOUT_S)
+    try:
+        ref = {(mesh_name, op): _jax_collective(
+                   op, sizes, arrays["x"],
+                   np.concatenate(arrays[f"w/{mesh_name}/{op}"]))
+               for mesh_name, sizes in COLLECTIVE_MESHES.items()
+               for op in worker.OPS}
+    finally:
+        outs = workers.join()
+    merged = {}
+    for out in outs:
+        merged.update(out)
+    return {"params": params, "tokens": tokens, "targets": targets,
+            "arrays": arrays, "ref": ref, "outs": outs, "merged": merged}
+
+
+def _reference_steps(sizes, opt, mb, params, tokens, targets):
+    step, _, _ = jm.make_spmd_train_step(CFG, _jmesh(**sizes), params,
+                                         optimizer=opt, n_microbatches=mb)
+    state, losses = opt.init(params), []
+    for i in range(STEPS):
+        params, state, loss = step(params, state, jnp.asarray(tokens[i]),
+                                   jnp.asarray(targets[i]))
+        losses.append(float(loss))
+    return params, losses
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_two_process_step_matches_reference(eight_device_mesh,
+                                            two_processes, name):
+    """Two processes x 4 CPU shards, each passing the step only its rows
+    of the global batch: both processes' losses equal the reference's
+    one-process step over the whole batch on the 8-device mesh, and
+    every shard's every leaf after two steps equals the reference's
+    buffer on the device at the same mesh coordinates. dp crosses the
+    processes (dp 2), or is split inside them too (dp 4); the pp case
+    keeps its pipeline inside each process."""
+    sizes, opt_name, mb = STEP_CASES[name]
+    r = two_processes
+    opt = optax.sgd(0.1) if opt_name == "sgd" else optax.adamw(LR_ADAM)
+    p2, want = _reference_steps(sizes, opt, mb, r["params"], r["tokens"],
+                                r["targets"])
+    atol = PARAM_ATOL if opt_name == "sgd" else ADAM_ATOL
+    for p, out in enumerate(r["outs"]):
+        np.testing.assert_allclose(out[f"{name}/losses"], want,
+                                   rtol=LOSS_RTOL)
+        assert out[f"{name}/local_indices"].tolist() == list(
+            range(p * SHARDS_EACH, (p + 1) * SHARDS_EACH))
+    jmesh = _jmesh(**sizes)
+    seen = 0
+    for path, arr in _flat(p2):
+        by_device = {s.device: np.asarray(s.data)
+                     for s in arr.addressable_shards}
+        for j, dev in enumerate(jmesh.devices.flat):
+            got = r["merged"][f"{name}/{j}/{path}"]
+            want_leaf = by_device[dev]
+            assert got.shape == want_leaf.shape, (path, j)
+            err = float(np.abs(got - want_leaf).max())
+            assert err <= atol, f"{path} on shard {j}: {err} > {atol}"
+            seen += 1
+    assert seen == 8 * len(_flat(p2))
+
+
+@pytest.mark.parametrize("op", list(worker.OPS))
+@pytest.mark.parametrize("mesh_name", list(COLLECTIVE_MESHES))
+def test_cross_process_collective(eight_device_mesh, two_processes,
+                                  mesh_name, op):
+    """Each op over this pair of processes, every shard's value and the
+    gradient of sum(w * out) with respect to its input: equal to the
+    one-process op over 8 virtual CPU shards, and to the shard_map'd lax
+    op and its vjp (pmax's counterpart: the max of an all_gather). On
+    dp4-tp2 each dp group holds two shards in each process."""
+    sizes = COLLECTIVE_MESHES[mesh_name]
+    r = two_processes
+    val, grad = r["ref"][mesh_name, op]
+    got_val = np.concatenate([r["merged"][f"{mesh_name}/{op}/out/{j}"]
+                              for j in range(8)])
+    got_grad = np.concatenate([r["merged"][f"{mesh_name}/{op}/grad/{j}"]
+                               for j in range(8)])
+    np.testing.assert_array_equal(got_val, val)
+    np.testing.assert_array_equal(got_grad, grad)
+    one_val, one_grad = _one_process(
+        op, sizes, r["arrays"]["x"],
+        np.concatenate(r["arrays"][f"w/{mesh_name}/{op}"]))
+    np.testing.assert_array_equal(got_val, one_val)
+    np.testing.assert_array_equal(got_grad, one_grad)
+
+
+def test_hybrid_mesh_across_processes(two_processes):
+    """``make_hybrid_mesh(dcn dp 2, ici tp 4)`` in two processes: dp is
+    the process axis, and a sum over each tier gives every shard the
+    total."""
+    r = two_processes
+    x = r["arrays"]["x"]
+    for out in r["outs"]:
+        assert out["hybrid/axis_names"].tolist() == ["dp", "tp"]
+        assert out["hybrid/processes"].tolist() == [[0] * 4, [1] * 4]
+    total = sum(np.split(x, 8))
+    for j in range(8):
+        np.testing.assert_array_equal(r["merged"][f"hybrid/{j}"], total)
+
+
+REFUSALS = {
+    "permute_dp": "NotImplementedError: permute over axis 'dp'",
+    "send_recv_dp": "NotImplementedError: send_recv over axis 'dp'",
+    "all_to_all_dp": "NotImplementedError: all_to_all over axis 'dp'",
+    "mesh_tp_across": "ValueError: mesh axis 'tp' crosses processes",
+    "mesh_pp_across": "ValueError: mesh axis 'pp' crosses processes",
+    "hybrid_pp_dcn": "ValueError: mesh axis 'pp' crosses processes",
+    "hybrid_dcn_size": "ValueError: the DCN tier {'dp': 8} spans 8 "
+                       "processes, have 2",
+    "hybrid_tp_dcn": "ValueError: axis 'tp' must not cross DCN",
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_cross_process_refusals(two_processes, name):
+    """What does not cross processes yet raises in every process: the
+    exchanges other than the four reductions and gathers, a mesh whose
+    tp or pp crosses processes (ROADMAP A.7), a DCN tier that is not the
+    processes, and an ICI axis on the DCN tier."""
+    for out in two_processes["outs"]:
+        said = str(out[f"refusals/{name}"])
+        assert said.startswith(REFUSALS[name]), said
+        if name in ("permute_dp", "send_recv_dp", "all_to_all_dp",
+                    "mesh_tp_across", "mesh_pp_across"):
+            assert "ROADMAP A.7" in said
+
+
+def test_workers_import_no_jax(two_processes):
+    """The workers joined as processes 0 and 1 of 2 (their address, size
+    and rank from the RAY_TPU_* environment variables) and never
+    imported JAX."""
+    for p, out in enumerate(two_processes["outs"]):
+        assert int(out["process_index"]) == p
+        assert int(out["process_count"]) == PROCESSES
+        assert not bool(out["jax_imported"])
+
+
+def test_shard_host_local_refuses_rows_of_another_process():
+    """``shard_host_local`` cuts this process's rows; a shard whose block
+    lies in another process's rows raises (here: a mesh whose process 1
+    holds the first dp block)."""
+    mesh = tmesh.Mesh(np.array([CPU, CPU], dtype=object).reshape(2, 1),
+                      ("dp", "tp"), np.array([[1], [0]]), process=0)
+    with pytest.raises(ValueError, match="not among this process's rows"):
+        shard_host_local(torch.zeros(2, 3), mesh, ("dp",))

@@ -2,7 +2,12 @@
 peer copies, the compiled DAG sharded over a mesh of real devices (run
 eagerly: one CUDA graph cannot span devices), the tensor-parallel
 engine over the visible cards, and one step of the manual multi-axis
-training step at dp 2 x tp 2 over four cards.
+training step at dp 2 x tp 2 over four cards. Across processes over
+NCCL (``parallel.distributed``, workers of
+``torch_distributed_worker.py``): the flagship's step and the
+collectives with four processes of one card each and with two processes
+of two cards each, against one process over the same four cards; and
+two ``GPU: 2`` nodes of the autoscaler's provider on four cards.
 
 Every test is marked ``cuda`` and skips unless at least two cards are
 visible; each holds the multi-card result against the same computation
@@ -10,6 +15,8 @@ on one card. This file imports no JAX, so it runs on a machine that has
 only PyTorch: ``python -m pytest tests/test_torch_multi_gpu.py -m cuda
 --noconftest`` (``tests/conftest.py`` pins JAX to the CPU).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,6 +33,8 @@ from ray_tpu_torch.models import (
 from ray_tpu_torch.parallel import MeshConfig, make_mesh
 from ray_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
 from ray_tpu_torch.remote_function import remote
+
+import torch_distributed_worker as worker
 
 
 @pytest.fixture
@@ -155,3 +164,166 @@ def test_spmd_step_across_cards_equals_virtual_shards(cards):
     for a, b in zip(leaves_c, leaves_v):
         for k in b:
             torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------- across processes, NCCL
+NCCL_STEPS, NCCL_BATCH, NCCL_LEN = 2, 4, 1024
+NCCL_TIMEOUT_S = 600.0
+LAYOUTS = {"4x1": (4, 1, dict(dp=4)), "2x2": (2, 2, dict(dp=2, tp=2))}
+
+
+def _flagship_f32():
+    return dataclasses.replace(TransformerConfig(), dtype=torch.float32)
+
+
+def _nccl_ids(processes, each):
+    return [[p * each + i for i in range(each)] for p in range(processes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
+    """The f32 flagship's step (SGD 0.1, two steps, 4 x 1024 tokens),
+    each process passing only its rows, against the one-process step on
+    the same mesh over the same four cards: the same kernels on the same
+    rows, the gradient sums across processes ordered by NCCL, so the
+    losses agree to rtol 1e-5 and every shard's every leaf to rtol 1e-5,
+    atol 1e-6."""
+    if len(cards) < 4:
+        pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
+    processes, each, sizes = LAYOUTS[layout]
+    cfg = _flagship_f32()
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (NCCL_STEPS, NCCL_BATCH, NCCL_LEN + 1))
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(cfg) if f.name != "dtype"}
+    job = {"kind": "step", "name": layout, "cfg": fields, "mesh": sizes,
+           "optimizer": "sgd", "lr": 0.1, "steps": NCCL_STEPS,
+           "init_seed": 0}
+    outs = worker.launch([job], tmp_path, processes=processes,
+                         backend="nccl",
+                         local_device_ids=_nccl_ids(processes, each),
+                         arrays={"tokens": tokens[:, :, :-1],
+                                 "targets": tokens[:, :, 1:]},
+                         timeout_s=NCCL_TIMEOUT_S)
+    mesh = make_mesh(MeshConfig(**sizes), devices=cards[:4])
+    step, _, shards = make_spmd_train_step(
+        cfg, mesh, init_params(cfg, 0, device="cpu"),
+        optimizer=lambda ls: torch.optim.SGD(ls, lr=0.1),
+        n_microbatches=1)
+    want = [step(torch.from_numpy(tokens[i, :, :-1]),
+                 torch.from_numpy(tokens[i, :, 1:])).item()
+            for i in range(NCCL_STEPS)]
+    leaves = [_flat_cpu(s) for s in shards]
+    for p, out in enumerate(outs):
+        np.testing.assert_allclose(out[f"{layout}/losses"], want,
+                                   rtol=1e-5)
+        assert out[f"{layout}/local_indices"].tolist() == list(
+            range(p * each, (p + 1) * each))
+        assert not bool(out["jax_imported"])
+        for j in range(p * each, (p + 1) * each):
+            for k, b in leaves[j].items():
+                torch.testing.assert_close(
+                    torch.from_numpy(out[f"{layout}/{j}/{k}"]), b,
+                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_nccl_collectives_equal_one_process(cards, tmp_path, layout):
+    """Every op of the worker's OPS across processes over NCCL against
+    the one-process op over the same four cards: values, and with one
+    card a process the gradient of sum(w * out) (integers: exact). With
+    two cards a process, autograd through a collective across processes
+    is refused (its backward's order would follow each card's autograd
+    thread)."""
+    if len(cards) < 4:
+        pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
+    processes, each, sizes = LAYOUTS[layout]
+    grad = each == 1
+    rng = np.random.default_rng(0)
+    x = rng.integers(-8, 9, (4 * 4, 4)).astype(np.float32)
+    mesh = make_mesh(MeshConfig(**sizes), devices=cards[:4])
+    arrays, want = {"x": x}, {}
+    for op, fn in worker.OPS.items():
+        xs = [torch.tensor(b, device=d, requires_grad=True)
+              for b, d in zip(np.split(x, 4), cards)]
+        outs = fn(xs, mesh)
+        w = rng.integers(-8, 9, (4,) + tuple(outs[0].shape)).astype(
+            np.float32)
+        arrays[f"w/{layout}/{op}"] = w
+        sum(torch.sum(o * torch.from_numpy(wj).to(o.device)).to(cards[0])
+            for o, wj in zip(outs, w)).backward()
+        want[op] = ([o.detach().cpu().numpy() for o in outs],
+                    [np.zeros_like(b) if t.grad is None
+                     else t.grad.cpu().numpy()
+                     for t, b in zip(xs, np.split(x, 4))])
+    job = {"kind": "collectives", "name": layout, "mesh": sizes,
+           "ops": list(worker.OPS), "grad": grad}
+    outs = worker.launch([job], tmp_path, processes=processes,
+                         backend="nccl",
+                         local_device_ids=_nccl_ids(processes, each),
+                         arrays=arrays, timeout_s=NCCL_TIMEOUT_S)
+    merged = {k: v for out in outs for k, v in out.items()}
+    for op, (vals, grads) in want.items():
+        for j in range(4):
+            np.testing.assert_array_equal(
+                merged[f"{layout}/{op}/out/{j}"], vals[j], err_msg=op)
+            if grad:
+                np.testing.assert_array_equal(
+                    merged[f"{layout}/{op}/grad/{j}"], grads[j],
+                    err_msg=op)
+    if not grad:
+        for out in outs:
+            assert str(out[f"{layout}/grad_refused"]).startswith(
+                "NotImplementedError: autograd through a collective "
+                "across processes with 2 devices")
+
+
+@pytest.mark.cuda
+def test_provider_launches_two_pair_nodes_on_four_cards(cards, tmp_path):
+    """Two ``GPU: 2`` nodes of ``LocalSubprocessProvider`` on four cards:
+    each joins advertising 2 (the provider checks it against the head),
+    on cards no other node holds; a third finds none free and fails;
+    once the first is reaped its cards go to the next."""
+    if len(cards) < 4:
+        pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
+    import chip_smoke
+    from ray_tpu_torch._private.config import GlobalConfig
+    from ray_tpu_torch.autoscaler import (
+        LocalSubprocessProvider,
+        NodeTypeConfig,
+    )
+    from ray_tpu_torch.exceptions import NodeLaunchFailedError
+
+    env = chip_smoke._cluster_env()
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    head, address, _ = chip_smoke._start_head(str(tmp_path / "state.log"),
+                                              env=env)
+    pair = NodeTypeConfig("pair", {"CPU": 1, "GPU": 2})
+    handles = []
+    GlobalConfig.set("autoscaler_launch_retries", 1)
+    try:
+        prov = LocalSubprocessProvider(address, worker_mode="thread",
+                                       env=env)
+        handles += [prov.launch(pair), prov.launch(pair)]
+        held = [sorted(c for c, proc in prov._holders.items()
+                       if proc is h["proc"]) for h in handles]
+        assert held == [["0", "1"], ["2", "3"]]
+        with pytest.raises(NodeLaunchFailedError,
+                           match="advertises GPU 0 where its type "
+                                 "declares 2"):
+            prov.launch(pair)
+        prov.terminate(handles[0])
+        handles.append(prov.launch(pair))
+        assert sorted(c for c, proc in prov._holders.items()
+                      if proc is handles[-1]["proc"]) == ["0", "1"]
+    finally:
+        GlobalConfig.reset()
+        for h in handles:
+            if h["proc"].poll() is None:
+                h["proc"].kill()
+                h["proc"].wait(timeout=10)
+        head.kill()
+        head.wait(timeout=10)
