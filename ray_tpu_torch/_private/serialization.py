@@ -36,6 +36,16 @@ never reaches the card, so a CUDA tensor bound for it arrives as a CPU
 tensor with the same values, and a worker's result reaches the driver on
 the CPU (the caller moves it to the card).
 
+**Custom serializers.** ``register_serializer(cls, serializer=...,
+deserializer=...)`` on a context puts ``cls`` in its pickler's dispatch
+table, as the reference does: an instance pickles as
+``deserializer(serializer(obj))``, in the driver's form and in the wire
+form (a payload's ``to_bytes``, and the arguments that ``pack_args``
+ships to a worker process, take the driver context's registrations).
+In the driver's form the deserializer itself is kept beside the pickle,
+like a device tensor, so a lambda works there as it does through
+``cloudpickle``. ``deregister_serializer`` ends it for later values.
+
 ``torch`` is imported here only when ``sys.modules`` already holds it: a
 value can hold a tensor only if torch is loaded, and a worker process
 that runs no torch code boots without it.
@@ -43,10 +53,12 @@ that runs no torch code boots without it.
 
 from __future__ import annotations
 
+import copyreg
 import io
 import pickle
 import sys
-from typing import Any, List, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 _UNPICKLABLE = (pickle.PicklingError, TypeError, AttributeError)
 
@@ -86,19 +98,26 @@ def dumps_by_value(value: Any) -> bytes:
 
 class SerializedObject:
     """Pickled payload + out-of-band host buffers + device tensors (or,
-    for a value pickle refuses, the value itself in ``held``)."""
+    for a value pickle refuses, the value itself in ``held``), with the
+    registered deserializers the payload calls and the context's custom
+    serializers at the time (``custom``, for the wire form)."""
 
-    __slots__ = ("data", "buffers", "device_tensors", "held")
+    __slots__ = ("data", "buffers", "device_tensors", "held",
+                 "deserializers", "custom")
 
     _NOTHING = object()
 
     def __init__(self, data: bytes, buffers: List[pickle.PickleBuffer],
                  device_tensors: List[Tuple[Any, bool, bool]],
-                 held: Any = _NOTHING):
+                 held: Any = _NOTHING, deserializers: Optional[list] = None,
+                 custom: Optional[Dict[type, Tuple[Callable, Callable]]]
+                 = None):
         self.data = data
         self.buffers = buffers
         self.device_tensors = device_tensors
         self.held = held
+        self.deserializers = deserializers or []
+        self.custom = custom
 
     def host_bytes(self) -> int:
         """Bytes this payload holds in host memory (what spilling can
@@ -110,9 +129,9 @@ class SerializedObject:
             t.numel() * t.element_size() for t, _, _ in self.device_tensors)
 
     def on_host(self) -> bool:
-        """Whether the payload is wholly host bytes: no device tensor and
-        no value held by reference."""
-        return (not self.device_tensors
+        """Whether the payload is wholly host bytes: no device tensor, no
+        registered deserializer and no value held by reference."""
+        return (not self.device_tensors and not self.deserializers
                 and self.held is SerializedObject._NOTHING)
 
     def to_bytes(self) -> bytes:
@@ -121,7 +140,8 @@ class SerializedObject:
         payload with device tensors or a held value is first re-pickled
         in the wire form (module docstring)."""
         if not self.on_host():
-            return wire_dumps(SerializationContext().deserialize(self))
+            return wire_dumps(SerializationContext().deserialize(self),
+                              self.custom)
         return _frame(self.data, self.buffers)
 
     @classmethod
@@ -155,13 +175,41 @@ def _unframe(raw) -> Tuple[bytes, List[pickle.PickleBuffer]]:
     return data, buffers
 
 
+class _CustomDeser:
+    """Picklable thunk applying a registered deserializer."""
+
+    def __init__(self, de):
+        self.de = de
+
+    def __call__(self, payload):
+        return self.de(payload)
+
+
+def _custom_table(base, custom):
+    """``base`` (a dispatch table) with a reduction for each registered
+    class: ``(_CustomDeser(deserializer), (serializer(obj),))``."""
+    table = dict(base)
+    for cls, (ser, de) in custom.items():
+        table[cls] = (
+            lambda obj, ser=ser, de=de: (_CustomDeser(de), (ser(obj),)))
+    return table
+
+
 class _Pickler(pickle.Pickler):
-    def __init__(self, file, buffers, device_tensors):
+    def __init__(self, file, buffers, device_tensors, deserializers,
+                 custom):
+        if custom:   # read by the C pickler's __init__: set it first
+            self.dispatch_table = _custom_table(copyreg.dispatch_table,
+                                                custom)
         super().__init__(file, protocol=5, buffer_callback=buffers.append)
         self._device_tensors = device_tensors
+        self._deserializers = deserializers
         self._tensor_type = getattr(_torch(), "Tensor", None)
 
     def persistent_id(self, obj):
+        if type(obj) is _CustomDeser:
+            self._deserializers.append(obj)
+            return ("de", len(self._deserializers) - 1)
         if (self._tensor_type is not None
                 and isinstance(obj, self._tensor_type)
                 and obj.device.type != "cpu"):
@@ -174,11 +222,14 @@ class _Pickler(pickle.Pickler):
 
 
 class _Unpickler(pickle.Unpickler):
-    def __init__(self, file, buffers, device_tensors):
+    def __init__(self, file, buffers, device_tensors, deserializers):
         super().__init__(file, buffers=buffers)
         self._device_tensors = device_tensors
+        self._deserializers = deserializers
 
     def persistent_load(self, pid):
+        if isinstance(pid, tuple):   # ("de", i): a registered deserializer
+            return self._deserializers[pid[1]]
         stored, requires_grad, parameter = self._device_tensors[pid]
         out = stored.clone()
         if parameter:
@@ -187,15 +238,37 @@ class _Unpickler(pickle.Unpickler):
 
 
 class SerializationContext:
+    def __init__(self):
+        self._custom: Dict[type, Tuple[Callable, Callable]] = {}
+        self._lock = threading.Lock()
+
+    def register_serializer(self, cls: type, *, serializer: Callable,
+                            deserializer: Callable):
+        with self._lock:
+            self._custom[cls] = (serializer, deserializer)
+
+    def deregister_serializer(self, cls: type):
+        with self._lock:
+            self._custom.pop(cls, None)
+
+    def custom_serializers(self) -> Dict[type, Tuple[Callable, Callable]]:
+        """A snapshot of the registered (serializer, deserializer) pairs."""
+        with self._lock:
+            return dict(self._custom)
+
     def serialize(self, value: Any) -> SerializedObject:
         buffers: List[pickle.PickleBuffer] = []
         device_tensors: list = []
+        deserializers: list = []
+        custom = self.custom_serializers() or None
         out = io.BytesIO()
         try:
-            _Pickler(out, buffers, device_tensors).dump(value)
+            _Pickler(out, buffers, device_tensors, deserializers,
+                     custom).dump(value)
         except _UNPICKLABLE:
-            return SerializedObject(b"", [], [], held=value)
-        return SerializedObject(out.getvalue(), buffers, device_tensors)
+            return SerializedObject(b"", [], [], held=value, custom=custom)
+        return SerializedObject(out.getvalue(), buffers, device_tensors,
+                                deserializers=deserializers, custom=custom)
 
     def deserialize(self, serialized: SerializedObject) -> Any:
         if isinstance(serialized, (bytes, bytearray, memoryview)):
@@ -203,7 +276,8 @@ class SerializationContext:
         if serialized.held is not SerializedObject._NOTHING:
             return serialized.held
         return _Unpickler(io.BytesIO(serialized.data), serialized.buffers,
-                          serialized.device_tensors).load()
+                          serialized.device_tensors,
+                          serialized.deserializers).load()
 
 
 # ------------------------------------------------------------- wire form
@@ -227,7 +301,12 @@ def _wire_pickler_class():
     cloudpickle = require_cloudpickle()
 
     class _WirePickler(cloudpickle.CloudPickler):
-        def __init__(self, file, buffers):
+        def __init__(self, file, buffers, custom=None):
+            if custom:
+                # The C pickler reads its dispatch table in __init__, so
+                # it is set first (set after, it would never be used).
+                self.dispatch_table = _custom_table(
+                    cloudpickle.CloudPickler.dispatch_table, custom)
             super().__init__(file, protocol=5,
                              buffer_callback=buffers.append)
             self._tensor_type = getattr(_torch(), "Tensor", None)
@@ -264,15 +343,17 @@ def _reduce_tensor(obj):
              obj.requires_grad, isinstance(obj, torch.nn.Parameter)))
 
 
-def wire_dumps(value: Any) -> bytes:
+def wire_dumps(value: Any, custom=None) -> bytes:
     """The wire form of ``value`` (module docstring): framed
-    cloudpickle with every tensor's storage out of band, on the CPU."""
+    cloudpickle with every tensor's storage out of band, on the CPU, and
+    each class of ``custom`` (a context's ``custom_serializers()``)
+    through its registered pair."""
     global _WIRE_PICKLER
     if _WIRE_PICKLER is None:
         _WIRE_PICKLER = _wire_pickler_class()
     buffers: List[pickle.PickleBuffer] = []
     out = io.BytesIO()
-    _WIRE_PICKLER(out, buffers).dump(value)
+    _WIRE_PICKLER(out, buffers, custom).dump(value)
     return _frame(out.getvalue(), buffers)
 
 

@@ -548,16 +548,29 @@ def maybe_stage(store, data: bytes, limit: int):
     return ("shm", key), [key]
 
 
+def _driver_custom_serializers():
+    """The live driver context's registered serializers (None without a
+    runtime or a registration)."""
+    from ray_tpu_torch._private.worker import try_live_worker
+
+    w = try_live_worker()
+    ctx = getattr(w, "serialization_context", None)
+    custom = getattr(ctx, "custom_serializers", None)
+    return (custom() or None) if custom is not None else None
+
+
 def pack_args(store, args, kwargs) -> Tuple[bytes, List[int]]:
-    """(args, kwargs) in the wire form; an argument too big to inline is
-    staged in the shm store and replaced by a _ShmRef the worker fetches.
-    Returns (payload, staged_keys)."""
+    """(args, kwargs) in the wire form, through the driver context's
+    registered serializers; an argument too big to inline is staged in
+    the shm store and replaced by a _ShmRef the worker fetches. Returns
+    (payload, staged_keys)."""
     staged: List[int] = []
+    custom = _driver_custom_serializers()
 
     def _pack(v):
         if isinstance(v, _ShmRef):
             return v
-        raw = wire_dumps(v)
+        raw = wire_dumps(v, custom)
         if len(raw) <= _INLINE_LIMIT:
             return v
         key = _next_stage_key()
@@ -567,4 +580,4 @@ def pack_args(store, args, kwargs) -> Tuple[bytes, List[int]]:
 
     packed_args = tuple(_pack(a) for a in args)
     packed_kwargs = {k: _pack(v) for k, v in kwargs.items()}
-    return wire_dumps((packed_args, packed_kwargs)), staged
+    return wire_dumps((packed_args, packed_kwargs), custom), staged

@@ -2,14 +2,12 @@
 blocks, a lazy plan run by a streaming executor on the one-process
 runtime's tasks, and ``Dataset.iter_torch_batches``, the Train feed onto
 the card. Sources: ``range``, ``from_items``, ``from_columns``,
-``from_numpy``, the numpy, binary, TFRecord and SQL readers and custom
-datasources; the all-to-all operators (shuffle, sort, groupby with its
-aggregates, repartition, zip); the TFRecord writer and custom datasinks.
-
-Still to come, and why: the parquet, CSV, JSON and image readers and
-writers, ``from_pandas``, ``from_arrow``, ``to_pandas`` and the
-``"pandas"`` batch format wait for a reader of the port's own, as the
-card's machine has no ``pyarrow``, ``pandas`` or ``PIL``.
+``from_numpy``, ``from_pandas``, ``from_arrow``, the parquet, CSV, JSON,
+image, numpy, binary, TFRecord and SQL readers and custom datasources;
+paths on the local disk, ``memory://`` or any fsspec scheme. The
+all-to-all operators (shuffle, sort, groupby with its aggregates,
+repartition, zip); numpy, pandas and Arrow batches; the parquet, CSV,
+JSON and TFRecord writers, ``to_pandas`` and custom datasinks.
 """
 
 from ray_tpu_torch.data.block import Block, BlockMetadata
@@ -31,13 +29,19 @@ from ray_tpu_torch.data.grouped import (
     Sum,
 )
 from ray_tpu_torch.data.read_api import (
+    from_arrow,
     from_columns,
     from_items,
     from_numpy,
+    from_pandas,
     range,  # noqa: A004
     read_binary_files,
+    read_csv,
     read_datasource,
+    read_images,
+    read_json,
     read_numpy,
+    read_parquet,
     read_sql,
     read_tfrecords,
 )
@@ -47,8 +51,9 @@ __all__ = [
     "AggregateFn", "Block", "BlockMetadata", "Count", "Dataset",
     "Datasink", "Datasource", "DatasetStats", "Filesystem",
     "MaterializedDataset", "Max", "Mean", "MemoryFilesystem", "Min",
-    "ReadTask", "Std", "Sum", "from_columns", "from_items", "from_numpy",
-    "range", "read_binary_files", "read_datasource", "read_numpy",
-    "read_sql", "read_tfrecords", "register_filesystem",
-    "resolve_filesystem",
+    "ReadTask", "Std", "Sum", "from_arrow", "from_columns",
+    "from_items", "from_numpy", "from_pandas", "range",
+    "read_binary_files", "read_csv", "read_datasource", "read_images",
+    "read_json", "read_numpy", "read_parquet", "read_sql",
+    "read_tfrecords", "register_filesystem", "resolve_filesystem",
 ]

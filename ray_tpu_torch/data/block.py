@@ -2,9 +2,10 @@
 ``ray_tpu/data/block.py``).
 
 A block is a **columnar dict of numpy arrays**, the format that
-``Dataset.iter_torch_batches`` hands to the card. The reference's
-conversions to pandas and Arrow are left out: the card's machine has
-neither package.
+``Dataset.iter_torch_batches`` hands to the card. pandas DataFrames and
+Arrow tables are conversion boundaries (``normalize_block``,
+``block_to_pandas``, ``block_to_arrow``), not the in-memory form; both
+packages are imported only where a conversion needs them.
 """
 
 from __future__ import annotations
@@ -34,10 +35,27 @@ class BlockMetadata:
 
 
 def normalize_block(data: Any) -> Block:
-    """Coerce rows, a dict of columns or an array into a columnar numpy
-    block."""
+    """Coerce rows, a dict of columns, a pandas DataFrame, an Arrow table
+    or an array into a columnar numpy block."""
     if isinstance(data, dict):
         return {k: np.asarray(v) for k, v in data.items()}
+    try:
+        import pandas as pd
+
+        if isinstance(data, pd.DataFrame):
+            return {c: data[c].to_numpy() for c in data.columns}
+    except ImportError:
+        pass
+    try:
+        import pyarrow as pa
+
+        if isinstance(data, pa.Table):
+            return {
+                name: data.column(name).to_numpy(zero_copy_only=False)
+                for name in data.column_names
+            }
+    except ImportError:
+        pass
     if isinstance(data, (list, tuple)):
         if data and isinstance(data[0], dict):
             keys = data[0].keys()
@@ -84,3 +102,18 @@ def block_to_rows(block: Block) -> List[Dict[str, Any]]:
     n = block_num_rows(block)
     keys = list(block.keys())
     return [{k: block[k][i] for k in keys} for i in range(n)]
+
+
+def block_to_pandas(block: Block):
+    import pandas as pd
+
+    return pd.DataFrame({k: v for k, v in block.items()})
+
+
+def block_to_arrow(block: Block):
+    """An Arrow table of ``block``'s columns. ``pa.array`` takes 1-D
+    columns: a 2-D column goes in as an object column of its rows (a list
+    column)."""
+    import pyarrow as pa
+
+    return pa.table({k: pa.array(v) for k, v in block.items()})

@@ -6,9 +6,10 @@ iter_batches / iter_torch_batches) plans and runs the streaming
 executor. A MaterializedDataset pins its block refs so repeated
 consumption is free. ``iter_torch_batches`` takes the place of the
 reference's ``iter_jax_batches``: batches of tensors on the card (or
-sharded over a mesh). The writers are ``write_tfrecords`` and
-``write_datasink``; the parquet, CSV and JSON writers and ``to_pandas``
-are left out (the card's machine has no ``pyarrow`` or ``pandas``).
+sharded over a mesh). Batches come as dicts of numpy arrays, pandas
+DataFrames or Arrow tables (``batch_format``). The writers are
+``write_parquet``, ``write_csv``, ``write_json``, ``write_tfrecords`` and
+``write_datasink``; ``to_pandas`` gathers the whole dataset.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from ray_tpu_torch.data.block import (
     block_num_rows,
     block_slice,
     block_take_indices,
+    block_to_arrow,
+    block_to_pandas,
     block_to_rows,
     concat_blocks,
     normalize_block,
@@ -50,8 +53,11 @@ BatchFormat = Union[str, None]
 def _batch_from_block(block: Block, fmt: BatchFormat):
     if fmt in (None, "numpy", "default"):
         return dict(block)
-    raise ValueError(f"unknown batch format {fmt!r} (numpy batches only: "
-                     f"pandas and pyarrow are not ported)")
+    if fmt == "pandas":
+        return block_to_pandas(block)
+    if fmt == "pyarrow":
+        return block_to_arrow(block)
+    raise ValueError(f"unknown batch format {fmt!r}")
 
 
 def _rebatch(blocks_iter: Iterator[Block], batch_size: Optional[int],
@@ -410,12 +416,35 @@ class Dataset:
     @staticmethod
     def _out_fs(path: str):
         """(filesystem, stripped path) with the output dir ensured: write
-        paths accept any registered scheme (local, memory://)."""
+        paths accept any registered scheme (local, memory://, fsspec)."""
         from ray_tpu_torch.data.filesystem import resolve_filesystem
 
         fs, p = resolve_filesystem(path)
         fs.makedirs(p)
         return fs, p.rstrip("/")
+
+    def write_parquet(self, path: str) -> None:
+        import pyarrow.parquet as pq
+
+        fs, p = self._out_fs(path)
+        for i, block in enumerate(self.iter_blocks()):
+            with fs.open(f"{p}/part-{i:05d}.parquet", "wb") as fh:
+                pq.write_table(block_to_arrow(block), fh)
+
+    def write_csv(self, path: str) -> None:
+        fs, p = self._out_fs(path)
+        for i, block in enumerate(self.iter_blocks()):
+            text = block_to_pandas(block).to_csv(index=False)
+            with fs.open(f"{p}/part-{i:05d}.csv", "wb") as fh:
+                fh.write(text.encode())
+
+    def write_json(self, path: str) -> None:
+        fs, p = self._out_fs(path)
+        for i, block in enumerate(self.iter_blocks()):
+            text = block_to_pandas(block).to_json(
+                orient="records", lines=True)
+            with fs.open(f"{p}/part-{i:05d}.json", "wb") as fh:
+                fh.write(text.encode())
 
     def write_tfrecords(self, path: str) -> None:
         """Write blocks as TFRecord files of tf.train.Example protos (one
@@ -447,6 +476,10 @@ class Dataset:
             raise
         sink.on_write_complete(results)
         return results
+
+    def to_pandas(self):
+        return block_to_pandas(
+            concat_blocks(list(self.iter_blocks())))
 
     def stats(self) -> str:
         if self._stats is None:

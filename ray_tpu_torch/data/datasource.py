@@ -40,6 +40,12 @@ class Datasource:
                        ) -> List[Callable[[], List[Block]]]:
         raise NotImplementedError
 
+    def estimate_inmemory_data_size(self) -> Optional[int]:
+        return None
+
+    def get_name(self) -> str:
+        return type(self).__name__
+
 
 class Datasink:
     """Implement ``write`` to plug a custom sink into

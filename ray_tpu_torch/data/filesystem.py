@@ -1,15 +1,14 @@
 """Filesystems for storage URIs (counterpart of
-``ray_tpu/data/filesystem.py``, trimmed to what checkpoint storage, the
-Data readers and writers and the workflow journal use).
+``ray_tpu/data/filesystem.py``): what checkpoint storage, the Data
+readers and writers and the workflow journal use.
 
-A path may carry a URI scheme (``memory://bucket/x``, ``file:///tmp/x``);
-the registry resolves the scheme to a ``Filesystem``. ``file`` (or no
-scheme) is the local filesystem; ``memory`` is an in-memory store shaped
-like a remote object store. ``register_filesystem`` adds a scheme.
-
-The reference hands any other scheme to ``fsspec``; the card's machine
-has no ``fsspec``, so here an unregistered scheme raises the reference's
-``ValueError`` at once.
+A path may carry a URI scheme (``memory://bucket/x``, ``file:///tmp/x``,
+``s3://...``); the registry resolves the scheme to a ``Filesystem``.
+``file`` (or no scheme) is the local filesystem; ``memory`` is an
+in-memory store shaped like a remote object store;
+``register_filesystem`` adds a scheme. Any other scheme is handed to
+``fsspec`` (imported there, at first use), and one that fsspec cannot
+provide raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -232,6 +231,49 @@ _REGISTRY: Dict[str, Filesystem] = {
 }
 
 
+class _FsspecFilesystem(Filesystem):
+    def __init__(self, fs, scheme: str):
+        self._fs = fs
+        self._scheme = scheme
+
+    def open(self, path, mode="rb"):
+        return self._fs.open(path, mode)
+
+    def listdir(self, path):
+        # fsspec's find() strips the scheme; re-qualify so the returned
+        # paths stay resolvable through the registry.
+        return sorted(
+            f"{self._scheme}://{p}" if "://" not in p else p
+            for p in self._fs.find(path)
+            if not self._fs.isdir(p))
+
+    def children(self, path):
+        # A delimiter-based shallow listing: a recursive find() over a big
+        # prefix only to learn the immediate child names would hammer an
+        # object store's LIST.
+        try:
+            return sorted(
+                p.rstrip("/").rsplit("/", 1)[-1]
+                for p in self._fs.ls(path, detail=False))
+        except (OSError, FileNotFoundError):
+            return []
+
+    def makedirs(self, path):
+        self._fs.makedirs(path, exist_ok=True)
+
+    def exists(self, path):
+        return self._fs.exists(path)
+
+    def isdir(self, path):
+        return self._fs.isdir(path)
+
+    def delete(self, path):
+        try:
+            self._fs.rm_file(path)
+        except Exception:  # noqa: BLE001 — a directory, or already gone
+            self._fs.rm(path, recursive=True)
+
+
 def register_filesystem(scheme: str, fs: Filesystem) -> None:
     _REGISTRY[scheme] = fs
 
@@ -242,8 +284,13 @@ def resolve_filesystem(path: str) -> Tuple[Filesystem, str]:
         return _REGISTRY["file"], path
     scheme, _, rest = path.partition("://")
     fs = _REGISTRY.get(scheme)
-    if fs is None:
+    if fs is not None:
+        return (fs, path) if fs.keeps_scheme else (fs, rest)
+    try:
+        import fsspec
+
+        return _FsspecFilesystem(fsspec.filesystem(scheme), scheme), path
+    except Exception as exc:  # noqa: BLE001 — an unknown scheme
         raise ValueError(
-            f"no filesystem registered for scheme {scheme!r} (fsspec is "
-            f"not used; register one with register_filesystem)")
-    return (fs, path) if fs.keeps_scheme else (fs, rest)
+            f"no filesystem registered for scheme {scheme!r} and fsspec "
+            f"could not provide one: {exc}") from exc

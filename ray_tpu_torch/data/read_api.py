@@ -1,8 +1,8 @@
 """Dataset creation (counterpart of ``ray_tpu/data/read_api.py``): the
-in-memory sources, the numpy, binary, TFRecord and SQL readers, and
-custom datasources. The parquet, CSV, JSON and image readers and
-``from_pandas`` / ``from_arrow`` are left out: the card's machine has no
-``pyarrow``, ``pandas`` or ``PIL``.
+in-memory sources (``from_items``, ``from_columns``, ``from_numpy``,
+``from_pandas``, ``from_arrow``), the parquet (hive partitions, column
+projection), CSV, JSON, image, numpy, binary, TFRecord and SQL readers,
+and custom datasources.
 """
 
 from __future__ import annotations
@@ -14,6 +14,16 @@ import os
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+# Pre-import the IO extension stacks on the importing thread: initializing
+# the pyarrow/pandas extension modules concurrently from several read
+# tasks' threads segfaults (seen on the import of pyarrow.dataset).
+try:
+    import pandas as _pd  # noqa: F401
+    import pyarrow.dataset as _pads  # noqa: F401
+    import pyarrow.parquet as _papq  # noqa: F401
+except ImportError:  # pragma: no cover - optional IO packages
+    pass
 
 from ray_tpu_torch.data.block import Block, normalize_block
 from ray_tpu_torch.data.dataset import Dataset
@@ -69,6 +79,17 @@ def from_numpy(arr: np.ndarray, *, parallelism: int = 1) -> Dataset:
     return from_columns({"data": arr}, parallelism=parallelism)
 
 
+def from_pandas(df, *, parallelism: int = 1) -> Dataset:
+    return from_columns({c: df[c].to_numpy() for c in df.columns},
+                        parallelism=parallelism)
+
+
+def from_arrow(table, *, parallelism: int = 1) -> Dataset:
+    return from_columns(
+        {c: table.column(c).to_numpy(zero_copy_only=False)
+         for c in table.column_names}, parallelism=parallelism)
+
+
 def _open_path(path: str, mode: str = "rb"):
     """Open a path through the filesystem registry (local, memory://, or
     a registered scheme)."""
@@ -106,6 +127,128 @@ def _expand_paths(paths, suffix: Optional[str] = None) -> List[str]:
     if not out:
         raise FileNotFoundError(f"no files matched {paths}")
     return out
+
+
+def _hive_partition_values(file_path: str, root: Optional[str]):
+    """Hive-style ``key=value`` directory components of a file's path
+    (root-relative when a dataset root directory is known; otherwise every
+    path component — so globs and file lists keep their partitions)."""
+    dirname = os.path.dirname(os.path.abspath(file_path))
+    if root is not None:
+        dirname = os.path.relpath(dirname, os.path.abspath(root))
+    values = {}
+    for part in dirname.split(os.sep):
+        if "=" in part:
+            k, _, v = part.partition("=")
+            values[k] = v
+    return values
+
+
+def _typed_partitions(per_file: List[dict]) -> List[dict]:
+    """Uniform partition schema across all files: the key UNION (missing
+    keys fill as empty strings — mixed-depth trees must concat), with
+    int/float inference when every file has the key and it parses
+    (`ds.partitioning`'s inferred-type contract)."""
+    keys = sorted(set().union(*per_file)) if per_file else []
+    out = [dict(v) for v in per_file]
+    for k in keys:
+        raw = [v.get(k) for v in per_file]
+        if any(r is None for r in raw):
+            cast = str  # mixed depth: keep strings, fill ""
+        else:
+            cast = str
+            for candidate in (int, float):
+                try:
+                    [candidate(r) for r in raw]
+                    cast = candidate
+                    break
+                except ValueError:
+                    continue
+        for v in out:
+            v[k] = cast(v[k]) if k in v else ""
+    return out
+
+
+def read_parquet(paths, *, columns: Optional[List[str]] = None,
+                 **_opts) -> Dataset:
+    """Read parquet files (file, glob, or partitioned directory tree).
+
+    Hive-style ``key=value`` path components materialize as partition
+    columns with int/float type inference — for directory roots, globs,
+    and explicit file lists alike (`ds.partitioning` analogue).
+    """
+    files = _expand_paths(paths, ".parquet")
+    roots = [paths] if isinstance(paths, str) else list(paths)
+    root = roots[0] if len(roots) == 1 and os.path.isdir(roots[0]) else None
+    per_file = _typed_partitions(
+        [_hive_partition_values(f, root) for f in files])
+
+    def make_task(f, part_values):
+        if columns is not None:
+            part_values = {k: v for k, v in part_values.items()
+                           if k in columns}
+            # [] (not None) when only partition columns are projected:
+            # None means read-everything to pyarrow.
+            file_columns = [c for c in columns if c not in part_values]
+        else:
+            file_columns = None
+
+        def task() -> List[Block]:
+            import pyarrow.parquet as pq
+
+            if "://" in f:
+                with _open_path(f) as fh:
+                    table = pq.read_table(fh, columns=file_columns)
+            else:
+                table = pq.read_table(f, columns=file_columns)
+            block = dict(normalize_block(table))
+            n = len(next(iter(block.values()))) if block else table.num_rows
+            for k, v in part_values.items():  # paths -> columns
+                block[k] = np.full(n, v)
+            return [block]
+
+        return task
+
+    return _from_read_tasks(
+        "ReadParquet",
+        [make_task(f, pv) for f, pv in zip(files, per_file)])
+
+
+def read_csv(paths, **read_opts) -> Dataset:
+    files = _expand_paths(paths)
+
+    def make_task(f):
+        def task() -> List[Block]:
+            import pandas as pd
+
+            if "://" in f:
+                with _open_path(f) as fh:
+                    return [normalize_block(pd.read_csv(fh, **read_opts))]
+            # Local paths go through pandas directly so its
+            # compression-by-extension inference (.csv.gz) keeps working.
+            return [normalize_block(pd.read_csv(f, **read_opts))]
+
+        return task
+
+    return _from_read_tasks("ReadCSV", [make_task(f) for f in files])
+
+
+def read_json(paths, **read_opts) -> Dataset:
+    files = _expand_paths(paths)
+
+    def make_task(f):
+        def task() -> List[Block]:
+            import pandas as pd
+
+            read_opts.setdefault("lines", True)
+            if "://" in f:
+                with _open_path(f) as fh:
+                    return [normalize_block(pd.read_json(fh, **read_opts))]
+            return [normalize_block(pd.read_json(f, **read_opts))]
+
+        return task
+
+    return _from_read_tasks("ReadJSON", [make_task(f) for f in files])
 
 
 def read_numpy(paths, **_opts) -> Dataset:
@@ -203,6 +346,42 @@ def read_sql(sql: str, connection_factory, *, parallelism: int = 1,
 
     return _from_read_tasks(
         "ReadSQL", [make_task(s) for s in builtins.range(n_tasks)])
+
+
+def read_images(paths, *, size=None, mode: str = "RGB",
+                **_opts) -> Dataset:
+    """Read image files into an ``image`` column of HWC uint8 arrays,
+    decoded with PIL, and a ``path`` column. ``size``
+    resizes to (width, height); images decode inside the read tasks.
+    Directory/glob expansion keeps only image extensions (a stray
+    README/.csv in the tree must not fail the read)."""
+    exts = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp",
+            ".tif", ".tiff")
+    files = [f for f in _expand_paths(paths)
+             if f.lower().endswith(exts)]
+    if not files:
+        raise FileNotFoundError(
+            f"no image files ({'/'.join(exts)}) matched {paths}")
+
+    def make_task(f):
+        def task() -> List[Block]:
+            import io
+
+            from PIL import Image
+
+            with _open_path(f) as fh:
+                img = Image.open(io.BytesIO(fh.read())).convert(mode)
+            if size is not None:
+                img = img.resize(tuple(size))
+            arr = np.asarray(img)
+            col = np.empty(1, dtype=object)
+            col[0] = arr
+            return [{"image": col,
+                     "path": np.asarray([f], dtype=object)}]
+
+        return task
+
+    return _from_read_tasks("ReadImages", [make_task(f) for f in files])
 
 
 def read_datasource(datasource, *, parallelism: int = 8, **opts) -> Dataset:

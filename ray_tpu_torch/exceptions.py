@@ -1,6 +1,8 @@
 """Typed error surface of the port (own copies of the reference's
-``ray_tpu/exceptions.py``, trimmed to what the one-process runtime and
-Serve raise, and of ``ray_tpu.llm.kv_cache.KVCacheOOM``).
+``ray_tpu/exceptions.py``, and of ``ray_tpu.llm.kv_cache.KVCacheOOM``).
+``ActorUnavailableError``, ``ObjectReconstructionFailedError`` and
+``PendingCallsLimitExceededError`` are defined for API parity: the
+reference raises none of them, and neither does the port.
 
 A task's error surfaces at ``get`` as a ``RayTaskError`` that is also an
 instance of the original exception's type, so user ``except`` clauses
@@ -98,6 +100,10 @@ class ActorDiedError(RayActorError):
     pass
 
 
+class ActorUnavailableError(RayActorError):
+    """Actor is temporarily unreachable (restarting)."""
+
+
 class TaskCancelledError(RayTpuError):
     def __init__(self, task_id=None):
         self.task_id = task_id
@@ -112,6 +118,10 @@ class ObjectLostError(RayTpuError):
     def __init__(self, object_ref=None, message: str = ""):
         self.object_ref = object_ref
         super().__init__(message or f"object {object_ref} was lost")
+
+
+class ObjectReconstructionFailedError(ObjectLostError):
+    pass
 
 
 class OwnerDiedError(ObjectLostError):
@@ -187,6 +197,10 @@ class NodeDrainingError(RayTpuError):
         super().__init__(
             f"node {node_client!r} is draining for reap and refuses "
             f"new work (rerouted)")
+
+
+class PendingCallsLimitExceededError(RayTpuError):
+    pass
 
 
 class RuntimeEnvSetupError(RayTpuError):

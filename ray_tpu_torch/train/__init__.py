@@ -4,8 +4,9 @@ reference's ``JaxTrainer``, under the alias the reference also exports)
 and ``TorchTrainer`` run ``train_loop_per_worker`` on N worker actors with
 ``report``, checkpoints persisted to a storage URI (``CheckpointStore``),
 group restarts from the latest checkpoint and ``restore(uri)``;
-``get_dataset_shard`` hands each rank its ``Dataset.split`` shard. Not
-ported yet: ``TransformersTrainer``.
+``get_dataset_shard`` hands each rank its ``Dataset.split`` shard.
+``TransformersTrainer`` fine-tunes a PyTorch ``transformers`` model on the
+same worker group (``train/huggingface.py``).
 """
 
 from ray_tpu_torch.train.callbacks import (
@@ -33,6 +34,7 @@ from ray_tpu_torch.train.session import (
 from ray_tpu_torch.train.storage import CheckpointStore
 from ray_tpu_torch.train import torch  # noqa: F401 — train.torch.*
 from ray_tpu_torch.train.torch import TorchTrainer
+from ray_tpu_torch.train.huggingface import TransformersTrainer
 from ray_tpu_torch.train.trainer import (
     DataParallelTrainer,
     Result,
@@ -53,6 +55,7 @@ __all__ = [
     "ScalingConfig",
     "TorchTrainer",
     "TrainingFailedError",
+    "TransformersTrainer",
     "get_checkpoint",
     "get_context",
     "get_dataset_shard",

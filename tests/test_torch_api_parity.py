@@ -9,9 +9,21 @@ port takes both and returns the same values, here against the reference's
 on the same parameters (``params_from_jax``), with no mesh and on an
 8-device CPU mesh (dp 2 x tp 4, the reference's over its 8 virtual CPU
 devices, the port's over 8 virtual shards of the CPU).
+
+The reference's exception types that it defines and never raises
+(``ActorUnavailableError``, ``ObjectReconstructionFailedError``,
+``PendingCallsLimitExceededError``) exist in the port with the same bases
+and messages. ``SerializationContext.register_serializer`` /
+``deregister_serializer``: a registered class round-trips through
+``put``/``get`` and a task on the thread plane, through the wire form and
+through a worker process of the process plane, its values equal on both
+sides. In the port the pair is used until it is deregistered; in the
+reference it never is (ROADMAP C.18: its dispatch table is set on the
+``CloudPickler`` after construction, which the C pickler never reads).
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -97,3 +109,94 @@ def test_forward_and_loss_take_mesh_and_rules(with_mesh):
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                atol=LOGIT_ATOL)
     np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=LOSS_RTOL)
+
+
+# ------------------------------------------------------ A.11's leftovers
+@pytest.mark.parametrize("name,base,args,message", [
+    ("ActorUnavailableError", "RayActorError", ("a1",), "actor a1 is dead"),
+    ("ObjectReconstructionFailedError", "ObjectLostError", ("o1",),
+     "object o1 was lost"),
+    ("PendingCallsLimitExceededError", "RayTpuError", ("full",), "full"),
+])
+def test_exception_types_match_reference(name, base, args, message):
+    import ray_tpu.exceptions as jexc
+    import ray_tpu_torch.exceptions as texc
+
+    for mod in (jexc, texc):
+        cls = getattr(mod, name)
+        assert cls.__bases__ == (getattr(mod, base),)
+        err = cls(*args)
+        assert isinstance(err, getattr(mod, base))
+        assert isinstance(err, mod.RayTpuError)
+        assert str(err) == message
+    assert [c.__name__ for c in getattr(texc, name).__mro__] == [
+        c.__name__ for c in getattr(jexc, name).__mro__]
+
+
+def _point_class():
+    """A class defined here, so it crosses to a worker process by value."""
+    class Point:
+        def __init__(self, x, via="pickle"):
+            self.x, self.via = x, via
+
+    return Point
+
+
+def _registered_round_trips(rt, worker_mod):
+    """(x, via) of a Point through put/get, through a task that takes it
+    by reference and returns it, and, for the wire form, through
+    ``to_bytes``: with a serializer registered, then after
+    ``deregister_serializer``."""
+    Point = _point_class()
+    ctx = worker_mod.global_worker().serialization_context
+    ser_mod = importlib.import_module(
+        worker_mod.__name__.replace(".worker", ".serialization"))
+
+    @rt.remote
+    def echo(p):
+        return p.x, p.via, p
+
+    def trips(base):
+        got = rt.get(rt.put(Point(base)))
+        x, via_in_task, back = rt.get(echo.remote(rt.put(Point(base + 1))))
+        wire = ser_mod.SerializationContext().deserialize(
+            ser_mod.SerializedObject.from_bytes(
+                ctx.serialize(Point(base + 2)).to_bytes()))
+        return [(got.x, got.via), (x, via_in_task), (back.x, back.via),
+                (wire.x, wire.via)]
+
+    ctx.register_serializer(Point, serializer=lambda p: p.x,
+                            deserializer=lambda x: Point(x, "custom"))
+    try:
+        registered = trips(10)
+    finally:
+        ctx.deregister_serializer(Point)
+    return registered, trips(20)
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_registered_serializer_round_trips(mode):
+    import ray_tpu
+    import ray_tpu._private.worker as jworker
+    import ray_tpu_torch
+    import ray_tpu_torch._private.worker as tworker
+
+    out = {}
+    for name, rt, mod in (("reference", ray_tpu, jworker),
+                          ("port", ray_tpu_torch, tworker)):
+        rt.shutdown()
+        rt.init(num_cpus=2, worker_mode=mode, ignore_reinit_error=True)
+        try:
+            out[name] = _registered_round_trips(rt, mod)
+        finally:
+            rt.shutdown()
+    values = {name: [[x for x, _ in trips] for trips in both]
+              for name, both in out.items()}
+    assert values["port"] == values["reference"] == [
+        [10, 11, 11, 12], [20, 21, 21, 22]]
+    registered, deregistered = out["port"]
+    assert [via for _, via in registered] == ["custom"] * 4
+    assert [via for _, via in deregistered] == ["pickle"] * 4
+    # C.18: the reference's registration never reaches its pickler.
+    assert [via for trips in out["reference"] for _, via in trips] == [
+        "pickle"] * 8

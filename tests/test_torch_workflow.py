@@ -4,6 +4,8 @@ both sides and their outcomes (values, statuses, attempt counts, side
 effects, error type names) must be equal; the kill -9 and ``resume_all``
 scenarios run each side's driver in a child process; the file names under
 the storage root, and the state API's workflow listings, are compared.
+The slow twin of ``:309`` kills the driver and its head service, restarts
+the head from its state log and resumes from a new attached driver.
 
 Both runtimes run in one process (the reference on
 ``ray_tpu.init(worker_mode="thread")``). Both sides pickle with
@@ -573,7 +575,8 @@ import test_torch_workflow as steps
 
 root, effects, hold, kill_at = (
     sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]))
-ray_tpu_torch.init(num_cpus=2)
+address = sys.argv[6] if len(sys.argv) > 6 else None
+ray_tpu_torch.init(num_cpus=2, address=address)
 os.environ["WF_KILL_AT"] = str(kill_at)
 os.environ["WF_HOLD"] = hold
 os.environ["WF_EFFECTS"] = effects
@@ -595,17 +598,17 @@ def _child_env():
     return env
 
 
-def _spawn(side, root, effects, hold, kill_at):
+def _spawn(side, root, effects, hold, kill_at, address=None, env=None):
     if side == "ref":
         from test_workflow import _DRIVER
 
         args = [sys.executable, "-c", _DRIVER, root, effects, hold,
-                str(kill_at)]
+                str(kill_at)] + ([address] if address else [])
     else:
         args = [sys.executable, "-c", _PORT_DRIVER, root, effects, hold,
-                str(kill_at), TESTS_DIR]
+                str(kill_at), TESTS_DIR] + ([address] if address else [])
     return subprocess.Popen(args, stdout=subprocess.PIPE, text=True,
-                            cwd=REPO, env=_child_env())
+                            cwd=REPO, env=env or _child_env())
 
 
 def _committed(s, root):
@@ -676,6 +679,91 @@ def test_driver_kill9_resume_exactly_once(runtimes, tmp_path, monkeypatch,
     assert result == (45 if sweep == "resume" else {"crashy": 45})
     assert runs == sorted(f"step{i}" for i in range(10))
     assert (status, running, committed) == ("SUCCESS", [], 10)
+
+
+# ---------------------------------------------------- head-restart resume
+_HEAD_MODULE = {"ref": "ray_tpu._private.head_service",
+                "port": "ray_tpu_torch._private.head_service"}
+
+
+def _spawn_head(side, port, state, env):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", _HEAD_MODULE[side], "--port", str(port),
+         "--state", state], stdout=subprocess.PIPE, text=True, cwd=REPO,
+        env=env)
+    return proc, proc.stdout.readline().strip().rsplit(" ", 1)[-1]
+
+
+def _head_restart_resume(s, scratch, monkeypatch):
+    """The twin of ``tests/test_workflow.py:309`` on one side: a chain on
+    ``memory://`` storage (the head's KV and its append log) parked at
+    step 4; kill -9 the driver and the head, restart the head from its
+    log on the same port, and resume from a new driver attached to it.
+    Returns (status seen after the restart, result, every step's runs)."""
+    state = str(scratch / "head_state.log")
+    effects = str(scratch / "effects.log")
+    hold = str(scratch / "hold")
+    open(hold, "w").close()
+    env = _child_env()
+    env["RAY_TPU_HEAD_CLIENT_TIMEOUT_S"] = "3.0"
+    root = f"memory://wf_head_restart_{s.name}"
+    head1, address = _spawn_head(s.name, 0, state, env)
+    driver = _spawn(s.name, root, effects, hold, 4, address=address,
+                    env=env)
+    head2 = None
+    try:
+        deadline = time.monotonic() + T
+        while time.monotonic() < deadline:
+            if os.path.exists(effects):
+                with open(effects) as f:
+                    if len(f.read().split()) >= 4:
+                        break
+            assert driver.poll() is None, "the child driver ended early"
+            time.sleep(0.05)
+        else:
+            raise AssertionError("the child driver never reached step 4")
+        time.sleep(0.5)   # step 3's commit reaches the head's KV and log
+        for p in (driver, head1):
+            p.send_signal(signal.SIGKILL)
+            p.wait(timeout=T)
+        os.unlink(hold)
+        head2, _ = _spawn_head(s.name, int(address.rsplit(":", 1)[1]),
+                               state, env)
+        kw = {"worker_mode": "thread"} if s.name == "ref" else {}
+        s.rt.init(num_cpus=2, address=address, ignore_reinit_error=True,
+                  **kw)
+        monkeypatch.setenv("WF_EFFECTS", effects)
+        monkeypatch.setenv("WF_KILL_AT", "-1")
+        status, deadline = None, time.monotonic() + 30
+        while status is None and time.monotonic() < deadline:
+            try:
+                status = s.wf.get_status("crashy", storage=root)
+            except Exception:  # noqa: BLE001 — the head still re-dialing
+                time.sleep(0.25)
+        out = s.wf.resume("crashy", storage=root)
+        with open(effects) as f:
+            runs = sorted(f.read().split())
+        return status, out, runs
+    finally:
+        s.rt.shutdown()
+        for p in (driver, head1, head2):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=T)
+
+
+@pytest.mark.slow
+def test_workflow_resumes_after_head_restart(tmp_path, monkeypatch):
+    for rt in (ray_tpu, ray_tpu_torch):
+        rt.shutdown()
+    out = {}
+    for name, s in SIDES.items():
+        scratch = tmp_path / name
+        scratch.mkdir()
+        out[name] = _head_restart_resume(s, scratch, monkeypatch)
+    assert out["port"] == out["ref"]
+    assert out["ref"] == ("RUNNING", 45,
+                          sorted(f"step{i}" for i in range(10)))
 
 
 # -------------------------------------------------------------- state API
