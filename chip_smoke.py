@@ -640,7 +640,25 @@ non-zero without printing a result. Without a CUDA card, or without the
    and import checks; the flagship's step p50 on one card, in one process
    over every card and in a process per card over NCCL, and the
    all-reduce of the 181.7 MB f32 gradient alone (p50 and bus GB/s); with
-   one card a line says (c) did not run.
+   one card a line says (c) did not run. (d) pp across processes: two
+   processes on this one card over gloo (a line names it and says that a
+   hop across them goes through host memory), make_mesh(pp=2), a stage
+   of n_layers / 2 layers in each, both feeding the whole batch
+   (host_local_batch_slice(..., mesh=mesh)); DIST_STEPS of the default
+   AdamW, then DIST_SGD_STEPS of SGD from fresh weights. Their losses and
+   every leaf of their shards equal the one-process pp-2 mesh over 2
+   virtual shards of the card to DIST_LOSS_TOL and DIST_UPDATE_TOL; each
+   process launches the forward, dQ and dK/dV on the tensor cores as its
+   stage's shard does there (n_layers / 2 layers x DIST_MICROBATCHES
+   a step), counted in it, and imports neither JAX nor ray_tpu. (e)
+   Where at least four cards are visible, NCCL with a process per card:
+   make_mesh(dp=2, pp=2) over four (dp and pp both across processes) and
+   make_mesh(pp=2) over two of the cards, each held against one process
+   over the same cards (peer copies) with the same checks; with fewer
+   cards a line says (e) did not run. Smoke readings (host clock): the
+   step p50 of each layout beside the one-process mesh's, the seconds of
+   one hop of a [2, 2048, d_model] bf16 activation across processes, and
+   the phase's seconds.
 
 24. formats: Data's pandas, Arrow, fsspec and PIL surface and
    TransformersTrainer (ray_tpu_torch.data, ray_tpu_torch.train.
@@ -1103,8 +1121,16 @@ ELASTIC_ACTOR = "flagship_elastic_trainer"
 # leaves within 3.7e-9 of one process's (PERF.md, PR 31), so they are
 # held to the same DIST_LOSS_TOL and DIST_UPDATE_TOL, far below what a
 # skipped or mis-scaled sync moves (a loss by 3e-4, a leaf by 1e-3).
+# (d) and (e) hold pp across processes to the same tolerances: each
+# stage's process runs the kernels of the one-process mesh's shard on the
+# same rows, a hop carries the bf16 activation bit for bit, and the sums
+# across processes (the output cotangents at the last stage, the pp sync
+# of embed, final_norm and lm_head) add the same two terms. DIST_HOP_ITERS
+# timed hops of one [DIST_MICROBATCH_ROWS, DIST_LEN, d_model] bf16
+# activation across processes in (d) and (e).
 DIST_BATCH, DIST_LEN, DIST_MICROBATCHES = 4, 2048, 2
 DIST_STEPS, DIST_NCCL_STEPS, DIST_ALLREDUCE_ITERS = 8, 6, 10
+DIST_HOP_ITERS = 10
 DIST_SGD_STEPS, DIST_SGD_LR = 2, 0.1
 DIST_LOSS_TOL, DIST_UPDATE_TOL = 1e-6, 1e-6
 DIST_POLL_S = 300.0
@@ -9647,12 +9673,12 @@ def _dist_steps(step, tokens, rows, dev, steps):
     return losses, secs
 
 
-def _dist_jobs(cfg, processes, steps):
+def _dist_jobs(cfg, mesh, steps):
     """The step jobs of phase 23's workers (torch_distributed_worker.py):
     ``steps`` steps of the default AdamW with the launches counted, then
-    DIST_SGD_STEPS of SGD, each on make_mesh(dp=processes) from the seed's
+    DIST_SGD_STEPS of SGD, each on make_mesh(**mesh) from the seed's
     weights."""
-    base = {"kind": "step", "cfg": _cfg_spec(cfg), "mesh": {"dp": processes},
+    base = {"kind": "step", "cfg": _cfg_spec(cfg), "mesh": dict(mesh),
             "init_seed": SEED, "microbatches": DIST_MICROBATCHES}
     return [dict(base, name="adamw", optimizer="default", steps=steps,
                  counts=True),
@@ -9660,19 +9686,30 @@ def _dist_jobs(cfg, processes, steps):
                  steps=DIST_SGD_STEPS, counts=True)]
 
 
-def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0):
+def _dist_hop_shape(cfg):
+    """One microbatch's activation between two stages: [rows, len, d]."""
+    return [DIST_BATCH // DIST_MICROBATCHES, DIST_LEN, cfg.d_model]
+
+
+def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0,
+              mesh=None, hop=False):
     """Phase 23's worker processes (torch_distributed_worker.py), one for
-    each entry of ``ids`` (its cards), over ``backend``: _dist_jobs, then,
-    given ``allreduce_elements``, DIST_ALLREDUCE_ITERS timed all-reduces
-    of that many f32. Returns (each process's report, each one's leaves
-    by job); every wait within DIST_POLL_S, every process killed on the
-    way out."""
+    each entry of ``ids`` (its cards), over ``backend``: _dist_jobs on
+    make_mesh(**mesh) (default: dp over the processes), then, given
+    ``allreduce_elements``, DIST_ALLREDUCE_ITERS timed all-reduces of that
+    many f32, and with ``hop`` DIST_HOP_ITERS timed hops of one bf16
+    activation (_dist_hop_shape) from process 0 to process 1. Returns
+    (each process's report, each one's leaves by job); every wait within
+    DIST_POLL_S, every process killed on the way out."""
     import torch_distributed_worker as worker
 
-    jobs = _dist_jobs(cfg, len(ids), steps)
+    jobs = _dist_jobs(cfg, mesh or {"dp": len(ids)}, steps)
     if allreduce_elements:
         jobs.append({"kind": "allreduce", "elements": allreduce_elements,
                      "iters": DIST_ALLREDUCE_ITERS})
+    if hop:
+        jobs.append({"kind": "hop", "shape": _dist_hop_shape(cfg),
+                     "dtype": "bfloat16", "iters": DIST_HOP_ITERS})
     tokens = _dist_tokens(cfg, steps).numpy()
     outs = worker.launch(jobs, tmp, processes=len(ids), backend=backend,
                          local_device_ids=ids,
@@ -9700,19 +9737,24 @@ def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0):
                               "elements": allreduce_elements,
                               "s": out["allreduce/seconds"].tolist(),
                               "exact": bool(out["allreduce/exact"])}
+        if hop:
+            r["hop"] = {"bytes": int(out["hop/bytes"]),
+                        "s": out["hop/seconds"].tolist(),
+                        "arrived": bool(out["hop/arrived"])}
         reports.append(r)
         leaves.append(mine)
     return reports, leaves
 
 
-def _dist_one_process(cfg, devices, steps, sgd=False):
+def _dist_one_process(cfg, devices, steps, sgd=False, mesh=None):
     """The oracle: the flagship's step (the default AdamW, or SGD) on
-    make_mesh(dp=len(devices)) in this process over the whole of each
-    batch: (losses, step seconds, shards)."""
+    make_mesh(**mesh) (default: dp over ``devices``) in this process over
+    the whole of each batch: (losses, step seconds, shards)."""
     from ray_tpu_torch.models import init_params, make_spmd_train_step
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
 
-    mesh = make_mesh(MeshConfig(dp=len(devices)), devices=devices)
+    mesh = make_mesh(MeshConfig(**(mesh or {"dp": len(devices)})),
+                     devices=devices)
     step, _, shards = make_spmd_train_step(
         cfg, mesh, init_params(cfg, SEED, device=devices[0]),
         optimizer=((lambda ls: torch.optim.SGD(ls, lr=DIST_SGD_LR))
@@ -9723,13 +9765,13 @@ def _dist_one_process(cfg, devices, steps, sgd=False):
     return losses, secs, shards
 
 
-def _dist_oracle(cfg, devices, steps):
-    """Both jobs' oracles on ``devices``: per job, (losses, step seconds,
-    every shard's leaves)."""
+def _dist_oracle(cfg, devices, steps, mesh=None):
+    """Both jobs' oracles on ``devices`` (make_mesh(**mesh), default dp
+    over them): per job, (losses, step seconds, every shard's leaves)."""
     out = {}
     for job, n, sgd in (("adamw", steps, False),
                         ("sgd", DIST_SGD_STEPS, True)):
-        losses, secs, shards = _dist_one_process(cfg, devices, n, sgd)
+        losses, secs, shards = _dist_one_process(cfg, devices, n, sgd, mesh)
         out[job] = (losses, secs, _dist_leaves(enumerate(shards)))
         del shards
         torch.cuda.empty_cache()
@@ -9737,14 +9779,18 @@ def _dist_oracle(cfg, devices, steps):
 
 
 def _dist_check(tag, cfg, reports, leaves, oracle, loss_tol, leaf_tol,
-                fails):
+                fails, pp=1):
     """Holds each process of ``reports`` against the one-process
     ``oracle`` job by job: every loss to ``loss_tol`` (relative) and
     every leaf of its shards to ``leaf_tol`` (absolute), its launches
-    (forward, dQ and dK/dV n_layers times a step on the tensor cores), its
-    shard (its rank) and its imports. Returns per job the largest errors
-    and how many leaf elements differ by more than 1e-7 .. 1e-4."""
-    per_step = _want_counts("wgmma", cfg.n_layers, cfg.n_layers)
+    (forward, dQ and dK/dV on the tensor cores a step: n_layers times,
+    or with ``pp`` stages its stage's n_layers / pp layers once a
+    microbatch, as its shard of the one-process mesh), its shard (its
+    rank) and its imports. Returns per job the largest errors and how
+    many leaf elements differ by more than 1e-7 .. 1e-4."""
+    calls = (cfg.n_layers if pp == 1
+             else cfg.n_layers // pp * DIST_MICROBATCHES)
+    per_step = _want_counts("wgmma", calls, calls)
     errs = {}
     for job, (want, _, ref) in oracle.items():
         leaf_err, loss_err, beyond = 0.0, 0.0, [0, 0, 0, 0]
@@ -9860,8 +9906,35 @@ def phase_distributed(dev, card, cfg):
     else:
         res["c"] = _dist_nccl(cfg, [torch.device("cuda", i)
                                     for i in range(n)], fails)
-    emit({"phase": "distributed", "results": res,
-          "seconds": time.perf_counter() - t_phase, "card": card})
+    # (d) pp across two processes on this one card over gloo, a stage in
+    # each, against the one-process pp-2 mesh over 2 virtual shards.
+    emit({"distributed_d_backend": "gloo",
+          "why": "NCCL refuses two ranks on one device, so the two "
+                 "stages' processes on the one card meet over gloo",
+          "hop": "gloo has no point-to-point for CUDA tensors, so a hop "
+                 "across the processes goes through host memory: the "
+                 "activation copied to the host, sent and received "
+                 "there, and copied onto the receiver's card"})
+    res["d"] = _dist_pp("(d)", cfg, [dev, dev], [[0], [0]], "gloo",
+                        {"pp": 2}, DIST_STEPS, fails)
+    # (e) NCCL, a process per card, pp across them.
+    if n < 4:
+        emit({"distributed_e": "skipped", "why": f"{n} CUDA card(s) "
+              f"visible; (e) runs make_mesh(dp=2, pp=2) over four "
+              f"processes of a card each, so it runs where at least four "
+              f"cards are"})
+        res["e"] = None
+    else:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        res["e"] = {
+            "dp2-pp2": _dist_pp("(e) dp2-pp2", cfg, cards,
+                                [[i] for i in range(4)], "nccl",
+                                {"dp": 2, "pp": 2}, DIST_NCCL_STEPS, fails),
+            "pp2": _dist_pp("(e) pp2", cfg, cards[:2], [[0], [1]], "nccl",
+                            {"pp": 2}, DIST_NCCL_STEPS, fails)}
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "results": res, "seconds": seconds,
+          "card": card})
     if fails:
         raise AssertionError(f"phase 23: {fails}")
     b = res["b"]
@@ -9873,7 +9946,54 @@ def phase_distributed(dev, card, cfg):
               **{k: res["c"][k] for k in (
                   "cards", "step_p50_ms", "allreduce", "errors")},
               "tokens_per_step": DIST_BATCH * DIST_LEN, "card": card})
+    for tag, run in [("d", res["d"])] + [
+            (f"e {k}", v) for k, v in (res["e"] or {}).items()]:
+        emit({"distributed_step_smoke_reading": tag,
+              **{k: run[k] for k in ("mesh", "backend", "step_p50_ms",
+                                     "hop", "errors")},
+              "tokens_per_step": DIST_BATCH * DIST_LEN, "card": card})
+    emit({"distributed_phase_s": seconds, "card": card})
     return res
+
+
+def _dist_pp(tag, cfg, devices, ids, backend, mesh, steps, fails):
+    """Phase 23 (d) and (e): the flagship's step on make_mesh(**mesh),
+    whose pp crosses the processes of ``ids`` (their cards) over
+    ``backend``, against one process over ``devices`` on the same mesh:
+    the losses, every leaf, each process's launches (its stage's shard of
+    the one-process mesh) and imports (_dist_check); the step p50 of
+    both, and the seconds of one hop of a bf16 activation from process 0
+    to process 1 (each process's clock)."""
+    t0 = time.perf_counter()
+    oracle = _dist_oracle(cfg, devices, steps, mesh)
+    one_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        t0 = time.perf_counter()
+        reports, leaves = _dist_run(cfg, ids, backend, steps, tmp,
+                                    mesh=mesh, hop=True)
+        run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(r["hop"]["arrived"] for r in reports):
+        fails.append(f"{tag} the timed hop's value did not arrive intact")
+    hop = {"shape": _dist_hop_shape(cfg), "dtype": "bfloat16",
+           "bytes": reports[0]["hop"]["bytes"],
+           "route": "host memory" if backend == "gloo" else "NCCL",
+           "p50_ms_sender": _p50(reports[0]["hop"]["s"]) * 1e3,
+           "p50_ms_receiver": _p50(reports[1]["hop"]["s"]) * 1e3}
+    return {"mesh": mesh, "backend": backend, "processes": len(ids),
+            "one_process_s": one_s, "processes_s": run_s,
+            "losses_one_process": {j: o[0] for j, o in oracle.items()},
+            "reports": reports,
+            "errors": _dist_check(tag, cfg, reports, leaves, oracle,
+                                  DIST_LOSS_TOL, DIST_UPDATE_TOL, fails,
+                                  pp=mesh["pp"]),
+            "step_p50_ms": {
+                "processes": _p50([s for r in reports
+                                   for s in r["adamw"]["step_s"][1:]]) * 1e3,
+                "one_process": _p50(oracle["adamw"][1][1:]) * 1e3},
+            "hop": hop}
 
 
 def _dist_nccl(cfg, cards, fails, backend="nccl"):

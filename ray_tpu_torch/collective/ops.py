@@ -19,18 +19,33 @@ shard order.
 A mesh that spans processes (``parallel.distributed``) takes the list of
 this process's shards, in the mesh's flat order. A group whose members
 all live here runs as above. ``allreduce``, ``allgather``,
-``reducescatter`` and ``broadcast`` also take groups that cross
-processes: first the members held here are combined onto the group's
-first local shard, as above; then ``torch.distributed`` carries the
-combined value between the group's processes, over a process group made
-for that set of processes, on this process's first device of the mesh;
-then the result goes to each local member. Results keep ``lax``'s
+``reducescatter``, ``broadcast`` and ``all_to_all`` also take groups that
+cross processes: first the members held here are combined onto the
+group's first local shard, as above; then ``torch.distributed`` carries
+the combined value between the group's processes, over a process group
+made for that set of processes, on this process's first device of the
+mesh; then the result goes to each local member. Results keep ``lax``'s
 row-major order, which is process-major. ``reducescatter`` is an
-all-reduce followed by each member's block. Gloo has only ``all_reduce``
-and ``broadcast`` for CUDA tensors, so on gloo an ``allgather`` of CUDA
-tensors is an all-reduce of each process's block placed in zeros.
-``permute``, ``send_recv`` and ``all_to_all`` across processes raise
-(ROADMAP A.7).
+all-reduce followed by each member's block. ``all_to_all`` is built on
+the all-gather: every member's tensor reaches every process, which picks
+out its members' blocks (n times the bytes of a true all-to-all; the
+all-gather's backward gives the inverse exchange). Gloo has only
+``all_reduce`` and ``broadcast`` for CUDA tensors, so on gloo an
+``allgather`` of CUDA tensors is an all-reduce of each process's block
+placed in zeros.
+
+``permute`` and ``send_recv`` across processes are point to point
+(``route``): every (source, destination) pair of the call, for every
+group, in one order that every process computes (groups in ``groups``
+order, pairs in the order given); a pair inside this process is a copy,
+a pair across processes a ``torch.distributed`` send and receive,
+posted together (``batch_isend_irecv``), so NCCL, which matches a pair
+of ranks' sends and receives by order and has no tags, pairs them as
+posted. Over gloo a CUDA tensor is staged through host memory (gloo has
+no point-to-point for CUDA tensors); over NCCL it goes from this
+process's first device of the mesh. Its backward is the inverse route,
+posted in the same order. The pipeline (``parallel/pipeline.py``) hops
+its activations across processes through the same ``route``.
 
 Every op is built of differentiable tensor operations (``.to``, sums,
 ``cat``, ``chunk``), so under autograd its backward is the transpose
@@ -42,7 +57,12 @@ step across processes is a ``torch.autograd.Function`` whose backward is
 the same transpose over ``torch.distributed``; it needs one device in
 each process (a card, or CPU shards), so that every process runs the
 backward's exchanges in one order, and raises otherwise (the training
-step syncs its gradients outside autograd).
+step syncs its gradients outside autograd, and the pipeline runs its
+backward's exchanges in its own fixed order). A process runs the
+backward of a ``permute`` or ``send_recv`` across processes only if its
+loss reads one of the op's results on its shards (a shard that receives
+nothing holds zeros that come out of the op); otherwise its peers wait
+for its cotangents until ``distributed.TIMEOUT``.
 
 ``permute`` and ``send_recv`` keep ``ppermute``'s rule: a shard that
 receives nothing holds zeros.
@@ -51,7 +71,8 @@ receives nothing holds zeros.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -109,6 +130,13 @@ def groups(mesh: Mesh, axis: AxisName) -> List[List[int]]:
     return flat.transpose(others + ks).reshape(-1, n).tolist()
 
 
+def _check_local(xs, mesh: Mesh, axis: AxisName) -> None:
+    if len(xs) != mesh.local_size:
+        raise ValueError(f"{len(xs)} shard tensors for axis {axis!r} of "
+                         f"size {axis_size(mesh, axis)} (or a mesh of "
+                         f"which this process holds {mesh.local_size})")
+
+
 # op(parts, pos, n, cross): the members of one group of n held here
 # (``parts``, at positions ``pos`` of the group), with ``cross`` None when
 # the whole group lives in this process, else its ``_Cross``.
@@ -116,40 +144,37 @@ GroupOp = Callable[[List[torch.Tensor], List[int], int,
                     Optional["_Cross"]], List[torch.Tensor]]
 
 
+def _refuse_autograd_across(xs: Sequence[torch.Tensor], mesh: Mesh):
+    """Autograd through an exchange across processes needs one device in
+    each process (module docstring)."""
+    n_dev = len({str(d) for d in mesh.local_devices})
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs) \
+            and n_dev > 1:
+        raise NotImplementedError(
+            f"autograd through a collective across processes with "
+            f"{n_dev} devices in a process waits for ROADMAP A.7: the "
+            f"backward's exchanges would run in the order the devices' "
+            f"autograd threads reach them, which differs between "
+            f"processes")
+
+
 def _per_group(xs: Sequence[torch.Tensor], mesh: Mesh, axis: AxisName,
-               op: GroupOp, local_only: Optional[str] = None
-               ) -> List[torch.Tensor]:
+               op: GroupOp) -> List[torch.Tensor]:
     """``op`` on the shards of one group (``xs`` as long as the axis), or
     on every group of the mesh (``xs`` as long as the mesh, or, of a mesh
-    that spans processes, this process's shards). ``local_only`` names
-    an op that refuses groups across processes."""
+    that spans processes, this process's shards)."""
     n = axis_size(mesh, axis)
     if len(xs) == n and not mesh.spans_processes:
         return op(list(xs), list(range(n)), n, None)
-    if len(xs) != mesh.local_size:
-        raise ValueError(f"{len(xs)} shard tensors for axis {axis!r} of "
-                         f"size {n} (or a mesh of which this process "
-                         f"holds {mesh.local_size})")
+    _check_local(xs, mesh, axis)
     owner = mesh.processes.reshape(-1)
     where = {j: i for i, j in enumerate(mesh.local_indices)}
     gs = groups(mesh, axis)
     owners = [[int(owner[j]) for j in g] for g in gs]
     crossing = sorted({tuple(sorted(set(o))) for o in owners
                        if len(set(o)) > 1})
-    if crossing and local_only:
-        raise NotImplementedError(
-            f"{local_only} over axis {axis!r}, whose groups cross "
-            f"processes, waits for ROADMAP A.7 (across processes: "
-            f"allreduce, allgather, reducescatter, broadcast)")
-    if crossing and torch.is_grad_enabled() and any(
-            x.requires_grad for x in xs) and len(
-            {str(d) for d in mesh.local_devices}) > 1:
-        raise NotImplementedError(
-            f"autograd through a collective across processes with "
-            f"{len({str(d) for d in mesh.local_devices})} devices in a "
-            f"process waits for ROADMAP A.7: the backward's exchanges "
-            f"would run in the order the devices' autograd threads reach "
-            f"them, which differs between processes")
+    if crossing:
+        _refuse_autograd_across(xs, mesh)
     # Every process asks for every crossing group's process group, in one
     # order (distributed.process_group).
     pgs = {ranks: distributed.process_group(ranks) for ranks in crossing}
@@ -290,6 +315,115 @@ class _Cross:
                                 self.pg).to(x.device)
 
 
+class Like(NamedTuple):
+    """What a receiver needs of a tensor: its shape, type and device."""
+    shape: torch.Size
+    dtype: torch.dtype
+    device: torch.device
+
+
+def like(x: torch.Tensor) -> Like:
+    return Like(x.shape, x.dtype, x.device)
+
+
+def _p2p(sends: Sequence[Tuple[torch.Tensor, int]],
+         recvs: Sequence[Tuple[torch.Tensor, int]], via: torch.device
+         ) -> List[torch.Tensor]:
+    """Send each ``(tensor, rank)`` of ``sends`` and receive a tensor like
+    each ``(template, rank)`` of ``recvs`` (its shape and type; the result
+    lands on the template's device), all posted at once. Both lists hold
+    this process's side of one order that every process computes, so a
+    pair of ranks matches its sends and receives in order. Tensors cross
+    on ``via``: a CUDA tensor over gloo goes through host memory."""
+    if not sends and not recvs:
+        return []
+    ops, keep = [], []
+    for t, rank in sends:
+        t = t.detach().to(via).contiguous()
+        keep.append(t)
+        ops.append(dist.P2POp(dist.isend, t, int(rank)))
+    bufs = []
+    for tmpl, rank in recvs:
+        bufs.append(torch.empty(tmpl.shape, dtype=tmpl.dtype, device=via))
+        ops.append(dist.P2POp(dist.irecv, bufs[-1], int(rank)))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [b.to(tmpl.device) for b, (tmpl, _) in zip(bufs, recvs)]
+
+
+def _via(mesh: Mesh) -> torch.device:
+    """The device this process's point-to-point tensors cross on: the
+    host over gloo, else the mesh's first local device."""
+    home = mesh.local_devices[0]
+    if dist.get_backend() == "gloo":
+        return torch.device("cpu")
+    distributed.ready_p2p(home)
+    return home
+
+
+def route(mesh: Mesh, pairs: Sequence[Tuple[int, int]], values,
+          templates) -> List[Tuple[int, List[torch.Tensor]]]:
+    """Move tensors between shards of a mesh that may span processes, no
+    autograd. ``pairs`` are (source, destination) flat indices of the
+    mesh, in one order that every process computes; ``values[src]`` is
+    the list of tensors a source of this process sends,
+    ``templates[dst]`` what a destination of this process receives
+    (shapes, types, devices: tensors or ``Like``). Returns, for each pair
+    whose destination lives here, in ``pairs`` order, ``(dst,
+    tensors)``: a copy onto the destination's device within the
+    process, a send and a receive across processes (``_p2p``, every pair
+    of the call posted together). Every process of the mesh calls it
+    alike, whether or not it holds a pair."""
+    owner = mesh.processes.reshape(-1)
+    me = mesh.process
+    via = _via(mesh) if mesh.spans_processes else None
+    got: List[Optional[List[torch.Tensor]]] = [None] * len(pairs)
+    sends, recvs, recv_at = [], [], []
+    for k, (src, dst) in enumerate(pairs):
+        if owner[dst] == me and owner[src] == me:
+            got[k] = [v.to(t.device, copy=True)
+                      for v, t in zip(values[src], templates[dst])]
+        elif owner[src] == me:
+            sends += [(v, owner[dst]) for v in values[src]]
+        elif owner[dst] == me:
+            recvs += [(t, owner[src]) for t in templates[dst]]
+            recv_at.append((k, len(templates[dst])))
+    if sends or recvs:
+        flat = iter(_p2p(sends, recvs, via))
+        for k, n in recv_at:
+            got[k] = [next(flat) for _ in range(n)]
+    return [(dst, v) for (_, dst), v in zip(pairs, got) if v is not None]
+
+
+class _Route(torch.autograd.Function):
+    """``permute`` across processes: each local shard's result is what
+    its pair's source sent (zeros where nothing comes); the backward
+    routes the cotangents back along the reversed pairs."""
+
+    @staticmethod
+    def forward(ctx, mesh, pairs, *xs):
+        where = {j: i for i, j in enumerate(mesh.local_indices)}
+        ctx.mesh, ctx.pairs, ctx.like = mesh, pairs, [like(x) for x in xs]
+        out = [torch.zeros_like(x) for x in xs]
+        got = route(mesh, pairs, {j: [xs[i]] for j, i in where.items()},
+                    {j: [xs[i]] for j, i in where.items()})
+        for dst, (v,) in got:
+            out[where[dst]] = v
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        where = {j: i for i, j in enumerate(mesh.local_indices)}
+        back = route(mesh, [(d, s) for s, d in ctx.pairs],
+                     {j: [gs[i]] for j, i in where.items()},
+                     {j: [ctx.like[i]] for j, i in where.items()})
+        grads = [None] * len(gs)
+        for src, (g,) in back:       # a permutation's sources are distinct
+            grads[where[src]] = g
+        return (None, None, *grads)
+
+
 def _deliver(values: Sequence[torch.Tensor], xs: Sequence[torch.Tensor]
              ) -> List[torch.Tensor]:
     """values[j] copied onto shard j's device, into a buffer of its own."""
@@ -393,24 +527,26 @@ def broadcast(xs, mesh: Mesh, axis: str, root: int = 0
     return _per_group(xs, mesh, axis, bcast)
 
 
-def _permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]],
-             name: str) -> List[torch.Tensor]:
+def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
+            ) -> List[torch.Tensor]:
+    """Shard dst gets shard src's value for each (src, dst) pair; a shard
+    that receives nothing holds zeros (``ppermute``)."""
     perm = [(int(s), int(d)) for s, d in perm]
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"permutation {perm} repeats a source or a "
                          f"destination")
     sent = dict((d, s) for s, d in perm)
-    return _per_group(xs, mesh, axis, lambda g, pos, n, cross: [
-        g[sent[j]].to(x.device, copy=True) if j in sent
-        else torch.zeros_like(x) for j, x in enumerate(g)], name)
-
-
-def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
-            ) -> List[torch.Tensor]:
-    """Shard dst gets shard src's value for each (src, dst) pair; a shard
-    that receives nothing holds zeros (``ppermute``)."""
-    return _permute(xs, mesh, axis, perm, "permute")
+    owner = mesh.processes.reshape(-1)
+    gs = groups(mesh, axis)
+    if all(len(set(owner[g].tolist())) == 1 for g in gs):
+        return _per_group(xs, mesh, axis, lambda g, pos, n, cross: [
+            g[sent[j]].to(x.device, copy=True) if j in sent
+            else torch.zeros_like(x) for j, x in enumerate(g)])
+    _check_local(xs, mesh, axis)
+    _refuse_autograd_across(xs, mesh)
+    pairs = [(g[s], g[d]) for g in gs for s, d in perm]
+    return list(_Route.apply(mesh, pairs, *xs))
 
 
 def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
@@ -421,6 +557,8 @@ def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
     ``concat_axis`` (not tiled)."""
     def exchange(g, pos, n, cross):
         parts = _on_first(g)
+        if cross is not None:
+            parts = cross.allgather(parts)
         if tiled:
             blocks = [torch.chunk(x, n, dim=split_axis) for x in parts]
             if any(len(b) != n or b[0].shape != b[-1].shape
@@ -434,13 +572,13 @@ def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
                 raise ValueError(f"untiled split axis needs size {n}")
             out = [torch.stack([x.select(split_axis, j) for x in parts],
                                dim=concat_axis) for j in range(n)]
-        return _deliver(out, g)
+        return _deliver([out[k] for k in pos], g)
 
-    return _per_group(xs, mesh, axis, exchange, "all_to_all")
+    return _per_group(xs, mesh, axis, exchange)
 
 
 def send_recv(xs, mesh: Mesh, axis: str, src: int, dst: int
               ) -> List[torch.Tensor]:
     """Point to point: dst receives src's value; everyone else holds
     zeros (``ppermute``'s rule)."""
-    return _permute(xs, mesh, axis, [(src, dst)], "send_recv")
+    return permute(xs, mesh, axis, [(src, dst)])

@@ -678,10 +678,14 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
     On a mesh that spans processes (``parallel.distributed``) every
     process builds the step alike: ``shards`` are this process's, and
     each process passes ``step`` only its rows of the global batch
-    (``distributed.host_local_batch_slice``). The loss is the global
-    mean and each shard updates as under the one-process step over the
-    whole batch: only the gradient sync and the loss's mean cross
-    processes, over ``dp``, the one axis that may.
+    (``distributed.host_local_batch_slice(B, mesh=mesh)``: the rows of
+    the (dp, fsdp) blocks its shards hold, so processes that differ only
+    along ``pp`` pass the same rows). The loss is the global mean and
+    each shard updates as under the one-process step over the whole
+    batch: what crosses processes is the gradient sync and the loss's
+    mean over ``dp``, and over ``pp`` the pipeline's activation hops
+    (``pipeline_spmd``) and the sync of ``embed``, ``final_norm`` and
+    ``lm_head``, the two axes that may.
 
     Raises ``ValueError`` where the reference does: here for
     ``n_layers % pp``, heads % tp and experts % ep; at the step for a

@@ -13,8 +13,9 @@ every process's devices process-major, so the outermost axes cross
 processes; each process holds the shards of its own devices, and the
 collectives of ``ray_tpu_torch.collective`` run the part of a group that
 crosses processes over ``torch.distributed`` (``mesh.py``'s docstring).
-Only ``dp`` crosses processes so far: ``pp``'s pipeline is one-controller
-(ROADMAP A.7).
+``dp`` and ``pp`` cross processes, the reference's ``DCN_AXES``: the
+gradient sync over dp, the pipeline's activation hops over pp
+(``pipeline.py``); the ICI axes stay inside a process (ROADMAP A.7).
 
 One process (and the CPU tests' virtual shards) is the degenerate case:
 ``initialize()`` is a no-op with ``process_count() == 1`` and the hybrid
@@ -46,7 +47,7 @@ TIMEOUT = datetime.timedelta(seconds=300)
 
 _state: dict = {"initialized": False, "process_id": 0, "num_processes": 1,
                 "store": None, "local_devices": None, "exchanges": 0,
-                "groups": {}}
+                "groups": {}, "p2p_ready": False}
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -98,14 +99,16 @@ def initialize(coordinator_address: Optional[str] = None,
                             world_size=num_processes, timeout=TIMEOUT)
     _state.update(initialized=True, process_id=process_id,
                   num_processes=num_processes, store=store,
-                  local_devices=local, exchanges=0, groups={})
+                  local_devices=local, exchanges=0, groups={},
+                  p2p_ready=False)
 
 
 def shutdown() -> None:
     if _state["num_processes"] > 1:
         dist.destroy_process_group()
     _state.update(initialized=False, process_id=0, num_processes=1,
-                  store=None, local_devices=None, exchanges=0, groups={})
+                  store=None, local_devices=None, exchanges=0, groups={},
+                  p2p_ready=False)
 
 
 def is_initialized() -> bool:
@@ -167,6 +170,19 @@ def process_group(ranks: Sequence[int]):
     return pg
 
 
+def ready_p2p(device: torch.device) -> None:
+    """Make the world's NCCL communicator before the first point-to-point
+    batch (an all-reduce of one element on ``device``, once): a batch of
+    sends and receives runs on that communicator, and making it is
+    collective over every process, while a batch may involve only some.
+    Every process reaches it, at the first exchange across processes of
+    a call that they all make."""
+    if _state["p2p_ready"] or dist.get_backend() != "nccl":
+        return
+    dist.all_reduce(torch.zeros(1, device=device))
+    _state["p2p_ready"] = True
+
+
 @dataclasses.dataclass(frozen=True)
 class HybridMeshConfig:
     """Axis sizes split between the DCN tier (across hosts/slices) and the
@@ -223,13 +239,28 @@ def make_hybrid_mesh(config: HybridMeshConfig,
                 process_index())
 
 
-def host_local_batch_slice(global_batch: int) -> Tuple[int, int]:
+def host_local_batch_slice(global_batch: int, mesh: Optional[Mesh] = None
+                           ) -> Tuple[int, int]:
     """(start, size) of this host's slice of a globally-sharded batch —
-    the per-host data-loading contract (each host feeds only its chips)."""
-    n = process_count()
+    the per-host data-loading contract (each host feeds only its chips).
+
+    Without ``mesh`` (the reference's signature) the processes hold
+    equal slices in process order, right where only ``dp`` crosses
+    processes. ``mesh=`` is the port's one addition: with ``pp`` across
+    processes, processes that differ only along ``pp`` hold the same
+    (dp, fsdp) blocks and need the same rows, and the reference's rule
+    would hand each ``pp`` peer half of a batch it needs whole. With it
+    a process feeds the rows of the (dp, fsdp) blocks its shards hold
+    (``sharding.data_rows``), the rows ``shard_host_local`` cuts."""
+    if mesh is None:
+        index, n = process_index(), process_count()
+    else:
+        from ray_tpu_torch.parallel.sharding import data_rows
+
+        index, n = data_rows(mesh)
     if global_batch % n:
         raise ValueError(
             f"global batch {global_batch} not divisible by "
             f"{n} processes")
     per = global_batch // n
-    return process_index() * per, per
+    return index * per, per

@@ -23,9 +23,12 @@ cross processes. ``Mesh.processes`` records which process owns each
 entry; each process holds the shards of its own entries, and every
 per-shard list (``shard_params``, ``shard_tensor``, the collectives, the
 training step's ``shards``) holds this process's shards only, in the
-mesh's flat order. Only ``dp`` may cross processes
-(``CROSS_PROCESS_AXES``): the reference lets ``dp`` and ``pp`` cross
-DCN, and the port's pipeline is still one-controller (ROADMAP A.7).
+mesh's flat order. Only ``dp`` and ``pp`` may cross processes
+(``CROSS_PROCESS_AXES``), the reference's ``DCN_AXES``: dp's gradient
+sync and pp's activation hops tolerate the slower link, while the
+ICI-bound axes (fsdp, tp, sp, ep) stay inside a process (the
+reference's ``make_mesh`` lays them across hosts too, its hybrid mesh
+does not: ROADMAP A.7).
 
 Default devices are the visible CUDA devices. Virtual shards are never
 made implicitly: ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n`` (read only here)
@@ -51,7 +54,7 @@ import torch
 
 AXES = ("dp", "fsdp", "pp", "tp", "sp", "ep")
 # The axes a mesh may lay across processes (module docstring).
-CROSS_PROCESS_AXES = ("dp",)
+CROSS_PROCESS_AXES = ("dp", "pp")
 
 VIRTUAL_DEVICES_ENV = "RAY_TPU_TORCH_VIRTUAL_DEVICES"
 
@@ -92,8 +95,8 @@ class Mesh:
                     np.diff(self.processes, axis=k)):
                 raise ValueError(
                     f"mesh axis {a!r} crosses processes; only "
-                    f"{CROSS_PROCESS_AXES} may (ICI-bound axes must not "
-                    f"cross DCN, and pp across processes waits for "
+                    f"{CROSS_PROCESS_AXES} may (the ICI-bound axes "
+                    f"fsdp, tp, sp and ep stay inside a process: "
                     f"ROADMAP A.7)")
 
     @property

@@ -89,19 +89,42 @@ def shard_tensor(x: torch.Tensor, mesh: Mesh, spec: Spec
     return _cut(x, mesh, spec, rows=None)
 
 
+def data_rows(mesh: Mesh, entry: MeshAxis = ("dp", "fsdp")
+              ) -> Tuple[int, int]:
+    """(index, count) of this process's rows of a batch cut over
+    ``entry``'s axes: each process feeds the blocks its shards hold, the
+    mesh's processes hold ``count`` distinct sets of blocks, and this
+    process's set is the ``index``-th in process order. Processes that
+    differ only along other axes (``pp`` across processes) hold the same
+    set, so they feed the same rows; where only ``dp`` crosses
+    processes every process holds its own set and this is (process
+    index, process count)."""
+    owner = mesh.processes.reshape(-1)
+    held: Dict[int, set] = {}
+    for flat in range(mesh.size):
+        coord = np.unravel_index(flat, mesh.devices.shape)
+        held.setdefault(int(owner[flat]), set()).add(
+            _block(mesh, coord, entry)[0])
+    sets = []
+    for p in sorted(held):
+        if held[p] not in sets:
+            sets.append(held[p])
+    return sets.index(held[mesh.process]), len(sets)
+
+
 def shard_host_local(x: torch.Tensor, mesh: Mesh, spec: Spec
                      ) -> List[torch.Tensor]:
     """``shard_tensor`` of a global array of which ``x`` holds only this
     process's rows (dimension 0), as
-    ``distributed.host_local_batch_slice`` gives them: the mesh's
-    processes hold equal slices in process order. Each of this process's
-    shards takes its block of the global array from ``x``; a block that
-    lies outside this process's rows raises. With one process it is
-    ``shard_tensor``."""
-    procs = sorted(set(mesh.processes.reshape(-1).tolist()))
+    ``distributed.host_local_batch_slice(..., mesh=mesh)`` gives them:
+    the rows of the blocks (over ``spec[0]``'s axes) that this process's
+    shards hold, the ``data_rows`` slice of equal slices in process
+    order. Each of this process's shards takes its block of the global
+    array from ``x``; a block that lies outside this process's rows
+    raises. With one process it is ``shard_tensor``."""
+    index, count = data_rows(mesh, spec[0] if spec else None)
     return _cut(x, mesh, spec,
-                rows=(procs.index(mesh.process) * x.shape[0],
-                      x.shape[0] * len(procs)))
+                rows=(index * x.shape[0], x.shape[0] * count))
 
 
 def _cut(x, mesh, spec, rows):

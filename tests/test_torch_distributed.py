@@ -1,27 +1,32 @@
 """Parity of the port's multi-process device plane
 (``ray_tpu_torch.parallel.distributed``: the bootstrap, meshes that span
-processes, collectives across processes and the training step whose
-``dp`` crosses them) with the reference, on the CPU.
+processes, collectives across processes, the pipeline across processes
+and the training step whose ``dp`` and ``pp`` cross them) with the
+reference, on the CPU.
 
 The one-process twins hold ``tests/test_parallel.py``'s three tests of
 ``ray_tpu/parallel/distributed.py`` (the bootstrap, the axis tiers, a
 sum over each tier) against the port on 8 virtual CPU shards, and pin
 ROADMAP C.16 on both sides. The multi-process cases run two worker
 processes (``torch_distributed_worker.py``, which imports no JAX),
-each with 4 CPU shards, joined over gloo through a TCP store on a free
-port; this process runs the reference on its 8-device CPU mesh and hands
-the workers their inputs through files. Every wait is bounded
-(``WORKER_TIMEOUT_S``) and every worker is killed on the way out.
+each with 4 CPU shards, or four with 2 each, joined over gloo through a
+TCP store on a free port; this process runs the reference on its
+8-device CPU mesh and hands the workers their inputs through files.
+Every wait is bounded (``WORKER_TIMEOUT_S``) and every worker is killed
+on the way out.
 
 Tolerances: the steps are ``tests/test_torch_spmd.py``'s (f32 on both
 sides, sums ordered otherwise): each loss to LOSS_RTOL = 1e-6 relative,
 every leaf after two SGD(0.1) steps to PARAM_ATOL = 1e-6 and after two
 AdamW steps to ADAM_ATOL = lr / 10, which a sign error, a skipped sync
 or a missing update breaks. The collectives run on integers held as
-floats, so values and gradients are exact.
+floats, so values and gradients are exact. The pipeline alone is
+``tests/test_torch_parallel.py``'s: f32 on both sides, VAL_TOL = 1e-5
+for values of size ~1 and GRAD_TOL = 1e-4 for gradients.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from ray_tpu.parallel.mesh import MeshConfig as JMeshConfig
 from ray_tpu.parallel.mesh import make_mesh as jmake_mesh
 import ray_tpu_torch.collective as tops
 from ray_tpu_torch import models as tm
+from ray_tpu_torch import parallel as tpar
 from ray_tpu_torch.parallel import distributed as tdist
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel.sharding import shard_host_local
@@ -52,6 +58,7 @@ CPU = torch.device("cpu")
 WORKER_TIMEOUT_S = 120.0
 PROCESSES, SHARDS_EACH = 2, 4
 LR_ADAM = 1e-3
+VAL_TOL, GRAD_TOL = 1e-5, 1e-4
 ADAM_ATOL = LR_ADAM / 10
 STEPS, BATCH, LEN = 2, 8, 16
 
@@ -65,8 +72,18 @@ STEP_CASES = {
     "dp4-tp2-sgd": (dict(dp=4, tp=2), "sgd", 1),
     "dp4-tp2-adamw": (dict(dp=4, tp=2), "adamw", 1),
     "dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2),
+    "pp2-tp4-sgd": (dict(pp=2, tp=4), "sgd", 2),
+    "pp2-tp4-adamw": (dict(pp=2, tp=4), "adamw", 2),
 }
-COLLECTIVE_MESHES = {"dp2-tp4": dict(dp=2, tp=4), "dp4-tp2": dict(dp=4, tp=2)}
+# Four processes x 2 CPU shards: dp and pp both cross processes.
+FOUR_PROCESSES, FOUR_SHARDS_EACH = 4, 2
+FOUR_STEP_CASES = {"dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2)}
+COLLECTIVE_MESHES = {"dp2-tp4": dict(dp=2, tp=4), "dp4-tp2": dict(dp=4, tp=2),
+                     "pp2-tp4": dict(pp=2, tp=4)}
+# The pipeline twin: pipeline_spmd on pp2-tp4 (pp across the two
+# processes), M microbatches of [PIPE_B, PIPE_D] a shard.
+PIPE_MESH = dict(pp=2, tp=4)
+PIPE_M, PIPE_B, PIPE_D = 3, 2, 8
 
 
 def _jax_broadcast(a, root=1):
@@ -86,15 +103,31 @@ JAX_OPS = {
         a, ("dp", "tp"), axis=0, tiled=False),
     "reducescatter_dp": lambda a: lax.psum_scatter(
         a, "dp", scatter_dimension=0, tiled=True),
-    "broadcast_dp_root1": _jax_broadcast,
     "allreduce_tp": lambda a: lax.psum(a, "tp"),
-    "permute_tp": None,     # built per mesh (the ring over tp)
 }
-def _jax_op(name, tp):
-    if name == "permute_tp":
-        return lambda a: lax.ppermute(a, "tp", [(j, (j + 1) % tp)
-                                                for j in range(tp)])
-    return JAX_OPS[name]
+
+
+def _jax_op(name, sizes):
+    """The lax counterpart of the worker's op ``name`` on a mesh of
+    ``sizes`` (the permutations and the untiled split depend on them)."""
+    if name in JAX_OPS:
+        return JAX_OPS[name]
+    if name == "broadcast_dp_root1":
+        return lambda a: _jax_broadcast(a, min(1, sizes.get("dp", 1) - 1))
+    kind, axis = name.rsplit("_", 1) if not name.endswith("untiled") \
+        else ("all_to_all_untiled", "pp")
+    n = sizes.get(axis, 1)
+    if kind == "permute":
+        return lambda a: lax.ppermute(a, axis, [(j, (j + 1) % n)
+                                                for j in range(n)])
+    if kind == "send_recv":
+        return lambda a: lax.ppermute(a, axis, [(0, n - 1)])
+    if kind == "all_to_all":
+        return lambda a: lax.all_to_all(a, axis, 0, 1, tiled=True)
+    # Untiled split and concat on one axis: this jax's vjp of an untiled
+    # all_to_all with the two axes apart has mismatched shapes.
+    return lambda a: lax.all_to_all(a.reshape(n, -1), axis, 0, 0,
+                                    tiled=False)
 
 
 def _jmesh(**sizes):
@@ -211,7 +244,7 @@ def _jax_collective(name, sizes, x, w):
     sum(w * value) (the vjp of ``w``)."""
     jmesh = _jmesh(**sizes)
     spec = P(tuple(tmesh.AXES))
-    run = jax.shard_map(_jax_op(name, sizes["tp"]), mesh=jmesh,
+    run = jax.shard_map(_jax_op(name, sizes), mesh=jmesh,
                         in_specs=spec, out_specs=spec, check_vma=False)
     val, grad = jax.jit(lambda a, c: (run(a), jax.vjp(run, a)[1](c)[0]))(
         x, w)
@@ -259,7 +292,12 @@ def two_processes(tmp_path_factory):
     jobs += [{"kind": "collectives", "name": mesh_name, "mesh": sizes,
               "ops": list(worker.OPS)}
              for mesh_name, sizes in COLLECTIVE_MESHES.items()]
-    jobs += [{"kind": "hybrid"}, {"kind": "refusals"}]
+    arrays.update(_pipe_inputs())
+    jobs += [{"kind": "pipeline", "name": "pipe", "mesh": PIPE_MESH}]
+    jobs += [{"kind": "hybrid"},
+             {"kind": "hybrid", "name": "hybrid_pp", "dcn": "pp",
+              "cfg": cfg},
+             {"kind": "refusals"}]
     workers = worker.start(jobs, tmp_path_factory.mktemp("dist"),
                            processes=PROCESSES, backend="gloo",
                            devices=["cpu"] * SHARDS_EACH, arrays=arrays,
@@ -270,6 +308,7 @@ def two_processes(tmp_path_factory):
                    np.concatenate(arrays[f"w/{mesh_name}/{op}"]))
                for mesh_name, sizes in COLLECTIVE_MESHES.items()
                for op in worker.OPS}
+        ref["pipe"] = _jax_pipeline(arrays)
     finally:
         outs = workers.join()
     merged = {}
@@ -277,6 +316,63 @@ def two_processes(tmp_path_factory):
         merged.update(out)
     return {"params": params, "tokens": tokens, "targets": targets,
             "arrays": arrays, "ref": ref, "outs": outs, "merged": merged}
+
+
+@pytest.fixture(scope="module")
+def four_processes(tmp_path_factory):
+    """FOUR_STEP_CASES in four workers of 2 CPU shards each, over gloo:
+    dp and pp both cross processes."""
+    params, tokens, targets = _inputs()
+    tree = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              _port_cfg(CFG), device="cpu")
+    arrays = {f"params/{path}": leaf.numpy() for path, leaf in _flat(tree)}
+    arrays.update(tokens=tokens, targets=targets)
+    cfg = {f.name: getattr(CFG, f.name)
+           for f in dataclasses.fields(CFG) if f.name != "dtype"}
+    jobs = [{"kind": "step", "name": name, "cfg": cfg, "mesh": sizes,
+             "optimizer": opt, "lr": 0.1 if opt == "sgd" else LR_ADAM,
+             "steps": STEPS, "microbatches": mb}
+            for name, (sizes, opt, mb) in FOUR_STEP_CASES.items()]
+    outs = worker.launch(jobs, tmp_path_factory.mktemp("dist4"),
+                         processes=FOUR_PROCESSES, backend="gloo",
+                         devices=["cpu"] * FOUR_SHARDS_EACH, arrays=arrays,
+                         timeout_s=WORKER_TIMEOUT_S)
+    merged = {}
+    for out in outs:
+        merged.update(out)
+    return {"params": params, "tokens": tokens, "targets": targets,
+            "outs": outs, "merged": merged}
+
+
+def _pipe_inputs():
+    """The pipeline twin's inputs: each shard's weight [D, D], its
+    microbatches [M, B, D] (only stage 0's are read) and the weights of
+    sum(c * out), by the shard's flat index."""
+    rng = np.random.default_rng(11)
+    shape = (8, PIPE_M, PIPE_B, PIPE_D)
+    return {"pipe/w": (rng.standard_normal((8, PIPE_D, PIPE_D)) * 0.4
+                       ).astype(np.float32),
+            "pipe/x": rng.standard_normal(shape).astype(np.float32),
+            "pipe/c": rng.standard_normal(shape).astype(np.float32)}
+
+
+def _jax_pipeline(arrays):
+    """The reference's pipeline_spmd under shard_map on its 8-device
+    mesh, every input and output cut one block a shard: (value,
+    gradient of the weights, gradient of the microbatches) of
+    sum(c * out)."""
+    from ray_tpu.parallel.pipeline import pipeline_spmd
+
+    spec = P(tuple(tmesh.AXES))
+    run = jax.shard_map(
+        lambda w, x: pipeline_spmd(lambda wj, a: jnp.tanh(a @ wj[0]), w,
+                                   x[0], axis_name="pp")[None],
+        mesh=_jmesh(**PIPE_MESH), in_specs=(spec, spec), out_specs=spec,
+        check_vma=False)
+    w, x, c = (jnp.asarray(arrays[f"pipe/{k}"]) for k in "wxc")
+    val, vjp = jax.vjp(run, w, x)
+    gw, gx = vjp(c)
+    return np.asarray(val), np.asarray(gw), np.asarray(gx)
 
 
 def _reference_steps(sizes, opt, mb, params, tokens, targets):
@@ -290,18 +386,12 @@ def _reference_steps(sizes, opt, mb, params, tokens, targets):
     return params, losses
 
 
-@pytest.mark.parametrize("name", list(STEP_CASES))
-def test_two_process_step_matches_reference(eight_device_mesh,
-                                            two_processes, name):
-    """Two processes x 4 CPU shards, each passing the step only its rows
-    of the global batch: both processes' losses equal the reference's
-    one-process step over the whole batch on the 8-device mesh, and
-    every shard's every leaf after two steps equals the reference's
-    buffer on the device at the same mesh coordinates. dp crosses the
-    processes (dp 2), or is split inside them too (dp 4); the pp case
-    keeps its pipeline inside each process."""
-    sizes, opt_name, mb = STEP_CASES[name]
-    r = two_processes
+def _check_steps(r, name, case, each):
+    """Every process's losses against the reference's one-process step
+    over the whole batch on the 8-device mesh, and every shard's every
+    leaf after two steps against the reference's buffer on the device at
+    the same mesh coordinates."""
+    sizes, opt_name, mb = case
     opt = optax.sgd(0.1) if opt_name == "sgd" else optax.adamw(LR_ADAM)
     p2, want = _reference_steps(sizes, opt, mb, r["params"], r["tokens"],
                                 r["targets"])
@@ -310,7 +400,7 @@ def test_two_process_step_matches_reference(eight_device_mesh,
         np.testing.assert_allclose(out[f"{name}/losses"], want,
                                    rtol=LOSS_RTOL)
         assert out[f"{name}/local_indices"].tolist() == list(
-            range(p * SHARDS_EACH, (p + 1) * SHARDS_EACH))
+            range(p * each, (p + 1) * each))
     jmesh = _jmesh(**sizes)
     seen = 0
     for path, arr in _flat(p2):
@@ -324,6 +414,64 @@ def test_two_process_step_matches_reference(eight_device_mesh,
             assert err <= atol, f"{path} on shard {j}: {err} > {atol}"
             seen += 1
     assert seen == 8 * len(_flat(p2))
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_two_process_step_matches_reference(eight_device_mesh,
+                                            two_processes, name):
+    """Two processes x 4 CPU shards, each passing the step only its rows
+    of the global batch: both processes' losses equal the reference's
+    one-process step over the whole batch on the 8-device mesh, and
+    every shard's every leaf after two steps equals the reference's
+    buffer on the device at the same mesh coordinates. dp crosses the
+    processes (dp 2), or is split inside them too (dp 4); dp2-pp2-tp2
+    keeps its pipeline inside each process, and pp2-tp4 puts one stage
+    in each process, both of which feed the whole batch."""
+    _check_steps(two_processes, name, STEP_CASES[name], SHARDS_EACH)
+
+
+@pytest.mark.parametrize("name", list(FOUR_STEP_CASES))
+def test_four_process_step_matches_reference(eight_device_mesh,
+                                             four_processes, name):
+    """Four processes x 2 CPU shards, dp and pp both across processes:
+    processes 0 and 1 hold dp block 0's two stages and feed its rows,
+    processes 2 and 3 dp block 1's; the losses and every shard's every
+    leaf equal the reference's, as for two processes."""
+    _check_steps(four_processes, name, FOUR_STEP_CASES[name],
+                 FOUR_SHARDS_EACH)
+
+
+def test_pipeline_across_processes_matches_reference(eight_device_mesh,
+                                                     two_processes):
+    """pipeline_spmd on pp2-tp4, a stage in each process, M = 3: every
+    shard's output and the gradients of sum(c * out) with respect to
+    every shard's weight and microbatches equal the reference's
+    pipeline_spmd under shard_map (f32: VAL_TOL and GRAD_TOL) and the
+    one-process pipeline over 8 CPU shards."""
+    r = two_processes
+    val, gw, gx = r["ref"]["pipe"]
+    got = {k: np.stack([r["merged"][f"pipe/{k}/{j}"] for j in range(8)])
+           for k in ("out", "grad_w", "grad_x")}
+    np.testing.assert_allclose(got["out"], val, atol=VAL_TOL, rtol=0)
+    np.testing.assert_allclose(got["grad_w"], gw, atol=GRAD_TOL, rtol=0)
+    np.testing.assert_allclose(got["grad_x"], gx, atol=GRAD_TOL, rtol=0)
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**PIPE_MESH), devices=[CPU] * 8)
+    a = r["arrays"]
+    ws = [torch.tensor(w, requires_grad=True) for w in a["pipe/w"]]
+    xs = [torch.tensor(x, requires_grad=True) for x in a["pipe/x"]]
+    outs = tpar.pipeline_spmd(worker.pipeline_stage, ws, xs, mesh=mesh)
+    sum(torch.sum(o * torch.from_numpy(c))
+        for o, c in zip(outs, a["pipe/c"])).backward()
+    np.testing.assert_allclose(
+        got["out"], torch.stack(outs).detach().numpy(), atol=VAL_TOL, rtol=0)
+    np.testing.assert_allclose(
+        got["grad_w"], torch.stack([w.grad for w in ws]).numpy(),
+        atol=GRAD_TOL, rtol=0)
+    # Stage 1's microbatches are never read: no gradient reaches them.
+    np.testing.assert_allclose(
+        got["grad_x"], torch.stack([torch.zeros_like(x) if x.grad is None
+                                    else x.grad for x in xs]).numpy(),
+        atol=GRAD_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("op", list(worker.OPS))
@@ -365,13 +513,40 @@ def test_hybrid_mesh_across_processes(two_processes):
         np.testing.assert_array_equal(r["merged"][f"hybrid/{j}"], total)
 
 
+def test_pipeline_peer_death_fails_within_bound(tmp_path):
+    """A process that dies mid-pipeline (process 1, at its first stage
+    call) makes its peer fail, not hang: process 0's wait for the hop
+    raises when the connection drops, well within WORKER_TIMEOUT_S."""
+    job = {"kind": "pipeline", "name": "pipe", "mesh": PIPE_MESH,
+           "die_in": 1}
+    t0 = time.monotonic()
+    workers = worker.start([job], tmp_path, processes=PROCESSES,
+                           backend="gloo", devices=["cpu"] * SHARDS_EACH,
+                           arrays=_pipe_inputs(), timeout_s=WORKER_TIMEOUT_S)
+    with pytest.raises(AssertionError, match="worker exit codes") as said:
+        workers.join()
+    codes = [p.returncode for p in workers.procs]
+    assert codes[1] == 3 and codes[0] not in (0, None), said.value
+    assert time.monotonic() - t0 < WORKER_TIMEOUT_S / 2
+
+
+def test_hybrid_pp_mesh_across_processes(two_processes):
+    """``make_hybrid_mesh(dcn pp 2, ici tp 4)`` in two processes: pp is
+    the process axis and a sum over each tier gives every shard the
+    total; the training step on it still raises C.16's KeyError (the
+    hybrid mesh drops the size-1 axes), as the reference's does."""
+    r = two_processes
+    total = sum(np.split(r["arrays"]["x"], 8))
+    for out in r["outs"]:
+        assert out["hybrid_pp/axis_names"].tolist() == ["pp", "tp"]
+        assert out["hybrid_pp/processes"].tolist() == [[0] * 4, [1] * 4]
+        assert str(out["hybrid_pp/step_raised"]).startswith("KeyError")
+    for j in range(8):
+        np.testing.assert_array_equal(r["merged"][f"hybrid_pp/{j}"], total)
+
+
 REFUSALS = {
-    "permute_dp": "NotImplementedError: permute over axis 'dp'",
-    "send_recv_dp": "NotImplementedError: send_recv over axis 'dp'",
-    "all_to_all_dp": "NotImplementedError: all_to_all over axis 'dp'",
     "mesh_tp_across": "ValueError: mesh axis 'tp' crosses processes",
-    "mesh_pp_across": "ValueError: mesh axis 'pp' crosses processes",
-    "hybrid_pp_dcn": "ValueError: mesh axis 'pp' crosses processes",
     "hybrid_dcn_size": "ValueError: the DCN tier {'dp': 8} spans 8 "
                        "processes, have 2",
     "hybrid_tp_dcn": "ValueError: axis 'tp' must not cross DCN",
@@ -380,15 +555,13 @@ REFUSALS = {
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_cross_process_refusals(two_processes, name):
-    """What does not cross processes yet raises in every process: the
-    exchanges other than the four reductions and gathers, a mesh whose
-    tp or pp crosses processes (ROADMAP A.7), a DCN tier that is not the
-    processes, and an ICI axis on the DCN tier."""
+    """What does not cross processes yet raises in every process: a mesh
+    whose tp crosses processes (ROADMAP A.7: only dp and pp may), a DCN
+    tier that is not the processes, and an ICI axis on the DCN tier."""
     for out in two_processes["outs"]:
         said = str(out[f"refusals/{name}"])
         assert said.startswith(REFUSALS[name]), said
-        if name in ("permute_dp", "send_recv_dp", "all_to_all_dp",
-                    "mesh_tp_across", "mesh_pp_across"):
+        if name == "mesh_tp_across":
             assert "ROADMAP A.7" in said
 
 

@@ -5,8 +5,10 @@ engine over the visible cards, and one step of the manual multi-axis
 training step at dp 2 x tp 2 over four cards. Across processes over
 NCCL (``parallel.distributed``, workers of
 ``torch_distributed_worker.py``): the flagship's step and the
-collectives with four processes of one card each and with two processes
-of two cards each, against one process over the same four cards; and
+collectives with four processes of one card each (dp 4, and dp 2 x pp 2
+with the pipeline's stages in different processes) and with two
+processes of two cards each, against one process over the same four
+cards; and
 two ``GPU: 2`` nodes of the autoscaler's provider on four cards.
 
 Every test is marked ``cuda`` and skips unless at least two cards are
@@ -169,7 +171,10 @@ def test_spmd_step_across_cards_equals_virtual_shards(cards):
 # ------------------------------------------------- across processes, NCCL
 NCCL_STEPS, NCCL_BATCH, NCCL_LEN = 2, 4, 1024
 NCCL_TIMEOUT_S = 600.0
-LAYOUTS = {"4x1": (4, 1, dict(dp=4)), "2x2": (2, 2, dict(dp=2, tp=2))}
+LAYOUTS = {"4x1": (4, 1, dict(dp=4)), "2x2": (2, 2, dict(dp=2, tp=2)),
+           "pp2x2": (4, 1, dict(dp=2, pp=2))}
+# The step's microbatches: the pipeline's where pp > 1 (both sides alike).
+MICROBATCHES = {"4x1": 1, "2x2": 1, "pp2x2": 2}
 
 
 def _flagship_f32():
@@ -188,7 +193,8 @@ def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
     the same mesh over the same four cards: the same kernels on the same
     rows, the gradient sums across processes ordered by NCCL, so the
     losses agree to rtol 1e-5 and every shard's every leaf to rtol 1e-5,
-    atol 1e-6."""
+    atol 1e-6. pp2x2 puts dp and pp both across the four processes (the
+    pipeline's hops over NCCL, two microbatches on both sides)."""
     if len(cards) < 4:
         pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
     processes, each, sizes = LAYOUTS[layout]
@@ -200,7 +206,7 @@ def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
               for f in dataclasses.fields(cfg) if f.name != "dtype"}
     job = {"kind": "step", "name": layout, "cfg": fields, "mesh": sizes,
            "optimizer": "sgd", "lr": 0.1, "steps": NCCL_STEPS,
-           "init_seed": 0}
+           "init_seed": 0, "microbatches": MICROBATCHES[layout]}
     outs = worker.launch([job], tmp_path, processes=processes,
                          backend="nccl",
                          local_device_ids=_nccl_ids(processes, each),
@@ -211,7 +217,7 @@ def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
     step, _, shards = make_spmd_train_step(
         cfg, mesh, init_params(cfg, 0, device="cpu"),
         optimizer=lambda ls: torch.optim.SGD(ls, lr=0.1),
-        n_microbatches=1)
+        n_microbatches=MICROBATCHES[layout])
     want = [step(torch.from_numpy(tokens[i, :, :-1]),
                  torch.from_numpy(tokens[i, :, 1:])).item()
             for i in range(NCCL_STEPS)]

@@ -18,11 +18,13 @@ Jobs (``kind``):
   a ``dtype``) on ``make_mesh(**mesh)`` over the tree ``params/<path>``
   of the input (or ``init_params(cfg, init_seed)``), ``steps`` steps of
   SGD, AdamW or the step's default optimizer (``"default"``) on this
-  process's rows (``host_local_batch_slice``) of ``tokens[i]`` and
+  process's rows (``host_local_batch_slice(..., mesh=mesh)``: the rows
+  of the (dp, fsdp) blocks its shards hold) of ``tokens[i]`` and
   ``targets[i]``; writes the losses, the seconds of each step (host
   clock, the devices synchronised), the seconds the step took to build,
-  this process's flat indices and every local shard's every leaf. With ``counts``, also ``chip_smoke``'s kernel launch counts of
-  the steps alone (zeroed just before them), as JSON.
+  this process's flat indices and every local shard's every leaf. With
+  ``counts``, also ``chip_smoke``'s kernel launch counts of the steps
+  alone (zeroed just before them), as JSON.
 - ``allreduce``: ``iters`` timed all-reduces (after two untimed) of
   ``elements`` f32 ones over the whole group on the first device;
   writes the seconds of each and whether the result is exact.
@@ -31,10 +33,15 @@ Jobs (``kind``):
   sum(w * out) with ``w`` the input's ``w/<name>/<op>``; writes each
   local shard's output and gradient. With ``grad`` false, the values
   only, and what an allreduce under autograd raised.
-- ``hybrid``: ``make_hybrid_mesh(dcn dp 2, ici tp n)`` with a sum over
-  each tier of ``x``'s blocks.
-- ``refusals``: each op and mesh that does not cross processes yet;
-  writes the type and message of what each raised ("" if nothing).
+- ``hybrid``: ``make_hybrid_mesh(dcn <dcn> 2, ici tp n)`` (``dcn`` dp or
+  pp) with a sum over each tier of ``x``'s blocks; given ``cfg``, what
+  building the training step on that mesh raised (ROADMAP C.16).
+- ``pipeline``: ``pipeline_spmd`` of ``pipeline_stage`` on
+  ``make_mesh(**mesh)``, and its gradients (``_pipeline``); the process
+  ``die_in`` names exits at its first stage call.
+- ``hop``: timed hops of one activation across processes (``_hop``).
+- ``refusals``: each mesh that still may not span processes; writes the
+  type and message of what each raised ("" if nothing).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from ray_tpu_torch.parallel import (
     distributed,
     make_hybrid_mesh,
     make_mesh,
+    pipeline_spmd,
 )
 
 OPS = {
@@ -72,12 +80,35 @@ OPS = {
     "allgather_dp_tp_stacked": lambda xs, m: tops.allgather(
         xs, m, ("dp", "tp"), tiled=False),
     "reducescatter_dp": lambda xs, m: tops.reducescatter(xs, m, "dp"),
-    "broadcast_dp_root1": lambda xs, m: tops.broadcast(xs, m, "dp", root=1),
+    # Root 1, or 0 on a mesh whose dp has one shard.
+    "broadcast_dp_root1": lambda xs, m: tops.broadcast(
+        xs, m, "dp", root=min(1, m.shape["dp"] - 1)),
     "allreduce_tp": lambda xs, m: tops.allreduce(xs, m, "tp"),
     "permute_tp": lambda xs, m: tops.permute(
         xs, m, "tp", [(j, (j + 1) % m.shape["tp"])
                       for j in range(m.shape["tp"])]),
 }
+# The exchanges, over dp and over pp, each of which may cross processes:
+# the ring, a send from the axis's first shard to its last, and the
+# all-to-all (tiled; over pp also untiled, each block cut into as many
+# rows as the axis has shards).
+for _a in ("dp", "pp"):
+    OPS.update({
+        f"permute_{_a}": lambda xs, m, a=_a: tops.permute(
+            xs, m, a, [(j, (j + 1) % m.shape[a])
+                       for j in range(m.shape[a])]),
+        f"send_recv_{_a}": lambda xs, m, a=_a: tops.send_recv(
+            xs, m, a, 0, m.shape[a] - 1),
+        f"all_to_all_{_a}": lambda xs, m, a=_a: tops.all_to_all(
+            xs, m, a, 0, 1),
+    })
+OPS["all_to_all_pp_untiled"] = lambda xs, m: tops.all_to_all(
+    [x.reshape(m.shape["pp"], -1) for x in xs], m, "pp", 0, 0, tiled=False)
+
+
+def pipeline_stage(stage, sub_mesh, ws, acts):
+    """The pipeline job's stage: one matmul and a tanh on each shard."""
+    return [torch.tanh(a @ w) for w, a in zip(ws, acts)]
 
 
 def _flat(tree, prefix=""):
@@ -130,7 +161,8 @@ def _step(job, arrays, devices, out):
     build_s = time.perf_counter() - t0
     tokens = torch.from_numpy(np.array(arrays["tokens"]))
     targets = torch.from_numpy(np.array(arrays["targets"]))
-    start, size = distributed.host_local_batch_slice(tokens.shape[1])
+    start, size = distributed.host_local_batch_slice(tokens.shape[1],
+                                                     mesh=mesh)
     if job.get("counts"):
         import chip_smoke
 
@@ -195,17 +227,80 @@ def _collectives(job, arrays, devices, out):
 
 
 def _hybrid(job, arrays, devices, out):
-    mesh = make_hybrid_mesh(HybridMeshConfig(dcn={"dp": 2},
+    axis = job.get("dcn", "dp")
+    name = job.get("name", "hybrid")
+    mesh = make_hybrid_mesh(HybridMeshConfig(dcn={axis: 2},
                                              ici={"tp": len(devices)}),
                             devices=devices)
     blocks = np.split(np.array(arrays["x"]), mesh.size)
     xs = [torch.tensor(blocks[j], device=d)
           for j, d in zip(mesh.local_indices, mesh.local_devices)]
-    got = tops.allreduce(tops.allreduce(xs, mesh, "tp"), mesh, "dp")
-    out["hybrid/axis_names"] = np.array(mesh.axis_names)
-    out["hybrid/processes"] = mesh.processes
+    got = tops.allreduce(tops.allreduce(xs, mesh, "tp"), mesh, axis)
+    out[f"{name}/axis_names"] = np.array(mesh.axis_names)
+    out[f"{name}/processes"] = mesh.processes
     for j, g in zip(mesh.local_indices, got):
-        out[f"hybrid/{j}"] = g.cpu().numpy()
+        out[f"{name}/{j}"] = g.cpu().numpy()
+    if "cfg" in job:
+        cfg = TransformerConfig(**job["cfg"], dtype=torch.float32)
+        out[f"{name}/step_raised"] = np.array(_raised(
+            lambda: make_spmd_train_step(
+                cfg, mesh, init_params(cfg, 0, device="cpu"))))
+
+
+def _pipeline(job, arrays, devices, out):
+    """``pipeline_spmd`` alone: each local shard's weight ``pipe/w[j]``
+    and microbatches ``pipe/x[j]`` ([M, ...]); the gradient of
+    sum(pipe/c * out) with respect to both."""
+    name = job["name"]
+    mesh = make_mesh(MeshConfig(**job["mesh"]), devices=devices)
+    local = list(zip(mesh.local_indices, mesh.local_devices))
+    w, x, c = (np.array(arrays[f"pipe/{k}"]) for k in "wxc")
+    ws = [torch.tensor(w[j], device=d, requires_grad=True) for j, d in local]
+    xs = [torch.tensor(x[j], device=d, requires_grad=True) for j, d in local]
+    stage_fn = pipeline_stage
+    if job.get("die_in") == distributed.process_index():
+        def stage_fn(stage, sub_mesh, ws, acts):
+            os._exit(3)          # this process dies mid-pipeline
+    outs = pipeline_spmd(stage_fn, ws, xs, mesh=mesh)
+    sum(torch.sum(o * torch.from_numpy(c[j]).to(o.device))
+        for (j, _), o in zip(local, outs)).backward()
+    for (j, _), o, wj, xj in zip(local, outs, ws, xs):
+        out[f"{name}/out/{j}"] = o.detach().cpu().numpy()
+        for key, t in (("grad_w", wj), ("grad_x", xj)):
+            out[f"{name}/{key}/{j}"] = (
+                np.zeros(t.shape, np.float32) if t.grad is None
+                else t.grad.cpu().numpy())
+
+
+def _hop(job, arrays, devices, out):
+    """``iters`` timed hops (after two untimed) of one ``shape`` tensor of
+    ``dtype`` from the first shard of process 0 to the first of process
+    1, through the pipeline's exchange (``collective.ops.route``) on
+    ``make_mesh(pp=processes)``; each process writes the seconds of each
+    hop (host clock, its device synchronised) and the receiver whether
+    the value arrived."""
+    from ray_tpu_torch.collective import ops as cops
+
+    mesh = make_mesh(MeshConfig(pp=distributed.process_count()),
+                     devices=devices[:1])
+    dev = mesh.local_devices[0]
+    x = torch.full(job["shape"], 1.5, dtype=getattr(torch, job["dtype"]),
+                   device=dev)
+    pairs = [(0, 1)]
+    seconds, arrived = [], True
+    for i in range(job["iters"] + 2):
+        _sync([dev])
+        t0 = time.perf_counter()
+        got = cops.route(mesh, pairs, {mesh.local_indices[0]: [x]},
+                         {mesh.local_indices[0]: [cops.like(x)]})
+        _sync([dev])
+        if i >= 2:
+            seconds.append(time.perf_counter() - t0)
+        for _, (v,) in got:
+            arrived = arrived and bool((v == x).all())
+    out["hop/seconds"] = np.array(seconds)
+    out["hop/arrived"] = np.array(arrived)
+    out["hop/bytes"] = np.array(x.numel() * x.element_size())
 
 
 def _raised(fn) -> str:
@@ -218,18 +313,9 @@ def _raised(fn) -> str:
 
 def _refusals(job, arrays, devices, out):
     n = len(devices) * distributed.process_count()
-    mesh = make_mesh(MeshConfig(dp=2, tp=n // 2), devices=devices)
-    xs = [torch.zeros(4, 4, device=d) for d in mesh.local_devices]
     cases = {
-        "permute_dp": lambda: tops.permute(xs, mesh, "dp", [(0, 1)]),
-        "send_recv_dp": lambda: tops.send_recv(xs, mesh, "dp", 0, 1),
-        "all_to_all_dp": lambda: tops.all_to_all(xs, mesh, "dp", 0, 1),
         "mesh_tp_across": lambda: make_mesh(MeshConfig(dp=1, tp=n),
                                             devices=devices),
-        "mesh_pp_across": lambda: make_mesh(MeshConfig(pp=2, tp=n // 2),
-                                            devices=devices),
-        "hybrid_pp_dcn": lambda: make_hybrid_mesh(HybridMeshConfig(
-            dcn={"pp": 2}, ici={"tp": n // 2}), devices=devices),
         "hybrid_dcn_size": lambda: make_hybrid_mesh(HybridMeshConfig(
             dcn={"dp": n}, ici={"tp": 1}), devices=devices),
         "hybrid_tp_dcn": lambda: make_hybrid_mesh(HybridMeshConfig(
@@ -241,7 +327,7 @@ def _refusals(job, arrays, devices, out):
 
 JOBS = {"step": _step, "allreduce": _allreduce,
         "collectives": _collectives, "hybrid": _hybrid,
-        "refusals": _refusals}
+        "pipeline": _pipeline, "hop": _hop, "refusals": _refusals}
 
 
 def _free_port() -> int:
