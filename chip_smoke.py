@@ -655,10 +655,30 @@ non-zero without printing a result. Without a CUDA card, or without the
    make_mesh(dp=2, pp=2) over four (dp and pp both across processes) and
    make_mesh(pp=2) over two of the cards, each held against one process
    over the same cards (peer copies) with the same checks; with fewer
-   cards a line says (e) did not run. Smoke readings (host clock): the
-   step p50 of each layout beside the one-process mesh's, the seconds of
-   one hop of a [2, 2048, d_model] bf16 activation across processes, and
-   the phase's seconds.
+   cards a line says (e) did not run. (f) tp across processes: two
+   processes on this one card over gloo (a line names it and says that
+   an all-reduce across them goes through host memory), make_mesh(tp=2),
+   the flagship's n_heads / 2 heads in each, both feeding the whole
+   batch; DIST_STEPS of the default AdamW, then DIST_SGD_STEPS of SGD
+   from fresh weights. Their losses and every leaf of their shards equal
+   the one-process tp-2 mesh over 2 virtual shards of the card to
+   DIST_LOSS_TOL and DIST_UPDATE_TOL; each process launches the forward,
+   dQ and dK/dV on the tensor cores n_layers times a step, counted in
+   it, and imports neither JAX nor ray_tpu. Where at least four cards
+   are visible, NCCL on the f32 flagship: make_mesh(tp=4) over four
+   processes of a card each, and make_mesh(tp=2, sp=2) over two
+   processes of two cards each (tp across them, sp inside each, ring
+   attention's plain blocks, and autograd through the exchanges across
+   processes from a process of two cards), each held against one
+   process over the same cards with the same checks (the tiled f32
+   kernels n_layers times a shard a step for tp4, none for tp2-sp2),
+   except their AdamW leaves, of which at most DIST_REORDER_FRACTION may
+   differ by more than DIST_UPDATE_TOL;
+   with fewer cards a line says they did not run. Smoke readings (host
+   clock): the step p50 of each layout beside the one-process mesh's,
+   the seconds of one hop of a [2, 2048, d_model] bf16 activation across
+   processes ((d), (e)) and of one all-reduce of such an activation
+   across them ((f)), and the phase's seconds.
 
 24. formats: Data's pandas, Arrow, fsspec and PIL surface and
    TransformersTrainer (ray_tpu_torch.data, ray_tpu_torch.train.
@@ -1127,12 +1147,41 @@ ELASTIC_ACTOR = "flagship_elastic_trainer"
 # across processes (the output cotangents at the last stage, the pp sync
 # of embed, final_norm and lm_head) add the same two terms. DIST_HOP_ITERS
 # timed hops of one [DIST_MICROBATCH_ROWS, DIST_LEN, d_model] bf16
-# activation across processes in (d) and (e).
+# activation across processes in (d) and (e). (f)'s two processes on the
+# one card sum each row-parallel product of two tp shards across gloo,
+# a + b either way, as the one-process tp-2 mesh does, so it is held to
+# the same tolerances. On four cards (f) runs the f32 flagship: a bf16
+# sum of four tp shards that NCCL orders otherwise than one process's
+# fold differs by a bf16 rounding (~4e-3 relative), which no 1e-6 can
+# hold, while in f32 the reordering stays at f32 rounding, as in (c).
+# Unlike (c), whose gradient sync adds the gradients of distinct rows,
+# tp4's forward sums four partial activations in another order (and one
+# process over four cards adds its backward's four cotangents in the
+# order the cards' autograd threads deliver them), and tp2-sp2's sync of
+# the leaves replicated over tp and sp adds four partial gradients as
+# (a + b) + (c + d) where one process adds ((a + b) + c) + d. Partial
+# sums can cancel, so a few gradient elements near zero change by much
+# of themselves; AdamW scales every element's step to about lr whatever
+# its gradient's size, so those elements move by up to a few lr. Their
+# losses and SGD leaves stay within DIST_LOSS_TOL and DIST_UPDATE_TOL,
+# and their AdamW leaves are held to the share of elements beyond
+# DIST_UPDATE_TOL: at most DIST_REORDER_FRACTION, where a missed,
+# doubled or swapped sum moves most elements of a leaf.
+# scripts/tp_reorder_rehearsal.py rehearses tp4 on the CPU (four gloo
+# processes against one over four shards, 6 AdamW steps of lr 3e-4):
+# d_model 256 x 4 layers, 1280 of 11.6M elements beyond 1e-6, the
+# largest 7.6e-4; d_model 512 x 2 layers, 5361 of 39.9M, the largest
+# 9.4e-4; losses within 4.4e-7, SGD leaves within 1.2e-7. On four H100s
+# (PERF.md §6) tp4 read 22553 of 143.7M (largest 7.4e-4) and tp2-sp2
+# 5220 of 156.4M (largest 2.6e-4), losses within 8.8e-8 and 0, SGD
+# leaves within 1.2e-7. DIST_ALLREDUCE_ITERS timed all-reduces of one
+# such bf16 activation in (f).
 DIST_BATCH, DIST_LEN, DIST_MICROBATCHES = 4, 2048, 2
 DIST_STEPS, DIST_NCCL_STEPS, DIST_ALLREDUCE_ITERS = 8, 6, 10
 DIST_HOP_ITERS = 10
 DIST_SGD_STEPS, DIST_SGD_LR = 2, 0.1
 DIST_LOSS_TOL, DIST_UPDATE_TOL = 1e-6, 1e-6
+DIST_REORDER_FRACTION = 1e-3
 DIST_POLL_S = 300.0
 # Phase 24 (formats): (a) phase 14's token table as parquet in
 # FORMATS_PARTS hive partitions, DATA_TRAIN_STEPS flagship steps from it.
@@ -9692,21 +9741,23 @@ def _dist_hop_shape(cfg):
 
 
 def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0,
-              mesh=None, hop=False):
+              mesh=None, hop=False, allreduce_dtype="float32"):
     """Phase 23's worker processes (torch_distributed_worker.py), one for
     each entry of ``ids`` (its cards), over ``backend``: _dist_jobs on
     make_mesh(**mesh) (default: dp over the processes), then, given
     ``allreduce_elements``, DIST_ALLREDUCE_ITERS timed all-reduces of that
-    many f32, and with ``hop`` DIST_HOP_ITERS timed hops of one bf16
-    activation (_dist_hop_shape) from process 0 to process 1. Returns
-    (each process's report, each one's leaves by job); every wait within
-    DIST_POLL_S, every process killed on the way out."""
+    many elements of ``allreduce_dtype``, and with ``hop`` DIST_HOP_ITERS
+    timed hops of one bf16 activation (_dist_hop_shape) from process 0 to
+    process 1. Returns (each process's report, each one's leaves by job);
+    every wait within DIST_POLL_S, every process killed on the way
+    out."""
     import torch_distributed_worker as worker
 
     jobs = _dist_jobs(cfg, mesh or {"dp": len(ids)}, steps)
     if allreduce_elements:
         jobs.append({"kind": "allreduce", "elements": allreduce_elements,
-                     "iters": DIST_ALLREDUCE_ITERS})
+                     "iters": DIST_ALLREDUCE_ITERS,
+                     "dtype": allreduce_dtype})
     if hop:
         jobs.append({"kind": "hop", "shape": _dist_hop_shape(cfg),
                      "dtype": "bfloat16", "iters": DIST_HOP_ITERS})
@@ -9733,7 +9784,10 @@ def _dist_run(cfg, ids, backend, steps, tmp, allreduce_elements=0,
                          if k.startswith(job + "/")
                          and k.split("/")[1].isdigit()}
         if allreduce_elements:
-            r["allreduce"] = {"bytes": 4 * allreduce_elements,
+            r["allreduce"] = {"bytes": getattr(
+                                  torch, allreduce_dtype).itemsize
+                              * allreduce_elements,
+                              "dtype": allreduce_dtype,
                               "elements": allreduce_elements,
                               "s": out["allreduce/seconds"].tolist(),
                               "exact": bool(out["allreduce/exact"])}
@@ -9779,21 +9833,33 @@ def _dist_oracle(cfg, devices, steps, mesh=None):
 
 
 def _dist_check(tag, cfg, reports, leaves, oracle, loss_tol, leaf_tol,
-                fails, pp=1):
+                fails, mesh=None, each=1, adamw_fraction=None):
     """Holds each process of ``reports`` against the one-process
     ``oracle`` job by job: every loss to ``loss_tol`` (relative) and
     every leaf of its shards to ``leaf_tol`` (absolute), its launches
-    (forward, dQ and dK/dV on the tensor cores a step: n_layers times,
-    or with ``pp`` stages its stage's n_layers / pp layers once a
-    microbatch, as its shard of the one-process mesh), its shard (its
-    rank) and its imports. Returns per job the largest errors and how
-    many leaf elements differ by more than 1e-7 .. 1e-4."""
+    (forward, dQ and dK/dV a step on the kernels of ``cfg``'s type: on
+    the tensor cores for bf16, the tiled f32 kernels for f32; n_layers
+    times a shard, or with ``pp`` stages its stage's n_layers / pp
+    layers once a microbatch, as its shards of the one-process mesh,
+    and none with ``sp``, whose ring attention takes plain blocks), its
+    ``each`` shards (from its rank times ``each``) and its imports.
+    Given ``adamw_fraction``, the AdamW job's leaves are held to the share
+    of their elements beyond ``leaf_tol`` instead. Returns per job the
+    largest errors and how many leaf elements differ by more than 1e-7 ..
+    1e-4."""
+    mesh = mesh or {}
+    pp = mesh.get("pp", 1)
     calls = (cfg.n_layers if pp == 1
-             else cfg.n_layers // pp * DIST_MICROBATCHES)
-    per_step = _want_counts("wgmma", calls, calls)
+             else cfg.n_layers // pp * DIST_MICROBATCHES) * each
+    if mesh.get("sp", 1) > 1:
+        calls = 0
+    per_step = _want_counts(
+        "wgmma" if cfg.dtype == torch.bfloat16 else "tiled_f32", calls,
+        calls)
     errs = {}
     for job, (want, _, ref) in oracle.items():
         leaf_err, loss_err, beyond = 0.0, 0.0, [0, 0, 0, 0]
+        over, total = 0, 0
         for r, mine in zip(reports, leaves):
             got, rj = mine[job], r[job]
             if sorted(got) != sorted(k for k in ref if int(k.split(
@@ -9805,15 +9871,18 @@ def _dist_check(tag, cfg, reports, leaves, oracle, loss_tol, leaf_tol,
                 leaf_err = max(leaf_err, float(d.max()))
                 beyond = [b + int((d > t).sum()) for b, t in
                           zip(beyond, (1e-7, 1e-6, 1e-5, 1e-4))]
+                over += int((d > leaf_tol).sum())
+                total += d.size
             err = max(abs(g - w) / abs(w)
                       for g, w in zip(rj["losses"], want))
             loss_err = max(loss_err, err)
             steps = len(rj["losses"])
             counts = {k: v / steps for k, v in rj["counts"].items()}
             rj.update(loss_err=err, launches_per_step=counts)
+            mine_idx = list(range(r["rank"] * each, (r["rank"] + 1) * each))
             if (not err <= loss_tol or counts != per_step
                     or r["jax_imported"] or r["ray_tpu_imported"]
-                    or rj["local_indices"] != [r["rank"]]
+                    or rj["local_indices"] != mine_idx
                     or len(rj["losses"]) != len(want)):
                 fails.append(f"{tag} rank {r['rank']} {job}: loss err "
                              f"{err}, launches {counts} != {per_step}, "
@@ -9821,10 +9890,16 @@ def _dist_check(tag, cfg, reports, leaves, oracle, loss_tol, leaf_tol,
                              f"{r['jax_imported']}")
         errs[job] = {"loss_err": loss_err, "update_err": leaf_err,
                      "elements_beyond_1e-7_1e-6_1e-5_1e-4": beyond,
-                     "loss_tol": loss_tol, "update_tol": leaf_tol}
-        if not leaf_err <= leaf_tol or not all(np.isfinite(want)):
-            fails.append(f"{tag} {job}: leaf err {leaf_err} > {leaf_tol}, "
-                         f"losses {want}")
+                     "elements": total, "loss_tol": loss_tol,
+                     "update_tol": leaf_tol}
+        held = leaf_err <= leaf_tol
+        if job == "adamw" and adamw_fraction is not None:
+            errs[job]["fraction_beyond_update_tol"] = over / total
+            errs[job]["fraction_tol"] = adamw_fraction
+            held = over <= adamw_fraction * total
+        if not held or not all(np.isfinite(want)):
+            fails.append(f"{tag} {job}: leaf err {leaf_err} > {leaf_tol} "
+                         f"at {over} of {total} elements, losses {want}")
     return errs
 
 
@@ -9915,8 +9990,8 @@ def phase_distributed(dev, card, cfg):
                  "across the processes goes through host memory: the "
                  "activation copied to the host, sent and received "
                  "there, and copied onto the receiver's card"})
-    res["d"] = _dist_pp("(d)", cfg, [dev, dev], [[0], [0]], "gloo",
-                        {"pp": 2}, DIST_STEPS, fails)
+    res["d"] = _dist_layout("(d)", cfg, [dev, dev], [[0], [0]], "gloo",
+                            {"pp": 2}, DIST_STEPS, fails, hop=True)
     # (e) NCCL, a process per card, pp across them.
     if n < 4:
         emit({"distributed_e": "skipped", "why": f"{n} CUDA card(s) "
@@ -9927,11 +10002,45 @@ def phase_distributed(dev, card, cfg):
     else:
         cards = [torch.device("cuda", i) for i in range(4)]
         res["e"] = {
-            "dp2-pp2": _dist_pp("(e) dp2-pp2", cfg, cards,
-                                [[i] for i in range(4)], "nccl",
-                                {"dp": 2, "pp": 2}, DIST_NCCL_STEPS, fails),
-            "pp2": _dist_pp("(e) pp2", cfg, cards[:2], [[0], [1]], "nccl",
-                            {"pp": 2}, DIST_NCCL_STEPS, fails)}
+            "dp2-pp2": _dist_layout("(e) dp2-pp2", cfg, cards,
+                                    [[i] for i in range(4)], "nccl",
+                                    {"dp": 2, "pp": 2}, DIST_NCCL_STEPS,
+                                    fails, hop=True),
+            "pp2": _dist_layout("(e) pp2", cfg, cards[:2], [[0], [1]],
+                                "nccl", {"pp": 2}, DIST_NCCL_STEPS, fails,
+                                hop=True)}
+    # (f) tp across processes: two processes on this one card over gloo,
+    # make_mesh(tp=2), against the one-process tp-2 mesh over 2 virtual
+    # shards of the card.
+    emit({"distributed_f_backend": "gloo",
+          "why": "NCCL refuses two ranks on one device, so the two tp "
+                 "shards' processes on the one card meet over gloo",
+          "allreduce": "gloo all-reduces a CUDA tensor through host "
+                       "memory: each row-parallel sum is copied to the "
+                       "host, summed there and copied back"})
+    res["f"] = {"tp2": _dist_layout(
+        "(f) tp2", cfg, [dev, dev], [[0], [0]], "gloo", {"tp": 2},
+        DIST_STEPS, fails, allreduce_shape=_dist_hop_shape(cfg))}
+    if n < 4:
+        emit({"distributed_f_four_cards": "skipped", "why": f"{n} CUDA "
+              f"card(s) visible; (f) runs make_mesh(tp=4) over four "
+              f"processes of a card each and make_mesh(tp=2, sp=2) over "
+              f"two processes of two cards each where at least four "
+              f"cards are"})
+    else:
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        cards = [torch.device("cuda", i) for i in range(4)]
+        res["f"].update({
+            "tp4x1": _dist_layout(
+                "(f) tp4x1", cfg32, cards, [[i] for i in range(4)], "nccl",
+                {"tp": 4}, DIST_NCCL_STEPS, fails,
+                allreduce_shape=_dist_hop_shape(cfg),
+                adamw_fraction=DIST_REORDER_FRACTION),
+            "tp2x2": _dist_layout(
+                "(f) tp2x2", cfg32, cards, [[0, 1], [2, 3]], "nccl",
+                {"tp": 2, "sp": 2}, DIST_NCCL_STEPS, fails,
+                allreduce_shape=_dist_hop_shape(cfg),
+                adamw_fraction=DIST_REORDER_FRACTION)})
     seconds = time.perf_counter() - t_phase
     emit({"phase": "distributed", "results": res, "seconds": seconds,
           "card": card})
@@ -9947,53 +10056,75 @@ def phase_distributed(dev, card, cfg):
                   "cards", "step_p50_ms", "allreduce", "errors")},
               "tokens_per_step": DIST_BATCH * DIST_LEN, "card": card})
     for tag, run in [("d", res["d"])] + [
-            (f"e {k}", v) for k, v in (res["e"] or {}).items()]:
+            (f"e {k}", v) for k, v in (res["e"] or {}).items()] + [
+            (f"f {k}", v) for k, v in res["f"].items()]:
         emit({"distributed_step_smoke_reading": tag,
-              **{k: run[k] for k in ("mesh", "backend", "step_p50_ms",
-                                     "hop", "errors")},
+              **{k: run.get(k) for k in (
+                  "mesh", "backend", "cards_each", "dtype", "step_p50_ms",
+                  "hop", "allreduce", "errors")},
               "tokens_per_step": DIST_BATCH * DIST_LEN, "card": card})
     emit({"distributed_phase_s": seconds, "card": card})
     return res
 
 
-def _dist_pp(tag, cfg, devices, ids, backend, mesh, steps, fails):
-    """Phase 23 (d) and (e): the flagship's step on make_mesh(**mesh),
-    whose pp crosses the processes of ``ids`` (their cards) over
-    ``backend``, against one process over ``devices`` on the same mesh:
-    the losses, every leaf, each process's launches (its stage's shard of
+def _dist_layout(tag, cfg, devices, ids, backend, mesh, steps, fails,
+                 hop=False, allreduce_shape=None, adamw_fraction=None):
+    """Phase 23 (d), (e) and (f): the flagship's step on make_mesh(**mesh),
+    some axis of which crosses the processes of ``ids`` (their cards)
+    over ``backend``, against one process over ``devices`` on the same
+    mesh: the losses, every leaf, each process's launches (its shards of
     the one-process mesh) and imports (_dist_check); the step p50 of
-    both, and the seconds of one hop of a bf16 activation from process 0
-    to process 1 (each process's clock)."""
+    both; with ``hop`` the seconds of one hop of a bf16 activation from
+    process 0 to process 1, and given ``allreduce_shape`` the seconds of
+    one all-reduce of a bf16 activation of that shape across the
+    processes (each process's clock). ``adamw_fraction``: _dist_check's."""
     t0 = time.perf_counter()
     oracle = _dist_oracle(cfg, devices, steps, mesh)
     one_s = time.perf_counter() - t0
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    elements = int(np.prod(allreduce_shape)) if allreduce_shape else 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_layout_")
     try:
         t0 = time.perf_counter()
         reports, leaves = _dist_run(cfg, ids, backend, steps, tmp,
-                                    mesh=mesh, hop=True)
+                                    mesh=mesh, hop=hop,
+                                    allreduce_elements=elements,
+                                    allreduce_dtype="bfloat16")
         run_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if not all(r["hop"]["arrived"] for r in reports):
-        fails.append(f"{tag} the timed hop's value did not arrive intact")
-    hop = {"shape": _dist_hop_shape(cfg), "dtype": "bfloat16",
-           "bytes": reports[0]["hop"]["bytes"],
-           "route": "host memory" if backend == "gloo" else "NCCL",
-           "p50_ms_sender": _p50(reports[0]["hop"]["s"]) * 1e3,
-           "p50_ms_receiver": _p50(reports[1]["hop"]["s"]) * 1e3}
-    return {"mesh": mesh, "backend": backend, "processes": len(ids),
-            "one_process_s": one_s, "processes_s": run_s,
-            "losses_one_process": {j: o[0] for j, o in oracle.items()},
-            "reports": reports,
-            "errors": _dist_check(tag, cfg, reports, leaves, oracle,
-                                  DIST_LOSS_TOL, DIST_UPDATE_TOL, fails,
-                                  pp=mesh["pp"]),
-            "step_p50_ms": {
-                "processes": _p50([s for r in reports
-                                   for s in r["adamw"]["step_s"][1:]]) * 1e3,
-                "one_process": _p50(oracle["adamw"][1][1:]) * 1e3},
-            "hop": hop}
+    out = {"mesh": mesh, "backend": backend, "processes": len(ids),
+           "cards_each": len(ids[0]), "dtype": str(cfg.dtype),
+           "one_process_s": one_s, "processes_s": run_s,
+           "losses_one_process": {j: o[0] for j, o in oracle.items()},
+           "reports": reports,
+           "errors": _dist_check(tag, cfg, reports, leaves, oracle,
+                                 DIST_LOSS_TOL, DIST_UPDATE_TOL, fails,
+                                 mesh=mesh, each=len(ids[0]),
+                                 adamw_fraction=adamw_fraction),
+           "step_p50_ms": {
+               "processes": _p50([s for r in reports
+                                  for s in r["adamw"]["step_s"][1:]]) * 1e3,
+               "one_process": _p50(oracle["adamw"][1][1:]) * 1e3}}
+    if hop:
+        if not all(r["hop"]["arrived"] for r in reports):
+            fails.append(f"{tag} the timed hop's value did not arrive "
+                         f"intact")
+        out["hop"] = {
+            "shape": _dist_hop_shape(cfg), "dtype": "bfloat16",
+            "bytes": reports[0]["hop"]["bytes"],
+            "route": "host memory" if backend == "gloo" else "NCCL",
+            "p50_ms_sender": _p50(reports[0]["hop"]["s"]) * 1e3,
+            "p50_ms_receiver": _p50(reports[1]["hop"]["s"]) * 1e3}
+    if allreduce_shape:
+        if not all(r["allreduce"]["exact"] for r in reports):
+            fails.append(f"{tag} the timed all-reduce is not exact")
+        out["allreduce"] = {
+            "shape": list(allreduce_shape), "dtype": "bfloat16",
+            "bytes": reports[0]["allreduce"]["bytes"],
+            "route": "host memory" if backend == "gloo" else "NCCL",
+            "p50_ms": _p50([t for r in reports
+                            for t in r["allreduce"]["s"]]) * 1e3}
+    return out
 
 
 def _dist_nccl(cfg, cards, fails, backend="nccl"):
@@ -10875,14 +11006,19 @@ def main(argv=None) -> int:
                     kind.replace("fwd_", ""), 0.0)}
             # Phase 23's: a step in each of two processes whose dp crosses
             # them (gloo on the one card; NCCL, a card each, where there
-            # are several).
+            # are several), and in each of two whose tp crosses them.
             row["launches_distributed"] = {
                 "per_process_step_gloo": [
                     r["adamw"]["launches_per_step"][kind.replace("fwd_", "")]
                     for r in dist["b"]["reports"]],
                 "per_process_step_nccl": None if dist["c"] is None else [
                     r["adamw"]["launches_per_step"][kind.replace("fwd_", "")]
-                    for r in dist["c"]["reports"]]}
+                    for r in dist["c"]["reports"]],
+                # (f): two processes on the one card whose tp crosses
+                # them, each on its n_heads / 2 heads.
+                "per_process_step_tp_gloo": [
+                    r["adamw"]["launches_per_step"][kind.replace("fwd_", "")]
+                    for r in dist["f"]["tp2"]["reports"]]}
             # Phase 24's: a step of the flagship fed from hive-partitioned
             # parquet through a pandas stage.
             row["launches_formats"] = {

@@ -4,7 +4,9 @@
 - **In-program** (ops.py, the fast path): operations over the per-shard
   tensors of a mesh axis, or of every group of a mesh along an axis,
   driven by one process. ``allreduce``, ``allgather``, ``reducescatter``,
-  ``broadcast`` and the rest of this package's top level are these.
+  ``broadcast`` and the rest of this package's top level are these;
+  ``backward_order`` (order.py) gives the exchanges across processes of
+  a graph one backward order.
 - **Actor plane** (collective.py): named groups of the runtime's actors
   exchanging tensors through a store rendezvous, with the reference's
   group management. Its group verbs (``init_collective_group``,
@@ -39,6 +41,7 @@ from ray_tpu_torch.collective.ops import (
     reducescatter,
     send_recv,
 )
+from ray_tpu_torch.collective.order import backward_order
 
 __all__ = [
     "all_to_all",
@@ -47,6 +50,7 @@ __all__ = [
     "axis_index",
     "axis_indices",
     "axis_size",
+    "backward_order",
     "barrier",
     "broadcast",
     "collective",

@@ -54,15 +54,11 @@ that ``jax`` gives its ``lax`` counterpart: ``allreduce``'s is an
 the inverse permutation and ``all_to_all``'s the inverse exchange
 (``tests/test_torch_parallel.py`` holds each against ``jax.grad``). The
 step across processes is a ``torch.autograd.Function`` whose backward is
-the same transpose over ``torch.distributed``; it needs one device in
-each process (a card, or CPU shards), so that every process runs the
-backward's exchanges in one order, and raises otherwise (the training
-step syncs its gradients outside autograd, and the pipeline runs its
-backward's exchanges in its own fixed order). A process runs the
-backward of a ``permute`` or ``send_recv`` across processes only if its
-loss reads one of the op's results on its shards (a shard that receives
-nothing holds zeros that come out of the op); otherwise its peers wait
-for its cotangents until ``distributed.TIMEOUT``.
+the same transpose over ``torch.distributed``.
+
+The backward's exchanges across processes run in one order in every
+process, however many devices a process drives: each Function that
+crosses processes is ordered in its scope's chain (``order.py``).
 
 ``permute`` and ``send_recv`` keep ``ppermute``'s rule: a shard that
 receives nothing holds zeros.
@@ -78,6 +74,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch.collective.order import in_order, link, ordered, unlink
 from ray_tpu_torch.parallel import distributed
 from ray_tpu_torch.parallel.mesh import Mesh
 
@@ -144,20 +141,6 @@ GroupOp = Callable[[List[torch.Tensor], List[int], int,
                     Optional["_Cross"]], List[torch.Tensor]]
 
 
-def _refuse_autograd_across(xs: Sequence[torch.Tensor], mesh: Mesh):
-    """Autograd through an exchange across processes needs one device in
-    each process (module docstring)."""
-    n_dev = len({str(d) for d in mesh.local_devices})
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs) \
-            and n_dev > 1:
-        raise NotImplementedError(
-            f"autograd through a collective across processes with "
-            f"{n_dev} devices in a process waits for ROADMAP A.7: the "
-            f"backward's exchanges would run in the order the devices' "
-            f"autograd threads reach them, which differs between "
-            f"processes")
-
-
 def _per_group(xs: Sequence[torch.Tensor], mesh: Mesh, axis: AxisName,
                op: GroupOp) -> List[torch.Tensor]:
     """``op`` on the shards of one group (``xs`` as long as the axis), or
@@ -173,10 +156,8 @@ def _per_group(xs: Sequence[torch.Tensor], mesh: Mesh, axis: AxisName,
     owners = [[int(owner[j]) for j in g] for g in gs]
     crossing = sorted({tuple(sorted(set(o))) for o in owners
                        if len(set(o)) > 1})
-    if crossing:
-        _refuse_autograd_across(xs, mesh)
-    # Every process asks for every crossing group's process group, in one
-    # order (distributed.process_group).
+    # The mesh's maker made every crossing group's process group in every
+    # process (distributed.ready_groups): here they come from the cache.
     pgs = {ranks: distributed.process_group(ranks) for ranks in crossing}
     home = mesh.local_devices[0]
     out = [None] * len(xs)
@@ -205,19 +186,19 @@ class _AllReduce(torch.autograd.Function):
     max and min, ``ties`` counts the members behind each element of this
     process's ``x`` that hold it; the cotangent goes to the processes
     whose ``x`` holds the result, in proportion to their ties, so every
-    member that holds it gets an even share."""
+    member that holds it gets an even share. Ordered (``ordered``)."""
 
     @staticmethod
-    def forward(ctx, x, pg, op, ties):
+    def forward(ctx, x, pg, op, ties, after):
         y = _contiguous(x)
         dist.all_reduce(y, op=_REDUCE_OPS[op], group=pg)
         ctx.pg, ctx.op = pg, op
         if op != "sum":
             ctx.save_for_backward(x, y, ties)
-        return y
+        return y, link(ctx, after, x.device)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         g = _contiguous(g)
         dist.all_reduce(g, group=ctx.pg)
         if ctx.op != "sum":
@@ -226,53 +207,55 @@ class _AllReduce(torch.autograd.Function):
             total = _contiguous(share)
             dist.all_reduce(total, group=ctx.pg)
             g = g * share / total
-        return g, None, None, None
+        return g, None, None, None, unlink(ctx)
 
 
 class _AllGather(torch.autograd.Function):
     """Each process's block [k, ...] -> every block in rank order
     [P * k, ...]; the backward all-reduces the cotangent and keeps this
-    process's block."""
+    process's block. Ordered (``ordered``)."""
 
     @staticmethod
-    def forward(ctx, block, pg):
+    def forward(ctx, block, pg, after):
         n, r, k = dist.get_world_size(pg), dist.get_rank(pg), block.shape[0]
         ctx.pg, ctx.rows = pg, slice(r * k, (r + 1) * k)
+        token = link(ctx, after, block.device)
         if block.is_cuda and dist.get_backend(pg) == "gloo":
             full = block.new_zeros((n * k,) + tuple(block.shape[1:]))
             full[ctx.rows] = block
             dist.all_reduce(full, group=pg)
-            return full
+            return full, token
         outs = [torch.empty_like(block, memory_format=torch.contiguous_format)
                 for _ in range(n)]
         dist.all_gather(outs, _contiguous(block), group=pg)
-        return torch.cat(outs)
+        return torch.cat(outs), token
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         g = _contiguous(g)
         dist.all_reduce(g, group=ctx.pg)
-        return g[ctx.rows], None
+        return g[ctx.rows], None, unlink(ctx)
 
 
 class _Broadcast(torch.autograd.Function):
     """``dist.broadcast`` from global rank ``src``; the backward sums the
-    cotangent onto the source (zeros elsewhere)."""
+    cotangent onto the source (zeros elsewhere). Ordered
+    (``ordered``)."""
 
     @staticmethod
-    def forward(ctx, x, src, pg):
+    def forward(ctx, x, src, pg, after):
         y = _contiguous(x)
         dist.broadcast(y, src=src, group=pg)
         ctx.src, ctx.pg = src, pg
-        return y
+        return y, link(ctx, after, x.device)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         g = _contiguous(g)
         dist.all_reduce(g, group=ctx.pg)
         if dist.get_rank() != ctx.src:
             g = torch.zeros_like(g)
-        return g, None, None
+        return g, None, None, unlink(ctx)
 
 
 class _Cross:
@@ -287,8 +270,8 @@ class _Cross:
                   ties: Optional[torch.Tensor] = None) -> torch.Tensor:
         if ties is not None:
             ties = ties.to(self.home)
-        return _AllReduce.apply(x.to(self.home), self.pg, op,
-                                ties).to(x.device)
+        y, = ordered(_AllReduce, x.to(self.home), self.pg, op, ties)
+        return y.to(x.device)
 
     def allgather(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """Every member's tensor in group order, from this process's
@@ -299,8 +282,9 @@ class _Cross:
             raise ValueError(f"an allgather across processes needs as many "
                              f"members in each; the group's owners are "
                              f"{self.owners}")
-        full = _AllGather.apply(
-            torch.stack([p.to(self.home) for p in parts]), self.pg)
+        full, = ordered(_AllGather,
+                         torch.stack([p.to(self.home) for p in parts]),
+                         self.pg)
         seen = dict.fromkeys(ranks, 0)
         rows = []
         for q in self.owners:
@@ -311,8 +295,9 @@ class _Cross:
     def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         """The root member's ``x`` (on its process; elsewhere ``x`` gives
         only the shape and type)."""
-        return _Broadcast.apply(x.to(self.home), self.owners[root],
-                                self.pg).to(x.device)
+        y, = ordered(_Broadcast, x.to(self.home), self.owners[root],
+                      self.pg)
+        return y.to(x.device)
 
 
 class Like(NamedTuple):
@@ -398,10 +383,12 @@ def route(mesh: Mesh, pairs: Sequence[Tuple[int, int]], values,
 class _Route(torch.autograd.Function):
     """``permute`` across processes: each local shard's result is what
     its pair's source sent (zeros where nothing comes); the backward
-    routes the cotangents back along the reversed pairs."""
+    routes the cotangents back along the reversed pairs. Ordered
+    (``ordered``)."""
 
     @staticmethod
-    def forward(ctx, mesh, pairs, *xs):
+    def forward(ctx, mesh, pairs, *xs_after):
+        *xs, after = xs_after
         where = {j: i for i, j in enumerate(mesh.local_indices)}
         ctx.mesh, ctx.pairs, ctx.like = mesh, pairs, [like(x) for x in xs]
         out = [torch.zeros_like(x) for x in xs]
@@ -409,10 +396,11 @@ class _Route(torch.autograd.Function):
                     {j: [xs[i]] for j, i in where.items()})
         for dst, (v,) in got:
             out[where[dst]] = v
-        return tuple(out)
+        return (*out, link(ctx, after, xs[0].device))
 
     @staticmethod
     def backward(ctx, *gs):
+        gs = gs[:-1]
         mesh = ctx.mesh
         where = {j: i for i, j in enumerate(mesh.local_indices)}
         back = route(mesh, [(d, s) for s, d in ctx.pairs],
@@ -421,7 +409,7 @@ class _Route(torch.autograd.Function):
         grads = [None] * len(gs)
         for src, (g,) in back:       # a permutation's sources are distinct
             grads[where[src]] = g
-        return (None, None, *grads)
+        return (None, None, *grads, unlink(ctx))
 
 
 def _deliver(values: Sequence[torch.Tensor], xs: Sequence[torch.Tensor]
@@ -449,6 +437,7 @@ def _fold(parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
     return acc
 
 
+@in_order
 def allreduce(xs, mesh: Mesh, axis: AxisName, op: str = "sum"
               ) -> List[torch.Tensor]:
     if op not in ("sum", "mean", "max", "min"):
@@ -469,6 +458,7 @@ def allreduce(xs, mesh: Mesh, axis: AxisName, op: str = "sum"
     return _per_group(xs, mesh, axis, reduce)
 
 
+@in_order
 def allgather(xs, mesh: Mesh, axis: AxisName, *, tiled: bool = True,
               gather_axis: int = 0) -> List[torch.Tensor]:
     """Every shard gets every shard's tensor: concatenated along
@@ -484,6 +474,7 @@ def allgather(xs, mesh: Mesh, axis: AxisName, *, tiled: bool = True,
     return _per_group(xs, mesh, axis, gather)
 
 
+@in_order
 def reducescatter(xs, mesh: Mesh, axis: AxisName, *, scatter_axis: int = 0,
                   tiled: bool = True) -> List[torch.Tensor]:
     """The sum, split along ``scatter_axis``: shard j gets block j (tiled),
@@ -508,6 +499,7 @@ def reducescatter(xs, mesh: Mesh, axis: AxisName, *, scatter_axis: int = 0,
     return _per_group(xs, mesh, axis, scatter)
 
 
+@in_order
 def broadcast(xs, mesh: Mesh, axis: str, root: int = 0
               ) -> List[torch.Tensor]:
     """Every shard gets the root shard's value."""
@@ -527,6 +519,7 @@ def broadcast(xs, mesh: Mesh, axis: str, root: int = 0
     return _per_group(xs, mesh, axis, bcast)
 
 
+@in_order
 def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
             ) -> List[torch.Tensor]:
     """Shard dst gets shard src's value for each (src, dst) pair; a shard
@@ -544,11 +537,11 @@ def permute(xs, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
             g[sent[j]].to(x.device, copy=True) if j in sent
             else torch.zeros_like(x) for j, x in enumerate(g)])
     _check_local(xs, mesh, axis)
-    _refuse_autograd_across(xs, mesh)
     pairs = [(g[s], g[d]) for g in gs for s, d in perm]
-    return list(_Route.apply(mesh, pairs, *xs))
+    return list(ordered(_Route, mesh, pairs, *xs))
 
 
+@in_order
 def all_to_all(xs, mesh: Mesh, axis: str, split_axis: int, concat_axis: int,
                *, tiled: bool = True) -> List[torch.Tensor]:
     """Shard j gets block j of every shard's ``split_axis``, in shard

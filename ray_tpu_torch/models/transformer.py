@@ -54,7 +54,8 @@ Differences from the JAX reference, none of which change results:
   ``make_train_step``: see its docstring for how its signature differs
   from the reference's. On a mesh that spans processes
   (``parallel.distributed``) each process runs this program over its own
-  shards, and the gradient sync and the loss's mean cross processes.
+  shards, and every collective whose group spans processes crosses them
+  (any axis may).
 - ``_attention_dense`` follows one rule, ``_attention_route`` of
   ``ops/flash_attention.py``: a head_dim that is no multiple of 8, or
   fewer than 8 tokens, takes the dense grouped einsum, as the reference's
@@ -93,6 +94,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective.order import backward_order
 from ray_tpu_torch.collective.ops import allgather, allreduce
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (
@@ -680,17 +682,29 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
     each process passes ``step`` only its rows of the global batch
     (``distributed.host_local_batch_slice(B, mesh=mesh)``: the rows of
     the (dp, fsdp) blocks its shards hold, so processes that differ only
-    along ``pp`` pass the same rows). The loss is the global mean and
-    each shard updates as under the one-process step over the whole
-    batch: what crosses processes is the gradient sync and the loss's
-    mean over ``dp``, and over ``pp`` the pipeline's activation hops
-    (``pipeline_spmd``) and the sync of ``embed``, ``final_norm`` and
-    ``lm_head``, the two axes that may.
+    along ``tp``, ``sp``, ``ep`` or ``pp`` pass the same rows, and ``sp``
+    cuts the sequence inside them). The loss is the global mean and each
+    shard updates as under the one-process step over the whole batch.
+    Any axis may cross processes, and each of its collectives then
+    crosses them over ``torch.distributed``: the row-parallel sums after
+    ``wo``, ``w_down`` and ``e_down`` over ``tp``, ring attention's K/V
+    hops over ``sp``, MoE's dispatch and combine over ``ep``, the
+    pipeline's activation hops over ``pp`` (``pipeline_spmd``), the
+    gradient sync over every axis a leaf is replicated on and the
+    loss's mean over (``dp``, ``fsdp``, ``sp``). Autograd runs through
+    the exchanges across processes in one order in every process,
+    however many devices a process drives (``collective/ops.py``); each
+    step's forward is a chain of its own.
 
     Raises ``ValueError`` where the reference does: here for
     ``n_layers % pp``, heads % tp and experts % ep; at the step for a
     local batch that the microbatches do not divide (and for a batch or
-    sequence that the mesh does not divide)."""
+    sequence that the mesh does not divide). Unlike the reference, it
+    also raises for ``cfg.remat`` on a mesh that spans processes where a
+    process drives more than one device: a checkpoint's recompute makes
+    its exchanges across processes inside the backward, outside any
+    chain, so each device's autograd thread would post them in an order
+    of its own."""
     shape = mesh_shape(mesh)
     pp, tp, sp_n, ep_n = shape["pp"], shape["tp"], shape["sp"], shape["ep"]
     if cfg.n_layers % pp:
@@ -699,6 +713,13 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
         raise ValueError("heads must divide tp")
     if cfg.num_experts and cfg.num_experts % ep_n:
         raise ValueError("experts must divide ep")
+    n_dev = len({str(d) for d in mesh.local_devices})
+    if cfg.remat and mesh.spans_processes and n_dev > 1:
+        raise ValueError(
+            f"remat on a mesh that spans processes needs one device in "
+            f"each, this process drives {n_dev}: the recompute's "
+            f"exchanges across processes run inside the backward, in the "
+            f"order each device's autograd thread reaches them")
     layers_per_stage = cfg.n_layers // pp
     pspec = {"embed": (None, None), "layers": _stage_params_spec(cfg),
              "final_norm": (None,), "lm_head": (None, None)}
@@ -772,7 +793,8 @@ def make_spmd_train_step(cfg: TransformerConfig, mesh, params,
         tgts = [t.long()
                 for t in shard_host_local(targets, mesh, DATA_SPEC)]
         opt.zero_grad(set_to_none=True)
-        losses = local_losses(toks, tgts)
+        with backward_order():
+            losses = local_losses(toks, tgts)
         first = losses[0].device
         torch.stack([l.to(first) for l in losses]).sum().backward()
         # A leaf the loss does not reach gets a zero gradient, as under

@@ -13,9 +13,12 @@ every process's devices process-major, so the outermost axes cross
 processes; each process holds the shards of its own devices, and the
 collectives of ``ray_tpu_torch.collective`` run the part of a group that
 crosses processes over ``torch.distributed`` (``mesh.py``'s docstring).
-``dp`` and ``pp`` cross processes, the reference's ``DCN_AXES``: the
-gradient sync over dp, the pipeline's activation hops over pp
-(``pipeline.py``); the ICI axes stay inside a process (ROADMAP A.7).
+Any axis may cross processes, as the reference's ``make_mesh`` lays any
+axis across hosts: the gradient sync over dp, the pipeline's activation
+hops over pp (``pipeline.py``), and the ICI-bound axes' exchanges
+(fsdp's and tp's sums, sp's ring and all-to-all, ep's dispatch) over
+``torch.distributed`` too. ``make_hybrid_mesh`` keeps the reference's
+rule that an ICI-bound axis stays off the DCN tier.
 
 One process (and the CPU tests' virtual shards) is the degenerate case:
 ``initialize()`` is a no-op with ``process_count() == 1`` and the hybrid
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -159,8 +163,8 @@ def process_group(ranks: Sequence[int]):
     """The ``torch.distributed`` group of these processes, made at first
     use and cached: every process must ask for the same groups in the
     same order (``new_group`` is collective over the whole world), as
-    the collectives do, which ask for every group of a mesh axis at
-    once."""
+    ``ready_groups`` does for every group of a mesh when the mesh is
+    made."""
     ranks = tuple(sorted(int(r) for r in ranks))
     if ranks == tuple(range(process_count())):
         return dist.group.WORLD
@@ -175,12 +179,37 @@ def ready_p2p(device: torch.device) -> None:
     batch (an all-reduce of one element on ``device``, once): a batch of
     sends and receives runs on that communicator, and making it is
     collective over every process, while a batch may involve only some.
-    Every process reaches it, at the first exchange across processes of
-    a call that they all make."""
+    Every process reaches it when it makes its first mesh that spans
+    processes (``ready_groups``)."""
     if _state["p2p_ready"] or dist.get_backend() != "nccl":
         return
     dist.all_reduce(torch.zeros(1, device=device))
     _state["p2p_ready"] = True
+
+
+def ready_groups(mesh: Mesh) -> None:
+    """Make, in one order in every process, the process group of every
+    set of processes that a group of ``mesh`` along some of its axes
+    spans, and the world's NCCL communicator for point-to-point
+    (``ready_p2p``). Making either is collective over every process,
+    while a collective over a group may be reached by its members alone
+    (a pipeline stage's tp sum runs in that stage's processes only), so
+    ``make_mesh`` and ``make_hybrid_mesh``, which every process calls
+    alike, make them all up front."""
+    if not mesh.spans_processes:
+        return
+    procs = mesh.processes
+    wide = [k for k, n in enumerate(procs.shape) if n > 1]
+    sets = set()
+    for r in range(1, len(wide) + 1):
+        for ks in itertools.combinations(wide, r):
+            rest = [k for k in range(procs.ndim) if k not in ks]
+            rows = procs.transpose(rest + list(ks)).reshape(
+                -1, math.prod(procs.shape[k] for k in ks))
+            sets.update(tuple(sorted(set(row.tolist()))) for row in rows)
+    for ranks in sorted(s for s in sets if len(s) > 1):
+        process_group(ranks)
+    ready_p2p(mesh.local_devices[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,9 +263,11 @@ def make_hybrid_mesh(config: HybridMeshConfig,
     arr = np.empty(len(devices), dtype=object)
     arr[:] = [torch.device(d) for d in devices]
     shape = dcn_shape + ici_shape
-    return Mesh(arr.reshape(shape), axis_names,
+    mesh = Mesh(arr.reshape(shape), axis_names,
                 None if owners is None else np.reshape(owners, shape),
                 process_index())
+    ready_groups(mesh)
+    return mesh
 
 
 def host_local_batch_slice(global_batch: int, mesh: Optional[Mesh] = None
@@ -245,13 +276,15 @@ def host_local_batch_slice(global_batch: int, mesh: Optional[Mesh] = None
     the per-host data-loading contract (each host feeds only its chips).
 
     Without ``mesh`` (the reference's signature) the processes hold
-    equal slices in process order, right where only ``dp`` crosses
-    processes. ``mesh=`` is the port's one addition: with ``pp`` across
-    processes, processes that differ only along ``pp`` hold the same
-    (dp, fsdp) blocks and need the same rows, and the reference's rule
-    would hand each ``pp`` peer half of a batch it needs whole. With it
-    a process feeds the rows of the (dp, fsdp) blocks its shards hold
-    (``sharding.data_rows``), the rows ``shard_host_local`` cuts."""
+    equal slices in process order, right where only ``dp`` or ``fsdp``
+    crosses processes. ``mesh=`` is the port's one addition: only the
+    batch axes (dp, fsdp) change a process's rows. Processes that differ
+    only along ``tp``, ``sp``, ``ep`` or ``pp`` hold the same (dp, fsdp)
+    blocks and need the same rows (``sp`` then cuts the sequence inside
+    them), and the reference's rule would hand each such peer a part of
+    a batch it needs whole. With it a process feeds the rows of the
+    (dp, fsdp) blocks its shards hold (``sharding.data_rows``), the rows
+    ``shard_host_local`` cuts."""
     if mesh is None:
         index, n = process_index(), process_count()
     else:

@@ -18,17 +18,15 @@ its devices.
 
 Several processes (``parallel.distributed.initialize``): every process
 builds the same mesh over every process's devices, laid out
-process-major as ``jax.devices()`` orders them, so the outermost axes
-cross processes. ``Mesh.processes`` records which process owns each
-entry; each process holds the shards of its own entries, and every
-per-shard list (``shard_params``, ``shard_tensor``, the collectives, the
-training step's ``shards``) holds this process's shards only, in the
-mesh's flat order. Only ``dp`` and ``pp`` may cross processes
-(``CROSS_PROCESS_AXES``), the reference's ``DCN_AXES``: dp's gradient
-sync and pp's activation hops tolerate the slower link, while the
-ICI-bound axes (fsdp, tp, sp, ep) stay inside a process (the
-reference's ``make_mesh`` lays them across hosts too, its hybrid mesh
-does not: ROADMAP A.7).
+process-major as ``jax.devices()`` orders them, so the outermost axis of
+size > 1 is the one that crosses processes (and the next ones, once it
+is used up). ``Mesh.processes`` records which process owns each entry;
+each process holds the shards of its own entries, and every per-shard
+list (``shard_params``, ``shard_tensor``, the collectives, the training
+step's ``shards``) holds this process's shards only, in the mesh's flat
+order. Every axis may cross processes, as the reference's ``make_mesh``
+lays any axis across hosts; only its hybrid mesh keeps the ICI-bound
+axes off the DCN tier (``distributed.make_hybrid_mesh``).
 
 Default devices are the visible CUDA devices. Virtual shards are never
 made implicitly: ``RAY_TPU_TORCH_VIRTUAL_DEVICES=n`` (read only here)
@@ -53,8 +51,6 @@ import numpy as np
 import torch
 
 AXES = ("dp", "fsdp", "pp", "tp", "sp", "ep")
-# The axes a mesh may lay across processes (module docstring).
-CROSS_PROCESS_AXES = ("dp", "pp")
 
 VIRTUAL_DEVICES_ENV = "RAY_TPU_TORCH_VIRTUAL_DEVICES"
 
@@ -70,8 +66,7 @@ class Mesh:
     each entry, and ``process`` this process's index: ``local_indices``
     are the flat indices of this process's entries, whose devices it
     drives (an entry of another process names the device as that process
-    does). An axis along which the owner changes crosses processes, and
-    only ``CROSS_PROCESS_AXES`` may."""
+    does). An axis along which the owner changes crosses processes."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
                  processes: Optional[np.ndarray] = None, process: int = 0):
@@ -90,14 +85,6 @@ class Mesh:
         self.process = int(process)
         self.local_indices = np.flatnonzero(
             self.processes.reshape(-1) == self.process).tolist()
-        for k, a in enumerate(self.axis_names):
-            if a not in CROSS_PROCESS_AXES and np.any(
-                    np.diff(self.processes, axis=k)):
-                raise ValueError(
-                    f"mesh axis {a!r} crosses processes; only "
-                    f"{CROSS_PROCESS_AXES} may (the ICI-bound axes "
-                    f"fsdp, tp, sp and ep stay inside a process: "
-                    f"ROADMAP A.7)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -209,9 +196,10 @@ def make_mesh(
 
     After ``parallel.distributed.initialize`` with several processes,
     every process calls this alike: ``devices`` (default: the process's
-    own, ``distributed.local_devices()``) are this process's, and the
-    mesh spans every process's devices, process-major (module
-    docstring)."""
+    own, ``distributed.local_devices()``) are this process's, the mesh
+    spans every process's devices, process-major (module docstring), and
+    every process group its collectives may use is made here
+    (``distributed.ready_groups``)."""
     # distributed imports this module, so it is imported here.
     from ray_tpu_torch.parallel import distributed
 
@@ -235,8 +223,10 @@ def make_mesh(
     arr[:] = devs
     if processes is not None:
         processes = np.asarray(processes).reshape(sizes)
-    return Mesh(arr.reshape(sizes), AXES, processes,
+    mesh = Mesh(arr.reshape(sizes), AXES, processes,
                 distributed.process_index())
+    distributed.ready_groups(mesh)
+    return mesh
 
 
 def mesh_shape(mesh: Mesh) -> dict:

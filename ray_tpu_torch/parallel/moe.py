@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective.order import in_order
 from ray_tpu_torch.parallel.mesh import Mesh
 
 
@@ -52,6 +53,7 @@ def _dispatch(x, logits, E, cap):
     return disp, (idx, safe_pos, keep, gate)
 
 
+@in_order
 def moe_dispatch_combine(
     xs: Sequence[torch.Tensor],
     router_logits: Sequence[torch.Tensor],

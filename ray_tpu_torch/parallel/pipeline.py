@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective.order import backward_order
 from ray_tpu_torch.parallel.mesh import Mesh
 
 
@@ -235,7 +236,11 @@ class _Schedule:
                            for i in members[s]]
                 if record:
                     inp = [_tree_map(_grad_alias, a) for a in inp]
-                with torch.enable_grad() if record else torch.no_grad():
+                # A recorded call is a graph of its own (``backward``
+                # takes its gradients alone), so its exchanges across
+                # processes get a chain of their own.
+                with torch.enable_grad() if record else torch.no_grad(), \
+                        backward_order():
                     out = self.stage_fn(s, self.meshes[s],
                                         [self.params[i] for i in members[s]],
                                         inp)

@@ -10,7 +10,9 @@ Plain PyTorch, as the reference is plain ``jnp.einsum``: no kernel.
 
 One controller drives every shard: q/k/v are the per-shard lists over a
 mesh (``xs`` of ``ray_tpu_torch.collective``: one group along the axis,
-or every shard of the mesh in the order of ``mesh.devices.flat``). The
+or every shard of the mesh in the order of ``mesh.devices.flat``; of a
+mesh that spans processes, this process's shards, and the hops between
+processes go over ``torch.distributed``). The
 reference's ``fori_loop`` also rotates K/V after the last block, a value
 it never reads; here the ring makes n - 1 hops for n blocks.
 """
@@ -22,6 +24,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective.order import in_order
 from ray_tpu_torch.parallel.mesh import Mesh
 
 NEG_INF = -1e30
@@ -51,6 +54,7 @@ def _causal_bias(q, my, kv_shard, s_local):
     return bias.masked_fill(~mask, NEG_INF)[None, None]
 
 
+@in_order
 def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                    vs: Sequence[torch.Tensor], *, mesh: Mesh,
                    axis_name: str = "sp", causal: bool = True,
@@ -63,7 +67,7 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     if scale is None:
         scale = qs[0].shape[-1] ** -0.5
     n = cops.axis_size(mesh, axis_name)
-    my = (list(range(n)) if len(qs) == n
+    my = (list(range(n)) if len(qs) == n and not mesh.spans_processes
           else cops.axis_indices(mesh, axis_name))
     s_local = qs[0].shape[2]
     if n == 1:

@@ -95,10 +95,10 @@ def data_rows(mesh: Mesh, entry: MeshAxis = ("dp", "fsdp")
     ``entry``'s axes: each process feeds the blocks its shards hold, the
     mesh's processes hold ``count`` distinct sets of blocks, and this
     process's set is the ``index``-th in process order. Processes that
-    differ only along other axes (``pp`` across processes) hold the same
-    set, so they feed the same rows; where only ``dp`` crosses
-    processes every process holds its own set and this is (process
-    index, process count)."""
+    differ only along other axes (``tp``, ``sp``, ``ep`` or ``pp`` across
+    processes) hold the same set, so they feed the same rows; where only
+    ``dp`` or ``fsdp`` crosses processes every process holds its own set
+    and this is (process index, process count)."""
     owner = mesh.processes.reshape(-1)
     held: Dict[int, set] = {}
     for flat in range(mesh.size):

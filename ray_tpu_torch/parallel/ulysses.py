@@ -15,10 +15,12 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective.order import in_order
 from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.ring_attention import reference_attention
 
 
+@in_order
 def ulysses_attention(qs: Sequence[torch.Tensor],
                       ks: Sequence[torch.Tensor],
                       vs: Sequence[torch.Tensor], *, mesh: Mesh,

@@ -1,8 +1,8 @@
 """Parity of the port's multi-process device plane
 (``ray_tpu_torch.parallel.distributed``: the bootstrap, meshes that span
-processes, collectives across processes, the pipeline across processes
-and the training step whose ``dp`` and ``pp`` cross them) with the
-reference, on the CPU.
+processes, collectives across processes, the pipeline, ring attention
+and Ulysses across processes, and the training step with any axis
+across them) with the reference, on the CPU.
 
 The one-process twins hold ``tests/test_parallel.py``'s three tests of
 ``ray_tpu/parallel/distributed.py`` (the bootstrap, the axis tiers, a
@@ -15,6 +15,11 @@ TCP store on a free port; this process runs the reference on its
 Every wait is bounded (``WORKER_TIMEOUT_S``) and every worker is killed
 on the way out.
 
+The order of the backward's exchanges across processes
+(``collective/ops.py``'s chain) is pinned in this process: CPU shards
+share one autograd thread, so only a graph built to reach the exchanges
+out of order shows it.
+
 Tolerances: the steps are ``tests/test_torch_spmd.py``'s (f32 on both
 sides, sums ordered otherwise): each loss to LOSS_RTOL = 1e-6 relative,
 every leaf after two SGD(0.1) steps to PARAM_ATOL = 1e-6 and after two
@@ -26,6 +31,7 @@ for values of size ~1 and GRAD_TOL = 1e-4 for gradients.
 """
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -39,10 +45,13 @@ from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import ray_tpu.models as jm
+from ray_tpu import parallel as jpar
 from ray_tpu.parallel import distributed as jdist
 from ray_tpu.parallel.mesh import MeshConfig as JMeshConfig
 from ray_tpu.parallel.mesh import make_mesh as jmake_mesh
 import ray_tpu_torch.collective as tops
+from ray_tpu_torch.collective import ops as cops
+from ray_tpu_torch.collective import order as corder
 from ray_tpu_torch import models as tm
 from ray_tpu_torch import parallel as tpar
 from ray_tpu_torch.parallel import distributed as tdist
@@ -50,7 +59,8 @@ from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel.sharding import shard_host_local
 
 import torch_distributed_worker as worker
-from test_torch_spmd import LOSS_RTOL, PARAM_ATOL, _flat, _port_cfg
+from test_torch_parallel import _compiled_afresh
+from test_torch_spmd import LOSS_RTOL, MOE, PARAM_ATOL, _flat, _port_cfg
 
 torch.set_num_threads(1)
 
@@ -65,7 +75,12 @@ STEPS, BATCH, LEN = 2, 8, 16
 CFG = jm.TransformerConfig(
     vocab_size=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
     d_ff=128, dtype=jnp.float32)
+# CFG with each layer checkpointed: the recompute's tp sums cross the
+# processes inside the backward (one device a process: the CPU).
+REMAT = dataclasses.replace(CFG, remat=True)
 
+# name -> (mesh, optimizer, microbatches[, config]): CFG unless the
+# case names MOE (tests/test_torch_spmd.py's, 4 experts) or REMAT.
 STEP_CASES = {
     "dp2-tp4-sgd": (dict(dp=2, tp=4), "sgd", 1),
     "dp2-tp4-adamw": (dict(dp=2, tp=4), "adamw", 1),
@@ -74,12 +89,32 @@ STEP_CASES = {
     "dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2),
     "pp2-tp4-sgd": (dict(pp=2, tp=4), "sgd", 2),
     "pp2-tp4-adamw": (dict(pp=2, tp=4), "adamw", 2),
+    # The ICI-bound axes across the two processes: fsdp (each process
+    # its rows), tp (ring attention inside each process) and sp with ep
+    # inside (the ring's K/V hops across processes).
+    "fsdp2-tp4-sgd": (dict(fsdp=2, tp=4), "sgd", 1),
+    "tp2-sp4-sgd": (dict(tp=2, sp=4), "sgd", 1),
+    "tp2-sp4-adamw": (dict(tp=2, sp=4), "adamw", 1),
+    "sp2-ep4-sgd": (dict(sp=2, ep=4), "sgd", 1, MOE),
+    "tp2-sp4-remat-sgd": (dict(tp=2, sp=4), "sgd", 1, REMAT),
 }
-# Four processes x 2 CPU shards: dp and pp both cross processes.
+# Four processes x 2 CPU shards: dp and pp both cross processes, tp and
+# sp both do (ep inside each process), or pp and tp both do.
 FOUR_PROCESSES, FOUR_SHARDS_EACH = 4, 2
-FOUR_STEP_CASES = {"dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2)}
+FOUR_STEP_CASES = {
+    "dp2-pp2-tp2-sgd": (dict(dp=2, pp=2, tp=2), "sgd", 2),
+    "tp2-sp2-ep2-sgd": (dict(tp=2, sp=2, ep=2), "sgd", 1, MOE),
+    # pp and tp both across processes: each stage's tp sums run in that
+    # stage's two processes alone.
+    "pp2-tp4-sgd": (dict(pp=2, tp=4), "sgd", 2),
+}
 COLLECTIVE_MESHES = {"dp2-tp4": dict(dp=2, tp=4), "dp4-tp2": dict(dp=4, tp=2),
-                     "pp2-tp4": dict(pp=2, tp=4)}
+                     "pp2-tp4": dict(pp=2, tp=4),
+                     "tp2-sp4": dict(tp=2, sp=4)}
+# Ring attention and Ulysses on sp 8, four sequence blocks in each
+# process (the ring's hops 3 -> 4 and 7 -> 0 cross them): [B, H, S, D].
+ATTN_MESH = dict(sp=8)
+ATTN_SHAPES = {"ring": (2, 4, 32, 8), "ulysses": (2, 8, 32, 8)}
 # The pipeline twin: pipeline_spmd on pp2-tp4 (pp across the two
 # processes), M microbatches of [PIPE_B, PIPE_D] a shard.
 PIPE_MESH = dict(pp=2, tp=4)
@@ -212,14 +247,18 @@ def test_hybrid_mesh_step_raises_keyerror_pp(eight_device_mesh):
 
 def test_one_process_mesh_is_unchanged():
     """Without ``initialize`` a mesh is one process's: every entry local,
-    no axis crossing, the per-shard lists whole."""
+    no axis crossing, the per-shard lists whole. Given owners along
+    ``tp``, the mesh spans processes and holds only this process's
+    entries (any axis may cross)."""
     mesh = tmesh.make_mesh(tmesh.MeshConfig(dp=2, tp=4), devices=[CPU] * 8)
     assert not mesh.spans_processes
     assert mesh.local_indices == list(range(8))
     assert mesh.local_size == mesh.size == 8
-    with pytest.raises(ValueError, match="'tp' crosses processes"):
-        tmesh.Mesh(mesh.devices, mesh.axis_names,
-                   np.arange(8).reshape(mesh.devices.shape) % 2)
+    owners = np.arange(8).reshape(mesh.devices.shape) % 2
+    across = tmesh.Mesh(mesh.devices, mesh.axis_names, owners)
+    assert across.spans_processes
+    assert across.local_indices == [0, 2, 4, 6]
+    assert across.processes.tolist() == owners.tolist()
 
 
 # ------------------------------------------------ two processes over gloo
@@ -231,6 +270,35 @@ def _inputs():
     targets = rng.integers(0, CFG.vocab_size, (STEPS, BATCH, LEN)).astype(
         np.int32)
     return params, tokens, targets
+
+
+def _case_cfg(case):
+    return case[3] if len(case) > 3 else CFG
+
+
+def _step_jobs(cases):
+    """The workers' step jobs of ``cases``, and their parameter trees as
+    arrays (``params/...`` for CFG and REMAT, ``params_moe/...`` for
+    MOE): the reference's initial parameters of each config."""
+    arrays, params, jobs = {}, {}, []
+    for name, case in cases.items():
+        sizes, opt, mb = case[:3]
+        cfg = _case_cfg(case)
+        prefix = "params_moe" if cfg is MOE else "params"
+        if prefix not in params:
+            params[prefix] = jm.init_params(cfg, jax.random.PRNGKey(0))
+            tree = tm.params_from_jax(
+                jax.tree_util.tree_map(np.asarray, params[prefix]),
+                _port_cfg(cfg), device="cpu")
+            arrays.update({f"{prefix}/{path}": leaf.numpy()
+                           for path, leaf in _flat(tree)})
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg) if f.name != "dtype"}
+        jobs.append({"kind": "step", "name": name, "cfg": fields,
+                     "mesh": sizes, "optimizer": opt,
+                     "lr": 0.1 if opt == "sgd" else LR_ADAM,
+                     "steps": STEPS, "microbatches": mb, "params": prefix})
+    return arrays, params, jobs
 
 
 def _x(mesh_size=8):
@@ -272,10 +340,8 @@ def two_processes(tmp_path_factory):
     STEP_CASES, each op of the worker's OPS on both meshes of
     COLLECTIVE_MESHES, the hybrid mesh's sums and the refusals. The
     reference's collectives run while the workers do."""
-    params, tokens, targets = _inputs()
-    tree = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
-                              _port_cfg(CFG), device="cpu")
-    arrays = {f"params/{path}": leaf.numpy() for path, leaf in _flat(tree)}
+    _, tokens, targets = _inputs()
+    arrays, params, jobs = _step_jobs(STEP_CASES)
     arrays.update(tokens=tokens, targets=targets, x=_x())
     rng = np.random.default_rng(7)
     for mesh_name, sizes in COLLECTIVE_MESHES.items():
@@ -285,18 +351,21 @@ def two_processes(tmp_path_factory):
                 rng.integers(-8, 9, shape).astype(np.float32), 8))
     cfg = {f.name: getattr(CFG, f.name)
            for f in dataclasses.fields(CFG) if f.name != "dtype"}
-    jobs = [{"kind": "step", "name": name, "cfg": cfg, "mesh": sizes,
-             "optimizer": opt, "lr": 0.1 if opt == "sgd" else LR_ADAM,
-             "steps": STEPS, "microbatches": mb}
-            for name, (sizes, opt, mb) in STEP_CASES.items()]
     jobs += [{"kind": "collectives", "name": mesh_name, "mesh": sizes,
               "ops": list(worker.OPS)}
              for mesh_name, sizes in COLLECTIVE_MESHES.items()]
     arrays.update(_pipe_inputs())
     jobs += [{"kind": "pipeline", "name": "pipe", "mesh": PIPE_MESH}]
+    for op, shape in ATTN_SHAPES.items():
+        arrays.update({f"attn_{op}/{t}": a
+                       for t, a in zip("qkvw", _attn_inputs(shape))})
+    jobs += [{"kind": "attention", "name": op, "op": op, "mesh": ATTN_MESH}
+             for op in ATTN_SHAPES]
     jobs += [{"kind": "hybrid"},
              {"kind": "hybrid", "name": "hybrid_pp", "dcn": "pp",
               "cfg": cfg},
+             {"kind": "mesh", "name": "mesh_tp_across",
+              "mesh": dict(tp=PROCESSES * SHARDS_EACH)},
              {"kind": "refusals"}]
     workers = worker.start(jobs, tmp_path_factory.mktemp("dist"),
                            processes=PROCESSES, backend="gloo",
@@ -309,6 +378,8 @@ def two_processes(tmp_path_factory):
                for mesh_name, sizes in COLLECTIVE_MESHES.items()
                for op in worker.OPS}
         ref["pipe"] = _jax_pipeline(arrays)
+        for op in ATTN_SHAPES:
+            ref[op] = _jax_attention(op, arrays)
     finally:
         outs = workers.join()
     merged = {}
@@ -321,18 +392,10 @@ def two_processes(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four_processes(tmp_path_factory):
     """FOUR_STEP_CASES in four workers of 2 CPU shards each, over gloo:
-    dp and pp both cross processes."""
-    params, tokens, targets = _inputs()
-    tree = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
-                              _port_cfg(CFG), device="cpu")
-    arrays = {f"params/{path}": leaf.numpy() for path, leaf in _flat(tree)}
+    dp and pp both cross processes, or tp and sp both do."""
+    _, tokens, targets = _inputs()
+    arrays, params, jobs = _step_jobs(FOUR_STEP_CASES)
     arrays.update(tokens=tokens, targets=targets)
-    cfg = {f.name: getattr(CFG, f.name)
-           for f in dataclasses.fields(CFG) if f.name != "dtype"}
-    jobs = [{"kind": "step", "name": name, "cfg": cfg, "mesh": sizes,
-             "optimizer": opt, "lr": 0.1 if opt == "sgd" else LR_ADAM,
-             "steps": STEPS, "microbatches": mb}
-            for name, (sizes, opt, mb) in FOUR_STEP_CASES.items()]
     outs = worker.launch(jobs, tmp_path_factory.mktemp("dist4"),
                          processes=FOUR_PROCESSES, backend="gloo",
                          devices=["cpu"] * FOUR_SHARDS_EACH, arrays=arrays,
@@ -375,14 +438,41 @@ def _jax_pipeline(arrays):
     return np.asarray(val), np.asarray(gw), np.asarray(gx)
 
 
-def _reference_steps(sizes, opt, mb, params, tokens, targets):
-    step, _, _ = jm.make_spmd_train_step(CFG, _jmesh(**sizes), params,
+def _attn_inputs(shape):
+    """q, k, v and the weights w of sum(w * out), [B, H, S, D] f32."""
+    rng = np.random.default_rng(13)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in "qkvw"]
+
+
+def _jax_attention(op, arrays):
+    """The reference's ring attention or Ulysses under shard_map on its
+    sp-8 mesh: (value, jax.grad of sum(w * value) for q, k and v)."""
+    spec = P(None, None, "sp", None)
+    fn = jpar.ring_attention if op == "ring" else jpar.ulysses_attention
+    run = jax.shard_map(
+        lambda q, k, v: fn(q, k, v, axis_name="sp", causal=True),
+        mesh=_jmesh(**ATTN_MESH), in_specs=(spec,) * 3, out_specs=spec,
+        check_vma=False)
+    q, k, v, w = (jnp.asarray(arrays[f"attn_{op}/{t}"]) for t in "qkvw")
+    val = np.asarray(jax.jit(run)(q, k, v))
+    grads = jax.jit(jax.grad(lambda q, k, v: jnp.sum(run(q, k, v) * w),
+                             argnums=(0, 1, 2)))(q, k, v)
+    return val, [np.asarray(g) for g in grads]
+
+
+def _reference_steps(sizes, opt, mb, params, tokens, targets, cfg=CFG):
+    """The reference's steps, compiled afresh where sp > 1: a program
+    whose sp and ep meet, loaded from JAX's persistent cache inside a
+    pytest-xdist worker, aborts the worker (``_compiled_afresh``)."""
+    step, _, _ = jm.make_spmd_train_step(cfg, _jmesh(**sizes), params,
                                          optimizer=opt, n_microbatches=mb)
     state, losses = opt.init(params), []
-    for i in range(STEPS):
-        params, state, loss = step(params, state, jnp.asarray(tokens[i]),
-                                   jnp.asarray(targets[i]))
-        losses.append(float(loss))
+    with _compiled_afresh(sizes.get("sp", 1) > 1):
+        for i in range(STEPS):
+            params, state, loss = step(params, state,
+                                       jnp.asarray(tokens[i]),
+                                       jnp.asarray(targets[i]))
+            losses.append(float(loss))
     return params, losses
 
 
@@ -391,10 +481,12 @@ def _check_steps(r, name, case, each):
     over the whole batch on the 8-device mesh, and every shard's every
     leaf after two steps against the reference's buffer on the device at
     the same mesh coordinates."""
-    sizes, opt_name, mb = case
+    sizes, opt_name, mb = case[:3]
+    cfg = _case_cfg(case)
     opt = optax.sgd(0.1) if opt_name == "sgd" else optax.adamw(LR_ADAM)
-    p2, want = _reference_steps(sizes, opt, mb, r["params"], r["tokens"],
-                                r["targets"])
+    params = r["params"]["params_moe" if cfg is MOE else "params"]
+    p2, want = _reference_steps(sizes, opt, mb, params, r["tokens"],
+                                r["targets"], cfg)
     atol = PARAM_ATOL if opt_name == "sgd" else ADAM_ATOL
     for p, out in enumerate(r["outs"]):
         np.testing.assert_allclose(out[f"{name}/losses"], want,
@@ -426,7 +518,13 @@ def test_two_process_step_matches_reference(eight_device_mesh,
     buffer on the device at the same mesh coordinates. dp crosses the
     processes (dp 2), or is split inside them too (dp 4); dp2-pp2-tp2
     keeps its pipeline inside each process, and pp2-tp4 puts one stage
-    in each process, both of which feed the whole batch."""
+    in each process, both of which feed the whole batch. fsdp2-tp4 cuts
+    the batch over fsdp across the processes; tp2-sp4 puts the
+    row-parallel sums across them (each process feeds the whole batch,
+    sp cutting the sequence inside it); sp2-ep4, an MoE model, puts ring
+    attention's K/V hops across them, MoE's dispatch staying inside;
+    tp2-sp4-remat recomputes each layer, its tp sums across the
+    processes, inside the backward."""
     _check_steps(two_processes, name, STEP_CASES[name], SHARDS_EACH)
 
 
@@ -435,8 +533,12 @@ def test_four_process_step_matches_reference(eight_device_mesh,
                                              four_processes, name):
     """Four processes x 2 CPU shards, dp and pp both across processes:
     processes 0 and 1 hold dp block 0's two stages and feed its rows,
-    processes 2 and 3 dp block 1's; the losses and every shard's every
-    leaf equal the reference's, as for two processes."""
+    processes 2 and 3 dp block 1's; or, on the MoE model, tp and sp both
+    across processes (process 2 tp + sp, ep inside), all four feeding
+    the whole batch; or pp and tp both across them (a stage's tp sums in
+    its two processes alone, whose process groups the mesh's maker made
+    in all four). The losses and every shard's every leaf equal the
+    reference's, as for two processes."""
     _check_steps(four_processes, name, FOUR_STEP_CASES[name],
                  FOUR_SHARDS_EACH)
 
@@ -499,6 +601,41 @@ def test_cross_process_collective(eight_device_mesh, two_processes,
     np.testing.assert_array_equal(got_grad, one_grad)
 
 
+@pytest.mark.parametrize("op", list(ATTN_SHAPES))
+def test_attention_across_processes_matches_reference(eight_device_mesh,
+                                                      two_processes, op):
+    """Ring attention and Ulysses on sp 8, four sequence blocks in each
+    process: the ring's K/V hops and Ulysses' two all-to-alls cross the
+    processes. Every shard's output and the gradients of sum(w * out)
+    with respect to its q, k and v equal the reference's under shard_map
+    and jax.grad (f32: VAL_TOL and GRAD_TOL), and the one-process op
+    over 8 CPU shards."""
+    r = two_processes
+    val, grads = r["ref"][op]
+    got = {k: np.concatenate([r["merged"][f"{op}/{k}/{j}"]
+                              for j in range(8)], axis=2)
+           for k in ("out", "grad_q", "grad_k", "grad_v")}
+    np.testing.assert_allclose(got["out"], val, atol=VAL_TOL, rtol=0)
+    for t, g in zip("qkv", grads):
+        np.testing.assert_allclose(got[f"grad_{t}"], g, atol=GRAD_TOL,
+                                   rtol=0)
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**ATTN_MESH), devices=[CPU] * 8)
+    q, k, v, w = (r["arrays"][f"attn_{op}/{t}"] for t in "qkvw")
+    qs, ks, vs = ([torch.tensor(b, requires_grad=True)
+                   for b in np.split(a, 8, axis=2)] for a in (q, k, v))
+    fn = tpar.ring_attention if op == "ring" else tpar.ulysses_attention
+    outs = fn(qs, ks, vs, mesh=mesh, axis_name="sp", causal=True)
+    sum(torch.sum(o * torch.from_numpy(wj))
+        for o, wj in zip(outs, np.split(w, 8, axis=2))).backward()
+    np.testing.assert_allclose(
+        got["out"], torch.cat([o.detach() for o in outs], dim=2).numpy(),
+        atol=VAL_TOL, rtol=0)
+    for t, ts in zip("qkv", (qs, ks, vs)):
+        np.testing.assert_allclose(
+            got[f"grad_{t}"], torch.cat([x.grad for x in ts], dim=2).numpy(),
+            atol=GRAD_TOL, rtol=0)
+
+
 def test_hybrid_mesh_across_processes(two_processes):
     """``make_hybrid_mesh(dcn dp 2, ici tp 4)`` in two processes: dp is
     the process axis, and a sum over each tier gives every shard the
@@ -545,8 +682,9 @@ def test_hybrid_pp_mesh_across_processes(two_processes):
         np.testing.assert_array_equal(r["merged"][f"hybrid_pp/{j}"], total)
 
 
+# name -> what building the mesh raised in every process ("": nothing).
 REFUSALS = {
-    "mesh_tp_across": "ValueError: mesh axis 'tp' crosses processes",
+    "mesh_tp_across": "",
     "hybrid_dcn_size": "ValueError: the DCN tier {'dp': 8} spans 8 "
                        "processes, have 2",
     "hybrid_tp_dcn": "ValueError: axis 'tp' must not cross DCN",
@@ -555,14 +693,22 @@ REFUSALS = {
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_cross_process_refusals(two_processes, name):
-    """What does not cross processes yet raises in every process: a mesh
-    whose tp crosses processes (ROADMAP A.7: only dp and pp may), a DCN
-    tier that is not the processes, and an ICI axis on the DCN tier."""
-    for out in two_processes["outs"]:
+    """A mesh whose tp crosses processes builds in every process, as the
+    reference's ``make_mesh`` lays tp across hosts: tp 8, process-major,
+    so shards 0-3 are process 0's and 4-7 process 1's. The hybrid mesh
+    keeps the reference's refusals: a DCN tier that is not the processes,
+    and an ICI axis on the DCN tier, raise in every process."""
+    for p, out in enumerate(two_processes["outs"]):
+        if name == "mesh_tp_across":
+            assert out[f"{name}/processes"].reshape(-1).tolist() == \
+                [0] * 4 + [1] * 4
+            assert out[f"{name}/processes"].shape == (1, 1, 1, 8, 1, 1)
+            assert out[f"{name}/local_indices"].tolist() == list(
+                range(4 * p, 4 * p + 4))
+            assert bool(out[f"{name}/spans_processes"])
+            continue
         said = str(out[f"refusals/{name}"])
         assert said.startswith(REFUSALS[name]), said
-        if name == "mesh_tp_across":
-            assert "ROADMAP A.7" in said
 
 
 def test_workers_import_no_jax(two_processes):
@@ -583,3 +729,127 @@ def test_shard_host_local_refuses_rows_of_another_process():
                       ("dp", "tp"), np.array([[1], [0]]), process=0)
     with pytest.raises(ValueError, match="not among this process's rows"):
         shard_host_local(torch.zeros(2, 3), mesh, ("dp",))
+
+
+# ------------------------------------- the order of the backward's exchanges
+def _two_exchanges(monkeypatch, ordered):
+    """Two all-reduces across processes, A then B in the forward, with
+    ``dist.all_reduce`` recording the shape it is handed ([2] for A, [3]
+    for B) instead of exchanging. B's consumers are made on a second
+    thread, whose autograd sequence numbers start low, so the engine
+    reaches A's backward first, as it would where a second device's
+    thread finishes late. Returns the shapes the backward posted in
+    order, and the gradients of both inputs."""
+    posted = []
+    monkeypatch.setattr(cops.dist, "all_reduce",
+                        lambda t, op=None, group=None: posted.append(
+                            tuple(t.shape)))
+    x1 = torch.ones(2, requires_grad=True)
+    x2 = torch.ones(3, requires_grad=True)
+    with corder.backward_order():
+        if ordered:
+            a, = corder.ordered(cops._AllReduce, x1, None, "sum", None)
+            b, = corder.ordered(cops._AllReduce, x2, None, "sum", None)
+        else:
+            a = cops._AllReduce.apply(x1, None, "sum", None, None)[0]
+            b = cops._AllReduce.apply(x2, None, "sum", None, None)[0]
+    box = {}
+    later = threading.Thread(target=lambda: box.update(z=(b * 2).sum()))
+    later.start()
+    later.join()
+    del posted[:]
+    (a.sum() + box["z"]).backward()
+    return posted, x1.grad, x2.grad
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_backward_exchanges_posted_in_one_order(monkeypatch, ordered):
+    """Unchained, the engine posts A's backward before B's here, while a
+    process whose B is reached first would post B first: the hazard of
+    several devices in a process. Chained (``order.ordered``, what every
+    exchange across processes does), B's backward hands A's token a zero
+    cotangent, so A is not ready before B has run: the backward posts
+    B, then A, the reverse of the forward, whatever order autograd
+    reaches them in. The gradients are the same either way."""
+    posted, g1, g2 = _two_exchanges(monkeypatch, ordered)
+    assert posted == ([(3,), (2,)] if ordered else [(2,), (3,)])
+    np.testing.assert_array_equal(g1.numpy(), np.ones(2))
+    np.testing.assert_array_equal(g2.numpy(), np.full(3, 2.0))
+
+
+def test_backward_order_chain_lifetime(monkeypatch):
+    """A chain lives only in a scope: outside one an exchange joins none
+    and leaves nothing behind; ``backward_order`` links the block's
+    exchanges, gives a nested block a chain of its own and drops its
+    chain when the block ends; ``in_order`` (every op of
+    ``collective/ops.py``) joins the caller's chain, or opens one for the
+    call; under no_grad or on inputs that need no gradient an exchange
+    joins none. Two graphs made by calls outside any scope are not
+    linked: each backward posts its own graph's exchanges only."""
+    posted = []
+    monkeypatch.setattr(cops.dist, "all_reduce",
+                        lambda t, op=None, group=None: posted.append(
+                            tuple(t.shape)))
+    monkeypatch.setattr(corder, "_local", threading.local())
+
+    def exchange(n=2, requires_grad=True):
+        x = torch.ones(n, requires_grad=requires_grad)
+        return corder.ordered(cops._AllReduce, x, None, "sum", None)[0]
+
+    @corder.in_order
+    def call(n=2):
+        return exchange(n), corder._local.chain
+
+    exchange()
+    assert getattr(corder._local, "chain", None) is None
+    with corder.backward_order():
+        outer = corder._local.chain
+        exchange()
+        first = outer.last
+        assert first is not None
+        _, joined = call()
+        assert joined is outer and outer.last is not first
+        with corder.backward_order():
+            inner = corder._local.chain
+            exchange()
+            assert inner is not outer and inner.last is not None
+        assert corder._local.chain is outer
+        last = outer.last
+        with torch.no_grad():
+            exchange()
+        exchange(requires_grad=False)
+        assert outer.last is last
+    assert corder._local.chain is None
+    a, chain_a = call(2)
+    b, chain_b = call(3)
+    assert chain_a is not chain_b and corder._local.chain is None
+    del posted[:]
+    b.sum().backward()
+    assert posted == [(3,)]
+    a.sum().backward()
+    assert posted == [(3,), (2,)]
+
+
+@pytest.mark.parametrize("sizes,owners", [
+    ({"tp": 2, "sp": 2}, [0, 0, 1, 1]),
+    ({"dp": 2, "fsdp": 2}, [0, 0, 1, 1]),
+])
+def test_step_refuses_remat_across_processes_from_several_devices(
+        sizes, owners):
+    """``cfg.remat`` on a mesh that spans processes, where this process
+    drives two distinct devices, raises before any exchange: the
+    recompute's exchanges run inside the backward, outside any chain.
+    With one device a process the step takes ``remat``
+    (``tp2-sp4-remat-sgd`` above, on CPU shards)."""
+    shape = tuple(sizes.get(a, 1) for a in tmesh.AXES)
+    devices = [torch.device("cuda", i % 2) for i in range(4)]
+    mesh = tmesh.Mesh(np.array(devices, dtype=object).reshape(shape),
+                      tmesh.AXES, np.array(owners).reshape(shape), process=0)
+    cfg = tm.TransformerConfig(vocab_size=64, d_model=32, n_layers=2,
+                               n_heads=2, n_kv_heads=2, d_ff=64,
+                               max_seq_len=16, dtype=torch.float32,
+                               remat=True)
+    params = tm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="remat on a mesh that spans "
+                                         "processes needs one device"):
+        tm.make_spmd_train_step(cfg, mesh, params)

@@ -5,10 +5,12 @@ engine over the visible cards, and one step of the manual multi-axis
 training step at dp 2 x tp 2 over four cards. Across processes over
 NCCL (``parallel.distributed``, workers of
 ``torch_distributed_worker.py``): the flagship's step and the
-collectives with four processes of one card each (dp 4, and dp 2 x pp 2
-with the pipeline's stages in different processes) and with two
-processes of two cards each, against one process over the same four
-cards; and
+collectives with four processes of one card each (dp 4, dp 2 x pp 2
+with the pipeline's stages in different processes, and tp 4 with the
+row-parallel sums across them) and with two processes of two cards each
+(dp 2 x tp 2, and tp 2 x sp 2 with tp across the processes and autograd
+through the exchanges across them from a process of two cards), against
+one process over the same four cards; and
 two ``GPU: 2`` nodes of the autoscaler's provider on four cards.
 
 Every test is marked ``cuda`` and skips unless at least two cards are
@@ -172,9 +174,10 @@ def test_spmd_step_across_cards_equals_virtual_shards(cards):
 NCCL_STEPS, NCCL_BATCH, NCCL_LEN = 2, 4, 1024
 NCCL_TIMEOUT_S = 600.0
 LAYOUTS = {"4x1": (4, 1, dict(dp=4)), "2x2": (2, 2, dict(dp=2, tp=2)),
-           "pp2x2": (4, 1, dict(dp=2, pp=2))}
+           "pp2x2": (4, 1, dict(dp=2, pp=2)),
+           "tp4x1": (4, 1, dict(tp=4)), "tp2x2": (2, 2, dict(tp=2, sp=2))}
 # The step's microbatches: the pipeline's where pp > 1 (both sides alike).
-MICROBATCHES = {"4x1": 1, "2x2": 1, "pp2x2": 2}
+MICROBATCHES = {"4x1": 1, "2x2": 1, "pp2x2": 2, "tp4x1": 1, "tp2x2": 1}
 
 
 def _flagship_f32():
@@ -194,7 +197,11 @@ def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
     rows, the gradient sums across processes ordered by NCCL, so the
     losses agree to rtol 1e-5 and every shard's every leaf to rtol 1e-5,
     atol 1e-6. pp2x2 puts dp and pp both across the four processes (the
-    pipeline's hops over NCCL, two microbatches on both sides)."""
+    pipeline's hops over NCCL, two microbatches on both sides); tp4x1
+    puts the row-parallel sums across four processes (each feeding the
+    whole batch, its 2 heads through the flash kernels), and tp2x2 tp
+    across two processes of two cards each, sp inside each (ring
+    attention), autograd crossing the processes from two cards."""
     if len(cards) < 4:
         pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
     processes, each, sizes = LAYOUTS[layout]
@@ -239,15 +246,14 @@ def test_nccl_flagship_step_equals_one_process(cards, tmp_path, layout):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_nccl_collectives_equal_one_process(cards, tmp_path, layout):
     """Every op of the worker's OPS across processes over NCCL against
-    the one-process op over the same four cards: values, and with one
-    card a process the gradient of sum(w * out) (integers: exact). With
-    two cards a process, autograd through a collective across processes
-    is refused (its backward's order would follow each card's autograd
-    thread)."""
+    the one-process op over the same four cards: values and the gradient
+    of sum(w * out) (integers: exact), also with two cards a process,
+    where each card's autograd thread reaches the exchanges in an order
+    of its own and the chain of ``collective/ops.py`` posts them in the
+    forward's reverse."""
     if len(cards) < 4:
         pytest.skip(f"needs four CUDA cards, {len(cards)} visible")
     processes, each, sizes = LAYOUTS[layout]
-    grad = each == 1
     rng = np.random.default_rng(0)
     x = rng.integers(-8, 9, (4 * 4, 4)).astype(np.float32)
     mesh = make_mesh(MeshConfig(**sizes), devices=cards[:4])
@@ -266,7 +272,7 @@ def test_nccl_collectives_equal_one_process(cards, tmp_path, layout):
                      else t.grad.cpu().numpy()
                      for t, b in zip(xs, np.split(x, 4))])
     job = {"kind": "collectives", "name": layout, "mesh": sizes,
-           "ops": list(worker.OPS), "grad": grad}
+           "ops": list(worker.OPS)}
     outs = worker.launch([job], tmp_path, processes=processes,
                          backend="nccl",
                          local_device_ids=_nccl_ids(processes, each),
@@ -276,15 +282,8 @@ def test_nccl_collectives_equal_one_process(cards, tmp_path, layout):
         for j in range(4):
             np.testing.assert_array_equal(
                 merged[f"{layout}/{op}/out/{j}"], vals[j], err_msg=op)
-            if grad:
-                np.testing.assert_array_equal(
-                    merged[f"{layout}/{op}/grad/{j}"], grads[j],
-                    err_msg=op)
-    if not grad:
-        for out in outs:
-            assert str(out[f"{layout}/grad_refused"]).startswith(
-                "NotImplementedError: autograd through a collective "
-                "across processes with 2 devices")
+            np.testing.assert_array_equal(
+                merged[f"{layout}/{op}/grad/{j}"], grads[j], err_msg=op)
 
 
 @pytest.mark.cuda

@@ -15,33 +15,42 @@ in order and writes what each job read into ``spec["out"]`` (an
 Jobs (``kind``):
 
 - ``step``: ``make_spmd_train_step`` (``cfg``, f32 unless ``cfg`` names
-  a ``dtype``) on ``make_mesh(**mesh)`` over the tree ``params/<path>``
-  of the input (or ``init_params(cfg, init_seed)``), ``steps`` steps of
-  SGD, AdamW or the step's default optimizer (``"default"``) on this
-  process's rows (``host_local_batch_slice(..., mesh=mesh)``: the rows
-  of the (dp, fsdp) blocks its shards hold) of ``tokens[i]`` and
+  a ``dtype``) on ``make_mesh(**mesh)`` over the tree ``<params>/<path>``
+  of the input (``params`` names the prefix, default ``params``; or
+  ``init_params(cfg, init_seed)``), ``steps`` steps of SGD, AdamW or the
+  step's default optimizer (``"default"``) on this process's rows
+  (``host_local_batch_slice(..., mesh=mesh)``: the rows of the
+  (dp, fsdp) blocks its shards hold) of ``tokens[i]`` and
   ``targets[i]``; writes the losses, the seconds of each step (host
   clock, the devices synchronised), the seconds the step took to build,
   this process's flat indices and every local shard's every leaf. With
   ``counts``, also ``chip_smoke``'s kernel launch counts of the steps
   alone (zeroed just before them), as JSON.
 - ``allreduce``: ``iters`` timed all-reduces (after two untimed) of
-  ``elements`` f32 ones over the whole group on the first device;
-  writes the seconds of each and whether the result is exact.
+  ``elements`` of ``dtype`` (f32 unless named) over the whole group on
+  the first device; writes the seconds of each and whether the result
+  is exact.
 - ``collectives``: each op of ``OPS`` over this process's blocks of the
   input ``x`` (cut into one block per shard), then the gradient of
   sum(w * out) with ``w`` the input's ``w/<name>/<op>``; writes each
-  local shard's output and gradient. With ``grad`` false, the values
-  only, and what an allreduce under autograd raised.
+  local shard's output and gradient.
+- ``attention``: ring attention or Ulysses (``op``) over ``sp`` of
+  ``make_mesh(**mesh)`` on this process's sequence blocks of the input's
+  ``attn_<name>/q``, ``/k`` and ``/v`` ([B, H, S, D], cut along S by each
+  shard's sp index), then the gradient of sum(w * out) with ``w`` the
+  input's ``attn_<name>/w``; writes each local shard's output and the
+  gradients of its q, k and v.
 - ``hybrid``: ``make_hybrid_mesh(dcn <dcn> 2, ici tp n)`` (``dcn`` dp or
   pp) with a sum over each tier of ``x``'s blocks; given ``cfg``, what
   building the training step on that mesh raised (ROADMAP C.16).
+- ``mesh``: ``make_mesh(**mesh)``; writes its owners (``processes``),
+  this process's flat indices and whether it spans processes.
 - ``pipeline``: ``pipeline_spmd`` of ``pipeline_stage`` on
   ``make_mesh(**mesh)``, and its gradients (``_pipeline``); the process
   ``die_in`` names exits at its first stage call.
 - ``hop``: timed hops of one activation across processes (``_hop``).
-- ``refusals``: each mesh that still may not span processes; writes the
-  type and message of what each raised ("" if nothing).
+- ``refusals``: each hybrid mesh that may not be built; writes the type
+  and message of what each raised ("" if nothing).
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ from ray_tpu_torch.parallel import (
     make_hybrid_mesh,
     make_mesh,
     pipeline_spmd,
+    ring_attention,
+    ulysses_attention,
 )
 
 OPS = {
@@ -88,11 +99,11 @@ OPS = {
         xs, m, "tp", [(j, (j + 1) % m.shape["tp"])
                       for j in range(m.shape["tp"])]),
 }
-# The exchanges, over dp and over pp, each of which may cross processes:
+# The exchanges, over dp, pp and sp, each of which may cross processes:
 # the ring, a send from the axis's first shard to its last, and the
 # all-to-all (tiled; over pp also untiled, each block cut into as many
 # rows as the axis has shards).
-for _a in ("dp", "pp"):
+for _a in ("dp", "pp", "sp"):
     OPS.update({
         f"permute_{_a}": lambda xs, m, a=_a: tops.permute(
             xs, m, a, [(j, (j + 1) % m.shape[a])
@@ -145,7 +156,8 @@ def _step(job, arrays, devices, out):
     cfg = TransformerConfig(**fields)
     mesh = make_mesh(MeshConfig(**job["mesh"]), devices=devices)
     t0 = time.perf_counter()
-    params = (_tree(arrays, "params") if "init_seed" not in job
+    params = (_tree(arrays, job.get("params", "params"))
+              if "init_seed" not in job
               else init_params(cfg, job["init_seed"], device="cpu"))
     if job["optimizer"] == "sgd":
         make_opt = lambda ls: torch.optim.SGD(ls, lr=job["lr"])  # noqa: E731
@@ -187,7 +199,9 @@ def _step(job, arrays, devices, out):
 
 
 def _allreduce(job, arrays, devices, out):
-    x = torch.ones(job["elements"], dtype=torch.float32, device=devices[0])
+    x = torch.ones(job["elements"],
+                   dtype=getattr(torch, job.get("dtype", "float32")),
+                   device=devices[0])
     seconds = []
     for i in range(job["iters"] + 2):
         _sync(devices[:1])
@@ -198,32 +212,44 @@ def _allreduce(job, arrays, devices, out):
             seconds.append(time.perf_counter() - t0)
     want = float(distributed.process_count()) ** (job["iters"] + 2)
     out["allreduce/seconds"] = np.array(seconds)
-    out["allreduce/exact"] = np.array(bool((x == want).all()))
+    out["allreduce/exact"] = np.array(bool((x.float() == want).all()))
 
 
 def _collectives(job, arrays, devices, out):
     name = job["name"]
     mesh = make_mesh(MeshConfig(**job["mesh"]), devices=devices)
     blocks = np.split(np.array(arrays["x"]), mesh.size)
-    grad = job.get("grad", True)
     for op in job["ops"]:
-        xs = [torch.tensor(blocks[j], device=d, requires_grad=grad)
+        xs = [torch.tensor(blocks[j], device=d, requires_grad=True)
               for j, d in zip(mesh.local_indices, mesh.local_devices)]
         outs = OPS[op](xs, mesh)
         ws = np.array(arrays[f"w/{name}/{op}"])
-        if grad:
-            sum(torch.sum(o * torch.from_numpy(ws[j]).to(o.device))
-                for j, o in zip(mesh.local_indices, outs)).backward()
+        sum(torch.sum(o * torch.from_numpy(ws[j]).to(o.device)).to(
+            devices[0]) for j, o in zip(mesh.local_indices, outs)).backward()
         for j, o, x in zip(mesh.local_indices, outs, xs):
             out[f"{name}/{op}/out/{j}"] = o.detach().cpu().numpy()
             out[f"{name}/{op}/grad/{j}"] = (
                 np.zeros(x.shape, np.float32) if x.grad is None
                 else x.grad.cpu().numpy())
-    if not grad:
-        xs = [torch.tensor(blocks[j], device=d, requires_grad=True)
-              for j, d in zip(mesh.local_indices, mesh.local_devices)]
-        out[f"{name}/grad_refused"] = np.array(_raised(
-            lambda: tops.allreduce(xs, mesh, "dp")))
+
+
+def _attention(job, arrays, devices, out):
+    name, op = job["name"], job["op"]
+    mesh = make_mesh(MeshConfig(**job["mesh"]), devices=devices)
+    n = mesh.shape["sp"]
+    q, k, v, w = (np.split(np.array(arrays[f"attn_{name}/{t}"]), n, axis=2)
+                  for t in "qkvw")
+    local = list(zip(tops.axis_indices(mesh, "sp"), mesh.local_devices))
+    qs, ks, vs = ([torch.tensor(a[i], device=d, requires_grad=True)
+                   for i, d in local] for a in (q, k, v))
+    fn = ring_attention if op == "ring" else ulysses_attention
+    outs = fn(qs, ks, vs, mesh=mesh, axis_name="sp", causal=True)
+    sum(torch.sum(o * torch.from_numpy(w[i]).to(o.device)).to(devices[0])
+        for (i, _), o in zip(local, outs)).backward()
+    for j, o, *ts in zip(mesh.local_indices, outs, qs, ks, vs):
+        out[f"{name}/out/{j}"] = o.detach().cpu().numpy()
+        for t, g in zip("qkv", ts):
+            out[f"{name}/grad_{t}/{j}"] = g.grad.cpu().numpy()
 
 
 def _hybrid(job, arrays, devices, out):
@@ -311,11 +337,16 @@ def _raised(fn) -> str:
     return ""
 
 
+def _mesh(job, arrays, devices, out):
+    mesh = make_mesh(MeshConfig(**job["mesh"]), devices=devices)
+    out[f"{job['name']}/processes"] = mesh.processes
+    out[f"{job['name']}/local_indices"] = np.array(mesh.local_indices)
+    out[f"{job['name']}/spans_processes"] = np.array(mesh.spans_processes)
+
+
 def _refusals(job, arrays, devices, out):
     n = len(devices) * distributed.process_count()
     cases = {
-        "mesh_tp_across": lambda: make_mesh(MeshConfig(dp=1, tp=n),
-                                            devices=devices),
         "hybrid_dcn_size": lambda: make_hybrid_mesh(HybridMeshConfig(
             dcn={"dp": n}, ici={"tp": 1}), devices=devices),
         "hybrid_tp_dcn": lambda: make_hybrid_mesh(HybridMeshConfig(
@@ -326,8 +357,9 @@ def _refusals(job, arrays, devices, out):
 
 
 JOBS = {"step": _step, "allreduce": _allreduce,
-        "collectives": _collectives, "hybrid": _hybrid,
-        "pipeline": _pipeline, "hop": _hop, "refusals": _refusals}
+        "collectives": _collectives, "attention": _attention,
+        "hybrid": _hybrid, "mesh": _mesh, "pipeline": _pipeline,
+        "hop": _hop, "refusals": _refusals}
 
 
 def _free_port() -> int:
